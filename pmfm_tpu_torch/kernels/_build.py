@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/fused_eval.cu`` has a plain C interface and includes no PyTorch
+header, so one ``nvcc`` call compiles it in seconds into a shared library,
+which ``ctypes`` loads. The library goes to ``build/pmfm_tpu_torch/`` at the
+root of the checkout, under a name that carries a hash of the source, so an
+edited source is rebuilt and a current one is reused. Nothing here runs at
+import: the first launch builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCE = CSRC / "fused_eval.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pmfm_tpu_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+MAX_D = 16  # parameters per candidate (fm8_series); must match csrc
+
+
+class SynthParams(ctypes.Structure):
+    """Mirror of ``struct SynthParams`` in csrc/fused_eval.cu."""
+
+    _fields_ = [
+        ("sin_c", ctypes.c_float * 5),
+        ("sin_c63", ctypes.c_float * 5),
+        ("ncoef", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("k", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("kn", ctypes.c_int),
+        ("fm2", ctypes.c_int),
+        ("inv_sr", ctypes.c_float),
+        ("dft_scale", ctypes.c_float),
+    ]
+
+
+class MutateParams(ctypes.Structure):
+    """Mirror of ``struct MutateParams`` in csrc/fused_eval.cu."""
+
+    _fields_ = [
+        ("mu", ctypes.c_int),
+        ("clamp", ctypes.c_int),
+        ("alpha", ctypes.c_float),
+        ("inv_alpha", ctypes.c_float),
+        ("ekb_alpha", ctypes.c_float),
+        ("ekb_inv_alpha", ctypes.c_float),
+        ("beta_scale", ctypes.c_float),
+        ("root_two_over_pi", ctypes.c_float),
+        ("min_step", ctypes.c_float),
+        ("mins", ctypes.c_float * MAX_D),
+        ("ranges", ctypes.c_float * MAX_D),
+    ]
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the PATH,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on the PATH")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libpmfm_fused_{digest}.so"
+
+
+def build() -> dict:
+    """Compile the kernels unless a library of the current source exists.
+
+    Returns ``{"path", "seconds", "log", "built"}``; ``log`` holds nvcc's
+    ``-Xptxas -v`` report (registers, shared memory, spills per kernel).
+    Raises ``RuntimeError`` with the compiler's output if nvcc fails.
+    """
+    out = library_path()
+    if out.exists():
+        return {"path": str(out), "seconds": 0.0, "log": "", "built": False}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [
+        nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees no half-written file
+    return {"path": str(out), "seconds": seconds, "log": log, "built": True}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use, with every launcher's
+    ``argtypes`` set (``c_void_p`` for each pointer and the stream, so no
+    pointer is cut to 32 bits)."""
+    lib = ctypes.CDLL(build()["path"])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.pmfm_fused_synth_fitness.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp]
+    lib.pmfm_fused_synth_fitness.restype = ci
+    lib.pmfm_fused_generation.argtypes = [
+        ctypes.c_uint32, vp, vp, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
+    ]
+    lib.pmfm_fused_generation.restype = ci
+    lib.pmfm_error_string.argtypes = [ci]
+    lib.pmfm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if err != 0:
+        msg = library().pmfm_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

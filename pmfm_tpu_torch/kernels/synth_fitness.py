@@ -1,0 +1,332 @@
+"""B1: fused FM synthesis + folded int8 DFT + spectral fitness.
+
+Replaces ``pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness`` (the
+Pallas kernel ``_kernel`` over ``_evaluate_block``, ``_make_block_synth``,
+``_dft_uv`` and ``_fit_epilogue``). The CUDA kernel is
+``fused_synth_fitness_kernel`` in ``csrc/fused_eval.cu``; its note says what
+bounds it on an H100 and how the design meets that. ``fused_synth_fitness_plain``
+here is its plain PyTorch version, which the wrapper runs for CPU tensors.
+
+The numerics carried over from the TPU kernel:
+
+* turns-domain phases (phase / wavetable size) in blocks of C = 128 samples,
+  with the block's phase offsets carried through ``frac``; within a block the
+  exclusive prefix sum is a running f32 sum in sample order (the semantics of
+  the TPU kernel's ``_tri_strict`` matmul, in another summation order);
+* the oscillator is an odd polynomial in turns (``_sin_turn_coeffs``), and
+  the output oscillator emits ``63 * sin`` so that ``q = round(out)`` is int8;
+* the fold ``a+/-[n] = q[n] +- q[N-n]`` (``a+/-[0] = q[0]``) and the edge
+  sample ``x[N/2]`` entering as ``127 * (-1)^k * q[N/2]``;
+* two (K, N/2) contractions against ``dft_packed``, exact in int32;
+* ``mag = sqrt(u^2 + v^2) * |amp| * dft_packed_scale`` with ``amp`` the last
+  operator's ``freq * index``; fitness = ``sum_k (mag - target)^2``.
+
+The Mosaic workarounds (one-hot gathers and reversal matmuls, the (D, P)
+transposed layout, 128-lane pop blocks, VMEM gates) do not carry over.
+This slice covers the int8 engine (``dft_scale > 0``) for ``fm2`` and
+``fm{k}_series`` (k <= 8) at one frame; the other variants raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..device import exact_f32_matmul
+from ..ops.synthesis import parallel_pairs, series_ops, topology_dims
+from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
+
+DEFAULT_POP_BLOCK = 512
+TIME_BLOCK = 128
+MAX_SERIES_OPS = 8  # csrc MAX_KN
+CUDA_BLOCK = 64  # csrc TPB: candidates per CUDA block
+MAX_SHARED_BYTES = 232448  # shared memory one block of an H100 can use
+
+
+def resolve_pop_block(pop: int, pop_block: int) -> int:
+    """Clamp ``pop_block`` to the population, then halve until it divides it.
+    The plain versions process the population in blocks of this size."""
+    pb = min(pop_block, pop)
+    while pop % pb:
+        pb //= 2
+    return pb
+
+
+@functools.lru_cache(maxsize=None)
+def _sin_turn_coeffs(order: int = 9) -> tuple:
+    """Odd-power coefficients (c1, c3, ..., c_order) of sin(2*pi*w) on
+    w in [-0.5, 0.5], least-squares on Chebyshev nodes (the reference's fit,
+    copied; the kernels take these values as arguments)."""
+    w = 0.5 * np.cos(np.pi * (np.arange(2000) + 0.5) / 2000)
+    target = np.sin(2 * np.pi * w)
+    A = np.stack([w**j for j in range(1, order + 1, 2)], axis=1)
+    coef, *_ = np.linalg.lstsq(A, target, rcond=None)
+    return tuple(coef.astype(np.float32).tolist())
+
+
+def sin_coeffs(order: int, scale: float = 1.0) -> tuple:
+    """float32 coefficients of ``scale * sin(2*pi*w)``: the scale is folded
+    into each coefficient in float64 and rounded once, as the TPU kernel's
+    ``_sin_turns`` does."""
+    return tuple(float(np.float32(v * scale)) for v in _sin_turn_coeffs(order))
+
+
+def _sin_turns(x: torch.Tensor, cs: tuple) -> torch.Tensor:
+    """``sum_j cs[j] w^(2j+1)`` for ``w = x - floor(x + 0.5)``, Horner in w^2."""
+    w = x - torch.floor(x + 0.5)
+    w2 = w * w
+    acc = cs[-2] + w2 * cs[-1]
+    for cj in reversed(cs[:-2]):
+        acc = cj + w2 * acc
+    return w * acc
+
+
+def _frac(x: torch.Tensor) -> torch.Tensor:
+    return x - torch.floor(x)
+
+
+def inv_sample_rate(wavetable_size: int, sample_rate: int) -> float:
+    """``1 / sample_rate`` as the reference forms it: (wts/sr)/wts in float64,
+    rounded to float32."""
+    w2sr = wavetable_size / float(sample_rate)
+    return float(np.float32(w2sr / float(wavetable_size)))
+
+
+def check_supported(topology: str, dft_scale: float, num_frames: int) -> None:
+    """Raise ``NotImplementedError`` for a variant this slice does not port."""
+    if dft_scale <= 0.0:
+        raise NotImplementedError(
+            "bf16 / true-f32 fused engines are not ported yet (int8 engine only)"
+        )
+    if num_frames != 1:
+        raise NotImplementedError(
+            f"multi-frame STFT fitness (num_frames={num_frames}) is not ported yet"
+        )
+    if parallel_pairs(topology):
+        raise NotImplementedError(f"{topology}: fm{{k}}_parallel is not ported yet")
+    kn = series_ops(topology)
+    if topology != "fm2" and (kn is None or kn > MAX_SERIES_OPS):
+        raise NotImplementedError(f"{topology}: only fm2 and fm3..fm8_series are ported")
+
+
+def _chain_rows(p: torch.Tensor, topology: str, inv_sr: float):
+    """(inc1, ims, ics, amp) per candidate from scaled params ``p`` (D, P):
+    the chain's constants of ``_make_block_synth``. fm2 is a chain of two."""
+    if topology == "fm2":
+        return (
+            _frac(inv_sr * p[0]), [inv_sr * (p[0] * p[1])], [inv_sr * p[2]], p[3],
+        )
+    kn = series_ops(topology)
+    ims = [inv_sr * (p[2 * j] * p[2 * j + 1]) for j in range(kn - 1)]
+    ics = [inv_sr * p[2 * j + 3] for j in range(kn - 1)]
+    return _frac(inv_sr * p[1]), ims, ics, p[2 * kn - 2] * p[2 * kn - 1]
+
+
+def _exclusive_prefix(x: torch.Tensor):
+    """Exclusive prefix sum over axis 0 and the total, summed in sample order
+    in float32 (the CUDA kernel's running sum)."""
+    pre = torch.empty_like(x)
+    acc = torch.zeros_like(x[0])
+    for t in range(x.shape[0]):
+        pre[t] = acc
+        acc = acc + x[t]
+    return pre, acc
+
+
+def synth_int8_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float, sine_order: int):
+    """Turns-domain synthesis of scaled params ``p`` (P, D) into int8 audio
+    ``q`` (N, P) = round(63 * unit audio), and the output amplitude (P,)."""
+    rows = p.T.to(torch.float32)
+    inc1, ims, ics, amp = _chain_rows(rows, topology, inv_sr)
+    cs, cs63 = sin_coeffs(sine_order), sin_coeffs(sine_order, 63.0)
+    inc_blk = _frac(float(TIME_BLOCK) * inc1)
+    t_block = torch.arange(TIME_BLOCK, dtype=torch.float32, device=p.device)[:, None]
+    offs = [torch.zeros_like(inc1) for _ in range(len(ims) + 1)]
+    q = torch.empty((n, p.shape[0]), dtype=torch.int8, device=p.device)
+    for b in range(n // TIME_BLOCK):
+        pos = t_block * inc1 + offs[0]
+        for j in range(len(ims)):
+            x = _sin_turns(pos, cs) * ims[j] + ics[j]
+            pre, tot = _exclusive_prefix(x)
+            pos = pre + offs[j + 1]
+            offs[j + 1] = _frac(offs[j + 1] + tot)
+        q[b * TIME_BLOCK : (b + 1) * TIME_BLOCK] = torch.round(_sin_turns(pos, cs63)).to(torch.int8)
+        offs[0] = _frac(offs[0] + inc_blk)
+    return q, amp
+
+
+def fold(q: torch.Tensor):
+    """int8 audio (N, P) -> folded ``a+, a-`` (N/2, P) int32 and the edge
+    sample ``q[N/2]`` (P,)."""
+    half = q.shape[0] // 2
+    qi = q.to(torch.int32)
+    rev = qi[half + 1 :].flip(0)  # q[N-r] for r = 1 .. N/2-1
+    a_plus = qi[:half].clone()
+    a_minus = qi[:half].clone()
+    a_plus[1:] += rev
+    a_minus[1:] -= rev
+    return a_plus, a_minus, qi[half]
+
+
+def dft_fitness_plain(a_plus, a_minus, edge_q, amp, dft_packed, dft_scale, target):
+    """Folded DFT, magnitudes and L2 fitness (``_dft_uv`` + ``_fit_epilogue``).
+    The float32 products of integers stay below 2^24, so with TF32 off the
+    contraction is exact."""
+    k = dft_packed.shape[0] // 2
+    op = dft_packed.to(torch.float32)
+    with exact_f32_matmul():
+        u = op[:k] @ a_plus.to(torch.float32)
+        v = op[k:] @ a_minus.to(torch.float32)
+    ec = torch.where(
+        torch.arange(k, device=u.device) % 2 == 0, 127.0, -127.0
+    ).to(torch.float32)[:, None]
+    u = u + ec * edge_q.to(torch.float32)[None, :]
+    mag = torch.sqrt(u * u + v * v) * (torch.abs(amp) * float(np.float32(dft_scale)))[None, :]
+    d = mag - target.to(torch.float32)[:, None]
+    return torch.sum(d * d, dim=0)
+
+
+def _evaluate_plain(params_scaled, dft_packed, target, *, topology, n, inv_sr, dft_scale,
+                    sine_order, pop_block):
+    """Plain PyTorch version of the B1 kernel: fitness (P,) of scaled params
+    (P, D), one block of ``resolve_pop_block`` candidates at a time."""
+    pop = params_scaled.shape[0]
+    pb = resolve_pop_block(pop, pop_block)
+    out = torch.empty((pop,), dtype=torch.float32, device=params_scaled.device)
+    for i in range(0, pop, pb):
+        q, amp = synth_int8_plain(
+            params_scaled[i : i + pb], topology=topology, n=n, inv_sr=inv_sr,
+            sine_order=sine_order,
+        )
+        ap, am, edge = fold(q)
+        out[i : i + pb] = dft_fitness_plain(ap, am, edge, amp, dft_packed, dft_scale, target)
+    return out
+
+
+def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
+    """The kernels' ``SynthParams`` argument."""
+    from ._build import SynthParams
+
+    sp = SynthParams()
+    cs, cs63 = sin_coeffs(sine_order), sin_coeffs(sine_order, 63.0)
+    sp.sin_c[: len(cs)] = cs
+    sp.sin_c63[: len(cs63)] = cs63
+    sp.ncoef = len(cs)
+    sp.n, sp.k, sp.d = n, k, d
+    sp.kn = 2 if topology == "fm2" else series_ops(topology)
+    sp.fm2 = int(topology == "fm2")
+    sp.inv_sr = inv_sr
+    sp.dft_scale = dft_scale
+    return sp
+
+
+def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.Tensor) -> None:
+    """Raise on operands the CUDA kernels do not take."""
+    if n % (2 * TIME_BLOCK):
+        raise ValueError(f"n={n} must be a multiple of {2 * TIME_BLOCK} (the fold pairs blocks)")
+    if n * CUDA_BLOCK > MAX_SHARED_BYTES:
+        raise NotImplementedError(
+            f"n={n}: the folded audio of {CUDA_BLOCK} candidates exceeds shared memory "
+            f"(the large-frame route, B3, is not ported yet)"
+        )
+    if k % 8:
+        raise ValueError(f"num_bins={k} must be a multiple of 8")
+    if dft_packed.dtype != torch.int8 or tuple(dft_packed.shape) != (2 * k, n // 2):
+        raise ValueError(
+            f"need the int8 folded operand (2K, N/2) = {(2 * k, n // 2)}, got "
+            f"{tuple(dft_packed.shape)} {dft_packed.dtype}"
+        )
+    if not dft_packed.is_contiguous() or dft_packed.data_ptr() % 16:
+        raise ValueError("dft_packed must be contiguous and 16-byte aligned")
+    if target.dtype != torch.float32 or tuple(target.shape) != (k,) or not target.is_contiguous():
+        raise ValueError(f"target must be a contiguous float32 ({k},) tensor")
+
+
+def _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n, num_frames):
+    check_supported(topology, dft_scale, num_frames)
+    d = params_scaled.shape[1]
+    if d != topology_dims(topology):
+        raise ValueError(f"{topology} needs {topology_dims(topology)} params, got {d}")
+    k = dft_packed.shape[0] // 2
+    check_kernel_shapes(n, k, dft_packed, target_spectrum)
+    for t in (dft_packed, target_spectrum):
+        if t.device != params_scaled.device:
+            raise ValueError(f"operands must be on {params_scaled.device}, got {t.device}")
+    return k
+
+
+def fused_synth_fitness_plain(
+    params_scaled: torch.Tensor,
+    target_spectrum: torch.Tensor,
+    *,
+    dft_packed: torch.Tensor,
+    dft_scale: float,
+    topology: str = "fm3_series",
+    n: int = 1024,
+    wavetable_size: int = DEFAULT_WAVETABLE_SIZE,
+    sample_rate: int = DEFAULT_SAMPLE_RATE,
+    pop_block: int = DEFAULT_POP_BLOCK,
+    num_frames: int = 1,
+    sine_order: int = 9,
+) -> torch.Tensor:
+    """The plain PyTorch version of ``fused_synth_fitness``, on any device."""
+    _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n, num_frames)
+    return _evaluate_plain(
+        params_scaled.to(torch.float32), dft_packed, target_spectrum, topology=topology, n=n,
+        inv_sr=inv_sample_rate(wavetable_size, sample_rate), dft_scale=dft_scale,
+        sine_order=sine_order, pop_block=pop_block,
+    )
+
+
+def fused_synth_fitness(
+    params_scaled: torch.Tensor,
+    target_spectrum: torch.Tensor,
+    *,
+    dft_packed: torch.Tensor,
+    dft_scale: float,
+    topology: str = "fm3_series",
+    n: int = 1024,
+    wavetable_size: int = DEFAULT_WAVETABLE_SIZE,
+    sample_rate: int = DEFAULT_SAMPLE_RATE,
+    pop_block: int = DEFAULT_POP_BLOCK,
+    num_frames: int = 1,
+    sine_order: int = 9,
+) -> torch.Tensor:
+    """Fitness ``(P,)`` float32 of scaled candidates ``(P, D)``.
+
+    ``dft_packed`` is ``SpectrumOps.dft_packed`` (int8, (2K, N/2)) and
+    ``dft_scale`` its ``dft_packed_scale``. On CUDA tensors this launches the
+    B1 kernel (counted in ``fused_synth_fitness.launches``); on CPU tensors it
+    runs the plain version. ``pop_block`` sizes the plain version's blocks.
+    """
+    dev = params_scaled.device
+    if dev.type == "cpu":
+        return fused_synth_fitness_plain(
+            params_scaled, target_spectrum, dft_packed=dft_packed, dft_scale=dft_scale,
+            topology=topology, n=n, wavetable_size=wavetable_size, sample_rate=sample_rate,
+            pop_block=pop_block, num_frames=num_frames, sine_order=sine_order,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    k = _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n, num_frames)
+    from ._build import check, library
+
+    params = params_scaled.to(torch.float32).contiguous()
+    pop, d = params.shape
+    fitness = torch.empty((pop,), dtype=torch.float32, device=dev)
+    sp = synth_params_struct(
+        topology=topology, n=n, k=k, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
+        dft_scale=dft_scale, sine_order=sine_order,
+    )
+    err = library().pmfm_fused_synth_fitness(
+        params.data_ptr(), pop, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
+        fitness.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(err, "fused_synth_fitness")
+    fused_synth_fitness.launches += 1
+    return fitness
+
+
+fused_synth_fitness.launches = 0

@@ -1,0 +1,88 @@
+"""Card-only tests of the port's CUDA kernels: each kernel against its plain
+PyTorch version on the same CUDA tensors, and the ES loop through them.
+
+Run on a machine with a GPU:  python -m pytest tests/test_torch_gpu.py -m gpu
+Without a card every test here skips; whether there is one is decided
+inside the ``cuda`` fixture, never at import, so every pytest-xdist worker
+collects the same tests.
+"""
+import numpy as np
+import pytest
+import torch
+
+from pmfm_tpu_torch.es import ESConfig, evolve, init_state, kernel_seed, make_spectrum_ops
+from pmfm_tpu_torch.kernels import generation as gn
+from pmfm_tpu_torch.kernels import synth_fitness as sf
+from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+pytestmark = pytest.mark.gpu
+
+# kernel vs plain version: the same int8 audio and exact int32 sums; only
+# the float32 sum over bins is ordered differently (see chip_smoke.py)
+FIT_MAX_REL, FIT_MEDIAN_REL = 1e-3, 1e-5
+STEP_MAX_REL = 1e-6
+TRUTH = (3078.0, 2.0, 3015.0, 1.5, 3141.0, 1.0, 2500.0, 1.2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _setup(dev, topology="fm3_series", n=1024, pop=4096):
+    d = topology_dims(topology)
+    cfg = ESConfig(num_parents=64, num_offspring=pop - 64, num_dimensions=d, topology=topology,
+                   param_mins=(0.0,) * d, param_maxs=(3520.0, 8.0) * (d // 2),
+                   audio_length_log2=int(np.log2(n)), dft_dtype="int8", sine_order=7,
+                   fused_generation=True, pop_block=pop)
+    so = make_spectrum_ops(cfg, device=dev)
+    tgt = target_spectrum(synthesize_single(torch.tensor(TRUTH[:d]), n, topology).to(dev), so)
+    return cfg, so, tgt
+
+
+@pytest.mark.parametrize("topology,n", [("fm3_series", 1024), ("fm2", 256), ("fm4_series", 2048)])
+def test_b1_kernel_matches_plain(cuda, topology, n):
+    cfg, so, tgt = _setup(cuda, topology, n)
+    rng = np.random.default_rng(0)
+    p = torch.from_numpy((rng.random((cfg.population_size, cfg.num_dimensions)) *
+                          np.asarray(cfg.param_maxs)).astype(np.float32)).to(cuda)
+    kw = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology, n=n,
+              pop_block=cfg.population_size, sine_order=7)
+    before = sf.fused_synth_fitness.launches
+    got = sf.fused_synth_fitness(p, tgt, **kw)
+    assert sf.fused_synth_fitness.launches == before + 1
+    ref = sf.fused_synth_fitness_plain(p, tgt, **kw)
+    rel = (got - ref).abs() / ref.abs()
+    assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+
+
+def test_b2_kernel_matches_plain(cuda):
+    cfg, so, tgt = _setup(cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    pv = torch.rand((64, 6), generator=g, device=cuda)
+    ps = torch.rand((64, 6), generator=g, device=cuda) * 0.3  # fm3_series
+    kw = dict(pop=cfg.population_size, param_mins=cfg.param_mins, param_maxs=cfg.param_maxs,
+              dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, n=1024,
+              pop_block=cfg.population_size, sine_order=7, min_step=1e-4)
+    seed = kernel_seed(42, 3)
+    fk, vk, sk = gn.fused_generation(seed, pv, ps, tgt, **kw)
+    fp, vp, sp = gn.fused_generation_plain(seed, pv, ps, tgt, **kw)
+    assert torch.equal(vk, vp)
+    assert float(((sk - sp).abs() / sp.abs()).max()) <= STEP_MAX_REL
+    rel = (fk - fp).abs() / fp.abs()
+    assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+
+
+@pytest.mark.parametrize("fused_generation", [True, False])
+def test_evolve_runs_through_the_kernels(cuda, fused_generation):
+    cfg, so, tgt = _setup(cuda)
+    cfg = cfg.replace(fused_generation=fused_generation, fused_kernel=True)
+    counter = gn.fused_generation if fused_generation else sf.fused_synth_fitness
+    before = counter.launches
+    final, traj = evolve(init_state(0, cfg, device=cuda), tgt, 20, so, cfg, record_trajectory=True)
+    assert counter.launches - before == 20
+    assert torch.isfinite(traj).all() and float(traj[-1]) < float(traj[0])
+    assert final.parent_values.device.type == "cuda"
