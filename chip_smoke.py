@@ -2,12 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels with nvcc, holds each kernel against its plain
-PyTorch version at the bench shapes (population 2^15, mu 256, fm3_series,
-n 1024, K 512, int8 folded DFT, sine order 7), drives the bench ES through
-``pmfm_tpu_torch.es.pipeline.evolve`` under fused_generation (kernel B2) and
-fused_kernel (kernel B1), and times each kernel. One flushed line per phase;
-every time is printed beside the card's name and power limit.
+Builds the port's CUDA kernels with one nvcc call, holds each kernel against
+its plain PyTorch version at the shapes its path gives it, drives each path
+through the entry points a user calls, and times each kernel:
+
+* phases 3-6, the bench ES (population 2^15, mu 256, fm3_series, n 1024,
+  K 512, int8 folded DFT, sine order 7) through ``evolve`` under
+  fused_generation (kernel B2) and fused_kernel (kernel B1);
+* phases 7-11, the large-frame paths: B3 (synth_fold) and B4 (synth_stream)
+  against their plain versions, ``evolve`` at n 8192 (pop 2^15, B3 + the
+  folded int8 DFT) and at n 65536 (pop 2^13, B4 + the factored DFT),
+  ``match_audio`` over ``input_audio/input.wav`` at n 8192 with the refine
+  tail, and the kernels' and spectra's times.
+
+One flushed line per phase; every time is printed beside the card's name and
+power limit.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``, printed only when every phase
@@ -33,6 +42,12 @@ GENERATIONS = 200
 TIMED_LAUNCHES = 25
 PLAIN_RUNS = 3
 SEED = 20261017
+# the large-frame cells: the reference's chunk-size rows (bench_suite.py)
+FOLD_LOG2N, FOLD_POP, FOLD_GENERATIONS = 13, 1 << 15, 30  # (c) synth_fold, B3
+STREAM_LOG2N, STREAM_POP, STREAM_GENERATIONS = 16, 1 << 13, 10  # (d) synth_stream, B4
+MATCH_CONFIG, MATCH_LOG2N = "examples/audio_match.json", 13  # (e) match_audio
+MATCH_GENERATIONS, MATCH_REFINE = 40, 10
+KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -83,6 +98,15 @@ def cuda_ms(fn, runs: int) -> float:
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return (x - ref).abs() / ref.abs().clamp_min(1e-30)
+
+
+def match_config():
+    """The match_audio phase's run config and ESConfig: MATCH_CONFIG at
+    MATCH_LOG2N with a MATCH_REFINE-generation refine tail."""
+    from pmfm_tpu_torch.io import load_config
+
+    rc = load_config(MATCH_CONFIG)
+    return rc, rc.es.replace(audio_length_log2=MATCH_LOG2N, refine_generations=MATCH_REFINE)
 
 
 def synth_ops_f32(pop: int, n: int, k: int, kn: int, ncoef: int) -> float:
@@ -338,11 +362,315 @@ class Smoke:
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
             )
 
+    # -- large frames: shared inputs -------------------------------------------
+    @staticmethod
+    def counters():
+        from pmfm_tpu_torch import kernels
+
+        return {name: getattr(kernels, name) for name in KERNELS}
+
+    def reset_counts(self):
+        for fn in self.counters().values():
+            fn.launches = 0
+
+    def read_counts(self):
+        return {name: fn.launches for name, fn in self.counters().items()}
+
+    def large_setup(self):
+        from pmfm_tpu_torch.es import make_spectrum_ops
+        from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+
+        self.cells, self.cell_ms = {}, {}
+        rng = np.random.default_rng(SEED + 1)
+        for key, log2n, pop in (("fold", FOLD_LOG2N, FOLD_POP), ("stream", STREAM_LOG2N, STREAM_POP)):
+            cfg = self.cfg.replace(audio_length_log2=log2n, num_offspring=pop - MU)
+            t0 = time.perf_counter()
+            so = make_spectrum_ops(cfg, device=self.dev)
+            audio = synthesize_single(torch.tensor(TRUTH), cfg.n_samples, TOPOLOGY,
+                                      engine="scanless")
+            target = target_spectrum(audio.to(self.dev), so)
+            cand = (rng.random((pop, D)) * np.asarray(cfg.param_maxs)).astype(np.float32)
+            cand[0] = TRUTH
+            params = torch.from_numpy(cand).to(self.dev)
+            torch.cuda.synchronize()
+            self.cells[key] = dict(cfg=cfg, so=so, target=target, params=params)
+            log(f"inputs ({key}): n={cfg.n_samples} P={pop} K={so.num_bins} method {so.method}, "
+                f"operands and target built in {time.perf_counter() - t0:.2f}s")
+
+    def fold_spectrum(self, key, outs):
+        from pmfm_tpu_torch.ops import spectral
+
+        c = self.cells[key]
+        return spectral.spectral_fitness(
+            spectral.magnitude_spectrum_prefolded(*outs, c["so"]), c["target"])
+
+    def stream_spectrum(self, key, audio):
+        from pmfm_tpu_torch.ops import spectral
+
+        c = self.cells[key]
+        return spectral.spectral_fitness(
+            spectral.magnitude_spectrum_factored(audio, c["so"], prewindowed=True), c["target"])
+
+    # -- 7 ------------------------------------------------------------------
+    def b3_vs_plain(self):
+        """B3 at the settings of each path that runs it: cell (c), and
+        match_audio's int8 engine and refine tail (bf16 mode, sine order 9)."""
+        from pmfm_tpu_torch.kernels import synth_fold as sfo
+
+        c = self.cells["fold"]
+        n, scale = c["cfg"].n_samples, c["so"].dft_packed_scale
+        _, mcfg = match_config()
+        rcfg = mcfg.refine_config()
+        require(mcfg.n_samples == n, "the match phase's n differs from cell (c)'s")
+        worst = 0.0
+        for mode, cfg, dft_scale in (("int8, cell (c)", c["cfg"], scale),
+                                     ("int8, match_audio", mcfg, scale),
+                                     ("bf16, match_audio refine tail", rcfg, 0.0)):
+            pop = cfg.population_size
+            params = c["params"][:pop]
+            kw = dict(topology=cfg.topology, n=n, sine_order=cfg.sine_order, dft_scale=dft_scale)
+            k = sfo.fused_synth_fold(params, **kw)
+            torch.cuda.synchronize()
+            p = sfo.fused_synth_fold_plain(params, pop_block=pop, **kw)
+            diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(k, p)]
+            log(f"B3 vs plain ({mode}: n={n}, P={pop}, sine order {cfg.sine_order}): max abs "
+                f"diff a+ {diffs[0]} a- {diffs[1]} edge {diffs[2]} mag_scale {diffs[3]} "
+                f"(must be 0); a+/- {k[0].dtype} {tuple(k[0].shape)}")
+            require(k[0].dtype == (torch.int8 if dft_scale > 0 else torch.bfloat16), "B3 dtype")
+            require(all(torch.isfinite(x.float()).all() for x in k), "B3 output not finite")
+            require(all(d == 0.0 for d in diffs), "B3 is not bit-equal to its plain version")
+            worst = max(worst, *diffs)
+            if cfg is c["cfg"]:
+                fit = self.fold_spectrum("fold", k)
+                log(f"B3 + folded int8 DFT: truth rank {int(torch.argmin(fit))}, truth fitness "
+                    f"{float(fit[0]):.6g}")
+                require(int(torch.argmin(fit)) == 0, "the known-params truth does not rank first")
+        self.kernels["fused_synth_fold"] = {"max_abs_err": worst}
+
+    # -- 8 ------------------------------------------------------------------
+    def b4_vs_plain(self):
+        """B4 at cell (d)'s settings (bf16 audio) and at its refine tail's
+        (f32 audio, sine order 9)."""
+        from pmfm_tpu_torch.kernels import synth_stream as sst
+
+        c = self.cells["stream"]
+        worst = 0.0
+        for audio_f32, cfg in ((False, c["cfg"]), (True, c["cfg"].refine_config())):
+            kw = dict(topology=cfg.topology, n=cfg.n_samples, sine_order=cfg.sine_order)
+            k = sst.fused_synth_stream(c["params"], c["so"].window, audio_f32=audio_f32, **kw)
+            torch.cuda.synchronize()
+            p = sst.fused_synth_stream_plain(c["params"], c["so"].window, audio_f32=audio_f32,
+                                             pop_block=STREAM_POP, **kw)
+            diff = float((k.float() - p.float()).abs().max())
+            log(f"B4 vs plain ({'f32' if audio_f32 else 'bf16'}: n={kw['n']}, P={STREAM_POP}, "
+                f"sine order {cfg.sine_order}): max abs diff {diff} (must be 0); audio "
+                f"{k.dtype} {tuple(k.shape)}")
+            require(bool(torch.isfinite(k.float()).all()), "B4 audio not finite")
+            require(diff == 0.0, "B4 is not bit-equal to its plain version")
+            worst = max(worst, diff)
+            if not audio_f32:
+                fit = self.stream_spectrum("stream", k)
+                log(f"B4 + factored DFT: truth rank {int(torch.argmin(fit))}, truth fitness "
+                    f"{float(fit[0]):.6g}")
+                require(int(torch.argmin(fit)) == 0, "the known-params truth does not rank first")
+            del k, p
+        self.kernels["fused_synth_stream"] = {"max_abs_err": worst}
+
+    # -- 9 ------------------------------------------------------------------
+    def evolve_large(self):
+        from pmfm_tpu_torch.es import active_engine, evolve, init_state
+        from pmfm_tpu_torch.kernels import fused_synth_fold, fused_synth_stream
+
+        cells = (("fold", "c", FOLD_GENERATIONS, "fused_synth_fold", "synth_fold"),
+                 ("stream", "d", STREAM_GENERATIONS, "fused_synth_stream", "synth_stream"))
+        for key, label, gens, kernel, engine in cells:
+            c = self.cells[key]
+            cfg, so, target = c["cfg"], c["so"], c["target"]
+            require(active_engine(cfg, so) == engine, f"cell ({label}) routes to "
+                    f"{active_engine(cfg, so)}, not {engine}")
+            evolve(init_state(1, cfg, device=self.dev), target, 1, so, cfg)  # warm-up
+            state = init_state(7, cfg, device=self.dev)
+            torch.cuda.synchronize()
+            self.reset_counts()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            final, traj = evolve(state, target, gens, so, cfg, record_trajectory=True)
+            b.record()
+            b.synchronize()
+            counts = self.read_counts()
+            ms = a.elapsed_time(b) / gens
+            pop = cfg.population_size
+            traj = traj.cpu()
+            log(f"evolve ({label}: {engine}, n={cfg.n_samples}, P={pop}): {gens} generations "
+                f"{ms:.4f} ms/gen, {pop * gens / (ms * gens / 1e3):.4g} candidate-evals/s "
+                f"{card()}; best fitness first {float(traj[0]):.6g} final {float(traj[-1]):.6g}; "
+                f"launches {counts}")
+            require(counts[kernel] == gens, f"{kernel} launches != generations")
+            require(all(v == 0 for n_, v in counts.items() if n_ != kernel),
+                    f"cell ({label}) launched another kernel")
+            require(traj.shape == (gens,) and torch.isfinite(traj).all(), "trajectory")
+            require(bool((traj[1:] <= traj[:-1]).all()), "best-ever fitness must not increase")
+            require(float(traj[-1]) < float(traj[0]), "evolve did not improve the best fitness")
+            self.kernels[kernel]["launches"] = counts[kernel]
+            self.cell_ms[key] = ms
+            # where the time goes: the kernel and the spectrum + fitness at
+            # this cell's shapes, each timed alone
+            p = c["params"]
+            if key == "fold":
+                kern = lambda: fused_synth_fold(  # noqa: E731
+                    p, topology=TOPOLOGY, n=cfg.n_samples, sine_order=cfg.sine_order,
+                    dft_scale=so.dft_packed_scale)
+                outs = kern()
+                dft = lambda: self.fold_spectrum(key, outs)  # noqa: E731
+            else:
+                kern = lambda: fused_synth_stream(  # noqa: E731
+                    p, so.window, topology=TOPOLOGY, n=cfg.n_samples, sine_order=cfg.sine_order)
+                outs = kern()
+                dft = lambda: self.stream_spectrum(key, outs)  # noqa: E731
+            k_ms, d_ms = cuda_ms(kern, 5), cuda_ms(dft, 5)
+            log(f"cell ({label}) per generation: kernel {k_ms:.4f} ms ({100 * k_ms / ms:.1f}%), "
+                f"spectrum + fitness {d_ms:.4f} ms ({100 * d_ms / ms:.1f}%), rest "
+                f"{ms - k_ms - d_ms:.4f} ms (offspring, select) {card()}")
+            del outs
+
+    # -- 10 -----------------------------------------------------------------
+    def match(self):
+        from pmfm_tpu_torch.es import match_audio
+        from pmfm_tpu_torch.io import read_wav
+
+        rc, cfg = match_config()
+        audio, sr = read_wav(rc.input_audio_path)
+        require(sr == cfg.sample_rate, f"{rc.input_audio_path}: {sr} Hz")
+        n, g, r = cfg.n_samples, MATCH_GENERATIONS, MATCH_REFINE
+        torch.cuda.synchronize()
+        self.reset_counts()
+        t0 = time.perf_counter()
+        res = match_audio(audio, cfg, seed=SEED, num_generations=g, record_trajectory=True,
+                          device=self.dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = self.read_counts()
+        log(f"match_audio ({MATCH_CONFIG}, n={n}, P={cfg.population_size}, {g} generations, "
+            f"the last {r} refine): {len(res.chunks)} chunks of {len(audio)} samples in "
+            f"{seconds:.2f}s {card()}; launches {counts}")
+        require(len(res.chunks) == len(audio) // n == 2, "chunk count")
+        require(res.output_audio.shape == (2 * n,) and np.isfinite(res.output_audio).all(),
+                "output audio")
+        for i, ch in enumerate(res.chunks):
+            t = ch.trajectory
+            log(f"chunk {i}: best fitness before refine {t[g - r - 1]:.6g} (int8 engine), "
+                f"rescored at the refine boundary {ch.refine_start_fitness:.6g}, after refine "
+                f"{ch.best_fitness:.6g} (f32 target); params "
+                f"{[round(float(x), 3) for x in ch.best_params_scaled]}")
+            require(t.shape == (g,) and np.isfinite(t).all(), "chunk trajectory")
+            require(bool(np.all(np.diff(t[: g - r]) <= 0) and np.all(np.diff(t[g - r :]) <= 0)),
+                    "best-ever fitness must not increase")
+            require(ch.best_fitness <= ch.refine_start_fitness, "the refine tail made it worse")
+        # per chunk: g - r int8 generations, one bf16 rescore, r bf16 generations
+        require(counts["fused_synth_fold"] == 2 * (g + 1), "B3 launches")
+        require(counts["fused_synth_fitness"] == counts["fused_generation"] ==
+                counts["fused_synth_stream"] == 0, "match_audio launched another kernel")
+
+    # -- 11 -----------------------------------------------------------------
+    def large_timings(self):
+        from pmfm_tpu_torch.kernels import synth_fold as sfo
+        from pmfm_tpu_torch.kernels import synth_stream as sst
+        from pmfm_tpu_torch.ops import spectral
+
+        cf, cs = self.cells["fold"], self.cells["stream"]
+        nf, ns = cf["cfg"].n_samples, cs["cfg"].n_samples
+        kf = dict(topology=TOPOLOGY, n=nf, sine_order=7, dft_scale=cf["so"].dft_packed_scale)
+        ks = dict(topology=TOPOLOGY, n=ns, sine_order=7)
+        b3 = lambda: sfo.fused_synth_fold(cf["params"], **kf)  # noqa: E731
+        b3_plain = lambda: sfo.fused_synth_fold_plain(cf["params"], pop_block=FOLD_POP, **kf)  # noqa: E731
+        b4 = lambda: sst.fused_synth_stream(cs["params"], cs["so"].window, **ks)  # noqa: E731
+        b4_plain = lambda: sst.fused_synth_stream_plain(  # noqa: E731
+            cs["params"], cs["so"].window, pop_block=STREAM_POP, **ks)
+        # 44 f32 operations a sample (B3: the int8 rounding last); B4 swaps the
+        # rounding for the amplitude and window multiplies (45)
+        rows = {
+            "fused_synth_fold": (
+                b3, b3_plain, FOLD_POP * D * 4 + nf * FOLD_POP + 8 * FOLD_POP,
+                synth_ops_f32(FOLD_POP, nf, 0, kn=3, ncoef=4),
+                "pmfm_tpu_torch/csrc/large_frame.cu", "pmfm_tpu/kernels/synth_fold.py:176",
+            ),
+            "fused_synth_stream": (
+                b4, b4_plain, STREAM_POP * D * 4 + ns * 4 + ns * STREAM_POP * 2,
+                synth_ops_f32(STREAM_POP, ns, 0, kn=3, ncoef=4) + float(STREAM_POP) * ns,
+                "pmfm_tpu_torch/csrc/large_frame.cu", "pmfm_tpu/kernels/synth_stream.py:161",
+            ),
+        }
+        for name, (fn, plain, nbytes, f32_ops, src, replaces) in rows.items():
+            ms = cuda_ms(fn, TIMED_LAUNCHES)
+            plain_ms = cuda_ms(plain, PLAIN_RUNS)
+            bound_ms, by = bound(nbytes, 0.0, f32_ops)
+            share = 100 * ms / self.cell_ms["fold" if "fold" in name else "stream"]
+            log(f"{name}: kernel {ms:.4f} ms (median of {TIMED_LAUNCHES}), plain {plain_ms:.2f} ms "
+                f"(median of {PLAIN_RUNS}), bound {bound_ms:.4f} ms by {by} "
+                f"({nbytes / 1e6:.1f} MB, {f32_ops / 1e9:.2f} G f32 ops), {share:.1f}% of its "
+                f"cell's generation {card()}")
+            self.kernels.setdefault(name, {}).update(
+                route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None,
+            )
+        # the spectra outside the kernels, at the same shapes
+        so_f, so_s = cf["so"], cs["so"]
+        outs = b3()
+        k = so_f.num_bins
+        int8_ops = 2.0 * 2 * k * (nf // 2) * FOLD_POP
+        ms = cuda_ms(lambda: spectral.prefolded_uv(outs[0], outs[1], so_f), 5)
+        log(f"prefolded int8 DFT (torch._int_mm int8 x int8 -> int32, U and V as "
+            f"a+^T @ cos^T on B3's candidate-major a+/-), n={nf} P={FOLD_POP}: {ms:.4f} ms, "
+            f"{int8_ops / (ms * 1e-3) / 1e12:.1f} int8 TOP/s {card()}")
+        tm = [x.contiguous() for x in outs[:2]]  # the time-major layout, for comparison
+        ms_tm = cuda_ms(lambda: (torch._int_mm(so_f.dft_packed[:k], tm[0]),
+                                 torch._int_mm(so_f.dft_packed[k:], tm[1])), 5)
+        log(f"  the same product on time-major a+/- (cos @ a+): {ms_tm:.4f} ms, "
+            f"{int8_ops / (ms_tm * 1e-3) / 1e12:.1f} int8 TOP/s {card()}")
+        del tm
+        ms = cuda_ms(lambda: self.fold_spectrum("fold", outs), 5)
+        log(f"prefolded int8 spectrum + fitness (with the epilogue): {ms:.4f} ms {card()}")
+        del outs
+        rcfg = match_config()[1].refine_config()
+        bf = sfo.fused_synth_fold(cf["params"][: rcfg.population_size], topology=rcfg.topology,
+                                  n=nf, sine_order=rcfg.sine_order, dft_scale=0.0)
+        so_r = spectral.make_spectrum_ops(nf, dft_dtype="float32", device=self.dev)
+        ms = cuda_ms(lambda: spectral.magnitude_spectrum_prefolded(*bf, so_r), 5)
+        log(f"prefolded bf16 spectrum (refine tail: f32 operand rounded to bf16 once, "
+            f"torch.mm(out_dtype=float32): bf16 products, float32 sums), n={nf} "
+            f"P={rcfg.population_size}: {ms:.4f} ms {card()}")
+        del bf, so_r
+        audio = b4()
+        ms = cuda_ms(lambda: spectral.magnitude_spectrum_factored(audio, so_s, prewindowed=True), 3)
+        log(f"factored DFT bf16 (torch.mm/bmm out_dtype=float32), n={ns} P={STREAM_POP}: "
+            f"{ms:.4f} ms {card()}")
+        # its stage-2 products at one population chunk, against operands
+        # copied per k1 for each product or once per call (the port's form)
+        f = so_s.factored
+        pc = spectral._factored_chunk(ns, STREAM_POP)
+        b = torch.randn(f.n1, f.n2, pc, device=self.dev).to(torch.bfloat16)
+        a2 = f.c2.T.to(torch.bfloat16)
+        a3 = a2.expand(f.n1, *a2.shape).contiguous()
+        mm = spectral.matmul_f32
+        ms_copy = cuda_ms(lambda: [mm(a2.expand(f.n1, *a2.shape).contiguous(), b)
+                                   for _ in range(4)], 5)
+        ms_once = cuda_ms(lambda: [mm(a3, b) for _ in range(4)], 5)
+        log(f"factored DFT stage 2 (4 bmm, chunk {pc} of {STREAM_POP} candidates): operand "
+            f"copied per product {ms_copy:.4f} ms, copied once {ms_once:.4f} ms "
+            f"{card()}")
+        del b, a3
+        so32 = so_s._replace(dft_dtype=torch.float32)
+        audio32 = sst.fused_synth_stream(cs["params"], so_s.window, audio_f32=True, **ks)
+        ms = cuda_ms(lambda: spectral.magnitude_spectrum_factored(audio32, so32, prewindowed=True),
+                     3)
+        log(f"factored DFT f32 (TF32 off; the refine tail's engine), n={ns} P={STREAM_POP}: "
+            f"{ms:.4f} ms {card()}")
+
     def kernels_line(self):
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         out = []
-        for name in ("fused_synth_fitness", "fused_generation"):
+        for name in KERNELS:
             row = dict(self.kernels.get(name, {}), name=name)
             missing = [k for k in keys if k not in row]
             require(not missing, f"{name}: no {missing}")
@@ -371,11 +699,18 @@ def main() -> int:
     s.phase("4 B2 vs plain", s.b2_vs_plain)
     s.phase("5 evolve", s.evolve_both)
     s.phase("6 kernel times", s.timings)
+    s.phase("large inputs", s.large_setup)
+    if "large inputs" not in s.failed:
+        s.phase("7 B3 vs plain", s.b3_vs_plain)
+        s.phase("8 B4 vs plain", s.b4_vs_plain)
+        s.phase("9 evolve large frames", s.evolve_large)
+        s.phase("10 match_audio", s.match)
+        s.phase("11 large-frame times", s.large_timings)
     line = None
     try:
         line = s.kernels_line()
     except AssertionError:
-        s.failed.append("7 kernels line")
+        s.failed.append("kernels line")
         traceback.print_exc()
     faulthandler.cancel_dump_traceback_later()
     if s.failed:

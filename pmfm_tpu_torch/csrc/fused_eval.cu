@@ -14,7 +14,8 @@
 //
 // Design (a simple first kernel, not yet a fast one). One thread per
 // candidate, TPB candidates per CUDA block. Each thread runs its candidate's
-// sample recurrence sequentially, with the TPU kernel's turns-domain phases,
+// sample recurrence sequentially (synth_common.cuh::synth_run, the one
+// definition B3 and B4 run too), with the TPU kernel's turns-domain phases,
 // C = 128-sample blocks and frac'd carries; the exclusive prefix sum inside a
 // block is a running f32 sum, where the TPU kernel used a triangular matmul.
 // The int8 samples are folded straight into the thread's column of two
@@ -26,33 +27,17 @@
 // a warp shares, from L1/L2. No thread reads another thread's column, so the
 // kernel needs no barrier. Tensor-core (mma / wgmma int8) tiles are later work.
 //
-// Exactness. Every f32 multiply and add below uses __fmul_rn / __fadd_rn, so
-// nvcc contracts nothing into an FMA: the audio is then bit-for-bit what the
-// plain PyTorch version (kernels/synth_fitness.py::fused_synth_fitness_plain)
-// computes, and the int8 contraction is exact in int32. Only the order of the
-// final sum over bins differs from the plain version.
+// Exactness. Every f32 multiply and add here and in synth_common.cuh uses
+// __fmul_rn / __fadd_rn, so nvcc contracts nothing into an FMA: the audio is
+// then bit-for-bit what the plain PyTorch version
+// (kernels/synth_fitness.py::fused_synth_fitness_plain) computes, and the int8
+// contraction is exact in int32. Only the order of the final sum over bins
+// differs from the plain version.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "synth_common.cuh"
 
-#define TPB 64          // candidates (threads) per CUDA block
-#define TIME_BLOCK 128  // samples per phase-carry block (the TPU kernel's C)
-#define MAX_KN 8        // oscillators in a chain (fm8_series)
-#define MAX_D 16        // parameters per candidate
-#define KT 8            // bins per register tile of the DFT
-
-struct SynthParams {
-  float sin_c[5];    // odd coefficients of sin(2 pi w), w in [-0.5, 0.5] turns
-  float sin_c63[5];  // the same coefficients times 63 (the output oscillator)
-  int ncoef;         // 3, 4 or 5 (sine order 5, 7, 9)
-  int n;             // frame length
-  int k;             // bins (the operand has 2k rows of n/2 bytes)
-  int d;             // parameters per candidate
-  int kn;            // oscillators in the chain (2 for fm2)
-  int fm2;           // 1: fm2 parameter layout, 0: fm{kn}_series
-  float inv_sr;      // 1 / sample_rate, as f32
-  float dft_scale;   // SpectrumOps.dft_packed_scale
-};
+#define TPB 64  // candidates (threads) per CUDA block
+#define KT 8    // bins per register tile of the DFT
 
 struct MutateParams {
   int mu;
@@ -65,23 +50,6 @@ struct MutateParams {
   float mins[MAX_D];
   float ranges[MAX_D];  // maxs - mins
 };
-
-__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float frac(float x) { return fsub(x, floorf(x)); }
-
-// scale * sin(2 pi x) for any x: round-reduce to [-0.5, 0.5] turns, then the
-// odd polynomial, Horner in w^2 from the top coefficient (_sin_turns).
-template <int NC>
-__device__ __forceinline__ float sin_turns(float x, const float* c) {
-  float w = fsub(x, floorf(fadd(x, 0.5f)));
-  float w2 = fmul(w, w);
-  float acc = c[NC - 1];
-#pragma unroll
-  for (int j = NC - 2; j >= 0; --j) acc = fadd(c[j], fmul(w2, acc));
-  return fmul(w, acc);
-}
 
 __device__ __forceinline__ void put_byte(int* words, int m, int lane, int v) {
   reinterpret_cast<int8_t*>(words)[(((m >> 2) * TPB + lane) << 2) | (m & 3)] = (int8_t)v;
@@ -98,74 +66,28 @@ __device__ float evaluate_candidate(const float* p, const SynthParams& sp,
                                     const int8_t* __restrict__ dft,
                                     const float* __restrict__ target,
                                     int* s_ap, int* s_am, int lane) {
-  const float inv_sr = sp.inv_sr;
-  const int kn = sp.kn;
-  float inc1, amp;
-  float ims[MAX_KN - 1], ics[MAX_KN - 1];
-#pragma unroll
-  for (int j = 0; j < MAX_KN - 1; ++j) ims[j] = ics[j] = 0.f;
-  if (sp.fm2) {
-    inc1 = frac(fmul(inv_sr, p[0]));
-    ims[0] = fmul(inv_sr, fmul(p[0], p[1]));
-    ics[0] = fmul(inv_sr, p[2]);
-    amp = p[3];
-  } else {
-    inc1 = frac(fmul(inv_sr, p[1]));
-    amp = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_KN - 1; ++j) {
-      if (j < kn - 1) {
-        ims[j] = fmul(inv_sr, fmul(p[2 * j], p[2 * j + 1]));
-        ics[j] = fmul(inv_sr, p[2 * j + 3]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < MAX_KN; ++j)
-      if (j == kn - 1) amp = fmul(p[2 * j], p[2 * j + 1]);
-  }
-  const float mag_scale = fmul(fabsf(amp), sp.dft_scale);
-  const float inc_blk = frac(fmul((float)TIME_BLOCK, inc1));
+  const Chain ch = make_chain(p, sp);
+  const float mag_scale = fmul(fabsf(ch.amp), sp.dft_scale);
 
   // synthesis + fold: a+[r] = q[r] + q[N-r], a-[r] = q[r] - q[N-r] for
   // 0 < r < N/2, a+/-[0] = q[0]; x[N/2] is kept apart as the edge sample
   const int n = sp.n, half = n >> 1;
-  float off[MAX_KN];
-#pragma unroll
-  for (int j = 0; j < MAX_KN; ++j) off[j] = 0.f;
   int edge_q = 0;
-  for (int b = 0; b < n / TIME_BLOCK; ++b) {
-    float s[MAX_KN - 1];
-#pragma unroll
-    for (int j = 0; j < MAX_KN - 1; ++j) s[j] = 0.f;
-    for (int t = 0; t < TIME_BLOCK; ++t) {
-      float pos = fadd(fmul((float)t, inc1), off[0]);
-#pragma unroll
-      for (int j = 0; j < MAX_KN - 1; ++j) {
-        if (j < kn - 1) {
-          const float x = fadd(fmul(sin_turns<NC>(pos, sp.sin_c), ims[j]), ics[j]);
-          pos = fadd(s[j], off[j + 1]);  // exclusive prefix + carried offset
-          s[j] = fadd(s[j], x);
-        }
-      }
-      const int q = (int)rintf(sin_turns<NC>(pos, sp.sin_c63));
-      const int m = b * TIME_BLOCK + t;
-      if (m < half) {
-        put_byte(s_ap, m, lane, q);
-        if (m == 0) put_byte(s_am, 0, lane, q);
-      } else if (m == half) {
-        edge_q = q;
-      } else {
-        const int r = n - m;
-        const int a = get_byte(s_ap, r, lane);
-        put_byte(s_ap, r, lane, a + q);
-        put_byte(s_am, r, lane, a - q);
-      }
+  auto emit = [&](int m, int, float y) {
+    const int q = (int)rintf(y);
+    if (m < half) {
+      put_byte(s_ap, m, lane, q);
+      if (m == 0) put_byte(s_am, 0, lane, q);
+    } else if (m == half) {
+      edge_q = q;
+    } else {
+      const int r = n - m;
+      const int a = get_byte(s_ap, r, lane);
+      put_byte(s_ap, r, lane, a + q);
+      put_byte(s_am, r, lane, a - q);
     }
-#pragma unroll
-    for (int j = 0; j < MAX_KN - 1; ++j)
-      if (j < kn - 1) off[j + 1] = frac(fadd(off[j + 1], s[j]));
-    off[0] = frac(fadd(off[0], inc_blk));
-  }
+  };
+  synth_run<NC>(ch, sp, sp.sin_c63, n, emit);
 
   // folded DFT: U = cos-half @ a+, V = sin-half @ a-, exact in int32
   const int words = half >> 2;
@@ -223,8 +145,7 @@ fused_synth_fitness_kernel(const float* __restrict__ params, int pop, SynthParam
   int* s_ap = smem;
   int* s_am = smem + (sp.n >> 3) * TPB;
   float p[MAX_D];
-#pragma unroll
-  for (int i = 0; i < MAX_D; ++i) p[i] = i < sp.d ? params[(size_t)cand * sp.d + i] : 0.f;
+  load_params(p, params, cand, sp.d);
   fitness[cand] = evaluate_candidate<NC>(p, sp, dft, target, s_ap, s_am, lane);
 }
 
@@ -299,11 +220,6 @@ fused_generation_kernel(uint32_t seed, const float* __restrict__ pv, const float
     p[dim] = fadd(mp.mins[dim], fmul(nx, mp.ranges[dim]));  // _scale_rows
   }
   fitness[cand] = evaluate_candidate<NC>(p, sp, dft, target, s_ap, s_am, lane);
-}
-
-template <typename K>
-static cudaError_t prepare(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 extern "C" {

@@ -21,19 +21,20 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 class exact_f32_matmul:
-    """Context in which CUDA float32 matrix products run in full float32.
-
-    The plain versions of the kernels contract integer-valued float32 tensors
-    (int8 audio against the int8 DFT operand) whose partial sums stay below
-    2^24, so the product is exact only if TF32 is off. The previous setting
-    is restored on exit.
+    """Context in which CUDA matrix products keep float32 accumulation:
+    float32 products run in full float32 (TF32 off, the reference's
+    ``Precision.HIGHEST``) and bf16 products do not reduce in bf16. The
+    previous settings are restored on exit.
     """
 
     def __enter__(self):
-        self._prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
+        m = torch.backends.cuda.matmul
+        self._prev = (m.allow_tf32, m.allow_bf16_reduced_precision_reduction)
+        m.allow_tf32 = False
+        m.allow_bf16_reduced_precision_reduction = False
         return self
 
     def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32 = self._prev
+        m = torch.backends.cuda.matmul
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = self._prev
         return False

@@ -1,6 +1,15 @@
 """Evolutionary-strategy engine: config, stage primitives, generation loop."""
 from .config import ESConfig
-from .pipeline import evolve, generation_step, kernel_seed, make_spectrum_ops
+from .pipeline import (
+    ChunkResult,
+    MatchResult,
+    evolve,
+    generation_step,
+    kernel_seed,
+    make_spectrum_ops,
+    match_audio,
+    refine_boundary,
+)
 from .strategy import (
     ESState,
     active_engine,
@@ -12,6 +21,7 @@ from .strategy import (
 )
 
 __all__ = [
+    "ChunkResult",
     "ESConfig",
     "ESState",
     "active_engine",
@@ -21,7 +31,10 @@ __all__ = [
     "init_state",
     "kernel_seed",
     "make_spectrum_ops",
+    "match_audio",
+    "MatchResult",
     "mutate",
     "recombine",
+    "refine_boundary",
     "select",
 ]

@@ -1,25 +1,47 @@
-"""The per-generation step and the generation loop (port of
-``pmfm_tpu/es/pipeline.py``: ``make_spectrum_ops``, ``kernel_seed``,
-``generation_step``, ``evolve``).
+"""The per-generation step, the generation loop and the chunked audio
+matcher (port of ``pmfm_tpu/es/pipeline.py``: ``make_spectrum_ops``,
+``kernel_seed``, ``generation_step``, ``evolve``, the refine tail
+``refine_boundary`` / ``_evolve_on_target``, ``match_audio``).
 
 Where the reference scans ``generation_step`` inside one jitted program,
 ``evolve`` here is a Python loop over generations. A generation launches one
-kernel (B2) under ``fused_generation``, or torch recombine/mutate plus B1
-under ``fused_kernel``; selection is ``torch.topk``. Nothing in the loop
-reads a device value back unless ``fitness_threshold`` asks for early stop.
+kernel (B2) under ``fused_generation``, or torch recombine/mutate plus one
+kernel: B1 (``fused_kernel``), B3 (``synth_fold``, 4096 <= n <= 16384) or B4
+(``synth_stream``, n >= 32768); selection is ``torch.topk``. Nothing in the
+loop reads a device value back unless ``fitness_threshold`` asks for early
+stop.
+
+``match_audio`` has no ``benchmarker``, ``checkpoint_dir`` or ``mesh``
+argument yet (ROADMAP Queue A items 12-13).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.generation import fused_generation
-from ..ops import spectral
+from ..ops import spectral, synthesis
 from .config import ESConfig
-from .strategy import ESState, active_engine, evaluate, mutate, recombine, select
+from .strategy import (
+    ESState,
+    _fused_shape_ok,
+    active_engine,
+    evaluate,
+    init_state,
+    mutate,
+    recombine,
+    select,
+)
 
 
 def make_spectrum_ops(cfg: ESConfig, *, device: str | torch.device = "cuda") -> spectral.SpectrumOps:
-    """The DFT operands of ``cfg`` on ``device``."""
+    """The spectrum operands of ``cfg`` on ``device``; ``cfg.spectrum_method``
+    resolves as the reference resolves it (``"dft"`` above 16384 samples is
+    the factored DFT)."""
     return spectral.make_spectrum_ops(
         cfg.n_samples,
         num_bins=cfg.num_bins,
@@ -139,3 +161,139 @@ def evolve(
     if not traj:
         return state, torch.zeros((0,), dtype=torch.float32, device=state.best_fitness.device)
     return state, torch.stack(traj)
+
+
+def refine_boundary(
+    final: ESState,
+    tspec_r: torch.Tensor,
+    so_r: spectral.SpectrumOps,
+    cfg: ESConfig,
+    cfg_r: ESConfig,
+) -> ESState:
+    """The fast-engine -> f32 transition of the refine tail: best-ever is
+    rescored under the refine engine, injected into parent slot 0, and the
+    steps re-open to ``cfg.refine_step_floor``."""
+    bf = evaluate(final.best_values[None], tspec_r, so_r, cfg_r)[0]
+    pv = final.parent_values.clone()
+    pv[0] = final.best_values
+    ps = final.parent_steps
+    if cfg.refine_step_floor > 0.0:
+        ps = torch.clamp_min(ps, cfg.refine_step_floor)
+    return final._replace(best_fitness=bf, parent_values=pv, parent_steps=ps)
+
+
+def _check_refine_ported(cfg: ESConfig) -> None:
+    """Raise, before any work, where the refine tail's f32 engine routes to
+    the fused kernels: their true-f32 variant is not ported (ROADMAP Queue B).
+    At n >= 4096 the tail runs on B3's bf16 mode or B4's f32 mode, as in the
+    reference."""
+    if cfg.refine_generations > 0 and _fused_shape_ok(cfg.refine_config()):
+        raise NotImplementedError(
+            f"refine tail at n={cfg.n_samples}: the f32 refine engine needs the true-f32 "
+            f"variant of the fused kernels B1/B2, which is not ported yet"
+        )
+
+
+def _evolve_on_target(state, target_audio, num_generations, so, cfg, record_trajectory,
+                      refine_ops=None):
+    """``evolve`` against ``target_audio`` (N,), with the optional refine
+    tail: the last ``cfg.refine_generations`` run under ``refine_ops``
+    (``(cfg.refine_config(), its SpectrumOps)``) against the target's f32
+    spectrum, seeded at the best-ever candidate (``refine_boundary``).
+    Returns ``(final, trajectory, best-ever rescored at the boundary or
+    None)``."""
+    refine = min(cfg.refine_generations, num_generations) if cfg.refine_generations > 0 else 0
+    tspec = spectral.target_spectrum(target_audio, so)
+    final, traj = evolve(state, tspec, num_generations - refine, so, cfg, record_trajectory)
+    if not refine:
+        return final, traj, None
+    cfg_r, so_r = refine_ops
+    tspec_r = spectral.target_spectrum(target_audio, so_r)
+    final = refine_boundary(final, tspec_r, so_r, cfg, cfg_r)
+    start = final.best_fitness
+    final, traj_r = evolve(final, tspec_r, refine, so_r, cfg_r, record_trajectory)
+    if traj is not None:
+        traj = torch.cat([traj, traj_r])
+    return final, traj, start
+
+
+class ChunkResult(NamedTuple):
+    best_params_scaled: np.ndarray  # (D,)
+    best_params_norm: np.ndarray  # (D,) in [0, 1]
+    best_fitness: float
+    generations_run: int
+    trajectory: np.ndarray | None  # (G,) best-ever fitness per generation
+    # best-ever rescored by the refine engine where the refine tail starts
+    # (None without a tail); best_fitness is never above it
+    refine_start_fitness: float | None = None
+
+
+@dataclasses.dataclass
+class MatchResult:
+    """Output of one chunked match."""
+
+    chunks: list[ChunkResult]
+    output_audio: np.ndarray  # resynthesised best candidate per chunk, concatenated
+    config: ESConfig
+
+    @property
+    def best_chunk(self) -> ChunkResult:
+        return min(self.chunks, key=lambda c: c.best_fitness)
+
+
+def _chunk_seed(seed: int, chunk: int) -> int:
+    """The ``init_state`` seed of chunk ``chunk`` of a match seeded ``seed``."""
+    return int(np.random.SeedSequence([seed & 0xFFFFFFFF, chunk]).generate_state(1)[0])
+
+
+def match_audio(
+    target_audio: np.ndarray,
+    cfg: ESConfig,
+    seed: int = 0,
+    num_generations: int = 1000,
+    record_trajectory: bool = False,
+    *,
+    device: str | torch.device = "cuda",
+) -> MatchResult:
+    """Match FM parameters chunk by chunk over a target waveform: chunks of
+    ``cfg.n_samples`` (a remainder is ignored, as in the reference), a fresh
+    population per chunk, the best candidate of each chunk resynthesised with
+    ``cfg.synthesis_engine`` into the output audio."""
+    dev = resolve_device(device)
+    n = cfg.n_samples
+    num_chunks = len(target_audio) // n
+    if num_chunks == 0:
+        raise ValueError(f"target audio ({len(target_audio)} samples) shorter than one chunk ({n})")
+    _check_refine_ported(cfg)
+    so = make_spectrum_ops(cfg, device=dev)
+    active_engine(cfg, so)
+    refine_ops = None
+    if cfg.refine_generations > 0:
+        cfg_r = cfg.refine_config()
+        refine_ops = (cfg_r, make_spectrum_ops(cfg_r, device=dev))
+        active_engine(*refine_ops)
+    mins = torch.tensor(cfg.param_mins, dtype=torch.float32, device=dev)
+    maxs = torch.tensor(cfg.param_maxs, dtype=torch.float32, device=dev)
+    target = np.asarray(target_audio, np.float32)
+    results, out_audio = [], []
+    for i in range(num_chunks):
+        frame = torch.from_numpy(np.ascontiguousarray(target[i * n : (i + 1) * n])).to(dev)
+        state = init_state(_chunk_seed(seed, i), cfg, device=dev)
+        final, traj, start = _evolve_on_target(
+            state, frame, num_generations, so, cfg, record_trajectory, refine_ops
+        )
+        best_scaled = synthesis.scale_params(final.best_values, mins, maxs)
+        best_audio = synthesis.synthesize(
+            best_scaled[None, :], n, cfg.topology, wavetable_size=cfg.wavetable_size,
+            sample_rate=cfg.sample_rate, osc_mode=cfg.osc_mode, engine=cfg.synthesis_engine,
+        )[:, 0]
+        results.append(ChunkResult(
+            best_params_scaled=best_scaled.cpu().numpy(),
+            best_params_norm=final.best_values.cpu().numpy(),
+            best_fitness=float(final.best_fitness),
+            generations_run=final.generation,
+            trajectory=None if traj is None else traj.cpu().numpy(),
+            refine_start_fitness=None if start is None else float(start),
+        ))
+        out_audio.append(best_audio.cpu().numpy())
+    return MatchResult(chunks=results, output_audio=np.concatenate(out_audio), config=cfg)

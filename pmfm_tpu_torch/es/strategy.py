@@ -12,7 +12,9 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from ..kernels.synth_fitness import TIME_BLOCK, fused_synth_fitness
+from ..kernels.synth_fitness import TIME_BLOCK, fits_shared_memory, fused_synth_fitness
+from ..kernels.synth_fold import fused_synth_fold
+from ..kernels.synth_stream import fused_synth_stream
 from ..ops import spectral, synthesis
 from .config import ESConfig
 
@@ -101,51 +103,113 @@ def mutate(gen: torch.Generator, values, steps, cfg: ESConfig):
     return new_x, new_steps
 
 
-def _fused_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> bool:
-    """Whether the fused kernels (B1/B2) apply. The TPU's VMEM gate and
-    128-lane rule do not carry over; the kernels' own limits are checked by
-    their wrappers."""
+def _fused_flags(cfg: ESConfig) -> bool:
+    return cfg.fused_kernel or cfg.fused_generation
+
+
+def _fused_shape_ok(cfg: ESConfig) -> bool:
+    """The part of ``_fused_ok`` that ``cfg`` alone decides."""
     return (
-        (cfg.fused_kernel or cfg.fused_generation)
+        _fused_flags(cfg)
         and cfg.spectrum_method == "dft"
         and cfg.n_samples % (2 * TIME_BLOCK) == 0
+        and fits_shared_memory(cfg.n_samples)
+    )
+
+
+def _fused_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> bool:
+    """Whether the fused kernels (B1/B2) apply: the reference's gate with the
+    port's own size limit (``fits_shared_memory``, n <= 3584) in place of
+    the TPU's VMEM estimate. The 128-lane rule on the bins does not carry
+    over (the wrappers check what the kernels take)."""
+    return _fused_shape_ok(cfg) and spectrum_ops.dft_packed is not None
+
+
+def _synth_fold_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> bool:
+    """Whether the large-frame route applies: B3 (synthesis + fold) with the
+    folded DFT outside it. Above the fused kernels' limit, up to 32768 (in
+    practice ``DFT_MAX_MATERIALIZE_N``, above which ``dft_packed`` is None).
+    The reference's VMEM gate (``fold_vmem_ok``) is dropped because B3
+    writes a+/- to device memory; its 128-lane pop-block rule is dropped
+    because a thread per candidate takes any population."""
+    return (
+        _fused_flags(cfg)
+        and cfg.spectrum_method == "dft"
         and spectrum_ops.dft_packed is not None
+        and cfg.num_frames == 1
+        and cfg.n_samples % (2 * TIME_BLOCK) == 0
+        and cfg.n_samples <= 32768
+    )
+
+
+def _synth_stream_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> bool:
+    """Whether the huge-frame route applies: B4 (streamed synthesis + window)
+    feeding the four-step factored DFT. The reference's 128-lane pop-block
+    rule (``_final_pop_block_ok``) is dropped: a thread per candidate takes
+    any population."""
+    return (
+        _fused_flags(cfg)
+        and spectrum_ops.method == "dft_factored"
+        and spectrum_ops.factored is not None
+        and cfg.num_frames == 1
+        and cfg.n_samples % TIME_BLOCK == 0
     )
 
 
 def active_engine(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> str:
-    """The engine a generation runs: ``fused_generation`` (kernel B2) or
-    ``fused_kernel`` (torch recombine/mutate + kernel B1). The XLA-path
-    engines of the reference are not ported and raise."""
+    """The engine a generation runs, named as the reference names it:
+
+      fused_generation -- kernel B2 (offspring + evaluation in one launch);
+      fused_kernel -- torch recombine/mutate + kernel B1;
+      synth_fold -- torch offspring, kernel B3, folded DFT in torch;
+      synth_stream -- torch offspring, kernel B4, factored DFT in torch.
+
+    The reference's XLA-path engines are not ported and raise. Unlike the
+    reference, which reports ``fused_kernel`` for a fused_generation config
+    on its CPU backend, the port names ``fused_generation`` on any device
+    (its CPU path runs B2's plain version)."""
     if _fused_ok(cfg, spectrum_ops):
         if cfg.fused_generation and cfg.gauss_sigma == 1.0 / 6.0:
             return "fused_generation"
         return "fused_kernel"
+    if _synth_fold_ok(cfg, spectrum_ops):
+        return "synth_fold"
+    if _synth_stream_ok(cfg, spectrum_ops):
+        return "synth_stream"
     raise NotImplementedError(
-        "only the fused engines are ported: set fused_kernel or fused_generation with "
-        "spectrum_method='dft' and n a multiple of 256"
+        "only the kernel engines are ported: set fused_kernel or fused_generation with "
+        "spectrum_method 'dft' and n a multiple of 256 (of 128 above 16384)"
     )
 
 
 def evaluate(values, target_spectrum, spectrum_ops: spectral.SpectrumOps, cfg: ESConfig):
-    """Scale -> synthesise -> window + DFT + magnitude -> L2, through B1."""
-    active_engine(cfg, spectrum_ops)
+    """Scale -> synthesise -> window + DFT + magnitude -> L2, on the engine
+    ``active_engine`` names: B1 (fused), B3 + the folded DFT (synth_fold) or
+    B4 + the factored DFT (synth_stream)."""
+    engine = active_engine(cfg, spectrum_ops)
     dev = values.device
     mins = torch.tensor(cfg.param_mins, dtype=torch.float32, device=dev)
     maxs = torch.tensor(cfg.param_maxs, dtype=torch.float32, device=dev)
-    return fused_synth_fitness(
-        synthesis.scale_params(values, mins, maxs),
-        target_spectrum,
-        dft_packed=spectrum_ops.dft_packed,
-        dft_scale=spectrum_ops.dft_packed_scale,
-        topology=cfg.topology,
-        n=cfg.n_samples,
-        wavetable_size=cfg.wavetable_size,
-        sample_rate=cfg.sample_rate,
-        pop_block=cfg.pop_block,
-        num_frames=cfg.num_frames,
-        sine_order=cfg.sine_order,
-    )
+    scaled = synthesis.scale_params(values, mins, maxs)
+    kw = dict(topology=cfg.topology, n=cfg.n_samples, wavetable_size=cfg.wavetable_size,
+              sample_rate=cfg.sample_rate, pop_block=cfg.pop_block, sine_order=cfg.sine_order)
+    if engine in ("fused_generation", "fused_kernel"):
+        return fused_synth_fitness(
+            scaled, target_spectrum, dft_packed=spectrum_ops.dft_packed,
+            dft_scale=spectrum_ops.dft_packed_scale, num_frames=cfg.num_frames, **kw,
+        )
+    if engine == "synth_fold":
+        ap, am, edge, ms = fused_synth_fold(scaled, dft_scale=spectrum_ops.dft_packed_scale, **kw)
+        spectra = spectral.magnitude_spectrum_prefolded(ap, am, edge, ms, spectrum_ops)
+    else:
+        # f32 audio for the true-f32 engine; the bf16 and int8 configs stream
+        # bf16 (the factored DFT has no int8 operand, as in the reference)
+        audio_w = fused_synth_stream(
+            scaled, spectrum_ops.window,
+            audio_f32=spectrum_ops.dft_dtype == torch.float32, **kw,
+        )
+        spectra = spectral.magnitude_spectrum_factored(audio_w, spectrum_ops, prewindowed=True)
+    return spectral.spectral_fitness(spectra, target_spectrum)
 
 
 def select(values, steps, fitness, mu: int):

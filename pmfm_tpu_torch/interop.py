@@ -13,7 +13,7 @@ import torch
 
 from .device import resolve_device
 from .es.strategy import ESState
-from .ops.spectral import SpectrumOps
+from .ops.spectral import FactoredOps, SpectrumOps, packed_bf16
 
 
 def seed_from_key(key) -> int:
@@ -67,19 +67,39 @@ def spectrum_ops_from_numpy(
     dft_sin,
     dft_packed,
     dft_packed_scale,
+    method="dft",
+    dft_dtype=None,
+    factored=None,
     device: str | torch.device = "cuda",
 ) -> SpectrumOps:
     """``SpectrumOps`` from the reference operands. bfloat16 arrays (numpy
-    dtype ``bfloat16``, 2 bytes) keep their bits."""
+    dtype ``bfloat16``, 2 bytes) keep their bits. ``dft_dtype`` names the
+    engine's dtype (``np.dtype(so.dft_dtype).name``; it defaults to that of
+    ``dft_cos``); ``factored`` is the reference's ``FactoredOps`` as a
+    mapping of its fields (``so.factored._asdict()``) for the
+    ``"dft_factored"`` method."""
     dev = resolve_device(device)
 
     def t(a):
+        if a is None:
+            return None
         a = np.array(a)  # a writable copy
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
         return torch.from_numpy(a).to(dev)
 
     cos = t(dft_cos)
+    if dft_dtype is None:
+        dtype = cos.dtype
+    else:
+        dtype = torch.bfloat16 if str(dft_dtype) in ("bfloat16", "int8") else torch.float32
+    fo = None
+    if factored is not None:
+        f = dict(factored)
+        fo = FactoredOps(n1=int(f["n1"]), n2=int(f["n2"]),
+                         **{k: t(np.asarray(f[k], np.float32))
+                            for k in ("c1", "s1n", "tw_re", "tw_imn", "c2", "s2n")})
+    packed = t(dft_packed)
     return SpectrumOps(
         n=int(n),
         num_bins=int(num_bins),
@@ -87,10 +107,12 @@ def spectrum_ops_from_numpy(
         norm=float(norm),
         dft_cos=cos,
         dft_sin=t(dft_sin),
-        method="dft",
-        dft_dtype=cos.dtype,
-        dft_packed=None if dft_packed is None else t(dft_packed),
+        method=str(method),
+        dft_dtype=dtype,
+        dft_packed=packed,
         dft_packed_scale=float(dft_packed_scale),
+        factored=fo,
+        dft_packed_bf16=packed_bf16(packed),
     )
 
 

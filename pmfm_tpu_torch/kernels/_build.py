@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/fused_eval.cu`` has a plain C interface and includes no PyTorch
-header, so one ``nvcc`` call compiles it in seconds into a shared library,
-which ``ctypes`` loads. The library goes to ``build/pmfm_tpu_torch/`` at the
-root of the checkout, under a name that carries a hash of the source, so an
-edited source is rebuilt and a current one is reused. Nothing here runs at
-import: the first launch builds.
+The sources under ``csrc/`` (``fused_eval.cu``: B1, B2; ``large_frame.cu``:
+B3, B4; ``synth_common.cuh``: the synthesis they share) have a plain C
+interface and include no PyTorch header, so one ``nvcc`` call compiles them
+all in seconds into one shared library, which ``ctypes`` loads. The library
+goes to ``build/pmfm_tpu_torch/`` at the root of the checkout, under a name
+that carries a hash of every source, so an edited source is rebuilt and a
+current build is reused. Nothing here runs at import: the first launch
+builds.
 """
 from __future__ import annotations
 
@@ -19,15 +21,19 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCE = CSRC / "fused_eval.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pmfm_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 MAX_D = 16  # parameters per candidate (fm8_series); must match csrc
 
 
+def sources() -> list:
+    """The ``.cu`` files compiled into the library, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 class SynthParams(ctypes.Structure):
-    """Mirror of ``struct SynthParams`` in csrc/fused_eval.cu."""
+    """Mirror of ``struct SynthParams`` in csrc/synth_common.cuh."""
 
     _fields_ = [
         ("sin_c", ctypes.c_float * 5),
@@ -77,12 +83,15 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode() + f.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"libpmfm_fused_{digest}.so"
 
 
 def build() -> dict:
-    """Compile the kernels unless a library of the current source exists.
+    """Compile the kernels unless a library of the current sources exists.
 
     Returns ``{"path", "seconds", "log", "built"}``; ``log`` holds nvcc's
     ``-Xptxas -v`` report (registers, shared memory, spills per kernel).
@@ -95,7 +104,7 @@ def build() -> dict:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
         nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), *map(str, sources()),
     ]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -121,6 +130,10 @@ def library() -> ctypes.CDLL:
         ctypes.c_uint32, vp, vp, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
     ]
     lib.pmfm_fused_generation.restype = ci
+    lib.pmfm_synth_fold.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp, ci, vp]
+    lib.pmfm_synth_fold.restype = ci
+    lib.pmfm_synth_stream.argtypes = [vp, ci, SynthParams, vp, vp, ci, vp]
+    lib.pmfm_synth_stream.restype = ci
     lib.pmfm_error_string.argtypes = [ci]
     lib.pmfm_error_string.restype = ctypes.c_char_p
     return lib

@@ -95,15 +95,22 @@ def inv_sample_rate(wavetable_size: int, sample_rate: int) -> float:
 
 
 def check_supported(topology: str, dft_scale: float, num_frames: int) -> None:
-    """Raise ``NotImplementedError`` for a variant this slice does not port."""
+    """Raise ``NotImplementedError`` for a B1/B2 variant not ported yet."""
     if dft_scale <= 0.0:
         raise NotImplementedError(
-            "bf16 / true-f32 fused engines are not ported yet (int8 engine only)"
+            "the bf16 / true-f32 variants of the fused kernels B1/B2 are not ported yet "
+            "(int8 engine only)"
         )
     if num_frames != 1:
         raise NotImplementedError(
             f"multi-frame STFT fitness (num_frames={num_frames}) is not ported yet"
         )
+    check_supported_topology(topology)
+
+
+def check_supported_topology(topology: str) -> None:
+    """Raise ``NotImplementedError`` for a topology the kernels do not take:
+    the ported chain is fm2 or fm{k}_series, k <= 8."""
     if parallel_pairs(topology):
         raise NotImplementedError(f"{topology}: fm{{k}}_parallel is not ported yet")
     kn = series_ops(topology)
@@ -135,26 +142,50 @@ def _exclusive_prefix(x: torch.Tensor):
     return pre, acc
 
 
-def synth_int8_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float, sine_order: int):
-    """Turns-domain synthesis of scaled params ``p`` (P, D) into int8 audio
-    ``q`` (N, P) = round(63 * unit audio), and the output amplitude (P,)."""
+def synth_blocks_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float,
+                       sine_order: int, int8: bool):
+    """Turns-domain synthesis of scaled params ``p`` (P, D), one block of
+    ``TIME_BLOCK`` samples at a time: yields each block's output oscillator
+    ``y`` (C, P) in time order. ``int8`` gives ``63 * sin`` (the int8
+    engine's q before rounding), else the unit sine that the float engines
+    multiply by the amplitude (``chain_amp``).
+
+    This is the plain version of ``csrc/synth_common.cuh::synth_run``, the
+    recurrence every kernel of the port runs; its phase carries are the
+    offsets of ``_chain_rows``'s chain, one per oscillator."""
     rows = p.T.to(torch.float32)
-    inc1, ims, ics, amp = _chain_rows(rows, topology, inv_sr)
-    cs, cs63 = sin_coeffs(sine_order), sin_coeffs(sine_order, 63.0)
+    inc1, ims, ics, _ = _chain_rows(rows, topology, inv_sr)
+    cs = sin_coeffs(sine_order)
+    cs_out = sin_coeffs(sine_order, 63.0) if int8 else cs
     inc_blk = _frac(float(TIME_BLOCK) * inc1)
     t_block = torch.arange(TIME_BLOCK, dtype=torch.float32, device=p.device)[:, None]
     offs = [torch.zeros_like(inc1) for _ in range(len(ims) + 1)]
-    q = torch.empty((n, p.shape[0]), dtype=torch.int8, device=p.device)
-    for b in range(n // TIME_BLOCK):
+    for _ in range(n // TIME_BLOCK):
         pos = t_block * inc1 + offs[0]
         for j in range(len(ims)):
             x = _sin_turns(pos, cs) * ims[j] + ics[j]
             pre, tot = _exclusive_prefix(x)
             pos = pre + offs[j + 1]
             offs[j + 1] = _frac(offs[j + 1] + tot)
-        q[b * TIME_BLOCK : (b + 1) * TIME_BLOCK] = torch.round(_sin_turns(pos, cs63)).to(torch.int8)
+        yield _sin_turns(pos, cs_out)
         offs[0] = _frac(offs[0] + inc_blk)
-    return q, amp
+
+
+def chain_amp(p: torch.Tensor, topology: str) -> torch.Tensor:
+    """The output amplitude (P,) of scaled params ``p`` (P, D): the last
+    operator's freq * index (fm2: its amp parameter)."""
+    return _chain_rows(p.T.to(torch.float32), topology, 1.0)[3]
+
+
+def synth_int8_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float, sine_order: int):
+    """Turns-domain synthesis of scaled params ``p`` (P, D) into int8 audio
+    ``q`` (N, P) = round(63 * unit audio), and the output amplitude (P,)."""
+    q = torch.empty((n, p.shape[0]), dtype=torch.int8, device=p.device)
+    blocks = synth_blocks_plain(p, topology=topology, n=n, inv_sr=inv_sr,
+                                sine_order=sine_order, int8=True)
+    for b, y in enumerate(blocks):
+        q[b * TIME_BLOCK : (b + 1) * TIME_BLOCK] = torch.round(y).to(torch.int8)
+    return q, chain_amp(p, topology)
 
 
 def fold(q: torch.Tensor):
@@ -172,8 +203,10 @@ def fold(q: torch.Tensor):
 
 def dft_fitness_plain(a_plus, a_minus, edge_q, amp, dft_packed, dft_scale, target):
     """Folded DFT, magnitudes and L2 fitness (``_dft_uv`` + ``_fit_epilogue``).
-    The float32 products of integers stay below 2^24, so with TF32 off the
-    contraction is exact."""
+    The contraction runs in float32 with TF32 off. Its partial sums are
+    integers bounded by N/2 * 127 * 126, which stays below 2^24 (so the sum
+    is exact) only for n <= 2048; at 2048 < n <= 3584, which B1 also takes,
+    the plain version may round where the kernel's int32 sum does not."""
     k = dft_packed.shape[0] // 2
     op = dft_packed.to(torch.float32)
     with exact_f32_matmul():
@@ -222,14 +255,22 @@ def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
     return sp
 
 
+def fits_shared_memory(n: int) -> bool:
+    """Whether B1/B2 take frames of ``n`` samples: the folded int8 audio of
+    ``CUDA_BLOCK`` candidates (n bytes each) must fit one block's shared
+    memory, so n <= 3584. The one definition of the fused kernels' size
+    limit, read by the wrappers and by ``es.strategy._fused_ok``."""
+    return n * CUDA_BLOCK <= MAX_SHARED_BYTES
+
+
 def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.Tensor) -> None:
     """Raise on operands the CUDA kernels do not take."""
     if n % (2 * TIME_BLOCK):
         raise ValueError(f"n={n} must be a multiple of {2 * TIME_BLOCK} (the fold pairs blocks)")
-    if n * CUDA_BLOCK > MAX_SHARED_BYTES:
+    if not fits_shared_memory(n):
         raise NotImplementedError(
             f"n={n}: the folded audio of {CUDA_BLOCK} candidates exceeds shared memory "
-            f"(the large-frame route, B3, is not ported yet)"
+            f"(larger frames take the synth_fold route, kernel B3)"
         )
     if k % 8:
         raise ValueError(f"num_bins={k} must be a multiple of 8")

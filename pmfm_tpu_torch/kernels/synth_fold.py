@@ -1,0 +1,162 @@
+"""B3: fused FM synthesis + window fold, emit only (the synth_fold route,
+4096 <= n <= 16384).
+
+Replaces ``pmfm_tpu/kernels/synth_fold.py::fused_synth_fold`` (the Pallas
+kernel ``_fold_kernel`` over ``synth_fitness._evaluate_block`` in emit-only
+mode and ``_synth_emit_looped``). The CUDA kernel is ``synth_fold_kernel`` in
+``csrc/large_frame.cu``; its note gives its bound on an H100 and its design.
+``fused_synth_fold_plain`` here is its plain PyTorch version, which the
+wrapper runs for CPU tensors.
+
+Outputs, as the reference's: ``a_plus``, ``a_minus`` (N/2, P) with
+``a+/-[r] = q[r] +- q[N-r]`` and ``a+/-[0] = q[0]``; ``edge`` (P,) f32, the
+sample ``q[N/2]``; ``mag_scale`` (P,) f32. The a's are stored candidate-major:
+each is the ``.T`` view of a contiguous (P, N/2) tensor, the layout in which
+the int8 DFT that follows runs on the tensor cores (``csrc/large_frame.cu``'s
+note has the measurement). With ``dft_scale > 0`` (the int8
+engine) ``q = round(63 * sin)`` is int8, the a's are int8 (|a| <= 126) and
+``mag_scale = |amp| * dft_scale``. Otherwise ``q`` is the bf16-rounded audio
+``sin * amp``, the fold sum is rounded to bf16 once more (the reference's
+``fold_cast``) and ``mag_scale`` is 1. The spectrum is
+``ops.spectral.magnitude_spectrum_prefolded``.
+
+Not ported, because they work around Mosaic's VMEM and compile time and
+Hopper has neither limit here: ``fold_pop_block``, ``fold_vmem_ok``,
+``_fold_budget`` (the kernel writes a+/- to device memory, so there is no
+on-chip budget to fit) and ``LOOPED_ABOVE_N`` (the unrolled and looped time
+loops are one loop in the thread).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.synthesis import topology_dims
+from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
+from .synth_fitness import (
+    DEFAULT_POP_BLOCK,
+    TIME_BLOCK,
+    chain_amp,
+    check_supported_topology,
+    inv_sample_rate,
+    resolve_pop_block,
+    synth_blocks_plain,
+    synth_params_struct,
+)
+
+
+def _check(params_scaled, topology, n):
+    check_supported_topology(topology)
+    d = params_scaled.shape[1]
+    if d != topology_dims(topology):
+        raise ValueError(f"{topology} needs {topology_dims(topology)} params, got {d}")
+    if n % (2 * TIME_BLOCK):
+        raise ValueError(f"n={n} must be a multiple of {2 * TIME_BLOCK} (the fold pairs blocks)")
+
+
+def _fold_plain_block(p, *, topology, n, inv_sr, dft_scale, sine_order):
+    int8 = dft_scale > 0.0
+    pop = p.shape[0]
+    q = torch.empty((n, pop), dtype=torch.int8 if int8 else torch.bfloat16, device=p.device)
+    amp = chain_amp(p, topology)
+    blocks = synth_blocks_plain(p, topology=topology, n=n, inv_sr=inv_sr,
+                                sine_order=sine_order, int8=int8)
+    for b, y in enumerate(blocks):
+        rows = slice(b * TIME_BLOCK, (b + 1) * TIME_BLOCK)
+        q[rows] = torch.round(y).to(torch.int8) if int8 else (y * amp).to(torch.bfloat16)
+    half = n // 2
+    # the fold in float32: exact for int8, one rounding to bf16 otherwise
+    qf = q.to(torch.float32).T  # (P, N): candidate-major, as the kernel stores it
+    rev = qf[:, half + 1 :].flip(1)  # q[N-r] for r = 1 .. N/2-1
+    a_plus, a_minus = qf[:, :half].contiguous(), qf[:, :half].contiguous()
+    a_plus[:, 1:] += rev
+    a_minus[:, 1:] -= rev
+    if int8:
+        mag_scale = torch.abs(amp) * torch.tensor(dft_scale, dtype=torch.float32)
+    else:
+        mag_scale = torch.ones((pop,), dtype=torch.float32, device=p.device)
+    return a_plus.to(q.dtype), a_minus.to(q.dtype), qf[:, half].contiguous(), mag_scale
+
+
+def fused_synth_fold_plain(
+    params_scaled: torch.Tensor,
+    *,
+    topology: str = "fm3_series",
+    n: int = 8192,
+    wavetable_size: int = DEFAULT_WAVETABLE_SIZE,
+    sample_rate: int = DEFAULT_SAMPLE_RATE,
+    pop_block: int = DEFAULT_POP_BLOCK,
+    dft_scale: float = 0.0,
+    sine_order: int = 9,
+):
+    """The plain PyTorch version of ``fused_synth_fold``, on any device, one
+    block of ``resolve_pop_block`` candidates at a time."""
+    _check(params_scaled, topology, n)
+    p = params_scaled.to(torch.float32)
+    pop = p.shape[0]
+    pb = resolve_pop_block(pop, pop_block)
+    inv_sr = inv_sample_rate(wavetable_size, sample_rate)
+    parts = [
+        _fold_plain_block(p[i : i + pb], topology=topology, n=n, inv_sr=inv_sr,
+                          dft_scale=dft_scale, sine_order=sine_order)
+        for i in range(0, pop, pb)
+    ]
+    return (
+        torch.cat([x[0] for x in parts]).T, torch.cat([x[1] for x in parts]).T,
+        torch.cat([x[2] for x in parts]), torch.cat([x[3] for x in parts]),
+    )
+
+
+def fused_synth_fold(
+    params_scaled: torch.Tensor,
+    *,
+    topology: str = "fm3_series",
+    n: int = 8192,
+    wavetable_size: int = DEFAULT_WAVETABLE_SIZE,
+    sample_rate: int = DEFAULT_SAMPLE_RATE,
+    pop_block: int = DEFAULT_POP_BLOCK,
+    dft_scale: float = 0.0,
+    sine_order: int = 9,
+):
+    """Synthesise and fold the whole population (one frame).
+
+    Returns ``(a_plus (N/2, P), a_minus (N/2, P), edge (P,), mag_scale (P,))``,
+    the a's int8 (``dft_scale > 0``) or bf16 and candidate-major (``.T``
+    views of (P, N/2) tensors); feed them to
+    ``ops.spectral.magnitude_spectrum_prefolded``. On CUDA tensors this
+    launches the B3 kernel (counted in ``fused_synth_fold.launches``); on CPU
+    tensors it runs the plain version, whose blocks ``pop_block`` sizes.
+    """
+    dev = params_scaled.device
+    if dev.type == "cpu":
+        return fused_synth_fold_plain(
+            params_scaled, topology=topology, n=n, wavetable_size=wavetable_size,
+            sample_rate=sample_rate, pop_block=pop_block, dft_scale=dft_scale,
+            sine_order=sine_order,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check(params_scaled, topology, n)
+    from ._build import check, library
+
+    params = params_scaled.to(torch.float32).contiguous()
+    pop, d = params.shape
+    int8 = dft_scale > 0.0
+    dtype = torch.int8 if int8 else torch.bfloat16
+    a_plus = torch.empty((pop, n // 2), dtype=dtype, device=dev)
+    a_minus = torch.empty((pop, n // 2), dtype=dtype, device=dev)
+    edge = torch.empty((pop,), dtype=torch.float32, device=dev)
+    mag_scale = torch.empty((pop,), dtype=torch.float32, device=dev)
+    sp = synth_params_struct(
+        topology=topology, n=n, k=0, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
+        dft_scale=dft_scale, sine_order=sine_order,
+    )
+    err = library().pmfm_synth_fold(
+        params.data_ptr(), pop, sp, a_plus.data_ptr(), a_minus.data_ptr(), edge.data_ptr(),
+        mag_scale.data_ptr(), int(int8), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(err, "fused_synth_fold")
+    fused_synth_fold.launches += 1
+    return a_plus.T, a_minus.T, edge, mag_scale
+
+
+fused_synth_fold.launches = 0

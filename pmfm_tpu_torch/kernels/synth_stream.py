@@ -1,0 +1,145 @@
+"""B4: streamed FM synthesis + Hann window, emit only (the synth_stream
+route, n >= 32768).
+
+Replaces ``pmfm_tpu/kernels/synth_stream.py::fused_synth_stream`` (the Pallas
+kernel ``_stream_kernel`` over a (pop-block, time-chunk) grid, its phase
+carries kept in scratch across the sequential time-chunk axis). The CUDA
+kernel is ``synth_stream_kernel`` in ``csrc/large_frame.cu``; its note gives
+its bound on an H100 and its design. There the time-chunk axis is the
+thread's own loop over samples, and the carries stay in registers.
+``fused_synth_stream_plain`` is its plain PyTorch version, which walks the
+time axis in chunks of ``stream_chunk(n)`` samples as the TPU grid does.
+
+Output: windowed time-major audio ``sin * amp * w[m]`` (N, P), bf16, or f32
+with ``audio_f32`` (the true-f32 engine), for
+``ops.spectral.magnitude_spectrum_factored(..., prewindowed=True)``.
+
+The phase carries are the chain's own offsets (``synth_blocks_plain``, one
+per oscillator of ``_chain_rows``); nothing here counts them a second time.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.synthesis import topology_dims
+from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
+from .synth_fitness import (
+    DEFAULT_POP_BLOCK,
+    TIME_BLOCK,
+    chain_amp,
+    check_supported_topology,
+    inv_sample_rate,
+    resolve_pop_block,
+    synth_blocks_plain,
+    synth_params_struct,
+)
+
+# time blocks per chunk of the plain version's walk (the TPU kernel's
+# BLOCKS_PER_CHUNK: one grid step)
+BLOCKS_PER_CHUNK = 8
+
+
+def stream_chunk(n: int, time_block: int = TIME_BLOCK) -> int:
+    """Time-chunk length: ``BLOCKS_PER_CHUNK`` blocks, clipped to the frame."""
+    return min(n, BLOCKS_PER_CHUNK * time_block)
+
+
+def _check(params_scaled, window, topology, n):
+    check_supported_topology(topology)
+    d = params_scaled.shape[1]
+    if d != topology_dims(topology):
+        raise ValueError(f"{topology} needs {topology_dims(topology)} params, got {d}")
+    if n % TIME_BLOCK:
+        raise ValueError(f"n={n} must be a multiple of {TIME_BLOCK}")
+    if window.dtype != torch.float32 or tuple(window.shape) != (n,) or not window.is_contiguous():
+        raise ValueError(f"window must be a contiguous float32 ({n},) tensor")
+    if window.device != params_scaled.device:
+        raise ValueError(f"window must be on {params_scaled.device}, got {window.device}")
+
+
+def fused_synth_stream_plain(
+    params_scaled: torch.Tensor,
+    window: torch.Tensor,
+    *,
+    topology: str = "fm3_series",
+    n: int = 65536,
+    wavetable_size: int = DEFAULT_WAVETABLE_SIZE,
+    sample_rate: int = DEFAULT_SAMPLE_RATE,
+    pop_block: int = DEFAULT_POP_BLOCK,
+    sine_order: int = 9,
+    audio_f32: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of ``fused_synth_stream``, on any device."""
+    _check(params_scaled, window, topology, n)
+    p = params_scaled.to(torch.float32)
+    pop = p.shape[0]
+    pb = resolve_pop_block(pop, pop_block)
+    inv_sr = inv_sample_rate(wavetable_size, sample_rate)
+    out = torch.empty((n, pop), dtype=torch.float32 if audio_f32 else torch.bfloat16,
+                      device=p.device)
+    tc = stream_chunk(n)
+    for i in range(0, pop, pb):
+        blk = p[i : i + pb]
+        amp = chain_amp(blk, topology)
+        blocks = synth_blocks_plain(blk, topology=topology, n=n, inv_sr=inv_sr,
+                                    sine_order=sine_order, int8=False)
+        chunk = []
+        for b, y in enumerate(blocks):
+            chunk.append(y * amp)
+            t1 = (b + 1) * TIME_BLOCK
+            if t1 % tc == 0 or t1 == n:  # a chunk is complete: window it, emit it
+                t0 = t1 - len(chunk) * TIME_BLOCK
+                audio = torch.cat(chunk) * window[t0:t1, None]
+                out[t0:t1, i : i + pb] = audio.to(out.dtype)
+                chunk = []
+    return out
+
+
+def fused_synth_stream(
+    params_scaled: torch.Tensor,
+    window: torch.Tensor,
+    *,
+    topology: str = "fm3_series",
+    n: int = 65536,
+    wavetable_size: int = DEFAULT_WAVETABLE_SIZE,
+    sample_rate: int = DEFAULT_SAMPLE_RATE,
+    pop_block: int = DEFAULT_POP_BLOCK,
+    sine_order: int = 9,
+    audio_f32: bool = False,
+) -> torch.Tensor:
+    """Synthesise and window the whole population (one frame).
+
+    Returns windowed time-major audio ``(N, P)``: bf16, or f32 when
+    ``audio_f32``. On CUDA tensors this launches the B4 kernel (counted in
+    ``fused_synth_stream.launches``); on CPU tensors it runs the plain
+    version, whose blocks ``pop_block`` sizes.
+    """
+    dev = params_scaled.device
+    if dev.type == "cpu":
+        return fused_synth_stream_plain(
+            params_scaled, window, topology=topology, n=n, wavetable_size=wavetable_size,
+            sample_rate=sample_rate, pop_block=pop_block, sine_order=sine_order,
+            audio_f32=audio_f32,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check(params_scaled, window, topology, n)
+    from ._build import check, library
+
+    params = params_scaled.to(torch.float32).contiguous()
+    pop, d = params.shape
+    out = torch.empty((n, pop), dtype=torch.float32 if audio_f32 else torch.bfloat16, device=dev)
+    sp = synth_params_struct(
+        topology=topology, n=n, k=0, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
+        dft_scale=0.0, sine_order=sine_order,
+    )
+    err = library().pmfm_synth_stream(
+        params.data_ptr(), pop, sp, window.data_ptr(), out.data_ptr(), int(audio_f32),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(err, "fused_synth_stream")
+    fused_synth_stream.launches += 1
+    return out
+
+
+fused_synth_stream.launches = 0

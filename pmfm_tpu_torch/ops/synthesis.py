@@ -9,8 +9,10 @@ is the batch axis. Audio is time-major ``(n_samples, pop)``.
   amplitude (k = 3 is the reference DoubleSeries)
 * ``fm{k}_parallel`` — k independent 2-op pairs averaged (k >= 2), 4k params
 
-Only the ``scan`` engine is ported: the sequential recurrence that gives the
-target audio from known parameters. The scanless engine waits for its slice.
+Two engines: ``scan``, the sequential recurrence (the reference's bit-parity
+path, a Python loop over samples), and ``scanless`` (``ops/scanless.py``),
+the blocked prefix-sum form that the large-frame configs use for their
+target and their resynthesised best candidate.
 """
 from __future__ import annotations
 
@@ -77,12 +79,25 @@ def synthesize(
     sample_rate: int = DEFAULT_SAMPLE_RATE,
     osc_mode: str = "floor",
     wavetable: torch.Tensor | None = None,
+    engine: str = "scan",
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Batched FM synthesis of ``(pop, dims)`` scaled parameters into
-    ``(n_samples, pop)`` float32 audio, by the sequential recurrence."""
+    ``(n_samples, pop)`` audio: by the sequential recurrence (``engine="scan"``)
+    or the blocked prefix sums of ``ops/scanless.py`` (``"scanless"``, which
+    ignores ``osc_mode`` and ``wavetable``)."""
     want = topology_dims(topology)
     if params_scaled.shape[-1] != want:
         raise ValueError(f"topology {topology} needs {want} dims, got {params_scaled.shape[-1]}")
+    if engine == "scanless":
+        from .scanless import synthesize_scanless
+
+        return synthesize_scanless(
+            params_scaled, n_samples, topology, wavetable_size=wavetable_size,
+            sample_rate=sample_rate, out_dtype=out_dtype,
+        )
+    if engine != "scan":
+        raise ValueError(f"engine must be 'scan' or 'scanless', got {engine!r}")
     p = params_scaled.to(torch.float32)
     osc = make_osc(osc_mode, wavetable_size, wavetable)
     w2sr = float(torch.tensor(wavetable_size / float(sample_rate), dtype=torch.float32))
@@ -146,7 +161,7 @@ def synthesize(
     audio = torch.empty((n_samples, pop), dtype=torch.float32, device=p.device)
     for t in range(n_samples):
         carry, audio[t] = step(carry)
-    return audio
+    return audio.to(out_dtype)
 
 
 def synthesize_single(

@@ -10,9 +10,19 @@ import numpy as np
 import pytest
 import torch
 
-from pmfm_tpu_torch.es import ESConfig, evolve, init_state, kernel_seed, make_spectrum_ops
+from pmfm_tpu_torch.es import (
+    ESConfig,
+    active_engine,
+    evolve,
+    init_state,
+    kernel_seed,
+    make_spectrum_ops,
+)
 from pmfm_tpu_torch.kernels import generation as gn
 from pmfm_tpu_torch.kernels import synth_fitness as sf
+from pmfm_tpu_torch.kernels import synth_fold as sfo
+from pmfm_tpu_torch.kernels import synth_stream as sst
+from pmfm_tpu_torch.ops import hann_window
 from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
 from pmfm_tpu_torch.ops.synthesis import topology_dims
 
@@ -86,3 +96,58 @@ def test_evolve_runs_through_the_kernels(cuda, fused_generation):
     assert counter.launches - before == 20
     assert torch.isfinite(traj).all() and float(traj[-1]) < float(traj[0])
     assert final.parent_values.device.type == "cuda"
+
+
+def _params(dev, pop, d=6, seed=0):
+    rng = np.random.default_rng(seed)
+    maxs = np.asarray((3520.0, 8.0) * (d // 2), np.float32)
+    return torch.from_numpy((rng.random((pop, d)) * maxs).astype(np.float32)).to(dev)
+
+
+# sine order 9 is match_audio's default and its refine tail's (bf16 mode)
+@pytest.mark.parametrize("topology,n,dft_scale,sine_order", [
+    ("fm3_series", 8192, 1e-5, 7), ("fm3_series", 4096, 0.0, 7), ("fm2", 16384, 1e-5, 7),
+    ("fm3_series", 8192, 1e-5, 9), ("fm3_series", 8192, 0.0, 9)])
+def test_b3_kernel_bit_equal_to_plain(cuda, topology, n, dft_scale, sine_order):
+    d = 4 if topology == "fm2" else 6
+    p = _params(cuda, 1000, d)  # not a multiple of the 32-candidate block
+    kw = dict(topology=topology, n=n, sine_order=sine_order, dft_scale=dft_scale)
+    before = sfo.fused_synth_fold.launches
+    got = sfo.fused_synth_fold(p, **kw)
+    assert sfo.fused_synth_fold.launches == before + 1
+    want = sfo.fused_synth_fold_plain(p, pop_block=1000, **kw)
+    assert got[0].dtype == (torch.int8 if dft_scale > 0 else torch.bfloat16)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("audio_f32", [False, True])
+def test_b4_kernel_bit_equal_to_plain(cuda, audio_f32):
+    n = 32768
+    p = _params(cuda, 500)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    before = sst.fused_synth_stream.launches
+    got = sst.fused_synth_stream(p, win, n=n, sine_order=9, audio_f32=audio_f32)
+    assert sst.fused_synth_stream.launches == before + 1
+    want = sst.fused_synth_stream_plain(p, win, n=n, sine_order=9, audio_f32=audio_f32,
+                                        pop_block=500)
+    assert got.dtype == (torch.float32 if audio_f32 else torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("log2n,engine,counter", [(13, "synth_fold", sfo.fused_synth_fold),
+                                                  (15, "synth_stream", sst.fused_synth_stream)])
+def test_evolve_runs_through_the_large_frame_kernels(cuda, log2n, engine, counter):
+    n = 1 << log2n
+    cfg = ESConfig(num_parents=64, num_offspring=4032, audio_length_log2=log2n,
+                   synthesis_engine="scanless", dft_dtype="int8", sine_order=7,
+                   fused_generation=True, pop_block=1024)
+    so = make_spectrum_ops(cfg, device=cuda)
+    assert active_engine(cfg, so) == engine
+    audio = synthesize_single(torch.tensor(TRUTH[:6]), n, cfg.topology, engine="scanless")
+    tgt = target_spectrum(audio.to(cuda), so)
+    launches = (counter.launches, sf.fused_synth_fitness.launches, gn.fused_generation.launches)
+    final, traj = evolve(init_state(0, cfg, device=cuda), tgt, 5, so, cfg, record_trajectory=True)
+    assert counter.launches - launches[0] == 5
+    assert (sf.fused_synth_fitness.launches, gn.fused_generation.launches) == launches[1:]
+    assert torch.isfinite(traj).all() and float(traj[-1]) < float(traj[0])

@@ -46,7 +46,9 @@ def _run(code_or_args, cwd, env_extra=None):
 def test_import_loads_no_jax_and_builds_nothing():
     code = (
         "import sys, pmfm_tpu_torch, pmfm_tpu_torch.es, pmfm_tpu_torch.ops, "
-        "pmfm_tpu_torch.kernels, pmfm_tpu_torch.interop\n"
+        "pmfm_tpu_torch.kernels, pmfm_tpu_torch.interop, pmfm_tpu_torch.io, "
+        "pmfm_tpu_torch.ops.scanless, pmfm_tpu_torch.kernels.synth_fold, "
+        "pmfm_tpu_torch.kernels.synth_stream\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pmfm_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pmfm_tpu_torch.kernels import _build\n"
@@ -54,6 +56,17 @@ def test_import_loads_no_jax_and_builds_nothing():
     )
     res = _run(["-c", code], REPO)
     assert res.returncode == 0, res.stderr
+
+
+def test_one_build_covers_every_kernel_source():
+    """One nvcc call compiles every .cu file, and the library's name hashes
+    every source and header, so an edit to the shared synthesis rebuilds."""
+    from pmfm_tpu_torch.kernels import _build
+
+    names = [p.name for p in _build.sources()]
+    assert names == ["fused_eval.cu", "large_frame.cu"]
+    assert (_build.CSRC / "synth_common.cuh").exists()
+    assert _build.library_path().parent == _build.BUILD_DIR
 
 
 def test_chip_smoke_without_a_card_fails_and_prints_no_result():

@@ -1,0 +1,128 @@
+"""Chunked matching, configuration and WAV I/O of the port against the
+reference, on the CPU.
+
+``match_audio`` runs the large-frame route at n = 4096 (B3 synth_fold, in
+its plain version here; the reference's Pallas kernel in interpret mode).
+The two packages draw from different generators (ROADMAP Queue C), so the
+runs are compared by outcome, as tests/test_torch_es.py compares ``evolve``:
+over four seeds, the median best fitness of the port must lie within a
+factor of 4 of the reference's.
+"""
+import dataclasses
+import glob
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pmfm_tpu.es import ESConfig as JConfig
+from pmfm_tpu.es.pipeline import match_audio as j_match_audio
+from pmfm_tpu.io import config as jconfig
+from pmfm_tpu.io import wav as jwav
+from pmfm_tpu.ops import synthesize as j_synthesize
+from pmfm_tpu_torch.es import ESConfig, match_audio
+from pmfm_tpu_torch.es import pipeline as tpipeline
+from pmfm_tpu_torch.io import config as tconfig
+from pmfm_tpu_torch.io import wav as twav
+
+REPO = Path(__file__).resolve().parent.parent
+MATCH_FACTOR = 4.0
+SEEDS = range(4)
+GENS = 6
+SLICE = dict(num_parents=8, num_offspring=120, num_dimensions=4, topology="fm2",
+             param_mins=(0.0,) * 4, param_maxs=(3520.0, 8.0) * 2, audio_length_log2=12,
+             synthesis_engine="scanless", dft_dtype="int8", sine_order=7, fused_kernel=True,
+             fused_generation=True, pop_block=128)
+CHUNK_PARAMS = [(3078.0, 2.0, 3015.0, 1.5), (1000.0, 1.0, 2000.0, 1.0)]
+
+
+def _target():
+    """Two 4096-sample chunks, each a known fm2 tone, plus a ragged tail."""
+    audio = np.asarray(j_synthesize(jnp.asarray(CHUNK_PARAMS, jnp.float32), 4096, "fm2",
+                                    engine="scanless"))
+    return np.concatenate([audio.T.reshape(-1), np.zeros(100, np.float32)])
+
+
+def test_match_audio_matches_reference_outcome():
+    target = _target()
+    jc, tc = JConfig(**SLICE), ESConfig(**SLICE)
+    ref = [j_match_audio(target, jc, key=s, num_generations=GENS) for s in SEEDS]
+    got = [match_audio(target, tc, seed=s, num_generations=GENS, device="cpu") for s in SEEDS]
+    for r in got:
+        assert len(r.chunks) == 2 and r.output_audio.shape == (8192,)
+        assert np.isfinite(r.output_audio).all()
+        for c in r.chunks:
+            assert c.generations_run == GENS and np.isfinite(c.best_fitness)
+            assert c.best_params_scaled.shape == (4,) and c.refine_start_fitness is None
+    assert all(len(r.chunks) == 2 and r.output_audio.shape == (8192,) for r in ref)
+    for i in range(2):
+        ref_med = np.median([r.chunks[i].best_fitness for r in ref])
+        got_med = np.median([r.chunks[i].best_fitness for r in got])
+        assert ref_med / MATCH_FACTOR <= got_med <= ref_med * MATCH_FACTOR, (i, got_med, ref_med)
+
+
+def test_match_audio_refine_tail():
+    """The refine tail at n = 4096 runs B3's bf16 mode against the f32
+    spectrum; best-ever never rises within it."""
+    target = _target()
+    cfg = ESConfig(**SLICE).replace(refine_generations=3)
+    res = match_audio(target, cfg, seed=1, num_generations=GENS, record_trajectory=True,
+                      device="cpu")
+    for c in res.chunks:
+        assert c.trajectory.shape == (GENS,)
+        tail = c.trajectory[GENS - 3 :]
+        assert np.all(np.diff(tail) <= 0)
+        assert c.best_fitness <= c.refine_start_fitness
+        assert c.best_fitness == tail[-1]
+
+
+def test_refine_tail_at_small_frames_raises_before_work(monkeypatch):
+    def no_work(*a, **k):
+        raise AssertionError("match_audio built operands before raising")
+
+    monkeypatch.setattr(tpipeline, "make_spectrum_ops", no_work)
+    cfg = ESConfig(**{**SLICE, "audio_length_log2": 11, "refine_generations": 2})
+    with pytest.raises(NotImplementedError, match="true-f32"):
+        match_audio(np.zeros(4096, np.float32), cfg, num_generations=4, device="cpu")
+
+
+def test_match_audio_rejects_short_target():
+    with pytest.raises(ValueError, match="shorter than one chunk"):
+        match_audio(np.zeros(100, np.float32), ESConfig(**SLICE), device="cpu")
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(str(REPO / "examples" / "*.json"))),
+                         ids=lambda p: Path(p).name)
+def test_parse_config_matches_reference(path):
+    want = jconfig.load_config(path)
+    got = tconfig.load_config(path)
+    assert dataclasses.asdict(got.es) == dataclasses.asdict(want.es)
+    for f in dataclasses.fields(want):
+        if f.name != "es":
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+
+
+def test_read_wav_matches_reference(tmp_path):
+    path = REPO / "input_audio" / "input.wav"
+    want, sr_want = jwav.read_wav(path)
+    got, sr = twav.read_wav(path)
+    assert sr == sr_want == 44100 and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    audio, _ = twav.read_audio(path)
+    np.testing.assert_array_equal(audio, want)
+    for depth in (16, 24, 32, 0):
+        out = tmp_path / f"x{depth}.wav"
+        twav.write_wav(out, want[:1000], sr, bit_depth=depth)
+        back, sr_back = jwav.read_wav(out)
+        assert sr_back == sr and np.abs(back - want[:1000]).max() <= 2.0 ** -14
+
+
+def test_match_audio_output_is_a_tensor_free_result():
+    """The results are numpy and plain floats, so a caller needs no device."""
+    res = match_audio(_target()[:4096], ESConfig(**SLICE), seed=0, num_generations=2,
+                      device="cpu")
+    c = res.chunks[0]
+    assert isinstance(c.best_fitness, float) and isinstance(c.best_params_norm, np.ndarray)
+    assert res.best_chunk is c and not isinstance(res.output_audio, torch.Tensor)

@@ -149,5 +149,8 @@ def test_config_rejects_what_reference_rejects(bad):
 def test_unported_spectrum_methods_raise():
     with pytest.raises(NotImplementedError):
         tspec.make_spectrum_ops(256, method="rfft", device="cpu")
+    # above DFT_MAX_MATERIALIZE_N a size that does not factor falls back to
+    # rfft in the reference, which is not ported; a power of two factors
     with pytest.raises(NotImplementedError):
-        tspec.make_spectrum_ops(32768, device="cpu")
+        tspec.make_spectrum_ops(24576, device="cpu")
+    assert tspec.make_spectrum_ops(32768, device="cpu").method == "dft_factored"
