@@ -13,7 +13,17 @@ through the entry points a user calls, and times each kernel:
   against their plain versions, ``evolve`` at n 8192 (pop 2^15, B3 + the
   folded int8 DFT) and at n 65536 (pop 2^13, B4 + the factored DFT),
   ``match_audio`` over ``input_audio/input.wav`` at n 8192 with the refine
-  tail, and the kernels' and spectra's times.
+  tail, and the kernels' and spectra's times;
+* phases 12-16, the true-f32 mode of B1/B2 and the whole-run kernel B5:
+  B1/B2 f32 against their plain versions at the shipped refine tail's
+  settings (n 1024, pop 2^15) and at ``examples/audio_match.json``'s
+  (n 2048, pop 4096); B5 against a loop of the B2 kernel with the exact
+  stable selection (bit-equal, int8 and f32) and against its plain version;
+  ``evolve`` with ``fused_evolve`` at the bench config; the shipped path
+  (``examples/params_match.json`` through ``_evolve_on_target``: 900
+  generations of B2 in int8, 100 in f32) and ``match_audio`` running
+  ``examples/audio_match.json`` as written; the new kernels' times and the
+  port's bench (``pmfm_tpu_torch/bench.py``, one repetition).
 
 One flushed line per phase; every time is printed beside the card's name and
 power limit.
@@ -25,6 +35,7 @@ watchdog ends a hung run with a traceback and a non-zero code.
 """
 import faulthandler
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -47,7 +58,19 @@ FOLD_LOG2N, FOLD_POP, FOLD_GENERATIONS = 13, 1 << 15, 30  # (c) synth_fold, B3
 STREAM_LOG2N, STREAM_POP, STREAM_GENERATIONS = 16, 1 << 13, 10  # (d) synth_stream, B4
 MATCH_CONFIG, MATCH_LOG2N = "examples/audio_match.json", 13  # (e) match_audio
 MATCH_GENERATIONS, MATCH_REFINE = 40, 10
-KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream")
+# the third slice: B1/B2 f32 and B5
+SHIPPED_CONFIG = "examples/params_match.json"  # n 1024, pop 2^15, 100-generation f32 tail
+AUDIO_CONFIG = "examples/audio_match.json"  # n 2048, pop 4096, as written
+AUDIO_GENERATIONS = 110  # per chunk: 10 of int8, then the config's 100 of f32
+EVOLVE_CHECK_GENERATIONS, EVOLVE_PLAIN_GENERATIONS, EVOLVE_TIMED_GENERATIONS = 20, 2, 10
+# a population whose last CUDA block is only partly filled: not a multiple
+# of the f32 mode's 16 candidates a block, the int8 mode's 64, or the 4
+# fitness values of B5's selection loads
+RAGGED_POP = 4001
+# JSON entries: a kernel, or a kernel in its true-f32 mode (the same wrapper
+# and counter; the f32 entries' launches are read on the refine tail)
+KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream",
+           "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -58,6 +81,13 @@ KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused
 FIT_MAX_REL, FIT_MEDIAN_REL = 1e-3, 1e-5
 # B2 steps: exp/pow may differ by an ulp or two between libm builds.
 STEP_MAX_REL = 1e-6
+# B1/B2 true f32: the same f32 audio on both sides; the kernel's DFT sums
+# each bin in sample order with exact-product FMAs, the plain version in a
+# float32 matrix product's order, so every magnitude moves by float32
+# rounding. Limits set from the first measurement of these kernels on an
+# H100 (max 1.6e-6, median 1.04e-7 over both settings, the truth included),
+# with ~6x and ~10x room; below the int8 gate above.
+F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL = 1e-5, 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 FLOP/s
 PEAK_BYTES, PEAK_INT8, PEAK_F32 = 3.35e12, 1979e12, 67e12
@@ -119,6 +149,22 @@ def synth_ops_f32(pop: int, n: int, k: int, kn: int, ncoef: int) -> float:
     return float(pop) * (n * per_sample + 12 * k)
 
 
+def ptxas_summary(log: str):
+    """(kernel<template arguments>, registers, spill-store bytes) of each
+    kernel instantiation in nvcc's ``-Xptxas -v`` report."""
+    rows = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I(\w*?)EEv", ln)
+        if m:
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2) + "E"))
+            rows.append([f"{m.group(1)}<{args}>", "?", "?"])
+        elif rows and rows[-1][1] == "?" and (r := re.search(r"Used (\d+) registers", ln)):
+            rows[-1][1] = r.group(1)
+        elif rows and rows[-1][2] == "?" and (r := re.search(r"(\d+) bytes spill stores", ln)):
+            rows[-1][2] = r.group(1)
+    return rows
+
+
 def bound(bytes_moved: float, int8_ops: float, f32_ops: float):
     times = {
         "bytes": bytes_moved / PEAK_BYTES,
@@ -133,6 +179,7 @@ class Smoke:
         self.dev = torch.device(device)
         self.kernels = {}
         self.failed = []
+        self.cell_ms = {}
 
     def phase(self, name, fn):
         log(f"phase {name}: start")
@@ -168,9 +215,8 @@ class Smoke:
 
         res = _build.build()
         log(f"nvcc: built={res['built']} in {res['seconds']:.1f}s -> {res['path']}")
-        for ln in res["log"].splitlines():
-            if any(w in ln for w in ("Compiling entry", "registers", "spill", "smem")):
-                print("  ptxas " + ln.strip(), flush=True)
+        for name, regs, spill in ptxas_summary(res["log"]):
+            print(f"  ptxas {name}: {regs} registers, {spill} bytes spill stores", flush=True)
         _build.library()
 
     # -- shared inputs --------------------------------------------------------
@@ -209,13 +255,9 @@ class Smoke:
         )
 
     def b2_kwargs(self, pop_block):
-        c = self.cfg
-        return dict(
-            pop=POP, param_mins=c.param_mins, param_maxs=c.param_maxs,
-            alpha=c.alpha, beta=c.beta, beta_scale=c.beta_scale,
-            root_two_over_pi=c.root_two_over_pi, clamp_values=c.clamp_values,
-            min_step=c.min_step, **self.b1_kwargs(pop_block),
-        )
+        from pmfm_tpu_torch.es.pipeline import fused_generation_kwargs
+
+        return dict(fused_generation_kwargs(self.cfg, self.so), pop_block=pop_block)
 
     # -- 3 ------------------------------------------------------------------
     def b1_vs_plain(self):
@@ -282,20 +324,17 @@ class Smoke:
     # -- 5 ------------------------------------------------------------------
     def evolve_run(self, cfg, name):
         from pmfm_tpu_torch.es import evolve, init_state
-        from pmfm_tpu_torch.kernels import fused_generation, fused_synth_fitness
 
         evolve(init_state(1, cfg, device=self.dev), self.target, 2, self.so, cfg)  # warm-up
         state = init_state(7, cfg, device=self.dev)
         torch.cuda.synchronize()
-        fused_generation.launches = 0
-        fused_synth_fitness.launches = 0
+        self.reset_counts()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         final, traj = evolve(state, self.target, GENERATIONS, self.so, cfg, record_trajectory=True)
         b.record()
         b.synchronize()
-        launches = {"fused_generation": fused_generation.launches,
-                    "fused_synth_fitness": fused_synth_fitness.launches}
+        launches = self.read_counts()
         ms = a.elapsed_time(b)
         traj = traj.cpu()
         best = (self.mins + final.best_values * (self.maxs - self.mins)).cpu().tolist()
@@ -307,16 +346,16 @@ class Smoke:
         require(bool((traj[1:] <= traj[:-1]).all()), "best-ever fitness must not increase")
         require(float(traj[-1]) < float(traj[0]), "evolve did not improve the best fitness")
         require(bool(torch.isfinite(final.best_values).all()), "best values not finite")
-        return launches
+        return launches, ms / GENERATIONS
 
     def evolve_both(self):
-        la = self.evolve_run(self.cfg, "a: fused_generation -> B2")
+        la, self.cell_ms["a"] = self.evolve_run(self.cfg, "a: fused_generation -> B2")
         require(la["fused_generation"] == GENERATIONS, "B2 launches != generations")
-        require(la["fused_synth_fitness"] == 0, "setting (a) launched B1")
+        require(sum(la.values()) == GENERATIONS, "setting (a) launched another kernel")
         cfg_b = self.cfg.replace(fused_generation=False)
-        lb = self.evolve_run(cfg_b, "b: fused_kernel -> torch offspring + B1")
+        lb, _ = self.evolve_run(cfg_b, "b: fused_kernel -> torch offspring + B1")
         require(lb["fused_synth_fitness"] >= GENERATIONS, "B1 launches < generations")
-        require(lb["fused_generation"] == 0, "setting (b) launched B2")
+        require(lb["fused_synth_fitness"] == sum(lb.values()), "setting (b) launched another kernel")
         self.kernels.setdefault("fused_generation", {})["launches"] = la["fused_generation"]
         self.kernels.setdefault("fused_synth_fitness", {})["launches"] = lb["fused_synth_fitness"]
 
@@ -367,7 +406,7 @@ class Smoke:
     def counters():
         from pmfm_tpu_torch import kernels
 
-        return {name: getattr(kernels, name) for name in KERNELS}
+        return {name: getattr(kernels, name) for name in kernels.__all__}
 
     def reset_counts(self):
         for fn in self.counters().values():
@@ -380,7 +419,7 @@ class Smoke:
         from pmfm_tpu_torch.es import make_spectrum_ops
         from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
 
-        self.cells, self.cell_ms = {}, {}
+        self.cells = {}
         rng = np.random.default_rng(SEED + 1)
         for key, log2n, pop in (("fold", FOLD_LOG2N, FOLD_POP), ("stream", STREAM_LOG2N, STREAM_POP)):
             cfg = self.cfg.replace(audio_length_log2=log2n, num_offspring=pop - MU)
@@ -551,8 +590,8 @@ class Smoke:
         seconds = time.perf_counter() - t0
         counts = self.read_counts()
         log(f"match_audio ({MATCH_CONFIG}, n={n}, P={cfg.population_size}, {g} generations, "
-            f"the last {r} refine): {len(res.chunks)} chunks of {len(audio)} samples in "
-            f"{seconds:.2f}s {card()}; launches {counts}")
+            f"the last {r} refine): {len(res.chunks)} chunks of {n} samples from a file of "
+            f"{len(audio)} samples in {seconds:.2f}s {card()}; launches {counts}")
         require(len(res.chunks) == len(audio) // n == 2, "chunk count")
         require(res.output_audio.shape == (2 * n,) and np.isfinite(res.output_audio).all(),
                 "output audio")
@@ -569,7 +608,8 @@ class Smoke:
         # per chunk: g - r int8 generations, one bf16 rescore, r bf16 generations
         require(counts["fused_synth_fold"] == 2 * (g + 1), "B3 launches")
         require(counts["fused_synth_fitness"] == counts["fused_generation"] ==
-                counts["fused_synth_stream"] == 0, "match_audio launched another kernel")
+                counts["fused_synth_stream"] == counts["fused_evolve"] == 0,
+                "match_audio launched another kernel")
 
     # -- 11 -----------------------------------------------------------------
     def large_timings(self):
@@ -666,6 +706,362 @@ class Smoke:
         log(f"factored DFT f32 (TF32 off; the refine tail's engine), n={ns} P={STREAM_POP}: "
             f"{ms:.4f} ms {card()}")
 
+    # -- third slice: shared inputs -----------------------------------------------
+    def f32_settings(self):
+        """(label, ESConfig) of each path that runs B1/B2 in f32: the shipped
+        config's refine tail (n 1024, pop 2^15) and audio_match.json's
+        (n 2048, pop 4096), and the latter at ``RAGGED_POP``."""
+        from pmfm_tpu_torch.io import load_config
+
+        audio = load_config(AUDIO_CONFIG).es.refine_config()
+        ragged = audio.replace(num_offspring=RAGGED_POP - audio.num_parents)
+        return (("shipped refine tail", load_config(SHIPPED_CONFIG).es.refine_config()),
+                ("audio_match refine tail", audio),
+                ("audio_match refine tail, ragged P", ragged))
+
+    def inputs(self, cfg, seed):
+        """Operands, the known-params target, candidates (the truth first) and
+        parents of ``cfg``, from ``seed``."""
+        from pmfm_tpu_torch.es import make_spectrum_ops
+        from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+
+        so = make_spectrum_ops(cfg, device=self.dev)
+        audio = synthesize_single(torch.tensor(TRUTH), cfg.n_samples, cfg.topology)
+        rng = np.random.default_rng(seed)
+        pop, mu = cfg.population_size, cfg.num_parents
+        cand = (rng.random((pop, D)) * np.asarray(cfg.param_maxs)).astype(np.float32)
+        cand[0] = TRUTH
+        pv = rng.random((mu, D)).astype(np.float32)
+        ps = rng.uniform(0.02, 0.3, (mu, D)).astype(np.float32)
+        dev = lambda a: torch.from_numpy(a).to(self.dev)  # noqa: E731
+        return dict(cfg=cfg, so=so, target=target_spectrum(audio.to(self.dev), so),
+                    params=dev(cand), pv=dev(pv), ps=dev(ps))
+
+    @staticmethod
+    def kw_b1(c):
+        cfg, so = c["cfg"], c["so"]
+        return dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=cfg.topology,
+                    n=cfg.n_samples, pop_block=cfg.population_size, sine_order=cfg.sine_order)
+
+    @staticmethod
+    def kw_b2(c):
+        from pmfm_tpu_torch.es.pipeline import fused_generation_kwargs
+
+        return dict(fused_generation_kwargs(c["cfg"], c["so"]), pop_block=c["cfg"].population_size)
+
+    # -- 12 -----------------------------------------------------------------
+    def f32_vs_plain(self):
+        """B1 and B2 in the true-f32 mode at each refine tail's settings."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        self.f32 = {}
+        worst = {"fused_synth_fitness_f32": 0.0, "fused_generation_f32": 0.0}
+        for i, (label, cfg) in enumerate(self.f32_settings()):
+            c = self.inputs(cfg, SEED + 10 + i)
+            self.f32[label] = c
+            require(c["so"].dft_packed.dtype == torch.float32 and c["so"].dft_packed_scale == 0.0,
+                    "the refine tail's operand is not the float32 one")
+            where = f"{label}: n={cfg.n_samples}, P={cfg.population_size}, sine order {cfg.sine_order}"
+            fk = sf.fused_synth_fitness(c["params"], c["target"], **self.kw_b1(c))
+            torch.cuda.synchronize()
+            fp = sf.fused_synth_fitness_plain(c["params"], c["target"], **self.kw_b1(c))
+            require(bool(torch.isfinite(fk).all()), "B1 f32 fitness not finite")
+            e = rel_err(fk, fp)
+            mx, med = float(e.max()), float(e.median())
+            rk, rp = int(torch.argmin(fk)), int(torch.argmin(fp))
+            log(f"B1 f32 vs plain ({where}): max rel {mx:.3e} median rel {med:.3e} (tolerance "
+                f"{F32_FIT_MAX_REL:g} / {F32_FIT_MEDIAN_REL:g}); truth rank kernel {rk} plain {rp}; "
+                f"truth fitness {float(fk[0]):.6g}")
+            require(mx <= F32_FIT_MAX_REL and med <= F32_FIT_MEDIAN_REL,
+                    "B1 f32 disagrees with its plain version")
+            require(rk == 0 and rp == 0, "the known-params truth does not rank first")
+            worst["fused_synth_fitness_f32"] = max(worst["fused_synth_fitness_f32"],
+                                                   float((fk - fp).abs().max()))
+            seed = kernel_seed(SEED, 5 + i)
+            fk, vk, sk = gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **self.kw_b2(c))
+            torch.cuda.synchronize()
+            fp, vp, sp = gn.fused_generation_plain(seed, c["pv"], c["ps"], c["target"],
+                                                   **self.kw_b2(c))
+            require(bool(torch.isfinite(fk).all() and torch.isfinite(vk).all()),
+                    "B2 f32 output not finite")
+            v_diff, s_rel = float((vk - vp).abs().max()), float(rel_err(sk, sp).max())
+            e = rel_err(fk, fp)
+            mx, med = float(e.max()), float(e.median())
+            log(f"B2 f32 vs plain ({where}, min_step {cfg.min_step:g}): values max abs diff "
+                f"{v_diff:.3e} (must be 0), steps max rel {s_rel:.3e} (tolerance "
+                f"{STEP_MAX_REL:g}), fitness max rel {mx:.3e} median rel {med:.3e}")
+            require(v_diff == 0.0, "B2 f32 offspring values are not bit-equal to the plain version")
+            require(s_rel <= STEP_MAX_REL, "B2 f32 offspring steps disagree with the plain version")
+            require(mx <= F32_FIT_MAX_REL and med <= F32_FIT_MEDIAN_REL, "B2 f32 fitness disagrees")
+            worst["fused_generation_f32"] = max(worst["fused_generation_f32"],
+                                                float((fk - fp).abs().max()))
+        for name, err in worst.items():
+            self.kernels[name] = {"max_abs_err": err}
+
+    # -- 13 -----------------------------------------------------------------
+    def b5_vs_b2(self):
+        """B5 bit-equal to G launches of the B2 kernel with the exact stable
+        selection (int8 at the bench config, f32 at audio_match.json's refine
+        tail, each also at ``RAGGED_POP``), and within the B2 limits of its
+        plain version."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+
+        names = ("parent values", "parent steps", "parent fitness", "best values",
+                 "best fitness", "trajectory")
+        bench = dict(cfg=self.cfg, so=self.so, target=self.target, pv=self.parents_v,
+                     ps=self.parents_s)
+
+        def args(c):
+            best_f = torch.tensor(float("inf"), device=self.dev)
+            return c["pv"], c["ps"], c["pv"][0].clone(), best_f, c["target"]
+
+        ragged = self.inputs(self.cfg.replace(num_offspring=RAGGED_POP - MU), SEED + 20)
+        for label, c in (("int8, bench config", bench),
+                         ("int8, bench config, ragged P", ragged),
+                         ("f32, audio_match refine tail", self.f32["audio_match refine tail"]),
+                         ("f32, audio_match refine tail, ragged P",
+                          self.f32["audio_match refine tail, ragged P"])):
+            cfg = c["cfg"]
+            seeds = [kernel_seed(SEED, 100 + g) for g in range(EVOLVE_CHECK_GENERATIONS)]
+            out = ev.fused_evolve(seeds, *args(c), **self.kw_b2(c))
+            torch.cuda.synchronize()
+            loop = ev.fused_evolve_plain(seeds, *args(c), generation=gn.fused_generation,
+                                         **self.kw_b2(c))
+            equal = all(torch.equal(a, b) for a, b in zip(out, loop))
+            diffs = {nm: float((a - b).abs().max()) for nm, a, b in zip(names, out, loop)}
+            traj = out[5].cpu()
+            log(f"B5 vs {len(seeds)} B2 launches + stable selection ({label}: n={cfg.n_samples}, "
+                f"P={cfg.population_size}, mu={cfg.num_parents}; one launch of "
+                f"{ev.fused_evolve.grid} blocks): bit-equal {equal}; max abs diff {diffs}; "
+                f"best-ever first {float(traj[0]):.6g} last {float(traj[-1]):.6g}")
+            require(equal, "B5 is not bit-equal to the loop of B2 launches")
+            require(bool(torch.isfinite(traj).all() and (traj[1:] <= traj[:-1]).all()),
+                    "B5 best-ever trajectory")
+            require(float(out[4]) == float(traj[-1]), "B5 best fitness != trajectory end")
+        seeds = [kernel_seed(SEED, 200 + g) for g in range(EVOLVE_PLAIN_GENERATIONS)]
+        out = ev.fused_evolve(seeds, *args(bench), **self.kw_b2(bench))
+        torch.cuda.synchronize()
+        plain = ev.fused_evolve_plain(seeds, *args(bench), **self.kw_b2(bench))
+        e_pf, e_tr = rel_err(out[2], plain[2]), rel_err(out[5], plain[5])
+        log(f"B5 vs plain (int8, bench config, {len(seeds)} generations): parent fitness max rel "
+            f"{float(e_pf.max()):.3e} median rel {float(e_pf.median()):.3e}, best-ever max rel "
+            f"{float(e_tr.max()):.3e} (tolerance {FIT_MAX_REL:g} / {FIT_MEDIAN_REL:g}); parent "
+            f"values equal {torch.equal(out[0], plain[0])}")
+        require(float(e_pf.max()) <= FIT_MAX_REL and float(e_pf.median()) <= FIT_MEDIAN_REL
+                and float(e_tr.max()) <= FIT_MAX_REL, "B5 disagrees with its plain version")
+        self.kernels["fused_evolve"] = {"max_abs_err": float((out[2] - plain[2]).abs().max())}
+
+    # -- 14 -----------------------------------------------------------------
+    def evolve_fused(self):
+        """``evolve`` with ``fused_evolve`` at the bench config: one B5 launch."""
+        from pmfm_tpu_torch.es import evolve, init_state
+        from pmfm_tpu_torch.es.pipeline import _fused_evolve_ok
+
+        cfg = self.cfg.replace(fused_evolve=True)
+        require(_fused_evolve_ok(cfg, self.so, self.dev), "fused_evolve does not route to B5")
+        evolve(init_state(1, cfg, device=self.dev), self.target, 2, self.so, cfg)  # warm-up
+        state = init_state(7, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        self.reset_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        final, traj = evolve(state, self.target, GENERATIONS, self.so, cfg, record_trajectory=True)
+        b.record()
+        b.synchronize()
+        counts = self.read_counts()
+        ms = a.elapsed_time(b) / GENERATIONS
+        traj = traj.cpu()
+        cell_a = self.cell_ms.get("a", float("nan"))
+        log(f"evolve (fused_evolve -> B5, bench config): {GENERATIONS} generations {ms:.4f} ms/gen, "
+            f"{POP / (ms / 1e3):.4g} candidate-evals/s (cell (a), B2 a generation: {cell_a:.4f} "
+            f"ms/gen) {card()}; best fitness first {float(traj[0]):.6g} final "
+            f"{float(traj[-1]):.6g}; stall {int(final.stall)}; launches {counts}")
+        require(counts["fused_evolve"] == 1 and sum(counts.values()) == 1,
+                "fused_evolve did not run as exactly one B5 launch")
+        require(final.generation == GENERATIONS and traj.shape == (GENERATIONS,), "generations")
+        require(bool(torch.isfinite(traj).all() and (traj[1:] <= traj[:-1]).all()), "trajectory")
+        require(float(traj[-1]) < float(traj[0]), "evolve did not improve the best fitness")
+        require(float(final.best_fitness) == float(traj[-1]), "best fitness != trajectory end")
+        self.kernels.setdefault("fused_evolve", {})["launches"] = counts["fused_evolve"]
+        self.cell_ms["fused_evolve"] = ms
+
+    # -- 15 -----------------------------------------------------------------
+    def shipped(self):
+        """The shipped path (params_match.json through _evolve_on_target: the
+        int8 B2 generations, the boundary rescore on B1 f32, the f32 B2 tail),
+        then match_audio running audio_match.json as written."""
+        from pmfm_tpu_torch import bench
+        from pmfm_tpu_torch.es import init_state, make_spectrum_ops, match_audio, pipeline
+        from pmfm_tpu_torch.io import load_config, read_wav
+        from pmfm_tpu_torch.ops import synthesize_single
+
+        cfg = load_config(SHIPPED_CONFIG).es
+        gens, r = bench.GENS, cfg.refine_generations
+        so = make_spectrum_ops(cfg, device=self.dev)
+        cfg_r = cfg.refine_config()
+        refine_ops = (cfg_r, make_spectrum_ops(cfg_r, device=self.dev))
+        audio = synthesize_single(torch.tensor(TRUTH), cfg.n_samples, cfg.topology).to(self.dev)
+        parts, real = [], pipeline.evolve
+
+        def timed(*a, **k):  # each evolve call of _evolve_on_target: time and launches
+            before = self.read_counts()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = real(*a, **k)
+            ev1.record()
+            ev1.synchronize()
+            after = self.read_counts()
+            parts.append(dict(gens=a[2], ms=ev0.elapsed_time(ev1),
+                              f32=a[3].dft_packed.dtype == torch.float32,
+                              launches={n_: after[n_] - before[n_] for n_ in after}))
+            return out
+
+        state = init_state(SEED, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        self.reset_counts()
+        t0 = time.perf_counter()
+        pipeline.evolve = timed
+        try:
+            final, traj, start = pipeline._evolve_on_target(state, audio, gens, so, cfg, True,
+                                                            refine_ops)
+        finally:
+            pipeline.evolve = real
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = self.read_counts()
+        require(len(parts) == 2 and not parts[0]["f32"] and parts[1]["f32"], "the two parts")
+        p8, p32 = parts
+        traj = traj.cpu()
+        before, start, end = float(traj[gens - r - 1]), float(start), float(final.best_fitness)
+        log(f"shipped path ({SHIPPED_CONFIG}: n={cfg.n_samples}, P={cfg.population_size}, {gens} "
+            f"generations): int8 part {p8['gens']} generations {p8['ms'] / p8['gens']:.4f} ms/gen, "
+            f"f32 tail {p32['gens']} generations {p32['ms'] / p32['gens']:.4f} ms/gen {card()}; "
+            f"best fitness before the tail {before:.6g} (int8 engine), rescored at the boundary "
+            f"{start:.6g} (f32 engine), end {end:.6g}; {seconds:.2f}s host clock; launches "
+            f"{counts}, of them in the tail {p32['launches']}")
+        require(traj.shape == (gens,) and bool(torch.isfinite(traj).all()), "trajectory")
+        require(bool((traj[1 : gens - r] <= traj[: gens - r - 1]).all()
+                     and (traj[gens - r + 1 :] <= traj[gens - r : -1]).all()),
+                "best-ever fitness must not increase within a part")
+        require(end <= start, "the refine tail ended worse than its start")
+        require(counts["fused_generation"] == gens and counts["fused_synth_fitness"] == 1
+                and sum(counts.values()) == gens + 1, "shipped path launches")
+        require(p32["launches"]["fused_generation"] == r, "f32 tail launches")
+        self.kernels.setdefault("fused_generation_f32", {})["launches"] = \
+            p32["launches"]["fused_generation"]
+        self.kernels.setdefault("fused_synth_fitness_f32", {})["launches"] = \
+            counts["fused_synth_fitness"]
+        self.cell_ms["shipped int8"] = p8["ms"] / p8["gens"]
+        self.cell_ms["shipped f32"] = p32["ms"] / p32["gens"]
+
+        rc = load_config(AUDIO_CONFIG)
+        cfg = rc.es
+        wav, sr = read_wav(rc.input_audio_path)
+        n, g, r = cfg.n_samples, AUDIO_GENERATIONS, cfg.refine_generations
+        require(sr == cfg.sample_rate and g > r, f"{rc.input_audio_path}: {sr} Hz")
+        torch.cuda.synchronize()
+        self.reset_counts()
+        t0 = time.perf_counter()
+        res = match_audio(wav, cfg, seed=SEED, num_generations=g, record_trajectory=True,
+                          device=self.dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = self.read_counts()
+        chunks = len(wav) // n
+        log(f"match_audio ({AUDIO_CONFIG} as written: n={n}, P={cfg.population_size}, {g} "
+            f"generations, the last {r} refine): {len(res.chunks)} chunks of {n} samples from a "
+            f"file of {len(wav)} samples in {seconds:.2f}s {card()}; launches {counts}")
+        require(len(res.chunks) == chunks >= 1, "chunk count")
+        require(res.output_audio.shape == (chunks * n,) and np.isfinite(res.output_audio).all(),
+                "output audio")
+        for i, ch in enumerate(res.chunks):
+            t = ch.trajectory
+            log(f"chunk {i}: best fitness before refine {t[g - r - 1]:.6g} (int8 engine), "
+                f"rescored at the boundary {ch.refine_start_fitness:.6g}, after refine "
+                f"{ch.best_fitness:.6g} (f32 engine)")
+            require(t.shape == (g,) and np.isfinite(t).all(), "chunk trajectory")
+            require(bool(np.all(np.diff(t[: g - r]) <= 0) and np.all(np.diff(t[g - r :]) <= 0)),
+                    "best-ever fitness must not increase within a part")
+            require(ch.best_fitness <= ch.refine_start_fitness, "the refine tail made it worse")
+        # per chunk: g B2 launches (int8, then f32) and one B1 f32 rescore
+        require(counts["fused_generation"] == chunks * g
+                and counts["fused_synth_fitness"] == chunks
+                and sum(counts.values()) == chunks * (g + 1), "match_audio launches")
+
+    # -- 16 -----------------------------------------------------------------
+    def third_timings(self):
+        """B1/B2 f32 at the shipped tail's shapes, B5 at the bench config,
+        and the port's bench (one repetition after a warm-up)."""
+        from pmfm_tpu_torch import bench
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        c = self.f32["shipped refine tail"]
+        cfg = c["cfg"]
+        pop, mu, n, k = cfg.population_size, cfg.num_parents, cfg.n_samples, c["so"].num_bins
+        seed = kernel_seed(SEED, 9)
+        # the f32 DFT: two (K, N/2) products a candidate, 2 operations a term
+        f32_ops = synth_ops_f32(pop, n, k, kn=3, ncoef=5) + 2.0 * 2 * k * (n // 2) * pop
+        operand = 2 * k * (n // 2) * 4
+        kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
+        rows = {
+            "fused_synth_fitness_f32": (
+                lambda: sf.fused_synth_fitness(c["params"], c["target"], **kw1),
+                lambda: sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1),
+                pop * D * 4 + operand + k * 4 + pop * 4, 0.0, f32_ops,
+                "pmfm_tpu_torch/csrc/fused_eval.cu", "pmfm_tpu/kernels/synth_fitness.py:767",
+            ),
+            "fused_generation_f32": (
+                lambda: gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2),
+                lambda: gn.fused_generation_plain(seed, c["pv"], c["ps"], c["target"], **kw2),
+                2 * mu * D * 4 + operand + k * 4 + pop * 4 + 2 * pop * D * 4, 0.0,
+                f32_ops + pop * D * 12 * 2.0,
+                "pmfm_tpu_torch/csrc/fused_eval.cu", "pmfm_tpu/kernels/generation.py:438",
+            ),
+        }
+        # B5: one launch of EVOLVE_TIMED_GENERATIONS generations at the bench config
+        g = EVOLVE_TIMED_GENERATIONS
+        seeds = [kernel_seed(SEED, 300 + i) for i in range(g)]
+        bcfg = self.cfg
+        bc = dict(cfg=bcfg, so=self.so)
+        bkw = self.kw_b2(bc)
+        b5_args = (self.parents_v, self.parents_s, self.parents_v[0].clone(),
+                   torch.tensor(float("inf"), device=self.dev), self.target)
+        bn, bk = bcfg.n_samples, self.so.num_bins
+        rows["fused_evolve"] = (
+            lambda: ev.fused_evolve(seeds, *b5_args, **bkw),
+            lambda: ev.fused_evolve_plain(seeds, *b5_args, **bkw),
+            # parents and best-ever in and out, operand, target, trajectory
+            4 * MU * D * 4 + 2 * (D + 1) * 4 + 2 * bk * (bn // 2) + bk * 4 + g * 4,
+            g * 2.0 * 2 * bk * (bn // 2) * POP,
+            g * (synth_ops_f32(POP, bn, bk, kn=3, ncoef=4) + POP * D * 12 * 2.0),
+            "pmfm_tpu_torch/csrc/evolve.cu", "pmfm_tpu/kernels/evolve.py:366",
+        )
+        for name, (fn, plain, nbytes, int8_ops, f32, src, replaces) in rows.items():
+            ms = cuda_ms(fn, TIMED_LAUNCHES if name != "fused_evolve" else 5)
+            plain_ms = cuda_ms(plain, PLAIN_RUNS)
+            bound_ms, by = bound(nbytes, int8_ops, f32)
+            per = f", {ms / g:.4f} ms a generation" if name == "fused_evolve" else ""
+            log(f"{name}: kernel {ms:.4f} ms{per}, plain {plain_ms:.2f} ms (median of "
+                f"{PLAIN_RUNS}), bound {bound_ms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
+                f"{int8_ops / 1e9:.1f} G int8 ops, {f32 / 1e9:.2f} G f32 ops) {card()}")
+            self.kernels.setdefault(name, {}).update(
+                route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None,
+            )
+        b = bench.Bench(bench.GENS, device=self.dev)
+        value_ms, shipped_ms = bench.best_ms(b.run_value, 1), bench.best_ms(b.run_shipped, 1)
+        log(f"bench (pmfm_tpu_torch/bench.py, {bench.GENS} generations, one run after a warm-up): "
+            f"value {b.evals_per_sec(value_ms):.1f} evals/s ({value_ms / bench.GENS:.4f} ms/gen), "
+            f"value_shipped {b.evals_per_sec(shipped_ms):.1f} evals/s "
+            f"({shipped_ms / bench.GENS:.4f} ms/gen) {card()}")
+
     def kernels_line(self):
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -706,6 +1102,12 @@ def main() -> int:
         s.phase("9 evolve large frames", s.evolve_large)
         s.phase("10 match_audio", s.match)
         s.phase("11 large-frame times", s.large_timings)
+    s.phase("12 B1/B2 f32 vs plain", s.f32_vs_plain)
+    if "12 B1/B2 f32 vs plain" not in s.failed:
+        s.phase("13 B5 vs B2 loop and plain", s.b5_vs_b2)
+        s.phase("14 evolve fused_evolve", s.evolve_fused)
+        s.phase("15 shipped path, audio_match", s.shipped)
+        s.phase("16 f32 and B5 times, bench", s.third_timings)
     line = None
     try:
         line = s.kernels_line()

@@ -33,6 +33,7 @@ struct SynthParams {
   int fm2;           // 1: fm2 parameter layout, 0: fm{kn}_series
   float inv_sr;      // 1 / sample_rate, as f32
   float dft_scale;   // SpectrumOps.dft_packed_scale (0 outside the int8 engine)
+  float edge_norm;   // B1/B2 true-f32 mode: 2 * norm, the x[N/2] edge coefficient's size
 };
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }

@@ -42,8 +42,8 @@ class ESConfig:
     # engine knobs
     fused_kernel: bool = False  # fused synth+DFT+fitness kernel (B1)
     fused_generation: bool = False  # whole generation in one kernel (B2)
-    fused_evolve: bool = False  # all generations in one kernel (B5, not ported)
-    gens_per_step: int = 1  # fused_evolve only
+    fused_evolve: bool = False  # all generations in one kernel (B5)
+    gens_per_step: int = 1  # fused_evolve only; no effect on the results
     pop_block: int = 512  # candidates per block of the plain versions
     synthesis_engine: str = "scan"  # "scan" | "scanless"
     osc_mode: str = "floor"  # "floor" | "exact" | "table" (scan engine only)

@@ -1,18 +1,20 @@
 """The per-generation step, the generation loop and the chunked audio
 matcher (port of ``pmfm_tpu/es/pipeline.py``: ``make_spectrum_ops``,
-``kernel_seed``, ``generation_step``, ``evolve``, the refine tail
-``refine_boundary`` / ``_evolve_on_target``, ``match_audio``).
+``kernel_seed``, ``generation_step``, ``evolve`` and its whole-run path
+``_evolve_mega``, the refine tail ``refine_boundary`` /
+``_evolve_on_target``, ``match_audio``).
 
 Where the reference scans ``generation_step`` inside one jitted program,
 ``evolve`` here is a Python loop over generations. A generation launches one
 kernel (B2) under ``fused_generation``, or torch recombine/mutate plus one
 kernel: B1 (``fused_kernel``), B3 (``synth_fold``, 4096 <= n <= 16384) or B4
-(``synth_stream``, n >= 32768); selection is ``torch.topk``. Nothing in the
-loop reads a device value back unless ``fitness_threshold`` asks for early
-stop.
+(``synth_stream``, n >= 32768); selection is ``torch.topk``. With
+``fused_evolve`` on a CUDA device the whole run is one launch of B5. Nothing
+in the loop reads a device value back unless ``fitness_threshold`` asks for
+early stop.
 
 ``match_audio`` has no ``benchmarker``, ``checkpoint_dir`` or ``mesh``
-argument yet (ROADMAP Queue A items 12-13).
+argument yet (ROADMAP Queue A items 4, 9 and 10).
 """
 from __future__ import annotations
 
@@ -23,12 +25,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.evolve import fused_evolve
 from ..kernels.generation import fused_generation
 from ..ops import spectral, synthesis
 from .config import ESConfig
 from .strategy import (
     ESState,
-    _fused_shape_ok,
+    _fused_ok,
     active_engine,
     evaluate,
     init_state,
@@ -70,6 +73,31 @@ def kernel_seed(seed: int, generation: int, shard: int | None = None) -> int:
     return _i32(base + g)
 
 
+def fused_generation_kwargs(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> dict:
+    """The keyword arguments that B2 (``fused_generation``) and B5
+    (``fused_evolve``) take from ``cfg`` and its operands."""
+    return dict(
+        pop=cfg.population_size,
+        param_mins=cfg.param_mins,
+        param_maxs=cfg.param_maxs,
+        dft_packed=spectrum_ops.dft_packed,
+        dft_scale=spectrum_ops.dft_packed_scale,
+        topology=cfg.topology,
+        n=cfg.n_samples,
+        wavetable_size=cfg.wavetable_size,
+        sample_rate=cfg.sample_rate,
+        pop_block=cfg.pop_block,
+        num_frames=cfg.num_frames,
+        alpha=cfg.alpha,
+        beta=cfg.beta,
+        beta_scale=cfg.beta_scale,
+        root_two_over_pi=cfg.root_two_over_pi,
+        clamp_values=cfg.clamp_values,
+        min_step=cfg.min_step,
+        sine_order=cfg.sine_order,
+    )
+
+
 def generation_step(
     state: ESState,
     target_spectrum: torch.Tensor,
@@ -85,24 +113,7 @@ def generation_step(
             state.parent_values,
             state.parent_steps,
             target_spectrum,
-            pop=cfg.population_size,
-            param_mins=cfg.param_mins,
-            param_maxs=cfg.param_maxs,
-            dft_packed=spectrum_ops.dft_packed,
-            dft_scale=spectrum_ops.dft_packed_scale,
-            topology=cfg.topology,
-            n=cfg.n_samples,
-            wavetable_size=cfg.wavetable_size,
-            sample_rate=cfg.sample_rate,
-            pop_block=cfg.pop_block,
-            num_frames=cfg.num_frames,
-            alpha=cfg.alpha,
-            beta=cfg.beta,
-            beta_scale=cfg.beta_scale,
-            root_two_over_pi=cfg.root_two_over_pi,
-            clamp_values=cfg.clamp_values,
-            min_step=cfg.min_step,
-            sine_order=cfg.sine_order,
+            **fused_generation_kwargs(cfg, spectrum_ops),
         )
     else:
         values, steps = recombine(gen, state.parent_values, state.parent_steps, cfg)
@@ -133,6 +144,67 @@ def generation_step(
     )
 
 
+def _fused_evolve_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps,
+                     device: torch.device) -> bool:
+    """Whether the whole-run kernel B5 applies: the reference's gate, with
+    a CUDA device in place of its ``default_backend() != "cpu"``."""
+    return (
+        cfg.fused_evolve
+        and cfg.fused_generation
+        and _fused_ok(cfg, spectrum_ops)
+        and cfg.gauss_sigma == 1.0 / 6.0
+        and cfg.restart_patience == 0
+        and cfg.fitness_threshold <= 0.0
+        and device.type == "cuda"
+    )
+
+
+def _evolve_mega(
+    state: ESState,
+    target_spectrum: torch.Tensor,
+    num_generations: int,
+    spectrum_ops: spectral.SpectrumOps,
+    cfg: ESConfig,
+    record_trajectory: bool,
+):
+    """``evolve`` through the whole-run kernel: one B5 launch for all
+    generations (its plain version on CPU tensors). Generation g draws the
+    seed ``generation_step`` would, ``kernel_seed(state.seed,
+    state.generation + g)``; the stall count is recovered from the best-ever
+    trajectory, as the reference does."""
+    if num_generations == 0:
+        traj0 = torch.zeros((0,), dtype=torch.float32, device=state.best_fitness.device)
+        return state, (traj0 if record_trajectory else None)
+    g = num_generations
+    pv, ps, pf, bv, bf, traj = fused_evolve(
+        [kernel_seed(state.seed, state.generation + i) for i in range(g)],
+        state.parent_values,
+        state.parent_steps,
+        state.best_values,
+        state.best_fitness,
+        target_spectrum,
+        gens_per_step=cfg.gens_per_step,
+        **fused_generation_kwargs(cfg, spectrum_ops),
+    )
+    # stall = generations since the best improved, from the trajectory
+    prev = torch.cat([state.best_fitness.reshape(1), traj[:-1]])
+    idx = torch.arange(g, device=traj.device)
+    last = torch.max(torch.where(traj < prev, idx, -1))
+    stall = torch.where(last < 0, state.stall + g, g - 1 - last).to(torch.int32)
+    final = ESState(
+        parent_values=pv,
+        parent_steps=ps,
+        parent_fitness=pf,
+        best_values=bv,
+        best_fitness=bf,
+        seed=state.seed,
+        generation=state.generation + g,
+        stall=stall,
+        generator=state.generator,
+    )
+    return final, (traj if record_trajectory else None)
+
+
 def evolve(
     state: ESState,
     target_spectrum: torch.Tensor,
@@ -144,10 +216,14 @@ def evolve(
     """Run ``num_generations`` generations.
 
     With ``cfg.fitness_threshold > 0`` (and no trajectory) the loop stops
-    once best-ever fitness drops to the threshold. Returns
-    ``(final_state, trajectory)``; the trajectory is the best-ever fitness
-    after each generation, ``(num_generations,)``, or None.
+    once best-ever fitness drops to the threshold. Under ``cfg.fused_evolve``
+    on a CUDA device (``_fused_evolve_ok``) the run is one launch of B5.
+    Returns ``(final_state, trajectory)``; the trajectory is the best-ever
+    fitness after each generation, ``(num_generations,)``, or None.
     """
+    if _fused_evolve_ok(cfg, spectrum_ops, state.parent_values.device):
+        return _evolve_mega(state, target_spectrum, num_generations, spectrum_ops, cfg,
+                            record_trajectory)
     early_stop = cfg.fitness_threshold > 0.0 and not record_trajectory
     traj = []
     for _ in range(num_generations):
@@ -180,18 +256,6 @@ def refine_boundary(
     if cfg.refine_step_floor > 0.0:
         ps = torch.clamp_min(ps, cfg.refine_step_floor)
     return final._replace(best_fitness=bf, parent_values=pv, parent_steps=ps)
-
-
-def _check_refine_ported(cfg: ESConfig) -> None:
-    """Raise, before any work, where the refine tail's f32 engine routes to
-    the fused kernels: their true-f32 variant is not ported (ROADMAP Queue B).
-    At n >= 4096 the tail runs on B3's bf16 mode or B4's f32 mode, as in the
-    reference."""
-    if cfg.refine_generations > 0 and _fused_shape_ok(cfg.refine_config()):
-        raise NotImplementedError(
-            f"refine tail at n={cfg.n_samples}: the f32 refine engine needs the true-f32 "
-            f"variant of the fused kernels B1/B2, which is not ported yet"
-        )
 
 
 def _evolve_on_target(state, target_audio, num_generations, so, cfg, record_trajectory,
@@ -264,7 +328,6 @@ def match_audio(
     num_chunks = len(target_audio) // n
     if num_chunks == 0:
         raise ValueError(f"target audio ({len(target_audio)} samples) shorter than one chunk ({n})")
-    _check_refine_ported(cfg)
     so = make_spectrum_ops(cfg, device=dev)
     active_engine(cfg, so)
     refine_ops = None

@@ -107,22 +107,19 @@ def _fused_flags(cfg: ESConfig) -> bool:
     return cfg.fused_kernel or cfg.fused_generation
 
 
-def _fused_shape_ok(cfg: ESConfig) -> bool:
-    """The part of ``_fused_ok`` that ``cfg`` alone decides."""
+def _fused_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> bool:
+    """Whether the fused kernels (B1/B2) apply: the reference's gate with the
+    port's own size limit (``fits_shared_memory``, n <= 3584 in the int8 and
+    the true-f32 mode) in place of the TPU's VMEM estimate. The 128-lane rule
+    on the bins does not carry over (the wrappers check what the kernels
+    take)."""
     return (
         _fused_flags(cfg)
         and cfg.spectrum_method == "dft"
+        and spectrum_ops.dft_packed is not None
         and cfg.n_samples % (2 * TIME_BLOCK) == 0
-        and fits_shared_memory(cfg.n_samples)
+        and fits_shared_memory(cfg.n_samples, f32=spectrum_ops.dft_packed.dtype == torch.float32)
     )
-
-
-def _fused_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> bool:
-    """Whether the fused kernels (B1/B2) apply: the reference's gate with the
-    port's own size limit (``fits_shared_memory``, n <= 3584) in place of
-    the TPU's VMEM estimate. The 128-lane rule on the bins does not carry
-    over (the wrappers check what the kernels take)."""
-    return _fused_shape_ok(cfg) and spectrum_ops.dft_packed is not None
 
 
 def _synth_fold_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> bool:

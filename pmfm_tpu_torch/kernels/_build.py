@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` (``fused_eval.cu``: B1, B2; ``large_frame.cu``:
-B3, B4; ``synth_common.cuh``: the synthesis they share) have a plain C
-interface and include no PyTorch header, so one ``nvcc`` call compiles them
-all in seconds into one shared library, which ``ctypes`` loads. The library
-goes to ``build/pmfm_tpu_torch/`` at the root of the checkout, under a name
-that carries a hash of every source, so an edited source is rebuilt and a
-current build is reused. Nothing here runs at import: the first launch
-builds.
+The sources under ``csrc/`` (``fused_eval.cu``: B1, B2; ``evolve.cu``: B5;
+``large_frame.cu``: B3, B4; ``evaluate.cuh``: the evaluation and offspring
+B1, B2 and B5 share; ``synth_common.cuh``: the synthesis all five share)
+have a plain C interface and include no PyTorch header, so one ``nvcc``
+call compiles them all in about half a minute into one shared library,
+which ``ctypes`` loads. The library goes to ``build/pmfm_tpu_torch/`` at
+the root of the checkout, under a name that carries a hash of every source,
+so an edited source is rebuilt and a current build is reused. Nothing here
+runs at import: the first launch builds.
 """
 from __future__ import annotations
 
@@ -46,11 +47,12 @@ class SynthParams(ctypes.Structure):
         ("fm2", ctypes.c_int),
         ("inv_sr", ctypes.c_float),
         ("dft_scale", ctypes.c_float),
+        ("edge_norm", ctypes.c_float),
     ]
 
 
 class MutateParams(ctypes.Structure):
-    """Mirror of ``struct MutateParams`` in csrc/fused_eval.cu."""
+    """Mirror of ``struct MutateParams`` in csrc/evaluate.cuh."""
 
     _fields_ = [
         ("mu", ctypes.c_int),
@@ -124,12 +126,17 @@ def library() -> ctypes.CDLL:
     pointer is cut to 32 bits)."""
     lib = ctypes.CDLL(build()["path"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.pmfm_fused_synth_fitness.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp]
+    lib.pmfm_fused_synth_fitness.argtypes = [vp, ci, SynthParams, vp, vp, vp, ci, vp]
     lib.pmfm_fused_synth_fitness.restype = ci
     lib.pmfm_fused_generation.argtypes = [
-        ctypes.c_uint32, vp, vp, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
+        ctypes.c_uint32, vp, vp, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, ci, vp,
     ]
     lib.pmfm_fused_generation.restype = ci
+    lib.pmfm_fused_evolve.argtypes = [
+        vp, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        ci, ctypes.POINTER(ci), vp,
+    ]
+    lib.pmfm_fused_evolve.restype = ci
     lib.pmfm_synth_fold.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp, ci, vp]
     lib.pmfm_synth_fold.restype = ci
     lib.pmfm_synth_stream.argtypes = [vp, ci, SynthParams, vp, vp, ci, vp]

@@ -1,0 +1,171 @@
+"""B5: the whole run in one kernel — G generations of B2 with exact comma
+selection, best-ever tracking and the best-ever trajectory.
+
+Replaces ``pmfm_tpu/kernels/evolve.py::fused_evolve`` (``_evolve_kernel``,
+``_merge_topmu``). The CUDA kernel is ``fused_evolve_kernel`` in
+``csrc/evolve.cu``, whose note says what bounds it and how its cooperative
+grid replaces the TPU kernel's sequential grid and running top-mu merge.
+``fused_evolve_plain`` is its plain PyTorch version: a loop of B2
+(``fused_generation_plain``) with a stable (fitness, index) selection.
+
+Semantics, as the reference's: generation g's offspring are B2's for the
+seed ``seeds[g]`` (``es.pipeline.kernel_seed(state.seed, state.generation +
+g)``, so one B5 generation makes the offspring one B2 launch makes, bit for
+bit); comma selection keeps the mu best of the whole offspring population in
+the order (fitness, candidate index), NaN after +inf after every finite
+value (what ``_merge_topmu``'s stable enumeration rank gives); best-ever
+improves only on a strictly smaller fitness. The reference's finite 3e38
+sentinel and one-hot extraction are Mosaic workarounds: survivors here keep
+their fitness, inf and NaN included. No restarts, early stop or sharding.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
+from .generation import _check_b2, fused_generation_plain, mutate_params_struct
+from .synth_fitness import DEFAULT_POP_BLOCK, inv_sample_rate, synth_params_struct
+
+
+def stable_order(fitness: torch.Tensor) -> torch.Tensor:
+    """Indices of ``fitness`` in the order (fitness, index), NaN last."""
+    return torch.sort(fitness, stable=True).indices
+
+
+def merge_topmu_plain(pool: torch.Tensor, block: torch.Tensor, mu: int) -> torch.Tensor:
+    """Exact top-``mu`` of the union of ``pool`` and ``block``, the plain
+    counterpart of the reference's ``_merge_topmu``: both are ``(R, *)``
+    stacks ``[values(d); steps(d); fitness(1)]``, fitness in the last row.
+    Returns ``(R, mu)`` best first, ties by column (pool before block)."""
+    cat = torch.cat([pool, block], dim=1)
+    return cat[:, stable_order(cat[-1])[:mu]]
+
+
+def select_stable(values, steps, fitness, mu: int):
+    """Comma selection of the ``mu`` best in the order (fitness, index)."""
+    idx = stable_order(fitness)[:mu]
+    return values[idx], steps[idx], fitness[idx]
+
+
+def fused_evolve_plain(seeds, parent_values, parent_steps, best_values, best_fitness,
+                       target_spectrum, *, generation=fused_generation_plain, **kw):
+    """The plain PyTorch version of ``fused_evolve``: for each seed one
+    generation of B2, a stable selection and the best-ever update.
+    ``generation`` is B2's plain version; a check on the card passes the B2
+    wrapper itself to hold the kernel against G B2 launches."""
+    mu = parent_values.shape[0]
+    pv, ps = parent_values.to(torch.float32), parent_steps.to(torch.float32)
+    bv, bf = best_values.to(torch.float32), best_fitness.to(torch.float32)
+    traj = []
+    for seed in seeds:
+        fitness, values, steps = generation(seed, pv, ps, target_spectrum, **kw)
+        pv, ps, pf = select_stable(values, steps, fitness, mu)
+        improved = pf[0] < bf
+        bv = torch.where(improved, pv[0], bv)
+        bf = torch.where(improved, pf[0], bf)
+        traj.append(bf)
+    return pv, ps, pf, bv, bf, torch.stack(traj)
+
+
+def fused_evolve(
+    seeds,
+    parent_values: torch.Tensor,
+    parent_steps: torch.Tensor,
+    best_values: torch.Tensor,
+    best_fitness: torch.Tensor,
+    target_spectrum: torch.Tensor,
+    *,
+    pop: int,
+    param_mins: tuple,
+    param_maxs: tuple,
+    dft_packed: torch.Tensor,
+    dft_scale: float,
+    topology: str = "fm3_series",
+    n: int = 1024,
+    wavetable_size: int = DEFAULT_WAVETABLE_SIZE,
+    sample_rate: int = DEFAULT_SAMPLE_RATE,
+    pop_block: int = DEFAULT_POP_BLOCK,
+    num_frames: int = 1,
+    alpha: float = 1.4,
+    beta: float = math.sqrt(1.0 / 6.0),
+    beta_scale: float = 1.0 / 6.0,
+    root_two_over_pi: float = math.sqrt(2.0 / math.pi),
+    clamp_values: bool = False,
+    min_step: float = 0.0,
+    sine_order: int = 9,
+    gens_per_step: int = 1,
+):
+    """Run ``len(seeds)`` generations, generation g with the int32 Philox
+    seed ``seeds[g]``.
+
+    Returns ``(parent_values (mu, D), parent_steps (mu, D), parent_fitness
+    (mu,), best_values (D,), best_fitness (), trajectory (G,))``; the
+    trajectory is best-ever per generation. ``gens_per_step`` is kept for
+    the reference's interface and changes nothing (the kernel runs all
+    generations in one launch). On CUDA tensors this is one launch of the
+    B5 kernel (counted in ``fused_evolve.launches``; the grid it used is
+    ``fused_evolve.grid``); on CPU tensors it runs the plain version.
+    """
+    kw = dict(
+        pop=pop, param_mins=param_mins, param_maxs=param_maxs, dft_packed=dft_packed,
+        dft_scale=dft_scale, topology=topology, n=n, wavetable_size=wavetable_size,
+        sample_rate=sample_rate, pop_block=pop_block, num_frames=num_frames, alpha=alpha,
+        beta=beta, beta_scale=beta_scale, root_two_over_pi=root_two_over_pi,
+        clamp_values=clamp_values, min_step=min_step, sine_order=sine_order,
+    )
+    seeds = [int(s) for s in seeds]
+    mu, d = parent_values.shape
+    if not seeds:
+        raise ValueError("fused_evolve needs at least one generation")
+    if pop < mu:
+        raise ValueError(f"population {pop} smaller than mu {mu}")
+    dev = parent_values.device
+    if dev.type == "cpu":
+        return fused_evolve_plain(seeds, parent_values, parent_steps, best_values, best_fitness,
+                                  target_spectrum, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    k = _check_b2(parent_values, parent_steps, target_spectrum, dft_packed, dft_scale, topology,
+                  n, num_frames)
+    f32 = dft_scale == 0.0
+    if tuple(best_values.shape) != (d,) or best_fitness.numel() != 1:
+        raise ValueError(f"best_values must be ({d},) and best_fitness a scalar")
+    from ._build import check, library
+
+    f = dict(dtype=torch.float32, device=dev)
+    pv = parent_values.to(torch.float32).contiguous().clone()
+    ps = parent_steps.to(torch.float32).contiguous().clone()
+    pf = torch.empty((mu,), **f)
+    bv = best_values.to(torch.float32).contiguous().clone()
+    bf = best_fitness.to(torch.float32).reshape(1).clone()
+    traj = torch.empty((len(seeds),), **f)
+    fit_s = torch.empty((pop,), **f)
+    val_s = torch.empty((pop, d), **f)
+    step_s = torch.empty((pop, d), **f)
+    barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
+    seeds_t = torch.tensor(seeds, dtype=torch.int32).to(dev)
+    sp = synth_params_struct(
+        topology=topology, n=n, k=k, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
+        dft_scale=dft_scale, sine_order=sine_order,
+    )
+    mp = mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale,
+                              root_two_over_pi, clamp_values, min_step)
+    grid = ctypes.c_int(0)
+    err = library().pmfm_fused_evolve(
+        seeds_t.data_ptr(), len(seeds), pop, sp, mp, dft_packed.data_ptr(),
+        target_spectrum.data_ptr(), pv.data_ptr(), ps.data_ptr(), pf.data_ptr(), bv.data_ptr(),
+        bf.data_ptr(), traj.data_ptr(), fit_s.data_ptr(), val_s.data_ptr(), step_s.data_ptr(),
+        barrier.data_ptr(), int(f32), ctypes.byref(grid),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(err, "fused_evolve")
+    fused_evolve.launches += 1
+    fused_evolve.grid = grid.value
+    return pv, ps, pf, bv, bf[0], traj
+
+
+fused_evolve.launches = 0
+fused_evolve.grid = 0

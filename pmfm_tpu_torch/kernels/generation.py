@@ -1,11 +1,12 @@
 """B2: one whole generation in one kernel — offspring + synthesis + folded
-int8 DFT + fitness.
+DFT + fitness, in B1's int8 or true-f32 mode.
 
 Replaces ``pmfm_tpu/kernels/generation.py::fused_generation`` (``_gen_kernel``
 over ``_offspring_block``, ``_recombine_flat``/``_recombine_hier``,
 ``_uniform01`` and ``_scale_rows``, then B1's ``_evaluate_block``). The CUDA
 kernel is ``fused_generation_kernel`` in ``csrc/fused_eval.cu``; it runs the
-offspring prologue below per candidate and then B1's evaluation routine.
+offspring prologue below per candidate (``csrc/evaluate.cuh::offspring``)
+and then B1's evaluation routine, in the mode the operand selects.
 ``fused_generation_plain`` is its plain PyTorch version.
 
 Offspring semantics (``_offspring_block``): per gene a uniform parent index
@@ -150,9 +151,25 @@ def scale_rows(new_x: torch.Tensor, mins: tuple, maxs: tuple) -> torch.Tensor:
     return lo + new_x * span
 
 
+def mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale, root_two_over_pi,
+                         clamp_values, min_step):
+    """The kernels' ``MutateParams`` argument (B2 and B5)."""
+    from ._build import MutateParams
+
+    d = len(param_mins)
+    mp = MutateParams()
+    mp.mu, mp.clamp = mu, int(clamp_values)
+    mp.alpha, mp.inv_alpha = alpha, 1.0 / alpha
+    mp.ekb_alpha, mp.ekb_inv_alpha = step_factors(alpha, beta)
+    mp.beta_scale, mp.root_two_over_pi, mp.min_step = beta_scale, root_two_over_pi, min_step
+    mp.mins[:d] = [float(m) for m in param_mins]
+    mp.ranges[:d] = [float(b) - float(a) for a, b in zip(param_mins, param_maxs)]
+    return mp
+
+
 def _check_b2(parent_values, parent_steps, target_spectrum, dft_packed, dft_scale, topology, n,
               num_frames):
-    check_supported(topology, dft_scale, num_frames)
+    check_supported(topology, dft_packed, dft_scale, num_frames)
     mu, d = parent_values.shape
     if d != topology_dims(topology) or tuple(parent_steps.shape) != (mu, d):
         raise ValueError(f"{topology} needs parents of shape (mu, {topology_dims(topology)})")
@@ -257,7 +274,7 @@ def fused_generation(
         raise ValueError("injected draws are an input of the plain version only")
     k = _check_b2(parent_values, parent_steps, target_spectrum, dft_packed, dft_scale, topology,
                   n, num_frames)
-    from ._build import MutateParams, check, library
+    from ._build import check, library
 
     pv = parent_values.to(torch.float32).contiguous()
     ps = parent_steps.to(torch.float32).contiguous()
@@ -266,20 +283,15 @@ def fused_generation(
         topology=topology, n=n, k=k, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
         dft_scale=dft_scale, sine_order=sine_order,
     )
-    mp = MutateParams()
-    mp.mu, mp.clamp = mu, int(clamp_values)
-    mp.alpha, mp.inv_alpha = alpha, 1.0 / alpha
-    mp.ekb_alpha, mp.ekb_inv_alpha = step_factors(alpha, beta)
-    mp.beta_scale, mp.root_two_over_pi, mp.min_step = beta_scale, root_two_over_pi, min_step
-    mp.mins[:d] = [float(m) for m in param_mins]
-    mp.ranges[:d] = [float(b) - float(a) for a, b in zip(param_mins, param_maxs)]
+    mp = mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale,
+                              root_two_over_pi, clamp_values, min_step)
     fitness = torch.empty((pop,), dtype=torch.float32, device=dev)
     values = torch.empty((pop, d), dtype=torch.float32, device=dev)
     steps = torch.empty((pop, d), dtype=torch.float32, device=dev)
     err = library().pmfm_fused_generation(
         seed & 0xFFFFFFFF, pv.data_ptr(), ps.data_ptr(), pop, sp, mp, dft_packed.data_ptr(),
         target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        int(dft_scale == 0.0), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "fused_generation")
     fused_generation.launches += 1

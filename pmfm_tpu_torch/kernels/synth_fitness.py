@@ -1,11 +1,12 @@
-"""B1: fused FM synthesis + folded int8 DFT + spectral fitness.
+"""B1: fused FM synthesis + folded DFT + spectral fitness, int8 and true f32.
 
 Replaces ``pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness`` (the
 Pallas kernel ``_kernel`` over ``_evaluate_block``, ``_make_block_synth``,
 ``_dft_uv`` and ``_fit_epilogue``). The CUDA kernel is
-``fused_synth_fitness_kernel`` in ``csrc/fused_eval.cu``; its note says what
-bounds it on an H100 and how the design meets that. ``fused_synth_fitness_plain``
-here is its plain PyTorch version, which the wrapper runs for CPU tensors.
+``fused_synth_fitness_kernel`` in ``csrc/fused_eval.cu`` over
+``csrc/evaluate.cuh``, whose note says what bounds it on an H100 and how the
+design meets that. ``fused_synth_fitness_plain`` here is its plain PyTorch
+version, which the wrapper runs for CPU tensors.
 
 The numerics carried over from the TPU kernel:
 
@@ -13,18 +14,31 @@ The numerics carried over from the TPU kernel:
   with the block's phase offsets carried through ``frac``; within a block the
   exclusive prefix sum is a running f32 sum in sample order (the semantics of
   the TPU kernel's ``_tri_strict`` matmul, in another summation order);
-* the oscillator is an odd polynomial in turns (``_sin_turn_coeffs``), and
-  the output oscillator emits ``63 * sin`` so that ``q = round(out)`` is int8;
-* the fold ``a+/-[n] = q[n] +- q[N-n]`` (``a+/-[0] = q[0]``) and the edge
-  sample ``x[N/2]`` entering as ``127 * (-1)^k * q[N/2]``;
-* two (K, N/2) contractions against ``dft_packed``, exact in int32;
-* ``mag = sqrt(u^2 + v^2) * |amp| * dft_packed_scale`` with ``amp`` the last
-  operator's ``freq * index``; fitness = ``sum_k (mag - target)^2``.
+* the oscillator is an odd polynomial in turns (``_sin_turn_coeffs``);
+* the fold ``a+/-[n] = x[n] +- x[N-n]`` (``a+/-[0] = x[0]``) and the edge
+  sample ``x[N/2]`` entering as ``edge_norm * (-1)^k * x[N/2]``;
+* two (K, N/2) contractions against ``dft_packed``;
+* fitness = ``sum_k (mag - target)^2``.
+
+Two modes, chosen by the operand as in the reference:
+
+* int8 (``dft_scale > 0``, int8 operand): the output oscillator emits
+  ``63 * sin`` and ``x = q = round(63 sin)``; the contractions are exact in
+  int32; ``edge_norm = 127``; ``mag = sqrt(u^2 + v^2) * |amp| * dft_scale``
+  with ``amp`` the last operator's ``freq * index``.
+* true f32 (``dft_scale == 0``, float32 operand; ``_evaluate_block``'s
+  ``audio_f32``, the refine tail's engine): ``x = sin * amp`` unquantised,
+  f32 contractions (TF32 off: the reference's ``Precision.HIGHEST``),
+  ``edge_norm = 2 * norm`` (the operand carries window and norm), no
+  magnitude rescale. The reference caps its f32 pop block
+  (``F32_MAX_POP_BLOCK``) for VMEM; here the kernel's own block is 16
+  candidates (``F32_CUDA_BLOCK``) and ``pop_block`` only sizes the plain
+  version's blocks.
 
 The Mosaic workarounds (one-hot gathers and reversal matmuls, the (D, P)
 transposed layout, 128-lane pop blocks, VMEM gates) do not carry over.
-This slice covers the int8 engine (``dft_scale > 0``) for ``fm2`` and
-``fm{k}_series`` (k <= 8) at one frame; the other variants raise
+Ported: ``fm2`` and ``fm{k}_series`` (k <= 8) at one frame in both modes;
+the bf16 mode, ``fm{k}_parallel`` and multi-frame fitness raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -35,13 +49,16 @@ import numpy as np
 import torch
 
 from ..device import exact_f32_matmul
+from ..ops.spectral import window_factor
 from ..ops.synthesis import parallel_pairs, series_ops, topology_dims
 from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 
 DEFAULT_POP_BLOCK = 512
 TIME_BLOCK = 128
 MAX_SERIES_OPS = 8  # csrc MAX_KN
-CUDA_BLOCK = 64  # csrc TPB: candidates per CUDA block
+CUDA_BLOCK = 64  # csrc TPB: int8 candidates (threads) per CUDA block
+F32_CUDA_BLOCK = 16  # csrc F32_CPB: f32 candidates per CUDA block
+F32_GROUPS = 8  # csrc F32_GROUPS: f32 threads per candidate
 MAX_SHARED_BYTES = 232448  # shared memory one block of an H100 can use
 
 
@@ -94,12 +111,19 @@ def inv_sample_rate(wavetable_size: int, sample_rate: int) -> float:
     return float(np.float32(w2sr / float(wavetable_size)))
 
 
-def check_supported(topology: str, dft_scale: float, num_frames: int) -> None:
-    """Raise ``NotImplementedError`` for a B1/B2 variant not ported yet."""
-    if dft_scale <= 0.0:
+def check_supported(topology: str, dft_packed: torch.Tensor, dft_scale: float,
+                    num_frames: int) -> None:
+    """Raise for a B1/B2 variant the kernels do not take: ``NotImplementedError``
+    for one not ported yet, ``ValueError`` for an int8 scale without the
+    int8 operand."""
+    if dft_scale > 0.0:
+        if dft_packed.dtype != torch.int8:
+            raise ValueError("the int8 engine (dft_scale > 0) needs the int8 dft_packed")
+    elif dft_packed.dtype != torch.float32:
         raise NotImplementedError(
-            "the bf16 / true-f32 variants of the fused kernels B1/B2 are not ported yet "
-            "(int8 engine only)"
+            "the bf16 variant of the fused kernels B1/B2 is not ported yet (ROADMAP Queue B "
+            "item 7): the int8 (dft_scale > 0) and true-f32 (float32 operand, dft_scale 0) "
+            "engines are"
         )
     if num_frames != 1:
         raise NotImplementedError(
@@ -188,11 +212,24 @@ def synth_int8_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float, s
     return q, chain_amp(p, topology)
 
 
+def synth_f32_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float, sine_order: int):
+    """Turns-domain synthesis of scaled params ``p`` (P, D) into the true-f32
+    engine's audio ``x`` (N, P) = unit audio * amplitude, unquantised."""
+    x = torch.empty((n, p.shape[0]), dtype=torch.float32, device=p.device)
+    amp = chain_amp(p, topology)
+    blocks = synth_blocks_plain(p, topology=topology, n=n, inv_sr=inv_sr,
+                                sine_order=sine_order, int8=False)
+    for b, y in enumerate(blocks):
+        x[b * TIME_BLOCK : (b + 1) * TIME_BLOCK] = y * amp
+    return x
+
+
 def fold(q: torch.Tensor):
-    """int8 audio (N, P) -> folded ``a+, a-`` (N/2, P) int32 and the edge
-    sample ``q[N/2]`` (P,)."""
+    """Audio (N, P) -> folded ``a+, a-`` (N/2, P) and the edge sample
+    ``q[N/2]`` (P,): int32 for int8 audio (exact), float32 for float32
+    audio (one rounding of each sum and difference)."""
     half = q.shape[0] // 2
-    qi = q.to(torch.int32)
+    qi = q.to(torch.int32) if q.dtype == torch.int8 else q.to(torch.float32)
     rev = qi[half + 1 :].flip(0)  # q[N-r] for r = 1 .. N/2-1
     a_plus = qi[:half].clone()
     a_minus = qi[:half].clone()
@@ -201,22 +238,37 @@ def fold(q: torch.Tensor):
     return a_plus, a_minus, qi[half]
 
 
+@functools.lru_cache(maxsize=None)
+def edge_norm(n: int, int8: bool) -> float:
+    """Size of the x[N/2] edge coefficient ``edge_norm * (-1)^k`` as float32:
+    127 in int8 mode (the quantised 63.5 * w[N/2]), else 2 * norm =
+    2 / (N * windowFactor) (the float operand carries window and norm)."""
+    return 127.0 if int8 else float(np.float32(2.0 / (n * window_factor(n))))
+
+
 def dft_fitness_plain(a_plus, a_minus, edge_q, amp, dft_packed, dft_scale, target):
     """Folded DFT, magnitudes and L2 fitness (``_dft_uv`` + ``_fit_epilogue``).
-    The contraction runs in float32 with TF32 off. Its partial sums are
-    integers bounded by N/2 * 127 * 126, which stays below 2^24 (so the sum
-    is exact) only for n <= 2048; at 2048 < n <= 3584, which B1 also takes,
-    the plain version may round where the kernel's int32 sum does not."""
+
+    int8 (``dft_scale > 0``): the contraction runs in float32 with TF32 off.
+    Its partial sums are integers bounded by N/2 * 127 * 126, which stays
+    below 2^24 (so the sum is exact) only for n <= 2048; at 2048 < n <= 3584,
+    which B1 also takes, the plain version may round where the kernel's
+    int32 sum does not. The magnitude is rescaled by ``|amp| * dft_scale``.
+    True f32 (``dft_scale == 0``): float32 contractions with TF32 off, no
+    rescale (``amp`` is unused)."""
     k = dft_packed.shape[0] // 2
+    n = 2 * dft_packed.shape[1]
+    int8 = dft_scale > 0.0
     op = dft_packed.to(torch.float32)
     with exact_f32_matmul():
         u = op[:k] @ a_plus.to(torch.float32)
         v = op[k:] @ a_minus.to(torch.float32)
-    ec = torch.where(
-        torch.arange(k, device=u.device) % 2 == 0, 127.0, -127.0
-    ).to(torch.float32)[:, None]
-    u = u + ec * edge_q.to(torch.float32)[None, :]
-    mag = torch.sqrt(u * u + v * v) * (torch.abs(amp) * float(np.float32(dft_scale)))[None, :]
+    en = edge_norm(n, int8)
+    ec = torch.where(torch.arange(k, device=u.device) % 2 == 0, en, -en).to(torch.float32)
+    u = u + ec[:, None] * edge_q.to(torch.float32)[None, :]
+    mag = torch.sqrt(u * u + v * v)
+    if int8:
+        mag = mag * (torch.abs(amp) * float(np.float32(dft_scale)))[None, :]
     d = mag - target.to(torch.float32)[:, None]
     return torch.sum(d * d, dim=0)
 
@@ -224,15 +276,18 @@ def dft_fitness_plain(a_plus, a_minus, edge_q, amp, dft_packed, dft_scale, targe
 def _evaluate_plain(params_scaled, dft_packed, target, *, topology, n, inv_sr, dft_scale,
                     sine_order, pop_block):
     """Plain PyTorch version of the B1 kernel: fitness (P,) of scaled params
-    (P, D), one block of ``resolve_pop_block`` candidates at a time."""
+    (P, D), one block of ``resolve_pop_block`` candidates at a time, in the
+    int8 (``dft_scale > 0``) or the true-f32 mode."""
     pop = params_scaled.shape[0]
     pb = resolve_pop_block(pop, pop_block)
     out = torch.empty((pop,), dtype=torch.float32, device=params_scaled.device)
+    kw = dict(topology=topology, n=n, inv_sr=inv_sr, sine_order=sine_order)
     for i in range(0, pop, pb):
-        q, amp = synth_int8_plain(
-            params_scaled[i : i + pb], topology=topology, n=n, inv_sr=inv_sr,
-            sine_order=sine_order,
-        )
+        p = params_scaled[i : i + pb]
+        if dft_scale > 0.0:
+            q, amp = synth_int8_plain(p, **kw)
+        else:
+            q, amp = synth_f32_plain(p, **kw), None
         ap, am, edge = fold(q)
         out[i : i + pb] = dft_fitness_plain(ap, am, edge, amp, dft_packed, dft_scale, target)
     return out
@@ -252,31 +307,44 @@ def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
     sp.fm2 = int(topology == "fm2")
     sp.inv_sr = inv_sr
     sp.dft_scale = dft_scale
+    sp.edge_norm = edge_norm(n, dft_scale > 0.0)
     return sp
 
 
-def fits_shared_memory(n: int) -> bool:
-    """Whether B1/B2 take frames of ``n`` samples: the folded int8 audio of
-    ``CUDA_BLOCK`` candidates (n bytes each) must fit one block's shared
-    memory, so n <= 3584. The one definition of the fused kernels' size
-    limit, read by the wrappers and by ``es.strategy._fused_ok``."""
-    return n * CUDA_BLOCK <= MAX_SHARED_BYTES
+def shared_bytes(n: int, f32: bool) -> int:
+    """Dynamic shared memory of one B1/B2 block (csrc ``eval_smem_bytes``):
+    the folded audio of its candidates, int8 (``CUDA_BLOCK`` x n bytes) or
+    float32 (``F32_CUDA_BLOCK`` x n x 4 bytes, plus the edge samples and the
+    partial sums of its ``F32_GROUPS`` threads per candidate)."""
+    if f32:
+        return 4 * (n * F32_CUDA_BLOCK + F32_CUDA_BLOCK * (1 + F32_GROUPS))
+    return n * CUDA_BLOCK
+
+
+def fits_shared_memory(n: int, f32: bool = False) -> bool:
+    """Whether B1/B2 take frames of ``n`` samples in the int8 or the f32 mode:
+    one block's folded audio must fit its shared memory, so n <= 3584 in
+    both. The one definition of the fused kernels' size limit, read by the
+    wrappers and by ``es.strategy._fused_ok``."""
+    return shared_bytes(n, f32) <= MAX_SHARED_BYTES
 
 
 def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.Tensor) -> None:
-    """Raise on operands the CUDA kernels do not take."""
+    """Raise on operands the CUDA kernels do not take: the folded operand
+    (2K, N/2), int8 or float32, and a float32 target (K,)."""
     if n % (2 * TIME_BLOCK):
         raise ValueError(f"n={n} must be a multiple of {2 * TIME_BLOCK} (the fold pairs blocks)")
-    if not fits_shared_memory(n):
+    f32 = dft_packed.dtype == torch.float32
+    if not fits_shared_memory(n, f32):
         raise NotImplementedError(
-            f"n={n}: the folded audio of {CUDA_BLOCK} candidates exceeds shared memory "
+            f"n={n}: the folded audio of one block's candidates exceeds shared memory "
             f"(larger frames take the synth_fold route, kernel B3)"
         )
     if k % 8:
         raise ValueError(f"num_bins={k} must be a multiple of 8")
-    if dft_packed.dtype != torch.int8 or tuple(dft_packed.shape) != (2 * k, n // 2):
+    if dft_packed.dtype not in (torch.int8, torch.float32) or tuple(dft_packed.shape) != (2 * k, n // 2):
         raise ValueError(
-            f"need the int8 folded operand (2K, N/2) = {(2 * k, n // 2)}, got "
+            f"need the int8 or float32 folded operand (2K, N/2) = {(2 * k, n // 2)}, got "
             f"{tuple(dft_packed.shape)} {dft_packed.dtype}"
         )
     if not dft_packed.is_contiguous() or dft_packed.data_ptr() % 16:
@@ -286,7 +354,7 @@ def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.
 
 
 def _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n, num_frames):
-    check_supported(topology, dft_scale, num_frames)
+    check_supported(topology, dft_packed, dft_scale, num_frames)
     d = params_scaled.shape[1]
     if d != topology_dims(topology):
         raise ValueError(f"{topology} needs {topology_dims(topology)} params, got {d}")
@@ -337,8 +405,10 @@ def fused_synth_fitness(
 ) -> torch.Tensor:
     """Fitness ``(P,)`` float32 of scaled candidates ``(P, D)``.
 
-    ``dft_packed`` is ``SpectrumOps.dft_packed`` (int8, (2K, N/2)) and
-    ``dft_scale`` its ``dft_packed_scale``. On CUDA tensors this launches the
+    ``dft_packed`` is ``SpectrumOps.dft_packed`` ((2K, N/2), int8 or float32)
+    and ``dft_scale`` its ``dft_packed_scale``: an int8 operand with
+    ``dft_scale > 0`` runs the int8 mode, a float32 one with ``dft_scale``
+    0 the true-f32 mode. On CUDA tensors this launches the
     B1 kernel (counted in ``fused_synth_fitness.launches``); on CPU tensors it
     runs the plain version. ``pop_block`` sizes the plain version's blocks.
     """
@@ -363,7 +433,7 @@ def fused_synth_fitness(
     )
     err = library().pmfm_fused_synth_fitness(
         params.data_ptr(), pop, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
-        fitness.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        fitness.data_ptr(), int(dft_scale == 0.0), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "fused_synth_fitness")
     fused_synth_fitness.launches += 1

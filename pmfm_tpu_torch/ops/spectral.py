@@ -24,7 +24,7 @@ two matmul stages with an O(N) twiddle between them, fed by the synth_stream
 kernel (B4) with audio it has already windowed.
 
 The rfft method, the multi-frame spectra and the operand disk cache are not
-ported yet (ROADMAP Queue A items 9-10); where the reference would fall back
+ported yet (ROADMAP Queue A items 3, 6 and 7); where the reference would fall back
 to rfft, ``make_spectrum_ops`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -45,7 +45,7 @@ DFT_DTYPES = ("float32", "bfloat16", "int8")
 # f32 and 16384 for bf16/int8; the streamed + factored engine against
 # synth_fold at 32768). They are copied, not re-derived: the H100's times at
 # n = 8192 and 65536 are in PERF.md as the first data for that (ROADMAP
-# Queue A item 10).
+# Queue A item 7).
 AUTO_DFT_MAX_N = 4096
 DFT_MAX_MATERIALIZE_N = 16384
 

@@ -1,0 +1,252 @@
+"""The whole-run kernel B5 (fused_evolve) of the port, in its plain PyTorch
+version on the CPU, against pmfm_tpu/kernels/evolve.py (as
+tests/test_fused_evolve.py runs it, in interpret mode), and the ES path
+through it (``es.pipeline._evolve_mega``).
+
+The exact rank merge is compared value for value with the reference's
+``_merge_topmu``; the whole kernel by the reference's own invariants
+(re-evaluating the returned parents through B1 reproduces their fitness
+exactly; best-ever is monotone and ends at ``best_fitness``) and, since the
+two packages draw different random bits, by outcome: over four seeds the
+median final best fitness of the port lies within a factor of 4 of the
+reference's, as tests/test_torch_es.py compares ``evolve``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pmfm_tpu import ops as jops
+from pmfm_tpu.es import ESConfig as JConfig
+from pmfm_tpu.es import init_state as j_init_state
+from pmfm_tpu.es.pipeline import _evolve_mega as j_evolve_mega
+from pmfm_tpu.es.pipeline import make_spectrum_ops as j_make_spectrum_ops
+from pmfm_tpu.kernels.evolve import _merge_topmu
+from pmfm_tpu.kernels.evolve import fused_evolve as j_fused_evolve
+from pmfm_tpu_torch.es import ESConfig, evolve, init_state, kernel_seed, make_spectrum_ops
+from pmfm_tpu_torch.es import pipeline as tpipeline
+from pmfm_tpu_torch.kernels import evolve as tev
+from pmfm_tpu_torch.kernels import generation as tgen
+from pmfm_tpu_torch.kernels import synth_fitness as tsf
+from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+
+N, POP, MU, D = 256, 64, 8, 4
+MAXS = (3520.0, 8.0, 3520.0, 1.0)
+TRUE = (880.0, 2.0, 1760.0, 0.9)
+GENS = 10
+SEEDS = range(4)
+EVOLVE_FACTOR = 4.0
+
+
+# the cases of tests/test_fused_evolve.py::TestMergeTopMu
+@pytest.mark.parametrize("mu,pb", [(8, 32), (16, 16), (3, 40)])
+def test_merge_topmu_matches_reference(mu, pb):
+    rng = np.random.default_rng(mu * 100 + pb)
+    r = 2 * 3 + 1
+    pool = rng.standard_normal((r, mu)).astype(np.float32)
+    pool[-1] = rng.uniform(0, 10, mu)
+    block = rng.standard_normal((r, pb)).astype(np.float32)
+    block[-1] = rng.uniform(0, 10, pb)
+    ref = np.asarray(_merge_topmu(jnp.asarray(pool), jnp.asarray(block), mu))
+    got = tev.merge_topmu_plain(torch.from_numpy(pool), torch.from_numpy(block), mu).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_merge_topmu_nan_and_inf_lose():
+    rng = np.random.default_rng(0)
+    pool = rng.standard_normal((3, 4)).astype(np.float32)
+    pool[-1] = [1.0, 2.0, np.nan, np.inf]
+    block = rng.standard_normal((3, 8)).astype(np.float32)
+    block[-1] = np.arange(3.0, 11.0, dtype=np.float32)
+    ref = np.asarray(_merge_topmu(jnp.asarray(pool), jnp.asarray(block), 4))
+    got = tev.merge_topmu_plain(torch.from_numpy(pool), torch.from_numpy(block), 4).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got[-1], [1.0, 2.0, 3.0, 4.0])
+    # past every finite value come +inf, then NaN, each keeping its own
+    # fitness (the reference writes both as its 3e38 sentinel, in index order)
+    full = tev.merge_topmu_plain(torch.from_numpy(pool), torch.from_numpy(block), 12).numpy()
+    assert np.isinf(full[-1, -2]) and np.isnan(full[-1, -1])
+    np.testing.assert_array_equal(full[:-1, -2], pool[:-1, 3])
+    np.testing.assert_array_equal(full[:-1, -1], pool[:-1, 2])
+
+
+def test_merge_topmu_ties_broken_by_index():
+    pool = np.zeros((3, 4), np.float32)
+    pool[0] = [10, 20, 30, 40]
+    pool[-1] = 5.0
+    block = np.zeros((3, 8), np.float32)
+    block[0] = np.arange(8.0) + 100.0
+    block[-1] = 5.0
+    ref = np.asarray(_merge_topmu(jnp.asarray(pool), jnp.asarray(block), 6))
+    got = tev.merge_topmu_plain(torch.from_numpy(pool), torch.from_numpy(block), 6).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got[0], [10, 20, 30, 40, 100, 101])
+
+
+def test_select_stable_orders_ties_and_nan():
+    f = torch.tensor([3.0, float("nan"), 1.0, 3.0, float("inf"), -0.0, 0.0])
+    v = torch.arange(7.0)[:, None]
+    sv, _, sf_ = tev.select_stable(v, v, f, 7)
+    assert sv[:, 0].tolist() == [5.0, 6.0, 2.0, 0.0, 3.0, 4.0, 1.0]
+    assert torch.isnan(sf_[-1])
+
+
+@pytest.fixture(scope="module")
+def setup():
+    so = make_spectrum_ops(ESConfig(audio_length_log2=8, dft_dtype="int8", num_dimensions=4,
+                                    topology="fm2", param_mins=(0.0,) * 4, param_maxs=MAXS),
+                           device="cpu")
+    tgt = target_spectrum(synthesize_single(torch.tensor(TRUE), N, "fm2", engine="scanless"), so)
+    return so, tgt
+
+
+def _kw(so, **extra):
+    return dict(pop=POP, param_mins=(0.0,) * D, param_maxs=MAXS, dft_packed=so.dft_packed,
+                dft_scale=so.dft_packed_scale, topology="fm2", n=N, pop_block=8, sine_order=7,
+                **extra)
+
+
+def _run(so, tgt, gens=GENS, seed=7):
+    g = torch.Generator().manual_seed(0)
+    pv = torch.rand((MU, D), generator=g)
+    ps = torch.full((MU, D), 0.1)
+    seeds = [kernel_seed(seed, i) for i in range(gens)]
+    return tev.fused_evolve(seeds, pv, ps, pv[0], torch.tensor(float("inf")), tgt, **_kw(so))
+
+
+def test_fused_evolve_invariants(setup):
+    so, tgt = setup
+    before = tev.fused_evolve.launches
+    pv, ps, pf, bv, bf, traj = _run(*setup)
+    assert tev.fused_evolve.launches == before  # CPU tensors: the plain version
+    assert pv.shape == (MU, D) and ps.shape == (MU, D) and traj.shape == (GENS,)
+    assert (pf[1:] >= pf[:-1]).all()  # parents best first
+    assert (traj[1:] <= traj[:-1]).all()  # best-ever monotone
+    assert float(bf) == float(traj[-1]) and float(bf) <= float(pf[0])
+    assert torch.isfinite(pf).all()
+    # re-evaluating the parents through B1 reproduces their fitness exactly
+    scaled = tgen.scale_rows(pv, (0.0,) * D, MAXS)
+    fit = tsf.fused_synth_fitness(scaled, tgt, dft_packed=so.dft_packed,
+                                  dft_scale=so.dft_packed_scale, topology="fm2", n=N,
+                                  pop_block=8, sine_order=7)
+    assert torch.equal(fit, pf)
+    best = tsf.fused_synth_fitness(tgen.scale_rows(bv[None], (0.0,) * D, MAXS), tgt,
+                                   dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale,
+                                   topology="fm2", n=N, pop_block=1, sine_order=7)
+    assert float(best[0]) == float(bf)
+
+
+def test_fused_evolve_is_b2_with_stable_selection(setup):
+    """Generation by generation: B2's offspring for the generation's seed,
+    the stable (fitness, index) top-mu, best-ever on a strict improvement."""
+    so, tgt = setup
+    pv, ps, pf, bv, bf, traj = _run(so, tgt, gens=3)
+    g = torch.Generator().manual_seed(0)
+    qv = torch.rand((MU, D), generator=g)
+    qs = torch.full((MU, D), 0.1)
+    best = float("inf")
+    for i in range(3):
+        fit, val, stp = tgen.fused_generation(kernel_seed(7, i), qv, qs, tgt, **_kw(so))
+        order = sorted(range(POP), key=lambda j: (float(fit[j]), j))[:MU]
+        qv, qs, qf = val[order], stp[order], fit[order]
+        best = min(best, float(qf[0]))
+        assert float(traj[i]) == best
+    assert torch.equal(pv, qv) and torch.equal(ps, qs) and torch.equal(pf, qf)
+
+
+def test_fused_evolve_resume_improves_or_holds(setup):
+    so, tgt = setup
+    pv, ps, pf, bv, bf, _ = _run(so, tgt, gens=5)
+    out = tev.fused_evolve([kernel_seed(99, i) for i in range(5)], pv, ps, bv, bf, tgt,
+                           **_kw(so))
+    assert float(out[4]) <= float(bf)
+
+
+def test_fused_evolve_f32_mode(setup):
+    """The true-f32 mode (the refine tail's operand) through the same loop."""
+    so32 = make_spectrum_ops(ESConfig(audio_length_log2=8, dft_dtype="float32", num_dimensions=4,
+                                      topology="fm2", param_mins=(0.0,) * 4, param_maxs=MAXS),
+                             device="cpu")
+    tgt = target_spectrum(synthesize_single(torch.tensor(TRUE), N, "fm2", engine="scanless"),
+                          so32)
+    pv, ps, pf, bv, bf, traj = _run(so32, tgt, gens=4)
+    assert (traj[1:] <= traj[:-1]).all() and float(bf) == float(traj[-1])
+    fit = tsf.fused_synth_fitness(tgen.scale_rows(pv, (0.0,) * D, MAXS), tgt,
+                                  dft_packed=so32.dft_packed, dft_scale=0.0, topology="fm2",
+                                  n=N, pop_block=8, sine_order=7)
+    assert torch.equal(fit, pf)
+
+
+def test_fused_evolve_matches_reference_outcome(setup):
+    """Over four seeds, the median final best-ever of the port's B5 lies
+    within a factor of 4 of the reference's fused_evolve (interpret mode)."""
+    so, tgt = setup
+    jso = jops.make_spectrum_ops(N, method="dft", dft_dtype=jnp.int8)
+    jtgt = jops.magnitude_spectrum(
+        jops.synthesize(jnp.asarray(TRUE)[None], N, "fm2", engine="scanless"), jso)[0]
+    np.testing.assert_allclose(tgt.numpy(), np.asarray(jtgt), rtol=1e-5, atol=1e-6)
+    ref, got = [], []
+    for s in SEEDS:
+        pv = jax.random.uniform(jax.random.PRNGKey(s), (MU, D))
+        ps = jnp.full((MU, D), 0.1)
+        out = j_fused_evolve(
+            jnp.int32(s + 1), pv, ps, pv[0], jnp.float32(np.inf), jso.dft_packed, jtgt,
+            gens=GENS, pop=POP, param_mins=(0.0,) * D, param_maxs=MAXS, topology="fm2", n=N,
+            pop_block=8, interpret=True, dft_scale=jso.dft_packed_scale, sine_order=7,
+        )
+        ref.append(np.asarray(out[5]))
+        tpv = torch.from_numpy(np.array(pv))
+        tout = tev.fused_evolve([kernel_seed(s + 1, i) for i in range(GENS)], tpv,
+                                torch.from_numpy(np.array(ps)), tpv[0],
+                                torch.tensor(float("inf")), tgt, **_kw(so))
+        got.append(tout[5].numpy())
+    ref, got = np.stack(ref), np.stack(got)
+    assert np.all(np.diff(ref, axis=1) <= 1e-7) and np.all(np.diff(got, axis=1) <= 0)
+    ref_med, got_med = np.median(ref[:, -1]), np.median(got[:, -1])
+    assert ref_med / EVOLVE_FACTOR <= got_med <= ref_med * EVOLVE_FACTOR, (got_med, ref_med)
+    assert got_med < np.median(got[:, 0]) and ref_med < np.median(ref[:, 0])
+
+
+def _mega_cfg(**extra):
+    return dict(num_parents=MU, num_offspring=POP - MU, num_dimensions=D, topology="fm2",
+                param_mins=(0.0,) * D, param_maxs=MAXS, audio_length_log2=8,
+                spectrum_method="dft", dft_dtype="int8", fused_kernel=True,
+                fused_generation=True, fused_evolve=True, pop_block=8, sine_order=7, **extra)
+
+
+def test_evolve_mega_bookkeeping_matches_reference(setup):
+    """As tests/test_fused_evolve.py::TestEvolveMegaWrapper: generation,
+    trajectory shape, stall range, best == trajectory end; and the stall
+    the port recovers from the trajectory equals the loop's own count."""
+    so, tgt = setup
+    jc = JConfig(**_mega_cfg())
+    jso = j_make_spectrum_ops(jc)
+    jtgt = jops.target_spectrum(jops.synthesize_single(jnp.asarray(TRUE), N, "fm2"), jso)
+    jfinal, jtraj = j_evolve_mega(j_init_state(jax.random.PRNGKey(3), jc), jtgt, 6, jso, jc,
+                                  True, interpret=True)
+    cfg = ESConfig(**_mega_cfg())
+    state = init_state(3, cfg, device="cpu")
+    final, traj = tpipeline._evolve_mega(state, tgt, 6, so, cfg, True)
+    for f, t in ((jfinal, np.asarray(jtraj)), (final, traj.numpy())):
+        assert int(f.generation) == 6 and t.shape == (6,)
+        assert 0 <= int(f.stall) <= 6 and float(f.best_fitness) == float(t[-1])
+    # the per-generation loop on the same seeds gives the same trajectory and stall
+    # (its selection is torch.topk: ties aside, the same survivors)
+    loop, ltraj = evolve(init_state(3, cfg.replace(fused_evolve=False), device="cpu"), tgt, 6,
+                         so, cfg.replace(fused_evolve=False), record_trajectory=True)
+    assert torch.equal(ltraj, traj) and int(loop.stall) == int(final.stall)
+    assert torch.equal(loop.best_values, final.best_values)
+    none = tpipeline._evolve_mega(final, tgt, 0, so, cfg, False)
+    assert none[0] is final and none[1] is None
+
+
+def test_evolve_routes_to_b5_only_on_a_card(setup):
+    so, _ = setup
+    cfg = ESConfig(**_mega_cfg())
+    assert not tpipeline._fused_evolve_ok(cfg, so, torch.device("cpu"))
+    assert tpipeline._fused_evolve_ok(cfg, so, torch.device("cuda"))
+    for extra in (dict(restart_patience=5), dict(fitness_threshold=1.0),
+                  dict(fused_evolve=False), dict(mutation_noise="normal_unit")):
+        assert not tpipeline._fused_evolve_ok(ESConfig(**{**_mega_cfg(), **extra}), so,
+                                              torch.device("cuda"))

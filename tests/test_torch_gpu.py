@@ -33,6 +33,11 @@ pytestmark = pytest.mark.gpu
 FIT_MAX_REL, FIT_MEDIAN_REL = 1e-3, 1e-5
 STEP_MAX_REL = 1e-6
 TRUTH = (3078.0, 2.0, 3015.0, 1.5, 3141.0, 1.0, 2500.0, 1.2)
+# a population whose last CUDA block is only partly filled: not a multiple
+# of the f32 mode's 16 candidates a block, the int8 mode's 64, or the 4
+# fitness values of B5's selection loads
+RAGGED_POP = 4001
+POPS = [4096, RAGGED_POP]
 
 
 @pytest.fixture
@@ -53,9 +58,10 @@ def _setup(dev, topology="fm3_series", n=1024, pop=4096):
     return cfg, so, tgt
 
 
+@pytest.mark.parametrize("pop", POPS)
 @pytest.mark.parametrize("topology,n", [("fm3_series", 1024), ("fm2", 256), ("fm4_series", 2048)])
-def test_b1_kernel_matches_plain(cuda, topology, n):
-    cfg, so, tgt = _setup(cuda, topology, n)
+def test_b1_kernel_matches_plain(cuda, topology, n, pop):
+    cfg, so, tgt = _setup(cuda, topology, n, pop)
     rng = np.random.default_rng(0)
     p = torch.from_numpy((rng.random((cfg.population_size, cfg.num_dimensions)) *
                           np.asarray(cfg.param_maxs)).astype(np.float32)).to(cuda)
@@ -69,8 +75,9 @@ def test_b1_kernel_matches_plain(cuda, topology, n):
     assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
 
 
-def test_b2_kernel_matches_plain(cuda):
-    cfg, so, tgt = _setup(cuda)
+@pytest.mark.parametrize("pop", POPS)
+def test_b2_kernel_matches_plain(cuda, pop):
+    cfg, so, tgt = _setup(cuda, pop=pop)
     g = torch.Generator(device=cuda).manual_seed(0)
     pv = torch.rand((64, 6), generator=g, device=cuda)
     ps = torch.rand((64, 6), generator=g, device=cuda) * 0.3  # fm3_series
@@ -151,3 +158,88 @@ def test_evolve_runs_through_the_large_frame_kernels(cuda, log2n, engine, counte
     assert counter.launches - launches[0] == 5
     assert (sf.fused_synth_fitness.launches, gn.fused_generation.launches) == launches[1:]
     assert torch.isfinite(traj).all() and float(traj[-1]) < float(traj[0])
+
+
+def _f32_setup(dev, n=1024, pop=4096):
+    cfg = ESConfig(num_parents=64, num_offspring=pop - 64, audio_length_log2=int(np.log2(n)),
+                   dft_dtype="float32", sine_order=9, mutation_noise="clt12_neutral",
+                   min_step=1e-4, fused_generation=True, pop_block=pop)
+    so = make_spectrum_ops(cfg, device=dev)
+    tgt = target_spectrum(synthesize_single(torch.tensor(TRUTH[:6]), n, cfg.topology).to(dev), so)
+    return cfg, so, tgt
+
+
+# B1/B2 true f32 against their plain versions: the same f32 audio, the DFT
+# summed in another order (limits as chip_smoke.py's)
+F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL = 1e-5, 1e-6
+
+
+@pytest.mark.parametrize("n,pop", [(1024, 4096), (2048, 4096), (2048, RAGGED_POP)])
+def test_b1_b2_f32_kernels_match_plain(cuda, n, pop):
+    cfg, so, tgt = _f32_setup(cuda, n, pop)
+    assert so.dft_packed.dtype == torch.float32 and so.dft_packed_scale == 0.0
+    p = _params(cuda, cfg.population_size)
+    p[0] = torch.tensor(TRUTH[:6], device=cuda)
+    kw = dict(dft_packed=so.dft_packed, dft_scale=0.0, n=n, pop_block=cfg.population_size,
+              sine_order=9)
+    before = sf.fused_synth_fitness.launches
+    got = sf.fused_synth_fitness(p, tgt, **kw)
+    assert sf.fused_synth_fitness.launches == before + 1
+    ref = sf.fused_synth_fitness_plain(p, tgt, **kw)
+    rel = (got - ref).abs() / ref.abs()
+    assert float(rel.max()) <= F32_FIT_MAX_REL and float(rel.median()) <= F32_FIT_MEDIAN_REL
+    assert int(got.argmin()) == 0 and int(ref.argmin()) == 0
+    g = torch.Generator(device=cuda).manual_seed(1)
+    pv = torch.rand((64, 6), generator=g, device=cuda)
+    ps = torch.rand((64, 6), generator=g, device=cuda) * 0.3
+    kw2 = dict(pop=cfg.population_size, param_mins=cfg.param_mins, param_maxs=cfg.param_maxs,
+               root_two_over_pi=cfg.root_two_over_pi, min_step=1e-4, **kw)
+    seed = kernel_seed(7, 11)
+    fk, vk, sk = gn.fused_generation(seed, pv, ps, tgt, **kw2)
+    fp, vp, sp = gn.fused_generation_plain(seed, pv, ps, tgt, **kw2)
+    assert torch.equal(vk, vp)
+    assert float(((sk - sp).abs() / sp.abs()).max()) <= STEP_MAX_REL
+    rel = (fk - fp).abs() / fp.abs()
+    assert float(rel.max()) <= F32_FIT_MAX_REL and float(rel.median()) <= F32_FIT_MEDIAN_REL
+
+
+@pytest.mark.parametrize("pop", POPS)
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_b5_bit_equal_to_b2_launches(cuda, dtype, pop):
+    """G generations in one B5 launch == G B2 launches + the stable selection."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    if dtype == "int8":
+        cfg, so, tgt = _setup(cuda, pop=pop)
+    else:
+        cfg, so, tgt = _f32_setup(cuda, pop=pop)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    pv = torch.rand((64, 6), generator=g, device=cuda)
+    ps = torch.rand((64, 6), generator=g, device=cuda) * 0.3
+    kw = dict(pop=cfg.population_size, param_mins=cfg.param_mins, param_maxs=cfg.param_maxs,
+              dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, n=cfg.n_samples,
+              pop_block=cfg.population_size, sine_order=cfg.sine_order,
+              root_two_over_pi=cfg.root_two_over_pi, min_step=cfg.min_step)
+    seeds = [kernel_seed(5, i) for i in range(8)]
+    args = (pv, ps, pv[0].clone(), torch.tensor(float("inf"), device=cuda), tgt)
+    before = ev.fused_evolve.launches
+    out = ev.fused_evolve(seeds, *args, **kw)
+    assert ev.fused_evolve.launches == before + 1
+    loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+    for a, b in zip(out, loop):
+        assert torch.equal(a, b)
+    traj = out[5]
+    assert (traj[1:] <= traj[:-1]).all() and float(out[4]) == float(traj[-1])
+
+
+def test_evolve_fused_evolve_is_one_launch(cuda):
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    cfg, so, tgt = _setup(cuda)
+    cfg = cfg.replace(fused_evolve=True)
+    launches = (ev.fused_evolve.launches, gn.fused_generation.launches)
+    final, traj = evolve(init_state(0, cfg, device=cuda), tgt, 20, so, cfg, record_trajectory=True)
+    assert (ev.fused_evolve.launches - launches[0], gn.fused_generation.launches) == (1, launches[1])
+    assert final.generation == 20 and traj.shape == (20,)
+    assert torch.isfinite(traj).all() and float(traj[-1]) < float(traj[0])
+    assert float(final.best_fitness) == float(traj[-1])

@@ -182,7 +182,7 @@ def test_fold_definition():
 
 
 @pytest.mark.parametrize("case", [
-    dict(dft_scale=0.0),  # bf16 / true-f32 engines
+    dict(dft_scale=0.0),  # the bf16 engine: scale 0 without the float32 operand
     dict(topology="fm3_parallel"),
     dict(num_frames=2),
     dict(topology="fm9_series"),

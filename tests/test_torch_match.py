@@ -2,7 +2,8 @@
 reference, on the CPU.
 
 ``match_audio`` runs the large-frame route at n = 4096 (B3 synth_fold, in
-its plain version here; the reference's Pallas kernel in interpret mode).
+its plain version here; the reference's Pallas kernel in interpret mode),
+and at n = 1024 the fused kernels with the true-f32 refine tail.
 The two packages draw from different generators (ROADMAP Queue C), so the
 runs are compared by outcome, as tests/test_torch_es.py compares ``evolve``:
 over four seeds, the median best fitness of the port must lie within a
@@ -78,14 +79,50 @@ def test_match_audio_refine_tail():
         assert c.best_fitness == tail[-1]
 
 
-def test_refine_tail_at_small_frames_raises_before_work(monkeypatch):
-    def no_work(*a, **k):
-        raise AssertionError("match_audio built operands before raising")
+def _target_1024():
+    """Two 1024-sample chunks, each a known fm2 tone."""
+    audio = np.asarray(j_synthesize(jnp.asarray(CHUNK_PARAMS, jnp.float32), 1024, "fm2",
+                                    engine="scanless"))
+    return audio.T.reshape(-1)
 
-    monkeypatch.setattr(tpipeline, "make_spectrum_ops", no_work)
-    cfg = ESConfig(**{**SLICE, "audio_length_log2": 11, "refine_generations": 2})
-    with pytest.raises(NotImplementedError, match="true-f32"):
-        match_audio(np.zeros(4096, np.float32), cfg, num_generations=4, device="cpu")
+
+def test_match_audio_refine_tail_at_small_frames_matches_reference():
+    """n = 1024: the refine tail runs the true-f32 fused kernels (B2 f32, and
+    B1 f32 for the boundary rescore). Outcome against the reference's
+    match_audio over four seeds as above; within the port's tail best-ever
+    never rises and ends no worse than its start."""
+    target = _target_1024()
+    small = {**SLICE, "audio_length_log2": 10, "num_offspring": 56, "pop_block": 64,
+             "refine_generations": 3}
+    jc, tc = JConfig(**small), ESConfig(**small)
+    assert tpipeline.active_engine(tc.refine_config(), tpipeline.make_spectrum_ops(
+        tc.refine_config(), device="cpu")) == "fused_generation"
+    ref = [j_match_audio(target, jc, key=s, num_generations=GENS) for s in SEEDS]
+    got = [match_audio(target, tc, seed=s, num_generations=GENS, record_trajectory=True,
+                       device="cpu") for s in SEEDS]
+    for r in got:
+        assert len(r.chunks) == 2 and r.output_audio.shape == (2048,)
+        for c in r.chunks:
+            tail = c.trajectory[GENS - 3 :]
+            assert np.all(np.diff(tail) <= 0) and c.best_fitness == tail[-1]
+            assert c.best_fitness <= c.refine_start_fitness
+    for i in range(2):
+        ref_med = np.median([r.chunks[i].best_fitness for r in ref])
+        got_med = np.median([r.chunks[i].best_fitness for r in got])
+        assert ref_med / MATCH_FACTOR <= got_med <= ref_med * MATCH_FACTOR, (i, got_med, ref_med)
+
+
+@pytest.mark.parametrize("name", ["params_match.json", "audio_match.json"])
+def test_shipped_configs_route_to_the_fused_kernels(name):
+    """Both configs run as written: the main engine and the refine tail's
+    (true f32 at n <= 2048) are ported fused engines."""
+    cfg = tconfig.load_config(REPO / "examples" / name).es
+    assert cfg.refine_generations == 100
+    for c in (cfg, cfg.refine_config()):
+        so = tpipeline.make_spectrum_ops(c, device="cpu")
+        assert tpipeline.active_engine(c, so) == "fused_generation"
+    assert tpipeline.make_spectrum_ops(cfg.refine_config(), device="cpu").dft_packed.dtype == \
+        torch.float32
 
 
 def test_match_audio_rejects_short_target():
