@@ -52,6 +52,15 @@ TRUTH = (3078.0, 2.0, 3015.0, 1.5, 3141.0, 1.0)  # examples/params_match.json
 GENERATIONS = 200
 TIMED_LAUNCHES = 25
 PLAIN_RUNS = 3
+SPLIT_BINS = 8  # phase 6's synthesis-only B1: an operand and target of 8 bins
+# phase 4b: B1/B2 int8 over every frame the router sends them (multiples of
+# 256 up to 3584), the ported topologies, sine orders 5/7/9, and populations
+# around the 32-candidate block and a ragged one (plus P 2^15 at n 1024)
+GRID_N = (256, 1024, 2048, 3584)
+GRID_TOPOLOGIES = ("fm2", "fm3_series", "fm8_series")
+GRID_SINE_ORDERS = (5, 7, 9)
+GRID_POPS = (1, 63, 64, 65, 4001)
+GRID_ODD_BINS = (1024, 200)  # (n, K): K not a multiple of the kernel's 32-bin pass
 SEED = 20261017
 # the large-frame cells: the reference's chunk-size rows (bench_suite.py)
 FOLD_LOG2N, FOLD_POP, FOLD_GENERATIONS = 13, 1 << 15, 30  # (c) synth_fold, B3
@@ -321,6 +330,101 @@ class Smoke:
         require(chi2 < (MU - 1) + 6 * (2 * (MU - 1)) ** 0.5, "parent index not uniform")
         self.kernels["fused_generation"] = {"max_abs_err": float((fk - fp).abs().max())}
 
+    # -- 4b -----------------------------------------------------------------
+    def int8_settings(self):
+        """(label, ESConfig) of each driven path besides the bench that runs
+        B1/B2 in int8: the shipped config's int8 part (n 1024, sine order 9)
+        and audio_match.json's (n 2048, pop 4096), the latter also at
+        ``RAGGED_POP``."""
+        from pmfm_tpu_torch.io import load_config
+
+        audio = load_config(AUDIO_CONFIG).es
+        return (("shipped int8 part", load_config(SHIPPED_CONFIG).es),
+                ("audio_match int8 part", audio),
+                ("audio_match int8 part, ragged P",
+                 audio.replace(num_offspring=RAGGED_POP - audio.num_parents)))
+
+    def int8_check(self, where, params, pv, ps, target, kw1, kw2, seed):
+        """B1 and B2 int8 against their plain versions, B2's offspring values
+        bit-equal and its fitness bit-equal to B1's on those offspring.
+        Returns the two fitness errors (max relative) and the B1 fitness."""
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        fk = sf.fused_synth_fitness(params, target, **kw1)
+        fp = sf.fused_synth_fitness_plain(params, target, **kw1)
+        gk, vk, sk = gn.fused_generation(seed, pv, ps, target, **kw2)
+        gp, vp, sp = gn.fused_generation_plain(seed, pv, ps, target, **kw2)
+        own = sf.fused_synth_fitness(gn.scale_rows(vk, kw2["param_mins"], kw2["param_maxs"]),
+                                     target, **kw1)
+        torch.cuda.synchronize()
+        e1, e2 = rel_err(fk, fp), rel_err(gk, gp)
+        s_rel = float(rel_err(sk, sp).max())
+        ok = (bool(torch.isfinite(fk).all() and torch.isfinite(gk).all())
+              and float(e1.max()) <= FIT_MAX_REL and float(e1.median()) <= FIT_MEDIAN_REL
+              and float(e2.max()) <= FIT_MAX_REL and float(e2.median()) <= FIT_MEDIAN_REL
+              and torch.equal(vk, vp) and s_rel <= STEP_MAX_REL and torch.equal(gk, own))
+        if not ok:
+            log(f"FAIL {where}: B1 max rel {float(e1.max()):.3e} median {float(e1.median()):.3e}; "
+                f"B2 max rel {float(e2.max()):.3e} median {float(e2.median()):.3e}, values equal "
+                f"{torch.equal(vk, vp)}, steps max rel {s_rel:.3e}, fitness equal to B1 on its "
+                f"offspring {torch.equal(gk, own)}")
+        require(ok, f"B1/B2 int8 disagree ({where})")
+        return float(e1.max()), float(e2.max()), fk
+
+    def int8_grid(self):
+        """B1/B2 int8 at the shipped and audio_match settings (the truth
+        planted first), then over GRID_N x GRID_TOPOLOGIES x GRID_SINE_ORDERS
+        x GRID_POPS (and P 2^15 at n 1024), and at GRID_ODD_BINS, against a
+        random target."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.ops import spectral
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        for i, (label, cfg) in enumerate(self.int8_settings()):
+            c = self.inputs(cfg, SEED + 40 + i)
+            require(c["so"].dft_packed.dtype == torch.int8, f"{label}: not the int8 operand")
+            where = (f"{label}: n={cfg.n_samples}, P={cfg.population_size}, sine order "
+                     f"{cfg.sine_order}")
+            e1, e2, fk = self.int8_check(where, c["params"], c["pv"], c["ps"], c["target"],
+                                         self.kw_b1(c), self.kw_b2(c), kernel_seed(SEED, 50 + i))
+            log(f"B1/B2 int8 vs plain ({where}): fitness max rel B1 {e1:.3e} B2 {e2:.3e}; B2 "
+                f"values bit-equal, B2 fitness bit-equal to B1 on its offspring; truth rank "
+                f"{int(torch.argmin(fk))}")
+            require(int(torch.argmin(fk)) == 0, "the known-params truth does not rank first")
+        rng = np.random.default_rng(SEED + 30)
+        cases = 0
+        for n, bins in [(n, None) for n in GRID_N] + [GRID_ODD_BINS]:
+            so = spectral.make_spectrum_ops(n, bins, dft_dtype="int8", device=self.dev)
+            tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(
+                self.dev)
+            worst, count = [0.0, 0.0], 0
+            pops = GRID_POPS + ((POP,) if n == 1 << LOG2N and bins is None else ())
+            for topology in GRID_TOPOLOGIES:
+                d = topology_dims(topology)
+                mins, maxs = (0.0,) * d, (3520.0, 8.0) * (d // 2)
+                for order in GRID_SINE_ORDERS:
+                    for pop in pops:
+                        params = torch.from_numpy(
+                            (rng.random((pop, d)) * np.asarray(maxs)).astype(np.float32)
+                        ).to(self.dev)
+                        pv = torch.from_numpy(rng.random((MU, d)).astype(np.float32)).to(self.dev)
+                        ps = torch.from_numpy(
+                            rng.uniform(0.02, 0.3, (MU, d)).astype(np.float32)).to(self.dev)
+                        kw1 = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale,
+                                   topology=topology, n=n, pop_block=pop, sine_order=order)
+                        kw2 = dict(kw1, pop=pop, param_mins=mins, param_maxs=maxs)
+                        where = f"{topology}, n={n}, P={pop}, sine order {order}"
+                        e = self.int8_check(where, params, pv, ps, tgt, kw1, kw2,
+                                            kernel_seed(SEED, 1000 + cases))
+                        worst = [max(worst[0], e[0]), max(worst[1], e[1])]
+                        count += 1
+                        cases += 1
+            log(f"B1/B2 int8 grid, n={n} (K={so.num_bins}): {count} settings ({GRID_TOPOLOGIES} x "
+                f"sine orders {GRID_SINE_ORDERS} x P {pops}) within {FIT_MAX_REL:g} / "
+                f"{FIT_MEDIAN_REL:g}, worst max rel B1 {worst[0]:.3e} B2 {worst[1]:.3e}; B2 values "
+                f"bit-equal, B2 fitness bit-equal to B1 on its offspring")
+
     # -- 5 ------------------------------------------------------------------
     def evolve_run(self, cfg, name):
         from pmfm_tpu_torch.es import evolve, init_state
@@ -400,6 +504,44 @@ class Smoke:
                 route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
             )
+        self.split()
+
+    def split(self):
+        """How B1/B2 int8 split at the bench shape: B1 and B2 with an operand
+        and target of SPLIT_BINS bins (synthesis, fold, launch and, in B2, the
+        offspring prologue: the DFT nearly gone), B2 - B1 (the prologue), and
+        the DFT half alone as ``torch._int_mm`` of candidate-major a+/-
+        against the operand's halves (a yardstick: the port never calls it)."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        n, k = self.cfg.n_samples, self.so.num_bins
+        op = self.so.dft_packed
+        op_s = torch.cat([op[:SPLIT_BINS], op[k : k + SPLIT_BINS]]).contiguous()
+        tgt_s = self.target[:SPLIT_BINS].contiguous()
+        kw1 = dict(self.b1_kwargs(POP), dft_packed=op_s)
+        kw2 = dict(self.b2_kwargs(POP), dft_packed=op_s)
+        seed = kernel_seed(SEED, 1)
+        s1_ms = cuda_ms(lambda: sf.fused_synth_fitness(self.params, tgt_s, **kw1),
+                        TIMED_LAUNCHES)
+        s2_ms = cuda_ms(lambda: gn.fused_generation(seed, self.parents_v, self.parents_s, tgt_s,
+                                                    **kw2), TIMED_LAUNCHES)
+        b1_ms = self.kernels["fused_synth_fitness"]["ms"]
+        b2_ms = self.kernels["fused_generation"]["ms"]
+        g = torch.Generator(device=self.dev).manual_seed(SEED)
+        ap, am = (torch.randint(-126, 127, (POP, n // 2), generator=g, device=self.dev,
+                                dtype=torch.int8) for _ in range(2))
+        cos_t, sin_t = op[:k].T, op[k:].T  # (N/2, K) views
+        mm_ms = cuda_ms(lambda: (torch._int_mm(ap, cos_t), torch._int_mm(am, sin_t)),
+                        TIMED_LAUNCHES)
+        tops = 2.0 * 2 * k * (n // 2) * POP / (mm_ms * 1e-3) / 1e12
+        log(f"B1/B2 int8 split (n={n}, K={k}, P={POP}): B1 {b1_ms:.4f} ms; B1 with {SPLIT_BINS} "
+            f"bins (synthesis + fold + launch) {s1_ms:.4f} ms; B1 minus that (the DFT and its "
+            f"epilogue) {b1_ms - s1_ms:.4f} ms; B2 - B1 (the offspring prologue) "
+            f"{b2_ms - b1_ms:.4f} ms, with {SPLIT_BINS} bins {s2_ms - s1_ms:.4f} ms; yardstick "
+            f"torch._int_mm U+V on candidate-major a+/- {mm_ms:.4f} ms ({tops:.1f} int8 TOP/s) "
+            f"{card()}")
 
     # -- large frames: shared inputs -------------------------------------------
     @staticmethod
@@ -1093,6 +1235,7 @@ def main() -> int:
         return 1
     s.phase("3 B1 vs plain", s.b1_vs_plain)
     s.phase("4 B2 vs plain", s.b2_vs_plain)
+    s.phase("4b B1/B2 int8 settings and grid", s.int8_grid)
     s.phase("5 evolve", s.evolve_both)
     s.phase("6 kernel times", s.timings)
     s.phase("large inputs", s.large_setup)

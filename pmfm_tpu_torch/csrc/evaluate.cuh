@@ -1,11 +1,14 @@
 // The evaluation and the offspring prologue shared by the fused kernels B1,
 // B2 (fused_eval.cu) and B5 (evolve.cu), as the TPU kernels share
 // pmfm_tpu/kernels/synth_fitness.py::_evaluate_block and
-// pmfm_tpu/kernels/generation.py::_offspring_block.
+// pmfm_tpu/kernels/generation.py::_offspring_block. The int8 B1 and B2 run
+// their own evaluation on the int8 tensor cores (fused_eval.cu); the int8
+// mode below is B5's alone, and B1, B2 and B5 share the true-f32 mode and
+// the offspring genes.
 //
 // Two modes, chosen by the operand:
 //
-// int8 (dft_scale > 0; the bench engine). One thread per candidate, TPB
+// int8 (dft_scale > 0; B5's engine). One thread per candidate, TPB
 // candidates per CUDA block. Each thread runs its candidate's sample
 // recurrence (synth_common.cuh::synth_run) and folds q = round(63 sin) into
 // its own column of two (N/2) x TPB byte arrays a+/a- in shared memory
@@ -42,7 +45,9 @@
 // plain PyTorch version (kernels/synth_fitness.py) computes, the int8
 // contraction is exact in int32, and only the order of the f32 sums (the
 // f32 DFT, the sum over bins) differs from the plain version. B5 runs these
-// same functions, so its fitness is bit-equal to B2's.
+// same functions; in int8 the B1/B2 evaluation of fused_eval.cu makes the
+// same audio, exact sums and terms and adds the terms in the same order, so
+// B5's fitness is bit-equal to B2's in both modes.
 #pragma once
 
 #include <type_traits>
@@ -299,11 +304,49 @@ __device__ __forceinline__ float uniform01(uint32_t bits) {
   return fmul((float)(bits >> 8), 1.0f / 16777216.0f);  // exact: 24-bit value
 }
 
-// Candidate `cand`'s offspring (_offspring_block): per gene a uniform parent,
-// an exact copy, the Ek coin, a CLT-12 gaussian (sigma 1/6), one retry with
-// -0.5 g, log-normal step adaptation, the step floor and the optional clamp.
-// Writes its values and steps rows and the scaled parameters p (_scale_rows).
-// The parents are read through L2 (__ldcg): B5 rewrites them during its run.
+// Gene `dim` of candidate `cand`'s offspring (_offspring_block): a uniform
+// parent, an exact copy, the Ek coin, a CLT-12 gaussian (sigma 1/6), one
+// retry with -0.5 g, log-normal step adaptation, the step floor and the
+// optional clamp. Writes the gene's value and step and returns its scaled
+// parameter (_scale_rows). It depends on (cand, dim) alone, so the int8
+// B1/B2 spread a block's genes over all its threads. The parents are read
+// through L2 (__ldcg): B5 rewrites them during its run.
+__device__ __forceinline__ float offspring_gene(uint32_t seed, int cand, int dim, const float* pv,
+                                                const float* ps, const MutateParams& mp, int d,
+                                                float* values, float* steps) {
+  const uint4 r0 = philox4x32_10(make_uint4(cand, dim, 0, 0), seed, 0u);
+  const uint4 r1 = philox4x32_10(make_uint4(cand, dim, 1, 0), seed, 0u);
+  const uint4 r2 = philox4x32_10(make_uint4(cand, dim, 2, 0), seed, 0u);
+  const uint4 r3 = philox4x32_10(make_uint4(cand, dim, 3, 0), seed, 0u);
+  const int idx = (int)((r0.x & 0x7FFFFFFFu) % (uint32_t)mp.mu);
+  const bool coin = (r0.y & 1u) != 0u;
+  const uint32_t u[12] = {r0.z, r0.w, r1.x, r1.y, r1.z, r1.w,
+                          r2.x, r2.y, r2.z, r2.w, r3.x, r3.y};
+  const float x = __ldcg(pv + (size_t)idx * d + dim);
+  const float s = __ldcg(ps + (size_t)idx * d + dim);
+  const float ek = coin ? mp.inv_alpha : mp.alpha;
+  const float ekb = coin ? mp.ekb_inv_alpha : mp.ekb_alpha;
+  float g = 0.f;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) g = fadd(g, fsub(fmul(uniform01(u[j]), 2.f), 1.f));
+  g = fmul(g, 1.0f / 12.0f);
+  const float eks = fmul(ek, s);
+  float nx = fadd(x, fmul(eks, g));
+  if (nx < 0.f || nx > 1.f) {
+    g = fmul(g, -0.5f);
+    nx = fadd(x, fmul(eks, g));
+  }
+  if (mp.clamp) nx = fminf(fmaxf(nx, 0.f), 1.f);
+  const float es = expf(fsub(fabsf(g), mp.root_two_over_pi));
+  float ns = fmul(fmul(s, ekb), powf(es, mp.beta_scale));
+  if (mp.min_step > 0.f) ns = fmaxf(ns, mp.min_step);
+  values[(size_t)cand * d + dim] = nx;
+  steps[(size_t)cand * d + dim] = ns;
+  return fadd(mp.mins[dim], fmul(nx, mp.ranges[dim]));  // _scale_rows
+}
+
+// Candidate `cand`'s offspring, one thread for all its genes (B2 f32, B5):
+// its values and steps rows and the scaled parameters p.
 __device__ __forceinline__ void offspring(uint32_t seed, int cand, const float* pv, const float* ps,
                                           const MutateParams& mp, int d, float* p,
                                           float* values, float* steps) {
@@ -311,35 +354,7 @@ __device__ __forceinline__ void offspring(uint32_t seed, int cand, const float* 
   for (int dim = 0; dim < MAX_D; ++dim) {
     p[dim] = 0.f;
     if (dim >= d) continue;
-    const uint4 r0 = philox4x32_10(make_uint4(cand, dim, 0, 0), seed, 0u);
-    const uint4 r1 = philox4x32_10(make_uint4(cand, dim, 1, 0), seed, 0u);
-    const uint4 r2 = philox4x32_10(make_uint4(cand, dim, 2, 0), seed, 0u);
-    const uint4 r3 = philox4x32_10(make_uint4(cand, dim, 3, 0), seed, 0u);
-    const int idx = (int)((r0.x & 0x7FFFFFFFu) % (uint32_t)mp.mu);
-    const bool coin = (r0.y & 1u) != 0u;
-    const uint32_t u[12] = {r0.z, r0.w, r1.x, r1.y, r1.z, r1.w,
-                            r2.x, r2.y, r2.z, r2.w, r3.x, r3.y};
-    const float x = __ldcg(pv + (size_t)idx * d + dim);
-    const float s = __ldcg(ps + (size_t)idx * d + dim);
-    const float ek = coin ? mp.inv_alpha : mp.alpha;
-    const float ekb = coin ? mp.ekb_inv_alpha : mp.ekb_alpha;
-    float g = 0.f;
-#pragma unroll
-    for (int j = 0; j < 12; ++j) g = fadd(g, fsub(fmul(uniform01(u[j]), 2.f), 1.f));
-    g = fmul(g, 1.0f / 12.0f);
-    const float eks = fmul(ek, s);
-    float nx = fadd(x, fmul(eks, g));
-    if (nx < 0.f || nx > 1.f) {
-      g = fmul(g, -0.5f);
-      nx = fadd(x, fmul(eks, g));
-    }
-    if (mp.clamp) nx = fminf(fmaxf(nx, 0.f), 1.f);
-    const float es = expf(fsub(fabsf(g), mp.root_two_over_pi));
-    float ns = fmul(fmul(s, ekb), powf(es, mp.beta_scale));
-    if (mp.min_step > 0.f) ns = fmaxf(ns, mp.min_step);
-    values[(size_t)cand * d + dim] = nx;
-    steps[(size_t)cand * d + dim] = ns;
-    p[dim] = fadd(mp.mins[dim], fmul(nx, mp.ranges[dim]));  // _scale_rows
+    p[dim] = offspring_gene(seed, cand, dim, pv, ps, mp, d, values, steps);
   }
 }
 

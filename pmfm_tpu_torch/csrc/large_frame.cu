@@ -35,137 +35,24 @@
 // block; each thread runs synth_common.cuh::synth_run, the recurrence B1 and
 // B2 run. B4 writes sample m of all 32 candidates with one warp store (64
 // bytes of bf16, 128 of f32). B3 takes the samples in unrolled groups of 16
-// and writes each group of its own row as one 16-byte vector (two in bf16).
-// The first half of the frame goes straight to a+; a half frame is 4 KB a
-// candidate at n = 8192, so 64 candidates' halves would not fit shared
-// memory. Each group of 16 second-half samples completes 16 rows of the fold:
-// rows [N-m0, N-m0+16) pair the group's first sample m0 with the previous
-// group's last 15, so the thread keeps the previous group in registers,
-// reads the 16 first-half samples of those rows back from its own row of a+
-// (a vector load issued one group ahead, to hide its latency) and writes the
-// 16 sums and differences; rows [0, 16) complete after the last sample. A
-// thread reads only what it wrote itself, so no barrier is needed. The
-// per-thread time loop is the weak point: at P = 2^13 there are only ~2
-// warps per SM to hide the recurrence's latency. Splitting time across
-// threads (the scanless prefix sum) is later work.
+// and writes each group of its own row as one 16-byte vector (two in bf16)
+// through synth_common.cuh::FoldEmit, the grouped fold emitter B1 and B2
+// share: the first half of the frame goes straight to a+ (a half frame is
+// 4 KB a candidate at n = 8192, so 64 candidates' halves would not fit shared
+// memory), and each group of 16 second-half samples completes 16 rows of the
+// fold (FoldEmit's note says how). The per-thread time loop is the weak
+// point: at P = 2^13 there are only ~2 warps per SM to hide the
+// recurrence's latency. Splitting time across threads (the scanless prefix
+// sum) is later work.
 //
 // Exactness: every f32 operation uses __fmul_rn / __fadd_rn (synth_common.cuh),
 // bf16 rounding is __float2bfloat16_rn (round to nearest even, as PyTorch's
 // .to(torch.bfloat16)), so the outputs are bit-equal to the plain versions in
 // kernels/synth_fold.py and kernels/synth_stream.py.
 
-#include <cuda_bf16.h>
-
-#include <type_traits>
-
 #include "synth_common.cuh"
 
 #define LF_TPB 32  // candidates (threads) per CUDA block
-#define FOLD_G 16  // B3's samples per group: one 16-byte vector of int8
-
-template <bool INT8>
-using fold_t = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
-
-__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <bool INT8>
-__device__ __forceinline__ fold_t<INT8> from_f32(float v);
-template <>
-__device__ __forceinline__ int8_t from_f32<true>(float v) { return (int8_t)(int)v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<false>(float v) { return __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ uint32_t lane_bits(int8_t v) { return (uint32_t)(uint8_t)v; }
-__device__ __forceinline__ uint32_t lane_bits(__nv_bfloat16 v) {
-  return (uint32_t)__bfloat16_as_ushort(v);
-}
-
-// 16 consecutive elements of T as exact f32 values <-> one (int8) or two
-// (bf16) 16-byte vectors; the stores round each value with from_f32.
-template <bool INT8>
-__device__ __forceinline__ void store_group(fold_t<INT8>* dst, const float* v) {
-  constexpr int PER_WORD = INT8 ? 4 : 2, BITS = 32 / PER_WORD;
-  uint32_t w[FOLD_G / PER_WORD];
-#pragma unroll
-  for (int i = 0; i < FOLD_G / PER_WORD; ++i) {
-    w[i] = 0u;
-#pragma unroll
-    for (int j = 0; j < PER_WORD; ++j)
-      w[i] |= lane_bits(from_f32<INT8>(v[i * PER_WORD + j])) << (BITS * j);
-  }
-  uint4* out = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-  for (int i = 0; i < FOLD_G / PER_WORD / 4; ++i)
-    out[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
-}
-
-template <bool INT8>
-__device__ __forceinline__ void load_group(const fold_t<INT8>* src, float* v) {
-  constexpr int PER_WORD = INT8 ? 4 : 2, BITS = 32 / PER_WORD;
-  const uint4* in = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int i = 0; i < FOLD_G / PER_WORD / 4; ++i) {
-    const uint4 q = in[i];
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int j = 0; j < PER_WORD; ++j) {
-        const uint32_t b = (w[k] >> (BITS * j)) & ((1u << BITS) - 1u);
-        v[(4 * i + k) * PER_WORD + j] =
-            INT8 ? (float)(int8_t)(uint8_t)b
-                 : __bfloat162float(__ushort_as_bfloat16((unsigned short)b));
-      }
-    }
-  }
-}
-
-// B3's emitter: quantises each sample, stores the first half, folds the
-// second (the Design note above); one candidate's row of a+ and a-.
-template <bool INT8>
-struct FoldEmit {
-  fold_t<INT8>* ap;
-  fold_t<INT8>* am;
-  int n, half;
-  float amp, edge_q;
-  float cur[FOLD_G], prev[FOLD_G], old[FOLD_G];
-
-  // rows [s, s + FOLD_G): row s + i pairs with sample N - s - i, which is
-  // prev[FOLD_G - i] for i > 0 and `first` (when there is one) for i = 0
-  __device__ __forceinline__ void fold_rows(int s, bool has_first, float first) {
-    float plus[FOLD_G], minus[FOLD_G];
-#pragma unroll
-    for (int i = 0; i < FOLD_G; ++i) {
-      const float x = i == 0 ? (has_first ? first : 0.f) : prev[FOLD_G - i];
-      plus[i] = fadd(old[i], x);
-      minus[i] = fsub(old[i], x);
-    }
-    store_group<INT8>(ap + s, plus);
-    store_group<INT8>(am + s, minus);
-  }
-
-  __device__ __forceinline__ void operator()(int m, int u, float y) {
-    const fold_t<INT8> qs = INT8 ? from_f32<INT8>(rintf(y)) : from_f32<INT8>(fmul(y, amp));
-    cur[u] = to_f32(qs);
-    const int m0 = m - u;
-    if (m0 < half) {
-      if (u == FOLD_G - 1) store_group<INT8>(ap + m0, cur);
-      return;
-    }
-    if (u == 0) {
-      if (m0 == half)
-        edge_q = cur[0];
-      else
-        fold_rows(n - m0, true, cur[0]);
-      load_group<INT8>(ap + (n - m0 - FOLD_G), old);  // the next group's rows
-    }
-    if (u == FOLD_G - 1) {
-#pragma unroll
-      for (int i = 0; i < FOLD_G; ++i) prev[i] = cur[i];
-    }
-  }
-};
 
 template <int NC, bool INT8>
 __global__ void __launch_bounds__(LF_TPB)
@@ -179,8 +66,8 @@ synth_fold_kernel(const float* __restrict__ params, int pop, SynthParams sp,
   const Chain ch = make_chain(p, sp);
   const int half = sp.n >> 1;
   FoldEmit<INT8> emit;
-  emit.ap = a_plus + (size_t)cand * half;
-  emit.am = a_minus + (size_t)cand * half;
+  emit.ap.p = a_plus + (size_t)cand * half;
+  emit.am.p = a_minus + (size_t)cand * half;
   emit.n = sp.n;
   emit.half = half;
   emit.amp = ch.amp;

@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` (``fused_eval.cu``: B1, B2; ``evolve.cu``: B5;
-``large_frame.cu``: B3, B4; ``evaluate.cuh``: the evaluation and offspring
-B1, B2 and B5 share; ``synth_common.cuh``: the synthesis all five share)
-have a plain C interface and include no PyTorch header, so one ``nvcc``
-call compiles them all in about half a minute into one shared library,
-which ``ctypes`` loads. The library goes to ``build/pmfm_tpu_torch/`` at
-the root of the checkout, under a name that carries a hash of every source,
-so an edited source is rebuilt and a current build is reused. Nothing here
-runs at import: the first launch builds.
+``large_frame.cu``: B3, B4; ``evaluate.cuh``: the evaluation B5 runs and the
+f32 mode and offspring genes B1, B2 and B5 share; ``synth_common.cuh``: the
+synthesis all five share and the fold emitter of B1, B2 and B3) have a plain
+C interface and include no PyTorch header, so ``nvcc`` compiles them, one
+process per source started together, and links them into one shared
+library, which ``ctypes`` loads. The library goes to
+``build/pmfm_tpu_torch/`` at the root of the checkout, under a name that
+carries a hash of every source, so an edited source is rebuilt and a
+current build is reused. Nothing here runs at import: the first launch
+builds.
 """
 from __future__ import annotations
 
@@ -95,7 +97,9 @@ def library_path() -> Path:
 def build() -> dict:
     """Compile the kernels unless a library of the current sources exists.
 
-    Returns ``{"path", "seconds", "log", "built"}``; ``log`` holds nvcc's
+    Each source is compiled by its own ``nvcc`` process, all started
+    together, and the objects are linked into one shared library. Returns
+    ``{"path", "seconds", "log", "built"}``; ``log`` holds nvcc's
     ``-Xptxas -v`` report (registers, shared memory, spills per kernel).
     Raises ``RuntimeError`` with the compiler's output if nvcc fails.
     """
@@ -103,20 +107,39 @@ def build() -> dict:
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "log": "", "built": False}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), *map(str, sources()),
-    ]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out.with_suffix(f".{tag}")
+    nvcc = nvcc_path()
+    common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in (
+            [*common, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)
+        )
+    ]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append((proc.returncode, " ".join(cmd), logs[-1]))
+    if not failed:
+        link = [*common, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append((proc.returncode, " ".join(link), logs[-1]))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise RuntimeError(
+            "nvcc failed:\n" + "\n".join(f"({rc}) {cmd}\n{log}" for rc, cmd, log in failed))
     os.replace(tmp, out)  # atomic: a concurrent loader sees no half-written file
-    return {"path": str(out), "seconds": seconds, "log": log, "built": True}
+    return {"path": str(out), "seconds": seconds, "log": "".join(logs), "built": True}
 
 
 @functools.lru_cache(maxsize=None)

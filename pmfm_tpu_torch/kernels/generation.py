@@ -4,9 +4,11 @@ DFT + fitness, in B1's int8 or true-f32 mode.
 Replaces ``pmfm_tpu/kernels/generation.py::fused_generation`` (``_gen_kernel``
 over ``_offspring_block``, ``_recombine_flat``/``_recombine_hier``,
 ``_uniform01`` and ``_scale_rows``, then B1's ``_evaluate_block``). The CUDA
-kernel is ``fused_generation_kernel`` in ``csrc/fused_eval.cu``; it runs the
-offspring prologue below per candidate (``csrc/evaluate.cuh::offspring``)
-and then B1's evaluation routine, in the mode the operand selects.
+kernels are ``fused_generation_int8_kernel`` and ``fused_generation_f32_kernel``
+in ``csrc/fused_eval.cu``; each runs the offspring prologue below
+(``csrc/evaluate.cuh::offspring_gene``: in int8 the block's genes spread
+over all its threads, in f32 one thread a candidate) and then B1's
+evaluation in the mode the operand selects.
 ``fused_generation_plain`` is its plain PyTorch version.
 
 Offspring semantics (``_offspring_block``): per gene a uniform parent index

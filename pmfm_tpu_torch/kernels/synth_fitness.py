@@ -2,11 +2,13 @@
 
 Replaces ``pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness`` (the
 Pallas kernel ``_kernel`` over ``_evaluate_block``, ``_make_block_synth``,
-``_dft_uv`` and ``_fit_epilogue``). The CUDA kernel is
-``fused_synth_fitness_kernel`` in ``csrc/fused_eval.cu`` over
-``csrc/evaluate.cuh``, whose note says what bounds it on an H100 and how the
-design meets that. ``fused_synth_fitness_plain`` here is its plain PyTorch
-version, which the wrapper runs for CPU tensors.
+``_dft_uv`` and ``_fit_epilogue``). The CUDA kernels are in
+``csrc/fused_eval.cu``: ``fused_synth_fitness_int8_kernel`` (the folded DFT
+on the int8 tensor cores; that file's note says what bounds it on an H100
+and how the design meets that) and ``fused_synth_fitness_f32_kernel`` over
+``csrc/evaluate.cuh``, whose note covers the true-f32 mode.
+``fused_synth_fitness_plain`` here is their plain PyTorch version, which the
+wrapper runs for CPU tensors.
 
 The numerics carried over from the TPU kernel:
 
@@ -56,7 +58,8 @@ from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 DEFAULT_POP_BLOCK = 512
 TIME_BLOCK = 128
 MAX_SERIES_OPS = 8  # csrc MAX_KN
-CUDA_BLOCK = 64  # csrc TPB: int8 candidates (threads) per CUDA block
+CUDA_BLOCK = 32  # csrc TC_CPB: int8 B1/B2 candidates per CUDA block (one warp)
+B5_CUDA_BLOCK = 64  # csrc TPB: int8 B5 candidates (threads) per CUDA block
 F32_CUDA_BLOCK = 16  # csrc F32_CPB: f32 candidates per CUDA block
 F32_GROUPS = 8  # csrc F32_GROUPS: f32 threads per candidate
 MAX_SHARED_BYTES = 232448  # shared memory one block of an H100 can use
@@ -312,20 +315,24 @@ def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
 
 
 def shared_bytes(n: int, f32: bool) -> int:
-    """Dynamic shared memory of one B1/B2 block (csrc ``eval_smem_bytes``):
-    the folded audio of its candidates, int8 (``CUDA_BLOCK`` x n bytes) or
-    float32 (``F32_CUDA_BLOCK`` x n x 4 bytes, plus the edge samples and the
-    partial sums of its ``F32_GROUPS`` threads per candidate)."""
+    """Dynamic shared memory of the largest block of the fused kernels B1, B2
+    and B5 at frames of ``n`` samples (csrc ``eval_smem_bytes`` and
+    ``fused_eval.cu``'s ``n * TC_CPB``): the folded audio of its candidates,
+    int8 (B1/B2: ``CUDA_BLOCK`` x n bytes; B5, which keeps the earlier int8
+    evaluation: ``B5_CUDA_BLOCK`` x n bytes) or float32 (``F32_CUDA_BLOCK`` x
+    n x 4 bytes, plus the edge samples and the partial sums of its
+    ``F32_GROUPS`` threads per candidate)."""
     if f32:
         return 4 * (n * F32_CUDA_BLOCK + F32_CUDA_BLOCK * (1 + F32_GROUPS))
-    return n * CUDA_BLOCK
+    return n * max(CUDA_BLOCK, B5_CUDA_BLOCK)
 
 
 def fits_shared_memory(n: int, f32: bool = False) -> bool:
-    """Whether B1/B2 take frames of ``n`` samples in the int8 or the f32 mode:
-    one block's folded audio must fit its shared memory, so n <= 3584 in
+    """Whether B1/B2/B5 take frames of ``n`` samples in the int8 or the f32
+    mode: one block's folded audio must fit its shared memory, so n <= 3584 in
     both. The one definition of the fused kernels' size limit, read by the
-    wrappers and by ``es.strategy._fused_ok``."""
+    wrappers (B5's through ``generation._check_b2``) and by
+    ``es.strategy._fused_ok``."""
     return shared_bytes(n, f32) <= MAX_SHARED_BYTES
 
 

@@ -164,3 +164,12 @@ def test_shared_memory_limit(n, f32, fits):
     """One definition of the fused kernels' size limit, in both modes."""
     assert tsf.fits_shared_memory(n, f32) is fits
     assert tsf.shared_bytes(n, f32) == (4 * (16 * n + 16 * 9) if f32 else 64 * n)
+
+
+@pytest.mark.parametrize("n", list(range(256, 3585, 256)) + [3840, 4096, 8192])
+def test_int8_frame_limit(n):
+    """The int8 B1/B2 (32 candidates a block) and B5 (64) take every frame the
+    router sends them, multiples of 256 up to 3584, under the one limit."""
+    assert tsf.fits_shared_memory(n, False) is (n <= 3584)
+    assert tsf.shared_bytes(n, False) == max(32 * n, 64 * n)
+    assert tsf.CUDA_BLOCK == 32 and tsf.B5_CUDA_BLOCK == 64

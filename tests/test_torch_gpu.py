@@ -93,6 +93,44 @@ def test_b2_kernel_matches_plain(cuda, pop):
     assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
 
 
+@pytest.mark.parametrize("pop", [1, 63, 64, 65, RAGGED_POP])
+@pytest.mark.parametrize("sine_order", [5, 7, 9])
+@pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm8_series"])
+@pytest.mark.parametrize("n,bins", [(256, None), (1024, None), (2048, None), (3584, None),
+                                    (1024, 200)])
+def test_b1_b2_int8_grid(cuda, n, bins, topology, sine_order, pop):
+    """B1/B2 int8 (32-candidate blocks, the DFT on the tensor cores, 32 bins a
+    pass) against their plain versions over every frame size class, a bin
+    count that leaves a partial pass, population edges and ported chains;
+    B2's fitness bit-equal to B1's on B2's own offspring."""
+    from pmfm_tpu_torch.ops import spectral
+
+    so = spectral.make_spectrum_ops(n, bins, dft_dtype="int8", device=cuda)
+    d = topology_dims(topology)
+    rng = np.random.default_rng(n + pop + sine_order)
+    tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(cuda)
+    p = _params(cuda, pop, d, seed=sine_order)
+    kw = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology, n=n,
+              pop_block=pop, sine_order=sine_order)
+    got = sf.fused_synth_fitness(p, tgt, **kw)
+    ref = sf.fused_synth_fitness_plain(p, tgt, **kw)
+    rel = (got - ref).abs() / ref.abs()
+    assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+    mins, maxs = (0.0,) * d, (3520.0, 8.0) * (d // 2)
+    pv = torch.from_numpy(rng.random((64, d)).astype(np.float32)).to(cuda)
+    ps = torch.from_numpy(rng.uniform(0.02, 0.3, (64, d)).astype(np.float32)).to(cuda)
+    kw2 = dict(kw, pop=pop, param_mins=mins, param_maxs=maxs)
+    seed = kernel_seed(n, pop)
+    fk, vk, sk = gn.fused_generation(seed, pv, ps, tgt, **kw2)
+    fp, vp, sp = gn.fused_generation_plain(seed, pv, ps, tgt, **kw2)
+    assert torch.equal(vk, vp)
+    assert float(((sk - sp).abs() / sp.abs()).max()) <= STEP_MAX_REL
+    rel = (fk - fp).abs() / fp.abs()
+    assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+    own = sf.fused_synth_fitness(gn.scale_rows(vk, mins, maxs), tgt, **kw)
+    assert torch.equal(fk, own)
+
+
 @pytest.mark.parametrize("fused_generation", [True, False])
 def test_evolve_runs_through_the_kernels(cuda, fused_generation):
     cfg, so, tgt = _setup(cuda)

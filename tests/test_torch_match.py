@@ -125,6 +125,37 @@ def test_shipped_configs_route_to_the_fused_kernels(name):
         torch.float32
 
 
+# each config's (main, refine tail) engine; a tail of length 0 reruns the main one
+ENGINES = {
+    "audio_match.json": ("fused_generation", "fused_generation"),
+    "early_stop_match.json": ("fused_generation", "fused_generation"),
+    "fm3_parallel_match.json": ("fused_generation", "fused_generation"),
+    "fm4_parallel_match.json": ("fused_generation", "fused_generation"),
+    "fm4_series_match.json": ("fused_generation", "fused_generation"),
+    "fm5_series_match.json": ("fused_generation", "fused_generation"),
+    "huge_frame_match.json": ("synth_stream", "synth_stream"),
+    "params_match.json": ("fused_generation", "fused_generation"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENGINES))
+def test_example_configs_keep_their_engines(name):
+    """The router picks the same engine for every shipped example's main and
+    refine config whatever the int8 kernels' block size."""
+    cfg = tconfig.load_config(REPO / "examples" / name).es
+    for c, want in zip((cfg, cfg.refine_config()), ENGINES[name]):
+        assert tpipeline.active_engine(c, tpipeline.make_spectrum_ops(c, device="cpu")) == want
+    assert sorted(ENGINES) == sorted(Path(f).name for f in glob.glob(str(REPO / "examples/*.json")))
+
+
+def test_default_parameters_engine_not_ported():
+    """parameters.json (no tpu block) asks for the unfused engine, not ported."""
+    cfg = tconfig.load_config(REPO / "parameters.json").es
+    for c in (cfg, cfg.refine_config()):
+        with pytest.raises(NotImplementedError):
+            tpipeline.active_engine(c, tpipeline.make_spectrum_ops(c, device="cpu"))
+
+
 def test_match_audio_rejects_short_target():
     with pytest.raises(ValueError, match="shorter than one chunk"):
         match_audio(np.zeros(100, np.float32), ESConfig(**SLICE), device="cpu")
