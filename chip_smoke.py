@@ -17,12 +17,16 @@ through the entry points a user calls, and times each kernel:
 * phases 12-16, the true-f32 mode of B1/B2 and the whole-run kernel B5:
   B1/B2 f32 against their plain versions at the shipped refine tail's
   settings (n 1024, pop 2^15) and at ``examples/audio_match.json``'s
-  (n 2048, pop 4096); B5 against a loop of the B2 kernel with the exact
-  stable selection (bit-equal, int8 and f32) and against its plain version;
+  (n 2048, pop 4096), and over phase 4b's grid; B5 against a loop of the
+  B2 kernel with the exact stable selection (bit-equal, int8 and f32, which
+  holds B2's f32 design against the fused one B5 keeps) and against its
+  plain version;
   ``evolve`` with ``fused_evolve`` at the bench config; the shipped path
   (``examples/params_match.json`` through ``_evolve_on_target``: 900
   generations of B2 in int8, 100 in f32) and ``match_audio`` running
-  ``examples/audio_match.json`` as written; the new kernels' times and the
+  ``examples/audio_match.json`` as written; the f32 and B5 kernels' times,
+  the f32 split at both refine tails' shapes (with torch.profiler's time of
+  each f32 kernel and cuBLAS SGEMM as the DFT half's yardstick) and the
   port's bench (``pmfm_tpu_torch/bench.py``, one repetition).
 
 One flushed line per phase; every time is printed beside the card's name and
@@ -61,6 +65,10 @@ GRID_TOPOLOGIES = ("fm2", "fm3_series", "fm8_series")
 GRID_SINE_ORDERS = (5, 7, 9)
 GRID_POPS = (1, 63, 64, 65, 4001)
 GRID_ODD_BINS = (1024, 200)  # (n, K): K not a multiple of the kernel's 32-bin pass
+# phase 12: phase 4b's grid for B1/B2 true f32, with populations around the f32
+# DFT's 128-candidate block (its bin passes are 64 bins of one group: K 200
+# leaves partial passes and groups of 3 and 4 tiles)
+F32_GRID_POPS = (1, 127, 128, 129, 4001)
 SEED = 20261017
 # the large-frame cells: the reference's chunk-size rows (bench_suite.py)
 FOLD_LOG2N, FOLD_POP, FOLD_GENERATIONS = 13, 1 << 15, 30  # (c) synth_fold, B3
@@ -97,6 +105,11 @@ STEP_MAX_REL = 1e-6
 # H100 (max 1.6e-6, median 1.04e-7 over both settings, the truth included),
 # with ~6x and ~10x room; below the int8 gate above.
 F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL = 1e-5, 1e-6
+
+# the CUDA kernels of the true-f32 B1/B2 (csrc/fused_f32.cu), timed apart by
+# torch.profiler in the f32 split line
+F32_KERNELS = ("f32_synth_kernel", "f32_dft_kernel", "f32_sum_kernel")
+PROFILED_LAUNCHES = 10
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 FLOP/s
 PEAK_BYTES, PEAK_INT8, PEAK_F32 = 3.35e12, 1979e12, 67e12
@@ -135,6 +148,27 @@ def cuda_ms(fn, runs: int) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
 
 
+def kernel_breakdown(fn, runs: int) -> str:
+    """Mean device time per call of each CUDA kernel that ``runs`` calls of
+    ``fn()`` launch, from torch.profiler (after one warm-up call), as
+    "name ms, ..."; "not measured" when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        name = ev.key.split("(")[0].removeprefix("void ")
+        if us and name.split("<")[0] in F32_KERNELS:
+            rows.append(f"{name} {us / runs / 1e3:.4f} ms")
+    return ", ".join(rows) or "not measured"
+
+
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return (x - ref).abs() / ref.abs().clamp_min(1e-30)
 
@@ -163,10 +197,14 @@ def ptxas_summary(log: str):
     kernel instantiation in nvcc's ``-Xptxas -v`` report."""
     rows = []
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I(\w*?)EEv", ln)
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
         if m:
-            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2) + "E"))
-            rows.append([f"{m.group(1)}<{args}>", "?", "?"])
+            size, rest = int(m.group(1)), m.group(2)
+            name, tail = rest[:size], rest[size:]
+            if tail.startswith("I"):
+                args = ",".join(re.findall(r"L[ib](\d+)E", tail[1:tail.find("EE") + 1]))
+                name = f"{name}<{args}>"
+            rows.append([name, "?", "?"])
         elif rows and rows[-1][1] == "?" and (r := re.search(r"Used (\d+) registers", ln)):
             rows[-1][1] = r.group(1)
         elif rows and rows[-1][2] == "?" and (r := re.search(r"(\d+) bytes spill stores", ln)):
@@ -344,10 +382,12 @@ class Smoke:
                 ("audio_match int8 part, ragged P",
                  audio.replace(num_offspring=RAGGED_POP - audio.num_parents)))
 
-    def int8_check(self, where, params, pv, ps, target, kw1, kw2, seed):
-        """B1 and B2 int8 against their plain versions, B2's offspring values
-        bit-equal and its fitness bit-equal to B1's on those offspring.
-        Returns the two fitness errors (max relative) and the B1 fitness."""
+    def fused_check(self, where, params, pv, ps, target, kw1, kw2, seed,
+                   limits=(FIT_MAX_REL, FIT_MEDIAN_REL)):
+        """B1 and B2 (int8, or true f32 with the f32 ``limits``) against their
+        plain versions, B2's offspring values bit-equal and its fitness
+        bit-equal to B1's on those offspring. Returns the two fitness errors
+        (max relative) and the B1 fitness."""
         from pmfm_tpu_torch.kernels import generation as gn
         from pmfm_tpu_torch.kernels import synth_fitness as sf
 
@@ -360,16 +400,17 @@ class Smoke:
         torch.cuda.synchronize()
         e1, e2 = rel_err(fk, fp), rel_err(gk, gp)
         s_rel = float(rel_err(sk, sp).max())
+        max_rel, median_rel = limits
         ok = (bool(torch.isfinite(fk).all() and torch.isfinite(gk).all())
-              and float(e1.max()) <= FIT_MAX_REL and float(e1.median()) <= FIT_MEDIAN_REL
-              and float(e2.max()) <= FIT_MAX_REL and float(e2.median()) <= FIT_MEDIAN_REL
+              and float(e1.max()) <= max_rel and float(e1.median()) <= median_rel
+              and float(e2.max()) <= max_rel and float(e2.median()) <= median_rel
               and torch.equal(vk, vp) and s_rel <= STEP_MAX_REL and torch.equal(gk, own))
         if not ok:
             log(f"FAIL {where}: B1 max rel {float(e1.max()):.3e} median {float(e1.median()):.3e}; "
                 f"B2 max rel {float(e2.max()):.3e} median {float(e2.median()):.3e}, values equal "
                 f"{torch.equal(vk, vp)}, steps max rel {s_rel:.3e}, fitness equal to B1 on its "
                 f"offspring {torch.equal(gk, own)}")
-        require(ok, f"B1/B2 int8 disagree ({where})")
+        require(ok, f"B1/B2 disagree ({where})")
         return float(e1.max()), float(e2.max()), fk
 
     def int8_grid(self):
@@ -386,20 +427,31 @@ class Smoke:
             require(c["so"].dft_packed.dtype == torch.int8, f"{label}: not the int8 operand")
             where = (f"{label}: n={cfg.n_samples}, P={cfg.population_size}, sine order "
                      f"{cfg.sine_order}")
-            e1, e2, fk = self.int8_check(where, c["params"], c["pv"], c["ps"], c["target"],
+            e1, e2, fk = self.fused_check(where, c["params"], c["pv"], c["ps"], c["target"],
                                          self.kw_b1(c), self.kw_b2(c), kernel_seed(SEED, 50 + i))
             log(f"B1/B2 int8 vs plain ({where}): fitness max rel B1 {e1:.3e} B2 {e2:.3e}; B2 "
                 f"values bit-equal, B2 fitness bit-equal to B1 on its offspring; truth rank "
                 f"{int(torch.argmin(fk))}")
             require(int(torch.argmin(fk)) == 0, "the known-params truth does not rank first")
-        rng = np.random.default_rng(SEED + 30)
+        self.grid("int8", GRID_POPS, (FIT_MAX_REL, FIT_MEDIAN_REL), SEED + 30, 1000)
+
+    def grid(self, dtype, grid_pops, limits, seed, seeds):
+        """B1/B2 in ``dtype`` ("int8" or "float32") over GRID_N x
+        GRID_TOPOLOGIES x GRID_SINE_ORDERS x ``grid_pops`` (and P 2^15 at
+        n 1024), and at GRID_ODD_BINS, against a random target, within
+        ``limits``; the data from ``seed``, the kernel seeds from ``seeds``."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.ops import spectral
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        rng = np.random.default_rng(seed)
         cases = 0
         for n, bins in [(n, None) for n in GRID_N] + [GRID_ODD_BINS]:
-            so = spectral.make_spectrum_ops(n, bins, dft_dtype="int8", device=self.dev)
+            so = spectral.make_spectrum_ops(n, bins, dft_dtype=dtype, device=self.dev)
             tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(
                 self.dev)
             worst, count = [0.0, 0.0], 0
-            pops = GRID_POPS + ((POP,) if n == 1 << LOG2N and bins is None else ())
+            pops = grid_pops + ((POP,) if n == 1 << LOG2N and bins is None else ())
             for topology in GRID_TOPOLOGIES:
                 d = topology_dims(topology)
                 mins, maxs = (0.0,) * d, (3520.0, 8.0) * (d // 2)
@@ -414,15 +466,15 @@ class Smoke:
                         kw1 = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale,
                                    topology=topology, n=n, pop_block=pop, sine_order=order)
                         kw2 = dict(kw1, pop=pop, param_mins=mins, param_maxs=maxs)
-                        where = f"{topology}, n={n}, P={pop}, sine order {order}"
-                        e = self.int8_check(where, params, pv, ps, tgt, kw1, kw2,
-                                            kernel_seed(SEED, 1000 + cases))
+                        where = f"{dtype}, {topology}, n={n}, P={pop}, sine order {order}"
+                        e = self.fused_check(where, params, pv, ps, tgt, kw1, kw2,
+                                            kernel_seed(SEED, seeds + cases), limits)
                         worst = [max(worst[0], e[0]), max(worst[1], e[1])]
                         count += 1
                         cases += 1
-            log(f"B1/B2 int8 grid, n={n} (K={so.num_bins}): {count} settings ({GRID_TOPOLOGIES} x "
-                f"sine orders {GRID_SINE_ORDERS} x P {pops}) within {FIT_MAX_REL:g} / "
-                f"{FIT_MEDIAN_REL:g}, worst max rel B1 {worst[0]:.3e} B2 {worst[1]:.3e}; B2 values "
+            log(f"B1/B2 {dtype} grid, n={n} (K={so.num_bins}): {count} settings ({GRID_TOPOLOGIES} "
+                f"x sine orders {GRID_SINE_ORDERS} x P {pops}) within {limits[0]:g} / "
+                f"{limits[1]:g}, worst max rel B1 {worst[0]:.3e} B2 {worst[1]:.3e}; B2 values "
                 f"bit-equal, B2 fitness bit-equal to B1 on its offspring")
 
     # -- 5 ------------------------------------------------------------------
@@ -893,7 +945,9 @@ class Smoke:
 
     # -- 12 -----------------------------------------------------------------
     def f32_vs_plain(self):
-        """B1 and B2 in the true-f32 mode at each refine tail's settings."""
+        """B1 and B2 in the true-f32 mode at each refine tail's settings (B2's
+        fitness also bit-equal to B1's on its offspring), then over phase
+        4b's grid with F32_GRID_POPS."""
         from pmfm_tpu_torch.es import kernel_seed
         from pmfm_tpu_torch.kernels import generation as gn
         from pmfm_tpu_torch.kernels import synth_fitness as sf
@@ -937,17 +991,25 @@ class Smoke:
             require(v_diff == 0.0, "B2 f32 offspring values are not bit-equal to the plain version")
             require(s_rel <= STEP_MAX_REL, "B2 f32 offspring steps disagree with the plain version")
             require(mx <= F32_FIT_MAX_REL and med <= F32_FIT_MEDIAN_REL, "B2 f32 fitness disagrees")
+            own = sf.fused_synth_fitness(
+                gn.scale_rows(vk, cfg.param_mins, cfg.param_maxs), c["target"], **self.kw_b1(c))
+            log(f"B2 f32 fitness bit-equal to B1 f32 on its offspring ({where}): "
+                f"{torch.equal(fk, own)}")
+            require(torch.equal(fk, own), "B2 f32 fitness differs from B1 f32 on its offspring")
             worst["fused_generation_f32"] = max(worst["fused_generation_f32"],
                                                 float((fk - fp).abs().max()))
         for name, err in worst.items():
             self.kernels[name] = {"max_abs_err": err}
+        self.grid("float32", F32_GRID_POPS, (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL), SEED + 31, 5000)
 
     # -- 13 -----------------------------------------------------------------
     def b5_vs_b2(self):
         """B5 bit-equal to G launches of the B2 kernel with the exact stable
-        selection (int8 at the bench config, f32 at audio_match.json's refine
-        tail, each also at ``RAGGED_POP``), and within the B2 limits of its
-        plain version."""
+        selection (int8 at the bench config, f32 at the shipped refine tail
+        and audio_match.json's, each also at ``RAGGED_POP``), and within the
+        B2 limits of its plain version. In f32 B5 keeps the fused evaluation
+        of evaluate.cuh and B2 runs fused_f32.cu's, so this holds the two
+        designs against each other."""
         from pmfm_tpu_torch.es import kernel_seed
         from pmfm_tpu_torch.kernels import evolve as ev
         from pmfm_tpu_torch.kernels import generation as gn
@@ -964,6 +1026,7 @@ class Smoke:
         ragged = self.inputs(self.cfg.replace(num_offspring=RAGGED_POP - MU), SEED + 20)
         for label, c in (("int8, bench config", bench),
                          ("int8, bench config, ragged P", ragged),
+                         ("f32, shipped refine tail", self.f32["shipped refine tail"]),
                          ("f32, audio_match refine tail", self.f32["audio_match refine tail"]),
                          ("f32, audio_match refine tail, ragged P",
                           self.f32["audio_match refine tail, ragged P"])):
@@ -1157,14 +1220,14 @@ class Smoke:
                 lambda: sf.fused_synth_fitness(c["params"], c["target"], **kw1),
                 lambda: sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1),
                 pop * D * 4 + operand + k * 4 + pop * 4, 0.0, f32_ops,
-                "pmfm_tpu_torch/csrc/fused_eval.cu", "pmfm_tpu/kernels/synth_fitness.py:767",
+                "pmfm_tpu_torch/csrc/fused_f32.cu", "pmfm_tpu/kernels/synth_fitness.py:767",
             ),
             "fused_generation_f32": (
                 lambda: gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2),
                 lambda: gn.fused_generation_plain(seed, c["pv"], c["ps"], c["target"], **kw2),
                 2 * mu * D * 4 + operand + k * 4 + pop * 4 + 2 * pop * D * 4, 0.0,
                 f32_ops + pop * D * 12 * 2.0,
-                "pmfm_tpu_torch/csrc/fused_eval.cu", "pmfm_tpu/kernels/generation.py:438",
+                "pmfm_tpu_torch/csrc/fused_f32.cu", "pmfm_tpu/kernels/generation.py:438",
             ),
         }
         # B5: one launch of EVOLVE_TIMED_GENERATIONS generations at the bench config
@@ -1197,12 +1260,64 @@ class Smoke:
                 route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
             )
+        # B5 in f32 (its own evaluation, evaluate.cuh) at the shipped tail's shape
+        f32_args = (c["pv"], c["ps"], c["pv"][0].clone(), torch.tensor(float("inf"), device=self.dev),
+                    c["target"])
+        ms = cuda_ms(lambda: ev.fused_evolve(seeds, *f32_args, **kw2), 3)
+        log(f"fused_evolve f32 (shipped refine tail: n={n}, K={k}, P={pop}): kernel {ms:.4f} ms "
+            f"for {g} generations, {ms / g:.4f} ms a generation {card()}")
+        for label in ("shipped refine tail", "audio_match refine tail"):
+            self.f32_split(label)
         b = bench.Bench(bench.GENS, device=self.dev)
         value_ms, shipped_ms = bench.best_ms(b.run_value, 1), bench.best_ms(b.run_shipped, 1)
         log(f"bench (pmfm_tpu_torch/bench.py, {bench.GENS} generations, one run after a warm-up): "
             f"value {b.evals_per_sec(value_ms):.1f} evals/s ({value_ms / bench.GENS:.4f} ms/gen), "
             f"value_shipped {b.evals_per_sec(shipped_ms):.1f} evals/s "
             f"({shipped_ms / bench.GENS:.4f} ms/gen) {card()}")
+
+    def f32_split(self, label):
+        """How B1/B2 f32 split at a refine tail's shape (phase 12's inputs for
+        ``label``): B1 and B2, B1 and B2 with an operand and target of
+        SPLIT_BINS bins (synthesis, fold, launch and, in B2, the prologue: the
+        DFT nearly gone), B2 - B1 (the prologue), and the DFT half alone as
+        ``torch.matmul`` of candidate-major f32 a+/- against the operand's
+        halves with TF32 off (cuBLAS SGEMM, a yardstick: the port never
+        calls it)."""
+        from pmfm_tpu_torch.device import exact_f32_matmul
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        c = self.f32[label]
+        pop, n, k = c["cfg"].population_size, c["cfg"].n_samples, c["so"].num_bins
+        op = c["so"].dft_packed
+        op_s = torch.cat([op[:SPLIT_BINS], op[k : k + SPLIT_BINS]]).contiguous()
+        tgt_s = c["target"][:SPLIT_BINS].contiguous()
+        kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
+        seed = kernel_seed(SEED, 2)
+        b1 = lambda o, t: sf.fused_synth_fitness(  # noqa: E731
+            c["params"], t, **dict(kw1, dft_packed=o))
+        b2 = lambda o, t: gn.fused_generation(  # noqa: E731
+            seed, c["pv"], c["ps"], t, **dict(kw2, dft_packed=o))
+        b1_ms, b2_ms = (cuda_ms(lambda: f(op, c["target"]), TIMED_LAUNCHES) for f in (b1, b2))
+        s1_ms, s2_ms = (cuda_ms(lambda: f(op_s, tgt_s), TIMED_LAUNCHES) for f in (b1, b2))
+        g = torch.Generator(device=self.dev).manual_seed(SEED)
+        ap, am = (torch.randn((pop, n // 2), generator=g, device=self.dev) for _ in range(2))
+        cos_t, sin_t = op[:k].T, op[k:].T  # (N/2, K) views
+        with exact_f32_matmul():
+            mm_ms = cuda_ms(lambda: (torch.matmul(ap, cos_t), torch.matmul(am, sin_t)),
+                            TIMED_LAUNCHES)
+        flops = 2.0 * 2 * k * (n // 2) * pop
+        log(f"B1/B2 f32 split ({label}: n={n}, K={k}, P={pop}): B1 {b1_ms:.4f} ms, B2 "
+            f"{b2_ms:.4f} ms; B1 with {SPLIT_BINS} bins (synthesis + fold + launch) {s1_ms:.4f} "
+            f"ms; B1 minus that (the DFT and its epilogue) {b1_ms - s1_ms:.4f} ms; B2 - B1 (the "
+            f"offspring prologue) {b2_ms - b1_ms:.4f} ms, with {SPLIT_BINS} bins "
+            f"{s2_ms - s1_ms:.4f} ms; yardstick for the DFT half, torch.matmul U+V with TF32 off "
+            f"(cuBLAS SGEMM) on candidate-major a+/- {mm_ms:.4f} ms "
+            f"({flops / (mm_ms * 1e-3) / 1e12:.1f} f32 TFLOP/s) {card()}")
+        del ap, am
+        log(f"  B2 f32 by kernel ({label}, torch.profiler, mean of {PROFILED_LAUNCHES} launches): "
+            f"{kernel_breakdown(lambda: b2(op, c['target']), PROFILED_LAUNCHES)} {card()}")
 
     def kernels_line(self):
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,10 +1,10 @@
 // The evaluation and the offspring prologue shared by the fused kernels B1,
 // B2 (fused_eval.cu) and B5 (evolve.cu), as the TPU kernels share
 // pmfm_tpu/kernels/synth_fitness.py::_evaluate_block and
-// pmfm_tpu/kernels/generation.py::_offspring_block. The int8 B1 and B2 run
-// their own evaluation on the int8 tensor cores (fused_eval.cu); the int8
-// mode below is B5's alone, and B1, B2 and B5 share the true-f32 mode and
-// the offspring genes.
+// pmfm_tpu/kernels/generation.py::_offspring_block. B1 and B2 run their own
+// evaluations, on the int8 tensor cores (fused_eval.cu) and as a synthesis
+// kernel plus a register-tiled f32 DFT (fused_f32.cu); both evaluation modes
+// below are B5's alone, and B2 and B5 share the offspring genes.
 //
 // Two modes, chosen by the operand:
 //
@@ -22,7 +22,7 @@
 // and ~1.7 G f32 operations of synthesis (25 us at 67 TFLOP/s).
 //
 // true f32 (dft_scale == 0 with the float32 operand; the refine tail,
-// _evaluate_block's audio_f32): unquantised audio x = sin * amp folded into
+// _evaluate_block's audio_f32; B5's engine): unquantised audio x = sin * amp folded into
 // f32 a+/a- (no rounding but the fold's own add), two f32 contractions
 // against the f32 (2K, N/2) operand, the edge term 2 norm (-1)^k x[N/2] and
 // no magnitude rescale. A sample now takes 4 bytes, so 64 candidates' fold
@@ -45,9 +45,9 @@
 // plain PyTorch version (kernels/synth_fitness.py) computes, the int8
 // contraction is exact in int32, and only the order of the f32 sums (the
 // f32 DFT, the sum over bins) differs from the plain version. B5 runs these
-// same functions; in int8 the B1/B2 evaluation of fused_eval.cu makes the
-// same audio, exact sums and terms and adds the terms in the same order, so
-// B5's fitness is bit-equal to B2's in both modes.
+// functions; the B1/B2 evaluations of fused_eval.cu (int8) and fused_f32.cu
+// (f32) make the same audio, the same sums and terms and add the terms in
+// the same order, so B5's fitness is bit-equal to B2's in both modes.
 #pragma once
 
 #include <type_traits>
@@ -345,7 +345,7 @@ __device__ __forceinline__ float offspring_gene(uint32_t seed, int cand, int dim
   return fadd(mp.mins[dim], fmul(nx, mp.ranges[dim]));  // _scale_rows
 }
 
-// Candidate `cand`'s offspring, one thread for all its genes (B2 f32, B5):
+// Candidate `cand`'s offspring, one thread for all its genes (B5):
 // its values and steps rows and the scaled parameters p.
 __device__ __forceinline__ void offspring(uint32_t seed, int cand, const float* pv, const float* ps,
                                           const MutateParams& mp, int d, float* p,
@@ -365,6 +365,21 @@ __host__ inline int dispatch_ncoef(int ncoef, F&& f) {
     case 3: return f(std::integral_constant<int, 3>{});
     case 4: return f(std::integral_constant<int, 4>{});
     case 5: return f(std::integral_constant<int, 5>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Runs f(std::integral_constant<int, KN>{}) for the chain length kn (2..8).
+template <typename F>
+__host__ inline int dispatch_chain(int kn, F&& f) {
+  switch (kn) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,15 +1,12 @@
 // Fused FM synthesis + folded DFT + L2 spectral fitness for Hopper (sm_90a),
-// with and without an in-kernel offspring prologue, in the int8 and the
-// true-f32 mode.
+// with and without an in-kernel offspring prologue, in the int8 mode.
 //
 // Replaces two TPU kernels of pmfm_tpu:
 //   B1 <- kernels/synth_fitness.py::fused_synth_fitness (with _dft_uv, the
 //         folded DFT on the MXU)
 //   B2 <- kernels/generation.py::fused_generation
 // as fused_synth_fitness_int8_kernel and fused_generation_int8_kernel in the
-// int8 mode, and fused_synth_fitness_kernel / fused_generation_kernel on
-// evaluate.cuh::evaluate_block in the true-f32 mode (that header's note says
-// what bounds the f32 mode and how it is met).
+// int8 mode; the true-f32 mode of both is fused_f32.cu's.
 //
 // The int8 mode. What bounds it on an H100 at the bench shape (n 1024, K 512,
 // P 2^15): the folded DFT is 2 * 2K * (N/2) * P = 34.4 G int8 operations
@@ -66,21 +63,6 @@
 #define TC_CPB 32  // int8: candidates per CUDA block, one warp
 #define TC_NT 4    // int8: n-tiles of 8 bins per pass over a+/-
 #define TC_DEPTH 2  // int8: 64-sample steps of the operand in flight (divides n / 128)
-
-// Runs f(std::integral_constant<int, KN>{}) for the chain length kn (2..8).
-template <typename F>
-__host__ inline int dispatch_chain(int kn, F&& f) {
-  switch (kn) {
-    case 2: return f(std::integral_constant<int, 2>{});
-    case 3: return f(std::integral_constant<int, 3>{});
-    case 4: return f(std::integral_constant<int, 4>{});
-    case 5: return f(std::integral_constant<int, 5>{});
-    case 6: return f(std::integral_constant<int, 6>{});
-    case 7: return f(std::integral_constant<int, 7>{});
-    case 8: return f(std::integral_constant<int, 8>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 // ---- int8 mode: the folded DFT on the int8 tensor cores -------------------------
 
@@ -338,59 +320,7 @@ fused_generation_int8_kernel(uint32_t seed, const float* __restrict__ pv,
   evaluate_int8_mma<NC, KN>(p, sp, dft, target, smem_tc, fitness, base, pop);
 }
 
-// ---- true-f32 mode (evaluate.cuh) --------------------------------------------------
-
-template <int NC>
-__global__ void __launch_bounds__(F32_TPB)
-fused_synth_fitness_f32_kernel(const float* __restrict__ params, int pop, SynthParams sp,
-                               const void* __restrict__ dft, const float* __restrict__ target,
-                               float* __restrict__ fitness) {
-  extern __shared__ __align__(16) int smem[];
-  const int cand = blockIdx.x * F32_CPB + threadIdx.x % F32_CPB;
-  const bool active = cand < pop, leader = threadIdx.x < F32_CPB;
-  float p[MAX_D];
-  if (leader && active)
-    load_params(p, params, cand, sp.d);
-  else
-    for (int i = 0; i < MAX_D; ++i) p[i] = 0.f;
-  const float fit = evaluate_block<NC, true>(p, sp, dft, target, smem);
-  if (leader && active) fitness[cand] = fit;
-}
-
-template <int NC>
-__global__ void __launch_bounds__(F32_TPB)
-fused_generation_f32_kernel(uint32_t seed, const float* __restrict__ pv,
-                            const float* __restrict__ ps, int pop, SynthParams sp,
-                            MutateParams mp, const void* __restrict__ dft,
-                            const float* __restrict__ target, float* __restrict__ fitness,
-                            float* __restrict__ values, float* __restrict__ steps) {
-  extern __shared__ __align__(16) int smem[];
-  const int cand = blockIdx.x * F32_CPB + threadIdx.x % F32_CPB;
-  const bool active = cand < pop, leader = threadIdx.x < F32_CPB;
-  float p[MAX_D];
-  if (leader && active)
-    offspring(seed, cand, pv, ps, mp, sp.d, p, values, steps);
-  else
-    for (int i = 0; i < MAX_D; ++i) p[i] = 0.f;
-  const float fit = evaluate_block<NC, true>(p, sp, dft, target, smem);
-  if (leader && active) fitness[cand] = fit;
-}
-
 // ---- launchers ------------------------------------------------------------------
-
-// Launches the f32 kernel that `pick` gives for the sine order.
-template <typename Pick, typename... Args>
-static int launch_f32(Pick&& pick, const SynthParams& sp, int pop, cudaStream_t stream,
-                      Args... args) {
-  const size_t smem = eval_smem_bytes(sp.n, true);
-  return dispatch_ncoef(sp.ncoef, [&](auto nc) {
-    auto kernel = pick(nc);
-    cudaError_t e = prepare(kernel, smem);
-    if (e) return (int)e;
-    kernel<<<(pop + F32_CPB - 1) / F32_CPB, F32_TPB, smem, stream>>>(args...);
-    return (int)cudaGetLastError();
-  });
-}
 
 // Launches the int8 kernel that `pick` gives for the sine order and the
 // chain length on blocks of one warp, asking for the largest shared-memory
@@ -419,30 +349,20 @@ const char* pmfm_error_string(int err) { return cudaGetErrorString((cudaError_t)
 
 #define PICK(kernel) \
   [](auto nc, auto kc) { return kernel<decltype(nc)::value, decltype(kc)::value>; }
-#define PICK_F32(kernel) [](auto nc) { return kernel<decltype(nc)::value>; }
 
-// B1: fitness (pop,) of scaled params (pop, d) against the folded operand
-// (2k, n/2), int8 (f32_mode 0) or float32 (f32_mode 1), and the target (k,).
-// Returns cudaGetLastError().
+// B1 int8: fitness (pop,) of scaled params (pop, d) against the int8 folded
+// operand (2k, n/2) and the target (k,). Returns cudaGetLastError().
 int pmfm_fused_synth_fitness(const float* params, int pop, SynthParams sp, const void* dft,
-                             const float* target, float* fitness, int f32_mode,
-                             cudaStream_t stream) {
-  if (f32_mode)
-    return launch_f32(PICK_F32(fused_synth_fitness_f32_kernel), sp, pop, stream, params, pop,
-                      sp, dft, target, fitness);
+                             const float* target, float* fitness, cudaStream_t stream) {
   return launch_int8(PICK(fused_synth_fitness_int8_kernel), sp, pop, stream, params, pop, sp,
                      (const int8_t*)dft, target, fitness);
 }
 
-// B2: one generation's offspring (pop, d) values and steps from the parents
-// (mu, d), and their fitness (pop,). Returns cudaGetLastError().
+// B2 int8: one generation's offspring (pop, d) values and steps from the
+// parents (mu, d), and their fitness (pop,). Returns cudaGetLastError().
 int pmfm_fused_generation(uint32_t seed, const float* pv, const float* ps, int pop,
                           SynthParams sp, MutateParams mp, const void* dft, const float* target,
-                          float* fitness, float* values, float* steps, int f32_mode,
-                          cudaStream_t stream) {
-  if (f32_mode)
-    return launch_f32(PICK_F32(fused_generation_f32_kernel), sp, pop, stream, seed, pv, ps, pop,
-                      sp, mp, dft, target, fitness, values, steps);
+                          float* fitness, float* values, float* steps, cudaStream_t stream) {
   return launch_int8(PICK(fused_generation_int8_kernel), sp, pop, stream, seed, pv, ps, pop, sp,
                      mp, (const int8_t*)dft, target, fitness, values, steps);
 }

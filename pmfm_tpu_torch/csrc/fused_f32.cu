@@ -1,0 +1,401 @@
+// B1 and B2 in the true-f32 mode for Hopper (sm_90a): FM synthesis + fold,
+// a register-tiled f32 folded DFT on the CUDA cores, and the L2 spectral
+// fitness, as three kernels behind one launcher.
+//
+// Replaces, in the true-f32 mode (the refine tail's engine: dft_scale 0, the
+// float32 operand, unquantised audio x = sin * amp):
+//   B1 <- pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness, with _dft_uv
+//         and _evaluate_block's audio_f32
+//   B2 <- pmfm_tpu/kernels/generation.py::fused_generation
+// (the int8 mode of both is fused_eval.cu's; B5 keeps the earlier fused f32
+// evaluation of evaluate.cuh).
+//
+// What bounds it on an H100 at the shipped tail's shape (n 1024, K 512,
+// P 2^15): the folded DFT is 2 * 2K * (N/2) * P = 34.4 G f32 operations,
+// which must run on the CUDA cores in full f32 (never TF32: the reference's
+// dots are Precision.HIGHEST), 0.51 ms at 67 TFLOP/s; the synthesis adds
+// ~1.9 G f32 operations: 0.54 ms in all. The scratch a+/a- between the two
+// halves is 2 x P x N/2 floats, 128 MB at P 2^15 and n 1024 (written once,
+// read once: ~77 us of HBM traffic at 3.35 TB/s, ~15% of the bound), 32 MB
+// at P 4096 and n 2048, which L2 holds.
+//
+// The earlier design (one fused block of 16 candidates x 8 threads,
+// evaluate.cuh) ran at 10x that bound. Its three limits and what this one
+// does about each:
+// 1. Its DFT loaded more than it computed (one 16-byte operand load per 3.6
+//    FMAs; every 16-candidate block read the whole 2 MB operand). Here
+//    f32_dft_kernel is a register-tiled product: a block takes DF_BM = 128
+//    candidates and one group of bin tiles; cp.async stages 16-sample slices
+//    of a+/a- and of the operand rows in shared memory (DF_STAGES deep), and
+//    each thread keeps a 16 x 8 register tile (16 candidates x 8 bins) of U
+//    or of V (warps 0-1 U = a+ C^T, warps 2-3 V = a- S^T), so each value
+//    loaded from shared memory serves 8 or 16 FMAs, and each operand row
+//    loaded from L2 serves 128 candidates.
+// 2. Its synthesis ran on 16 threads of 128. Here f32_synth_kernel runs one
+//    thread a candidate on blocks of SY_TPB threads, and writes a+/a- and the
+//    edge sample to scratch, each warp's stores staged through shared memory
+//    so that they cover whole 64-byte row segments (F32Row).
+// 3. Its synthesis read the chain length at run time (a runtime loop bound
+//    cost the int8 synthesis 4x). Here synth_run gets it as the compile-time
+//    KN (dispatch_chain) with the grouped fold emitter FoldEmit on an exact
+//    f32 row (F32Row).
+//
+// Numerics: the fitness is bit-equal to the earlier evaluation's.
+// * The audio: synth_run's samples and operations, each sample fmul(y, amp)
+//   unrounded; a+ = old + x, a- = old - x (synth_common.cuh's FoldEmit). The
+//   one difference, a+[0] = x[0] + 0 where the earlier fold kept x[0], can
+//   only turn -0 into +0, which every later FMA of the sum makes +0 alike.
+// * U[c][k] and V[c][k] are one accumulator each, from 0, over the samples in
+//   ascending order, one exact-product __fmaf_rn each: no split over samples,
+//   no tensor cores.
+// * Each bin's term uses the earlier operations (the edge term edge_norm
+//   (-1)^k x[N/2], the magnitude, the squared difference) and the terms are
+//   summed in the earlier order: group g holds the bins with (k / 8) mod 8 =
+//   g, summed in ascending k from 0; then the eight group sums are added in
+//   group order, a group with no bins adding 0.
+//
+// Geometry. The grid of f32_dft_kernel is (P padded to DF_BM) / DF_BM x
+// DF_GROUPS blocks: block b takes candidates [DF_BM (b / 8), + DF_BM) and
+// group g = b % 8, so the eight blocks that share a slice of a+/a- run side
+// by side and read it from L2. A block walks its group's tiles g, g + 8, ...
+// in passes of DF_TILES (64 bins; at K 512 one pass, at K 1024 two), and
+// carries the group's sum across passes. Splitting the bins by group fills
+// the card at small populations: P 4096 gives 256 blocks of 4 warps (two
+// blocks an SM), P 2^15 2048. A last kernel adds the eight group
+// sums of each candidate in group order. The scratch rows past P (up to the
+// padding) are synthesised from zero parameters and dropped.
+
+#include "evaluate.cuh"
+
+#define SY_TPB 128        // synthesis: candidates (threads) per block
+#define DF_BM 128         // DFT: candidates per block (and the scratch's row padding)
+#define DF_TILES 8        // DFT: bin tiles of 8 per pass
+#define DF_BN (8 * DF_TILES)
+#define DF_BK 16          // DFT: samples per stage
+#define DF_LD (DF_BK + 4) // DFT: a staged row, padded so the fragment loads are conflict-free
+#define DF_STAGES 3
+#define DF_TM 16          // DFT: candidates of a thread's register tile (and 8 bins)
+#define DF_THREADS 128    // DFT: 64 threads for U, 64 for V
+#define DF_GROUPS 8       // the earlier evaluation's bin groups (evaluate.cuh F32_GROUPS)
+#define DF_ELD (DF_BN + 1)  // DFT epilogue: a row of U or V terms
+#define SUM_TPB 256
+
+static_assert(DF_BM % SY_TPB == 0 && SY_TPB % 32 == 0,
+              "the synthesis grid covers the padded rows in whole warps");
+static_assert(DF_THREADS / 2 == (DF_BM / DF_TM) * DF_TILES,
+              "one DF_TM x 8 tile of U or V a thread");
+static_assert(DF_THREADS == DF_BM, "a thread a candidate in the epilogue");
+
+// One candidate's row of f32 a+ or a- in device memory, for FoldEmit: a group
+// of 16 samples is 64 bytes. The 32 threads of a warp hold 32 consecutive
+// rows (stride `half`) and store the same group together (the synthesis
+// runs them in lockstep), so a store goes through the warp's staging buffer
+// in shared memory and each 16-byte write then covers part of a row's 64
+// bytes beside three neighbours (8 rows an instruction, not 32 half-sectors:
+// 4x less scattered, the kernel's main cost when each thread wrote its own
+// row). load reads back the thread's own row, after a later __syncwarp has
+// ordered it behind the other threads' stores.
+#define SY_LDB (FOLD_G + 4)  // a staged row, padded: 8 rows of a phase on disjoint banks
+struct F32Row {
+  float* p;    // the thread's row
+  float* buf;  // the warp's staging buffer, 32 x SY_LDB floats
+  int lane, half;
+  __device__ __forceinline__ void store(int s, const float* v) const {
+    __syncwarp();  // the warp is done with the buffer's last group
+#pragma unroll
+    for (int i = 0; i < FOLD_G / 4; ++i)
+      *reinterpret_cast<float4*>(buf + lane * SY_LDB + 4 * i) =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    __syncwarp();
+    float* row0 = p - (size_t)lane * half + s;  // lane 0's row
+#pragma unroll
+    for (int it = 0; it < 32 * FOLD_G / 4 / 32; ++it) {
+      const int r = it * 8 + (lane >> 2), q = lane & 3;
+      *reinterpret_cast<float4*>(row0 + (size_t)r * half + 4 * q) =
+          *reinterpret_cast<const float4*>(buf + r * SY_LDB + 4 * q);
+    }
+  }
+  __device__ __forceinline__ void load(int s, float* v) const {
+    const float4* o = reinterpret_cast<const float4*>(p + s);
+#pragma unroll
+    for (int i = 0; i < FOLD_G / 4; ++i) {
+      const float4 w = o[i];
+      v[4 * i] = w.x;
+      v[4 * i + 1] = w.y;
+      v[4 * i + 2] = w.z;
+      v[4 * i + 3] = w.w;
+    }
+  }
+};
+template <>
+struct exact_f32_row<F32Row> : std::true_type {};
+
+// ---- (i) synthesis + fold ----------------------------------------------------
+
+// Candidate base + t's scaled parameters into s_p[t * d ..]: B1 reads them,
+// B2 makes them (its offspring prologue: the block's SY_TPB x d (candidate,
+// gene) pairs spread over its threads, values and steps written coalesced).
+// Then thread t synthesises candidate base + t (zero parameters past pop)
+// into rows of a+/a- (scratch, N/2 floats a row) and its edge sample x[N/2].
+template <int NC, int KN, bool GEN>
+__global__ void __launch_bounds__(SY_TPB)
+f32_synth_kernel(const float* __restrict__ params, uint32_t seed, const float* __restrict__ pv,
+                 const float* __restrict__ ps, MutateParams mp, float* __restrict__ values,
+                 float* __restrict__ steps, int pop, SynthParams sp, float* __restrict__ ap,
+                 float* __restrict__ am, float* __restrict__ edge) {
+  __shared__ float s_p[SY_TPB * MAX_D];
+  __shared__ __align__(16) float s_buf[SY_TPB * SY_LDB];  // a 32-row staging buffer a warp
+  const int base = blockIdx.x * SY_TPB, d = sp.d;
+  for (int i = threadIdx.x; i < SY_TPB * d; i += SY_TPB) {  // pair i: (i / d, i % d)
+    const int cl = i / d, cand = base + cl;
+    if constexpr (GEN)
+      s_p[i] = cand < pop ? offspring_gene(seed, cand, i - cl * d, pv, ps, mp, d, values, steps)
+                          : 0.f;
+    else
+      s_p[i] = cand < pop ? params[(size_t)base * d + i] : 0.f;
+  }
+  __syncthreads();
+  float p[MAX_D];
+#pragma unroll
+  for (int i = 0; i < MAX_D; ++i) p[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
+  const int cand = base + threadIdx.x, half = sp.n >> 1;
+  const Chain ch = make_chain(p, sp);
+  FoldEmit<false, F32Row> emit;
+  const int lane = threadIdx.x & 31;
+  float* buf = s_buf + (threadIdx.x - lane) * SY_LDB;
+  emit.ap = F32Row{ap + (size_t)cand * half, buf, lane, half};
+  emit.am = F32Row{am + (size_t)cand * half, buf, lane, half};
+  emit.n = sp.n;
+  emit.half = half;
+  emit.amp = ch.amp;
+  emit.edge_q = 0.f;  // the exact edge sample x[N/2] here
+  synth_run<NC, FOLD_G, KN>(ch, sp, sp.sin_c, sp.n, emit);
+  emit.fold_rows(0, false, 0.f);  // rows [0, 16): row 0 keeps x[0] alone
+  edge[cand] = emit.edge_q;
+}
+
+// ---- (ii) the folded DFT and the fitness epilogue -------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One stage: DF_BK samples of the block's a+/a- rows and of its pass's
+// operand rows (cos for U, sin for V), each row padded to DF_LD floats.
+struct DftStage {
+  float ap[DF_BM][DF_LD], am[DF_BM][DF_LD];
+  float cs[DF_BN][DF_LD], sn[DF_BN][DF_LD];
+};
+constexpr size_t DF_SMEM = DF_STAGES * sizeof(DftStage) > 2 * DF_BM * DF_ELD * sizeof(float)
+                               ? DF_STAGES * sizeof(DftStage)
+                               : 2 * DF_BM * DF_ELD * sizeof(float);
+
+// Block b: candidates c0 = DF_BM (b / DF_GROUPS) .. + DF_BM, bin group
+// g = b % DF_GROUPS; writes group g's sum of each candidate's terms to
+// partial[g * pop_pad + c]. Stage row p of a pass holds bin 8 (g + 8 jt) + p % 8
+// of the group's tile jt = j0 + p / 8 (a tile past the last loads bin 0 and is
+// skipped). Thread (tr, tc) of each half holds candidates tr + 8 i
+// (i < DF_TM) and stage rows tc + 8 j (j < 8): each 8-byte fragment load of
+// a half-warp reads 2 (a+/-) or 8 (operand) rows whose padded offsets fall on
+// disjoint banks. A thread loads 24 floats a sample for 128 FMAs: shared
+// memory serves 32 thread-floats a clock and the cores 128 FMAs, so at 5.3
+// FMAs a float shared memory is no longer the first limit (an 8 x 8 tile,
+// 4 FMAs a float, held the kernel near half the FMA rate).
+__global__ void __launch_bounds__(DF_THREADS, 2)
+f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
+               const float* __restrict__ edge, const float* __restrict__ dft,
+               const float* __restrict__ target, SynthParams sp, int pop_pad,
+               float* __restrict__ partial) {
+  constexpr int CH = DF_BK / 4;  // 16-byte copies a staged row
+  constexpr int A_PER = DF_BM * CH / DF_THREADS, B_PER = DF_BN * CH / DF_THREADS;
+  static_assert(DF_BM * CH % DF_THREADS == 0 && DF_BN * CH % DF_THREADS == 0, "copy split");
+  extern __shared__ __align__(16) float smem_f[];
+  DftStage* st = reinterpret_cast<DftStage*>(smem_f);
+  const int g = blockIdx.x % DF_GROUPS, c0 = (blockIdx.x / DF_GROUPS) * DF_BM;
+  const int half = sp.n >> 1, k = sp.k, tiles = k >> 3;
+  const int mine = g < tiles ? (tiles - g + DF_GROUPS - 1) / DF_GROUPS : 0;  // group g's tiles
+  const int tid = threadIdx.x;
+  const bool is_v = tid >= DF_THREADS / 2;  // warp-uniform
+  const int t2 = tid & (DF_THREADS / 2 - 1), tr = t2 >> 3, tc = t2 & 7;
+  const int ksteps = half / DF_BK;
+  const int q = tid % CH;  // this thread's 16-byte part of each row it copies
+  const float my_edge = edge[c0 + tid];
+  float fit = 0.f;  // group g's sum of candidate c0 + tid
+
+  for (int j0 = 0; j0 < mine; j0 += DF_TILES) {
+    int bin[B_PER];  // the operand rows this thread copies in this pass
+#pragma unroll
+    for (int r = 0; r < B_PER; ++r) {
+      const int p = (tid + DF_THREADS * r) / CH;
+      const int jt = j0 + (p >> 3);
+      bin[r] = jt < mine ? 8 * (g + DF_GROUPS * jt) + (p & 7) : 0;
+    }
+    auto load_stage = [&](int ks) {
+      DftStage& s = st[ks % DF_STAGES];
+      const int col = ks * DF_BK + 4 * q;
+#pragma unroll
+      for (int r = 0; r < A_PER; ++r) {
+        const int row = (tid + DF_THREADS * r) / CH;
+        cp_async16(&s.ap[row][4 * q], ap + (size_t)(c0 + row) * half + col);
+        cp_async16(&s.am[row][4 * q], am + (size_t)(c0 + row) * half + col);
+      }
+#pragma unroll
+      for (int r = 0; r < B_PER; ++r) {
+        const int p = (tid + DF_THREADS * r) / CH;
+        cp_async16(&s.cs[p][4 * q], dft + (size_t)bin[r] * half + col);
+        cp_async16(&s.sn[p][4 * q], dft + (size_t)(k + bin[r]) * half + col);
+      }
+    };
+
+    float acc[DF_TM][8];
+#pragma unroll
+    for (int i = 0; i < DF_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int s = 0; s < DF_STAGES - 1; ++s) {
+      if (s < ksteps) load_stage(s);
+      cp_async_commit();
+    }
+    for (int ks = 0; ks < ksteps; ++ks) {
+      cp_async_wait<DF_STAGES - 2>();
+      __syncthreads();  // stage ks has landed; every thread is done with stage ks - 1
+      if (ks + DF_STAGES - 1 < ksteps) load_stage(ks + DF_STAGES - 1);
+      cp_async_commit();
+      const DftStage& s = st[ks % DF_STAGES];
+      const float(*A)[DF_LD] = is_v ? s.am : s.ap;
+      const float(*B)[DF_LD] = is_v ? s.sn : s.cs;
+#pragma unroll
+      for (int kq = 0; kq < DF_BK; kq += 2) {
+        float2 a[DF_TM], b[8];
+#pragma unroll
+        for (int i = 0; i < DF_TM; ++i) a[i] = *reinterpret_cast<const float2*>(&A[tr + 8 * i][kq]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float2*>(&B[tc + 8 * j][kq]);
+        // samples kq, kq + 1 in ascending order into every accumulator
+#pragma unroll
+        for (int i = 0; i < DF_TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(b[j].x, a[i].x, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < DF_TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(b[j].y, a[i].y, acc[i][j]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the stages are free: U and V go to shared memory
+    float(*E)[DF_ELD] = reinterpret_cast<float(*)[DF_ELD]>(smem_f) + (is_v ? DF_BM : 0);
+#pragma unroll
+    for (int i = 0; i < DF_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) E[tr + 8 * i][tc + 8 * j] = acc[i][j];
+    __syncthreads();
+    // the epilogue of evaluate.cuh's dft_partial_f32: the edge term
+    // edge_norm (-1)^k x[N/2], magnitude, L2; terms in ascending k
+    const float(*EU)[DF_ELD] = reinterpret_cast<const float(*)[DF_ELD]>(smem_f);
+    const float(*EV)[DF_ELD] = EU + DF_BM;
+    for (int p = 0; p < DF_BN; ++p) {
+      const int jt = j0 + (p >> 3);
+      if (jt >= mine) break;
+      const int kk = 8 * (g + DF_GROUPS * jt) + (p & 7);
+      const float ec = (kk & 1) ? -sp.edge_norm : sp.edge_norm;
+      const float u = fadd(EU[tid][p], fmul(ec, my_edge));
+      const float v = EV[tid][p];
+      const float mag = sqrtf(fadd(fmul(u, u), fmul(v, v)));
+      const float dd = fsub(mag, __ldg(target + kk));
+      fit = fadd(fit, fmul(dd, dd));
+    }
+    __syncthreads();  // the next pass's copies overwrite U and V
+  }
+  partial[(size_t)g * pop_pad + c0 + tid] = fit;
+}
+
+// fitness[c] = the eight group sums of candidate c added in group order, from 0.
+__global__ void __launch_bounds__(SUM_TPB)
+f32_sum_kernel(const float* __restrict__ partial, int pop_pad, int pop,
+               float* __restrict__ fitness) {
+  const int c = blockIdx.x * SUM_TPB + threadIdx.x;
+  if (c >= pop) return;
+  float fit = 0.f;
+#pragma unroll
+  for (int g = 0; g < DF_GROUPS; ++g) fit = fadd(fit, partial[(size_t)g * pop_pad + c]);
+  fitness[c] = fit;
+}
+
+// ---- launcher -----------------------------------------------------------------
+
+// Floats of scratch for pop candidates at frames of n samples: a+ and a-
+// (pop_pad x N/2 each), the edge samples (pop_pad) and the group sums
+// (DF_GROUPS x pop_pad). kernels/synth_fitness.py::f32_scratch_floats is the
+// same formula.
+static long long f32_scratch_floats(int pop, int n) {
+  const long long pop_pad = (long long)(pop + DF_BM - 1) / DF_BM * DF_BM;
+  return pop_pad * (n + 1 + DF_GROUPS);
+}
+
+// The three kernels on `stream`; returns cudaGetLastError() after each launch
+// (the first error stops it).
+template <bool GEN>
+static int launch_f32(const float* params, uint32_t seed, const float* pv, const float* ps,
+                      const MutateParams& mp, float* values, float* steps, int pop,
+                      const SynthParams& sp, const float* dft, const float* target,
+                      float* fitness, float* scratch, long long scratch_floats,
+                      cudaStream_t stream) {
+  if (pop < 1 || scratch_floats < f32_scratch_floats(pop, sp.n) || (sp.n / 2) % DF_BK)
+    return (int)cudaErrorInvalidValue;
+  const int pop_pad = (pop + DF_BM - 1) / DF_BM * DF_BM;
+  const size_t half = sp.n / 2;
+  float* ap = scratch;
+  float* am = ap + (size_t)pop_pad * half;
+  float* edge = am + (size_t)pop_pad * half;
+  float* partial = edge + pop_pad;
+  int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
+    return dispatch_chain(sp.kn, [&](auto kc) {
+      f32_synth_kernel<decltype(nc)::value, decltype(kc)::value, GEN>
+          <<<pop_pad / SY_TPB, SY_TPB, 0, stream>>>(params, seed, pv, ps, mp, values, steps, pop,
+                                                    sp, ap, am, edge);
+      return (int)cudaGetLastError();
+    });
+  });
+  if (e) return e;
+  e = (int)prepare(f32_dft_kernel, DF_SMEM);
+  if (e) return e;
+  f32_dft_kernel<<<pop_pad / DF_BM * DF_GROUPS, DF_THREADS, DF_SMEM, stream>>>(
+      ap, am, edge, dft, target, sp, pop_pad, partial);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  f32_sum_kernel<<<(pop + SUM_TPB - 1) / SUM_TPB, SUM_TPB, 0, stream>>>(partial, pop_pad, pop,
+                                                                        fitness);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// B1 true f32: fitness (pop,) of scaled params (pop, d) against the float32
+// folded operand (2k, n/2) and the target (k,); `scratch` holds
+// f32_scratch_floats(pop, n) floats. Returns cudaGetLastError().
+int pmfm_fused_synth_fitness_f32(const float* params, int pop, SynthParams sp, const float* dft,
+                                 const float* target, float* fitness, float* scratch,
+                                 long long scratch_floats, cudaStream_t stream) {
+  return launch_f32<false>(params, 0u, nullptr, nullptr, MutateParams{}, nullptr, nullptr, pop,
+                           sp, dft, target, fitness, scratch, scratch_floats, stream);
+}
+
+// B2 true f32: one generation's offspring (pop, d) values and steps from the
+// parents (mu, d), and their fitness (pop,). Returns cudaGetLastError().
+int pmfm_fused_generation_f32(uint32_t seed, const float* pv, const float* ps, int pop,
+                              SynthParams sp, MutateParams mp, const float* dft,
+                              const float* target, float* fitness, float* values, float* steps,
+                              float* scratch, long long scratch_floats, cudaStream_t stream) {
+  return launch_f32<true>(nullptr, seed, pv, ps, mp, values, steps, pop, sp, dft, target,
+                          fitness, scratch, scratch_floats, stream);
+}
+
+}  // extern "C"

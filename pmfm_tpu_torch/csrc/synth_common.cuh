@@ -222,7 +222,7 @@ struct LinearRow {
   __device__ __forceinline__ void load(int s, float* v) const { load_group<INT8>(p + s, v); }
 };
 
-// The grouped fold emitter (B3, and B1/B2 in int8): quantises each sample,
+// The grouped fold emitter (B3, and B1/B2 in both modes): quantises each sample,
 // stores the first half, folds the second; one candidate's row of a+ and
 // a-, written and read FOLD_G samples at a time through `Row` (s, the first
 // sample of a group, is a multiple of FOLD_G). Run it as
@@ -238,6 +238,12 @@ struct LinearRow {
 // issued one group ahead, to hide its latency) and writes the sums and
 // differences; rows [0, FOLD_G) complete after the last sample. A thread
 // reads only what it wrote itself, so no barrier is needed.
+// A Row type that keeps the audio in exact float32 (B1/B2 true f32,
+// fused_f32.cu) specialises this to true: FoldEmit then stores y * amp
+// unrounded. The int8 and bf16 rows keep their own branch.
+template <typename Row>
+struct exact_f32_row : std::false_type {};
+
 template <bool INT8, typename Row = LinearRow<INT8>>
 struct FoldEmit {
   Row ap, am;
@@ -262,9 +268,10 @@ struct FoldEmit {
   __device__ __forceinline__ void operator()(int m, int u, float y) {
     // int8: round(63 sin) to nearest even as an exact float, by adding and
     // taking away INT_MAGIC (|y| < 64, so it is rintf(y), with -0 made +0);
-    // bf16: the audio rounded to bf16
-    cur[u] = INT8 ? fsub(fadd(y, INT_MAGIC), INT_MAGIC)
-                  : to_f32(from_f32<false>(fmul(y, amp)));
+    // bf16: the audio rounded to bf16; an exact f32 row: the audio as it is
+    cur[u] = INT8                        ? fsub(fadd(y, INT_MAGIC), INT_MAGIC)
+             : exact_f32_row<Row>::value ? fmul(y, amp)
+                                         : to_f32(from_f32<false>(fmul(y, amp)));
     const int m0 = m - u;
     if (m0 < half) {
       if (u == FOLD_G - 1) ap.store(m0, cur);

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` (``fused_eval.cu``: B1, B2; ``evolve.cu``: B5;
-``large_frame.cu``: B3, B4; ``evaluate.cuh``: the evaluation B5 runs and the
-f32 mode and offspring genes B1, B2 and B5 share; ``synth_common.cuh``: the
-synthesis all five share and the fold emitter of B1, B2 and B3) have a plain
+The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_f32.cu``:
+B1, B2 true f32; ``evolve.cu``: B5; ``large_frame.cu``: B3, B4;
+``evaluate.cuh``: the evaluation B5 runs and the offspring genes B2 and B5
+share; ``synth_common.cuh``: the synthesis all five share and the fold
+emitter of B1, B2 and B3) have a plain
 C interface and include no PyTorch header, so ``nvcc`` compiles them, one
 process per source started together, and links them into one shared
 library, which ``ctypes`` loads. The library goes to
@@ -149,12 +150,19 @@ def library() -> ctypes.CDLL:
     pointer is cut to 32 bits)."""
     lib = ctypes.CDLL(build()["path"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.pmfm_fused_synth_fitness.argtypes = [vp, ci, SynthParams, vp, vp, vp, ci, vp]
+    cll = ctypes.c_longlong
+    lib.pmfm_fused_synth_fitness.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp]
     lib.pmfm_fused_synth_fitness.restype = ci
     lib.pmfm_fused_generation.argtypes = [
-        ctypes.c_uint32, vp, vp, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, ci, vp,
+        ctypes.c_uint32, vp, vp, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
     ]
     lib.pmfm_fused_generation.restype = ci
+    lib.pmfm_fused_synth_fitness_f32.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp, cll, vp]
+    lib.pmfm_fused_synth_fitness_f32.restype = ci
+    lib.pmfm_fused_generation_f32.argtypes = [
+        ctypes.c_uint32, vp, vp, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp, cll, vp,
+    ]
+    lib.pmfm_fused_generation_f32.restype = ci
     lib.pmfm_fused_evolve.argtypes = [
         vp, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ctypes.POINTER(ci), vp,

@@ -4,11 +4,11 @@ DFT + fitness, in B1's int8 or true-f32 mode.
 Replaces ``pmfm_tpu/kernels/generation.py::fused_generation`` (``_gen_kernel``
 over ``_offspring_block``, ``_recombine_flat``/``_recombine_hier``,
 ``_uniform01`` and ``_scale_rows``, then B1's ``_evaluate_block``). The CUDA
-kernels are ``fused_generation_int8_kernel`` and ``fused_generation_f32_kernel``
-in ``csrc/fused_eval.cu``; each runs the offspring prologue below
-(``csrc/evaluate.cuh::offspring_gene``: in int8 the block's genes spread
-over all its threads, in f32 one thread a candidate) and then B1's
-evaluation in the mode the operand selects.
+kernels are ``csrc/fused_eval.cu::fused_generation_int8_kernel`` and, in the
+true-f32 mode, ``csrc/fused_f32.cu``'s (the synthesis kernel with the
+prologue, then B1's f32 DFT and group sum); each runs the offspring prologue
+below (``csrc/evaluate.cuh::offspring_gene``, the block's genes spread over
+all its threads) and then B1's evaluation in the mode the operand selects.
 ``fused_generation_plain`` is its plain PyTorch version.
 
 Offspring semantics (``_offspring_block``): per gene a uniform parent index
@@ -42,6 +42,7 @@ from .synth_fitness import (
     _evaluate_plain,
     check_kernel_shapes,
     check_supported,
+    f32_scratch_floats,
     inv_sample_rate,
     synth_params_struct,
 )
@@ -290,11 +291,15 @@ def fused_generation(
     fitness = torch.empty((pop,), dtype=torch.float32, device=dev)
     values = torch.empty((pop, d), dtype=torch.float32, device=dev)
     steps = torch.empty((pop, d), dtype=torch.float32, device=dev)
-    err = library().pmfm_fused_generation(
-        seed & 0xFFFFFFFF, pv.data_ptr(), ps.data_ptr(), pop, sp, mp, dft_packed.data_ptr(),
-        target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr(),
-        int(dft_scale == 0.0), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (seed & 0xFFFFFFFF, pv.data_ptr(), ps.data_ptr(), pop, sp, mp, dft_packed.data_ptr(),
+            target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dft_scale == 0.0:
+        scratch = torch.empty((f32_scratch_floats(pop, n),), dtype=torch.float32, device=dev)
+        err = library().pmfm_fused_generation_f32(*args, scratch.data_ptr(), scratch.numel(),
+                                                  stream)
+    else:
+        err = library().pmfm_fused_generation(*args, stream)
     check(err, "fused_generation")
     fused_generation.launches += 1
     return fitness, values, steps

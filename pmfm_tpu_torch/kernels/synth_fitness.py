@@ -2,11 +2,12 @@
 
 Replaces ``pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness`` (the
 Pallas kernel ``_kernel`` over ``_evaluate_block``, ``_make_block_synth``,
-``_dft_uv`` and ``_fit_epilogue``). The CUDA kernels are in
-``csrc/fused_eval.cu``: ``fused_synth_fitness_int8_kernel`` (the folded DFT
-on the int8 tensor cores; that file's note says what bounds it on an H100
-and how the design meets that) and ``fused_synth_fitness_f32_kernel`` over
-``csrc/evaluate.cuh``, whose note covers the true-f32 mode.
+``_dft_uv`` and ``_fit_epilogue``). The CUDA kernels are
+``csrc/fused_eval.cu::fused_synth_fitness_int8_kernel`` (the folded DFT on
+the int8 tensor cores) and, in the true-f32 mode, ``csrc/fused_f32.cu``'s
+three kernels (synthesis and fold into scratch, a register-tiled f32 DFT
+with the fitness epilogue, the sum over bin groups); each file's note says
+what bounds it on an H100 and how the design meets that.
 ``fused_synth_fitness_plain`` here is their plain PyTorch version, which the
 wrapper runs for CPU tensors.
 
@@ -33,9 +34,11 @@ Two modes, chosen by the operand as in the reference:
   f32 contractions (TF32 off: the reference's ``Precision.HIGHEST``),
   ``edge_norm = 2 * norm`` (the operand carries window and norm), no
   magnitude rescale. The reference caps its f32 pop block
-  (``F32_MAX_POP_BLOCK``) for VMEM; here the kernel's own block is 16
-  candidates (``F32_CUDA_BLOCK``) and ``pop_block`` only sizes the plain
-  version's blocks.
+  (``F32_MAX_POP_BLOCK``) for VMEM; here the kernels take
+  ``F32_SYNTH_THREADS`` and ``F32_DFT_BM`` candidates a block
+  (``f32_geometry``) with a+/a- in scratch that the wrapper allocates
+  (``f32_scratch_floats``), and ``pop_block`` only sizes the plain version's
+  blocks.
 
 The Mosaic workarounds (one-hot gathers and reversal matmuls, the (D, P)
 transposed layout, 128-lane pop blocks, VMEM gates) do not carry over.
@@ -60,8 +63,13 @@ TIME_BLOCK = 128
 MAX_SERIES_OPS = 8  # csrc MAX_KN
 CUDA_BLOCK = 32  # csrc TC_CPB: int8 B1/B2 candidates per CUDA block (one warp)
 B5_CUDA_BLOCK = 64  # csrc TPB: int8 B5 candidates (threads) per CUDA block
-F32_CUDA_BLOCK = 16  # csrc F32_CPB: f32 candidates per CUDA block
-F32_GROUPS = 8  # csrc F32_GROUPS: f32 threads per candidate
+F32_CUDA_BLOCK = 16  # csrc F32_CPB: B5's f32 candidates per CUDA block
+F32_GROUPS = 8  # csrc F32_GROUPS / DF_GROUPS: the f32 fitness's bin groups (B5: threads a candidate)
+F32_SYNTH_THREADS = 128  # csrc SY_TPB: B1/B2 f32 synthesis, candidates (threads) per block
+F32_DFT_BM = 128  # csrc DF_BM: B1/B2 f32 DFT, candidates per block (the scratch's row padding)
+F32_DFT_THREADS = 128  # csrc DF_THREADS
+F32_DFT_PASS_TILES = 8  # csrc DF_TILES: bin tiles of 8 per pass of a DFT block
+F32_SUM_THREADS = 256  # csrc SUM_TPB
 MAX_SHARED_BYTES = 232448  # shared memory one block of an H100 can use
 
 
@@ -314,14 +322,47 @@ def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
     return sp
 
 
+def f32_pop_pad(pop: int) -> int:
+    """The population padded to whole f32 DFT blocks (``F32_DFT_BM``)."""
+    return -(-pop // F32_DFT_BM) * F32_DFT_BM
+
+
+def f32_scratch_floats(pop: int, n: int) -> int:
+    """Floats of scratch the true-f32 B1/B2 take (csrc ``f32_scratch_floats``):
+    a+ and a- (padded pop x N/2 each), the edge samples and the
+    ``F32_GROUPS`` group sums of each padded candidate."""
+    return f32_pop_pad(pop) * (n + 1 + F32_GROUPS)
+
+
+def f32_geometry(pop: int, n: int, k: int) -> dict:
+    """The true-f32 B1/B2 launches for ``pop`` candidates, frames of ``n`` and
+    ``k`` bins (csrc ``launch_f32``): blocks and threads of the synthesis,
+    the DFT (a block per ``F32_DFT_BM`` candidates and bin group) and the
+    group sum; ``passes`` is the most passes of ``F32_DFT_PASS_TILES`` tiles a
+    DFT block makes (group 0 has the most tiles) and ``scratch_bytes`` the
+    scratch allocated."""
+    pad = f32_pop_pad(pop)
+    tiles0 = -(-(k // 8) // F32_GROUPS)
+    return dict(
+        pop_pad=pad,
+        synth=(pad // F32_SYNTH_THREADS, F32_SYNTH_THREADS),
+        dft=(pad // F32_DFT_BM * F32_GROUPS, F32_DFT_THREADS),
+        sum=(-(-pop // F32_SUM_THREADS), F32_SUM_THREADS),
+        passes=-(-tiles0 // F32_DFT_PASS_TILES),
+        scratch_bytes=4 * f32_scratch_floats(pop, n),
+    )
+
+
 def shared_bytes(n: int, f32: bool) -> int:
-    """Dynamic shared memory of the largest block of the fused kernels B1, B2
-    and B5 at frames of ``n`` samples (csrc ``eval_smem_bytes`` and
-    ``fused_eval.cu``'s ``n * TC_CPB``): the folded audio of its candidates,
-    int8 (B1/B2: ``CUDA_BLOCK`` x n bytes; B5, which keeps the earlier int8
-    evaluation: ``B5_CUDA_BLOCK`` x n bytes) or float32 (``F32_CUDA_BLOCK`` x
-    n x 4 bytes, plus the edge samples and the partial sums of its
-    ``F32_GROUPS`` threads per candidate)."""
+    """Dynamic shared memory of the largest block of the fused kernels whose
+    size grows with the frame, at frames of ``n`` samples (csrc
+    ``eval_smem_bytes`` and ``fused_eval.cu``'s ``n * TC_CPB``): the folded
+    audio of its candidates, int8 (B1/B2: ``CUDA_BLOCK`` x n bytes; B5, which
+    keeps the earlier int8 evaluation: ``B5_CUDA_BLOCK`` x n bytes) or
+    float32, which is B5's f32 block alone (``F32_CUDA_BLOCK`` x n x 4 bytes,
+    plus the edge samples and the partial sums of its ``F32_GROUPS`` threads
+    per candidate; the f32 B1/B2 keep a+/a- in scratch and stage a fixed
+    92,160 bytes whatever the frame)."""
     if f32:
         return 4 * (n * F32_CUDA_BLOCK + F32_CUDA_BLOCK * (1 + F32_GROUPS))
     return n * max(CUDA_BLOCK, B5_CUDA_BLOCK)
@@ -438,10 +479,18 @@ def fused_synth_fitness(
         topology=topology, n=n, k=k, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
         dft_scale=dft_scale, sine_order=sine_order,
     )
-    err = library().pmfm_fused_synth_fitness(
-        params.data_ptr(), pop, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
-        fitness.data_ptr(), int(dft_scale == 0.0), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dft_scale == 0.0:
+        scratch = torch.empty((f32_scratch_floats(pop, n),), dtype=torch.float32, device=dev)
+        err = library().pmfm_fused_synth_fitness_f32(
+            params.data_ptr(), pop, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
+            fitness.data_ptr(), scratch.data_ptr(), scratch.numel(), stream,
+        )
+    else:
+        err = library().pmfm_fused_synth_fitness(
+            params.data_ptr(), pop, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
+            fitness.data_ptr(), stream,
+        )
     check(err, "fused_synth_fitness")
     fused_synth_fitness.launches += 1
     return fitness

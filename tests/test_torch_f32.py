@@ -173,3 +173,40 @@ def test_int8_frame_limit(n):
     assert tsf.fits_shared_memory(n, False) is (n <= 3584)
     assert tsf.shared_bytes(n, False) == max(32 * n, 64 * n)
     assert tsf.CUDA_BLOCK == 32 and tsf.B5_CUDA_BLOCK == 64
+
+
+@pytest.mark.parametrize("n", list(range(256, 4097, 256)) + [8192])
+def test_f32_frame_limit(n):
+    """The true-f32 B1/B2 keep a+/a- in scratch, but the router's limit stays
+    B5's f32 block: n <= 3584, exactly."""
+    assert tsf.fits_shared_memory(n, True) is (n <= 3584)
+
+
+@pytest.mark.parametrize("pop,n,k,want", [
+    # the shipped refine tail: 256 candidate blocks, 8 groups of 8 tiles, one pass
+    (1 << 15, 1024, 512, dict(pop_pad=1 << 15, synth=(256, 128), dft=(2048, 128),
+                              sum=(128, 256), passes=1)),
+    # audio_match.json's refine tail: 16 tiles a group, two passes
+    (4096, 2048, 1024, dict(pop_pad=4096, synth=(32, 128), dft=(256, 128), sum=(16, 256),
+                            passes=2)),
+    # ragged: the last block of 128 holds 33 candidates
+    (4001, 2048, 1024, dict(pop_pad=4096, synth=(32, 128), dft=(256, 128), sum=(16, 256),
+                            passes=2)),
+    # 25 tiles: group 0 has 4, groups 1-7 have 3; one partial pass
+    (1024, 1024, 200, dict(pop_pad=1024, synth=(8, 128), dft=(64, 128), sum=(4, 256),
+                           passes=1)),
+    (1, 256, 128, dict(pop_pad=128, synth=(1, 128), dft=(8, 128), sum=(1, 256), passes=1)),
+    (129, 3584, 1792, dict(pop_pad=256, synth=(2, 128), dft=(16, 128), sum=(1, 256), passes=4)),
+    # an operand of 8 bins (chip_smoke's split): one tile, groups 1-7 empty
+    (1 << 15, 1024, 8, dict(pop_pad=1 << 15, synth=(256, 128), dft=(2048, 128),
+                            sum=(128, 256), passes=1)),
+])
+def test_f32_scratch_and_geometry(pop, n, k, want):
+    """The f32 wrapper's scratch (a+, a-, edge and 8 group sums per padded
+    candidate) and the three kernels' grids (csrc fused_f32.cu launch_f32)."""
+    geo = tsf.f32_geometry(pop, n, k)
+    pad = want["pop_pad"]
+    assert {key: geo[key] for key in want} == want
+    assert tsf.f32_scratch_floats(pop, n) == pad * n // 2 * 2 + pad + 8 * pad
+    assert geo["scratch_bytes"] == 4 * tsf.f32_scratch_floats(pop, n)
+

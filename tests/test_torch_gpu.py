@@ -103,22 +103,54 @@ def test_b1_b2_int8_grid(cuda, n, bins, topology, sine_order, pop):
     pass) against their plain versions over every frame size class, a bin
     count that leaves a partial pass, population edges and ported chains;
     B2's fitness bit-equal to B1's on B2's own offspring."""
+    _grid_case(cuda, "int8", n, bins, topology, sine_order, pop, (FIT_MAX_REL, FIT_MEDIAN_REL))
+
+
+@pytest.mark.parametrize("pop", [1, 127, 128, 129, RAGGED_POP])
+@pytest.mark.parametrize("sine_order", [5, 7, 9])
+@pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm8_series"])
+@pytest.mark.parametrize("n,bins", [(256, None), (1024, None), (2048, None), (3584, None),
+                                    (1024, 200)])
+def test_b1_b2_f32_grid(cuda, n, bins, topology, sine_order, pop):
+    """B1/B2 true f32 (synthesis into scratch, the register-tiled DFT on
+    128-candidate blocks and one bin group each, 64 bins a pass) against
+    their plain versions over every frame size class, a bin count that
+    leaves partial passes and groups of 3 and 4 tiles, population edges and
+    ported chains; B2's fitness bit-equal to B1's on B2's own offspring."""
+    _grid_case(cuda, "float32", n, bins, topology, sine_order, pop,
+               (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL))
+
+
+@pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm8_series"])
+def test_b1_b2_f32_shipped_population(cuda, topology):
+    """The f32 grid's checks at the shipped tail's population, P 2^15, n 1024."""
+    _grid_case(cuda, "float32", 1024, None, topology, 9, 1 << 15,
+               (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL))
+
+
+def _grid_case(dev, dtype, n, bins, topology, sine_order, pop, limits):
+    """B1/B2 in ``dtype`` ("int8" or "float32") against their plain versions
+    within ``limits`` (max, median relative), B2's values bit-equal, steps
+    within STEP_MAX_REL and B2's fitness bit-equal to B1's on B2's own
+    offspring."""
     from pmfm_tpu_torch.ops import spectral
 
-    so = spectral.make_spectrum_ops(n, bins, dft_dtype="int8", device=cuda)
+    max_rel, median_rel = limits
+    so = spectral.make_spectrum_ops(n, bins, dft_dtype=dtype, device=dev)
     d = topology_dims(topology)
     rng = np.random.default_rng(n + pop + sine_order)
-    tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(cuda)
-    p = _params(cuda, pop, d, seed=sine_order)
+    tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(dev)
+    p = _params(dev, pop, d, seed=sine_order)
     kw = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology, n=n,
               pop_block=pop, sine_order=sine_order)
     got = sf.fused_synth_fitness(p, tgt, **kw)
     ref = sf.fused_synth_fitness_plain(p, tgt, **kw)
     rel = (got - ref).abs() / ref.abs()
-    assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+    assert float(rel.max()) <= max_rel and float(rel.median()) <= median_rel, (
+        "B1", float(rel.max()), float(rel.median()))
     mins, maxs = (0.0,) * d, (3520.0, 8.0) * (d // 2)
-    pv = torch.from_numpy(rng.random((64, d)).astype(np.float32)).to(cuda)
-    ps = torch.from_numpy(rng.uniform(0.02, 0.3, (64, d)).astype(np.float32)).to(cuda)
+    pv = torch.from_numpy(rng.random((64, d)).astype(np.float32)).to(dev)
+    ps = torch.from_numpy(rng.uniform(0.02, 0.3, (64, d)).astype(np.float32)).to(dev)
     kw2 = dict(kw, pop=pop, param_mins=mins, param_maxs=maxs)
     seed = kernel_seed(n, pop)
     fk, vk, sk = gn.fused_generation(seed, pv, ps, tgt, **kw2)
@@ -126,7 +158,8 @@ def test_b1_b2_int8_grid(cuda, n, bins, topology, sine_order, pop):
     assert torch.equal(vk, vp)
     assert float(((sk - sp).abs() / sp.abs()).max()) <= STEP_MAX_REL
     rel = (fk - fp).abs() / fp.abs()
-    assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+    assert float(rel.max()) <= max_rel and float(rel.median()) <= median_rel, (
+        "B2", float(rel.max()), float(rel.median()))
     own = sf.fused_synth_fitness(gn.scale_rows(vk, mins, maxs), tgt, **kw)
     assert torch.equal(fk, own)
 
@@ -241,10 +274,13 @@ def test_b1_b2_f32_kernels_match_plain(cuda, n, pop):
     assert float(rel.max()) <= F32_FIT_MAX_REL and float(rel.median()) <= F32_FIT_MEDIAN_REL
 
 
-@pytest.mark.parametrize("pop", POPS)
-@pytest.mark.parametrize("dtype", ["int8", "float32"])
+@pytest.mark.parametrize("dtype,pop", [("int8", 4096), ("int8", RAGGED_POP), ("float32", 4096),
+                                       ("float32", RAGGED_POP), ("float32", 1 << 15)])
 def test_b5_bit_equal_to_b2_launches(cuda, dtype, pop):
-    """G generations in one B5 launch == G B2 launches + the stable selection."""
+    """G generations in one B5 launch == G B2 launches + the stable selection
+    (in f32 also at the shipped tail's P 2^15: B5 keeps evaluate.cuh's fused
+    f32 evaluation, B2 runs fused_f32.cu's, so this holds the two designs
+    against each other)."""
     from pmfm_tpu_torch.kernels import evolve as ev
 
     if dtype == "int8":

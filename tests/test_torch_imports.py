@@ -66,7 +66,7 @@ def test_one_build_covers_every_kernel_source():
     from pmfm_tpu_torch.kernels import _build
 
     names = [p.name for p in _build.sources()]
-    assert names == ["evolve.cu", "fused_eval.cu", "large_frame.cu"]
+    assert names == ["evolve.cu", "fused_eval.cu", "fused_f32.cu", "large_frame.cu"]
     assert (_build.CSRC / "synth_common.cuh").exists() and (_build.CSRC / "evaluate.cuh").exists()
     assert _build.library_path().parent == _build.BUILD_DIR
 

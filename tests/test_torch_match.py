@@ -141,7 +141,8 @@ ENGINES = {
 @pytest.mark.parametrize("name", sorted(ENGINES))
 def test_example_configs_keep_their_engines(name):
     """The router picks the same engine for every shipped example's main and
-    refine config whatever the int8 kernels' block size."""
+    refine config whatever the fused kernels' design (the int8 block size,
+    the f32 kernels' scratch and grid)."""
     cfg = tconfig.load_config(REPO / "examples" / name).es
     for c, want in zip((cfg, cfg.refine_config()), ENGINES[name]):
         assert tpipeline.active_engine(c, tpipeline.make_spectrum_ops(c, device="cpu")) == want
