@@ -17,17 +17,21 @@ through the entry points a user calls, and times each kernel:
 * phases 12-16, the true-f32 mode of B1/B2 and the whole-run kernel B5:
   B1/B2 f32 against their plain versions at the shipped refine tail's
   settings (n 1024, pop 2^15) and at ``examples/audio_match.json``'s
-  (n 2048, pop 4096), and over phase 4b's grid; B5 against a loop of the
-  B2 kernel with the exact stable selection (bit-equal, int8 and f32, which
-  holds B2's f32 design against the fused one B5 keeps) and against its
-  plain version;
+  (n 2048, pop 4096), and over phase 4b's grid, and both against a float64
+  evaluation of the same audio; B5 (B2's own kernels and a selection kernel
+  a generation) against a loop of B2 launches with the exact stable
+  selection (bit-equal, int8 and f32, also on ties: identical candidates,
+  NaN fitness, and a population above the selection's shared-memory fast
+  path) and against its plain version;
   ``evolve`` with ``fused_evolve`` at the bench config; the shipped path
   (``examples/params_match.json`` through ``_evolve_on_target``: 900
   generations of B2 in int8, 100 in f32) and ``match_audio`` running
   ``examples/audio_match.json`` as written; the f32 and B5 kernels' times,
-  the f32 split at both refine tails' shapes (with torch.profiler's time of
-  each f32 kernel and cuBLAS SGEMM as the DFT half's yardstick) and the
-  port's bench (``pmfm_tpu_torch/bench.py``, one repetition).
+  B5's split a generation (evaluation, selection, time not covered by
+  kernels, from torch.profiler), the f32 split at both refine tails' shapes
+  (with torch.profiler's time of each f32 kernel and cuBLAS SGEMM as the
+  DFT half's yardstick) and the port's bench (``pmfm_tpu_torch/bench.py``,
+  one repetition).
 
 One flushed line per phase; every time is printed beside the card's name and
 power limit.
@@ -81,9 +85,13 @@ AUDIO_CONFIG = "examples/audio_match.json"  # n 2048, pop 4096, as written
 AUDIO_GENERATIONS = 110  # per chunk: 10 of int8, then the config's 100 of f32
 EVOLVE_CHECK_GENERATIONS, EVOLVE_PLAIN_GENERATIONS, EVOLVE_TIMED_GENERATIONS = 20, 2, 10
 # a population whose last CUDA block is only partly filled: not a multiple
-# of the f32 mode's 16 candidates a block, the int8 mode's 64, or the 4
-# fitness values of B5's selection loads
+# of the f32 DFT's 128 candidates a block, the int8 mode's 32, or the 32
+# lanes of B5's selection
 RAGGED_POP = 4001
+# B5 at a population whose selection keys do not fit shared memory (48,828
+# at mu 256): every pass streams them from L2
+BIG_POP = 1 << 16
+PROFILED_B5_CALLS = 3
 # JSON entries: a kernel, or a kernel in its true-f32 mode (the same wrapper
 # and counter; the f32 entries' launches are read on the refine tail)
 KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream",
@@ -107,8 +115,11 @@ STEP_MAX_REL = 1e-6
 F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL = 1e-5, 1e-6
 
 # the CUDA kernels of the true-f32 B1/B2 (csrc/fused_f32.cu), timed apart by
-# torch.profiler in the f32 split line
+# torch.profiler in the f32 split line; B5 runs them or the int8 B2 kernel
+# for its evaluation, and its own selection kernel
 F32_KERNELS = ("f32_synth_kernel", "f32_dft_kernel", "f32_sum_kernel")
+B2_KERNELS = F32_KERNELS + ("fused_generation_int8_kernel",)
+SELECT_KERNEL = "select_kernel"
 PROFILED_LAUNCHES = 10
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 FLOP/s
@@ -148,10 +159,11 @@ def cuda_ms(fn, runs: int) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
 
 
-def kernel_breakdown(fn, runs: int) -> str:
-    """Mean device time per call of each CUDA kernel that ``runs`` calls of
-    ``fn()`` launch, from torch.profiler (after one warm-up call), as
-    "name ms, ..."; "not measured" when the trace holds no device time."""
+def kernel_times(fn, runs: int) -> dict:
+    """Mean device ms per call of each CUDA kernel that ``runs`` calls of
+    ``fn()`` launch, by name with its template arguments, from
+    torch.profiler (after one warm-up call); empty when the trace holds no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -160,13 +172,51 @@ def kernel_breakdown(fn, runs: int) -> str:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    rows = []
+    out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
         name = ev.key.split("(")[0].removeprefix("void ")
-        if us and name.split("<")[0] in F32_KERNELS:
-            rows.append(f"{name} {us / runs / 1e3:.4f} ms")
+        if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[name] = out.get(name, 0.0) + us / runs / 1e3
+    return out
+
+
+def kernel_breakdown(fn, runs: int) -> str:
+    """The f32 kernels' rows of ``kernel_times`` as "name ms, ..."; "not
+    measured" when the trace holds no device time."""
+    rows = [f"{name} {ms:.4f} ms" for name, ms in kernel_times(fn, runs).items()
+            if name.split("<")[0] in F32_KERNELS]
     return ", ".join(rows) or "not measured"
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit: NaN payloads and the sign of zero included."""
+    a, b = a.reshape(-1).contiguous(), b.reshape(-1).contiguous()
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def fitness_f64(params, target, so, topology: str, n: int, sine_order: int) -> torch.Tensor:
+    """The true-f32 fitness of ``params`` from the plain version's float32
+    audio with every later step in float64: the fold, the folded DFT against
+    the float32 operand's values, the edge term, magnitudes and the L2 sum."""
+    from pmfm_tpu_torch.kernels import synth_fitness as sf
+    from pmfm_tpu_torch.ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
+
+    x = sf.synth_f32_plain(params, topology=topology, n=n, sine_order=sine_order,
+                           inv_sr=sf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE,
+                                                     DEFAULT_SAMPLE_RATE)).double()
+    half = n // 2
+    ap, am = x[:half].clone(), x[:half].clone()
+    ap[1:] += x[half + 1 :].flip(0)
+    am[1:] -= x[half + 1 :].flip(0)
+    op = so.dft_packed.double()
+    k = op.shape[0] // 2
+    en = sf.edge_norm(n, False)
+    ec = torch.where(torch.arange(k, device=op.device) % 2 == 0, en, -en).double()
+    u = op[:k] @ ap + ec[:, None] * x[half][None, :]
+    v = op[k:] @ am
+    dd = torch.sqrt(u * u + v * v) - target.double()[:, None]
+    return (dd * dd).sum(0)
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -1001,15 +1051,51 @@ class Smoke:
         for name, err in worst.items():
             self.kernels[name] = {"max_abs_err": err}
         self.grid("float32", F32_GRID_POPS, (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL), SEED + 31, 5000)
+        self.f32_vs_f64()
+
+    def f32_vs_f64(self):
+        """B1 f32 and its plain version against a float64 evaluation of the
+        same audio (``fitness_f64``) at each frame of GRID_N, fm3_series, sine
+        order 7, P 1 and RAGGED_POP, on the inputs of tests/test_torch_gpu.py's
+        f32 grid: how far each float32 summation order lies from float64 per
+        frame size. A measurement; the gate stays kernel against plain."""
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.ops import spectral
+
+        topology, order, d = "fm3_series", 7, 6
+        maxs = np.asarray((3520.0, 8.0) * (d // 2), np.float32)
+        for n in GRID_N:
+            so = spectral.make_spectrum_ops(n, None, dft_dtype="float32", device=self.dev)
+            for pop in (1, RAGGED_POP):
+                rng = np.random.default_rng(n + pop + order)
+                tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32))
+                tgt = tgt.to(self.dev)
+                p = np.random.default_rng(order).random((pop, d)) * maxs
+                p = torch.from_numpy(p.astype(np.float32)).to(self.dev)
+                kw = dict(dft_packed=so.dft_packed, dft_scale=0.0, topology=topology, n=n,
+                          pop_block=pop, sine_order=order)
+                fk = sf.fused_synth_fitness(p, tgt, **kw).double()
+                fp = sf.fused_synth_fitness_plain(p, tgt, **kw).double()
+                f64 = fitness_f64(p, tgt, so, topology, n, order)
+                ek, ep, kp = rel_err(fk, f64), rel_err(fp, f64), rel_err(fk, fp)
+                log(f"B1 f32 against float64 (n={n}, K={so.num_bins}, {topology}, sine order "
+                    f"{order}, P={pop}): kernel max rel {float(ek.max()):.4e} median "
+                    f"{float(ek.median()):.4e}; plain max rel {float(ep.max()):.4e} median "
+                    f"{float(ep.median()):.4e}; kernel vs plain max rel {float(kp.max()):.4e} "
+                    f"median {float(kp.median()):.4e}")
 
     # -- 13 -----------------------------------------------------------------
     def b5_vs_b2(self):
         """B5 bit-equal to G launches of the B2 kernel with the exact stable
-        selection (int8 at the bench config, f32 at the shipped refine tail
-        and audio_match.json's, each also at ``RAGGED_POP``), and within the
-        B2 limits of its plain version. In f32 B5 keeps the fused evaluation
-        of evaluate.cuh and B2 runs fused_f32.cu's, so this holds the two
-        designs against each other."""
+        selection, and within the B2 limits of its plain version. B5 runs
+        B2's own kernels, so this holds its selection and its loop: at the
+        driven settings (int8 at the bench config, f32 at the shipped refine
+        tail and audio_match.json's, each also at ``RAGGED_POP``) and at
+        three cases that stress the selection: identical candidates (every
+        parent equal, steps 0, min_step 0: every fitness equal, so the
+        survivors are candidates 0..mu-1 in order), a target holding NaN
+        (every fitness NaN: survivors 0..mu-1, best-ever stays +inf), and
+        ``BIG_POP``, whose keys do not fit the selection's shared memory."""
         from pmfm_tpu_torch.es import kernel_seed
         from pmfm_tpu_torch.kernels import evolve as ev
         from pmfm_tpu_torch.kernels import generation as gn
@@ -1024,29 +1110,60 @@ class Smoke:
             return c["pv"], c["ps"], c["pv"][0].clone(), best_f, c["target"]
 
         ragged = self.inputs(self.cfg.replace(num_offspring=RAGGED_POP - MU), SEED + 20)
-        for label, c in (("int8, bench config", bench),
-                         ("int8, bench config, ragged P", ragged),
-                         ("f32, shipped refine tail", self.f32["shipped refine tail"]),
-                         ("f32, audio_match refine tail", self.f32["audio_match refine tail"]),
-                         ("f32, audio_match refine tail, ragged P",
-                          self.f32["audio_match refine tail, ragged P"])):
+        same = dict(bench, pv=self.parents_v[:1].expand(MU, D).contiguous(),
+                    ps=torch.zeros_like(self.parents_s))
+        nan_target = self.target.clone()
+        nan_target[3] = float("nan")
+        big = self.inputs(self.cfg.replace(num_offspring=BIG_POP - MU), SEED + 21)
+        shipped, audio = self.f32["shipped refine tail"], self.f32["audio_match refine tail"]
+        for label, c, case in (
+                ("int8, bench config", bench, "run"),
+                ("int8, bench config, ragged P", ragged, "run"),
+                ("f32, shipped refine tail", shipped, "run"),
+                ("f32, audio_match refine tail", audio, "run"),
+                ("f32, audio_match refine tail, ragged P",
+                 self.f32["audio_match refine tail, ragged P"], "run"),
+                ("int8, bench config, identical candidates", same, "same"),
+                ("f32, shipped refine tail, identical candidates",
+                 dict(shipped, pv=shipped["pv"][:1].expand_as(shipped["pv"]).contiguous(),
+                      ps=torch.zeros_like(shipped["ps"])), "same"),
+                ("int8, bench config, NaN in the target", dict(bench, target=nan_target), "nan"),
+                (f"int8, bench config, P {BIG_POP}", big, "run")):
             cfg = c["cfg"]
+            pop, mu = cfg.population_size, cfg.num_parents
+            kw = dict(self.kw_b2(c), **({"min_step": 0.0} if case == "same" else {}))
             seeds = [kernel_seed(SEED, 100 + g) for g in range(EVOLVE_CHECK_GENERATIONS)]
-            out = ev.fused_evolve(seeds, *args(c), **self.kw_b2(c))
+            out = ev.fused_evolve(seeds, *args(c), **kw)
             torch.cuda.synchronize()
-            loop = ev.fused_evolve_plain(seeds, *args(c), generation=gn.fused_generation,
-                                         **self.kw_b2(c))
-            equal = all(torch.equal(a, b) for a, b in zip(out, loop))
-            diffs = {nm: float((a - b).abs().max()) for nm, a, b in zip(names, out, loop)}
+            loop = ev.fused_evolve_plain(seeds, *args(c), generation=gn.fused_generation, **kw)
+            equal = all(bits_equal(a, b) for a, b in zip(out, loop))
+            diffs = {nm: float((a - b).abs().nan_to_num().max())
+                     for nm, a, b in zip(names, out, loop)}
             traj = out[5].cpu()
+            shared = ev.select_geometry(pop, mu)["keys_in_shared"]
             log(f"B5 vs {len(seeds)} B2 launches + stable selection ({label}: n={cfg.n_samples}, "
-                f"P={cfg.population_size}, mu={cfg.num_parents}; one launch of "
-                f"{ev.fused_evolve.grid} blocks): bit-equal {equal}; max abs diff {diffs}; "
-                f"best-ever first {float(traj[0]):.6g} last {float(traj[-1]):.6g}")
+                f"P={pop}, mu={mu}; selection keys in shared memory {shared}): bit-equal "
+                f"{equal}; max abs diff {diffs}; best-ever first {float(traj[0]):.6g} last "
+                f"{float(traj[-1]):.6g}")
             require(equal, "B5 is not bit-equal to the loop of B2 launches")
-            require(bool(torch.isfinite(traj).all() and (traj[1:] <= traj[:-1]).all()),
-                    "B5 best-ever trajectory")
+            require(shared is (pop < BIG_POP), "the selection's keys in shared memory")
+            require(bool((traj[1:] <= traj[:-1]).all()), "B5 best-ever trajectory")
             require(float(out[4]) == float(traj[-1]), "B5 best fitness != trajectory end")
+            if case == "run":
+                require(bool(torch.isfinite(traj).all()), "B5 best-ever trajectory")
+                continue
+            # the ties: each generation's survivors are candidates 0..mu-1
+            fit, val, _ = gn.fused_generation(seeds[0], c["pv"], c["ps"], c["target"], **kw)
+            require(torch.equal(ev.stable_order(fit)[:mu].cpu(), torch.arange(mu)),
+                    "the survivors of a tie are not candidates 0..mu-1")
+            if case == "same":
+                require(bool((fit == fit[0]).all() and torch.isfinite(fit).all()), "equal fitness")
+                require(torch.equal(out[0], c["pv"]) and torch.equal(val[:mu], c["pv"]),
+                        "identical candidates changed")
+                require(bool(torch.isfinite(traj).all() and (traj == traj[0]).all()), "trajectory")
+            else:
+                require(bool(torch.isnan(fit).all() and torch.isnan(out[2]).all()), "NaN fitness")
+                require(bool(torch.isinf(traj).all() and (traj > 0).all()), "best-ever stays +inf")
         seeds = [kernel_seed(SEED, 200 + g) for g in range(EVOLVE_PLAIN_GENERATIONS)]
         out = ev.fused_evolve(seeds, *args(bench), **self.kw_b2(bench))
         torch.cuda.synchronize()
@@ -1260,12 +1377,17 @@ class Smoke:
                 route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
             )
-        # B5 in f32 (its own evaluation, evaluate.cuh) at the shipped tail's shape
+        self.b5_split("int8, bench config", lambda: ev.fused_evolve(seeds, *b5_args, **bkw), g,
+                      self.kernels["fused_evolve"]["ms"], self.kernels["fused_generation"]["ms"])
+        # B5 in f32 (B2's f32 kernels) at the shipped tail's shape
         f32_args = (c["pv"], c["ps"], c["pv"][0].clone(), torch.tensor(float("inf"), device=self.dev),
                     c["target"])
-        ms = cuda_ms(lambda: ev.fused_evolve(seeds, *f32_args, **kw2), 3)
+        f32_b5 = lambda: ev.fused_evolve(seeds, *f32_args, **kw2)  # noqa: E731
+        ms = cuda_ms(f32_b5, 3)
         log(f"fused_evolve f32 (shipped refine tail: n={n}, K={k}, P={pop}): kernel {ms:.4f} ms "
             f"for {g} generations, {ms / g:.4f} ms a generation {card()}")
+        self.b5_split("f32, shipped refine tail", f32_b5, g, ms,
+                      self.kernels["fused_generation_f32"]["ms"])
         for label in ("shipped refine tail", "audio_match refine tail"):
             self.f32_split(label)
         b = bench.Bench(bench.GENS, device=self.dev)
@@ -1274,6 +1396,27 @@ class Smoke:
             f"value {b.evals_per_sec(value_ms):.1f} evals/s ({value_ms / bench.GENS:.4f} ms/gen), "
             f"value_shipped {b.evals_per_sec(shipped_ms):.1f} evals/s "
             f"({shipped_ms / bench.GENS:.4f} ms/gen) {card()}")
+
+    def b5_split(self, label, fn, g, ms, b2_ms):
+        """Where a B5 generation goes: device time a call of ``fn`` (``g``
+        generations) by kernel from torch.profiler, summed as the evaluation
+        (B2's kernels), the selection and other kernels (the wrapper's
+        copies), and the rest of ``ms`` (the call's CUDA-event time) not
+        covered by kernels; beside B2 alone (``b2_ms``)."""
+        times = kernel_times(fn, PROFILED_B5_CALLS)
+        if not times:
+            log(f"B5 split ({label}): not measured (no device time in the trace) {card()}")
+            return
+        base = {name: name.split("<")[0] for name in times}
+        ev_ms = sum(v for nm, v in times.items() if base[nm] in B2_KERNELS)
+        sel_ms = sum(v for nm, v in times.items() if base[nm] == SELECT_KERNEL)
+        other = sum(times.values()) - ev_ms - sel_ms
+        log(f"B5 split ({label}, {g} generations a call; torch.profiler, mean of "
+            f"{PROFILED_B5_CALLS} calls): a generation {ms / g:.4f} ms = evaluation "
+            f"{ev_ms / g:.4f} ms ({sorted({base[nm] for nm in times if base[nm] in B2_KERNELS})}) "
+            f"+ selection {sel_ms / g:.4f} ms + other kernels {other / g:.4f} ms + not covered by "
+            f"kernels {(ms - ev_ms - sel_ms - other) / g:.4f} ms; B2 alone {b2_ms:.4f} ms, B5 - B2 "
+            f"{ms / g - b2_ms:.4f} ms a generation {card()}")
 
     def f32_split(self, label):
         """How B1/B2 f32 split at a refine tail's shape (phase 12's inputs for

@@ -1,59 +1,78 @@
-// The whole-run ES kernel for Hopper (sm_90a): G generations in one launch.
+// B5, the whole run for Hopper (sm_90a): G generations of B2 with exact comma
+// selection, the best-ever candidate and the (G,) best-ever trajectory.
 //
 // Replaces pmfm_tpu/kernels/evolve.py::fused_evolve (B5: _evolve_kernel,
-// _merge_topmu). Each generation is B2's: every candidate's offspring from
-// the parents (evaluate.cuh::offspring, Philox keyed by the generation's
-// seed, counters as B2's) and its fitness (evaluate.cuh::evaluate_block, the
-// same function B1 and B2 run, int8 or true f32); then comma selection of
-// the mu best of the whole offspring population in the exact order
-// (fitness, candidate index), NaN after +inf after every finite value; the
-// best-ever candidate and the (G,) best-ever trajectory. One generation of
-// B5 therefore makes bit for bit the parents that one B2 launch followed by
-// a stable sort makes (kernels/evolve.py::fused_evolve_plain).
+// _merge_topmu). Generation g is B2's for the seed seeds[g]; then comma
+// selection keeps the mu best of the whole offspring population in the exact
+// order (fitness, candidate index), -0 equal to +0, +inf after every finite
+// value and NaN after +inf; best-ever improves only on a strictly smaller
+// fitness. One B5 generation therefore makes bit for bit the parents that one
+// B2 launch followed by a stable sort makes (kernels/evolve.py::
+// fused_evolve_plain).
 //
-// What bounds it: the evaluation, as for B2 (evaluate.cuh; 34 G int8
-// operations a generation at the bench shapes). Selection reads the P
-// fitness values six times from L2 (128 KB at P 2^15) with one block, and
-// the two barriers a generation cost a few microseconds; parents, offspring
-// and fitness never leave the 50 MB L2 between generations.
+// Design. pmfm_fused_evolve is a loop on the host that enqueues, generation
+// after generation on one stream, B2's own kernels (generation.cuh: the int8
+// kernel of fused_eval.cu, or the three f32 kernels of fused_f32.cu) and then
+// select_kernel, with no synchronisation and no Python between generations.
+// So B5 is bit-equal to G B2 launches by construction and follows any change
+// of B2. A kernel boundary is the cheapest grid-wide barrier on an H100 (a
+// few microseconds), and parents, offspring and fitness stay in the 50 MB L2
+// from one launch to the next. The host work that does not change from one
+// generation to the next (the instantiations, the shared-memory attributes,
+// the f32 scratch's checks) is done once before the loop; the loop costs a
+// few microseconds of host time a launch against ~0.27 ms of device time a
+// generation at the bench shapes, so the host stays ahead of the card. A
+// persistent cooperative grid would instead tie every generation to one
+// block shape and to what is resident, which B2's kernels (one-warp int8
+// blocks, two 4-warp f32 DFT blocks an SM) do not share.
 //
-// Design (simple first). One cooperative launch (cudaLaunchCooperativeKernel)
-// of as many blocks as can be resident at once (occupancy x SM count, at most
-// one per population block), so a grid-wide barrier is valid. Each block walks
-// the population blocks grid-stride and writes every candidate's fitness,
-// values and steps to device scratch; barrier; block 0 selects: a 4-pass
-// 8-bit radix select finds the mu-th smallest order key T, a compaction in
-// candidate order keeps the keys below T and the first ones equal to T, a
-// rank sort by (key, index) orders the mu survivors, which are copied into
-// the parents; barrier. The TPU kernel's block-wise merge into a running
-// top-mu (with its finite 3e38 sentinel and one-hot extraction) was a way to
-// keep the pool in VMEM across a sequential grid; here the grid is parallel
-// and all P fitness values are in L2 at once, so one exact selection over
-// them replaces the merges. The barrier is a counter in device memory that
-// only grows (the wrapper zeroes it), so it needs no separate compilation.
+// What bounds it: B2's evaluation, G times (at the bench shapes 34 G int8
+// operations a generation, 25 us). The selection reads P fitness values
+// (128 KB at P 2^15) and writes mu parents; it runs on one SM, so its time is
+// the latency of its passes, not bandwidth.
+//
+// The selection is one block of SEL_THREADS threads. Warp w owns a contiguous
+// segment of the candidates and its lanes take consecutive ones, so every
+// sweep visits the keys of a warp in index order and its shared-memory reads
+// are free of bank conflicts. When the population's keys fit shared memory
+// (select_keys_in_shared) the first sweep leaves them there; otherwise every
+// sweep streams them from L2, the same way.
+// 1. A radix select over the order key (order_key: unsigned, ascending with
+//    the fitness, -0 == +0, NaN last) finds, 8 bits a pass from the top, the
+//    prefix T of the mu-th smallest key and how many of the keys with that
+//    prefix are wanted. Each warp counts into its own 256-bin histogram, one
+//    atomic for all lanes of a bin (__match_any_sync): a key's top byte is
+//    its sign and most of its exponent, so most keys share a few bins. A pass
+//    whose bin is wanted whole ends the search.
+// 2. A compaction keeps the keys below T and the first `want` keys with
+//    prefix T, in index order: a count sweep, the warps' counts scanned, and
+//    a write sweep with ballots. It writes mu survivors whatever the ties
+//    (all-equal or all-NaN fitness puts every key in one bin).
+// 3. A rank sort by (key, index) orders the survivors, whose fitness, values
+//    and steps are copied into the parents, best first; thread 0 updates
+//    best-ever and writes traj[g].
 
-#include <algorithm>
+#include "generation.cuh"
 
-#include "evaluate.cuh"
+#define SEL_THREADS 1024
+#define SEL_WARPS (SEL_THREADS / 32)
+#define SEL_BINS 256
+#define SEL_BATCH 8      // loads a lane has in flight
+#define SEL_RANK 4       // threads that rank one survivor
+#define SEL_MAX_SMEM 232448  // shared memory one block of an H100 can use
+#define SEL_FIXED_WORDS (SEL_WARPS * SEL_BINS + SEL_BINS + 2 * SEL_WARPS + 4)
 
-// Grid-wide barrier; `target` = (barriers so far) x gridDim.x. Valid only
-// under a cooperative launch, where every block is resident.
-__device__ __forceinline__ void grid_barrier(unsigned int* count, unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();  // this block's writes before its arrival
-    atomicAdd(count, 1u);
-    // poll with relaxed loads and acquire once: blocks that wait share their
-    // SM with blocks still evaluating, whose operand reads an acquire load
-    // per poll would keep evicting from L1
-    unsigned int seen;
-    do {
-      __nanosleep(128);
-      asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(count) : "memory");
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
+// Bytes of the selection's shared memory: the keys of all P candidates when
+// they are kept there (padded to 16 bytes), the warps' histograms, the bin
+// totals, the warps' counts, a broadcast, and the survivors' (key, index)
+// pairs and order. kernels/evolve.py::select_geometry is the same formula.
+__host__ __device__ inline size_t select_smem_bytes(int pop, int mu, bool keys_in_shared) {
+  const size_t keys = keys_in_shared ? ((size_t)pop + 3) / 4 * 4 : 0;
+  return 4 * (keys + SEL_FIXED_WORDS + 3 * (size_t)mu);
+}
+
+__host__ inline bool select_keys_in_shared(int pop, int mu) {
+  return select_smem_bytes(pop, mu, true) <= SEL_MAX_SMEM;
 }
 
 // Unsigned key in the order of (fitness ascending, NaN last): -0 == +0.
@@ -63,217 +82,202 @@ __device__ __forceinline__ uint32_t order_key(float f) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-// Calls f(i, key) for i in [lo, hi) in order, reading through L2; lo is a
-// multiple of 4, so groups of 4 go as one 16-byte load, and KEY_BATCH of
-// those are in flight at once: a pass then waits out one L2 latency per 32
-// keys of a thread, not per 4.
-#define KEY_BATCH 8
-template <typename F>
-__device__ __forceinline__ void for_keys(const float* fit, int lo, int hi, F&& f) {
-  int i = lo;
-  for (; i + 4 * KEY_BATCH <= hi; i += 4 * KEY_BATCH) {
-    float4 v[KEY_BATCH];
+// keys[i] = order_key(fit[i]) for the warp's candidates [lo, hi) (lo a
+// multiple of 32), in 16-byte loads, SEL_BATCH of them a lane in flight: one
+// round of L2 latency for 1024 keys a warp.
+__device__ __forceinline__ void load_keys(const float* fit, uint32_t* keys, int lo, int hi) {
+  const int lane = threadIdx.x & 31;
+  for (int base = lo; base < hi; base += 128 * SEL_BATCH) {
+    float4 v[SEL_BATCH];
 #pragma unroll
-    for (int j = 0; j < KEY_BATCH; ++j) v[j] = __ldcg(reinterpret_cast<const float4*>(fit + i) + j);
+    for (int j = 0; j < SEL_BATCH; ++j) {
+      const int i = base + 4 * (32 * j + lane);
+      if (i + 3 < hi) {
+        v[j] = __ldcg(reinterpret_cast<const float4*>(fit + i));
+      } else {  // the population's ragged end
+        v[j].x = i < hi ? __ldcg(fit + i) : 0.f;
+        v[j].y = i + 1 < hi ? __ldcg(fit + i + 1) : 0.f;
+        v[j].z = i + 2 < hi ? __ldcg(fit + i + 2) : 0.f;
+        v[j].w = 0.f;
+      }
+    }
 #pragma unroll
-    for (int j = 0; j < KEY_BATCH; ++j) {
-      f(i + 4 * j, order_key(v[j].x));
-      f(i + 4 * j + 1, order_key(v[j].y));
-      f(i + 4 * j + 2, order_key(v[j].z));
-      f(i + 4 * j + 3, order_key(v[j].w));
+    for (int j = 0; j < SEL_BATCH; ++j) {
+      const int i = base + 4 * (32 * j + lane);
+      const uint4 k = make_uint4(order_key(v[j].x), order_key(v[j].y), order_key(v[j].z),
+                                 order_key(v[j].w));
+      if (i + 3 < hi) {
+        *reinterpret_cast<uint4*>(keys + i) = k;
+      } else {
+        if (i < hi) keys[i] = k.x;
+        if (i + 1 < hi) keys[i + 1] = k.y;
+        if (i + 2 < hi) keys[i + 2] = k.z;
+      }
     }
   }
-  for (; i < hi; ++i) f(i, order_key(__ldcg(fit + i)));
 }
 
-// Shared memory of block 0's selection (after the evaluation's).
-__host__ __device__ inline size_t select_smem_bytes(int mu, int threads) {
-  return 4 * (256 + 2 * (size_t)threads + 3 * (size_t)mu + 2);
+// Calls f(i, key, in) for the warp's candidates [lo, hi), lane l taking
+// lo + 32 j + l; every lane of the warp makes every call (in = false past
+// hi), so f may use warp-wide intrinsics. Keys come from shared memory, or
+// from the fitness in L2; a lane's SEL_BATCH loads are all issued before
+// any is used, so they wait out one latency together.
+template <bool SHARED, typename F>
+__device__ __forceinline__ void sweep(const float* fit, const uint32_t* keys, int lo, int hi,
+                                      F&& f) {
+  const int lane = threadIdx.x & 31;
+  for (int base = lo; base < hi; base += 32 * SEL_BATCH) {
+    uint32_t x[SEL_BATCH];  // the key, or the fitness's bits
+#pragma unroll
+    for (int j = 0; j < SEL_BATCH; ++j) {
+      const int i = min(base + 32 * j + lane, hi - 1);
+      x[j] = SHARED ? keys[i] : __float_as_uint(__ldcg(fit + i));
+    }
+#pragma unroll
+    for (int j = 0; j < SEL_BATCH; ++j) {
+      const int i = base + 32 * j + lane;
+      const bool in = i < hi;
+      f(i, !in ? 0xFFFFFFFFu : SHARED ? x[j] : order_key(__uint_as_float(x[j])), in);
+    }
+  }
 }
 
-// Block 0: the mu survivors of generation g into pv, ps, pf (best first),
-// best-ever into best_v / best, traj[g] = best.
-__device__ __noinline__ void select_parents(int pop, int mu, int d, const float* fit, const float* val,
-                               const float* step, float* pv, float* ps, float* pf,
-                               float* best_v, float& best, float* traj_g, int* smem) {
-  const int t = threadIdx.x, nt = blockDim.x;
-  uint32_t* hist = reinterpret_cast<uint32_t*>(smem);  // 256 bins
-  uint32_t* cnt = hist + 256;                           // 2 x nt
-  uint32_t* wkey = cnt + 2 * nt;                        // mu survivors' keys
-  int* widx = reinterpret_cast<int*>(wkey + mu);        // ... and indices
-  int* word = widx + mu;                                // rank -> survivor
-  uint32_t* bc = reinterpret_cast<uint32_t*>(word + mu);  // broadcast
-  // contiguous chunk of candidates per thread, in index order
-  const int chunk = ((pop + nt - 1) / nt + 3) & ~3;
-  const int lo = min(pop, t * chunk), hi = min(pop, lo + chunk);
+// One generation's comma selection: the mu survivors of fit (pop,), val and
+// step (pop, d) into pf (mu,), pv and ps (mu, d), best first; best-ever into
+// best_v (d,) and best_f (1,) on a strict improvement; traj_g = best-ever.
+template <bool SHARED>
+__global__ void __launch_bounds__(SEL_THREADS)
+select_kernel(int pop, int mu, int d, const float* __restrict__ fit,
+              const float* __restrict__ val, const float* __restrict__ step,
+              float* __restrict__ pv, float* __restrict__ ps, float* __restrict__ pf,
+              float* __restrict__ best_v, float* __restrict__ best_f,
+              float* __restrict__ traj_g) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  uint32_t* keys = sm;                           // pop (padded), if SHARED
+  uint32_t* hist = sm + (SHARED ? (pop + 3) / 4 * 4 : 0);  // SEL_WARPS x SEL_BINS
+  uint32_t* tot = hist + SEL_WARPS * SEL_BINS;   // SEL_BINS
+  uint32_t* cnt = tot + SEL_BINS;                // 2 x SEL_WARPS
+  uint32_t* bc = cnt + 2 * SEL_WARPS;            // 4
+  unsigned long long* s_kx = reinterpret_cast<unsigned long long*>(bc + 4);  // mu: key, index
+  int* s_ord = reinterpret_cast<int*>(s_kx + mu);  // mu: rank -> survivor
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const unsigned full = 0xFFFFFFFFu;
+  const int seg = ((pop + SEL_WARPS - 1) / SEL_WARPS + 31) & ~31;
+  const int lo = min(pop, w * seg), hi = min(pop, lo + seg);
+  uint32_t* whist = hist + w * SEL_BINS;
+  if (SHARED) load_keys(fit, keys, lo, hi);  // the warp reads back only its own keys
 
-  // radix select: T = the mu-th smallest key; `want` of the keys equal to T
-  uint32_t prefix = 0u, mask = 0u, want = (uint32_t)mu;
+  // 1. radix select: keys whose bits under `mask` equal `prefix` are left,
+  // `want` of them still to take. The warp keeps its count of keys below
+  // the prefix (less) and, after the last pass, of keys with it (eq), which
+  // place its survivors in the compaction.
+  uint32_t prefix = 0u, mask = 0u, want = (uint32_t)mu, less = 0u, eq = 0u;
   for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = t; i < 256; i += nt) hist[i] = 0u;
-    __syncthreads();
-    for_keys(fit, lo, hi, [&](int, uint32_t k) {
-      if ((k & mask) == prefix) atomicAdd(&hist[(k >> shift) & 255u], 1u);
+    __syncwarp();  // the warp has read its histogram of the last pass
+    for (int b = lane; b < SEL_BINS; b += 32) whist[b] = 0u;
+    __syncwarp();
+    sweep<SHARED>(fit, keys, lo, hi, [&](int, uint32_t k, bool in) {
+      if (in && (k & mask) == prefix) atomicAdd(&whist[(k >> shift) & 255u], 1u);
     });
     __syncthreads();
-    if (t == 0) {
-      uint32_t cum = 0u;
-      int b = 0;
-      for (; b < 255; ++b) {
-        if (cum + hist[b] >= want) break;
-        cum += hist[b];
-      }
-      bc[0] = prefix | ((uint32_t)b << shift);
-      bc[1] = want - cum;
+    if (t < SEL_BINS) {
+      uint32_t c = 0u;
+      for (int v = 0; v < SEL_WARPS; ++v) c += hist[v * SEL_BINS + t];
+      tot[t] = c;
     }
     __syncthreads();
-    prefix = bc[0];
+    if (w == 0) {  // lane l: bins 8l .. 8l + 7; the lane whose bins cross `want` decides
+      const uint4 a = reinterpret_cast<const uint4*>(tot)[2 * lane];
+      const uint4 b = reinterpret_cast<const uint4*>(tot)[2 * lane + 1];
+      const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      uint32_t sum = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += v[j];
+      uint32_t incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t y = __shfl_up_sync(full, incl, o);
+        if (lane >= o) incl += y;
+      }
+      uint32_t cum = incl - sum;
+      if (cum < want && want <= incl) {
+        int j = 0;
+        while (cum + v[j] < want) cum += v[j++];
+        bc[0] = 8 * lane + j;
+        bc[1] = want - cum;
+        bc[2] = v[j] == want - cum;  // the bin is wanted whole
+      }
+    }
+    __syncthreads();
+    const uint32_t bin = bc[0];
+    uint32_t below = 0u;
+    for (int b = lane; b < SEL_BINS; b += 32) below += b < (int)bin ? whist[b] : 0u;
+    less += __reduce_add_sync(full, below);
+    eq = whist[bin];
+    prefix |= bin << shift;
     want = bc[1];
     mask |= 0xFFu << shift;
+    if (bc[2]) break;
   }
-  const uint32_t T = prefix;
   const uint32_t n_less = (uint32_t)mu - want;
 
-  // compaction: keys < T, then the first `want` keys == T, in index order
-  uint32_t less = 0u, eq = 0u;
-  for_keys(fit, lo, hi, [&](int, uint32_t k) {
-    less += k < T;
-    eq += k == T;
-  });
-  cnt[t] = less;
-  cnt[nt + t] = eq;
-  __syncthreads();
-  if (t == 0) {
-    uint32_t a = 0u, b = 0u;
-    for (int j = 0; j < nt; ++j) {
-      const uint32_t x = cnt[j], y = cnt[nt + j];
-      cnt[j] = a;
-      cnt[nt + j] = b;
-      a += x;
-      b += y;
-    }
+  // 2. compaction, in index order: keys below the prefix, then the first
+  // `want` keys with it
+  if (lane == 0) {
+    cnt[w] = less;
+    cnt[SEL_WARPS + w] = eq;
   }
   __syncthreads();
-  uint32_t ol = cnt[t], oe = cnt[nt + t];
-  for_keys(fit, lo, hi, [&](int i, uint32_t k) {
-    if (k < T) {
-      wkey[ol] = k;
-      widx[ol] = i;
-      ++ol;
-    } else if (k == T) {
-      if (oe < want) {
-        wkey[n_less + oe] = k;
-        widx[n_less + oe] = i;
-      }
-      ++oe;
+  uint32_t ol = 0u, oe = 0u;
+  for (int v = 0; v < w; ++v) {
+    ol += cnt[v];
+    oe += cnt[SEL_WARPS + v];
+  }
+  const uint32_t lanes_below = (1u << lane) - 1u;
+  sweep<SHARED>(fit, keys, lo, hi, [&](int i, uint32_t k, bool in) {
+    const bool c = in && (k & mask) <= prefix;
+    if (!__any_sync(full, c)) return;  // most keys of most batches are past the prefix
+    const bool l = c && (k & mask) < prefix, e = c && !l;
+    const uint32_t bl = __ballot_sync(full, l), be = __ballot_sync(full, e);
+    if (l) s_kx[ol + __popc(bl & lanes_below)] = (unsigned long long)k << 32 | (uint32_t)i;
+    if (e) {
+      const uint32_t r = oe + __popc(be & lanes_below);
+      if (r < want) s_kx[n_less + r] = (unsigned long long)k << 32 | (uint32_t)i;
     }
+    ol += __popc(bl);
+    oe += __popc(be);
   });
   __syncthreads();
 
-  // rank sort of the survivors by (key, index)
-  for (int e = t; e < mu; e += nt) {
-    const uint32_t ke = wkey[e];
-    const int ie = widx[e];
+  // 3. rank sort of the survivors by (key, index), SEL_RANK threads a survivor
+  for (int e0 = 0; e0 < mu; e0 += SEL_THREADS / SEL_RANK) {
+    const int e = e0 + t / SEL_RANK;
+    const bool ok = e < mu;
     int r = 0;
-    for (int f = 0; f < mu; ++f) {
-      const uint32_t kf = wkey[f];
-      r += (kf < ke) || (kf == ke && widx[f] < ie);
+    if (ok) {
+      const unsigned long long ke = s_kx[e];
+      for (int f = t % SEL_RANK; f < mu; f += SEL_RANK) r += s_kx[f] < ke;
     }
-    word[r] = e;
+#pragma unroll
+    for (int o = 1; o < SEL_RANK; o <<= 1) r += __shfl_xor_sync(full, r, o);
+    if (ok && t % SEL_RANK == 0) s_ord[r] = e;
   }
   __syncthreads();
-  for (int r = t; r < mu; r += nt) {
-    const int src = widx[word[r]];
-    pf[r] = __ldcg(fit + src);
-    for (int dim = 0; dim < d; ++dim) {
-      pv[(size_t)r * d + dim] = __ldcg(val + (size_t)src * d + dim);
-      ps[(size_t)r * d + dim] = __ldcg(step + (size_t)src * d + dim);
-    }
+  for (int j = t; j < mu * d; j += SEL_THREADS) {
+    const int r = j / d, src = (int)(uint32_t)s_kx[s_ord[r]];
+    pv[j] = val[(size_t)src * d + (j - r * d)];
+    ps[j] = step[(size_t)src * d + (j - r * d)];
   }
-  __syncthreads();
-  if (t == 0) {  // thread 0 wrote row 0 itself
-    if (pf[0] < best) {
-      best = pf[0];
-      for (int dim = 0; dim < d; ++dim) best_v[dim] = pv[dim];
+  for (int r = t; r < mu; r += SEL_THREADS) pf[r] = fit[(uint32_t)s_kx[s_ord[r]]];
+  if (t == 0) {
+    const int src = (int)(uint32_t)s_kx[s_ord[0]];
+    const float f0 = fit[src];
+    if (f0 < best_f[0]) {
+      best_f[0] = f0;
+      for (int dim = 0; dim < d; ++dim) best_v[dim] = val[(size_t)src * d + dim];
     }
-    *traj_g = best;
+    *traj_g = best_f[0];
   }
-}
-
-template <int NC, bool F32>
-__global__ void __launch_bounds__(Mode<F32>::THREADS)
-fused_evolve_kernel(const uint32_t* __restrict__ seeds, int gens, int pop, SynthParams sp,
-                    MutateParams mp, const void* __restrict__ dft,
-                    const float* __restrict__ target, float* pv, float* ps, float* pf,
-                    float* best_v, float* best_f, float* traj, float* fit_s, float* val_s,
-                    float* step_s, unsigned int* barrier) {
-  extern __shared__ __align__(16) int smem[];
-  constexpr int CPB = Mode<F32>::CPB;
-  const bool leader = threadIdx.x < CPB;
-  const int nblk = (pop + CPB - 1) / CPB;
-  unsigned int arrivals = 0u;
-  float best = best_f[0];  // block 0, thread 0 keeps it
-#pragma unroll 1
-  for (int g = 0; g < gens; ++g) {
-    const uint32_t seed = seeds[g];
-#pragma unroll 1
-    for (int blk = blockIdx.x; blk < nblk; blk += gridDim.x) {
-      const int cand = blk * CPB + threadIdx.x % CPB;
-      const bool active = cand < pop;
-      float p[MAX_D];
-      if (leader && active)
-        offspring(seed, cand, pv, ps, mp, sp.d, p, val_s, step_s);
-      else
-        for (int i = 0; i < MAX_D; ++i) p[i] = 0.f;
-      const float fit = evaluate_block<NC, F32>(p, sp, dft, target, smem);
-      if (leader && active) fit_s[cand] = fit;
-    }
-    arrivals += gridDim.x;
-    grid_barrier(barrier, arrivals);
-    if (blockIdx.x == 0)
-      select_parents(pop, mp.mu, sp.d, fit_s, val_s, step_s, pv, ps, pf, best_v, best,
-                     traj + g, smem);
-    arrivals += gridDim.x;
-    grid_barrier(barrier, arrivals);
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) best_f[0] = best;
-}
-
-template <bool F32>
-static int launch_b5(const uint32_t* seeds, int gens, int pop, const SynthParams& sp,
-                     const MutateParams& mp, const void* dft, const float* target, float* pv,
-                     float* ps, float* pf, float* best_v, float* best_f, float* traj,
-                     float* fit_s, float* val_s, float* step_s, unsigned int* barrier,
-                     int* grid_out, cudaStream_t stream) {
-  constexpr int THREADS = Mode<F32>::THREADS, CPB = Mode<F32>::CPB;
-  const size_t smem = std::max(eval_smem_bytes(sp.n, F32), select_smem_bytes(mp.mu, THREADS));
-  int dev = 0, coop = 0, sms = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev))) return e;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev))) return e;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return e;
-  return dispatch_ncoef(sp.ncoef, [&](auto nc) {
-    auto kernel = fused_evolve_kernel<decltype(nc)::value, F32>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err) return (int)err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-    if (err) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const int grid = std::min((pop + CPB - 1) / CPB, per_sm * sms);
-    *grid_out = grid;
-    int gens_ = gens, pop_ = pop;
-    SynthParams sp_ = sp;
-    MutateParams mp_ = mp;
-    void* args[] = {(void*)&seeds, &gens_,  &pop_, &sp_,   &mp_,   (void*)&dft,
-                    (void*)&target, &pv,    &ps,   &pf,    &best_v, &best_f,
-                    &traj,          &fit_s, &val_s, &step_s, &barrier};
-    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS), args, smem,
-                                      stream);
-    if (err) return (int)err;
-    return (int)cudaGetLastError();
-  });
 }
 
 extern "C" {
@@ -281,19 +285,40 @@ extern "C" {
 // B5: `gens` generations from the parents pv, ps (mu, d), updated in place
 // with pf (mu,) to the last generation's; best_v (d,) and best_f (1,) carry
 // the best-ever in and out; traj (gens,) gets best-ever per generation.
-// seeds (gens,) are the generations' Philox keys. fit_s (pop,), val_s and
-// step_s (pop, d) are scratch; barrier is one zeroed counter. grid_out gets
-// the number of blocks launched. Returns a CUDA error code, 0 on success.
+// seeds (gens,), in host memory, are the generations' Philox keys. fit_s
+// (pop,), val_s and step_s (pop, d) hold each generation's offspring; in f32
+// mode scratch holds fused_f32.cu's f32_scratch_floats(pop, n) floats.
+// Enqueues every launch on `stream` and returns the first CUDA error, 0 on
+// success.
 int pmfm_fused_evolve(const uint32_t* seeds, int gens, int pop, SynthParams sp, MutateParams mp,
                       const void* dft, const float* target, float* pv, float* ps, float* pf,
                       float* best_v, float* best_f, float* traj, float* fit_s, float* val_s,
-                      float* step_s, unsigned int* barrier, int f32_mode, int* grid_out,
+                      float* step_s, float* scratch, long long scratch_floats, int f32_mode,
                       cudaStream_t stream) {
-  return f32_mode ? launch_b5<true>(seeds, gens, pop, sp, mp, dft, target, pv, ps, pf, best_v,
-                                    best_f, traj, fit_s, val_s, step_s, barrier, grid_out, stream)
-                  : launch_b5<false>(seeds, gens, pop, sp, mp, dft, target, pv, ps, pf, best_v,
-                                     best_f, traj, fit_s, val_s, step_s, barrier, grid_out,
-                                     stream);
+  const int mu = mp.mu;
+  if (gens < 1 || mu < 1 || pop < mu) return (int)cudaErrorInvalidValue;
+  const bool in_shared = select_keys_in_shared(pop, mu);
+  const size_t smem = select_smem_bytes(pop, mu, in_shared);
+  if (smem > SEL_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const auto sel = in_shared ? &select_kernel<true> : &select_kernel<false>;
+  int e = (int)prepare(sel, smem);
+  GenInt8Kernel gen8 = nullptr;
+  F32Plan plan{};
+  if (!e)
+    e = f32_mode ? prepare_generation_f32(sp, pop, scratch, scratch_floats, &plan)
+                 : prepare_generation_int8(sp, &gen8);
+  for (int g = 0; g < gens && !e; ++g) {
+    e = f32_mode ? launch_f32(plan, nullptr, seeds[g], pv, ps, mp, val_s, step_s, sp,
+                              (const float*)dft, target, fit_s, stream)
+                 : launch_generation_int8(gen8, seeds[g], pv, ps, pop, sp, mp,
+                                          (const int8_t*)dft, target, fit_s, val_s, step_s,
+                                          stream);
+    if (e) break;
+    sel<<<1, SEL_THREADS, smem, stream>>>(pop, mu, sp.d, fit_s, val_s, step_s, pv, ps, pf,
+                                          best_v, best_f, traj + g);
+    e = (int)cudaGetLastError();
+  }
+  return e;
 }
 
 }  // extern "C"

@@ -22,8 +22,7 @@
 //   order and every operation are synth_run's, so the audio is bit-equal to
 //   kernels/synth_fitness.py::synth_int8_plain.
 // * The folded DFT, U = a+ C^T and V = a- S^T, runs on the int8 tensor cores:
-//   mma.sync m16n8k32 s8 x s8 -> s32, exact int32 sums as the __dp4a sums of
-//   the evaluation it replaces were. A is the warp's a+ (a-), two m-tiles of
+//   mma.sync m16n8k32 s8 x s8 -> s32, exact int32 sums. A is the warp's a+ (a-), two m-tiles of
 //   16 candidates; B is the (2K, N/2) operand as it is, each bin's samples
 //   contiguous (the .col layout), 32 bins a pass. Per 64-sample step thread
 //   (g, c) reads 16 bytes of each of its A rows and of its B column, samples
@@ -37,11 +36,10 @@
 //   the L2 traffic 2-3x but was slower at P 2^15: PERF.md §6.)
 // * The epilogue: each bin's term (the edge term 127 (-1)^k x[N/2], the
 //   magnitude, the |amp| * dft_scale rescale, the squared difference) is
-//   computed by the thread that holds the bin's U and V, with the operations
-//   of evaluate.cuh::evaluate_int8; four rounds of shuffles hand a row's
-//   terms to the row's owner, which adds them in ascending k one __fadd_rn at
-//   a time. So the fitness is bit-equal to that evaluation's, which B5 still
-//   runs.
+//   computed by the thread that holds the bin's U and V; four rounds of
+//   shuffles hand a row's terms to the row's owner, which adds them in
+//   ascending k one __fadd_rn at a time. B5 (evolve.cu) runs this kernel for
+//   each of its int8 generations, through generation.cuh.
 // * B2's prologue: the block's 32 x d (candidate, gene) pairs are spread
 //   over its 32 threads (evaluate.cuh::offspring_gene; values and steps are
 //   written coalesced) and the scaled parameters reach the synthesising
@@ -58,7 +56,7 @@
 // finite phases: a candidate whose phases overflow to inf/NaN (parameters
 // near 1e38) may round its NaN samples to other bytes than rintf would.
 
-#include "evaluate.cuh"
+#include "generation.cuh"
 
 #define TC_CPB 32  // int8: candidates per CUDA block, one warp
 #define TC_NT 4    // int8: n-tiles of 8 bins per pass over a+/-
@@ -187,9 +185,8 @@ __device__ __forceinline__ void dft_pass(int k0, const uint4* s_ap, const uint4*
       }
     }
   }
-  // epilogue: the x[N/2] edge term, magnitude, |amp| rescale, L2 (the
-  // operations of evaluate_int8); register i of a tile is row g + 8 (i >> 1),
-  // bin 2c + (i & 1)
+  // epilogue: the x[N/2] edge term, magnitude, |amp| rescale, L2; register
+  // i of a tile is row g + 8 (i >> 1), bin 2c + (i & 1)
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     const int kb = k0 + 8 * t + 2 * c;
@@ -322,40 +319,62 @@ fused_generation_int8_kernel(uint32_t seed, const float* __restrict__ pv,
 
 // ---- launchers ------------------------------------------------------------------
 
-// Launches the int8 kernel that `pick` gives for the sine order and the
-// chain length on blocks of one warp, asking for the largest shared-memory
-// carveout so that six blocks fit an SM at n 1024.
-template <typename Pick, typename... Args>
-static int launch_int8(Pick&& pick, const SynthParams& sp, int pop, cudaStream_t stream,
-                       Args... args) {
-  const size_t smem = (size_t)sp.n * TC_CPB;
+#define PICK(kernel) \
+  [](auto nc, auto kc) { return kernel<decltype(nc)::value, decltype(kc)::value>; }
+
+// The int8 kernel that `pick` gives for the sine order and the chain length,
+// with its shared memory set, asking for the largest carveout so that six
+// blocks of one warp fit an SM at n 1024.
+template <typename Pick, typename K>
+static int prepare_int8(Pick&& pick, const SynthParams& sp, K* out) {
   return dispatch_ncoef(sp.ncoef, [&](auto nc) {
     return dispatch_chain(sp.kn, [&](auto kc) {
-      auto kernel = pick(nc, kc);
-      cudaError_t e = prepare(kernel, smem);
+      const K kernel = pick(nc, kc);
+      cudaError_t e = prepare(kernel, (size_t)sp.n * TC_CPB);
       if (!e)
         e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
-      if (e) return (int)e;
-      kernel<<<(pop + TC_CPB - 1) / TC_CPB, TC_CPB, smem, stream>>>(args...);
-      return (int)cudaGetLastError();
+      *out = kernel;
+      return (int)e;
     });
   });
+}
+
+// A prepared int8 kernel on blocks of one warp.
+template <typename K, typename... Args>
+static int launch_int8(K kernel, const SynthParams& sp, int pop, cudaStream_t stream,
+                       Args... args) {
+  kernel<<<(pop + TC_CPB - 1) / TC_CPB, TC_CPB, (size_t)sp.n * TC_CPB, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+typedef void (*FitInt8Kernel)(const float*, int, SynthParams, const int8_t*, const float*, float*);
+
+int prepare_generation_int8(const SynthParams& sp, GenInt8Kernel* kernel) {
+  return prepare_int8(PICK(fused_generation_int8_kernel), sp, kernel);
+}
+
+int launch_generation_int8(GenInt8Kernel kernel, uint32_t seed, const float* pv, const float* ps,
+                           int pop, const SynthParams& sp, const MutateParams& mp,
+                           const int8_t* dft, const float* target, float* fitness, float* values,
+                           float* steps, cudaStream_t stream) {
+  return launch_int8(kernel, sp, pop, stream, seed, pv, ps, pop, sp, mp, dft, target, fitness,
+                     values, steps);
 }
 
 extern "C" {
 
 const char* pmfm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-#define PICK(kernel) \
-  [](auto nc, auto kc) { return kernel<decltype(nc)::value, decltype(kc)::value>; }
-
 // B1 int8: fitness (pop,) of scaled params (pop, d) against the int8 folded
 // operand (2k, n/2) and the target (k,). Returns cudaGetLastError().
 int pmfm_fused_synth_fitness(const float* params, int pop, SynthParams sp, const void* dft,
                              const float* target, float* fitness, cudaStream_t stream) {
-  return launch_int8(PICK(fused_synth_fitness_int8_kernel), sp, pop, stream, params, pop, sp,
-                     (const int8_t*)dft, target, fitness);
+  FitInt8Kernel kernel;
+  const int e = prepare_int8(PICK(fused_synth_fitness_int8_kernel), sp, &kernel);
+  return e ? e
+           : launch_int8(kernel, sp, pop, stream, params, pop, sp, (const int8_t*)dft, target,
+                         fitness);
 }
 
 // B2 int8: one generation's offspring (pop, d) values and steps from the
@@ -363,8 +382,11 @@ int pmfm_fused_synth_fitness(const float* params, int pop, SynthParams sp, const
 int pmfm_fused_generation(uint32_t seed, const float* pv, const float* ps, int pop,
                           SynthParams sp, MutateParams mp, const void* dft, const float* target,
                           float* fitness, float* values, float* steps, cudaStream_t stream) {
-  return launch_int8(PICK(fused_generation_int8_kernel), sp, pop, stream, seed, pv, ps, pop, sp,
-                     mp, (const int8_t*)dft, target, fitness, values, steps);
+  GenInt8Kernel kernel;
+  const int e = prepare_generation_int8(sp, &kernel);
+  return e ? e
+           : launch_generation_int8(kernel, seed, pv, ps, pop, sp, mp, (const int8_t*)dft,
+                                    target, fitness, values, steps, stream);
 }
 
 }  // extern "C"

@@ -7,8 +7,8 @@
 //   B1 <- pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness, with _dft_uv
 //         and _evaluate_block's audio_f32
 //   B2 <- pmfm_tpu/kernels/generation.py::fused_generation
-// (the int8 mode of both is fused_eval.cu's; B5 keeps the earlier fused f32
-// evaluation of evaluate.cuh).
+// (the int8 mode of both is fused_eval.cu's). B5 (evolve.cu) runs B2's three
+// kernels for each of its f32 generations, through generation.cuh's plan.
 //
 // What bounds it on an H100 at the shipped tail's shape (n 1024, K 512,
 // P 2^15): the folded DFT is 2 * 2K * (N/2) * P = 34.4 G f32 operations,
@@ -19,8 +19,8 @@
 // read once: ~77 us of HBM traffic at 3.35 TB/s, ~15% of the bound), 32 MB
 // at P 4096 and n 2048, which L2 holds.
 //
-// The earlier design (one fused block of 16 candidates x 8 threads,
-// evaluate.cuh) ran at 10x that bound. Its three limits and what this one
+// The earlier design (one fused block of 16 candidates x 8 threads, since
+// removed) ran at 10x that bound. Its three limits and what this one
 // does about each:
 // 1. Its DFT loaded more than it computed (one 16-byte operand load per 3.6
 //    FMAs; every 16-candidate block read the whole 2 MB operand). Here
@@ -40,19 +40,19 @@
 //    KN (dispatch_chain) with the grouped fold emitter FoldEmit on an exact
 //    f32 row (F32Row).
 //
-// Numerics: the fitness is bit-equal to the earlier evaluation's.
-// * The audio: synth_run's samples and operations, each sample fmul(y, amp)
-//   unrounded; a+ = old + x, a- = old - x (synth_common.cuh's FoldEmit). The
-//   one difference, a+[0] = x[0] + 0 where the earlier fold kept x[0], can
-//   only turn -0 into +0, which every later FMA of the sum makes +0 alike.
+// Numerics. The audio is the plain version's bit for bit: synth_run's
+// samples and operations, each sample fmul(y, amp) unrounded; a+ = old + x,
+// a- = old - x (synth_common.cuh's FoldEmit). Only the order of the sums
+// differs from the plain version's float32 products:
 // * U[c][k] and V[c][k] are one accumulator each, from 0, over the samples in
 //   ascending order, one exact-product __fmaf_rn each: no split over samples,
 //   no tensor cores.
-// * Each bin's term uses the earlier operations (the edge term edge_norm
-//   (-1)^k x[N/2], the magnitude, the squared difference) and the terms are
-//   summed in the earlier order: group g holds the bins with (k / 8) mod 8 =
-//   g, summed in ascending k from 0; then the eight group sums are added in
-//   group order, a group with no bins adding 0.
+// * Each bin's term (the edge term edge_norm (-1)^k x[N/2], the magnitude,
+//   the squared difference) is summed by bin group: group g holds the bins
+//   with (k / 8) mod 8 = g, summed in ascending k from 0; then the eight group
+//   sums are added in group order, a group with no bins adding 0.
+// B1 and B2 share the three kernels and B5 runs B2's, so their fitness is
+// bit-equal whatever the order; nothing else depends on it.
 //
 // Geometry. The grid of f32_dft_kernel is (P padded to DF_BM) / DF_BM x
 // DF_GROUPS blocks: block b takes candidates [DF_BM (b / 8), + DF_BM) and
@@ -65,7 +65,7 @@
 // sums of each candidate in group order. The scratch rows past P (up to the
 // padding) are synthesised from zero parameters and dropped.
 
-#include "evaluate.cuh"
+#include "generation.cuh"
 
 #define SY_TPB 128        // synthesis: candidates (threads) per block
 #define DF_BM 128         // DFT: candidates per block (and the scratch's row padding)
@@ -76,7 +76,7 @@
 #define DF_STAGES 3
 #define DF_TM 16          // DFT: candidates of a thread's register tile (and 8 bins)
 #define DF_THREADS 128    // DFT: 64 threads for U, 64 for V
-#define DF_GROUPS 8       // the earlier evaluation's bin groups (evaluate.cuh F32_GROUPS)
+#define DF_GROUPS 8       // DFT: bin groups, one a block (the fitness sums them in group order)
 #define DF_ELD (DF_BN + 1)  // DFT epilogue: a row of U or V terms
 #define SUM_TPB 256
 
@@ -297,8 +297,8 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
 #pragma unroll
       for (int j = 0; j < 8; ++j) E[tr + 8 * i][tc + 8 * j] = acc[i][j];
     __syncthreads();
-    // the epilogue of evaluate.cuh's dft_partial_f32: the edge term
-    // edge_norm (-1)^k x[N/2], magnitude, L2; terms in ascending k
+    // the epilogue: the edge term edge_norm (-1)^k x[N/2], magnitude, L2;
+    // terms in ascending k
     const float(*EU)[DF_ELD] = reinterpret_cast<const float(*)[DF_ELD]>(smem_f);
     const float(*EV)[DF_ELD] = EU + DF_BM;
     for (int p = 0; p < DF_BN; ++p) {
@@ -340,39 +340,55 @@ static long long f32_scratch_floats(int pop, int n) {
   return pop_pad * (n + 1 + DF_GROUPS);
 }
 
-// The three kernels on `stream`; returns cudaGetLastError() after each launch
-// (the first error stops it).
+// The plan of the three kernels for pop candidates (generation.cuh): the
+// synthesis's instantiation for the sine order and the chain length, with
+// B2's offspring prologue (GEN) or B1's parameters, the scratch's views and
+// the DFT kernel's shared memory. cudaErrorInvalidValue for too little
+// scratch or a frame whose half is not whole DF_BK-sample stages.
 template <bool GEN>
-static int launch_f32(const float* params, uint32_t seed, const float* pv, const float* ps,
-                      const MutateParams& mp, float* values, float* steps, int pop,
-                      const SynthParams& sp, const float* dft, const float* target,
-                      float* fitness, float* scratch, long long scratch_floats,
-                      cudaStream_t stream) {
+static int prepare_f32(const SynthParams& sp, int pop, float* scratch, long long scratch_floats,
+                       F32Plan* plan) {
   if (pop < 1 || scratch_floats < f32_scratch_floats(pop, sp.n) || (sp.n / 2) % DF_BK)
     return (int)cudaErrorInvalidValue;
   const int pop_pad = (pop + DF_BM - 1) / DF_BM * DF_BM;
   const size_t half = sp.n / 2;
-  float* ap = scratch;
-  float* am = ap + (size_t)pop_pad * half;
-  float* edge = am + (size_t)pop_pad * half;
-  float* partial = edge + pop_pad;
-  int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
+  plan->pop = pop;
+  plan->pop_pad = pop_pad;
+  plan->ap = scratch;
+  plan->am = plan->ap + (size_t)pop_pad * half;
+  plan->edge = plan->am + (size_t)pop_pad * half;
+  plan->partial = plan->edge + pop_pad;
+  const int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
     return dispatch_chain(sp.kn, [&](auto kc) {
-      f32_synth_kernel<decltype(nc)::value, decltype(kc)::value, GEN>
-          <<<pop_pad / SY_TPB, SY_TPB, 0, stream>>>(params, seed, pv, ps, mp, values, steps, pop,
-                                                    sp, ap, am, edge);
-      return (int)cudaGetLastError();
+      plan->synth = f32_synth_kernel<decltype(nc)::value, decltype(kc)::value, GEN>;
+      return 0;
     });
   });
+  return e ? e : (int)prepare(f32_dft_kernel, DF_SMEM);
+}
+
+int prepare_generation_f32(const SynthParams& sp, int pop, float* scratch,
+                           long long scratch_floats, F32Plan* plan) {
+  return prepare_f32<true>(sp, pop, scratch, scratch_floats, plan);
+}
+
+// The three kernels of a plan on `stream`; returns cudaGetLastError() after
+// each launch (the first error stops it).
+int launch_f32(const F32Plan& plan, const float* params, uint32_t seed, const float* pv,
+               const float* ps, const MutateParams& mp, float* values, float* steps,
+               const SynthParams& sp, const float* dft, const float* target, float* fitness,
+               cudaStream_t stream) {
+  const F32SynthKernel synth = plan.synth;
+  synth<<<plan.pop_pad / SY_TPB, SY_TPB, 0, stream>>>(params, seed, pv, ps, mp, values, steps,
+                                                      plan.pop, sp, plan.ap, plan.am, plan.edge);
+  int e = (int)cudaGetLastError();
   if (e) return e;
-  e = (int)prepare(f32_dft_kernel, DF_SMEM);
-  if (e) return e;
-  f32_dft_kernel<<<pop_pad / DF_BM * DF_GROUPS, DF_THREADS, DF_SMEM, stream>>>(
-      ap, am, edge, dft, target, sp, pop_pad, partial);
+  f32_dft_kernel<<<plan.pop_pad / DF_BM * DF_GROUPS, DF_THREADS, DF_SMEM, stream>>>(
+      plan.ap, plan.am, plan.edge, dft, target, sp, plan.pop_pad, plan.partial);
   e = (int)cudaGetLastError();
   if (e) return e;
-  f32_sum_kernel<<<(pop + SUM_TPB - 1) / SUM_TPB, SUM_TPB, 0, stream>>>(partial, pop_pad, pop,
-                                                                        fitness);
+  f32_sum_kernel<<<(plan.pop + SUM_TPB - 1) / SUM_TPB, SUM_TPB, 0, stream>>>(
+      plan.partial, plan.pop_pad, plan.pop, fitness);
   return (int)cudaGetLastError();
 }
 
@@ -384,8 +400,11 @@ extern "C" {
 int pmfm_fused_synth_fitness_f32(const float* params, int pop, SynthParams sp, const float* dft,
                                  const float* target, float* fitness, float* scratch,
                                  long long scratch_floats, cudaStream_t stream) {
-  return launch_f32<false>(params, 0u, nullptr, nullptr, MutateParams{}, nullptr, nullptr, pop,
-                           sp, dft, target, fitness, scratch, scratch_floats, stream);
+  F32Plan plan;
+  const int e = prepare_f32<false>(sp, pop, scratch, scratch_floats, &plan);
+  return e ? e
+           : launch_f32(plan, params, 0u, nullptr, nullptr, MutateParams{}, nullptr, nullptr, sp,
+                        dft, target, fitness, stream);
 }
 
 // B2 true f32: one generation's offspring (pop, d) values and steps from the
@@ -394,8 +413,11 @@ int pmfm_fused_generation_f32(uint32_t seed, const float* pv, const float* ps, i
                               SynthParams sp, MutateParams mp, const float* dft,
                               const float* target, float* fitness, float* values, float* steps,
                               float* scratch, long long scratch_floats, cudaStream_t stream) {
-  return launch_f32<true>(nullptr, seed, pv, ps, mp, values, steps, pop, sp, dft, target,
-                          fitness, scratch, scratch_floats, stream);
+  F32Plan plan;
+  const int e = prepare_generation_f32(sp, pop, scratch, scratch_floats, &plan);
+  return e ? e
+           : launch_f32(plan, nullptr, seed, pv, ps, mp, values, steps, sp, dft, target, fitness,
+                        stream);
 }
 
 }  // extern "C"

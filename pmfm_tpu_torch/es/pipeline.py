@@ -9,9 +9,9 @@ Where the reference scans ``generation_step`` inside one jitted program,
 kernel (B2) under ``fused_generation``, or torch recombine/mutate plus one
 kernel: B1 (``fused_kernel``), B3 (``synth_fold``, 4096 <= n <= 16384) or B4
 (``synth_stream``, n >= 32768); selection is ``torch.topk``. With
-``fused_evolve`` on a CUDA device the whole run is one launch of B5. Nothing
-in the loop reads a device value back unless ``fitness_threshold`` asks for
-early stop.
+``fused_evolve`` on a CUDA device the whole run is one call of B5, which
+enqueues every generation's kernels from C. Nothing in the loop reads a
+device value back unless ``fitness_threshold`` asks for early stop.
 
 ``match_audio`` has no ``benchmarker``, ``checkpoint_dir`` or ``mesh``
 argument yet (ROADMAP Queue A items 4, 9 and 10).
@@ -167,7 +167,7 @@ def _evolve_mega(
     cfg: ESConfig,
     record_trajectory: bool,
 ):
-    """``evolve`` through the whole-run kernel: one B5 launch for all
+    """``evolve`` through the whole-run kernel: one B5 call for all
     generations (its plain version on CPU tensors). Generation g draws the
     seed ``generation_step`` would, ``kernel_seed(state.seed,
     state.generation + g)``; the stall count is recovered from the best-ever
@@ -217,7 +217,7 @@ def evolve(
 
     With ``cfg.fitness_threshold > 0`` (and no trajectory) the loop stops
     once best-ever fitness drops to the threshold. Under ``cfg.fused_evolve``
-    on a CUDA device (``_fused_evolve_ok``) the run is one launch of B5.
+    on a CUDA device (``_fused_evolve_ok``) the run is one call of B5.
     Returns ``(final_state, trajectory)``; the trajectory is the best-ever
     fitness after each generation, ``(num_generations,)``, or None.
     """

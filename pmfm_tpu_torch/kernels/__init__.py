@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), each with its wrapper,
 launch count and plain PyTorch version: B1 ``fused_synth_fitness`` and B2
-``fused_generation`` (``csrc/fused_eval.cu``), B5 ``fused_evolve``
-(``csrc/evolve.cu``), all three on ``csrc/evaluate.cuh``; B3
-``fused_synth_fold`` and B4 ``fused_synth_stream`` (``csrc/large_frame.cu``)."""
+``fused_generation`` (``csrc/fused_eval.cu`` int8, ``csrc/fused_f32.cu`` true
+f32), B5 ``fused_evolve`` (``csrc/evolve.cu``: B2's kernels and a selection
+kernel a generation); B3 ``fused_synth_fold`` and B4 ``fused_synth_stream``
+(``csrc/large_frame.cu``)."""
 from .evolve import fused_evolve
 from .generation import fused_generation
 from .synth_fitness import fused_synth_fitness

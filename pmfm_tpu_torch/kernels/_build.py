@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_f32.cu``:
-B1, B2 true f32; ``evolve.cu``: B5; ``large_frame.cu``: B3, B4;
-``evaluate.cuh``: the evaluation B5 runs and the offspring genes B2 and B5
-share; ``synth_common.cuh``: the synthesis all five share and the fold
-emitter of B1, B2 and B3) have a plain
+B1, B2 true f32; ``evolve.cu``: B5, which runs B2's kernels through
+``generation.cuh``; ``large_frame.cu``: B3, B4; ``evaluate.cuh``: B2's
+offspring genes; ``synth_common.cuh``: the synthesis B1-B4 share and the
+fold emitter of B1, B2 and B3) have a plain
 C interface and include no PyTorch header, so ``nvcc`` compiles them, one
 process per source started together, and links them into one shared
 library, which ``ctypes`` loads. The library goes to
@@ -164,8 +164,8 @@ def library() -> ctypes.CDLL:
     ]
     lib.pmfm_fused_generation_f32.restype = ci
     lib.pmfm_fused_evolve.argtypes = [
-        vp, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-        ci, ctypes.POINTER(ci), vp,
+        ctypes.POINTER(ctypes.c_uint32), ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp, vp, cll, ci, vp,
     ]
     lib.pmfm_fused_evolve.restype = ci
     lib.pmfm_synth_fold.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp, ci, vp]

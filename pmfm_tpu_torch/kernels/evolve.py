@@ -1,12 +1,14 @@
-"""B5: the whole run in one kernel — G generations of B2 with exact comma
-selection, best-ever tracking and the best-ever trajectory.
+"""B5: the whole run — G generations of B2 with exact comma selection,
+best-ever tracking and the best-ever trajectory.
 
 Replaces ``pmfm_tpu/kernels/evolve.py::fused_evolve`` (``_evolve_kernel``,
-``_merge_topmu``). The CUDA kernel is ``fused_evolve_kernel`` in
-``csrc/evolve.cu``, whose note says what bounds it and how its cooperative
-grid replaces the TPU kernel's sequential grid and running top-mu merge.
-``fused_evolve_plain`` is its plain PyTorch version: a loop of B2
-(``fused_generation_plain``) with a stable (fitness, index) selection.
+``_merge_topmu``). ``csrc/evolve.cu``'s ``pmfm_fused_evolve`` is a loop on the
+host that enqueues, for each generation, B2's own kernels and then one
+selection kernel (``select_kernel``, one block) on the stream, with no
+synchronisation between generations; the file's note says what bounds it
+and how the selection works. ``fused_evolve_plain`` is its plain PyTorch
+version: a loop of B2 (``fused_generation_plain``) with a stable (fitness,
+index) selection.
 
 Semantics, as the reference's: generation g's offspring are B2's for the
 seed ``seeds[g]`` (``es.pipeline.kernel_seed(state.seed, state.generation +
@@ -27,7 +29,31 @@ import torch
 
 from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 from .generation import _check_b2, fused_generation_plain, mutate_params_struct
-from .synth_fitness import DEFAULT_POP_BLOCK, inv_sample_rate, synth_params_struct
+from .synth_fitness import (
+    DEFAULT_POP_BLOCK,
+    MAX_SHARED_BYTES,
+    f32_scratch_floats,
+    inv_sample_rate,
+    synth_params_struct,
+)
+
+SELECT_THREADS = 1024  # csrc SEL_THREADS: the selection's one block
+SELECT_BINS = 256  # csrc SEL_BINS: a radix pass's histogram, one per warp
+
+
+def select_geometry(pop: int, mu: int) -> dict:
+    """The selection kernel's shared memory for ``pop`` offspring and ``mu``
+    survivors (csrc ``select_smem_bytes``): the warps' histograms, the bin
+    totals, the warps' counts, a broadcast and the survivors' (key, index)
+    pairs and order, plus the keys of all ``pop`` candidates (padded to 16
+    bytes) when they fit (``keys_in_shared``; else each pass streams them
+    from L2). ``smem_bytes`` is what the launch asks for; above
+    ``MAX_SHARED_BYTES`` (mu above ~16k) the kernel does not take the run."""
+    warps = SELECT_THREADS // 32
+    base = 4 * (warps * SELECT_BINS + SELECT_BINS + 2 * warps + 4 + 3 * mu)
+    keys = 4 * (-(-pop // 4) * 4)
+    in_shared = base + keys <= MAX_SHARED_BYTES
+    return dict(keys_in_shared=in_shared, smem_bytes=base + keys if in_shared else base)
 
 
 def stable_order(fitness: torch.Tensor) -> torch.Tensor:
@@ -104,10 +130,10 @@ def fused_evolve(
     Returns ``(parent_values (mu, D), parent_steps (mu, D), parent_fitness
     (mu,), best_values (D,), best_fitness (), trajectory (G,))``; the
     trajectory is best-ever per generation. ``gens_per_step`` is kept for
-    the reference's interface and changes nothing (the kernel runs all
-    generations in one launch). On CUDA tensors this is one launch of the
-    B5 kernel (counted in ``fused_evolve.launches``; the grid it used is
-    ``fused_evolve.grid``); on CPU tensors it runs the plain version.
+    the reference's interface and changes nothing. On CUDA tensors this is
+    one call of the B5 launcher, which enqueues every generation's kernels
+    (counted once in ``fused_evolve.launches``); on CPU tensors it runs the
+    plain version.
     """
     kw = dict(
         pop=pop, param_mins=param_mins, param_maxs=param_maxs, dft_packed=dft_packed,
@@ -130,6 +156,8 @@ def fused_evolve(
         raise ValueError(f"unsupported device {dev}")
     k = _check_b2(parent_values, parent_steps, target_spectrum, dft_packed, dft_scale, topology,
                   n, num_frames)
+    if select_geometry(pop, mu)["smem_bytes"] > MAX_SHARED_BYTES:
+        raise ValueError(f"mu={mu}: the selection's survivors exceed one block's shared memory")
     f32 = dft_scale == 0.0
     if tuple(best_values.shape) != (d,) or best_fitness.numel() != 1:
         raise ValueError(f"best_values must be ({d},) and best_fitness a scalar")
@@ -145,27 +173,23 @@ def fused_evolve(
     fit_s = torch.empty((pop,), **f)
     val_s = torch.empty((pop, d), **f)
     step_s = torch.empty((pop, d), **f)
-    barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
-    seeds_t = torch.tensor(seeds, dtype=torch.int32).to(dev)
+    scratch = torch.empty((f32_scratch_floats(pop, n) if f32 else 0,), **f)
+    seeds_h = (ctypes.c_uint32 * len(seeds))(*(s & 0xFFFFFFFF for s in seeds))
     sp = synth_params_struct(
         topology=topology, n=n, k=k, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
         dft_scale=dft_scale, sine_order=sine_order,
     )
     mp = mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale,
                               root_two_over_pi, clamp_values, min_step)
-    grid = ctypes.c_int(0)
     err = library().pmfm_fused_evolve(
-        seeds_t.data_ptr(), len(seeds), pop, sp, mp, dft_packed.data_ptr(),
-        target_spectrum.data_ptr(), pv.data_ptr(), ps.data_ptr(), pf.data_ptr(), bv.data_ptr(),
-        bf.data_ptr(), traj.data_ptr(), fit_s.data_ptr(), val_s.data_ptr(), step_s.data_ptr(),
-        barrier.data_ptr(), int(f32), ctypes.byref(grid),
-        torch.cuda.current_stream(dev).cuda_stream,
+        seeds_h, len(seeds), pop, sp, mp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
+        pv.data_ptr(), ps.data_ptr(), pf.data_ptr(), bv.data_ptr(), bf.data_ptr(),
+        traj.data_ptr(), fit_s.data_ptr(), val_s.data_ptr(), step_s.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), int(f32), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "fused_evolve")
     fused_evolve.launches += 1
-    fused_evolve.grid = grid.value
     return pv, ps, pf, bv, bf[0], traj
 
 
 fused_evolve.launches = 0
-fused_evolve.grid = 0

@@ -62,15 +62,17 @@ DEFAULT_POP_BLOCK = 512
 TIME_BLOCK = 128
 MAX_SERIES_OPS = 8  # csrc MAX_KN
 CUDA_BLOCK = 32  # csrc TC_CPB: int8 B1/B2 candidates per CUDA block (one warp)
-B5_CUDA_BLOCK = 64  # csrc TPB: int8 B5 candidates (threads) per CUDA block
-F32_CUDA_BLOCK = 16  # csrc F32_CPB: B5's f32 candidates per CUDA block
-F32_GROUPS = 8  # csrc F32_GROUPS / DF_GROUPS: the f32 fitness's bin groups (B5: threads a candidate)
+F32_GROUPS = 8  # csrc DF_GROUPS: the f32 fitness's bin groups
 F32_SYNTH_THREADS = 128  # csrc SY_TPB: B1/B2 f32 synthesis, candidates (threads) per block
 F32_DFT_BM = 128  # csrc DF_BM: B1/B2 f32 DFT, candidates per block (the scratch's row padding)
 F32_DFT_THREADS = 128  # csrc DF_THREADS
 F32_DFT_PASS_TILES = 8  # csrc DF_TILES: bin tiles of 8 per pass of a DFT block
 F32_SUM_THREADS = 256  # csrc SUM_TPB
+F32_DFT_SHARED_BYTES = 92160  # csrc DF_SMEM: the f32 DFT block's stages, whatever the frame
 MAX_SHARED_BYTES = 232448  # shared memory one block of an H100 can use
+# the fused kernels' frame limit: the reference routes larger frames to B3
+# (synth_fold, n 4096-16384) and B4, and so does the port
+MAX_FUSED_N = 3584
 
 
 def resolve_pop_block(pop: int, pop_block: int) -> int:
@@ -354,27 +356,24 @@ def f32_geometry(pop: int, n: int, k: int) -> dict:
 
 
 def shared_bytes(n: int, f32: bool) -> int:
-    """Dynamic shared memory of the largest block of the fused kernels whose
-    size grows with the frame, at frames of ``n`` samples (csrc
-    ``eval_smem_bytes`` and ``fused_eval.cu``'s ``n * TC_CPB``): the folded
-    audio of its candidates, int8 (B1/B2: ``CUDA_BLOCK`` x n bytes; B5, which
-    keeps the earlier int8 evaluation: ``B5_CUDA_BLOCK`` x n bytes) or
-    float32, which is B5's f32 block alone (``F32_CUDA_BLOCK`` x n x 4 bytes,
-    plus the edge samples and the partial sums of its ``F32_GROUPS`` threads
-    per candidate; the f32 B1/B2 keep a+/a- in scratch and stage a fixed
-    92,160 bytes whatever the frame)."""
-    if f32:
-        return 4 * (n * F32_CUDA_BLOCK + F32_CUDA_BLOCK * (1 + F32_GROUPS))
-    return n * max(CUDA_BLOCK, B5_CUDA_BLOCK)
+    """Dynamic shared memory of a B1/B2 block at frames of ``n`` samples
+    (csrc ``fused_eval.cu``'s ``n * TC_CPB`` and ``fused_f32.cu``'s
+    ``DF_SMEM``): int8, the folded audio of its ``CUDA_BLOCK`` candidates,
+    ``CUDA_BLOCK`` x n bytes; true f32, the DFT's fixed stages (a+/a- live in
+    scratch). B5 runs these kernels, and its selection block does not grow
+    with the frame."""
+    return F32_DFT_SHARED_BYTES if f32 else n * CUDA_BLOCK
 
 
 def fits_shared_memory(n: int, f32: bool = False) -> bool:
     """Whether B1/B2/B5 take frames of ``n`` samples in the int8 or the f32
-    mode: one block's folded audio must fit its shared memory, so n <= 3584 in
-    both. The one definition of the fused kernels' size limit, read by the
-    wrappers (B5's through ``generation._check_b2``) and by
-    ``es.strategy._fused_ok``."""
-    return shared_bytes(n, f32) <= MAX_SHARED_BYTES
+    mode: n <= ``MAX_FUSED_N`` (3584) in both, the port's stated frame
+    limit, under which a block's shared memory also holds. The limit is the
+    reference's engine ladder, not the card's: the kernels' blocks would fit
+    larger frames, but n >= 4096 stays with B3 as in the reference. The one
+    definition of the fused kernels' size limit, read by the wrappers (B5's
+    through ``generation._check_b2``) and by ``es.strategy._fused_ok``."""
+    return n <= MAX_FUSED_N and shared_bytes(n, f32) <= MAX_SHARED_BYTES
 
 
 def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.Tensor) -> None:
@@ -385,7 +384,7 @@ def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.
     f32 = dft_packed.dtype == torch.float32
     if not fits_shared_memory(n, f32):
         raise NotImplementedError(
-            f"n={n}: the folded audio of one block's candidates exceeds shared memory "
+            f"n={n}: above the fused kernels' frame limit {MAX_FUSED_N} "
             f"(larger frames take the synth_fold route, kernel B3)"
         )
     if k % 8:

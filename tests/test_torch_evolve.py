@@ -250,3 +250,74 @@ def test_evolve_routes_to_b5_only_on_a_card(setup):
                   dict(fused_evolve=False), dict(mutation_noise="normal_unit")):
         assert not tpipeline._fused_evolve_ok(ESConfig(**{**_mega_cfg(), **extra}), so,
                                               torch.device("cuda"))
+
+
+# identical candidates (every parent equal, steps 0, min_step 0) at
+# fm3_series: every offspring and every fitness of a generation is equal, so
+# the selection's ties decide alone and the survivors are candidates 0..mu-1
+TIE_N, TIE_POP, TIE_MU, TIE_GENS = 256, 128, 16, 3
+TIE_MAXS = (3520.0, 8.0) * 3
+TIE_TRUE = (3078.0, 2.0, 3015.0, 1.5, 3141.0, 1.0)
+TIE_FIT_REL = 1e-3  # B1's tolerance against the reference (test_torch_kernels.py)
+
+
+def test_fused_evolve_identical_candidates_match_reference():
+    """B5's plain version and the reference's fused_evolve (interpret mode)
+    on the all-ties input: the same parent values, equal finite fitness (no
+    3e38 sentinel), and each generation's survivors are candidates 0..mu-1
+    in index order."""
+    d = len(TIE_TRUE)
+    cfg = ESConfig(audio_length_log2=8, dft_dtype="int8", num_dimensions=d,
+                   topology="fm3_series", param_mins=(0.0,) * d, param_maxs=TIE_MAXS)
+    so = make_spectrum_ops(cfg, device="cpu")
+    tgt = target_spectrum(synthesize_single(torch.tensor(TIE_TRUE), TIE_N, "fm3_series",
+                                            engine="scanless"), so)
+    jso = jops.make_spectrum_ops(TIE_N, method="dft", dft_dtype=jnp.int8)
+    np.testing.assert_array_equal(so.dft_packed.numpy(), np.asarray(jso.dft_packed))
+    jtgt = jnp.asarray(tgt.numpy())  # one target for both
+    row = np.random.default_rng(5).random(d).astype(np.float32)
+    pv = np.tile(row, (TIE_MU, 1))
+    ps = np.zeros((TIE_MU, d), np.float32)
+    kw = dict(pop=TIE_POP, param_mins=(0.0,) * d, param_maxs=TIE_MAXS, topology="fm3_series",
+              n=TIE_N, pop_block=32, dft_scale=so.dft_packed_scale, sine_order=7, min_step=0.0)
+    ref = j_fused_evolve(jnp.int32(5), jnp.asarray(pv), jnp.asarray(ps), jnp.asarray(pv[0]),
+                         jnp.float32(np.inf), jso.dft_packed, jtgt, gens=TIE_GENS,
+                         interpret=True, **kw)
+    seeds = [kernel_seed(5, i) for i in range(TIE_GENS)]
+    tpv, tps = torch.from_numpy(pv), torch.from_numpy(ps)
+    got = tev.fused_evolve(seeds, tpv, tps, tpv[0], torch.tensor(float("inf")), tgt,
+                           dft_packed=so.dft_packed, **kw)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(got[0].numpy(), pv)
+    np.testing.assert_array_equal(got[1].numpy(), ps)
+    jf, tf = np.asarray(ref[2]), got[2].numpy()
+    assert np.isfinite(jf).all() and np.all(jf == jf[0]) and np.all(tf == tf[0])
+    assert abs(tf[0] - jf[0]) <= TIE_FIT_REL * abs(jf[0]), (tf[0], jf[0])
+    np.testing.assert_allclose(got[5].numpy(), np.asarray(ref[5]), rtol=TIE_FIT_REL)
+    for seed in seeds:  # the selection's view of each generation
+        fit, val, _ = tgen.fused_generation(seed, tpv, tps, tgt, dft_packed=so.dft_packed, **kw)
+        assert torch.all(fit == fit[0]) and torch.isfinite(fit).all()
+        assert torch.equal(tev.stable_order(fit)[:TIE_MU], torch.arange(TIE_MU))
+        assert torch.equal(val, tpv[:1].expand(TIE_POP, d))
+
+
+@pytest.mark.parametrize("pop,mu,in_shared,smem_bytes", [
+    # the bench config: 2^15 keys in shared memory beside the histograms
+    (1 << 15, 256, True, 4 * (8516 + 3 * 256 + (1 << 15))),
+    # the last population whose keys fit at mu 256, and the first that streams
+    (48828, 256, True, 232448),
+    (48829, 256, False, 4 * (8516 + 3 * 256)),
+    (1 << 16, 256, False, 4 * (8516 + 3 * 256)),
+    # a ragged population: its keys padded to 16 bytes
+    (4001, 64, True, 4 * (8516 + 3 * 64 + 4004)),
+    # mu so large that even the survivors do not fit: the wrapper raises
+    (1 << 16, 16600, False, 4 * (8516 + 3 * 16600)),
+])
+def test_select_geometry(pop, mu, in_shared, smem_bytes):
+    """The selection kernel's shared memory (csrc evolve.cu
+    select_smem_bytes: 32 warps' 256-bin histograms, the bin totals, the
+    warps' counts, a broadcast, 3 x mu survivor words, and the P keys,
+    padded to 16 bytes, when they fit one block's 232,448 bytes)."""
+    geo = tev.select_geometry(pop, mu)
+    assert geo == dict(keys_in_shared=in_shared, smem_bytes=smem_bytes)
+    assert (geo["smem_bytes"] <= tsf.MAX_SHARED_BYTES) is (mu < 16600)

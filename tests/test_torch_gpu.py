@@ -34,8 +34,8 @@ FIT_MAX_REL, FIT_MEDIAN_REL = 1e-3, 1e-5
 STEP_MAX_REL = 1e-6
 TRUTH = (3078.0, 2.0, 3015.0, 1.5, 3141.0, 1.0, 2500.0, 1.2)
 # a population whose last CUDA block is only partly filled: not a multiple
-# of the f32 mode's 16 candidates a block, the int8 mode's 64, or the 4
-# fitness values of B5's selection loads
+# of the f32 DFT's 128 candidates a block, the int8 mode's 32, or the 32
+# lanes of B5's selection
 RAGGED_POP = 4001
 POPS = [4096, RAGGED_POP]
 
@@ -274,13 +274,33 @@ def test_b1_b2_f32_kernels_match_plain(cuda, n, pop):
     assert float(rel.max()) <= F32_FIT_MAX_REL and float(rel.median()) <= F32_FIT_MEDIAN_REL
 
 
-@pytest.mark.parametrize("dtype,pop", [("int8", 4096), ("int8", RAGGED_POP), ("float32", 4096),
-                                       ("float32", RAGGED_POP), ("float32", 1 << 15)])
-def test_b5_bit_equal_to_b2_launches(cuda, dtype, pop):
-    """G generations in one B5 launch == G B2 launches + the stable selection
-    (in f32 also at the shipped tail's P 2^15: B5 keeps evaluate.cuh's fused
-    f32 evaluation, B2 runs fused_f32.cu's, so this holds the two designs
-    against each other)."""
+def _bits_equal(a, b):
+    """Equal bit for bit: NaN payloads and the sign of zero included."""
+    a, b = a.reshape(-1).contiguous(), b.reshape(-1).contiguous()
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# B5's cases: the driven settings (ids as before), then the selection's ties
+# (identical candidates: every fitness equal; a NaN in the target: every
+# fitness NaN) and a population whose keys do not fit its shared memory
+B5_CASES = [
+    pytest.param("int8", 4096, "run", id="int8-4096"),
+    pytest.param("int8", RAGGED_POP, "run", id="int8-4001"),
+    pytest.param("float32", 4096, "run", id="float32-4096"),
+    pytest.param("float32", RAGGED_POP, "run", id="float32-4001"),
+    pytest.param("float32", 1 << 15, "run", id="float32-32768"),
+    pytest.param("int8", 4096, "same", id="int8-4096-identical"),
+    pytest.param("float32", 4096, "same", id="float32-4096-identical"),
+    pytest.param("int8", 4096, "nan", id="int8-4096-nan"),
+    pytest.param("int8", 1 << 16, "run", id="int8-65536"),
+]
+
+
+@pytest.mark.parametrize("dtype,pop,case", B5_CASES)
+def test_b5_bit_equal_to_b2_launches(cuda, dtype, pop, case):
+    """G generations in one B5 call == G B2 launches + the stable selection,
+    bit for bit (B5 runs B2's own kernels, so this holds its selection and
+    its loop); on ties the survivors are candidates 0..mu-1 in order."""
     from pmfm_tpu_torch.kernels import evolve as ev
 
     if dtype == "int8":
@@ -290,10 +310,16 @@ def test_b5_bit_equal_to_b2_launches(cuda, dtype, pop):
     g = torch.Generator(device=cuda).manual_seed(2)
     pv = torch.rand((64, 6), generator=g, device=cuda)
     ps = torch.rand((64, 6), generator=g, device=cuda) * 0.3
+    min_step = cfg.min_step
+    if case == "same":
+        pv, ps, min_step = pv[:1].expand(64, 6).contiguous(), torch.zeros_like(ps), 0.0
+    if case == "nan":
+        tgt = tgt.clone()
+        tgt[3] = float("nan")
     kw = dict(pop=cfg.population_size, param_mins=cfg.param_mins, param_maxs=cfg.param_maxs,
               dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, n=cfg.n_samples,
               pop_block=cfg.population_size, sine_order=cfg.sine_order,
-              root_two_over_pi=cfg.root_two_over_pi, min_step=cfg.min_step)
+              root_two_over_pi=cfg.root_two_over_pi, min_step=min_step)
     seeds = [kernel_seed(5, i) for i in range(8)]
     args = (pv, ps, pv[0].clone(), torch.tensor(float("inf"), device=cuda), tgt)
     before = ev.fused_evolve.launches
@@ -301,9 +327,19 @@ def test_b5_bit_equal_to_b2_launches(cuda, dtype, pop):
     assert ev.fused_evolve.launches == before + 1
     loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
     for a, b in zip(out, loop):
-        assert torch.equal(a, b)
+        assert _bits_equal(a, b)
     traj = out[5]
     assert (traj[1:] <= traj[:-1]).all() and float(out[4]) == float(traj[-1])
+    assert ev.select_geometry(pop, 64)["keys_in_shared"] is (pop < 1 << 16)
+    if case == "run":
+        return
+    fit, val, _ = gn.fused_generation(seeds[0], pv, ps, tgt, **kw)
+    assert torch.equal(ev.stable_order(fit)[:64].cpu(), torch.arange(64))
+    if case == "same":
+        assert (fit == fit[0]).all() and torch.isfinite(fit).all()
+        assert torch.equal(out[0], pv) and torch.equal(val[:64], pv)
+    else:
+        assert torch.isnan(fit).all() and torch.isnan(out[2]).all() and torch.isinf(traj).all()
 
 
 def test_evolve_fused_evolve_is_one_launch(cuda):

@@ -209,7 +209,7 @@ def test_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError):  # n not a multiple of 2 * 128
         tsf.fused_synth_fitness(p, torch.zeros(to.num_bins), dft_packed=to.dft_packed,
                                 dft_scale=to.dft_packed_scale, n=384)
-    with pytest.raises(NotImplementedError):  # folded audio over shared memory
+    with pytest.raises(NotImplementedError):  # above the fused kernels' frame limit
         big = tspec.make_spectrum_ops(4096, dft_dtype="int8", device="cpu")
         tsf.fused_synth_fitness(p, torch.zeros(big.num_bins), dft_packed=big.dft_packed,
                                 dft_scale=big.dft_packed_scale, n=4096)
