@@ -9,11 +9,13 @@ through the entry points a user calls, and times each kernel:
 * phases 3-6, the bench ES (population 2^15, mu 256, fm3_series, n 1024,
   K 512, int8 folded DFT, sine order 7) through ``evolve`` under
   fused_generation (kernel B2) and fused_kernel (kernel B1);
-* phases 7-11, the large-frame paths: B3 (synth_fold) and B4 (synth_stream)
-  against their plain versions, ``evolve`` at n 8192 (pop 2^15, B3 + the
-  folded int8 DFT) and at n 65536 (pop 2^13, B4 + the factored DFT),
-  ``match_audio`` over ``input_audio/input.wav`` at n 8192 with the refine
-  tail, and the kernels' and spectra's times;
+* phases 7-11, the large-frame paths: B3 (synth_fold, in both of its
+  layouts) and B4 (synth_stream) bit-equal to their plain versions at the
+  cells' settings and over grids of chains, sine orders, frames, modes and
+  populations, ``evolve`` at n 8192 (pop 2^15, B3 + the folded int8 DFT)
+  and at n 65536 (pop 2^13, B4 + the factored DFT), ``match_audio`` over
+  ``input_audio/input.wav`` at n 8192 with the refine tail, and the
+  kernels' and spectra's times (B3's layouts across populations);
 * phases 12-16, the true-f32 mode of B1/B2 and the whole-run kernel B5:
   B1/B2 f32 against their plain versions at the shipped refine tail's
   settings (n 1024, pop 2^15) and at ``examples/audio_match.json``'s
@@ -33,14 +35,15 @@ through the entry points a user calls, and times each kernel:
   DFT half's yardstick) and the port's bench (``pmfm_tpu_torch/bench.py``,
   one repetition).
 
-One flushed line per phase; every time is printed beside the card's name and
-power limit.
+One flushed line per phase, ending with its seconds; every time is printed
+beside the card's name and power limit.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``, printed only when every phase
 passed. Without a CUDA device the script exits 2 and prints no result. A
 watchdog ends a hung run with a traceback and a non-zero code.
 """
+import contextlib
 import faulthandler
 import json
 import re
@@ -77,6 +80,33 @@ SEED = 20261017
 # the large-frame cells: the reference's chunk-size rows (bench_suite.py)
 FOLD_LOG2N, FOLD_POP, FOLD_GENERATIONS = 13, 1 << 15, 30  # (c) synth_fold, B3
 STREAM_LOG2N, STREAM_POP, STREAM_GENERATIONS = 16, 1 << 13, 10  # (d) synth_stream, B4
+# phases 7 and 8: B3/B4 bit-equal to their plain versions over the ported
+# chains and sine orders, both modes (and both B3 layouts), populations
+# around the 32-candidate blocks and a ragged one. The plain version walks
+# the frame one block at a time (its cost grows with n and the chain's
+# length, not with P), so it runs once a setting at the largest population
+# (each candidate's output is its own) and the settings cover the axes
+# rather than their product (tests/test_torch_gpu.py runs more of it):
+LARGE_GRID_POPS = (1, 31, 33, 1000)
+# B3: a Latin square, each (topology, sine order) once, each chain and each
+# sine order at every frame of the route
+FOLD_GRID = (("fm2", 5, 4096), ("fm3_series", 7, 4096), ("fm8_series", 9, 4096),
+             ("fm2", 7, 8192), ("fm3_series", 9, 8192), ("fm8_series", 5, 8192),
+             ("fm2", 9, 16384), ("fm3_series", 5, 16384), ("fm8_series", 7, 16384))
+# B4: fm2 and fm3_series at each frame (131072: the level totals in device
+# memory), fm8_series at the shortest; each sine order at 32768
+STREAM_GRID = (("fm2", 5, 131072), ("fm3_series", 7, 131072), ("fm2", 7, 65536),
+               ("fm3_series", 9, 65536), ("fm2", 9, 32768), ("fm3_series", 5, 32768),
+               ("fm8_series", 7, 32768))
+# phase 11: B3's two layouts across populations (the wrapper's
+# FOLD_TP_BELOW_POP, by chain length and mode, sits between them): every
+# ported chain in both modes at cell (c)'s frame and sine order, and cell
+# (c)'s shape at the route's shortest and longest frames; (topology, sine
+# order, n, int8)
+FOLD_LAYOUT_SHAPES = tuple((t, 7, 8192, m) for t in ("fm2",) + tuple(
+    f"fm{k}_series" for k in range(3, 9)) for m in (True, False)) + (
+    ("fm3_series", 7, 4096, True), ("fm3_series", 7, 16384, True))
+FOLD_LAYOUT_POPS = (2048, 4096, 8192, 16384, 1 << 15, 1 << 16)
 MATCH_CONFIG, MATCH_LOG2N = "examples/audio_match.json", 13  # (e) match_audio
 MATCH_GENERATIONS, MATCH_REFINE = 40, 10
 # the third slice: B1/B2 f32 and B5
@@ -189,6 +219,19 @@ def kernel_breakdown(fn, runs: int) -> str:
     return ", ".join(rows) or "not measured"
 
 
+@contextlib.contextmanager
+def fold_layout(sfo, time_parallel: bool):
+    """B3's wrapper in one layout: its FOLD_TP_BELOW_POP set so that it takes
+    the time-parallel one (where the frame fits shared memory) or the single
+    pass at every chain, mode and population, and restored after."""
+    saved = sfo.FOLD_TP_BELOW_POP
+    sfo.FOLD_TP_BELOW_POP = dict.fromkeys(saved, 1 << 62 if time_parallel else 0)
+    try:
+        yield
+    finally:
+        sfo.FOLD_TP_BELOW_POP = saved
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal bit for bit: NaN payloads and the sign of zero included."""
     a, b = a.reshape(-1).contiguous(), b.reshape(-1).contiguous()
@@ -217,6 +260,41 @@ def fitness_f64(params, target, so, topology: str, n: int, sine_order: int) -> t
     v = op[k:] @ am
     dd = torch.sqrt(u * u + v * v) - target.double()[:, None]
     return (dd * dd).sum(0)
+
+
+def fitness_in_kernel_order(params, target, so, topology: str, n: int,
+                            sine_order: int) -> torch.Tensor:
+    """The plain true-f32 evaluation's per-bin terms (float32, as
+    ``synth_fitness.dft_fitness_plain`` computes them) summed in the f32
+    kernel's order instead of ``torch.sum``'s: group g holds the bins with
+    (k / 8) mod 8 = g, each group summed in ascending k from 0, then the
+    eight group sums in group order (``csrc/fused_f32.cu``'s note). Measures
+    what that order of the bin sum costs alone."""
+    from pmfm_tpu_torch.device import exact_f32_matmul
+    from pmfm_tpu_torch.kernels import synth_fitness as sf
+    from pmfm_tpu_torch.ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
+
+    x = sf.synth_f32_plain(params, topology=topology, n=n, sine_order=sine_order,
+                           inv_sr=sf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE,
+                                                     DEFAULT_SAMPLE_RATE))
+    ap, am, edge = sf.fold(x)
+    op = so.dft_packed.to(torch.float32)
+    k = op.shape[0] // 2
+    with exact_f32_matmul():
+        u, v = op[:k] @ ap, op[k:] @ am
+    en = sf.edge_norm(n, False)
+    ec = torch.where(torch.arange(k, device=u.device) % 2 == 0, en, -en).to(torch.float32)
+    u = u + ec[:, None] * edge[None, :]
+    d = torch.sqrt(u * u + v * v) - target.to(torch.float32)[:, None]
+    terms = d * d
+    fit = torch.zeros_like(terms[0])
+    for g in range(8):
+        part = torch.zeros_like(fit)
+        for kk in range(k):
+            if (kk // 8) % 8 == g:
+                part = part + terms[kk]
+        fit = fit + part
+    return fit
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -280,9 +358,10 @@ class Smoke:
 
     def phase(self, name, fn):
         log(f"phase {name}: start")
+        t0 = time.perf_counter()
         try:
             fn()
-            log(f"phase {name}: ok")
+            log(f"phase {name}: ok ({time.perf_counter() - t0:.1f}s)")
         except Exception:
             self.failed.append(name)
             log(f"phase {name}: FAILED")
@@ -697,7 +776,9 @@ class Smoke:
     # -- 7 ------------------------------------------------------------------
     def b3_vs_plain(self):
         """B3 at the settings of each path that runs it: cell (c), and
-        match_audio's int8 engine and refine tail (bf16 mode, sine order 9)."""
+        match_audio's int8 engine and refine tail (bf16 mode, sine order 9),
+        in the layout the wrapper picks and in the other one; then over the
+        grid (``fold_grid``)."""
         from pmfm_tpu_torch.kernels import synth_fold as sfo
 
         c = self.cells["fold"]
@@ -715,20 +796,87 @@ class Smoke:
             k = sfo.fused_synth_fold(params, **kw)
             torch.cuda.synchronize()
             p = sfo.fused_synth_fold_plain(params, pop_block=pop, **kw)
+            auto = sfo.fold_geometry(pop, n, dft_scale > 0, cfg.topology)["time_parallel"]
+            with fold_layout(sfo, not auto):
+                other = sfo.fused_synth_fold(params, **kw)
             diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(k, p)]
-            log(f"B3 vs plain ({mode}: n={n}, P={pop}, sine order {cfg.sine_order}): max abs "
+            diffs_other = [float((a.float() - b.float()).abs().max()) for a, b in zip(other, p)]
+            log(f"B3 vs plain ({mode}: n={n}, P={pop}, sine order {cfg.sine_order}, "
+                f"{'time-parallel' if auto else 'single-pass'} layout): max abs "
                 f"diff a+ {diffs[0]} a- {diffs[1]} edge {diffs[2]} mag_scale {diffs[3]} "
-                f"(must be 0); a+/- {k[0].dtype} {tuple(k[0].shape)}")
+                f"(must be 0); the other layout {max(diffs_other)}; a+/- {k[0].dtype} "
+                f"{tuple(k[0].shape)}")
             require(k[0].dtype == (torch.int8 if dft_scale > 0 else torch.bfloat16), "B3 dtype")
             require(all(torch.isfinite(x.float()).all() for x in k), "B3 output not finite")
-            require(all(d == 0.0 for d in diffs), "B3 is not bit-equal to its plain version")
-            worst = max(worst, *diffs)
+            require(all(d == 0.0 for d in diffs + diffs_other),
+                    "B3 is not bit-equal to its plain version")
+            worst = max(worst, *diffs, *diffs_other)
+            del other
             if cfg is c["cfg"]:
                 fit = self.fold_spectrum("fold", k)
                 log(f"B3 + folded int8 DFT: truth rank {int(torch.argmin(fit))}, truth fitness "
                     f"{float(fit[0]):.6g}")
                 require(int(torch.argmin(fit)) == 0, "the known-params truth does not rank first")
         self.kernels["fused_synth_fold"] = {"max_abs_err": worst}
+        self.fold_grid()
+
+    def fold_grid(self):
+        """B3 bit-equal to its plain version over FOLD_GRID in both modes and
+        both layouts, at each of LARGE_GRID_POPS."""
+        from pmfm_tpu_torch.kernels import synth_fold as sfo
+
+        t0, checked, big = time.perf_counter(), 0, max(LARGE_GRID_POPS)
+        for topology, order, n in FOLD_GRID:
+            t1 = time.perf_counter()
+            params = self.grid_params(topology, big, n + order)
+            for int8 in (True, False):
+                kw = dict(topology=topology, n=n, sine_order=order, dft_scale=1e-5 if int8 else 0.0)
+                want = sfo.fused_synth_fold_plain(params, pop_block=big, **kw)
+                for pop in LARGE_GRID_POPS:
+                    for tp in (True, False):
+                        with fold_layout(sfo, tp):
+                            got = sfo.fused_synth_fold(params[:pop], **kw)
+                        ok = all(torch.equal(a, b[..., :pop] if a.dim() == 2 else b[:pop])
+                                 for a, b in zip(got, want))
+                        require(ok, f"B3 is not bit-equal to its plain version: {topology} n={n} "
+                                    f"sine order {order} P={pop} {'int8' if int8 else 'bf16'} "
+                                    f"time_parallel={tp}")
+                        checked += 1
+            log(f"B3 grid {topology}, sine order {order}, n={n}: int8 and bf16, both layouts, "
+                f"bit-equal at P {LARGE_GRID_POPS} ({time.perf_counter() - t1:.1f}s)")
+        log(f"B3 grid: {checked} settings bit-equal in {time.perf_counter() - t0:.1f}s")
+
+    def fold_layouts(self):
+        """B3's two layouts timed over FOLD_LAYOUT_SHAPES x FOLD_LAYOUT_POPS,
+        each beside the one the wrapper takes."""
+        from pmfm_tpu_torch.kernels import synth_fold as sfo
+
+        big = max(FOLD_LAYOUT_POPS)
+        for topology, order, n, int8 in FOLD_LAYOUT_SHAPES:
+            params = self.grid_params(topology, big, n + order)
+            kw = dict(topology=topology, n=n, sine_order=order, dft_scale=1e-5 if int8 else 0.0)
+            for pop in FOLD_LAYOUT_POPS:
+                p = params[:pop]
+                t = {}
+                for tp in (True, False):
+                    with fold_layout(sfo, tp):
+                        t[tp] = cuda_ms(lambda: sfo.fused_synth_fold(p, **kw), TIMED_LAUNCHES)
+                pick = sfo.fold_geometry(pop, n, int8, topology)["time_parallel"]
+                log(f"B3 layouts ({topology}, sine order {order}, n={n}, "
+                    f"{'int8' if int8 else 'bf16'}, P={pop}): time-parallel {t[True]:.4f} ms, "
+                    f"single pass {t[False]:.4f} ms; the wrapper takes the "
+                    f"{'time-parallel' if pick else 'single-pass'} one, "
+                    f"{100 * (t[pick] / min(t.values()) - 1):.1f}% over the faster {card()}")
+
+    def grid_params(self, topology, pop, seed):
+        """``pop`` candidates of ``topology`` uniform in (0, 3520 Hz) x (0, 8)
+        pairs, from ``seed``, on the card."""
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        d = topology_dims(topology)
+        maxs = np.asarray((3520.0, 8.0) * (d // 2), np.float32)
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy((rng.random((pop, d)) * maxs).astype(np.float32)).to(self.dev)
 
     # -- 8 ------------------------------------------------------------------
     def b4_vs_plain(self):
@@ -758,6 +906,36 @@ class Smoke:
                 require(int(torch.argmin(fit)) == 0, "the known-params truth does not rank first")
             del k, p
         self.kernels["fused_synth_stream"] = {"max_abs_err": worst}
+        self.stream_grid()
+
+    def stream_grid(self):
+        """B4 bit-equal to its plain version over STREAM_GRID in both modes,
+        at each of LARGE_GRID_POPS. The plain version runs once a setting in
+        f32: its bf16 output is the same f32 audio rounded by ``.to`` (it
+        writes ``audio.to(out.dtype)``), so the kernel's bf16 audio is held
+        against that rounding."""
+        from pmfm_tpu_torch.kernels import synth_stream as sst
+        from pmfm_tpu_torch.ops import hann_window
+
+        t0, checked, big = time.perf_counter(), 0, max(LARGE_GRID_POPS)
+        for topology, order, n in STREAM_GRID:
+            t1 = time.perf_counter()
+            params = self.grid_params(topology, big, n + order)
+            win = torch.from_numpy(hann_window(n).astype(np.float32)).to(self.dev)
+            kw = dict(topology=topology, n=n, sine_order=order)
+            want = sst.fused_synth_stream_plain(params, win, audio_f32=True, pop_block=big, **kw)
+            for audio_f32 in (False, True):
+                ref = want if audio_f32 else want.to(torch.bfloat16)
+                for pop in LARGE_GRID_POPS:
+                    got = sst.fused_synth_stream(params[:pop], win, audio_f32=audio_f32, **kw)
+                    require(torch.equal(got, ref[:, :pop]),
+                            f"B4 is not bit-equal to its plain version: {topology} n={n} sine "
+                            f"order {order} P={pop} {'f32' if audio_f32 else 'bf16'}")
+                    checked += 1
+            log(f"B4 grid {topology}, sine order {order}, n={n}: bf16 and f32 bit-equal at P "
+                f"{LARGE_GRID_POPS} ({time.perf_counter() - t1:.1f}s)")
+            del want
+        log(f"B4 grid: {checked} settings bit-equal in {time.perf_counter() - t0:.1f}s")
 
     # -- 9 ------------------------------------------------------------------
     def evolve_large(self):
@@ -897,6 +1075,18 @@ class Smoke:
                 route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
             )
+        self.fold_layouts()
+        # B3 at cell (e)'s shape (match_audio: pop 4096, its int8 engine and
+        # bf16 refine tail)
+        mcfg = match_config()[1]
+        for label, cfg, scale in (("int8 engine", mcfg, cf["so"].dft_packed_scale),
+                                  ("bf16 refine tail", mcfg.refine_config(), 0.0)):
+            p = cf["params"][: cfg.population_size]
+            ms = cuda_ms(lambda: sfo.fused_synth_fold(p, topology=cfg.topology, n=nf,
+                                                      sine_order=cfg.sine_order, dft_scale=scale),
+                         TIMED_LAUNCHES)
+            log(f"B3 at cell (e)'s shape (match_audio {label}: n={nf}, P={cfg.population_size}, "
+                f"sine order {cfg.sine_order}): {ms:.4f} ms {card()}")
         # the spectra outside the kernels, at the same shapes
         so_f, so_s = cf["so"], cs["so"]
         outs = b3()
@@ -1077,12 +1267,15 @@ class Smoke:
                 fk = sf.fused_synth_fitness(p, tgt, **kw).double()
                 fp = sf.fused_synth_fitness_plain(p, tgt, **kw).double()
                 f64 = fitness_f64(p, tgt, so, topology, n, order)
+                fo = fitness_in_kernel_order(p, tgt, so, topology, n, order).double()
                 ek, ep, kp = rel_err(fk, f64), rel_err(fp, f64), rel_err(fk, fp)
+                eo = rel_err(fo, f64)
                 log(f"B1 f32 against float64 (n={n}, K={so.num_bins}, {topology}, sine order "
                     f"{order}, P={pop}): kernel max rel {float(ek.max()):.4e} median "
                     f"{float(ek.median()):.4e}; plain max rel {float(ep.max()):.4e} median "
                     f"{float(ep.median()):.4e}; kernel vs plain max rel {float(kp.max()):.4e} "
-                    f"median {float(kp.median()):.4e}")
+                    f"median {float(kp.median()):.4e}; plain terms in the kernel's bin order "
+                    f"max rel {float(eo.max()):.4e} median {float(eo.median()):.4e}")
 
     # -- 13 -----------------------------------------------------------------
     def b5_vs_b2(self):

@@ -69,21 +69,6 @@
 // 2 rows that a phase of the fragment loads reads hit disjoint halves.
 __device__ __forceinline__ int tc_swizzle(int r) { return ((r & 1) << 2) | ((r >> 1) & 3); }
 
-// Integer-valued floats v with |v| <= 128 <-> int8 bytes, on the full-rate
-// pipes: the low byte of the bits of v + INT_MAGIC is v's two's complement,
-// and a sign-extended byte added to the bits of INT_MAGIC gives INT_MAGIC + v.
-__device__ __forceinline__ uint32_t pack_s8x4(const float* v) {
-  uint32_t b[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) b[j] = __float_as_uint(fadd(v[j], INT_MAGIC));
-  return __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410);
-}
-__device__ __forceinline__ void unpack_s8x4(uint32_t w, float* v) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    v[j] = fsub(__int_as_float(0x4B400000 + ((int)(w << (24 - 8 * j)) >> 24)), INT_MAGIC);
-}
-
 // One candidate's row of int8 a+ or a- in shared memory, for FoldEmit: a
 // group of 16 samples is one 16-byte unit.
 struct SwizzledRow {

@@ -44,9 +44,23 @@
 // samples and operations, each sample fmul(y, amp) unrounded; a+ = old + x,
 // a- = old - x (synth_common.cuh's FoldEmit). Only the order of the sums
 // differs from the plain version's float32 products:
-// * U[c][k] and V[c][k] are one accumulator each, from 0, over the samples in
-//   ascending order, one exact-product __fmaf_rn each: no split over samples,
-//   no tensor cores.
+// * U[c][k] and V[c][k] are sums of exact-product __fmaf_rn steps over the
+//   samples in ascending order, with no tensor cores, in segments. Where
+//   N/2 <= DF_SPLIT_ABOVE (512: the shipped tail's n 1024 and below) one
+//   accumulator a bin runs from 0 over all N/2 samples. Above it the samples
+//   split into segments of DF_SEG = 256: each segment's chain starts from 0,
+//   and at its end the thread adds it to its running tile (device scratch,
+//   the thread's own 128 floats, so no other thread touches them) in
+//   segment order, ((s0 + s1) + s2) + ..., the last segment in registers.
+//   One ascending chain over all 1792 samples of n 3584 had put the
+//   kernel 16x further from a float64 evaluation than cuBLAS's blocked sums
+//   (1.6e-6 against 9.9e-8 relative, one candidate); a chain's rounding
+//   grows with the size of its partial sums, so short chains whose sums are
+//   added once each keep it near the plain version's (chip_smoke.py phase
+//   12 prints both against float64). The running tile lives in scratch
+//   because the 16 x 8 tile of a thread already takes 254 registers and the
+//   stages fill shared memory; its traffic is 64 KB a block at each segment
+//   end, against 2 x 16 x 128 x 64 FMAs a stage.
 // * Each bin's term (the edge term edge_norm (-1)^k x[N/2], the magnitude,
 //   the squared difference) is summed by bin group: group g holds the bins
 //   with (k / 8) mod 8 = g, summed in ascending k from 0; then the eight group
@@ -77,6 +91,9 @@
 #define DF_TM 16          // DFT: candidates of a thread's register tile (and 8 bins)
 #define DF_THREADS 128    // DFT: 64 threads for U, 64 for V
 #define DF_GROUPS 8       // DFT: bin groups, one a block (the fitness sums them in group order)
+#define DF_SEG 256        // DFT: samples a segment where the sample split applies
+#define DF_SPLIT_ABOVE 512  // DFT: the split applies where N/2 is above this
+#define DF_RUN (DF_TM * 8)  // DFT: floats of a thread's running tile
 #define DF_ELD (DF_BN + 1)  // DFT epilogue: a row of U or V terms
 #define SUM_TPB 256
 
@@ -85,6 +102,7 @@ static_assert(DF_BM % SY_TPB == 0 && SY_TPB % 32 == 0,
 static_assert(DF_THREADS / 2 == (DF_BM / DF_TM) * DF_TILES,
               "one DF_TM x 8 tile of U or V a thread");
 static_assert(DF_THREADS == DF_BM, "a thread a candidate in the epilogue");
+static_assert(DF_SEG % DF_BK == 0 && DF_RUN % 4 == 0, "whole stages a segment, float4 slots");
 
 // One candidate's row of f32 a+ or a- in device memory, for FoldEmit: a group
 // of 16 samples is 64 bytes. The 32 threads of a warp hold 32 consecutive
@@ -196,6 +214,20 @@ constexpr size_t DF_SMEM = DF_STAGES * sizeof(DftStage) > 2 * DF_BM * DF_ELD * s
                                ? DF_STAGES * sizeof(DftStage)
                                : 2 * DF_BM * DF_ELD * sizeof(float);
 
+// acc = the running tile + acc, element by element: the segments so far,
+// then this one.
+__device__ __forceinline__ void add_running(float (&acc)[DF_TM][8], const float4* run) {
+#pragma unroll
+  for (int i = 0; i < DF_RUN / 4; ++i) {
+    const float4 t = run[i * DF_THREADS];
+    const int r = i >> 1, c = (i & 1) * 4;
+    acc[r][c] = fadd(t.x, acc[r][c]);
+    acc[r][c + 1] = fadd(t.y, acc[r][c + 1]);
+    acc[r][c + 2] = fadd(t.z, acc[r][c + 2]);
+    acc[r][c + 3] = fadd(t.w, acc[r][c + 3]);
+  }
+}
+
 // Block b: candidates c0 = DF_BM (b / DF_GROUPS) .. + DF_BM, bin group
 // g = b % DF_GROUPS; writes group g's sum of each candidate's terms to
 // partial[g * pop_pad + c]. Stage row p of a pass holds bin 8 (g + 8 jt) + p % 8
@@ -211,7 +243,7 @@ __global__ void __launch_bounds__(DF_THREADS, 2)
 f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
                const float* __restrict__ edge, const float* __restrict__ dft,
                const float* __restrict__ target, SynthParams sp, int pop_pad,
-               float* __restrict__ partial) {
+               float* __restrict__ partial, float4* __restrict__ run_tiles) {
   constexpr int CH = DF_BK / 4;  // 16-byte copies a staged row
   constexpr int A_PER = DF_BM * CH / DF_THREADS, B_PER = DF_BN * CH / DF_THREADS;
   static_assert(DF_BM * CH % DF_THREADS == 0 && DF_BN * CH % DF_THREADS == 0, "copy split");
@@ -224,6 +256,11 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
   const bool is_v = tid >= DF_THREADS / 2;  // warp-uniform
   const int t2 = tid & (DF_THREADS / 2 - 1), tr = t2 >> 3, tc = t2 & 7;
   const int ksteps = half / DF_BK;
+  // stages a segment: all of them unless the sample split applies
+  const int seg_steps = half > DF_SPLIT_ABOVE ? DF_SEG / DF_BK : ksteps;
+  // the thread's running tile: float4 slot i (elements 4i .. 4i+3 of acc)
+  // at run[i * DF_THREADS], so a warp's slot accesses are 512 contiguous bytes
+  float4* run = run_tiles + (size_t)blockIdx.x * (DF_RUN / 4) * DF_THREADS + tid;
   const int q = tid % CH;  // this thread's 16-byte part of each row it copies
   const float my_edge = edge[c0 + tid];
   float fit = 0.f;  // group g's sum of candidate c0 + tid
@@ -263,6 +300,7 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
       if (s < ksteps) load_stage(s);
       cp_async_commit();
     }
+    int next_fold = seg_steps;
     for (int ks = 0; ks < ksteps; ++ks) {
       cp_async_wait<DF_STAGES - 2>();
       __syncthreads();  // stage ks has landed; every thread is done with stage ks - 1
@@ -288,7 +326,21 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(b[j].y, a[i].y, acc[i][j]);
       }
+      if (ks + 1 == next_fold && ks + 1 < ksteps) {  // a segment ends, not the last
+        if (next_fold > seg_steps) add_running(acc, run);
+#pragma unroll
+        for (int i = 0; i < DF_RUN / 4; ++i)
+          run[i * DF_THREADS] = make_float4(acc[i >> 1][(i & 1) * 4], acc[i >> 1][(i & 1) * 4 + 1],
+                                            acc[i >> 1][(i & 1) * 4 + 2],
+                                            acc[i >> 1][(i & 1) * 4 + 3]);
+#pragma unroll
+        for (int i = 0; i < DF_TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+        next_fold += seg_steps;
+      }
     }
+    if (ksteps > seg_steps) add_running(acc, run);  // the last segment
     cp_async_wait<0>();
     __syncthreads();  // the stages are free: U and V go to shared memory
     float(*E)[DF_ELD] = reinterpret_cast<float(*)[DF_ELD]>(smem_f) + (is_v ? DF_BM : 0);
@@ -332,12 +384,15 @@ f32_sum_kernel(const float* __restrict__ partial, int pop_pad, int pop,
 // ---- launcher -----------------------------------------------------------------
 
 // Floats of scratch for pop candidates at frames of n samples: a+ and a-
-// (pop_pad x N/2 each), the edge samples (pop_pad) and the group sums
-// (DF_GROUPS x pop_pad). kernels/synth_fitness.py::f32_scratch_floats is the
-// same formula.
+// (pop_pad x N/2 each), the edge samples (pop_pad), the group sums
+// (DF_GROUPS x pop_pad) and, where the DFT splits the samples (N/2 above
+// DF_SPLIT_ABOVE), a running tile of DF_RUN floats for each thread of each
+// DFT block (DF_GROUPS x DF_RUN x pop_pad).
+// kernels/synth_fitness.py::f32_scratch_floats is the same formula.
 static long long f32_scratch_floats(int pop, int n) {
   const long long pop_pad = (long long)(pop + DF_BM - 1) / DF_BM * DF_BM;
-  return pop_pad * (n + 1 + DF_GROUPS);
+  const long long run = n / 2 > DF_SPLIT_ABOVE ? (long long)DF_GROUPS * DF_RUN : 0;
+  return pop_pad * (n + 1 + DF_GROUPS + run);
 }
 
 // The plan of the three kernels for pop candidates (generation.cuh): the
@@ -358,6 +413,7 @@ static int prepare_f32(const SynthParams& sp, int pop, float* scratch, long long
   plan->am = plan->ap + (size_t)pop_pad * half;
   plan->edge = plan->am + (size_t)pop_pad * half;
   plan->partial = plan->edge + pop_pad;
+  plan->run = sp.n / 2 > DF_SPLIT_ABOVE ? plan->partial + (size_t)DF_GROUPS * pop_pad : nullptr;
   const int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
     return dispatch_chain(sp.kn, [&](auto kc) {
       plan->synth = f32_synth_kernel<decltype(nc)::value, decltype(kc)::value, GEN>;
@@ -384,7 +440,8 @@ int launch_f32(const F32Plan& plan, const float* params, uint32_t seed, const fl
   int e = (int)cudaGetLastError();
   if (e) return e;
   f32_dft_kernel<<<plan.pop_pad / DF_BM * DF_GROUPS, DF_THREADS, DF_SMEM, stream>>>(
-      plan.ap, plan.am, plan.edge, dft, target, sp, plan.pop_pad, plan.partial);
+      plan.ap, plan.am, plan.edge, dft, target, sp, plan.pop_pad, plan.partial,
+      reinterpret_cast<float4*>(plan.run));
   e = (int)cudaGetLastError();
   if (e) return e;
   f32_sum_kernel<<<(plan.pop + SUM_TPB - 1) / SUM_TPB, SUM_TPB, 0, stream>>>(

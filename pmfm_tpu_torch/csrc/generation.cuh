@@ -36,6 +36,7 @@ struct F32Plan {
   F32SynthKernel synth;
   int pop, pop_pad;
   float *ap, *am, *edge, *partial;
+  float* run;  // the DFT's running U/V tiles where the sample split applies, else null
 };
 
 int prepare_generation_f32(const SynthParams& sp, int pop, float* scratch,

@@ -1,7 +1,10 @@
 // The FM synthesis recurrence shared by every kernel of the port (B1, B2,
-// B3, B4): one definition of the per-sample phase chain, as the TPU kernels
-// share pmfm_tpu/kernels/synth_fitness.py::_make_block_synth; and the
-// grouped fold emitter FoldEmit that B3 and the int8 B1/B2 run on it.
+// B3, B4): one definition of the per-sample phase chain (synth_span, over
+// any run of time blocks from given offsets, whole or one level of the
+// time-parallel synthesis of large_frame.cu; synth_run, the whole frame
+// from zero offsets), as the TPU kernels share
+// pmfm_tpu/kernels/synth_fitness.py::_make_block_synth; and the grouped
+// fold emitter FoldEmit that B3 and B1/B2 run on it.
 //
 // Numerics (the TPU kernel's, in sample order). Phases are kept in turns
 // (phase / wavetable size), so the wrap is frac(x) = x - floor(x). Samples
@@ -95,25 +98,33 @@ __device__ __forceinline__ Chain make_chain(const float* p, const SynthParams& s
   return ch;
 }
 
-// Runs the chain over samples 0 .. n-1 (n a multiple of TIME_BLOCK) and calls
-// emit(m, u, y) for each sample m in order, with y = sum_j out_c[j] w^(2j+1)
-// of the output oscillator's phase: sin_c63 gives the int8 engine's 63 * sin,
-// sin_c the unit sine that the float engines multiply by the amplitude.
-// Samples come in groups of G (G divides TIME_BLOCK) whose loop is unrolled,
-// so u = m % G is a compile-time constant in each copy of emit: an emitter
-// can gather a group in registers and store it as one vector. KN > 0 fixes
-// the chain's length at compile time (it must equal ch.kn): the per-sample
-// loop over oscillators then has no branch, and the unrolled samples of a
-// group can be interleaved; KN = 0 reads it from ch.kn.
-template <int NC, int G = 1, int KN = 0, typename Emit>
-__device__ __forceinline__ void synth_run(const Chain& ch, const SynthParams& sp,
-                                          const float* out_c, int n, Emit& emit) {
+// The recurrence over time blocks [b0, b1) from the offsets off[] at block
+// b0, which advance in place to block b1: the one definition of the chain
+// that every kernel runs. Samples come in groups of G (G divides
+// TIME_BLOCK) whose loop is unrolled, so u = m % G is a compile-time
+// constant in each copy of emit: an emitter can gather a group in registers
+// and store it as one vector. KN, the chain's length (it must equal ch.kn),
+// is fixed at compile time, so the per-sample loop over oscillators has no
+// branch and the unrolled samples of a group can be interleaved (a runtime
+// loop bound there cost the synthesis 4x).
+//
+// EMIT: the whole chain (NJ = KN - 1 modulating oscillators); emit(m, u, y)
+// gets each sample m in order with y = sum_j out_c[j] w^(2j+1) of the output
+// oscillator's phase (sin_c63 gives the int8 engine's 63 * sin, sin_c the
+// unit sine that the float engines multiply by the amplitude).
+// !EMIT: one level of the time-parallel synthesis (large_frame.cu): only
+// oscillators 0 .. NJ-1 run and nothing is emitted; total(b, t) gets block
+// b's total t of oscillator NJ-1's increments, the amount by which block b
+// advances off[NJ] (frac(off[NJ] + t)). off[NJ] and later are neither read
+// nor written: they are what the level's scan over the blocks makes.
+template <int NC, int G, int KN, int NJ, bool EMIT, typename Emit, typename Total>
+__device__ __forceinline__ void synth_span(const Chain& ch, const SynthParams& sp,
+                                           const float* out_c, int b0, int b1,
+                                           float (&off)[MAX_KN], Emit& emit, Total& total) {
   static_assert(TIME_BLOCK % G == 0, "G must divide TIME_BLOCK");
-  const int kn = KN ? KN : ch.kn;
-  float off[MAX_KN];
-#pragma unroll
-  for (int j = 0; j < MAX_KN; ++j) off[j] = 0.f;
-  for (int b = 0; b < n / TIME_BLOCK; ++b) {
+  static_assert(KN >= 2 && KN <= MAX_KN && NJ >= 1 && NJ <= KN - 1, "chain length");
+  static_assert(!EMIT || NJ == KN - 1, "emitting runs the whole chain");
+  for (int b = b0; b < b1; ++b) {
     float s[MAX_KN - 1];
 #pragma unroll
     for (int j = 0; j < MAX_KN - 1; ++j) s[j] = 0.f;
@@ -121,24 +132,41 @@ __device__ __forceinline__ void synth_run(const Chain& ch, const SynthParams& sp
       const float tf0 = (float)t0;  // (float)t as tf0 + u, exact: one conversion a group
 #pragma unroll
       for (int u = 0; u < G; ++u) {
-        const int t = t0 + u;
         float pos = fadd(fmul(fadd(tf0, (float)u), ch.inc1), off[0]);
 #pragma unroll
-        for (int j = 0; j < MAX_KN - 1; ++j) {
-          if (j < kn - 1) {
-            const float x = fadd(fmul(sin_turns<NC>(pos, sp.sin_c), ch.ims[j]), ch.ics[j]);
-            pos = fadd(s[j], off[j + 1]);  // exclusive prefix + carried offset
-            s[j] = fadd(s[j], x);
-          }
+        for (int j = 0; j < NJ; ++j) {
+          const float x = fadd(fmul(sin_turns<NC>(pos, sp.sin_c), ch.ims[j]), ch.ics[j]);
+          if (EMIT || j < NJ - 1) pos = fadd(s[j], off[j + 1]);  // exclusive prefix + carried offset
+          s[j] = fadd(s[j], x);
         }
-        emit(b * TIME_BLOCK + t, u, sin_turns<NC>(pos, out_c));
+        if constexpr (EMIT) emit(b * TIME_BLOCK + t0 + u, u, sin_turns<NC>(pos, out_c));
       }
     }
 #pragma unroll
-    for (int j = 0; j < MAX_KN - 1; ++j)
-      if (j < kn - 1) off[j + 1] = frac(fadd(off[j + 1], s[j]));
+    for (int j = 0; j < NJ; ++j)
+      if (EMIT || j < NJ - 1) off[j + 1] = frac(fadd(off[j + 1], s[j]));
+    if constexpr (!EMIT) total(b, s[NJ - 1]);
     off[0] = frac(fadd(off[0], ch.inc_blk));
   }
+}
+
+struct NoTotal {
+  __device__ __forceinline__ void operator()(int, float) const {}
+};
+struct NoEmit {
+  __device__ __forceinline__ void operator()(int, int, float) const {}
+};
+
+// The whole chain over samples 0 .. n-1 (n a multiple of TIME_BLOCK) from
+// zero offsets, emitting every sample (synth_span's EMIT mode).
+template <int NC, int G, int KN, typename Emit>
+__device__ __forceinline__ void synth_run(const Chain& ch, const SynthParams& sp,
+                                          const float* out_c, int n, Emit& emit) {
+  float off[MAX_KN];
+#pragma unroll
+  for (int j = 0; j < MAX_KN; ++j) off[j] = 0.f;
+  NoTotal none;
+  synth_span<NC, G, KN, KN - 1, true>(ch, sp, out_c, 0, n / TIME_BLOCK, off, emit, none);
 }
 
 // The scaled parameters of candidate `cand` of a (pop, d) row-major array.
@@ -161,54 +189,55 @@ using fold_t = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
 
 __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) { return __float2bfloat16_rn(v); }
 
-template <bool INT8>
-__device__ __forceinline__ fold_t<INT8> from_f32(float v);
-template <>
-__device__ __forceinline__ int8_t from_f32<true>(float v) { return (int8_t)(int)v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<false>(float v) { return __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ uint32_t lane_bits(int8_t v) { return (uint32_t)(uint8_t)v; }
-__device__ __forceinline__ uint32_t lane_bits(__nv_bfloat16 v) {
-  return (uint32_t)__bfloat16_as_ushort(v);
+// Four integer-valued floats (|v| < 2^22) <-> four int8 lanes of a word:
+// v + INT_MAGIC holds v's two's complement in its low mantissa bits, so
+// full-rate adds and byte permutes do the work of quarter-rate conversions.
+__device__ __forceinline__ uint32_t pack_s8x4(const float* v) {
+  uint32_t b[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b[j] = __float_as_uint(fadd(v[j], INT_MAGIC));
+  return __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410);
+}
+__device__ __forceinline__ void unpack_s8x4(uint32_t w, float* v) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = fsub(__int_as_float(0x4B400000 + ((int)(w << (24 - 8 * j)) >> 24)), INT_MAGIC);
 }
 
 // 16 consecutive elements of T as exact f32 values <-> one (int8) or two
-// (bf16) 16-byte vectors; the stores round each value with from_f32.
+// (bf16) 16-byte vectors; the bf16 stores round each value to nearest even.
 template <bool INT8>
 __device__ __forceinline__ void store_group(fold_t<INT8>* dst, const float* v) {
-  constexpr int PER_WORD = INT8 ? 4 : 2, BITS = 32 / PER_WORD;
-  uint32_t w[FOLD_G / PER_WORD];
-#pragma unroll
-  for (int i = 0; i < FOLD_G / PER_WORD; ++i) {
-    w[i] = 0u;
-#pragma unroll
-    for (int j = 0; j < PER_WORD; ++j)
-      w[i] |= lane_bits(from_f32<INT8>(v[i * PER_WORD + j])) << (BITS * j);
-  }
   uint4* out = reinterpret_cast<uint4*>(dst);
+  if constexpr (INT8) {
+    out[0] = make_uint4(pack_s8x4(v), pack_s8x4(v + 4), pack_s8x4(v + 8), pack_s8x4(v + 12));
+  } else {
+    uint32_t w[FOLD_G / 2];
 #pragma unroll
-  for (int i = 0; i < FOLD_G / PER_WORD / 4; ++i)
-    out[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+    for (int i = 0; i < FOLD_G / 2; ++i)
+      w[i] = (uint32_t)__bfloat16_as_ushort(to_bf16(v[2 * i])) |
+             ((uint32_t)__bfloat16_as_ushort(to_bf16(v[2 * i + 1])) << 16);
+    out[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    out[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
 }
 
 template <bool INT8>
 __device__ __forceinline__ void load_group(const fold_t<INT8>* src, float* v) {
-  constexpr int PER_WORD = INT8 ? 4 : 2, BITS = 32 / PER_WORD;
   const uint4* in = reinterpret_cast<const uint4*>(src);
 #pragma unroll
-  for (int i = 0; i < FOLD_G / PER_WORD / 4; ++i) {
+  for (int i = 0; i < (INT8 ? 1 : 2); ++i) {
     const uint4 q = in[i];
     const uint32_t w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int j = 0; j < PER_WORD; ++j) {
-        const uint32_t b = (w[k] >> (BITS * j)) & ((1u << BITS) - 1u);
-        v[(4 * i + k) * PER_WORD + j] =
-            INT8 ? (float)(int8_t)(uint8_t)b
-                 : __bfloat162float(__ushort_as_bfloat16((unsigned short)b));
+      if constexpr (INT8) {
+        unpack_s8x4(w[k], v + 4 * k);
+      } else {
+        v[8 * i + 2 * k] = __bfloat162float(__ushort_as_bfloat16((unsigned short)(w[k] & 0xFFFFu)));
+        v[8 * i + 2 * k + 1] = __bfloat162float(__ushort_as_bfloat16((unsigned short)(w[k] >> 16)));
       }
     }
   }
@@ -226,7 +255,7 @@ struct LinearRow {
 // stores the first half, folds the second; one candidate's row of a+ and
 // a-, written and read FOLD_G samples at a time through `Row` (s, the first
 // sample of a group, is a multiple of FOLD_G). Run it as
-// synth_run<NC, FOLD_G>(..., emit), then emit.fold_rows(0, false, 0.f).
+// synth_run<NC, FOLD_G, KN>(..., emit), then emit.fold_rows(0, false, 0.f).
 //
 // Samples come in groups of FOLD_G. The first half of the frame goes
 // straight to a+. Each group of FOLD_G second-half samples completes FOLD_G
@@ -271,7 +300,7 @@ struct FoldEmit {
     // bf16: the audio rounded to bf16; an exact f32 row: the audio as it is
     cur[u] = INT8                        ? fsub(fadd(y, INT_MAGIC), INT_MAGIC)
              : exact_f32_row<Row>::value ? fmul(y, amp)
-                                         : to_f32(from_f32<false>(fmul(y, amp)));
+                                         : to_f32(to_bf16(fmul(y, amp)));
     const int m0 = m - u;
     if (m0 < half) {
       if (u == FOLD_G - 1) ap.store(m0, cur);

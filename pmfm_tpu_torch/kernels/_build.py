@@ -168,9 +168,9 @@ def library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, vp, cll, ci, vp,
     ]
     lib.pmfm_fused_evolve.restype = ci
-    lib.pmfm_synth_fold.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp, ci, vp]
+    lib.pmfm_synth_fold.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp, ci, ci, vp]
     lib.pmfm_synth_fold.restype = ci
-    lib.pmfm_synth_stream.argtypes = [vp, ci, SynthParams, vp, vp, ci, vp]
+    lib.pmfm_synth_stream.argtypes = [vp, ci, SynthParams, vp, vp, ci, vp, cll, vp]
     lib.pmfm_synth_stream.restype = ci
     lib.pmfm_error_string.argtypes = [ci]
     lib.pmfm_error_string.restype = ctypes.c_char_p

@@ -69,6 +69,9 @@ F32_DFT_THREADS = 128  # csrc DF_THREADS
 F32_DFT_PASS_TILES = 8  # csrc DF_TILES: bin tiles of 8 per pass of a DFT block
 F32_SUM_THREADS = 256  # csrc SUM_TPB
 F32_DFT_SHARED_BYTES = 92160  # csrc DF_SMEM: the f32 DFT block's stages, whatever the frame
+F32_DFT_SPLIT_ABOVE = 512  # csrc DF_SPLIT_ABOVE: the f32 DFT splits the samples where N/2 is above
+F32_DFT_SEG = 256  # csrc DF_SEG: samples a segment of the split
+F32_DFT_RUN = 128  # csrc DF_RUN: floats of a DFT thread's running tile (its 16 x 8 U or V)
 MAX_SHARED_BYTES = 232448  # shared memory one block of an H100 can use
 # the fused kernels' frame limit: the reference routes larger frames to B3
 # (synth_fold, n 4096-16384) and B4, and so does the port
@@ -187,9 +190,10 @@ def synth_blocks_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float,
     engine's q before rounding), else the unit sine that the float engines
     multiply by the amplitude (``chain_amp``).
 
-    This is the plain version of ``csrc/synth_common.cuh::synth_run``, the
-    recurrence every kernel of the port runs; its phase carries are the
-    offsets of ``_chain_rows``'s chain, one per oscillator."""
+    This is the plain version of ``csrc/synth_common.cuh::synth_run`` (its
+    ``synth_span`` over the whole frame), the recurrence every kernel of the
+    port runs; its phase carries are the offsets of ``_chain_rows``'s chain,
+    one per oscillator."""
     rows = p.T.to(torch.float32)
     inc1, ims, ics, _ = _chain_rows(rows, topology, inv_sr)
     cs = sin_coeffs(sine_order)
@@ -306,6 +310,11 @@ def _evaluate_plain(params_scaled, dft_packed, target, *, topology, n, inv_sr, d
     return out
 
 
+def chain_length(topology: str) -> int:
+    """Oscillators in a ported chain: 2 for fm2, k for fm{k}_series."""
+    return 2 if topology == "fm2" else series_ops(topology)
+
+
 def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
     """The kernels' ``SynthParams`` argument."""
     from ._build import SynthParams
@@ -316,7 +325,7 @@ def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
     sp.sin_c63[: len(cs63)] = cs63
     sp.ncoef = len(cs)
     sp.n, sp.k, sp.d = n, k, d
-    sp.kn = 2 if topology == "fm2" else series_ops(topology)
+    sp.kn = chain_length(topology)
     sp.fm2 = int(topology == "fm2")
     sp.inv_sr = inv_sr
     sp.dft_scale = dft_scale
@@ -329,11 +338,23 @@ def f32_pop_pad(pop: int) -> int:
     return -(-pop // F32_DFT_BM) * F32_DFT_BM
 
 
+def f32_dft_segments(n: int) -> int:
+    """Segments the f32 DFT sums each bin's U and V in (csrc
+    ``f32_dft_kernel``): 1 where N/2 <= ``F32_DFT_SPLIT_ABOVE``, else
+    ``F32_DFT_SEG``-sample segments (the last may be shorter), each a chain
+    from 0, added to a running tile in scratch in segment order."""
+    half = n // 2
+    return 1 if half <= F32_DFT_SPLIT_ABOVE else -(-half // F32_DFT_SEG)
+
+
 def f32_scratch_floats(pop: int, n: int) -> int:
     """Floats of scratch the true-f32 B1/B2 take (csrc ``f32_scratch_floats``):
-    a+ and a- (padded pop x N/2 each), the edge samples and the
-    ``F32_GROUPS`` group sums of each padded candidate."""
-    return f32_pop_pad(pop) * (n + 1 + F32_GROUPS)
+    a+ and a- (padded pop x N/2 each), the edge samples, the ``F32_GROUPS``
+    group sums of each padded candidate and, where the DFT splits the
+    samples, a running tile of ``F32_DFT_RUN`` floats for each thread of
+    each DFT block (``F32_GROUPS`` x ``F32_DFT_RUN`` a padded candidate)."""
+    run = F32_GROUPS * F32_DFT_RUN if f32_dft_segments(n) > 1 else 0
+    return f32_pop_pad(pop) * (n + 1 + F32_GROUPS + run)
 
 
 def f32_geometry(pop: int, n: int, k: int) -> dict:
@@ -341,8 +362,9 @@ def f32_geometry(pop: int, n: int, k: int) -> dict:
     ``k`` bins (csrc ``launch_f32``): blocks and threads of the synthesis,
     the DFT (a block per ``F32_DFT_BM`` candidates and bin group) and the
     group sum; ``passes`` is the most passes of ``F32_DFT_PASS_TILES`` tiles a
-    DFT block makes (group 0 has the most tiles) and ``scratch_bytes`` the
-    scratch allocated."""
+    DFT block makes (group 0 has the most tiles), ``segments`` the sample
+    segments of each bin's sums (``f32_dft_segments``) and ``scratch_bytes``
+    the scratch allocated."""
     pad = f32_pop_pad(pop)
     tiles0 = -(-(k // 8) // F32_GROUPS)
     return dict(
@@ -351,6 +373,7 @@ def f32_geometry(pop: int, n: int, k: int) -> dict:
         dft=(pad // F32_DFT_BM * F32_GROUPS, F32_DFT_THREADS),
         sum=(-(-pop // F32_SUM_THREADS), F32_SUM_THREADS),
         passes=-(-tiles0 // F32_DFT_PASS_TILES),
+        segments=f32_dft_segments(n),
         scratch_bytes=4 * f32_scratch_floats(pop, n),
     )
 

@@ -3,10 +3,14 @@
 
 Replaces ``pmfm_tpu/kernels/synth_fold.py::fused_synth_fold`` (the Pallas
 kernel ``_fold_kernel`` over ``synth_fitness._evaluate_block`` in emit-only
-mode and ``_synth_emit_looped``). The CUDA kernel is ``synth_fold_kernel`` in
-``csrc/large_frame.cu``; its note gives its bound on an H100 and its design.
-``fused_synth_fold_plain`` here is its plain PyTorch version, which the
-wrapper runs for CPU tensors.
+mode and ``_synth_emit_looped``). The CUDA kernels are in
+``csrc/large_frame.cu``, whose note gives their bound on an H100 and their
+design: below ``FOLD_TP_BELOW_POP`` candidates (by chain length and mode)
+``synth_fold_tp_kernel``, a warp a candidate with time split across its
+lanes (phase offsets found exactly level by level) and the frame folded
+from shared memory; from there up ``synth_fold_kernel``, a thread a
+candidate (``fold_geometry`` mirrors the choice). ``fused_synth_fold_plain`` here is their plain PyTorch version,
+which the wrapper runs for CPU tensors.
 
 Outputs, as the reference's: ``a_plus``, ``a_minus`` (N/2, P) with
 ``a+/-[r] = q[r] +- q[N-r]`` and ``a+/-[0] = q[0]``; ``edge`` (P,) f32, the
@@ -34,14 +38,48 @@ from ..ops.synthesis import topology_dims
 from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
+    MAX_SHARED_BYTES,
     TIME_BLOCK,
     chain_amp,
+    chain_length,
     check_supported_topology,
     inv_sample_rate,
     resolve_pop_block,
     synth_blocks_plain,
     synth_params_struct,
 )
+
+
+# (chain length, int8) -> the population from which the single pass is taken
+# instead of the time-parallel layout. The chain length is 2 for fm2, k for
+# fm{k}_series. Each is the smallest population of chip_smoke.py's
+# FOLD_LAYOUT_POPS (2048 .. 2^16) at which the single pass was the faster at
+# n 8192 on an H100 (its phase 11); fm2's time-parallel layout was the faster
+# at all of them. The frame did not move it (fm3_series at n 4096 and 16384).
+# The time-parallel layout computes kn(kn+1)/2 sines a sample where the
+# single pass computes kn, so longer chains cross lower, though not in
+# order: the single pass's own time does not grow in order with the chain.
+FOLD_TP_BELOW_POP = {
+    (2, True): 1 << 17, (3, True): 1 << 14, (4, True): 1 << 14, (5, True): 1 << 14,
+    (6, True): 1 << 14, (7, True): 1 << 12, (8, True): 1 << 13,
+    (2, False): 1 << 17, (3, False): 1 << 15, (4, False): 1 << 15, (5, False): 1 << 14,
+    (6, False): 1 << 13, (7, False): 1 << 13, (8, False): 1 << 13,
+}
+
+
+def fold_geometry(pop: int, n: int, int8: bool, topology: str) -> dict:
+    """The B3 launch for ``pop`` candidates of ``topology`` and frames of
+    ``n`` (csrc ``pmfm_synth_fold``). Below
+    ``FOLD_TP_BELOW_POP[chain_length(topology), int8]`` candidates, while
+    the frame (n int8 or bf16 elements) and the level totals (n/128 floats)
+    fit a block's ``shared_bytes`` of shared memory: the time-parallel
+    layout, a CUDA block a candidate, one warp whose lanes split the time
+    blocks. Else the single pass: 32 candidates a block, one thread each, no
+    shared memory."""
+    smem = n * (1 if int8 else 2) + 4 * (n // TIME_BLOCK)
+    if pop < FOLD_TP_BELOW_POP[chain_length(topology), int8] and smem <= MAX_SHARED_BYTES:
+        return dict(time_parallel=True, blocks=pop, threads=32, shared_bytes=smem)
+    return dict(time_parallel=False, blocks=-(-pop // 32), threads=32, shared_bytes=0)
 
 
 def _check(params_scaled, topology, n):
@@ -67,7 +105,9 @@ def _fold_plain_block(p, *, topology, n, inv_sr, dft_scale, sine_order):
     # the fold in float32: exact for int8, one rounding to bf16 otherwise
     qf = q.to(torch.float32).T  # (P, N): candidate-major, as the kernel stores it
     rev = qf[:, half + 1 :].flip(1)  # q[N-r] for r = 1 .. N/2-1
-    a_plus, a_minus = qf[:, :half].contiguous(), qf[:, :half].contiguous()
+    # copies, never views: with one candidate qf[:, :half] is already
+    # contiguous, and .contiguous() would hand back views of qf itself
+    a_plus, a_minus = qf[:, :half].clone(), qf[:, :half].clone()
     a_plus[:, 1:] += rev
     a_minus[:, 1:] -= rev
     if int8:
@@ -123,7 +163,8 @@ def fused_synth_fold(
     the a's int8 (``dft_scale > 0``) or bf16 and candidate-major (``.T``
     views of (P, N/2) tensors); feed them to
     ``ops.spectral.magnitude_spectrum_prefolded``. On CUDA tensors this
-    launches the B3 kernel (counted in ``fused_synth_fold.launches``); on CPU
+    launches the B3 kernel (counted in ``fused_synth_fold.launches``), in
+    the layout ``fold_geometry`` picks (both give the same bits); on CPU
     tensors it runs the plain version, whose blocks ``pop_block`` sizes.
     """
     dev = params_scaled.device
@@ -141,6 +182,7 @@ def fused_synth_fold(
     params = params_scaled.to(torch.float32).contiguous()
     pop, d = params.shape
     int8 = dft_scale > 0.0
+    geo = fold_geometry(pop, n, int8, topology)
     dtype = torch.int8 if int8 else torch.bfloat16
     a_plus = torch.empty((pop, n // 2), dtype=dtype, device=dev)
     a_minus = torch.empty((pop, n // 2), dtype=dtype, device=dev)
@@ -152,7 +194,8 @@ def fused_synth_fold(
     )
     err = library().pmfm_synth_fold(
         params.data_ptr(), pop, sp, a_plus.data_ptr(), a_minus.data_ptr(), edge.data_ptr(),
-        mag_scale.data_ptr(), int(int8), torch.cuda.current_stream(dev).cuda_stream,
+        mag_scale.data_ptr(), int(int8), int(geo["time_parallel"]),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "fused_synth_fold")
     fused_synth_fold.launches += 1

@@ -5,10 +5,11 @@ Replaces ``pmfm_tpu/kernels/synth_stream.py::fused_synth_stream`` (the Pallas
 kernel ``_stream_kernel`` over a (pop-block, time-chunk) grid, its phase
 carries kept in scratch across the sequential time-chunk axis). The CUDA
 kernel is ``synth_stream_kernel`` in ``csrc/large_frame.cu``; its note gives
-its bound on an H100 and its design. There the time-chunk axis is the
-thread's own loop over samples, and the carries stay in registers.
-``fused_synth_stream_plain`` is its plain PyTorch version, which walks the
-time axis in chunks of ``stream_chunk(n)`` samples as the TPU grid does.
+its bound on an H100 and its design: time split across the 16 warps of a
+block of 32 candidates, each warp's phase offsets found exactly level by
+level (``stream_geometry`` mirrors its launch). ``fused_synth_stream_plain``
+is its plain PyTorch version, which walks the time axis in chunks of
+``stream_chunk(n)`` samples as the TPU grid does.
 
 Output: windowed time-major audio ``sin * amp * w[m]`` (N, P), bf16, or f32
 with ``audio_f32`` (the true-f32 engine), for
@@ -37,6 +38,29 @@ from .synth_fitness import (
 # time blocks per chunk of the plain version's walk (the TPU kernel's
 # BLOCKS_PER_CHUNK: one grid step)
 BLOCKS_PER_CHUNK = 8
+STREAM_CANDIDATES = 32  # csrc: candidates (lanes) a CUDA block
+STREAM_WARPS = 16  # csrc ST_WARPS: runs of time blocks (warps) a CUDA block
+STREAM_SHARED_MAX = 64 * 1024  # csrc ST_SMEM_MAX: level totals in shared memory up to this
+
+
+def stream_geometry(pop: int, n: int) -> dict:
+    """The B4 launch for ``pop`` candidates and frames of ``n`` (csrc
+    ``pmfm_synth_stream``): CUDA blocks of ``STREAM_CANDIDATES`` candidates x
+    ``STREAM_WARPS`` warps, the time blocks a warp walks (the first warps'
+    count; later warps may take one more), and where the level totals live,
+    32 x n/128 floats a block: ``shared_bytes`` of shared memory up to
+    ``STREAM_SHARED_MAX``, else ``scratch_floats`` of device memory that the
+    wrapper allocates."""
+    blocks = -(-pop // STREAM_CANDIDATES)
+    tot_floats = STREAM_CANDIDATES * (n // TIME_BLOCK)
+    in_smem = 4 * tot_floats <= STREAM_SHARED_MAX
+    return dict(
+        blocks=blocks,
+        threads=32 * STREAM_WARPS,
+        blocks_per_warp=(n // TIME_BLOCK) // STREAM_WARPS,
+        shared_bytes=4 * tot_floats if in_smem else 0,
+        scratch_floats=0 if in_smem else blocks * tot_floats,
+    )
 
 
 def stream_chunk(n: int, time_block: int = TIME_BLOCK) -> int:
@@ -124,18 +148,22 @@ def fused_synth_stream(
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check(params_scaled, window, topology, n)
+    if window.data_ptr() % 16:
+        raise ValueError("window must be 16-byte aligned (the kernel reads it in float4s)")
     from ._build import check, library
 
     params = params_scaled.to(torch.float32).contiguous()
     pop, d = params.shape
     out = torch.empty((n, pop), dtype=torch.float32 if audio_f32 else torch.bfloat16, device=dev)
+    scratch = torch.empty((stream_geometry(pop, n)["scratch_floats"],), dtype=torch.float32,
+                          device=dev)
     sp = synth_params_struct(
         topology=topology, n=n, k=0, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
         dft_scale=0.0, sine_order=sine_order,
     )
     err = library().pmfm_synth_stream(
         params.data_ptr(), pop, sp, window.data_ptr(), out.data_ptr(), int(audio_f32),
-        torch.cuda.current_stream(dev).cuda_stream,
+        scratch.data_ptr(), scratch.numel(), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "fused_synth_stream")
     fused_synth_stream.launches += 1

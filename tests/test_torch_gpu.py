@@ -121,6 +121,31 @@ def test_b1_b2_f32_grid(cuda, n, bins, topology, sine_order, pop):
                (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL))
 
 
+@pytest.mark.parametrize("n", [2048, 3584])
+def test_b1_f32_summation_near_float64(cuda, n):
+    """Above 512 samples a bin, the f32 DFT sums each bin in 256-sample
+    segments added in order (csrc fused_f32.cu): at n 2048 and 3584, P 4001
+    (the f32 grid's fm3_series, sine order 7 inputs), the kernel's median
+    relative error against a float64 evaluation of the same audio is within
+    1.5x the plain version's (cuBLAS's blocked sums). One ascending chain a
+    bin was 1.74x at n 3584."""
+    from chip_smoke import fitness_f64, rel_err
+    from pmfm_tpu_torch.ops import spectral
+
+    pop, order = RAGGED_POP, 7
+    so = spectral.make_spectrum_ops(n, None, dft_dtype="float32", device=cuda)
+    rng = np.random.default_rng(n + pop + order)
+    tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(cuda)
+    p = _params(cuda, pop, seed=order)
+    kw = dict(dft_packed=so.dft_packed, dft_scale=0.0, topology="fm3_series", n=n,
+              pop_block=pop, sine_order=order)
+    f64 = fitness_f64(p, tgt, so, "fm3_series", n, order)
+    ek = rel_err(sf.fused_synth_fitness(p, tgt, **kw).double(), f64)
+    ep = rel_err(sf.fused_synth_fitness_plain(p, tgt, **kw).double(), f64)
+    assert float(ek.median()) <= 1.5 * float(ep.median()), (float(ek.median()), float(ep.median()))
+    assert float(ek.max()) <= F32_FIT_MAX_REL
+
+
 @pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm8_series"])
 def test_b1_b2_f32_shipped_population(cuda, topology):
     """The f32 grid's checks at the shipped tail's population, P 2^15, n 1024."""
@@ -182,35 +207,58 @@ def _params(dev, pop, d=6, seed=0):
     return torch.from_numpy((rng.random((pop, d)) * maxs).astype(np.float32)).to(dev)
 
 
-# sine order 9 is match_audio's default and its refine tail's (bf16 mode)
-@pytest.mark.parametrize("topology,n,dft_scale,sine_order", [
-    ("fm3_series", 8192, 1e-5, 7), ("fm3_series", 4096, 0.0, 7), ("fm2", 16384, 1e-5, 7),
-    ("fm3_series", 8192, 1e-5, 9), ("fm3_series", 8192, 0.0, 9)])
-def test_b3_kernel_bit_equal_to_plain(cuda, topology, n, dft_scale, sine_order):
-    d = 4 if topology == "fm2" else 6
-    p = _params(cuda, 1000, d)  # not a multiple of the 32-candidate block
+# B3/B4 against their plain versions: populations around the 32-candidate
+# blocks and a ragged one; the plain version runs once a setting at the
+# largest (each candidate's output is its own)
+LARGE_POPS = (1, 31, 33, 1000)
+
+
+# every ported chain length class, sine order 5/7/9 (9: match_audio's
+# default and its refine tail's) and frame of the route, in both modes
+@pytest.mark.parametrize("dft_scale", [1e-5, 0.0])
+@pytest.mark.parametrize("n", [4096, 8192, 16384])
+@pytest.mark.parametrize("sine_order", [5, 7, 9])
+@pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm8_series"])
+def test_b3_kernel_bit_equal_to_plain(cuda, monkeypatch, topology, sine_order, n, dft_scale):
+    """B3 in both layouts (time-parallel, a warp a candidate; single pass, a
+    thread a candidate; FOLD_TP_BELOW_POP set so that each is taken) bit-equal
+    to its plain version at each of LARGE_POPS."""
+    d = topology_dims(topology)
+    p = _params(cuda, max(LARGE_POPS), d, seed=n + sine_order)
     kw = dict(topology=topology, n=n, sine_order=sine_order, dft_scale=dft_scale)
-    before = sfo.fused_synth_fold.launches
-    got = sfo.fused_synth_fold(p, **kw)
-    assert sfo.fused_synth_fold.launches == before + 1
-    want = sfo.fused_synth_fold_plain(p, pop_block=1000, **kw)
-    assert got[0].dtype == (torch.int8 if dft_scale > 0 else torch.bfloat16)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    want = sfo.fused_synth_fold_plain(p, pop_block=max(LARGE_POPS), **kw)
+    for pop in LARGE_POPS:
+        for below in (1 << 62, 0):
+            monkeypatch.setattr(sfo, "FOLD_TP_BELOW_POP",
+                                dict.fromkeys(sfo.FOLD_TP_BELOW_POP, below))
+            before = sfo.fused_synth_fold.launches
+            got = sfo.fused_synth_fold(p[:pop], **kw)
+            assert sfo.fused_synth_fold.launches == before + 1
+            assert got[0].dtype == (torch.int8 if dft_scale > 0 else torch.bfloat16)
+            assert torch.equal(got[0], want[0][:, :pop]) and torch.equal(got[1], want[1][:, :pop])
+            assert torch.equal(got[2], want[2][:pop]) and torch.equal(got[3], want[3][:pop])
+
+
+# B4: a Latin square of (topology, sine order) over its frames (131072: the
+# level totals in device memory), cell (d)'s own setting among them
+B4_GRID = [("fm2", 5, 131072), ("fm2", 7, 65536), ("fm2", 9, 32768),
+           ("fm3_series", 5, 32768), ("fm3_series", 7, 131072), ("fm3_series", 9, 65536),
+           ("fm8_series", 5, 65536), ("fm8_series", 7, 32768), ("fm8_series", 9, 131072)]
 
 
 @pytest.mark.parametrize("audio_f32", [False, True])
-def test_b4_kernel_bit_equal_to_plain(cuda, audio_f32):
-    n = 32768
-    p = _params(cuda, 500)
+@pytest.mark.parametrize("topology,sine_order,n", B4_GRID)
+def test_b4_kernel_bit_equal_to_plain(cuda, topology, sine_order, n, audio_f32):
+    p = _params(cuda, max(LARGE_POPS), topology_dims(topology), seed=n + sine_order)
     win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
-    before = sst.fused_synth_stream.launches
-    got = sst.fused_synth_stream(p, win, n=n, sine_order=9, audio_f32=audio_f32)
-    assert sst.fused_synth_stream.launches == before + 1
-    want = sst.fused_synth_stream_plain(p, win, n=n, sine_order=9, audio_f32=audio_f32,
-                                        pop_block=500)
-    assert got.dtype == (torch.float32 if audio_f32 else torch.bfloat16)
-    assert torch.equal(got, want)
+    kw = dict(topology=topology, n=n, sine_order=sine_order, audio_f32=audio_f32)
+    want = sst.fused_synth_stream_plain(p, win, pop_block=max(LARGE_POPS), **kw)
+    for pop in LARGE_POPS:
+        before = sst.fused_synth_stream.launches
+        got = sst.fused_synth_stream(p[:pop], win, **kw)
+        assert sst.fused_synth_stream.launches == before + 1
+        assert got.dtype == (torch.float32 if audio_f32 else torch.bfloat16)
+        assert torch.equal(got, want[:, :pop])
 
 
 @pytest.mark.parametrize("log2n,engine,counter", [(13, "synth_fold", sfo.fused_synth_fold),

@@ -70,10 +70,11 @@ def _ref_fold(params, topology, n, dft_scale, sine_order):
     return [np.array(x) for x in out]
 
 
-def _port_fold(params, topology, n, dft_scale, sine_order):
+def _port_fold(params, topology, n, dft_scale, sine_order, pop_block=POP):
     before = tfold.fused_synth_fold.launches
     out = tfold.fused_synth_fold(torch.from_numpy(params), topology=topology, n=n,
-                                 dft_scale=dft_scale, sine_order=sine_order)
+                                 dft_scale=dft_scale, sine_order=sine_order,
+                                 pop_block=pop_block)
     assert tfold.fused_synth_fold.launches == before  # CPU tensors: the plain version
     return out
 
@@ -83,10 +84,23 @@ def _port_fold(params, topology, n, dft_scale, sine_order):
 @pytest.mark.parametrize("topology", ["fm2", "fm3_series"])
 @pytest.mark.parametrize("sine_order", [7, 9])
 def test_b3_plain_matches_reference_int8(topology, sine_order):
+    _check_b3_int8(topology, sine_order, POP)
+
+
+# the port's plain version in blocks of one candidate: the blocks an odd
+# population above the block size is halved to, where a+ and a- once aliased
+# the frame
+@pytest.mark.parametrize("topology", ["fm2", "fm3_series"])
+@pytest.mark.parametrize("sine_order", [7, 9])
+def test_b3_plain_blocks_of_one_match_reference_int8(topology, sine_order):
+    _check_b3_int8(topology, sine_order, 1)
+
+
+def _check_b3_int8(topology, sine_order, pop_block):
     jso = jspec.make_spectrum_ops(N, dft_dtype=jnp.int8)
     p = _params(topology, seed=sine_order)
     ref = _ref_fold(p, topology, N, jso.dft_packed_scale, sine_order)
-    ap, am, edge, ms = _port_fold(p, topology, N, jso.dft_packed_scale, sine_order)
+    ap, am, edge, ms = _port_fold(p, topology, N, jso.dft_packed_scale, sine_order, pop_block)
     assert ap.dtype == torch.int8 and am.dtype == torch.int8
     assert ap.shape == (N // 2, POP) and edge.shape == (POP,) and ms.shape == (POP,)
     assert ap.T.is_contiguous() and am.T.is_contiguous()  # candidate-major, as the kernel
@@ -98,13 +112,21 @@ def test_b3_plain_matches_reference_int8(topology, sine_order):
 
 
 def test_b3_plain_matches_reference_bf16():
+    _check_b3_bf16(POP)
+
+
+def test_b3_plain_blocks_of_one_match_reference_bf16():
+    _check_b3_bf16(1)
+
+
+def _check_b3_bf16(pop_block):
     """bf16 mode: bf16 audio, fold sums rounded once more, unit mag_scale;
     the spectra of both sides agree to the bf16 rounding flips."""
     jso = jspec.make_spectrum_ops(N, dft_dtype=jnp.bfloat16)
     tso = tspec.make_spectrum_ops(N, dft_dtype="bfloat16", device="cpu")
     p = _params("fm3_series", seed=3)
     ref = _ref_fold(p, "fm3_series", N, 0.0, 9)
-    ap, am, edge, ms = _port_fold(p, "fm3_series", N, 0.0, 9)
+    ap, am, edge, ms = _port_fold(p, "fm3_series", N, 0.0, 9, pop_block)
     assert ap.dtype == torch.bfloat16 and np.all(ms.numpy() == 1.0)
     # the reference's interpret mode carries bf16-rounded values in f32
     np.testing.assert_array_equal(ref[0], ref[0].astype(jnp.bfloat16).astype(np.float32))

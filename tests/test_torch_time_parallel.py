@@ -1,0 +1,256 @@
+"""The time-parallel synthesis of B3 and B4 (csrc/large_frame.cu) on the CPU.
+
+The kernels split each candidate's time blocks across threads and find every
+thread's phase offsets level by level: a scalar walk for the first
+oscillator's offset, then for each later oscillator a pass in which every
+thread totals its own blocks' increments from the offsets it knows, and a
+fold of the totals before its first block, sequential in block order. This
+file runs that decomposition in torch with the port's own numerics
+(``synth_fitness``'s ``_chain_rows``, ``_sin_turns``, ``_frac``) and holds it
+bit for bit against the one-sequence plain version, ``synth_blocks_plain``,
+which the kernels' plain versions run: exact, so no tolerance. It also holds
+the time-parallel B3's fold indexing (rows read back from a frame in groups
+of 16) against the plain fold, and the wrappers' launch geometry.
+"""
+import numpy as np
+import pytest
+import torch
+
+from pmfm_tpu_torch.kernels import synth_fitness as tsf
+from pmfm_tpu_torch.kernels import synth_fold as tfold
+from pmfm_tpu_torch.kernels import synth_stream as tstream
+from pmfm_tpu_torch.ops.synthesis import topology_dims
+from pmfm_tpu_torch.ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
+
+C = tsf.TIME_BLOCK
+N = 32768  # B4's shortest frame: 256 time blocks
+POP = 5
+
+
+def _params(topology, seed):
+    d = topology_dims(topology)
+    maxs = np.asarray((3520.0, 8.0) * (d // 2), np.float32)
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random((POP, d)) * maxs).astype(np.float32))
+
+
+def _blocks(rows, offs, j_count, blocks, emit_cs=None):
+    """Run oscillators 0 .. j_count-1 of the chain over ``blocks`` (a list of
+    block indices, the same count for every segment) from the offsets
+    ``offs`` (each (S, P), advanced in place), as csrc synth_common.cuh::
+    synth_span. Returns each block's total of the last oscillator's
+    increments (level mode) or each block's output sine (emit mode,
+    ``emit_cs`` the output coefficients; j_count is then the whole chain's
+    modulators)."""
+    inc1, ims, ics, cs, inc_blk = rows
+    t = torch.arange(C, dtype=torch.float32)[:, None, None]
+    out = []
+    for _ in blocks:
+        pos = t * inc1 + offs[0]
+        s_last = None
+        for j in range(j_count):
+            x = tsf._sin_turns(pos, cs) * ims[j] + ics[j]
+            pre, tot = tsf._exclusive_prefix(x)
+            if emit_cs is not None or j < j_count - 1:
+                pos = pre + offs[j + 1]
+                offs[j + 1] = tsf._frac(offs[j + 1] + tot)
+            s_last = tot
+        out.append(tsf._sin_turns(pos, emit_cs) if emit_cs is not None else s_last)
+        offs[0] = tsf._frac(offs[0] + inc_blk)
+    return out
+
+
+def time_parallel_synth(p, *, topology, n, sine_order, int8, segments):
+    """Each block's output sine (C, P), in time order, computed as the
+    kernels do with ``segments`` threads a candidate: thread w owns blocks
+    [w nb / S, (w + 1) nb / S) (lengths may differ by one)."""
+    inv_sr = tsf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE, DEFAULT_SAMPLE_RATE)
+    inc1, ims, ics, _ = tsf._chain_rows(p.T.to(torch.float32), topology, inv_sr)
+    cs = tsf.sin_coeffs(sine_order)
+    cs_out = tsf.sin_coeffs(sine_order, 63.0) if int8 else cs
+    inc_blk = tsf._frac(float(C) * inc1)
+    kn, nb, pop = len(ims) + 1, n // C, p.shape[0]
+    bounds = [(w * nb // segments, (w + 1) * nb // segments) for w in range(segments)]
+    # every thread's offsets at its first block: off[0] by its own scalar walk
+    off = [torch.zeros((segments, pop)) for _ in range(kn)]
+    for w, (b0, _) in enumerate(bounds):
+        for _ in range(b0):
+            off[0][w] = tsf._frac(off[0][w] + inc_blk)
+
+    def run(j_count, emit_cs=None):
+        """Every thread over its own blocks, from a copy of its offsets:
+        the segments are stacked on axis 0 and walk in step; a shorter
+        segment's surplus last step is dropped."""
+        rows = (inc1, ims, ics, cs, inc_blk)
+        o = [x.clone() for x in off]
+        steps = max(b1 - b0 for b0, b1 in bounds)
+        res = _blocks(rows, o, j_count, range(steps), emit_cs)
+        return [[res[i][..., w, :] if emit_cs is not None else res[i][w]
+                 for i in range(b1 - b0)] for w, (b0, b1) in enumerate(bounds)]
+
+    for level in range(kn - 1):
+        per_thread = run(level + 1)
+        totals = [t for seg in per_thread for t in seg]  # block order
+        assert len(totals) == nb
+        for w, (b0, _) in enumerate(bounds):  # a sequential fold, never a tree
+            f = torch.zeros(pop)
+            for b in range(b0):
+                f = tsf._frac(f + totals[b])
+            off[level + 1][w] = f
+    return [y for seg in run(kn - 1, cs_out) for y in seg]
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("sine_order", [5, 7, 9])
+@pytest.mark.parametrize("topology,segments,int8", [
+    ("fm2", 32, True),  # the time-parallel B3's 32 lanes, int8 output oscillator
+    ("fm3_series", 16, False),  # B4's 16 warps
+    ("fm8_series", 12, False),  # segments of unequal length (21 or 22 blocks)
+])
+def test_time_parallel_decomposition_is_exact(topology, segments, int8, sine_order):
+    p = _params(topology, sine_order)
+    kw = dict(topology=topology, n=N, sine_order=sine_order, int8=int8)
+    got = time_parallel_synth(p, segments=segments, **kw)
+    inv_sr = tsf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE, DEFAULT_SAMPLE_RATE)
+    want = list(tsf.synth_blocks_plain(p, inv_sr=inv_sr, **kw))
+    assert len(got) == len(want) == N // C
+    for b, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(_bits(g), _bits(w)), f"block {b}"
+
+
+def kernel_fold(q: torch.Tensor):
+    """a+, a- (P, N/2) and the edge sample from a frame q (P, N) as float32,
+    with the time-parallel B3's indexing: lane groups u of 16 rows, row
+    16u + i paired with element 16 - i of the group at N - 16(u + 1) for
+    i > 0 and with sample N - 16u for i = 0 (none for u = 0)."""
+    pop, n = q.shape
+    half, g = n // 2, 16  # csrc FOLD_G
+    ap = torch.empty((pop, half))
+    am = torch.empty((pop, half))
+    for u in range(half // g):
+        old = q[:, u * g : (u + 1) * g]
+        lo = q[:, n - (u + 1) * g : n - u * g]
+        first = q[:, n - u * g] if u > 0 else torch.zeros(pop)
+        x = torch.stack([first] + [lo[:, g - i] for i in range(1, g)], 1)
+        ap[:, u * g : (u + 1) * g] = old + x
+        am[:, u * g : (u + 1) * g] = old - x
+    return ap, am, q[:, half]
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_time_parallel_fold_indexing(n, int8):
+    """The frame-fold of the time-parallel B3 gives the plain version's a+,
+    a- and edge from the same frame, bit for bit (int8: exact integers;
+    bf16: one rounding of each float32 sum)."""
+    p = _params("fm3_series", n)
+    inv_sr = tsf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE, DEFAULT_SAMPLE_RATE)
+    kw = dict(topology="fm3_series", n=n, inv_sr=inv_sr, sine_order=7,
+              dft_scale=1e-5 if int8 else 0.0)
+    ap, am, edge, _ = tfold._fold_plain_block(p, **kw)
+    q = torch.empty((n, POP), dtype=ap.dtype)
+    amp = tsf.chain_amp(p, "fm3_series")
+    for b, y in enumerate(tsf.synth_blocks_plain(p, topology="fm3_series", n=n, inv_sr=inv_sr,
+                                                 sine_order=7, int8=int8)):
+        q[b * C : (b + 1) * C] = torch.round(y).to(torch.int8) if int8 else (y * amp).to(q.dtype)
+    kp, km, ke = kernel_fold(q.T.to(torch.float32))
+    assert torch.equal(kp.to(ap.dtype), ap) and torch.equal(km.to(am.dtype), am)
+    assert torch.equal(ke, edge)
+
+
+T3, T8 = tfold.FOLD_TP_BELOW_POP[3, True], tfold.FOLD_TP_BELOW_POP[8, True]
+
+
+@pytest.mark.parametrize("pop,n,int8,topology,want", [
+    # cell (e), match_audio's int8 engine: a warp a candidate, 8 KB frame + 256 B totals
+    (4096, 8192, True, "fm3_series",
+     dict(time_parallel=True, blocks=4096, threads=32, shared_bytes=8448)),
+    # its bf16 refine tail
+    (4096, 8192, False, "fm3_series",
+     dict(time_parallel=True, blocks=4096, threads=32, shared_bytes=16640)),
+    (1000, 16384, False, "fm3_series",
+     dict(time_parallel=True, blocks=1000, threads=32, shared_bytes=33280)),
+    # cell (c): the single pass, 32 candidates a block
+    (1 << 15, 8192, True, "fm3_series",
+     dict(time_parallel=False, blocks=1024, threads=32, shared_bytes=0)),
+    (T3 - 1, 4096, True, "fm3_series",
+     dict(time_parallel=True, blocks=T3 - 1, threads=32, shared_bytes=4224)),
+    (T3, 4096, True, "fm3_series",
+     dict(time_parallel=False, blocks=T3 // 32, threads=32, shared_bytes=0)),
+    # the longest chain crosses at its own population
+    (T8 - 1, 8192, True, "fm8_series",
+     dict(time_parallel=True, blocks=T8 - 1, threads=32, shared_bytes=8448)),
+    (T8, 8192, True, "fm8_series",
+     dict(time_parallel=False, blocks=T8 // 32, threads=32, shared_bytes=0)),
+    # a frame whose shared memory would not fit a block takes the single pass
+    (1, 1 << 17, False, "fm2", dict(time_parallel=False, blocks=1, threads=32, shared_bytes=0)),
+])
+def test_fold_geometry(pop, n, int8, topology, want):
+    assert tfold.fold_geometry(pop, n, int8, topology) == want
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_fold_threshold_covers_every_chain(int8):
+    """A threshold for every ported chain (fm2, fm3..fm8_series) in each
+    mode; at P 2048 every chain takes the time-parallel layout, which was
+    the faster there for all of them."""
+    for topology in ["fm2"] + [f"fm{k}_series" for k in range(3, 9)]:
+        assert tfold.fold_geometry(2048, 8192, int8, topology)["time_parallel"]
+    assert len(tfold.FOLD_TP_BELOW_POP) == 14
+
+
+@pytest.mark.parametrize("below,want", [(0, False), (1 << 62, True)])
+def test_fold_geometry_follows_the_threshold(monkeypatch, below, want):
+    """The layout follows FOLD_TP_BELOW_POP as it stands when the wrapper is
+    called (the card checks set it to hold each layout against the plain
+    version); a frame whose shared memory would not fit stays single-pass."""
+    monkeypatch.setattr(tfold, "FOLD_TP_BELOW_POP", dict.fromkeys(tfold.FOLD_TP_BELOW_POP, below))
+    assert tfold.fold_geometry(1 << 15, 8192, True, "fm3_series")["time_parallel"] == want
+    assert tfold.fold_geometry(7, 8192, False, "fm8_series")["time_parallel"] == want
+    assert not tfold.fold_geometry(7, 1 << 17, False, "fm2")["time_parallel"]
+
+
+@pytest.mark.parametrize("pop,n,want", [
+    # cell (d): 256 blocks of 512 threads, 32 time blocks a warp, 64 KB of totals
+    (1 << 13, 65536, dict(blocks=256, threads=512, blocks_per_warp=32, shared_bytes=65536,
+                          scratch_floats=0)),
+    (1000, 32768, dict(blocks=32, threads=512, blocks_per_warp=16, shared_bytes=32768,
+                       scratch_floats=0)),
+    # longer frames keep their totals in device memory
+    (33, 131072, dict(blocks=2, threads=512, blocks_per_warp=64, shared_bytes=0,
+                      scratch_floats=2 * 32 * 1024)),
+])
+def test_stream_geometry(pop, n, want):
+    assert tstream.stream_geometry(pop, n) == want
+
+
+def test_b3_wrapper_plain_on_cpu_whatever_the_layout(monkeypatch):
+    """On CPU tensors the wrapper runs the plain version whichever layout
+    the threshold would pick on the card, and counts no launch."""
+    p = _params("fm2", 3)
+    before = tfold.fused_synth_fold.launches
+    outs = []
+    for below in (1 << 62, 0):
+        monkeypatch.setattr(tfold, "FOLD_TP_BELOW_POP",
+                            dict.fromkeys(tfold.FOLD_TP_BELOW_POP, below))
+        outs.append(tfold.fused_synth_fold(p, topology="fm2", n=4096, sine_order=7,
+                                           dft_scale=1e-5))
+    assert tfold.fused_synth_fold.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_b3_plain_blocks_of_one(int8):
+    """The plain version in blocks of one candidate (pop_block 1, as an odd
+    population gets) gives each candidate what a larger block gives it:
+    with one candidate, a+ and a- must not share memory with the frame."""
+    p = _params("fm3_series", 11)
+    kw = dict(topology="fm3_series", n=4096, sine_order=7, dft_scale=1e-5 if int8 else 0.0)
+    ones = tfold.fused_synth_fold_plain(p, pop_block=1, **kw)
+    whole = tfold.fused_synth_fold_plain(p, pop_block=POP, **kw)
+    for a, b in zip(ones, whole):
+        assert torch.equal(a, b)
+    assert not torch.equal(ones[0], ones[1])
