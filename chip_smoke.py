@@ -33,7 +33,16 @@ through the entry points a user calls, and times each kernel:
   kernels, from torch.profiler), the f32 split at both refine tails' shapes
   (with torch.profiler's time of each f32 kernel and cuBLAS SGEMM as the
   DFT half's yardstick) and the port's bench (``pmfm_tpu_torch/bench.py``,
-  one repetition).
+  one repetition);
+* phases 17-19, the unfused engines and the CLI: the scan synthesis kernel
+  (``csrc/scan_synth.cu``) bit-equal to its plain loop over samples at the
+  bench's and parameters.json's shapes and over chains, oscillators and
+  output types; each unfused engine (``xla_dft``, ``xla_folded_dft`` int8
+  and bf16, ``xla_rfft``; scan and scanless synthesis) at the bench shape,
+  held against the same engine on the CPU, with the known-params truth
+  first, and the rfft rung at n 8192 and 16384; ``python -m
+  pmfm_tpu_torch.cli``'s ``main`` on parameters.json and
+  examples/params_match.json as written.
 
 One flushed line per phase, ending with its seconds; every time is printed
 beside the card's name and power limit.
@@ -125,7 +134,7 @@ PROFILED_B5_CALLS = 3
 # JSON entries: a kernel, or a kernel in its true-f32 mode (the same wrapper
 # and counter; the f32 entries' launches are read on the refine tail)
 KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream",
-           "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve")
+           "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve", "scan_synth")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -151,6 +160,30 @@ F32_KERNELS = ("f32_synth_kernel", "f32_dft_kernel", "f32_sum_kernel")
 B2_KERNELS = F32_KERNELS + ("fused_generation_int8_kernel",)
 SELECT_KERNEL = "select_kernel"
 PROFILED_LAUNCHES = 10
+
+# phase 17: the scan kernel (csrc/scan_synth.cu) against its plain loop, bit
+# for bit, at the bench's shape, parameters.json's (population 32, n 2048)
+# and over chains x oscillators x output types at SCAN_GRID_POP, n 1024
+SCAN_GRID = ("fm2", "fm3_series", "fm8_series", "fm3_parallel")
+SCAN_GRID_POP = 4096
+# sinf's fast path counted as f32 operations in the scan kernel's bound
+# (a three-term reduction and two short polynomials)
+SINF_OPS = 15
+# phase 18: the unfused engines at the bench shape, UNFUSED_GENERATIONS
+# generations each; each engine on the card against the same engine on the
+# CPU on UNFUSED_CHECK_POP candidates of the CPU tests' mild-index ranges,
+# within their tolerance (tests/test_torch_unfused.py); the rfft rung at
+# RFFT_RUNG_LOG2N
+UNFUSED_ENGINES = (("xla_dft", "dft", "float32"), ("xla_folded_dft", "dft", "int8"),
+                   ("xla_folded_dft", "dft", "bfloat16"), ("xla_rfft", "rfft", "float32"))
+UNFUSED_GENERATIONS = 5
+UNFUSED_CHECK_POP = 1024
+# (max, median) relative by the engine's dtype: tests/test_torch_unfused.py's TOL
+UNFUSED_TOL = {"float32": (1e-3, 1e-6), "int8": (2e-3, 1e-6), "bfloat16": (2e-3, 1e-6)}
+RFFT_RUNG_LOG2N = (13, 14)
+# phase 19: the CLI as a user runs it, in a directory of the checkout
+CLI_CONFIGS = ("parameters.json", "examples/params_match.json")
+CLI_DIR = "build/chip_smoke_cli"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 FLOP/s
 PEAK_BYTES, PEAK_INT8, PEAK_F32 = 3.35e12, 1979e12, 67e12
@@ -238,10 +271,14 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def fitness_f64(params, target, so, topology: str, n: int, sine_order: int) -> torch.Tensor:
+def fitness_f64(params, target, so, topology: str, n: int, sine_order: int,
+                uv_f32: bool = False) -> torch.Tensor:
     """The true-f32 fitness of ``params`` from the plain version's float32
     audio with every later step in float64: the fold, the folded DFT against
-    the float32 operand's values, the edge term, magnitudes and the L2 sum."""
+    the float32 operand's values, the edge term, magnitudes and the L2 sum.
+    ``uv_f32`` rounds U and V once to float32 after their float64 sums (every
+    later step stays in float64, the result is rounded once to float32): the
+    closest any evaluation with float32 U and V can come to float64."""
     from pmfm_tpu_torch.kernels import synth_fitness as sf
     from pmfm_tpu_torch.ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 
@@ -256,45 +293,13 @@ def fitness_f64(params, target, so, topology: str, n: int, sine_order: int) -> t
     k = op.shape[0] // 2
     en = sf.edge_norm(n, False)
     ec = torch.where(torch.arange(k, device=op.device) % 2 == 0, en, -en).double()
-    u = op[:k] @ ap + ec[:, None] * x[half][None, :]
-    v = op[k:] @ am
+    u, v = op[:k] @ ap, op[k:] @ am
+    if uv_f32:
+        u, v = u.float().double(), v.float().double()
+    u = u + ec[:, None] * x[half][None, :]
     dd = torch.sqrt(u * u + v * v) - target.double()[:, None]
-    return (dd * dd).sum(0)
-
-
-def fitness_in_kernel_order(params, target, so, topology: str, n: int,
-                            sine_order: int) -> torch.Tensor:
-    """The plain true-f32 evaluation's per-bin terms (float32, as
-    ``synth_fitness.dft_fitness_plain`` computes them) summed in the f32
-    kernel's order instead of ``torch.sum``'s: group g holds the bins with
-    (k / 8) mod 8 = g, each group summed in ascending k from 0, then the
-    eight group sums in group order (``csrc/fused_f32.cu``'s note). Measures
-    what that order of the bin sum costs alone."""
-    from pmfm_tpu_torch.device import exact_f32_matmul
-    from pmfm_tpu_torch.kernels import synth_fitness as sf
-    from pmfm_tpu_torch.ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
-
-    x = sf.synth_f32_plain(params, topology=topology, n=n, sine_order=sine_order,
-                           inv_sr=sf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE,
-                                                     DEFAULT_SAMPLE_RATE))
-    ap, am, edge = sf.fold(x)
-    op = so.dft_packed.to(torch.float32)
-    k = op.shape[0] // 2
-    with exact_f32_matmul():
-        u, v = op[:k] @ ap, op[k:] @ am
-    en = sf.edge_norm(n, False)
-    ec = torch.where(torch.arange(k, device=u.device) % 2 == 0, en, -en).to(torch.float32)
-    u = u + ec[:, None] * edge[None, :]
-    d = torch.sqrt(u * u + v * v) - target.to(torch.float32)[:, None]
-    terms = d * d
-    fit = torch.zeros_like(terms[0])
-    for g in range(8):
-        part = torch.zeros_like(fit)
-        for kk in range(k):
-            if (kk // 8) % 8 == g:
-                part = part + terms[kk]
-        fit = fit + part
-    return fit
+    fit = (dd * dd).sum(0)
+    return fit.float().double() if uv_f32 else fit
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -1248,7 +1253,8 @@ class Smoke:
         same audio (``fitness_f64``) at each frame of GRID_N, fm3_series, sine
         order 7, P 1 and RAGGED_POP, on the inputs of tests/test_torch_gpu.py's
         f32 grid: how far each float32 summation order lies from float64 per
-        frame size. A measurement; the gate stays kernel against plain."""
+        frame size, beside the closest float32 U and V allow (``uv_f32``). A
+        measurement; the gate stays kernel against plain."""
         from pmfm_tpu_torch.kernels import synth_fitness as sf
         from pmfm_tpu_torch.ops import spectral
 
@@ -1267,15 +1273,16 @@ class Smoke:
                 fk = sf.fused_synth_fitness(p, tgt, **kw).double()
                 fp = sf.fused_synth_fitness_plain(p, tgt, **kw).double()
                 f64 = fitness_f64(p, tgt, so, topology, n, order)
-                fo = fitness_in_kernel_order(p, tgt, so, topology, n, order).double()
+                fo = fitness_f64(p, tgt, so, topology, n, order, uv_f32=True)
                 ek, ep, kp = rel_err(fk, f64), rel_err(fp, f64), rel_err(fk, fp)
                 eo = rel_err(fo, f64)
                 log(f"B1 f32 against float64 (n={n}, K={so.num_bins}, {topology}, sine order "
                     f"{order}, P={pop}): kernel max rel {float(ek.max()):.4e} median "
                     f"{float(ek.median()):.4e}; plain max rel {float(ep.max()):.4e} median "
                     f"{float(ep.median()):.4e}; kernel vs plain max rel {float(kp.max()):.4e} "
-                    f"median {float(kp.median()):.4e}; plain terms in the kernel's bin order "
-                    f"max rel {float(eo.max()):.4e} median {float(eo.median()):.4e}")
+                    f"median {float(kp.median()):.4e}; U and V rounded once to float32, the "
+                    f"rest in float64 max rel {float(eo.max()):.4e} median "
+                    f"{float(eo.median()):.4e}")
 
     # -- 13 -----------------------------------------------------------------
     def b5_vs_b2(self):
@@ -1655,6 +1662,204 @@ class Smoke:
         log(f"  B2 f32 by kernel ({label}, torch.profiler, mean of {PROFILED_LAUNCHES} launches): "
             f"{kernel_breakdown(lambda: b2(op, c['target']), PROFILED_LAUNCHES)} {card()}")
 
+    # -- 17 -----------------------------------------------------------------
+    def scan_vs_plain(self):
+        """The scan kernel bit-equal to its plain loop over samples: at the
+        bench's shape (fm3_series, P 2^15, n 1024), at parameters.json's
+        (its population, n 2048), and over SCAN_GRID x the three oscillators
+        x float32 and bf16 output at SCAN_GRID_POP, n 1024; then its time
+        beside the plain loop's at the first two."""
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import scan as ss
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        pj = load_config("parameters.json").es
+        shapes = (("bench", TOPOLOGY, POP, 1 << LOG2N, self.cfg.param_maxs),
+                  ("parameters.json", pj.topology, pj.population_size, pj.n_samples,
+                   pj.param_maxs))
+        grid = [(f"grid {t}", t, SCAN_GRID_POP, 1024, None) for t in SCAN_GRID]
+        worst, checked = 0.0, 0
+        for label, topology, pop, n, maxs in shapes + tuple(grid):
+            d = topology_dims(topology)
+            if maxs is None:
+                maxs = (3520.0, 8.0) * (d // 2) if "series" in topology else (3520.0, 8.0, 3520.0,
+                                                                                1.0) * (d // 4)
+            rng = np.random.default_rng(SEED + d + pop)
+            p = torch.from_numpy((rng.random((pop, d)) * np.asarray(maxs)).astype(np.float32))
+            p = p.to(self.dev)
+            modes = ("floor", "exact", "table") if label.startswith("grid") else ("floor",)
+            for osc in modes:
+                for dt in (torch.float32, torch.bfloat16):
+                    a = ss.scan_synth(p, n, topology, osc_mode=osc, out_dtype=dt)
+                    b = ss.scan_synth_plain(p, n, topology, osc_mode=osc, out_dtype=dt)
+                    torch.cuda.synchronize()
+                    eq = bits_equal(a.float(), b.float())
+                    worst = max(worst, float((a.float() - b.float()).abs().max()))
+                    checked += 1
+                    require(eq and a.shape == (n, pop), f"scan kernel differs from its plain "
+                            f"version ({label}, {osc}, {dt})")
+            if not label.startswith("grid"):
+                ms = cuda_ms(lambda: ss.scan_synth(p, n, topology), TIMED_LAUNCHES)
+                plain_ms = cuda_ms(lambda: ss.scan_synth_plain(p, n, topology), 1)
+                kn = 2 if topology == "fm2" else int(topology[2:].split("_")[0])
+                ops = float(pop) * n * kn * (SINF_OPS + 6)
+                bound_ms, by = bound(n * pop * 4 + pop * d * 4, 0.0, ops)
+                log(f"scan_synth ({label}: {topology}, P={pop}, n={n}, floor, float32): kernel "
+                    f"{ms:.4f} ms (median of {TIMED_LAUNCHES}), plain loop {plain_ms:.2f} ms, "
+                    f"bound {bound_ms:.4f} ms by {by} {card()}")
+                if label == "bench":
+                    self.kernels.setdefault("scan_synth", {}).update(
+                        route="cuda", source="pmfm_tpu_torch/csrc/scan_synth.cu",
+                        replaces="pmfm_tpu/ops/synthesis.py:220", ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=by, library_ms=None)
+        log(f"scan kernel bit-equal to its plain loop in {checked} settings (chains {SCAN_GRID} x "
+            f"floor/exact/table x float32/bf16 at P={SCAN_GRID_POP}, n=1024; the bench's and "
+            f"parameters.json's shapes)")
+        self.kernels.setdefault("scan_synth", {})["max_abs_err"] = worst
+
+    # -- 18 -----------------------------------------------------------------
+    def unfused(self):
+        """Each unfused engine at the bench shape with scan and scanless
+        synthesis: held against the same engine on the CPU (UNFUSED_CHECK_POP
+        candidates of the CPU tests' mild-index ranges), the known-params
+        truth first, and UNFUSED_GENERATIONS generations of ``evolve``
+        (ms/gen, the engine, launches); then the rfft rung at
+        RFFT_RUNG_LOG2N, P 2^15."""
+        from pmfm_tpu_torch.es import active_engine, evaluate, evolve, init_state
+        from pmfm_tpu_torch.es import generation_step, make_spectrum_ops
+        from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+
+        base = self.cfg.replace(fused_kernel=False, fused_generation=False,
+                                mutation_noise="clt12_neutral")
+        mild = (2000.0, 2.0) * 3
+        rng = np.random.default_rng(SEED + 18)
+        check_v = rng.random((UNFUSED_CHECK_POP, D)).astype(np.float32)
+        check_t = (rng.random(base.n_samples // 2) * 5.0).astype(np.float32)
+        truth_v = np.asarray(TRUTH, np.float32) / np.asarray(base.param_maxs, np.float32)
+        values = rng.random((POP, D)).astype(np.float32)
+        values[0] = truth_v
+        values = torch.from_numpy(values).to(self.dev)
+        for engine, method, dtype in UNFUSED_ENGINES:
+            for synth in ("scan", "scanless"):
+                cfg = base.replace(spectrum_method=method, dft_dtype=dtype, synthesis_engine=synth)
+                so = make_spectrum_ops(cfg, device=self.dev)
+                name = active_engine(cfg, so)
+                require(name == engine, f"{engine}: the router names {name}")
+                ck = cfg.replace(param_maxs=mild, num_offspring=UNFUSED_CHECK_POP - MU)
+                cpu_so = make_spectrum_ops(ck, device="cpu")
+                got = evaluate(torch.from_numpy(check_v).to(self.dev),
+                               torch.from_numpy(check_t).to(self.dev), so, ck).cpu()
+                want = evaluate(torch.from_numpy(check_v), torch.from_numpy(check_t), cpu_so, ck)
+                e = rel_err(got.double(), want.double())
+                max_rel, median_rel = UNFUSED_TOL[dtype]
+                audio = synthesize_single(torch.tensor(TRUTH), cfg.n_samples, TOPOLOGY,
+                                          engine=synth).to(self.dev)
+                tgt = target_spectrum(audio, so)
+                fit = evaluate(values, tgt, so, cfg)
+                rank = int(torch.argmin(fit))
+                state = init_state(SEED, cfg, device=self.dev)
+                evolve(state, tgt, 1, so, cfg)  # warm-up
+                torch.cuda.synchronize()
+                self.reset_counts()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                final, _ = evolve(state, tgt, UNFUSED_GENERATIONS, so, cfg)
+                t1.record()
+                t1.synchronize()
+                ms = t0.elapsed_time(t1) / UNFUSED_GENERATIONS
+                counts = self.read_counts()
+                log(f"unfused {name} ({dtype}, {synth} synthesis; n={cfg.n_samples}, P={POP}): "
+                    f"card vs CPU on {UNFUSED_CHECK_POP} candidates max rel {float(e.max()):.3e} "
+                    f"median rel {float(e.median()):.3e} (tolerance {max_rel:g} / "
+                    f"{median_rel:g}); truth rank {rank}; {UNFUSED_GENERATIONS} "
+                    f"generations {ms:.4f} ms/gen, {POP / ms * 1e3:.4g} candidate-evals/s, best "
+                    f"fitness {float(final.best_fitness):.6g}; launches {counts} {card()}")
+                require(bool(torch.isfinite(fit).all()), f"{name}: fitness not finite")
+                require(float(e.max()) <= max_rel and float(e.median()) <= median_rel,
+                        f"{name} ({dtype}, {synth}): the card disagrees with the CPU")
+                require(rank == 0, f"{name} ({dtype}, {synth}): the truth does not rank first")
+                want_scan = UNFUSED_GENERATIONS if synth == "scan" else 0
+                require(counts["scan_synth"] == want_scan and sum(counts.values()) == want_scan,
+                        f"{name}: launches {counts}")
+                self.cell_ms[f"unfused {name} {dtype} {synth}"] = ms
+        for log2n in RFFT_RUNG_LOG2N:
+            for synth in ("scanless", "scan"):
+                cfg = base.replace(spectrum_method="rfft", dft_dtype="float32",
+                                   audio_length_log2=log2n, synthesis_engine=synth)
+                so = make_spectrum_ops(cfg, device=self.dev)
+                state = init_state(SEED, cfg, device=self.dev)
+                tgt = torch.rand((so.num_bins,), device=self.dev)
+                ms = cuda_ms(lambda: generation_step(state, tgt, so, cfg), 3)
+                ev_ms = cuda_ms(lambda: evaluate(values, tgt, so, cfg), 3)
+                log(f"rfft rung ({active_engine(cfg, so)}, {synth} synthesis, n={cfg.n_samples}, "
+                    f"P={POP}): a generation {ms:.4f} ms, evaluate {ev_ms:.4f} ms {card()}")
+        torch.cuda.empty_cache()
+
+    # -- 19 -----------------------------------------------------------------
+    def cli(self):
+        """``pmfm_tpu_torch.cli.main`` on each of CLI_CONFIGS as written, run
+        from CLI_DIR as a user runs it: exit code 0, the engine named, the
+        WAV and the CSV written, the best parameters printed by name; the
+        launches of each run."""
+        import io
+        import os
+        import shutil
+
+        from pmfm_tpu_torch import cli
+        from pmfm_tpu_torch.io import load_config
+
+        root = os.getcwd()
+        work = os.path.join(root, CLI_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            for config in CLI_CONFIGS:
+                rc = load_config(os.path.join(root, config))
+                cfg = rc.es
+                out = io.StringIO()
+                os.chdir(work)
+                torch.cuda.synchronize()
+                self.reset_counts()
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(out):
+                        code = cli.main(["-j", os.path.join(root, config)])
+                finally:
+                    os.chdir(root)
+                seconds = time.perf_counter() - t0
+                counts = self.read_counts()
+                text = out.getvalue()
+                engine = next((ln for ln in text.splitlines() if ln.startswith("engine: ")), "")
+                best = text[text.find("Overall best parameters found"):].splitlines()[:3]
+                gens = rc.num_generations
+                csv = os.path.join(work, f"gpulog(pop={cfg.population_size}gens={gens}"
+                                         f"audioBlockSize={cfg.n_samples}).csv")
+                wav = os.path.join(work, rc.output_audio_path)
+                evals = cfg.population_size * gens
+                log(f"cli {config}: exit {code} in {seconds:.2f}s (stage rows included), "
+                    f"{engine!r}; {evals / seconds:.4g} candidate evaluations a second over the "
+                    f"whole command; {' / '.join(s.strip() for s in best)}; launches {counts} "
+                    f"{card()}")
+                for ln in text.splitlines():
+                    if ln.startswith(("Total time to complete", "candidate evaluations", "chunk ")):
+                        print(f"  {ln}", flush=True)
+                require(code == 0 and engine, f"{config}: exit {code}")
+                require(os.path.exists(wav) and os.path.exists(csv), f"{config}: no WAV or CSV")
+                with open(csv) as f:
+                    rows = [ln.split(",") for ln in f.read().splitlines()]
+                require(len(rows[0]) == 9 and rows[-1][0] == "Total Audio Analysis Time",
+                        f"{config}: CSV {rows[0]}")
+                require("Overall best parameters found" in text, f"{config}: no best parameters")
+                if config == "parameters.json":
+                    # a launch a generation, the target's, the best's, and the stage rows'
+                    require(counts["scan_synth"] >= gens + 2, f"{config}: launches {counts}")
+                    self.kernels.setdefault("scan_synth", {})["launches"] = counts["scan_synth"]
+                else:
+                    require(counts["fused_generation"] >= gens, f"{config}: launches {counts}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     def kernels_line(self):
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1702,6 +1907,9 @@ def main() -> int:
         s.phase("14 evolve fused_evolve", s.evolve_fused)
         s.phase("15 shipped path, audio_match", s.shipped)
         s.phase("16 f32 and B5 times, bench", s.third_timings)
+    s.phase("17 scan kernel vs plain", s.scan_vs_plain)
+    s.phase("18 unfused engines", s.unfused)
+    s.phase("19 CLI", s.cli)
     line = None
     try:
         line = s.kernels_line()

@@ -48,23 +48,32 @@
 //   samples in ascending order, with no tensor cores, in segments. Where
 //   N/2 <= DF_SPLIT_ABOVE (512: the shipped tail's n 1024 and below) one
 //   accumulator a bin runs from 0 over all N/2 samples. Above it the samples
-//   split into segments of DF_SEG = 256: each segment's chain starts from 0,
-//   and at its end the thread adds it to its running tile (device scratch,
-//   the thread's own 128 floats, so no other thread touches them) in
-//   segment order, ((s0 + s1) + s2) + ..., the last segment in registers.
-//   One ascending chain over all 1792 samples of n 3584 had put the
-//   kernel 16x further from a float64 evaluation than cuBLAS's blocked sums
-//   (1.6e-6 against 9.9e-8 relative, one candidate); a chain's rounding
-//   grows with the size of its partial sums, so short chains whose sums are
-//   added once each keep it near the plain version's (chip_smoke.py phase
-//   12 prints both against float64). The running tile lives in scratch
-//   because the 16 x 8 tile of a thread already takes 254 registers and the
-//   stages fill shared memory; its traffic is 64 KB a block at each segment
-//   end, against 2 x 16 x 128 x 64 FMAs a stage.
+//   split into segments of DF_SEG = 128: each segment's chain starts from 0
+//   and the segments are added pairwise, by a binary counter over running
+//   tiles in scratch (DF_LEVELS of them, the thread's own 128 floats each,
+//   so no other thread touches them): at the end of segment c (from 1) the
+//   tiles of the levels below c's lowest set bit are added in, earlier
+//   samples on the left, and the sum goes to that bit's level; after the
+//   last segment the levels of the set bits of c - 1 are added, lowest first.
+//   That is ((s0 + s1) + (s2 + s3)) + ... with the same scratch traffic as
+//   an in-order sum (one tile read and one written a segment on average).
+//   One ascending chain over all 1792 samples of n 3584 had put the kernel
+//   16x further from a float64 evaluation than cuBLAS's blocked sums;
+//   256-sample segments added in order still 2.5x at one candidate
+//   (chip_smoke.py phase 12 prints both against float64). The running tiles
+//   live in scratch because the 16 x 8 tile of a thread already takes 254
+//   registers and the stages fill shared memory; their traffic is 64 KB a
+//   block a level at each segment end, against 2 x 16 x 128 x 64 FMAs a stage.
 // * Each bin's term (the edge term edge_norm (-1)^k x[N/2], the magnitude,
-//   the squared difference) is summed by bin group: group g holds the bins
-//   with (k / 8) mod 8 = g, summed in ascending k from 0; then the eight group
-//   sums are added in group order, a group with no bins adding 0.
+//   the squared difference) is the plain version's float32 operations on U
+//   and V, and the terms are summed in double: a block's pass adds its 64
+//   terms to the group's double in scratch (the thread's own), and the last
+//   kernel adds the eight group sums in group order and rounds once to
+//   float32. The 1024 terms of n 2048 summed in float32 in each group's
+//   order had put a single candidate 26x further from float64 than the
+//   plain version; summed in double, only the rounding of U, V and the terms
+//   remains (chip_smoke.py phase 12 prints the kernel beside U and V rounded
+//   once to float32 with the rest in float64).
 // B1 and B2 share the three kernels and B5 runs B2's, so their fitness is
 // bit-equal whatever the order; nothing else depends on it.
 //
@@ -91,7 +100,8 @@
 #define DF_TM 16          // DFT: candidates of a thread's register tile (and 8 bins)
 #define DF_THREADS 128    // DFT: 64 threads for U, 64 for V
 #define DF_GROUPS 8       // DFT: bin groups, one a block (the fitness sums them in group order)
-#define DF_SEG 256        // DFT: samples a segment where the sample split applies
+#define DF_SEG 128        // DFT: samples a segment where the sample split applies
+#define DF_LEVELS 4       // DFT: running tiles of the pairwise segment sum (up to 16 segments)
 #define DF_SPLIT_ABOVE 512  // DFT: the split applies where N/2 is above this
 #define DF_RUN (DF_TM * 8)  // DFT: floats of a thread's running tile
 #define DF_ELD (DF_BN + 1)  // DFT epilogue: a row of U or V terms
@@ -103,6 +113,7 @@ static_assert(DF_THREADS / 2 == (DF_BM / DF_TM) * DF_TILES,
               "one DF_TM x 8 tile of U or V a thread");
 static_assert(DF_THREADS == DF_BM, "a thread a candidate in the epilogue");
 static_assert(DF_SEG % DF_BK == 0 && DF_RUN % 4 == 0, "whole stages a segment, float4 slots");
+constexpr int DF_MAX_SEGS = 1 << DF_LEVELS;  // segments the levels take: N/2 <= 2048
 
 // One candidate's row of f32 a+ or a- in device memory, for FoldEmit: a group
 // of 16 samples is 64 bytes. The 32 threads of a warp hold 32 consecutive
@@ -243,7 +254,7 @@ __global__ void __launch_bounds__(DF_THREADS, 2)
 f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
                const float* __restrict__ edge, const float* __restrict__ dft,
                const float* __restrict__ target, SynthParams sp, int pop_pad,
-               float* __restrict__ partial, float4* __restrict__ run_tiles) {
+               double* __restrict__ partial, float4* __restrict__ run_tiles) {
   constexpr int CH = DF_BK / 4;  // 16-byte copies a staged row
   constexpr int A_PER = DF_BM * CH / DF_THREADS, B_PER = DF_BN * CH / DF_THREADS;
   static_assert(DF_BM * CH % DF_THREADS == 0 && DF_BN * CH % DF_THREADS == 0, "copy split");
@@ -258,12 +269,12 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
   const int ksteps = half / DF_BK;
   // stages a segment: all of them unless the sample split applies
   const int seg_steps = half > DF_SPLIT_ABOVE ? DF_SEG / DF_BK : ksteps;
-  // the thread's running tile: float4 slot i (elements 4i .. 4i+3 of acc)
-  // at run[i * DF_THREADS], so a warp's slot accesses are 512 contiguous bytes
-  float4* run = run_tiles + (size_t)blockIdx.x * (DF_RUN / 4) * DF_THREADS + tid;
+  // the thread's running tile of level l: float4 slot i (elements 4i .. 4i+3
+  // of acc) at run[(l * DF_RUN / 4 + i) * DF_THREADS], so a warp's slot
+  // accesses are 512 contiguous bytes
+  float4* run = run_tiles + (size_t)blockIdx.x * DF_LEVELS * (DF_RUN / 4) * DF_THREADS + tid;
   const int q = tid % CH;  // this thread's 16-byte part of each row it copies
   const float my_edge = edge[c0 + tid];
-  float fit = 0.f;  // group g's sum of candidate c0 + tid
 
   for (int j0 = 0; j0 < mine; j0 += DF_TILES) {
     int bin[B_PER];  // the operand rows this thread copies in this pass
@@ -300,7 +311,7 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
       if (s < ksteps) load_stage(s);
       cp_async_commit();
     }
-    int next_fold = seg_steps;
+    int next_fold = seg_steps, seg = 0;  // seg: segments ended so far
     for (int ks = 0; ks < ksteps; ++ks) {
       cp_async_wait<DF_STAGES - 2>();
       __syncthreads();  // stage ks has landed; every thread is done with stage ks - 1
@@ -327,10 +338,14 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
           for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(b[j].y, a[i].y, acc[i][j]);
       }
       if (ks + 1 == next_fold && ks + 1 < ksteps) {  // a segment ends, not the last
-        if (next_fold > seg_steps) add_running(acc, run);
+        // the binary counter: add the levels below the lowest set bit of
+        // ++seg, then store the sum at that bit's level
+        int l = 0;
+        for (++seg; !((seg >> l) & 1); ++l) add_running(acc, run + l * (DF_RUN / 4) * DF_THREADS);
+        float4* dst = run + l * (DF_RUN / 4) * DF_THREADS;
 #pragma unroll
         for (int i = 0; i < DF_RUN / 4; ++i)
-          run[i * DF_THREADS] = make_float4(acc[i >> 1][(i & 1) * 4], acc[i >> 1][(i & 1) * 4 + 1],
+          dst[i * DF_THREADS] = make_float4(acc[i >> 1][(i & 1) * 4], acc[i >> 1][(i & 1) * 4 + 1],
                                             acc[i >> 1][(i & 1) * 4 + 2],
                                             acc[i >> 1][(i & 1) * 4 + 3]);
 #pragma unroll
@@ -340,7 +355,9 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
         next_fold += seg_steps;
       }
     }
-    if (ksteps > seg_steps) add_running(acc, run);  // the last segment
+    // the last segment: add the levels of seg's set bits, lowest first
+    for (int l = 0; l < DF_LEVELS; ++l)
+      if ((seg >> l) & 1) add_running(acc, run + l * (DF_RUN / 4) * DF_THREADS);
     cp_async_wait<0>();
     __syncthreads();  // the stages are free: U and V go to shared memory
     float(*E)[DF_ELD] = reinterpret_cast<float(*)[DF_ELD]>(smem_f) + (is_v ? DF_BM : 0);
@@ -349,10 +366,12 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
 #pragma unroll
       for (int j = 0; j < 8; ++j) E[tr + 8 * i][tc + 8 * j] = acc[i][j];
     __syncthreads();
-    // the epilogue: the edge term edge_norm (-1)^k x[N/2], magnitude, L2;
-    // terms in ascending k
+    // the epilogue: the edge term edge_norm (-1)^k x[N/2], magnitude, L2
+    // in float32 (the plain version's operations); terms in ascending k,
+    // added in double to the group's sum
     const float(*EU)[DF_ELD] = reinterpret_cast<const float(*)[DF_ELD]>(smem_f);
     const float(*EV)[DF_ELD] = EU + DF_BM;
+    double fit = 0.0;
     for (int p = 0; p < DF_BN; ++p) {
       const int jt = j0 + (p >> 3);
       if (jt >= mine) break;
@@ -362,48 +381,53 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
       const float v = EV[tid][p];
       const float mag = sqrtf(fadd(fmul(u, u), fmul(v, v)));
       const float dd = fsub(mag, __ldg(target + kk));
-      fit = fadd(fit, fmul(dd, dd));
+      fit = __dadd_rn(fit, (double)fmul(dd, dd));
     }
+    double* part = partial + (size_t)g * pop_pad + c0 + tid;  // the thread's own
+    *part = j0 ? __dadd_rn(*part, fit) : fit;
     __syncthreads();  // the next pass's copies overwrite U and V
   }
-  partial[(size_t)g * pop_pad + c0 + tid] = fit;
+  if (!mine) partial[(size_t)g * pop_pad + c0 + tid] = 0.0;  // a group with no bins
 }
 
-// fitness[c] = the eight group sums of candidate c added in group order, from 0.
+// fitness[c] = the eight group sums of candidate c added in double in group
+// order, from 0, rounded once to float32.
 __global__ void __launch_bounds__(SUM_TPB)
-f32_sum_kernel(const float* __restrict__ partial, int pop_pad, int pop,
+f32_sum_kernel(const double* __restrict__ partial, int pop_pad, int pop,
                float* __restrict__ fitness) {
   const int c = blockIdx.x * SUM_TPB + threadIdx.x;
   if (c >= pop) return;
-  float fit = 0.f;
+  double fit = 0.0;
 #pragma unroll
-  for (int g = 0; g < DF_GROUPS; ++g) fit = fadd(fit, partial[(size_t)g * pop_pad + c]);
-  fitness[c] = fit;
+  for (int g = 0; g < DF_GROUPS; ++g) fit = __dadd_rn(fit, partial[(size_t)g * pop_pad + c]);
+  fitness[c] = __double2float_rn(fit);
 }
 
 // ---- launcher -----------------------------------------------------------------
 
 // Floats of scratch for pop candidates at frames of n samples: a+ and a-
 // (pop_pad x N/2 each), the edge samples (pop_pad), the group sums
-// (DF_GROUPS x pop_pad) and, where the DFT splits the samples (N/2 above
-// DF_SPLIT_ABOVE), a running tile of DF_RUN floats for each thread of each
-// DFT block (DF_GROUPS x DF_RUN x pop_pad).
+// (DF_GROUPS x pop_pad doubles) and, where the DFT splits the samples (N/2
+// above DF_SPLIT_ABOVE), DF_LEVELS running tiles of DF_RUN floats for each
+// thread of each DFT block (DF_GROUPS x DF_LEVELS x DF_RUN x pop_pad).
 // kernels/synth_fitness.py::f32_scratch_floats is the same formula.
 static long long f32_scratch_floats(int pop, int n) {
   const long long pop_pad = (long long)(pop + DF_BM - 1) / DF_BM * DF_BM;
-  const long long run = n / 2 > DF_SPLIT_ABOVE ? (long long)DF_GROUPS * DF_RUN : 0;
-  return pop_pad * (n + 1 + DF_GROUPS + run);
+  const long long run = n / 2 > DF_SPLIT_ABOVE ? (long long)DF_GROUPS * DF_LEVELS * DF_RUN : 0;
+  return pop_pad * (n + 1 + 2 * DF_GROUPS + run);
 }
 
 // The plan of the three kernels for pop candidates (generation.cuh): the
 // synthesis's instantiation for the sine order and the chain length, with
 // B2's offspring prologue (GEN) or B1's parameters, the scratch's views and
 // the DFT kernel's shared memory. cudaErrorInvalidValue for too little
-// scratch or a frame whose half is not whole DF_BK-sample stages.
+// scratch, a frame whose half is not whole DF_BK-sample stages or one of
+// more segments than the running tiles' levels take.
 template <bool GEN>
 static int prepare_f32(const SynthParams& sp, int pop, float* scratch, long long scratch_floats,
                        F32Plan* plan) {
-  if (pop < 1 || scratch_floats < f32_scratch_floats(pop, sp.n) || (sp.n / 2) % DF_BK)
+  if (pop < 1 || scratch_floats < f32_scratch_floats(pop, sp.n) || (sp.n / 2) % DF_BK ||
+      sp.n / 2 > DF_MAX_SEGS * DF_SEG)
     return (int)cudaErrorInvalidValue;
   const int pop_pad = (pop + DF_BM - 1) / DF_BM * DF_BM;
   const size_t half = sp.n / 2;
@@ -412,8 +436,10 @@ static int prepare_f32(const SynthParams& sp, int pop, float* scratch, long long
   plan->ap = scratch;
   plan->am = plan->ap + (size_t)pop_pad * half;
   plan->edge = plan->am + (size_t)pop_pad * half;
-  plan->partial = plan->edge + pop_pad;
-  plan->run = sp.n / 2 > DF_SPLIT_ABOVE ? plan->partial + (size_t)DF_GROUPS * pop_pad : nullptr;
+  plan->partial = reinterpret_cast<double*>(plan->edge + pop_pad);  // pop_pad is even
+  plan->run = sp.n / 2 > DF_SPLIT_ABOVE
+                  ? reinterpret_cast<float*>(plan->partial + (size_t)DF_GROUPS * pop_pad)
+                  : nullptr;
   const int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
     return dispatch_chain(sp.kn, [&](auto kc) {
       plan->synth = f32_synth_kernel<decltype(nc)::value, decltype(kc)::value, GEN>;

@@ -35,7 +35,8 @@ typedef void (*F32SynthKernel)(const float* params, uint32_t seed, const float* 
 struct F32Plan {
   F32SynthKernel synth;
   int pop, pop_pad;
-  float *ap, *am, *edge, *partial;
+  float *ap, *am, *edge;
+  double* partial;  // the group sums
   float* run;  // the DFT's running U/V tiles where the sample split applies, else null
 };
 

@@ -13,8 +13,10 @@ kernel: B1 (``fused_kernel``), B3 (``synth_fold``, 4096 <= n <= 16384) or B4
 enqueues every generation's kernels from C. Nothing in the loop reads a
 device value back unless ``fitness_threshold`` asks for early stop.
 
-``match_audio`` has no ``benchmarker``, ``checkpoint_dir`` or ``mesh``
-argument yet (ROADMAP Queue A items 4, 9 and 10).
+``match_audio`` has no ``checkpoint_dir`` or ``mesh`` argument yet (ROADMAP
+Queue A items 9 and 10). Inside ``utils.debug.debug_nans(True)`` (the
+config's ``general.isDebug``) each generation's offspring and fitness and
+each chunk's best candidate are checked for NaN.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from ..device import resolve_device
 from ..kernels.evolve import fused_evolve
 from ..kernels.generation import fused_generation
 from ..ops import spectral, synthesis
+from ..utils.debug import check_finite
 from .config import ESConfig
 from .strategy import (
     ESState,
@@ -119,6 +122,8 @@ def generation_step(
         values, steps = recombine(gen, state.parent_values, state.parent_steps, cfg)
         values, steps = mutate(gen, values, steps, cfg)
         fitness = evaluate(values, target_spectrum, spectrum_ops, cfg)
+    check_finite("offspring values", values)
+    check_finite("fitness", fitness)
     pv, ps, pf = select(values, steps, fitness, cfg.num_parents)
     improved = pf[0] < state.best_fitness
     stall = torch.where(improved, 0, state.stall + 1).to(torch.int32)
@@ -316,13 +321,19 @@ def match_audio(
     seed: int = 0,
     num_generations: int = 1000,
     record_trajectory: bool = False,
+    benchmarker=None,
     *,
     device: str | torch.device = "cuda",
 ) -> MatchResult:
     """Match FM parameters chunk by chunk over a target waveform: chunks of
     ``cfg.n_samples`` (a remainder is ignored, as in the reference), a fresh
     population per chunk, the best candidate of each chunk resynthesised with
-    ``cfg.synthesis_engine`` into the output audio."""
+    ``cfg.synthesis_engine`` into the output audio.
+
+    ``benchmarker`` (a ``utils.benchmarker.Benchmarker``) records each
+    chunk's wall time under "chunk" and the whole match under "Total Audio
+    Analysis Time", as the reference does; a chunk's time ends when its
+    results are on the host."""
     dev = resolve_device(device)
     n = cfg.n_samples
     num_chunks = len(target_audio) // n
@@ -339,12 +350,17 @@ def match_audio(
     maxs = torch.tensor(cfg.param_maxs, dtype=torch.float32, device=dev)
     target = np.asarray(target_audio, np.float32)
     results, out_audio = [], []
+    if benchmarker is not None:
+        benchmarker.start_timer("Total Audio Analysis Time")
     for i in range(num_chunks):
+        if benchmarker is not None:
+            benchmarker.start_timer("chunk")
         frame = torch.from_numpy(np.ascontiguousarray(target[i * n : (i + 1) * n])).to(dev)
         state = init_state(_chunk_seed(seed, i), cfg, device=dev)
         final, traj, start = _evolve_on_target(
             state, frame, num_generations, so, cfg, record_trajectory, refine_ops
         )
+        check_finite("best candidate", final.best_values)
         best_scaled = synthesis.scale_params(final.best_values, mins, maxs)
         best_audio = synthesis.synthesize(
             best_scaled[None, :], n, cfg.topology, wavetable_size=cfg.wavetable_size,
@@ -359,4 +375,8 @@ def match_audio(
             refine_start_fitness=None if start is None else float(start),
         ))
         out_audio.append(best_audio.cpu().numpy())
+        if benchmarker is not None:
+            benchmarker.pause_timer("chunk")
+    if benchmarker is not None:
+        benchmarker.pause_timer("Total Audio Analysis Time")
     return MatchResult(chunks=results, output_audio=np.concatenate(out_audio), config=cfg)

@@ -7,8 +7,10 @@ kernels' in-kernel draws use Philox (kernels/generation.py).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -57,16 +59,61 @@ def init_state(seed: int, cfg: ESConfig, *, device: str | torch.device = "cuda")
     )
 
 
+def _compat_shuffle_index(pop: int, dims: int, wg_size: int, num_parents: int) -> np.ndarray:
+    """The reference's deterministic workgroup shuffle as one flat gather
+    index (a copy of ``pmfm_tpu/es/strategy.py::_compat_shuffle_index``):
+    offspring workgroup ``g`` aliases parent block ``g % NUM_WGS_FOR_PARENTS``;
+    within the block, flat gene ``j`` of lane ``l`` moves to
+    ``(l*D + shift) % (WG*D)`` with ``shift = D * (i * (g+1))`` for dimension
+    counter ``i``. The workgroup shrinks to mu where it is larger, as in the
+    reference, so that the aliasing is defined."""
+    wg_size = min(wg_size, num_parents)
+    if pop % wg_size or num_parents % wg_size:
+        raise ValueError(
+            f"compat_shuffle needs wg_size|pop and wg_size|num_parents, "
+            f"got wg={wg_size}, pop={pop}, mu={num_parents}"
+        )
+    num_wgs_for_parents = max(num_parents // wg_size, 1)
+    block = wg_size * dims
+    src = np.empty(pop * dims, np.int64)
+    for g in range(pop // wg_size):
+        base_src = (g % num_wgs_for_parents) * block  # parent block this group reads
+        base_dst = g * block
+        # invert the scatter: dst[new_idx] = src[start_idx]
+        for lane in range(wg_size):
+            start = lane * dims
+            for i in range(dims):
+                new_idx = (start + i + dims * (i * (g + 1))) % block
+                src[base_dst + new_idx] = base_src + start + i
+    return src
+
+
+@functools.lru_cache(maxsize=8)
+def _compat_index_on(pop: int, dims: int, wg_size: int, num_parents: int, device: str):
+    return torch.from_numpy(_compat_shuffle_index(pop, dims, wg_size, num_parents)).to(device)
+
+
 def recombine(gen: torch.Generator, parent_values, parent_steps, cfg: ESConfig):
-    """Discrete recombination ("gather" mode): every gene of every offspring
-    is copied from a uniformly random parent. Other modes are not ported."""
-    if cfg.recombine_mode != "gather":
-        raise NotImplementedError(f"recombine_mode {cfg.recombine_mode!r} is not ported yet")
+    """Recombination of the mu parents into ``P`` offspring, by
+    ``cfg.recombine_mode``: ``"gather"``, every gene of every offspring copied
+    from a uniformly random parent; ``"compat_shuffle"``, the reference
+    OpenCL kernel's deterministic workgroup shuffle (``_compat_shuffle_index``;
+    no draws); ``"off"``, the parents tiled (an ablation)."""
     pop, d = cfg.population_size, cfg.num_dimensions
     mu = parent_values.shape[0]
-    idx = torch.randint(0, mu, (pop, d), generator=gen, device=parent_values.device)
-    col = torch.arange(d, device=parent_values.device)[None, :]
-    return parent_values[idx, col], parent_steps[idx, col]
+    dev = parent_values.device
+    if cfg.recombine_mode == "gather":
+        idx = torch.randint(0, mu, (pop, d), generator=gen, device=dev)
+        col = torch.arange(d, device=dev)[None, :]
+        return parent_values[idx, col], parent_steps[idx, col]
+    if cfg.recombine_mode == "compat_shuffle":
+        # source indices address only the parent slice, so gather straight
+        # from the flattened parents
+        flat = _compat_index_on(pop, d, cfg.workgroup_size, cfg.num_parents, str(dev))
+        return (parent_values.reshape(-1)[flat].reshape(pop, d),
+                parent_steps.reshape(-1)[flat].reshape(pop, d))
+    reps = -(-pop // mu)
+    return parent_values.repeat(reps, 1)[:pop], parent_steps.repeat(reps, 1)[:pop]
 
 
 def _gauss(gen: torch.Generator, shape, mode: str, device) -> torch.Tensor:
@@ -159,12 +206,17 @@ def active_engine(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> str:
       fused_generation -- kernel B2 (offspring + evaluation in one launch);
       fused_kernel -- torch recombine/mutate + kernel B1;
       synth_fold -- torch offspring, kernel B3, folded DFT in torch;
-      synth_stream -- torch offspring, kernel B4, factored DFT in torch.
+      synth_stream -- torch offspring, kernel B4, factored DFT in torch;
+      xla_folded_dft -- scan or scanless synthesis (the scan kernel on the
+        card), the folded bf16 or int8 DFT in torch;
+      xla_dft / xla_dft_factored / xla_rfft -- the same synthesis, the
+        spectrum method's plain path (cuBLAS, cuFFT).
 
-    The reference's XLA-path engines are not ported and raise. Unlike the
-    reference, which reports ``fused_kernel`` for a fused_generation config
-    on its CPU backend, the port names ``fused_generation`` on any device
-    (its CPU path runs B2's plain version)."""
+    Multi-frame fitness (the reference's ``xla_stft``) raises: ROADMAP Queue A
+    item 6. Unlike the reference, which reports ``fused_kernel`` for a
+    fused_generation config on its CPU backend, the port names
+    ``fused_generation`` on any device (its CPU path runs B2's plain
+    version)."""
     if _fused_ok(cfg, spectrum_ops):
         if cfg.fused_generation and cfg.gauss_sigma == 1.0 / 6.0:
             return "fused_generation"
@@ -173,16 +225,23 @@ def active_engine(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> str:
         return "synth_fold"
     if _synth_stream_ok(cfg, spectrum_ops):
         return "synth_stream"
-    raise NotImplementedError(
-        "only the kernel engines are ported: set fused_kernel or fused_generation with "
-        "spectrum_method 'dft' and n a multiple of 256 (of 128 above 16384)"
-    )
+    if cfg.num_frames > 1:
+        raise NotImplementedError(
+            "num_frames > 1 (the xla_stft engine, multi-frame STFT fitness) is not ported yet: "
+            "ROADMAP Queue A item 6 (A6)")
+    if (cfg.spectrum_method == "dft" and spectrum_ops.dft_packed is not None
+            and cfg.dft_dtype in ("bfloat16", "int8")):
+        return "xla_folded_dft"
+    return f"xla_{spectrum_ops.method}"
 
 
 def evaluate(values, target_spectrum, spectrum_ops: spectral.SpectrumOps, cfg: ESConfig):
     """Scale -> synthesise -> window + DFT + magnitude -> L2, on the engine
-    ``active_engine`` names: B1 (fused), B3 + the folded DFT (synth_fold) or
-    B4 + the factored DFT (synth_stream)."""
+    ``active_engine`` names: B1 (fused), B3 + the folded DFT (synth_fold),
+    B4 + the factored DFT (synth_stream), or the unfused engines: synthesis by
+    ``cfg.synthesis_engine`` (bf16 audio in the bf16 and int8 configs, as the
+    reference emits it) and the folded DFT, the matmul DFT, the factored DFT
+    or rfft."""
     engine = active_engine(cfg, spectrum_ops)
     dev = values.device
     mins = torch.tensor(cfg.param_mins, dtype=torch.float32, device=dev)
@@ -198,7 +257,8 @@ def evaluate(values, target_spectrum, spectrum_ops: spectral.SpectrumOps, cfg: E
     if engine == "synth_fold":
         ap, am, edge, ms = fused_synth_fold(scaled, dft_scale=spectrum_ops.dft_packed_scale, **kw)
         spectra = spectral.magnitude_spectrum_prefolded(ap, am, edge, ms, spectrum_ops)
-    else:
+        return spectral.spectral_fitness(spectra, target_spectrum)
+    if engine == "synth_stream":
         # f32 audio for the true-f32 engine; the bf16 and int8 configs stream
         # bf16 (the factored DFT has no int8 operand, as in the reference)
         audio_w = fused_synth_stream(
@@ -206,7 +266,16 @@ def evaluate(values, target_spectrum, spectrum_ops: spectral.SpectrumOps, cfg: E
             audio_f32=spectrum_ops.dft_dtype == torch.float32, **kw,
         )
         spectra = spectral.magnitude_spectrum_factored(audio_w, spectrum_ops, prewindowed=True)
-    return spectral.spectral_fitness(spectra, target_spectrum)
+        return spectral.spectral_fitness(spectra, target_spectrum)
+    audio = synthesis.synthesize(
+        scaled, cfg.n_samples, cfg.topology, wavetable_size=cfg.wavetable_size,
+        sample_rate=cfg.sample_rate, osc_mode=cfg.osc_mode, engine=cfg.synthesis_engine,
+        out_dtype=torch.bfloat16 if cfg.dft_dtype in ("bfloat16", "int8") else torch.float32,
+    )
+    if engine == "xla_folded_dft":
+        spectra = spectral.magnitude_spectrum_folded(audio, spectrum_ops)
+        return spectral.spectral_fitness(spectra, target_spectrum)
+    return spectral.evaluate_fitness(audio, target_spectrum, spectrum_ops)
 
 
 def select(values, steps, fitness, mu: int):

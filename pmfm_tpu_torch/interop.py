@@ -75,9 +75,9 @@ def spectrum_ops_from_numpy(
     """``SpectrumOps`` from the reference operands. bfloat16 arrays (numpy
     dtype ``bfloat16``, 2 bytes) keep their bits. ``dft_dtype`` names the
     engine's dtype (``np.dtype(so.dft_dtype).name``; it defaults to that of
-    ``dft_cos``); ``factored`` is the reference's ``FactoredOps`` as a
-    mapping of its fields (``so.factored._asdict()``) for the
-    ``"dft_factored"`` method."""
+    ``dft_cos``, float32 for the rfft method, which has none); ``factored``
+    is the reference's ``FactoredOps`` as a mapping of its fields
+    (``so.factored._asdict()``) for the ``"dft_factored"`` method."""
     dev = resolve_device(device)
 
     def t(a):
@@ -90,7 +90,7 @@ def spectrum_ops_from_numpy(
 
     cos = t(dft_cos)
     if dft_dtype is None:
-        dtype = cos.dtype
+        dtype = torch.float32 if cos is None else cos.dtype
     else:
         dtype = torch.bfloat16 if str(dft_dtype) in ("bfloat16", "int8") else torch.float32
     fo = None

@@ -1,11 +1,11 @@
 """Audio file I/O (port of ``pmfm_tpu/io/wav.py``, numpy only): WAV and AIFF
-read, WAV write.
+read, WAV write, and ``resample`` (bandlimited sample-rate conversion).
 
 PCM 16/24/32-bit and IEEE float32 WAV, PCM 8/16/24/32 AIFF, mono or
 multichannel (averaged to mono on read). Unsupported encodings raise with
 the format code in the message. The reference's optional native codec
-(``pmfm_tpu/native``) and its ``resample`` are not ported: this is its
-pure-numpy path, which it documents as the behavioural spec.
+(``pmfm_tpu/native``) is not ported: this is its pure-numpy path, which it
+documents as the behavioural spec.
 """
 from __future__ import annotations
 
@@ -157,6 +157,43 @@ def read_audio(path: str | os.PathLike) -> tuple[np.ndarray, int]:
         f"{path}: unrecognised audio container "
         f"(magic {magic[:4]!r}/{magic[8:12]!r}; WAV and AIFF are supported)"
     )
+
+
+def resample(
+    audio: np.ndarray, sr_from: int, sr_to: int, taps: int = 64
+) -> np.ndarray:
+    """Bandlimited sample-rate conversion: Kaiser-windowed-sinc
+    interpolation evaluated at the true output sample times (beta=8.6,
+    ~90 dB stopband; anti-alias cutoff scaled when downsampling). Used when
+    a target file's rate differs from the config's ``sampleRate`` so
+    matching happens at the synthesis engine's rate instead of silently
+    reinterpreting samples at the wrong rate (round-1 behaviour)."""
+    if sr_from == sr_to:
+        return np.asarray(audio, np.float32)
+    x = np.asarray(audio, np.float64)
+    n = len(x)
+    # round, don't floor: a 2048-sample chunk must survive a 44.1k->48k->
+    # 44.1k round trip as 2048 samples (floor loses one and a one-chunk
+    # target would then be "shorter than one chunk")
+    n_out = int(round(n * sr_to / float(sr_from)))
+    c = min(1.0, sr_to / float(sr_from))  # anti-alias cutoff (in/out Nyquist)
+    beta = 8.6
+    i0b = np.i0(beta)
+    offs = np.arange(-(taps // 2) + 1, taps // 2 + 1, dtype=np.float64)
+    step = sr_from / float(sr_to)
+    y = np.empty(n_out, np.float64)
+    half = taps / 2.0
+    for j0 in range(0, n_out, 1 << 16):  # block to bound the (B, taps) matrix
+        j = np.arange(j0, min(j0 + (1 << 16), n_out), dtype=np.float64)
+        t = j * step  # output sample positions, in input-sample units
+        k0 = np.floor(t)
+        idx = (k0[:, None] + offs[None, :]).astype(np.int64)
+        d = t[:, None] - idx  # in (-taps/2, taps/2]
+        w = np.sinc(c * d) * np.i0(beta * np.sqrt(np.maximum(0.0, 1.0 - (d / half) ** 2))) / i0b
+        valid = (idx >= 0) & (idx < n)
+        xi = np.where(valid, x[np.clip(idx, 0, n - 1)], 0.0)
+        y[int(j0) : int(j0) + len(j)] = c * np.sum(xi * w, axis=1)
+    return np.ascontiguousarray(y, np.float32)
 
 
 def write_wav(

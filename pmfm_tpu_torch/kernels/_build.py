@@ -2,7 +2,8 @@
 
 The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_f32.cu``:
 B1, B2 true f32; ``evolve.cu``: B5, which runs B2's kernels through
-``generation.cuh``; ``large_frame.cu``: B3, B4; ``evaluate.cuh``: B2's
+``generation.cuh``; ``large_frame.cu``: B3, B4; ``scan_synth.cu``: the scan
+synthesis of the unfused engines; ``evaluate.cuh``: B2's
 offspring genes; ``synth_common.cuh``: the synthesis B1-B4 share and the
 fold emitter of B1, B2 and B3) have a plain
 C interface and include no PyTorch header, so ``nvcc`` compiles them, one
@@ -69,6 +70,21 @@ class MutateParams(ctypes.Structure):
         ("min_step", ctypes.c_float),
         ("mins", ctypes.c_float * MAX_D),
         ("ranges", ctypes.c_float * MAX_D),
+    ]
+
+
+class ScanParams(ctypes.Structure):
+    """Mirror of ``struct ScanParams`` in csrc/scan_synth.cu."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("pop", ctypes.c_int),
+        ("k", ctypes.c_int),
+        ("w2sr", ctypes.c_float),
+        ("size", ctypes.c_float),
+        ("scale", ctypes.c_float),
+        ("inv_k", ctypes.c_float),
+        ("table_max", ctypes.c_int),
     ]
 
 
@@ -172,6 +188,8 @@ def library() -> ctypes.CDLL:
     lib.pmfm_synth_fold.restype = ci
     lib.pmfm_synth_stream.argtypes = [vp, ci, SynthParams, vp, vp, ci, vp, cll, vp]
     lib.pmfm_synth_stream.restype = ci
+    lib.pmfm_scan_synth.argtypes = [vp, ci, ci, ci, ScanParams, vp, vp, vp]
+    lib.pmfm_scan_synth.restype = ci
     lib.pmfm_error_string.argtypes = [ci]
     lib.pmfm_error_string.restype = ctypes.c_char_p
     return lib

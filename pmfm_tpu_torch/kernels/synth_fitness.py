@@ -70,7 +70,8 @@ F32_DFT_PASS_TILES = 8  # csrc DF_TILES: bin tiles of 8 per pass of a DFT block
 F32_SUM_THREADS = 256  # csrc SUM_TPB
 F32_DFT_SHARED_BYTES = 92160  # csrc DF_SMEM: the f32 DFT block's stages, whatever the frame
 F32_DFT_SPLIT_ABOVE = 512  # csrc DF_SPLIT_ABOVE: the f32 DFT splits the samples where N/2 is above
-F32_DFT_SEG = 256  # csrc DF_SEG: samples a segment of the split
+F32_DFT_SEG = 128  # csrc DF_SEG: samples a segment of the split
+F32_DFT_LEVELS = 4  # csrc DF_LEVELS: running tiles of the pairwise segment sum
 F32_DFT_RUN = 128  # csrc DF_RUN: floats of a DFT thread's running tile (its 16 x 8 U or V)
 MAX_SHARED_BYTES = 232448  # shared memory one block of an H100 can use
 # the fused kernels' frame limit: the reference routes larger frames to B3
@@ -342,7 +343,8 @@ def f32_dft_segments(n: int) -> int:
     """Segments the f32 DFT sums each bin's U and V in (csrc
     ``f32_dft_kernel``): 1 where N/2 <= ``F32_DFT_SPLIT_ABOVE``, else
     ``F32_DFT_SEG``-sample segments (the last may be shorter), each a chain
-    from 0, added to a running tile in scratch in segment order."""
+    from 0, added pairwise through ``F32_DFT_LEVELS`` running tiles in
+    scratch."""
     half = n // 2
     return 1 if half <= F32_DFT_SPLIT_ABOVE else -(-half // F32_DFT_SEG)
 
@@ -350,11 +352,12 @@ def f32_dft_segments(n: int) -> int:
 def f32_scratch_floats(pop: int, n: int) -> int:
     """Floats of scratch the true-f32 B1/B2 take (csrc ``f32_scratch_floats``):
     a+ and a- (padded pop x N/2 each), the edge samples, the ``F32_GROUPS``
-    group sums of each padded candidate and, where the DFT splits the
-    samples, a running tile of ``F32_DFT_RUN`` floats for each thread of
-    each DFT block (``F32_GROUPS`` x ``F32_DFT_RUN`` a padded candidate)."""
-    run = F32_GROUPS * F32_DFT_RUN if f32_dft_segments(n) > 1 else 0
-    return f32_pop_pad(pop) * (n + 1 + F32_GROUPS + run)
+    double group sums of each padded candidate and, where the DFT splits the
+    samples, ``F32_DFT_LEVELS`` running tiles of ``F32_DFT_RUN`` floats for
+    each thread of each DFT block (``F32_GROUPS`` x ``F32_DFT_LEVELS`` x
+    ``F32_DFT_RUN`` a padded candidate)."""
+    run = F32_GROUPS * F32_DFT_LEVELS * F32_DFT_RUN if f32_dft_segments(n) > 1 else 0
+    return f32_pop_pad(pop) * (n + 1 + 2 * F32_GROUPS + run)
 
 
 def f32_geometry(pop: int, n: int, k: int) -> dict:

@@ -8,12 +8,14 @@ from .spectral import (
     hann_window,
     magnitude_spectrum,
     magnitude_spectrum_factored,
+    magnitude_spectrum_folded,
     magnitude_spectrum_prefolded,
     make_spectrum_ops,
     spectral_fitness,
     target_spectrum,
     window_factor,
 )
+from .oracle import OracleObjective, scale_params_np
 from .synthesis import TOPOLOGY_DIMS, scale_params, synthesize, synthesize_single
 from .wavetable import (
     DEFAULT_SAMPLE_RATE,
@@ -29,6 +31,7 @@ __all__ = [
     "DEFAULT_WAVETABLE_SIZE",
     "TOPOLOGY_DIMS",
     "FactoredOps",
+    "OracleObjective",
     "SpectrumOps",
     "build_wavetable",
     "default_num_bins",
@@ -37,10 +40,12 @@ __all__ = [
     "hann_window",
     "magnitude_spectrum",
     "magnitude_spectrum_factored",
+    "magnitude_spectrum_folded",
     "magnitude_spectrum_prefolded",
     "make_osc",
     "make_spectrum_ops",
     "scale_params",
+    "scale_params_np",
     "spectral_fitness",
     "synthesize",
     "synthesize_scanless",

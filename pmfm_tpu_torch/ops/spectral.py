@@ -1,5 +1,6 @@
 """Windowing, magnitude spectra and the L2 spectral fitness (port of
-``pmfm_tpu/ops/spectral.py``, the ``"dft"`` and ``"dft_factored"`` methods).
+``pmfm_tpu/ops/spectral.py``: the ``"dft"``, ``"dft_factored"`` and
+``"rfft"`` methods).
 
 * Hann-like window ``w[i] = 1 - cos(i * (1/N - 1) * 2*pi)`` in float64.
 * ``windowFactor = sum(w)/N``; magnitudes are normalised by
@@ -17,19 +18,25 @@ trig)`` and the normalisation moves to ``dft_packed_scale``; these bytes are
 built by the same numpy code as the reference, so they match it exactly.
 ``magnitude_spectrum_prefolded`` contracts the synth_fold kernel's (B3)
 folded audio against it: exactly in int32 for int8 (``torch._int_mm`` on the
-card), in float32 from bf16 operands otherwise.
+card), in float32 from bf16 operands otherwise; ``magnitude_spectrum_folded``
+folds and quantises unfused audio in torch first (the ``xla_folded_dft``
+engine).
 
 ``"dft_factored"`` (above it): the four-step factored DFT (``FactoredOps``),
 two matmul stages with an O(N) twiddle between them, fed by the synth_stream
 kernel (B4) with audio it has already windowed.
 
-The rfft method, the multi-frame spectra and the operand disk cache are not
-ported yet (ROADMAP Queue A items 3, 6 and 7); where the reference would fall back
-to rfft, ``make_spectrum_ops`` raises ``NotImplementedError``.
+``"rfft"``: ``torch.fft.rfft`` of the windowed float32 audio (cuFFT on the
+card), where ``"auto"`` and non-factorable ``"dft"`` requests fall back to it
+as in the reference.
+
+The multi-frame spectra and the operand disk cache are not ported yet
+(ROADMAP Queue A items 6 and 7).
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -37,7 +44,7 @@ import torch
 
 from ..device import exact_f32_matmul, resolve_device
 
-SPECTRUM_METHODS = ("dft", "dft_factored", "auto")
+SPECTRUM_METHODS = ("rfft", "dft", "dft_factored", "auto")
 DFT_DTYPES = ("float32", "bfloat16", "int8")
 
 # The engine ladder's thresholds are the reference's, measured on a TPU v5e
@@ -198,14 +205,14 @@ def _to_tensor(a: np.ndarray, bf16: bool, device) -> torch.Tensor:
 
 
 def resolve_method(n: int, num_bins: int, method: str, dft_dtype: str) -> str:
-    """The spectrum engine ``make_spectrum_ops`` builds for a request: the
-    reference's resolution (``"auto"``; ``"dft"`` above
-    ``DFT_MAX_MATERIALIZE_N`` becomes ``"dft_factored"``). Where the
-    reference would fall back to rfft this raises ``NotImplementedError``."""
+    """The spectrum engine ``make_spectrum_ops`` builds for a request, as the
+    reference resolves it: ``"auto"`` takes the matmul DFT up to
+    ``AUTO_DFT_MAX_N`` (``DFT_MAX_MATERIALIZE_N`` in the bf16 and int8
+    configs), the factored DFT above ``DFT_MAX_MATERIALIZE_N`` where the frame
+    factors, else ``"rfft"``; ``"dft"`` above ``DFT_MAX_MATERIALIZE_N`` becomes
+    ``"dft_factored"``, or ``"rfft"`` with a warning where it does not factor."""
     if method not in SPECTRUM_METHODS:
-        raise NotImplementedError(
-            f"spectrum method {method!r} is not ported yet (one of {SPECTRUM_METHODS})"
-        )
+        raise ValueError(f"method must be one of {SPECTRUM_METHODS}, got {method!r}")
     factorable = n >= 16 and not (n & (n - 1)) and num_bins <= n // 2
     if method == "auto":
         limit = DFT_MAX_MATERIALIZE_N if dft_dtype in ("int8", "bfloat16") else AUTO_DFT_MAX_N
@@ -214,14 +221,18 @@ def resolve_method(n: int, num_bins: int, method: str, dft_dtype: str) -> str:
         elif n > DFT_MAX_MATERIALIZE_N and factorable:
             method = "dft_factored"
         else:
-            raise NotImplementedError(f"n={n}: 'auto' resolves to rfft, which is not ported yet")
+            method = "rfft"
     if method == "dft" and n > DFT_MAX_MATERIALIZE_N:
-        if not factorable:
-            raise NotImplementedError(
-                f"n={n}, num_bins={num_bins}: 'dft' above DFT_MAX_MATERIALIZE_N does not "
-                f"factor and falls back to rfft, which is not ported yet"
+        if factorable:
+            method = "dft_factored"
+        else:
+            warnings.warn(
+                f"spectrum method 'dft' at n={n} exceeds the operand materialisation limit "
+                f"(DFT_MAX_MATERIALIZE_N={DFT_MAX_MATERIALIZE_N}) and the size/band does not "
+                f"factor; falling back to rfft (different numerics)",
+                stacklevel=3,
             )
-        method = "dft_factored"
+            method = "rfft"
     if method == "dft_factored" and not factorable:
         raise ValueError(
             f"dft_factored needs a power-of-two n >= 16 and num_bins <= n/2 "
@@ -260,7 +271,7 @@ def make_spectrum_ops(
     dft_packed_scale = 0.0
     if method == "dft_factored":
         factored = _build_factored_operands(n, norm, dev)
-    else:
+    elif method == "dft":
         if int8_mode and n % 2:
             raise ValueError("the int8 folded engine needs even n")
         cos_out, sin_out, packed = _build_dft_operands(n, num_bins, w, norm, int8_mode, dft_dtype)
@@ -317,13 +328,64 @@ def magnitude_spectrum(audio_tm: torch.Tensor, ops: SpectrumOps) -> torch.Tensor
     ``"dft"``: the audio is rounded to the operand dtype first (bf16 in the
     bf16 and int8 configs, as the reference does) and contracted with float32
     accumulation. ``"dft_factored"``: ``magnitude_spectrum_factored``.
+    ``"rfft"``: ``|rfft(w * a)| * norm`` in float32 (cuFFT on the card).
     """
+    if ops.method == "rfft":
+        windowed = audio_tm.to(torch.float32) * ops.window[:, None]
+        spec = torch.fft.rfft(windowed, dim=0)[: ops.num_bins]  # (bins, pop)
+        return (torch.abs(spec) * float(np.float32(ops.norm))).T
     if ops.method == "dft_factored":
         return magnitude_spectrum_factored(audio_tm, ops)
     a = audio_tm.to(ops.dft_dtype)
     re = matmul_f32(a.T, ops.dft_cos)
     im = matmul_f32(a.T, ops.dft_sin)
     return torch.sqrt(re * re + im * im)
+
+
+def magnitude_spectrum_folded(audio_tm: torch.Tensor, ops: SpectrumOps) -> torch.Tensor:
+    """Normalised magnitude spectrum ``(pop, num_bins)`` of unfused ``(N, pop)``
+    audio through the FOLDED operand (the reference's ``xla_folded_dft``
+    engine): ``a+/-[m] = x[m] +- x[N-m]`` (``a+/-[0] = x[0]``), each contracted
+    against its half of ``dft_packed``, and the ``x[N/2]`` edge term.
+
+    int8 operand (``ops.dft_packed_scale > 0``): each candidate's a+/- and
+    edge are quantised at 127 LSB to its folded peak (round half to even),
+    the sums are exact in int32 (``prefolded_uv``: ``torch._int_mm`` on the
+    card), the edge enters as ``127 (-1)^k`` times the quantised edge and
+    the magnitude is rescaled by ``norm / 63.5 * peak / 127``. bf16 operand:
+    a+/- rounded to bf16, float32 sums of exact products, edge coefficient
+    ``2 norm (-1)^k``."""
+    if ops.dft_packed is None:
+        raise ValueError("the folded path needs SpectrumOps.dft_packed (even n)")
+    n, k = ops.n, ops.num_bins
+    half = n // 2
+    x = audio_tm.to(torch.float32)
+    xr = torch.cat([x[0:1], x[1:].flip(0)])[:half]
+    # candidate-major (pop, N/2): prefolded_uv's operand layout
+    a_plus = (x[:half] + xr).T.contiguous()
+    a_minus = (x[:half] - xr).T.contiguous()
+    edge = x[half]
+    kpar = 1.0 - 2.0 * (torch.arange(k, device=x.device) % 2).to(torch.float32)
+    if ops.dft_packed_scale > 0.0:
+        peak = torch.maximum(
+            a_plus.abs().amax(dim=1),
+            torch.maximum(a_minus.abs().amax(dim=1), edge.abs()),
+        )
+        scale = torch.full_like(peak, 127.0) / torch.clamp_min(peak, 1e-30)
+        qp = torch.round(a_plus * scale[:, None]).to(torch.int8)
+        qm = torch.round(a_minus * scale[:, None]).to(torch.int8)
+        u, v = prefolded_uv(qp.T, qm.T, ops)
+        u, v = u.to(torch.float32), v.to(torch.float32)
+        eq = torch.round(edge * scale)
+        u = u + eq[:, None] * (127.0 * kpar)[None, :]
+        rescale = (float(np.float32(ops.norm / 63.5)) * peak) / torch.full_like(peak, 127.0)
+        return torch.sqrt(u * u + v * v) * rescale[:, None]
+    qp, qm = a_plus.to(torch.bfloat16), a_minus.to(torch.bfloat16)
+    packed = ops.dft_packed
+    u = matmul_f32(qp, packed[:k].T)
+    v = matmul_f32(qm, packed[k:].T)
+    u = u + edge[:, None] * (2.0 * float(np.float32(ops.norm)) * kpar)[None, :]
+    return torch.sqrt(u * u + v * v)
 
 
 # working-set budget of one factored-DFT population chunk (the reference's:

@@ -10,9 +10,10 @@ is the batch axis. Audio is time-major ``(n_samples, pop)``.
 * ``fm{k}_parallel`` — k independent 2-op pairs averaged (k >= 2), 4k params
 
 Two engines: ``scan``, the sequential recurrence (the reference's bit-parity
-path, a Python loop over samples), and ``scanless`` (``ops/scanless.py``),
-the blocked prefix-sum form that the large-frame configs use for their
-target and their resynthesised best candidate.
+path: ``kernels/scan.py``, a CUDA kernel on the card and its plain
+loop over samples on the CPU), and ``scanless`` (``ops/scanless.py``), the
+blocked prefix-sum form that the large-frame configs use for their target
+and their resynthesised best candidate.
 """
 from __future__ import annotations
 
@@ -20,13 +21,7 @@ import re
 
 import torch
 
-from .wavetable import (
-    DEFAULT_SAMPLE_RATE,
-    DEFAULT_WAVETABLE_SIZE,
-    make_osc,
-    wrap_pos,
-    wrap_pos_both,
-)
+from .wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 
 TOPOLOGY_DIMS = {"fm2": 4, "fm3_series": 6, "fm3_parallel": 12}
 _SERIES_RE = re.compile(r"^fm(\d+)_series$")
@@ -83,9 +78,10 @@ def synthesize(
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Batched FM synthesis of ``(pop, dims)`` scaled parameters into
-    ``(n_samples, pop)`` audio: by the sequential recurrence (``engine="scan"``)
-    or the blocked prefix sums of ``ops/scanless.py`` (``"scanless"``, which
-    ignores ``osc_mode`` and ``wavetable``)."""
+    ``(n_samples, pop)`` audio: by the sequential recurrence (``engine="scan"``,
+    ``kernels/scan.py::scan_synth``) or the blocked prefix sums of
+    ``ops/scanless.py`` (``"scanless"``, which ignores ``osc_mode`` and
+    ``wavetable``)."""
     want = topology_dims(topology)
     if params_scaled.shape[-1] != want:
         raise ValueError(f"topology {topology} needs {want} dims, got {params_scaled.shape[-1]}")
@@ -98,70 +94,12 @@ def synthesize(
         )
     if engine != "scan":
         raise ValueError(f"engine must be 'scan' or 'scanless', got {engine!r}")
-    p = params_scaled.to(torch.float32)
-    osc = make_osc(osc_mode, wavetable_size, wavetable)
-    w2sr = float(torch.tensor(wavetable_size / float(sample_rate), dtype=torch.float32))
-    size = float(wavetable_size)
-    pop = p.shape[0]
-    zeros = torch.zeros((pop,), dtype=torch.float32, device=p.device)
+    from ..kernels.scan import scan_synth
 
-    if topology == "fm2":
-        mod_depth = p[:, 0] * p[:, 1]
-        carrier_freq = p[:, 2]
-        amp = p[:, 3]
-        inc1 = w2sr * p[:, 0]
-
-        def step(carry):
-            pos1, pos2 = carry
-            cur = osc(pos1) * mod_depth + carrier_freq
-            pos1 = wrap_pos(pos1 + inc1, size)
-            out = osc(pos2) * amp
-            pos2 = wrap_pos_both(pos2 + w2sr * cur, size)
-            return (pos1, pos2), out
-
-        carry = (zeros, zeros)
-    elif series_ops(topology):
-        kn = series_ops(topology)
-        ms = [p[:, 2 * j] * p[:, 2 * j + 1] for j in range(kn)]
-        cs = [p[:, 2 * j + 3] for j in range(kn - 1)]
-        inc1 = w2sr * p[:, 1]
-
-        def step(carry):
-            poss = list(carry)
-            cur = osc(poss[0]) * ms[0] + cs[0]
-            news = [wrap_pos(poss[0] + inc1, size)]
-            for j in range(1, kn - 1):
-                nxt_cur = osc(poss[j]) * ms[j] + cs[j]
-                news.append(wrap_pos_both(poss[j] + w2sr * cur, size))
-                cur = nxt_cur
-            out = osc(poss[kn - 1]) * ms[kn - 1]
-            news.append(wrap_pos_both(poss[kn - 1] + w2sr * cur, size))
-            return tuple(news), out
-
-        carry = tuple(zeros for _ in range(kn))
-    else:
-        kp = parallel_pairs(topology)
-        p4 = p.reshape(pop, kp, 4)
-        mod_depth = p4[:, :, 0] * p4[:, :, 1]
-        carrier_freq = p4[:, :, 2]
-        amp = p4[:, :, 3]
-        inc1 = w2sr * p4[:, :, 0]
-        zerosk = torch.zeros((pop, kp), dtype=torch.float32, device=p.device)
-
-        def step(carry):
-            pos1, pos2 = carry
-            cur = osc(pos1) * mod_depth + carrier_freq
-            pos1 = wrap_pos(pos1 + inc1, size)
-            outs = osc(pos2) * amp
-            pos2 = wrap_pos_both(pos2 + w2sr * cur, size)
-            return (pos1, pos2), outs.mean(dim=-1)
-
-        carry = (zerosk, zerosk)
-
-    audio = torch.empty((n_samples, pop), dtype=torch.float32, device=p.device)
-    for t in range(n_samples):
-        carry, audio[t] = step(carry)
-    return audio.to(out_dtype)
+    return scan_synth(
+        params_scaled, n_samples, topology, wavetable_size=wavetable_size,
+        sample_rate=sample_rate, osc_mode=osc_mode, wavetable=wavetable, out_dtype=out_dtype,
+    )
 
 
 def synthesize_single(

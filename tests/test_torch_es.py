@@ -169,10 +169,20 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
 
 
 def test_unported_engines_raise():
+    """Without the fused flags the unfused engine runs (the reference's
+    xla_folded_dft for this int8 config, xla_dft in float32) and recombine's compat_shuffle mode gathers the parents;
+    multi-frame fitness (xla_stft) still raises and names ROADMAP item A6."""
     cfg = ESConfig(**{**SLICE, "fused_kernel": False, "fused_generation": False})
     so = make_spectrum_ops(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        active_engine(cfg, so)
-    with pytest.raises(NotImplementedError):
-        tstrategy.recombine(torch.Generator(), torch.zeros((4, 4)), torch.zeros((4, 4)),
-                            cfg.replace(recombine_mode="compat_shuffle"))
+    assert active_engine(cfg, so) == "xla_folded_dft"
+    f32 = cfg.replace(dft_dtype="float32")
+    assert active_engine(f32, make_spectrum_ops(f32, device="cpu")) == "xla_dft"
+    pv = torch.arange(16, dtype=torch.float32).reshape(4, 4)
+    cs = cfg.replace(recombine_mode="compat_shuffle", num_dimensions=4, topology="fm2",
+                     param_mins=(0.0,) * 4, param_maxs=(1.0,) * 4, num_parents=4,
+                     num_offspring=4, workgroup_size=4)
+    v, s = tstrategy.recombine(torch.Generator(), pv, pv + 100, cs)
+    assert v.shape == (8, 4) and torch.equal(s, v + 100)
+    assert sorted(v[:4].reshape(-1).tolist()) == list(range(16))
+    with pytest.raises(NotImplementedError, match="A6"):
+        active_engine(cfg.replace(num_frames=2), so)

@@ -190,36 +190,36 @@ def test_f32_frame_limit(n):
     (1 << 15, 1024, 512, dict(pop_pad=1 << 15, synth=(256, 128), dft=(2048, 128),
                               sum=(128, 256), passes=1, segments=1)),
     # audio_match.json's refine tail: 16 tiles a group, two passes; the
-    # samples split into 4 segments of 256
+    # samples split into 8 segments of 128
     (4096, 2048, 1024, dict(pop_pad=4096, synth=(32, 128), dft=(256, 128), sum=(16, 256),
-                            passes=2, segments=4)),
+                            passes=2, segments=8)),
     # ragged: the last block of 128 holds 33 candidates
     (4001, 2048, 1024, dict(pop_pad=4096, synth=(32, 128), dft=(256, 128), sum=(16, 256),
-                            passes=2, segments=4)),
+                            passes=2, segments=8)),
     # 25 tiles: group 0 has 4, groups 1-7 have 3; one partial pass
     (1024, 1024, 200, dict(pop_pad=1024, synth=(8, 128), dft=(64, 128), sum=(4, 256),
                            passes=1, segments=1)),
     (1, 256, 128, dict(pop_pad=128, synth=(1, 128), dft=(8, 128), sum=(1, 256), passes=1,
                        segments=1)),
-    # 1792 samples a bin: 7 segments of 256
+    # 1792 samples a bin: 14 segments of 128
     (129, 3584, 1792, dict(pop_pad=256, synth=(2, 128), dft=(16, 128), sum=(1, 256), passes=4,
-                           segments=7)),
-    # N/2 = 640: above the split's threshold, segments of 256, 256 and 128
+                           segments=14)),
+    # N/2 = 640: above the split's threshold, 5 segments of 128
     (1, 1280, 640, dict(pop_pad=128, synth=(1, 128), dft=(8, 128), sum=(1, 256), passes=2,
-                        segments=3)),
+                        segments=5)),
     # an operand of 8 bins (chip_smoke's split): one tile, groups 1-7 empty
     (1 << 15, 1024, 8, dict(pop_pad=1 << 15, synth=(256, 128), dft=(2048, 128),
                             sum=(128, 256), passes=1, segments=1)),
 ])
 def test_f32_scratch_and_geometry(pop, n, k, want):
-    """The f32 wrapper's scratch (a+, a-, edge and 8 group sums per padded
-    candidate, and where the DFT splits the samples a running tile of 128
-    floats for each of the 8 group blocks' threads) and the three kernels'
-    grids (csrc fused_f32.cu launch_f32)."""
+    """The f32 wrapper's scratch (a+, a-, edge and 8 double group sums per
+    padded candidate, and where the DFT splits the samples 4 levels of
+    running tiles of 128 floats for each of the 8 group blocks' threads) and
+    the three kernels' grids (csrc fused_f32.cu launch_f32)."""
     geo = tsf.f32_geometry(pop, n, k)
     pad = want["pop_pad"]
     assert {key: geo[key] for key in want} == want
-    run = 8 * 128 * pad if want["segments"] > 1 else 0
-    assert tsf.f32_scratch_floats(pop, n) == pad * n // 2 * 2 + pad + 8 * pad + run
+    run = 8 * 4 * 128 * pad if want["segments"] > 1 else 0
+    assert tsf.f32_scratch_floats(pop, n) == pad * n // 2 * 2 + pad + 2 * 8 * pad + run
     assert geo["scratch_bytes"] == 4 * tsf.f32_scratch_floats(pop, n)
 

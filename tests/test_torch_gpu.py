@@ -6,6 +6,8 @@ Without a card every test here skips; whether there is one is decided
 inside the ``cuda`` fixture, never at import, so every pytest-xdist worker
 collects the same tests.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -121,18 +123,22 @@ def test_b1_b2_f32_grid(cuda, n, bins, topology, sine_order, pop):
                (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL))
 
 
+@pytest.mark.parametrize("pop", [1, RAGGED_POP])
 @pytest.mark.parametrize("n", [2048, 3584])
-def test_b1_f32_summation_near_float64(cuda, n):
-    """Above 512 samples a bin, the f32 DFT sums each bin in 256-sample
-    segments added in order (csrc fused_f32.cu): at n 2048 and 3584, P 4001
-    (the f32 grid's fm3_series, sine order 7 inputs), the kernel's median
-    relative error against a float64 evaluation of the same audio is within
-    1.5x the plain version's (cuBLAS's blocked sums). One ascending chain a
-    bin was 1.74x at n 3584."""
+def test_b1_f32_summation_near_float64(cuda, n, pop):
+    """Above 512 samples a bin, the f32 DFT sums each bin in 128-sample
+    segments added pairwise, and the terms over bins in double (csrc
+    fused_f32.cu): at n 2048 and 3584 (the f32 grid's fm3_series, sine order
+    7 inputs), the kernel's relative error against a float64 evaluation of
+    the same audio is within 1.5x the plain version's (cuBLAS's sums): the
+    median at P 4001; at P 1, one value a float32 ulp of the fitness apart,
+    within 1.5x the larger of the plain version's and that of U and V rounded
+    once to float32 with every later step in float64 (the closest any
+    float32 U and V come)."""
     from chip_smoke import fitness_f64, rel_err
     from pmfm_tpu_torch.ops import spectral
 
-    pop, order = RAGGED_POP, 7
+    order = 7
     so = spectral.make_spectrum_ops(n, None, dft_dtype="float32", device=cuda)
     rng = np.random.default_rng(n + pop + order)
     tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(cuda)
@@ -142,7 +148,11 @@ def test_b1_f32_summation_near_float64(cuda, n):
     f64 = fitness_f64(p, tgt, so, "fm3_series", n, order)
     ek = rel_err(sf.fused_synth_fitness(p, tgt, **kw).double(), f64)
     ep = rel_err(sf.fused_synth_fitness_plain(p, tgt, **kw).double(), f64)
-    assert float(ek.median()) <= 1.5 * float(ep.median()), (float(ek.median()), float(ep.median()))
+    if pop == 1:
+        eo = rel_err(fitness_f64(p, tgt, so, "fm3_series", n, order, uv_f32=True), f64)
+        assert float(ek[0]) <= 1.5 * max(float(ep[0]), float(eo[0])), (ek, ep, eo)
+    else:
+        assert float(ek.median()) <= 1.5 * float(ep.median()), (ek.median(), ep.median())
     assert float(ek.max()) <= F32_FIT_MAX_REL
 
 
@@ -401,3 +411,67 @@ def test_evolve_fused_evolve_is_one_launch(cuda):
     assert final.generation == 20 and traj.shape == (20,)
     assert torch.isfinite(traj).all() and float(traj[-1]) < float(traj[0])
     assert float(final.best_fitness) == float(traj[-1])
+
+
+# -- the scan kernel, the unfused engines and the CLI ----------------------------
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("osc_mode", ["floor", "exact", "table"])
+@pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm8_series", "fm3_parallel",
+                                      "fm10_series", "fm5_parallel"])
+def test_scan_kernel_bit_equal_to_plain(cuda, topology, osc_mode, out_dtype):
+    """csrc/scan_synth.cu bit for bit against its plain loop over samples,
+    at every chain class (compile-time lengths and the runtime-length
+    instantiation), oscillator and output type."""
+    from pmfm_tpu_torch.kernels import scan as ss
+
+    d = topology_dims(topology)
+    maxs = (3520.0, 8.0) * (d // 2) if "series" in topology else (3520.0, 8.0, 3520.0, 1.0) * (d // 4)
+    rng = np.random.default_rng(d)
+    p = torch.from_numpy((rng.random((300, d)) * np.asarray(maxs)).astype(np.float32)).to(cuda)
+    before = ss.scan_synth.launches
+    a = ss.scan_synth(p, 512, topology, osc_mode=osc_mode, out_dtype=out_dtype)
+    assert ss.scan_synth.launches == before + 1
+    b = ss.scan_synth_plain(p, 512, topology, osc_mode=osc_mode, out_dtype=out_dtype)
+    assert a.dtype == out_dtype and a.shape == (512, 300)
+    assert _bits_equal(a.float(), b.float())
+
+
+@pytest.mark.parametrize("synth", ["scan", "scanless"])
+@pytest.mark.parametrize("method,dtype", [("dft", "float32"), ("dft", "int8"),
+                                          ("dft", "bfloat16"), ("rfft", "float32")])
+def test_unfused_engines_card_matches_cpu(cuda, method, dtype, synth):
+    """Each unfused engine on the card against the same engine on the CPU,
+    within the CPU tests' limits against the reference (mild-index ranges,
+    tests/test_torch_unfused.py; chip_smoke.py's UNFUSED_TOL)."""
+    from chip_smoke import UNFUSED_TOL
+    from pmfm_tpu_torch.es import evaluate
+
+    cfg = ESConfig(num_parents=8, num_offspring=248, audio_length_log2=10,
+                   param_maxs=(2000.0, 2.0) * 3, spectrum_method=method, dft_dtype=dtype,
+                   synthesis_engine=synth)
+    rng = np.random.default_rng(7)
+    v = torch.from_numpy(rng.random((256, 6)).astype(np.float32))
+    t = torch.from_numpy((rng.random(512) * 5.0).astype(np.float32))
+    got = evaluate(v.to(cuda), t.to(cuda), make_spectrum_ops(cfg, device=cuda), cfg).cpu()
+    want = evaluate(v, t, make_spectrum_ops(cfg, device="cpu"), cfg)
+    e = (got.double() - want.double()).abs() / want.double().abs()
+    max_rel, median_rel = UNFUSED_TOL[dtype]
+    assert float(e.max()) <= max_rel and float(e.median()) <= median_rel
+
+
+def test_cli_runs_on_the_card(cuda, tmp_path, monkeypatch, capsys):
+    """python -m pmfm_tpu_torch.cli -j parameters.json on the card (20
+    generations): exit 0, the unfused engine named, one scan launch a
+    generation, the WAV and the CSV written."""
+    from pmfm_tpu_torch import cli
+    from pmfm_tpu_torch.kernels import scan as ss
+
+    root = Path(__file__).resolve().parent.parent
+    monkeypatch.chdir(tmp_path)
+    before = ss.scan_synth.launches
+    assert cli.main(["-j", str(root / "parameters.json"), "--generations", "20"]) == 0
+    assert ss.scan_synth.launches - before >= 22
+    assert "engine: xla_dft on cuda" in capsys.readouterr().out
+    assert (tmp_path / "output_audio" / "output.wav").exists()
+    assert (tmp_path / "gpulog(pop=32gens=20audioBlockSize=2048).csv").exists()

@@ -49,7 +49,9 @@ def test_import_loads_no_jax_and_builds_nothing():
         "pmfm_tpu_torch.kernels, pmfm_tpu_torch.interop, pmfm_tpu_torch.io, "
         "pmfm_tpu_torch.ops.scanless, pmfm_tpu_torch.kernels.synth_fold, "
         "pmfm_tpu_torch.kernels.synth_stream, pmfm_tpu_torch.kernels.evolve, "
-        "pmfm_tpu_torch.bench\n"
+        "pmfm_tpu_torch.kernels.scan, pmfm_tpu_torch.bench, pmfm_tpu_torch.cli, "
+        "pmfm_tpu_torch.models, pmfm_tpu_torch.ops.oracle, pmfm_tpu_torch.utils, "
+        "pmfm_tpu_torch.utils.debug, pmfm_tpu_torch.utils.stage_bench\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pmfm_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pmfm_tpu_torch.kernels import _build\n"
@@ -60,13 +62,14 @@ def test_import_loads_no_jax_and_builds_nothing():
 
 
 def test_one_build_covers_every_kernel_source():
-    """One nvcc call compiles every .cu file, and the library's name hashes
-    every source and header, so an edit to the shared synthesis or the
-    shared evaluation rebuilds."""
+    """One nvcc call compiles every .cu file (the scan synthesis's too), and
+    the library's name hashes every source and header, so an edit to the
+    shared synthesis or the shared evaluation rebuilds."""
     from pmfm_tpu_torch.kernels import _build
 
     names = [p.name for p in _build.sources()]
-    assert names == ["evolve.cu", "fused_eval.cu", "fused_f32.cu", "large_frame.cu"]
+    assert names == ["evolve.cu", "fused_eval.cu", "fused_f32.cu", "large_frame.cu",
+                     "scan_synth.cu"]
     assert (_build.CSRC / "synth_common.cuh").exists() and (_build.CSRC / "evaluate.cuh").exists()
     assert _build.library_path().parent == _build.BUILD_DIR
 

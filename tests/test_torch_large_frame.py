@@ -222,10 +222,9 @@ def test_method_resolution():
     assert tspec.resolve_method(16384, 8192, "auto", "int8") == "dft"
     so = tspec.make_spectrum_ops(65536, dft_dtype="int8", device="cpu")
     assert so.method == "dft_factored" and so.factored.n1 == 256 and so.dft_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="rfft"):
-        tspec.resolve_method(8192, 4096, "auto", "float32")  # the reference picks rfft
-    with pytest.raises(NotImplementedError):
-        tspec.resolve_method(1024, 512, "rfft", "float32")
+    # where the reference picks rfft, so does the port
+    assert tspec.resolve_method(8192, 4096, "auto", "float32") == "rfft"
+    assert tspec.resolve_method(1024, 512, "rfft", "float32") == "rfft"
 
 
 # -- B4 -----------------------------------------------------------------------

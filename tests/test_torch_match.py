@@ -150,11 +150,18 @@ def test_example_configs_keep_their_engines(name):
 
 
 def test_default_parameters_engine_not_ported():
-    """parameters.json (no tpu block) asks for the unfused engine, not ported."""
+    """parameters.json (no tpu block) asks for the unfused engine: the port
+    now names the reference's engine for it and for its refine config
+    (xla_dft, the true-f32 matmul DFT on the scan synthesis)."""
+    from pmfm_tpu.es import make_spectrum_ops as j_make_spectrum_ops
+    from pmfm_tpu.es.strategy import active_engine as j_active_engine
+
     cfg = tconfig.load_config(REPO / "parameters.json").es
-    for c in (cfg, cfg.refine_config()):
-        with pytest.raises(NotImplementedError):
-            tpipeline.active_engine(c, tpipeline.make_spectrum_ops(c, device="cpu"))
+    jcfg = jconfig.load_config(REPO / "parameters.json").es
+    for c, jc in ((cfg, jcfg), (cfg.refine_config(), jcfg.refine_config())):
+        got = tpipeline.active_engine(c, tpipeline.make_spectrum_ops(c, device="cpu"))
+        assert got == j_active_engine(jc, j_make_spectrum_ops(jc)) == "xla_dft"
+        assert c.synthesis_engine == "scan"
 
 
 def test_match_audio_rejects_short_target():

@@ -147,10 +147,13 @@ def test_config_rejects_what_reference_rejects(bad):
 
 
 def test_unported_spectrum_methods_raise():
-    with pytest.raises(NotImplementedError):
-        tspec.make_spectrum_ops(256, method="rfft", device="cpu")
-    # above DFT_MAX_MATERIALIZE_N a size that does not factor falls back to
-    # rfft in the reference, which is not ported; a power of two factors
-    with pytest.raises(NotImplementedError):
-        tspec.make_spectrum_ops(24576, device="cpu")
+    """The rfft method and the reference's fallbacks to it are ported: rfft
+    on request, and 'dft' above DFT_MAX_MATERIALIZE_N at a size that does not
+    factor (with the reference's warning); a power of two factors."""
+    assert tspec.make_spectrum_ops(256, method="rfft", device="cpu").method == "rfft"
+    with pytest.warns(UserWarning, match="falling back to rfft"):
+        so = tspec.make_spectrum_ops(24576, device="cpu")
+    assert so.method == "rfft" and so.dft_cos is None and so.dft_packed is None
     assert tspec.make_spectrum_ops(32768, device="cpu").method == "dft_factored"
+    with pytest.raises(ValueError):
+        tspec.make_spectrum_ops(256, method="stft", device="cpu")
