@@ -42,7 +42,17 @@ through the entry points a user calls, and times each kernel:
   held against the same engine on the CPU, with the known-params truth
   first, and the rfft rung at n 8192 and 16384; ``python -m
   pmfm_tpu_torch.cli``'s ``main`` on parameters.json and
-  examples/params_match.json as written.
+  examples/params_match.json as written;
+* phases 20-21, the staged (pursuit) solver: B1/B2 in the fm{k}_parallel
+  mode (int8 and true f32) against their plain versions at
+  examples/fm3_parallel_match.json's shape and over phase 4b's grid with
+  fm2/fm3/fm4_parallel, and their times beside fm3_series's; the block
+  stages' f32 engine's peak memory; ``cli.main`` on the five pursuit
+  examples (fm3_parallel_match.json as written, the others with each
+  stage's generations cut to a tenth and one attempt).
+
+``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
+phases and the named ones, and prints no result line.
 
 One flushed line per phase, ending with its seconds; every time is printed
 beside the card's name and power limit.
@@ -131,10 +141,14 @@ RAGGED_POP = 4001
 # at mu 256): every pass streams them from L2
 BIG_POP = 1 << 16
 PROFILED_B5_CALLS = 3
-# JSON entries: a kernel, or a kernel in its true-f32 mode (the same wrapper
-# and counter; the f32 entries' launches are read on the refine tail)
+# JSON entries: a kernel, or B1/B2 in their true-f32 mode or their
+# fm{k}_parallel mode (the same wrapper and counter; the f32 entries'
+# launches are read on the refine tail, the parallel entries' in phase 21's
+# fm3_parallel run, from the wrappers' launches_by)
 KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream",
-           "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve", "scan_synth")
+           "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve", "scan_synth",
+           "fused_synth_fitness_parallel", "fused_generation_parallel",
+           "fused_synth_fitness_parallel_f32", "fused_generation_parallel_f32")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -184,6 +198,34 @@ RFFT_RUNG_LOG2N = (13, 14)
 # phase 19: the CLI as a user runs it, in a directory of the checkout
 CLI_CONFIGS = ("parameters.json", "examples/params_match.json")
 CLI_DIR = "build/chip_smoke_cli"
+# phase 20: B1/B2 in the fm{k}_parallel mode (int8 and true f32) against
+# their plain versions at PARALLEL_CONFIG's shape (P 8192, n 1024, sine
+# order 9) with examples/fm4_parallel_match.json's truth (its first k pairs),
+# then over phase 4b's grid (GRID_N, GRID_ODD_BINS, P 2^15 at n 1024) with
+# the banks, two sine orders and PARALLEL_GRID_POPS; the kernels' times
+# beside the series chain's (PARALLEL_TIMED) at that shape
+PARALLEL_CONFIG = "examples/fm3_parallel_match.json"
+PARALLEL_TRUTH = (3076.48, 2.0, 3016.64, 0.9, 1936.0, 2.4, 2182.4, 0.8,
+                  2499.2, 1.6, 1584.0, 0.7, 1161.6, 3.2, 985.6, 0.6)
+PARALLEL_TOPOLOGIES = ("fm2_parallel", "fm3_parallel", "fm4_parallel")
+PARALLEL_SINE_ORDERS = (7, 9)
+PARALLEL_GRID_POPS = (1, 63, 64, 65, 4001)
+PARALLEL_TIMED = PARALLEL_TOPOLOGIES + ("fm3_series",)
+# phase 21: the pursuit solver through cli.main in PURSUIT_DIR: the first
+# example as written, its first chunk to a relative spectral error below
+# PURSUIT_MAX_REL (the reference's direct ES stalls at 35-55% on this
+# family), the others with each stage's generations cut by
+# PURSUIT_GENERATION_CUT and one attempt. A params target is 2048 samples,
+# so n 1024 makes two chunks; the second holds the same tones a frame
+# later, whose phases the model (which starts every oscillator at phase 0)
+# cannot take: the true parameters themselves lie ~23% from it (printed
+# beside each chunk), so only the first chunk is held to the limit
+PURSUIT_DIR = "build/chip_smoke_pursuit"
+PURSUIT_AS_WRITTEN = "examples/fm3_parallel_match.json"
+PURSUIT_CUT = ("examples/fm4_parallel_match.json", "examples/fm4_series_match.json",
+               "examples/fm5_series_match.json", "examples/huge_frame_match.json")
+PURSUIT_GENERATION_CUT = 10
+PURSUIT_MAX_REL = 0.10
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 FLOP/s
 PEAK_BYTES, PEAK_INT8, PEAK_F32 = 3.35e12, 1979e12, 67e12
@@ -325,6 +367,28 @@ def synth_ops_f32(pop: int, n: int, k: int, kn: int, ncoef: int) -> float:
     return float(pop) * (n * per_sample + 12 * k)
 
 
+def param_maxs(topology: str) -> tuple:
+    """The examples' parameter ranges: 3520 Hz and index 8 an operator, and
+    amplitude 1 a pair of an fm{k}_parallel bank."""
+    from pmfm_tpu_torch.ops.synthesis import parallel_pairs, topology_dims
+
+    d = topology_dims(topology)
+    if parallel_pairs(topology):
+        return (3520.0, 8.0, 3520.0, 1.0) * (d // 4)
+    return (3520.0, 8.0) * (d // 2)
+
+
+def bank_ops_f32(pop: int, n: int, k: int, npair: int, ncoef: int) -> float:
+    """float32 operations of the fused evaluation of an fm{k}_parallel bank,
+    counted from the kernel: per sample and pair the phase (2), the
+    modulator's sine (5 + 2*(ncoef-1)), gain and bias (2), the prefix adds
+    (2), the output sine, its gain and the sum over pairs (2); per sample the
+    division or rounding (1); per bin the epilogue (12)."""
+    sine = 5 + 2 * (ncoef - 1)
+    per_sample = npair * (2 + sine + 2 + 2 + sine + 2) + 1
+    return float(pop) * (n * per_sample + 12 * k)
+
+
 def ptxas_summary(log: str):
     """(kernel<template arguments>, registers, spill-store bytes) of each
     kernel instantiation in nvcc's ``-Xptxas -v`` report."""
@@ -355,13 +419,17 @@ def bound(bytes_moved: float, int8_ops: float, f32_ops: float):
 
 
 class Smoke:
-    def __init__(self, device: str = "cuda"):
+    def __init__(self, device: str = "cuda", only=None):
         self.dev = torch.device(device)
         self.kernels = {}
         self.failed = []
         self.cell_ms = {}
+        self.only = only  # phase numbers to run (with the device, build and inputs), or all
 
     def phase(self, name, fn):
+        number = name.split()[0]
+        if self.only is not None and number not in self.only and number not in ("1", "2", "inputs"):
+            return
         log(f"phase {name}: start")
         t0 = time.perf_counter()
         try:
@@ -520,17 +588,30 @@ class Smoke:
                    limits=(FIT_MAX_REL, FIT_MEDIAN_REL)):
         """B1 and B2 (int8, or true f32 with the f32 ``limits``) against their
         plain versions, B2's offspring values bit-equal and its fitness
-        bit-equal to B1's on those offspring. Returns the two fitness errors
-        (max relative) and the B1 fitness."""
+        bit-equal to B1's on those offspring. The plain versions run as one
+        batch: B2's plain offspring (``offspring_plain``, B2's plain prologue,
+        with ``fused_generation_plain``'s defaults for what ``kw2`` leaves
+        out) and ``params`` go through B1's plain version together, which is
+        B1's and B2's plain fitness (its candidates are independent) at half
+        the plain loop's launches. Returns the two fitness errors (max
+        relative), the B1 fitness and the two max absolute errors."""
+        import inspect
+
         from pmfm_tpu_torch.kernels import generation as gn
         from pmfm_tpu_torch.kernels import synth_fitness as sf
 
+        pop = params.shape[0]
         fk = sf.fused_synth_fitness(params, target, **kw1)
-        fp = sf.fused_synth_fitness_plain(params, target, **kw1)
         gk, vk, sk = gn.fused_generation(seed, pv, ps, target, **kw2)
-        gp, vp, sp = gn.fused_generation_plain(seed, pv, ps, target, **kw2)
         own = sf.fused_synth_fitness(gn.scale_rows(vk, kw2["param_mins"], kw2["param_maxs"]),
                                      target, **kw1)
+        defaults = inspect.signature(gn.fused_generation_plain).parameters
+        mutate = {k: kw2.get(k, defaults[k].default) for k in (
+            "alpha", "beta", "beta_scale", "root_two_over_pi", "clamp_values", "min_step")}
+        vp, sp = gn.offspring_plain(pv, ps, pop=kw2["pop"], seed=seed, **mutate)
+        both = torch.cat([params, gn.scale_rows(vp, kw2["param_mins"], kw2["param_maxs"])])
+        plain = sf.fused_synth_fitness_plain(both, target, **dict(kw1, pop_block=both.shape[0]))
+        fp, gp = plain[:pop], plain[pop:]
         torch.cuda.synchronize()
         e1, e2 = rel_err(fk, fp), rel_err(gk, gp)
         s_rel = float(rel_err(sk, sp).max())
@@ -545,7 +626,8 @@ class Smoke:
                 f"{torch.equal(vk, vp)}, steps max rel {s_rel:.3e}, fitness equal to B1 on its "
                 f"offspring {torch.equal(gk, own)}")
         require(ok, f"B1/B2 disagree ({where})")
-        return float(e1.max()), float(e2.max()), fk
+        return (float(e1.max()), float(e2.max()), fk, float((fk - fp).abs().max()),
+                float((gk - gp).abs().max()))
 
     def int8_grid(self):
         """B1/B2 int8 at the shipped and audio_match settings (the truth
@@ -561,19 +643,21 @@ class Smoke:
             require(c["so"].dft_packed.dtype == torch.int8, f"{label}: not the int8 operand")
             where = (f"{label}: n={cfg.n_samples}, P={cfg.population_size}, sine order "
                      f"{cfg.sine_order}")
-            e1, e2, fk = self.fused_check(where, c["params"], c["pv"], c["ps"], c["target"],
-                                         self.kw_b1(c), self.kw_b2(c), kernel_seed(SEED, 50 + i))
+            e1, e2, fk, _, _ = self.fused_check(
+                where, c["params"], c["pv"], c["ps"], c["target"], self.kw_b1(c), self.kw_b2(c),
+                kernel_seed(SEED, 50 + i))
             log(f"B1/B2 int8 vs plain ({where}): fitness max rel B1 {e1:.3e} B2 {e2:.3e}; B2 "
                 f"values bit-equal, B2 fitness bit-equal to B1 on its offspring; truth rank "
                 f"{int(torch.argmin(fk))}")
             require(int(torch.argmin(fk)) == 0, "the known-params truth does not rank first")
         self.grid("int8", GRID_POPS, (FIT_MAX_REL, FIT_MEDIAN_REL), SEED + 30, 1000)
 
-    def grid(self, dtype, grid_pops, limits, seed, seeds):
+    def grid(self, dtype, grid_pops, limits, seed, seeds, topologies=GRID_TOPOLOGIES,
+             orders=GRID_SINE_ORDERS):
         """B1/B2 in ``dtype`` ("int8" or "float32") over GRID_N x
-        GRID_TOPOLOGIES x GRID_SINE_ORDERS x ``grid_pops`` (and P 2^15 at
-        n 1024), and at GRID_ODD_BINS, against a random target, within
-        ``limits``; the data from ``seed``, the kernel seeds from ``seeds``."""
+        ``topologies`` x ``orders`` x ``grid_pops`` (and P 2^15 at n 1024),
+        and at GRID_ODD_BINS, against a random target, within ``limits``; the
+        data from ``seed``, the kernel seeds from ``seeds``."""
         from pmfm_tpu_torch.es import kernel_seed
         from pmfm_tpu_torch.ops import spectral
         from pmfm_tpu_torch.ops.synthesis import topology_dims
@@ -586,10 +670,10 @@ class Smoke:
                 self.dev)
             worst, count = [0.0, 0.0], 0
             pops = grid_pops + ((POP,) if n == 1 << LOG2N and bins is None else ())
-            for topology in GRID_TOPOLOGIES:
+            for topology in topologies:
                 d = topology_dims(topology)
-                mins, maxs = (0.0,) * d, (3520.0, 8.0) * (d // 2)
-                for order in GRID_SINE_ORDERS:
+                mins, maxs = (0.0,) * d, param_maxs(topology)
+                for order in orders:
                     for pop in pops:
                         params = torch.from_numpy(
                             (rng.random((pop, d)) * np.asarray(maxs)).astype(np.float32)
@@ -606,8 +690,8 @@ class Smoke:
                         worst = [max(worst[0], e[0]), max(worst[1], e[1])]
                         count += 1
                         cases += 1
-            log(f"B1/B2 {dtype} grid, n={n} (K={so.num_bins}): {count} settings ({GRID_TOPOLOGIES} "
-                f"x sine orders {GRID_SINE_ORDERS} x P {pops}) within {limits[0]:g} / "
+            log(f"B1/B2 {dtype} grid, n={n} (K={so.num_bins}): {count} settings ({topologies} "
+                f"x sine orders {orders} x P {pops}) within {limits[0]:g} / "
                 f"{limits[1]:g}, worst max rel B1 {worst[0]:.3e} B2 {worst[1]:.3e}; B2 values "
                 f"bit-equal, B2 fitness bit-equal to B1 on its offspring")
 
@@ -739,6 +823,8 @@ class Smoke:
     def reset_counts(self):
         for fn in self.counters().values():
             fn.launches = 0
+            if hasattr(fn, "launches_by"):
+                fn.launches_by.clear()
 
     def read_counts(self):
         return {name: fn.launches for name, fn in self.counters().items()}
@@ -1158,20 +1244,21 @@ class Smoke:
                 ("audio_match refine tail", audio),
                 ("audio_match refine tail, ragged P", ragged))
 
-    def inputs(self, cfg, seed):
+    def inputs(self, cfg, seed, truth=TRUTH):
         """Operands, the known-params target, candidates (the truth first) and
         parents of ``cfg``, from ``seed``."""
         from pmfm_tpu_torch.es import make_spectrum_ops
         from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
 
+        d = cfg.num_dimensions
         so = make_spectrum_ops(cfg, device=self.dev)
-        audio = synthesize_single(torch.tensor(TRUTH), cfg.n_samples, cfg.topology)
+        audio = synthesize_single(torch.tensor(truth), cfg.n_samples, cfg.topology)
         rng = np.random.default_rng(seed)
         pop, mu = cfg.population_size, cfg.num_parents
-        cand = (rng.random((pop, D)) * np.asarray(cfg.param_maxs)).astype(np.float32)
-        cand[0] = TRUTH
-        pv = rng.random((mu, D)).astype(np.float32)
-        ps = rng.uniform(0.02, 0.3, (mu, D)).astype(np.float32)
+        cand = (rng.random((pop, d)) * np.asarray(cfg.param_maxs)).astype(np.float32)
+        cand[0] = truth
+        pv = rng.random((mu, d)).astype(np.float32)
+        ps = rng.uniform(0.02, 0.3, (mu, d)).astype(np.float32)
         dev = lambda a: torch.from_numpy(a).to(self.dev)  # noqa: E731
         return dict(cfg=cfg, so=so, target=target_spectrum(audio.to(self.dev), so),
                     params=dev(cand), pv=dev(pv), ps=dev(ps))
@@ -1860,6 +1947,272 @@ class Smoke:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    # -- 20 -----------------------------------------------------------------
+    def parallel_kernels(self):
+        """B1/B2 in the fm{k}_parallel mode, int8 and true f32, against their
+        plain versions: at PARALLEL_CONFIG's shape with its truth planted
+        first, then over phase 4b's grid with PARALLEL_TOPOLOGIES,
+        PARALLEL_SINE_ORDERS and PARALLEL_GRID_POPS against a random target;
+        then the four kernels' times at that shape beside the series
+        chain's."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.io import load_config
+
+        base = load_config(PARALLEL_CONFIG).es
+        self.parallel = {}
+        limits = {"int8": (FIT_MAX_REL, FIT_MEDIAN_REL), "f32": (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL)}
+        for i, (mode, cfg) in enumerate((("int8", base), ("f32", base.refine_config()))):
+            c = self.inputs(cfg, SEED + 60 + i, PARALLEL_TRUTH[: cfg.num_dimensions])
+            self.parallel[mode] = c
+            where = (f"{mode}, {cfg.topology}, n={cfg.n_samples}, P={cfg.population_size}, "
+                     f"sine order {cfg.sine_order}")
+            e1, e2, fk, a1, a2 = self.fused_check(
+                where, c["params"], c["pv"], c["ps"], c["target"], self.kw_b1(c), self.kw_b2(c),
+                kernel_seed(SEED, 60 + i), limits[mode])
+            rank = int(torch.argmin(fk))
+            log(f"B1/B2 parallel {where}: fitness max rel B1 {e1:.3e} B2 {e2:.3e} (limits "
+                f"{limits[mode][0]:g} / {limits[mode][1]:g}); B2 values bit-equal, B2 fitness "
+                f"bit-equal to B1 on its offspring; truth rank {rank}")
+            require(rank == 0, "the known-params truth does not rank first")
+            sfx = "" if mode == "int8" else "_f32"
+            self.kernels[f"fused_synth_fitness_parallel{sfx}"] = {"max_abs_err": a1}
+            self.kernels[f"fused_generation_parallel{sfx}"] = {"max_abs_err": a2}
+        for mode, dtype in (("int8", "int8"), ("f32", "float32")):
+            self.grid(dtype, PARALLEL_GRID_POPS, limits[mode], SEED + 62, 6000,
+                      PARALLEL_TOPOLOGIES, PARALLEL_SINE_ORDERS)
+        self.parallel_timings()
+
+    def parallel_timings(self):
+        """The parallel mode's four kernels at PARALLEL_CONFIG's shape (the
+        JSON rows: fm3_parallel), and B1/B2 of each of PARALLEL_TIMED at the
+        same P, n and sine order (the series chain fm3_series beside the
+        banks)."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.ops.synthesis import parallel_pairs, topology_dims
+
+        seed = kernel_seed(SEED, 70)
+        for mode in ("int8", "f32"):
+            c = self.parallel[mode]
+            cfg = c["cfg"]
+            pop, mu, n, k, d = (cfg.population_size, cfg.num_parents, cfg.n_samples,
+                                c["so"].num_bins, cfg.num_dimensions)
+            kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
+            dft_ops = 2.0 * 2 * k * (n // 2) * pop
+            synth = bank_ops_f32(pop, n, k, parallel_pairs(cfg.topology), ncoef=5)
+            operand = 2 * k * (n // 2) * (1 if mode == "int8" else 4)
+            int8_ops, f32_ops = (dft_ops, synth) if mode == "int8" else (0.0, synth + dft_ops)
+            sfx = "" if mode == "int8" else "_f32"
+            rows = {
+                f"fused_synth_fitness_parallel{sfx}": (
+                    lambda: sf.fused_synth_fitness(c["params"], c["target"], **kw1),
+                    lambda: sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1),
+                    pop * d * 4 + operand + k * 4 + pop * 4, int8_ops, f32_ops,
+                    "pmfm_tpu/kernels/synth_fitness.py:767"),
+                f"fused_generation_parallel{sfx}": (
+                    lambda: gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2),
+                    lambda: gn.fused_generation_plain(seed, c["pv"], c["ps"], c["target"], **kw2),
+                    2 * mu * d * 4 + operand + k * 4 + pop * 4 + 2 * pop * d * 4, int8_ops,
+                    f32_ops + pop * d * 12 * 2.0, "pmfm_tpu/kernels/generation.py:438"),
+            }
+            src = "pmfm_tpu_torch/csrc/fused_eval.cu" if mode == "int8" else \
+                "pmfm_tpu_torch/csrc/fused_f32.cu"
+            for name, (fn, plain, nbytes, i8, f32, replaces) in rows.items():
+                ms = cuda_ms(fn, TIMED_LAUNCHES)
+                plain_ms = cuda_ms(plain, PLAIN_RUNS)
+                bound_ms, by = bound(nbytes, i8, f32)
+                log(f"{name} ({cfg.topology}, n={n}, K={k}, P={pop}, sine order "
+                    f"{cfg.sine_order}): kernel {ms:.4f} ms (median of {TIMED_LAUNCHES}), plain "
+                    f"{plain_ms:.2f} ms (median of {PLAIN_RUNS}), bound {bound_ms:.4f} ms by {by} "
+                    f"({nbytes / 1e6:.2f} MB, {i8 / 1e9:.1f} G int8 ops, {f32 / 1e9:.2f} G f32 "
+                    f"ops) {card()}")
+                self.kernels.setdefault(name, {}).update(
+                    route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=by, library_ms=None)
+            line = []
+            for topology in PARALLEL_TIMED:
+                td, maxs = topology_dims(topology), param_maxs(topology)
+                rng = np.random.default_rng(SEED + 71)
+                t = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+                params = t(rng.random((pop, td)) * np.asarray(maxs))
+                pv, ps = t(rng.random((mu, td))), t(rng.uniform(0.02, 0.3, (mu, td)))
+                k1 = dict(kw1, topology=topology)
+                k2 = dict(kw2, topology=topology, param_mins=(0.0,) * td, param_maxs=maxs,
+                          beta_scale=1.0 / td)
+                b1 = cuda_ms(lambda: sf.fused_synth_fitness(params, c["target"], **k1),
+                             TIMED_LAUNCHES)
+                b2 = cuda_ms(lambda: gn.fused_generation(seed, pv, ps, c["target"], **k2),
+                             TIMED_LAUNCHES)
+                line.append(f"{topology} B1 {b1:.4f} ms B2 {b2:.4f} ms")
+            log(f"B1/B2 {mode} at n={n}, K={k}, P={pop}, sine order {cfg.sine_order}: "
+                f"{'; '.join(line)} {card()}")
+
+    # -- 21 -----------------------------------------------------------------
+    def pursuit(self):
+        """``cli.main`` on each pursuit example in PURSUIT_DIR, as a user runs
+        it: PURSUIT_AS_WRITTEN as written (exit 0, the WAV and the CSV, its
+        first chunk's relative spectral error under the f32 engine below
+        PURSUIT_MAX_REL), the others with each stage's generations cut by
+        PURSUIT_GENERATION_CUT and one attempt through a wrapped
+        ``load_config`` (exit 0, the WAV and the CSV, the final f32 fitness
+        no worse than the silent estimate's, every chunk); each run's
+        attempts, generations, seconds by part, launches, and how far the
+        true parameters lie from each chunk under the same f32 engine (the
+        best a phase-0 model can reach there, about). First the f32 engine's
+        peak memory per candidate sample at the block stages' shapes, the
+        calibration of ``es.staged._batch_width_cap``."""
+        import dataclasses
+        import inspect
+        import io
+        import os
+        import shutil
+
+        import pmfm_tpu_torch.io
+        from pmfm_tpu_torch import cli
+        from pmfm_tpu_torch.es import staged
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.ops.synthesis import series_ops
+
+        self.engine_memory()
+        root = os.getcwd()
+        work = os.path.join(root, PURSUIT_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        load = pmfm_tpu_torch.io.load_config
+
+        def cut(path):  # each stage's generations / PURSUIT_GENERATION_CUT, one attempt
+            rc = load(path)
+            series = (series_ops(rc.es.topology) or 0) >= 4
+            keys = staged.SERIES_CONFIG_KEY_MAP if series else staged.CONFIG_KEY_MAP
+            defaults = inspect.signature(
+                staged._series_attempt if series else staged._pursuit_attempt).parameters
+            p = dict(rc.pursuit, maxAttempts=1)
+            for key, snake in keys.items():
+                if key.endswith("Generations"):
+                    p[key] = max(1, int(p.get(key, defaults[snake].default))
+                                 // PURSUIT_GENERATION_CUT)
+            return dataclasses.replace(rc, pursuit=tuple(sorted(p.items())))
+
+        try:
+            for config in (PURSUIT_AS_WRITTEN,) + PURSUIT_CUT:
+                as_written = config == PURSUIT_AS_WRITTEN
+                pmfm_tpu_torch.io.load_config = load if as_written else cut
+                rc = pmfm_tpu_torch.io.load_config(os.path.join(root, config))
+                out = io.StringIO()
+                os.chdir(work)
+                torch.cuda.synchronize()
+                self.reset_counts()
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(out):
+                        code = cli.main(["-j", os.path.join(root, config)])
+                finally:
+                    os.chdir(root)
+                    pmfm_tpu_torch.io.load_config = load
+                seconds = time.perf_counter() - t0
+                text = out.getvalue()
+                counts = {k: v for k, v in self.read_counts().items() if v}
+                modes = {"B1": dict(sf.fused_synth_fitness.launches_by),
+                         "B2": dict(gn.fused_generation.launches_by)}
+                lines = [ln for ln in text.splitlines() if ln.startswith("pursuit chunk ")]
+                engine = next((ln for ln in text.splitlines() if ln.startswith("engine: ")), "")
+                cfg = rc.es
+                wav = os.path.join(work, rc.output_audio_path)
+                csv = os.path.join(work, f"gpulog(pop={cfg.population_size}gens="
+                                         f"{rc.num_generations}audioBlockSize={cfg.n_samples}).csv")
+                how = "as written" if as_written else (
+                    f"stage generations / {PURSUIT_GENERATION_CUT}, one attempt: "
+                    f"{dict(rc.pursuit)}")
+                log(f"pursuit {config} ({how}): exit {code} in {seconds:.2f}s (stage rows "
+                    f"included), {engine!r}; launches {counts}, B1/B2 by mode {modes} {card()}")
+                truth = self.truth_rel(rc)
+                for i, ln in enumerate(lines):
+                    print(f"  {ln}; the true parameters' own error on this chunk "
+                          f"{truth[i]:.6g}", flush=True)
+                require(code == 0 and lines, f"{config}: exit {code}")
+                require(os.path.exists(wav) and os.path.exists(csv), f"{config}: no WAV or CSV")
+                for i, ln in enumerate(lines):
+                    m = re.search(r"f32 fitness (\S+), silent estimate (\S+), relative spectral "
+                                  r"error (\S+)", ln)
+                    f32, silent, rel = (float(x) for x in m.groups())
+                    require(np.isfinite(f32) and f32 <= silent, f"{config}: worse than silence")
+                    if as_written and i == 0:
+                        require(rel < PURSUIT_MAX_REL,
+                                f"{config}: relative spectral error {rel} >= {PURSUIT_MAX_REL}")
+                if as_written:
+                    require(modes["B2"].get("parallel_int8", 0) > 0
+                            and modes["B2"].get("parallel_f32", 0) > 0
+                            and modes["B1"].get("parallel_int8", 0) > 0
+                            and modes["B1"].get("parallel_f32", 0) > 0,
+                            f"{config}: the parallel kernels did not all run: {modes}")
+                    for name, kern, mode in (
+                            ("fused_synth_fitness_parallel", "B1", "parallel_int8"),
+                            ("fused_generation_parallel", "B2", "parallel_int8"),
+                            ("fused_synth_fitness_parallel_f32", "B1", "parallel_f32"),
+                            ("fused_generation_parallel_f32", "B2", "parallel_f32")):
+                        self.kernels.setdefault(name, {})["launches"] = modes[kern][mode]
+                elif "huge_frame" in config:
+                    require(counts.get("fused_synth_stream", 0) > 0, f"{config}: B4 not launched")
+                else:
+                    require(counts.get("fused_generation", 0) > 0, f"{config}: B2 not launched")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    def truth_rel(self, rc):
+        """The relative spectral error of a params config's true parameters
+        on each chunk of its target (synthesised as the CLI synthesises it),
+        under the block stages' f32 engine."""
+        from pmfm_tpu_torch.es import evaluate, staged
+        from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+
+        cfg = rc.es
+        n = cfg.n_samples
+        params = torch.tensor(rc.input_params, dtype=torch.float32, device=self.dev)
+        audio = synthesize_single(params, max(2048, n), cfg.topology,
+                                  wavetable_size=cfg.wavetable_size, sample_rate=cfg.sample_rate,
+                                  osc_mode=cfg.osc_mode)
+        ecfg = staged._eval_cfg(cfg)
+        so = staged._spectrum_ops(ecfg, self.dev)
+        lo = torch.tensor(cfg.param_mins, device=self.dev)
+        hi = torch.tensor(cfg.param_maxs, device=self.dev)
+        norm = ((params - lo) / (hi - lo))[None]
+        out = []
+        for i in range(len(audio) // n):
+            t = target_spectrum(audio[i * n : (i + 1) * n], so)
+            fit = float(evaluate(norm, t, so, ecfg)[0])
+            out.append((fit / float((t.double() ** 2).sum())) ** 0.5)
+        return out
+
+    def engine_memory(self):
+        """Peak device memory of one evaluate() of the block stages' f32
+        engine (``staged._eval_cfg``) per candidate sample, at the examples'
+        stage population 8192: fm3_parallel at n 1024 and fm2 at n 65536."""
+        from pmfm_tpu_torch.es import evaluate, staged
+        from pmfm_tpu_torch.io import load_config
+
+        for config in (PARALLEL_CONFIG, "examples/huge_frame_match.json"):
+            cfg = staged._eval_cfg(load_config(config).es)
+            so = staged._spectrum_ops(cfg, self.dev)
+            pop = 1 << 13
+            values = torch.rand((pop, cfg.num_dimensions), device=self.dev)
+            target = torch.rand((so.num_bins,), device=self.dev)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            evaluate(values, target, so, cfg)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            per = peak / (pop * cfg.n_samples)
+            log(f"block-stage f32 engine ({cfg.topology}, n={cfg.n_samples}, P={pop}): peak "
+                f"{peak / 2**30:.3f} GiB above the inputs, {per:.1f} bytes a candidate sample "
+                f"(es.staged.F32_ENGINE_BYTES_PER_SAMPLE = {staged.F32_ENGINE_BYTES_PER_SAMPLE}); "
+                f"_batch_width_cap {staged._batch_width_cap(cfg.n_samples, pop, self.dev)} "
+                f"{card()}")
+            require(per <= staged.F32_ENGINE_BYTES_PER_SAMPLE,
+                    "the f32 engine takes more memory than _batch_width_cap assumes")
+
     def kernels_line(self):
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1872,14 +2225,21 @@ class Smoke:
         return {"kernels": out}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=None, metavar="N,N",
+                    help="run only these phases (after the device, the build and the inputs) "
+                         "and print no result line: a quick check while changing a kernel")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import pmfm_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    s = Smoke()
+    s = Smoke(only=None if args.only is None else set(args.only.split(",")))
     s.phase("1 device", s.device)
     s.phase("2 build", s.build)
     if s.failed:
@@ -1910,6 +2270,13 @@ def main() -> int:
     s.phase("17 scan kernel vs plain", s.scan_vs_plain)
     s.phase("18 unfused engines", s.unfused)
     s.phase("19 CLI", s.cli)
+    s.phase("20 B1/B2 fm{k}_parallel vs plain", s.parallel_kernels)
+    s.phase("21 pursuit solver through the CLI", s.pursuit)
+    if s.only is not None:
+        faulthandler.cancel_dump_traceback_later()
+        log(f"phases {sorted(s.only)}: {'FAILED: ' + str(s.failed) if s.failed else 'passed'} "
+            f"{card()}")
+        return 1 if s.failed else 0
     line = None
     try:
         line = s.kernels_line()

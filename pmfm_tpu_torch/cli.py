@@ -8,8 +8,11 @@ Replicates the reference program's main (main.cpp:25-305), as ``pmfm_tpu.cli`` d
 * ``input: "params"`` synthesises the target from ground-truth parameters and
   writes ``inputGenerated.wav``; ``input: "audio"`` loads the target WAV
   (resampled to the config's rate where the file's differs);
-* runs the chunked matcher (``es/pipeline.py::match_audio``) and prints the
-  total wall-clock time;
+* runs the chunked matcher (``es/pipeline.py::match_audio``), or with
+  ``--mode pursuit`` / ``tpu.solver: "pursuit"`` the staged solver
+  (``es/staged.py``: the series homotopy for fm{k}_series with k >= 4, the
+  pair pursuit otherwise) chunk by chunk, and prints the total wall-clock
+  time;
 * prints the best parameters and fitness per chunk, then the overall best
   by parameter name (``models.get_topology``);
 * resynthesises the best candidates into the output WAV;
@@ -19,9 +22,9 @@ Replicates the reference program's main (main.cpp:25-305), as ``pmfm_tpu.cli`` d
 The run is on the first CUDA device unless ``--platform cpu`` asks for the
 CPU, where every kernel runs its plain PyTorch version. Not ported yet, and
 raising ``NotImplementedError`` that names the ROADMAP item: ``--batch``,
-``--mode stft`` and ``--mode parallel-chunks`` (Queue A item 6), the
-``pursuit`` solver (A8), ``--export-aot``/``--aot`` and ``--checkpoint-dir``
-(A9), ``--mesh`` and a config's ``tpu.meshShape`` (A10).
+``--mode stft`` and ``--mode parallel-chunks`` (Queue A item 6),
+``--export-aot``/``--aot`` and ``--checkpoint-dir`` (A9), ``--mesh`` and a
+config's ``tpu.meshShape`` (A10).
 """
 from __future__ import annotations
 
@@ -59,8 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="chunks",
                    help="chunks: fresh population per chunk, sequential (reference "
                         "semantics); stft, parallel-chunks (not ported yet: A6); pursuit, "
-                        "the staged solver (not ported yet: A8). A config with "
-                        "tpu.solver='pursuit' selects pursuit")
+                        "the staged solver for fm{k}_parallel, fm2 and fm{k>=4}_series. A "
+                        "config with tpu.solver='pursuit' selects pursuit")
     p.add_argument("--batch", nargs="+", default=None, metavar="WAV",
                    help="match several target WAVs concurrently (not ported yet: A6)")
     p.add_argument("--mesh", type=int, default=None,
@@ -137,8 +140,6 @@ def main(argv: list[str] | None = None) -> int:
         raise _not_ported("--batch (match_many)", "6 (A6)")
     if args.mode in ("stft", "parallel-chunks"):
         raise _not_ported(f"--mode {args.mode}", "6 (A6)")
-    if args.mode == "pursuit":
-        raise _not_ported("the pursuit solver (es/staged.py)", "8 (A8)")
     if args.export_aot or args.aot:
         raise _not_ported("--export-aot/--aot (utils/aot.py)", "9 (A9)")
     if args.checkpoint_dir:
@@ -215,15 +216,33 @@ def main(argv: list[str] | None = None) -> int:
             cfg_r = cfg.refine_config()
             tail = (f", the last {min(cfg.refine_generations, num_generations)} on "
                     f"{active_engine(cfg_r, make_spectrum_ops(cfg_r, device=device))}")
-        print(f"engine: {engine}{tail} on {device} ({cfg.topology}, n={cfg.n_samples}, "
-              f"pop={cfg.population_size}, {num_generations} generations)")
+        if args.mode == "pursuit":
+            from .es.staged import _eval_cfg
+
+            ecfg = _eval_cfg(cfg)
+            print(f"engine: {engine}{tail} (the polishes) and "
+                  f"{active_engine(ecfg, make_spectrum_ops(ecfg, device=device))} (the block "
+                  f"stages) on {device} (pursuit solver, {cfg.topology}, n={cfg.n_samples}, "
+                  f"pop={cfg.population_size})")
+        else:
+            print(f"engine: {engine}{tail} on {device} ({cfg.topology}, n={cfg.n_samples}, "
+                  f"pop={cfg.population_size}, {num_generations} generations)")
     start = time.perf_counter()
     # general.isDebug: NaN checks over the whole match (utils/debug.py)
     with maybe_trace(args.profile_dir), debug_nans(run_cfg.is_debug):
-        result = match_audio(
-            target, cfg, seed=args.seed, num_generations=num_generations,
-            record_trajectory=args.trajectory, benchmarker=bm, device=device,
-        )
+        if args.mode == "pursuit":
+            # one device program in the reference: time it as one total so
+            # that isBenchmarking writes the CSV in this mode too
+            if bm is not None:
+                bm.start_timer("Total Audio Analysis Time")
+            result = _match_pursuit(target, cfg, run_cfg.pursuit, args.seed, device, args.quiet)
+            if bm is not None:
+                bm.pause_timer("Total Audio Analysis Time")
+        else:
+            result = match_audio(
+                target, cfg, seed=args.seed, num_generations=num_generations,
+                record_trajectory=args.trajectory, benchmarker=bm, device=device,
+            )
     elapsed = time.perf_counter() - start
     if not args.quiet:
         print(f"Total time to complete: {elapsed:.3f}s")
@@ -251,6 +270,75 @@ def main(argv: list[str] | None = None) -> int:
     if bm is not None:
         _flush_benchmark(bm, cfg, device)
     return 0
+
+
+def _match_pursuit(target, cfg, pursuit_items, seed: int, device, quiet: bool):
+    """The staged solver over each whole chunk of ``target`` (the reference
+    CLI's pursuit mode): ``match_series_pursuit`` for fm{k}_series with
+    k >= 4, else ``match_parallel_pursuit`` (which raises ``ValueError`` for
+    a topology that is neither fm{k}_parallel nor fm2), each chunk on its
+    own sub-seed. Prints a line a chunk: attempts, generations, the relative
+    spectral error under the f32 engine against ``targetRel``, and the
+    seconds of each part. Returns a ``MatchResult``."""
+    import torch
+
+    from .es.pipeline import ChunkResult, MatchResult, _chunk_seed
+    from .es.staged import (
+        _eval_cfg,
+        _spectrum_ops,
+        match_parallel_pursuit,
+        match_series_pursuit,
+        pursuit_kwargs_from_config,
+        series_pursuit_kwargs_from_config,
+    )
+    from .es.strategy import evaluate
+    from .ops import synthesize_single, target_spectrum
+    from .ops.synthesis import scale_params, series_ops
+
+    # parallel banks -> the comb-peel solver; serial chains k >= 4 -> the
+    # exact-reduction homotopy (each has its own knob set)
+    if (series_ops(cfg.topology) or 0) >= 4:
+        solver, kw = match_series_pursuit, series_pursuit_kwargs_from_config(pursuit_items)
+    else:
+        solver, kw = match_parallel_pursuit, pursuit_kwargs_from_config(pursuit_items)
+    n = cfg.n_samples
+    n_chunks = len(target) // n
+    if n_chunks == 0:
+        raise ValueError(f"target audio ({len(target)} samples) shorter than one frame ({n})")
+    mins = torch.tensor(cfg.param_mins, dtype=torch.float32, device=device)
+    maxs = torch.tensor(cfg.param_maxs, dtype=torch.float32, device=device)
+    ecfg = _eval_cfg(cfg)
+    so_e = _spectrum_ops(ecfg, device)
+    chunks, out_audio = [], []
+    for i in range(n_chunks):
+        frame = np.ascontiguousarray(target[i * n : (i + 1) * n], np.float32)
+        r = solver(frame, cfg, _chunk_seed(seed, i), device=device, **kw)
+        values = torch.from_numpy(np.asarray(r.best_values, np.float32)).to(device)
+        best_scaled = scale_params(values[None], mins, maxs)[0]
+        chunks.append(ChunkResult(
+            best_params_scaled=best_scaled.cpu().numpy(),
+            best_params_norm=np.asarray(r.best_values, np.float32),
+            best_fitness=float(r.best_fitness),
+            generations_run=r.generations_used,
+            trajectory=None,
+        ))
+        out_audio.append(synthesize_single(
+            best_scaled, n, cfg.topology, wavetable_size=cfg.wavetable_size,
+            sample_rate=cfg.sample_rate, osc_mode=cfg.osc_mode, engine=cfg.synthesis_engine,
+        ).cpu().numpy())
+        if not quiet:
+            tspec = target_spectrum(torch.from_numpy(frame).to(device), so_e)
+            energy = float(torch.sum(tspec.double() ** 2))
+            f32 = float(evaluate(values[None], tspec, so_e, ecfg)[0])
+            rel = (f32 / energy) ** 0.5 if energy > 0 else float("nan")
+            goal = kw.get("target_rel", 0.0)
+            met = f"{'met' if rel <= goal else 'not met'}" if goal > 0 else "not set"
+            parts = ", ".join(f"{k} {v:.3f}s" for k, v in (r.seconds or {}).items())
+            print(f"pursuit chunk {i}: attempts {r.attempts}, generations {r.generations_used}, "
+                  f"f32 fitness {f32:.6g}, silent estimate {energy:.6g}, relative spectral "
+                  f"error {rel:.6g} (targetRel {goal:g}: {met}); stage fitness "
+                  f"{np.round(r.stage_fitness, 6).tolist()}; seconds {parts}")
+    return MatchResult(chunks=chunks, output_audio=np.concatenate(out_audio), config=cfg)
 
 
 def _flush_benchmark(bm, cfg, device) -> None:

@@ -107,3 +107,17 @@ __host__ inline int dispatch_chain(int kn, F&& f) {
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// B1/B2: runs f(std::integral_constant<int, KN>{}) for sp's synthesis, a
+// chain of sp.kn oscillators (dispatch_chain) or a bank of sp.npair pairs
+// (2..MAX_PAIRS) as KN = BANK_KN + npair (synth_common.cuh::synth_candidate).
+template <typename F>
+__host__ inline int dispatch_synth(const SynthParams& sp, F&& f) {
+  switch (sp.npair) {
+    case 0: return dispatch_chain(sp.kn, f);
+    case 2: return f(std::integral_constant<int, BANK_KN + 2>{});
+    case 3: return f(std::integral_constant<int, BANK_KN + 3>{});
+    case 4: return f(std::integral_constant<int, BANK_KN + 4>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -15,7 +15,9 @@
 //
 // * One warp a block, TC_CPB = 32 candidates, thread t synthesising
 //   candidate t: synth_run<NC, FOLD_G, KN> with the chain length KN fixed at
-//   compile time (a runtime loop bound there cost the synthesis 4x) and the
+//   compile time (a runtime loop bound there cost the synthesis 4x), or for
+//   fm{k}_parallel synth_bank_run with the pair count fixed the same way
+//   (synth_common.cuh::synth_candidate; KN = BANK_KN + k), and the
 //   grouped fold emitter (synth_common.cuh::FoldEmit, B3's), which stores
 //   whole 16-byte groups of the thread's rows of a+ and a- in shared memory
 //   (32 x n bytes a block: 32 KB at n 1024, so six blocks an SM). The sample
@@ -204,7 +206,8 @@ __device__ __forceinline__ void dft_pass(int k0, const uint4* s_ap, const uint4*
 }
 
 // The fitness of the block's 32 candidates, thread t holding candidate t's
-// scaled parameters p; writes fitness[base + t] for base + t < pop.
+// scaled parameters p; writes fitness[base + t] for base + t < pop. KN is
+// the synthesis code of dispatch_synth (a chain, or a bank above BANK_KN).
 template <int NC, int KN>
 __device__ __forceinline__ void evaluate_int8_mma(const float* p, const SynthParams& sp,
                                                   const int8_t* __restrict__ dft,
@@ -216,17 +219,15 @@ __device__ __forceinline__ void evaluate_int8_mma(const float* p, const SynthPar
   uint4* s_am = smem + TC_CPB * units;
 
   // synthesis + fold into the thread's rows of a+/a-
-  const Chain ch = make_chain(p, sp);
   FoldEmit<true, SwizzledRow> emit;
   emit.ap = SwizzledRow{s_ap + lane * units, tc_swizzle(lane)};
   emit.am = SwizzledRow{s_am + lane * units, tc_swizzle(lane)};
   emit.n = sp.n;
   emit.half = half;
-  emit.amp = ch.amp;
   emit.edge_q = 0.f;
-  synth_run<NC, FOLD_G, KN>(ch, sp, sp.sin_c63, sp.n, emit);
+  const float amp = synth_candidate<NC, KN, true>(p, sp, emit);
   emit.fold_rows(0, false, 0.f);  // rows [0, 16): row 0 keeps q[0] alone
-  const float mag_scale = fmul(fabsf(ch.amp), sp.dft_scale);
+  const float mag_scale = fmul(fabsf(amp), sp.dft_scale);
   __syncwarp();
 
   // the edge term 127 (-1)^k x[N/2] of each row, for even and odd k
@@ -307,13 +308,14 @@ fused_generation_int8_kernel(uint32_t seed, const float* __restrict__ pv,
 #define PICK(kernel) \
   [](auto nc, auto kc) { return kernel<decltype(nc)::value, decltype(kc)::value>; }
 
-// The int8 kernel that `pick` gives for the sine order and the chain length,
-// with its shared memory set, asking for the largest carveout so that six
+// The int8 kernel that `pick` gives for the sine order and the synthesis
+// (dispatch_synth: the chain length or the bank's pairs), with its shared
+// memory set, asking for the largest carveout so that six
 // blocks of one warp fit an SM at n 1024.
 template <typename Pick, typename K>
 static int prepare_int8(Pick&& pick, const SynthParams& sp, K* out) {
   return dispatch_ncoef(sp.ncoef, [&](auto nc) {
-    return dispatch_chain(sp.kn, [&](auto kc) {
+    return dispatch_synth(sp, [&](auto kc) {
       const K kernel = pick(nc, kc);
       cudaError_t e = prepare(kernel, (size_t)sp.n * TC_CPB);
       if (!e)

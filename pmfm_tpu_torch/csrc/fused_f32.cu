@@ -37,11 +37,13 @@
 //    so that they cover whole 64-byte row segments (F32Row).
 // 3. Its synthesis read the chain length at run time (a runtime loop bound
 //    cost the int8 synthesis 4x). Here synth_run gets it as the compile-time
-//    KN (dispatch_chain) with the grouped fold emitter FoldEmit on an exact
+//    KN (dispatch_synth; an fm{k}_parallel bank's pair count likewise, to
+//    synth_bank_run) with the grouped fold emitter FoldEmit on an exact
 //    f32 row (F32Row).
 //
 // Numerics. The audio is the plain version's bit for bit: synth_run's
-// samples and operations, each sample fmul(y, amp) unrounded; a+ = old + x,
+// samples and operations, each sample fmul(y, amp) unrounded (a pair bank:
+// synth_bank_run's sum over the pairs divided by k, times 1); a+ = old + x,
 // a- = old - x (synth_common.cuh's FoldEmit). Only the order of the sums
 // differs from the plain version's float32 products:
 // * U[c][k] and V[c][k] are sums of exact-product __fmaf_rn steps over the
@@ -188,7 +190,6 @@ f32_synth_kernel(const float* __restrict__ params, uint32_t seed, const float* _
 #pragma unroll
   for (int i = 0; i < MAX_D; ++i) p[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
   const int cand = base + threadIdx.x, half = sp.n >> 1;
-  const Chain ch = make_chain(p, sp);
   FoldEmit<false, F32Row> emit;
   const int lane = threadIdx.x & 31;
   float* buf = s_buf + (threadIdx.x - lane) * SY_LDB;
@@ -196,9 +197,8 @@ f32_synth_kernel(const float* __restrict__ params, uint32_t seed, const float* _
   emit.am = F32Row{am + (size_t)cand * half, buf, lane, half};
   emit.n = sp.n;
   emit.half = half;
-  emit.amp = ch.amp;
   emit.edge_q = 0.f;  // the exact edge sample x[N/2] here
-  synth_run<NC, FOLD_G, KN>(ch, sp, sp.sin_c, sp.n, emit);
+  synth_candidate<NC, KN, false>(p, sp, emit);
   emit.fold_rows(0, false, 0.f);  // rows [0, 16): row 0 keeps x[0] alone
   edge[cand] = emit.edge_q;
 }
@@ -418,8 +418,8 @@ static long long f32_scratch_floats(int pop, int n) {
 }
 
 // The plan of the three kernels for pop candidates (generation.cuh): the
-// synthesis's instantiation for the sine order and the chain length, with
-// B2's offspring prologue (GEN) or B1's parameters, the scratch's views and
+// synthesis kernel's instantiation for the sine order and the chain or bank
+// (dispatch_synth), with B2's offspring prologue (GEN) or B1's parameters, the scratch's views and
 // the DFT kernel's shared memory. cudaErrorInvalidValue for too little
 // scratch, a frame whose half is not whole DF_BK-sample stages or one of
 // more segments than the running tiles' levels take.
@@ -441,7 +441,7 @@ static int prepare_f32(const SynthParams& sp, int pop, float* scratch, long long
                   ? reinterpret_cast<float*>(plan->partial + (size_t)DF_GROUPS * pop_pad)
                   : nullptr;
   const int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
-    return dispatch_chain(sp.kn, [&](auto kc) {
+    return dispatch_synth(sp, [&](auto kc) {
       plan->synth = f32_synth_kernel<decltype(nc)::value, decltype(kc)::value, GEN>;
       return 0;
     });

@@ -6,7 +6,7 @@
 //
 // A prepare call does the host work of a launch that does not change from
 // one generation to the next (the instantiation for the sine order and the
-// chain length, the shared-memory attributes, the f32 scratch's checks and
+// chain length or the bank's pairs, the shared-memory attributes, the f32 scratch's checks and
 // layout); a run of launches calls it once. Each returns a CUDA error code,
 // 0 on success; a launch returns cudaGetLastError() after its kernel(s).
 #pragma once

@@ -3,8 +3,9 @@
 // any run of time blocks from given offsets, whole or one level of the
 // time-parallel synthesis of large_frame.cu; synth_run, the whole frame
 // from zero offsets), as the TPU kernels share
-// pmfm_tpu/kernels/synth_fitness.py::_make_block_synth; and the grouped
-// fold emitter FoldEmit that B3 and B1/B2 run on it.
+// pmfm_tpu/kernels/synth_fitness.py::_make_block_synth; the fm{k}_parallel
+// bank of B1/B2 (synth_bank_run: k fm2 chains summed in pair order); and
+// the grouped fold emitter FoldEmit that B3 and B1/B2 run on them.
 //
 // Numerics (the TPU kernel's, in sample order). Phases are kept in turns
 // (phase / wavetable size), so the wrap is frac(x) = x - floor(x). Samples
@@ -28,6 +29,10 @@
 #define TIME_BLOCK 128  // samples per phase-carry block (the TPU kernel's C)
 #define MAX_KN 8        // oscillators in a chain (fm8_series)
 #define MAX_D 16        // parameters per candidate
+#define MAX_PAIRS 4     // fm2 pairs of an fm{k}_parallel bank (fm4_parallel: MAX_D genes)
+// B1/B2's compile-time synthesis code KN (dispatch_synth): a chain of KN
+// oscillators (2 .. MAX_KN), or a bank of KN - BANK_KN pairs above BANK_KN.
+#define BANK_KN 16
 
 struct SynthParams {
   float sin_c[5];    // odd coefficients of sin(2 pi w), w in [-0.5, 0.5] turns
@@ -41,6 +46,7 @@ struct SynthParams {
   float inv_sr;      // 1 / sample_rate, as f32
   float dft_scale;   // SpectrumOps.dft_packed_scale (0 outside the int8 engine)
   float edge_norm;   // B1/B2 true-f32 mode: 2 * norm, the x[N/2] edge coefficient's size
+  int npair;         // B1/B2: 0 for a chain, else the pairs of an fm{npair}_parallel bank
 };
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -167,6 +173,89 @@ __device__ __forceinline__ void synth_run(const Chain& ch, const SynthParams& sp
   for (int j = 0; j < MAX_KN; ++j) off[j] = 0.f;
   NoTotal none;
   synth_span<NC, G, KN, KN - 1, true>(ch, sp, out_c, 0, n / TIME_BLOCK, off, emit, none);
+}
+
+// ---- the fm{k}_parallel bank (B1, B2) -------------------------------------------
+
+// One candidate's bank of NP fm2 pairs, pair j on genes 4j .. 4j+3 = (fm,
+// index, fc, amp): each pair's make_chain constants, and its output gain.
+// The int8 mode factors out s = (sum_j |amp_j|) / NP (summed in pair order,
+// divided by the float32 NP) and gain_j = amp_j * (63 / (NP s + 1e-30)),
+// so the summed pairs stay within +-63 and s rescales the magnitudes; the
+// true-f32 mode keeps gain_j = amp_j and divides the sum by NP
+// (synth_bank_run). amp is what FoldEmit multiplies a sample by and the
+// int8 epilogue rescales by: s (int8), 1 (f32).
+struct PairBank {
+  float inc1[MAX_PAIRS], inc_blk[MAX_PAIRS], im[MAX_PAIRS], ic[MAX_PAIRS], gain[MAX_PAIRS];
+  float amp;
+};
+
+template <int NP, bool INT8>
+__device__ __forceinline__ PairBank make_bank(const float* p, const SynthParams& sp) {
+  static_assert(NP >= 2 && NP <= MAX_PAIRS, "pairs in a bank");
+  PairBank bk;
+  const float inv_sr = sp.inv_sr;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    bk.inc1[j] = frac(fmul(inv_sr, p[4 * j]));
+    bk.im[j] = fmul(inv_sr, fmul(p[4 * j], p[4 * j + 1]));
+    bk.ic[j] = fmul(inv_sr, p[4 * j + 2]);
+    bk.inc_blk[j] = frac(fmul((float)TIME_BLOCK, bk.inc1[j]));
+    bk.gain[j] = p[4 * j + 3];
+  }
+  bk.amp = 1.f;
+  if constexpr (INT8) {
+    float s = fabsf(p[3]);
+#pragma unroll
+    for (int j = 1; j < NP; ++j) s = fadd(s, fabsf(p[4 * j + 3]));
+    s = __fdiv_rn(s, (float)NP);
+    const float inv_s = __fdiv_rn(63.f, fadd(fmul((float)NP, s), 1e-30f));
+#pragma unroll
+    for (int j = 0; j < NP; ++j) bk.gain[j] = fmul(bk.gain[j], inv_s);
+    bk.amp = s;
+  }
+  return bk;
+}
+
+// The bank over samples 0 .. n-1 from zero offsets: pair j is synth_span's
+// chain of two (its own two carries, the same operations) whose output is
+// the unit sine times gain_j; emit(m, u, y) gets the sum over the pairs in
+// pair order, divided by the float32 NP in the true-f32 mode (!INT8). NP
+// is fixed at compile time, as a chain's KN is.
+template <int NC, int G, int NP, bool INT8, typename Emit>
+__device__ __forceinline__ void synth_bank_run(const PairBank& bk, const SynthParams& sp, int n,
+                                               Emit& emit) {
+  static_assert(TIME_BLOCK % G == 0, "G must divide TIME_BLOCK");
+  float o1[NP], o2[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) o1[j] = o2[j] = 0.f;
+  for (int b = 0; b < n / TIME_BLOCK; ++b) {
+    float s[NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) s[j] = 0.f;
+    for (int t0 = 0; t0 < TIME_BLOCK; t0 += G) {
+      const float tf0 = (float)t0;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        float y = 0.f;
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          const float pos1 = fadd(fmul(fadd(tf0, (float)u), bk.inc1[j]), o1[j]);
+          const float x = fadd(fmul(sin_turns<NC>(pos1, sp.sin_c), bk.im[j]), bk.ic[j]);
+          const float o = fmul(sin_turns<NC>(fadd(s[j], o2[j]), sp.sin_c), bk.gain[j]);
+          y = j == 0 ? o : fadd(y, o);
+          s[j] = fadd(s[j], x);
+        }
+        if constexpr (!INT8) y = __fdiv_rn(y, (float)NP);
+        emit(b * TIME_BLOCK + t0 + u, u, y);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      o2[j] = frac(fadd(o2[j], s[j]));
+      o1[j] = frac(fadd(o1[j], bk.inc_blk[j]));
+    }
+  }
 }
 
 // The scaled parameters of candidate `cand` of a (pop, d) row-major array.
@@ -319,6 +408,27 @@ struct FoldEmit {
     }
   }
 };
+
+// B1/B2's synthesis of one candidate with scaled parameters p into emit (a
+// FoldEmit): a chain of KN oscillators (synth_run, the output oscillator
+// 63 sin in the int8 mode) or, for KN > BANK_KN, a bank of KN - BANK_KN
+// pairs (synth_bank_run). Sets emit.amp and returns it: the amplitude the
+// int8 magnitudes are rescaled by (Chain::amp, PairBank::amp).
+template <int NC, int KN, bool INT8, typename Emit>
+__device__ __forceinline__ float synth_candidate(const float* p, const SynthParams& sp,
+                                                 Emit& emit) {
+  if constexpr (KN > BANK_KN) {
+    const PairBank bk = make_bank<KN - BANK_KN, INT8>(p, sp);
+    emit.amp = bk.amp;
+    synth_bank_run<NC, FOLD_G, KN - BANK_KN, INT8>(bk, sp, sp.n, emit);
+    return bk.amp;
+  } else {
+    const Chain ch = make_chain(p, sp);
+    emit.amp = ch.amp;
+    synth_run<NC, FOLD_G, KN>(ch, sp, INT8 ? sp.sin_c63 : sp.sin_c, sp.n, emit);
+    return ch.amp;
+  }
+}
 
 template <typename K>
 static cudaError_t prepare(K kernel, size_t smem) {

@@ -1,4 +1,5 @@
-"""Evolutionary-strategy engine: config, stage primitives, generation loop."""
+"""Evolutionary-strategy engine: config, stage primitives, generation loop,
+and the staged (pursuit) solvers."""
 from .config import ESConfig
 from .pipeline import (
     ChunkResult,
@@ -10,6 +11,7 @@ from .pipeline import (
     match_audio,
     refine_boundary,
 )
+from .staged import PursuitResult, match_parallel_pursuit, match_series_pursuit
 from .strategy import (
     ESState,
     active_engine,
@@ -33,7 +35,10 @@ __all__ = [
     "make_spectrum_ops",
     "match_audio",
     "MatchResult",
+    "match_parallel_pursuit",
+    "match_series_pursuit",
     "mutate",
+    "PursuitResult",
     "recombine",
     "refine_boundary",
     "select",

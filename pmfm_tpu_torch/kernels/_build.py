@@ -52,6 +52,7 @@ class SynthParams(ctypes.Structure):
         ("inv_sr", ctypes.c_float),
         ("dft_scale", ctypes.c_float),
         ("edge_norm", ctypes.c_float),
+        ("npair", ctypes.c_int),
     ]
 
 

@@ -19,6 +19,8 @@ value (what ``_merge_topmu``'s stable enumeration rank gives); best-ever
 improves only on a strictly smaller fitness. The reference's finite 3e38
 sentinel and one-hot extraction are Mosaic workarounds: survivors here keep
 their fitness, inf and NaN included. No restarts, early stop or sharding.
+``fm{k}_parallel``, which B2 takes, raises ``NotImplementedError`` here on
+any device (ROADMAP Queue B item 3).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from .generation import _check_b2, fused_generation_plain, mutate_params_struct
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
     MAX_SHARED_BYTES,
+    check_supported_topology,
     f32_scratch_floats,
     inv_sample_rate,
     synth_params_struct,
@@ -144,6 +147,7 @@ def fused_evolve(
     )
     seeds = [int(s) for s in seeds]
     mu, d = parent_values.shape
+    check_supported_topology(topology)  # fm{k}_parallel in B5: ROADMAP Queue B item 3
     if not seeds:
         raise ValueError("fused_evolve needs at least one generation")
     if pop < mu:

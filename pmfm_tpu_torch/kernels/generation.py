@@ -9,7 +9,10 @@ true-f32 mode, ``csrc/fused_f32.cu``'s (the synthesis kernel with the
 prologue, then B1's f32 DFT and group sum); each runs the offspring prologue
 below (``csrc/evaluate.cuh::offspring_gene``, the block's genes spread over
 all its threads) and then B1's evaluation in the mode the operand selects.
-``fused_generation_plain`` is its plain PyTorch version.
+``fused_generation_plain`` is its plain PyTorch version. It takes every
+topology B1 takes, ``fm{k}_parallel`` (D = 8 .. 16) included: the prologue
+spreads the block's candidates x D genes over its threads whatever D is,
+and the launch geometry does not depend on D.
 
 Offspring semantics (``_offspring_block``): per gene a uniform parent index
 and an exact copy of that parent's value and step; an Ek coin; a CLT-12
@@ -30,6 +33,7 @@ the same offspring bits. The plain version also takes injected draws
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import numpy as np
@@ -44,6 +48,7 @@ from .synth_fitness import (
     check_supported,
     f32_scratch_floats,
     inv_sample_rate,
+    launch_mode,
     synth_params_struct,
 )
 
@@ -257,7 +262,8 @@ def fused_generation(
 
     Returns ``(fitness (P,), values (P, D), steps (P, D))``. ``seed`` is the
     int32 from ``es.pipeline.kernel_seed``. On CUDA tensors this launches the
-    B2 kernel (counted in ``fused_generation.launches``); on CPU tensors it
+    B2 kernel (counted in ``fused_generation.launches``, and by mode in
+    ``fused_generation.launches_by[launch_mode(...)]``); on CPU tensors it
     runs the plain version, which alone accepts injected ``draws``.
     """
     kw = dict(
@@ -302,7 +308,9 @@ def fused_generation(
         err = library().pmfm_fused_generation(*args, stream)
     check(err, "fused_generation")
     fused_generation.launches += 1
+    fused_generation.launches_by[launch_mode(topology, dft_scale)] += 1
     return fitness, values, steps
 
 
 fused_generation.launches = 0
+fused_generation.launches_by = collections.Counter()

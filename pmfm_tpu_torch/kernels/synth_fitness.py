@@ -42,12 +42,24 @@ Two modes, chosen by the operand as in the reference:
 
 The Mosaic workarounds (one-hot gathers and reversal matmuls, the (D, P)
 transposed layout, 128-lane pop blocks, VMEM gates) do not carry over.
-Ported: ``fm2`` and ``fm{k}_series`` (k <= 8) at one frame in both modes;
-the bf16 mode, ``fm{k}_parallel`` and multi-frame fitness raise
-``NotImplementedError``.
+The ``fm{k}_parallel`` bank (k independent fm2 pairs, genes ``4j .. 4j+3``
+= (fm, index, fc, amp) of pair j, two phase carries a pair) changes only the
+synthesis (``_make_block_synth``'s pair branch): in the int8 mode the bank
+factors out ``s = (sum_j |amp_j|) / k`` (summed in pair order), each pair
+emits the unit sine times ``gain_j = amp_j * 63 / (k s + 1e-30)``, the sum
+over pairs (in pair order) is rounded to int8 and ``s`` takes the place of
+``|amp|`` in the magnitude rescale; in the true-f32 mode each pair emits
+``sin * amp_j`` and the sum is divided by the float32 k.
+
+Ported: ``fm2``, ``fm{k}_series`` (k <= 8) and ``fm{k}_parallel`` (k <= 4,
+``MAX_PARALLEL_PAIRS``) at one frame in both modes; the bf16 mode,
+``fm{k}_parallel`` with k >= 5 and multi-frame fitness raise
+``NotImplementedError``. B3, B4 and B5 do not take ``fm{k}_parallel`` yet
+(``check_supported_topology``).
 """
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -61,6 +73,7 @@ from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 DEFAULT_POP_BLOCK = 512
 TIME_BLOCK = 128
 MAX_SERIES_OPS = 8  # csrc MAX_KN
+MAX_PARALLEL_PAIRS = 4  # csrc MAX_PAIRS: fm4_parallel's 16 genes fill MAX_D
 CUDA_BLOCK = 32  # csrc TC_CPB: int8 B1/B2 candidates per CUDA block (one warp)
 F32_GROUPS = 8  # csrc DF_GROUPS: the f32 fitness's bin groups
 F32_SYNTH_THREADS = 128  # csrc SY_TPB: B1/B2 f32 synthesis, candidates (threads) per block
@@ -121,6 +134,16 @@ def _frac(x: torch.Tensor) -> torch.Tensor:
     return x - torch.floor(x)
 
 
+_F32_TINY = float(np.float32(1e-30))  # the int8 bank's guard against k s = 0
+
+
+def _div(x: torch.Tensor, y) -> torch.Tensor:
+    """``x / y`` correctly rounded, as the kernels' ``__fdiv_rn``: a tensor
+    divisor, since torch multiplies by the reciprocal of a Python number (on
+    CUDA tensors) and of a dividend's (``63.0 / x``)."""
+    return torch.div(x, y if torch.is_tensor(y) else torch.full_like(x, y))
+
+
 def inv_sample_rate(wavetable_size: int, sample_rate: int) -> float:
     """``1 / sample_rate`` as the reference forms it: (wts/sr)/wts in float64,
     rounded to float32."""
@@ -146,14 +169,24 @@ def check_supported(topology: str, dft_packed: torch.Tensor, dft_scale: float,
         raise NotImplementedError(
             f"multi-frame STFT fitness (num_frames={num_frames}) is not ported yet"
         )
-    check_supported_topology(topology)
+    check_supported_topology(topology, parallel=True)
 
 
-def check_supported_topology(topology: str) -> None:
+def check_supported_topology(topology: str, *, parallel: bool = False) -> None:
     """Raise ``NotImplementedError`` for a topology the kernels do not take:
-    the ported chain is fm2 or fm{k}_series, k <= 8."""
-    if parallel_pairs(topology):
-        raise NotImplementedError(f"{topology}: fm{{k}}_parallel is not ported yet")
+    every kernel takes fm2 and fm{k}_series, k <= 8; B1/B2 (``parallel``)
+    also take fm{k}_parallel, k <= 4."""
+    k = parallel_pairs(topology)
+    if k is not None:
+        if not parallel:
+            raise NotImplementedError(
+                f"{topology}: fm{{k}}_parallel in B3, B4 and B5 is not ported yet "
+                f"(ROADMAP Queue B item 3)")
+        if k > MAX_PARALLEL_PAIRS:
+            raise NotImplementedError(
+                f"{topology}: fm{{k}}_parallel with k > {MAX_PARALLEL_PAIRS} ({4 * k} genes, "
+                f"above the kernels' 16) is not ported yet (ROADMAP Queue B item 3 (k >= 5))")
+        return
     kn = series_ops(topology)
     if topology != "fm2" and (kn is None or kn > MAX_SERIES_OPS):
         raise NotImplementedError(f"{topology}: only fm2 and fm3..fm8_series are ported")
@@ -161,7 +194,8 @@ def check_supported_topology(topology: str) -> None:
 
 def _chain_rows(p: torch.Tensor, topology: str, inv_sr: float):
     """(inc1, ims, ics, amp) per candidate from scaled params ``p`` (D, P):
-    the chain's constants of ``_make_block_synth``. fm2 is a chain of two."""
+    the chain's constants of ``_make_block_synth``. fm2 is a chain of two;
+    an ``fm{k}_parallel`` bank is k fm2 chains (``_pair_rows``)."""
     if topology == "fm2":
         return (
             _frac(inv_sr * p[0]), [inv_sr * (p[0] * p[1])], [inv_sr * p[2]], p[3],
@@ -170,6 +204,30 @@ def _chain_rows(p: torch.Tensor, topology: str, inv_sr: float):
     ims = [inv_sr * (p[2 * j] * p[2 * j + 1]) for j in range(kn - 1)]
     ics = [inv_sr * p[2 * j + 3] for j in range(kn - 1)]
     return _frac(inv_sr * p[1]), ims, ics, p[2 * kn - 2] * p[2 * kn - 1]
+
+
+def _pair_rows(p: torch.Tensor, topology: str, inv_sr: float) -> list:
+    """The k fm2 chains of an ``fm{k}_parallel`` bank: ``_chain_rows`` of
+    genes ``4j .. 4j+3`` of scaled params ``p`` (D, P), for each pair j."""
+    return [_chain_rows(p[4 * j : 4 * j + 4], "fm2", inv_sr)
+            for j in range(parallel_pairs(topology))]
+
+
+def bank_gains(amps: list, int8: bool):
+    """The output gains of a pair bank with amplitudes ``amps`` (k rows) and
+    the amplitude its magnitudes are rescaled by: int8, ``s = (sum_j
+    |amp_j|) / k`` summed in pair order, ``gain_j = amp_j * (63 / (k s +
+    1e-30))`` and ``s``; true f32, the amplitudes themselves and 1 (the
+    sum over pairs is divided by k instead)."""
+    if not int8:
+        return list(amps), torch.ones_like(amps[0])
+    k = float(len(amps))
+    s = torch.abs(amps[0])
+    for a in amps[1:]:
+        s = s + torch.abs(a)
+    s = _div(s, k)
+    inv_s = _div(torch.full_like(s, 63.0), k * s + _F32_TINY)
+    return [a * inv_s for a in amps], s
 
 
 def _exclusive_prefix(x: torch.Tensor):
@@ -189,13 +247,19 @@ def synth_blocks_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float,
     ``TIME_BLOCK`` samples at a time: yields each block's output oscillator
     ``y`` (C, P) in time order. ``int8`` gives ``63 * sin`` (the int8
     engine's q before rounding), else the unit sine that the float engines
-    multiply by the amplitude (``chain_amp``).
+    multiply by the amplitude (``chain_amp``). An ``fm{k}_parallel`` bank
+    yields the sum over its pairs with their gains (``bank_gains``), divided
+    by k in the float mode: its q before rounding, or its audio.
 
     This is the plain version of ``csrc/synth_common.cuh::synth_run`` (its
-    ``synth_span`` over the whole frame), the recurrence every kernel of the
-    port runs; its phase carries are the offsets of ``_chain_rows``'s chain,
-    one per oscillator."""
+    ``synth_span`` over the whole frame) and of ``synth_bank_run``, the
+    recurrences every kernel of the port runs; the phase carries are the
+    offsets of ``_chain_rows``'s chain, one per oscillator."""
     rows = p.T.to(torch.float32)
+    if parallel_pairs(topology):
+        yield from _bank_blocks_plain(rows, topology=topology, n=n, inv_sr=inv_sr,
+                                      sine_order=sine_order, int8=int8)
+        return
     inc1, ims, ics, _ = _chain_rows(rows, topology, inv_sr)
     cs = sin_coeffs(sine_order)
     cs_out = sin_coeffs(sine_order, 63.0) if int8 else cs
@@ -213,28 +277,67 @@ def synth_blocks_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float,
         offs[0] = _frac(offs[0] + inc_blk)
 
 
+def _bank_blocks_plain(rows, *, topology, n, inv_sr, sine_order, int8):
+    """``synth_blocks_plain`` of an ``fm{k}_parallel`` bank (rows (D, P)):
+    pair j is an fm2 chain with its own two carries and emits the unit sine
+    times ``gain_j``; the pairs are added in pair order."""
+    pairs = _pair_rows(rows, topology, inv_sr)
+    gains, _ = bank_gains([pr[3] for pr in pairs], int8)
+    k = float(len(pairs))
+    cs = sin_coeffs(sine_order)
+    t_block = torch.arange(TIME_BLOCK, dtype=torch.float32, device=rows.device)[:, None]
+    incs_blk = [_frac(float(TIME_BLOCK) * pr[0]) for pr in pairs]
+    o1 = [torch.zeros_like(pr[0]) for pr in pairs]
+    o2 = [torch.zeros_like(pr[0]) for pr in pairs]
+    for _ in range(n // TIME_BLOCK):
+        y = None
+        for j, (inc1, ims, ics, _) in enumerate(pairs):
+            x = _sin_turns(t_block * inc1 + o1[j], cs) * ims[0] + ics[0]
+            pre, tot = _exclusive_prefix(x)
+            o = _sin_turns(pre + o2[j], cs) * gains[j]
+            y = o if y is None else y + o
+            o2[j] = _frac(o2[j] + tot)
+            o1[j] = _frac(o1[j] + incs_blk[j])
+        yield y if int8 else _div(y, k)
+
+
 def chain_amp(p: torch.Tensor, topology: str) -> torch.Tensor:
     """The output amplitude (P,) of scaled params ``p`` (P, D): the last
-    operator's freq * index (fm2: its amp parameter)."""
+    operator's freq * index (fm2: its amp parameter). Chains only: B1/B2
+    take a pair bank's from ``bank_amp``."""
     return _chain_rows(p.T.to(torch.float32), topology, 1.0)[3]
+
+
+def bank_amp(p: torch.Tensor, topology: str, int8: bool) -> torch.Tensor:
+    """What B1/B2 multiply ``synth_blocks_plain``'s y by (the true-f32 mode)
+    or rescale the magnitudes by (the int8 mode) for scaled params ``p``
+    (P, D): ``chain_amp`` for a chain; for an ``fm{k}_parallel`` bank ``s``
+    (int8) or 1 (true f32; ``bank_gains``)."""
+    k = parallel_pairs(topology)
+    if not k:
+        return chain_amp(p, topology)
+    rows = p.T.to(torch.float32)
+    return bank_gains([rows[4 * j + 3] for j in range(k)], int8)[1]
 
 
 def synth_int8_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float, sine_order: int):
     """Turns-domain synthesis of scaled params ``p`` (P, D) into int8 audio
-    ``q`` (N, P) = round(63 * unit audio), and the output amplitude (P,)."""
+    ``q`` (N, P) = round(63 * unit audio), and the output amplitude (P,)
+    (``bank_amp``: a pair bank's ``s``)."""
     q = torch.empty((n, p.shape[0]), dtype=torch.int8, device=p.device)
     blocks = synth_blocks_plain(p, topology=topology, n=n, inv_sr=inv_sr,
                                 sine_order=sine_order, int8=True)
     for b, y in enumerate(blocks):
         q[b * TIME_BLOCK : (b + 1) * TIME_BLOCK] = torch.round(y).to(torch.int8)
-    return q, chain_amp(p, topology)
+    return q, bank_amp(p, topology, True)
 
 
 def synth_f32_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float, sine_order: int):
     """Turns-domain synthesis of scaled params ``p`` (P, D) into the true-f32
-    engine's audio ``x`` (N, P) = unit audio * amplitude, unquantised."""
+    engine's audio ``x`` (N, P) = unit audio * amplitude, unquantised (a
+    pair bank's audio times 1)."""
     x = torch.empty((n, p.shape[0]), dtype=torch.float32, device=p.device)
-    amp = chain_amp(p, topology)
+    amp = bank_amp(p, topology, False)
     blocks = synth_blocks_plain(p, topology=topology, n=n, inv_sr=inv_sr,
                                 sine_order=sine_order, int8=False)
     for b, y in enumerate(blocks):
@@ -312,8 +415,9 @@ def _evaluate_plain(params_scaled, dft_packed, target, *, topology, n, inv_sr, d
 
 
 def chain_length(topology: str) -> int:
-    """Oscillators in a ported chain: 2 for fm2, k for fm{k}_series."""
-    return 2 if topology == "fm2" else series_ops(topology)
+    """Oscillators in a ported chain: 2 for fm2 and for each pair of an
+    fm{k}_parallel bank, k for fm{k}_series."""
+    return 2 if topology == "fm2" or parallel_pairs(topology) else series_ops(topology)
 
 
 def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
@@ -331,6 +435,7 @@ def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
     sp.inv_sr = inv_sr
     sp.dft_scale = dft_scale
     sp.edge_norm = edge_norm(n, dft_scale > 0.0)
+    sp.npair = parallel_pairs(topology) or 0  # csrc: a bank of npair fm2 chains
     return sp
 
 
@@ -439,6 +544,14 @@ def _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n
     return k
 
 
+def launch_mode(topology: str, dft_scale: float) -> str:
+    """The key a B1/B2 launch is counted under in the wrappers'
+    ``launches_by``: ``int8`` or ``f32``, after ``parallel_`` for an
+    ``fm{k}_parallel`` bank."""
+    mode = "int8" if dft_scale > 0.0 else "f32"
+    return f"parallel_{mode}" if parallel_pairs(topology) else mode
+
+
 def fused_synth_fitness_plain(
     params_scaled: torch.Tensor,
     target_spectrum: torch.Tensor,
@@ -482,7 +595,8 @@ def fused_synth_fitness(
     and ``dft_scale`` its ``dft_packed_scale``: an int8 operand with
     ``dft_scale > 0`` runs the int8 mode, a float32 one with ``dft_scale``
     0 the true-f32 mode. On CUDA tensors this launches the
-    B1 kernel (counted in ``fused_synth_fitness.launches``); on CPU tensors it
+    B1 kernel (counted in ``fused_synth_fitness.launches``, and by mode in
+    ``fused_synth_fitness.launches_by[launch_mode(...)]``); on CPU tensors it
     runs the plain version. ``pop_block`` sizes the plain version's blocks.
     """
     dev = params_scaled.device
@@ -518,7 +632,9 @@ def fused_synth_fitness(
         )
     check(err, "fused_synth_fitness")
     fused_synth_fitness.launches += 1
+    fused_synth_fitness.launches_by[launch_mode(topology, dft_scale)] += 1
     return fitness
 
 
 fused_synth_fitness.launches = 0
+fused_synth_fitness.launches_by = collections.Counter()

@@ -2,8 +2,11 @@
 models, ``resample``, the Benchmarker's CSV, the per-stage rows, the debug
 NaN checks and the profiler trace, each against pmfm_tpu where the reference
 has a counterpart; then ``cli.main`` on parameters.json and every example
-config the port's engines run, and the modes not ported yet.
+config: the evolve examples at a small population, the pursuit examples
+through the staged solver with a small population and short stages, and
+the modes not ported yet.
 """
+import dataclasses
 import glob
 import json
 import shutil
@@ -17,19 +20,22 @@ from pmfm_tpu.io import wav as jwav
 from pmfm_tpu.models import fm as jfm
 from pmfm_tpu.utils import benchmarker as jbench
 from pmfm_tpu.utils import stage_bench as jstage
+import pmfm_tpu_torch.io
 from pmfm_tpu_torch import cli
-from pmfm_tpu_torch.es import ESConfig, generation_step, init_state, make_spectrum_ops
+from pmfm_tpu_torch.es import ESConfig, generation_step, init_state, make_spectrum_ops, staged
 from pmfm_tpu_torch.io import wav as twav
 from pmfm_tpu_torch.models import fm as tfm
+from pmfm_tpu_torch.ops.synthesis import series_ops
 from pmfm_tpu_torch.utils import benchmarker as tbench
 from pmfm_tpu_torch.utils import debug, profiling, stage_bench
 
 REPO = Path(__file__).resolve().parent.parent
-# examples the port's engines run through the CLI; the others ask for the
-# pursuit solver (ROADMAP Queue A item 8)
-RUNNABLE = ("params_match.json", "audio_match.json", "early_stop_match.json")
+# the examples, all of which the port runs through the CLI: the direct ES,
+# and the staged solver (tpu.solver "pursuit")
+EVOLVE = ("params_match.json", "audio_match.json", "early_stop_match.json")
 PURSUIT = ("fm3_parallel_match.json", "fm4_parallel_match.json", "fm4_series_match.json",
            "fm5_series_match.json", "huge_frame_match.json")
+RUNNABLE = EVOLVE + PURSUIT
 CSV_ROWS = ["recombinePopulation", "mutatePopulation", "synthesisePopulationDoubleSeries",
             "applyWindowPopulation", "openCLFFT", "fitnessPopulation", "sortPopulation"]
 
@@ -156,10 +162,10 @@ def test_cli_parameters_json(monkeypatch, tmp_path, capsys):
     _check_outputs(tmp_path, "parameters.json", 32, 2, 2048, out)
 
 
-@pytest.mark.parametrize("config", RUNNABLE)
+@pytest.mark.parametrize("config", EVOLVE)
 def test_cli_example_configs(monkeypatch, tmp_path, capsys, config):
-    """Every example the port's engines run, at a population of 64 and 3
-    generations (the refine tail takes what remains)."""
+    """Every evolve example, at a population of 64 and 3 generations (the
+    refine tail takes what remains)."""
     rc = _run_cli(monkeypatch, tmp_path, f"examples/{config}", "--parents", "8", "--offspring",
                   "56", "--generations", "3")
     assert rc == 0
@@ -171,18 +177,59 @@ def test_cli_example_configs(monkeypatch, tmp_path, capsys, config):
 
 def test_every_example_is_covered():
     names = sorted(Path(p).name for p in glob.glob(str(REPO / "examples" / "*.json")))
-    assert names == sorted(RUNNABLE + PURSUIT)
+    assert names == sorted(RUNNABLE)
+
+
+def _small_pursuit(load):
+    """``load_config`` with the pursuit cut for the CPU: 16 candidates, a
+    stage population of 64, one generation a stage, one attempt and one
+    alias round, a one-generation refine tail; n, D and the topology as
+    written."""
+    def wrapped(path):
+        rc = load(path)
+        es = rc.es.replace(num_parents=4, num_offspring=12,
+                           refine_generations=min(rc.es.refine_generations, 1))
+        series = (series_ops(es.topology) or 0) >= 4
+        keys = staged.SERIES_CONFIG_KEY_MAP if series else staged.CONFIG_KEY_MAP
+        p = dict(rc.pursuit, stagePopulation=64, maxAttempts=1)
+        p.update({k: 1 for k in keys if k.endswith("Generations")})
+        if not series:
+            p["aliasRounds"] = 1
+        return dataclasses.replace(rc, es=es, pursuit=tuple(sorted(p.items())))
+    return wrapped
 
 
 @pytest.mark.parametrize("config", PURSUIT)
-def test_cli_pursuit_configs_name_their_item(monkeypatch, tmp_path, config):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _run_cli(monkeypatch, tmp_path, f"examples/{config}")
+def test_cli_pursuit_configs_name_their_item(monkeypatch, tmp_path, capsys, config):
+    """Each pursuit example through ``cli.main`` on the CPU (``_small_pursuit``):
+    exit 0, the solver's line for each chunk, the WAV and the CSV."""
+    monkeypatch.setattr(pmfm_tpu_torch.io, "load_config",
+                        _small_pursuit(pmfm_tpu_torch.io.load_config))
+    assert _run_cli(monkeypatch, tmp_path, f"examples/{config}") == 0
+    out = capsys.readouterr().out
+    run = json.loads((REPO / "examples" / config).read_text())
+    n = 1 << run["audio"]["audioLengthLog2"]
+    assert "pursuit solver" in out and "pursuit chunk 0: attempts 1" in out
+    assert out.count("pursuit chunk ") == max(2048, n) // n
+    audio, sr = twav.read_wav(tmp_path / run["general"]["outputAudioPath"])
+    assert sr == 44100 and len(audio) == max(2048, n) and np.isfinite(audio).all()
+    gens = run["evolutionary"]["numGenerations"]
+    csv = tmp_path / f"gpulog(pop=16gens={gens}audioBlockSize={n}).csv"
+    rows = [ln.split(",") for ln in csv.read_text().splitlines()]
+    assert rows[0] == list(tbench.CSV_FIELDS) and rows[-1][0] == "Total Audio Analysis Time"
+    assert "Overall best parameters found" in out
+
+
+def test_cli_pursuit_mode_needs_a_pursuit_topology(monkeypatch, tmp_path):
+    """``--mode pursuit`` on parameters.json's fm3_series: neither solver
+    takes it (the series one needs k >= 4), as in the reference."""
+    with pytest.raises(ValueError, match=r"fm\{k\}_parallel \(or fm2\)"):
+        _run_cli(monkeypatch, tmp_path, "parameters.json", "--mode", "pursuit")
 
 
 @pytest.mark.parametrize("flags,item", [
     (["--batch", "a.wav"], "item 6"), (["--mode", "stft"], "item 6"),
-    (["--mode", "parallel-chunks"], "item 6"), (["--mode", "pursuit"], "item 8"),
+    (["--mode", "parallel-chunks"], "item 6"),
     (["--export-aot", "m.bin"], "item 9"), (["--aot", "m.bin"], "item 9"),
     (["--checkpoint-dir", "ck"], "item 9"), (["--mesh", "4"], "item 10"),
 ])

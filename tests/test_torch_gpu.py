@@ -123,6 +123,54 @@ def test_b1_b2_f32_grid(cuda, n, bins, topology, sine_order, pop):
                (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL))
 
 
+@pytest.mark.parametrize("pop", [1, 63, 64, 65, RAGGED_POP])
+@pytest.mark.parametrize("sine_order", [7, 9])
+@pytest.mark.parametrize("topology", ["fm2_parallel", "fm3_parallel", "fm4_parallel"])
+@pytest.mark.parametrize("n", [256, 1024, 2048, 3584])
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_b1_b2_parallel_grid(cuda, dtype, n, topology, sine_order, pop):
+    """B1/B2 in the fm{k}_parallel mode (the pair bank's synthesis, the
+    rest as for a chain) against their plain versions over the frames, the
+    banks, two sine orders and population edges, in the int8 and the f32
+    limits; B2's fitness bit-equal to B1's on B2's own offspring (chip_smoke.py
+    phase 20's grid)."""
+    limits = (FIT_MAX_REL, FIT_MEDIAN_REL) if dtype == "int8" else (F32_FIT_MAX_REL,
+                                                                   F32_FIT_MEDIAN_REL)
+    _grid_case(cuda, dtype, n, None, topology, sine_order, pop, limits)
+
+
+def test_pursuit_cli_runs_on_the_card(cuda, tmp_path, monkeypatch, capsys):
+    """python -m pmfm_tpu_torch.cli -j examples/fm3_parallel_match.json on
+    the card with each pursuit stage at a tenth of its generations and one
+    attempt: exit 0, the WAV and the CSV, and the parallel mode's B1 and B2
+    launched in int8 and f32."""
+    import dataclasses
+
+    import pmfm_tpu_torch.io
+    from pmfm_tpu_torch import cli
+
+    root = Path(__file__).resolve().parent.parent
+    load = pmfm_tpu_torch.io.load_config
+
+    def cut(path):
+        rc = load(path)
+        p = dict(rc.pursuit, maxAttempts=1, peelGenerations=30, tailGenerations=60,
+                 aliasGenerations=15, jointGenerations=50, aliasRounds=2)
+        return dataclasses.replace(rc, pursuit=tuple(sorted(p.items())))
+
+    monkeypatch.setattr(pmfm_tpu_torch.io, "load_config", cut)
+    monkeypatch.chdir(tmp_path)
+    for fn in (sf.fused_synth_fitness, gn.fused_generation):
+        fn.launches_by.clear()
+    assert cli.main(["-j", str(root / "examples" / "fm3_parallel_match.json")]) == 0
+    out = capsys.readouterr().out
+    assert "pursuit chunk 0" in out and "pursuit chunk 1" in out
+    for fn in (sf.fused_synth_fitness, gn.fused_generation):
+        assert fn.launches_by["parallel_int8"] > 0 and fn.launches_by["parallel_f32"] > 0
+    assert (tmp_path / "output_audio" / "output_fm3_parallel.wav").exists()
+    assert (tmp_path / "gpulog(pop=8192gens=1000audioBlockSize=1024).csv").exists()
+
+
 @pytest.mark.parametrize("pop", [1, RAGGED_POP])
 @pytest.mark.parametrize("n", [2048, 3584])
 def test_b1_f32_summation_near_float64(cuda, n, pop):
@@ -175,7 +223,11 @@ def _grid_case(dev, dtype, n, bins, topology, sine_order, pop, limits):
     d = topology_dims(topology)
     rng = np.random.default_rng(n + pop + sine_order)
     tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(dev)
+    parallel = "parallel" in topology
+    maxs = (3520.0, 8.0, 3520.0, 1.0) * (d // 4) if parallel else (3520.0, 8.0) * (d // 2)
     p = _params(dev, pop, d, seed=sine_order)
+    if parallel:  # amplitudes in [0, 1], as the examples' ranges
+        p = p / torch.tensor((3520.0, 8.0) * (d // 2), device=dev) * torch.tensor(maxs, device=dev)
     kw = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology, n=n,
               pop_block=pop, sine_order=sine_order)
     got = sf.fused_synth_fitness(p, tgt, **kw)
@@ -183,7 +235,7 @@ def _grid_case(dev, dtype, n, bins, topology, sine_order, pop, limits):
     rel = (got - ref).abs() / ref.abs()
     assert float(rel.max()) <= max_rel and float(rel.median()) <= median_rel, (
         "B1", float(rel.max()), float(rel.median()))
-    mins, maxs = (0.0,) * d, (3520.0, 8.0) * (d // 2)
+    mins = (0.0,) * d
     pv = torch.from_numpy(rng.random((64, d)).astype(np.float32)).to(dev)
     ps = torch.from_numpy(rng.uniform(0.02, 0.3, (64, d)).astype(np.float32)).to(dev)
     kw2 = dict(kw, pop=pop, param_mins=mins, param_maxs=maxs)
