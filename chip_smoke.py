@@ -32,8 +32,9 @@ through the entry points a user calls, and times each kernel:
   B5's split a generation (evaluation, selection, time not covered by
   kernels, from torch.profiler), the f32 split at both refine tails' shapes
   (with torch.profiler's time of each f32 kernel and cuBLAS SGEMM as the
-  DFT half's yardstick) and the port's bench (``pmfm_tpu_torch/bench.py``,
-  one repetition);
+  DFT half's yardstick), the port's bench (``pmfm_tpu_torch/bench.py``,
+  one repetition) and the host time of the one-run operations the ES loop
+  keeps beside their run-axis forms;
 * phases 17-19, the unfused engines and the CLI: the scan synthesis kernel
   (``csrc/scan_synth.cu``) bit-equal to its plain loop over samples at the
   bench's and parameters.json's shapes and over chains, oscillators and
@@ -50,6 +51,18 @@ through the entry points a user calls, and times each kernel:
   stages' f32 engine's peak memory; ``cli.main`` on the five pursuit
   examples (fm3_parallel_match.json as written, the others with each
   stage's generations cut to a tenth and one attempt).
+
+* phases 22-25, multi-frame fitness and the run axis (A6): B1/B2 in the
+  multi-frame mode against their plain versions at ``--mode stft``'s shape
+  (``examples/audio_match.json``: n 2048, P 4096, 8 frames) and over
+  chains x frames x frame sizes, int8 and f32; B1/B2/B5 launched for B runs
+  bit-equal to lone launches, and B5 at 8 frames bit-equal to B2 launches
+  with the stable selection; ``cli.main`` on ``audio_match.json`` with
+  ``--mode stft``, ``--mode parallel-chunks`` and ``--batch`` over 4
+  synthesised WAVs, and ``match_audio_stft``/``match_many`` under
+  fused_kernel and fused_evolve; each new mode's kernel time beside its
+  plain version's and its bound, and the reference suites' shapes
+  (suite_stft_frames, suite_multi_target).
 
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
 phases and the named ones, and prints no result line.
@@ -81,6 +94,7 @@ TOPOLOGY = "fm3_series"
 TRUTH = (3078.0, 2.0, 3015.0, 1.5, 3141.0, 1.0)  # examples/params_match.json
 GENERATIONS = 200
 TIMED_LAUNCHES = 25
+HOST_FORM_CALLS = 200  # phase 16's host time of the one-run forms a call
 PLAIN_RUNS = 3
 SPLIT_BINS = 8  # phase 6's synthesis-only B1: an operand and target of 8 bins
 # phase 4b: B1/B2 int8 over every frame the router sends them (multiples of
@@ -145,10 +159,16 @@ PROFILED_B5_CALLS = 3
 # fm{k}_parallel mode (the same wrapper and counter; the f32 entries'
 # launches are read on the refine tail, the parallel entries' in phase 21's
 # fm3_parallel run, from the wrappers' launches_by)
+# and the multi-frame (_frames) and run-axis (_runs) modes of B1/B2/B5, each
+# with its launches from the path of phase 24 that runs it
 KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream",
            "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve", "scan_synth",
            "fused_synth_fitness_parallel", "fused_generation_parallel",
-           "fused_synth_fitness_parallel_f32", "fused_generation_parallel_f32")
+           "fused_synth_fitness_parallel_f32", "fused_generation_parallel_f32",
+           "fused_synth_fitness_frames", "fused_generation_frames",
+           "fused_synth_fitness_frames_f32", "fused_generation_frames_f32", "fused_evolve_frames",
+           "fused_synth_fitness_runs", "fused_generation_runs", "fused_synth_fitness_runs_f32",
+           "fused_generation_runs_f32", "fused_evolve_runs")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -226,6 +246,50 @@ PURSUIT_CUT = ("examples/fm4_parallel_match.json", "examples/fm4_series_match.js
                "examples/fm5_series_match.json", "examples/huge_frame_match.json")
 PURSUIT_GENERATION_CUT = 10
 PURSUIT_MAX_REL = 0.10
+
+# phases 22-25: multi-frame fitness and the run axis (A6). Phase 22 holds
+# B1/B2 in the multi-frame mode against their plain versions at
+# examples/audio_match.json --mode stft's shape (input.wav's 16384 samples at
+# n 2048: STFT_FRAMES frames, P 4096, sine order 9; int8 and its f32 tail,
+# the truth planted first) and over FRAME_GRID_TOPOLOGIES x FRAME_GRID_F x
+# FRAME_GRID_N at FRAME_GRID_POP (a ragged int8 warp and f32 DFT block);
+# phase 23 holds the run axis at audio_match.json's shape: B1/B2 launched
+# for RUN_SETTINGS (runs, frames, and a population of RAGGED_POP, whose
+# runs' rows of fitness do not start on 16 bytes; one run, as match_many
+# of one target launches it) bit-equal to lone
+# launches, B5 likewise
+# over RUN_B5_GENERATIONS generations, each batched kernel within its
+# limits of its plain version, and B5 at STFT_FRAMES frames bit-equal to
+# RUN_B5_GENERATIONS B2 launches with the stable selection
+STFT_FRAMES = 8
+FRAME_GRID_TOPOLOGIES = ("fm2", "fm3_series", "fm3_parallel")
+FRAME_GRID_F = (1, 2, 8)
+FRAME_GRID_N = (1024, 2048)
+FRAME_GRID_POP = 129
+RUN_SETTINGS = ((4, 1, None), (8, 1, None), (4, STFT_FRAMES, None), (3, 2, RAGGED_POP),
+                (1, 1, None), (1, STFT_FRAMES, None))
+RUN_B5_GENERATIONS = 4
+# phase 24: cli.main on AUDIO_CONFIG with --mode stft, --mode parallel-chunks
+# and --batch over the BATCH_TRUTHS synthesised into BATCH_SAMPLES-sample
+# WAVs, run in A6_DIR; then the paths no example takes, at A6_GENERATIONS
+# (the last A6_REFINE the f32 tail): match_audio_stft and match_many under
+# fused_kernel (B1 a generation) and fused_evolve (one B5 call a part)
+A6_DIR = "build/chip_smoke_a6"
+BATCH_SAMPLES = 16384
+BATCH_TRUTHS = ((3078.0, 2.0, 3015.0, 1.5, 3141.0, 1.0), (2400.0, 3.0, 1800.0, 2.0, 900.0, 4.0),
+                (440.0, 6.0, 880.0, 1.2, 1760.0, 2.5), (3520.0, 1.0, 2637.0, 3.3, 1975.0, 0.8))
+A6_GENERATIONS, A6_REFINE = 40, 10
+# phase 25: the new modes' kernel times at the driven shapes (the plain
+# versions PLAIN_RUNS_A6 times: at 8 frames one plain call takes seconds),
+# B5 over RUN_B5_GENERATIONS; the reference suites' shapes: suite_stft_frames
+# (P 2^13, mu 256, fm3_series, n 1024, int8 B2, F 1/2/4/8) and
+# suite_multi_target (match_many, B 1 and 4 at P 2^13 and mu 64, B 32 at
+# P 2^11 and mu 16, SUITE_GENERATIONS generations, int8 B2 at sine order 7)
+PLAIN_RUNS_A6 = 1
+SUITE_STFT_POP, SUITE_STFT_MU = 1 << 13, 256
+SUITE_FRAMES = (1, 2, 4, 8)
+SUITE_RUNS = ((1, 1 << 13, 64), (4, 1 << 13, 64), (32, 1 << 11, 16))
+SUITE_GENERATIONS = 50
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 FLOP/s
 PEAK_BYTES, PEAK_INT8, PEAK_F32 = 3.35e12, 1979e12, 67e12
@@ -1267,7 +1331,8 @@ class Smoke:
     def kw_b1(c):
         cfg, so = c["cfg"], c["so"]
         return dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=cfg.topology,
-                    n=cfg.n_samples, pop_block=cfg.population_size, sine_order=cfg.sine_order)
+                    n=cfg.n_samples, pop_block=cfg.population_size, sine_order=cfg.sine_order,
+                    num_frames=cfg.num_frames)
 
     @staticmethod
     def kw_b2(c):
@@ -1604,7 +1669,8 @@ class Smoke:
     # -- 16 -----------------------------------------------------------------
     def third_timings(self):
         """B1/B2 f32 at the shipped tail's shapes, B5 at the bench config,
-        and the port's bench (one repetition after a warm-up)."""
+        and the port's bench (one repetition after a warm-up), then the host
+        time of the one-run forms the ES loop keeps (``host_forms``)."""
         from pmfm_tpu_torch import bench
         from pmfm_tpu_torch.es import kernel_seed
         from pmfm_tpu_torch.kernels import evolve as ev
@@ -1683,6 +1749,48 @@ class Smoke:
             f"value {b.evals_per_sec(value_ms):.1f} evals/s ({value_ms / bench.GENS:.4f} ms/gen), "
             f"value_shipped {b.evals_per_sec(shipped_ms):.1f} evals/s "
             f"({shipped_ms / bench.GENS:.4f} ms/gen) {card()}")
+        self.host_forms()
+
+    def host_forms(self):
+        """The host time a call of the two forms of the one-run operations
+        that ``es.strategy.select`` and ``es.pipeline.generation_step`` keep
+        beside their run-axis forms, at the bench's shape: the selection's
+        gathers (indexing against ``take_along_dim``) and the best-ever
+        bookkeeping (plain indexing and 0-dim flags against ``...`` indexing
+        and reshaped flags). Microseconds of the host clock a call, no
+        synchronisation inside the timed calls."""
+        dev = self.dev
+        fit, val, stp = (torch.rand(POP, device=dev), torch.rand(POP, D, device=dev),
+                         torch.rand(POP, D, device=dev))
+        idx = torch.topk(-fit, MU)[1]
+        pv, pf = val[idx], fit[idx]
+        bv, bf = pv[0].clone(), torch.tensor(0.5, device=dev)
+
+        def host_us(fn, calls=HOST_FORM_CALLS):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            us = (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+            return us
+
+        take = idx[..., None]
+        forms = {
+            "gathers, indexing": lambda: (val[idx], stp[idx]),
+            "gathers, take_along_dim": lambda: (torch.take_along_dim(val, take, dim=-2),
+                                                torch.take_along_dim(stp, take, dim=-2)),
+            "best-ever, plain": lambda: torch.where(pf[0] < bf, pv[0], bv),
+            "best-ever, run-axis form": lambda: torch.where(
+                (pf[..., 0] < bf).reshape(1), pv[..., 0, :], bv),
+        }
+        times = {name: statistics.median(host_us(fn) for _ in range(5))
+                 for name, fn in forms.items()}
+        log("one-run host forms at the bench shape (median of 5 x "
+            f"{HOST_FORM_CALLS} calls, us of host time a call): "
+            + ", ".join(f"{name} {us:.2f}" for name, us in times.items()) + f" {card()}")
 
     def b5_split(self, label, fn, g, ms, b2_ms):
         """Where a B5 generation goes: device time a call of ``fn`` (``g``
@@ -2213,6 +2321,483 @@ class Smoke:
             require(per <= staged.F32_ENGINE_BYTES_PER_SAMPLE,
                     "the f32 engine takes more memory than _batch_width_cap assumes")
 
+    # -- 22 -----------------------------------------------------------------
+    def stft_settings(self):
+        """(mode, ESConfig) of ``--mode stft`` on AUDIO_CONFIG as written: its
+        int8 generations and its f32 tail, at STFT_FRAMES frames."""
+        from pmfm_tpu_torch.io import load_config
+
+        cfg = load_config(AUDIO_CONFIG).es.replace(num_frames=STFT_FRAMES)
+        return (("int8", cfg), ("f32", cfg.refine_config()))
+
+    def frame_kernels(self):
+        """B1/B2 in the multi-frame mode against their plain versions
+        (``fused_check``): at ``--mode stft``'s shape with the truth planted
+        first against the framewise spectra of the truth over STFT_FRAMES
+        frames, then over FRAME_GRID_N x FRAME_GRID_F x FRAME_GRID_TOPOLOGIES
+        at FRAME_GRID_POP against a random (F, K) target, int8 and f32."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.ops import spectral, synthesize_single
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        limits = {"int8": (FIT_MAX_REL, FIT_MEDIAN_REL), "f32": (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL)}
+        self.frames = {}
+        for i, (mode, cfg) in enumerate(self.stft_settings()):
+            c = self.inputs(cfg, SEED + 80 + i)
+            audio = synthesize_single(torch.tensor(TRUTH), cfg.n_samples * cfg.num_frames,
+                                      cfg.topology).to(self.dev)
+            c["target"] = spectral.target_spectrum_frames(audio, c["so"])
+            self.frames[mode] = c
+            where = (f"{mode}, {cfg.topology}, n={cfg.n_samples}, F={cfg.num_frames}, "
+                     f"P={cfg.population_size}, sine order {cfg.sine_order}")
+            e1, e2, fk, a1, a2 = self.fused_check(
+                where, c["params"], c["pv"], c["ps"], c["target"], self.kw_b1(c), self.kw_b2(c),
+                kernel_seed(SEED, 80 + i), limits[mode])
+            rank = int(torch.argmin(fk))
+            log(f"B1/B2 multi-frame {where}: fitness max rel B1 {e1:.3e} B2 {e2:.3e} (limits "
+                f"{limits[mode][0]:g} / {limits[mode][1]:g}); B2 values bit-equal, B2 fitness "
+                f"bit-equal to B1 on its offspring; truth rank {rank}")
+            require(rank == 0, "the known-params truth does not rank first")
+            sfx = "" if mode == "int8" else "_f32"
+            self.kernels[f"fused_synth_fitness_frames{sfx}"] = {"max_abs_err": a1}
+            self.kernels[f"fused_generation_frames{sfx}"] = {"max_abs_err": a2}
+        rng = np.random.default_rng(SEED + 82)
+        pop, cases = FRAME_GRID_POP, 0
+        for mode, dtype in (("int8", "int8"), ("f32", "float32")):
+            worst = [0.0, 0.0]
+            for n in FRAME_GRID_N:
+                so = spectral.make_spectrum_ops(n, None, dft_dtype=dtype, device=self.dev)
+                for frames in FRAME_GRID_F:
+                    tgt = torch.from_numpy(rng.uniform(0.0, 50.0, (frames, so.num_bins)).astype(
+                        np.float32)).to(self.dev)
+                    for topology in FRAME_GRID_TOPOLOGIES:
+                        d = topology_dims(topology)
+                        mins, maxs = (0.0,) * d, param_maxs(topology)
+                        dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+                        params = dev(rng.random((pop, d)) * np.asarray(maxs))
+                        pv, ps = dev(rng.random((MU, d))), dev(rng.uniform(0.02, 0.3, (MU, d)))
+                        kw1 = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale,
+                                   topology=topology, n=n, pop_block=pop, sine_order=9,
+                                   num_frames=frames)
+                        kw2 = dict(kw1, pop=pop, param_mins=mins, param_maxs=maxs)
+                        where = f"{mode}, {topology}, n={n}, F={frames}, P={pop}"
+                        e = self.fused_check(where, params, pv, ps, tgt, kw1, kw2,
+                                            kernel_seed(SEED, 8000 + cases), limits[mode])
+                        worst = [max(worst[0], e[0]), max(worst[1], e[1])]
+                        cases += 1
+            log(f"B1/B2 multi-frame {mode} grid: n {FRAME_GRID_N} x F {FRAME_GRID_F} x "
+                f"{FRAME_GRID_TOPOLOGIES} at P {pop}, sine order 9, within {limits[mode][0]:g} / "
+                f"{limits[mode][1]:g}: worst max rel B1 {worst[0]:.3e} B2 {worst[1]:.3e}; B2 "
+                f"values bit-equal, B2 fitness bit-equal to B1 on its offspring")
+
+    # -- 23 -----------------------------------------------------------------
+    def run_inputs(self, cfg, so, runs, seed):
+        """B runs' operands at ``cfg``'s shape from ``seed``: candidates (B, P,
+        D), parents (B, mu, D) and a random target (B, F, K) a run."""
+        rng = np.random.default_rng(seed)
+        pop, mu, d, f = cfg.population_size, cfg.num_parents, cfg.num_dimensions, cfg.num_frames
+        dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+        return dict(params=dev(rng.random((runs, pop, d)) * np.asarray(cfg.param_maxs)),
+                    pv=dev(rng.random((runs, mu, d))),
+                    ps=dev(rng.uniform(0.02, 0.3, (runs, mu, d))),
+                    target=dev(rng.uniform(0.0, 50.0, (runs, f, so.num_bins))))
+
+    def run_kernels(self):
+        """The run axis at AUDIO_CONFIG's shape, int8 and its f32 tail: B1, B2
+        and B5 (RUN_B5_GENERATIONS generations) launched once for each of
+        RUN_SETTINGS (runs, frames, population), bit-equal, run for run, to lone
+        launches; at B 4, F 1 each batched kernel against its plain version
+        (B1/B2 within their limits; B5 within B2's, two generations); and B5
+        at STFT_FRAMES frames bit-equal to its generations' B2 launches with
+        the stable selection."""
+        from pmfm_tpu_torch.es import kernel_seed, make_spectrum_ops
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        limits = {"int8": (FIT_MAX_REL, FIT_MEDIAN_REL), "f32": (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL)}
+        base = load_config(AUDIO_CONFIG).es
+        g = RUN_B5_GENERATIONS
+        for mi, (mode, cfg0) in enumerate((("int8", base), ("f32", base.refine_config()))):
+            sfx = "" if mode == "int8" else "_f32"
+            for si, (runs, frames, ragged) in enumerate(RUN_SETTINGS):
+                cfg = cfg0.replace(num_frames=frames)
+                if ragged:
+                    cfg = cfg.replace(num_offspring=ragged - cfg.num_parents)
+                so = make_spectrum_ops(cfg, device=self.dev)
+                c = self.run_inputs(cfg, so, runs, SEED + 90 + 10 * mi + si)
+                kw1 = self.kw_b1(dict(cfg=cfg, so=so))
+                kw2 = self.kw_b2(dict(cfg=cfg, so=so))
+                seeds = [kernel_seed(SEED, 900 + r) for r in range(runs)]
+                fb = sf.fused_synth_fitness(c["params"], c["target"], **kw1)
+                gb = gn.fused_generation(seeds, c["pv"], c["ps"], c["target"], **kw2)
+                f1 = torch.stack([sf.fused_synth_fitness(c["params"][r], c["target"][r], **kw1)
+                                  for r in range(runs)])
+                g1 = [gn.fused_generation(seeds[r], c["pv"][r], c["ps"][r], c["target"][r], **kw2)
+                      for r in range(runs)]
+                eq1 = bits_equal(fb, f1)
+                eq2 = all(bits_equal(gb[j], torch.stack([x[j] for x in g1])) for j in range(3))
+                s5 = [[kernel_seed(SEED, 950 + r * g + i) for i in range(g)] for r in range(runs)]
+                bv0 = c["pv"][:, 0].clone()
+                bf0 = torch.full((runs,), float("inf"), device=self.dev)
+                out = ev.fused_evolve(s5, c["pv"], c["ps"], bv0, bf0, c["target"], **kw2)
+                lone = [ev.fused_evolve(s5[r], c["pv"][r], c["ps"][r], bv0[r], bf0[r],
+                                        c["target"][r], **kw2) for r in range(runs)]
+                eq5 = all(bits_equal(out[j], torch.stack([x[j] for x in lone])) for j in range(6))
+                torch.cuda.synchronize()
+                log(f"run axis ({mode}, B={runs}, F={frames}, n={cfg.n_samples}, "
+                    f"P={cfg.population_size}): one launch bit-equal to {runs} lone launches: B1 "
+                    f"{eq1}, B2 {eq2} (fitness, values, steps), B5 over {g} generations {eq5} "
+                    f"(parents, best-ever, trajectory)")
+                require(eq1 and eq2 and eq5, "a batched launch differs from the lone launches")
+                if si:
+                    continue
+                fp = sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1)
+                gp = gn.fused_generation_plain(seeds, c["pv"], c["ps"], c["target"], **kw2)
+                e1, e2 = rel_err(fb, fp), rel_err(gb[0], gp[0])
+                ok = (float(e1.max()) <= limits[mode][0] and float(e1.median()) <= limits[mode][1]
+                      and float(e2.max()) <= limits[mode][0]
+                      and float(e2.median()) <= limits[mode][1] and torch.equal(gb[1], gp[1]))
+                log(f"run axis vs plain ({mode}, B={runs}, F={frames}): B1 max rel "
+                    f"{float(e1.max()):.3e} median {float(e1.median()):.3e}, B2 max rel "
+                    f"{float(e2.max()):.3e} median {float(e2.median()):.3e}, B2 values equal "
+                    f"{torch.equal(gb[1], gp[1])}")
+                require(ok, "a batched kernel disagrees with its plain version")
+                self.kernels[f"fused_synth_fitness_runs{sfx}"] = {
+                    "max_abs_err": float((fb - fp).abs().max())}
+                self.kernels[f"fused_generation_runs{sfx}"] = {
+                    "max_abs_err": float((gb[0] - gp[0]).abs().max())}
+                if mode == "int8":
+                    s2 = [x[:2] for x in s5]
+                    k5 = ev.fused_evolve(s2, c["pv"], c["ps"], bv0, bf0, c["target"], **kw2)
+                    p5 = ev.fused_evolve_plain(s2, c["pv"], c["ps"], bv0, bf0, c["target"], **kw2)
+                    e5 = rel_err(k5[2], p5[2])
+                    log(f"B5 run axis vs plain (int8, B={runs}, 2 generations): parent fitness "
+                        f"max rel {float(e5.max()):.3e} median {float(e5.median()):.3e}")
+                    require(float(e5.max()) <= FIT_MAX_REL and float(e5.median()) <= FIT_MEDIAN_REL,
+                            "batched B5 disagrees with its plain version")
+                    self.kernels["fused_evolve_runs"] = {
+                        "max_abs_err": float((k5[2] - p5[2]).abs().max())}
+        names = ("parent values", "parent steps", "parent fitness", "best values", "best fitness",
+                 "trajectory")
+        for mode, cfg in self.stft_settings():
+            so = make_spectrum_ops(cfg, device=self.dev)
+            c = self.run_inputs(cfg, so, 1, SEED + 99)
+            pv, ps, tgt = c["pv"][0], c["ps"][0], c["target"][0]
+            kw2 = self.kw_b2(dict(cfg=cfg, so=so))
+            seeds = [kernel_seed(SEED, 990 + i) for i in range(g)]
+            args = (pv, ps, pv[0].clone(), torch.tensor(float("inf"), device=self.dev), tgt)
+            out = ev.fused_evolve(seeds, *args, **kw2)
+            loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw2)
+            torch.cuda.synchronize()
+            equal = all(bits_equal(a, b) for a, b in zip(out, loop))
+            diffs = {nm: float((a - b).abs().nan_to_num().max()) for nm, a, b in zip(names, out, loop)}
+            log(f"B5 multi-frame vs {g} B2 launches + stable selection ({mode}, n={cfg.n_samples}, "
+                f"F={cfg.num_frames}, P={cfg.population_size}): bit-equal {equal}; max abs diff "
+                f"{diffs}")
+            require(equal, "multi-frame B5 is not bit-equal to the loop of B2 launches")
+            if mode == "int8":
+                s2 = seeds[:2]
+                pl = ev.fused_evolve_plain(s2, *args, **kw2)
+                k5 = ev.fused_evolve(s2, *args, **kw2)
+                e5 = rel_err(k5[2], pl[2])
+                require(float(e5.max()) <= FIT_MAX_REL and float(e5.median()) <= FIT_MEDIAN_REL,
+                        "multi-frame B5 disagrees with its plain version")
+                self.kernels["fused_evolve_frames"] = {
+                    "max_abs_err": float((k5[2] - pl[2]).abs().max())}
+
+    # -- 24 -----------------------------------------------------------------
+    def launches_by(self):
+        """Each counted wrapper's launches by mode (``launch_mode``)."""
+        return {name: dict(fn.launches_by) for name, fn in self.counters().items()
+                if hasattr(fn, "launches_by") and fn.launches_by}
+
+    def a6_cli(self, work, config, args, label):
+        """``cli.main`` on ``config`` with ``args`` in ``work``: exit 0, its
+        best fitness and parameters, the launches by mode; returns (the
+        output, the launches by mode)."""
+        import io
+        import os
+
+        from pmfm_tpu_torch import cli
+
+        out = io.StringIO()
+        root = os.getcwd()
+        torch.cuda.synchronize()
+        self.reset_counts()
+        t0 = time.perf_counter()
+        os.chdir(work)
+        try:
+            with contextlib.redirect_stdout(out):
+                code = cli.main(["-j", os.path.join(root, config), *args])
+        finally:
+            os.chdir(root)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        text, by = out.getvalue(), self.launches_by()
+        engine = next((ln for ln in text.splitlines() if ln.startswith("engine: ")), "")
+        fits = [ln.strip() for ln in text.splitlines() if ": fitness = " in ln]
+        log(f"cli {config} {label}: exit {code} in {seconds:.2f}s, {engine!r}; launches by mode "
+            f"{by} {card()}")
+        for ln in fits:
+            print(f"  {ln}", flush=True)
+        require(code == 0 and engine and fits, f"{label}: exit {code}")
+        return text, by
+
+    def a6_paths(self):
+        """The A6 paths through the entry points a user calls: ``cli.main``
+        on AUDIO_CONFIG as written with ``--mode stft`` (one run over
+        input.wav's 8 frames: B2 int8 at F 8 a generation, the boundary
+        rescore on B1 f32 and the f32 tail at F 8), ``--mode parallel-chunks``
+        (8 runs of one chunk each: one B2 launch a generation for all runs)
+        and ``--batch`` over 4 WAVs of BATCH_SAMPLES samples synthesised from
+        BATCH_TRUTHS (4 runs x 8 frames); then ``match_audio_stft`` and
+        ``match_many`` under fused_kernel (B1 at F 8, and with the run axis)
+        and fused_evolve (B5 at F 8, and with the run axis, also of one
+        target) at A6_GENERATIONS. Each run's seconds, best fitness and
+        launches."""
+        import os
+        import shutil
+
+        from pmfm_tpu_torch.es import match_audio_stft, match_many
+        from pmfm_tpu_torch.io import load_config, read_wav, write_wav
+        from pmfm_tpu_torch.ops import synthesize_single
+
+        rc = load_config(AUDIO_CONFIG)
+        cfg = rc.es
+        gens, r = rc.num_generations, cfg.refine_generations
+        root = os.getcwd()
+        work = os.path.join(root, A6_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        shutil.copytree(os.path.join(root, "input_audio"), os.path.join(work, "input_audio"))
+        try:
+            out_wav = os.path.join(work, rc.output_audio_path)
+            _, by = self.a6_cli(work, AUDIO_CONFIG, ["--mode", "stft"], "--mode stft")
+            audio, _ = read_wav(out_wav)
+            g2, g1 = by.get("fused_generation", {}), by.get("fused_synth_fitness", {})
+            require(len(audio) == BATCH_SAMPLES and np.isfinite(audio).all(), "stft output WAV")
+            require(g2.get("int8_frames") == gens - r and g2.get("f32_frames") == r
+                    and g1.get("f32_frames", 0) >= 1, f"--mode stft launches {by}")
+            self.kernels.setdefault("fused_generation_frames", {})["launches"] = g2["int8_frames"]
+            self.kernels.setdefault("fused_generation_frames_f32", {})["launches"] = \
+                g2["f32_frames"]
+            self.kernels.setdefault("fused_synth_fitness_frames_f32", {})["launches"] = \
+                g1["f32_frames"]
+            _, by = self.a6_cli(work, AUDIO_CONFIG, ["--mode", "parallel-chunks"],
+                                "--mode parallel-chunks")
+            audio, _ = read_wav(out_wav)
+            g2, g1 = by.get("fused_generation", {}), by.get("fused_synth_fitness", {})
+            require(len(audio) == BATCH_SAMPLES and np.isfinite(audio).all(),
+                    "parallel-chunks output WAV")
+            require(g2.get("int8_runs") == gens - r and g2.get("f32_runs") == r
+                    and g1.get("f32_runs", 0) >= 1, f"--mode parallel-chunks launches {by}")
+            self.kernels.setdefault("fused_generation_runs", {})["launches"] = g2["int8_runs"]
+            self.kernels.setdefault("fused_generation_runs_f32", {})["launches"] = g2["f32_runs"]
+            self.kernels.setdefault("fused_synth_fitness_runs_f32", {})["launches"] = \
+                g1["f32_runs"]
+            paths = []
+            for i, truth in enumerate(BATCH_TRUTHS):
+                a = synthesize_single(torch.tensor(truth), BATCH_SAMPLES, cfg.topology)
+                a = a + 0.01 * torch.randn(a.shape, generator=torch.Generator().manual_seed(i))
+                paths.append(os.path.join(work, f"target{i}.wav"))
+                write_wav(paths[-1], a.numpy(), cfg.sample_rate)
+            text, by = self.a6_cli(work, AUDIO_CONFIG, ["--batch", *paths],
+                                   f"--batch over {len(paths)} WAVs of {BATCH_SAMPLES} samples")
+            g2 = by.get("fused_generation", {})
+            require(g2.get("int8_frames_runs") == gens - r and g2.get("f32_frames_runs") == r,
+                    f"--batch launches {by}")
+            stem = os.path.splitext(out_wav)[0]
+            for i in range(len(paths)):
+                audio, _ = read_wav(f"{stem}_target{i}.wav")
+                require(len(audio) == BATCH_SAMPLES, "a --batch output WAV")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        wav, _ = read_wav(rc.input_audio_path)
+        chunks = wav[: len(wav) // cfg.n_samples * cfg.n_samples].reshape(-1, cfg.n_samples)
+        short = cfg.replace(refine_generations=A6_REFINE)
+        for label, c, key in (
+                ("fused_kernel", short.replace(fused_generation=False), "fused_synth_fitness"),
+                ("fused_evolve", short.replace(fused_evolve=True, restart_patience=0),
+                 "fused_evolve")):
+            for many in (None, chunks, chunks[:1]):  # one target: a run axis of one
+                torch.cuda.synchronize()
+                self.reset_counts()
+                t0 = time.perf_counter()
+                if many is not None:
+                    res = match_many(many, c, seed=SEED, num_generations=A6_GENERATIONS,
+                                     device=self.dev)
+                else:
+                    res = [match_audio_stft(wav, c, seed=SEED, num_generations=A6_GENERATIONS,
+                                            device=self.dev)]
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                by = self.launches_by()
+                mode = "int8_frames" if many is None else "int8_runs"
+                fits = [round(x.chunks[0].best_fitness, 6) for x in res]
+                log(f"{'match_audio_stft' if many is None else 'match_many'} ({label}, {A6_GENERATIONS} "
+                    f"generations, the last {A6_REFINE} f32): {len(res)} run(s) in "
+                    f"{seconds:.2f}s, best fitness {fits}; launches by mode {by} {card()}")
+                require(all(np.isfinite(fits)), f"{label}: fitness not finite")
+                got = by.get(key, {}).get(mode, 0)
+                want = A6_GENERATIONS - A6_REFINE if key == "fused_synth_fitness" else 1
+                require(got >= want, f"{label}: {key} {mode} launches {got} < {want}")
+                if many is None or len(many) > 1:
+                    sfx = "_frames" if many is None else "_runs"
+                    self.kernels.setdefault(f"{key}{sfx}", {})["launches"] = got
+
+    # -- 25 -----------------------------------------------------------------
+    def a6_timings(self):
+        """Each new mode's kernel time at its driven shape beside its plain
+        version's and its bound (counting F and B): B1/B2 int8 and f32 at
+        ``--mode stft``'s (F 8) and at ``--mode parallel-chunks``' (B 8),
+        B5 at F 8 and at B 8 over RUN_B5_GENERATIONS; then the B2 kernel and
+        ``evolve`` at suite_stft_frames' shapes and ``match_many`` at
+        suite_multi_target's."""
+        from pmfm_tpu_torch.es import ESConfig, evolve, init_state, kernel_seed, match_many
+        from pmfm_tpu_torch.es import make_spectrum_ops
+        from pmfm_tpu_torch.es.pipeline import fused_generation_kwargs
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.ops import synthesize_single
+
+        g = RUN_B5_GENERATIONS
+        for mi, (mode, cfg0) in enumerate(self.stft_settings()):
+            for runs, frames in ((None, STFT_FRAMES), (8, 1)):
+                cfg = cfg0.replace(num_frames=frames)
+                so = make_spectrum_ops(cfg, device=self.dev)
+                b = runs or 1
+                c = self.run_inputs(cfg, so, b, SEED + 120 + mi)
+                if runs is None:
+                    c = {key: v[0] for key, v in c.items()}
+                kw1 = self.kw_b1(dict(cfg=cfg, so=so))
+                kw2 = self.kw_b2(dict(cfg=cfg, so=so))
+                seeds = [kernel_seed(SEED, 1200 + i) for i in range(b)]
+                seed = seeds if runs else seeds[0]
+                s5 = [[kernel_seed(SEED, 1300 + i * g + j) for j in range(g)] for i in range(b)]
+                bv = c["pv"][..., 0, :].clone()
+                bf = torch.full(bv.shape[:-1], float("inf"), device=self.dev)
+                b5_seeds = s5 if runs else s5[0]
+                pop, mu, n, k, d = (cfg.population_size, cfg.num_parents, cfg.n_samples,
+                                    so.num_bins, cfg.num_dimensions)
+                f32 = mode == "f32"
+                operand = 2 * k * (n // 2) * (4 if f32 else 1)
+                dft_ops = 2.0 * 2 * k * (n // 2) * pop * b * frames
+                synth = synth_ops_f32(pop * b, n, k, kn=3, ncoef=5) * frames
+                offspring = pop * b * d * 12 * 2.0
+                io = operand + b * frames * k * 4 + b * pop * 4
+                sfx = ("_frames" if runs is None else "_runs") + ("_f32" if f32 else "")
+                rows = {
+                    f"fused_synth_fitness{sfx}": (
+                        lambda: sf.fused_synth_fitness(c["params"], c["target"], **kw1),
+                        lambda: sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1),
+                        io + b * pop * d * 4, dft_ops, synth, 1,
+                        "pmfm_tpu_torch/csrc/" + ("fused_f32.cu" if f32 else "fused_eval.cu"),
+                        "pmfm_tpu/kernels/synth_fitness.py:767"),
+                    f"fused_generation{sfx}": (
+                        lambda: gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2),
+                        lambda: gn.fused_generation_plain(seed, c["pv"], c["ps"], c["target"],
+                                                          **kw2),
+                        io + 2 * b * mu * d * 4 + 2 * b * pop * d * 4, dft_ops,
+                        synth + offspring, 1,
+                        "pmfm_tpu_torch/csrc/" + ("fused_f32.cu" if f32 else "fused_eval.cu"),
+                        "pmfm_tpu/kernels/generation.py:438"),
+                }
+                if not f32:
+                    rows[f"fused_evolve{sfx}"] = (
+                        lambda: ev.fused_evolve(b5_seeds, c["pv"], c["ps"], bv, bf, c["target"],
+                                                **kw2),
+                        lambda: ev.fused_evolve_plain(b5_seeds, c["pv"], c["ps"], bv, bf,
+                                                      c["target"], **kw2),
+                        4 * b * mu * d * 4 + 2 * b * (d + 1) * 4 + operand + b * frames * k * 4
+                        + b * g * 4, g * dft_ops, g * (synth + offspring), g,
+                        "pmfm_tpu_torch/csrc/evolve.cu", "pmfm_tpu/kernels/evolve.py:366")
+                for name, (fn, plain, nbytes, dops, fops, gens, src, replaces) in rows.items():
+                    int8_ops, f32_ops = (0.0, dops + fops) if f32 else (dops, fops)
+                    ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
+                    plain_ms = cuda_ms(plain, PLAIN_RUNS_A6)
+                    bound_ms, by = bound(nbytes, int8_ops, f32_ops)
+                    per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
+                    log(f"{name} ({mode}, F={frames}, B={b}, n={n}, K={k}, P={pop}): kernel "
+                        f"{ms:.4f} ms{per}, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
+                        f"{by} ({nbytes / 1e6:.2f} MB, {int8_ops / 1e9:.1f} G int8 ops, "
+                        f"{f32_ops / 1e9:.2f} G f32 ops); {ms / bound_ms:.1f}x the bound "
+                        f"{card()}")
+                    self.kernels.setdefault(name, {}).update(
+                        route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=by, library_ms=None)
+                if mode == "f32" and runs is None:
+                    geo = sf.f32_geometry(pop, n, k, frames, 1)
+                    log(f"f32 scratch at --mode stft's shape (P={pop}, n={n}, F={frames}): "
+                        f"{geo['scratch_bytes'] / 2**20:.1f} MiB; at --batch's (B=4): "
+                        f"{sf.f32_geometry(pop, n, k, frames, 4)['scratch_bytes'] / 2**30:.2f} "
+                        f"GiB")
+        # suite_stft_frames: B2 and evolve at P 2^13, mu 256, n 1024, int8, F 1/2/4/8
+        base = ESConfig(num_parents=SUITE_STFT_MU, num_offspring=SUITE_STFT_POP - SUITE_STFT_MU,
+                        num_dimensions=6,
+                        topology="fm3_series", audio_length_log2=10, synthesis_engine="scanless",
+                        spectrum_method="dft", dft_dtype="int8", fused_kernel=True,
+                        fused_generation=True, pop_block=1024)
+        so = make_spectrum_ops(base, device=self.dev)
+        line = []
+        for frames in SUITE_FRAMES:
+            cfg = base.replace(num_frames=frames)
+            c = self.run_inputs(cfg, so, 1, SEED + 130 + frames)
+            tgt = c["target"][0] if frames > 1 else c["target"][0, 0]
+            kw2 = fused_generation_kwargs(cfg, so)
+            seed = kernel_seed(SEED, 1400 + frames)
+            ms = cuda_ms(lambda: gn.fused_generation(seed, c["pv"][0], c["ps"][0], tgt, **kw2),
+                         TIMED_LAUNCHES)
+            state = init_state(3, cfg, device=self.dev)
+            evolve(state, tgt, 2, so, cfg)  # warm-up
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            evolve(state, tgt, SUITE_GENERATIONS, so, cfg)
+            ev1.record()
+            ev1.synchronize()
+            gen_ms = ev0.elapsed_time(ev1) / SUITE_GENERATIONS
+            pop, k = cfg.population_size, so.num_bins
+            dops = 2.0 * 2 * k * 512 * pop * frames
+            fops = synth_ops_f32(pop, 1024, k, kn=3, ncoef=5) * frames + pop * 6 * 24.0
+            bound_ms, by = bound(2 * k * 512 + frames * k * 4 + pop * 4 + 2 * pop * 6 * 4
+                                 + 2 * cfg.num_parents * 6 * 4, dops, fops)
+            line.append(f"F={frames}: B2 {ms:.4f} ms (bound {bound_ms:.4f} ms by {by}), evolve "
+                        f"{gen_ms:.4f} ms/gen, {pop / gen_ms / 1e3:.4g} M cand/s, "
+                        f"{pop * frames / gen_ms / 1e3:.4g} M frame-evals/s")
+        log(f"suite_stft_frames (P=2^13, mu 256, fm3_series, n=1024, int8 B2, sine order 9): "
+            f"{'; '.join(line)} {card()}")
+        # suite_multi_target: match_many at B 1/4 (P 2^13) and B 32 (P 2^11)
+        targets = np.stack([synthesize_single(torch.tensor(t), 1024, "fm3_series").numpy()
+                            for t in BATCH_TRUTHS])
+        line = []
+        for runs, pop, mu in SUITE_RUNS:
+            cfg = base.replace(num_parents=mu, num_offspring=pop - mu, sine_order=7)
+            tg = np.tile(targets, (-(-runs // len(targets)), 1))[:runs]
+            match_many(tg, cfg, seed=0, num_generations=2, device=self.dev)  # warm-up
+            torch.cuda.synchronize()
+            self.reset_counts()
+            t0 = time.perf_counter()
+            match_many(tg, cfg, seed=1, num_generations=SUITE_GENERATIONS, device=self.dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = self.read_counts()["fused_generation"]
+            so_r = make_spectrum_ops(cfg, device=self.dev)
+            c = self.run_inputs(cfg, so_r, runs, SEED + 140 + runs)
+            kw2 = fused_generation_kwargs(cfg, so_r)
+            seeds = [kernel_seed(SEED, 1500 + i) for i in range(runs)]
+            tg_k = c["target"][:, 0]
+            ms = cuda_ms(lambda: gn.fused_generation(seeds, c["pv"], c["ps"], tg_k, **kw2),
+                         TIMED_LAUNCHES)
+            line.append(f"B={runs} P={pop}: {dt * 1e3:.1f} ms for {SUITE_GENERATIONS} "
+                        f"generations ({runs * pop * SUITE_GENERATIONS / dt / 1e6:.2f} M "
+                        f"evals/s aggregate, host clock; {launches} B2 launches), B2 for all "
+                        f"runs {ms:.4f} ms ({runs * pop / ms / 1e3:.2f} M evals/s)")
+            require(launches == SUITE_GENERATIONS, "match_many: not one B2 launch a generation")
+        log(f"suite_multi_target (match_many, fm3_series, n=1024, int8 B2, sine order 7): "
+            f"{'; '.join(line)} {card()}")
+
     def kernels_line(self):
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2272,6 +2857,10 @@ def main(argv=None) -> int:
     s.phase("19 CLI", s.cli)
     s.phase("20 B1/B2 fm{k}_parallel vs plain", s.parallel_kernels)
     s.phase("21 pursuit solver through the CLI", s.pursuit)
+    s.phase("22 B1/B2 multi-frame vs plain", s.frame_kernels)
+    s.phase("23 run axis: B1/B2/B5 batched vs lone", s.run_kernels)
+    s.phase("24 A6 paths: --mode stft, --mode parallel-chunks, --batch", s.a6_paths)
+    s.phase("25 A6 kernel times and the reference suites' shapes", s.a6_timings)
     if s.only is not None:
         faulthandler.cancel_dump_traceback_later()
         log(f"phases {sorted(s.only)}: {'FAILED: ' + str(s.failed) if s.failed else 'passed'} "

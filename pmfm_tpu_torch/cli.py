@@ -8,27 +8,35 @@ Replicates the reference program's main (main.cpp:25-305), as ``pmfm_tpu.cli`` d
 * ``input: "params"`` synthesises the target from ground-truth parameters and
   writes ``inputGenerated.wav``; ``input: "audio"`` loads the target WAV
   (resampled to the config's rate where the file's differs);
-* runs the chunked matcher (``es/pipeline.py::match_audio``), or with
-  ``--mode pursuit`` / ``tpu.solver: "pursuit"`` the staged solver
-  (``es/staged.py``: the series homotopy for fm{k}_series with k >= 4, the
-  pair pursuit otherwise) chunk by chunk, and prints the total wall-clock
-  time;
+* runs the chunked matcher (``es/pipeline.py::match_audio``); with
+  ``--mode stft`` one run scored over every frame of the target
+  (``match_audio_stft``); with ``--mode parallel-chunks`` one run a chunk,
+  all chunks at once (``match_many``); with ``--mode pursuit`` /
+  ``tpu.solver: "pursuit"`` the staged solver (``es/staged.py``: the series
+  homotopy for fm{k}_series with k >= 4, the pair pursuit otherwise) chunk
+  by chunk; and prints the total wall-clock time;
+* with ``--batch a.wav b.wav ...`` matches several target files at once
+  (``match_many``: each file resampled to the config's rate, all cut to the
+  shortest whole number of frames, one output WAV a target named after it);
 * prints the best parameters and fitness per chunk, then the overall best
   by parameter name (``models.get_topology``);
 * resynthesises the best candidates into the output WAV;
 * with ``general.isBenchmarking``, writes the per-stage benchmark CSV with
-  the reference's naming scheme and column schema (backend tag ``gpu``).
+  the reference's naming scheme and column schema (backend tag ``gpu``);
+  every mode but ``chunks`` (which times each chunk) is timed as one
+  "Total Audio Analysis Time".
 
 The run is on the first CUDA device unless ``--platform cpu`` asks for the
 CPU, where every kernel runs its plain PyTorch version. Not ported yet, and
-raising ``NotImplementedError`` that names the ROADMAP item: ``--batch``,
-``--mode stft`` and ``--mode parallel-chunks`` (Queue A item 6),
-``--export-aot``/``--aot`` and ``--checkpoint-dir`` (A9), ``--mesh`` and a
-config's ``tpu.meshShape`` (A10).
+raising ``NotImplementedError`` that names the ROADMAP item:
+``--export-aot``/``--aot``, ``--checkpoint-dir`` and ``--checkpoint-every``
+with ``--mode stft`` (A9), ``--mesh`` and a config's ``tpu.meshShape``
+(A10).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -55,17 +63,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="chunk-level checkpoint/resume dir (not ported yet: A9)")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
                    help="stft mode: also checkpoint the ES state every N generations "
-                        "(not ported yet: A6, A9)")
+                        "(not ported yet: A9)")
     p.add_argument("--trajectory", action="store_true", help="record per-generation best fitness")
     p.add_argument("--mode",
                    choices=("chunks", "stft", "parallel-chunks", "pursuit"),
                    default="chunks",
                    help="chunks: fresh population per chunk, sequential (reference "
-                        "semantics); stft, parallel-chunks (not ported yet: A6); pursuit, "
-                        "the staged solver for fm{k}_parallel, fm2 and fm{k>=4}_series. A "
-                        "config with tpu.solver='pursuit' selects pursuit")
+                        "semantics); stft: one run scored over every frame of the target "
+                        "(multi-frame STFT fitness); parallel-chunks: one run a chunk, all "
+                        "chunks at once (batched); pursuit, the staged solver for "
+                        "fm{k}_parallel, fm2 and fm{k>=4}_series. A config with "
+                        "tpu.solver='pursuit' selects pursuit")
     p.add_argument("--batch", nargs="+", default=None, metavar="WAV",
-                   help="match several target WAVs concurrently (not ported yet: A6)")
+                   help="match several target WAVs concurrently (one batched run a file, "
+                        "each over all its frames)")
     p.add_argument("--mesh", type=int, default=None,
                    help="shard the population over N devices (not ported yet: A10)")
     p.add_argument("--profile-dir", default=None,
@@ -136,10 +147,8 @@ def main(argv: list[str] | None = None) -> int:
     cfg = run_cfg.es
     if args.mode == "chunks" and run_cfg.solver == "pursuit":
         args.mode = "pursuit"
-    if args.batch:
-        raise _not_ported("--batch (match_many)", "6 (A6)")
-    if args.mode in ("stft", "parallel-chunks"):
-        raise _not_ported(f"--mode {args.mode}", "6 (A6)")
+    if args.checkpoint_every and args.mode == "stft":
+        raise _not_ported("--checkpoint-every (evolve_checkpointed)", "9 (A9)")
     if args.export_aot or args.aot:
         raise _not_ported("--export-aot/--aot (utils/aot.py)", "9 (A9)")
     if args.checkpoint_dir:
@@ -170,6 +179,9 @@ def main(argv: list[str] | None = None) -> int:
         )
         bm = Benchmarker(csv_path=csv_path, quiet=args.quiet,
                          population=cfg.population_size, generations=num_generations)
+
+    if args.batch:
+        return _match_batch(args, run_cfg, cfg, num_generations, device, bm)
 
     # --- target creation (main.cpp:204-227) ------------------------------
     if run_cfg.input_mode == "params":
@@ -206,43 +218,58 @@ def main(argv: list[str] | None = None) -> int:
         return 2
 
     # --- match (main.cpp:229-239) ----------------------------------------
-    from .es import make_spectrum_ops
+    from .es import make_spectrum_ops, match_audio_stft, match_many
+    from .es.pipeline import MatchResult
     from .es.strategy import active_engine
 
-    engine = active_engine(cfg, make_spectrum_ops(cfg, device=device))
-    if not args.quiet:
-        tail = ""
-        if cfg.refine_generations > 0:
-            cfg_r = cfg.refine_config()
-            tail = (f", the last {min(cfg.refine_generations, num_generations)} on "
-                    f"{active_engine(cfg_r, make_spectrum_ops(cfg_r, device=device))}")
-        if args.mode == "pursuit":
-            from .es.staged import _eval_cfg
+    if args.mode == "stft":  # one run over every frame: the multi-frame engines
+        cfg = cfg.replace(num_frames=max(1, len(target) // cfg.n_samples))
+    # the engines are named (and an engine not ported raises) before matching
+    if args.mode == "pursuit":
+        from .es.staged import _eval_cfg
 
-            ecfg = _eval_cfg(cfg)
-            print(f"engine: {engine}{tail} (the polishes) and "
-                  f"{active_engine(ecfg, make_spectrum_ops(ecfg, device=device))} (the block "
-                  f"stages) on {device} (pursuit solver, {cfg.topology}, n={cfg.n_samples}, "
-                  f"pop={cfg.population_size})")
-        else:
-            print(f"engine: {engine}{tail} on {device} ({cfg.topology}, n={cfg.n_samples}, "
-                  f"pop={cfg.population_size}, {num_generations} generations)")
+        ecfg = _eval_cfg(cfg)
+        line = (f"engine: {_engines(cfg, num_generations, device)} (the polishes) and "
+                f"{active_engine(ecfg, make_spectrum_ops(ecfg, device=device))} (the block "
+                f"stages) on {device} (pursuit solver, {cfg.topology}, n={cfg.n_samples}, "
+                f"pop={cfg.population_size})")
+    else:
+        line = _engine_line(cfg, num_generations, device, f"{args.mode} mode")
+    if not args.quiet:
+        print(line)
     start = time.perf_counter()
+    # the chunks mode feeds the Benchmarker chunk by chunk; every other mode
+    # is timed as one total, so that isBenchmarking writes the CSV in each
+    total = bm is not None and args.mode != "chunks"
+    if total:
+        bm.start_timer("Total Audio Analysis Time")
     # general.isDebug: NaN checks over the whole match (utils/debug.py)
     with maybe_trace(args.profile_dir), debug_nans(run_cfg.is_debug):
         if args.mode == "pursuit":
-            # one device program in the reference: time it as one total so
-            # that isBenchmarking writes the CSV in this mode too
-            if bm is not None:
-                bm.start_timer("Total Audio Analysis Time")
             result = _match_pursuit(target, cfg, run_cfg.pursuit, args.seed, device, args.quiet)
-            if bm is not None:
-                bm.pause_timer("Total Audio Analysis Time")
+        elif args.mode == "stft":
+            result = match_audio_stft(
+                target, cfg, seed=args.seed, num_generations=num_generations,
+                record_trajectory=args.trajectory, device=device,
+            )
+        elif args.mode == "parallel-chunks":
+            n = len(target) - len(target) % cfg.n_samples
+            if n == 0:
+                raise ValueError(f"target audio ({len(target)} samples) shorter than one frame "
+                                 f"({cfg.n_samples})")
+            chunks = np.asarray(target[:n], np.float32).reshape(-1, cfg.n_samples)
+            many = match_many(chunks, cfg, seed=args.seed, num_generations=num_generations,
+                              device=device)
+            result = MatchResult(chunks=[r.chunks[0] for r in many],
+                                 output_audio=np.concatenate([r.output_audio for r in many]),
+                                 config=cfg)
         else:
             result = match_audio(
                 target, cfg, seed=args.seed, num_generations=num_generations,
                 record_trajectory=args.trajectory, benchmarker=bm, device=device,
             )
+    if total:
+        bm.pause_timer("Total Audio Analysis Time")
     elapsed = time.perf_counter() - start
     if not args.quiet:
         print(f"Total time to complete: {elapsed:.3f}s")
@@ -267,6 +294,84 @@ def main(argv: list[str] | None = None) -> int:
         if not args.quiet:
             print(f"wrote {run_cfg.output_audio_path}")
 
+    if bm is not None:
+        _flush_benchmark(bm, cfg, device)
+    return 0
+
+
+def _engines(cfg, num_generations: int, device) -> str:
+    """The engine of ``cfg`` on ``device`` and, with a refine tail, the
+    tail's ("X, the last R on Y")."""
+    from .es import make_spectrum_ops
+    from .es.strategy import active_engine
+
+    engine = active_engine(cfg, make_spectrum_ops(cfg, device=device))
+    if cfg.refine_generations <= 0:
+        return engine
+    cfg_r = cfg.refine_config()
+    return (f"{engine}, the last {min(cfg.refine_generations, num_generations)} on "
+            f"{active_engine(cfg_r, make_spectrum_ops(cfg_r, device=device))}")
+
+
+def _engine_line(cfg, num_generations: int, device, mode: str) -> str:
+    """The "engine: ..." line: ``_engines`` on ``device``, the mode, the
+    shapes and, where there are several, the frames a run is scored over."""
+    frames = f", {cfg.num_frames} frames a run" if cfg.num_frames > 1 else ""
+    return (f"engine: {_engines(cfg, num_generations, device)} on {device} ({mode}, "
+            f"{cfg.topology}, n={cfg.n_samples}{frames}, pop={cfg.population_size}, "
+            f"{num_generations} generations)")
+
+
+def _match_batch(args, run_cfg, cfg, num_generations: int, device, bm) -> int:
+    """``--batch``: every WAV of ``args.batch`` resampled to the config's
+    rate, all cut to the shortest whole number of frames, matched at once
+    (``match_many``, one run a file, each over all its frames); prints each
+    target's fitness and parameters, writes one WAV a target (the output
+    path with the target's stem after it) and the benchmark CSV."""
+    from .es import match_many
+    from .io import read_audio, resample, write_wav
+
+    loaded = []
+    for path in args.batch:
+        a, sr = read_audio(path)
+        if sr != cfg.sample_rate:
+            a = resample(a, sr, cfg.sample_rate)
+            if not args.quiet:
+                print(f"{path}: resampled {sr} Hz -> {cfg.sample_rate} Hz")
+            sr = cfg.sample_rate
+        loaded.append((a, sr))
+    n = min(len(a) for a, _ in loaded)
+    n -= n % cfg.n_samples
+    if n == 0:
+        print("error: batch targets shorter than one frame", file=sys.stderr)
+        return 2
+    targets = np.stack([a[:n] for a, _ in loaded])
+    if not args.quiet:
+        print(_engine_line(cfg.replace(num_frames=n // cfg.n_samples), num_generations, device,
+                           f"a batch of {len(loaded)} targets"))
+    start = time.perf_counter()
+    if bm is not None:
+        bm.start_timer("Total Audio Analysis Time")
+    results = match_many(targets, cfg, seed=args.seed, num_generations=num_generations,
+                         device=device)
+    if bm is not None:
+        bm.pause_timer("Total Audio Analysis Time")
+    elapsed = time.perf_counter() - start
+    seen: set = set()
+    for i, (path, r) in enumerate(zip(args.batch, results)):
+        c = r.chunks[0]
+        params_str = ", ".join(f"{v:.3f}" for v in c.best_params_scaled)
+        print(f"{path}: fitness = {c.best_fitness:.6g}\n  params = [{params_str}]")
+        if run_cfg.is_audio:
+            root, ext = os.path.splitext(run_cfg.output_audio_path)
+            stem = os.path.splitext(os.path.basename(path))[0]
+            out_path = f"{root}_{stem}{ext or '.wav'}"
+            if out_path in seen:  # the same file name twice: tell them apart
+                out_path = f"{root}_{stem}_{i}{ext or '.wav'}"
+            seen.add(out_path)
+            write_wav(out_path, r.output_audio, loaded[i][1], normalize=True)
+    if not args.quiet:
+        print(f"\nTotal time to complete: {elapsed:.3f}s ({len(results)} targets, concurrent)")
     if bm is not None:
         _flush_benchmark(bm, cfg, device)
     return 0

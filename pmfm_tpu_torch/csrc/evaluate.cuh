@@ -110,7 +110,7 @@ __host__ inline int dispatch_chain(int kn, F&& f) {
 
 // B1/B2: runs f(std::integral_constant<int, KN>{}) for sp's synthesis, a
 // chain of sp.kn oscillators (dispatch_chain) or a bank of sp.npair pairs
-// (2..MAX_PAIRS) as KN = BANK_KN + npair (synth_common.cuh::synth_candidate).
+// (2..MAX_PAIRS) as KN = BANK_KN + npair (synth_common.cuh::CandidateSynth).
 template <typename F>
 __host__ inline int dispatch_synth(const SynthParams& sp, F&& f) {
   switch (sp.npair) {

@@ -26,6 +26,12 @@
 // block shape and to what is resident, which B2's kernels (one-warp int8
 // blocks, two 4-warp f32 DFT blocks an SM) do not share.
 //
+// Frames and runs: B2's kernels take the multi-frame mode (sp.frames) and
+// the run axis as they are; a batched call launches B2 once a generation for
+// all runs and the selection with one block a run (blockIdx.x = run), each
+// run with its own seeds, parents, target rows and best-ever, so a batched
+// B5 call is bit-equal, run for run, to lone B5 calls.
+//
 // What bounds it: B2's evaluation, G times (at the bench shapes 34 G int8
 // operations a generation, 25 us). The selection reads P fitness values
 // (128 KB at P 2^15) and writes mu parents; it runs on one SM, so its time is
@@ -84,21 +90,24 @@ __device__ __forceinline__ uint32_t order_key(float f) {
 
 // keys[i] = order_key(fit[i]) for the warp's candidates [lo, hi) (lo a
 // multiple of 32), in 16-byte loads, SEL_BATCH of them a lane in flight: one
-// round of L2 latency for 1024 keys a warp.
+// round of L2 latency for 1024 keys a warp. A run's row of fitness that
+// does not start on 16 bytes (run r > 0 of a batched call whose population
+// is not a multiple of 4) is read a float at a time.
 __device__ __forceinline__ void load_keys(const float* fit, uint32_t* keys, int lo, int hi) {
   const int lane = threadIdx.x & 31;
+  const bool vec = (reinterpret_cast<uintptr_t>(fit) & 15) == 0;
   for (int base = lo; base < hi; base += 128 * SEL_BATCH) {
     float4 v[SEL_BATCH];
 #pragma unroll
     for (int j = 0; j < SEL_BATCH; ++j) {
       const int i = base + 4 * (32 * j + lane);
-      if (i + 3 < hi) {
+      if (vec && i + 3 < hi) {
         v[j] = __ldcg(reinterpret_cast<const float4*>(fit + i));
-      } else {  // the population's ragged end
+      } else {  // the population's ragged end, or a row off 16 bytes
         v[j].x = i < hi ? __ldcg(fit + i) : 0.f;
         v[j].y = i + 1 < hi ? __ldcg(fit + i + 1) : 0.f;
         v[j].z = i + 2 < hi ? __ldcg(fit + i + 2) : 0.f;
-        v[j].w = 0.f;
+        v[j].w = i + 3 < hi ? __ldcg(fit + i + 3) : 0.f;
       }
     }
 #pragma unroll
@@ -145,14 +154,27 @@ __device__ __forceinline__ void sweep(const float* fit, const uint32_t* keys, in
 // One generation's comma selection: the mu survivors of fit (pop,), val and
 // step (pop, d) into pf (mu,), pv and ps (mu, d), best first; best-ever into
 // best_v (d,) and best_f (1,) on a strict improvement; traj_g = best-ever.
+// Block r selects run r of a batched run: every array has a leading run
+// axis, and run r's trajectory entry sits traj_stride floats after run
+// r - 1's.
 template <bool SHARED>
 __global__ void __launch_bounds__(SEL_THREADS)
 select_kernel(int pop, int mu, int d, const float* __restrict__ fit,
               const float* __restrict__ val, const float* __restrict__ step,
               float* __restrict__ pv, float* __restrict__ ps, float* __restrict__ pf,
               float* __restrict__ best_v, float* __restrict__ best_f,
-              float* __restrict__ traj_g) {
+              float* __restrict__ traj_g, int traj_stride) {
   extern __shared__ __align__(16) uint32_t sm[];
+  const int run = blockIdx.x;
+  fit += (size_t)run * pop;
+  val += (size_t)run * pop * d;
+  step += (size_t)run * pop * d;
+  pv += (size_t)run * mu * d;
+  ps += (size_t)run * mu * d;
+  pf += (size_t)run * mu;
+  best_v += (size_t)run * d;
+  best_f += run;
+  traj_g += (size_t)run * traj_stride;
   uint32_t* keys = sm;                           // pop (padded), if SHARED
   uint32_t* hist = sm + (SHARED ? (pop + 3) / 4 * 4 : 0);  // SEL_WARPS x SEL_BINS
   uint32_t* tot = hist + SEL_WARPS * SEL_BINS;   // SEL_BINS
@@ -287,16 +309,23 @@ extern "C" {
 // the best-ever in and out; traj (gens,) gets best-ever per generation.
 // seeds (gens,), in host memory, are the generations' Philox keys. fit_s
 // (pop,), val_s and step_s (pop, d) hold each generation's offspring; in f32
-// mode scratch holds fused_f32.cu's f32_scratch_floats(pop, n) floats.
-// Enqueues every launch on `stream` and returns the first CUDA error, 0 on
-// success.
-int pmfm_fused_evolve(const uint32_t* seeds, int gens, int pop, SynthParams sp, MutateParams mp,
-                      const void* dft, const float* target, float* pv, float* ps, float* pf,
-                      float* best_v, float* best_f, float* traj, float* fit_s, float* val_s,
-                      float* step_s, float* scratch, long long scratch_floats, int f32_mode,
+// mode scratch holds fused_f32.cu's f32_scratch_floats(pop, n, frames, runs)
+// floats. With a run axis every array has a leading one (traj is (runs,
+// gens)) and run_seeds (device memory, (gens, runs)) replaces seeds, which
+// may then be null, also at runs = 1 (one of the two must be given): each
+// generation is one B2 launch for all runs and one selection block a run,
+// so run r computes what a B5 call of that run alone computes. Enqueues
+// every launch on `stream` and returns the first CUDA error, 0 on success.
+int pmfm_fused_evolve(const uint32_t* seeds, const uint32_t* run_seeds, int gens, int pop,
+                      int runs, SynthParams sp, MutateParams mp, const void* dft,
+                      const float* target, float* pv, float* ps, float* pf, float* best_v,
+                      float* best_f, float* traj, float* fit_s, float* val_s, float* step_s,
+                      float* scratch, long long scratch_floats, int f32_mode,
                       cudaStream_t stream) {
   const int mu = mp.mu;
-  if (gens < 1 || mu < 1 || pop < mu) return (int)cudaErrorInvalidValue;
+  if (gens < 1 || mu < 1 || pop < mu || runs < 1 || runs > 65535 || (runs > 1 && !run_seeds) ||
+      (!seeds && !run_seeds))
+    return (int)cudaErrorInvalidValue;
   const bool in_shared = select_keys_in_shared(pop, mu);
   const size_t smem = select_smem_bytes(pop, mu, in_shared);
   if (smem > SEL_MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -305,17 +334,19 @@ int pmfm_fused_evolve(const uint32_t* seeds, int gens, int pop, SynthParams sp, 
   GenInt8Kernel gen8 = nullptr;
   F32Plan plan{};
   if (!e)
-    e = f32_mode ? prepare_generation_f32(sp, pop, scratch, scratch_floats, &plan)
+    e = f32_mode ? prepare_generation_f32(sp, pop, runs, scratch, scratch_floats, &plan)
                  : prepare_generation_int8(sp, &gen8);
   for (int g = 0; g < gens && !e; ++g) {
-    e = f32_mode ? launch_f32(plan, nullptr, seeds[g], pv, ps, mp, val_s, step_s, sp,
+    const uint32_t* rs = run_seeds ? run_seeds + (size_t)g * runs : nullptr;
+    const uint32_t seed = rs ? 0u : seeds[g];
+    e = f32_mode ? launch_f32(plan, nullptr, seed, rs, pv, ps, mp, val_s, step_s, sp,
                               (const float*)dft, target, fit_s, stream)
-                 : launch_generation_int8(gen8, seeds[g], pv, ps, pop, sp, mp,
+                 : launch_generation_int8(gen8, seed, rs, pv, ps, pop, runs, sp, mp,
                                           (const int8_t*)dft, target, fit_s, val_s, step_s,
                                           stream);
     if (e) break;
-    sel<<<1, SEL_THREADS, smem, stream>>>(pop, mu, sp.d, fit_s, val_s, step_s, pv, ps, pf,
-                                          best_v, best_f, traj + g);
+    sel<<<runs, SEL_THREADS, smem, stream>>>(pop, mu, sp.d, fit_s, val_s, step_s, pv, ps, pf,
+                                             best_v, best_f, traj + g, gens);
     e = (int)cudaGetLastError();
   }
   return e;

@@ -16,8 +16,8 @@
 // * One warp a block, TC_CPB = 32 candidates, thread t synthesising
 //   candidate t: synth_run<NC, FOLD_G, KN> with the chain length KN fixed at
 //   compile time (a runtime loop bound there cost the synthesis 4x), or for
-//   fm{k}_parallel synth_bank_run with the pair count fixed the same way
-//   (synth_common.cuh::synth_candidate; KN = BANK_KN + k), and the
+//   fm{k}_parallel synth_bank_span with the pair count fixed the same way
+//   (synth_common.cuh::CandidateSynth; KN = BANK_KN + k), and the
 //   grouped fold emitter (synth_common.cuh::FoldEmit, B3's), which stores
 //   whole 16-byte groups of the thread's rows of a+ and a- in shared memory
 //   (32 x n bytes a block: 32 KB at n 1024, so six blocks an SM). The sample
@@ -49,6 +49,20 @@
 // * Integer-valued floats are rounded and packed to and from int8 with
 //   INT_MAGIC (full-rate adds and byte permutes, not quarter-rate
 //   conversions).
+// * Multi-frame fitness (sp.frames = F > 1, the reference's num_frames; the
+//   frame loop of _evaluate_block): a candidate synthesises F n continuous
+//   samples, and each frame is folded, transformed against its own target
+//   row and summed before the next frame is synthesised into the same
+//   shared memory (evaluate_int8_mma's frame loop): shared memory stays
+//   32 x n bytes whatever F. The frames' totals are added in float32 in
+//   frame order, as the reference adds them. One instantiation serves every
+//   F: the frame count is a runtime bound outside the per-sample loop, and
+//   at F = 1 it timed within 3% of a one-frame instantiation (PERF.md §6).
+// * The run axis (the port's counterpart of the reference's vmap over the
+//   pallas_call, match_many): one launch takes B independent runs as a
+//   second grid dimension, run r with its own candidates or parents, target
+//   rows and Philox seed, so a batched launch is bit-equal, run for run, to
+//   B lone launches.
 // * What is left: at P 2^15 the grid is 1024 warps over 792 resident slots
 //   (shared memory holds six blocks an SM), and the second round's warps run
 //   alone on their SMs.
@@ -208,6 +222,13 @@ __device__ __forceinline__ void dft_pass(int k0, const uint4* s_ap, const uint4*
 // The fitness of the block's 32 candidates, thread t holding candidate t's
 // scaled parameters p; writes fitness[base + t] for base + t < pop. KN is
 // the synthesis code of dispatch_synth (a chain, or a bank above BANK_KN).
+// sp.frames frames of one continuous synthesis (CandidateSynth's carries
+// live on from frame to frame): frame f is synthesised and folded into the
+// warp's a+/- (one frame: shared memory does not grow with the frames),
+// transformed against target row f (target + f k), and its total added in
+// float32 to the candidate's fitness in frame order before the next frame
+// overwrites a+/-. The frame count is a runtime loop bound outside the
+// per-sample loop.
 template <int NC, int KN>
 __device__ __forceinline__ void evaluate_int8_mma(const float* p, const SynthParams& sp,
                                                   const int8_t* __restrict__ dft,
@@ -225,34 +246,47 @@ __device__ __forceinline__ void evaluate_int8_mma(const float* p, const SynthPar
   emit.n = sp.n;
   emit.half = half;
   emit.edge_q = 0.f;
-  const float amp = synth_candidate<NC, KN, true>(p, sp, emit);
-  emit.fold_rows(0, false, 0.f);  // rows [0, 16): row 0 keeps q[0] alone
-  const float mag_scale = fmul(fabsf(amp), sp.dft_scale);
-  __syncwarp();
-
-  // the edge term 127 (-1)^k x[N/2] of each row, for even and odd k
-  float ue[2][2][2], ms[2][2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float eq = __shfl_sync(0xFFFFFFFFu, emit.edge_q, mt * 16 + h * 8 + g);
-      ue[mt][h][0] = fmul(127.f, eq);
-      ue[mt][h][1] = fmul(-127.f, eq);
-      ms[mt][h] = __shfl_sync(0xFFFFFFFFu, mag_scale, mt * 16 + h * 8 + g);
-    }
+  CandidateSynth<NC, KN, true> cs;
+  const float amp = cs.init(p, sp);
+  emit.amp = amp;
   float fit[2] = {0.f, 0.f};
-  const int tiles = sp.k >> 3;
-  int t0 = 0;
-  for (; t0 + TC_NT <= tiles; t0 += TC_NT)
-    dft_pass<TC_NT>(8 * t0, s_ap, s_am, units, dft, target, sp.k, half, ue, ms, fit);
-  for (; t0 < tiles; ++t0)
-    dft_pass<1>(8 * t0, s_ap, s_am, units, dft, target, sp.k, half, ue, ms, fit);
+  for (int f = 0; f < sp.frames; ++f) {
+    if (f) __syncwarp();  // the warp is done reading the last frame's a+/-
+    cs.frame(sp, emit);
+    emit.fold_rows(0, false, 0.f);  // rows [0, 16): row 0 keeps q[0] alone
+    const float mag_scale = fmul(fabsf(amp), sp.dft_scale);
+    __syncwarp();
+
+    // the edge term 127 (-1)^k x[N/2] of each row, for even and odd k
+    float ue[2][2][2], ms[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float eq = __shfl_sync(0xFFFFFFFFu, emit.edge_q, mt * 16 + h * 8 + g);
+        ue[mt][h][0] = fmul(127.f, eq);
+        ue[mt][h][1] = fmul(-127.f, eq);
+        ms[mt][h] = __shfl_sync(0xFFFFFFFFu, mag_scale, mt * 16 + h * 8 + g);
+      }
+    // run blockIdx.y's target row f, formed here so that no moved base
+    // pointer stays live across the passes (the kernels sit at up to 255
+    // registers)
+    const float* tgt = target + ((size_t)blockIdx.y * sp.frames + f) * sp.k;
+    float ff[2] = {0.f, 0.f};
+    const int tiles = sp.k >> 3;
+    int t0 = 0;
+    for (; t0 + TC_NT <= tiles; t0 += TC_NT)
+      dft_pass<TC_NT>(8 * t0, s_ap, s_am, units, dft, tgt, sp.k, half, ue, ms, ff);
+    for (; t0 < tiles; ++t0)
+      dft_pass<1>(8 * t0, s_ap, s_am, units, dft, tgt, sp.k, half, ue, ms, ff);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) fit[mt] = fadd(fit[mt], ff[mt]);
+  }
   if (c < 2) {
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
       const int cand = base + mt * 16 + 8 * c + g;
-      if (cand < pop) fitness[cand] = fit[mt];
+      if (cand < pop) fitness[(size_t)blockIdx.y * pop + cand] = fit[mt];
     }
   }
 }
@@ -263,6 +297,13 @@ __device__ __forceinline__ void take_params(const float* s_p, int d, float* p) {
   for (int i = 0; i < MAX_D; ++i) p[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
 }
 
+// The run axis: blockIdx.y is run r of a batched launch, whose candidates
+// are rows [r pop, (r + 1) pop) of the (runs, pop, d) arrays, whose target
+// is rows [r F, (r + 1) F) of the (runs, F, k) targets and whose fitness is
+// row r of (runs, pop). A run's blocks compute what a launch of that run
+// alone computes (in B2 with the run's own Philox seed, run_seeds[r], and
+// its own parents), so a batched launch is bit-equal, run for run, to lone
+// launches.
 template <int NC, int KN>
 __global__ void __launch_bounds__(TC_CPB)
 fused_synth_fitness_int8_kernel(const float* __restrict__ params, int pop, SynthParams sp,
@@ -271,9 +312,10 @@ fused_synth_fitness_int8_kernel(const float* __restrict__ params, int pop, Synth
   extern __shared__ __align__(16) uint4 smem_tc[];
   float* s_p = reinterpret_cast<float*>(smem_tc);  // before the synthesis writes a+/-
   const int base = blockIdx.x * TC_CPB, d = sp.d;
+  const float* run_params = params + (size_t)blockIdx.y * pop * d;
   const int avail = min(pop - base, TC_CPB) * d;
   for (int i = threadIdx.x; i < TC_CPB * d; i += TC_CPB)
-    s_p[i] = i < avail ? params[(size_t)base * d + i] : 0.f;
+    s_p[i] = i < avail ? run_params[(size_t)base * d + i] : 0.f;
   __syncwarp();
   float p[MAX_D];
   take_params(s_p, d, p);
@@ -283,17 +325,20 @@ fused_synth_fitness_int8_kernel(const float* __restrict__ params, int pop, Synth
 
 template <int NC, int KN>
 __global__ void __launch_bounds__(TC_CPB)
-fused_generation_int8_kernel(uint32_t seed, const float* __restrict__ pv,
-                             const float* __restrict__ ps, int pop, SynthParams sp,
-                             MutateParams mp, const int8_t* __restrict__ dft,
+fused_generation_int8_kernel(uint32_t seed, const uint32_t* __restrict__ run_seeds,
+                             const float* __restrict__ pv, const float* __restrict__ ps, int pop,
+                             SynthParams sp, MutateParams mp, const int8_t* __restrict__ dft,
                              const float* __restrict__ target, float* __restrict__ fitness,
                              float* __restrict__ values, float* __restrict__ steps) {
   extern __shared__ __align__(16) uint4 smem_tc[];
   float* s_p = reinterpret_cast<float*>(smem_tc);  // before the synthesis writes a+/-
-  const int base = blockIdx.x * TC_CPB, d = sp.d;
+  const int base = blockIdx.x * TC_CPB, d = sp.d, run = blockIdx.y;
+  if (run_seeds) seed = __ldg(run_seeds + run);
+  const size_t po = (size_t)run * mp.mu * d, oo = (size_t)run * pop * d;  // the run's rows
   for (int i = threadIdx.x; i < TC_CPB * d; i += TC_CPB) {  // pair i: (i / d, i % d)
     const int cl = i / d, cand = base + cl;
-    s_p[i] = cand < pop ? offspring_gene(seed, cand, i - cl * d, pv, ps, mp, d, values, steps)
+    s_p[i] = cand < pop ? offspring_gene(seed, cand, i - cl * d, pv + po, ps + po, mp, d,
+                                         values + oo, steps + oo)
                         : 0.f;
   }
   __syncwarp();
@@ -308,30 +353,36 @@ fused_generation_int8_kernel(uint32_t seed, const float* __restrict__ pv,
 #define PICK(kernel) \
   [](auto nc, auto kc) { return kernel<decltype(nc)::value, decltype(kc)::value>; }
 
-// The int8 kernel that `pick` gives for the sine order and the synthesis
+// The int8 kernel `pick` gives for the sine order and the synthesis
 // (dispatch_synth: the chain length or the bank's pairs), with its shared
-// memory set, asking for the largest carveout so that six
-// blocks of one warp fit an SM at n 1024.
+// memory set, asking for the largest carveout so that six blocks of one
+// warp fit an SM at n 1024.
 template <typename Pick, typename K>
 static int prepare_int8(Pick&& pick, const SynthParams& sp, K* out) {
-  return dispatch_ncoef(sp.ncoef, [&](auto nc) {
+  if (sp.frames < 1) return (int)cudaErrorInvalidValue;
+  K kernel = nullptr;
+  int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
     return dispatch_synth(sp, [&](auto kc) {
-      const K kernel = pick(nc, kc);
-      cudaError_t e = prepare(kernel, (size_t)sp.n * TC_CPB);
-      if (!e)
-        e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-      *out = kernel;
-      return (int)e;
+      kernel = pick(nc, kc);
+      return 0;
     });
   });
+  if (e) return e;
+  e = (int)prepare(kernel, (size_t)sp.n * TC_CPB);
+  if (!e)
+    e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  (int)cudaSharedmemCarveoutMaxShared);
+  *out = kernel;
+  return e;
 }
 
-// A prepared int8 kernel on blocks of one warp.
+// A prepared int8 kernel on blocks of one warp, `runs` rows of blocks.
 template <typename K, typename... Args>
-static int launch_int8(K kernel, const SynthParams& sp, int pop, cudaStream_t stream,
+static int launch_int8(K kernel, const SynthParams& sp, int pop, int runs, cudaStream_t stream,
                        Args... args) {
-  kernel<<<(pop + TC_CPB - 1) / TC_CPB, TC_CPB, (size_t)sp.n * TC_CPB, stream>>>(args...);
+  if (pop < 1 || runs < 1 || runs > 65535) return (int)cudaErrorInvalidValue;
+  kernel<<<dim3((pop + TC_CPB - 1) / TC_CPB, runs), TC_CPB, (size_t)sp.n * TC_CPB, stream>>>(
+      args...);
   return (int)cudaGetLastError();
 }
 
@@ -341,39 +392,47 @@ int prepare_generation_int8(const SynthParams& sp, GenInt8Kernel* kernel) {
   return prepare_int8(PICK(fused_generation_int8_kernel), sp, kernel);
 }
 
-int launch_generation_int8(GenInt8Kernel kernel, uint32_t seed, const float* pv, const float* ps,
-                           int pop, const SynthParams& sp, const MutateParams& mp,
-                           const int8_t* dft, const float* target, float* fitness, float* values,
-                           float* steps, cudaStream_t stream) {
-  return launch_int8(kernel, sp, pop, stream, seed, pv, ps, pop, sp, mp, dft, target, fitness,
-                     values, steps);
+int launch_generation_int8(GenInt8Kernel kernel, uint32_t seed, const uint32_t* run_seeds,
+                           const float* pv, const float* ps, int pop, int runs,
+                           const SynthParams& sp, const MutateParams& mp, const int8_t* dft,
+                           const float* target, float* fitness, float* values, float* steps,
+                           cudaStream_t stream) {
+  if (runs > 1 && !run_seeds) return (int)cudaErrorInvalidValue;
+  return launch_int8(kernel, sp, pop, runs, stream, seed, run_seeds, pv, ps, pop, sp, mp, dft,
+                     target, fitness, values, steps);
 }
 
 extern "C" {
 
 const char* pmfm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// B1 int8: fitness (pop,) of scaled params (pop, d) against the int8 folded
-// operand (2k, n/2) and the target (k,). Returns cudaGetLastError().
-int pmfm_fused_synth_fitness(const float* params, int pop, SynthParams sp, const void* dft,
-                             const float* target, float* fitness, cudaStream_t stream) {
+// B1 int8: fitness (runs, pop) of scaled params (runs, pop, d) against the
+// int8 folded operand (2k, n/2) and the targets (runs, sp.frames, k).
+// Returns cudaGetLastError().
+int pmfm_fused_synth_fitness(const float* params, int pop, int runs, SynthParams sp,
+                             const void* dft, const float* target, float* fitness,
+                             cudaStream_t stream) {
   FitInt8Kernel kernel;
   const int e = prepare_int8(PICK(fused_synth_fitness_int8_kernel), sp, &kernel);
   return e ? e
-           : launch_int8(kernel, sp, pop, stream, params, pop, sp, (const int8_t*)dft, target,
-                         fitness);
+           : launch_int8(kernel, sp, pop, runs, stream, params, pop, sp, (const int8_t*)dft,
+                         target, fitness);
 }
 
-// B2 int8: one generation's offspring (pop, d) values and steps from the
-// parents (mu, d), and their fitness (pop,). Returns cudaGetLastError().
-int pmfm_fused_generation(uint32_t seed, const float* pv, const float* ps, int pop,
-                          SynthParams sp, MutateParams mp, const void* dft, const float* target,
-                          float* fitness, float* values, float* steps, cudaStream_t stream) {
+// B2 int8: one generation's offspring (runs, pop, d) values and steps from
+// the parents (runs, mu, d), and their fitness (runs, pop), against the
+// targets (runs, sp.frames, k); run r draws with run_seeds[r] (device
+// memory; null for one run, which draws with seed). Returns
+// cudaGetLastError().
+int pmfm_fused_generation(uint32_t seed, const uint32_t* run_seeds, const float* pv,
+                          const float* ps, int pop, int runs, SynthParams sp, MutateParams mp,
+                          const void* dft, const float* target, float* fitness, float* values,
+                          float* steps, cudaStream_t stream) {
   GenInt8Kernel kernel;
   const int e = prepare_generation_int8(sp, &kernel);
   return e ? e
-           : launch_generation_int8(kernel, seed, pv, ps, pop, sp, mp, (const int8_t*)dft,
-                                    target, fitness, values, steps, stream);
+           : launch_generation_int8(kernel, seed, run_seeds, pv, ps, pop, runs, sp, mp,
+                                    (const int8_t*)dft, target, fitness, values, steps, stream);
 }
 
 }  // extern "C"

@@ -38,12 +38,12 @@
 // 3. Its synthesis read the chain length at run time (a runtime loop bound
 //    cost the int8 synthesis 4x). Here synth_run gets it as the compile-time
 //    KN (dispatch_synth; an fm{k}_parallel bank's pair count likewise, to
-//    synth_bank_run) with the grouped fold emitter FoldEmit on an exact
+//    synth_bank_span) with the grouped fold emitter FoldEmit on an exact
 //    f32 row (F32Row).
 //
 // Numerics. The audio is the plain version's bit for bit: synth_run's
 // samples and operations, each sample fmul(y, amp) unrounded (a pair bank:
-// synth_bank_run's sum over the pairs divided by k, times 1); a+ = old + x,
+// synth_bank_span's sum over the pairs divided by k, times 1); a+ = old + x,
 // a- = old - x (synth_common.cuh's FoldEmit). Only the order of the sums
 // differs from the plain version's float32 products:
 // * U[c][k] and V[c][k] are sums of exact-product __fmaf_rn steps over the
@@ -89,6 +89,17 @@
 // blocks an SM), P 2^15 2048. A last kernel adds the eight group
 // sums of each candidate in group order. The scratch rows past P (up to the
 // padding) are synthesised from zero parameters and dropped.
+//
+// Frames and runs. With sp.frames = F > 1 (multi-frame fitness) the
+// synthesis kernel writes F frames of one continuous synthesis to F row
+// blocks of the scratch, the DFT kernel takes the row blocks as its grid's
+// second dimension (each against its own target row), and the sum kernel
+// rounds each frame's double sum once, as for one frame, and adds the
+// frames' values in float32 in frame order. A batched launch of B runs
+// (fused_eval.cu's run axis) adds B x F row blocks the same way, run r with
+// its own parameters or parents, seed and target rows. The scratch grows by
+// B x F (f32_scratch_floats); at F = B = 1 every kernel computes what it
+// computed before.
 
 #include "generation.cuh"
 
@@ -167,16 +178,30 @@ struct exact_f32_row<F32Row> : std::true_type {};
 // B2 makes them (its offspring prologue: the block's SY_TPB x d (candidate,
 // gene) pairs spread over its threads, values and steps written coalesced).
 // Then thread t synthesises candidate base + t (zero parameters past pop)
-// into rows of a+/a- (scratch, N/2 floats a row) and its edge sample x[N/2].
+// into rows of a+/a- (scratch, N/2 floats a row) and its edge sample x[N/2],
+// frame after frame (sp.frames frames of one continuous synthesis,
+// CandidateSynth's carries living on from frame to frame): frame f of run r
+// goes to row (r * frames + f) * pop_pad + candidate. blockIdx.y is the run
+// (fused_eval.cu's run axis: its own parameters or parents and seed).
 template <int NC, int KN, bool GEN>
 __global__ void __launch_bounds__(SY_TPB)
-f32_synth_kernel(const float* __restrict__ params, uint32_t seed, const float* __restrict__ pv,
+f32_synth_kernel(const float* __restrict__ params, uint32_t seed,
+                 const uint32_t* __restrict__ run_seeds, const float* __restrict__ pv,
                  const float* __restrict__ ps, MutateParams mp, float* __restrict__ values,
                  float* __restrict__ steps, int pop, SynthParams sp, float* __restrict__ ap,
-                 float* __restrict__ am, float* __restrict__ edge) {
+                 float* __restrict__ am, float* __restrict__ edge, int pop_pad) {
   __shared__ float s_p[SY_TPB * MAX_D];
   __shared__ __align__(16) float s_buf[SY_TPB * SY_LDB];  // a 32-row staging buffer a warp
-  const int base = blockIdx.x * SY_TPB, d = sp.d;
+  const int base = blockIdx.x * SY_TPB, d = sp.d, run = blockIdx.y;
+  if constexpr (GEN) {
+    if (run_seeds) seed = __ldg(run_seeds + run);
+    pv += (size_t)run * mp.mu * d;
+    ps += (size_t)run * mp.mu * d;
+    values += (size_t)run * pop * d;
+    steps += (size_t)run * pop * d;
+  } else {
+    params += (size_t)run * pop * d;
+  }
   for (int i = threadIdx.x; i < SY_TPB * d; i += SY_TPB) {  // pair i: (i / d, i % d)
     const int cl = i / d, cand = base + cl;
     if constexpr (GEN)
@@ -193,14 +218,19 @@ f32_synth_kernel(const float* __restrict__ params, uint32_t seed, const float* _
   FoldEmit<false, F32Row> emit;
   const int lane = threadIdx.x & 31;
   float* buf = s_buf + (threadIdx.x - lane) * SY_LDB;
-  emit.ap = F32Row{ap + (size_t)cand * half, buf, lane, half};
-  emit.am = F32Row{am + (size_t)cand * half, buf, lane, half};
   emit.n = sp.n;
   emit.half = half;
   emit.edge_q = 0.f;  // the exact edge sample x[N/2] here
-  synth_candidate<NC, KN, false>(p, sp, emit);
-  emit.fold_rows(0, false, 0.f);  // rows [0, 16): row 0 keeps x[0] alone
-  edge[cand] = emit.edge_q;
+  CandidateSynth<NC, KN, false> cs;
+  emit.amp = cs.init(p, sp);
+  for (int f = 0; f < sp.frames; ++f) {
+    const size_t row = (size_t)(run * sp.frames + f) * pop_pad + cand;
+    emit.ap = F32Row{ap + row * half, buf, lane, half};
+    emit.am = F32Row{am + row * half, buf, lane, half};
+    cs.frame(sp, emit);
+    emit.fold_rows(0, false, 0.f);  // rows [0, 16): row 0 keeps x[0] alone
+    edge[row] = emit.edge_q;
+  }
 }
 
 // ---- (ii) the folded DFT and the fitness epilogue -------------------------------
@@ -239,9 +269,13 @@ __device__ __forceinline__ void add_running(float (&acc)[DF_TM][8], const float4
   }
 }
 
-// Block b: candidates c0 = DF_BM (b / DF_GROUPS) .. + DF_BM, bin group
-// g = b % DF_GROUPS; writes group g's sum of each candidate's terms to
-// partial[g * pop_pad + c]. Stage row p of a pass holds bin 8 (g + 8 jt) + p % 8
+// Block (b, fr): bin group g = b % DF_GROUPS of the DF_BM candidates from
+// row c0 = DF_BM ((fr gridDim.x + b) / DF_GROUPS) of the scratch (row block
+// fr = r frames + f, frame f of run r, starts at row fr pop_pad), against
+// target row fr; writes group g's sum of each candidate's terms to
+// partial[g rows + c0 + t]. The row block enters only through c0, the
+// run tiles' block index and the target row, so no base pointer is moved
+// (a moved kernel argument takes registers the DFT tile needs). Stage row p of a pass holds bin 8 (g + 8 jt) + p % 8
 // of the group's tile jt = j0 + p / 8 (a tile past the last loads bin 0 and is
 // skipped). Thread (tr, tc) of each half holds candidates tr + 8 i
 // (i < DF_TM) and stage rows tc + 8 j (j < 8): each 8-byte fragment load of
@@ -253,14 +287,15 @@ __device__ __forceinline__ void add_running(float (&acc)[DF_TM][8], const float4
 __global__ void __launch_bounds__(DF_THREADS, 2)
 f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
                const float* __restrict__ edge, const float* __restrict__ dft,
-               const float* __restrict__ target, SynthParams sp, int pop_pad,
+               const float* __restrict__ target, SynthParams sp, int rows,
                double* __restrict__ partial, float4* __restrict__ run_tiles) {
   constexpr int CH = DF_BK / 4;  // 16-byte copies a staged row
   constexpr int A_PER = DF_BM * CH / DF_THREADS, B_PER = DF_BN * CH / DF_THREADS;
   static_assert(DF_BM * CH % DF_THREADS == 0 && DF_BN * CH % DF_THREADS == 0, "copy split");
   extern __shared__ __align__(16) float smem_f[];
   DftStage* st = reinterpret_cast<DftStage*>(smem_f);
-  const int g = blockIdx.x % DF_GROUPS, c0 = (blockIdx.x / DF_GROUPS) * DF_BM;
+  const int lb = blockIdx.y * gridDim.x + blockIdx.x;  // the block's index over all row blocks
+  const int g = blockIdx.x % DF_GROUPS, c0 = (lb / DF_GROUPS) * DF_BM;
   const int half = sp.n >> 1, k = sp.k, tiles = k >> 3;
   const int mine = g < tiles ? (tiles - g + DF_GROUPS - 1) / DF_GROUPS : 0;  // group g's tiles
   const int tid = threadIdx.x;
@@ -272,7 +307,7 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
   // the thread's running tile of level l: float4 slot i (elements 4i .. 4i+3
   // of acc) at run[(l * DF_RUN / 4 + i) * DF_THREADS], so a warp's slot
   // accesses are 512 contiguous bytes
-  float4* run = run_tiles + (size_t)blockIdx.x * DF_LEVELS * (DF_RUN / 4) * DF_THREADS + tid;
+  float4* run = run_tiles + (size_t)lb * DF_LEVELS * (DF_RUN / 4) * DF_THREADS + tid;
   const int q = tid % CH;  // this thread's 16-byte part of each row it copies
   const float my_edge = edge[c0 + tid];
 
@@ -371,6 +406,7 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
     // added in double to the group's sum
     const float(*EU)[DF_ELD] = reinterpret_cast<const float(*)[DF_ELD]>(smem_f);
     const float(*EV)[DF_ELD] = EU + DF_BM;
+    const float* tgt = target + (size_t)blockIdx.y * k;  // the row block's target row
     double fit = 0.0;
     for (int p = 0; p < DF_BN; ++p) {
       const int jt = j0 + (p >> 3);
@@ -380,65 +416,81 @@ f32_dft_kernel(const float* __restrict__ ap, const float* __restrict__ am,
       const float u = fadd(EU[tid][p], fmul(ec, my_edge));
       const float v = EV[tid][p];
       const float mag = sqrtf(fadd(fmul(u, u), fmul(v, v)));
-      const float dd = fsub(mag, __ldg(target + kk));
+      const float dd = fsub(mag, __ldg(tgt + kk));
       fit = __dadd_rn(fit, (double)fmul(dd, dd));
     }
-    double* part = partial + (size_t)g * pop_pad + c0 + tid;  // the thread's own
+    double* part = partial + (size_t)g * rows + c0 + tid;  // the thread's own
     *part = j0 ? __dadd_rn(*part, fit) : fit;
     __syncthreads();  // the next pass's copies overwrite U and V
   }
-  if (!mine) partial[(size_t)g * pop_pad + c0 + tid] = 0.0;  // a group with no bins
+  if (!mine) partial[(size_t)g * rows + c0 + tid] = 0.0;  // a group with no bins
 }
 
-// fitness[c] = the eight group sums of candidate c added in double in group
-// order, from 0, rounded once to float32.
+// fitness[r pop + c] = for each frame f of run r (blockIdx.y), the eight
+// group sums of candidate c (row (r frames + f) pop_pad + c of partial's
+// DF_GROUPS blocks of `rows`) added in double in group order, from 0,
+// rounded once to float32; the frames' values added in float32 in frame
+// order.
 __global__ void __launch_bounds__(SUM_TPB)
-f32_sum_kernel(const double* __restrict__ partial, int pop_pad, int pop,
+f32_sum_kernel(const double* __restrict__ partial, int rows, int pop_pad, int pop, int frames,
                float* __restrict__ fitness) {
-  const int c = blockIdx.x * SUM_TPB + threadIdx.x;
+  const int c = blockIdx.x * SUM_TPB + threadIdx.x, run = blockIdx.y;
   if (c >= pop) return;
-  double fit = 0.0;
+  float fit = 0.f;
+  for (int f = 0; f < frames; ++f) {
+    const double* part = partial + (size_t)(run * frames + f) * pop_pad + c;
+    double s = 0.0;
 #pragma unroll
-  for (int g = 0; g < DF_GROUPS; ++g) fit = __dadd_rn(fit, partial[(size_t)g * pop_pad + c]);
-  fitness[c] = __double2float_rn(fit);
+    for (int g = 0; g < DF_GROUPS; ++g) s = __dadd_rn(s, part[(size_t)g * rows]);
+    const float ff = __double2float_rn(s);
+    fit = f ? fadd(fit, ff) : ff;
+  }
+  fitness[(size_t)run * pop + c] = fit;
 }
 
 // ---- launcher -----------------------------------------------------------------
 
-// Floats of scratch for pop candidates at frames of n samples: a+ and a-
-// (pop_pad x N/2 each), the edge samples (pop_pad), the group sums
-// (DF_GROUPS x pop_pad doubles) and, where the DFT splits the samples (N/2
-// above DF_SPLIT_ABOVE), DF_LEVELS running tiles of DF_RUN floats for each
-// thread of each DFT block (DF_GROUPS x DF_LEVELS x DF_RUN x pop_pad).
+// Floats of scratch for `runs` runs of pop candidates at `frames` frames of
+// n samples: for each of the runs x frames row blocks, a+ and a- (pop_pad x
+// N/2 each), the edge samples (pop_pad), the group sums (DF_GROUPS x
+// pop_pad doubles) and, where the DFT splits the samples (N/2 above
+// DF_SPLIT_ABOVE), DF_LEVELS running tiles of DF_RUN floats for each thread
+// of each DFT block (DF_GROUPS x DF_LEVELS x DF_RUN x pop_pad).
 // kernels/synth_fitness.py::f32_scratch_floats is the same formula.
-static long long f32_scratch_floats(int pop, int n) {
+static long long f32_scratch_floats(int pop, int n, int frames, int runs) {
   const long long pop_pad = (long long)(pop + DF_BM - 1) / DF_BM * DF_BM;
   const long long run = n / 2 > DF_SPLIT_ABOVE ? (long long)DF_GROUPS * DF_LEVELS * DF_RUN : 0;
-  return pop_pad * (n + 1 + 2 * DF_GROUPS + run);
+  return (long long)runs * frames * pop_pad * (n + 1 + 2 * DF_GROUPS + run);
 }
 
-// The plan of the three kernels for pop candidates (generation.cuh): the
-// synthesis kernel's instantiation for the sine order and the chain or bank
-// (dispatch_synth), with B2's offspring prologue (GEN) or B1's parameters, the scratch's views and
-// the DFT kernel's shared memory. cudaErrorInvalidValue for too little
-// scratch, a frame whose half is not whole DF_BK-sample stages or one of
-// more segments than the running tiles' levels take.
+// The plan of the three kernels for `runs` runs of pop candidates at
+// sp.frames frames (generation.cuh): the synthesis kernel's instantiation
+// for the sine order and the chain or bank (dispatch_synth), with B2's
+// offspring prologue (GEN) or B1's parameters, the scratch's views and the
+// DFT kernel's shared memory. cudaErrorInvalidValue for too little scratch,
+// a frame whose half is not whole DF_BK-sample stages, one of more segments
+// than the running tiles' levels take, or more row blocks than a grid's
+// second dimension takes.
 template <bool GEN>
-static int prepare_f32(const SynthParams& sp, int pop, float* scratch, long long scratch_floats,
-                       F32Plan* plan) {
-  if (pop < 1 || scratch_floats < f32_scratch_floats(pop, sp.n) || (sp.n / 2) % DF_BK ||
+static int prepare_f32(const SynthParams& sp, int pop, int runs, float* scratch,
+                       long long scratch_floats, F32Plan* plan) {
+  if (pop < 1 || runs < 1 || sp.frames < 1 || (long long)runs * sp.frames > 65535 ||
+      (long long)runs * sp.frames * (pop + DF_BM) > 0x7FFFFFFFLL ||
+      scratch_floats < f32_scratch_floats(pop, sp.n, sp.frames, runs) || (sp.n / 2) % DF_BK ||
       sp.n / 2 > DF_MAX_SEGS * DF_SEG)
     return (int)cudaErrorInvalidValue;
   const int pop_pad = (pop + DF_BM - 1) / DF_BM * DF_BM;
-  const size_t half = sp.n / 2;
+  const size_t half = sp.n / 2, rows = (size_t)runs * sp.frames * pop_pad;
   plan->pop = pop;
   plan->pop_pad = pop_pad;
+  plan->runs = runs;
+  plan->rows = (int)rows;
   plan->ap = scratch;
-  plan->am = plan->ap + (size_t)pop_pad * half;
-  plan->edge = plan->am + (size_t)pop_pad * half;
-  plan->partial = reinterpret_cast<double*>(plan->edge + pop_pad);  // pop_pad is even
+  plan->am = plan->ap + rows * half;
+  plan->edge = plan->am + rows * half;
+  plan->partial = reinterpret_cast<double*>(plan->edge + rows);  // pop_pad is even
   plan->run = sp.n / 2 > DF_SPLIT_ABOVE
-                  ? reinterpret_cast<float*>(plan->partial + (size_t)DF_GROUPS * pop_pad)
+                  ? reinterpret_cast<float*>(plan->partial + (size_t)DF_GROUPS * rows)
                   : nullptr;
   const int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
     return dispatch_synth(sp, [&](auto kc) {
@@ -449,58 +501,64 @@ static int prepare_f32(const SynthParams& sp, int pop, float* scratch, long long
   return e ? e : (int)prepare(f32_dft_kernel, DF_SMEM);
 }
 
-int prepare_generation_f32(const SynthParams& sp, int pop, float* scratch,
+int prepare_generation_f32(const SynthParams& sp, int pop, int runs, float* scratch,
                            long long scratch_floats, F32Plan* plan) {
-  return prepare_f32<true>(sp, pop, scratch, scratch_floats, plan);
+  return prepare_f32<true>(sp, pop, runs, scratch, scratch_floats, plan);
 }
 
 // The three kernels of a plan on `stream`; returns cudaGetLastError() after
 // each launch (the first error stops it).
-int launch_f32(const F32Plan& plan, const float* params, uint32_t seed, const float* pv,
-               const float* ps, const MutateParams& mp, float* values, float* steps,
-               const SynthParams& sp, const float* dft, const float* target, float* fitness,
-               cudaStream_t stream) {
+int launch_f32(const F32Plan& plan, const float* params, uint32_t seed, const uint32_t* run_seeds,
+               const float* pv, const float* ps, const MutateParams& mp, float* values,
+               float* steps, const SynthParams& sp, const float* dft, const float* target,
+               float* fitness, cudaStream_t stream) {
+  if (pv && plan.runs > 1 && !run_seeds) return (int)cudaErrorInvalidValue;
   const F32SynthKernel synth = plan.synth;
-  synth<<<plan.pop_pad / SY_TPB, SY_TPB, 0, stream>>>(params, seed, pv, ps, mp, values, steps,
-                                                      plan.pop, sp, plan.ap, plan.am, plan.edge);
+  synth<<<dim3(plan.pop_pad / SY_TPB, plan.runs), SY_TPB, 0, stream>>>(
+      params, seed, run_seeds, pv, ps, mp, values, steps, plan.pop, sp, plan.ap, plan.am,
+      plan.edge, plan.pop_pad);
   int e = (int)cudaGetLastError();
   if (e) return e;
-  f32_dft_kernel<<<plan.pop_pad / DF_BM * DF_GROUPS, DF_THREADS, DF_SMEM, stream>>>(
-      plan.ap, plan.am, plan.edge, dft, target, sp, plan.pop_pad, plan.partial,
-      reinterpret_cast<float4*>(plan.run));
+  f32_dft_kernel<<<dim3(plan.pop_pad / DF_BM * DF_GROUPS, plan.runs * sp.frames), DF_THREADS,
+                   DF_SMEM, stream>>>(plan.ap, plan.am, plan.edge, dft, target, sp, plan.rows,
+                                      plan.partial, reinterpret_cast<float4*>(plan.run));
   e = (int)cudaGetLastError();
   if (e) return e;
-  f32_sum_kernel<<<(plan.pop + SUM_TPB - 1) / SUM_TPB, SUM_TPB, 0, stream>>>(
-      plan.partial, plan.pop_pad, plan.pop, fitness);
+  f32_sum_kernel<<<dim3((plan.pop + SUM_TPB - 1) / SUM_TPB, plan.runs), SUM_TPB, 0, stream>>>(
+      plan.partial, plan.rows, plan.pop_pad, plan.pop, sp.frames, fitness);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// B1 true f32: fitness (pop,) of scaled params (pop, d) against the float32
-// folded operand (2k, n/2) and the target (k,); `scratch` holds
-// f32_scratch_floats(pop, n) floats. Returns cudaGetLastError().
-int pmfm_fused_synth_fitness_f32(const float* params, int pop, SynthParams sp, const float* dft,
-                                 const float* target, float* fitness, float* scratch,
-                                 long long scratch_floats, cudaStream_t stream) {
+// B1 true f32: fitness (runs, pop) of scaled params (runs, pop, d) against
+// the float32 folded operand (2k, n/2) and the targets (runs, sp.frames, k);
+// `scratch` holds f32_scratch_floats(pop, n, sp.frames, runs) floats.
+// Returns cudaGetLastError().
+int pmfm_fused_synth_fitness_f32(const float* params, int pop, int runs, SynthParams sp,
+                                 const float* dft, const float* target, float* fitness,
+                                 float* scratch, long long scratch_floats, cudaStream_t stream) {
   F32Plan plan;
-  const int e = prepare_f32<false>(sp, pop, scratch, scratch_floats, &plan);
+  const int e = prepare_f32<false>(sp, pop, runs, scratch, scratch_floats, &plan);
   return e ? e
-           : launch_f32(plan, params, 0u, nullptr, nullptr, MutateParams{}, nullptr, nullptr, sp,
-                        dft, target, fitness, stream);
+           : launch_f32(plan, params, 0u, nullptr, nullptr, nullptr, MutateParams{}, nullptr,
+                        nullptr, sp, dft, target, fitness, stream);
 }
 
-// B2 true f32: one generation's offspring (pop, d) values and steps from the
-// parents (mu, d), and their fitness (pop,). Returns cudaGetLastError().
-int pmfm_fused_generation_f32(uint32_t seed, const float* pv, const float* ps, int pop,
-                              SynthParams sp, MutateParams mp, const float* dft,
-                              const float* target, float* fitness, float* values, float* steps,
-                              float* scratch, long long scratch_floats, cudaStream_t stream) {
+// B2 true f32: one generation's offspring (runs, pop, d) values and steps
+// from the parents (runs, mu, d), and their fitness (runs, pop); run r
+// draws with run_seeds[r] (device memory; null for one run, which draws with
+// seed). Returns cudaGetLastError().
+int pmfm_fused_generation_f32(uint32_t seed, const uint32_t* run_seeds, const float* pv,
+                              const float* ps, int pop, int runs, SynthParams sp,
+                              MutateParams mp, const float* dft, const float* target,
+                              float* fitness, float* values, float* steps, float* scratch,
+                              long long scratch_floats, cudaStream_t stream) {
   F32Plan plan;
-  const int e = prepare_generation_f32(sp, pop, scratch, scratch_floats, &plan);
+  const int e = prepare_generation_f32(sp, pop, runs, scratch, scratch_floats, &plan);
   return e ? e
-           : launch_f32(plan, nullptr, seed, pv, ps, mp, values, steps, sp, dft, target, fitness,
-                        stream);
+           : launch_f32(plan, nullptr, seed, run_seeds, pv, ps, mp, values, steps, sp, dft,
+                        target, fitness, stream);
 }
 
 }  // extern "C"

@@ -4,8 +4,9 @@
 // time-parallel synthesis of large_frame.cu; synth_run, the whole frame
 // from zero offsets), as the TPU kernels share
 // pmfm_tpu/kernels/synth_fitness.py::_make_block_synth; the fm{k}_parallel
-// bank of B1/B2 (synth_bank_run: k fm2 chains summed in pair order); and
-// the grouped fold emitter FoldEmit that B3 and B1/B2 run on them.
+// bank of B1/B2 (synth_bank_span: k fm2 chains summed in pair order);
+// B1/B2's candidate synthesis frame after frame (CandidateSynth); and the
+// grouped fold emitter FoldEmit that B3 and B1/B2 run on them.
 //
 // Numerics (the TPU kernel's, in sample order). Phases are kept in turns
 // (phase / wavetable size), so the wrap is frac(x) = x - floor(x). Samples
@@ -47,6 +48,7 @@ struct SynthParams {
   float dft_scale;   // SpectrumOps.dft_packed_scale (0 outside the int8 engine)
   float edge_norm;   // B1/B2 true-f32 mode: 2 * norm, the x[N/2] edge coefficient's size
   int npair;         // B1/B2: 0 for a chain, else the pairs of an fm{npair}_parallel bank
+  int frames;        // B1/B2: frames of n samples a candidate synthesises in one run (>= 1)
 };
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -183,7 +185,7 @@ __device__ __forceinline__ void synth_run(const Chain& ch, const SynthParams& sp
 // divided by the float32 NP) and gain_j = amp_j * (63 / (NP s + 1e-30)),
 // so the summed pairs stay within +-63 and s rescales the magnitudes; the
 // true-f32 mode keeps gain_j = amp_j and divides the sum by NP
-// (synth_bank_run). amp is what FoldEmit multiplies a sample by and the
+// (synth_bank_span). amp is what FoldEmit multiplies a sample by and the
 // int8 epilogue rescales by: s (int8), 1 (f32).
 struct PairBank {
   float inc1[MAX_PAIRS], inc_blk[MAX_PAIRS], im[MAX_PAIRS], ic[MAX_PAIRS], gain[MAX_PAIRS];
@@ -217,19 +219,18 @@ __device__ __forceinline__ PairBank make_bank(const float* p, const SynthParams&
   return bk;
 }
 
-// The bank over samples 0 .. n-1 from zero offsets: pair j is synth_span's
-// chain of two (its own two carries, the same operations) whose output is
-// the unit sine times gain_j; emit(m, u, y) gets the sum over the pairs in
-// pair order, divided by the float32 NP in the true-f32 mode (!INT8). NP
-// is fixed at compile time, as a chain's KN is.
+// The bank over the time blocks [0, nb) of a frame from the carries o1[],
+// o2[], which advance in place (synth_span's contract for a bank): pair j is
+// synth_span's chain of two (its own two carries, the same operations)
+// whose output is the unit sine times gain_j; emit(m, u, y) gets the sum
+// over the pairs in pair order, divided by the float32 NP in the true-f32
+// mode (!INT8), with m the sample's index in the frame. NP is fixed at
+// compile time, as a chain's KN is.
 template <int NC, int G, int NP, bool INT8, typename Emit>
-__device__ __forceinline__ void synth_bank_run(const PairBank& bk, const SynthParams& sp, int n,
-                                               Emit& emit) {
+__device__ __forceinline__ void synth_bank_span(const PairBank& bk, const SynthParams& sp, int nb,
+                                                float (&o1)[NP], float (&o2)[NP], Emit& emit) {
   static_assert(TIME_BLOCK % G == 0, "G must divide TIME_BLOCK");
-  float o1[NP], o2[NP];
-#pragma unroll
-  for (int j = 0; j < NP; ++j) o1[j] = o2[j] = 0.f;
-  for (int b = 0; b < n / TIME_BLOCK; ++b) {
+  for (int b = 0; b < nb; ++b) {
     float s[NP];
 #pragma unroll
     for (int j = 0; j < NP; ++j) s[j] = 0.f;
@@ -409,26 +410,52 @@ struct FoldEmit {
   }
 };
 
-// B1/B2's synthesis of one candidate with scaled parameters p into emit (a
-// FoldEmit): a chain of KN oscillators (synth_run, the output oscillator
-// 63 sin in the int8 mode) or, for KN > BANK_KN, a bank of KN - BANK_KN
-// pairs (synth_bank_run). Sets emit.amp and returns it: the amplitude the
-// int8 magnitudes are rescaled by (Chain::amp, PairBank::amp).
-template <int NC, int KN, bool INT8, typename Emit>
-__device__ __forceinline__ float synth_candidate(const float* p, const SynthParams& sp,
-                                                 Emit& emit) {
-  if constexpr (KN > BANK_KN) {
-    const PairBank bk = make_bank<KN - BANK_KN, INT8>(p, sp);
-    emit.amp = bk.amp;
-    synth_bank_run<NC, FOLD_G, KN - BANK_KN, INT8>(bk, sp, sp.n, emit);
-    return bk.amp;
-  } else {
-    const Chain ch = make_chain(p, sp);
-    emit.amp = ch.amp;
-    synth_run<NC, FOLD_G, KN>(ch, sp, INT8 ? sp.sin_c63 : sp.sin_c, sp.n, emit);
+// One candidate's synthesis as B1/B2 run it, frame after frame: a chain of
+// KN oscillators, or for KN > BANK_KN a bank of KN - BANK_KN pairs, with
+// the phase carries that live on from one frame to the next (frame f is
+// samples [f n, (f + 1) n) of one continuous synthesis: its blocks start
+// from the offsets where frame f - 1 ended, as a block starts from where
+// the block before it ended). init() makes the constants, zeroes the
+// carries and returns the amplitude the int8 magnitudes are rescaled by
+// (Chain::amp, PairBank::amp); frame() runs the next frame's n samples
+// into emit, each with its index in the frame.
+template <int NC, int KN, bool INT8, bool BANK = (KN > BANK_KN)>
+struct CandidateSynth;
+
+template <int NC, int KN, bool INT8>
+struct CandidateSynth<NC, KN, INT8, false> {
+  Chain ch;
+  float off[MAX_KN];
+  __device__ __forceinline__ float init(const float* p, const SynthParams& sp) {
+    ch = make_chain(p, sp);
+#pragma unroll
+    for (int j = 0; j < MAX_KN; ++j) off[j] = 0.f;
     return ch.amp;
   }
-}
+  template <typename Emit>
+  __device__ __forceinline__ void frame(const SynthParams& sp, Emit& emit) {
+    NoTotal none;
+    synth_span<NC, FOLD_G, KN, KN - 1, true>(ch, sp, INT8 ? sp.sin_c63 : sp.sin_c, 0,
+                                             sp.n / TIME_BLOCK, off, emit, none);
+  }
+};
+
+template <int NC, int KN, bool INT8>
+struct CandidateSynth<NC, KN, INT8, true> {
+  static constexpr int NP = KN - BANK_KN;
+  PairBank bk;
+  float o1[NP], o2[NP];
+  __device__ __forceinline__ float init(const float* p, const SynthParams& sp) {
+    bk = make_bank<NP, INT8>(p, sp);
+#pragma unroll
+    for (int j = 0; j < NP; ++j) o1[j] = o2[j] = 0.f;
+    return bk.amp;
+  }
+  template <typename Emit>
+  __device__ __forceinline__ void frame(const SynthParams& sp, Emit& emit) {
+    synth_bank_span<NC, FOLD_G, NP, INT8>(bk, sp, sp.n / TIME_BLOCK, o1, o2, emit);
+  }
+};
 
 template <typename K>
 static cudaError_t prepare(K kernel, size_t smem) {

@@ -9,6 +9,8 @@ from .pipeline import (
     kernel_seed,
     make_spectrum_ops,
     match_audio,
+    match_audio_stft,
+    match_many,
     refine_boundary,
 )
 from .staged import PursuitResult, match_parallel_pursuit, match_series_pursuit
@@ -34,6 +36,8 @@ __all__ = [
     "kernel_seed",
     "make_spectrum_ops",
     "match_audio",
+    "match_audio_stft",
+    "match_many",
     "MatchResult",
     "match_parallel_pursuit",
     "match_series_pursuit",

@@ -53,6 +53,7 @@ class SynthParams(ctypes.Structure):
         ("dft_scale", ctypes.c_float),
         ("edge_norm", ctypes.c_float),
         ("npair", ctypes.c_int),
+        ("frames", ctypes.c_int),
     ]
 
 
@@ -168,21 +169,22 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
     cll = ctypes.c_longlong
-    lib.pmfm_fused_synth_fitness.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp]
+    u32 = ctypes.c_uint32
+    lib.pmfm_fused_synth_fitness.argtypes = [vp, ci, ci, SynthParams, vp, vp, vp, vp]
     lib.pmfm_fused_synth_fitness.restype = ci
     lib.pmfm_fused_generation.argtypes = [
-        ctypes.c_uint32, vp, vp, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
+        u32, vp, vp, vp, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
     ]
     lib.pmfm_fused_generation.restype = ci
-    lib.pmfm_fused_synth_fitness_f32.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp, cll, vp]
+    lib.pmfm_fused_synth_fitness_f32.argtypes = [vp, ci, ci, SynthParams, vp, vp, vp, vp, cll, vp]
     lib.pmfm_fused_synth_fitness_f32.restype = ci
     lib.pmfm_fused_generation_f32.argtypes = [
-        ctypes.c_uint32, vp, vp, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp, cll, vp,
+        u32, vp, vp, vp, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp, cll, vp,
     ]
     lib.pmfm_fused_generation_f32.restype = ci
     lib.pmfm_fused_evolve.argtypes = [
-        ctypes.POINTER(ctypes.c_uint32), ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp,
-        vp, vp, vp, vp, vp, vp, vp, cll, ci, vp,
+        ctypes.POINTER(u32), vp, ci, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp, cll, ci, vp,
     ]
     lib.pmfm_fused_evolve.restype = ci
     lib.pmfm_synth_fold.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp, ci, ci, vp]

@@ -21,22 +21,36 @@ sentinel and one-hot extraction are Mosaic workarounds: survivors here keep
 their fitness, inf and NaN included. No restarts, early stop or sharding.
 ``fm{k}_parallel``, which B2 takes, raises ``NotImplementedError`` here on
 any device (ROADMAP Queue B item 3).
+
+B5 takes B2's multi-frame mode (``num_frames``) and its run axis: parents
+``(B, mu, D)``, best-ever ``(B, D)`` and ``(B,)``, targets ``(B, F, K)`` and
+one seed list a run give each generation one B2 launch for all runs and one
+selection block a run, so run r is bit-equal to a lone B5 call with its own
+seeds.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
 import torch
 
 from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
-from .generation import _check_b2, fused_generation_plain, mutate_params_struct
+from .generation import (
+    _check_b2,
+    fused_generation_plain,
+    mutate_params_struct,
+    seeds_tensor,
+)
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
     MAX_SHARED_BYTES,
     check_supported_topology,
     f32_scratch_floats,
     inv_sample_rate,
+    launch_mode,
+    runs_of,
     synth_params_struct,
 )
 
@@ -84,7 +98,14 @@ def fused_evolve_plain(seeds, parent_values, parent_steps, best_values, best_fit
     """The plain PyTorch version of ``fused_evolve``: for each seed one
     generation of B2, a stable selection and the best-ever update.
     ``generation`` is B2's plain version; a check on the card passes the B2
-    wrapper itself to hold the kernel against G B2 launches."""
+    wrapper itself to hold the kernel against G B2 launches. With a run
+    axis it is the lone version run by run, run r with ``seeds[r]``."""
+    if runs_of(parent_values) is not None:
+        outs = [fused_evolve_plain(sd, parent_values[r], parent_steps[r], best_values[r],
+                                   best_fitness[r], target_spectrum[r], generation=generation,
+                                   **kw)
+                for r, sd in enumerate(seeds)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     mu = parent_values.shape[0]
     pv, ps = parent_values.to(torch.float32), parent_steps.to(torch.float32)
     bv, bf = best_values.to(torch.float32), best_fitness.to(torch.float32)
@@ -132,11 +153,15 @@ def fused_evolve(
 
     Returns ``(parent_values (mu, D), parent_steps (mu, D), parent_fitness
     (mu,), best_values (D,), best_fitness (), trajectory (G,))``; the
-    trajectory is best-ever per generation. ``gens_per_step`` is kept for
+    trajectory is best-ever per generation. With the run axis (parents
+    ``(B, mu, D)``, best-ever ``(B, D)`` and ``(B,)``, targets ``(B, F, K)``
+    or ``(B, K)``, ``seeds`` B lists of G seeds) every output gains the
+    leading B and the trajectory is ``(B, G)``. ``gens_per_step`` is kept for
     the reference's interface and changes nothing. On CUDA tensors this is
     one call of the B5 launcher, which enqueues every generation's kernels
-    (counted once in ``fused_evolve.launches``); on CPU tensors it runs the
-    plain version.
+    (counted once in ``fused_evolve.launches``, and by mode in
+    ``fused_evolve.launches_by[launch_mode(...)]``); on CPU tensors it runs
+    the plain version.
     """
     kw = dict(
         pop=pop, param_mins=param_mins, param_maxs=param_maxs, dft_packed=dft_packed,
@@ -145,10 +170,18 @@ def fused_evolve(
         beta=beta, beta_scale=beta_scale, root_two_over_pi=root_two_over_pi,
         clamp_values=clamp_values, min_step=min_step, sine_order=sine_order,
     )
-    seeds = [int(s) for s in seeds]
-    mu, d = parent_values.shape
+    runs = runs_of(parent_values)
+    if runs is None:
+        seeds = [int(s) for s in seeds]
+        gens = len(seeds)
+    else:
+        seeds = [[int(s) for s in run] for run in seeds]
+        gens = len(seeds[0]) if seeds else 0
+        if len(seeds) != runs or any(len(run) != gens for run in seeds):
+            raise ValueError(f"need {runs} seed lists of one length, one a run")
+    mu, d = parent_values.shape[-2:]
     check_supported_topology(topology)  # fm{k}_parallel in B5: ROADMAP Queue B item 3
-    if not seeds:
+    if not gens:
         raise ValueError("fused_evolve needs at least one generation")
     if pop < mu:
         raise ValueError(f"population {pop} smaller than mu {mu}")
@@ -163,37 +196,47 @@ def fused_evolve(
     if select_geometry(pop, mu)["smem_bytes"] > MAX_SHARED_BYTES:
         raise ValueError(f"mu={mu}: the selection's survivors exceed one block's shared memory")
     f32 = dft_scale == 0.0
-    if tuple(best_values.shape) != (d,) or best_fitness.numel() != 1:
-        raise ValueError(f"best_values must be ({d},) and best_fitness a scalar")
+    lead = parent_values.shape[:-2]
+    if tuple(best_values.shape) != (*lead, d) or best_fitness.numel() != (runs or 1):
+        raise ValueError(f"best_values must be {(*lead, d)} and best_fitness one value a run")
     from ._build import check, library
 
     f = dict(dtype=torch.float32, device=dev)
+    nruns = runs or 1
     pv = parent_values.to(torch.float32).contiguous().clone()
     ps = parent_steps.to(torch.float32).contiguous().clone()
-    pf = torch.empty((mu,), **f)
+    pf = torch.empty((*lead, mu), **f)
     bv = best_values.to(torch.float32).contiguous().clone()
-    bf = best_fitness.to(torch.float32).reshape(1).clone()
-    traj = torch.empty((len(seeds),), **f)
-    fit_s = torch.empty((pop,), **f)
-    val_s = torch.empty((pop, d), **f)
-    step_s = torch.empty((pop, d), **f)
-    scratch = torch.empty((f32_scratch_floats(pop, n) if f32 else 0,), **f)
-    seeds_h = (ctypes.c_uint32 * len(seeds))(*(s & 0xFFFFFFFF for s in seeds))
+    bf = best_fitness.to(torch.float32).reshape(nruns).clone()
+    traj = torch.empty((*lead, gens), **f)
+    fit_s = torch.empty((*lead, pop), **f)
+    val_s = torch.empty((*lead, pop, d), **f)
+    step_s = torch.empty((*lead, pop, d), **f)
+    scratch = torch.empty((f32_scratch_floats(pop, n, num_frames, nruns) if f32 else 0,), **f)
+    if runs is None:
+        seeds_h = (ctypes.c_uint32 * gens)(*(s & 0xFFFFFFFF for s in seeds))
+        seeds_d = None
+    else:  # (G, B): generation g's seeds of every run, in device memory
+        seeds_h = None
+        seeds_d = seeds_tensor([seeds[r][g] for g in range(gens) for r in range(runs)], dev)
     sp = synth_params_struct(
         topology=topology, n=n, k=k, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
-        dft_scale=dft_scale, sine_order=sine_order,
+        dft_scale=dft_scale, sine_order=sine_order, frames=num_frames,
     )
     mp = mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale,
                               root_two_over_pi, clamp_values, min_step)
     err = library().pmfm_fused_evolve(
-        seeds_h, len(seeds), pop, sp, mp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
-        pv.data_ptr(), ps.data_ptr(), pf.data_ptr(), bv.data_ptr(), bf.data_ptr(),
-        traj.data_ptr(), fit_s.data_ptr(), val_s.data_ptr(), step_s.data_ptr(),
-        scratch.data_ptr(), scratch.numel(), int(f32), torch.cuda.current_stream(dev).cuda_stream,
+        seeds_h, None if seeds_d is None else seeds_d.data_ptr(), gens, pop, nruns, sp, mp,
+        dft_packed.data_ptr(), target_spectrum.data_ptr(), pv.data_ptr(), ps.data_ptr(),
+        pf.data_ptr(), bv.data_ptr(), bf.data_ptr(), traj.data_ptr(), fit_s.data_ptr(),
+        val_s.data_ptr(), step_s.data_ptr(), scratch.data_ptr(), scratch.numel(), int(f32),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "fused_evolve")
     fused_evolve.launches += 1
-    return pv, ps, pf, bv, bf[0], traj
+    fused_evolve.launches_by[launch_mode(topology, dft_scale, num_frames, runs)] += 1
+    return pv, ps, pf, bv, (bf[0] if runs is None else bf), traj
 
 
 fused_evolve.launches = 0
+fused_evolve.launches_by = collections.Counter()

@@ -30,6 +30,12 @@ dimension, call, 0)``; calls 0..3 give 16 words per gene: the parent index
 ``(w >> 8) * 2^-24``. So on the card the kernel and its plain version make
 the same offspring bits. The plain version also takes injected draws
 (``draws=``) so tests can feed it the bits a reference run used.
+
+The run axis: a batched launch (parents ``(B, mu, D)``) gives run r its own
+key ``(seed_r, 0)`` with the counter of its own candidate index, so run r
+draws what a lone launch with ``seed_r`` draws and no run's counters alias
+another run's under a different key; two runs draw alike only if their seeds
+are equal (``es.pipeline`` seeds run r from ``_chunk_seed(seed, r)``).
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from .synth_fitness import (
     f32_scratch_floats,
     inv_sample_rate,
     launch_mode,
+    runs_of,
     synth_params_struct,
 )
 
@@ -178,15 +185,35 @@ def mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale, ro
 def _check_b2(parent_values, parent_steps, target_spectrum, dft_packed, dft_scale, topology, n,
               num_frames):
     check_supported(topology, dft_packed, dft_scale, num_frames)
-    mu, d = parent_values.shape
-    if d != topology_dims(topology) or tuple(parent_steps.shape) != (mu, d):
-        raise ValueError(f"{topology} needs parents of shape (mu, {topology_dims(topology)})")
+    runs = runs_of(parent_values)
+    mu, d = parent_values.shape[-2:]
+    if d != topology_dims(topology) or parent_steps.shape != parent_values.shape:
+        lead = "" if runs is None else "B, "
+        raise ValueError(f"{topology} needs parents of shape ({lead}mu, {topology_dims(topology)})")
     k = dft_packed.shape[0] // 2
-    check_kernel_shapes(n, k, dft_packed, target_spectrum)
+    check_kernel_shapes(n, k, dft_packed, target_spectrum, num_frames, runs)
     for t in (parent_steps, dft_packed, target_spectrum):
         if t.device != parent_values.device:
             raise ValueError(f"operands must be on {parent_values.device}, got {t.device}")
     return k
+
+
+def run_seeds(seed, runs):
+    """The per-run Philox seeds of a B2/B5 launch: ``seed`` itself for one
+    run (``runs`` None), else a sequence of ``runs`` int32 seeds (run r's)."""
+    if runs is None:
+        return int(seed)
+    seeds = [int(x) for x in seed]
+    if len(seeds) != runs:
+        raise ValueError(f"need one seed per run: {runs} runs, {len(seeds)} seeds")
+    return seeds
+
+
+def seeds_tensor(seeds, device) -> torch.Tensor:
+    """int32 seeds as their uint32 bits in an int32 tensor on ``device``: the
+    kernels' ``run_seeds`` (device memory)."""
+    words = np.asarray([s & 0xFFFFFFFF for s in seeds], np.uint32).view(np.int32)
+    return torch.from_numpy(words.copy()).to(device)
 
 
 def fused_generation_plain(
@@ -216,9 +243,25 @@ def fused_generation_plain(
     draws=None,
 ):
     """The plain PyTorch version of ``fused_generation``, on any device; it
-    alone accepts injected ``draws`` (see ``offspring_plain``)."""
+    alone accepts injected ``draws`` (see ``offspring_plain``), for one run.
+    With a run axis it is the lone version run by run, run r with seed
+    ``seed[r]``."""
     _check_b2(parent_values, parent_steps, target_spectrum, dft_packed, dft_scale, topology, n,
               num_frames)
+    runs = runs_of(parent_values)
+    if runs is not None:
+        if draws is not None:
+            raise ValueError("injected draws are an input of a lone run only")
+        kw = dict(pop=pop, param_mins=param_mins, param_maxs=param_maxs, dft_packed=dft_packed,
+                  dft_scale=dft_scale, topology=topology, n=n, wavetable_size=wavetable_size,
+                  sample_rate=sample_rate, pop_block=pop_block, num_frames=num_frames,
+                  alpha=alpha, beta=beta, beta_scale=beta_scale,
+                  root_two_over_pi=root_two_over_pi, clamp_values=clamp_values,
+                  min_step=min_step, sine_order=sine_order)
+        outs = [fused_generation_plain(sd, parent_values[r], parent_steps[r], target_spectrum[r],
+                                       **kw)
+                for r, sd in enumerate(run_seeds(seed, runs))]
+        return tuple(torch.stack(x) for x in zip(*outs))
     new_x, new_s = offspring_plain(
         parent_values.to(torch.float32), parent_steps.to(torch.float32), pop=pop, seed=seed,
         draws=draws, alpha=alpha, beta=beta, beta_scale=beta_scale,
@@ -227,7 +270,7 @@ def fused_generation_plain(
     fitness = _evaluate_plain(
         scale_rows(new_x, param_mins, param_maxs), dft_packed, target_spectrum,
         topology=topology, n=n, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
-        dft_scale=dft_scale, sine_order=sine_order, pop_block=pop_block,
+        dft_scale=dft_scale, sine_order=sine_order, pop_block=pop_block, num_frames=num_frames,
     )
     return fitness, new_x, new_s
 
@@ -261,8 +304,13 @@ def fused_generation(
     """One generation's offspring and fitness.
 
     Returns ``(fitness (P,), values (P, D), steps (P, D))``. ``seed`` is the
-    int32 from ``es.pipeline.kernel_seed``. On CUDA tensors this launches the
-    B2 kernel (counted in ``fused_generation.launches``, and by mode in
+    int32 from ``es.pipeline.kernel_seed``. ``target_spectrum`` is (K,), or
+    (F, K) with ``num_frames`` = F. With the run axis, parents ``(B, mu,
+    D)``, targets ``(B, F, K)`` (or ``(B, K)`` at one frame) and ``seed`` a
+    sequence of B seeds give ``(B, P)``, ``(B, P, D)``, ``(B, P, D)``: run r
+    is what a lone launch with ``seed[r]`` makes, bit for bit. On CUDA
+    tensors this launches the B2 kernel once for all runs (counted in
+    ``fused_generation.launches``, and by mode in
     ``fused_generation.launches_by[launch_mode(...)]``); on CPU tensors it
     runs the plain version, which alone accepts injected ``draws``.
     """
@@ -285,30 +333,37 @@ def fused_generation(
                   n, num_frames)
     from ._build import check, library
 
+    runs = runs_of(parent_values)
+    seeds = run_seeds(seed, runs)
     pv = parent_values.to(torch.float32).contiguous()
     ps = parent_steps.to(torch.float32).contiguous()
-    mu, d = pv.shape
+    mu, d = pv.shape[-2:]
+    lead = pv.shape[:-2]
     sp = synth_params_struct(
         topology=topology, n=n, k=k, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
-        dft_scale=dft_scale, sine_order=sine_order,
+        dft_scale=dft_scale, sine_order=sine_order, frames=num_frames,
     )
     mp = mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale,
                               root_two_over_pi, clamp_values, min_step)
-    fitness = torch.empty((pop,), dtype=torch.float32, device=dev)
-    values = torch.empty((pop, d), dtype=torch.float32, device=dev)
-    steps = torch.empty((pop, d), dtype=torch.float32, device=dev)
-    args = (seed & 0xFFFFFFFF, pv.data_ptr(), ps.data_ptr(), pop, sp, mp, dft_packed.data_ptr(),
+    fitness = torch.empty((*lead, pop), dtype=torch.float32, device=dev)
+    values = torch.empty((*lead, pop, d), dtype=torch.float32, device=dev)
+    steps = torch.empty((*lead, pop, d), dtype=torch.float32, device=dev)
+    rs = None if runs is None else seeds_tensor(seeds, dev)
+    nruns = runs or 1
+    args = (0 if runs else seeds & 0xFFFFFFFF, None if rs is None else rs.data_ptr(),
+            pv.data_ptr(), ps.data_ptr(), pop, nruns, sp, mp, dft_packed.data_ptr(),
             target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     if dft_scale == 0.0:
-        scratch = torch.empty((f32_scratch_floats(pop, n),), dtype=torch.float32, device=dev)
+        scratch = torch.empty((f32_scratch_floats(pop, n, num_frames, nruns),),
+                              dtype=torch.float32, device=dev)
         err = library().pmfm_fused_generation_f32(*args, scratch.data_ptr(), scratch.numel(),
                                                   stream)
     else:
         err = library().pmfm_fused_generation(*args, stream)
     check(err, "fused_generation")
     fused_generation.launches += 1
-    fused_generation.launches_by[launch_mode(topology, dft_scale)] += 1
+    fused_generation.launches_by[launch_mode(topology, dft_scale, num_frames, runs)] += 1
     return fitness, values, steps
 
 

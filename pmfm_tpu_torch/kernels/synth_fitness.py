@@ -51,9 +51,22 @@ over pairs (in pair order) is rounded to int8 and ``s`` takes the place of
 ``|amp|`` in the magnitude rescale; in the true-f32 mode each pair emits
 ``sin * amp_j`` and the sum is divided by the float32 k.
 
+Multi-frame fitness (``num_frames`` = F > 1, the reference's STFT fitness):
+a candidate synthesises F n continuous samples (the phase carries live on
+from one frame to the next, as from one time block to the next), each frame
+is folded and transformed against its own target row, and the frames' L2
+totals are added in float32 in frame order. The target is then ``(F, K)``,
+frame f at row f (the reference's kernel keeps it transposed, a TPU layout).
+
+The run axis (the port's counterpart of the reference's ``vmap`` over the
+``pallas_call`` in ``match_many``): parameters ``(B, P, D)`` and targets
+``(B, F, K)`` (or ``(B, K)`` at one frame) evaluate B independent runs in one
+launch, ``(B, P)`` out; run r's fitness is bit-equal to a lone launch on run
+r's candidates and target.
+
 Ported: ``fm2``, ``fm{k}_series`` (k <= 8) and ``fm{k}_parallel`` (k <= 4,
-``MAX_PARALLEL_PAIRS``) at one frame in both modes; the bf16 mode,
-``fm{k}_parallel`` with k >= 5 and multi-frame fitness raise
+``MAX_PARALLEL_PAIRS``) in both modes, at any frame count and with the run
+axis; the bf16 mode and ``fm{k}_parallel`` with k >= 5 raise
 ``NotImplementedError``. B3, B4 and B5 do not take ``fm{k}_parallel`` yet
 (``check_supported_topology``).
 """
@@ -155,7 +168,7 @@ def check_supported(topology: str, dft_packed: torch.Tensor, dft_scale: float,
                     num_frames: int) -> None:
     """Raise for a B1/B2 variant the kernels do not take: ``NotImplementedError``
     for one not ported yet, ``ValueError`` for an int8 scale without the
-    int8 operand."""
+    int8 operand or a frame count below 1."""
     if dft_scale > 0.0:
         if dft_packed.dtype != torch.int8:
             raise ValueError("the int8 engine (dft_scale > 0) needs the int8 dft_packed")
@@ -165,10 +178,8 @@ def check_supported(topology: str, dft_packed: torch.Tensor, dft_scale: float,
             "item 7): the int8 (dft_scale > 0) and true-f32 (float32 operand, dft_scale 0) "
             "engines are"
         )
-    if num_frames != 1:
-        raise NotImplementedError(
-            f"multi-frame STFT fitness (num_frames={num_frames}) is not ported yet"
-        )
+    if num_frames < 1:
+        raise ValueError(f"num_frames must be >= 1, got {num_frames}")
     check_supported_topology(topology, parallel=True)
 
 
@@ -252,9 +263,11 @@ def synth_blocks_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float,
     by k in the float mode: its q before rounding, or its audio.
 
     This is the plain version of ``csrc/synth_common.cuh::synth_run`` (its
-    ``synth_span`` over the whole frame) and of ``synth_bank_run``, the
+    ``synth_span`` over the whole frame) and of ``synth_bank_span``, the
     recurrences every kernel of the port runs; the phase carries are the
-    offsets of ``_chain_rows``'s chain, one per oscillator."""
+    offsets of ``_chain_rows``'s chain, one per oscillator. ``n`` = F times
+    the frame gives F frames of one continuous synthesis, as
+    ``CandidateSynth`` runs them frame after frame."""
     rows = p.T.to(torch.float32)
     if parallel_pairs(topology):
         yield from _bank_blocks_plain(rows, topology=topology, n=n, inv_sr=inv_sr,
@@ -395,22 +408,30 @@ def dft_fitness_plain(a_plus, a_minus, edge_q, amp, dft_packed, dft_scale, targe
 
 
 def _evaluate_plain(params_scaled, dft_packed, target, *, topology, n, inv_sr, dft_scale,
-                    sine_order, pop_block):
+                    sine_order, pop_block, num_frames=1):
     """Plain PyTorch version of the B1 kernel: fitness (P,) of scaled params
-    (P, D), one block of ``resolve_pop_block`` candidates at a time, in the
-    int8 (``dft_scale > 0``) or the true-f32 mode."""
+    (P, D) against ``target`` (K,) or (F, K), one block of
+    ``resolve_pop_block`` candidates at a time, in the int8 (``dft_scale >
+    0``) or the true-f32 mode. Each block synthesises ``num_frames`` n
+    continuous samples; frame f is folded and scored against target row f,
+    and the frames' totals are added in frame order."""
     pop = params_scaled.shape[0]
     pb = resolve_pop_block(pop, pop_block)
+    rows = target.reshape(num_frames, -1)
     out = torch.empty((pop,), dtype=torch.float32, device=params_scaled.device)
-    kw = dict(topology=topology, n=n, inv_sr=inv_sr, sine_order=sine_order)
+    kw = dict(topology=topology, n=num_frames * n, inv_sr=inv_sr, sine_order=sine_order)
     for i in range(0, pop, pb):
         p = params_scaled[i : i + pb]
         if dft_scale > 0.0:
             q, amp = synth_int8_plain(p, **kw)
         else:
             q, amp = synth_f32_plain(p, **kw), None
-        ap, am, edge = fold(q)
-        out[i : i + pb] = dft_fitness_plain(ap, am, edge, amp, dft_packed, dft_scale, target)
+        fit = None
+        for f in range(num_frames):
+            ap, am, edge = fold(q[f * n : (f + 1) * n])
+            frame = dft_fitness_plain(ap, am, edge, amp, dft_packed, dft_scale, rows[f])
+            fit = frame if fit is None else fit + frame
+        out[i : i + pb] = fit
     return out
 
 
@@ -420,7 +441,7 @@ def chain_length(topology: str) -> int:
     return 2 if topology == "fm2" or parallel_pairs(topology) else series_ops(topology)
 
 
-def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
+def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order, frames=1):
     """The kernels' ``SynthParams`` argument."""
     from ._build import SynthParams
 
@@ -436,6 +457,7 @@ def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order):
     sp.dft_scale = dft_scale
     sp.edge_norm = edge_norm(n, dft_scale > 0.0)
     sp.npair = parallel_pairs(topology) or 0  # csrc: a bank of npair fm2 chains
+    sp.frames = frames
     return sp
 
 
@@ -454,25 +476,29 @@ def f32_dft_segments(n: int) -> int:
     return 1 if half <= F32_DFT_SPLIT_ABOVE else -(-half // F32_DFT_SEG)
 
 
-def f32_scratch_floats(pop: int, n: int) -> int:
-    """Floats of scratch the true-f32 B1/B2 take (csrc ``f32_scratch_floats``):
-    a+ and a- (padded pop x N/2 each), the edge samples, the ``F32_GROUPS``
-    double group sums of each padded candidate and, where the DFT splits the
-    samples, ``F32_DFT_LEVELS`` running tiles of ``F32_DFT_RUN`` floats for
-    each thread of each DFT block (``F32_GROUPS`` x ``F32_DFT_LEVELS`` x
-    ``F32_DFT_RUN`` a padded candidate)."""
+def f32_scratch_floats(pop: int, n: int, frames: int = 1, runs: int = 1) -> int:
+    """Floats of scratch the true-f32 B1/B2 take (csrc ``f32_scratch_floats``)
+    for ``runs`` runs of ``pop`` candidates at ``frames`` frames of n: for
+    each of the runs x frames row blocks, a+ and a- (padded pop x N/2 each),
+    the edge samples, the ``F32_GROUPS`` double group sums of each padded
+    candidate and, where the DFT splits the samples, ``F32_DFT_LEVELS``
+    running tiles of ``F32_DFT_RUN`` floats for each thread of each DFT block
+    (``F32_GROUPS`` x ``F32_DFT_LEVELS`` x ``F32_DFT_RUN`` a padded
+    candidate)."""
     run = F32_GROUPS * F32_DFT_LEVELS * F32_DFT_RUN if f32_dft_segments(n) > 1 else 0
-    return f32_pop_pad(pop) * (n + 1 + 2 * F32_GROUPS + run)
+    return runs * frames * f32_pop_pad(pop) * (n + 1 + 2 * F32_GROUPS + run)
 
 
-def f32_geometry(pop: int, n: int, k: int) -> dict:
-    """The true-f32 B1/B2 launches for ``pop`` candidates, frames of ``n`` and
-    ``k`` bins (csrc ``launch_f32``): blocks and threads of the synthesis,
-    the DFT (a block per ``F32_DFT_BM`` candidates and bin group) and the
-    group sum; ``passes`` is the most passes of ``F32_DFT_PASS_TILES`` tiles a
-    DFT block makes (group 0 has the most tiles), ``segments`` the sample
-    segments of each bin's sums (``f32_dft_segments``) and ``scratch_bytes``
-    the scratch allocated."""
+def f32_geometry(pop: int, n: int, k: int, frames: int = 1, runs: int = 1) -> dict:
+    """The true-f32 B1/B2 launches for ``runs`` runs of ``pop`` candidates at
+    ``frames`` frames of ``n`` samples and ``k`` bins (csrc ``launch_f32``):
+    blocks and threads of the synthesis, the DFT (a block per
+    ``F32_DFT_BM`` candidates and bin group) and the group sum, each grid's
+    first dimension; the second is ``runs`` for the synthesis and the sum,
+    ``row_blocks`` (runs x frames) for the DFT. ``passes`` is the most passes
+    of ``F32_DFT_PASS_TILES`` tiles a DFT block makes (group 0 has the most
+    tiles), ``segments`` the sample segments of each bin's sums
+    (``f32_dft_segments``) and ``scratch_bytes`` the scratch allocated."""
     pad = f32_pop_pad(pop)
     tiles0 = -(-(k // 8) // F32_GROUPS)
     return dict(
@@ -480,9 +506,11 @@ def f32_geometry(pop: int, n: int, k: int) -> dict:
         synth=(pad // F32_SYNTH_THREADS, F32_SYNTH_THREADS),
         dft=(pad // F32_DFT_BM * F32_GROUPS, F32_DFT_THREADS),
         sum=(-(-pop // F32_SUM_THREADS), F32_SUM_THREADS),
+        runs=runs,
+        row_blocks=runs * frames,
         passes=-(-tiles0 // F32_DFT_PASS_TILES),
         segments=f32_dft_segments(n),
-        scratch_bytes=4 * f32_scratch_floats(pop, n),
+        scratch_bytes=4 * f32_scratch_floats(pop, n, frames, runs),
     )
 
 
@@ -507,9 +535,11 @@ def fits_shared_memory(n: int, f32: bool = False) -> bool:
     return n <= MAX_FUSED_N and shared_bytes(n, f32) <= MAX_SHARED_BYTES
 
 
-def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.Tensor) -> None:
+def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.Tensor,
+                        frames: int = 1, runs: int | None = None) -> None:
     """Raise on operands the CUDA kernels do not take: the folded operand
-    (2K, N/2), int8 or float32, and a float32 target (K,)."""
+    (2K, N/2), int8 or float32, and a contiguous float32 target: (K,) or
+    (F, K) for one run, (B, F, K) (or (B, K) at one frame) for ``runs`` = B."""
     if n % (2 * TIME_BLOCK):
         raise ValueError(f"n={n} must be a multiple of {2 * TIME_BLOCK} (the fold pairs blocks)")
     f32 = dft_packed.dtype == torch.float32
@@ -527,29 +557,47 @@ def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.
         )
     if not dft_packed.is_contiguous() or dft_packed.data_ptr() % 16:
         raise ValueError("dft_packed must be contiguous and 16-byte aligned")
-    if target.dtype != torch.float32 or tuple(target.shape) != (k,) or not target.is_contiguous():
-        raise ValueError(f"target must be a contiguous float32 ({k},) tensor")
+    lead = () if runs is None else (runs,)
+    shape = tuple(target.shape)
+    if (target.dtype != torch.float32 or not target.is_contiguous()
+            or (shape != lead + (frames, k) and (frames > 1 or shape != lead + (k,)))):
+        want = " or ".join(map(str, [lead + (frames, k)] + ([lead + (k,)] if frames == 1 else [])))
+        raise ValueError(f"target must be a contiguous float32 tensor of shape {want}, got {shape}")
+
+
+def runs_of(operand: torch.Tensor):
+    """The run axis of a B1/B2/B5 operand: None for a (P, D) or (mu, D)
+    operand (one run), else B of a (B, P, D) or (B, mu, D) one."""
+    if operand.dim() == 2:
+        return None
+    if operand.dim() != 3 or operand.shape[0] < 1:
+        raise ValueError(f"need a (P, D) operand or a (B, P, D) one of B runs, got "
+                         f"{tuple(operand.shape)}")
+    return operand.shape[0]
 
 
 def _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n, num_frames):
     check_supported(topology, dft_packed, dft_scale, num_frames)
-    d = params_scaled.shape[1]
+    runs = runs_of(params_scaled)
+    d = params_scaled.shape[-1]
     if d != topology_dims(topology):
         raise ValueError(f"{topology} needs {topology_dims(topology)} params, got {d}")
     k = dft_packed.shape[0] // 2
-    check_kernel_shapes(n, k, dft_packed, target_spectrum)
+    check_kernel_shapes(n, k, dft_packed, target_spectrum, num_frames, runs)
     for t in (dft_packed, target_spectrum):
         if t.device != params_scaled.device:
             raise ValueError(f"operands must be on {params_scaled.device}, got {t.device}")
     return k
 
 
-def launch_mode(topology: str, dft_scale: float) -> str:
+def launch_mode(topology: str, dft_scale: float, frames: int = 1, runs=None) -> str:
     """The key a B1/B2 launch is counted under in the wrappers'
     ``launches_by``: ``int8`` or ``f32``, after ``parallel_`` for an
-    ``fm{k}_parallel`` bank."""
+    ``fm{k}_parallel`` bank, then ``_frames`` for a multi-frame launch and
+    ``_runs`` for a launch with the run axis."""
     mode = "int8" if dft_scale > 0.0 else "f32"
-    return f"parallel_{mode}" if parallel_pairs(topology) else mode
+    mode = f"parallel_{mode}" if parallel_pairs(topology) else mode
+    return mode + ("_frames" if frames > 1 else "") + ("" if runs is None else "_runs")
 
 
 def fused_synth_fitness_plain(
@@ -566,13 +614,17 @@ def fused_synth_fitness_plain(
     num_frames: int = 1,
     sine_order: int = 9,
 ) -> torch.Tensor:
-    """The plain PyTorch version of ``fused_synth_fitness``, on any device."""
+    """The plain PyTorch version of ``fused_synth_fitness``, on any device:
+    with a run axis, the lone version run by run."""
     _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n, num_frames)
-    return _evaluate_plain(
-        params_scaled.to(torch.float32), dft_packed, target_spectrum, topology=topology, n=n,
-        inv_sr=inv_sample_rate(wavetable_size, sample_rate), dft_scale=dft_scale,
-        sine_order=sine_order, pop_block=pop_block,
-    )
+    kw = dict(topology=topology, n=n, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
+              dft_scale=dft_scale, sine_order=sine_order, pop_block=pop_block,
+              num_frames=num_frames)
+    params = params_scaled.to(torch.float32)
+    if params.dim() == 2:
+        return _evaluate_plain(params, dft_packed, target_spectrum, **kw)
+    return torch.stack([_evaluate_plain(params[r], dft_packed, target_spectrum[r], **kw)
+                        for r in range(params.shape[0])])
 
 
 def fused_synth_fitness(
@@ -589,13 +641,16 @@ def fused_synth_fitness(
     num_frames: int = 1,
     sine_order: int = 9,
 ) -> torch.Tensor:
-    """Fitness ``(P,)`` float32 of scaled candidates ``(P, D)``.
+    """Fitness ``(P,)`` float32 of scaled candidates ``(P, D)``, or ``(B, P)``
+    of B runs' candidates ``(B, P, D)`` (the run axis).
 
     ``dft_packed`` is ``SpectrumOps.dft_packed`` ((2K, N/2), int8 or float32)
     and ``dft_scale`` its ``dft_packed_scale``: an int8 operand with
     ``dft_scale > 0`` runs the int8 mode, a float32 one with ``dft_scale``
-    0 the true-f32 mode. On CUDA tensors this launches the
-    B1 kernel (counted in ``fused_synth_fitness.launches``, and by mode in
+    0 the true-f32 mode. ``target_spectrum`` is (K,), or (F, K) with
+    ``num_frames`` = F (multi-frame fitness); with the run axis (B, F, K),
+    or (B, K) at one frame. On CUDA tensors this launches the B1 kernel once
+    for all runs (counted in ``fused_synth_fitness.launches``, and by mode in
     ``fused_synth_fitness.launches_by[launch_mode(...)]``); on CPU tensors it
     runs the plain version. ``pop_block`` sizes the plain version's blocks.
     """
@@ -611,28 +666,31 @@ def fused_synth_fitness(
     k = _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n, num_frames)
     from ._build import check, library
 
+    runs = runs_of(params_scaled)
     params = params_scaled.to(torch.float32).contiguous()
-    pop, d = params.shape
-    fitness = torch.empty((pop,), dtype=torch.float32, device=dev)
+    pop, d = params.shape[-2:]
+    fitness = torch.empty(params.shape[:-1], dtype=torch.float32, device=dev)
     sp = synth_params_struct(
         topology=topology, n=n, k=k, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
-        dft_scale=dft_scale, sine_order=sine_order,
+        dft_scale=dft_scale, sine_order=sine_order, frames=num_frames,
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
+    nruns = runs or 1
     if dft_scale == 0.0:
-        scratch = torch.empty((f32_scratch_floats(pop, n),), dtype=torch.float32, device=dev)
+        scratch = torch.empty((f32_scratch_floats(pop, n, num_frames, nruns),),
+                              dtype=torch.float32, device=dev)
         err = library().pmfm_fused_synth_fitness_f32(
-            params.data_ptr(), pop, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
+            params.data_ptr(), pop, nruns, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
             fitness.data_ptr(), scratch.data_ptr(), scratch.numel(), stream,
         )
     else:
         err = library().pmfm_fused_synth_fitness(
-            params.data_ptr(), pop, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
+            params.data_ptr(), pop, nruns, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
             fitness.data_ptr(), stream,
         )
     check(err, "fused_synth_fitness")
     fused_synth_fitness.launches += 1
-    fused_synth_fitness.launches_by[launch_mode(topology, dft_scale)] += 1
+    fused_synth_fitness.launches_by[launch_mode(topology, dft_scale, num_frames, runs)] += 1
     return fitness
 
 

@@ -529,3 +529,36 @@ def spectral_fitness(spectra: torch.Tensor, target: torch.Tensor) -> torch.Tenso
 def evaluate_fitness(audio_tm: torch.Tensor, target: torch.Tensor, ops: SpectrumOps) -> torch.Tensor:
     """window -> spectrum -> L2 error: ``(N, pop), (bins,) -> (pop,)``."""
     return spectral_fitness(magnitude_spectrum(audio_tm, ops), target)
+
+
+# Multi-frame STFT fitness (the reference's BASELINE.json config 2): a
+# candidate synthesises F N continuous samples and is scored against the
+# target's framewise magnitude spectra with one parameter set, where
+# match_audio starts a fresh population for each chunk.
+
+
+def magnitude_spectrum_frames(audio_tm: torch.Tensor, ops: SpectrumOps) -> torch.Tensor:
+    """Framewise spectra of ``(F N, pop)`` audio -> ``(F, pop, num_bins)``:
+    frame f (samples [f N, (f + 1) N)) through ``magnitude_spectrum`` in the
+    spectrum method's own way (the matmul DFT and rfft take every frame in
+    one call, the factored DFT frame by frame)."""
+    total, pop = audio_tm.shape
+    frames = total // ops.n
+    a = audio_tm[: frames * ops.n].reshape(frames, ops.n, pop)
+    if ops.method == "dft_factored":
+        return torch.stack([magnitude_spectrum_factored(a[f], ops) for f in range(frames)])
+    # (N, F pop): column f pop + p is frame f of candidate p
+    cols = a.permute(1, 0, 2).reshape(ops.n, frames * pop)
+    return magnitude_spectrum(cols, ops).reshape(frames, pop, -1)
+
+
+def target_spectrum_frames(target_audio: torch.Tensor, ops: SpectrumOps) -> torch.Tensor:
+    """``(F N,)`` target -> ``(F, num_bins)`` framewise spectra."""
+    return magnitude_spectrum_frames(target_audio[:, None], ops)[:, 0, :]
+
+
+def stft_fitness(audio_tm: torch.Tensor, target_frames: torch.Tensor, ops: SpectrumOps) -> torch.Tensor:
+    """Summed framewise L2 spectral error: ``(F N, pop), (F, bins) -> (pop,)``."""
+    spectra = magnitude_spectrum_frames(audio_tm, ops)  # (F, pop, bins)
+    d = spectra - target_frames[:, None, :]
+    return torch.sum(d * d, dim=(0, 2))

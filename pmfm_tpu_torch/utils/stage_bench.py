@@ -93,7 +93,9 @@ def record_stage_rows(bm, cfg, *, device: str | torch.device = "cuda", reps: int
     audio = torch.randn((cfg.n_samples, pop), generator=gen, device=dev)
     fitness = torch.rand((pop,), generator=gen, device=dev)
     spectra = torch.rand((pop, so.num_bins), generator=gen, device=dev)
-    tspec = torch.ones((so.num_bins,), dtype=torch.float32, device=dev)
+    # the fused row's target: (F, K) at several frames, as the engines take it
+    tspec = torch.ones((*((cfg.num_frames,) if cfg.num_frames > 1 else ()), so.num_bins),
+                       dtype=torch.float32, device=dev)
 
     stages = [
         ("recombinePopulation",
@@ -105,7 +107,8 @@ def record_stage_rows(bm, cfg, *, device: str | torch.device = "cuda", reps: int
                               engine=cfg.synthesis_engine), scaled),
         ("applyWindowPopulation", lambda a: a * so.window[:, None], audio),
         ("openCLFFT", lambda a: magnitude_spectrum(a, so), audio),
-        ("fitnessPopulation", lambda s: spectral_fitness(s, tspec), spectra),
+        ("fitnessPopulation",
+         lambda s: spectral_fitness(s, tspec[0] if cfg.num_frames > 1 else tspec), spectra),
         ("sortPopulation", lambda f: select(values, steps, f, mu)[2], fitness),
     ]
     # the fused engines run stages 4-7 as one kernel: report that too (an

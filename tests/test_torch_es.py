@@ -171,7 +171,7 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
 def test_unported_engines_raise():
     """Without the fused flags the unfused engine runs (the reference's
     xla_folded_dft for this int8 config, xla_dft in float32) and recombine's compat_shuffle mode gathers the parents;
-    multi-frame fitness (xla_stft) still raises and names ROADMAP item A6."""
+    multi-frame fitness, once raising (ROADMAP item A6), runs as xla_stft."""
     cfg = ESConfig(**{**SLICE, "fused_kernel": False, "fused_generation": False})
     so = make_spectrum_ops(cfg, device="cpu")
     assert active_engine(cfg, so) == "xla_folded_dft"
@@ -184,5 +184,7 @@ def test_unported_engines_raise():
     v, s = tstrategy.recombine(torch.Generator(), pv, pv + 100, cs)
     assert v.shape == (8, 4) and torch.equal(s, v + 100)
     assert sorted(v[:4].reshape(-1).tolist()) == list(range(16))
-    with pytest.raises(NotImplementedError, match="A6"):
-        active_engine(cfg.replace(num_frames=2), so)
+    stft = cfg.replace(num_frames=2)
+    assert active_engine(stft, so) == "xla_stft"
+    fit = tstrategy.evaluate(torch.rand((5, 4)), torch.ones((2, so.num_bins)), so, stft)
+    assert fit.shape == (5,) and torch.isfinite(fit).all()

@@ -527,3 +527,90 @@ def test_cli_runs_on_the_card(cuda, tmp_path, monkeypatch, capsys):
     assert "engine: xla_dft on cuda" in capsys.readouterr().out
     assert (tmp_path / "output_audio" / "output.wav").exists()
     assert (tmp_path / "gpulog(pop=32gens=20audioBlockSize=2048).csv").exists()
+
+
+# ---- multi-frame fitness and the run axis (A6) ---------------------------------------
+
+F32_MAX_REL, F32_MEDIAN_REL = 1e-5, 1e-6  # chip_smoke.py's B1/B2 f32 limits
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+@pytest.mark.parametrize("frames", [2, 8])
+@pytest.mark.parametrize("topology,n", [("fm3_series", 2048), ("fm2", 1024),
+                                        ("fm3_parallel", 1024)])
+def test_b1_b2_frames_kernel_matches_plain(cuda, topology, n, frames, dtype):
+    """B1 and B2 at F frames against their plain versions (int8 1e-3 / 1e-5,
+    f32 1e-5 / 1e-6), B2's values bit-equal, at a ragged population."""
+    d, pop = topology_dims(topology), 129
+    so = make_spectrum_ops(ESConfig(num_dimensions=d, topology=topology, param_mins=(0.0,) * d,
+                                    param_maxs=(1.0,) * d, audio_length_log2=int(np.log2(n)),
+                                    dft_dtype=dtype), device=cuda)
+    rng = np.random.default_rng(frames + n)
+    maxs = ((3520.0, 8.0, 3520.0, 1.0) * (d // 4) if "parallel" in topology
+            else (3520.0, 8.0) * (d // 2))
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    p = t(rng.random((pop, d)) * np.asarray(maxs))
+    pv, ps = t(rng.random((16, d))), t(rng.uniform(0.02, 0.3, (16, d)))
+    tgt = t(rng.uniform(0, 50, (frames, so.num_bins)))
+    kw = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology, n=n,
+              pop_block=pop, sine_order=9, num_frames=frames)
+    kw2 = dict(kw, pop=pop, param_mins=(0.0,) * d, param_maxs=maxs)
+    max_rel, median_rel = (FIT_MAX_REL, FIT_MEDIAN_REL) if dtype == "int8" else (F32_MAX_REL,
+                                                                                  F32_MEDIAN_REL)
+    for got, ref in ((sf.fused_synth_fitness(p, tgt, **kw),
+                      sf.fused_synth_fitness_plain(p, tgt, **kw)),
+                     (gn.fused_generation(7, pv, ps, tgt, **kw2),
+                      gn.fused_generation_plain(7, pv, ps, tgt, **kw2))):
+        if isinstance(got, tuple):
+            assert torch.equal(got[1], ref[1])
+            got, ref = got[0], ref[0]
+        rel = (got - ref).abs() / ref.abs()
+        assert float(rel.max()) <= max_rel and float(rel.median()) <= median_rel
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+@pytest.mark.parametrize("runs,frames", [(1, 1), (1, 2), (3, 1), (4, 2)])
+def test_run_axis_kernels_bit_equal_to_lone_launches(cuda, dtype, runs, frames):
+    """One launch of B1, B2 and B5 for B runs is bit-equal, run for run, to
+    B lone launches with each run's operands and seeds."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    d, pop, mu = 6, RAGGED_POP, 64
+    so = make_spectrum_ops(ESConfig(audio_length_log2=10, dft_dtype=dtype), device=cuda)
+    rng = np.random.default_rng(runs)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    p = t(rng.random((runs, pop, d)) * 3520.0)
+    pv, ps = t(rng.random((runs, mu, d))), t(rng.uniform(0.02, 0.3, (runs, mu, d)))
+    tgt = t(rng.uniform(0, 50, (runs, frames, so.num_bins)))
+    kw = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, n=1024, pop_block=pop,
+              num_frames=frames)
+    kw2 = dict(kw, pop=pop, param_mins=(0.0,) * d, param_maxs=(3520.0, 8.0) * 3)
+    seeds = [kernel_seed(5, r) for r in range(runs)]
+    fb = sf.fused_synth_fitness(p, tgt, **kw)
+    gb = gn.fused_generation(seeds, pv, ps, tgt, **kw2)
+    s5 = [[kernel_seed(9, r * 3 + g) for g in range(3)] for r in range(runs)]
+    bv, bf = pv[:, 0].clone(), torch.full((runs,), float("inf"), device=cuda)
+    eb = ev.fused_evolve(s5, pv, ps, bv, bf, tgt, **kw2)
+    for r in range(runs):
+        assert torch.equal(fb[r], sf.fused_synth_fitness(p[r], tgt[r], **kw))
+        lone = gn.fused_generation(seeds[r], pv[r], ps[r], tgt[r], **kw2)
+        assert all(torch.equal(a[r], b) for a, b in zip(gb, lone))
+        lone5 = ev.fused_evolve(s5[r], pv[r], ps[r], bv[r], bf[r], tgt[r], **kw2)
+        assert all(torch.equal(a[r].nan_to_num(), b.nan_to_num()) for a, b in zip(eb, lone5))
+
+
+def test_match_many_is_one_b2_launch_a_generation(cuda):
+    """``match_many`` over four targets at two frames: one B2 launch a
+    generation for all runs (int8, then the f32 tail), one B1 rescore."""
+    from pmfm_tpu_torch.es import match_many
+
+    cfg = ESConfig(num_parents=16, num_offspring=1008, audio_length_log2=10, dft_dtype="int8",
+                   fused_kernel=True, fused_generation=True, refine_generations=3)
+    targets = np.stack([synthesize_single(torch.tensor(TRUTH[:6]) * s, 2048,
+                                          "fm3_series").numpy() for s in (1.0, 0.9, 0.8, 0.7)])
+    gn.fused_generation.launches_by.clear()
+    sf.fused_synth_fitness.launches_by.clear()
+    res = match_many(targets, cfg, seed=1, num_generations=10, device=cuda)
+    assert len(res) == 4 and all(np.isfinite(r.chunks[0].best_fitness) for r in res)
+    assert dict(gn.fused_generation.launches_by) == {"int8_frames_runs": 7, "f32_frames_runs": 3}
+    assert dict(sf.fused_synth_fitness.launches_by) == {"f32_frames_runs": 1}

@@ -184,15 +184,25 @@ def test_fold_definition():
 @pytest.mark.parametrize("case", [
     dict(dft_scale=0.0),  # the bf16 engine: scale 0 without the float32 operand
     dict(topology="fm5_parallel"),
-    dict(num_frames=2),
+    dict(num_frames=2),  # multi-frame fitness: ported (ROADMAP Queue B item 8), so it runs
     dict(topology="fm9_series"),
 ])
 def test_unported_variants_raise(case):
+    """The variants B1/B2 do not take raise; the multi-frame mode, once among
+    them, runs: fitness (P,) against an (F, K) target, and B2's offspring."""
     _, to = _operands()
     topology = case.get("topology", "fm3_series")
     d = tsyn.topology_dims(topology)
     kw = dict(dft_packed=to.dft_packed, dft_scale=to.dft_packed_scale, topology=topology, n=N)
     kw.update(case)
+    if case.get("num_frames", 1) > 1:
+        tgt = torch.ones((case["num_frames"], to.num_bins))
+        fit = tsf.fused_synth_fitness(torch.full((8, d), 100.0), tgt, **kw)
+        gen = tgen.fused_generation(0, torch.rand((4, d)), torch.full((4, d), 0.1), tgt, pop=8,
+                                    param_mins=(0.0,) * d, param_maxs=(1000.0,) * d, **kw)
+        assert fit.shape == (8,) and torch.isfinite(fit).all()
+        assert gen[1].shape == (8, d) and torch.isfinite(gen[0]).all()
+        return
     match = "item 3" if "parallel" in topology else None
     with pytest.raises(NotImplementedError, match=match):
         tsf.fused_synth_fitness(torch.zeros((8, d)), torch.zeros(to.num_bins), **kw)
