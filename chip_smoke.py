@@ -50,7 +50,7 @@ through the entry points a user calls, and times each kernel:
   fm2/fm3/fm4_parallel, and their times beside fm3_series's; the block
   stages' f32 engine's peak memory; ``cli.main`` on the five pursuit
   examples (fm3_parallel_match.json as written, the others with each
-  stage's generations cut to a tenth and one attempt).
+  stage's generations cut to a twentieth and one attempt).
 
 * phases 22-25, multi-frame fitness and the run axis (A6): B1/B2 in the
   multi-frame mode against their plain versions at ``--mode stft``'s shape
@@ -62,7 +62,18 @@ through the entry points a user calls, and times each kernel:
   synthesised WAVs, and ``match_audio_stft``/``match_many`` under
   fused_kernel and fused_evolve; each new mode's kernel time beside its
   plain version's and its bound, and the reference suites' shapes
-  (suite_stft_frames, suite_multi_target).
+  (suite_stft_frames, suite_multi_target);
+* phases 26-29, the bf16 mode of B1/B2/B5 (the reference's default fused
+  engine) and the reference's benchmark suite: B1/B2 bf16 against their
+  plain versions at the bench shape (the truth first), over phase 4b's
+  grid with fm3_parallel, at 8 frames of ``examples/audio_match.json``'s
+  shape and with a run axis of 4 (bit-equal to lone launches); B5 bf16
+  bit-equal to its B2 launches with the stable selection, and ``evolve``
+  with fused_evolve in bf16; the operand disk cache at n 16384 (build and
+  load seconds, int8 and bf16) and ``python -m pmfm_tpu_torch.bench_suite``
+  (``bench_suite.main``) over the reference's suites with ``--fused``, each
+  row printed beside the card; the three bf16 kernels' times beside their
+  plain versions, their bound and a bf16 GEMM yardstick for the DFT half.
 
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
 phases and the named ones, and prints no result line.
@@ -168,7 +179,8 @@ KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused
            "fused_synth_fitness_frames", "fused_generation_frames",
            "fused_synth_fitness_frames_f32", "fused_generation_frames_f32", "fused_evolve_frames",
            "fused_synth_fitness_runs", "fused_generation_runs", "fused_synth_fitness_runs_f32",
-           "fused_generation_runs_f32", "fused_evolve_runs")
+           "fused_generation_runs_f32", "fused_evolve_runs",
+           "fused_synth_fitness_bf16", "fused_generation_bf16", "fused_evolve_bf16")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -244,7 +256,7 @@ PURSUIT_DIR = "build/chip_smoke_pursuit"
 PURSUIT_AS_WRITTEN = "examples/fm3_parallel_match.json"
 PURSUIT_CUT = ("examples/fm4_parallel_match.json", "examples/fm4_series_match.json",
                "examples/fm5_series_match.json", "examples/huge_frame_match.json")
-PURSUIT_GENERATION_CUT = 10
+PURSUIT_GENERATION_CUT = 20
 PURSUIT_MAX_REL = 0.10
 
 # phases 22-25: multi-frame fitness and the run axis (A6). Phase 22 holds
@@ -291,8 +303,27 @@ SUITE_FRAMES = (1, 2, 4, 8)
 SUITE_RUNS = ((1, 1 << 13, 64), (4, 1 << 13, 64), (32, 1 << 11, 16))
 SUITE_GENERATIONS = 50
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 FLOP/s
-PEAK_BYTES, PEAK_INT8, PEAK_F32 = 3.35e12, 1979e12, 67e12
+# phases 26-29: the bf16 mode of B1/B2/B5 and the reference's benchmark
+# suite. Phase 26 holds B1/B2 bf16 against their plain versions (the int8
+# gate FIT_MAX_REL / FIT_MEDIAN_REL) at the bench shape, over phase 4b's
+# grid with BF16_TOPOLOGIES, at BF16_FRAMES frames of AUDIO_CONFIG's shape
+# (n 2048, P 4096) and with a run axis of BF16_RUNS there; phase 27 B5 bf16
+# bit-equal to its B2 launches with the stable selection (the bench config,
+# and RAGGED_POP) and evolve with fused_evolve in bf16; phase 28 the operand
+# cache at 2^CACHE_LOG2N (build, then load) in SUITE_DIR and
+# bench_suite.main over SUITE_SUITES with SUITE_ARGS; phase 29 the bf16
+# kernels' times at the bench shape (B5 over BF16_B5_GENERATIONS)
+BF16_FRAMES, BF16_RUNS = 8, 4
+BF16_TOPOLOGIES = GRID_TOPOLOGIES + ("fm3_parallel",)
+BF16_B5_GENERATIONS = 10
+CACHE_LOG2N = 14
+SUITE_DIR = "build/chip_smoke_suite"
+SUITE_SUITES = ("all",)
+SUITE_ARGS = ("--fused", "--gens", "5")
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 and
+# bf16 FLOP/s
+PEAK_BYTES, PEAK_INT8, PEAK_F32, PEAK_BF16 = 3.35e12, 1979e12, 67e12, 989e12
 
 T0 = time.perf_counter()
 CARD = {"name": "?", "power_limit": "?"}
@@ -473,10 +504,10 @@ def ptxas_summary(log: str):
     return rows
 
 
-def bound(bytes_moved: float, int8_ops: float, f32_ops: float):
+def bound(bytes_moved: float, int8_ops: float, f32_ops: float, bf16_ops: float = 0.0):
     times = {
         "bytes": bytes_moved / PEAK_BYTES,
-        "operations": max(int8_ops / PEAK_INT8, f32_ops / PEAK_F32),
+        "operations": max(int8_ops / PEAK_INT8, f32_ops / PEAK_F32, bf16_ops / PEAK_BF16),
     }
     by = max(times, key=times.get)
     return times[by] * 1e3, by
@@ -678,6 +709,7 @@ class Smoke:
         fp, gp = plain[:pop], plain[pop:]
         torch.cuda.synchronize()
         e1, e2 = rel_err(fk, fp), rel_err(gk, gp)
+        self.last_median = (float(e1.median()), float(e2.median()))
         s_rel = float(rel_err(sk, sp).max())
         max_rel, median_rel = limits
         ok = (bool(torch.isfinite(fk).all() and torch.isfinite(gk).all())
@@ -732,7 +764,7 @@ class Smoke:
             so = spectral.make_spectrum_ops(n, bins, dft_dtype=dtype, device=self.dev)
             tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(
                 self.dev)
-            worst, count = [0.0, 0.0], 0
+            worst, count, worst_med = [0.0, 0.0], 0, 0.0
             pops = grid_pops + ((POP,) if n == 1 << LOG2N and bins is None else ())
             for topology in topologies:
                 d = topology_dims(topology)
@@ -752,12 +784,14 @@ class Smoke:
                         e = self.fused_check(where, params, pv, ps, tgt, kw1, kw2,
                                             kernel_seed(SEED, seeds + cases), limits)
                         worst = [max(worst[0], e[0]), max(worst[1], e[1])]
+                        worst_med = max(worst_med, *self.last_median)
                         count += 1
                         cases += 1
             log(f"B1/B2 {dtype} grid, n={n} (K={so.num_bins}): {count} settings ({topologies} "
                 f"x sine orders {orders} x P {pops}) within {limits[0]:g} / "
-                f"{limits[1]:g}, worst max rel B1 {worst[0]:.3e} B2 {worst[1]:.3e}; B2 values "
-                f"bit-equal, B2 fitness bit-equal to B1 on its offspring")
+                f"{limits[1]:g}, worst max rel B1 {worst[0]:.3e} B2 {worst[1]:.3e}, worst "
+                f"median rel {worst_med:.3e}; B2 values bit-equal, B2 fitness bit-equal to B1 "
+                f"on its offspring")
 
     # -- 5 ------------------------------------------------------------------
     def evolve_run(self, cfg, name):
@@ -2798,6 +2832,282 @@ class Smoke:
         log(f"suite_multi_target (match_many, fm3_series, n=1024, int8 B2, sine order 7): "
             f"{'; '.join(line)} {card()}")
 
+    # -- 26 -----------------------------------------------------------------
+    def bf16_settings(self):
+        """(label, ESConfig) of the bf16 checks: the bench shape (the suite's
+        and bench.py's: fm3_series, n 1024, P 2^15, sine order 7) and
+        AUDIO_CONFIG's shape at BF16_FRAMES frames, each in bf16."""
+        from pmfm_tpu_torch.io import load_config
+
+        audio = load_config(AUDIO_CONFIG).es.replace(dft_dtype="bfloat16", refine_generations=0)
+        return (("bench shape", self.cfg.replace(dft_dtype="bfloat16")),
+                (f"audio_match shape, F={BF16_FRAMES}", audio.replace(num_frames=BF16_FRAMES)),
+                ("audio_match shape", audio))
+
+    def bf16_kernels(self):
+        """B1/B2 in the bf16 mode against their plain versions (``fused_check``,
+        the int8 gate): at the bench shape and at BF16_FRAMES frames of
+        AUDIO_CONFIG's shape with the truth planted first, over phase 4b's
+        grid with BF16_TOPOLOGIES, and with a run axis of BF16_RUNS at
+        AUDIO_CONFIG's shape (bit-equal to lone launches, within the limits
+        of the plain version run by run)."""
+        from pmfm_tpu_torch.es import kernel_seed, make_spectrum_ops
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.ops import spectral, synthesize_single
+
+        limits = (FIT_MAX_REL, FIT_MEDIAN_REL)
+        self.bf16 = {}
+        for i, (label, cfg) in enumerate(self.bf16_settings()[:2]):
+            c = self.inputs(cfg, SEED + 150 + i)
+            require(c["so"].dft_packed.dtype == torch.bfloat16, f"{label}: not the bf16 operand")
+            if cfg.num_frames > 1:
+                audio = synthesize_single(torch.tensor(TRUTH), cfg.n_samples * cfg.num_frames,
+                                          cfg.topology).to(self.dev)
+                c["target"] = spectral.target_spectrum_frames(audio, c["so"])
+            self.bf16[label] = c
+            where = (f"bf16, {label}: {cfg.topology}, n={cfg.n_samples}, F={cfg.num_frames}, "
+                     f"K={c['so'].num_bins}, P={cfg.population_size}, sine order {cfg.sine_order}")
+            e1, e2, fk, a1, a2 = self.fused_check(
+                where, c["params"], c["pv"], c["ps"], c["target"], self.kw_b1(c), self.kw_b2(c),
+                kernel_seed(SEED, 150 + i), limits)
+            rank = int(torch.argmin(fk))
+            m1, m2 = self.last_median
+            log(f"B1/B2 {where}: fitness max rel B1 {e1:.3e} B2 {e2:.3e}, median rel B1 "
+                f"{m1:.3e} B2 {m2:.3e} (limits {limits[0]:g} / {limits[1]:g}); B2 values "
+                f"bit-equal, B2 fitness bit-equal to B1 on its offspring; truth rank {rank}")
+            require(rank == 0, "the known-params truth does not rank first")
+            if i == 0:
+                self.kernels["fused_synth_fitness_bf16"] = {"max_abs_err": a1}
+                self.kernels["fused_generation_bf16"] = {"max_abs_err": a2}
+        self.grid("bfloat16", GRID_POPS, limits, SEED + 160, 16000, topologies=BF16_TOPOLOGIES)
+        # the run axis at AUDIO_CONFIG's shape, one frame
+        cfg = self.bf16_settings()[2][1]
+        so = make_spectrum_ops(cfg, device=self.dev)
+        c = self.run_inputs(cfg, so, BF16_RUNS, SEED + 170)
+        tgt = c["target"][:, 0].contiguous()
+        kw1, kw2 = self.kw_b1(dict(cfg=cfg, so=so)), self.kw_b2(dict(cfg=cfg, so=so))
+        seeds = [kernel_seed(SEED, 1700 + r) for r in range(BF16_RUNS)]
+        fb = sf.fused_synth_fitness(c["params"], tgt, **kw1)
+        gb = gn.fused_generation(seeds, c["pv"], c["ps"], tgt, **kw2)
+        for r in range(BF16_RUNS):
+            lone1 = sf.fused_synth_fitness(c["params"][r], tgt[r], **kw1)
+            lone2 = gn.fused_generation(seeds[r], c["pv"][r], c["ps"][r], tgt[r], **kw2)
+            require(bits_equal(fb[r], lone1) and all(bits_equal(a[r], b)
+                                                     for a, b in zip(gb, lone2)),
+                    f"bf16 run axis: run {r} is not its lone launch")
+        plain = sf.fused_synth_fitness_plain(c["params"], tgt, **kw1)
+        torch.cuda.synchronize()
+        e = rel_err(fb, plain)
+        log(f"B1/B2 bf16 run axis (B={BF16_RUNS}, n={cfg.n_samples}, P={cfg.population_size}): "
+            f"each run bit-equal to its lone launch; B1 against its plain version max rel "
+            f"{float(e.max()):.3e} median rel {float(e.median()):.3e}")
+        require(float(e.max()) <= FIT_MAX_REL and float(e.median()) <= FIT_MEDIAN_REL,
+                "bf16 B1 with a run axis disagrees with its plain version")
+
+    # -- 27 -----------------------------------------------------------------
+    def bf16_evolve(self):
+        """B5 in the bf16 mode bit-equal to EVOLVE_CHECK_GENERATIONS launches
+        of the B2 bf16 kernel with the stable selection (the bench config,
+        and at RAGGED_POP), within B2's limits of its plain version over
+        EVOLVE_PLAIN_GENERATIONS, then ``evolve`` with fused_evolve in bf16
+        at the bench config: one B5 launch for GENERATIONS generations."""
+        from pmfm_tpu_torch.es import evolve, init_state, kernel_seed
+        from pmfm_tpu_torch.es.pipeline import _fused_evolve_ok
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+
+        bench = self.bf16["bench shape"]
+        ragged = self.inputs(bench["cfg"].replace(num_offspring=RAGGED_POP - MU), SEED + 171)
+
+        def args(c):
+            return (c["pv"], c["ps"], c["pv"][0].clone(),
+                    torch.tensor(float("inf"), device=self.dev), c["target"])
+
+        for label, c in (("bench config", bench), ("bench config, ragged P", ragged)):
+            kw = self.kw_b2(c)
+            seeds = [kernel_seed(SEED, 1800 + g) for g in range(EVOLVE_CHECK_GENERATIONS)]
+            out = ev.fused_evolve(seeds, *args(c), **kw)
+            torch.cuda.synchronize()
+            loop = ev.fused_evolve_plain(seeds, *args(c), generation=gn.fused_generation, **kw)
+            equal = all(bits_equal(a, b) for a, b in zip(out, loop))
+            traj = out[5].cpu()
+            log(f"B5 bf16 vs {len(seeds)} B2 bf16 launches + stable selection ({label}: "
+                f"P={c['cfg'].population_size}): bit-equal {equal}; best-ever first "
+                f"{float(traj[0]):.6g} last {float(traj[-1]):.6g}")
+            require(equal, "B5 bf16 is not bit-equal to the loop of B2 launches")
+            require(bool(torch.isfinite(traj).all() and (traj[1:] <= traj[:-1]).all()),
+                    "B5 bf16 best-ever trajectory")
+        kw = self.kw_b2(bench)
+        seeds = [kernel_seed(SEED, 1900 + g) for g in range(EVOLVE_PLAIN_GENERATIONS)]
+        out = ev.fused_evolve(seeds, *args(bench), **kw)
+        torch.cuda.synchronize()
+        plain = ev.fused_evolve_plain(seeds, *args(bench), **kw)
+        e_pf, e_tr = rel_err(out[2], plain[2]), rel_err(out[5], plain[5])
+        log(f"B5 bf16 vs plain (bench config, {len(seeds)} generations): parent fitness max rel "
+            f"{float(e_pf.max()):.3e} median rel {float(e_pf.median()):.3e}, best-ever max rel "
+            f"{float(e_tr.max()):.3e} (tolerance {FIT_MAX_REL:g} / {FIT_MEDIAN_REL:g})")
+        require(float(e_pf.max()) <= FIT_MAX_REL and float(e_pf.median()) <= FIT_MEDIAN_REL
+                and float(e_tr.max()) <= FIT_MAX_REL, "B5 bf16 disagrees with its plain version")
+        self.kernels["fused_evolve_bf16"] = {"max_abs_err": float((out[2] - plain[2]).abs().max())}
+        cfg = bench["cfg"].replace(fused_evolve=True)
+        so, target = bench["so"], bench["target"]
+        require(_fused_evolve_ok(cfg, so, self.dev), "bf16 fused_evolve does not route to B5")
+        evolve(init_state(1, cfg, device=self.dev), target, 2, so, cfg)  # warm-up
+        state = init_state(7, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        self.reset_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        final, traj = evolve(state, target, GENERATIONS, so, cfg, record_trajectory=True)
+        b.record()
+        b.synchronize()
+        counts, by = self.read_counts(), self.launches_by()
+        ms = a.elapsed_time(b) / GENERATIONS
+        traj = traj.cpu()
+        log(f"evolve (bf16, fused_evolve -> B5, bench config): {GENERATIONS} generations "
+            f"{ms:.4f} ms/gen, {POP / (ms / 1e3):.4g} candidate-evals/s {card()}; best fitness "
+            f"first {float(traj[0]):.6g} final {float(traj[-1]):.6g}; launches {counts}, by mode "
+            f"{by.get('fused_evolve')}")
+        require(counts["fused_evolve"] == 1 and sum(counts.values()) == 1
+                and by.get("fused_evolve", {}).get("bf16") == 1,
+                "bf16 fused_evolve did not run as exactly one bf16 B5 launch")
+        require(bool(torch.isfinite(traj).all() and (traj[1:] <= traj[:-1]).all()), "trajectory")
+        require(float(traj[-1]) < float(traj[0]), "evolve did not improve the best fitness")
+        self.kernels["fused_evolve_bf16"]["launches"] = by["fused_evolve"]["bf16"]
+        self.cell_ms["bf16_fused_evolve"] = ms
+
+    # -- 28 -----------------------------------------------------------------
+    def suite(self):
+        """The operand disk cache at 2^CACHE_LOG2N, int8 and bf16 (a build that
+        writes the file, then a load of it), then ``bench_suite.main`` over
+        SUITE_SUITES with SUITE_ARGS and the cache, on the card: each row
+        printed beside the card, and the bf16 B1/B2 launches of the suite's
+        rows counted."""
+        import csv
+        import shutil
+        from pathlib import Path
+
+        from pmfm_tpu_torch import bench_suite
+        from pmfm_tpu_torch.ops import spectral
+
+        work = Path(SUITE_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        cache = work / "operand_cache"
+        n = 1 << CACHE_LOG2N
+        for dtype in ("int8", "bfloat16"):
+            times = []
+            ops = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                ops.append(spectral.make_spectrum_ops(n, dft_dtype=dtype, cache_dir=str(cache),
+                                                      device=self.dev))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            same = all(torch.equal(getattr(ops[0], f).view(torch.int8),
+                                   getattr(ops[1], f).view(torch.int8))
+                       for f in ("dft_cos", "dft_sin", "dft_packed"))
+            files = sorted(p.name for p in cache.glob("*.npz"))
+            log(f"operand cache, n={n} {dtype}: build (writes the file) {times[0]:.2f} s, load "
+                f"{times[1]:.2f} s; operands bit-equal {same}; files {files}")
+            require(same and times[1] < times[0], f"operand cache ({dtype})")
+        self.reset_counts()
+        t0 = time.perf_counter()
+        rows = []
+        for name in SUITE_SUITES:
+            argv = ["--suite", name, *SUITE_ARGS, "--operand-cache", str(cache),
+                    "--csv", str(work / f"suite_{name}.csv")]
+            require(bench_suite.main(argv) == 0, f"bench_suite {name}")
+            with open(work / f"suite_{name}.csv", newline="") as f:
+                # the reference's CSV does not quote: a row name may hold
+                # commas ("..._65536[synth_stream,pop=2^13]"), the last 8
+                # fields are numbers
+                got = [[",".join(r[:-8]), *r[-8:]] for r in csv.reader(f)]
+            rows += got[1 if rows else 0:]
+        seconds = time.perf_counter() - t0
+        by = self.launches_by()
+        for row in rows[1:]:
+            log(f"suite row {row[0]}: total {float(row[1]):.3f} ms, population {row[7]}, "
+                f"generations {row[8]} {card()}")
+        log(f"bench_suite --suite {','.join(SUITE_SUITES)} {' '.join(SUITE_ARGS)}: "
+            f"{len(rows) - 1} rows in {seconds:.1f}s; launches by mode {by} {card()}")
+        require(tuple(rows[0])[:2] == ("Test_Name", "Total_Time") and len(rows) > 1, "suite CSV")
+        require(all(float(row[1]) > 0.0 for row in rows[1:]), "suite row without a time")
+        b1 = by.get("fused_synth_fitness", {}).get("bf16", 0)
+        b2 = by.get("fused_generation", {}).get("bf16", 0)
+        require(b1 > 0 and b2 > 0, "the suite did not run B1 and B2 in bf16")
+        self.kernels.setdefault("fused_synth_fitness_bf16", {})["launches"] = b1
+        self.kernels.setdefault("fused_generation_bf16", {})["launches"] = b2
+
+    # -- 29 -----------------------------------------------------------------
+    def bf16_timings(self):
+        """B1/B2/B5 bf16 at the bench shape beside their plain versions and
+        their bound (bytes at 3.35 TB/s; the DFT's operations at the dense
+        bf16 peak and the synthesis's at the f32 peak), and the DFT half's
+        yardstick: bf16 ``torch.mm`` with float32 output, U and V of
+        candidate-major a+/- against the operand's halves (the port never
+        calls it)."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        c = self.bf16["bench shape"]
+        n, k, g = c["cfg"].n_samples, c["so"].num_bins, BF16_B5_GENERATIONS
+        operand = 2 * k * (n // 2) * 2
+        dft_ops = 2.0 * 2 * k * (n // 2) * POP
+        synth = synth_ops_f32(POP, n, k, kn=3, ncoef=4)
+        offspring = POP * D * 12 * 2.0
+        io = operand + k * 4 + POP * 4
+        kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
+        seed = kernel_seed(SEED, 2000)
+        seeds = [kernel_seed(SEED, 2001 + i) for i in range(g)]
+        best = torch.tensor(float("inf"), device=self.dev)
+        pv, ps, tgt = c["pv"], c["ps"], c["target"]
+        rows = {
+            "fused_synth_fitness_bf16": (
+                lambda: sf.fused_synth_fitness(c["params"], tgt, **kw1),
+                lambda: sf.fused_synth_fitness_plain(c["params"], tgt, **kw1),
+                io + POP * D * 4, dft_ops, synth, 1, "pmfm_tpu_torch/csrc/fused_bf16.cu",
+                "pmfm_tpu/kernels/synth_fitness.py:767"),
+            "fused_generation_bf16": (
+                lambda: gn.fused_generation(seed, pv, ps, tgt, **kw2),
+                lambda: gn.fused_generation_plain(seed, pv, ps, tgt, **kw2),
+                io + 2 * MU * D * 4 + 2 * POP * D * 4, dft_ops, synth + offspring, 1,
+                "pmfm_tpu_torch/csrc/fused_bf16.cu", "pmfm_tpu/kernels/generation.py:438"),
+            "fused_evolve_bf16": (
+                lambda: ev.fused_evolve(seeds, pv, ps, pv[0], best, tgt, **kw2),
+                lambda: ev.fused_evolve_plain(seeds, pv, ps, pv[0], best, tgt, **kw2),
+                4 * MU * D * 4 + 2 * (D + 1) * 4 + operand + k * 4 + g * 4, g * dft_ops,
+                g * (synth + offspring), g, "pmfm_tpu_torch/csrc/evolve.cu",
+                "pmfm_tpu/kernels/evolve.py:366"),
+        }
+        for name, (fn, plain, nbytes, bops, fops, gens, src, replaces) in rows.items():
+            ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
+            plain_ms = cuda_ms(plain, 1 if gens > 1 else PLAIN_RUNS)
+            bound_ms, by = bound(nbytes, 0.0, fops, bops)
+            per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
+            log(f"{name} (n={n}, K={k}, P={POP}, fm3_series, sine order 7): kernel {ms:.4f} ms"
+                f"{per}, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {by} "
+                f"({nbytes / 1e6:.2f} MB, {bops / 1e9:.1f} G bf16 ops, {fops / 1e9:.2f} G f32 "
+                f"ops); {ms / bound_ms:.1f}x the bound {card()}")
+            self.kernels.setdefault(name, {}).update(
+                route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        ap, am = (torch.randn((POP, n // 2), generator=gen, device=self.dev).to(torch.bfloat16)
+                  for _ in range(2))
+        op = c["so"].dft_packed
+        cos_t, sin_t = op[:k].T, op[k:].T
+        mm_ms = cuda_ms(lambda: (torch.mm(ap, cos_t, out_dtype=torch.float32),
+                                 torch.mm(am, sin_t, out_dtype=torch.float32)), TIMED_LAUNCHES)
+        b1_ms = self.kernels["fused_synth_fitness_bf16"]["ms"]
+        log(f"B1 bf16 split (n={n}, K={k}, P={POP}): B1 {b1_ms:.4f} ms; yardstick bf16 torch.mm "
+            f"U+V (float32 out) on candidate-major a+/- {mm_ms:.4f} ms "
+            f"({dft_ops / (mm_ms * 1e-3) / 1e12:.1f} bf16 TFLOP/s); int8 B1 at the same shape "
+            f"{self.kernels.get('fused_synth_fitness', {}).get('ms', float('nan')):.4f} ms "
+            f"{card()}")
+
     def kernels_line(self):
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2861,6 +3171,11 @@ def main(argv=None) -> int:
     s.phase("23 run axis: B1/B2/B5 batched vs lone", s.run_kernels)
     s.phase("24 A6 paths: --mode stft, --mode parallel-chunks, --batch", s.a6_paths)
     s.phase("25 A6 kernel times and the reference suites' shapes", s.a6_timings)
+    s.phase("26 B1/B2 bf16 vs plain", s.bf16_kernels)
+    if "26 B1/B2 bf16 vs plain" not in s.failed:
+        s.phase("27 B5 bf16 and evolve", s.bf16_evolve)
+        s.phase("28 operand cache and the bench suite", s.suite)
+        s.phase("29 bf16 kernel times", s.bf16_timings)
     if s.only is not None:
         faulthandler.cancel_dump_traceback_later()
         log(f"phases {sorted(s.only)}: {'FAILED: ' + str(s.failed) if s.failed else 'passed'} "

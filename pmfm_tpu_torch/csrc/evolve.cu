@@ -12,7 +12,8 @@
 //
 // Design. pmfm_fused_evolve is a loop on the host that enqueues, generation
 // after generation on one stream, B2's own kernels (generation.cuh: the int8
-// kernel of fused_eval.cu, or the three f32 kernels of fused_f32.cu) and then
+// kernel of fused_eval.cu, the bf16 kernel of fused_bf16.cu, or the three
+// f32 kernels of fused_f32.cu) and then
 // select_kernel, with no synchronisation and no Python between generations.
 // So B5 is bit-equal to G B2 launches by construction and follows any change
 // of B2. A kernel boundary is the cheapest grid-wide barrier on an H100 (a
@@ -308,7 +309,8 @@ extern "C" {
 // with pf (mu,) to the last generation's; best_v (d,) and best_f (1,) carry
 // the best-ever in and out; traj (gens,) gets best-ever per generation.
 // seeds (gens,), in host memory, are the generations' Philox keys. fit_s
-// (pop,), val_s and step_s (pop, d) hold each generation's offspring; in f32
+// (pop,), val_s and step_s (pop, d) hold each generation's offspring. mode
+// is B2's: 0 int8, 1 true f32, 2 bf16 (the operand dft's dtype); in f32
 // mode scratch holds fused_f32.cu's f32_scratch_floats(pop, n, frames, runs)
 // floats. With a run axis every array has a leading one (traj is (runs,
 // gens)) and run_seeds (device memory, (gens, runs)) replaces seeds, which
@@ -320,11 +322,11 @@ int pmfm_fused_evolve(const uint32_t* seeds, const uint32_t* run_seeds, int gens
                       int runs, SynthParams sp, MutateParams mp, const void* dft,
                       const float* target, float* pv, float* ps, float* pf, float* best_v,
                       float* best_f, float* traj, float* fit_s, float* val_s, float* step_s,
-                      float* scratch, long long scratch_floats, int f32_mode,
+                      float* scratch, long long scratch_floats, int mode,
                       cudaStream_t stream) {
   const int mu = mp.mu;
   if (gens < 1 || mu < 1 || pop < mu || runs < 1 || runs > 65535 || (runs > 1 && !run_seeds) ||
-      (!seeds && !run_seeds))
+      (!seeds && !run_seeds) || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   const bool in_shared = select_keys_in_shared(pop, mu);
   const size_t smem = select_smem_bytes(pop, mu, in_shared);
@@ -332,18 +334,23 @@ int pmfm_fused_evolve(const uint32_t* seeds, const uint32_t* run_seeds, int gens
   const auto sel = in_shared ? &select_kernel<true> : &select_kernel<false>;
   int e = (int)prepare(sel, smem);
   GenInt8Kernel gen8 = nullptr;
+  GenBf16Kernel gen16 = nullptr;
   F32Plan plan{};
   if (!e)
-    e = f32_mode ? prepare_generation_f32(sp, pop, runs, scratch, scratch_floats, &plan)
-                 : prepare_generation_int8(sp, &gen8);
+    e = mode == 1   ? prepare_generation_f32(sp, pop, runs, scratch, scratch_floats, &plan)
+        : mode == 2 ? prepare_generation_bf16(sp, &gen16)
+                    : prepare_generation_int8(sp, &gen8);
   for (int g = 0; g < gens && !e; ++g) {
     const uint32_t* rs = run_seeds ? run_seeds + (size_t)g * runs : nullptr;
     const uint32_t seed = rs ? 0u : seeds[g];
-    e = f32_mode ? launch_f32(plan, nullptr, seed, rs, pv, ps, mp, val_s, step_s, sp,
-                              (const float*)dft, target, fit_s, stream)
-                 : launch_generation_int8(gen8, seed, rs, pv, ps, pop, runs, sp, mp,
-                                          (const int8_t*)dft, target, fit_s, val_s, step_s,
-                                          stream);
+    e = mode == 1   ? launch_f32(plan, nullptr, seed, rs, pv, ps, mp, val_s, step_s, sp,
+                                 (const float*)dft, target, fit_s, stream)
+        : mode == 2 ? launch_generation_bf16(gen16, seed, rs, pv, ps, pop, runs, sp, mp,
+                                             (const __nv_bfloat16*)dft, target, fit_s, val_s,
+                                             step_s, stream)
+                    : launch_generation_int8(gen8, seed, rs, pv, ps, pop, runs, sp, mp,
+                                             (const int8_t*)dft, target, fit_s, val_s, step_s,
+                                             stream);
     if (e) break;
     sel<<<runs, SEL_THREADS, smem, stream>>>(pop, mu, sp.d, fit_s, val_s, step_s, pv, ps, pf,
                                              best_v, best_f, traj + g, gens);

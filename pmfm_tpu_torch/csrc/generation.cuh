@@ -1,8 +1,9 @@
 // B2's launches as host calls that another source can make: B5 (evolve.cu)
 // runs every generation's offspring and fitness through them, so a B5
 // generation is one B2 launch by construction. fused_eval.cu defines the
-// int8 pair and fused_f32.cu the f32 one; their extern "C" B2 entry points
-// are each one prepare and one launch of the same pair.
+// int8 pair, fused_bf16.cu the bf16 one and fused_f32.cu the f32 one; their
+// extern "C" B2 entry points are each one prepare and one launch of the
+// same pair.
 //
 // A prepare call does the host work of a launch that does not change from
 // one generation to the next (the instantiation for the sine order and the
@@ -28,6 +29,21 @@ int prepare_generation_int8(const SynthParams& sp, GenInt8Kernel* kernel);
 int launch_generation_int8(GenInt8Kernel kernel, uint32_t seed, const uint32_t* run_seeds,
                            const float* pv, const float* ps, int pop, int runs,
                            const SynthParams& sp, const MutateParams& mp, const int8_t* dft,
+                           const float* target, float* fitness, float* values, float* steps,
+                           cudaStream_t stream);
+
+// ---- bf16 (fused_bf16.cu) ---------------------------------------------------------
+
+typedef void (*GenBf16Kernel)(uint32_t seed, const uint32_t* run_seeds, const float* pv,
+                              const float* ps, int pop, SynthParams sp, MutateParams mp,
+                              const __nv_bfloat16* dft, const float* target, float* fitness,
+                              float* values, float* steps);
+
+// The int8 pair's launch with the bf16 folded operand.
+int prepare_generation_bf16(const SynthParams& sp, GenBf16Kernel* kernel);
+int launch_generation_bf16(GenBf16Kernel kernel, uint32_t seed, const uint32_t* run_seeds,
+                           const float* pv, const float* ps, int pop, int runs,
+                           const SynthParams& sp, const MutateParams& mp, const __nv_bfloat16* dft,
                            const float* target, float* fitness, float* values, float* steps,
                            cudaStream_t stream);
 

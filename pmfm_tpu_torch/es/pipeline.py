@@ -56,12 +56,13 @@ from .strategy import (
 def make_spectrum_ops(cfg: ESConfig, *, device: str | torch.device = "cuda") -> spectral.SpectrumOps:
     """The spectrum operands of ``cfg`` on ``device``; ``cfg.spectrum_method``
     resolves as the reference resolves it (``"dft"`` above 16384 samples is
-    the factored DFT)."""
+    the factored DFT); ``cfg.operand_cache_dir`` is the operands' disk cache."""
     return spectral.make_spectrum_ops(
         cfg.n_samples,
         num_bins=cfg.num_bins,
         method=cfg.spectrum_method,
         dft_dtype=cfg.dft_dtype,
+        cache_dir=cfg.operand_cache_dir,
         device=device,
     )
 

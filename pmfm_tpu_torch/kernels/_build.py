@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_f32.cu``:
-B1, B2 true f32; ``evolve.cu``: B5, which runs B2's kernels through
+The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_bf16.cu``:
+B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_f32.cu``: B1, B2 true f32; ``evolve.cu``: B5, which runs B2's kernels through
 ``generation.cuh``; ``large_frame.cu``: B3, B4; ``scan_synth.cu``: the scan
 synthesis of the unfused engines; ``evaluate.cuh``: B2's
 offspring genes; ``synth_common.cuh``: the synthesis B1-B4 share and the
@@ -176,6 +176,10 @@ def library() -> ctypes.CDLL:
         u32, vp, vp, vp, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
     ]
     lib.pmfm_fused_generation.restype = ci
+    lib.pmfm_fused_synth_fitness_bf16.argtypes = lib.pmfm_fused_synth_fitness.argtypes
+    lib.pmfm_fused_synth_fitness_bf16.restype = ci
+    lib.pmfm_fused_generation_bf16.argtypes = lib.pmfm_fused_generation.argtypes
+    lib.pmfm_fused_generation_bf16.restype = ci
     lib.pmfm_fused_synth_fitness_f32.argtypes = [vp, ci, ci, SynthParams, vp, vp, vp, vp, cll, vp]
     lib.pmfm_fused_synth_fitness_f32.restype = ci
     lib.pmfm_fused_generation_f32.argtypes = [

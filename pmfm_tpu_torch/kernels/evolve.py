@@ -50,11 +50,13 @@ from .synth_fitness import (
     f32_scratch_floats,
     inv_sample_rate,
     launch_mode,
+    operand_mode,
     runs_of,
     synth_params_struct,
 )
 
 SELECT_THREADS = 1024  # csrc SEL_THREADS: the selection's one block
+EVOLVE_MODES = {"int8": 0, "f32": 1, "bf16": 2}  # csrc pmfm_fused_evolve's `mode`
 SELECT_BINS = 256  # csrc SEL_BINS: a radix pass's histogram, one per warp
 
 
@@ -195,7 +197,8 @@ def fused_evolve(
                   n, num_frames)
     if select_geometry(pop, mu)["smem_bytes"] > MAX_SHARED_BYTES:
         raise ValueError(f"mu={mu}: the selection's survivors exceed one block's shared memory")
-    f32 = dft_scale == 0.0
+    mode = operand_mode(dft_packed.dtype, dft_scale)
+    f32 = mode == "f32"
     lead = parent_values.shape[:-2]
     if tuple(best_values.shape) != (*lead, d) or best_fitness.numel() != (runs or 1):
         raise ValueError(f"best_values must be {(*lead, d)} and best_fitness one value a run")
@@ -229,12 +232,13 @@ def fused_evolve(
         seeds_h, None if seeds_d is None else seeds_d.data_ptr(), gens, pop, nruns, sp, mp,
         dft_packed.data_ptr(), target_spectrum.data_ptr(), pv.data_ptr(), ps.data_ptr(),
         pf.data_ptr(), bv.data_ptr(), bf.data_ptr(), traj.data_ptr(), fit_s.data_ptr(),
-        val_s.data_ptr(), step_s.data_ptr(), scratch.data_ptr(), scratch.numel(), int(f32),
-        torch.cuda.current_stream(dev).cuda_stream,
+        val_s.data_ptr(), step_s.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        EVOLVE_MODES[mode], torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "fused_evolve")
     fused_evolve.launches += 1
-    fused_evolve.launches_by[launch_mode(topology, dft_scale, num_frames, runs)] += 1
+    fused_evolve.launches_by[
+        launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
     return pv, ps, pf, bv, (bf[0] if runs is None else bf), traj
 
 

@@ -1,11 +1,12 @@
 """B2: one whole generation in one kernel — offspring + synthesis + folded
-DFT + fitness, in B1's int8 or true-f32 mode.
+DFT + fitness, in B1's int8, bf16 or true-f32 mode.
 
 Replaces ``pmfm_tpu/kernels/generation.py::fused_generation`` (``_gen_kernel``
 over ``_offspring_block``, ``_recombine_flat``/``_recombine_hier``,
 ``_uniform01`` and ``_scale_rows``, then B1's ``_evaluate_block``). The CUDA
-kernels are ``csrc/fused_eval.cu::fused_generation_int8_kernel`` and, in the
-true-f32 mode, ``csrc/fused_f32.cu``'s (the synthesis kernel with the
+kernels are ``csrc/fused_eval.cu::fused_generation_int8_kernel``, in the
+bf16 mode ``csrc/fused_bf16.cu::fused_generation_bf16_kernel`` (both
+``csrc/tc_eval.cuh``'s one-warp kernel) and, in the true-f32 mode, ``csrc/fused_f32.cu``'s (the synthesis kernel with the
 prologue, then B1's f32 DFT and group sum); each runs the offspring prologue
 below (``csrc/evaluate.cuh::offspring_gene``, the block's genes spread over
 all its threads) and then B1's evaluation in the mode the operand selects.
@@ -55,6 +56,7 @@ from .synth_fitness import (
     f32_scratch_floats,
     inv_sample_rate,
     launch_mode,
+    operand_mode,
     runs_of,
     synth_params_struct,
 )
@@ -354,16 +356,20 @@ def fused_generation(
             pv.data_ptr(), ps.data_ptr(), pop, nruns, sp, mp, dft_packed.data_ptr(),
             target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if dft_scale == 0.0:
+    mode = operand_mode(dft_packed.dtype, dft_scale)
+    if mode == "f32":
         scratch = torch.empty((f32_scratch_floats(pop, n, num_frames, nruns),),
                               dtype=torch.float32, device=dev)
         err = library().pmfm_fused_generation_f32(*args, scratch.data_ptr(), scratch.numel(),
                                                   stream)
+    elif mode == "bf16":
+        err = library().pmfm_fused_generation_bf16(*args, stream)
     else:
         err = library().pmfm_fused_generation(*args, stream)
     check(err, "fused_generation")
     fused_generation.launches += 1
-    fused_generation.launches_by[launch_mode(topology, dft_scale, num_frames, runs)] += 1
+    fused_generation.launches_by[
+        launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
     return fitness, values, steps
 
 

@@ -1,11 +1,13 @@
-"""B1: fused FM synthesis + folded DFT + spectral fitness, int8 and true f32.
+"""B1: fused FM synthesis + folded DFT + spectral fitness, int8, bf16 and true f32.
 
 Replaces ``pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness`` (the
 Pallas kernel ``_kernel`` over ``_evaluate_block``, ``_make_block_synth``,
 ``_dft_uv`` and ``_fit_epilogue``). The CUDA kernels are
 ``csrc/fused_eval.cu::fused_synth_fitness_int8_kernel`` (the folded DFT on
-the int8 tensor cores) and, in the true-f32 mode, ``csrc/fused_f32.cu``'s
-three kernels (synthesis and fold into scratch, a register-tiled f32 DFT
+the int8 tensor cores), in the bf16 mode
+``csrc/fused_bf16.cu::fused_synth_fitness_bf16_kernel`` (the same one-warp
+design, ``csrc/tc_eval.cuh``, on the bf16 tensor cores) and, in the
+true-f32 mode, ``csrc/fused_f32.cu``'s three kernels (synthesis and fold into scratch, a register-tiled f32 DFT
 with the fitness epilogue, the sum over bin groups); each file's note says
 what bounds it on an H100 and how the design meets that.
 ``fused_synth_fitness_plain`` here is their plain PyTorch version, which the
@@ -23,12 +25,19 @@ The numerics carried over from the TPU kernel:
 * two (K, N/2) contractions against ``dft_packed``;
 * fitness = ``sum_k (mag - target)^2``.
 
-Two modes, chosen by the operand as in the reference:
+Three modes, chosen by the operand as in the reference:
 
 * int8 (``dft_scale > 0``, int8 operand): the output oscillator emits
   ``63 * sin`` and ``x = q = round(63 sin)``; the contractions are exact in
   int32; ``edge_norm = 127``; ``mag = sqrt(u^2 + v^2) * |amp| * dft_scale``
   with ``amp`` the last operator's ``freq * index``.
+* bf16 (``dft_scale == 0``, bfloat16 operand; the reference's default
+  fused engine): ``x = bf16(sin * amp)`` (a pair bank: its pair sum divided
+  by k, then rounded), each fold sum ``x[n] +- x[N-n]`` formed in float32
+  and rounded to bf16 once more (``_evaluate_block``'s ``fold_cast``), the
+  contractions against the bf16 operand accumulated in float32 (the
+  products of bf16 values are exact), ``edge_norm = 2 * norm`` on the bf16
+  ``x[N/2]`` and no magnitude rescale (the operand carries window and norm).
 * true f32 (``dft_scale == 0``, float32 operand; ``_evaluate_block``'s
   ``audio_f32``, the refine tail's engine): ``x = sin * amp`` unquantised,
   f32 contractions (TF32 off: the reference's ``Precision.HIGHEST``),
@@ -66,7 +75,7 @@ r's candidates and target.
 
 Ported: ``fm2``, ``fm{k}_series`` (k <= 8) and ``fm{k}_parallel`` (k <= 4,
 ``MAX_PARALLEL_PAIRS``) in both modes, at any frame count and with the run
-axis; the bf16 mode and ``fm{k}_parallel`` with k >= 5 raise
+axis, in all three modes; ``fm{k}_parallel`` with k >= 5 raises
 ``NotImplementedError``. B3, B4 and B5 do not take ``fm{k}_parallel`` yet
 (``check_supported_topology``).
 """
@@ -164,20 +173,30 @@ def inv_sample_rate(wavetable_size: int, sample_rate: int) -> float:
     return float(np.float32(w2sr / float(wavetable_size)))
 
 
+OPERAND_DTYPES = (torch.int8, torch.bfloat16, torch.float32)
+
+
+def operand_mode(dtype: torch.dtype, dft_scale: float) -> str:
+    """The B1/B2 mode an operand of ``dtype`` selects: ``int8`` (with
+    ``dft_scale > 0``), ``bf16`` or ``f32``."""
+    if dft_scale > 0.0:
+        return "int8"
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
 def check_supported(topology: str, dft_packed: torch.Tensor, dft_scale: float,
                     num_frames: int) -> None:
-    """Raise for a B1/B2 variant the kernels do not take: ``NotImplementedError``
-    for one not ported yet, ``ValueError`` for an int8 scale without the
-    int8 operand or a frame count below 1."""
+    """Raise for a B1/B2 variant the kernels do not take: ``ValueError`` for
+    an int8 scale without the int8 operand, an operand of another dtype or
+    a frame count below 1, ``NotImplementedError`` for a topology not ported
+    yet."""
     if dft_scale > 0.0:
         if dft_packed.dtype != torch.int8:
             raise ValueError("the int8 engine (dft_scale > 0) needs the int8 dft_packed")
-    elif dft_packed.dtype != torch.float32:
-        raise NotImplementedError(
-            "the bf16 variant of the fused kernels B1/B2 is not ported yet (ROADMAP Queue B "
-            "item 7): the int8 (dft_scale > 0) and true-f32 (float32 operand, dft_scale 0) "
-            "engines are"
-        )
+    elif dft_packed.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(
+            f"a dft_packed of {dft_packed.dtype} with dft_scale 0: the bf16 and true-f32 "
+            f"engines take a bfloat16 or float32 operand")
     if num_frames < 1:
         raise ValueError(f"num_frames must be >= 1, got {num_frames}")
     check_supported_topology(topology, parallel=True)
@@ -361,7 +380,8 @@ def synth_f32_plain(p: torch.Tensor, *, topology: str, n: int, inv_sr: float, si
 def fold(q: torch.Tensor):
     """Audio (N, P) -> folded ``a+, a-`` (N/2, P) and the edge sample
     ``q[N/2]`` (P,): int32 for int8 audio (exact), float32 for float32
-    audio (one rounding of each sum and difference)."""
+    audio (one rounding of each sum and difference), and for bf16 audio
+    float32 sums rounded once to bf16 (``fold_cast``), held as float32."""
     half = q.shape[0] // 2
     qi = q.to(torch.int32) if q.dtype == torch.int8 else q.to(torch.float32)
     rev = qi[half + 1 :].flip(0)  # q[N-r] for r = 1 .. N/2-1
@@ -369,6 +389,9 @@ def fold(q: torch.Tensor):
     a_minus = qi[:half].clone()
     a_plus[1:] += rev
     a_minus[1:] -= rev
+    if q.dtype == torch.bfloat16:
+        a_plus = a_plus.to(torch.bfloat16).to(torch.float32)
+        a_minus = a_minus.to(torch.bfloat16).to(torch.float32)
     return a_plus, a_minus, qi[half]
 
 
@@ -388,7 +411,8 @@ def dft_fitness_plain(a_plus, a_minus, edge_q, amp, dft_packed, dft_scale, targe
     below 2^24 (so the sum is exact) only for n <= 2048; at 2048 < n <= 3584,
     which B1 also takes, the plain version may round where the kernel's
     int32 sum does not. The magnitude is rescaled by ``|amp| * dft_scale``.
-    True f32 (``dft_scale == 0``): float32 contractions with TF32 off, no
+    bf16 and true f32 (``dft_scale == 0``): float32 contractions with TF32
+    off (of bf16 values in the bf16 mode, whose products are exact), no
     rescale (``amp`` is unused)."""
     k = dft_packed.shape[0] // 2
     n = 2 * dft_packed.shape[1]
@@ -412,7 +436,7 @@ def _evaluate_plain(params_scaled, dft_packed, target, *, topology, n, inv_sr, d
     """Plain PyTorch version of the B1 kernel: fitness (P,) of scaled params
     (P, D) against ``target`` (K,) or (F, K), one block of
     ``resolve_pop_block`` candidates at a time, in the int8 (``dft_scale >
-    0``) or the true-f32 mode. Each block synthesises ``num_frames`` n
+    0``), the bf16 (a bfloat16 operand) or the true-f32 mode. Each block synthesises ``num_frames`` n
     continuous samples; frame f is folded and scored against target row f,
     and the frames' totals are added in frame order."""
     pop = params_scaled.shape[0]
@@ -426,6 +450,8 @@ def _evaluate_plain(params_scaled, dft_packed, target, *, topology, n, inv_sr, d
             q, amp = synth_int8_plain(p, **kw)
         else:
             q, amp = synth_f32_plain(p, **kw), None
+            if dft_packed.dtype == torch.bfloat16:
+                q = q.to(torch.bfloat16)
         fit = None
         for f in range(num_frames):
             ap, am, edge = fold(q[f * n : (f + 1) * n])
@@ -514,45 +540,51 @@ def f32_geometry(pop: int, n: int, k: int, frames: int = 1, runs: int = 1) -> di
     )
 
 
-def shared_bytes(n: int, f32: bool) -> int:
-    """Dynamic shared memory of a B1/B2 block at frames of ``n`` samples
-    (csrc ``fused_eval.cu``'s ``n * TC_CPB`` and ``fused_f32.cu``'s
-    ``DF_SMEM``): int8, the folded audio of its ``CUDA_BLOCK`` candidates,
-    ``CUDA_BLOCK`` x n bytes; true f32, the DFT's fixed stages (a+/a- live in
-    scratch). B5 runs these kernels, and its selection block does not grow
-    with the frame."""
-    return F32_DFT_SHARED_BYTES if f32 else n * CUDA_BLOCK
+def shared_bytes(n: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a B1/B2 block at frames of ``n`` samples in
+    the mode of an operand of ``dtype`` (csrc ``tc_eval.cuh``'s ``n * TC_CPB
+    * sizeof(element)`` and ``fused_f32.cu``'s ``DF_SMEM``): int8 and bf16,
+    the folded audio of its ``CUDA_BLOCK`` candidates, ``CUDA_BLOCK`` x n
+    elements (at n 3584 in bf16, 229,376 of the block's 232,448 bytes; B2's
+    scaled parameters share the space before the synthesis writes it); true
+    f32, the DFT's fixed stages (a+/a- live in scratch). B5 runs these
+    kernels, and its selection block does not grow with the frame."""
+    if dtype == torch.float32:
+        return F32_DFT_SHARED_BYTES
+    return n * CUDA_BLOCK * (2 if dtype == torch.bfloat16 else 1)
 
 
-def fits_shared_memory(n: int, f32: bool = False) -> bool:
-    """Whether B1/B2/B5 take frames of ``n`` samples in the int8 or the f32
-    mode: n <= ``MAX_FUSED_N`` (3584) in both, the port's stated frame
-    limit, under which a block's shared memory also holds. The limit is the
-    reference's engine ladder, not the card's: the kernels' blocks would fit
-    larger frames, but n >= 4096 stays with B3 as in the reference. The one
-    definition of the fused kernels' size limit, read by the wrappers (B5's
-    through ``generation._check_b2``) and by ``es.strategy._fused_ok``."""
-    return n <= MAX_FUSED_N and shared_bytes(n, f32) <= MAX_SHARED_BYTES
+def fits_shared_memory(n: int, dtype: torch.dtype) -> bool:
+    """Whether B1/B2/B5 take frames of ``n`` samples in the mode of an
+    operand of ``dtype`` (int8, bf16 or f32): n <= ``MAX_FUSED_N`` (3584) in
+    all three, the port's stated frame limit, under which a block's shared
+    memory also holds. The limit is the reference's engine ladder, not the
+    card's: the int8 and f32 blocks would fit larger frames, but n >= 4096
+    stays with B3 as in the reference. The one definition of the fused
+    kernels' size limit, read by the wrappers (B5's through
+    ``generation._check_b2``) and by ``es.strategy._fused_ok``."""
+    return n <= MAX_FUSED_N and shared_bytes(n, dtype) <= MAX_SHARED_BYTES
 
 
 def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.Tensor,
                         frames: int = 1, runs: int | None = None) -> None:
     """Raise on operands the CUDA kernels do not take: the folded operand
-    (2K, N/2), int8 or float32, and a contiguous float32 target: (K,) or
-    (F, K) for one run, (B, F, K) (or (B, K) at one frame) for ``runs`` = B."""
+    (2K, N/2), int8, bfloat16 or float32, and a contiguous float32 target:
+    (K,) or (F, K) for one run, (B, F, K) (or (B, K) at one frame) for
+    ``runs`` = B."""
     if n % (2 * TIME_BLOCK):
         raise ValueError(f"n={n} must be a multiple of {2 * TIME_BLOCK} (the fold pairs blocks)")
-    f32 = dft_packed.dtype == torch.float32
-    if not fits_shared_memory(n, f32):
+    if not fits_shared_memory(n, dft_packed.dtype):
         raise NotImplementedError(
             f"n={n}: above the fused kernels' frame limit {MAX_FUSED_N} "
             f"(larger frames take the synth_fold route, kernel B3)"
         )
     if k % 8:
         raise ValueError(f"num_bins={k} must be a multiple of 8")
-    if dft_packed.dtype not in (torch.int8, torch.float32) or tuple(dft_packed.shape) != (2 * k, n // 2):
+    if dft_packed.dtype not in OPERAND_DTYPES or tuple(dft_packed.shape) != (2 * k, n // 2):
         raise ValueError(
-            f"need the int8 or float32 folded operand (2K, N/2) = {(2 * k, n // 2)}, got "
+            f"need the int8, bfloat16 or float32 folded operand (2K, N/2) = {(2 * k, n // 2)}, "
+            f"got "
             f"{tuple(dft_packed.shape)} {dft_packed.dtype}"
         )
     if not dft_packed.is_contiguous() or dft_packed.data_ptr() % 16:
@@ -590,12 +622,14 @@ def _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n
     return k
 
 
-def launch_mode(topology: str, dft_scale: float, frames: int = 1, runs=None) -> str:
+def launch_mode(topology: str, dft_scale: float, frames: int = 1, runs=None,
+                dtype: torch.dtype = torch.float32) -> str:
     """The key a B1/B2 launch is counted under in the wrappers'
-    ``launches_by``: ``int8`` or ``f32``, after ``parallel_`` for an
-    ``fm{k}_parallel`` bank, then ``_frames`` for a multi-frame launch and
-    ``_runs`` for a launch with the run axis."""
-    mode = "int8" if dft_scale > 0.0 else "f32"
+    ``launches_by``: ``int8``, ``bf16`` or ``f32`` (``operand_mode`` of the
+    operand's ``dtype``), after ``parallel_`` for an ``fm{k}_parallel``
+    bank, then ``_frames`` for a multi-frame launch and ``_runs`` for a
+    launch with the run axis."""
+    mode = operand_mode(dtype, dft_scale)
     mode = f"parallel_{mode}" if parallel_pairs(topology) else mode
     return mode + ("_frames" if frames > 1 else "") + ("" if runs is None else "_runs")
 
@@ -644,10 +678,10 @@ def fused_synth_fitness(
     """Fitness ``(P,)`` float32 of scaled candidates ``(P, D)``, or ``(B, P)``
     of B runs' candidates ``(B, P, D)`` (the run axis).
 
-    ``dft_packed`` is ``SpectrumOps.dft_packed`` ((2K, N/2), int8 or float32)
-    and ``dft_scale`` its ``dft_packed_scale``: an int8 operand with
-    ``dft_scale > 0`` runs the int8 mode, a float32 one with ``dft_scale``
-    0 the true-f32 mode. ``target_spectrum`` is (K,), or (F, K) with
+    ``dft_packed`` is ``SpectrumOps.dft_packed`` ((2K, N/2), int8, bfloat16
+    or float32) and ``dft_scale`` its ``dft_packed_scale``: an int8 operand
+    with ``dft_scale > 0`` runs the int8 mode, a bfloat16 one the bf16 mode
+    and a float32 one with ``dft_scale`` 0 the true-f32 mode. ``target_spectrum`` is (K,), or (F, K) with
     ``num_frames`` = F (multi-frame fitness); with the run axis (B, F, K),
     or (B, K) at one frame. On CUDA tensors this launches the B1 kernel once
     for all runs (counted in ``fused_synth_fitness.launches``, and by mode in
@@ -676,7 +710,8 @@ def fused_synth_fitness(
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     nruns = runs or 1
-    if dft_scale == 0.0:
+    mode = operand_mode(dft_packed.dtype, dft_scale)
+    if mode == "f32":
         scratch = torch.empty((f32_scratch_floats(pop, n, num_frames, nruns),),
                               dtype=torch.float32, device=dev)
         err = library().pmfm_fused_synth_fitness_f32(
@@ -684,13 +719,14 @@ def fused_synth_fitness(
             fitness.data_ptr(), scratch.data_ptr(), scratch.numel(), stream,
         )
     else:
-        err = library().pmfm_fused_synth_fitness(
-            params.data_ptr(), pop, nruns, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
-            fitness.data_ptr(), stream,
-        )
+        launcher = (library().pmfm_fused_synth_fitness if mode == "int8"
+                    else library().pmfm_fused_synth_fitness_bf16)
+        err = launcher(params.data_ptr(), pop, nruns, sp, dft_packed.data_ptr(),
+                       target_spectrum.data_ptr(), fitness.data_ptr(), stream)
     check(err, "fused_synth_fitness")
     fused_synth_fitness.launches += 1
-    fused_synth_fitness.launches_by[launch_mode(topology, dft_scale, num_frames, runs)] += 1
+    fused_synth_fitness.launches_by[
+        launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
     return fitness
 
 

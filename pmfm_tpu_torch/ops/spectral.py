@@ -30,12 +30,17 @@ kernel (B4) with audio it has already windowed.
 card), where ``"auto"`` and non-factorable ``"dft"`` requests fall back to it
 as in the reference.
 
-The multi-frame spectra and the operand disk cache are not ported yet
-(ROADMAP Queue A items 6 and 7).
+The operand disk cache (``make_spectrum_ops(cache_dir=...)``, the config's
+``ESConfig.operand_cache_dir``): at n >= ``OPERAND_CACHE_MIN_N`` the host's
+float64 trig build is saved to, and loaded from, one npz file a (n, bins,
+dtype) in the reference's file names and layout, so a file either package
+writes loads in the other.
 """
 from __future__ import annotations
 
 import math
+import os
+import tempfile
 import warnings
 from typing import NamedTuple
 
@@ -197,6 +202,94 @@ def _build_dft_operands(n, num_bins, w, norm, int8_mode, out_dtype):
     return cos_out, sin_out, packed
 
 
+# --- the operand disk cache (large frames) -----------------------------------
+# The float64 trig build above is host-bound (tens of seconds at n 16384) and
+# reruns in every process that builds a large-frame config. The cache keeps
+# the reference's file names (``dftops_v{version}_n{n}_k{bins}_{dtype}[_int8]
+# .npz``) and layout (bf16 arrays as their uint16 bit patterns), so a file
+# written by either package loads in the other. Bump the version whenever
+# the operand arithmetic changes (window, norm placement, quantisation): it
+# invalidates every file, the reference's as well.
+OPERAND_BUILD_VERSION = 1
+OPERAND_CACHE_MIN_N = 16384
+
+
+def _operand_cache_file(cache_dir, n, num_bins, out_dtype, int8_mode):
+    """The cache file of the operands of ``n``-point frames and ``num_bins``
+    bins at ``out_dtype`` (``"float32"`` or ``"bfloat16"``; the int8 mode's
+    is ``"bfloat16"`` with ``int8_mode``)."""
+    name = (f"dftops_v{OPERAND_BUILD_VERSION}_n{n}_k{num_bins}_"
+            f"{out_dtype}{'_int8' if int8_mode else ''}.npz")
+    return os.path.join(cache_dir, name)
+
+
+def _load_operand_cache(cache_dir, n, num_bins, out_dtype, int8_mode):
+    """``(cos_out, sin_out, packed)`` as ``_build_dft_operands`` returns them,
+    from the cache file, or None where there is none or it does not hold
+    every array at its shape and dtype (a stale, partial or corrupt file is
+    rebuilt, never taken in part)."""
+    path = _operand_cache_file(cache_dir, n, num_bins, out_dtype, int8_mode)
+    if not os.path.exists(path):
+        return None
+    bf16 = out_dtype == "bfloat16"
+    try:
+        with np.load(path) as z:
+            cos_out, sin_out = z["cos"], z["sin"]
+            packed = z["packed"] if "packed" in z else None
+    except Exception:  # a truncated or corrupt npz: rebuild and overwrite
+        return None
+    word = np.uint16 if bf16 else np.float32
+    if (cos_out.shape != (n, num_bins) or sin_out.shape != (n, num_bins)
+            or cos_out.dtype != word or sin_out.dtype != word):
+        return None
+    if int8_mode or n % 2 == 0:  # the build makes packed whenever n is even
+        want = np.int8 if int8_mode else word
+        if packed is None or packed.shape != (2 * num_bins, n // 2) or packed.dtype != want:
+            return None
+    if bf16:
+        cos_out, sin_out = cos_out.view(np.int16), sin_out.view(np.int16)
+        if packed is not None and not int8_mode:
+            packed = packed.view(np.int16)
+    return cos_out, sin_out, packed
+
+
+def _save_operand_cache(cache_dir, n, num_bins, out_dtype, int8_mode, cos_out, sin_out, packed):
+    """Write the operands to their cache file: 2-byte arrays (bf16 bit
+    patterns) as uint16, through a temporary file and an atomic
+    ``os.replace``, so a concurrent reader never sees half a file. A failed
+    write leaves no file and is not an error (the cache is an optimisation)."""
+    os.makedirs(cache_dir, exist_ok=True)
+    path = _operand_cache_file(cache_dir, n, num_bins, out_dtype, int8_mode)
+    u16 = lambda a: a.view(np.uint16) if a.dtype.itemsize == 2 else a  # noqa: E731
+    arrays = {"cos": u16(cos_out), "sin": u16(sin_out)}
+    if packed is not None:
+        arrays["packed"] = u16(packed)
+    fd, tmp = tempfile.mkstemp(dir=cache_dir, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+
+
+def _dft_operands(n, num_bins, w, norm, int8_mode, out_dtype, cache_dir):
+    """``_build_dft_operands``, through the disk cache where ``cache_dir`` is
+    given and n >= ``OPERAND_CACHE_MIN_N``."""
+    cached = cache_dir is not None and n >= OPERAND_CACHE_MIN_N
+    if cached:
+        loaded = _load_operand_cache(cache_dir, n, num_bins, out_dtype, int8_mode)
+        if loaded is not None:
+            return loaded
+    ops = _build_dft_operands(n, num_bins, w, norm, int8_mode, out_dtype)
+    if cached:
+        _save_operand_cache(cache_dir, n, num_bins, out_dtype, int8_mode, *ops)
+    return ops
+
+
 def _to_tensor(a: np.ndarray, bf16: bool, device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a))
     if bf16:
@@ -246,6 +339,7 @@ def make_spectrum_ops(
     num_bins: int | None = None,
     method: str = "dft",
     dft_dtype: str = "float32",
+    cache_dir: str | None = None,
     *,
     device: str | torch.device = "cuda",
 ) -> SpectrumOps:
@@ -254,6 +348,8 @@ def make_spectrum_ops(
     ``dft_dtype`` is ``"float32"``, ``"bfloat16"`` or ``"int8"``; int8 gives
     the int8 folded kernel operand and keeps bf16 for everything else, as the
     reference does. ``method`` resolves as in ``resolve_method``.
+    ``cache_dir`` keeps the matmul DFT's operands of frames of at least
+    ``OPERAND_CACHE_MIN_N`` samples in the disk cache there.
     """
     dev = resolve_device(device)
     if dft_dtype not in DFT_DTYPES:
@@ -274,7 +370,8 @@ def make_spectrum_ops(
     elif method == "dft":
         if int8_mode and n % 2:
             raise ValueError("the int8 folded engine needs even n")
-        cos_out, sin_out, packed = _build_dft_operands(n, num_bins, w, norm, int8_mode, dft_dtype)
+        cos_out, sin_out, packed = _dft_operands(n, num_bins, w, norm, int8_mode, dft_dtype,
+                                                 cache_dir)
         dft_cos, dft_sin = _to_tensor(cos_out, bf16, dev), _to_tensor(sin_out, bf16, dev)
         if packed is not None:
             dft_packed = _to_tensor(packed, bf16 and not int8_mode, dev)

@@ -161,11 +161,13 @@ def test_b2_f32_plain_is_b1_f32_of_its_offspring():
                                         (3840, True, False), (3584, False, True),
                                         (4096, False, False)])
 def test_shared_memory_limit(n, f32, fits):
-    """One definition of the fused kernels' size limit, in both modes: the
-    stated frame limit, and each mode's block within shared memory."""
-    assert tsf.fits_shared_memory(n, f32) is fits
-    assert tsf.shared_bytes(n, f32) == (92160 if f32 else 32 * n)
-    assert tsf.shared_bytes(n, f32) <= tsf.MAX_SHARED_BYTES
+    """One definition of the fused kernels' size limit, in the int8 and f32
+    modes (the operand's dtype; bf16: tests/test_torch_bf16.py): the stated
+    frame limit, and each mode's block within shared memory."""
+    dtype = torch.float32 if f32 else torch.int8
+    assert tsf.fits_shared_memory(n, dtype) is fits
+    assert tsf.shared_bytes(n, dtype) == (92160 if f32 else 32 * n)
+    assert tsf.shared_bytes(n, dtype) <= tsf.MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize("n", list(range(256, 3585, 256)) + [3840, 4096, 8192])
@@ -173,8 +175,8 @@ def test_int8_frame_limit(n):
     """The int8 B1/B2 (32 candidates a block), which B5 runs, take every
     frame the router sends them, multiples of 256 up to 3584, under the one
     limit."""
-    assert tsf.fits_shared_memory(n, False) is (n <= 3584)
-    assert tsf.shared_bytes(n, False) == 32 * n
+    assert tsf.fits_shared_memory(n, torch.int8) is (n <= 3584)
+    assert tsf.shared_bytes(n, torch.int8) == 32 * n
     assert tsf.CUDA_BLOCK == 32 and tsf.MAX_FUSED_N == 3584
 
 
@@ -182,7 +184,7 @@ def test_int8_frame_limit(n):
 def test_f32_frame_limit(n):
     """The true-f32 B1/B2 keep a+/a- in scratch, but the router's limit stays
     the stated frame limit: n <= 3584, exactly."""
-    assert tsf.fits_shared_memory(n, True) is (n <= 3584)
+    assert tsf.fits_shared_memory(n, torch.float32) is (n <= 3584)
 
 
 @pytest.mark.parametrize("pop,n,k,want", [

@@ -139,6 +139,97 @@ def test_b1_b2_parallel_grid(cuda, dtype, n, topology, sine_order, pop):
     _grid_case(cuda, dtype, n, None, topology, sine_order, pop, limits)
 
 
+@pytest.mark.parametrize("pop", [1, 63, 64, 65, RAGGED_POP])
+@pytest.mark.parametrize("sine_order", [5, 7, 9])
+@pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm8_series", "fm3_parallel"])
+@pytest.mark.parametrize("n,bins", [(256, None), (1024, None), (2048, None), (3584, None),
+                                    (1024, 200)])
+def test_b1_b2_bf16_grid(cuda, n, bins, topology, sine_order, pop):
+    """B1/B2 bf16 (the int8 kernels' one-warp design on the bf16 tensor
+    cores, 64 bytes a candidate-sample pair of shared memory) against their
+    plain versions in the int8 limits over every frame size class (3584:
+    the block's 229,376 bytes), a partial bin pass, population edges,
+    chains and a pair bank; B2's fitness bit-equal to B1's on B2's own
+    offspring (chip_smoke.py phase 26's grid)."""
+    _grid_case(cuda, "bfloat16", n, bins, topology, sine_order, pop,
+               (FIT_MAX_REL, FIT_MEDIAN_REL))
+
+
+@pytest.mark.parametrize("runs,frames", [(1, 1), (4, 1), (2, 8)])
+def test_bf16_run_axis_and_frames_bit_equal_to_lone_launches(cuda, runs, frames):
+    """B1/B2 bf16 launched for B runs at F frames: run r bit-equal to a lone
+    launch, and B1 within the int8 limits of its plain version."""
+    so = make_spectrum_ops(ESConfig(audio_length_log2=11, dft_dtype="bfloat16"), device=cuda)
+    rng = np.random.default_rng(runs * 10 + frames)
+    dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    pop, d = 1000, 6
+    maxs = (3520.0, 8.0) * 3
+    params = dev(rng.random((runs, pop, d)) * np.asarray(maxs))
+    pv, ps = dev(rng.random((runs, 64, d))), dev(rng.uniform(0.02, 0.3, (runs, 64, d)))
+    tgt = dev(rng.uniform(0.0, 50.0, (runs, frames, so.num_bins)))
+    kw = dict(dft_packed=so.dft_packed, dft_scale=0.0, topology="fm3_series", n=2048,
+              pop_block=pop, sine_order=9, num_frames=frames)
+    kw2 = dict(kw, pop=pop, param_mins=(0.0,) * d, param_maxs=maxs)
+    seeds = [kernel_seed(9, r) for r in range(runs)]
+    fb = sf.fused_synth_fitness(params, tgt, **kw)
+    gb = gn.fused_generation(seeds, pv, ps, tgt, **kw2)
+    for r in range(runs):
+        assert _bits_equal(fb[r], sf.fused_synth_fitness(params[r], tgt[r], **kw))
+        lone = gn.fused_generation(seeds[r], pv[r], ps[r], tgt[r], **kw2)
+        assert all(_bits_equal(a[r], b) for a, b in zip(gb, lone))
+    ref = sf.fused_synth_fitness_plain(params, tgt, **kw)
+    rel = (fb - ref).abs() / ref.abs()
+    assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+
+
+@pytest.mark.parametrize("pop", [4096, RAGGED_POP])
+def test_b5_bf16_bit_equal_to_b2_launches(cuda, pop):
+    """G generations of B5 in bf16 == G B2 bf16 launches + the stable
+    selection, bit for bit; evolve with fused_evolve in bf16 is one launch."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    cfg, _, _ = _setup(cuda, pop=pop)
+    cfg = cfg.replace(dft_dtype="bfloat16")
+    so = make_spectrum_ops(cfg, device=cuda)
+    tgt = target_spectrum(synthesize_single(torch.tensor(TRUTH[:6]), 1024, "fm3_series").to(cuda),
+                          so)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pv = torch.rand((64, 6), generator=g, device=cuda)
+    ps = torch.rand((64, 6), generator=g, device=cuda) * 0.3
+    kw = dict(pop=pop, param_mins=cfg.param_mins, param_maxs=cfg.param_maxs,
+              dft_packed=so.dft_packed, dft_scale=0.0, n=1024, pop_block=pop, sine_order=7)
+    seeds = [kernel_seed(6, i) for i in range(8)]
+    args = (pv, ps, pv[0].clone(), torch.tensor(float("inf"), device=cuda), tgt)
+    before = ev.fused_evolve.launches_by["bf16"]
+    out = ev.fused_evolve(seeds, *args, **kw)
+    assert ev.fused_evolve.launches_by["bf16"] == before + 1
+    loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+    assert all(_bits_equal(a, b) for a, b in zip(out, loop))
+    cfg = cfg.replace(fused_evolve=True)
+    final, traj = evolve(init_state(0, cfg, device=cuda), tgt, 20, so, cfg, record_trajectory=True)
+    assert ev.fused_evolve.launches_by["bf16"] == before + 2
+    assert torch.isfinite(traj).all() and float(traj[-1]) < float(traj[0])
+
+
+def test_bench_suite_overall_row_on_the_card(cuda, tmp_path, capsys):
+    """``python -m pmfm_tpu_torch.bench_suite --suite overall --fused`` on
+    the card: the reference's default (bf16) engine through B1's bf16
+    kernel, one CSV row."""
+    import csv
+
+    from pmfm_tpu_torch import bench_suite
+
+    before = sf.fused_synth_fitness.launches_by["bf16"]
+    path = tmp_path / "suite.csv"
+    assert bench_suite.main(["--suite", "overall", "--fused", "--gens", "5",
+                             "--csv", str(path)]) == 0
+    assert sf.fused_synth_fitness.launches_by["bf16"] >= before + 5
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    assert len(rows) == 2 and rows[1][0] == "OverallExecution" and float(rows[1][1]) > 0.0
+    assert "OverallExecution" in capsys.readouterr().out
+
+
 def test_pursuit_cli_runs_on_the_card(cuda, tmp_path, monkeypatch, capsys):
     """python -m pmfm_tpu_torch.cli -j examples/fm3_parallel_match.json on
     the card with each pursuit stage at a tenth of its generations and one
