@@ -75,8 +75,21 @@ through the entry points a user calls, and times each kernel:
   row printed beside the card; the three bf16 kernels' times beside their
   plain versions, their bound and a bf16 GEMM yardstick for the DFT half.
 
+* phases 30-35, fm{k}_parallel banks in B3, B4 and B5 and 20-32 genes in
+  every kernel: B3 (both layouts) and B4 on banks and a chain of 12
+  bit-equal to their plain versions; B5 on fm3_parallel bit-equal to its B2
+  launches with the stable selection (int8, bf16, f32; 8 frames; a run axis
+  of 4); B1/B2 at fm5_parallel, fm8_parallel, fm10_series and fm16_series
+  against their plain versions, the truth first; the fm5_parallel pursuit
+  through ``cli.main`` (examples/fm4_parallel_match.json with a fifth pair,
+  cut as phase 21 cuts), ``evolve`` on fm3_parallel through fused_evolve,
+  synth_fold and synth_stream; the new modes' times and B3's layouts on the
+  banks; phase 35, only when ``--only`` names it, the fm5_parallel pursuit
+  as written.
+
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
-phases and the named ones, and prints no result line.
+phases and the named ones, and prints no result line (``large`` names the
+large-frame inputs that phases 7-11, 33 and 34 need).
 
 One flushed line per phase, ending with its seconds; every time is printed
 beside the card's name and power limit.
@@ -171,7 +184,10 @@ PROFILED_B5_CALLS = 3
 # launches are read on the refine tail, the parallel entries' in phase 21's
 # fm3_parallel run, from the wrappers' launches_by)
 # and the multi-frame (_frames) and run-axis (_runs) modes of B1/B2/B5, each
-# with its launches from the path of phase 24 that runs it
+# with its launches from the path of phase 24 that runs it; the bf16 mode;
+# B3, B4 and B5 on a bank (_parallel, launches from phase 33's paths) and
+# B1/B2 at 20 genes (_wide: fm5_parallel int8, launches from phase 33's
+# pursuit)
 KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream",
            "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve", "scan_synth",
            "fused_synth_fitness_parallel", "fused_generation_parallel",
@@ -180,7 +196,9 @@ KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused
            "fused_synth_fitness_frames_f32", "fused_generation_frames_f32", "fused_evolve_frames",
            "fused_synth_fitness_runs", "fused_generation_runs", "fused_synth_fitness_runs_f32",
            "fused_generation_runs_f32", "fused_evolve_runs",
-           "fused_synth_fitness_bf16", "fused_generation_bf16", "fused_evolve_bf16")
+           "fused_synth_fitness_bf16", "fused_generation_bf16", "fused_evolve_bf16",
+           "fused_synth_fold_parallel", "fused_synth_stream_parallel", "fused_evolve_parallel",
+           "fused_synth_fitness_wide", "fused_generation_wide")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -241,7 +259,9 @@ PARALLEL_TRUTH = (3076.48, 2.0, 3016.64, 0.9, 1936.0, 2.4, 2182.4, 0.8,
                   2499.2, 1.6, 1584.0, 0.7, 1161.6, 3.2, 985.6, 0.6)
 PARALLEL_TOPOLOGIES = ("fm2_parallel", "fm3_parallel", "fm4_parallel")
 PARALLEL_SINE_ORDERS = (7, 9)
-PARALLEL_GRID_POPS = (1, 63, 64, 65, 4001)
+# (three populations keep the whole run near ~650 s;
+# tests/test_torch_gpu.py::test_b1_b2_parallel_grid holds five)
+PARALLEL_GRID_POPS = (1, 65, 4001)
 PARALLEL_TIMED = PARALLEL_TOPOLOGIES + ("fm3_series",)
 # phase 21: the pursuit solver through cli.main in PURSUIT_DIR: the first
 # example as written, its first chunk to a relative spectral error below
@@ -315,11 +335,77 @@ SUITE_GENERATIONS = 50
 # kernels' times at the bench shape (B5 over BF16_B5_GENERATIONS)
 BF16_FRAMES, BF16_RUNS = 8, 4
 BF16_TOPOLOGIES = GRID_TOPOLOGIES + ("fm3_parallel",)
+# phase 26's grid populations (three of GRID_POPS keep the whole run near
+# ~650 s; tests/test_torch_gpu.py::test_b1_b2_bf16_grid holds all five)
+BF16_GRID_POPS = (1, 65, 4001)
 BF16_B5_GENERATIONS = 10
 CACHE_LOG2N = 14
 SUITE_DIR = "build/chip_smoke_suite"
 SUITE_SUITES = ("all",)
 SUITE_ARGS = ("--fused", "--gens", "5")
+
+# phases 30-35 (the rest of ROADMAP Queue B item 3): fm{k}_parallel banks in
+# B3, B4 and B5, and 20 to 32 genes (fm5_parallel's compile-time bank; the
+# wide codes: chains of 9-16 oscillators, banks of 6-8 pairs) in every
+# kernel. Phase 30 holds B3 over BANK_FOLD_GRID (each bank and each sine
+# order, each frame of the synth_fold route; int8 and bf16, both layouts)
+# and B4 over BANK_STREAM_GRID (bf16 and f32; 65536 the cell (d) frame)
+# bit-equal to their plain versions at LARGE_GRID_POPS, a wide chain in each
+# (B4's at a short frame: the plain version's cost grows with n x chain)
+BANK_FOLD_GRID = (("fm2_parallel", 7, 4096), ("fm3_parallel", 9, 8192),
+                  ("fm4_parallel", 9, 4096), ("fm5_parallel", 7, 8192),
+                  ("fm3_parallel", 7, 16384), ("fm12_series", 9, 4096))
+BANK_STREAM_GRID = (("fm2_parallel", 9, 65536), ("fm3_parallel", 7, 65536),
+                    ("fm4_parallel", 9, 32768), ("fm5_parallel", 7, 32768),
+                    ("fm12_series", 9, 8192))
+# phase 31: B5 on fm3_parallel at PARALLEL_CONFIG's shape (P 8192, mu 64,
+# n 1024, sine order 9) in int8, bf16 and f32, bit-equal to
+# B5_BANK_GENERATIONS launches of B2 with the stable selection, for each
+# (runs, frames) of B5_BANK_SETTINGS
+B5_BANK_SETTINGS = ((None, 1), (None, STFT_FRAMES), (4, 1))
+B5_BANK_GENERATIONS = 10
+# phase 32: B1/B2 at 20-32 genes against their plain versions at
+# PARALLEL_CONFIG's shape in int8, bf16 and f32, each truth planted first:
+# fm5_parallel (examples/fm4_parallel_match.json's pairs and
+# FM5_FIFTH_PAIR, benchmarks/pursuit_fm5_parallel.json's true_genes[16:20]
+# times the ranges), three more pairs for fm8_parallel, and chains of 10 and
+# 16 with indices up to 0.225 and 0.1125 (a long chain with larger ones is
+# chaotic: synthesize_single's target and the kernels' synthesis of its own
+# truth part, by half the target's energy at indices up to 0.45 on 16)
+FM5_BASE_CONFIG = "examples/fm4_parallel_match.json"
+FM5_FIFTH_PAIR = (2182.4, 1.2, 3273.6, 0.5)
+WIDE_TRUTHS = {
+    "fm5_parallel": PARALLEL_TRUTH + FM5_FIFTH_PAIR,
+    "fm8_parallel": PARALLEL_TRUTH + FM5_FIFTH_PAIR + (1320.0, 1.8, 2640.0, 0.4,
+                                                       880.0, 2.2, 1760.0, 0.3,
+                                                       3300.0, 0.9, 1650.0, 0.35),
+    "fm10_series": (3078.0, 0.2, 3015.0, 0.15, 3141.0, 0.1, 2500.0, 0.175, 1800.0, 0.125,
+                    1200.0, 0.15, 900.0, 0.225, 2200.0, 0.1, 1500.0, 0.2, 2800.0, 0.15),
+    "fm16_series": (3078.0, 0.1, 3015.0, 0.075, 3141.0, 0.05, 2500.0, 0.0875, 1800.0, 0.0625,
+                    1200.0, 0.075, 900.0, 0.1125, 2200.0, 0.05, 1500.0, 0.1, 2800.0, 0.075,
+                    2000.0, 0.0625, 1100.0, 0.075, 2600.0, 0.05, 1700.0, 0.0875, 3300.0, 0.075,
+                    2400.0, 0.1125),
+}
+# phase 33: the paths: the fm5_parallel pursuit through cli.main cut as
+# phase 21 cuts (PURSUIT_GENERATION_CUT, one attempt); evolve on
+# fm3_parallel with fused_evolve (B5) at PARALLEL_CONFIG's shape in int8 and
+# f32, BANK_EVOLVE_GENERATIONS generations; evolve on fm3_parallel at cell
+# (c)'s shape (n 8192, P 2^15: synth_fold) and cell (d)'s (n 65536, P 2^13:
+# synth_stream), BANK_LARGE_GENERATIONS generations each
+BANK_EVOLVE_GENERATIONS = 50
+BANK_LARGE_GENERATIONS = 5
+# phase 34: the new modes' times (B5 over B5_BANK_GENERATIONS) and B3's two
+# layouts on banks over BANK_LAYOUT_SHAPES x FOLD_LAYOUT_POPS (the wrapper's
+# FOLD_TP_BELOW_POP bank rows), BANK_LAYOUT_LAUNCHES launches each
+BANK_LAYOUT_SHAPES = tuple((t, 7, 8192, m) for t in (
+    "fm2_parallel", "fm3_parallel", "fm4_parallel", "fm5_parallel") for m in (True, False)) + (
+    ("fm3_parallel", 7, 4096, True), ("fm3_parallel", 7, 16384, True))
+BANK_LAYOUT_LAUNCHES = 10
+# phase 35 (only with --only 35, not in the whole run): the fm5_parallel
+# pursuit through cli.main as written, its first chunk below
+# FM5_TARGET_REL (its targetRel)
+FM5_TARGET_REL = 0.03
+FM5_WATCHDOG_S = 2400
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 and
 # bf16 FLOP/s
@@ -513,6 +599,51 @@ def bound(bytes_moved: float, int8_ops: float, f32_ops: float, bf16_ops: float =
     return times[by] * 1e3, by
 
 
+def pursuit_cut(load):
+    """A ``load_config`` that cuts a pursuit config's stages to a
+    PURSUIT_GENERATION_CUT-th of their generations (at least 1) and one
+    attempt."""
+    import dataclasses
+    import inspect
+
+    from pmfm_tpu_torch.es import staged
+    from pmfm_tpu_torch.ops.synthesis import series_ops
+
+    def cut(path):
+        rc = load(path)
+        series = (series_ops(rc.es.topology) or 0) >= 4
+        keys = staged.SERIES_CONFIG_KEY_MAP if series else staged.CONFIG_KEY_MAP
+        defaults = inspect.signature(
+            staged._series_attempt if series else staged._pursuit_attempt).parameters
+        p = dict(rc.pursuit, maxAttempts=1)
+        for key, snake in keys.items():
+            if key.endswith("Generations"):
+                p[key] = max(1, int(p.get(key, defaults[snake].default))
+                             // PURSUIT_GENERATION_CUT)
+        return dataclasses.replace(rc, pursuit=tuple(sorted(p.items())))
+
+    return cut
+
+
+def fm5_parallel_config(root: str) -> dict:
+    """examples/fm4_parallel_match.json as written with a fifth pair: the
+    20-gene fm5_parallel family of the reference's pursuit benchmark
+    (benchmarks/pursuit_fm5_parallel.json), its fifth true pair
+    FM5_FIFTH_PAIR, built here (no example file holds it)."""
+    import os
+
+    with open(os.path.join(root, FM5_BASE_CONFIG)) as f:
+        raw = json.load(f)
+    ev, ty = raw["evolutionary"], raw["type"]
+    ev["numDimensions"] = 20
+    ev["paramMins"] = list(ev["paramMins"]) + [0, 0, 0, 0]
+    ev["paramMaxs"] = list(ev["paramMaxs"]) + [3520, 8, 3520, 1]
+    ty["params"] = list(ty["params"]) + list(FM5_FIFTH_PAIR)
+    raw["tpu"]["topology"] = "fm5_parallel"
+    raw["general"]["outputAudioPath"] = "output_audio/output_fm5_parallel.wav"
+    return raw
+
+
 class Smoke:
     def __init__(self, device: str = "cuda", only=None):
         self.dev = torch.device(device)
@@ -561,6 +692,9 @@ class Smoke:
         log(f"nvcc: built={res['built']} in {res['seconds']:.1f}s -> {res['path']}")
         for name, regs, spill in ptxas_summary(res["log"]):
             print(f"  ptxas {name}: {regs} registers, {spill} bytes spill stores", flush=True)
+        for ln in res["log"].splitlines():
+            if ln.startswith("nvcc "):
+                print(f"  {ln}", flush=True)
         _build.library()
 
     # -- shared inputs --------------------------------------------------------
@@ -1009,13 +1143,13 @@ class Smoke:
         self.kernels["fused_synth_fold"] = {"max_abs_err": worst}
         self.fold_grid()
 
-    def fold_grid(self):
-        """B3 bit-equal to its plain version over FOLD_GRID in both modes and
+    def fold_grid(self, grid=FOLD_GRID):
+        """B3 bit-equal to its plain version over ``grid`` in both modes and
         both layouts, at each of LARGE_GRID_POPS."""
         from pmfm_tpu_torch.kernels import synth_fold as sfo
 
         t0, checked, big = time.perf_counter(), 0, max(LARGE_GRID_POPS)
-        for topology, order, n in FOLD_GRID:
+        for topology, order, n in grid:
             t1 = time.perf_counter()
             params = self.grid_params(topology, big, n + order)
             for int8 in (True, False):
@@ -1035,13 +1169,13 @@ class Smoke:
                 f"bit-equal at P {LARGE_GRID_POPS} ({time.perf_counter() - t1:.1f}s)")
         log(f"B3 grid: {checked} settings bit-equal in {time.perf_counter() - t0:.1f}s")
 
-    def fold_layouts(self):
-        """B3's two layouts timed over FOLD_LAYOUT_SHAPES x FOLD_LAYOUT_POPS,
-        each beside the one the wrapper takes."""
+    def fold_layouts(self, shapes=FOLD_LAYOUT_SHAPES, launches=TIMED_LAUNCHES):
+        """B3's two layouts timed over ``shapes`` x FOLD_LAYOUT_POPS (the
+        median of ``launches``), each beside the one the wrapper takes."""
         from pmfm_tpu_torch.kernels import synth_fold as sfo
 
         big = max(FOLD_LAYOUT_POPS)
-        for topology, order, n, int8 in FOLD_LAYOUT_SHAPES:
+        for topology, order, n, int8 in shapes:
             params = self.grid_params(topology, big, n + order)
             kw = dict(topology=topology, n=n, sine_order=order, dft_scale=1e-5 if int8 else 0.0)
             for pop in FOLD_LAYOUT_POPS:
@@ -1049,7 +1183,7 @@ class Smoke:
                 t = {}
                 for tp in (True, False):
                     with fold_layout(sfo, tp):
-                        t[tp] = cuda_ms(lambda: sfo.fused_synth_fold(p, **kw), TIMED_LAUNCHES)
+                        t[tp] = cuda_ms(lambda: sfo.fused_synth_fold(p, **kw), launches)
                 pick = sfo.fold_geometry(pop, n, int8, topology)["time_parallel"]
                 log(f"B3 layouts ({topology}, sine order {order}, n={n}, "
                     f"{'int8' if int8 else 'bf16'}, P={pop}): time-parallel {t[True]:.4f} ms, "
@@ -1058,14 +1192,13 @@ class Smoke:
                     f"{100 * (t[pick] / min(t.values()) - 1):.1f}% over the faster {card()}")
 
     def grid_params(self, topology, pop, seed):
-        """``pop`` candidates of ``topology`` uniform in (0, 3520 Hz) x (0, 8)
-        pairs, from ``seed``, on the card."""
-        from pmfm_tpu_torch.ops.synthesis import topology_dims
-
-        d = topology_dims(topology)
-        maxs = np.asarray((3520.0, 8.0) * (d // 2), np.float32)
+        """``pop`` candidates of ``topology`` uniform in ``param_maxs``' ranges
+        ((0, 3520 Hz) x (0, 8) an operator, amplitude (0, 1) a pair), from
+        ``seed``, on the card."""
+        maxs = np.asarray(param_maxs(topology), np.float32)
         rng = np.random.default_rng(seed)
-        return torch.from_numpy((rng.random((pop, d)) * maxs).astype(np.float32)).to(self.dev)
+        cand = (rng.random((pop, len(maxs))) * maxs).astype(np.float32)
+        return torch.from_numpy(cand).to(self.dev)
 
     # -- 8 ------------------------------------------------------------------
     def b4_vs_plain(self):
@@ -1097,8 +1230,8 @@ class Smoke:
         self.kernels["fused_synth_stream"] = {"max_abs_err": worst}
         self.stream_grid()
 
-    def stream_grid(self):
-        """B4 bit-equal to its plain version over STREAM_GRID in both modes,
+    def stream_grid(self, grid=STREAM_GRID):
+        """B4 bit-equal to its plain version over ``grid`` in both modes,
         at each of LARGE_GRID_POPS. The plain version runs once a setting in
         f32: its bf16 output is the same f32 audio rounded by ``.to`` (it
         writes ``audio.to(out.dtype)``), so the kernel's bf16 audio is held
@@ -1107,7 +1240,7 @@ class Smoke:
         from pmfm_tpu_torch.ops import hann_window
 
         t0, checked, big = time.perf_counter(), 0, max(LARGE_GRID_POPS)
-        for topology, order, n in STREAM_GRID:
+        for topology, order, n in grid:
             t1 = time.perf_counter()
             params = self.grid_params(topology, big, n + order)
             win = torch.from_numpy(hann_window(n).astype(np.float32)).to(self.dev)
@@ -2204,18 +2337,10 @@ class Smoke:
         best a phase-0 model can reach there, about). First the f32 engine's
         peak memory per candidate sample at the block stages' shapes, the
         calibration of ``es.staged._batch_width_cap``."""
-        import dataclasses
-        import inspect
-        import io
         import os
         import shutil
 
         import pmfm_tpu_torch.io
-        from pmfm_tpu_torch import cli
-        from pmfm_tpu_torch.es import staged
-        from pmfm_tpu_torch.kernels import generation as gn
-        from pmfm_tpu_torch.kernels import synth_fitness as sf
-        from pmfm_tpu_torch.ops.synthesis import series_ops
 
         self.engine_memory()
         root = os.getcwd()
@@ -2223,66 +2348,14 @@ class Smoke:
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         load = pmfm_tpu_torch.io.load_config
-
-        def cut(path):  # each stage's generations / PURSUIT_GENERATION_CUT, one attempt
-            rc = load(path)
-            series = (series_ops(rc.es.topology) or 0) >= 4
-            keys = staged.SERIES_CONFIG_KEY_MAP if series else staged.CONFIG_KEY_MAP
-            defaults = inspect.signature(
-                staged._series_attempt if series else staged._pursuit_attempt).parameters
-            p = dict(rc.pursuit, maxAttempts=1)
-            for key, snake in keys.items():
-                if key.endswith("Generations"):
-                    p[key] = max(1, int(p.get(key, defaults[snake].default))
-                                 // PURSUIT_GENERATION_CUT)
-            return dataclasses.replace(rc, pursuit=tuple(sorted(p.items())))
+        cut = pursuit_cut(load)
 
         try:
             for config in (PURSUIT_AS_WRITTEN,) + PURSUIT_CUT:
                 as_written = config == PURSUIT_AS_WRITTEN
-                pmfm_tpu_torch.io.load_config = load if as_written else cut
-                rc = pmfm_tpu_torch.io.load_config(os.path.join(root, config))
-                out = io.StringIO()
-                os.chdir(work)
-                torch.cuda.synchronize()
-                self.reset_counts()
-                t0 = time.perf_counter()
-                try:
-                    with contextlib.redirect_stdout(out):
-                        code = cli.main(["-j", os.path.join(root, config)])
-                finally:
-                    os.chdir(root)
-                    pmfm_tpu_torch.io.load_config = load
-                seconds = time.perf_counter() - t0
-                text = out.getvalue()
-                counts = {k: v for k, v in self.read_counts().items() if v}
-                modes = {"B1": dict(sf.fused_synth_fitness.launches_by),
-                         "B2": dict(gn.fused_generation.launches_by)}
-                lines = [ln for ln in text.splitlines() if ln.startswith("pursuit chunk ")]
-                engine = next((ln for ln in text.splitlines() if ln.startswith("engine: ")), "")
-                cfg = rc.es
-                wav = os.path.join(work, rc.output_audio_path)
-                csv = os.path.join(work, f"gpulog(pop={cfg.population_size}gens="
-                                         f"{rc.num_generations}audioBlockSize={cfg.n_samples}).csv")
-                how = "as written" if as_written else (
-                    f"stage generations / {PURSUIT_GENERATION_CUT}, one attempt: "
-                    f"{dict(rc.pursuit)}")
-                log(f"pursuit {config} ({how}): exit {code} in {seconds:.2f}s (stage rows "
-                    f"included), {engine!r}; launches {counts}, B1/B2 by mode {modes} {card()}")
-                truth = self.truth_rel(rc)
-                for i, ln in enumerate(lines):
-                    print(f"  {ln}; the true parameters' own error on this chunk "
-                          f"{truth[i]:.6g}", flush=True)
+                code, counts, modes, lines = self.pursuit_cli(
+                    os.path.join(root, config), work, load if as_written else cut, as_written)
                 require(code == 0 and lines, f"{config}: exit {code}")
-                require(os.path.exists(wav) and os.path.exists(csv), f"{config}: no WAV or CSV")
-                for i, ln in enumerate(lines):
-                    m = re.search(r"f32 fitness (\S+), silent estimate (\S+), relative spectral "
-                                  r"error (\S+)", ln)
-                    f32, silent, rel = (float(x) for x in m.groups())
-                    require(np.isfinite(f32) and f32 <= silent, f"{config}: worse than silence")
-                    if as_written and i == 0:
-                        require(rel < PURSUIT_MAX_REL,
-                                f"{config}: relative spectral error {rel} >= {PURSUIT_MAX_REL}")
                 if as_written:
                     require(modes["B2"].get("parallel_int8", 0) > 0
                             and modes["B2"].get("parallel_f32", 0) > 0
@@ -2301,6 +2374,68 @@ class Smoke:
                     require(counts.get("fused_generation", 0) > 0, f"{config}: B2 not launched")
         finally:
             shutil.rmtree(work, ignore_errors=True)
+
+    def pursuit_cli(self, path, work, loader, as_written, max_rel=PURSUIT_MAX_REL):
+        """``cli.main(["-j", path])`` in ``work`` with ``loader`` in place of
+        ``pmfm_tpu_torch.io.load_config``: exit code, launches, B1/B2
+        launches by mode and the ``pursuit chunk`` lines, each printed
+        beside the true parameters' own relative spectral error on that
+        chunk. Every chunk's final f32 fitness must be finite and no worse
+        than its silent estimate, the WAV and the CSV written; ``as_written``
+        also holds the first chunk below ``max_rel``."""
+        import io
+        import os
+
+        import pmfm_tpu_torch.io
+        from pmfm_tpu_torch import cli
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        root, load = os.getcwd(), pmfm_tpu_torch.io.load_config
+        pmfm_tpu_torch.io.load_config = loader
+        try:
+            rc = loader(path)
+            out = io.StringIO()
+            os.chdir(work)
+            torch.cuda.synchronize()
+            self.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                code = cli.main(["-j", path])
+        finally:
+            os.chdir(root)
+            pmfm_tpu_torch.io.load_config = load
+        seconds = time.perf_counter() - t0
+        text = out.getvalue()
+        counts = {k: v for k, v in self.read_counts().items() if v}
+        modes = {"B1": dict(sf.fused_synth_fitness.launches_by),
+                 "B2": dict(gn.fused_generation.launches_by)}
+        lines = [ln for ln in text.splitlines() if ln.startswith("pursuit chunk ")]
+        engine = next((ln for ln in text.splitlines() if ln.startswith("engine: ")), "")
+        cfg = rc.es
+        wav = os.path.join(work, rc.output_audio_path)
+        csv = os.path.join(work, f"gpulog(pop={cfg.population_size}gens="
+                                 f"{rc.num_generations}audioBlockSize={cfg.n_samples}).csv")
+        how = "as written" if as_written else (
+            f"stage generations / {PURSUIT_GENERATION_CUT}, one attempt: {dict(rc.pursuit)}")
+        log(f"pursuit {os.path.relpath(path, root)} ({how}): exit {code} in {seconds:.2f}s "
+            f"(stage rows included), {engine!r}; launches {counts}, B1/B2 by mode {modes} "
+            f"{card()}")
+        truth = self.truth_rel(rc)
+        for i, ln in enumerate(lines):
+            print(f"  {ln}; the true parameters' own error on this chunk {truth[i]:.6g}",
+                  flush=True)
+        if code != 0 or not lines:
+            return code, counts, modes, lines
+        require(os.path.exists(wav) and os.path.exists(csv), f"{path}: no WAV or CSV")
+        for i, ln in enumerate(lines):
+            m = re.search(r"f32 fitness (\S+), silent estimate (\S+), relative spectral "
+                          r"error (\S+)", ln)
+            f32, silent, rel = (float(x) for x in m.groups())
+            require(np.isfinite(f32) and f32 <= silent, f"{path}: worse than silence")
+            if as_written and i == 0:
+                require(rel < max_rel, f"{path}: relative spectral error {rel} >= {max_rel}")
+        return code, counts, modes, lines
 
     def truth_rel(self, rc):
         """The relative spectral error of a params config's true parameters
@@ -2880,7 +3015,8 @@ class Smoke:
             if i == 0:
                 self.kernels["fused_synth_fitness_bf16"] = {"max_abs_err": a1}
                 self.kernels["fused_generation_bf16"] = {"max_abs_err": a2}
-        self.grid("bfloat16", GRID_POPS, limits, SEED + 160, 16000, topologies=BF16_TOPOLOGIES)
+        self.grid("bfloat16", BF16_GRID_POPS, limits, SEED + 160, 16000,
+                  topologies=BF16_TOPOLOGIES)
         # the run axis at AUDIO_CONFIG's shape, one frame
         cfg = self.bf16_settings()[2][1]
         so = make_spectrum_ops(cfg, device=self.dev)
@@ -3108,6 +3244,374 @@ class Smoke:
             f"{self.kernels.get('fused_synth_fitness', {}).get('ms', float('nan')):.4f} ms "
             f"{card()}")
 
+    # -- 30 -----------------------------------------------------------------
+    def bank_large(self):
+        """B3 and B4 on fm{k}_parallel banks and on a wide chain, bit-equal to
+        their plain versions: B3 over BANK_FOLD_GRID (int8 and bf16, both
+        layouts), B4 over BANK_STREAM_GRID (bf16 and f32), at each of
+        LARGE_GRID_POPS."""
+        self.fold_grid(BANK_FOLD_GRID)
+        self.stream_grid(BANK_STREAM_GRID)
+        for name in ("fused_synth_fold_parallel", "fused_synth_stream_parallel"):
+            self.kernels.setdefault(name, {})["max_abs_err"] = 0.0  # bit-equal, or it raised
+
+    # -- 31 -----------------------------------------------------------------
+    def bank_b5(self):
+        """B5 on fm3_parallel (PARALLEL_CONFIG's shape) in int8, bf16 and f32,
+        for each of B5_BANK_SETTINGS (one run or four, one frame or eight):
+        one call bit-equal to B5_BANK_GENERATIONS launches of B2's bank
+        kernel with the stable selection (``fused_evolve_plain`` given the B2
+        wrapper)."""
+        from pmfm_tpu_torch.es import kernel_seed, make_spectrum_ops
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+
+        base = load_config(PARALLEL_CONFIG).es
+        g = B5_BANK_GENERATIONS
+        for mode, cfg in (("int8", base), ("bf16", base.replace(dft_dtype="bfloat16")),
+                          ("f32", base.refine_config())):
+            so = make_spectrum_ops(cfg, device=self.dev)
+            pop, mu, d = cfg.population_size, cfg.num_parents, cfg.num_dimensions
+            for runs, frames in B5_BANK_SETTINGS:
+                t0 = time.perf_counter()
+                rng = np.random.default_rng(SEED + 3000 + frames + (runs or 0))
+                lead = () if runs is None else (runs,)
+                t = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+                pv, ps = t(rng.random(lead + (mu, d))), t(rng.uniform(0.02, 0.3, lead + (mu, d)))
+                tgt = t(rng.uniform(0.0, 50.0, lead + (frames, so.num_bins)))
+                kw = dict(self.kw_b2(dict(cfg=cfg, so=so)), num_frames=frames)
+                if runs is None:
+                    seeds = [kernel_seed(SEED + 3100, i) for i in range(g)]
+                    best = (pv[0].clone(), torch.tensor(float("inf"), device=self.dev))
+                else:
+                    seeds = [[kernel_seed(SEED + 3100 + r, i) for i in range(g)]
+                             for r in range(runs)]
+                    best = (pv[:, 0].clone(), torch.full((runs,), float("inf"), device=self.dev))
+                args = (pv, ps, *best, tgt)
+                before = ev.fused_evolve.launches
+                out = ev.fused_evolve(seeds, *args, **kw)
+                require(ev.fused_evolve.launches == before + 1, "B5 is not one launch")
+                loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+                same = all(bits_equal(a, b) for a, b in zip(out, loop))
+                log(f"B5 bank ({mode}, {cfg.topology}, n={cfg.n_samples}, P={pop}, mu={mu}, "
+                    f"runs {runs or 1}, F {frames}): {g} generations in one call bit-equal to {g} "
+                    f"B2 launches + the stable selection: {same} "
+                    f"({time.perf_counter() - t0:.1f}s)")
+                require(same, f"B5 on a bank differs from its B2 launches ({mode}, runs {runs}, "
+                              f"F {frames})")
+                require(bool(torch.isfinite(out[5]).all()), "B5 trajectory not finite")
+                if mode == "int8" and runs is None and frames == 1:
+                    self.kernels.setdefault("fused_evolve_parallel", {})["max_abs_err"] = 0.0
+
+    # -- 32 -----------------------------------------------------------------
+    def wide_kernels(self):
+        """B1/B2 at 20-32 genes (each of WIDE_TRUTHS) against their plain
+        versions at PARALLEL_CONFIG's shape in int8, bf16 (the int8 limits)
+        and f32, the truth planted first: B2's values bit-equal and its
+        fitness bit-equal to B1's on its own offspring."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        base = load_config(PARALLEL_CONFIG).es
+        limits = {"int8": (FIT_MAX_REL, FIT_MEDIAN_REL), "bf16": (FIT_MAX_REL, FIT_MEDIAN_REL),
+                  "f32": (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL)}
+        self.wide = {}
+        for i, (topology, truth) in enumerate(WIDE_TRUTHS.items()):
+            d = topology_dims(topology)
+            top = base.replace(topology=topology, num_dimensions=d, param_mins=(0.0,) * d,
+                               param_maxs=param_maxs(topology))
+            for j, (mode, cfg) in enumerate((("int8", top),
+                                             ("bf16", top.replace(dft_dtype="bfloat16")),
+                                             ("f32", top.refine_config()))):
+                t0 = time.perf_counter()
+                c = self.inputs(cfg, SEED + 3200 + 3 * i + j, truth)
+                self.wide[topology, mode] = c
+                where = (f"{mode}, {topology}, n={cfg.n_samples}, P={cfg.population_size}, "
+                         f"sine order {cfg.sine_order}")
+                e1, e2, fk, a1, a2 = self.fused_check(
+                    where, c["params"], c["pv"], c["ps"], c["target"], self.kw_b1(c),
+                    self.kw_b2(c), kernel_seed(SEED, 3200 + 3 * i + j), limits[mode])
+                rank = int(torch.argmin(fk))
+                log(f"B1/B2 wide {where}: fitness max rel B1 {e1:.3e} B2 {e2:.3e} (limits "
+                    f"{limits[mode][0]:g} / {limits[mode][1]:g}), median {self.last_median[0]:.3e}"
+                    f" / {self.last_median[1]:.3e}; B2 values bit-equal, B2 fitness bit-equal "
+                    f"to B1 on its offspring; truth rank {rank} ({time.perf_counter() - t0:.1f}s)")
+                require(rank == 0, f"{where}: the known-params truth does not rank first")
+                if topology == "fm5_parallel" and mode == "int8":
+                    self.kernels["fused_synth_fitness_wide"] = {"max_abs_err": a1}
+                    self.kernels["fused_generation_wide"] = {"max_abs_err": a2}
+
+    # -- 33 -----------------------------------------------------------------
+    def bank_paths(self):
+        """The paths that run the new modes, each through its entry point:
+        the fm5_parallel pursuit through ``cli.main`` (FM5_BASE_CONFIG with a
+        fifth pair, cut as phase 21 cuts), whose polishes run B2 int8 at
+        D 20; ``evolve`` on fm3_parallel with fused_evolve (one B5 call) in
+        int8 and f32; ``evolve`` on fm3_parallel through synth_fold (n 8192,
+        P 2^15) and synth_stream (n 65536, P 2^13), each route named by
+        ``active_engine``."""
+        import os
+        import shutil
+
+        import pmfm_tpu_torch.io
+
+        root = os.getcwd()
+        work = os.path.join(root, PURSUIT_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            path = os.path.join(work, "fm5_parallel_match.json")
+            with open(path, "w") as f:
+                json.dump(fm5_parallel_config(root), f)
+            code, counts, modes, lines = self.pursuit_cli(
+                path, work, pursuit_cut(pmfm_tpu_torch.io.load_config), False)
+            require(code == 0 and lines, f"fm5_parallel pursuit: exit {code}")
+            require(modes["B2"].get("parallel_int8", 0) > 0 and modes["B1"].get(
+                "parallel_int8", 0) > 0, f"fm5_parallel pursuit: B1/B2 int8 did not run: {modes}")
+            self.kernels.setdefault("fused_generation_wide", {})["launches"] = \
+                modes["B2"]["parallel_int8"]
+            self.kernels.setdefault("fused_synth_fitness_wide", {})["launches"] = \
+                modes["B1"]["parallel_int8"]
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        self.bank_evolve_fused()
+        self.bank_evolve_large()
+
+    def bank_evolve_fused(self):
+        """``evolve`` on fm3_parallel with fused_evolve at PARALLEL_CONFIG's
+        shape, int8 and f32: one B5 launch for BANK_EVOLVE_GENERATIONS
+        generations, the trajectory improving."""
+        from pmfm_tpu_torch.es import evolve, init_state, make_spectrum_ops
+        from pmfm_tpu_torch.es.pipeline import _fused_evolve_ok
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+
+        base = load_config(PARALLEL_CONFIG).es.replace(fused_evolve=True, restart_patience=0,
+                                                       fitness_threshold=0.0)
+        g = BANK_EVOLVE_GENERATIONS
+        for mode, cfg in (("int8", base), ("f32", base.refine_config().replace(fused_evolve=True))):
+            so = make_spectrum_ops(cfg, device=self.dev)
+            require(_fused_evolve_ok(cfg, so, self.dev), f"{mode}: fused_evolve does not route "
+                                                         f"to B5")
+            audio = synthesize_single(torch.tensor(PARALLEL_TRUTH[: cfg.num_dimensions]),
+                                      cfg.n_samples, cfg.topology)
+            target = target_spectrum(audio.to(self.dev), so)
+            torch.cuda.synchronize()
+            self.reset_counts()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            final, traj = evolve(init_state(7, cfg, device=self.dev), target, g, so, cfg,
+                                 record_trajectory=True)
+            b.record()
+            b.synchronize()
+            counts = {k: v for k, v in self.read_counts().items() if v}
+            by = dict(ev.fused_evolve.launches_by)
+            traj = traj.cpu()
+            log(f"evolve ({cfg.topology}, fused_evolve -> B5, {mode}, n={cfg.n_samples}, "
+                f"P={cfg.population_size}): {g} generations {a.elapsed_time(b) / g:.4f} ms/gen "
+                f"{card()}; best fitness first {float(traj[0]):.6g} final {float(traj[-1]):.6g}; "
+                f"launches {counts}, B5 by mode {by}")
+            require(counts == {"fused_evolve": 1} and by == {f"parallel_{mode}": 1},
+                    "fused_evolve on a bank did not run as exactly one B5 launch")
+            require(bool(torch.isfinite(traj).all() and (traj[1:] <= traj[:-1]).all()),
+                    "trajectory")
+            require(float(traj[-1]) < float(traj[0]), "evolve did not improve the best fitness")
+            if mode == "int8":
+                self.kernels.setdefault("fused_evolve_parallel", {})["launches"] = 1
+
+    def bank_evolve_large(self):
+        """``evolve`` on fm3_parallel at cell (c)'s shape (n 8192, P 2^15,
+        int8: synth_fold, B3 + the prefolded DFT) and cell (d)'s (n 65536,
+        P 2^13, bf16: synth_stream, B4 + the factored DFT), with
+        PARALLEL_TRUTH's first three pairs as the target:
+        BANK_LARGE_GENERATIONS generations, one kernel launch each and none
+        of another kernel."""
+        from pmfm_tpu_torch.es import active_engine, evolve, init_state, make_spectrum_ops
+        from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+
+        g = BANK_LARGE_GENERATIONS
+        for key, label, pop, kernel, engine in (
+                ("fold", "c", FOLD_POP, "fused_synth_fold", "synth_fold"),
+                ("stream", "d", STREAM_POP, "fused_synth_stream", "synth_stream")):
+            cell = self.cells[key]["cfg"]
+            cfg = cell.replace(topology="fm3_parallel", num_dimensions=12,
+                               param_mins=(0.0,) * 12, param_maxs=param_maxs("fm3_parallel"))
+            t0 = time.perf_counter()
+            so = self.cells[key]["so"]  # the cell's operands: they depend on n, not on the model
+            require(active_engine(cfg, so) == engine, f"fm3_parallel at cell ({label})'s shape "
+                    f"routes to {active_engine(cfg, so)}, not {engine}")
+            audio = synthesize_single(torch.tensor(PARALLEL_TRUTH[:12]), cfg.n_samples,
+                                      cfg.topology, engine="scanless")
+            target = target_spectrum(audio.to(self.dev), so)
+            evolve(init_state(1, cfg, device=self.dev), target, 1, so, cfg)  # warm-up
+            torch.cuda.synchronize()
+            self.reset_counts()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            final, traj = evolve(init_state(7, cfg, device=self.dev), target, g, so, cfg,
+                                 record_trajectory=True)
+            b.record()
+            b.synchronize()
+            counts = {k: v for k, v in self.read_counts().items() if v}
+            traj = traj.cpu()
+            log(f"evolve (fm3_parallel at cell ({label})'s shape: {engine}, n={cfg.n_samples}, "
+                f"P={pop}): {g} generations {a.elapsed_time(b) / g:.4f} ms/gen {card()}; best "
+                f"fitness first {float(traj[0]):.6g} final {float(traj[-1]):.6g}; launches "
+                f"{counts} ({time.perf_counter() - t0:.1f}s with the target)")
+            require(counts == {kernel: g}, f"{kernel} launches != generations, or another kernel")
+            require(bool(torch.isfinite(traj).all() and (traj[1:] <= traj[:-1]).all()),
+                    "trajectory")
+            self.kernels.setdefault(f"{kernel}_parallel", {})["launches"] = g
+
+    # -- 34 -----------------------------------------------------------------
+    def bank_timings(self):
+        """The new modes' times beside their plain versions and bounds: B3 on
+        fm3_parallel at cell (c)'s shape (int8), B4 at cell (d)'s (bf16), B5
+        on fm3_parallel at PARALLEL_CONFIG's shape (int8, B5_BANK_GENERATIONS
+        generations), B1/B2 int8 at fm5_parallel there (beside fm4_parallel:
+        the compile-time bank of five against four) and at the wide codes
+        (fm8_parallel, fm16_series); then B3's two layouts on the banks over
+        BANK_LAYOUT_SHAPES x FOLD_LAYOUT_POPS."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.kernels import synth_fold as sfo
+        from pmfm_tpu_torch.kernels import synth_stream as sst
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        rows = {}
+        # B3 / B4 on fm3_parallel: the synthesis ops (bank_ops_f32 without bins)
+        for key, name in (("fold", "fused_synth_fold_parallel"),
+                          ("stream", "fused_synth_stream_parallel")):
+            c = self.cells[key]
+            cfg, so = c["cfg"], c["so"]
+            n, pop = cfg.n_samples, cfg.population_size
+            params = self.grid_params("fm3_parallel", pop, SEED + 3400)
+            ops = bank_ops_f32(pop, n, 0, 3, ncoef=4 if cfg.sine_order == 7 else 5)
+            if key == "fold":
+                kw = dict(topology="fm3_parallel", n=n, sine_order=cfg.sine_order,
+                          dft_scale=so.dft_packed_scale)
+                fn = lambda p=params, kw=kw: sfo.fused_synth_fold(p, **kw)  # noqa: E731
+                plain = lambda p=params, kw=kw: sfo.fused_synth_fold_plain(  # noqa: E731
+                    p, pop_block=pop, **kw)
+                nbytes = pop * 12 * 4 + 2 * pop * (n // 2) + 2 * pop * 4
+                src, rep = ("pmfm_tpu_torch/csrc/large_frame_wide.cu",
+                            "pmfm_tpu/kernels/synth_fold.py:176")
+            else:
+                kw = dict(topology="fm3_parallel", n=n, sine_order=cfg.sine_order)
+                fn = lambda p=params, kw=kw: sst.fused_synth_stream(  # noqa: E731
+                    p, so.window, **kw)
+                plain = lambda p=params, kw=kw: sst.fused_synth_stream_plain(  # noqa: E731
+                    p, so.window, pop_block=pop, **kw)
+                nbytes = pop * 12 * 4 + n * 4 + 2 * n * pop
+                ops += float(pop) * n * 2  # the amplitude and the window
+                src, rep = ("pmfm_tpu_torch/csrc/large_frame_wide.cu",
+                            "pmfm_tpu/kernels/synth_stream.py:161")
+            rows[name] = (fn, plain, nbytes, 0.0, ops, 1, src, rep,
+                          f"fm3_parallel, n={n}, P={pop}, sine order {cfg.sine_order}")
+        # B5 and B1/B2 at PARALLEL_CONFIG's shape (int8)
+        c5 = self.wide["fm5_parallel", "int8"]
+        cfg = c5["cfg"]
+        n, pop, mu, k = cfg.n_samples, cfg.population_size, cfg.num_parents, c5["so"].num_bins
+        dft_ops = 2.0 * 2 * k * (n // 2) * pop
+        operand, io = 2 * k * (n // 2), 2 * k * (n // 2) + k * 4 + pop * 4
+        par = self.inputs(load_config(PARALLEL_CONFIG).es, SEED + 3450, PARALLEL_TRUTH[:12])
+        g = B5_BANK_GENERATIONS
+        seeds = [kernel_seed(SEED + 3500, i) for i in range(g)]
+        kw3 = self.kw_b2(par)
+        best = torch.tensor(float("inf"), device=self.dev)
+        synth3 = bank_ops_f32(pop, n, k, 3, ncoef=5) + pop * 12 * 12 * 2.0
+        rows["fused_evolve_parallel"] = (
+            lambda: ev.fused_evolve(seeds, par["pv"], par["ps"], par["pv"][0], best,
+                                    par["target"], **kw3),
+            lambda: ev.fused_evolve_plain(seeds, par["pv"], par["ps"], par["pv"][0], best,
+                                          par["target"], **kw3),
+            4 * mu * 12 * 4 + 2 * 13 * 4 + operand + k * 4 + g * 4, g * dft_ops, g * synth3, g,
+            "pmfm_tpu_torch/csrc/evolve.cu", "pmfm_tpu/kernels/evolve.py:366",
+            f"fm3_parallel, n={n}, P={pop}, mu={mu}")
+        seed = kernel_seed(SEED, 3600)
+        synth5 = bank_ops_f32(pop, n, k, 5, ncoef=5)
+        kw1, kw2 = self.kw_b1(c5), self.kw_b2(c5)
+        rows["fused_synth_fitness_wide"] = (
+            lambda: sf.fused_synth_fitness(c5["params"], c5["target"], **kw1),
+            lambda: sf.fused_synth_fitness_plain(c5["params"], c5["target"], **kw1),
+            io + pop * 20 * 4, dft_ops, synth5, 1, "pmfm_tpu_torch/csrc/fused_eval.cu",
+            "pmfm_tpu/kernels/synth_fitness.py:767", f"fm5_parallel, n={n}, P={pop}")
+        rows["fused_generation_wide"] = (
+            lambda: gn.fused_generation(seed, c5["pv"], c5["ps"], c5["target"], **kw2),
+            lambda: gn.fused_generation_plain(seed, c5["pv"], c5["ps"], c5["target"], **kw2),
+            io + 2 * mu * 20 * 4 + 2 * pop * 20 * 4, dft_ops, synth5 + pop * 20 * 12 * 2.0, 1,
+            "pmfm_tpu_torch/csrc/fused_eval.cu", "pmfm_tpu/kernels/generation.py:438",
+            f"fm5_parallel, n={n}, P={pop}")
+        for name, (fn, plain, nbytes, i8, f32, gens, src, rep, where) in rows.items():
+            ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
+            plain_ms = cuda_ms(plain, 1)
+            bound_ms, by = bound(nbytes, i8, f32)
+            per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
+            log(f"{name} ({where}): kernel {ms:.4f} ms{per}, plain {plain_ms:.2f} ms, bound "
+                f"{bound_ms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, {i8 / 1e9:.1f} G int8 ops, "
+                f"{f32 / 1e9:.2f} G f32 ops); {ms / bound_ms:.1f}x the bound {card()}")
+            self.kernels.setdefault(name, {}).update(
+                route="cuda", source=src, replaces=rep, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
+        # B1/B2 int8 at each bank and wide code, at the same P, n, sine order
+        line = []
+        for topology in ("fm4_parallel", "fm5_parallel", "fm8_parallel", "fm16_series",
+                         "fm3_series"):
+            td, maxs = topology_dims(topology), param_maxs(topology)
+            params = self.grid_params(topology, pop, SEED + 3700)
+            rng = np.random.default_rng(SEED + 3701)
+            t = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+            pv, ps = t(rng.random((mu, td))), t(rng.uniform(0.02, 0.3, (mu, td)))
+            k1 = dict(kw1, topology=topology)
+            k2 = dict(kw2, topology=topology, param_mins=(0.0,) * td, param_maxs=maxs,
+                      beta_scale=1.0 / td)
+            b1 = cuda_ms(lambda: sf.fused_synth_fitness(params, c5["target"], **k1),
+                         TIMED_LAUNCHES)
+            b2 = cuda_ms(lambda: gn.fused_generation(seed, pv, ps, c5["target"], **k2),
+                         TIMED_LAUNCHES)
+            line.append(f"{topology} B1 {b1:.4f} ms B2 {b2:.4f} ms")
+            if topology == "fm4_parallel":
+                b2_fm4 = b2
+            if topology == "fm5_parallel":
+                b2_fm5 = b2
+        log(f"B1/B2 int8 at n={n}, K={k}, P={pop}, sine order {cfg.sine_order}: "
+            f"{'; '.join(line)}; fm5_parallel's B2 {b2_fm5 / b2_fm4:.3f}x fm4_parallel's {card()}")
+        self.fold_layouts(BANK_LAYOUT_SHAPES, BANK_LAYOUT_LAUNCHES)
+
+    # -- 35 -----------------------------------------------------------------
+    def fm5_pursuit(self):
+        """The fm5_parallel pursuit through ``cli.main`` as written
+        (FM5_BASE_CONFIG with a fifth pair): exit 0, every chunk's f32
+        fitness no worse than its silent estimate, the first chunk below
+        FM5_TARGET_REL; its seconds, attempts and each chunk's relative
+        spectral error beside the true parameters' own."""
+        import os
+        import shutil
+
+        import pmfm_tpu_torch.io
+
+        root = os.getcwd()
+        work = os.path.join(root, PURSUIT_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            path = os.path.join(work, "fm5_parallel_match.json")
+            with open(path, "w") as f:
+                json.dump(fm5_parallel_config(root), f)
+            code, _, modes, lines = self.pursuit_cli(path, work, pmfm_tpu_torch.io.load_config,
+                                                     True, FM5_TARGET_REL)
+            require(code == 0 and lines, f"fm5_parallel pursuit: exit {code}")
+            require(modes["B2"].get("parallel_int8", 0) > 0, "B2 int8 did not run")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+
     def kernels_line(self):
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3131,10 +3635,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    only = None if args.only is None else set(args.only.split(","))
+    # phase 35 (only when named) runs a pursuit of minutes on top of the rest
+    faulthandler.dump_traceback_later(
+        WATCHDOG_S + (FM5_WATCHDOG_S if only and "35" in only else 0), exit=True)
     import pmfm_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    s = Smoke(only=None if args.only is None else set(args.only.split(",")))
+    s = Smoke(only=only)
     s.phase("1 device", s.device)
     s.phase("2 build", s.build)
     if s.failed:
@@ -3176,6 +3683,16 @@ def main(argv=None) -> int:
         s.phase("27 B5 bf16 and evolve", s.bf16_evolve)
         s.phase("28 operand cache and the bench suite", s.suite)
         s.phase("29 bf16 kernel times", s.bf16_timings)
+    if "large inputs" not in s.failed:
+        s.phase("30 B3/B4 banks and a wide chain vs plain", s.bank_large)
+    s.phase("31 B5 on a bank vs its B2 launches", s.bank_b5)
+    s.phase("32 B1/B2 at 20-32 genes vs plain", s.wide_kernels)
+    if "large inputs" not in s.failed:
+        s.phase("33 paths: the fm5_parallel pursuit, fm3_parallel on B5, B3, B4", s.bank_paths)
+        if "32 B1/B2 at 20-32 genes vs plain" not in s.failed:
+            s.phase("34 bank and wide kernel times, B3's layouts on banks", s.bank_timings)
+    if s.only is not None and "35" in s.only:  # minutes: never part of the whole run
+        s.phase("35 the fm5_parallel pursuit as written", s.fm5_pursuit)
     if s.only is not None:
         faulthandler.cancel_dump_traceback_later()
         log(f"phases {sorted(s.only)}: {'FAILED: ' + str(s.failed) if s.failed else 'passed'} "

@@ -93,31 +93,63 @@ __host__ inline int dispatch_ncoef(int ncoef, F&& f) {
   }
 }
 
-// Runs f(std::integral_constant<int, KN>{}) for the chain length kn (2..8).
-template <typename F>
-__host__ inline int dispatch_chain(int kn, F&& f) {
-  switch (kn) {
-    case 2: return f(std::integral_constant<int, 2>{});
-    case 3: return f(std::integral_constant<int, 3>{});
-    case 4: return f(std::integral_constant<int, 4>{});
-    case 5: return f(std::integral_constant<int, 5>{});
-    case 6: return f(std::integral_constant<int, 6>{});
-    case 7: return f(std::integral_constant<int, 7>{});
-    case 8: return f(std::integral_constant<int, 8>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
+// The longest chain and the largest bank with a compile-time code of their
+// own; longer chains and larger banks (all banks in B3/B4) take the wide
+// codes (synth_common.cuh: WIDE_CHAIN, WIDE_BANK).
+#define FIXED_KN 8      // fm8_series
+#define FIXED_PAIRS 5   // fm5_parallel (20 genes, the reference's pursuit family)
+
+// Runs f(std::integral_constant<int, KN>{}) for sp's synthesis code: a chain
+// of sp.kn oscillators (2 .. FIXED_KN each its own code, then up to MAX_KN
+// WIDE_CHAIN), or a bank of sp.npair pairs (with FIXED_BANKS, 2 ..
+// FIXED_PAIRS each its own code BANK_KN + npair, then up to MAX_PAIRS
+// WIDE_BANK; without, every bank WIDE_BANK). B1/B2 take the fixed banks;
+// B3/B4 do not (one bank instantiation a kernel, mode and sine order, where
+// four more each would add half again to large_frame.cu's build).
+//
+// SET picks which codes a translation unit instantiates: CODES_ALL, or
+// CODES_FIXED and CODES_WIDE, whose sources nvcc builds side by side
+// (fused_eval.cu and fused_bf16.cu beside fused_wide.cu, large_frame.cu
+// beside large_frame_wide.cu); a code outside the set returns
+// cudaErrorInvalidValue, and wide_synth says which set a shape is in.
+enum SynthSet { CODES_ALL, CODES_FIXED, CODES_WIDE };
+
+__host__ inline bool wide_synth(const SynthParams& sp, bool fixed_banks) {
+  return sp.npair ? !fixed_banks || sp.npair > FIXED_PAIRS : sp.kn > FIXED_KN;
 }
 
-// B1/B2: runs f(std::integral_constant<int, KN>{}) for sp's synthesis, a
-// chain of sp.kn oscillators (dispatch_chain) or a bank of sp.npair pairs
-// (2..MAX_PAIRS) as KN = BANK_KN + npair (synth_common.cuh::CandidateSynth).
-template <typename F>
+template <bool FIXED_BANKS, int SET = CODES_ALL, typename F>
 __host__ inline int dispatch_synth(const SynthParams& sp, F&& f) {
-  switch (sp.npair) {
-    case 0: return dispatch_chain(sp.kn, f);
-    case 2: return f(std::integral_constant<int, BANK_KN + 2>{});
-    case 3: return f(std::integral_constant<int, BANK_KN + 3>{});
-    case 4: return f(std::integral_constant<int, BANK_KN + 4>{});
-    default: return (int)cudaErrorInvalidValue;
+  using std::integral_constant;
+  if (SET != CODES_ALL && wide_synth(sp, FIXED_BANKS) != (SET == CODES_WIDE))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (SET != CODES_WIDE) {
+    if (sp.npair == 0) {
+      switch (sp.kn) {
+        case 2: return f(integral_constant<int, 2>{});
+        case 3: return f(integral_constant<int, 3>{});
+        case 4: return f(integral_constant<int, 4>{});
+        case 5: return f(integral_constant<int, 5>{});
+        case 6: return f(integral_constant<int, 6>{});
+        case 7: return f(integral_constant<int, 7>{});
+        case 8: return f(integral_constant<int, 8>{});
+        default: break;
+      }
+    } else if constexpr (FIXED_BANKS) {
+      switch (sp.npair) {
+        case 2: return f(integral_constant<int, BANK_KN + 2>{});
+        case 3: return f(integral_constant<int, BANK_KN + 3>{});
+        case 4: return f(integral_constant<int, BANK_KN + 4>{});
+        case 5: return f(integral_constant<int, BANK_KN + 5>{});
+        default: break;
+      }
+    }
   }
+  if constexpr (SET != CODES_FIXED) {
+    if (sp.npair == 0 && sp.kn > FIXED_KN && sp.kn <= MAX_KN)
+      return f(integral_constant<int, WIDE_CHAIN>{});
+    if (sp.npair >= 2 && sp.npair <= MAX_PAIRS && wide_synth(sp, FIXED_BANKS))
+      return f(integral_constant<int, WIDE_BANK>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -35,33 +35,11 @@
 
 typedef __nv_bfloat16 bf16_t;
 
-template <int NC, int KN>
-__global__ void __launch_bounds__(TC_CPB)
-fused_synth_fitness_bf16_kernel(const float* __restrict__ params, int pop, SynthParams sp,
-                                const bf16_t* __restrict__ dft, const float* __restrict__ target,
-                                float* __restrict__ fitness) {
-  extern __shared__ __align__(16) uint4 smem_tc[];
-  fitness_block<NC, KN, false>(params, pop, sp, dft, target, fitness, smem_tc);
-}
-
-template <int NC, int KN>
-__global__ void __launch_bounds__(TC_CPB)
-fused_generation_bf16_kernel(uint32_t seed, const uint32_t* __restrict__ run_seeds,
-                             const float* __restrict__ pv, const float* __restrict__ ps, int pop,
-                             SynthParams sp, MutateParams mp, const bf16_t* __restrict__ dft,
-                             const float* __restrict__ target, float* __restrict__ fitness,
-                             float* __restrict__ values, float* __restrict__ steps) {
-  extern __shared__ __align__(16) uint4 smem_tc[];
-  generation_block<NC, KN, false>(seed, run_seeds, pv, ps, pop, sp, mp, dft, target, fitness,
-                                  values, steps, smem_tc);
-}
-
 // ---- launchers ------------------------------------------------------------------
 
-typedef void (*FitBf16Kernel)(const float*, int, SynthParams, const bf16_t*, const float*, float*);
-
 int prepare_generation_bf16(const SynthParams& sp, GenBf16Kernel* kernel) {
-  return prepare_tc<false>(PICK(fused_generation_bf16_kernel), sp, kernel);
+  return prepare_tc_any<false>(PICK(fused_generation_bf16_kernel), prepare_wide_generation_bf16,
+                               sp, kernel);
 }
 
 int launch_generation_bf16(GenBf16Kernel kernel, uint32_t seed, const uint32_t* run_seeds,
@@ -83,7 +61,8 @@ int pmfm_fused_synth_fitness_bf16(const float* params, int pop, int runs, SynthP
                                   const void* dft, const float* target, float* fitness,
                                   cudaStream_t stream) {
   FitBf16Kernel kernel;
-  const int e = prepare_tc<false>(PICK(fused_synth_fitness_bf16_kernel), sp, &kernel);
+  const int e = prepare_tc_any<false>(PICK(fused_synth_fitness_bf16_kernel),
+                                      prepare_wide_fitness_bf16, sp, &kernel);
   return e ? e
            : launch_tc<false>(kernel, sp, pop, runs, stream, params, pop, sp, (const bf16_t*)dft,
                               target, fitness);

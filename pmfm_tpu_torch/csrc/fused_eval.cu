@@ -5,9 +5,11 @@
 //   B1 <- kernels/synth_fitness.py::fused_synth_fitness (with _dft_uv, the
 //         folded DFT on the MXU)
 //   B2 <- kernels/generation.py::fused_generation
-// as fused_synth_fitness_int8_kernel and fused_generation_int8_kernel in the
-// int8 mode; the bf16 mode of both is fused_bf16.cu's (the same design, one
-// template in tc_eval.cuh), the true-f32 mode fused_f32.cu's.
+// as fused_synth_fitness_int8_kernel and fused_generation_int8_kernel
+// (tc_eval.cuh) in the int8 mode; fused_wide.cu instantiates them for the
+// wide codes (chains of 9 .. 16, banks of 6 .. 8). The bf16 mode of both is
+// fused_bf16.cu's (the same design, one template in tc_eval.cuh), the
+// true-f32 mode fused_f32.cu's.
 //
 // The int8 mode. What bounds it on an H100 at the bench shape (n 1024, K 512,
 // P 2^15): the folded DFT is 2 * 2K * (N/2) * P = 34.4 G int8 operations
@@ -75,33 +77,11 @@
 
 #include "tc_eval.cuh"
 
-template <int NC, int KN>
-__global__ void __launch_bounds__(TC_CPB)
-fused_synth_fitness_int8_kernel(const float* __restrict__ params, int pop, SynthParams sp,
-                                const int8_t* __restrict__ dft, const float* __restrict__ target,
-                                float* __restrict__ fitness) {
-  extern __shared__ __align__(16) uint4 smem_tc[];
-  fitness_block<NC, KN, true>(params, pop, sp, dft, target, fitness, smem_tc);
-}
-
-template <int NC, int KN>
-__global__ void __launch_bounds__(TC_CPB)
-fused_generation_int8_kernel(uint32_t seed, const uint32_t* __restrict__ run_seeds,
-                             const float* __restrict__ pv, const float* __restrict__ ps, int pop,
-                             SynthParams sp, MutateParams mp, const int8_t* __restrict__ dft,
-                             const float* __restrict__ target, float* __restrict__ fitness,
-                             float* __restrict__ values, float* __restrict__ steps) {
-  extern __shared__ __align__(16) uint4 smem_tc[];
-  generation_block<NC, KN, true>(seed, run_seeds, pv, ps, pop, sp, mp, dft, target, fitness,
-                                 values, steps, smem_tc);
-}
-
 // ---- launchers ------------------------------------------------------------------
 
-typedef void (*FitInt8Kernel)(const float*, int, SynthParams, const int8_t*, const float*, float*);
-
 int prepare_generation_int8(const SynthParams& sp, GenInt8Kernel* kernel) {
-  return prepare_tc<true>(PICK(fused_generation_int8_kernel), sp, kernel);
+  return prepare_tc_any<true>(PICK(fused_generation_int8_kernel), prepare_wide_generation_int8,
+                              sp, kernel);
 }
 
 int launch_generation_int8(GenInt8Kernel kernel, uint32_t seed, const uint32_t* run_seeds,
@@ -125,7 +105,8 @@ int pmfm_fused_synth_fitness(const float* params, int pop, int runs, SynthParams
                              const void* dft, const float* target, float* fitness,
                              cudaStream_t stream) {
   FitInt8Kernel kernel;
-  const int e = prepare_tc<true>(PICK(fused_synth_fitness_int8_kernel), sp, &kernel);
+  const int e = prepare_tc_any<true>(PICK(fused_synth_fitness_int8_kernel),
+                                     prepare_wide_fitness_int8, sp, &kernel);
   return e ? e
            : launch_tc<true>(kernel, sp, pop, runs, stream, params, pop, sp, (const int8_t*)dft,
                              target, fitness);

@@ -190,7 +190,7 @@ f32_synth_kernel(const float* __restrict__ params, uint32_t seed,
                  const float* __restrict__ ps, MutateParams mp, float* __restrict__ values,
                  float* __restrict__ steps, int pop, SynthParams sp, float* __restrict__ ap,
                  float* __restrict__ am, float* __restrict__ edge, int pop_pad) {
-  __shared__ float s_p[SY_TPB * MAX_D];
+  __shared__ float s_p[SY_TPB * synth_dims(KN)];
   __shared__ __align__(16) float s_buf[SY_TPB * SY_LDB];  // a 32-row staging buffer a warp
   const int base = blockIdx.x * SY_TPB, d = sp.d, run = blockIdx.y;
   if constexpr (GEN) {
@@ -211,9 +211,9 @@ f32_synth_kernel(const float* __restrict__ params, uint32_t seed,
       s_p[i] = cand < pop ? params[(size_t)base * d + i] : 0.f;
   }
   __syncthreads();
-  float p[MAX_D];
+  float p[synth_dims(KN)];
 #pragma unroll
-  for (int i = 0; i < MAX_D; ++i) p[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
+  for (int i = 0; i < synth_dims(KN); ++i) p[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
   const int cand = base + threadIdx.x, half = sp.n >> 1;
   FoldEmit<false, F32Row> emit;
   const int lane = threadIdx.x & 31;
@@ -493,7 +493,7 @@ static int prepare_f32(const SynthParams& sp, int pop, int runs, float* scratch,
                   ? reinterpret_cast<float*>(plan->partial + (size_t)DF_GROUPS * rows)
                   : nullptr;
   const int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
-    return dispatch_synth(sp, [&](auto kc) {
+    return dispatch_synth<true>(sp, [&](auto kc) {
       plan->synth = f32_synth_kernel<decltype(nc)::value, decltype(kc)::value, GEN>;
       return 0;
     });

@@ -4,9 +4,12 @@
 // time-parallel synthesis of large_frame.cu; synth_run, the whole frame
 // from zero offsets), as the TPU kernels share
 // pmfm_tpu/kernels/synth_fitness.py::_make_block_synth; the fm{k}_parallel
-// bank of B1/B2 (synth_bank_span: k fm2 chains summed in pair order);
-// B1/B2's candidate synthesis frame after frame (CandidateSynth); and the
-// grouped fold emitter FoldEmit that B3 and B1/B2 run on them.
+// bank (synth_bank_span: k fm2 chains summed in pair order); the candidate
+// synthesis frame after frame (CandidateSynth) of B1/B2 and B3's single
+// pass; and the grouped fold emitter FoldEmit that B3 and B1/B2 run on them.
+// Each array is sized by its synthesis code's own slots (chain_slots,
+// bank_slots, synth_dims), so raising the caps to 32 genes costs a chain of
+// three nothing.
 //
 // Numerics (the TPU kernel's, in sample order). Phases are kept in turns
 // (phase / wavetable size), so the wrap is frac(x) = x - floor(x). Samples
@@ -28,12 +31,31 @@
 #include <type_traits>
 
 #define TIME_BLOCK 128  // samples per phase-carry block (the TPU kernel's C)
-#define MAX_KN 8        // oscillators in a chain (fm8_series)
-#define MAX_D 16        // parameters per candidate
-#define MAX_PAIRS 4     // fm2 pairs of an fm{k}_parallel bank (fm4_parallel: MAX_D genes)
-// B1/B2's compile-time synthesis code KN (dispatch_synth): a chain of KN
-// oscillators (2 .. MAX_KN), or a bank of KN - BANK_KN pairs above BANK_KN.
-#define BANK_KN 16
+#define MAX_KN 16       // oscillators in a chain (fm16_series: MAX_D genes)
+#define MAX_D 32        // parameters per candidate
+#define MAX_PAIRS 8     // fm2 pairs of an fm{k}_parallel bank (fm8_parallel: MAX_D genes)
+// The synthesis code KN, every kernel's compile-time template argument: a
+// chain of KN oscillators (2 .. MAX_KN), or a bank of KN - BANK_KN pairs
+// above BANK_KN. Two codes take the length at run time instead, their
+// state in registers of the longest shape and each oscillator or pair past
+// the length skipped by a warp-uniform branch: WIDE_CHAIN, a chain of sp.kn
+// oscillators, and WIDE_BANK, a bank of sp.npair pairs (dispatch_synth,
+// evaluate.cuh, says which shapes take them). One such instantiation serves
+// every length where a compile-time one each would multiply nvcc's time.
+#define BANK_KN 32
+#define WIDE_CHAIN 0
+#define WIDE_BANK BANK_KN
+
+// A code's slots: oscillators of a chain (chain_slots) or pairs of a bank
+// (bank_slots), and the parameters of a candidate (synth_dims).
+__host__ __device__ constexpr int chain_slots(int kn) { return kn == WIDE_CHAIN ? MAX_KN : kn; }
+__host__ __device__ constexpr int bank_slots(int kn) {
+  return kn == WIDE_BANK ? MAX_PAIRS : kn - BANK_KN;
+}
+__host__ __device__ constexpr bool is_bank(int kn) { return kn >= BANK_KN; }
+__host__ __device__ constexpr int synth_dims(int kn) {
+  return is_bank(kn) ? 4 * bank_slots(kn) : 2 * chain_slots(kn);
+}
 
 struct SynthParams {
   float sin_c[5];    // odd coefficients of sin(2 pi w), w in [-0.5, 0.5] turns
@@ -70,19 +92,25 @@ __device__ __forceinline__ float sin_turns(float x, const float* c) {
 
 // One candidate's chain constants: the first oscillator's increment, each
 // modulated oscillator's gain and bias in turns per sample, and the output
-// amplitude (the last operator's freq * index; fm2's amp parameter).
+// amplitude (the last operator's freq * index; fm2's amp parameter). The
+// arrays hold the code's own slots (chain_slots), so a chain of three keeps
+// two gains and biases, not MAX_KN - 1.
+template <int KN>
 struct Chain {
+  static constexpr int S = chain_slots(KN);  // oscillators
   float inc1, inc_blk, amp;
-  float ims[MAX_KN - 1], ics[MAX_KN - 1];
-  int kn;
+  float ims[S - 1], ics[S - 1];
+  int kn;  // KN, or a wide chain's sp.kn
 };
 
-__device__ __forceinline__ Chain make_chain(const float* p, const SynthParams& sp) {
-  Chain ch;
+template <int KN>
+__device__ __forceinline__ Chain<KN> make_chain(const float* p, const SynthParams& sp) {
+  constexpr int S = Chain<KN>::S;
+  Chain<KN> ch;
   const float inv_sr = sp.inv_sr;
-  ch.kn = sp.kn;
+  ch.kn = KN == WIDE_CHAIN ? sp.kn : KN;
 #pragma unroll
-  for (int j = 0; j < MAX_KN - 1; ++j) ch.ims[j] = ch.ics[j] = 0.f;
+  for (int j = 0; j < S - 1; ++j) ch.ims[j] = ch.ics[j] = 0.f;
   if (sp.fm2) {
     ch.inc1 = frac(fmul(inv_sr, p[0]));
     ch.ims[0] = fmul(inv_sr, fmul(p[0], p[1]));
@@ -92,19 +120,23 @@ __device__ __forceinline__ Chain make_chain(const float* p, const SynthParams& s
     ch.inc1 = frac(fmul(inv_sr, p[1]));
     ch.amp = 0.f;
 #pragma unroll
-    for (int j = 0; j < MAX_KN - 1; ++j) {
+    for (int j = 0; j < S - 1; ++j) {
       if (j < ch.kn - 1) {
         ch.ims[j] = fmul(inv_sr, fmul(p[2 * j], p[2 * j + 1]));
         ch.ics[j] = fmul(inv_sr, p[2 * j + 3]);
       }
     }
 #pragma unroll
-    for (int j = 0; j < MAX_KN; ++j)
+    for (int j = 0; j < S; ++j)
       if (j == ch.kn - 1) ch.amp = fmul(p[2 * j], p[2 * j + 1]);
   }
   ch.inc_blk = frac(fmul((float)TIME_BLOCK, ch.inc1));
   return ch;
 }
+
+// The template argument NJ of synth_span's emitting pass (a wide chain's is
+// the runtime nj instead).
+__host__ __device__ constexpr int emit_nj(int kn) { return kn == WIDE_CHAIN ? 1 : kn - 1; }
 
 // The recurrence over time blocks [b0, b1) from the offsets off[] at block
 // b0, which advance in place to block b1: the one definition of the chain
@@ -114,7 +146,10 @@ __device__ __forceinline__ Chain make_chain(const float* p, const SynthParams& s
 // and store it as one vector. KN, the chain's length (it must equal ch.kn),
 // is fixed at compile time, so the per-sample loop over oscillators has no
 // branch and the unrolled samples of a group can be interleaved (a runtime
-// loop bound there cost the synthesis 4x).
+// loop bound there cost the synthesis 4x). A wide chain (KN = WIDE_CHAIN)
+// runs nj_wide oscillators in place of NJ: the loop is unrolled over every
+// slot and each slot from nj_wide on is skipped by a branch that all
+// threads of a launch take alike, so its state stays in registers.
 //
 // EMIT: the whole chain (NJ = KN - 1 modulating oscillators); emit(m, u, y)
 // gets each sample m in order with y = sum_j out_c[j] w^(2j+1) of the output
@@ -126,34 +161,50 @@ __device__ __forceinline__ Chain make_chain(const float* p, const SynthParams& s
 // advances off[NJ] (frac(off[NJ] + t)). off[NJ] and later are neither read
 // nor written: they are what the level's scan over the blocks makes.
 template <int NC, int G, int KN, int NJ, bool EMIT, typename Emit, typename Total>
-__device__ __forceinline__ void synth_span(const Chain& ch, const SynthParams& sp,
+__device__ __forceinline__ void synth_span(const Chain<KN>& ch, const SynthParams& sp,
                                            const float* out_c, int b0, int b1,
-                                           float (&off)[MAX_KN], Emit& emit, Total& total) {
+                                           float (&off)[Chain<KN>::S], Emit& emit,
+                                           Total& total, int nj_wide = 0) {
+  constexpr bool WIDE = KN == WIDE_CHAIN;
+  constexpr int S = Chain<KN>::S;
+  constexpr int JS = WIDE ? S - 1 : NJ;  // the unrolled oscillators
   static_assert(TIME_BLOCK % G == 0, "G must divide TIME_BLOCK");
-  static_assert(KN >= 2 && KN <= MAX_KN && NJ >= 1 && NJ <= KN - 1, "chain length");
-  static_assert(!EMIT || NJ == KN - 1, "emitting runs the whole chain");
+  static_assert(WIDE || (KN >= 2 && KN <= MAX_KN && NJ >= 1 && NJ <= KN - 1), "chain length");
+  static_assert(WIDE || !EMIT || NJ == KN - 1, "emitting runs the whole chain");
+  const int nj = WIDE ? nj_wide : NJ;
   for (int b = b0; b < b1; ++b) {
-    float s[MAX_KN - 1];
+    float s[S - 1];
 #pragma unroll
-    for (int j = 0; j < MAX_KN - 1; ++j) s[j] = 0.f;
+    for (int j = 0; j < S - 1; ++j) s[j] = 0.f;
     for (int t0 = 0; t0 < TIME_BLOCK; t0 += G) {
       const float tf0 = (float)t0;  // (float)t as tf0 + u, exact: one conversion a group
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         float pos = fadd(fmul(fadd(tf0, (float)u), ch.inc1), off[0]);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float x = fadd(fmul(sin_turns<NC>(pos, sp.sin_c), ch.ims[j]), ch.ics[j]);
-          if (EMIT || j < NJ - 1) pos = fadd(s[j], off[j + 1]);  // exclusive prefix + carried offset
-          s[j] = fadd(s[j], x);
+        for (int j = 0; j < JS; ++j) {
+          if (j < nj) {
+            const float x = fadd(fmul(sin_turns<NC>(pos, sp.sin_c), ch.ims[j]), ch.ics[j]);
+            // the exclusive prefix plus the carried offset
+            if (EMIT || j < nj - 1) pos = fadd(s[j], off[j + 1]);
+            s[j] = fadd(s[j], x);
+          }
         }
         if constexpr (EMIT) emit(b * TIME_BLOCK + t0 + u, u, sin_turns<NC>(pos, out_c));
       }
     }
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (EMIT || j < NJ - 1) off[j + 1] = frac(fadd(off[j + 1], s[j]));
-    if constexpr (!EMIT) total(b, s[NJ - 1]);
+    for (int j = 0; j < JS; ++j)
+      if (j < nj && (EMIT || j < nj - 1)) off[j + 1] = frac(fadd(off[j + 1], s[j]));
+    if constexpr (!EMIT) {
+      float t = s[JS - 1];
+      if constexpr (WIDE) {
+#pragma unroll
+        for (int j = 0; j < JS; ++j)
+          if (j == nj - 1) t = s[j];
+      }
+      total(b, t);
+    }
     off[0] = frac(fadd(off[0], ch.inc_blk));
   }
 }
@@ -168,102 +219,144 @@ struct NoEmit {
 // The whole chain over samples 0 .. n-1 (n a multiple of TIME_BLOCK) from
 // zero offsets, emitting every sample (synth_span's EMIT mode).
 template <int NC, int G, int KN, typename Emit>
-__device__ __forceinline__ void synth_run(const Chain& ch, const SynthParams& sp,
+__device__ __forceinline__ void synth_run(const Chain<KN>& ch, const SynthParams& sp,
                                           const float* out_c, int n, Emit& emit) {
-  float off[MAX_KN];
+  float off[Chain<KN>::S];
 #pragma unroll
-  for (int j = 0; j < MAX_KN; ++j) off[j] = 0.f;
+  for (int j = 0; j < Chain<KN>::S; ++j) off[j] = 0.f;
   NoTotal none;
-  synth_span<NC, G, KN, KN - 1, true>(ch, sp, out_c, 0, n / TIME_BLOCK, off, emit, none);
+  synth_span<NC, G, KN, emit_nj(KN), true>(ch, sp, out_c, 0, n / TIME_BLOCK, off, emit, none,
+                                           ch.kn - 1);
 }
 
-// ---- the fm{k}_parallel bank (B1, B2) -------------------------------------------
+// ---- the fm{k}_parallel bank -------------------------------------------------
 
-// One candidate's bank of NP fm2 pairs, pair j on genes 4j .. 4j+3 = (fm,
+// One candidate's bank of np fm2 pairs, pair j on genes 4j .. 4j+3 = (fm,
 // index, fc, amp): each pair's make_chain constants, and its output gain.
-// The int8 mode factors out s = (sum_j |amp_j|) / NP (summed in pair order,
-// divided by the float32 NP) and gain_j = amp_j * (63 / (NP s + 1e-30)),
+// The int8 mode factors out s = (sum_j |amp_j|) / np (summed in pair order,
+// divided by the float32 np) and gain_j = amp_j * (63 / (np s + 1e-30)),
 // so the summed pairs stay within +-63 and s rescales the magnitudes; the
-// true-f32 mode keeps gain_j = amp_j and divides the sum by NP
+// float modes keep gain_j = amp_j and divide the sum by np
 // (synth_bank_span). amp is what FoldEmit multiplies a sample by and the
-// int8 epilogue rescales by: s (int8), 1 (f32).
+// int8 epilogue rescales by: s (int8), 1 (bf16, f32). A code's arrays hold
+// its own slots (bank_slots); a wide bank (WIDE_BANK) has MAX_PAIRS and
+// np = sp.npair.
+template <int KN>
 struct PairBank {
-  float inc1[MAX_PAIRS], inc_blk[MAX_PAIRS], im[MAX_PAIRS], ic[MAX_PAIRS], gain[MAX_PAIRS];
+  static constexpr int S = bank_slots(KN);
+  float inc1[S], inc_blk[S], im[S], ic[S], gain[S];
   float amp;
+  int np;
 };
 
-template <int NP, bool INT8>
-__device__ __forceinline__ PairBank make_bank(const float* p, const SynthParams& sp) {
-  static_assert(NP >= 2 && NP <= MAX_PAIRS, "pairs in a bank");
-  PairBank bk;
+template <int KN>
+__device__ __forceinline__ int bank_pairs(const PairBank<KN>& bk) {
+  return KN == WIDE_BANK ? bk.np : PairBank<KN>::S;
+}
+
+template <int KN, bool INT8>
+__device__ __forceinline__ PairBank<KN> make_bank(const float* p, const SynthParams& sp) {
+  constexpr int S = PairBank<KN>::S;
+  static_assert(S >= 2 && S <= MAX_PAIRS, "pairs in a bank");
+  PairBank<KN> bk;
   const float inv_sr = sp.inv_sr;
+  bk.np = KN == WIDE_BANK ? sp.npair : S;
+  const int np = bank_pairs(bk);
 #pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    bk.inc1[j] = frac(fmul(inv_sr, p[4 * j]));
-    bk.im[j] = fmul(inv_sr, fmul(p[4 * j], p[4 * j + 1]));
-    bk.ic[j] = fmul(inv_sr, p[4 * j + 2]);
-    bk.inc_blk[j] = frac(fmul((float)TIME_BLOCK, bk.inc1[j]));
-    bk.gain[j] = p[4 * j + 3];
+  for (int j = 0; j < S; ++j) {
+    bk.inc1[j] = bk.inc_blk[j] = bk.im[j] = bk.ic[j] = bk.gain[j] = 0.f;
+    if (j < np) {
+      bk.inc1[j] = frac(fmul(inv_sr, p[4 * j]));
+      bk.im[j] = fmul(inv_sr, fmul(p[4 * j], p[4 * j + 1]));
+      bk.ic[j] = fmul(inv_sr, p[4 * j + 2]);
+      bk.inc_blk[j] = frac(fmul((float)TIME_BLOCK, bk.inc1[j]));
+      bk.gain[j] = p[4 * j + 3];
+    }
   }
   bk.amp = 1.f;
   if constexpr (INT8) {
     float s = fabsf(p[3]);
 #pragma unroll
-    for (int j = 1; j < NP; ++j) s = fadd(s, fabsf(p[4 * j + 3]));
-    s = __fdiv_rn(s, (float)NP);
-    const float inv_s = __fdiv_rn(63.f, fadd(fmul((float)NP, s), 1e-30f));
+    for (int j = 1; j < S; ++j)
+      if (j < np) s = fadd(s, fabsf(p[4 * j + 3]));
+    s = __fdiv_rn(s, (float)np);
+    const float inv_s = __fdiv_rn(63.f, fadd(fmul((float)np, s), 1e-30f));
 #pragma unroll
-    for (int j = 0; j < NP; ++j) bk.gain[j] = fmul(bk.gain[j], inv_s);
+    for (int j = 0; j < S; ++j) bk.gain[j] = fmul(bk.gain[j], inv_s);
     bk.amp = s;
   }
   return bk;
 }
 
-// The bank over the time blocks [0, nb) of a frame from the carries o1[],
-// o2[], which advance in place (synth_span's contract for a bank): pair j is
-// synth_span's chain of two (its own two carries, the same operations)
-// whose output is the unit sine times gain_j; emit(m, u, y) gets the sum
-// over the pairs in pair order, divided by the float32 NP in the true-f32
-// mode (!INT8), with m the sample's index in the frame. NP is fixed at
-// compile time, as a chain's KN is.
-template <int NC, int G, int NP, bool INT8, typename Emit>
-__device__ __forceinline__ void synth_bank_span(const PairBank& bk, const SynthParams& sp, int nb,
-                                                float (&o1)[NP], float (&o2)[NP], Emit& emit) {
+// The bank over the time blocks [b0, b1) of a frame from the carries o1[],
+// o2[] at block b0, which advance in place (synth_span's contract for a
+// bank): pair j is synth_span's chain of two (its own two carries, the same
+// operations) whose output is the unit sine times gain_j; emit(m, u, y)
+// gets the sum over the pairs in pair order, divided by the float32 np in
+// the float modes (!INT8), with m the sample's index in the frame. The pair
+// count is fixed at compile time, as a chain's KN is (a wide bank skips the
+// slots from np on, as a wide chain does).
+template <int NC, int G, int KN, bool INT8, typename Emit>
+__device__ __forceinline__ void synth_bank_span(const PairBank<KN>& bk, const SynthParams& sp,
+                                                int b0, int b1, float (&o1)[PairBank<KN>::S],
+                                                float (&o2)[PairBank<KN>::S], Emit& emit) {
+  constexpr int S = PairBank<KN>::S;
   static_assert(TIME_BLOCK % G == 0, "G must divide TIME_BLOCK");
-  for (int b = 0; b < nb; ++b) {
-    float s[NP];
+  const int np = bank_pairs(bk);
+  for (int b = b0; b < b1; ++b) {
+    float s[S];
 #pragma unroll
-    for (int j = 0; j < NP; ++j) s[j] = 0.f;
+    for (int j = 0; j < S; ++j) s[j] = 0.f;
     for (int t0 = 0; t0 < TIME_BLOCK; t0 += G) {
       const float tf0 = (float)t0;
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         float y = 0.f;
 #pragma unroll
-        for (int j = 0; j < NP; ++j) {
-          const float pos1 = fadd(fmul(fadd(tf0, (float)u), bk.inc1[j]), o1[j]);
-          const float x = fadd(fmul(sin_turns<NC>(pos1, sp.sin_c), bk.im[j]), bk.ic[j]);
-          const float o = fmul(sin_turns<NC>(fadd(s[j], o2[j]), sp.sin_c), bk.gain[j]);
-          y = j == 0 ? o : fadd(y, o);
-          s[j] = fadd(s[j], x);
+        for (int j = 0; j < S; ++j) {
+          if (j < np) {
+            const float pos1 = fadd(fmul(fadd(tf0, (float)u), bk.inc1[j]), o1[j]);
+            const float x = fadd(fmul(sin_turns<NC>(pos1, sp.sin_c), bk.im[j]), bk.ic[j]);
+            const float o = fmul(sin_turns<NC>(fadd(s[j], o2[j]), sp.sin_c), bk.gain[j]);
+            y = j == 0 ? o : fadd(y, o);
+            s[j] = fadd(s[j], x);
+          }
         }
-        if constexpr (!INT8) y = __fdiv_rn(y, (float)NP);
+        if constexpr (!INT8) y = __fdiv_rn(y, (float)np);
         emit(b * TIME_BLOCK + t0 + u, u, y);
       }
     }
 #pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      o2[j] = frac(fadd(o2[j], s[j]));
-      o1[j] = frac(fadd(o1[j], bk.inc_blk[j]));
+    for (int j = 0; j < S; ++j) {
+      if (j < np) {
+        o2[j] = frac(fadd(o2[j], s[j]));
+        o1[j] = frac(fadd(o1[j], bk.inc_blk[j]));
+      }
     }
   }
 }
 
-// The scaled parameters of candidate `cand` of a (pop, d) row-major array.
-__device__ __forceinline__ void load_params(float* p, const float* __restrict__ params,
-                                            int cand, int d) {
+// Pair j of a bank as synth_span's chain of two, for the time-parallel
+// kernels' level pass over its modulator (large_frame.cu).
+template <int KN>
+__device__ __forceinline__ Chain<2> pair_chain(const PairBank<KN>& bk, int j) {
+  Chain<2> ch;
+  ch.inc1 = bk.inc1[j];
+  ch.inc_blk = bk.inc_blk[j];
+  ch.ims[0] = bk.im[j];
+  ch.ics[0] = bk.ic[j];
+  ch.amp = bk.gain[j];
+  ch.kn = 2;
+  return ch;
+}
+
+// The scaled parameters of candidate `cand` of a (pop, d) row-major array,
+// into the D registers of the synthesis code (synth_dims).
+template <int D>
+__device__ __forceinline__ void load_params(float* p, const float* __restrict__ params, int cand,
+                                            int d) {
 #pragma unroll
-  for (int i = 0; i < MAX_D; ++i) p[i] = i < d ? params[(size_t)cand * d + i] : 0.f;
+  for (int i = 0; i < D; ++i) p[i] = i < d ? params[(size_t)cand * d + i] : 0.f;
 }
 
 // ---- the grouped fold emitter (B1, B2 and B3) ---------------------------------
@@ -410,50 +503,50 @@ struct FoldEmit {
   }
 };
 
-// One candidate's synthesis as B1/B2 run it, frame after frame: a chain of
-// KN oscillators, or for KN > BANK_KN a bank of KN - BANK_KN pairs, with
-// the phase carries that live on from one frame to the next (frame f is
-// samples [f n, (f + 1) n) of one continuous synthesis: its blocks start
-// from the offsets where frame f - 1 ended, as a block starts from where
-// the block before it ended). init() makes the constants, zeroes the
-// carries and returns the amplitude the int8 magnitudes are rescaled by
-// (Chain::amp, PairBank::amp); frame() runs the next frame's n samples
-// into emit, each with its index in the frame.
-template <int NC, int KN, bool INT8, bool BANK = (KN > BANK_KN)>
+// One candidate's synthesis as B1/B2 (and B3's single pass) run it, frame
+// after frame: a chain of KN oscillators, or for a bank code (is_bank) a
+// bank of pairs, with the phase carries that live on from one frame to the
+// next (frame f is samples [f n, (f + 1) n) of one continuous synthesis: its
+// blocks start from the offsets where frame f - 1 ended, as a block starts
+// from where the block before it ended). init() makes the constants, zeroes
+// the carries and returns the amplitude the int8 magnitudes are rescaled by
+// (Chain::amp, PairBank::amp); frame() runs the next frame's n samples into
+// emit, each with its index in the frame.
+template <int NC, int KN, bool INT8, bool BANK = is_bank(KN)>
 struct CandidateSynth;
 
 template <int NC, int KN, bool INT8>
 struct CandidateSynth<NC, KN, INT8, false> {
-  Chain ch;
-  float off[MAX_KN];
+  Chain<KN> ch;
+  float off[Chain<KN>::S];
   __device__ __forceinline__ float init(const float* p, const SynthParams& sp) {
-    ch = make_chain(p, sp);
+    ch = make_chain<KN>(p, sp);
 #pragma unroll
-    for (int j = 0; j < MAX_KN; ++j) off[j] = 0.f;
+    for (int j = 0; j < Chain<KN>::S; ++j) off[j] = 0.f;
     return ch.amp;
   }
   template <typename Emit>
   __device__ __forceinline__ void frame(const SynthParams& sp, Emit& emit) {
     NoTotal none;
-    synth_span<NC, FOLD_G, KN, KN - 1, true>(ch, sp, INT8 ? sp.sin_c63 : sp.sin_c, 0,
-                                             sp.n / TIME_BLOCK, off, emit, none);
+    synth_span<NC, FOLD_G, KN, emit_nj(KN), true>(ch, sp, INT8 ? sp.sin_c63 : sp.sin_c, 0,
+                                                  sp.n / TIME_BLOCK, off, emit, none, ch.kn - 1);
   }
 };
 
 template <int NC, int KN, bool INT8>
 struct CandidateSynth<NC, KN, INT8, true> {
-  static constexpr int NP = KN - BANK_KN;
-  PairBank bk;
-  float o1[NP], o2[NP];
+  static constexpr int S = PairBank<KN>::S;
+  PairBank<KN> bk;
+  float o1[S], o2[S];
   __device__ __forceinline__ float init(const float* p, const SynthParams& sp) {
-    bk = make_bank<NP, INT8>(p, sp);
+    bk = make_bank<KN, INT8>(p, sp);
 #pragma unroll
-    for (int j = 0; j < NP; ++j) o1[j] = o2[j] = 0.f;
+    for (int j = 0; j < S; ++j) o1[j] = o2[j] = 0.f;
     return bk.amp;
   }
   template <typename Emit>
   __device__ __forceinline__ void frame(const SynthParams& sp, Emit& emit) {
-    synth_bank_span<NC, FOLD_G, NP, INT8>(bk, sp, sp.n / TIME_BLOCK, o1, o2, emit);
+    synth_bank_span<NC, FOLD_G, KN, INT8>(bk, sp, 0, sp.n / TIME_BLOCK, o1, o2, emit);
   }
 };
 

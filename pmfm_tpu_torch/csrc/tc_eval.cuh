@@ -292,10 +292,12 @@ __device__ __forceinline__ void evaluate_tc(const float* p, const SynthParams& s
   }
 }
 
-// Thread t's scaled parameters from the block's (TC_CPB, d) rows in shared memory.
+// Thread t's scaled parameters from the block's (TC_CPB, d) rows in shared
+// memory, into the D registers of the synthesis code (synth_dims).
+template <int D>
 __device__ __forceinline__ void take_params(const float* s_p, int d, float* p) {
 #pragma unroll
-  for (int i = 0; i < MAX_D; ++i) p[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
+  for (int i = 0; i < D; ++i) p[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
 }
 
 // The run axis: blockIdx.y is run r of a batched launch, whose candidates
@@ -320,8 +322,8 @@ __device__ __forceinline__ void fitness_block(const float* __restrict__ params, 
   for (int i = threadIdx.x; i < TC_CPB * d; i += TC_CPB)
     s_p[i] = i < avail ? run_params[(size_t)base * d + i] : 0.f;
   __syncwarp();
-  float p[MAX_D];
-  take_params(s_p, d, p);
+  float p[synth_dims(KN)];
+  take_params<synth_dims(KN)>(s_p, d, p);
   __syncwarp();
   evaluate_tc<NC, KN, INT8>(p, sp, dft, target, smem, fitness, base, pop);
 }
@@ -346,11 +348,59 @@ __device__ __forceinline__ void generation_block(
                         : 0.f;
   }
   __syncwarp();
-  float p[MAX_D];
-  take_params(s_p, d, p);
+  float p[synth_dims(KN)];
+  take_params<synth_dims(KN)>(s_p, d, p);
   __syncwarp();
   evaluate_tc<NC, KN, INT8>(p, sp, dft, target, smem, fitness, base, pop);
 }
+
+// ---- the kernels (fused_eval.cu: int8, fused_bf16.cu: bf16) --------------------
+
+template <int NC, int KN>
+__global__ void __launch_bounds__(TC_CPB)
+fused_synth_fitness_int8_kernel(const float* __restrict__ params, int pop, SynthParams sp,
+                                const int8_t* __restrict__ dft, const float* __restrict__ target,
+                                float* __restrict__ fitness) {
+  extern __shared__ __align__(16) uint4 smem_tc[];
+  fitness_block<NC, KN, true>(params, pop, sp, dft, target, fitness, smem_tc);
+}
+
+template <int NC, int KN>
+__global__ void __launch_bounds__(TC_CPB)
+fused_generation_int8_kernel(uint32_t seed, const uint32_t* __restrict__ run_seeds,
+                             const float* __restrict__ pv, const float* __restrict__ ps, int pop,
+                             SynthParams sp, MutateParams mp, const int8_t* __restrict__ dft,
+                             const float* __restrict__ target, float* __restrict__ fitness,
+                             float* __restrict__ values, float* __restrict__ steps) {
+  extern __shared__ __align__(16) uint4 smem_tc[];
+  generation_block<NC, KN, true>(seed, run_seeds, pv, ps, pop, sp, mp, dft, target, fitness,
+                                 values, steps, smem_tc);
+}
+
+template <int NC, int KN>
+__global__ void __launch_bounds__(TC_CPB)
+fused_synth_fitness_bf16_kernel(const float* __restrict__ params, int pop, SynthParams sp,
+                                const __nv_bfloat16* __restrict__ dft,
+                                const float* __restrict__ target, float* __restrict__ fitness) {
+  extern __shared__ __align__(16) uint4 smem_tc[];
+  fitness_block<NC, KN, false>(params, pop, sp, dft, target, fitness, smem_tc);
+}
+
+template <int NC, int KN>
+__global__ void __launch_bounds__(TC_CPB)
+fused_generation_bf16_kernel(uint32_t seed, const uint32_t* __restrict__ run_seeds,
+                             const float* __restrict__ pv, const float* __restrict__ ps, int pop,
+                             SynthParams sp, MutateParams mp, const __nv_bfloat16* __restrict__ dft,
+                             const float* __restrict__ target, float* __restrict__ fitness,
+                             float* __restrict__ values, float* __restrict__ steps) {
+  extern __shared__ __align__(16) uint4 smem_tc[];
+  generation_block<NC, KN, false>(seed, run_seeds, pv, ps, pop, sp, mp, dft, target, fitness,
+                                  values, steps, smem_tc);
+}
+
+typedef void (*FitInt8Kernel)(const float*, int, SynthParams, const int8_t*, const float*, float*);
+typedef void (*FitBf16Kernel)(const float*, int, SynthParams, const __nv_bfloat16*, const float*,
+                              float*);
 
 // ---- launchers ------------------------------------------------------------------
 
@@ -364,15 +414,17 @@ __host__ inline size_t tc_smem(const SynthParams& sp) {
 }
 
 // The kernel `pick` gives for the sine order and the synthesis
-// (dispatch_synth: the chain length or the bank's pairs), with its shared
+// (dispatch_synth: the chain length or the bank's pairs, the fixed banks
+// included, of the codes SET: CODES_FIXED in fused_eval.cu and
+// fused_bf16.cu, CODES_WIDE in fused_wide.cu), with its shared
 // memory set, asking for the largest carveout so that as many one-warp
 // blocks as shared memory holds fit an SM (six at n 1024 in int8).
-template <bool INT8, typename Pick, typename K>
+template <bool INT8, int SET, typename Pick, typename K>
 static int prepare_tc(Pick&& pick, const SynthParams& sp, K* out) {
   if (sp.frames < 1) return (int)cudaErrorInvalidValue;
   K kernel = nullptr;
   int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
-    return dispatch_synth(sp, [&](auto kc) {
+    return dispatch_synth<true, SET>(sp, [&](auto kc) {
       kernel = pick(nc, kc);
       return 0;
     });
@@ -393,4 +445,20 @@ static int launch_tc(K kernel, const SynthParams& sp, int pop, int runs, cudaStr
   if (pop < 1 || runs < 1 || runs > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<dim3((pop + TC_CPB - 1) / TC_CPB, runs), TC_CPB, tc_smem<INT8>(sp), stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// The wide codes (WIDE_CHAIN, WIDE_BANK) of the four kernels, prepared in
+// fused_wide.cu, which nvcc builds beside fused_eval.cu and fused_bf16.cu;
+// the prepare calls of those files hand a wide shape (wide_synth) to these.
+int prepare_wide_fitness_int8(const SynthParams& sp, FitInt8Kernel* kernel);
+int prepare_wide_generation_int8(const SynthParams& sp, GenInt8Kernel* kernel);
+int prepare_wide_fitness_bf16(const SynthParams& sp, FitBf16Kernel* kernel);
+int prepare_wide_generation_bf16(const SynthParams& sp, GenBf16Kernel* kernel);
+
+// Either set's kernel for sp: `fixed` prepares the fixed codes here, `wide`
+// is one of the four above.
+template <bool INT8, typename Pick, typename K>
+static int prepare_tc_any(Pick&& fixed, int (*wide)(const SynthParams&, K*),
+                          const SynthParams& sp, K* out) {
+  return wide_synth(sp, true) ? wide(sp, out) : prepare_tc<INT8, CODES_FIXED>(fixed, sp, out);
 }

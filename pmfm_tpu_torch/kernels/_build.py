@@ -1,10 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_bf16.cu``:
-B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_f32.cu``: B1, B2 true f32; ``evolve.cu``: B5, which runs B2's kernels through
-``generation.cuh``; ``large_frame.cu``: B3, B4; ``scan_synth.cu``: the scan
-synthesis of the unfused engines; ``evaluate.cuh``: B2's
-offspring genes; ``synth_common.cuh``: the synthesis B1-B4 share and the
+B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_wide.cu``: both modes at the
+wide synthesis codes, chains of 9-16 oscillators and banks of 6-8 pairs;
+``fused_f32.cu``: B1, B2 true f32; ``evolve.cu``: B5, which runs B2's
+kernels through ``generation.cuh``; ``large_frame.cu``: B3, B4 on
+``large_frame.cuh``, and ``large_frame_wide.cu`` their wide codes, every
+bank among them; ``scan_synth.cu``: the scan synthesis of the unfused
+engines; ``evaluate.cuh``: B2's offspring genes and the dispatch of the
+synthesis codes; ``synth_common.cuh``: the synthesis B1-B4 share and the
 fold emitter of B1, B2 and B3) have a plain
 C interface and include no PyTorch header, so ``nvcc`` compiles them, one
 process per source started together, and links them into one shared
@@ -22,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,7 +34,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pmfm_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-MAX_D = 16  # parameters per candidate (fm8_series); must match csrc
+MAX_D = 32  # parameters per candidate (fm16_series, fm8_parallel); must match csrc
 
 
 def sources() -> list:
@@ -119,7 +124,8 @@ def build() -> dict:
     Each source is compiled by its own ``nvcc`` process, all started
     together, and the objects are linked into one shared library. Returns
     ``{"path", "seconds", "log", "built"}``; ``log`` holds nvcc's
-    ``-Xptxas -v`` report (registers, shared memory, spills per kernel).
+    ``-Xptxas -v`` report (registers, shared memory, spills per kernel) and
+    a line ``nvcc <source>: <s>s`` a source, its wall time from the start.
     Raises ``RuntimeError`` with the compiler's output if nvcc fails.
     """
     out = library_path()
@@ -139,9 +145,20 @@ def build() -> dict:
             for src, obj in zip(sources(), objs)
         )
     ]
+    results = {}
+
+    def drain(proc):  # each process's output read as it comes, so no pipe fills and stalls it
+        results[id(proc)] = (proc.communicate()[0], time.perf_counter())
+
+    readers = [threading.Thread(target=drain, args=(proc,)) for _, proc in procs]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     logs, failed = [], []
-    for cmd, proc in procs:
-        logs.append(proc.communicate()[0])
+    for (cmd, proc), src in zip(procs, sources()):
+        text, end = results[id(proc)]
+        logs.append(text + f"nvcc {src.name}: {end - t0:.1f}s\n")  # its wall time from the start
         if proc.returncode != 0:
             failed.append((proc.returncode, " ".join(cmd), logs[-1]))
     if not failed:

@@ -19,8 +19,8 @@ value (what ``_merge_topmu``'s stable enumeration rank gives); best-ever
 improves only on a strictly smaller fitness. The reference's finite 3e38
 sentinel and one-hot extraction are Mosaic workarounds: survivors here keep
 their fitness, inf and NaN included. No restarts, early stop or sharding.
-``fm{k}_parallel``, which B2 takes, raises ``NotImplementedError`` here on
-any device (ROADMAP Queue B item 3).
+B5 takes every topology B2 takes, ``fm{k}_parallel`` banks included: its
+generations are B2's launches (``check_supported_topology``).
 
 B5 takes B2's multi-frame mode (``num_frames``) and its run axis: parents
 ``(B, mu, D)``, best-ever ``(B, D)`` and ``(B,)``, targets ``(B, F, K)`` and
@@ -182,7 +182,7 @@ def fused_evolve(
         if len(seeds) != runs or any(len(run) != gens for run in seeds):
             raise ValueError(f"need {runs} seed lists of one length, one a run")
     mu, d = parent_values.shape[-2:]
-    check_supported_topology(topology)  # fm{k}_parallel in B5: ROADMAP Queue B item 3
+    check_supported_topology(topology)
     if not gens:
         raise ValueError("fused_evolve needs at least one generation")
     if pop < mu:

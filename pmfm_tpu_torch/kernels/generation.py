@@ -11,7 +11,7 @@ prologue, then B1's f32 DFT and group sum); each runs the offspring prologue
 below (``csrc/evaluate.cuh::offspring_gene``, the block's genes spread over
 all its threads) and then B1's evaluation in the mode the operand selects.
 ``fused_generation_plain`` is its plain PyTorch version. It takes every
-topology B1 takes, ``fm{k}_parallel`` (D = 8 .. 16) included: the prologue
+topology B1 takes, ``fm{k}_parallel`` (D = 8 .. 32) included: the prologue
 spreads the block's candidates x D genes over its threads whatever D is,
 and the launch geometry does not depend on D.
 

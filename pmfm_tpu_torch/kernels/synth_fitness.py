@@ -73,11 +73,14 @@ The run axis (the port's counterpart of the reference's ``vmap`` over the
 launch, ``(B, P)`` out; run r's fitness is bit-equal to a lone launch on run
 r's candidates and target.
 
-Ported: ``fm2``, ``fm{k}_series`` (k <= 8) and ``fm{k}_parallel`` (k <= 4,
-``MAX_PARALLEL_PAIRS``) in both modes, at any frame count and with the run
-axis, in all three modes; ``fm{k}_parallel`` with k >= 5 raises
-``NotImplementedError``. B3, B4 and B5 do not take ``fm{k}_parallel`` yet
-(``check_supported_topology``).
+Ported: ``fm2``, ``fm{k}_series`` (k <= 16) and ``fm{k}_parallel`` (k <= 8),
+up to 32 genes, at any frame count and with the run axis, in all three
+modes; every kernel (B1-B5) takes the same topologies
+(``check_supported_topology``), and a wider one raises
+``NotImplementedError``. Chains up to fm8_series and banks up to
+fm5_parallel have a compile-time instantiation each; longer chains and
+larger banks share one runtime-length instantiation a kernel, mode and
+sine order (csrc ``WIDE_CHAIN``, ``WIDE_BANK``).
 """
 from __future__ import annotations
 
@@ -94,8 +97,7 @@ from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 
 DEFAULT_POP_BLOCK = 512
 TIME_BLOCK = 128
-MAX_SERIES_OPS = 8  # csrc MAX_KN
-MAX_PARALLEL_PAIRS = 4  # csrc MAX_PAIRS: fm4_parallel's 16 genes fill MAX_D
+MAX_GENES = 32  # csrc MAX_D: fm16_series (MAX_KN 16) and fm8_parallel (MAX_PAIRS 8)
 CUDA_BLOCK = 32  # csrc TC_CPB: int8 B1/B2 candidates per CUDA block (one warp)
 F32_GROUPS = 8  # csrc DF_GROUPS: the f32 fitness's bin groups
 F32_SYNTH_THREADS = 128  # csrc SY_TPB: B1/B2 f32 synthesis, candidates (threads) per block
@@ -199,27 +201,23 @@ def check_supported(topology: str, dft_packed: torch.Tensor, dft_scale: float,
             f"engines take a bfloat16 or float32 operand")
     if num_frames < 1:
         raise ValueError(f"num_frames must be >= 1, got {num_frames}")
-    check_supported_topology(topology, parallel=True)
+    check_supported_topology(topology)
 
 
-def check_supported_topology(topology: str, *, parallel: bool = False) -> None:
+def check_supported_topology(topology: str) -> None:
     """Raise ``NotImplementedError`` for a topology the kernels do not take:
-    every kernel takes fm2 and fm{k}_series, k <= 8; B1/B2 (``parallel``)
-    also take fm{k}_parallel, k <= 4."""
+    every kernel (B1-B5) takes fm2, fm{k}_series (k <= 16) and
+    fm{k}_parallel (k <= 8), up to the kernels' 32 genes (csrc ``MAX_D``)."""
     k = parallel_pairs(topology)
-    if k is not None:
-        if not parallel:
-            raise NotImplementedError(
-                f"{topology}: fm{{k}}_parallel in B3, B4 and B5 is not ported yet "
-                f"(ROADMAP Queue B item 3)")
-        if k > MAX_PARALLEL_PAIRS:
-            raise NotImplementedError(
-                f"{topology}: fm{{k}}_parallel with k > {MAX_PARALLEL_PAIRS} ({4 * k} genes, "
-                f"above the kernels' 16) is not ported yet (ROADMAP Queue B item 3 (k >= 5))")
-        return
     kn = series_ops(topology)
-    if topology != "fm2" and (kn is None or kn > MAX_SERIES_OPS):
-        raise NotImplementedError(f"{topology}: only fm2 and fm3..fm8_series are ported")
+    if topology != "fm2" and k is None and kn is None:
+        raise NotImplementedError(f"{topology}: only fm2, fm{{k}}_series and fm{{k}}_parallel "
+                                  f"are ported")
+    d = topology_dims(topology)
+    if d > MAX_GENES:
+        raise NotImplementedError(
+            f"{topology}: {d} genes, above the kernels' {MAX_GENES}, is not ported yet "
+            f"(ROADMAP Queue B item 3 (D > {MAX_GENES})); the unfused engines take it")
 
 
 def _chain_rows(p: torch.Tensor, topology: str, inv_sr: float):

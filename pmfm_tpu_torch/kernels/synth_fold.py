@@ -24,6 +24,14 @@ engine) ``q = round(63 * sin)`` is int8, the a's are int8 (|a| <= 126) and
 ``fold_cast``) and ``mag_scale`` is 1. The spectrum is
 ``ops.spectral.magnitude_spectrum_prefolded``.
 
+Every topology B1/B2 take (``check_supported_topology``): an
+``fm{k}_parallel`` bank emits what B1/B2's bank emits, int8 ``round(sum_j
+gain_j sin_j)`` with ``mag_scale = s * dft_scale`` (``bank_gains``), bf16
+the pair mean rounded to bf16 with ``mag_scale`` 1. In the time-parallel
+layout a bank's pairs are independent chains of two: one level a pair
+finds its carrier's offsets, and one emitting pass sums the pairs in pair
+order.
+
 Not ported, because they work around Mosaic's VMEM and compile time and
 Hopper has neither limit here: ``fold_pop_block``, ``fold_vmem_ok``,
 ``_fold_budget`` (the kernel writes a+/- to device memory, so there is no
@@ -34,13 +42,13 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.synthesis import topology_dims
+from ..ops.synthesis import parallel_pairs, topology_dims
 from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
     MAX_SHARED_BYTES,
     TIME_BLOCK,
-    chain_amp,
+    bank_amp,
     chain_length,
     check_supported_topology,
     inv_sample_rate,
@@ -50,34 +58,56 @@ from .synth_fitness import (
 )
 
 
-# (chain length, int8) -> the population from which the single pass is taken
-# instead of the time-parallel layout. The chain length is 2 for fm2, k for
-# fm{k}_series. Each is the smallest population of chip_smoke.py's
-# FOLD_LAYOUT_POPS (2048 .. 2^16) at which the single pass was the faster at
-# n 8192 on an H100 (its phase 11); fm2's time-parallel layout was the faster
-# at all of them. The frame did not move it (fm3_series at n 4096 and 16384).
-# The time-parallel layout computes kn(kn+1)/2 sines a sample where the
-# single pass computes kn, so longer chains cross lower, though not in
-# order: the single pass's own time does not grow in order with the chain.
+# (shape, int8) -> the population from which the single pass is taken
+# instead of the time-parallel layout. The shape is a chain's length (2 for
+# fm2, k for fm{k}_series) or an fm{k}_parallel bank's name (``fold_shape``).
+# Each is the smallest population of chip_smoke.py's FOLD_LAYOUT_POPS
+# (2048 .. 2^16) at which the single pass was the faster at n 8192 on an
+# H100 (its phase 11; the banks' rows its phase 34); fm2's time-parallel
+# layout was the faster at all of them. The frame did not move it
+# (fm3_series at n 4096 and 16384). The time-parallel layout computes
+# kn(kn+1)/2 sines a sample where the single pass computes kn, so longer
+# chains cross lower, though not in order: the single pass's own time does
+# not grow in order with the chain. A bank's level pass adds one sine a
+# pair to the pair's two, and its single pass (the runtime-length bank) is
+# slower than a chain's: the time-parallel layout stayed the faster up to
+# 2^16 but for fm5_parallel in bf16, which crossed at 2^15 (chip_smoke.py
+# phase 34 at n 8192, and fm3_parallel at n 4096 and 16384). Chains past
+# fm8_series and banks past fm5_parallel (the wide instantiations, named
+# only by tests) take the longest timed row of their kind.
 FOLD_TP_BELOW_POP = {
     (2, True): 1 << 17, (3, True): 1 << 14, (4, True): 1 << 14, (5, True): 1 << 14,
     (6, True): 1 << 14, (7, True): 1 << 12, (8, True): 1 << 13,
     (2, False): 1 << 17, (3, False): 1 << 15, (4, False): 1 << 15, (5, False): 1 << 14,
     (6, False): 1 << 13, (7, False): 1 << 13, (8, False): 1 << 13,
+    ("fm2_parallel", True): 1 << 17, ("fm3_parallel", True): 1 << 17,
+    ("fm4_parallel", True): 1 << 17, ("fm5_parallel", True): 1 << 17,
+    ("fm2_parallel", False): 1 << 17, ("fm3_parallel", False): 1 << 17,
+    ("fm4_parallel", False): 1 << 17, ("fm5_parallel", False): 1 << 15,
 }
+TIMED_CHAIN, TIMED_BANK = 8, 5  # the longest chain and largest bank with a row of their own
+
+
+def fold_shape(topology: str):
+    """``topology``'s key in FOLD_TP_BELOW_POP: its chain length (fm2: 2),
+    or its bank's name; past the timed rows, the longest of its kind."""
+    k = parallel_pairs(topology)
+    if k is not None:
+        return f"fm{min(k, TIMED_BANK)}_parallel"
+    return min(chain_length(topology), TIMED_CHAIN)
 
 
 def fold_geometry(pop: int, n: int, int8: bool, topology: str) -> dict:
     """The B3 launch for ``pop`` candidates of ``topology`` and frames of
     ``n`` (csrc ``pmfm_synth_fold``). Below
-    ``FOLD_TP_BELOW_POP[chain_length(topology), int8]`` candidates, while
+    ``FOLD_TP_BELOW_POP[fold_shape(topology), int8]`` candidates, while
     the frame (n int8 or bf16 elements) and the level totals (n/128 floats)
     fit a block's ``shared_bytes`` of shared memory: the time-parallel
     layout, a CUDA block a candidate, one warp whose lanes split the time
     blocks. Else the single pass: 32 candidates a block, one thread each, no
     shared memory."""
     smem = n * (1 if int8 else 2) + 4 * (n // TIME_BLOCK)
-    if pop < FOLD_TP_BELOW_POP[chain_length(topology), int8] and smem <= MAX_SHARED_BYTES:
+    if pop < FOLD_TP_BELOW_POP[fold_shape(topology), int8] and smem <= MAX_SHARED_BYTES:
         return dict(time_parallel=True, blocks=pop, threads=32, shared_bytes=smem)
     return dict(time_parallel=False, blocks=-(-pop // 32), threads=32, shared_bytes=0)
 
@@ -95,7 +125,7 @@ def _fold_plain_block(p, *, topology, n, inv_sr, dft_scale, sine_order):
     int8 = dft_scale > 0.0
     pop = p.shape[0]
     q = torch.empty((n, pop), dtype=torch.int8 if int8 else torch.bfloat16, device=p.device)
-    amp = chain_amp(p, topology)
+    amp = bank_amp(p, topology, int8)
     blocks = synth_blocks_plain(p, topology=topology, n=n, inv_sr=inv_sr,
                                 sine_order=sine_order, int8=int8)
     for b, y in enumerate(blocks):
@@ -110,7 +140,7 @@ def _fold_plain_block(p, *, topology, n, inv_sr, dft_scale, sine_order):
     a_plus, a_minus = qf[:, :half].clone(), qf[:, :half].clone()
     a_plus[:, 1:] += rev
     a_minus[:, 1:] -= rev
-    if int8:
+    if int8:  # a bank's amp is s (bank_gains), the bf16 mode's 1
         mag_scale = torch.abs(amp) * torch.tensor(dft_scale, dtype=torch.float32)
     else:
         mag_scale = torch.ones((pop,), dtype=torch.float32, device=p.device)

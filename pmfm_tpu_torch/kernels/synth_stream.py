@@ -16,7 +16,9 @@ with ``audio_f32`` (the true-f32 engine), for
 ``ops.spectral.magnitude_spectrum_factored(..., prewindowed=True)``.
 
 The phase carries are the chain's own offsets (``synth_blocks_plain``, one
-per oscillator of ``_chain_rows``); nothing here counts them a second time.
+per oscillator of ``_chain_rows``), or for an ``fm{k}_parallel`` bank its 2k
+(two a pair), each counted once; the bank's audio is the pair mean (the sum
+over pairs of ``sin * amp_j`` divided by k) times the window.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
     TIME_BLOCK,
-    chain_amp,
+    bank_amp,
     check_supported_topology,
     inv_sample_rate,
     resolve_pop_block,
@@ -104,7 +106,7 @@ def fused_synth_stream_plain(
     tc = stream_chunk(n)
     for i in range(0, pop, pb):
         blk = p[i : i + pb]
-        amp = chain_amp(blk, topology)
+        amp = bank_amp(blk, topology, False)
         blocks = synth_blocks_plain(blk, topology=topology, n=n, inv_sr=inv_sr,
                                     sine_order=sine_order, int8=False)
         chunk = []

@@ -155,6 +155,38 @@ def test_fused_evolve_is_b2_with_stable_selection(setup):
     assert torch.equal(pv, qv) and torch.equal(ps, qs) and torch.equal(pf, qf)
 
 
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_fused_evolve_bank_is_b2_with_stable_selection(dtype):
+    """B5 on an fm3_parallel bank (ported: ROADMAP Queue B item 3), in each
+    mode, generation by generation bit-equal to B2's plain version for the
+    generation's seed with the stable (fitness, index) top-mu and best-ever
+    on a strict improvement."""
+    topology, d, maxs = "fm3_parallel", 12, (3520.0, 8.0, 3520.0, 1.0) * 3
+    so = make_spectrum_ops(ESConfig(audio_length_log2=8, dft_dtype=dtype, num_dimensions=d,
+                                    topology=topology, param_mins=(0.0,) * d, param_maxs=maxs),
+                           device="cpu")
+    tgt = target_spectrum(synthesize_single(torch.tensor(TRUE * 3), N, topology,
+                                            engine="scanless"), so)
+    kw = dict(pop=POP, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=N, pop_block=16, sine_order=9)
+    g = torch.Generator().manual_seed(1)
+    pv0, ps0 = torch.rand((MU, d), generator=g), torch.full((MU, d), 0.1)
+    seeds = [kernel_seed(9, i) for i in range(3)]
+    before = tev.fused_evolve.launches
+    pv, ps, pf, bv, bf, traj = tev.fused_evolve(seeds, pv0, ps0, pv0[0],
+                                                torch.tensor(float("inf")), tgt, **kw)
+    assert tev.fused_evolve.launches == before  # CPU tensors: the plain version
+    qv, qs, best = pv0, ps0, float("inf")
+    for i, seed in enumerate(seeds):
+        fit, val, stp = tgen.fused_generation_plain(seed, qv, qs, tgt, **kw)
+        order = sorted(range(POP), key=lambda j: (float(fit[j]), j))[:MU]
+        qv, qs, qf = val[order], stp[order], fit[order]
+        best = min(best, float(qf[0]))
+        assert float(traj[i]) == best
+    assert torch.equal(pv, qv) and torch.equal(ps, qs) and torch.equal(pf, qf)
+    assert float(bf) == float(traj[-1]) and torch.isfinite(traj).all()
+
+
 def test_fused_evolve_resume_improves_or_holds(setup):
     so, tgt = setup
     pv, ps, pf, bv, bf, _ = _run(so, tgt, gens=5)

@@ -705,3 +705,110 @@ def test_match_many_is_one_b2_launch_a_generation(cuda):
     assert len(res) == 4 and all(np.isfinite(r.chunks[0].best_fitness) for r in res)
     assert dict(gn.fused_generation.launches_by) == {"int8_frames_runs": 7, "f32_frames_runs": 3}
     assert dict(sf.fused_synth_fitness.launches_by) == {"f32_frames_runs": 1}
+
+
+# ---- banks in B3/B4/B5 and 20 to 32 genes in every kernel (Queue B item 3) ----
+
+BANKS = ["fm2_parallel", "fm3_parallel", "fm4_parallel", "fm5_parallel"]
+WIDE = ["fm5_parallel", "fm8_parallel", "fm10_series", "fm16_series"]
+
+
+def _topology_params(dev, pop, topology, seed):
+    """Scaled parameters over the examples' ranges: 3520 Hz and index 8 an
+    operator, amplitude 1 a pair of a bank."""
+    d = topology_dims(topology)
+    maxs = ((3520.0, 8.0, 3520.0, 1.0) * (d // 4) if "parallel" in topology
+            else (3520.0, 8.0) * (d // 2))
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random((pop, d)) * np.asarray(maxs)).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("dft_scale", [1e-5, 0.0])
+@pytest.mark.parametrize("n", [4096, 8192])
+@pytest.mark.parametrize("sine_order", [7, 9])
+@pytest.mark.parametrize("topology", BANKS + ["fm8_parallel", "fm12_series"])
+def test_b3_bank_kernel_bit_equal_to_plain(cuda, monkeypatch, topology, sine_order, n, dft_scale):
+    """B3 on a bank (the pairs' modulators level by level, then one
+    emitting pass summing the pairs in order; int8 with the bank's gains and
+    mag_scale s * dft_scale, bf16 the pair mean) and on a wide chain, in both
+    layouts, bit-equal to its plain version at each of LARGE_POPS
+    (chip_smoke.py phase 30's settings)."""
+    p = _topology_params(cuda, max(LARGE_POPS), topology, seed=n + sine_order)
+    kw = dict(topology=topology, n=n, sine_order=sine_order, dft_scale=dft_scale)
+    want = sfo.fused_synth_fold_plain(p, pop_block=max(LARGE_POPS), **kw)
+    for pop in LARGE_POPS:
+        for below in (1 << 62, 0):
+            monkeypatch.setattr(sfo, "FOLD_TP_BELOW_POP",
+                                dict.fromkeys(sfo.FOLD_TP_BELOW_POP, below))
+            assert sfo.fold_geometry(pop, n, dft_scale > 0, topology)["time_parallel"] == bool(below)
+            got = sfo.fused_synth_fold(p[:pop], **kw)
+            assert all(torch.equal(a, b[..., :pop]) for a, b in zip(got, want))
+
+
+B4_BANK_GRID = [("fm2_parallel", 7, 65536), ("fm3_parallel", 9, 65536),
+                ("fm4_parallel", 7, 32768), ("fm5_parallel", 9, 131072),
+                ("fm8_parallel", 9, 32768), ("fm12_series", 7, 32768)]
+
+
+@pytest.mark.parametrize("audio_f32", [False, True])
+@pytest.mark.parametrize("topology,sine_order,n", B4_BANK_GRID)
+def test_b4_bank_kernel_bit_equal_to_plain(cuda, topology, sine_order, n, audio_f32):
+    """B4 on a bank (its 2k carries: each pair's modulator level by level,
+    the pairs' mean times the window) and on a wide chain, bit-equal to its
+    plain version (131072: the level totals in device memory)."""
+    p = _topology_params(cuda, max(LARGE_POPS), topology, seed=n + sine_order)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    kw = dict(topology=topology, n=n, sine_order=sine_order, audio_f32=audio_f32)
+    want = sst.fused_synth_stream_plain(p, win, pop_block=max(LARGE_POPS), **kw)
+    for pop in LARGE_POPS:
+        assert torch.equal(sst.fused_synth_stream(p[:pop], win, **kw), want[:, :pop])
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("frames,runs", [(1, None), (8, None), (1, 4)])
+def test_b5_bank_bit_equal_to_b2_launches(cuda, dtype, frames, runs):
+    """B5 on fm3_parallel: G generations in one call == G launches of B2's
+    bank kernel + the stable selection, bit for bit, in each mode, at 8
+    frames and with a run axis of 4 (chip_smoke.py phase 31's settings)."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    topology, pop, mu, d = "fm3_parallel", RAGGED_POP, 64, 12
+    maxs = (3520.0, 8.0, 3520.0, 1.0) * 3
+    so = make_spectrum_ops(ESConfig(num_dimensions=d, topology=topology, param_mins=(0.0,) * d,
+                                    param_maxs=maxs, audio_length_log2=10, dft_dtype=dtype),
+                           device=cuda)
+    rng = np.random.default_rng(frames + (runs or 0))
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    lead = () if runs is None else (runs,)
+    pv, ps = t(rng.random(lead + (mu, d))), t(rng.uniform(0.02, 0.3, lead + (mu, d)))
+    tgt = t(rng.uniform(0, 50, lead + (frames, so.num_bins)))
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=1024, pop_block=pop,
+              sine_order=9, num_frames=frames)
+    gens = 6
+    if runs is None:
+        seeds = [kernel_seed(11, g) for g in range(gens)]
+        best = (pv[0].clone(), torch.tensor(float("inf"), device=cuda))
+    else:
+        seeds = [[kernel_seed(11 + r, g) for g in range(gens)] for r in range(runs)]
+        best = (pv[:, 0].clone(), torch.full((runs,), float("inf"), device=cuda))
+    args = (pv, ps, *best, tgt)
+    before = ev.fused_evolve.launches
+    out = ev.fused_evolve(seeds, *args, **kw)
+    assert ev.fused_evolve.launches == before + 1
+    loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+    assert all(_bits_equal(a, b) for a, b in zip(out, loop))
+
+
+@pytest.mark.parametrize("pop", [1, 65, RAGGED_POP])
+@pytest.mark.parametrize("topology", WIDE)
+@pytest.mark.parametrize("n", [1024, 3584])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_b1_b2_wide_grid(cuda, dtype, n, topology, pop):
+    """B1/B2 at 20 to 32 genes (fm5_parallel's compile-time bank, the wide
+    bank and the wide chain) against their plain versions in the int8 / bf16
+    and the f32 limits, B2's values bit-equal and its fitness bit-equal to
+    B1's on its own offspring (chip_smoke.py phase 32's settings)."""
+    limits = (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL) if dtype == "float32" else (FIT_MAX_REL,
+                                                                              FIT_MEDIAN_REL)
+    _grid_case(cuda, dtype, n, None, topology, 9, pop, limits)

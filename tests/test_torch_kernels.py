@@ -184,14 +184,16 @@ def test_fold_definition():
 @pytest.mark.parametrize("case", [
     # the bf16 engine (scale 0, the bf16 operand): ported (ROADMAP Queue B item 7), so it runs
     dict(dft_scale=0.0),
-    dict(topology="fm5_parallel"),
+    dict(topology="fm5_parallel"),  # 20 genes: ported (Queue B item 3), so it runs
     dict(num_frames=2),  # multi-frame fitness: ported (ROADMAP Queue B item 8), so it runs
-    dict(topology="fm9_series"),
+    dict(topology="fm9_series"),  # 18 genes, the wide chain: ported (item 3), so it runs
+    dict(topology="fm9_parallel"),  # 36 genes, above the kernels' 32: raises
 ])
 def test_unported_variants_raise(case):
-    """The variants B1/B2 do not take raise; the multi-frame mode and the bf16
-    mode, once among them, run: fitness (P,) against a (K,) or (F, K)
-    target, and B2's offspring."""
+    """The variants B1/B2 do not take raise (a topology above the kernels'
+    32 genes, naming "item 3 (D > 32)"); the multi-frame mode, the bf16
+    mode, fm5_parallel and the wide chain, once among them, run: fitness
+    (P,) against a (K,) or (F, K) target, and B2's offspring."""
     _, to = _operands()
     topology = case.get("topology", "fm3_series")
     d = tsyn.topology_dims(topology)
@@ -199,7 +201,7 @@ def test_unported_variants_raise(case):
     kw.update(case)
     if case.get("dft_scale") == 0.0:
         kw["dft_packed"] = tspec.make_spectrum_ops(N, dft_dtype="bfloat16", device="cpu").dft_packed
-    if case.get("num_frames", 1) > 1 or case.get("dft_scale") == 0.0:
+    if d <= tsf.MAX_GENES:
         frames = case.get("num_frames", 1)
         tgt = torch.ones((frames, to.num_bins)) if frames > 1 else torch.ones(to.num_bins)
         fit = tsf.fused_synth_fitness(torch.full((8, d), 100.0), tgt, **kw)
@@ -208,7 +210,7 @@ def test_unported_variants_raise(case):
         assert fit.shape == (8,) and torch.isfinite(fit).all()
         assert gen[1].shape == (8, d) and torch.isfinite(gen[0]).all()
         return
-    match = "item 3" if "parallel" in topology else None
+    match = r"item 3 \(D > 32\)"
     with pytest.raises(NotImplementedError, match=match):
         tsf.fused_synth_fitness(torch.zeros((8, d)), torch.zeros(to.num_bins), **kw)
     with pytest.raises(NotImplementedError, match=match):

@@ -1,8 +1,9 @@
 """The ``fm{k}_parallel`` mode of the port's kernels B1 (fused_synth_fitness)
-and B2 (fused_generation), k = 2..4, in their plain PyTorch versions on the
-CPU, against the pmfm_tpu Pallas kernels in interpret mode (as
-tests/test_torch_kernels.py and tests/test_torch_f32.py run them), in the
-int8 and the true-f32 mode; and the kernels that do not take the mode yet.
+and B2 (fused_generation), k = 2..4, and 20 genes (fm5_parallel, the wide
+chain fm10_series), in their plain PyTorch versions on the CPU, against the
+pmfm_tpu Pallas kernels in interpret mode (as tests/test_torch_kernels.py
+and tests/test_torch_f32.py run them), in the int8 and the true-f32 mode;
+B3, B4 and B5 on a bank; and the raise above the kernels' 32 genes.
 
 Tolerances. int8: max relative 1e-3, median 1e-5 (test_torch_kernels.py's:
 the two sides' phase prefix sums differ in order, which can flip an int8
@@ -194,22 +195,132 @@ def test_bank_gains_and_amplitude():
 
 
 def test_parallel_mode_raises_outside_b1_b2():
-    """B3, B4 and B5 do not take fm{k}_parallel yet (ROADMAP Queue B item 3),
-    on any device; B1/B2 refuse k >= 5 (above the kernels' 16 genes)."""
+    """B3, B4 and B5 take fm{k}_parallel (on the CPU, their plain versions):
+    B3's a+/- and B4's audio of a bank are finite and its mag_scale is the
+    bank's s times dft_scale, B5 keeps its survivors; every kernel still
+    raises above the kernels' 32 genes (fm9_parallel, 36 genes), naming
+    ROADMAP Queue B item 3."""
     d = 12
-    p = torch.zeros((4, d))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tsfo.fused_synth_fold(p, topology="fm3_parallel", n=4096, dft_scale=1.0)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tss.fused_synth_stream(p, torch.ones(32768), topology="fm3_parallel", n=32768)
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy((rng.random((4, d)) * np.asarray(_maxs("fm3_parallel")))
+                         .astype(np.float32))
+    ap, am, edge, ms = tsfo.fused_synth_fold(p, topology="fm3_parallel", n=4096, dft_scale=1e-5)
+    assert ap.shape == (2048, 4) and ap.dtype == torch.int8 and torch.isfinite(edge).all()
+    assert torch.equal(ms, tsf.bank_amp(p, "fm3_parallel", True) * torch.tensor(1e-5))
+    audio = tss.fused_synth_stream(p, torch.ones(32768), topology="fm3_parallel", n=32768)
+    assert audio.shape == (32768, 4) and torch.isfinite(audio.float()).all()
     _, to = _operands("int8")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tev.fused_evolve([1], torch.zeros((4, d)), torch.zeros((4, d)), torch.zeros(d),
-                         torch.tensor(float("inf")), torch.zeros(to.num_bins), pop=8,
-                         param_mins=(0.0,) * d, param_maxs=(1.0,) * d,
-                         dft_packed=to.dft_packed, dft_scale=to.dft_packed_scale,
-                         topology="fm3_parallel", n=N)
-    with pytest.raises(NotImplementedError, match=r"item 3 \(k >= 5\)"):
-        tsf.fused_synth_fitness(torch.zeros((4, 20)), torch.zeros(to.num_bins),
-                                dft_packed=to.dft_packed, dft_scale=to.dft_packed_scale,
-                                topology="fm5_parallel", n=N)
+    kw = dict(pop=8, param_mins=(0.0,) * d, param_maxs=(1.0,) * d, dft_packed=to.dft_packed,
+              dft_scale=to.dft_packed_scale, n=N)
+    pv = torch.from_numpy(rng.random((4, d)).astype(np.float32))
+    out = tev.fused_evolve([1, 2], pv, torch.full((4, d), 0.1), pv[0],
+                           torch.tensor(float("inf")), torch.rand(to.num_bins) * 10,
+                           topology="fm3_parallel", **kw)
+    assert out[0].shape == (4, d) and torch.isfinite(out[5]).all()
+    wide = torch.zeros((4, 36))
+    with pytest.raises(NotImplementedError, match=r"item 3 \(D > 32\)"):
+        tsfo.fused_synth_fold(wide, topology="fm9_parallel", n=4096, dft_scale=1.0)
+    with pytest.raises(NotImplementedError, match=r"item 3 \(D > 32\)"):
+        tss.fused_synth_stream(wide, torch.ones(32768), topology="fm9_parallel", n=32768)
+    with pytest.raises(NotImplementedError, match=r"item 3 \(D > 32\)"):
+        tev.fused_evolve([1], torch.zeros((4, 36)), torch.zeros((4, 36)), torch.zeros(36),
+                         torch.tensor(float("inf")), torch.zeros(to.num_bins),
+                         **dict(kw, param_mins=(0.0,) * 36, param_maxs=(1.0,) * 36),
+                         topology="fm9_parallel")
+    with pytest.raises(NotImplementedError, match=r"item 3 \(D > 32\)"):
+        tsf.fused_synth_fitness(wide, torch.zeros(to.num_bins), dft_packed=to.dft_packed,
+                                dft_scale=to.dft_packed_scale, topology="fm9_parallel", n=N)
+
+
+# -- 20 to 32 genes: fm5_parallel (compile-time bank), fm10_series (the wide chain) --
+
+WIDE_TRUTH = {
+    # examples/fm4_parallel_match.json's four pairs and the fifth of
+    # benchmarks/pursuit_fm5_parallel.json (its true_genes[16:20] times the maxima)
+    "fm5_parallel": PAIRS + (2182.4, 1.2, 3273.6, 0.5),
+    # a chain of ten with mild indices (see _wide_candidates)
+    "fm10_series": (3078.0, 0.4, 3015.0, 0.3, 3141.0, 0.2, 2500.0, 0.35, 1800.0, 0.25,
+                    1200.0, 0.3, 900.0, 0.45, 2200.0, 0.2, 1500.0, 0.4, 2800.0, 0.3),
+}
+
+
+def _wide_maxs(topology):
+    return _maxs(topology) if "parallel" in topology else (3520.0, 8.0) * 10
+
+
+def _wide_candidates(topology, seed):
+    """POP random candidates of ``topology``. A chain of ten with indices up
+    to 8 is chaotic: the two sides' phase-sum orders (sample order here, a
+    triangular matmul in the reference) then part by 7% of a fitness, where
+    the 20 genes of a bank stay within LIMITS; the chain's candidates keep
+    their indices below 0.5, as tests/test_torch_large_frame.py's mild
+    scanless ones, and so does the truth (with larger ones its audio from
+    ``synthesize_single`` and the kernels' lie far apart)."""
+    rng = np.random.default_rng(seed)
+    maxs = np.asarray(_wide_maxs(topology), np.float32)
+    if "series" in topology:
+        maxs[1::2] = 0.5
+    return (rng.random((POP, 20)) * maxs).astype(np.float32)
+
+
+@pytest.mark.parametrize("topology", list(WIDE_TRUTH))
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_b1_wide_plain_matches_reference(topology, dtype):
+    """B1's plain version at 20 genes, a bank of five pairs and a chain of
+    ten operators (``_wide_candidates``), against the reference's interpret
+    kernel within LIMITS (n 256), the truth first in both."""
+    so, to = _operands(dtype)
+    truth = WIDE_TRUTH[topology]
+    audio = np.asarray(jsyn.synthesize_single(jnp.asarray(truth), N, topology))
+    tgt = np.array(jspec.target_spectrum(jnp.asarray(audio), so))
+    params = _wide_candidates(topology, len(topology))
+    params[0] = truth
+    ref = np.asarray(jsf.fused_synth_fitness(
+        jnp.asarray(params), so.dft_cos, so.dft_sin, jnp.asarray(tgt), topology=topology, n=N,
+        pop_block=PB, interpret=True, dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale,
+        sine_order=9,
+    ))
+    got = tsf.fused_synth_fitness(
+        torch.from_numpy(params), torch.from_numpy(tgt), dft_packed=to.dft_packed,
+        dft_scale=to.dft_packed_scale, topology=topology, n=N, pop_block=PB, sine_order=9,
+    ).numpy()
+    assert got.shape == (POP,) and np.isfinite(got).all()
+    _assert_fitness_close(got, ref, dtype)
+    assert np.argmin(ref) == 0 and np.argmin(got) == 0
+
+
+@pytest.mark.parametrize("topology", list(WIDE_TRUTH))
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_b2_wide_plain_zero_draws_match_reference(topology, dtype):
+    """B2's plain version at 20 genes under the Pallas interpreter's
+    all-zero draws: offspring values bit-equal, steps within an ulp of pow,
+    fitness within the B1 limits (every offspring is one candidate)."""
+    d, mu = 20, 4
+    cfg = JConfig(num_parents=mu, num_offspring=POP - mu, num_dimensions=d, topology=topology,
+                  param_mins=(0.0,) * d, param_maxs=_wide_maxs(topology), min_step=1e-4,
+                  mutation_noise="clt12_neutral")
+    so, to = _operands(dtype)
+    audio = np.asarray(jsyn.synthesize_single(jnp.asarray(WIDE_TRUTH[topology]), N, topology))
+    tgt = np.array(jspec.target_spectrum(jnp.asarray(audio), so))
+    rng = np.random.default_rng(d + len(topology))
+    pv = rng.random((mu, d)).astype(np.float32)
+    ps = rng.uniform(0.01, 0.4, (mu, d)).astype(np.float32)
+    kw = dict(pop=POP, param_mins=cfg.param_mins, param_maxs=cfg.param_maxs, topology=topology,
+              n=N, pop_block=PB, alpha=cfg.alpha, beta=cfg.beta, beta_scale=cfg.beta_scale,
+              root_two_over_pi=cfg.root_two_over_pi, clamp_values=False, min_step=1e-4,
+              sine_order=9)
+    fit_r, val_r, step_r = j_fused_generation(
+        jnp.asarray(7, jnp.int32), jnp.asarray(pv), jnp.asarray(ps), so.dft_cos, so.dft_sin,
+        jnp.asarray(tgt), interpret=True, dft_packed=so.dft_packed,
+        dft_scale=so.dft_packed_scale, **kw,
+    )
+    val_r, step_r = np.asarray(val_r)[:d].T, np.asarray(step_r)[:d].T
+    draws = (np.zeros((POP, d), np.int64), np.zeros((POP, d), np.int64),
+             np.zeros((12, POP, d), np.float32))
+    fit, val, step = tgen.fused_generation(
+        7, torch.from_numpy(pv), torch.from_numpy(ps), torch.from_numpy(tgt),
+        dft_packed=to.dft_packed, dft_scale=to.dft_packed_scale, draws=draws, **kw,
+    )
+    np.testing.assert_array_equal(val.numpy(), val_r)
+    np.testing.assert_allclose(step.numpy(), step_r, rtol=STEP_MAX_REL, atol=0)
+    _assert_fitness_close(fit.numpy(), np.asarray(fit_r), dtype, median=False)

@@ -355,6 +355,42 @@ def test_k4_repair_rounds_refit_pairs_of_blocks():
     assert r.generations_used == 2 * 3 + 3 + 6 * 2 + 2
 
 
+def test_k5_pursuit_polishes_on_b2_at_20_genes(monkeypatch):
+    """k = 5 (20 genes, the family of benchmarks/pursuit_fm5_parallel.json,
+    whose truth this is): three peels, the tail, a repair round over the ten
+    pairs of pair blocks, then the alias and final polishes on the
+    configured engine, here B2 int8 (its plain version on the CPU) at D 20.
+    The stage fitness never increases beyond float32 rescoring, the result
+    is better than silence, and every B2 call is fm5_parallel's."""
+    from pmfm_tpu_torch.kernels import generation as tgen
+
+    calls = []
+    plain = tgen.fused_generation_plain
+
+    def counted(*args, **kw):
+        calls.append(kw["topology"])
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(tgen, "fused_generation_plain", counted)
+    cfg = _toy_cfg(k=5).replace(dft_dtype="int8", fused_kernel=True, fused_generation=True,
+                                mutation_noise="clt12_neutral", min_step=1e-4)
+    audio = _target_of(cfg, [0.87, 0.25, 0.86, 0.9, 0.55, 0.3, 0.62, 0.8, 0.71, 0.2,
+                             0.45, 0.7, 0.33, 0.4, 0.28, 0.6, 0.62, 0.15, 0.93, 0.5])
+    r = tst.match_parallel_pursuit(
+        audio, cfg, 3, device="cpu", stage_population=128, peel_generations=3, peel_tries=1,
+        tail_generations=3, tail_tries=1, repair_rounds=1, repair_generations=2,
+        alias_rounds=1, alias_generations=2, joint_generations=2,
+    )
+    assert r.best_values.shape == (20,) and np.all((r.best_values >= 0) & (r.best_values <= 1))
+    assert r.stage_fitness.shape == (4 + 10,)
+    sf = np.asarray(r.stage_fitness)
+    assert np.all(sf[1:] <= sf[:-1] * (1 + 1e-5))
+    assert 0 <= r.best_fitness <= _silence(audio, cfg)
+    assert r.alias_fitness.shape[0] == 1
+    assert r.generations_used >= 3 * 3 + 3 + 10 * 2 + 2
+    assert calls and set(calls) == {"fm5_parallel"}
+
+
 def _series_cfg(k=4):
     d = 2 * k
     return ESConfig(

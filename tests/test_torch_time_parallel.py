@@ -194,12 +194,17 @@ def test_fold_geometry(pop, n, int8, topology, want):
 
 @pytest.mark.parametrize("int8", [True, False])
 def test_fold_threshold_covers_every_chain(int8):
-    """A threshold for every ported chain (fm2, fm3..fm8_series) in each
-    mode; at P 2048 every chain takes the time-parallel layout, which was
-    the faster there for all of them."""
-    for topology in ["fm2"] + [f"fm{k}_series" for k in range(3, 9)]:
+    """A threshold for every ported chain (fm2, fm3..fm8_series) and bank
+    (fm2..fm5_parallel) in each mode; at P 2048 every one takes the
+    time-parallel layout, which was the faster there for all of them. The
+    wide shapes (fm9..fm16_series, fm6..fm8_parallel) take the longest
+    timed row of their kind."""
+    banks = [f"fm{k}_parallel" for k in range(2, 6)]
+    for topology in ["fm2"] + [f"fm{k}_series" for k in range(3, 9)] + banks:
         assert tfold.fold_geometry(2048, 8192, int8, topology)["time_parallel"]
-    assert len(tfold.FOLD_TP_BELOW_POP) == 14
+    assert len(tfold.FOLD_TP_BELOW_POP) == 22
+    assert tfold.fold_shape("fm12_series") == 8 and tfold.fold_shape("fm3_parallel") == banks[1]
+    assert tfold.fold_shape("fm8_parallel") == "fm5_parallel"
 
 
 @pytest.mark.parametrize("below,want", [(0, False), (1 << 62, True)])
