@@ -87,6 +87,20 @@ through the entry points a user calls, and times each kernel:
   banks; phase 35, only when ``--only`` names it, the fm5_parallel pursuit
   as written.
 
+* phase 36, checkpoint, resume, AOT and the population readback (A9):
+  ``evolve_checkpointed`` stopped after a save and resumed from disk,
+  bit-equal to one ``evolve`` (B2, B2 with restarts, B5), the population
+  readback against B1, ``match_audio(checkpoint_dir=)`` and ``cli.main
+  --mode stft --checkpoint-every`` stopped and resumed, bit-equal to runs
+  that were not stopped, and ``--export-aot`` then ``--aot`` in a
+  subprocess on a copy of the package that cannot build the kernels;
+  phase 4 also writes its draw statistics as ``build/gen_check.json`` and
+  prints them (committed as ``pmfm_tpu_torch/gen_check.json``) and fails on a stale
+  committed fingerprint; phases 37 and 38, only when ``--only`` names them
+  (minutes each, a watchdog of their own), the fm5_parallel pursuit on
+  ``benchmarks/pursuit_fm5_parallel.json``'s own settings, seeds 64-65
+  and 66-67.
+
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
 phases and the named ones, and prints no result line (``large`` names the
 large-frame inputs that phases 7-11, 33 and 34 need).
@@ -127,12 +141,14 @@ SPLIT_BINS = 8  # phase 6's synthesis-only B1: an operand and target of 8 bins
 GRID_N = (256, 1024, 2048, 3584)
 GRID_TOPOLOGIES = ("fm2", "fm3_series", "fm8_series")
 GRID_SINE_ORDERS = (5, 7, 9)
-GRID_POPS = (1, 63, 64, 65, 4001)
+# three populations of tests/test_torch_gpu.py::test_b1_b2_int8_grid's five
+# (which holds all five), so that the whole run stays near ~650 s
+GRID_POPS = (1, 65, 4001)
 GRID_ODD_BINS = (1024, 200)  # (n, K): K not a multiple of the kernel's 32-bin pass
 # phase 12: phase 4b's grid for B1/B2 true f32, with populations around the f32
 # DFT's 128-candidate block (its bin passes are 64 bins of one group: K 200
 # leaves partial passes and groups of 3 and 4 tiles)
-F32_GRID_POPS = (1, 127, 128, 129, 4001)
+F32_GRID_POPS = (1, 129, 4001)  # of test_b1_b2_f32_grid's five, as GRID_POPS
 SEED = 20261017
 # the large-frame cells: the reference's chunk-size rows (bench_suite.py)
 FOLD_LOG2N, FOLD_POP, FOLD_GENERATIONS = 13, 1 << 15, 30  # (c) synth_fold, B3
@@ -222,6 +238,12 @@ F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL = 1e-5, 1e-6
 # for its evaluation, and its own selection kernel
 F32_KERNELS = ("f32_synth_kernel", "f32_dft_kernel", "f32_sum_kernel")
 B2_KERNELS = F32_KERNELS + ("fused_generation_int8_kernel",)
+# phase 4's draw statistics: where they are written (also printed whole, on
+# the line "gen_check report: {...}"; committed as
+# pmfm_tpu_torch/gen_check.json) and the CLT-12 gaussian's excess kurtosis
+# (a uniform's, -1.2, over 12 draws)
+GEN_CHECK_OUT = "build/gen_check.json"
+GEN_KURTOSIS = -0.1
 SELECT_KERNEL = "select_kernel"
 PROFILED_LAUNCHES = 10
 
@@ -406,6 +428,27 @@ BANK_LAYOUT_LAUNCHES = 10
 # FM5_TARGET_REL (its targetRel)
 FM5_TARGET_REL = 0.03
 FM5_WATCHDOG_S = 2400
+# phases 37 and 38 (only with --only, each under a watchdog of its own): the
+# fm5_parallel pursuit on benchmarks/pursuit_fm5_parallel.json's own meta,
+# seeds 64-65 and 66-67 (its seed_offset 64), scored as the study scores
+# them; a seed's attempt is ~86 s on the card
+C2_STUDY = "benchmarks/pursuit_fm5_parallel.json"
+C2_SEEDS = {"37": (64, 65), "38": (66, 67)}
+C2_WATCHDOG_S = 900
+# phase 36 (A9 on the card): evolve_checkpointed at the bench config for
+# A9_GENERATIONS in segments of A9_EVERY, stopped after A9_STOP_AFTER saves
+# and resumed from disk (B2, B2 with restarts every A9_PATIENCE stalled
+# generations, B5); match_audio on AUDIO_CONFIG (AUDIO_GENERATIONS) stopped
+# after A9_CHUNKS chunks; cli.main --mode stft on AUDIO_CONFIG at
+# AUDIO_GENERATIONS with --checkpoint-every A9_STFT_EVERY, stopped after its
+# first save; the population readback; --export-aot and --aot in a
+# subprocess of a copy of the package whose build is disabled
+A9_DIR = "build/chip_smoke_a9"
+A9_GENERATIONS, A9_EVERY, A9_STOP_AFTER, A9_PATIENCE = 60, 20, 2, 2
+A9_CHUNKS = 4
+A9_STFT_EVERY = 50
+A9_POPULATION_GENERATIONS = 20
+A9_SUBPROCESS_S = 300
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 and
 # bf16 FLOP/s
@@ -644,6 +687,23 @@ def fm5_parallel_config(root: str) -> dict:
     return raw
 
 
+def _stft_record(out) -> dict:
+    """What a ``pipeline.stft_run`` call returned, as numpy arrays."""
+    cfg, final, traj, start, scaled, audio = out
+    return dict(best_fitness=final.best_fitness.cpu().numpy(),
+                best_values=final.best_values.cpu().numpy(),
+                parent_values=final.parent_values.cpu().numpy(),
+                parent_fitness=final.parent_fitness.cpu().numpy(),
+                generation=np.int64(final.generation), scaled=scaled.cpu().numpy(),
+                audio=audio.cpu().numpy())
+
+
+def _records_equal(a: dict, b: dict) -> bool:
+    """Two ``_stft_record``s bit for bit."""
+    return a.keys() == b.keys() and all(
+        np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes() for k in a)
+
+
 class Smoke:
     def __init__(self, device: str = "cuda", only=None):
         self.dev = torch.device(device)
@@ -689,6 +749,7 @@ class Smoke:
         from pmfm_tpu_torch.kernels import _build
 
         res = _build.build()
+        self.build_seconds = res["seconds"]
         log(f"nvcc: built={res['built']} in {res['seconds']:.1f}s -> {res['path']}")
         for name, regs, spill in ptxas_summary(res["log"]):
             print(f"  ptxas {name}: {regs} registers, {spill} bytes spill stores", flush=True)
@@ -789,15 +850,51 @@ class Smoke:
         expect = POP * D / MU
         chi2 = float(((counts - expect) ** 2 / expect).sum())
         coin = float((cb & 1).to(torch.float64).mean())
-        gm, gv = float(g.mean()), float(g.var())
-        log(f"B2 draws: CLT gaussian mean {gm:.3e} var {gv:.5f} (expect 0, {1 / 36:.5f}); "
-            f"coin mean {coin:.4f}; parent-index chi2 {chi2:.1f} on {MU - 1} dof")
+        g64 = g.to(torch.float64)
+        gm, gv = float(g64.mean()), float(g64.var())
+        kurt = float(((g64 - gm) ** 4).mean() / gv**2) - 3.0  # excess kurtosis
+        log(f"B2 draws: CLT gaussian mean {gm:.3e} var {gv:.5f} sigma {gv ** 0.5:.5f} excess "
+            f"kurtosis {kurt:.4f} (expect 0, {1 / 36:.5f}, {1 / 6:.5f}, {GEN_KURTOSIS:g}); coin "
+            f"mean {coin:.4f}; parent-index chi2 {chi2:.1f} on {MU - 1} dof")
         m = POP * D  # draws of each kind; bounds at 6 standard errors
-        require(abs(gm) < 6 * (1 / 36 / m) ** 0.5, "CLT draw mean off")
-        require(abs(gv - 1 / 36) < 6 * (1 / 36) * (2 / m) ** 0.5, "CLT draw variance off")
-        require(abs(coin - 0.5) < 6 * 0.5 / m**0.5, "coin not fair")
-        require(chi2 < (MU - 1) + 6 * (2 * (MU - 1)) ** 0.5, "parent index not uniform")
+        checks = {
+            "parent_choice": {"mu": MU, "chi2": chi2, "dof": MU - 1,
+                              "ok": chi2 < (MU - 1) + 6 * (2 * (MU - 1)) ** 0.5},
+            "clt12": {"mean": gm, "sigma": gv**0.5, "excess_kurtosis": kurt,
+                      "ok": (abs(gm) < 6 * (1 / 36 / m) ** 0.5
+                             and abs(gv - 1 / 36) < 6 * (1 / 36) * (2 / m) ** 0.5
+                             and abs(kurt - GEN_KURTOSIS) < 6 * (24 / m) ** 0.5)},
+            "coin": {"rate": coin, "ok": abs(coin - 0.5) < 6 * 0.5 / m**0.5},
+        }
+        self.gen_check(seed, m, checks)
+        require(checks["clt12"]["ok"], "CLT draws off")
+        require(checks["coin"]["ok"], "coin not fair")
+        require(checks["parent_choice"]["ok"], "parent index not uniform")
         self.kernels["fused_generation"] = {"max_abs_err": float((fk - fp).abs().max())}
+
+    def gen_check(self, seed, draws, checks):
+        """Write the draws' statistics and the sources' fingerprint as
+        GEN_CHECK_OUT (the content of pmfm_tpu_torch/gen_check.json, which
+        is committed from a card run), and fail when the committed artifact's
+        fingerprint is not the sources' (``utils.provenance``)."""
+        import os
+
+        from pmfm_tpu_torch.utils.provenance import GEN_CHECK_ARTIFACT, seeding_fingerprint
+
+        fp = seeding_fingerprint()
+        report = {"fingerprint": fp, "device": CARD["name"], "power_limit": CARD["power_limit"],
+                  "source": "chip_smoke.py phase 4", "seed": seed, "pop": POP, "d": D,
+                  "draws": draws, "checks": checks, "ok": all(c["ok"] for c in checks.values())}
+        os.makedirs(os.path.dirname(GEN_CHECK_OUT), exist_ok=True)
+        with open(GEN_CHECK_OUT, "w") as f:
+            json.dump(report, f, indent=1)
+        print(f"gen_check report: {json.dumps(report)}", flush=True)
+        committed = json.loads(GEN_CHECK_ARTIFACT.read_text()) if GEN_CHECK_ARTIFACT.exists() else {}
+        log(f"B2 draws written to {GEN_CHECK_OUT}; sources' fingerprint {fp}, the committed "
+            f"artifact's {committed.get('fingerprint')}")
+        require(committed.get("fingerprint") == fp,
+                "pmfm_tpu_torch/gen_check.json is stale: the draw sources changed; commit "
+                f"{GEN_CHECK_OUT} from this run")
 
     # -- 4b -----------------------------------------------------------------
     def int8_settings(self):
@@ -3612,6 +3709,380 @@ class Smoke:
             shutil.rmtree(work, ignore_errors=True)
 
 
+    # -- 36 -----------------------------------------------------------------
+    def a9(self):
+        """A9 on the card: resume bit-equal to a run that was not stopped
+        (``evolve_checkpointed`` under B2, B2 with restarts and B5;
+        ``match_audio(checkpoint_dir=)``; ``cli.main --mode stft
+        --checkpoint-dir --checkpoint-every``), the population readback,
+        and an AOT artifact exported by ``cli.main --export-aot`` and run by
+        ``--aot`` in a subprocess that cannot build the kernels."""
+        import os
+        import shutil
+
+        root = os.getcwd()
+        work = os.path.join(root, A9_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        shutil.copytree(os.path.join(root, "input_audio"), os.path.join(work, "input_audio"))
+        try:
+            for label, cfg in (("B2", self.cfg),
+                               ("B2 with restarts", self.cfg.replace(restart_patience=A9_PATIENCE)),
+                               ("B5", self.cfg.replace(fused_evolve=True))):
+                self.a9_evolve(label, cfg, os.path.join(work, label.replace(" ", "_")))
+            self.a9_population()
+            self.a9_chunks(work)
+            self.a9_stft_and_aot(work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    @staticmethod
+    def preempt_after(saves):
+        """A context in which the ``saves``-th checkpoint write (of
+        ``utils.checkpoint.save_checkpoint`` or ``utils.chunk_store.save_chunk``)
+        completes and then raises ``Preempted``: a run stopped right after a
+        save, its in-memory state lost."""
+        from pmfm_tpu_torch.utils import checkpoint, chunk_store
+
+        class Preempted(Exception):
+            pass
+
+        @contextlib.contextmanager
+        def ctx():
+            count = [0]
+            orig = {m: getattr(m, n) for m, n in ((checkpoint, "save_checkpoint"),
+                                                   (chunk_store, "save_chunk"))}
+
+            def wrap(fn):
+                def save(*a, **k):
+                    out = fn(*a, **k)
+                    count[0] += 1
+                    if count[0] == saves:
+                        raise Preempted(f"stopped after save {saves}")
+                    return out
+                return save
+
+            checkpoint.save_checkpoint = wrap(orig[checkpoint])
+            chunk_store.save_chunk = wrap(orig[chunk_store])
+            try:
+                yield Preempted
+            finally:
+                checkpoint.save_checkpoint = orig[checkpoint]
+                chunk_store.save_chunk = orig[chunk_store]
+
+        return ctx()
+
+    def a9_evolve(self, label, cfg, directory):
+        from pmfm_tpu_torch.es import evolve, evolve_checkpointed, init_state
+
+        g = A9_GENERATIONS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_traj = evolve(init_state(9, cfg, device=self.dev), self.target, g, self.so, cfg,
+                                 record_trajectory=True)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        self.reset_counts()
+        t0 = time.perf_counter()
+        with self.preempt_after(A9_STOP_AFTER) as preempted:
+            try:
+                evolve_checkpointed(init_state(9, cfg, device=self.dev), self.target, g, self.so,
+                                    cfg, directory, every=A9_EVERY, record_trajectory=True)
+                require(False, f"{label}: the run was not stopped")
+            except preempted:
+                pass
+        # every in-memory state dropped: a fresh state, resumed from disk
+        got, traj = evolve_checkpointed(init_state(9, cfg, device=self.dev), self.target, g,
+                                        self.so, cfg, directory, every=A9_EVERY,
+                                        record_trajectory=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in self.read_counts().items() if v}
+        same = all(bits_equal(getattr(got, f), getattr(want, f)) for f in (
+            "parent_values", "parent_steps", "parent_fitness", "best_values", "best_fitness",
+            "stall")) and got.generation == want.generation == g
+        same_traj = np.array_equal(traj, want_traj.cpu().numpy())
+        same_gen = torch.equal(got.generator.get_state(), want.generator.get_state())
+        restarts, stall, best = 0, 0, float("inf")  # as generation_step counts them
+        for f in want_traj.cpu().tolist():
+            stall, best = (0, f) if f < best else (stall + 1, best)
+            if cfg.restart_patience and stall >= cfg.restart_patience:
+                restarts, stall = restarts + 1, 0
+        log(f"A9 {label}: evolve_checkpointed {g} generations in segments of {A9_EVERY}, stopped "
+            f"after {A9_STOP_AFTER * A9_EVERY} and resumed from disk, in {seconds:.3f}s (one "
+            f"evolve({g}) {one_s:.3f}s); state bit-equal {same}, trajectory bit-equal "
+            f"{same_traj}, generator state equal {same_gen}; restarts {restarts}; launches "
+            f"{launches} {card()}")
+        require(same and same_traj and same_gen, f"A9 {label}: the resumed run differs")
+        require(restarts > 0 or not cfg.restart_patience, f"A9 {label}: no restart fired")
+        kernel = "fused_evolve" if cfg.fused_evolve else "fused_generation"
+        require(launches.get(kernel, 0) > 0, f"A9 {label}: {kernel} did not run")
+
+    def a9_population(self):
+        from pmfm_tpu_torch.es import evolve, init_state
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        cfg, g = self.cfg, A9_POPULATION_GENERATIONS
+        self.reset_counts()
+        final, _, pop = evolve(init_state(11, cfg, device=self.dev), self.target, g, self.so,
+                               cfg, return_population=True)
+        launches = {k: v for k, v in self.read_counts().items() if v}
+        scaled = self.mins + pop.values * (self.maxs - self.mins)
+        fb1 = sf.fused_synth_fitness(scaled, self.target, **self.b1_kwargs(POP))
+        e = rel_err(pop.fitness, fb1)
+        mx, med = float(e.max()), float(e.median())
+        sorted_ok = bool((pop.fitness[1:] >= pop.fitness[:-1]).all())
+        log(f"A9 population readback: evolve({g}, return_population=True) under B2: values "
+            f"{tuple(pop.values.shape)}, fitness ascending {sorted_ok}, the parents its first "
+            f"{cfg.num_parents} rows {torch.equal(pop.values[:cfg.num_parents], final.parent_values)}"
+            f"; against B1 on the returned values max rel {mx:.3e} median rel {med:.3e} (B1's "
+            f"int8 limit {FIT_MAX_REL:g} / {FIT_MEDIAN_REL:g}), bit-equal "
+            f"{bits_equal(pop.fitness, fb1)}; launches {launches} {card()}")
+        require(pop.values.shape == (POP, D) and pop.fitness.shape == (POP,) and sorted_ok,
+                "population shape or order")
+        require(torch.equal(pop.values[0], final.parent_values[0])
+                and torch.equal(pop.values[:cfg.num_parents], final.parent_values),
+                "the parents are not the population's first rows")
+        require(mx <= FIT_MAX_REL and med <= FIT_MEDIAN_REL, "population fitness against B1")
+        require(launches.get("fused_generation", 0) == g, "B2 launches")
+
+    def a9_chunks(self, work):
+        import os
+
+        from pmfm_tpu_torch.es import match_audio
+        from pmfm_tpu_torch.io import load_config, read_wav
+
+        rc = load_config(AUDIO_CONFIG)
+        cfg, g = rc.es, AUDIO_GENERATIONS
+        wav, _ = read_wav(rc.input_audio_path)
+        n = cfg.n_samples
+        t0 = time.perf_counter()
+        want = match_audio(wav, cfg, seed=SEED, num_generations=g, device=self.dev)
+        one_s = time.perf_counter() - t0
+        d = os.path.join(work, "chunks")
+        self.reset_counts()
+        t0 = time.perf_counter()
+        part = match_audio(wav[: A9_CHUNKS * n], cfg, seed=SEED, num_generations=g,
+                           checkpoint_dir=d, device=self.dev)
+        files = sorted(os.listdir(d))
+        got = match_audio(wav, cfg, seed=SEED, num_generations=g, checkpoint_dir=d,
+                          device=self.dev)
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in self.read_counts().items() if v}
+        chunks = len(wav) // n
+        same = (len(got.chunks) == len(want.chunks) == chunks and all(
+            np.array_equal(a.best_params_scaled, b.best_params_scaled)
+            and np.array_equal(a.best_params_norm, b.best_params_norm)
+            and a.best_fitness == b.best_fitness and a.generations_run == b.generations_run
+            and a.refine_start_fitness == b.refine_start_fitness
+            for a, b in zip(got.chunks, want.chunks))
+            and np.array_equal(got.output_audio, want.output_audio))
+        log(f"A9 chunks: match_audio({AUDIO_CONFIG}, {g} generations, checkpoint_dir) on the "
+            f"first {len(part.chunks)} chunks ({files}), then resumed on all {chunks}, in "
+            f"{seconds:.3f}s (uninterrupted {one_s:.3f}s); chunks and audio bit-equal {same}; "
+            f"launches {launches} {card()}")
+        require(len(part.chunks) == A9_CHUNKS and files == [
+            f"chunk_{i:04d}.npz" for i in range(A9_CHUNKS)], "the chunks written")
+        require(same, "A9 chunks: the resumed run differs")
+        # each chunk once: g B2 launches and one B1 rescore
+        require(launches.get("fused_generation") == chunks * g
+                and launches.get("fused_synth_fitness") == chunks, "chunk launches")
+
+    def a9_stft_and_aot(self, work):
+        """``cli.main --mode stft`` on AUDIO_CONFIG at AUDIO_GENERATIONS:
+        without checkpoints, then with ``--checkpoint-every``, stopped after
+        its first save and run again; each run's ``stft_run`` output
+        recorded and compared bit for bit. Then ``--export-aot`` and the
+        ``--aot`` run in a subprocess (``a9_aot_subprocess``)."""
+        import os
+
+        from pmfm_tpu_torch.es import pipeline
+
+        seen = []
+        inner = pipeline.stft_run
+
+        def recorded(*a, **k):
+            out = inner(*a, **k)
+            seen.append(_stft_record(out))
+            return out
+
+        gens = ["--mode", "stft", "--generations", str(AUDIO_GENERATIONS)]
+        ck = os.path.join(work, "stft_checkpoints")
+        pipeline.stft_run = recorded
+        try:
+            t0 = time.perf_counter()
+            self.a6_cli(work, AUDIO_CONFIG, gens, "--mode stft (no checkpoints)")
+            plain_s = time.perf_counter() - t0
+            ckpt = gens + ["--checkpoint-dir", ck, "--checkpoint-every", str(A9_STFT_EVERY)]
+            t0 = time.perf_counter()
+            with self.preempt_after(2) as preempted:  # the int8 part, then a tail segment
+                try:
+                    self.a6_cli(work, AUDIO_CONFIG, ckpt, "--checkpoint-every (to be stopped)")
+                    require(False, "the stft run was not stopped")
+                except preempted:
+                    pass
+            files = sorted(os.listdir(ck))
+            self.a6_cli(work, AUDIO_CONFIG, ckpt, "--checkpoint-every, resumed")
+            ckpt_s = time.perf_counter() - t0
+        finally:
+            pipeline.stft_run = inner
+        same = len(seen) == 2 and _records_equal(seen[0], seen[1])
+        log(f"A9 stft: cli --mode stft {AUDIO_GENERATIONS} generations with --checkpoint-every "
+            f"{A9_STFT_EVERY}, stopped after its first tail save ({files}) and resumed, in "
+            f"{ckpt_s:.3f}s (without checkpoints {plain_s:.3f}s): bit-equal {same} {card()}")
+        require(same, "A9 stft: the resumed run differs from the run without checkpoints")
+        import io
+
+        from pmfm_tpu_torch import cli
+
+        art = os.path.join(work, "matcher.pmfm")
+        out, root = io.StringIO(), os.getcwd()
+        os.chdir(work)
+        try:
+            with contextlib.redirect_stdout(out):
+                code = cli.main(["-j", os.path.join(root, AUDIO_CONFIG), *gens,
+                                 "--export-aot", art])
+        finally:
+            os.chdir(root)
+        require(code == 0 and os.path.exists(art), f"--export-aot: exit {code}")
+        log(f"A9 AOT: {out.getvalue().strip()}")
+        aot = self.a9_aot_subprocess(work, art)
+        same = _records_equal(seen[0], aot["record"])
+        log(f"A9 AOT: --aot in a subprocess with the build disabled and no library: exit "
+            f"{aot['code']}, artifact loaded (library placed) in {aot['load_s']:.3f}s beside this "
+            f"run's nvcc build of {self.build_seconds:.1f}s; process {aot['seconds']:.2f}s; "
+            f"bit-equal to the live run {same} {card()}")
+        require(aot["code"] == 0 and same, "A9 AOT: the --aot run differs from the live run")
+
+    def a9_aot_subprocess(self, work, art):
+        """``cli.main --aot art`` in a subprocess on a copy of the package
+        whose build directory is empty and whose ``_build.build`` raises:
+        its exit code, its ``stft_run`` record, the seconds the artifact took
+        to load and the process's."""
+        import os
+        import shutil
+
+        root = os.getcwd()
+        copy = os.path.join(work, "copy")
+        shutil.copytree(os.path.join(root, "pmfm_tpu_torch"),
+                        os.path.join(copy, "pmfm_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copytree(os.path.join(root, "input_audio"), os.path.join(copy, "input_audio"))
+        out_npz = os.path.join(work, "aot_record.npz")
+        script = f"""
+import json, re, sys
+import numpy as np
+from pmfm_tpu_torch.kernels import _build
+assert not _build.BUILD_DIR.exists() or not any(_build.BUILD_DIR.iterdir()), "a library exists"
+def refuse(*a, **k):
+    raise RuntimeError("the build is disabled in this process")
+_build.build = refuse
+sys.path.append({root!r})  # after the copy: chip_smoke.py, not the checkout's package
+from chip_smoke import _stft_record
+from pmfm_tpu_torch.es import pipeline
+inner, rec = pipeline.stft_run, {{}}
+def recorded(*a, **k):
+    out = inner(*a, **k)
+    rec.update(_stft_record(out))
+    return out
+pipeline.stft_run = recorded
+import io, contextlib
+from pmfm_tpu_torch import cli
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    code = cli.main(["-j", {os.path.join(root, AUDIO_CONFIG)!r}, "--aot", {art!r}, "--mode",
+                     "stft"])
+print(buf.getvalue())
+np.savez({out_npz!r}, **rec)
+m = re.search(r"loaded AOT matcher .* in (\\S+)s", buf.getvalue())
+print(json.dumps({{"code": code, "load_s": float(m.group(1)) if m else -1.0}}))
+"""
+        env = dict(os.environ, PYTHONPATH=copy)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", script], cwd=copy, env=env,
+                              capture_output=True, text=True, timeout=A9_SUBPROCESS_S)
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
+            require(False, f"the --aot subprocess exited {proc.returncode}")
+        res = json.loads(lines[-1])
+        with np.load(out_npz) as z:
+            record = {k: z[k] for k in z.files}
+        return dict(res, seconds=seconds, record=record)
+
+    # -- 37, 38 -------------------------------------------------------------
+    def study_pursuit(self, seeds):
+        """``es.staged.match_parallel_pursuit`` on C2_STUDY's own meta (its
+        topology, populations, every stage's generations, tries and rounds,
+        the int8 polishes, the scan-rendered target of its true genes times
+        the ranges, targetRel and attempts) for each of ``seeds``, each
+        rescored as the study rescores it (the f32 engine without the fused
+        kernels: relative error sqrt(fitness / target energy)). Prints each
+        seed's attempts, generations, relative error and seconds beside the
+        study's rates; every seed must finish with a finite fitness no worse
+        than silence."""
+        import os
+
+        from pmfm_tpu_torch.es import ESConfig, evaluate, make_spectrum_ops
+        from pmfm_tpu_torch.es.staged import match_parallel_pursuit
+        from pmfm_tpu_torch.models import get_topology
+        from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+        from pmfm_tpu_torch.ops.synthesis import scale_params
+
+        with open(os.path.join(os.getcwd(), C2_STUDY)) as f:
+            study = json.load(f)
+        m = study["meta"]
+        require(m["solver"] == "match_parallel_pursuit" and m["engine"] == "int8",
+                f"{C2_STUDY}: not the int8 parallel pursuit")
+        topo = get_topology(m["topology"])
+        cfg = ESConfig(
+            num_parents=m["mu"], num_offspring=m["pop"] - m["mu"],
+            num_dimensions=topo.num_dimensions, topology=m["topology"],
+            param_mins=topo.default_param_mins, param_maxs=topo.default_param_maxs,
+            audio_length_log2=10, synthesis_engine="scanless", spectrum_method="dft",
+            pop_block=1024, mutation_noise="clt12_neutral", min_step=1e-4,
+            restart_patience=100, refine_generations=m["refine_gens"], dft_dtype="int8",
+            fused_kernel=True, fused_generation=True,
+        )
+        truth = torch.tensor(m["true_genes"], dtype=torch.float32, device=self.dev)
+        lo = torch.tensor(cfg.param_mins, device=self.dev)
+        hi = torch.tensor(cfg.param_maxs, device=self.dev)
+        audio = synthesize_single(scale_params(truth[None], lo, hi)[0], cfg.n_samples,
+                                  cfg.topology, engine=m["target_engine"])
+        cfg32 = cfg.replace(dft_dtype="float32", fused_kernel=False, fused_generation=False,
+                            refine_generations=0)
+        so32 = make_spectrum_ops(cfg32, device=self.dev)
+        tspec32 = target_spectrum(audio, so32)
+        energy = float(torch.sum(tspec32.double() ** 2))
+        log(f"C2 on {C2_STUDY}'s meta: {m['topology']} P {m['pop']} mu {m['mu']} stage_pop "
+            f"{m['stage_pop']}, target energy {energy:.9g} (the study's {m['tgt_energy']:.9g}); "
+            f"the study: attempts {study['attempts']}, median rel {study['median_rel']}, "
+            f"median seed seconds {study['median_seed_seconds']} (its own hardware)")
+        target = audio.cpu().numpy()
+        for seed in seeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = match_parallel_pursuit(
+                target, cfg, seed, device=self.dev, stage_population=m["stage_pop"],
+                peel_generations=m["peel_gens"], peel_tries=m["peel_tries"],
+                tail_generations=m["tail_gens"], tail_tries=m["tail_tries"],
+                alias_rounds=m["alias_rounds"], alias_generations=m["alias_gens"],
+                joint_generations=m["joint_gens"], repair_rounds=m["repair_rounds"],
+                repair_generations=m["repair_gens"], target_rel=m["target_rel"],
+                max_attempts=m["max_attempts"],
+            )
+            values = torch.from_numpy(np.asarray(r.best_values, np.float32)).to(self.dev)
+            f32 = float(evaluate(values[None], tspec32, so32, cfg32)[0])
+            seconds = time.perf_counter() - t0
+            rel = (max(f32, 0.0) / energy) ** 0.5
+            parts = ", ".join(f"{k} {v:.3f}s" for k, v in (r.seconds or {}).items())
+            log(f"C2 seed {seed}: attempts {r.attempts}, generations {r.generations_used}, "
+                f"f32 fitness {f32:.9g}, relative error {rel:.6f} (targetRel "
+                f"{m['target_rel']}: {'met' if rel <= m['target_rel'] else 'not met'}), "
+                f"{seconds:.2f}s ({parts}) {card()}")
+            require(np.isfinite(f32) and f32 <= energy, f"C2 seed {seed}: worse than silence")
+
     def kernels_line(self):
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3637,8 +4108,8 @@ def main(argv=None) -> int:
         return 2
     only = None if args.only is None else set(args.only.split(","))
     # phase 35 (only when named) runs a pursuit of minutes on top of the rest
-    faulthandler.dump_traceback_later(
-        WATCHDOG_S + (FM5_WATCHDOG_S if only and "35" in only else 0), exit=True)
+    watchdog = WATCHDOG_S + (FM5_WATCHDOG_S if only and "35" in only else 0)
+    faulthandler.dump_traceback_later(watchdog, exit=True)
     import pmfm_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     s = Smoke(only=only)
@@ -3691,8 +4162,20 @@ def main(argv=None) -> int:
         s.phase("33 paths: the fm5_parallel pursuit, fm3_parallel on B5, B3, B4", s.bank_paths)
         if "32 B1/B2 at 20-32 genes vs plain" not in s.failed:
             s.phase("34 bank and wide kernel times, B3's layouts on banks", s.bank_timings)
+    s.phase("36 A9: resume, population readback, AOT", s.a9)
     if s.only is not None and "35" in s.only:  # minutes: never part of the whole run
         s.phase("35 the fm5_parallel pursuit as written", s.fm5_pursuit)
+    for number, seeds in C2_SEEDS.items():  # minutes each: never part of the whole run
+        if s.only is not None and number in s.only:
+            # a watchdog of its own; the run's resumes after it, moved on by
+            # the phase's seconds
+            t0 = time.perf_counter()
+            faulthandler.dump_traceback_later(C2_WATCHDOG_S, exit=True)
+            s.phase(f"{number} C2: the fm5_parallel study's meta, seeds {seeds}",
+                    lambda seeds=seeds: s.study_pursuit(seeds))
+            watchdog += time.perf_counter() - t0
+            faulthandler.dump_traceback_later(
+                max(1.0, watchdog - (time.perf_counter() - T0)), exit=True)
     if s.only is not None:
         faulthandler.cancel_dump_traceback_later()
         log(f"phases {sorted(s.only)}: {'FAILED: ' + str(s.failed) if s.failed else 'passed'} "

@@ -26,12 +26,19 @@ Replicates the reference program's main (main.cpp:25-305), as ``pmfm_tpu.cli`` d
   every mode but ``chunks`` (which times each chunk) is timed as one
   "Total Audio Analysis Time".
 
+* with ``--checkpoint-dir D`` writes each finished chunk into D and a
+  rerun resumes after the last one (``match_audio``); with ``--mode stft``
+  and ``--checkpoint-every N`` too, the run's state every N generations
+  (``match_audio_stft``);
+* with ``--export-aot PATH`` writes an artifact of the STFT matcher for the
+  config and the target's length (``utils/aot.py``: the config and the
+  built kernel library) and exits; with ``--aot PATH`` runs from one, its
+  config in place of the JSON's, without building the kernels.
+
 The run is on the first CUDA device unless ``--platform cpu`` asks for the
 CPU, where every kernel runs its plain PyTorch version. Not ported yet, and
-raising ``NotImplementedError`` that names the ROADMAP item:
-``--export-aot``/``--aot``, ``--checkpoint-dir`` and ``--checkpoint-every``
-with ``--mode stft`` (A9), ``--mesh`` and a config's ``tpu.meshShape``
-(A10).
+raising ``NotImplementedError`` that names the ROADMAP item: ``--mesh`` and
+a config's ``tpu.meshShape`` (A10).
 """
 from __future__ import annotations
 
@@ -59,11 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--parents", type=int, default=None, help="override numParents")
     p.add_argument("--offspring", type=int, default=None, help="override numOffspring")
     p.add_argument("--audio-log2", type=int, default=None, help="override audioLengthLog2")
-    p.add_argument("--checkpoint-dir", default=None,
-                   help="chunk-level checkpoint/resume dir (not ported yet: A9)")
+    p.add_argument("--checkpoint-dir", default=None, help="chunk-level checkpoint/resume dir")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
                    help="stft mode: also checkpoint the ES state every N generations "
-                        "(not ported yet: A9)")
+                        "(resumable mid-run)")
     p.add_argument("--trajectory", action="store_true", help="record per-generation best fitness")
     p.add_argument("--mode",
                    choices=("chunks", "stft", "parallel-chunks", "pursuit"),
@@ -82,9 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="capture a torch.profiler trace (trace.json) here")
     p.add_argument("--export-aot", default=None, metavar="PATH",
-                   help="serialize the matcher to an AOT artifact (not ported yet: A9)")
+                   help="write an AOT artifact of the STFT matcher for this config and target "
+                        "length (the config and the built kernel library) and exit")
     p.add_argument("--aot", default=None, metavar="PATH",
-                   help="run from an AOT artifact (not ported yet: A9)")
+                   help="run from an AOT artifact (see --export-aot) instead of building the "
+                        "kernels")
     p.add_argument("--input-generated-path", default="inputGenerated.wav",
                    help="where params-mode targets are written (main.cpp:226)")
     p.add_argument("--platform", default=None, metavar="NAME",
@@ -147,12 +155,6 @@ def main(argv: list[str] | None = None) -> int:
     cfg = run_cfg.es
     if args.mode == "chunks" and run_cfg.solver == "pursuit":
         args.mode = "pursuit"
-    if args.checkpoint_every and args.mode == "stft":
-        raise _not_ported("--checkpoint-every (evolve_checkpointed)", "9 (A9)")
-    if args.export_aot or args.aot:
-        raise _not_ported("--export-aot/--aot (utils/aot.py)", "9 (A9)")
-    if args.checkpoint_dir:
-        raise _not_ported("--checkpoint-dir (utils/chunk_store.py)", "9 (A9)")
     if args.mesh or run_cfg.mesh_shape:
         raise _not_ported("--mesh / tpu.meshShape (parallel/)", "10 (A10)")
 
@@ -217,15 +219,48 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: unknown input mode {run_cfg.input_mode!r}", file=sys.stderr)
         return 2
 
+    # --- AOT export / serve (utils/aot.py) --------------------------------
+    from .utils import aot
+
+    if args.export_aot:
+        n = len(target) - len(target) % cfg.n_samples
+        if n == 0:
+            print("error: target shorter than one frame", file=sys.stderr)
+            return 2
+        t0 = time.perf_counter()
+        path = aot.save_matcher(args.export_aot, cfg, num_generations, target_samples=n,
+                                platforms=(device.type,))
+        if not args.quiet:
+            print(f"exported AOT matcher to {path} ({os.path.getsize(path)} bytes, "
+                  f"target_samples={n}, generations={num_generations}, platform {device.type}; "
+                  f"{time.perf_counter() - t0:.3f}s)")
+        return 0
+    matcher = None
+    if args.aot:
+        t0 = time.perf_counter()
+        matcher = aot.load_matcher(args.aot)
+        if matcher.platforms[0] != device.type:
+            raise ValueError(f"the artifact is for {matcher.platforms[0]}, the run is on "
+                             f"{device.type} (--platform)")
+        cfg, num_generations = matcher.cfg, matcher.num_generations  # self-describing
+        if len(target) < matcher.target_samples:
+            print(f"error: target has {len(target)} samples; artifact expects "
+                  f"{matcher.target_samples}", file=sys.stderr)
+            return 2
+        if not args.quiet:
+            print(f"loaded AOT matcher {args.aot} in {time.perf_counter() - t0:.3f}s")
+
     # --- match (main.cpp:229-239) ----------------------------------------
     from .es import make_spectrum_ops, match_audio_stft, match_many
-    from .es.pipeline import MatchResult
+    from .es.pipeline import ChunkResult, MatchResult
     from .es.strategy import active_engine
 
-    if args.mode == "stft":  # one run over every frame: the multi-frame engines
+    if args.mode == "stft" and matcher is None:  # one run over every frame: multi-frame engines
         cfg = cfg.replace(num_frames=max(1, len(target) // cfg.n_samples))
     # the engines are named (and an engine not ported raises) before matching
-    if args.mode == "pursuit":
+    if matcher is not None:
+        line = _engine_line(cfg, num_generations, device, "AOT artifact, stft")
+    elif args.mode == "pursuit":
         from .es.staged import _eval_cfg
 
         ecfg = _eval_cfg(cfg)
@@ -240,17 +275,27 @@ def main(argv: list[str] | None = None) -> int:
     start = time.perf_counter()
     # the chunks mode feeds the Benchmarker chunk by chunk; every other mode
     # is timed as one total, so that isBenchmarking writes the CSV in each
-    total = bm is not None and args.mode != "chunks"
+    total = bm is not None and (args.mode != "chunks" or matcher is not None)
     if total:
         bm.start_timer("Total Audio Analysis Time")
     # general.isDebug: NaN checks over the whole match (utils/debug.py)
     with maybe_trace(args.profile_dir), debug_nans(run_cfg.is_debug):
-        if args.mode == "pursuit":
+        if matcher is not None:
+            out = matcher(args.seed, target[: matcher.target_samples])
+            result = MatchResult(chunks=[ChunkResult(
+                best_params_scaled=out["best_params_scaled"],
+                best_params_norm=out["best_params_norm"],
+                best_fitness=float(out["best_fitness"]),
+                generations_run=int(out["generations_run"]),
+                trajectory=None,
+            )], output_audio=out["best_audio"], config=cfg)
+        elif args.mode == "pursuit":
             result = _match_pursuit(target, cfg, run_cfg.pursuit, args.seed, device, args.quiet)
         elif args.mode == "stft":
             result = match_audio_stft(
                 target, cfg, seed=args.seed, num_generations=num_generations,
-                record_trajectory=args.trajectory, device=device,
+                record_trajectory=args.trajectory, checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every, device=device,
             )
         elif args.mode == "parallel-chunks":
             n = len(target) - len(target) % cfg.n_samples
@@ -266,7 +311,8 @@ def main(argv: list[str] | None = None) -> int:
         else:
             result = match_audio(
                 target, cfg, seed=args.seed, num_generations=num_generations,
-                record_trajectory=args.trajectory, benchmarker=bm, device=device,
+                record_trajectory=args.trajectory, benchmarker=bm,
+                checkpoint_dir=args.checkpoint_dir, device=device,
             )
     if total:
         bm.pause_timer("Total Audio Analysis Time")

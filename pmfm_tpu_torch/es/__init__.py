@@ -4,7 +4,9 @@ from .config import ESConfig
 from .pipeline import (
     ChunkResult,
     MatchResult,
+    Population,
     evolve,
+    evolve_checkpointed,
     generation_step,
     kernel_seed,
     make_spectrum_ops,
@@ -31,6 +33,7 @@ __all__ = [
     "active_engine",
     "evaluate",
     "evolve",
+    "evolve_checkpointed",
     "generation_step",
     "init_state",
     "kernel_seed",
@@ -42,6 +45,7 @@ __all__ = [
     "match_parallel_pursuit",
     "match_series_pursuit",
     "mutate",
+    "Population",
     "PursuitResult",
     "recombine",
     "refine_boundary",

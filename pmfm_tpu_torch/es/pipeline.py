@@ -2,8 +2,8 @@
 (port of ``pmfm_tpu/es/pipeline.py``: ``make_spectrum_ops``,
 ``kernel_seed``, ``generation_step``, ``evolve`` and its whole-run path
 ``_evolve_mega``, the refine tail ``refine_boundary`` /
-``_evolve_on_target``, ``match_audio``, the multi-frame ``match_audio_stft``
-and the batched ``match_many``).
+``_evolve_on_target``, ``match_audio``, the multi-frame ``match_audio_stft``,
+the batched ``match_many`` and the resumable ``evolve_checkpointed``).
 
 Where the reference scans ``generation_step`` inside one jitted program,
 ``evolve`` here is a Python loop over generations. A generation launches one
@@ -21,14 +21,22 @@ each run keeps its own seeds, generator, generation count, restarts, stall
 count and best-ever, and under early stop a run that has met the threshold
 stops while the others go on, so that run r computes what it would alone.
 
-The matchers have no ``checkpoint_dir`` or ``mesh`` argument yet (ROADMAP
-Queue A items 9 and 10). Inside ``utils.debug.debug_nans(True)`` (the
-config's ``general.isDebug``) each generation's offspring and fitness and
-each chunk's best candidate are checked for NaN.
+Resume: ``match_audio(checkpoint_dir=)`` writes each finished chunk
+(``utils/chunk_store.py``) and a rerun goes on after the last one;
+``match_audio_stft(checkpoint_dir=, checkpoint_every=)`` and
+``evolve_checkpointed`` save the state every ``every`` generations
+(``utils/checkpoint.py``) and a rerun goes on from the last save, bit-equal
+to a run that was not stopped. ``evolve(return_population=True)`` also
+returns the last generation's offspring, sorted (``Population``). The
+matchers take no ``mesh`` (several devices: ROADMAP Queue A item 10).
+Inside ``utils.debug.debug_nans(True)`` (the config's ``general.isDebug``)
+each generation's offspring and fitness and each chunk's best candidate are
+checked for NaN.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -127,16 +135,31 @@ def _advanced(generation, by: int):
     return generation + by
 
 
+class Population(NamedTuple):
+    """One generation's evaluated offspring, best first (the reference's
+    ``readPopulationData`` readback): ``(P, D)``, ``(P, D)``, ``(P,)``, with
+    a leading run axis where the state has one."""
+
+    values: torch.Tensor  # in [0, 1]
+    steps: torch.Tensor
+    fitness: torch.Tensor  # ascending
+
+
 def generation_step(
     state: ESState,
     target_spectrum: torch.Tensor,
     spectrum_ops: spectral.SpectrumOps,
     cfg: ESConfig,
-) -> ESState:
+    *,
+    want_population: bool = False,
+):
     """One ES generation: offspring -> evaluate -> select -> best-ever,
     stall count and the optional stall-triggered restart; with the run
     axis, of every run at once (one B2 launch for all of them), each run
-    with its own best-ever, stall count and restart."""
+    with its own best-ever, stall count and restart. With
+    ``want_population`` returns ``(new_state, Population)``: the
+    generation's offspring sorted by fitness (a stable sort, as the
+    reference's), under B2 the P candidates its launch returned."""
     gen = state.generator
     if active_engine(cfg, spectrum_ops) == "fused_generation":
         fitness, values, steps = fused_generation(
@@ -152,6 +175,14 @@ def generation_step(
         fitness = evaluate(values, target_spectrum, spectrum_ops, cfg)
     check_finite("offspring values", values)
     check_finite("fitness", fitness)
+    population = None
+    if want_population:
+        order = torch.argsort(fitness, dim=-1, stable=True)
+        population = Population(
+            values=torch.take_along_dim(values, order[..., None], dim=-2),
+            steps=torch.take_along_dim(steps, order[..., None], dim=-2),
+            fitness=torch.take_along_dim(fitness, order, dim=-1),
+        )
     pv, ps, pf = select(values, steps, fitness, cfg.num_parents)
     # each run's best parent, and a per-run flag's view over its parents;
     # one run keeps plain indexing and 0-dim flags, since this loop's host
@@ -172,7 +203,7 @@ def generation_step(
         ps = torch.where(per_run(restart, 2), torch.full_like(ps, 0.1), ps)
         pf = torch.where(per_run(restart, 1), torch.full_like(pf, float("inf")), pf)
         stall = torch.where(restart, 0, stall).to(torch.int32)
-    return ESState(
+    new_state = ESState(
         parent_values=pv,
         parent_steps=ps,
         parent_fitness=pf,
@@ -183,6 +214,7 @@ def generation_step(
         stall=stall,
         generator=gen,
     )
+    return (new_state, population) if want_population else new_state
 
 
 def _fused_evolve_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps,
@@ -280,17 +312,40 @@ def evolve(
     spectrum_ops: spectral.SpectrumOps,
     cfg: ESConfig,
     record_trajectory: bool = False,
+    return_population: bool = False,
 ):
     """Run ``num_generations`` generations.
 
     With ``cfg.fitness_threshold > 0`` (and no trajectory) the loop stops
     once best-ever fitness drops to the threshold; with the run axis a run
-    that has met it stops (``_hold``) and the loop once every run has. Under
-    ``cfg.fused_evolve`` on a CUDA device (``_fused_evolve_ok``) the run is
-    one call of B5. Returns ``(final_state, trajectory)``; the trajectory is
-    the best-ever fitness after each generation, ``(num_generations,)``
-    (``(B, num_generations)`` with the run axis), or None.
+    that has met it stops (``_hold``) and the loop once every run has; the
+    count is relative to the input state. Under ``cfg.fused_evolve`` on a
+    CUDA device (``_fused_evolve_ok``) the run is one call of B5. Returns
+    ``(final_state, trajectory)``; the trajectory is the best-ever fitness
+    after each generation, ``(num_generations,)`` (``(B, num_generations)``
+    with the run axis), or None.
+
+    ``return_population=True`` appends a third element: the last
+    generation's offspring as a ``Population``, sorted best first. It
+    raises ``ValueError`` where the reference's does: under B5 (which keeps
+    the offspring on the chip), under early stop, and at 0 generations.
     """
+    if return_population:
+        if _fused_evolve_ok(cfg, spectrum_ops, state.parent_values.device):
+            raise ValueError("return_population is not supported with fused_evolve "
+                             "(the whole-run kernel keeps the offspring on the device)")
+        if cfg.fitness_threshold > 0.0 and not record_trajectory:
+            raise ValueError("return_population requires a static-length run "
+                             "(disable fitness_threshold early stop)")
+        if num_generations == 0:
+            raise ValueError("return_population needs num_generations >= 1")
+        state, traj = evolve(state, target_spectrum, num_generations - 1, spectrum_ops, cfg,
+                             record_trajectory)
+        state, population = generation_step(state, target_spectrum, spectrum_ops, cfg,
+                                            want_population=True)
+        if record_trajectory:
+            traj = torch.cat([traj, state.best_fitness[..., None]], dim=-1)
+        return state, traj, population
     if _fused_evolve_ok(cfg, spectrum_ops, state.parent_values.device):
         return _evolve_mega(state, target_spectrum, num_generations, spectrum_ops, cfg,
                             record_trajectory)
@@ -313,6 +368,63 @@ def evolve(
         return state, torch.zeros((*state.best_fitness.shape, 0), dtype=torch.float32,
                                   device=state.best_fitness.device)
     return state, torch.stack(traj, dim=-1)
+
+
+def evolve_checkpointed(
+    state: ESState,
+    target_spectrum: torch.Tensor,
+    num_generations: int,
+    spectrum_ops: spectral.SpectrumOps,
+    cfg: ESConfig,
+    checkpoint_dir: str | os.PathLike,
+    every: int = 100,
+    chunk_index: int = 0,
+    mesh=None,
+    record_trajectory: bool = False,
+    *,
+    tag: str | None = None,
+):
+    """``evolve`` up to generation ``num_generations`` (counted from 0, so
+    that a rerun with a larger count goes on and one with the same count
+    runs nothing) in segments of ``every`` generations, the state saved
+    after each (``utils.checkpoint``, tag ``gen_chunk{chunk_index}`` unless
+    ``tag`` names another); a rerun with the same config resumes from the
+    last save, on the device of ``state``. Each segment is the port's
+    ``evolve``, so B2 runs it under ``fused_generation`` and B5 under
+    ``fused_evolve``; generation g's kernel seed comes from the state's
+    generation and the restarts draw from its saved generator, so the
+    segments compute what one ``evolve`` does, bit for bit. Returns
+    ``(final_state, trajectory)``, the trajectory a numpy array over every
+    generation since 0 (saved ones included), or None. One run only; a
+    ``mesh`` (several devices) raises ``NotImplementedError``."""
+    from ..utils.checkpoint import load_checkpoint, save_checkpoint
+
+    if mesh is not None:
+        raise NotImplementedError("evolve_checkpointed over a mesh is not ported yet: ROADMAP "
+                                  "Queue A item 10 (A10)")
+    if every < 1:
+        raise ValueError(f"every must be >= 1, got {every}")
+    if isinstance(state.generation, tuple):
+        raise ValueError("evolve_checkpointed takes a state of one run")
+    tag = f"gen_chunk{chunk_index}" if tag is None else tag
+    loaded = load_checkpoint(checkpoint_dir, cfg, tag=tag, device=state.parent_values.device)
+    parts: list[np.ndarray] = []
+    if loaded is not None:
+        state = loaded[0]
+        if record_trajectory and loaded[2] is not None:
+            parts.append(loaded[2])
+    done = state.generation
+    while done < num_generations:
+        n = min(every, num_generations - done)
+        state, traj = evolve(state, target_spectrum, n, spectrum_ops, cfg, record_trajectory)
+        done += n
+        if record_trajectory:
+            parts.append(traj.cpu().numpy())
+        save_checkpoint(checkpoint_dir, state, cfg, chunk_index, tag=tag,
+                        trajectory=np.concatenate(parts) if parts else None)
+    if not record_trajectory:
+        return state, None
+    return state, (np.concatenate(parts) if parts else np.zeros(0, np.float32))
 
 
 def refine_boundary(
@@ -350,25 +462,45 @@ def target_spectra(target_audio: torch.Tensor, so: spectral.SpectrumOps, cfg: ES
 
 
 def _evolve_on_target(state, target_audio, num_generations, so, cfg, record_trajectory,
-                      refine_ops=None, stft=False):
+                      refine_ops=None, stft=False, checkpoint=None):
     """``evolve`` against ``target_audio`` (N,), or with ``stft`` against its
     F = ``cfg.num_frames`` frames (F N,) (``target_spectra``; (B, ...) with
     the run axis), with the optional refine tail: the last
     ``cfg.refine_generations`` run under ``refine_ops``
     (``(cfg.refine_config(), its SpectrumOps)``) against the target's f32
     spectra, seeded at the best-ever candidate (``refine_boundary``).
+
+    With ``checkpoint = (directory, every)`` each part is an
+    ``evolve_checkpointed`` of chunk 0: the fast part under the tag
+    ``gen_chunk0``, the tail under ``gen_chunk0_refine{g}`` (g the
+    generation it starts at, so that a rerun with another count does not
+    take up a tail that started elsewhere). The reference's checkpointed
+    STFT run leaves the tail out; here a checkpointed run is the run
+    without checkpoints, tail and all.
+
     Returns ``(final, trajectory, best-ever rescored at the boundary or
     None)``."""
     refine = min(cfg.refine_generations, num_generations) if cfg.refine_generations > 0 else 0
+    g0 = 0 if checkpoint is None else state.generation
+
+    def ev(s, t, n, so_, cfg_, tag):
+        if checkpoint is None:
+            return evolve(s, t, n, so_, cfg_, record_trajectory)
+        s, traj = evolve_checkpointed(s, t, n, so_, cfg_, checkpoint[0], every=checkpoint[1],
+                                      record_trajectory=record_trajectory, tag=tag)
+        return s, (None if traj is None else torch.from_numpy(traj).to(s.best_fitness.device))
+
     tspec = target_spectra(target_audio, so, cfg, stft)
-    final, traj = evolve(state, tspec, num_generations - refine, so, cfg, record_trajectory)
+    fast = num_generations - refine
+    final, traj = ev(state, tspec, g0 + fast, so, cfg, "gen_chunk0")
     if not refine:
         return final, traj, None
     cfg_r, so_r = refine_ops
     tspec_r = target_spectra(target_audio, so_r, cfg_r, stft)
     final = refine_boundary(final, tspec_r, so_r, cfg, cfg_r)
     start = final.best_fitness
-    final, traj_r = evolve(final, tspec_r, refine, so_r, cfg_r, record_trajectory)
+    final, traj_r = ev(final, tspec_r, g0 + num_generations if checkpoint else refine, so_r,
+                       cfg_r, f"gen_chunk0_refine{g0 + fast}")
     if traj is not None:
         traj = torch.cat([traj, traj_r], dim=-1)
     return final, traj, start
@@ -424,6 +556,7 @@ def match_audio(
     num_generations: int = 1000,
     record_trajectory: bool = False,
     benchmarker=None,
+    checkpoint_dir: str | os.PathLike | None = None,
     *,
     device: str | torch.device = "cuda",
 ) -> MatchResult:
@@ -435,7 +568,15 @@ def match_audio(
     ``benchmarker`` (a ``utils.benchmarker.Benchmarker``) records each
     chunk's wall time under "chunk" and the whole match under "Total Audio
     Analysis Time", as the reference does; a chunk's time ends when its
-    results are on the host."""
+    results are on the host.
+
+    With ``checkpoint_dir`` each finished chunk is written there
+    (``utils.chunk_store``) and a rerun with the same config resumes after
+    the last chunk written, with that run's seed; chunk i is seeded
+    ``_chunk_seed(seed, i)`` whatever came before it, so a resumed run's
+    chunks are those of a run that was not stopped."""
+    from ..utils import chunk_store
+
     dev = resolve_device(device)
     n = cfg.n_samples
     num_chunks = len(target_audio) // n
@@ -445,10 +586,15 @@ def match_audio(
     mins = torch.tensor(cfg.param_mins, dtype=torch.float32, device=dev)
     maxs = torch.tensor(cfg.param_maxs, dtype=torch.float32, device=dev)
     target = np.asarray(target_audio, np.float32)
-    results, out_audio = [], []
+    results, out_audio, start_chunk = [], [], 0
+    if checkpoint_dir is not None:
+        start_chunk, results, out_audio, seed = chunk_store.resume(checkpoint_dir, cfg, seed)
+        # a previous run may have matched a longer target
+        start_chunk = min(start_chunk, num_chunks)
+        results, out_audio = results[:num_chunks], out_audio[:num_chunks]
     if benchmarker is not None:
         benchmarker.start_timer("Total Audio Analysis Time")
-    for i in range(num_chunks):
+    for i in range(start_chunk, num_chunks):
         if benchmarker is not None:
             benchmarker.start_timer("chunk")
         frame = torch.from_numpy(np.ascontiguousarray(target[i * n : (i + 1) * n])).to(dev)
@@ -473,6 +619,9 @@ def match_audio(
         out_audio.append(best_audio.cpu().numpy())
         if benchmarker is not None:
             benchmarker.pause_timer("chunk")
+        if checkpoint_dir is not None:
+            chunk_store.save_chunk(checkpoint_dir, cfg, i, results[-1], out_audio[-1], seed,
+                                   _chunk_seed(seed, i))
     if benchmarker is not None:
         benchmarker.pause_timer("Total Audio Analysis Time")
     return MatchResult(chunks=results, output_audio=np.concatenate(out_audio), config=cfg)
@@ -486,12 +635,40 @@ def _frames_of(samples: int, cfg: ESConfig) -> int:
     return frames
 
 
+def stft_run(target_audio: np.ndarray, cfg: ESConfig, seed: int, num_generations: int,
+             record_trajectory: bool, dev: torch.device, checkpoint=None):
+    """The run of ``match_audio_stft`` (and of an AOT artifact,
+    ``utils.aot``): ``(cfg with its frame count, final state, trajectory,
+    best-ever rescored at the refine boundary or None, best candidate
+    scaled, its audio over every frame)``."""
+    frames = _frames_of(len(target_audio), cfg)
+    cfg = cfg.replace(num_frames=frames)
+    n = cfg.n_samples * frames
+    so, refine_ops = _match_ops(cfg, dev)
+    audio = torch.from_numpy(np.ascontiguousarray(target_audio[:n], np.float32)).to(dev)
+    state = init_state(_chunk_seed(seed, 0), cfg, device=dev)
+    final, traj, start = _evolve_on_target(state, audio, num_generations, so, cfg,
+                                           record_trajectory, refine_ops, stft=True,
+                                           checkpoint=checkpoint)
+    check_finite("best candidate", final.best_values)
+    mins = torch.tensor(cfg.param_mins, dtype=torch.float32, device=dev)
+    maxs = torch.tensor(cfg.param_maxs, dtype=torch.float32, device=dev)
+    best_scaled = synthesis.scale_params(final.best_values, mins, maxs)
+    best_audio = synthesis.synthesize(
+        best_scaled[None, :], n, cfg.topology, wavetable_size=cfg.wavetable_size,
+        sample_rate=cfg.sample_rate, osc_mode=cfg.osc_mode, engine=cfg.synthesis_engine,
+    )[:, 0]
+    return cfg, final, traj, start, best_scaled, best_audio
+
+
 def match_audio_stft(
     target_audio: np.ndarray,
     cfg: ESConfig,
     seed: int = 0,
     num_generations: int = 1000,
     record_trajectory: bool = False,
+    checkpoint_dir: str | os.PathLike | None = None,
+    checkpoint_every: int = 0,
     *,
     device: str | torch.device = "cuda",
 ) -> MatchResult:
@@ -502,24 +679,18 @@ def match_audio_stft(
     mode on the fused engines), where ``match_audio`` starts a fresh
     population for each chunk. The run is seeded as ``match_audio``'s first
     chunk (``_chunk_seed(seed, 0)``); the best candidate is resynthesised
-    over all F frames. Returns a ``MatchResult`` of one chunk."""
+    over all F frames. Returns a ``MatchResult`` of one chunk.
+
+    With ``checkpoint_dir`` and ``checkpoint_every`` > 0 the run saves its
+    state every ``checkpoint_every`` generations and a rerun resumes from
+    the last save (``evolve_checkpointed``; the refine tail included, see
+    ``_evolve_on_target``)."""
     dev = resolve_device(device)
-    frames = _frames_of(len(target_audio), cfg)
-    cfg = cfg.replace(num_frames=frames)
-    n = cfg.n_samples * frames
-    so, refine_ops = _match_ops(cfg, dev)
-    audio = torch.from_numpy(np.ascontiguousarray(target_audio[:n], np.float32)).to(dev)
-    state = init_state(_chunk_seed(seed, 0), cfg, device=dev)
-    final, traj, start = _evolve_on_target(state, audio, num_generations, so, cfg,
-                                           record_trajectory, refine_ops, stft=True)
-    check_finite("best candidate", final.best_values)
-    mins = torch.tensor(cfg.param_mins, dtype=torch.float32, device=dev)
-    maxs = torch.tensor(cfg.param_maxs, dtype=torch.float32, device=dev)
-    best_scaled = synthesis.scale_params(final.best_values, mins, maxs)
-    best_audio = synthesis.synthesize(
-        best_scaled[None, :], n, cfg.topology, wavetable_size=cfg.wavetable_size,
-        sample_rate=cfg.sample_rate, osc_mode=cfg.osc_mode, engine=cfg.synthesis_engine,
-    )[:, 0]
+    checkpoint = None
+    if checkpoint_dir is not None and checkpoint_every > 0:
+        checkpoint = (checkpoint_dir, checkpoint_every)
+    cfg, final, traj, start, best_scaled, best_audio = stft_run(
+        target_audio, cfg, seed, num_generations, record_trajectory, dev, checkpoint)
     chunk = ChunkResult(
         best_params_scaled=best_scaled.cpu().numpy(),
         best_params_norm=final.best_values.cpu().numpy(),

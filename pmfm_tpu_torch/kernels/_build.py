@@ -110,12 +110,18 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on the PATH")
 
 
-def library_path() -> Path:
+def source_digest() -> str:
+    """16 hex digits of the sha256 of the arch flags and every source under
+    ``csrc/``: what names the library and what an AOT artifact
+    (``utils/aot.py``) is checked against."""
     h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode() + f.read_bytes())
-    digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"libpmfm_fused_{digest}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libpmfm_fused_{source_digest()}.so"
 
 
 def build() -> dict:
@@ -180,10 +186,12 @@ def build() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use, with every launcher's
-    ``argtypes`` set (``c_void_p`` for each pointer and the stream, so no
-    pointer is cut to 32 bits)."""
-    lib = ctypes.CDLL(build()["path"])
+    """The loaded kernel library, built on first use unless a library of the
+    current sources is in place (a build, or one an AOT artifact placed),
+    with every launcher's ``argtypes`` set (``c_void_p`` for each pointer
+    and the stream, so no pointer is cut to 32 bits)."""
+    path = library_path()
+    lib = ctypes.CDLL(str(path) if path.exists() else build()["path"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
     cll = ctypes.c_longlong
     u32 = ctypes.c_uint32

@@ -9,7 +9,9 @@ so the port checks the values that carry the match instead: inside
 (``match_audio``) are checked with ``check_finite``, which raises
 ``FloatingPointError`` naming the value. A NaN fitness is rejected like a
 NaN operation in the reference; outside the context nothing is checked and
-nothing is read back from the device.
+nothing is read back from the device. ``checked_fitness`` wraps an
+evaluate-like function so that a non-finite fitness raises, as the
+reference's checkify wrapper does.
 """
 from __future__ import annotations
 
@@ -35,6 +37,19 @@ def debug_nans(enable: bool = True):
         yield
     finally:
         _enabled = prev
+
+
+def checked_fitness(evaluate_fn):
+    """``evaluate_fn`` wrapped so that a NaN or infinite value in its output
+    raises ``FloatingPointError`` (one read back from the device a call)."""
+
+    def wrapped(*args, **kw):
+        out = evaluate_fn(*args, **kw)
+        if not bool(torch.isfinite(out).all()):
+            raise FloatingPointError("non-finite fitness detected")
+        return out
+
+    return wrapped
 
 
 def check_finite(name: str, t: torch.Tensor) -> None:

@@ -234,20 +234,30 @@ def test_cli_pursuit_mode_needs_a_pursuit_topology(monkeypatch, tmp_path):
     (["--checkpoint-dir", "ck"], "item 9"), (["--mesh", "4"], "item 10"),
 ])
 def test_cli_modes_not_ported_name_their_item(monkeypatch, tmp_path, capsys, flags, item):
-    """The modes not ported yet raise and name their ROADMAP item; item 6's
-    (A6: ``--batch``, ``--mode stft``, ``--mode parallel-chunks``) are
-    ported and run on parameters.json (a 2048-sample target: one chunk of
-    2048; ``a.wav`` its generated target)."""
-    if item != "item 6":
+    """The modes not ported yet raise and name their ROADMAP item (item 10:
+    ``--mesh``); item 6's (A6: ``--batch``, ``--mode stft``, ``--mode
+    parallel-chunks``) and item 9's (A9: ``--export-aot``, ``--aot``,
+    ``--checkpoint-dir``) are ported and run on parameters.json (a
+    2048-sample target: one chunk of 2048; ``a.wav`` its generated target,
+    ``m.bin`` an artifact exported first)."""
+    if item == "item 10":
         with pytest.raises(NotImplementedError, match=item):
             _run_cli(monkeypatch, tmp_path, "parameters.json", *flags)
         return
     if flags[0] == "--batch":
         assert _run_cli(monkeypatch, tmp_path, "parameters.json", "--generations", "2") == 0
         shutil.copy(tmp_path / "inputGenerated.wav", tmp_path / "a.wav")
+    if flags[0] == "--aot":
+        assert _run_cli(monkeypatch, tmp_path, "parameters.json", "--generations", "2",
+                        "--export-aot", "m.bin") == 0
     assert _run_cli(monkeypatch, tmp_path, "parameters.json", "--generations", "2", *flags) == 0
     out = capsys.readouterr().out
+    if flags[0] == "--export-aot":
+        assert "exported AOT matcher" in out and (tmp_path / "m.bin").exists()
+        return
     assert ("a.wav: fitness = " if flags[0] == "--batch" else "chunk 0: fitness = ") in out
+    if flags[0] == "--checkpoint-dir":
+        assert (tmp_path / "ck" / "chunk_0000.npz").exists()
 
 
 def test_cli_usage_errors(monkeypatch, tmp_path, capsys):

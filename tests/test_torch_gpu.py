@@ -812,3 +812,88 @@ def test_b1_b2_wide_grid(cuda, dtype, n, topology, pop):
     limits = (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL) if dtype == "float32" else (FIT_MAX_REL,
                                                                               FIT_MEDIAN_REL)
     _grid_case(cuda, dtype, n, None, topology, 9, pop, limits)
+
+
+# A9 on the card: resume bit-equal under B2 (with restarts, which draw from
+# the CUDA generator) and B5, and an artifact run with the build disabled
+@pytest.mark.parametrize("engine", ["fused_generation", "restarts", "fused_evolve"])
+def test_evolve_checkpointed_resume_bit_equal(cuda, tmp_path, monkeypatch, engine):
+    from pmfm_tpu_torch.es import evolve_checkpointed
+    from pmfm_tpu_torch.kernels import evolve as ev
+    from pmfm_tpu_torch.utils import checkpoint
+
+    cfg, so, tgt = _setup(cuda)
+    cfg = {"fused_generation": cfg, "restarts": cfg.replace(restart_patience=2),
+           "fused_evolve": cfg.replace(fused_evolve=True)}[engine]
+    want, want_traj = evolve(init_state(4, cfg, device=cuda), tgt, 30, so, cfg,
+                             record_trajectory=True)
+    if engine == "restarts":  # a restart fires inside the run: 2 stalls in a row
+        same = (want_traj[1:] == want_traj[:-1]).cpu().numpy()
+        assert (same[1:] & same[:-1]).any()
+    save, count = checkpoint.save_checkpoint, []
+
+    def stop_after_two(*a, **k):
+        save(*a, **k)
+        count.append(1)
+        if len(count) == 2:
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(checkpoint, "save_checkpoint", stop_after_two)
+    with pytest.raises(KeyboardInterrupt):
+        evolve_checkpointed(init_state(4, cfg, device=cuda), tgt, 30, so, cfg, tmp_path,
+                            every=10, record_trajectory=True)
+    monkeypatch.setattr(checkpoint, "save_checkpoint", save)
+    before = (gn.fused_generation.launches, ev.fused_evolve.launches)
+    got, traj = evolve_checkpointed(init_state(4, cfg, device=cuda), tgt, 30, so, cfg, tmp_path,
+                                    every=10, record_trajectory=True)
+    after = (gn.fused_generation.launches, ev.fused_evolve.launches)
+    assert after[1] - before[1] == (1 if engine == "fused_evolve" else 0)
+    assert after[0] - before[0] == (0 if engine == "fused_evolve" else 10)
+    for f in ("parent_values", "parent_steps", "parent_fitness", "best_values", "best_fitness",
+              "stall"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(got.generator.get_state(), want.generator.get_state())
+    np.testing.assert_array_equal(traj, want_traj.cpu().numpy())
+
+
+def test_aot_runs_with_the_build_disabled(cuda, tmp_path):
+    """An artifact exported here runs in a subprocess on a copy of the
+    package whose build directory is empty and whose ``_build.build``
+    raises, and returns what the live matcher returns."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from pmfm_tpu_torch.es import match_audio_stft
+    from pmfm_tpu_torch.utils import aot
+
+    repo = Path(__file__).resolve().parent.parent
+
+    cfg, _, _ = _setup(cuda)
+    target = np.random.default_rng(5).standard_normal(2 * 1024).astype(np.float32)
+    art = tmp_path / "m.pmfm"
+    aot.save_matcher(art, cfg, 20, target_samples=len(target))
+    np.save(tmp_path / "target.npy", target)
+    shutil.copytree(repo / "pmfm_tpu_torch", tmp_path / "copy" / "pmfm_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    script = (
+        "import json, sys, numpy as np\n"
+        "from pmfm_tpu_torch.kernels import _build\n"
+        "assert not _build.library_path().exists()\n"
+        "def refuse(): raise RuntimeError('the build is disabled')\n"
+        "_build.build = refuse\n"
+        "from pmfm_tpu_torch.utils import aot\n"
+        f"m = aot.load_matcher({str(art)!r})\n"
+        f"out = m(3, np.load({str(tmp_path / 'target.npy')!r}))\n"
+        f"np.savez({str(tmp_path / 'out.npz')!r}, **out)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path / "copy",
+                          env={**os.environ, "PYTHONPATH": str(tmp_path / "copy")},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    live = match_audio_stft(target, cfg, seed=3, num_generations=20, device=cuda)
+    with np.load(tmp_path / "out.npz") as out:
+        assert out["best_fitness"] == np.float32(live.chunks[0].best_fitness)
+        np.testing.assert_array_equal(out["best_params_norm"], live.chunks[0].best_params_norm)
+        np.testing.assert_array_equal(out["best_audio"], live.output_audio)

@@ -51,7 +51,10 @@ def test_import_loads_no_jax_and_builds_nothing():
         "pmfm_tpu_torch.kernels.synth_stream, pmfm_tpu_torch.kernels.evolve, "
         "pmfm_tpu_torch.kernels.scan, pmfm_tpu_torch.bench, pmfm_tpu_torch.cli, "
         "pmfm_tpu_torch.models, pmfm_tpu_torch.ops.oracle, pmfm_tpu_torch.utils, "
-        "pmfm_tpu_torch.utils.debug, pmfm_tpu_torch.utils.stage_bench\n"
+        "pmfm_tpu_torch.utils.debug, pmfm_tpu_torch.utils.stage_bench, "
+        "pmfm_tpu_torch.utils.checkpoint, pmfm_tpu_torch.utils.chunk_store, "
+        "pmfm_tpu_torch.utils.aot, pmfm_tpu_torch.utils.provenance, "
+        "pmfm_tpu_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pmfm_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pmfm_tpu_torch.kernels import _build\n"

@@ -606,6 +606,9 @@ def test_cli_batch(monkeypatch, tmp_path, capsys):
     for stem in ("a", "b"):
         audio, sr = read_wav(tmp_path / f"{root}_{stem}.wav")
         assert sr == 44100 and len(audio) == 4096
-    with pytest.raises(NotImplementedError, match="A9"):
-        cli.main(["-j", str(path), "--platform", "cpu", "--mode", "stft",
-                  "--checkpoint-every", "5"])
+    # --checkpoint-every with --mode stft (A9, ported): the state every 5
+    # generations in the checkpoint directory
+    assert cli.main(["-j", str(path), "--platform", "cpu", "--mode", "stft",
+                     "--checkpoint-every", "5", "--checkpoint-dir", "ck"]) == 0
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "gen_chunk0.npz", "gen_chunk0_refine4.npz"]
