@@ -101,6 +101,20 @@ through the entry points a user calls, and times each kernel:
   ``benchmarks/pursuit_fm5_parallel.json``'s own settings, seeds 64-65
   and 66-67.
 
+* phase 39, population sharding over a mesh of ranks (A10) at the bench
+  shape: a world of one on NCCL, ``evolve_sharded`` bit-equal to
+  ``evolve`` over 200 generations (B2 at P 2^15), with both one's ms a
+  generation; two ranks sharing the card through gloo
+  (``pmfm_tpu_torch.multiprocess_check.run`` on the bench shape: B2 at
+  P 2^14 each, every rank's state byte-equal, each rank's B2 launches
+  counted beside the engine it names, their ms a generation: contention on
+  one card, not scaling), a (1 pop x 2 frame) world, which runs the
+  frame-sharded unfused path and no B2, whose frame all-reduce is held
+  against the unsharded multi-frame fitness, and ``python -m torch.distributed.run --nproc-per-node 2 -m
+  pmfm_tpu_torch.cli -j examples/params_match.json --mesh 2``; phase 40,
+  the ES-quality gate (A1: ``pmfm_tpu_torch.convergence_check``) at 2
+  seeds and 50 generations, read back by the bench's readers.
+
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
 phases and the named ones, and prints no result line (``large`` names the
 large-frame inputs that phases 7-11, 33 and 34 need).
@@ -449,6 +463,17 @@ A9_CHUNKS = 4
 A9_STFT_EVERY = 50
 A9_POPULATION_GENERATIONS = 20
 A9_SUBPROCESS_S = 300
+# phase 39 (A10): the bench shape through parallel.evolve_sharded (cfg of the
+# inputs phase); the subprocesses' limit; the CLI's work directory
+A10_GENERATIONS = 200
+A10_FRAME_GENERATIONS = 10  # the frame path synthesises all frames of every candidate
+A10_SUBPROCESS_S = 300
+A10_DIR = "build/chip_smoke_a10"
+A10_CLI_RANKS = 2
+# phase 40 (A1): convergence_check at A1_SEEDS seeds and A1_GENERATIONS
+A1_DIR = "build/chip_smoke_a1"
+A1_SEEDS, A1_GENERATIONS = 2, 50
+A1_VARIANTS = ("f32", "int8+sin7", "int8+sin7+refine", "shipped")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 and
 # bf16 FLOP/s
@@ -4011,6 +4036,180 @@ print(json.dumps({{"code": code, "load_s": float(m.group(1)) if m else -1.0}}))
             record = {k: z[k] for k in z.files}
         return dict(res, seconds=seconds, record=record)
 
+    # -- 39 -----------------------------------------------------------------
+    def a10(self):
+        """A10 on the card at the bench shape: a world of one on NCCL
+        against ``evolve``; two ranks sharing the card through gloo, 1-D and
+        (1 pop x 2 frame); the CLI under ``torch.distributed.run``. The
+        ranks are processes of their own on this card: this process's
+        cached blocks from earlier phases are released before they start."""
+        self.a10_world_of_one()
+        gib = lambda b: f"{b / 2**30:.2f} GiB"  # noqa: E731
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.empty_cache()
+        log(f"A10 this process before the ranks: {gib(torch.cuda.memory_allocated())} allocated, "
+            f"{gib(reserved)} reserved, {gib(torch.cuda.memory_reserved())} after "
+            f"empty_cache; the card's free memory {gib(torch.cuda.mem_get_info()[0])}")
+        self.a10_ranks()
+        self.a10_cli()
+
+    def a10_world_of_one(self):
+        import torch.distributed as dist
+
+        from pmfm_tpu_torch.es import evolve, init_state
+        from pmfm_tpu_torch.parallel import evolve_sharded, make_mesh
+
+        mesh = make_mesh((1,), device=self.dev)
+        try:
+            cfg, g = self.cfg, A10_GENERATIONS
+            # a warm-up: NCCL's first collective sets up its communicator
+            evolve_sharded(init_state(SEED, cfg, device=self.dev), self.target, 2, self.so, cfg,
+                           mesh)
+            runs = {}
+            for name, fn in (("evolve", lambda s: evolve(
+                    s, self.target, g, self.so, cfg, record_trajectory=True)),
+                             ("evolve_sharded", lambda s: evolve_sharded(
+                                 s, self.target, g, self.so, cfg, mesh, record_trajectory=True))):
+                state = init_state(SEED, cfg, device=self.dev)
+                self.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(state)
+                torch.cuda.synchronize()
+                runs[name] = (out, (time.perf_counter() - t0) * 1e3 / g,
+                              self.read_counts()["fused_generation"])
+            (a, ta), ms_a, la = runs["evolve"]
+            (b, tb), ms_b, lb = runs["evolve_sharded"]
+            fields = ("parent_values", "parent_steps", "parent_fitness", "best_values",
+                      "best_fitness", "stall")
+            equal = (all(bits_equal(getattr(a, f), getattr(b, f)) for f in fields)
+                     and bits_equal(ta, tb) and a.generation == b.generation)
+            log(f"A10 world of one on {mesh.backend}: evolve_sharded bit-equal to evolve over "
+                f"{g} generations at P {cfg.population_size}: {equal} (best "
+                f"{float(b.best_fitness):.6g}); {ms_b:.4f} ms/gen against evolve's {ms_a:.4f} (host clock to a synchronize); "
+                f"B2 launches {lb} and {la} {card()}")
+            require(mesh.backend == "nccl", f"a world of one on the card is on {mesh.backend}")
+            require(equal, "a world of one is not bit-equal to evolve")
+            require(la == lb == g, f"B2 launches {la}, {lb} for {g} generations")
+        finally:
+            dist.destroy_process_group()
+
+    def a10_ranks(self):
+        """``multiprocess_check.run`` at the bench shape with 2 ranks on the
+        card: 1-D (P 2^14 a rank) and (1 pop x 2 frame)."""
+        from pmfm_tpu_torch import multiprocess_check as mp
+
+        for mesh2d in (False, True):
+            cfg = self.cfg.replace(num_frames=2) if mesh2d else self.cfg
+            gens = A10_FRAME_GENERATIONS if mesh2d else A10_GENERATIONS
+            t0 = time.perf_counter()
+            code, lines = mp.run(A10_CLI_RANKS, mesh2d, "cuda", cfg=cfg, generations=gens)
+            seconds = time.perf_counter() - t0
+            for ln in lines:
+                if not ln.startswith("MPBYTES"):
+                    print(f"  {ln}", flush=True)
+            label = "1 pop x 2 frame" if mesh2d else "2 pop"
+            require(code == 0, f"A10 {label}: a rank failed")
+            rows = lambda tag: [ln.split()[2:] for ln in lines if ln.startswith(tag)]  # noqa: E731
+            digests = {r[-1] for r in rows("MPCHK")}
+            require(len(rows("MPCHK")) == A10_CLI_RANKS and len(digests) == 1,
+                    f"A10 {label}: ranks disagree {digests}")
+            launches = [int(r[0].split("=")[1]) for r in rows("MPLAUNCH")]
+            engines = {ln.split(maxsplit=2)[2] for ln in lines if ln.startswith("MPENGINE")}
+            times = [r[2] for r in rows("MPTIME")]
+            log(f"A10 {A10_CLI_RANKS} ranks sharing the card ({label}, gloo): every rank's state "
+                f"byte-equal ({digests.pop()}); engine {sorted(engines)}, B2 launches a rank "
+                f"{launches} in {gens} generations; a rank's "
+                f"{', '.join(times)} (contention on one card, not scaling); {seconds:.1f}s with "
+                f"the ranks' start {card()}")
+            if mesh2d:
+                frames = [dict(kv.split("=") for kv in r[1:]) for r in rows("MPFRAME")]
+                limit = UNFUSED_TOL["float32"]  # the unfused engines' (1e-3, 1e-6)
+                require(frames and all(float(f["max_rel"]) <= limit[0] and
+                                       float(f["median_rel"]) <= limit[1]
+                                       for f in frames), f"A10 frame all-reduce: {frames}")
+            want = ("xla_stft (frame-sharded)", 0) if mesh2d else ("fused_generation", gens)
+            require(engines == {want[0]} and launches == [want[1]] * A10_CLI_RANKS,
+                    f"A10 {label}: engine {engines}, B2 launches {launches}")
+
+    def a10_cli(self):
+        """``python -m torch.distributed.run --nproc-per-node 2 -m
+        pmfm_tpu_torch.cli -j SHIPPED_CONFIG --mesh 2`` in A10_DIR."""
+        import os
+        import shutil
+
+        root = os.getcwd()
+        work = os.path.join(root, A10_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc-per-node", str(A10_CLI_RANKS), "-m", "pmfm_tpu_torch.cli", "-j",
+                   os.path.join(root, SHIPPED_CONFIG), "--mesh", str(A10_CLI_RANKS)]
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True,
+                                  timeout=A10_SUBPROCESS_S)
+            seconds = time.perf_counter() - t0
+            text = proc.stdout
+            engine = next((ln for ln in text.splitlines() if ln.startswith("engine: ")), "")
+            for ln in text.splitlines():
+                if ln.startswith(("Total time to complete", "candidate evaluations", "chunk ")):
+                    print(f"  {ln}", flush=True)
+            log(f"A10 torch.distributed.run --nproc-per-node {A10_CLI_RANKS} cli --mesh "
+                f"{A10_CLI_RANKS} on {SHIPPED_CONFIG}: exit {proc.returncode} in {seconds:.2f}s "
+                f"(the ranks' start and the stage rows included), {engine!r} {card()}")
+            if proc.returncode != 0:
+                print(text[-4000:], proc.stderr[-4000:], flush=True)
+            require(proc.returncode == 0, f"the CLI under torch.distributed.run exited "
+                                          f"{proc.returncode}")
+            require(f"mesh {{'pop': {A10_CLI_RANKS}}} on gloo" in engine, f"engine {engine!r}")
+            require(text.count("chunk 0: fitness = ") == 1, "not one report")
+            require(os.path.exists(os.path.join(work, "output_audio", "output.wav")), "no WAV")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    # -- 40 -----------------------------------------------------------------
+    def a1(self):
+        """``convergence_check.main`` at A1_SEEDS seeds and A1_GENERATIONS
+        generations over A1_VARIANTS into A1_DIR, its layout and the bench's
+        readers; the kernels it ran."""
+        import os
+        import shutil
+
+        from pmfm_tpu_torch import bench
+        from pmfm_tpu_torch import convergence_check as cc
+
+        work = os.path.join(os.getcwd(), A1_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        path = os.path.join(work, "quality_gates.json")
+        try:
+            self.reset_counts()
+            t0 = time.perf_counter()
+            code = cc.main(["--seeds", str(A1_SEEDS), "--gens", str(A1_GENERATIONS),
+                            "--seed-offset", "64", "--split", "holdout", "--variants",
+                            *A1_VARIANTS, "--json", path])
+            seconds = time.perf_counter() - t0
+            counts = self.read_counts()
+            with open(path) as f:
+                hold = json.load(f)["splits"]["holdout"]
+            res = hold["results"]
+            parts = ", ".join("%s %.2fs, median %.6g" % (k, v["seconds"], v["median"])
+                              for k, v in res.items())
+            log(f"A1 convergence_check at {A1_SEEDS} seeds x {A1_GENERATIONS} generations: exit "
+                f"{code} in {seconds:.2f}s; {parts}; bench reads {bench.generations_to_converge(path)['split']} and "
+                f"{bench.quality_holdout(path)}; launches {counts} {card()}")
+            require(code == 0 and set(res) == set(A1_VARIANTS), f"A1 results {sorted(res)}")
+            require(all(np.isfinite(r["fits"]).all() and len(r["fits"]) == A1_SEEDS
+                        for r in res.values()), "A1: a fitness is not finite")
+            require(hold["meta"]["device"]["name"] == CARD["name"], f"A1 device {hold['meta']}")
+            require(counts["fused_generation"] > 0 and counts["fused_synth_fitness"] > 0,
+                    f"A1 launches {counts}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     # -- 37, 38 -------------------------------------------------------------
     def study_pursuit(self, seeds):
         """``es.staged.match_parallel_pursuit`` on C2_STUDY's own meta (its
@@ -4163,6 +4362,8 @@ def main(argv=None) -> int:
         if "32 B1/B2 at 20-32 genes vs plain" not in s.failed:
             s.phase("34 bank and wide kernel times, B3's layouts on banks", s.bank_timings)
     s.phase("36 A9: resume, population readback, AOT", s.a9)
+    s.phase("39 A10: a world of one, two ranks on the card, the CLI over a mesh", s.a10)
+    s.phase("40 A1: the ES-quality gate, 2 seeds", s.a1)
     if s.only is not None and "35" in s.only:  # minutes: never part of the whole run
         s.phase("35 the fm5_parallel pursuit as written", s.fm5_pursuit)
     for number, seeds in C2_SEEDS.items():  # minutes each: never part of the whole run

@@ -19,14 +19,17 @@ generation).
 
 Prints one JSON line with ``metric``, ``value``, ``unit``, ``vs_baseline``
 (against the reference's 2080 Ti figure, as the root script computes it),
-``value_shipped`` and ``device`` (the card's name and power limit). The
-reference's ``generations_to_converge`` and ``quality_vs_f32_holdout`` are
-read from TPU measurements and have no counterpart here. Without a CUDA
-device the script exits non-zero and prints no result.
+``value_shipped``, ``device`` (the card's name and power limit) and, as the
+root script reads them from its quality gate, ``generations_to_converge``
+and ``quality_vs_f32_holdout`` from ``QUALITY_GATES``
+(``pmfm_tpu_torch/quality_gates.json``, written on the card by
+``python -m pmfm_tpu_torch.convergence_check``; the held-out split first).
+Without a CUDA device the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 
@@ -44,6 +47,7 @@ AUDIO_LOG2 = 10
 # the reference's normalisation: the 2080 Ti figure in root bench.py
 BASELINE_2080TI_EVALS_PER_SEC = 10e6
 TRUTH = (3078.0, 2.0, 3015.0, 1.5, 3141.0, 1.0)  # examples/params_match.json
+QUALITY_GATES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quality_gates.json")
 
 
 def bench_config() -> ESConfig:
@@ -128,6 +132,44 @@ class Bench:
         return POP * self.gens / (ms / 1e3)
 
 
+def quality_holdout(path: str = QUALITY_GATES):
+    """The bench engine family's held-out quality against f32 (seeds
+    disjoint from any tuning): the median ratio and sign-test p of each
+    rung, as root ``bench.py`` reports them; None without the file."""
+    try:
+        with open(path) as f:
+            res = json.load(f)["splits"]["holdout"]["results"]
+        return {name: {"median_ratio": round(res[name]["paired_vs_f32"]["median_ratio"], 3),
+                       "sign_p": round(res[name]["paired_vs_f32"]["sign_test_p"], 3)}
+                for name in ("int8+sin7+refine", "shipped")}
+    except (OSError, KeyError, ValueError):
+        return None
+
+
+def generations_to_converge(path: str = QUALITY_GATES):
+    """The median generations for the bench engine (and its refine rung)
+    to reach each rescored fitness threshold, with the share of seeds that
+    did, from the held-out split if there is one, else the train split (as
+    root ``bench.py`` reads them); None without the file."""
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return None
+    for split in ("holdout", "train"):
+        blk = data.get("splits", {}).get(split)
+        if blk and "int8+sin7" in blk.get("results", {}):
+            out = {"split": split, "seeds": blk["seeds"]}
+            for rung in ("int8+sin7", "int8+sin7+refine"):
+                if rung in blk["results"]:
+                    gtc = blk["results"][rung]["generations_to_converge"]
+                    out[rung] = {t: {"median_gens": v.get("median_gens"),
+                                     "frac_converged": v["frac_converged"]}
+                                 for t, v in gtc.items()}
+            return out
+    return None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("pmfm_tpu_torch.bench: no CUDA device", file=sys.stderr)
@@ -135,14 +177,21 @@ def main() -> int:
     b = Bench()
     value = b.evals_per_sec(best_ms(b.run_value, REPS))
     shipped = b.evals_per_sec(best_ms(b.run_shipped, REPS))
-    print(json.dumps({
+    out = {
         "metric": "candidate-evaluations/sec/chip (pop 2^15, 1024-pt FFT)",
         "value": round(value, 1),
         "unit": "evals/s",
         "vs_baseline": round(value / BASELINE_2080TI_EVALS_PER_SEC, 3),
         "value_shipped": round(shipped, 1),
         "device": card(),
-    }))
+    }
+    gtc = generations_to_converge()
+    if gtc is not None:
+        out["generations_to_converge"] = gtc
+    q = quality_holdout()
+    if q is not None:
+        out["quality_vs_f32_holdout"] = q
+    print(json.dumps(out))
     return 0
 
 

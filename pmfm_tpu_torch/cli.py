@@ -32,17 +32,31 @@ Replicates the reference program's main (main.cpp:25-305), as ``pmfm_tpu.cli`` d
   (``match_audio_stft``);
 * with ``--export-aot PATH`` writes an artifact of the STFT matcher for the
   config and the target's length (``utils/aot.py``: the config and the
-  built kernel library) and exits; with ``--aot PATH`` runs from one, its
-  config in place of the JSON's, without building the kernels.
+  built kernel library; with a mesh, its rank count as ``mesh_devices``)
+  and exits; with ``--aot PATH`` runs from one, its config in place of the
+  JSON's, without building the kernels;
+* with ``--mesh N`` (or a config's ``tpu.meshShape`` and
+  ``tpu.meshAxisNames``, e.g. ``[2, 2]`` and ``["pop", "frame"]``) shards
+  the population over a mesh of ranks (``parallel/``) in the chunks, stft,
+  parallel-chunks and batch modes; the pursuit solver runs on each rank
+  alone, as the reference's does. Several ranks are started with
 
-The run is on the first CUDA device unless ``--platform cpu`` asks for the
-CPU, where every kernel runs its plain PyTorch version. Not ported yet, and
-raising ``NotImplementedError`` that names the ROADMAP item: ``--mesh`` and
-a config's ``tpu.meshShape`` (A10).
+      python -m torch.distributed.run --nproc-per-node N -m pmfm_tpu_torch.cli -j C --mesh N
+
+  (NCCL where each rank has a card of its own, gloo where ranks share one
+  or run on the CPU; ``parallel/mesh.py``). Without that launcher ``--mesh
+  1`` runs a world of one and a larger mesh raises ``ValueError``. Every
+  rank computes the same result; the first writes the WAV, the CSV, the
+  checkpoints and the ``--profile-dir`` trace and prints.
+
+The run is on the first CUDA device (a rank's own under the launcher)
+unless ``--platform cpu`` asks for the CPU, where every kernel runs its
+plain PyTorch version.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -84,9 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="match several target WAVs concurrently (one batched run a file, "
                         "each over all its frames)")
     p.add_argument("--mesh", type=int, default=None,
-                   help="shard the population over N devices (not ported yet: A10)")
+                   help="shard the population over a mesh of N ranks (launch them with "
+                        "python -m torch.distributed.run --nproc-per-node N)")
     p.add_argument("--profile-dir", default=None,
-                   help="capture a torch.profiler trace (trace.json) here")
+                   help="capture a torch.profiler trace (trace.json) here (the first "
+                        "rank's, under a mesh)")
     p.add_argument("--export-aot", default=None, metavar="PATH",
                    help="write an AOT artifact of the STFT matcher for this config and target "
                         "length (the config and the built kernel library) and exit")
@@ -104,13 +120,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue A item {item}")
-
-
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    started = []  # a world this call started, ended on the way out
+    try:
+        return _main(args, started)
+    finally:
+        if started:
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+
+
+def _main(args, started: list) -> int:
     # heavy imports deferred so that `--help` is instant
     import torch
 
@@ -134,9 +156,6 @@ def main(argv: list[str] | None = None) -> int:
     # CUDA kernels once per source hash into build/pmfm_tpu_torch/
     # (kernels/_build.py) and PyTorch's own kernels need no compilation.
     from .device import resolve_device
-
-    device = resolve_device(platform)
-
     from .es import match_audio
     from .io import load_config, read_audio, resample, write_wav
     from .models import get_topology
@@ -155,8 +174,33 @@ def main(argv: list[str] | None = None) -> int:
     cfg = run_cfg.es
     if args.mode == "chunks" and run_cfg.solver == "pursuit":
         args.mode = "pursuit"
-    if args.mesh or run_cfg.mesh_shape:
-        raise _not_ported("--mesh / tpu.meshShape (parallel/)", "10 (A10)")
+
+    # --- mesh (population sharding over ranks; the reference's cli.py:274-282)
+    mesh = None
+    mesh_shape = (args.mesh,) if args.mesh else run_cfg.mesh_shape
+    if (mesh_shape or args.aot) and not args.export_aot:
+        from .parallel import initialize_multihost, make_mesh
+        from .parallel.mesh import local_device
+
+        dev = local_device(platform)
+        size = int(np.prod(mesh_shape)) if mesh_shape else None
+        if initialize_multihost(mesh_size=size, device=dev):
+            started.append(True)
+        if mesh_shape:
+            mesh = make_mesh(mesh_shape, run_cfg.mesh_axis_names, device=dev)
+            if dev.type == "cuda" and not args.aot:
+                from .kernels import _build
+
+                if mesh.is_root:  # one build, which the other ranks then load
+                    _build.library()
+                mesh.barrier()
+    device = mesh.device if mesh is not None else resolve_device(platform)
+    import torch.distributed as dist
+
+    root = not dist.is_initialized() or dist.get_rank() == 0
+    if not root:  # the first rank prints and writes the files
+        args.quiet = True
+        run_cfg = dataclasses.replace(run_cfg, is_audio=False, is_benchmarking=False)
 
     overrides = {}
     if args.parents is not None:
@@ -183,7 +227,7 @@ def main(argv: list[str] | None = None) -> int:
                          population=cfg.population_size, generations=num_generations)
 
     if args.batch:
-        return _match_batch(args, run_cfg, cfg, num_generations, device, bm)
+        return _match_batch(args, run_cfg, cfg, num_generations, device, bm, mesh)
 
     # --- target creation (main.cpp:204-227) ------------------------------
     if run_cfg.input_mode == "params":
@@ -228,12 +272,14 @@ def main(argv: list[str] | None = None) -> int:
             print("error: target shorter than one frame", file=sys.stderr)
             return 2
         t0 = time.perf_counter()
+        aot_mesh = int(np.prod(mesh_shape)) if mesh_shape else None  # the reference's cli.py:262
         path = aot.save_matcher(args.export_aot, cfg, num_generations, target_samples=n,
-                                platforms=(device.type,))
+                                platforms=(device.type,), mesh_devices=aot_mesh)
         if not args.quiet:
             print(f"exported AOT matcher to {path} ({os.path.getsize(path)} bytes, "
-                  f"target_samples={n}, generations={num_generations}, platform {device.type}; "
-                  f"{time.perf_counter() - t0:.3f}s)")
+                  f"target_samples={n}, generations={num_generations}, platform {device.type}"
+                  + (f", mesh_devices={aot_mesh}" if aot_mesh else "")
+                  + f"; {time.perf_counter() - t0:.3f}s)")
         return 0
     matcher = None
     if args.aot:
@@ -269,7 +315,7 @@ def main(argv: list[str] | None = None) -> int:
                 f"stages) on {device} (pursuit solver, {cfg.topology}, n={cfg.n_samples}, "
                 f"pop={cfg.population_size})")
     else:
-        line = _engine_line(cfg, num_generations, device, f"{args.mode} mode")
+        line = _engine_line(cfg, num_generations, device, f"{args.mode} mode", mesh)
     if not args.quiet:
         print(line)
     start = time.perf_counter()
@@ -279,7 +325,7 @@ def main(argv: list[str] | None = None) -> int:
     if total:
         bm.start_timer("Total Audio Analysis Time")
     # general.isDebug: NaN checks over the whole match (utils/debug.py)
-    with maybe_trace(args.profile_dir), debug_nans(run_cfg.is_debug):
+    with maybe_trace(args.profile_dir if root else None), debug_nans(run_cfg.is_debug):
         if matcher is not None:
             out = matcher(args.seed, target[: matcher.target_samples])
             result = MatchResult(chunks=[ChunkResult(
@@ -295,7 +341,7 @@ def main(argv: list[str] | None = None) -> int:
             result = match_audio_stft(
                 target, cfg, seed=args.seed, num_generations=num_generations,
                 record_trajectory=args.trajectory, checkpoint_dir=args.checkpoint_dir,
-                checkpoint_every=args.checkpoint_every, device=device,
+                checkpoint_every=args.checkpoint_every, mesh=mesh, device=device,
             )
         elif args.mode == "parallel-chunks":
             n = len(target) - len(target) % cfg.n_samples
@@ -304,7 +350,7 @@ def main(argv: list[str] | None = None) -> int:
                                  f"({cfg.n_samples})")
             chunks = np.asarray(target[:n], np.float32).reshape(-1, cfg.n_samples)
             many = match_many(chunks, cfg, seed=args.seed, num_generations=num_generations,
-                              device=device)
+                              mesh=mesh, device=device)
             result = MatchResult(chunks=[r.chunks[0] for r in many],
                                  output_audio=np.concatenate([r.output_audio for r in many]),
                                  config=cfg)
@@ -312,7 +358,7 @@ def main(argv: list[str] | None = None) -> int:
             result = match_audio(
                 target, cfg, seed=args.seed, num_generations=num_generations,
                 record_trajectory=args.trajectory, benchmarker=bm,
-                checkpoint_dir=args.checkpoint_dir, device=device,
+                checkpoint_dir=args.checkpoint_dir, mesh=mesh, device=device,
             )
     if total:
         bm.pause_timer("Total Audio Analysis Time")
@@ -345,30 +391,44 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def _engines(cfg, num_generations: int, device) -> str:
-    """The engine of ``cfg`` on ``device`` and, with a refine tail, the
-    tail's ("X, the last R on Y")."""
+def _engines(cfg, num_generations: int, device, mesh=None) -> str:
+    """The engine of ``cfg`` on ``device`` (over ``mesh``, the engine a
+    sharded generation runs: ``parallel.sharded.sharded_engine``) and, with
+    a refine tail, the tail's ("X, the last R on Y")."""
     from .es import make_spectrum_ops
     from .es.strategy import active_engine
 
-    engine = active_engine(cfg, make_spectrum_ops(cfg, device=device))
+    def engine(c):
+        so = make_spectrum_ops(c, device=device)
+        if mesh is None:
+            return active_engine(c, so)
+        from .parallel.sharded import sharded_engine
+
+        return sharded_engine(c, so, mesh)
+
     if cfg.refine_generations <= 0:
-        return engine
-    cfg_r = cfg.refine_config()
-    return (f"{engine}, the last {min(cfg.refine_generations, num_generations)} on "
-            f"{active_engine(cfg_r, make_spectrum_ops(cfg_r, device=device))}")
+        return engine(cfg)
+    return (f"{engine(cfg)}, the last {min(cfg.refine_generations, num_generations)} on "
+            f"{engine(cfg.refine_config())}")
 
 
-def _engine_line(cfg, num_generations: int, device, mode: str) -> str:
+def _engine_line(cfg, num_generations: int, device, mode: str, mesh=None) -> str:
     """The "engine: ..." line: ``_engines`` on ``device``, the mode, the
-    shapes and, where there are several, the frames a run is scored over."""
+    shapes, where there are several the frames a run is scored over, and
+    the mesh with a rank's share of the population."""
     frames = f", {cfg.num_frames} frames a run" if cfg.num_frames > 1 else ""
-    return (f"engine: {_engines(cfg, num_generations, device)} on {device} ({mode}, "
-            f"{cfg.topology}, n={cfg.n_samples}{frames}, pop={cfg.population_size}, "
+    shards = ""
+    if mesh is not None:
+        from .parallel import POP_AXIS
+
+        shards = (f", mesh {mesh.shape} on {mesh.backend}, "
+                  f"{cfg.population_size // mesh.axis_size(POP_AXIS)} a rank")
+    return (f"engine: {_engines(cfg, num_generations, device, mesh)} on {device} ({mode}, "
+            f"{cfg.topology}, n={cfg.n_samples}{frames}, pop={cfg.population_size}{shards}, "
             f"{num_generations} generations)")
 
 
-def _match_batch(args, run_cfg, cfg, num_generations: int, device, bm) -> int:
+def _match_batch(args, run_cfg, cfg, num_generations: int, device, bm, mesh=None) -> int:
     """``--batch``: every WAV of ``args.batch`` resampled to the config's
     rate, all cut to the shortest whole number of frames, matched at once
     (``match_many``, one run a file, each over all its frames); prints each
@@ -394,12 +454,12 @@ def _match_batch(args, run_cfg, cfg, num_generations: int, device, bm) -> int:
     targets = np.stack([a[:n] for a, _ in loaded])
     if not args.quiet:
         print(_engine_line(cfg.replace(num_frames=n // cfg.n_samples), num_generations, device,
-                           f"a batch of {len(loaded)} targets"))
+                           f"a batch of {len(loaded)} targets", mesh))
     start = time.perf_counter()
     if bm is not None:
         bm.start_timer("Total Audio Analysis Time")
     results = match_many(targets, cfg, seed=args.seed, num_generations=num_generations,
-                         device=device)
+                         mesh=mesh, device=device)
     if bm is not None:
         bm.pause_timer("Total Audio Analysis Time")
     elapsed = time.perf_counter() - start
@@ -407,7 +467,8 @@ def _match_batch(args, run_cfg, cfg, num_generations: int, device, bm) -> int:
     for i, (path, r) in enumerate(zip(args.batch, results)):
         c = r.chunks[0]
         params_str = ", ".join(f"{v:.3f}" for v in c.best_params_scaled)
-        print(f"{path}: fitness = {c.best_fitness:.6g}\n  params = [{params_str}]")
+        if mesh is None or mesh.is_root:
+            print(f"{path}: fitness = {c.best_fitness:.6g}\n  params = [{params_str}]")
         if run_cfg.is_audio:
             root, ext = os.path.splitext(run_cfg.output_audio_path)
             stem = os.path.splitext(os.path.basename(path))[0]

@@ -27,8 +27,12 @@ Resume: ``match_audio(checkpoint_dir=)`` writes each finished chunk
 ``evolve_checkpointed`` save the state every ``every`` generations
 (``utils/checkpoint.py``) and a rerun goes on from the last save, bit-equal
 to a run that was not stopped. ``evolve(return_population=True)`` also
-returns the last generation's offspring, sorted (``Population``). The
-matchers take no ``mesh`` (several devices: ROADMAP Queue A item 10).
+returns the last generation's offspring, sorted (``Population``).
+
+Mesh: ``match_audio``, ``match_audio_stft``, ``match_many`` and
+``evolve_checkpointed`` take a ``mesh`` (``parallel.make_mesh``), over which
+every generation, the refine tail's too, runs population-sharded
+(``parallel.evolve_sharded``).
 Inside ``utils.debug.debug_nans(True)`` (the config's ``general.isDebug``)
 each generation's offspring and fitness and each chunk's best candidate are
 checked for NaN.
@@ -183,7 +187,15 @@ def generation_step(
             steps=torch.take_along_dim(steps, order[..., None], dim=-2),
             fitness=torch.take_along_dim(fitness, order, dim=-1),
         )
-    pv, ps, pf = select(values, steps, fitness, cfg.num_parents)
+    new_state = advance(state, *select(values, steps, fitness, cfg.num_parents), cfg)
+    return (new_state, population) if want_population else new_state
+
+
+def advance(state: ESState, pv, ps, pf, cfg: ESConfig) -> ESState:
+    """The state after a generation whose selected parents are ``pv``,
+    ``ps``, ``pf`` (best first): best-ever, stall count and the optional
+    stall-triggered restart, its fresh parents drawn from the state's
+    generator (of each run, with the run axis)."""
     # each run's best parent, and a per-run flag's view over its parents;
     # one run keeps plain indexing and 0-dim flags, since this loop's host
     # time bounds a generation of the bench (PERF.md §6)
@@ -198,12 +210,12 @@ def generation_step(
         # fresh random parents after restart_patience stalled generations;
         # best-ever is kept
         restart = stall >= cfg.restart_patience
-        fresh_v = _rand(gen, pv.shape, pv.device)
+        fresh_v = _rand(state.generator, pv.shape, pv.device)
         pv = torch.where(per_run(restart, 2), fresh_v, pv)
         ps = torch.where(per_run(restart, 2), torch.full_like(ps, 0.1), ps)
         pf = torch.where(per_run(restart, 1), torch.full_like(pf, float("inf")), pf)
         stall = torch.where(restart, 0, stall).to(torch.int32)
-    new_state = ESState(
+    return ESState(
         parent_values=pv,
         parent_steps=ps,
         parent_fitness=pf,
@@ -212,9 +224,8 @@ def generation_step(
         seed=state.seed,
         generation=_advanced(state.generation, 1),
         stall=stall,
-        generator=gen,
+        generator=state.generator,
     )
-    return (new_state, population) if want_population else new_state
 
 
 def _fused_evolve_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps,
@@ -349,8 +360,17 @@ def evolve(
     if _fused_evolve_ok(cfg, spectrum_ops, state.parent_values.device):
         return _evolve_mega(state, target_spectrum, num_generations, spectrum_ops, cfg,
                             record_trajectory)
+    return run_generations(state, num_generations, cfg, record_trajectory,
+                           lambda s: generation_step(s, target_spectrum, spectrum_ops, cfg))
+
+
+def run_generations(state: ESState, num_generations: int, cfg: ESConfig,
+                    record_trajectory: bool, step):
+    """``evolve``'s loop over ``step`` (one generation): early stop under
+    ``cfg.fitness_threshold`` (``_hold`` for the runs that have met it),
+    the trajectory if asked for. Returns ``(final_state, trajectory or
+    None)``."""
     early_stop = cfg.fitness_threshold > 0.0 and not record_trajectory
-    step = lambda s: generation_step(s, target_spectrum, spectrum_ops, cfg)  # noqa: E731
     traj = []
     for _ in range(num_generations):
         held = False
@@ -395,13 +415,13 @@ def evolve_checkpointed(
     generation and the restarts draw from its saved generator, so the
     segments compute what one ``evolve`` does, bit for bit. Returns
     ``(final_state, trajectory)``, the trajectory a numpy array over every
-    generation since 0 (saved ones included), or None. One run only; a
-    ``mesh`` (several devices) raises ``NotImplementedError``."""
+    generation since 0 (saved ones included), or None. One run only.
+
+    With ``mesh`` each segment is ``parallel.evolve_sharded``; the mesh's
+    first rank writes the files and every rank waits for them at a barrier
+    after each save, so that every rank resumes from the same save."""
     from ..utils.checkpoint import load_checkpoint, save_checkpoint
 
-    if mesh is not None:
-        raise NotImplementedError("evolve_checkpointed over a mesh is not ported yet: ROADMAP "
-                                  "Queue A item 10 (A10)")
     if every < 1:
         raise ValueError(f"every must be >= 1, got {every}")
     if isinstance(state.generation, tuple):
@@ -416,15 +436,42 @@ def evolve_checkpointed(
     done = state.generation
     while done < num_generations:
         n = min(every, num_generations - done)
-        state, traj = evolve(state, target_spectrum, n, spectrum_ops, cfg, record_trajectory)
+        state, traj = _evolve(state, target_spectrum, n, spectrum_ops, cfg, record_trajectory,
+                              mesh)
         done += n
         if record_trajectory:
             parts.append(traj.cpu().numpy())
-        save_checkpoint(checkpoint_dir, state, cfg, chunk_index, tag=tag,
-                        trajectory=np.concatenate(parts) if parts else None)
+        if mesh is None or mesh.is_root:
+            save_checkpoint(checkpoint_dir, state, cfg, chunk_index, tag=tag,
+                            trajectory=np.concatenate(parts) if parts else None)
+        if mesh is not None:
+            mesh.barrier()
     if not record_trajectory:
         return state, None
     return state, (np.concatenate(parts) if parts else np.zeros(0, np.float32))
+
+
+def _evolve(state, target_spectrum, num_generations, spectrum_ops, cfg, record_trajectory,
+            mesh=None):
+    """``evolve``, or over ``mesh`` ``parallel.evolve_sharded``."""
+    if mesh is None:
+        return evolve(state, target_spectrum, num_generations, spectrum_ops, cfg,
+                      record_trajectory)
+    from ..parallel.sharded import evolve_sharded
+
+    return evolve_sharded(state, target_spectrum, num_generations, spectrum_ops, cfg, mesh,
+                          record_trajectory)
+
+
+def _device(device, mesh):
+    """The device a matcher runs on: ``device``, which must be the mesh's
+    when there is a mesh (a bare ``cuda`` is the mesh's card)."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return dev
+    if dev.type != mesh.device.type or dev.index not in (None, mesh.device.index):
+        raise ValueError(f"device {dev} is not the mesh's device {mesh.device}")
+    return mesh.device
 
 
 def refine_boundary(
@@ -462,7 +509,7 @@ def target_spectra(target_audio: torch.Tensor, so: spectral.SpectrumOps, cfg: ES
 
 
 def _evolve_on_target(state, target_audio, num_generations, so, cfg, record_trajectory,
-                      refine_ops=None, stft=False, checkpoint=None):
+                      refine_ops=None, stft=False, checkpoint=None, mesh=None):
     """``evolve`` against ``target_audio`` (N,), or with ``stft`` against its
     F = ``cfg.num_frames`` frames (F N,) (``target_spectra``; (B, ...) with
     the run axis), with the optional refine tail: the last
@@ -476,7 +523,8 @@ def _evolve_on_target(state, target_audio, num_generations, so, cfg, record_traj
     generation it starts at, so that a rerun with another count does not
     take up a tail that started elsewhere). The reference's checkpointed
     STFT run leaves the tail out; here a checkpointed run is the run
-    without checkpoints, tail and all.
+    without checkpoints, tail and all. With ``mesh`` both parts run
+    population-sharded (``parallel.evolve_sharded``).
 
     Returns ``(final, trajectory, best-ever rescored at the boundary or
     None)``."""
@@ -485,9 +533,9 @@ def _evolve_on_target(state, target_audio, num_generations, so, cfg, record_traj
 
     def ev(s, t, n, so_, cfg_, tag):
         if checkpoint is None:
-            return evolve(s, t, n, so_, cfg_, record_trajectory)
+            return _evolve(s, t, n, so_, cfg_, record_trajectory, mesh)
         s, traj = evolve_checkpointed(s, t, n, so_, cfg_, checkpoint[0], every=checkpoint[1],
-                                      record_trajectory=record_trajectory, tag=tag)
+                                      mesh=mesh, record_trajectory=record_trajectory, tag=tag)
         return s, (None if traj is None else torch.from_numpy(traj).to(s.best_fitness.device))
 
     tspec = target_spectra(target_audio, so, cfg, stft)
@@ -557,6 +605,7 @@ def match_audio(
     record_trajectory: bool = False,
     benchmarker=None,
     checkpoint_dir: str | os.PathLike | None = None,
+    mesh=None,
     *,
     device: str | torch.device = "cuda",
 ) -> MatchResult:
@@ -574,10 +623,14 @@ def match_audio(
     (``utils.chunk_store``) and a rerun with the same config resumes after
     the last chunk written, with that run's seed; chunk i is seeded
     ``_chunk_seed(seed, i)`` whatever came before it, so a resumed run's
-    chunks are those of a run that was not stopped."""
+    chunks are those of a run that was not stopped.
+
+    With ``mesh`` (``parallel.make_mesh``) each chunk's population is
+    sharded over the mesh and the run is on the mesh's device; every rank
+    returns the same result, and the mesh's first rank writes the chunks."""
     from ..utils import chunk_store
 
-    dev = resolve_device(device)
+    dev = _device(device, mesh)
     n = cfg.n_samples
     num_chunks = len(target_audio) // n
     if num_chunks == 0:
@@ -600,7 +653,7 @@ def match_audio(
         frame = torch.from_numpy(np.ascontiguousarray(target[i * n : (i + 1) * n])).to(dev)
         state = init_state(_chunk_seed(seed, i), cfg, device=dev)
         final, traj, start = _evolve_on_target(
-            state, frame, num_generations, so, cfg, record_trajectory, refine_ops
+            state, frame, num_generations, so, cfg, record_trajectory, refine_ops, mesh=mesh
         )
         check_finite("best candidate", final.best_values)
         best_scaled = synthesis.scale_params(final.best_values, mins, maxs)
@@ -620,8 +673,11 @@ def match_audio(
         if benchmarker is not None:
             benchmarker.pause_timer("chunk")
         if checkpoint_dir is not None:
-            chunk_store.save_chunk(checkpoint_dir, cfg, i, results[-1], out_audio[-1], seed,
-                                   _chunk_seed(seed, i))
+            if mesh is None or mesh.is_root:
+                chunk_store.save_chunk(checkpoint_dir, cfg, i, results[-1], out_audio[-1], seed,
+                                       _chunk_seed(seed, i))
+            if mesh is not None:
+                mesh.barrier()
     if benchmarker is not None:
         benchmarker.pause_timer("Total Audio Analysis Time")
     return MatchResult(chunks=results, output_audio=np.concatenate(out_audio), config=cfg)
@@ -636,7 +692,7 @@ def _frames_of(samples: int, cfg: ESConfig) -> int:
 
 
 def stft_run(target_audio: np.ndarray, cfg: ESConfig, seed: int, num_generations: int,
-             record_trajectory: bool, dev: torch.device, checkpoint=None):
+             record_trajectory: bool, dev: torch.device, checkpoint=None, mesh=None):
     """The run of ``match_audio_stft`` (and of an AOT artifact,
     ``utils.aot``): ``(cfg with its frame count, final state, trajectory,
     best-ever rescored at the refine boundary or None, best candidate
@@ -649,7 +705,7 @@ def stft_run(target_audio: np.ndarray, cfg: ESConfig, seed: int, num_generations
     state = init_state(_chunk_seed(seed, 0), cfg, device=dev)
     final, traj, start = _evolve_on_target(state, audio, num_generations, so, cfg,
                                            record_trajectory, refine_ops, stft=True,
-                                           checkpoint=checkpoint)
+                                           checkpoint=checkpoint, mesh=mesh)
     check_finite("best candidate", final.best_values)
     mins = torch.tensor(cfg.param_mins, dtype=torch.float32, device=dev)
     maxs = torch.tensor(cfg.param_maxs, dtype=torch.float32, device=dev)
@@ -669,6 +725,7 @@ def match_audio_stft(
     record_trajectory: bool = False,
     checkpoint_dir: str | os.PathLike | None = None,
     checkpoint_every: int = 0,
+    mesh=None,
     *,
     device: str | torch.device = "cuda",
 ) -> MatchResult:
@@ -684,13 +741,15 @@ def match_audio_stft(
     With ``checkpoint_dir`` and ``checkpoint_every`` > 0 the run saves its
     state every ``checkpoint_every`` generations and a rerun resumes from
     the last save (``evolve_checkpointed``; the refine tail included, see
-    ``_evolve_on_target``)."""
-    dev = resolve_device(device)
+    ``_evolve_on_target``). With ``mesh`` the population is sharded over
+    it, as in ``match_audio``; on a mesh with a frame axis each rank scores
+    its window of the frames."""
+    dev = _device(device, mesh)
     checkpoint = None
     if checkpoint_dir is not None and checkpoint_every > 0:
         checkpoint = (checkpoint_dir, checkpoint_every)
     cfg, final, traj, start, best_scaled, best_audio = stft_run(
-        target_audio, cfg, seed, num_generations, record_trajectory, dev, checkpoint)
+        target_audio, cfg, seed, num_generations, record_trajectory, dev, checkpoint, mesh)
     chunk = ChunkResult(
         best_params_scaled=best_scaled.cpu().numpy(),
         best_params_norm=final.best_values.cpu().numpy(),
@@ -707,6 +766,7 @@ def match_many(
     cfg: ESConfig,
     seed: int = 0,
     num_generations: int = 1000,
+    mesh=None,
     *,
     device: str | torch.device = "cuda",
 ) -> list[MatchResult]:
@@ -718,8 +778,10 @@ def match_many(
     target with ``seed`` would when r = 0). A generation is one B2 launch
     for all runs (or the whole run one B5 call), the refine boundary one B1
     launch; each output array comes to the host in one copy. Returns one
-    ``MatchResult`` a target."""
-    dev = resolve_device(device)
+    ``MatchResult`` a target. With ``mesh`` each run's population is
+    sharded over it and the run axis is kept: a generation is one B2
+    launch a rank for all runs at the local population."""
+    dev = _device(device, mesh)
     targets = np.asarray(targets, np.float32)
     if targets.ndim != 2 or targets.shape[0] < 1:
         raise ValueError("targets must be (batch, samples)")
@@ -731,7 +793,7 @@ def match_many(
     audio = torch.from_numpy(np.ascontiguousarray(targets[:, :n])).to(dev)
     state = init_state([_chunk_seed(seed, r) for r in range(runs)], cfg, device=dev)
     final, _, start = _evolve_on_target(state, audio, num_generations, so, cfg, False,
-                                        refine_ops, stft=True)
+                                        refine_ops, stft=True, mesh=mesh)
     check_finite("best candidate", final.best_values)
     mins = torch.tensor(cfg.param_mins, dtype=torch.float32, device=dev)
     maxs = torch.tensor(cfg.param_maxs, dtype=torch.float32, device=dev)

@@ -11,14 +11,17 @@ library (``kernels/_build.py``). So the artifact carries that library:
     b"PMFMCUDA" | u32 header_len | header JSON (utf-8) | payload
 
 The header holds the reference's fields (``config``, ``num_generations``,
-``target_samples``, ``platforms``, ``mesh_devices`` = 1) and the port's:
+``target_samples``, ``platforms``, ``mesh_devices``: the ranks the matcher
+shards its population over, 1 without a mesh) and the port's:
 ``source_digest`` (the digest of the kernel sources and arch flags that
 names the library), ``arch_flags`` and the payload's ``payload_sha256``.
 The payload is the built library's bytes for a ``cuda`` artifact, empty
 for a ``cpu`` one (the plain versions need no build). ``load_matcher``
 checks the magic, the platform, the digest against the checkout's sources
 and the payload's sha256, and places the library where ``_build`` looks
-for it, so the first launch loads it and ``nvcc`` never runs.
+for it, so the first launch loads it and ``nvcc`` never runs. An artifact
+of ``mesh_devices`` > 1 runs ``parallel.evolve_sharded`` over a 1-D mesh of
+that many ranks of the live world, and refuses a smaller world.
 """
 from __future__ import annotations
 
@@ -64,13 +67,12 @@ def export_matcher(
     a target of ``target_samples`` (a multiple of the frame size; one frame
     of ``cfg.num_frames`` by default). ``platforms`` is ``("cuda",)`` (the
     default: the kernel library, built here if it is not yet) or
-    ``("cpu",)``. Several devices (``mesh_devices`` > 1) raise
-    ``NotImplementedError``."""
+    ``("cpu",)``. ``mesh_devices`` > 1 records a matcher over that many
+    ranks (the reference's ``mesh_devices``); exporting needs no world."""
     from ..kernels import _build
 
-    if mesh_devices is not None and mesh_devices > 1:
-        raise NotImplementedError("an artifact over a mesh is not ported yet: ROADMAP Queue A "
-                                  "item 10 (A10)")
+    if mesh_devices is not None and mesh_devices < 1:
+        raise ValueError(f"mesh_devices must be >= 1, got {mesh_devices}")
     n = cfg.n_samples
     if target_samples is None:
         target_samples = cfg.num_frames * n
@@ -90,7 +92,7 @@ def export_matcher(
         "num_generations": num_generations,
         "target_samples": target_samples,
         "platforms": list(platforms),
-        "mesh_devices": 1,
+        "mesh_devices": int(mesh_devices or 1),
         "source_digest": _build.source_digest(),
         "arch_flags": list(_build.ARCH_FLAGS),
         "payload_sha256": hashlib.sha256(payload).hexdigest(),
@@ -118,7 +120,9 @@ def save_matcher(path: str | os.PathLike, *args, **kwargs) -> str:
 class AOTMatcher:
     """A loaded artifact. ``matcher(seed, target_audio)`` runs
     ``match_audio_stft``'s run with the artifact's config and generations on
-    its platform and returns the reference's keys as numpy arrays."""
+    its platform (over a mesh of ``mesh_devices`` ranks of the live world
+    when there are several) and returns the reference's keys as numpy
+    arrays."""
 
     def __init__(self, cfg: ESConfig, num_generations: int, target_samples: int,
                  platforms: list[str], mesh_devices: int = 1):
@@ -127,6 +131,7 @@ class AOTMatcher:
         self.target_samples = target_samples
         self.platforms = platforms
         self.mesh_devices = mesh_devices
+        self._mesh = None  # over several ranks: made on the first call, then reused
 
     def __call__(self, seed: int, target_audio: np.ndarray) -> dict[str, np.ndarray]:
         from ..es.pipeline import stft_run
@@ -135,9 +140,10 @@ class AOTMatcher:
         if target_audio.shape != (self.target_samples,):
             raise ValueError(f"artifact expects target of shape ({self.target_samples},), "
                              f"got {target_audio.shape}")
-        dev = resolve_device(self.platforms[0])
+        mesh = self._matcher_mesh()
+        dev = mesh.device if mesh is not None else resolve_device(self.platforms[0])
         _, final, _, _, best_scaled, best_audio = stft_run(
-            target_audio, self.cfg, seed, self.num_generations, False, dev)
+            target_audio, self.cfg, seed, self.num_generations, False, dev, mesh=mesh)
         out = {
             "best_params_scaled": best_scaled,
             "best_params_norm": final.best_values,
@@ -148,6 +154,25 @@ class AOTMatcher:
             "best_audio": best_audio,
         }
         return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _matcher_mesh(self):
+        """None for one device; else the 1-D mesh of ``mesh_devices`` ranks
+        of the live world, made on the first call (``make_mesh`` is
+        collective: every rank makes its first call together) and reused.
+        Raises when the world is smaller."""
+        if self.mesh_devices == 1 or self._mesh is not None:
+            return self._mesh
+        import torch.distributed as dist
+
+        from ..parallel import make_mesh
+        from ..parallel.mesh import local_device
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if self.mesh_devices > world:  # the reference's aot.py:211-214
+            raise RuntimeError(f"artifact was exported over a {self.mesh_devices}-rank mesh "
+                               f"but the world has {world}")
+        self._mesh = make_mesh((self.mesh_devices,), device=local_device(self.platforms[0]))
+        return self._mesh
 
 
 def _place_library(payload: bytes) -> None:

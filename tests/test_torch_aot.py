@@ -106,8 +106,8 @@ def test_bad_target_samples_rejected():
         aot.export_matcher(CFG, 2, 300, platforms=("cpu",))
     with pytest.raises(ValueError, match="platforms"):
         aot.export_matcher(CFG, 2, 256, platforms=("tpu",))
-    with pytest.raises(NotImplementedError, match="A10"):
-        aot.export_matcher(CFG, 2, 256, mesh_devices=4)
+    with pytest.raises(ValueError, match="mesh_devices"):
+        aot.export_matcher(CFG, 2, 256, platforms=("cpu",), mesh_devices=0)
 
 
 def test_foreign_sources_rejected(monkeypatch):
@@ -188,5 +188,12 @@ def test_cli_aot_platform_must_match(tmp_path, monkeypatch, fake_cuda_build):
     aot.save_matcher(art, CFG.replace(audio_length_log2=11), 2, 16384)
     with pytest.raises(ValueError, match="the artifact is for cuda"):
         cli.main(["-j", str(path), "--platform", "cpu", "--aot", str(art)])
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(["-j", str(path), "--platform", "cpu", "--mesh", "2", "--export-aot", str(art)])
+    # a mesh of 2 is recorded (the reference's cli.py:262-266), and a world
+    # of one refuses to run it (the reference's aot.py:211-214)
+    art2 = tmp_path / "mesh2.pmfm"
+    assert cli.main(["-j", str(path), "--platform", "cpu", "--mesh", "2", "--export-aot",
+                     str(art2)]) == 0
+    m = aot.load_matcher(art2)
+    assert m.mesh_devices == 2
+    with pytest.raises(RuntimeError, match="2-rank mesh but the world has 1"):
+        m(0, _target(m.target_samples))

@@ -248,8 +248,18 @@ def test_evolve_checkpointed_early_stop_counts_from_the_state(tmp_path):
     s3 = init_state(1, cfg.replace(fitness_threshold=0.0), device="cpu")._replace(generation=3)
     s, _ = evolve(s3, t, 2, so, cfg.replace(fitness_threshold=1e-30))
     assert s.generation == 5
-    with pytest.raises(NotImplementedError, match="A10"):
-        evolve_checkpointed(s3, t, 9, so, cfg, tmp_path / "m", mesh=object())
+    # over a mesh (a world of one here) the count is relative to the state too
+    import torch.distributed as dist
+
+    from pmfm_tpu_torch.parallel import make_mesh
+
+    try:
+        mesh = make_mesh((1,), device="cpu")
+        final, _ = evolve_checkpointed(init_state(1, cfg, device="cpu"), t, 9, so, cfg,
+                                       tmp_path / "m", every=3, mesh=mesh)
+        assert final.generation == 1
+    finally:
+        dist.destroy_process_group()
 
 
 def test_chunk_resume_is_bit_equal(tmp_path, monkeypatch):

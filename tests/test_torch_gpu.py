@@ -897,3 +897,76 @@ def test_aot_runs_with_the_build_disabled(cuda, tmp_path):
         assert out["best_fitness"] == np.float32(live.chunks[0].best_fitness)
         np.testing.assert_array_equal(out["best_params_norm"], live.chunks[0].best_params_norm)
         np.testing.assert_array_equal(out["best_audio"], live.output_audio)
+
+
+# A10 on the card: a world of one on NCCL bit-equal to evolve, ranks sharing
+# the card through gloo; A1's gate at a few seeds
+@pytest.mark.parametrize("restart_patience", [0, 2])
+def test_mesh_world_of_one_bit_equal_to_evolve(cuda, restart_patience):
+    import torch.distributed as dist
+
+    from pmfm_tpu_torch.parallel import evolve_sharded, make_mesh
+
+    cfg, so, tgt = _setup(cuda)
+    cfg = cfg.replace(restart_patience=restart_patience)
+    mesh = make_mesh((1,), device=cuda)
+    try:
+        assert mesh.backend == "nccl"
+        want, want_traj = evolve(init_state(6, cfg, device=cuda), tgt, 30, so, cfg,
+                                 record_trajectory=True)
+        before = gn.fused_generation.launches
+        got, traj = evolve_sharded(init_state(6, cfg, device=cuda), tgt, 30, so, cfg, mesh,
+                                   record_trajectory=True)
+        assert gn.fused_generation.launches - before == 30
+    finally:
+        dist.destroy_process_group()
+    for f in ("parent_values", "parent_steps", "parent_fitness", "best_values", "best_fitness",
+              "stall"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(traj, want_traj)
+
+
+@pytest.mark.parametrize("mesh2d", [False, True], ids=["2-pop", "1-pop-x-2-frame"])
+def test_mesh_ranks_share_the_card(cuda, mesh2d):
+    """Two ranks on cuda:0 through gloo (multiprocess_check): every rank's
+    state byte-equal, B2 launched each generation on the 1-D mesh and never
+    on the frame axis, as each rank's engine line says, the frame
+    all-reduce within the unfused engines' limits of the unsharded
+    multi-frame fitness."""
+    import re
+
+    from pmfm_tpu_torch import multiprocess_check as mp
+
+    code, lines = mp.run(2, mesh2d, "cuda")
+    assert code == 0
+    text = "\n".join(lines)
+    assert len(set(re.findall(r"digest=(\w+)", text))) == 1
+    assert "backend=gloo" in text and "device=cuda:0" in text
+    engine, launches = ("xla_stft (frame-sharded)", 0) if mesh2d else ("fused_generation",
+                                                                      mp.GENERATIONS)
+    assert re.findall(r"^MPENGINE \d+ (.*)$", text, re.M) == [engine] * 2
+    assert re.findall(r"fused_generation=(\d+)", text) == [str(launches)] * 2
+    if mesh2d:
+        for m in re.finditer(r"max_rel=(\S+) median_rel=(\S+)", text):
+            assert float(m.group(1)) <= 1e-3 and float(m.group(2)) <= 1e-6
+
+
+def test_convergence_check_on_the_card(cuda, tmp_path):
+    """The quality gate's run at P 2^12, 20 generations, 2 seeds: the
+    reference's layout, the card's name, B2 and B1 launched."""
+    import json
+
+    from pmfm_tpu_torch import bench
+    from pmfm_tpu_torch import convergence_check as cc
+    from pmfm_tpu_torch.kernels import synth_fitness
+
+    path = tmp_path / "gate.json"
+    b2, b1 = gn.fused_generation.launches, synth_fitness.fused_synth_fitness.launches
+    assert cc.main(["--pop-log2", "12", "--mu", "64", "--gens", "20", "--seeds", "2",
+                    "--seed-offset", "64", "--split", "holdout", "--variants", "f32",
+                    "int8+sin7", "int8+sin7+refine", "shipped", "--json", str(path)]) == 0
+    assert gn.fused_generation.launches > b2 and synth_fitness.fused_synth_fitness.launches > b1
+    doc = json.loads(path.read_text())
+    assert doc["meta"]["device"]["name"] not in ("", "cpu", "?")
+    assert bench.generations_to_converge(str(path))["split"] == "holdout"
+    assert set(bench.quality_holdout(str(path))) == {"int8+sin7+refine", "shipped"}

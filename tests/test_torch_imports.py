@@ -54,7 +54,9 @@ def test_import_loads_no_jax_and_builds_nothing():
         "pmfm_tpu_torch.utils.debug, pmfm_tpu_torch.utils.stage_bench, "
         "pmfm_tpu_torch.utils.checkpoint, pmfm_tpu_torch.utils.chunk_store, "
         "pmfm_tpu_torch.utils.aot, pmfm_tpu_torch.utils.provenance, "
-        "pmfm_tpu_torch.utils.profiling\n"
+        "pmfm_tpu_torch.utils.profiling, pmfm_tpu_torch.parallel, "
+        "pmfm_tpu_torch.parallel.mesh, pmfm_tpu_torch.parallel.sharded, "
+        "pmfm_tpu_torch.multiprocess_check, pmfm_tpu_torch.convergence_check\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pmfm_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pmfm_tpu_torch.kernels import _build\n"
