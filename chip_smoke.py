@@ -115,9 +115,22 @@ through the entry points a user calls, and times each kernel:
   the ES-quality gate (A1: ``pmfm_tpu_torch.convergence_check``) at 2
   seeds and 50 generations, read back by the bench's readers.
 
+* phase 41, topologies above 32 genes (the long synthesis code,
+  ``csrc/synth_common.cuh::LongSynth``, in every kernel): the long code
+  bit-equal to the fixed and wide codes where both run; B1/B2 in int8,
+  bf16 and f32 at fm9_parallel, fm17_series and fm16_parallel (n 256: its
+  staged genes fill the int8 block's shared memory) against their plain
+  versions at the bench shape, at 8 frames and with a run axis of 4 of
+  ``examples/audio_match.json``'s shape; B5 bit-equal to its B2 launches;
+  B3 at n 8192 and B4 at n 65536 bit-equal to their plain versions; the
+  scan kernel and the unfused ``xla_dft`` at fm33_series and
+  fm33_parallel; ``evolve`` through each kernel and ``cli.main`` on an
+  fm9_parallel config; the new instantiations' times. Phase 42, only when
+  ``--only`` names it, the fm9_parallel pursuit through ``cli.main``, cut.
+
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
 phases and the named ones, and prints no result line (``large`` names the
-large-frame inputs that phases 7-11, 33 and 34 need).
+large-frame inputs that phases 7-11, 33, 34 and 41 need).
 
 One flushed line per phase, ending with its seconds; every time is printed
 beside the card's name and power limit.
@@ -155,14 +168,15 @@ SPLIT_BINS = 8  # phase 6's synthesis-only B1: an operand and target of 8 bins
 GRID_N = (256, 1024, 2048, 3584)
 GRID_TOPOLOGIES = ("fm2", "fm3_series", "fm8_series")
 GRID_SINE_ORDERS = (5, 7, 9)
-# three populations of tests/test_torch_gpu.py::test_b1_b2_int8_grid's five
-# (which holds all five), so that the whole run stays near ~650 s
-GRID_POPS = (1, 65, 4001)
+# two populations of tests/test_torch_gpu.py::test_b1_b2_int8_grid's five
+# (which holds all five, P 1 among them), so that the whole run with phase
+# 41 stays under ~820 s
+GRID_POPS = (65, 4001)
 GRID_ODD_BINS = (1024, 200)  # (n, K): K not a multiple of the kernel's 32-bin pass
 # phase 12: phase 4b's grid for B1/B2 true f32, with populations around the f32
 # DFT's 128-candidate block (its bin passes are 64 bins of one group: K 200
 # leaves partial passes and groups of 3 and 4 tiles)
-F32_GRID_POPS = (1, 129, 4001)  # of test_b1_b2_f32_grid's five, as GRID_POPS
+F32_GRID_POPS = (129, 4001)  # of test_b1_b2_f32_grid's five, as GRID_POPS
 SEED = 20261017
 # the large-frame cells: the reference's chunk-size rows (bench_suite.py)
 FOLD_LOG2N, FOLD_POP, FOLD_GENERATIONS = 13, 1 << 15, 30  # (c) synth_fold, B3
@@ -217,7 +231,9 @@ PROFILED_B5_CALLS = 3
 # with its launches from the path of phase 24 that runs it; the bf16 mode;
 # B3, B4 and B5 on a bank (_parallel, launches from phase 33's paths) and
 # B1/B2 at 20 genes (_wide: fm5_parallel int8, launches from phase 33's
-# pursuit)
+# pursuit); the long code above 32 genes (_long: fm9_parallel, B1/B2 in each
+# mode, B5, B3, B4 and the scan kernel at fm33_series, launches from phase
+# 41's paths)
 KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream",
            "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve", "scan_synth",
            "fused_synth_fitness_parallel", "fused_generation_parallel",
@@ -228,7 +244,11 @@ KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused
            "fused_generation_runs_f32", "fused_evolve_runs",
            "fused_synth_fitness_bf16", "fused_generation_bf16", "fused_evolve_bf16",
            "fused_synth_fold_parallel", "fused_synth_stream_parallel", "fused_evolve_parallel",
-           "fused_synth_fitness_wide", "fused_generation_wide")
+           "fused_synth_fitness_wide", "fused_generation_wide",
+           "fused_synth_fitness_long", "fused_generation_long", "fused_synth_fitness_long_bf16",
+           "fused_generation_long_bf16", "fused_synth_fitness_long_f32",
+           "fused_generation_long_f32", "fused_evolve_long", "fused_synth_fold_long",
+           "fused_synth_stream_long", "scan_synth_long")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -295,9 +315,9 @@ PARALLEL_TRUTH = (3076.48, 2.0, 3016.64, 0.9, 1936.0, 2.4, 2182.4, 0.8,
                   2499.2, 1.6, 1584.0, 0.7, 1161.6, 3.2, 985.6, 0.6)
 PARALLEL_TOPOLOGIES = ("fm2_parallel", "fm3_parallel", "fm4_parallel")
 PARALLEL_SINE_ORDERS = (7, 9)
-# (three populations keep the whole run near ~650 s;
+# (two populations keep the whole run under ~820 s with phase 41;
 # tests/test_torch_gpu.py::test_b1_b2_parallel_grid holds five)
-PARALLEL_GRID_POPS = (1, 65, 4001)
+PARALLEL_GRID_POPS = (65, 4001)
 PARALLEL_TIMED = PARALLEL_TOPOLOGIES + ("fm3_series",)
 # phase 21: the pursuit solver through cli.main in PURSUIT_DIR: the first
 # example as written, its first chunk to a relative spectral error below
@@ -312,7 +332,7 @@ PURSUIT_DIR = "build/chip_smoke_pursuit"
 PURSUIT_AS_WRITTEN = "examples/fm3_parallel_match.json"
 PURSUIT_CUT = ("examples/fm4_parallel_match.json", "examples/fm4_series_match.json",
                "examples/fm5_series_match.json", "examples/huge_frame_match.json")
-PURSUIT_GENERATION_CUT = 20
+PURSUIT_GENERATION_CUT = 40
 PURSUIT_MAX_REL = 0.10
 
 # phases 22-25: multi-frame fitness and the run axis (A6). Phase 22 holds
@@ -371,9 +391,9 @@ SUITE_GENERATIONS = 50
 # kernels' times at the bench shape (B5 over BF16_B5_GENERATIONS)
 BF16_FRAMES, BF16_RUNS = 8, 4
 BF16_TOPOLOGIES = GRID_TOPOLOGIES + ("fm3_parallel",)
-# phase 26's grid populations (three of GRID_POPS keep the whole run near
-# ~650 s; tests/test_torch_gpu.py::test_b1_b2_bf16_grid holds all five)
-BF16_GRID_POPS = (1, 65, 4001)
+# phase 26's grid populations (as GRID_POPS; tests/test_torch_gpu.py::
+# test_b1_b2_bf16_grid holds all five)
+BF16_GRID_POPS = (65, 4001)
 BF16_B5_GENERATIONS = 10
 CACHE_LOG2N = 14
 SUITE_DIR = "build/chip_smoke_suite"
@@ -475,6 +495,46 @@ A1_DIR = "build/chip_smoke_a1"
 A1_SEEDS, A1_GENERATIONS = 2, 50
 A1_VARIANTS = ("f32", "int8+sin7", "int8+sin7+refine", "shipped")
 
+# phase 41 (ROADMAP Queue B item 3's remainder): topologies above 32 genes,
+# the long synthesis code (csrc synth_common.cuh::LongSynth) in every kernel.
+# LONG_SAME: topologies the fixed and wide codes run, held bit for bit
+# against the long code with synth_fitness.LONG_ABOVE_GENES lowered to
+# LONG_SAME_ABOVE (B1/B2 at the bench's n, B3 at LONG_SAME_FOLD_N, B4 at
+# LONG_SAME_STREAM_N, P LONG_SAME_POP); LONG_TRUTHS: the planted truths of
+# the long topologies (examples/fm4_parallel_match.json's four pairs,
+# FM5_FIFTH_PAIR, then pairs of the same ranges; a chain of 17 with
+# fm16_series's mild indices); B1/B2 at LONG_FRAMES frames and a run axis of
+# LONG_RUNS at AUDIO_CONFIG's shape; B5 over LONG_B5_GENERATIONS; B4 at
+# n 65536 on fm17_series over its plain walk's first
+# LONG_STREAM_CHECK_BLOCKS time blocks; the scan kernel and the unfused
+# engine past 32 at LONG_SCAN; evolve for LONG_GENERATIONS generations;
+# cli.main on LONG_CLI_CONFIG made fm9_parallel, LONG_CLI_GENERATIONS
+# generations and a refine tail of LONG_CLI_REFINE; kernel times over
+# LONG_TIMED_LAUNCHES
+LONG_SAME = ("fm5_parallel", "fm8_parallel", "fm10_series", "fm16_series")
+LONG_SAME_ABOVE = 16
+LONG_SAME_POP = 1000
+LONG_SAME_FOLD_N, LONG_SAME_STREAM_N = 4096, 8192
+LONG_PAIRS = ((3076.48, 2.0, 3016.64, 0.9), (1936.0, 2.4, 2182.4, 0.8),
+              (2499.2, 1.6, 1584.0, 0.7), (1161.6, 3.2, 985.6, 0.6), FM5_FIFTH_PAIR,
+              (1320.0, 1.8, 2640.0, 0.4), (880.0, 2.2, 1760.0, 0.3), (3300.0, 0.9, 1650.0, 0.35),
+              (2750.0, 1.4, 1375.0, 0.45), (1045.0, 2.6, 2090.0, 0.25),
+              (1567.0, 1.1, 3134.0, 0.3), (2349.0, 0.8, 1174.5, 0.4), (660.0, 3.0, 1980.0, 0.2),
+              (1396.0, 1.7, 2793.0, 0.3), (1865.0, 2.1, 932.5, 0.35), (2960.0, 0.7, 1480.0, 0.25))
+LONG_TRUTHS = {
+    "fm9_parallel": sum(LONG_PAIRS[:9], ()),
+    "fm17_series": WIDE_TRUTHS["fm16_series"] + (1900.0, 0.08),
+    "fm16_parallel": sum(LONG_PAIRS, ()),
+}
+LONG_FRAMES, LONG_RUNS = 8, 4
+LONG_B5_GENERATIONS = 10
+LONG_STREAM_CHECK_BLOCKS = 16
+LONG_SCAN = ("fm33_series", "fm33_parallel")
+LONG_GENERATIONS = 200
+LONG_CLI_CONFIG = "examples/params_match.json"
+LONG_CLI_GENERATIONS, LONG_CLI_REFINE = 100, 20
+LONG_TIMED_LAUNCHES = 10
+
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s, f32 and
 # bf16 FLOP/s
 PEAK_BYTES, PEAK_INT8, PEAK_F32, PEAK_BF16 = 3.35e12, 1979e12, 67e12, 989e12
@@ -511,6 +571,17 @@ def cuda_ms(fn, runs: int) -> float:
         e.record()
     events[-1].synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+
+
+def once_ms(fn) -> float:
+    """Device time of one call of ``fn()``, no warm-up: a plain version whose
+    one call takes seconds."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 def kernel_times(fn, runs: int) -> dict:
@@ -648,7 +719,8 @@ def ptxas_summary(log: str):
             size, rest = int(m.group(1)), m.group(2)
             name, tail = rest[:size], rest[size:]
             if tail.startswith("I"):
-                args = ",".join(re.findall(r"L[ib](\d+)E", tail[1:tail.find("EE") + 1]))
+                args = ",".join(a.replace("n", "-") for a in re.findall(
+                    r"L[ib](n?\d+)E", tail[1:tail.find("EE") + 1]))
                 name = f"{name}<{args}>"
             rows.append([name, "?", "?"])
         elif rows and rows[-1][1] == "?" and (r := re.search(r"Used (\d+) registers", ln)):
@@ -2173,9 +2245,12 @@ class Smoke:
             p = p.to(self.dev)
             modes = ("floor", "exact", "table") if label.startswith("grid") else ("floor",)
             for osc in modes:
+                # the plain loop's bf16 audio is its float32 audio rounded by
+                # .to (it returns audio.to(out_dtype)): one plain run for both
+                b32 = ss.scan_synth_plain(p, n, topology, osc_mode=osc)
                 for dt in (torch.float32, torch.bfloat16):
                     a = ss.scan_synth(p, n, topology, osc_mode=osc, out_dtype=dt)
-                    b = ss.scan_synth_plain(p, n, topology, osc_mode=osc, out_dtype=dt)
+                    b = b32.to(dt)
                     torch.cuda.synchronize()
                     eq = bits_equal(a.float(), b.float())
                     worst = max(worst, float((a.float() - b.float()).abs().max()))
@@ -3734,6 +3809,646 @@ class Smoke:
             shutil.rmtree(work, ignore_errors=True)
 
 
+    # -- 41 -----------------------------------------------------------------
+    def long_codes(self):
+        """Topologies above 32 genes (the long synthesis code, csrc
+        synth_common.cuh::LongSynth) in every kernel: the long code bit-equal
+        to the fixed and wide codes where both run (``long_same``); B1/B2 in
+        each mode against their plain versions (``long_b1_b2``), B5 against
+        its B2 launches, B3 and B4 against their plain versions
+        (``long_large``), the scan kernel and the unfused engines past 32
+        (``long_scan``); the paths through ``evolve`` and ``cli.main``
+        (``long_paths``); the new instantiations' times (``long_times``)."""
+        self.long, self.long_plain_ms = {}, {}
+        self.long_same()
+        self.long_b1_b2()
+        self.long_large()
+        self.long_scan()
+        self.long_paths()
+        self.long_times()
+
+    def long_config(self, topology, log2n=LOG2N):
+        """The bench config (P 2^15, mu 256, int8, sine order 7) at
+        ``topology``, its genes' ranges ``param_maxs``."""
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        d = topology_dims(topology)
+        return self.cfg.replace(topology=topology, num_dimensions=d, param_mins=(0.0,) * d,
+                                param_maxs=param_maxs(topology), audio_length_log2=log2n)
+
+    def long_same(self):
+        """The long code bit-equal to the fixed and wide codes: with
+        LONG_ABOVE_GENES lowered to LONG_SAME_ABOVE, B1/B2 (int8, bf16, f32),
+        B3 (int8, bf16) and B4 (bf16, f32) at each of LONG_SAME take the long
+        code, and every output is the one the fixed or wide code gives."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.kernels import synth_fold as sfo
+        from pmfm_tpu_torch.kernels import synth_stream as sst
+        from pmfm_tpu_torch.ops import spectral
+
+        t0 = time.perf_counter()
+        window = spectral.make_spectrum_ops(LONG_SAME_STREAM_N, None, method="dft_factored",
+                                            device=self.dev).window
+        checked = 0
+        for i, topology in enumerate(LONG_SAME):
+            cfg = self.long_config(topology)
+            d = cfg.num_dimensions
+            params = self.grid_params(topology, LONG_SAME_POP, SEED + 4100 + i)
+            rng = np.random.default_rng(SEED + 4110 + i)
+            pv = torch.from_numpy(rng.random((MU, d)).astype(np.float32)).to(self.dev)
+            ps = torch.from_numpy(rng.uniform(0.02, 0.3, (MU, d)).astype(np.float32)).to(self.dev)
+            runs = []
+            for dtype in ("int8", "bfloat16", "float32"):
+                so = spectral.make_spectrum_ops(cfg.n_samples, None, dft_dtype=dtype,
+                                                device=self.dev)
+                tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(
+                    self.dev)
+                kw1 = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale,
+                           topology=topology, n=cfg.n_samples, sine_order=7)
+                kw2 = dict(kw1, pop=LONG_SAME_POP, param_mins=cfg.param_mins,
+                           param_maxs=cfg.param_maxs)
+                seed = kernel_seed(SEED, 4120 + i)
+                runs.append((f"B1 {dtype}", lambda kw1=kw1, tgt=tgt: (
+                    sf.fused_synth_fitness(params, tgt, **kw1),)))
+                runs.append((f"B2 {dtype}", lambda kw2=kw2, tgt=tgt, seed=seed: (
+                    gn.fused_generation(seed, pv, ps, tgt, **kw2))))
+            for int8 in (True, False):
+                kw = dict(topology=topology, n=LONG_SAME_FOLD_N, sine_order=9,
+                          dft_scale=1e-5 if int8 else 0.0)
+                runs.append((f"B3 {'int8' if int8 else 'bf16'}",
+                             lambda kw=kw: sfo.fused_synth_fold(params, **kw)))
+            for f32 in (True, False):
+                kw = dict(topology=topology, n=LONG_SAME_STREAM_N, sine_order=9, audio_f32=f32)
+                runs.append((f"B4 {'f32' if f32 else 'bf16'}",
+                             lambda kw=kw: (sst.fused_synth_stream(params, window, **kw),)))
+            for label, fn in runs:
+                want = fn()
+                saved = sf.LONG_ABOVE_GENES
+                sf.LONG_ABOVE_GENES = LONG_SAME_ABOVE
+                try:
+                    require(sf.uses_long_code(topology), f"{topology}: not on the long code")
+                    got = fn()
+                finally:
+                    sf.LONG_ABOVE_GENES = saved
+                same = all(bits_equal(a.float(), b.float()) for a, b in zip(got, want))
+                require(same, f"the long code differs from the fixed or wide one: {label}, "
+                              f"{topology}")
+                checked += 1
+        log(f"long code bit-equal to the fixed and wide codes: {checked} settings ({LONG_SAME} x "
+            f"B1/B2 int8, bf16, f32 at n={1 << LOG2N}, B3 int8, bf16 at "
+            f"n={LONG_SAME_FOLD_N}, B4 bf16, f32 at n={LONG_SAME_STREAM_N}; P={LONG_SAME_POP}) "
+            f"({time.perf_counter() - t0:.1f}s)")
+
+    def long_b1_b2(self):
+        """B1/B2 above 32 genes against their plain versions
+        (``fused_check``): int8 at the bench shape on each of LONG_TRUTHS
+        (fm16_parallel at n 256: its 64 genes staged in shared memory fill
+        the block's int8 a+/- exactly), the truth planted first; bf16 and f32
+        at the bench shape on fm9_parallel and fm17_series; at LONG_FRAMES
+        frames of AUDIO_CONFIG's shape and with a run axis of LONG_RUNS
+        there (bit-equal to lone launches) on fm9_parallel; B5 on
+        fm9_parallel bit-equal to LONG_B5_GENERATIONS launches of B2 with the
+        stable selection."""
+        from pmfm_tpu_torch.es import kernel_seed, make_spectrum_ops
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        limits = {"int8": (FIT_MAX_REL, FIT_MEDIAN_REL), "bf16": (FIT_MAX_REL, FIT_MEDIAN_REL),
+                  "f32": (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL)}
+        cases = [(t, "int8", LOG2N if t != "fm16_parallel" else 8) for t in LONG_TRUTHS]
+        cases += [(t, m, LOG2N) for t in ("fm9_parallel", "fm17_series") for m in ("bf16", "f32")]
+        for i, (topology, mode, log2n) in enumerate(cases):
+            t0 = time.perf_counter()
+            cfg = self.long_config(topology, log2n)
+            cfg = {"int8": cfg, "bf16": cfg.replace(dft_dtype="bfloat16"),
+                   "f32": cfg.refine_config()}[mode]
+            require(sf.uses_long_code(topology), f"{topology}: not on the long code")
+            c = self.inputs(cfg, SEED + 4200 + i, LONG_TRUTHS[topology])
+            where = (f"{mode}, {topology}, n={cfg.n_samples}, P={cfg.population_size}, sine order "
+                     f"{cfg.sine_order}")
+            e1, e2, fk, a1, a2 = self.fused_check(
+                where, c["params"], c["pv"], c["ps"], c["target"], self.kw_b1(c), self.kw_b2(c),
+                kernel_seed(SEED, 4200 + i), limits[mode])
+            rank = int(torch.argmin(fk))
+            log(f"B1/B2 long {where}: fitness max rel B1 {e1:.3e} B2 {e2:.3e} (limits "
+                f"{limits[mode][0]:g} / {limits[mode][1]:g}), median {self.last_median[0]:.3e} / "
+                f"{self.last_median[1]:.3e}; B2 values bit-equal, B2 fitness bit-equal to B1 on "
+                f"its offspring; truth rank {rank} ({time.perf_counter() - t0:.1f}s)")
+            require(rank == 0, f"{where}: the known-params truth does not rank first")
+            self.long[topology, mode, log2n] = c
+            if topology == "fm9_parallel":
+                sfx = "" if mode == "int8" else f"_{mode}"
+                self.kernels.setdefault(f"fused_synth_fitness_long{sfx}", {})["max_abs_err"] = a1
+                self.kernels.setdefault(f"fused_generation_long{sfx}", {})["max_abs_err"] = a2
+        # LONG_FRAMES frames and a run axis of LONG_RUNS at AUDIO_CONFIG's shape
+        audio = load_config(AUDIO_CONFIG).es
+        d = 36
+        base = audio.replace(topology="fm9_parallel", num_dimensions=d, param_mins=(0.0,) * d,
+                             param_maxs=param_maxs("fm9_parallel"))
+        for j, (mode, cfg0) in enumerate((("int8", base),
+                                          ("bf16", base.replace(dft_dtype="bfloat16")),
+                                          ("f32", base.refine_config()))):
+            t0 = time.perf_counter()
+            cfg = cfg0.replace(num_frames=LONG_FRAMES)
+            so = make_spectrum_ops(cfg, device=self.dev)
+            c = self.run_inputs(cfg, so, 1, SEED + 4300 + j)
+            c = dict(cfg=cfg, so=so, params=c["params"][0], pv=c["pv"][0], ps=c["ps"][0],
+                     target=c["target"][0])
+            where = (f"{mode}, fm9_parallel, n={cfg.n_samples}, F={LONG_FRAMES}, "
+                     f"P={cfg.population_size}")
+            if mode != "int8":  # the int8 frames share the bf16 template's frame loop
+                e1, e2, _, _, _ = self.fused_check(
+                    where, c["params"], c["pv"], c["ps"], c["target"], self.kw_b1(c),
+                    self.kw_b2(c), kernel_seed(SEED, 4300 + j), limits[mode])
+                log(f"B1/B2 long multi-frame {where}: fitness max rel B1 {e1:.3e} B2 {e2:.3e}; "
+                    f"B2 values bit-equal, B2 fitness bit-equal to B1 on its offspring "
+                    f"({time.perf_counter() - t0:.1f}s)")
+            rcfg = cfg0
+            rso = make_spectrum_ops(rcfg, device=self.dev)
+            r = self.run_inputs(rcfg, rso, LONG_RUNS, SEED + 4310 + j)
+            kw1, kw2 = self.kw_b1(dict(cfg=rcfg, so=rso)), self.kw_b2(dict(cfg=rcfg, so=rso))
+            seeds = [kernel_seed(SEED, 4320 + q) for q in range(LONG_RUNS)]
+            fb = sf.fused_synth_fitness(r["params"], r["target"], **kw1)
+            gb = gn.fused_generation(seeds, r["pv"], r["ps"], r["target"], **kw2)
+            f1 = torch.stack([sf.fused_synth_fitness(r["params"][q], r["target"][q], **kw1)
+                              for q in range(LONG_RUNS)])
+            g1 = [gn.fused_generation(seeds[q], r["pv"][q], r["ps"][q], r["target"][q], **kw2)
+                  for q in range(LONG_RUNS)]
+            eq1 = bits_equal(fb, f1)
+            eq2 = all(bits_equal(gb[k], torch.stack([x[k] for x in g1])) for k in range(3))
+            log(f"B1/B2 long run axis ({mode}, fm9_parallel, B={LONG_RUNS}, n={rcfg.n_samples}, "
+                f"P={rcfg.population_size}): one launch bit-equal to {LONG_RUNS} lone launches: "
+                f"B1 {eq1}, B2 {eq2}")
+            require(eq1 and eq2, f"a batched long-code launch differs from the lone ones ({mode})")
+        # B5: bit-equal to its B2 launches with the stable selection
+        c = self.long["fm9_parallel", "int8", LOG2N]
+        g = LONG_B5_GENERATIONS
+        seeds = [kernel_seed(SEED + 4400, i) for i in range(g)]
+        kw2 = self.kw_b2(c)
+        args = (c["pv"], c["ps"], c["pv"][0].clone(), torch.tensor(float("inf"), device=self.dev),
+                c["target"])
+        before = ev.fused_evolve.launches
+        out = ev.fused_evolve(seeds, *args, **kw2)
+        require(ev.fused_evolve.launches == before + 1, "B5 is not one launch")
+        loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw2)
+        same = all(bits_equal(a, b) for a, b in zip(out, loop))
+        log(f"B5 long (int8, fm9_parallel, n={c['cfg'].n_samples}, P={c['cfg'].population_size}): "
+            f"{g} generations in one call bit-equal to {g} B2 launches + the stable selection: "
+            f"{same}")
+        require(same and bool(torch.isfinite(out[5]).all()), "B5 long differs from its B2 launches")
+        self.kernels.setdefault("fused_evolve_long", {})["max_abs_err"] = 0.0
+
+    def long_large(self):
+        """B3 at cell (c)'s shape (n 8192, P 2^15) in int8 and bf16 and B4 at
+        cell (d)'s (n 65536, P 2^13) in bf16 and f32, on fm9_parallel and
+        fm17_series, bit-equal to their plain versions: B3 whole; B4 whole on
+        fm9_parallel (the plain walk timed), on fm17_series over the plain
+        walk's first LONG_STREAM_CHECK_BLOCKS time blocks (the whole walk
+        takes ~20 s) and whole at n LONG_SAME_STREAM_N."""
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.kernels import synth_fold as sfo
+        from pmfm_tpu_torch.kernels import synth_stream as sst
+        from pmfm_tpu_torch.ops import spectral
+        from pmfm_tpu_torch.ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
+
+        fold, stream = self.cells["fold"], self.cells["stream"]
+        for i, topology in enumerate(("fm9_parallel", "fm17_series")):
+            t0 = time.perf_counter()
+            n, pop = fold["cfg"].n_samples, fold["cfg"].population_size
+            params = self.grid_params(topology, pop, SEED + 4500 + i)
+            for int8 in (True, False):
+                kw = dict(topology=topology, n=n, sine_order=9,
+                          dft_scale=fold["so"].dft_packed_scale if int8 else 0.0)
+                require(not sfo.fold_geometry(pop, n, int8, topology)["time_parallel"],
+                        "the long code takes B3's single pass")
+                k = sfo.fused_synth_fold(params, **kw)
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                p = sfo.fused_synth_fold_plain(params, pop_block=pop, **kw)
+                b.record()
+                b.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(k, p))
+                require(same, f"B3 long differs from its plain version ({topology}, int8 {int8})")
+                if topology == "fm9_parallel" and int8:
+                    self.long_plain_ms["fold"] = a.elapsed_time(b)
+            log(f"B3 long ({topology}, n={n}, P={pop}, sine order 9, single pass): int8 and bf16 "
+                f"bit-equal to the plain version ({time.perf_counter() - t0:.1f}s)")
+            t0 = time.perf_counter()
+            n, pop = stream["cfg"].n_samples, stream["cfg"].population_size
+            params = self.grid_params(topology, pop, SEED + 4510 + i)
+            window = stream["so"].window
+            got = {f32: sst.fused_synth_stream(params, window, topology=topology, n=n,
+                                               sine_order=9, audio_f32=f32)
+                   for f32 in (True, False)}
+            require(all(bool(torch.isfinite(x.float()).all()) for x in got.values()),
+                    f"B4 long output not finite ({topology})")
+            if topology == "fm9_parallel":  # the whole frame, the plain walk timed
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                want = sst.fused_synth_stream_plain(params, window, topology=topology, n=n,
+                                                    sine_order=9, audio_f32=True, pop_block=pop)
+                b.record()
+                b.synchronize()
+                self.long_plain_ms["stream"] = a.elapsed_time(b)
+                what = "whole"
+            else:  # the plain walk's first blocks, and a short frame whole
+                nb = LONG_STREAM_CHECK_BLOCKS * 128
+                got = {f32: x[:nb] for f32, x in got.items()}
+                amp = sf.bank_amp(params, topology, False)
+                inv_sr = sf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE, DEFAULT_SAMPLE_RATE)
+                blocks = sf.synth_blocks_plain(params, topology=topology, n=n, inv_sr=inv_sr,
+                                               sine_order=9, int8=False)
+                head = torch.cat([next(blocks) * amp for _ in range(LONG_STREAM_CHECK_BLOCKS)])
+                want = head * window[:nb, None]
+                small = spectral.make_spectrum_ops(LONG_SAME_STREAM_N, None,
+                                                   method="dft_factored", device=self.dev).window
+                kw = dict(topology=topology, n=LONG_SAME_STREAM_N, sine_order=9)
+                sp_ = params[:LONG_SAME_POP]
+                p = sst.fused_synth_stream_plain(sp_, small, pop_block=LONG_SAME_POP,
+                                                 audio_f32=True, **kw)
+                k32 = sst.fused_synth_stream(sp_, small, audio_f32=True, **kw)
+                k16 = sst.fused_synth_stream(sp_, small, **kw)
+                require(bits_equal(k32, p)
+                        and bits_equal(k16.float(), p.to(torch.bfloat16).float()),
+                        f"B4 long differs from its plain version at n={LONG_SAME_STREAM_N}")
+                what = (f"over the plain walk's first {LONG_STREAM_CHECK_BLOCKS} blocks, and at "
+                        f"n={LONG_SAME_STREAM_N}, P={LONG_SAME_POP} whole")
+            same = bits_equal(got[True], want) and bits_equal(
+                got[False].float(), want.to(torch.bfloat16).float())
+            require(same, f"B4 long differs from its plain version ({topology}, n={n})")
+            log(f"B4 long ({topology}, n={n}, P={pop}, sine order 9): f32 and bf16 bit-equal to "
+                f"the plain version {what} ({time.perf_counter() - t0:.1f}s)")
+        for name in ("fused_synth_fold_long", "fused_synth_stream_long"):
+            self.kernels.setdefault(name, {})["max_abs_err"] = 0.0
+
+    def long_scan(self):
+        """The scan kernel bit-equal to its plain loop at each of LONG_SCAN
+        (SCAN_GRID_POP, n 1024, floor, float32 and bf16), and the unfused
+        engine xla_dft on the scan synthesis at each, P 2^15, n 1024: the card
+        against the CPU on UNFUSED_CHECK_POP mild-index candidates within
+        UNFUSED_TOL, UNFUSED_GENERATIONS generations of ``evolve`` with the
+        scan's launch count."""
+        from pmfm_tpu_torch.es import active_engine, evaluate, evolve, init_state
+        from pmfm_tpu_torch.es import make_spectrum_ops
+        from pmfm_tpu_torch.kernels import scan as ss
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        for i, topology in enumerate(LONG_SCAN):
+            t0 = time.perf_counter()
+            d = topology_dims(topology)
+            p = self.grid_params(topology, SCAN_GRID_POP, SEED + 4600 + i)
+            a = ss.scan_synth(p, 1024, topology)
+            ab = ss.scan_synth(p, 1024, topology, out_dtype=torch.bfloat16)
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            b = ss.scan_synth_plain(p, 1024, topology)
+            ev1.record()
+            ev1.synchronize()
+            if i == 0:
+                self.long_plain_ms["scan"] = ev0.elapsed_time(ev1)
+            require(bits_equal(a, b) and bits_equal(ab.float(), b.to(torch.bfloat16).float()),
+                    f"the scan kernel differs from its plain loop ({topology})")
+            mild = (2000.0, 2.0, 2000.0, 1.0) * (d // 4) if "parallel" in topology else (
+                2000.0, 0.1) * (d // 2)
+            cfg = self.long_config(topology).replace(
+                fused_kernel=False, fused_generation=False, synthesis_engine="scan",
+                spectrum_method="dft", dft_dtype="float32", mutation_noise="clt12_neutral")
+            so = make_spectrum_ops(cfg, device=self.dev)
+            name = active_engine(cfg, so)
+            require(name == "xla_dft", f"{topology}: the router names {name}")
+            rng = np.random.default_rng(SEED + 4610 + i)
+            check_v = rng.random((UNFUSED_CHECK_POP, d)).astype(np.float32)
+            check_t = (rng.random(cfg.n_samples // 2) * 5.0).astype(np.float32)
+            ck = cfg.replace(param_maxs=mild, num_offspring=UNFUSED_CHECK_POP - MU)
+            got = evaluate(torch.from_numpy(check_v).to(self.dev),
+                           torch.from_numpy(check_t).to(self.dev), so, ck).cpu()
+            want = evaluate(torch.from_numpy(check_v), torch.from_numpy(check_t),
+                            make_spectrum_ops(ck, device="cpu"), ck)
+            e = rel_err(got.double(), want.double())
+            max_rel, median_rel = UNFUSED_TOL["float32"]
+            tgt = torch.rand((so.num_bins,), device=self.dev) * 5.0
+            state = init_state(SEED, cfg, device=self.dev)
+            evolve(state, tgt, 1, so, cfg)  # warm-up
+            torch.cuda.synchronize()
+            self.reset_counts()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            final, _ = evolve(state, tgt, UNFUSED_GENERATIONS, so, cfg)
+            e1.record()
+            e1.synchronize()
+            counts = {k: v for k, v in self.read_counts().items() if v}
+            log(f"scan long ({topology}, P={SCAN_GRID_POP}, n=1024): kernel bit-equal to its "
+                f"plain loop (float32, bf16); unfused {name} (scan synthesis, P={POP}): card vs "
+                f"CPU on {UNFUSED_CHECK_POP} candidates max rel {float(e.max()):.3e} median rel "
+                f"{float(e.median()):.3e} (tolerance {max_rel:g} / {median_rel:g}); "
+                f"{UNFUSED_GENERATIONS} generations {e0.elapsed_time(e1) / UNFUSED_GENERATIONS:.4f}"
+                f" ms/gen, best fitness {float(final.best_fitness):.6g}; launches {counts} "
+                f"({time.perf_counter() - t0:.1f}s) {card()}")
+            require(float(e.max()) <= max_rel and float(e.median()) <= median_rel,
+                    f"{topology}: the card disagrees with the CPU")
+            require(counts == {"scan_synth": UNFUSED_GENERATIONS}, f"{topology}: launches {counts}")
+            if i == 0:
+                self.kernels.setdefault("scan_synth_long", {}).update(
+                    max_abs_err=0.0, launches=counts["scan_synth"])
+        torch.cuda.empty_cache()
+
+    def long_evolve(self, cfg, target, so, generations, label):
+        """``evolve`` from a fresh state for ``generations`` (after a one
+        generation warm-up): ms a generation, the trajectory and the
+        launches (by kernel, and B1/B2/B5's by mode)."""
+        from pmfm_tpu_torch.es import evolve, init_state
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        evolve(init_state(1, cfg, device=self.dev), target, 1, so, cfg)  # warm-up
+        torch.cuda.synchronize()
+        self.reset_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        final, traj = evolve(init_state(7, cfg, device=self.dev), target, generations, so, cfg,
+                             record_trajectory=True)
+        b.record()
+        b.synchronize()
+        counts = {k: v for k, v in self.read_counts().items() if v}
+        by = {"B1": dict(sf.fused_synth_fitness.launches_by),
+              "B2": dict(gn.fused_generation.launches_by), "B5": dict(ev.fused_evolve.launches_by)}
+        traj = traj.cpu()
+        log(f"evolve ({label}, n={cfg.n_samples}, P={cfg.population_size}): {generations} "
+            f"generations {a.elapsed_time(b) / generations:.4f} ms/gen {card()}; best fitness "
+            f"first {float(traj[0]):.6g} final {float(traj[-1]):.6g}; launches {counts}, by mode "
+            f"{ {k: v for k, v in by.items() if v} }")
+        require(bool(torch.isfinite(traj).all() and (traj[1:] <= traj[:-1]).all()), "trajectory")
+        return counts, by
+
+    def long_paths(self):
+        """The entry points above 32 genes: ``evolve`` at the bench shape for
+        LONG_GENERATIONS generations on fm9_parallel and fm17_series through
+        fused_generation (B2) in int8, on fm9_parallel through fused_kernel
+        (B1) in int8, both in bf16 and in f32 (the refine config), and
+        through fused_evolve (one B5 launch); at cell (c)'s and (d)'s shapes
+        on fm9_parallel through synth_fold (B3) and synth_stream (B4),
+        BANK_LARGE_GENERATIONS each; ``cli.main`` on an fm9_parallel config
+        (LONG_CLI_CONFIG with nine pairs, fusedGeneration and its refine
+        tail) at the bench's population, in a temporary directory."""
+        import io
+        import os
+        import shutil
+        import tempfile
+
+        from pmfm_tpu_torch.es import active_engine, make_spectrum_ops
+        from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+
+        g = LONG_GENERATIONS
+        runs = []
+        for topology in ("fm9_parallel", "fm17_series"):
+            runs.append((topology, "int8", "fused_generation", "fused_generation", ""))
+        for mode in ("int8", "bf16", "f32"):
+            sfx = "" if mode == "int8" else f"_{mode}"
+            if mode != "int8":
+                runs.append(("fm9_parallel", mode, "fused_generation", "fused_generation", sfx))
+            runs.append(("fm9_parallel", mode, "fused_kernel", "fused_synth_fitness", sfx))
+        runs.append(("fm9_parallel", "int8", "fused_evolve", "fused_evolve", ""))
+        for topology, mode, route, kernel, sfx in runs:
+            cfg = self.long_config(topology)
+            cfg = {"int8": cfg, "bf16": cfg.replace(dft_dtype="bfloat16"),
+                   "f32": cfg.refine_config()}[mode]
+            cfg = cfg.replace(fused_generation=route != "fused_kernel",
+                              fused_evolve=route == "fused_evolve", restart_patience=0,
+                              fitness_threshold=0.0)
+            so = make_spectrum_ops(cfg, device=self.dev)
+            audio = synthesize_single(torch.tensor(LONG_TRUTHS[topology]), cfg.n_samples,
+                                      topology)
+            target = target_spectrum(audio.to(self.dev), so)
+            gens = 1 if route == "fused_evolve" else g
+            counts, by = self.long_evolve(cfg, target, so, g, f"{topology}, {route}, {mode}, "
+                                          f"{active_engine(cfg, so)}")
+            want = f"parallel_{mode}" if "parallel" in topology else mode
+            key = {"fused_kernel": "B1", "fused_generation": "B2", "fused_evolve": "B5"}[route]
+            require(counts == {kernel: gens} and by[key] == {want: gens},
+                    f"{topology} {route} {mode}: launches {counts}, by mode {by}")
+            if topology == "fm9_parallel":
+                name = {"fused_kernel": "fused_synth_fitness", "fused_generation":
+                        "fused_generation", "fused_evolve": "fused_evolve"}[route]
+                self.kernels.setdefault(f"{name}_long{sfx}", {})["launches"] = gens
+        for key, label, kernel, engine in (("fold", "c", "fused_synth_fold", "synth_fold"),
+                                           ("stream", "d", "fused_synth_stream", "synth_stream")):
+            cell = self.cells[key]
+            cfg = cell["cfg"].replace(topology="fm9_parallel", num_dimensions=36,
+                                      param_mins=(0.0,) * 36,
+                                      param_maxs=param_maxs("fm9_parallel"))
+            so = cell["so"]
+            require(active_engine(cfg, so) == engine, f"fm9_parallel at cell ({label})'s shape "
+                    f"routes to {active_engine(cfg, so)}")
+            audio = synthesize_single(torch.tensor(LONG_TRUTHS["fm9_parallel"]), cfg.n_samples,
+                                      cfg.topology, engine="scanless")
+            target = target_spectrum(audio.to(self.dev), so)
+            counts, _ = self.long_evolve(cfg, target, so, BANK_LARGE_GENERATIONS,
+                                         f"fm9_parallel at cell ({label})'s shape, {engine}")
+            require(counts == {kernel: BANK_LARGE_GENERATIONS},
+                    f"{kernel} launches != generations, or another kernel")
+            self.kernels.setdefault(f"{kernel}_long", {})["launches"] = BANK_LARGE_GENERATIONS
+        # the CLI on an fm9_parallel config, in a temporary directory
+        from pmfm_tpu_torch import cli
+
+        root = os.getcwd()
+        with open(os.path.join(root, LONG_CLI_CONFIG)) as f:
+            raw = json.load(f)
+        ev_, ty, tpu = raw["evolutionary"], raw["type"], raw["tpu"]
+        ev_.update(numDimensions=36, paramMins=[0.0] * 36,
+                   paramMaxs=list(param_maxs("fm9_parallel")), numGenerations=LONG_CLI_GENERATIONS)
+        ty["params"] = list(LONG_TRUTHS["fm9_parallel"])
+        tpu.update(topology="fm9_parallel", fusedKernel=True, fusedGeneration=True,
+                   refineGenerations=LONG_CLI_REFINE)
+        work = tempfile.mkdtemp(prefix="chip_smoke_long_")
+        try:
+            path = os.path.join(work, "fm9_parallel_match.json")
+            with open(path, "w") as f:
+                json.dump(raw, f)
+            out = io.StringIO()
+            os.chdir(work)
+            torch.cuda.synchronize()
+            self.reset_counts()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    code = cli.main(["-j", path])
+            finally:
+                os.chdir(root)
+            from pmfm_tpu_torch.kernels import generation as gn
+
+            counts = {k: v for k, v in self.read_counts().items() if v}
+            by = dict(gn.fused_generation.launches_by)
+            text = out.getvalue()
+            engine = next((ln for ln in text.splitlines() if ln.startswith("engine: ")), "")
+            log(f"cli fm9_parallel (P={ev_['numParents'] + ev_['numOffspring']}, "
+                f"{LONG_CLI_GENERATIONS} generations, refine tail {LONG_CLI_REFINE}): exit {code} "
+                f"in {time.perf_counter() - t0:.2f}s, {engine!r}; launches {counts}, B2 by mode "
+                f"{by} {card()}")
+            require(code == 0 and "fused_generation" in engine, f"fm9_parallel cli: exit {code}")
+            require(by.get("parallel_int8", 0) > 0 and by.get("parallel_f32", 0) > 0,
+                    f"fm9_parallel cli: B2 int8 and f32 did not both run: {by}")
+            require("Overall best parameters found" in text, "fm9_parallel cli: no best parameters")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    def long_times(self):
+        """The new instantiations' times at their shapes beside their plain
+        versions (one call, timed in the checks above) and their bounds:
+        B1/B2 int8, bf16 and f32 and B5 on fm9_parallel at the bench shape,
+        B3 at cell (c)'s shape, B4 at cell (d)'s, the scan kernel at
+        SCAN_GRID_POP, n 1024 on fm33_series; B2 int8 beside fm8_parallel's
+        (the wide code) and fm17_series's."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import scan as ss
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.kernels import synth_fold as sfo
+        from pmfm_tpu_torch.kernels import synth_stream as sst
+
+        d = 36
+        rows = {}
+        for mode in ("int8", "bf16", "f32"):
+            sfx = "" if mode == "int8" else f"_{mode}"
+            c = self.long["fm9_parallel", mode, LOG2N]
+            cfg, so = c["cfg"], c["so"]
+            n, k, pop, mu = cfg.n_samples, so.num_bins, cfg.population_size, cfg.num_parents
+            ncoef = 4 if cfg.sine_order == 7 else 5
+            elem = {"int8": 1, "bf16": 2, "f32": 4}[mode]
+            operand = 2 * k * (n // 2) * elem
+            dft = 2.0 * 2 * k * (n // 2) * pop
+            synth = bank_ops_f32(pop, n, k, 9, ncoef)
+            ops = {"int8": (dft, synth, 0.0), "bf16": (0.0, synth, dft),
+                   "f32": (0.0, synth + dft, 0.0)}[mode]
+            io = operand + k * 4 + pop * 4
+            kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
+            seed = kernel_seed(SEED, 4700)
+            src = {"int8": "pmfm_tpu_torch/csrc/fused_long.cu",
+                   "bf16": "pmfm_tpu_torch/csrc/fused_long.cu",
+                   "f32": "pmfm_tpu_torch/csrc/fused_f32.cu"}[mode]
+            rows[f"fused_synth_fitness_long{sfx}"] = (
+                lambda kw1=kw1, c=c: sf.fused_synth_fitness(c["params"], c["target"], **kw1),
+                lambda kw1=kw1, c=c: sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1),
+                io + pop * d * 4, ops, 1, src,
+                "pmfm_tpu/kernels/synth_fitness.py:767", f"{mode}, n={n}, P={pop}")
+            rows[f"fused_generation_long{sfx}"] = (
+                lambda kw2=kw2, c=c: gn.fused_generation(seed, c["pv"], c["ps"], c["target"],
+                                                         **kw2),
+                lambda kw2=kw2, c=c: gn.fused_generation_plain(seed, c["pv"], c["ps"],
+                                                               c["target"], **kw2),
+                io + 2 * mu * d * 4 + 2 * pop * d * 4,
+                (ops[0], ops[1] + pop * d * 12 * 2.0, ops[2]), 1, src,
+                "pmfm_tpu/kernels/generation.py:438", f"{mode}, n={n}, P={pop}")
+            if mode == "int8":
+                g = LONG_B5_GENERATIONS
+                seeds = [kernel_seed(SEED + 4710, i) for i in range(g)]
+                best = torch.tensor(float("inf"), device=self.dev)
+                rows["fused_evolve_long"] = (
+                    lambda kw2=kw2, c=c: ev.fused_evolve(seeds, c["pv"], c["ps"], c["pv"][0], best,
+                                                         c["target"], **kw2),
+                    lambda kw2=kw2, c=c: ev.fused_evolve_plain(seeds, c["pv"], c["ps"], c["pv"][0],
+                                                               best, c["target"], **kw2),
+                    4 * mu * d * 4 + 2 * (d + 1) * 4 + operand + k * 4 + g * 4,
+                    (g * dft, g * (synth + pop * d * 12 * 2.0), 0.0), g,
+                    "pmfm_tpu_torch/csrc/evolve.cu", "pmfm_tpu/kernels/evolve.py:366",
+                    f"int8, n={n}, P={pop}, mu={mu}")
+        fold, stream = self.cells["fold"], self.cells["stream"]
+        n, pop = fold["cfg"].n_samples, fold["cfg"].population_size
+        fp = self.grid_params("fm9_parallel", pop, SEED + 4500)
+        kwf = dict(topology="fm9_parallel", n=n, sine_order=9,
+                   dft_scale=fold["so"].dft_packed_scale)
+        rows["fused_synth_fold_long"] = (
+            lambda: sfo.fused_synth_fold(fp, **kwf), self.long_plain_ms["fold"],
+            pop * d * 4 + 2 * pop * (n // 2) + 2 * pop * 4,
+            (0.0, bank_ops_f32(pop, n, 0, 9, 5), 0.0),
+            1, "pmfm_tpu_torch/csrc/large_frame_long.cu", "pmfm_tpu/kernels/synth_fold.py:176",
+            f"int8, n={n}, P={pop}")
+        n, pop = stream["cfg"].n_samples, stream["cfg"].population_size
+        sp_ = self.grid_params("fm9_parallel", pop, SEED + 4510)
+        rows["fused_synth_stream_long"] = (
+            lambda: sst.fused_synth_stream(sp_, stream["so"].window, topology="fm9_parallel", n=n,
+                                           sine_order=9),
+            self.long_plain_ms["stream"], pop * d * 4 + n * 4 + 2 * n * pop,
+            (0.0, bank_ops_f32(pop, n, 0, 9, 5) + float(pop) * n * 2, 0.0), 1,
+            "pmfm_tpu_torch/csrc/large_frame_long.cu", "pmfm_tpu/kernels/synth_stream.py:161",
+            f"bf16, n={n}, P={pop}")
+        scp = self.grid_params("fm33_series", SCAN_GRID_POP, SEED + 4600)
+        rows["scan_synth_long"] = (
+            lambda: ss.scan_synth(scp, 1024, "fm33_series"), self.long_plain_ms["scan"],
+            1024 * SCAN_GRID_POP * 4 + SCAN_GRID_POP * 66 * 4,
+            (0.0, float(SCAN_GRID_POP) * 1024 * 33 * (SINF_OPS + 6), 0.0), 1,
+            "pmfm_tpu_torch/csrc/scan_synth.cu", "pmfm_tpu/ops/synthesis.py:220",
+            f"fm33_series, floor, float32, n=1024, P={SCAN_GRID_POP}")
+        for name, (fn, plain, nbytes, (i8, f32, b16), gens, src, rep, where) in rows.items():
+            ms = cuda_ms(fn, LONG_TIMED_LAUNCHES if gens == 1 else 3)
+            plain_ms = plain if isinstance(plain, float) else once_ms(plain)
+            bound_ms, by = bound(nbytes, i8, f32, b16)
+            per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
+            log(f"{name} ({where}, fm9_parallel unless named): kernel {ms:.4f} ms{per}, plain "
+                f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
+                f"{i8 / 1e9:.1f} G int8 ops, {f32 / 1e9:.2f} G f32 ops, {b16 / 1e9:.1f} G bf16 "
+                f"ops); {ms / bound_ms:.1f}x the bound {card()}")
+            self.kernels.setdefault(name, {}).update(
+                route="cuda", source=src, replaces=rep, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
+        # B2 int8 at the bench shape: the long code beside the wide one
+        c = self.long["fm9_parallel", "int8", LOG2N]
+        line = []
+        for topology in ("fm8_parallel", "fm16_series", "fm9_parallel", "fm17_series"):
+            cfg = self.long_config(topology)
+            td = cfg.num_dimensions
+            rng = np.random.default_rng(SEED + 4720)
+            t = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+            pv, ps = t(rng.random((MU, td))), t(rng.uniform(0.02, 0.3, (MU, td)))
+            k2 = dict(self.kw_b2(c), topology=topology, param_mins=(0.0,) * td,
+                      param_maxs=param_maxs(topology), beta_scale=1.0 / td)
+            b2 = cuda_ms(lambda: gn.fused_generation(kernel_seed(SEED, 4721), pv, ps, c["target"],
+                                                     **k2), LONG_TIMED_LAUNCHES)
+            line.append(f"{topology} ({'long' if sf.uses_long_code(topology) else 'wide'}) "
+                        f"{b2:.4f} ms")
+        log(f"B2 int8 at the bench shape (n={c['cfg'].n_samples}, P={POP}, sine order 7): "
+            f"{'; '.join(line)} {card()}")
+
+    # -- 42 -----------------------------------------------------------------
+    def long_pursuit(self):
+        """The fm9_parallel pursuit through ``cli.main`` (FM5_BASE_CONFIG with
+        five more pairs of LONG_TRUTHS, cut as phase 21 cuts: each stage's
+        generations / PURSUIT_GENERATION_CUT, one attempt): exit 0, every
+        chunk no worse than its silent estimate, B1/B2 int8 on the bank."""
+        import os
+        import shutil
+
+        import pmfm_tpu_torch.io
+
+        root = os.getcwd()
+        work = os.path.join(root, PURSUIT_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            raw = fm5_parallel_config(root)
+            ev_, ty = raw["evolutionary"], raw["type"]
+            ev_["numDimensions"] = 36
+            ev_["paramMins"] = [0.0] * 36
+            ev_["paramMaxs"] = list(param_maxs("fm9_parallel"))
+            ty["params"] = list(LONG_TRUTHS["fm9_parallel"])
+            raw["tpu"]["topology"] = "fm9_parallel"
+            raw["general"]["outputAudioPath"] = "output_audio/output_fm9_parallel.wav"
+            path = os.path.join(work, "fm9_parallel_match.json")
+            with open(path, "w") as f:
+                json.dump(raw, f)
+            code, counts, modes, lines = self.pursuit_cli(
+                path, work, pursuit_cut(pmfm_tpu_torch.io.load_config), False)
+            require(code == 0 and lines, f"fm9_parallel pursuit: exit {code}")
+            require(modes["B2"].get("parallel_int8", 0) > 0,
+                    f"fm9_parallel pursuit: B2 int8 did not run: {modes}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     # -- 36 -----------------------------------------------------------------
     def a9(self):
         """A9 on the card: resume bit-equal to a run that was not stopped
@@ -4361,11 +5076,15 @@ def main(argv=None) -> int:
         s.phase("33 paths: the fm5_parallel pursuit, fm3_parallel on B5, B3, B4", s.bank_paths)
         if "32 B1/B2 at 20-32 genes vs plain" not in s.failed:
             s.phase("34 bank and wide kernel times, B3's layouts on banks", s.bank_timings)
+    if "large inputs" not in s.failed:
+        s.phase("41 topologies above 32 genes: the long code in every kernel", s.long_codes)
     s.phase("36 A9: resume, population readback, AOT", s.a9)
     s.phase("39 A10: a world of one, two ranks on the card, the CLI over a mesh", s.a10)
     s.phase("40 A1: the ES-quality gate, 2 seeds", s.a1)
     if s.only is not None and "35" in s.only:  # minutes: never part of the whole run
         s.phase("35 the fm5_parallel pursuit as written", s.fm5_pursuit)
+    if s.only is not None and "42" in s.only:  # never part of the whole run
+        s.phase("42 the fm9_parallel pursuit through the CLI, cut", s.long_pursuit)
     for number, seeds in C2_SEEDS.items():  # minutes each: never part of the whole run
         if s.only is not None and number in s.only:
             # a watchdog of its own; the run's resumes after it, moved on by

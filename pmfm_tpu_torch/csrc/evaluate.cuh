@@ -17,8 +17,8 @@ struct MutateParams {
   float beta_scale;
   float root_two_over_pi;
   float min_step;
-  float mins[MAX_D];
-  float ranges[MAX_D];  // maxs - mins
+  const float* mins;    // (d,) device memory, any d
+  const float* ranges;  // (d,) maxs - mins, device memory
 };
 
 // ---- the offspring prologue ---------------------------------------------------
@@ -79,7 +79,7 @@ __device__ __forceinline__ float offspring_gene(uint32_t seed, int cand, int dim
   if (mp.min_step > 0.f) ns = fmaxf(ns, mp.min_step);
   values[(size_t)cand * d + dim] = nx;
   steps[(size_t)cand * d + dim] = ns;
-  return fadd(mp.mins[dim], fmul(nx, mp.ranges[dim]));  // _scale_rows
+  return fadd(__ldg(mp.mins + dim), fmul(nx, __ldg(mp.ranges + dim)));  // _scale_rows
 }
 
 // Runs f.template operator()<NC>() for the sine order's coefficient count.
@@ -107,23 +107,38 @@ __host__ inline int dispatch_ncoef(int ncoef, F&& f) {
 // B3/B4 do not (one bank instantiation a kernel, mode and sine order, where
 // four more each would add half again to large_frame.cu's build).
 //
+// With sp.long_code set, any chain but fm2 and any bank takes LONG_CODE
+// instead (synth_common.cuh::LongSynth; the host sets it above 32 genes).
+//
 // SET picks which codes a translation unit instantiates: CODES_ALL, or
-// CODES_FIXED and CODES_WIDE, whose sources nvcc builds side by side
-// (fused_eval.cu and fused_bf16.cu beside fused_wide.cu, large_frame.cu
-// beside large_frame_wide.cu); a code outside the set returns
-// cudaErrorInvalidValue, and wide_synth says which set a shape is in.
-enum SynthSet { CODES_ALL, CODES_FIXED, CODES_WIDE };
+// CODES_FIXED, CODES_WIDE and CODES_LONG, whose sources nvcc builds side by
+// side (fused_eval.cu and fused_bf16.cu beside fused_wide.cu and
+// fused_long.cu, large_frame.cu beside large_frame_wide.cu and
+// large_frame_long.cu); a code outside the set returns
+// cudaErrorInvalidValue, and synth_set says which set a shape is in.
+enum SynthSet { CODES_ALL, CODES_FIXED, CODES_WIDE, CODES_LONG };
 
 __host__ inline bool wide_synth(const SynthParams& sp, bool fixed_banks) {
   return sp.npair ? !fixed_banks || sp.npair > FIXED_PAIRS : sp.kn > FIXED_KN;
 }
 
+__host__ inline int synth_set(const SynthParams& sp, bool fixed_banks) {
+  return sp.long_code ? CODES_LONG : wide_synth(sp, fixed_banks) ? CODES_WIDE : CODES_FIXED;
+}
+
 template <bool FIXED_BANKS, int SET = CODES_ALL, typename F>
 __host__ inline int dispatch_synth(const SynthParams& sp, F&& f) {
   using std::integral_constant;
-  if (SET != CODES_ALL && wide_synth(sp, FIXED_BANKS) != (SET == CODES_WIDE))
+  if (SET != CODES_ALL && synth_set(sp, FIXED_BANKS) != SET) return (int)cudaErrorInvalidValue;
+  if (sp.long_code) {
+    if constexpr (SET == CODES_ALL || SET == CODES_LONG) {
+      if (!sp.fm2 && sp.lscr && (sp.npair >= 2 || (sp.npair == 0 && sp.kn >= 3)))
+        return f(integral_constant<int, LONG_CODE>{});
+    }
     return (int)cudaErrorInvalidValue;
-  if constexpr (SET != CODES_WIDE) {
+  }
+  if constexpr (SET == CODES_LONG) return (int)cudaErrorInvalidValue;
+  if constexpr (SET != CODES_WIDE && SET != CODES_LONG) {
     if (sp.npair == 0) {
       switch (sp.kn) {
         case 2: return f(integral_constant<int, 2>{});
@@ -145,7 +160,7 @@ __host__ inline int dispatch_synth(const SynthParams& sp, F&& f) {
       }
     }
   }
-  if constexpr (SET != CODES_FIXED) {
+  if constexpr (SET != CODES_FIXED && SET != CODES_LONG) {
     if (sp.npair == 0 && sp.kn > FIXED_KN && sp.kn <= MAX_KN)
       return f(integral_constant<int, WIDE_CHAIN>{});
     if (sp.npair >= 2 && sp.npair <= MAX_PAIRS && wide_synth(sp, FIXED_BANKS))

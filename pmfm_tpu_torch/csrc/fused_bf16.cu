@@ -39,7 +39,7 @@ typedef __nv_bfloat16 bf16_t;
 
 int prepare_generation_bf16(const SynthParams& sp, GenBf16Kernel* kernel) {
   return prepare_tc_any<false>(PICK(fused_generation_bf16_kernel), prepare_wide_generation_bf16,
-                               sp, kernel);
+                               prepare_long_generation_bf16, sp, kernel);
 }
 
 int launch_generation_bf16(GenBf16Kernel kernel, uint32_t seed, const uint32_t* run_seeds,
@@ -62,7 +62,8 @@ int pmfm_fused_synth_fitness_bf16(const float* params, int pop, int runs, SynthP
                                   cudaStream_t stream) {
   FitBf16Kernel kernel;
   const int e = prepare_tc_any<false>(PICK(fused_synth_fitness_bf16_kernel),
-                                      prepare_wide_fitness_bf16, sp, &kernel);
+                                      prepare_wide_fitness_bf16, prepare_long_fitness_bf16, sp,
+                                      &kernel);
   return e ? e
            : launch_tc<false>(kernel, sp, pop, runs, stream, params, pop, sp, (const bf16_t*)dft,
                               target, fitness);

@@ -81,7 +81,7 @@
 
 int prepare_generation_int8(const SynthParams& sp, GenInt8Kernel* kernel) {
   return prepare_tc_any<true>(PICK(fused_generation_int8_kernel), prepare_wide_generation_int8,
-                              sp, kernel);
+                              prepare_long_generation_int8, sp, kernel);
 }
 
 int launch_generation_int8(GenInt8Kernel kernel, uint32_t seed, const uint32_t* run_seeds,
@@ -106,7 +106,8 @@ int pmfm_fused_synth_fitness(const float* params, int pop, int runs, SynthParams
                              cudaStream_t stream) {
   FitInt8Kernel kernel;
   const int e = prepare_tc_any<true>(PICK(fused_synth_fitness_int8_kernel),
-                                     prepare_wide_fitness_int8, sp, &kernel);
+                                     prepare_wide_fitness_int8, prepare_long_fitness_int8, sp,
+                                     &kernel);
   return e ? e
            : launch_tc<true>(kernel, sp, pop, runs, stream, params, pop, sp, (const int8_t*)dft,
                              target, fitness);

@@ -190,9 +190,13 @@ f32_synth_kernel(const float* __restrict__ params, uint32_t seed,
                  const float* __restrict__ ps, MutateParams mp, float* __restrict__ values,
                  float* __restrict__ steps, int pop, SynthParams sp, float* __restrict__ ap,
                  float* __restrict__ am, float* __restrict__ edge, int pop_pad) {
-  __shared__ float s_p[SY_TPB * synth_dims(KN)];
+  constexpr bool LONG = KN == LONG_CODE;
+  __shared__ float s_p[SY_TPB * (LONG ? 1 : synth_dims(KN))];
   __shared__ __align__(16) float s_buf[SY_TPB * SY_LDB];  // a 32-row staging buffer a warp
   const int base = blockIdx.x * SY_TPB, d = sp.d, run = blockIdx.y;
+  // the long code reads its parameters throughout the synthesis, from the
+  // block's rows of the long scratch (rows long_row(run, pop, cand))
+  float* const lp = LONG ? sp.lscr + (size_t)long_row(run, pop, base) * d : nullptr;
   if constexpr (GEN) {
     if (run_seeds) seed = __ldg(run_seeds + run);
     pv += (size_t)run * mp.mu * d;
@@ -204,16 +208,20 @@ f32_synth_kernel(const float* __restrict__ params, uint32_t seed,
   }
   for (int i = threadIdx.x; i < SY_TPB * d; i += SY_TPB) {  // pair i: (i / d, i % d)
     const int cl = i / d, cand = base + cl;
+    float v;
     if constexpr (GEN)
-      s_p[i] = cand < pop ? offspring_gene(seed, cand, i - cl * d, pv, ps, mp, d, values, steps)
-                          : 0.f;
+      v = cand < pop ? offspring_gene(seed, cand, i - cl * d, pv, ps, mp, d, values, steps) : 0.f;
     else
-      s_p[i] = cand < pop ? params[(size_t)base * d + i] : 0.f;
+      v = cand < pop ? params[(size_t)base * d + i] : 0.f;
+    (LONG ? lp : s_p)[i] = v;
   }
   __syncthreads();
-  float p[synth_dims(KN)];
+  float preg[LONG ? 1 : synth_dims(KN)];
+  if constexpr (!LONG) {
 #pragma unroll
-  for (int i = 0; i < synth_dims(KN); ++i) p[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
+    for (int i = 0; i < synth_dims(KN); ++i) preg[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
+  }
+  const float* const p = LONG ? lp + (size_t)threadIdx.x * d : preg;
   const int cand = base + threadIdx.x, half = sp.n >> 1;
   FoldEmit<false, F32Row> emit;
   const int lane = threadIdx.x & 31;
@@ -222,7 +230,7 @@ f32_synth_kernel(const float* __restrict__ params, uint32_t seed,
   emit.half = half;
   emit.edge_q = 0.f;  // the exact edge sample x[N/2] here
   CandidateSynth<NC, KN, false> cs;
-  emit.amp = cs.init(p, sp);
+  emit.amp = cs.init(p, sp, long_row(run, pop, cand));
   for (int f = 0; f < sp.frames; ++f) {
     const size_t row = (size_t)(run * sp.frames + f) * pop_pad + cand;
     emit.ap = F32Row{ap + row * half, buf, lane, half};

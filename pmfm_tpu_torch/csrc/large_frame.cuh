@@ -4,6 +4,10 @@
 // .. 16 oscillators, every bank) are large_frame_wide.cu's, which nvcc
 // builds beside it.
 //
+// The long code (topologies above 32 genes: synth_common.cuh::LongSynth)
+// is large_frame_long.cu's: B3's single pass, and B4 as a thread a
+// candidate (synth_stream_long_kernel).
+//
 // Replaces two TPU kernels of pmfm_tpu:
 //   synth_fold_kernel(s)  <- kernels/synth_fold.py::fused_synth_fold     (B3)
 //   synth_stream_kernel   <- kernels/synth_stream.py::fused_synth_stream (B4)
@@ -254,8 +258,10 @@ synth_fold_kernel(const float* __restrict__ params, int pop, SynthParams sp,
                   float* __restrict__ edge, float* __restrict__ mag_scale) {
   const int cand = blockIdx.x * LF_TPB + threadIdx.x;
   if (cand >= pop) return;
-  float p[synth_dims(KN)];
-  load_params<synth_dims(KN)>(p, params, cand, sp.d);
+  constexpr bool LONG = KN == LONG_CODE;  // reads its parameters from params throughout
+  float preg[LONG ? 1 : synth_dims(KN)];
+  if constexpr (!LONG) load_params<synth_dims(KN)>(preg, params, cand, sp.d);
+  const float* const p = LONG ? params + (size_t)cand * sp.d : preg;
   const int half = sp.n >> 1;
   FoldEmit<INT8> emit;
   emit.ap.p = a_plus + (size_t)cand * half;
@@ -264,7 +270,7 @@ synth_fold_kernel(const float* __restrict__ params, int pop, SynthParams sp,
   emit.half = half;
   emit.edge_q = 0.f;
   CandidateSynth<NC, KN, INT8> cs;  // B1/B2's synthesis of one frame
-  const float amp = cs.init(p, sp);
+  const float amp = cs.init(p, sp, cand);
   emit.amp = amp;
   cs.frame(sp, emit);
   emit.fold_rows(0, false, 0.f);  // rows [0, 16): row 0 keeps q[0] alone
@@ -378,6 +384,40 @@ synth_stream_kernel(const float* __restrict__ params, int pop, SynthParams sp,
                                  tot, 32, BlockSync{}, amp, put);
 }
 
+// ---- B4 at the long code -------------------------------------------------------
+
+// A thread a candidate (SL_TPB a block) walks its whole frame with the long
+// code (synth_common.cuh::LongSynth: the carries in the long scratch, row =
+// candidate) and stores sin * amp * w[m] as synth_stream_kernel's put does:
+// each sample is one warp store of 32 consecutive candidates. No time
+// split, so no levels: a long chain's levels would take kn (kn + 1) / 2
+// oscillators a sample.
+#define SL_TPB 32
+template <int NC, bool F32>
+__global__ void __launch_bounds__(SL_TPB)
+synth_stream_long_kernel(const float* __restrict__ params, int pop, SynthParams sp,
+                         const float* __restrict__ window, void* __restrict__ out) {
+  const int cand = blockIdx.x * SL_TPB + threadIdx.x;
+  if (cand >= pop) return;
+  using OutT = typename std::conditional<F32, float, __nv_bfloat16>::type;
+  OutT* const col = reinterpret_cast<OutT*>(out) + cand;
+  OutT* row = col;
+  float4 w4;
+  LongSynth<NC, false> ls;
+  const float amp = ls.init(params + (size_t)cand * sp.d, sp, cand);
+  auto put = [&](int m, int u, float y) {
+    if (u == 0) row = col + (size_t)m * pop;
+    if (u % 4 == 0) w4 = __ldg(reinterpret_cast<const float4*>(window + m));
+    const float wm = u % 4 == 0 ? w4.x : u % 4 == 1 ? w4.y : u % 4 == 2 ? w4.z : w4.w;
+    const float v = fmul(fmul(y, amp), wm);
+    if constexpr (F32)
+      row[u * pop] = v;
+    else
+      row[u * pop] = to_bf16(v);
+  };
+  ls.template span<FOLD_G>(sp, 0, sp.n / TIME_BLOCK, put);
+}
+
 #ifdef __CUDACC__
 // B3's launch (pmfm_synth_fold's arguments) over the codes SET of
 // evaluate.cuh::dispatch_synth, without fixed banks: CODES_FIXED in
@@ -397,13 +437,17 @@ static int synth_fold_launch(const float* params, int pop, const SynthParams& sp
               params, pop, sp, (T*)a_plus, (T*)a_minus, edge, mag_scale);
           return (int)cudaGetLastError();
         }
-        const size_t smem = fold_tp_smem<INT8>(sp.n);
-        if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-        const int e = (int)prepare(synth_fold_tp_kernel<NC, KN, INT8>, smem);
-        if (e) return e;
-        synth_fold_tp_kernel<NC, KN, INT8><<<pop, 32, smem, stream>>>(
-            params, sp, (T*)a_plus, (T*)a_minus, edge, mag_scale);
-        return (int)cudaGetLastError();
+        if constexpr (KN == LONG_CODE) {  // the long code takes the single pass alone
+          return (int)cudaErrorInvalidValue;
+        } else {
+          const size_t smem = fold_tp_smem<INT8>(sp.n);
+          if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+          const int e = (int)prepare(synth_fold_tp_kernel<NC, KN, INT8>, smem);
+          if (e) return e;
+          synth_fold_tp_kernel<NC, KN, INT8><<<pop, 32, smem, stream>>>(
+              params, sp, (T*)a_plus, (T*)a_minus, edge, mag_scale);
+          return (int)cudaGetLastError();
+        }
       };
       return int8_mode ? run(std::true_type{}) : run(std::false_type{});
     });
@@ -435,6 +479,11 @@ static int synth_stream_launch(const float* params, int pop, const SynthParams& 
 int synth_fold_wide(const float* params, int pop, const SynthParams& sp, void* a_plus,
                     void* a_minus, float* edge, float* mag_scale, int int8_mode,
                     int time_parallel, cudaStream_t stream);
+int synth_fold_long(const float* params, int pop, const SynthParams& sp, void* a_plus,
+                    void* a_minus, float* edge, float* mag_scale, int int8_mode,
+                    int time_parallel, cudaStream_t stream);
+int synth_stream_long(const float* params, int pop, const SynthParams& sp, const float* window,
+                      void* out, int audio_f32, cudaStream_t stream);
 int synth_stream_wide(const float* params, int pop, const SynthParams& sp, const float* window,
                       void* out, int audio_f32, float* tot_scratch, size_t smem, int blocks,
                       cudaStream_t stream);

@@ -20,14 +20,16 @@
 // Layout: thread c walks candidate c's frame; at sample t the warp's 32
 // stores of row t are one 128-byte (float32) or 64-byte (bf16) segment.
 // The chain length is a template argument for fm2, fm3..fm8_series and
-// fm2..fm4_parallel, so the phases stay in registers; longer chains take an
-// instantiation that reads it at run time (SCAN_MAX_K).
+// fm2..fm4_parallel, so the phases stay in registers; longer chains, of any
+// length, take an instantiation that reads it at run time and keeps each
+// candidate's state in a scratch of the wrapper's (ScanState<0>: field f of
+// oscillator or pair j at state[(f k + j) pop + c], so a warp's accesses are
+// 32 consecutive floats).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define SCAN_TPB 128   // candidates (threads) per block
-#define SCAN_MAX_K 32  // oscillators or pairs of the runtime-length instantiation
+#define SCAN_TPB 128  // candidates (threads) per block
 
 enum ScanTopo { SCAN_FM2 = 0, SCAN_SERIES = 1, SCAN_PARALLEL = 2 };
 enum ScanOsc { SCAN_FLOOR = 0, SCAN_EXACT = 1, SCAN_TABLE = 2 };
@@ -70,14 +72,40 @@ __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// One field of a candidate's state, one value an oscillator or pair: K > 0
+// registers; K 0 (a runtime length) the candidate's strided column of the
+// scratch.
+template <int K>
+struct ScanState {
+  float v[K];
+  __device__ __forceinline__ float& operator[](int j) { return v[j]; }
+};
+template <>
+struct ScanState<0> {
+  float* p;
+  int stride;
+  __device__ __forceinline__ float& operator[](int j) { return p[(size_t)j * stride]; }
+};
+
+// Field f of candidate c's state: registers, or scratch rows [f k, (f + 1) k).
+template <int K>
+__device__ __forceinline__ ScanState<K> scan_state(float* state, int f, int k, int pop, int c) {
+  if constexpr (K) {
+    return ScanState<K>{};
+  } else {
+    return ScanState<0>{state + (size_t)f * k * pop + c, pop};
+  }
+}
+
 // TOPO SCAN_FM2 (K 1), SCAN_SERIES (K oscillators) or SCAN_PARALLEL (K
-// pairs); K 0 takes the chain length from sp.k (up to SCAN_MAX_K, its
-// state in local memory). Parameters (pop, d) row-major.
+// pairs); K 0 takes the chain length from sp.k and its state from `state`
+// (6 x k x pop floats for a bank, 3 x k x pop for a chain). Parameters
+// (pop, d) row-major.
 template <int TOPO, int K, int OSC, typename T>
 __global__ void __launch_bounds__(SCAN_TPB)
 scan_synth_kernel(const float* __restrict__ params, ScanParams sp,
-                  const float* __restrict__ table, T* __restrict__ out) {
-  constexpr int CAP = K ? K : SCAN_MAX_K;
+                  const float* __restrict__ table, float* __restrict__ state,
+                  T* __restrict__ out) {
   const int kk = K ? K : sp.k;
   const int c = blockIdx.x * SCAN_TPB + threadIdx.x;
   if (c >= sp.pop) return;
@@ -85,7 +113,12 @@ scan_synth_kernel(const float* __restrict__ params, ScanParams sp,
   const int pop = sp.pop;
   if constexpr (TOPO == SCAN_FM2 || TOPO == SCAN_PARALLEL) {
     const float* p = params + (size_t)c * 4 * kk;
-    float md[CAP], cf[CAP], amp[CAP], inc[CAP], pos1[CAP], pos2[CAP];
+    ScanState<K> md = scan_state<K>(state, 0, kk, pop, c);
+    ScanState<K> cf = scan_state<K>(state, 1, kk, pop, c);
+    ScanState<K> amp = scan_state<K>(state, 2, kk, pop, c);
+    ScanState<K> inc = scan_state<K>(state, 3, kk, pop, c);
+    ScanState<K> pos1 = scan_state<K>(state, 4, kk, pop, c);
+    ScanState<K> pos2 = scan_state<K>(state, 5, kk, pop, c);
 #pragma unroll
     for (int j = 0; j < kk; ++j) {
       md[j] = __fmul_rn(p[4 * j], p[4 * j + 1]);
@@ -110,7 +143,9 @@ scan_synth_kernel(const float* __restrict__ params, ScanParams sp,
     }
   } else {
     const float* p = params + (size_t)c * 2 * kk;
-    float ms[CAP], cs[CAP], pos[CAP];
+    ScanState<K> ms = scan_state<K>(state, 0, kk, pop, c);
+    ScanState<K> cs = scan_state<K>(state, 1, kk, pop, c);
+    ScanState<K> pos = scan_state<K>(state, 2, kk, pop, c);
 #pragma unroll
     for (int j = 0; j < kk; ++j) {
       ms[j] = __fmul_rn(p[2 * j], p[2 * j + 1]);
@@ -135,57 +170,77 @@ scan_synth_kernel(const float* __restrict__ params, ScanParams sp,
 }
 
 template <int TOPO, int K, int OSC, typename T>
-static int launch_scan(const float* params, const ScanParams& sp, const float* table, void* out,
-                       cudaStream_t stream) {
+static int launch_scan(const float* params, const ScanParams& sp, const float* table,
+                       float* state, void* out, cudaStream_t stream) {
   scan_synth_kernel<TOPO, K, OSC, T><<<(sp.pop + SCAN_TPB - 1) / SCAN_TPB, SCAN_TPB, 0, stream>>>(
-      params, sp, table, static_cast<T*>(out));
+      params, sp, table, state, static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
 
 template <int TOPO, int K, typename T>
 static int dispatch_osc(int osc_mode, const float* params, const ScanParams& sp,
-                        const float* table, void* out, cudaStream_t stream) {
+                        const float* table, float* state, void* out, cudaStream_t stream) {
   switch (osc_mode) {
-    case SCAN_FLOOR: return launch_scan<TOPO, K, SCAN_FLOOR, T>(params, sp, table, out, stream);
-    case SCAN_EXACT: return launch_scan<TOPO, K, SCAN_EXACT, T>(params, sp, table, out, stream);
-    case SCAN_TABLE: return launch_scan<TOPO, K, SCAN_TABLE, T>(params, sp, table, out, stream);
+    case SCAN_FLOOR:
+      return launch_scan<TOPO, K, SCAN_FLOOR, T>(params, sp, table, state, out, stream);
+    case SCAN_EXACT:
+      return launch_scan<TOPO, K, SCAN_EXACT, T>(params, sp, table, state, out, stream);
+    case SCAN_TABLE:
+      return launch_scan<TOPO, K, SCAN_TABLE, T>(params, sp, table, state, out, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// Floats of the runtime-length instantiation's state for a topology kind
+// and length k (0 for a compile-time length): kernels/scan.py::
+// scan_state_floats is the same formula.
+static long long scan_state_floats(int topo, int k, int pop) {
+  return (long long)(topo == SCAN_SERIES ? 3 : 6) * k * pop;
+}
+
 // Compile-time chain lengths for fm2, fm3..fm8_series and fm2..fm4_parallel
-// (every example config); longer chains take the K 0 instantiation.
+// (every example config); longer chains take the K 0 instantiation, its
+// state in `state` (state_floats of them).
 template <typename T>
 static int dispatch_topo(int topo, int osc_mode, const float* params, const ScanParams& sp,
-                         const float* table, void* out, cudaStream_t stream) {
+                         const float* table, float* state, long long state_floats, void* out,
+                         cudaStream_t stream) {
   const int k = sp.k;
-#define SCAN_CASE(TP, KK) \
-  if (topo == TP && k == KK) return dispatch_osc<TP, KK, T>(osc_mode, params, sp, table, out, stream);
+#define SCAN_CASE(TP, KK)                                                                      \
+  if (topo == TP && k == KK)                                                                   \
+    return dispatch_osc<TP, KK, T>(osc_mode, params, sp, table, nullptr, out, stream);
   SCAN_CASE(SCAN_FM2, 1)
   SCAN_CASE(SCAN_SERIES, 3) SCAN_CASE(SCAN_SERIES, 4) SCAN_CASE(SCAN_SERIES, 5)
   SCAN_CASE(SCAN_SERIES, 6) SCAN_CASE(SCAN_SERIES, 7) SCAN_CASE(SCAN_SERIES, 8)
   SCAN_CASE(SCAN_PARALLEL, 2) SCAN_CASE(SCAN_PARALLEL, 3) SCAN_CASE(SCAN_PARALLEL, 4)
 #undef SCAN_CASE
-  if (k < 1 || k > SCAN_MAX_K) return (int)cudaErrorInvalidValue;
+  if (!state || state_floats < scan_state_floats(topo, k, sp.pop))
+    return (int)cudaErrorInvalidValue;
   if (topo == SCAN_SERIES && k >= 3)
-    return dispatch_osc<SCAN_SERIES, 0, T>(osc_mode, params, sp, table, out, stream);
+    return dispatch_osc<SCAN_SERIES, 0, T>(osc_mode, params, sp, table, state, out, stream);
   if (topo == SCAN_PARALLEL && k >= 2)
-    return dispatch_osc<SCAN_PARALLEL, 0, T>(osc_mode, params, sp, table, out, stream);
+    return dispatch_osc<SCAN_PARALLEL, 0, T>(osc_mode, params, sp, table, state, out, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
 
 // Audio (n, pop) of scaled params (pop, d): topo 0 fm2 (sp.k 1), 1
-// fm{k}_series (k 3..SCAN_MAX_K), 2 fm{k}_parallel (k 2..SCAN_MAX_K);
-// osc_mode 0 floor, 1 exact, 2 table (`table` holds table_max + 1 floats);
-// bf16 != 0 writes bfloat16, else float32. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a topology or mode the kernel does not take.
+// fm{k}_series (k >= 3), 2 fm{k}_parallel (k >= 2); osc_mode 0 floor, 1
+// exact, 2 table (`table` holds table_max + 1 floats); bf16 != 0 writes
+// bfloat16, else float32; `state` holds state_floats floats, at least
+// scan_state_floats(topo, k, pop) for a length without a compile-time
+// instantiation (may be null otherwise). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a topology, mode or state the kernel does not
+// take.
 int pmfm_scan_synth(const float* params, int topo, int osc_mode, int bf16, ScanParams sp,
-                    const float* table, void* out, cudaStream_t stream) {
+                    const float* table, float* state, long long state_floats, void* out,
+                    cudaStream_t stream) {
   if (sp.pop < 1 || sp.n < 1) return (int)cudaErrorInvalidValue;
-  return bf16 ? dispatch_topo<__nv_bfloat16>(topo, osc_mode, params, sp, table, out, stream)
-              : dispatch_topo<float>(topo, osc_mode, params, sp, table, out, stream);
+  return bf16 ? dispatch_topo<__nv_bfloat16>(topo, osc_mode, params, sp, table, state,
+                                             state_floats, out, stream)
+              : dispatch_topo<float>(topo, osc_mode, params, sp, table, state, state_floats, out,
+                                     stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@
 // pass; and the grouped fold emitter FoldEmit that B3 and B1/B2 run on them.
 // Each array is sized by its synthesis code's own slots (chain_slots,
 // bank_slots, synth_dims), so raising the caps to 32 genes costs a chain of
-// three nothing.
+// three nothing. Above 32 genes a third code, LONG_CODE (LongSynth), takes
+// any length with a bounded tile of state in registers.
 //
 // Numerics (the TPU kernel's, in sample order). Phases are kept in turns
 // (phase / wavetable size), so the wrap is frac(x) = x - floor(x). Samples
@@ -45,6 +46,15 @@
 #define BANK_KN 32
 #define WIDE_CHAIN 0
 #define WIDE_BANK BANK_KN
+// The long code (sp.long_code): a chain or a bank of any length, run in
+// segments of LONG_CHAIN_SEG modulating oscillators or LONG_BANK_SEG pairs
+// whose state sits in registers, the carries in a scratch of the wrapper's
+// (LongSynth). The host sets it above 32 genes (and, to hold it against the
+// wide codes, wherever a check asks).
+#define LONG_CODE (-1)
+#define LONG_CHAIN_SEG 8
+#define LONG_BANK_SEG 4
+#define LONG_ROW_PAD 128  // B1/B2: a run's rows of the long scratch, the population padded
 
 // A code's slots: oscillators of a chain (chain_slots) or pairs of a bank
 // (bank_slots), and the parameters of a candidate (synth_dims).
@@ -69,8 +79,11 @@ struct SynthParams {
   float inv_sr;      // 1 / sample_rate, as f32
   float dft_scale;   // SpectrumOps.dft_packed_scale (0 outside the int8 engine)
   float edge_norm;   // B1/B2 true-f32 mode: 2 * norm, the x[N/2] edge coefficient's size
-  int npair;         // B1/B2: 0 for a chain, else the pairs of an fm{npair}_parallel bank
+  int npair;         // 0 for a chain, else the pairs of an fm{npair}_parallel bank
   int frames;        // B1/B2: frames of n samples a candidate synthesises in one run (>= 1)
+  int long_code;     // 1: the long code (LONG_CODE) runs the synthesis, whatever its length
+  int lrows;         // the long code's scratch rows (a synthesising thread's row each)
+  float* lscr;       // the long code's scratch: lrows x d params, then d x lrows carries
 };
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -511,7 +524,8 @@ struct FoldEmit {
 // from where the block before it ended). init() makes the constants, zeroes
 // the carries and returns the amplitude the int8 magnitudes are rescaled by
 // (Chain::amp, PairBank::amp); frame() runs the next frame's n samples into
-// emit, each with its index in the frame.
+// emit, each with its index in the frame. init's `row` is the thread's row
+// of the long code's scratch (LongSynth); the other codes ignore it.
 template <int NC, int KN, bool INT8, bool BANK = is_bank(KN)>
 struct CandidateSynth;
 
@@ -519,7 +533,7 @@ template <int NC, int KN, bool INT8>
 struct CandidateSynth<NC, KN, INT8, false> {
   Chain<KN> ch;
   float off[Chain<KN>::S];
-  __device__ __forceinline__ float init(const float* p, const SynthParams& sp) {
+  __device__ __forceinline__ float init(const float* p, const SynthParams& sp, int = 0) {
     ch = make_chain<KN>(p, sp);
 #pragma unroll
     for (int j = 0; j < Chain<KN>::S; ++j) off[j] = 0.f;
@@ -538,7 +552,7 @@ struct CandidateSynth<NC, KN, INT8, true> {
   static constexpr int S = PairBank<KN>::S;
   PairBank<KN> bk;
   float o1[S], o2[S];
-  __device__ __forceinline__ float init(const float* p, const SynthParams& sp) {
+  __device__ __forceinline__ float init(const float* p, const SynthParams& sp, int = 0) {
     bk = make_bank<KN, INT8>(p, sp);
 #pragma unroll
     for (int j = 0; j < S; ++j) o1[j] = o2[j] = 0.f;
@@ -549,6 +563,190 @@ struct CandidateSynth<NC, KN, INT8, true> {
     synth_bank_span<NC, FOLD_G, KN, INT8>(bk, sp, 0, sp.n / TIME_BLOCK, o1, o2, emit);
   }
 };
+
+// ---- the long code ------------------------------------------------------------
+
+// One candidate's synthesis at any length (LONG_CODE): a chain of sp.kn
+// oscillators (fm{kn}_series) or a bank of sp.npair pairs, frame after
+// frame as CandidateSynth runs them, the same operations in the same order
+// as synth_span and synth_bank_span, so its samples are theirs bit for bit.
+// Its parameters are read from memory (p: the candidate's d scaled
+// parameters, a row of the long scratch or of the kernel's input), its
+// carries live in the long scratch (carry j at c[j * stride]: a chain's
+// off[1 ..], a bank's o1, o2 of each pair), and a time block runs segment
+// after segment:
+// * a chain: oscillator j+1's phase at sample t is fadd(s[j], off[j+1]),
+//   s[j] the running sum of oscillator j's increments before t, so the
+//   modulating oscillators run in segments of LONG_CHAIN_SEG over the whole
+//   block, each handing the block's 128 phases to the next through ph[]
+//   (local memory); the last one emits;
+// * a bank: its pairs are independent and their outputs are summed in pair
+//   order, so the pairs run in segments of LONG_BANK_SEG, each adding its
+//   outputs onto the block's per-sample partial sums in ph[]; the last one
+//   divides (the float modes) and emits. The int8 gain needs s = sum_j
+//   |amp_j| / k over every pair first (make_bank's), which init forms.
+// Only a segment's constants, carries and running sums sit in registers
+// (reloaded from p and the scratch each block), so the state does not grow
+// with the length: nothing is reordered, and a chain of 9 .. 16 or a bank of
+// 2 .. 8 through this code gives the wide and fixed codes' bits.
+template <int NC, bool INT8>
+struct LongSynth {
+  const float* p;
+  float* c;
+  int stride;
+  float off0;   // a chain's off[0]
+  float inv_s;  // an int8 bank's 63 / (k s + 1e-30)
+
+  __device__ __forceinline__ float init(const float* p_, const SynthParams& sp, int row) {
+    p = p_;
+    stride = sp.lrows;
+    c = sp.lscr + (size_t)sp.lrows * sp.d + row;
+    for (int j = 0; j < sp.d; ++j) c[(size_t)j * stride] = 0.f;
+    off0 = 0.f;
+    inv_s = 1.f;
+    if (!sp.npair) return fmul(p[2 * (sp.kn - 1)], p[2 * (sp.kn - 1) + 1]);
+    if (!INT8) return 1.f;
+    const int np = sp.npair;
+    float s = fabsf(p[3]);
+    for (int j = 1; j < np; ++j) s = fadd(s, fabsf(p[4 * j + 3]));
+    s = __fdiv_rn(s, (float)np);
+    inv_s = __fdiv_rn(63.f, fadd(fmul((float)np, s), 1e-30f));
+    return s;
+  }
+
+  template <typename Emit>
+  __device__ __forceinline__ void frame(const SynthParams& sp, Emit& emit) {
+    span<FOLD_G>(sp, 0, sp.n / TIME_BLOCK, emit);
+  }
+
+  // Time blocks [b0, b1) from the carries where the last span ended.
+  template <int G, typename Emit>
+  __device__ __forceinline__ void span(const SynthParams& sp, int b0, int b1, Emit& emit) {
+    if (sp.npair)
+      bank_span<G>(sp, b0, b1, emit);
+    else
+      chain_span<G>(sp, b0, b1, emit);
+  }
+
+  template <int G, typename Emit>
+  __device__ __forceinline__ void chain_span(const SynthParams& sp, int b0, int b1, Emit& emit) {
+    constexpr int SEG = LONG_CHAIN_SEG;
+    static_assert(TIME_BLOCK % G == 0, "G must divide TIME_BLOCK");
+    const int nj = sp.kn - 1;
+    const float inv_sr = sp.inv_sr;
+    const float* out_c = INT8 ? sp.sin_c63 : sp.sin_c;
+    const float inc1 = frac(fmul(inv_sr, p[1]));
+    const float inc_blk = frac(fmul((float)TIME_BLOCK, inc1));
+    float ph[TIME_BLOCK];
+    for (int b = b0; b < b1; ++b) {
+      for (int j0 = 0; j0 < nj; j0 += SEG) {
+        float im[SEG], ic[SEG], on[SEG], s[SEG];
+#pragma unroll
+        for (int q = 0; q < SEG; ++q) {
+          const int j = j0 + q;
+          im[q] = ic[q] = on[q] = s[q] = 0.f;
+          if (j < nj) {
+            im[q] = fmul(inv_sr, fmul(p[2 * j], p[2 * j + 1]));
+            ic[q] = fmul(inv_sr, p[2 * j + 3]);
+            on[q] = c[(size_t)(j + 1) * stride];
+          }
+        }
+        const bool first = j0 == 0, last = j0 + SEG >= nj;
+        for (int t0 = 0; t0 < TIME_BLOCK; t0 += G) {
+          const float tf0 = (float)t0;
+#pragma unroll
+          for (int u = 0; u < G; ++u) {
+            float pos = first ? fadd(fmul(fadd(tf0, (float)u), inc1), off0) : ph[t0 + u];
+#pragma unroll
+            for (int q = 0; q < SEG; ++q) {
+              if (j0 + q < nj) {
+                const float x = fadd(fmul(sin_turns<NC>(pos, sp.sin_c), im[q]), ic[q]);
+                pos = fadd(s[q], on[q]);
+                s[q] = fadd(s[q], x);
+              }
+            }
+            if (last)
+              emit(b * TIME_BLOCK + t0 + u, u, sin_turns<NC>(pos, out_c));
+            else
+              ph[t0 + u] = pos;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < SEG; ++q)
+          if (j0 + q < nj) c[(size_t)(j0 + q + 1) * stride] = frac(fadd(on[q], s[q]));
+      }
+      off0 = frac(fadd(off0, inc_blk));
+    }
+  }
+
+  template <int G, typename Emit>
+  __device__ __forceinline__ void bank_span(const SynthParams& sp, int b0, int b1, Emit& emit) {
+    constexpr int SEG = LONG_BANK_SEG;
+    static_assert(TIME_BLOCK % G == 0, "G must divide TIME_BLOCK");
+    const int np = sp.npair;
+    const float inv_sr = sp.inv_sr;
+    float ph[TIME_BLOCK];
+    for (int b = b0; b < b1; ++b) {
+      for (int j0 = 0; j0 < np; j0 += SEG) {
+        float inc1[SEG], im[SEG], ic[SEG], gain[SEG], o1[SEG], o2[SEG], s[SEG];
+#pragma unroll
+        for (int q = 0; q < SEG; ++q) {
+          const int j = j0 + q;
+          inc1[q] = im[q] = ic[q] = gain[q] = o1[q] = o2[q] = s[q] = 0.f;
+          if (j < np) {
+            inc1[q] = frac(fmul(inv_sr, p[4 * j]));
+            im[q] = fmul(inv_sr, fmul(p[4 * j], p[4 * j + 1]));
+            ic[q] = fmul(inv_sr, p[4 * j + 2]);
+            gain[q] = INT8 ? fmul(p[4 * j + 3], inv_s) : p[4 * j + 3];
+            o1[q] = c[(size_t)(2 * j) * stride];
+            o2[q] = c[(size_t)(2 * j + 1) * stride];
+          }
+        }
+        const bool first = j0 == 0, last = j0 + SEG >= np;
+        for (int t0 = 0; t0 < TIME_BLOCK; t0 += G) {
+          const float tf0 = (float)t0;
+#pragma unroll
+          for (int u = 0; u < G; ++u) {
+            float y = first ? 0.f : ph[t0 + u];
+#pragma unroll
+            for (int q = 0; q < SEG; ++q) {
+              if (j0 + q < np) {
+                const float pos1 = fadd(fmul(fadd(tf0, (float)u), inc1[q]), o1[q]);
+                const float x = fadd(fmul(sin_turns<NC>(pos1, sp.sin_c), im[q]), ic[q]);
+                const float o = fmul(sin_turns<NC>(fadd(s[q], o2[q]), sp.sin_c), gain[q]);
+                y = j0 + q == 0 ? o : fadd(y, o);
+                s[q] = fadd(s[q], x);
+              }
+            }
+            if (last) {
+              if constexpr (!INT8) y = __fdiv_rn(y, (float)np);
+              emit(b * TIME_BLOCK + t0 + u, u, y);
+            } else {
+              ph[t0 + u] = y;
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < SEG; ++q) {
+          const int j = j0 + q;
+          if (j < np) {
+            c[(size_t)(2 * j + 1) * stride] = frac(fadd(o2[q], s[q]));
+            c[(size_t)(2 * j) * stride] = frac(fadd(o1[q], frac(fmul((float)TIME_BLOCK, inc1[q]))));
+          }
+        }
+      }
+    }
+  }
+};
+
+template <int NC, bool INT8>
+struct CandidateSynth<NC, LONG_CODE, INT8, false> : LongSynth<NC, INT8> {};
+
+// The long scratch's row of the B1/B2 thread that synthesises candidate
+// cand of run `run` (a run's rows: the population padded to LONG_ROW_PAD).
+__device__ __forceinline__ int long_row(int run, int pop, int cand) {
+  return run * ((pop + LONG_ROW_PAD - 1) / LONG_ROW_PAD * LONG_ROW_PAD) + cand;
+}
 
 template <typename K>
 static cudaError_t prepare(K kernel, size_t smem) {

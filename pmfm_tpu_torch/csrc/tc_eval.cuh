@@ -30,6 +30,7 @@
 #define TC_CPB 32  // candidates per CUDA block, one warp
 #define TC_NT 4    // n-tiles of 8 bins per pass over a+/-
 #define TC_DEPTH 2  // 4-unit steps of the operand in flight (divides the row's units / 4)
+#define MAX_BLOCK_SMEM 232448  // shared memory one block of an H100 can use
 
 // The element of a+/- and of the operand: int8 or bf16.
 template <bool INT8>
@@ -232,7 +233,8 @@ template <int NC, int KN, bool INT8>
 __device__ __forceinline__ void evaluate_tc(const float* p, const SynthParams& sp,
                                             const tc_elem<INT8>* __restrict__ dft,
                                             const float* __restrict__ target, uint4* smem,
-                                            float* __restrict__ fitness, int base, int pop) {
+                                            float* __restrict__ fitness, int base, int pop,
+                                            int row = 0) {
   const int lane = threadIdx.x, g = lane >> 2, c = lane & 3;
   const int half = sp.n >> 1, units = half * (int)sizeof(tc_elem<INT8>) >> 4;
   uint4* s_ap = smem;
@@ -246,7 +248,7 @@ __device__ __forceinline__ void evaluate_tc(const float* p, const SynthParams& s
   emit.half = half;
   emit.edge_q = 0.f;
   CandidateSynth<NC, KN, INT8> cs;
-  const float amp = cs.init(p, sp);
+  const float amp = cs.init(p, sp, row);
   emit.amp = amp;
   // int8: 127 (-1)^k and |amp| dft_scale; bf16: 2 norm (-1)^k and no rescale
   const float edge = INT8 ? 127.f : sp.edge_norm;
@@ -300,6 +302,31 @@ __device__ __forceinline__ void take_params(const float* s_p, int d, float* p) {
   for (int i = 0; i < D; ++i) p[i] = i < d ? s_p[threadIdx.x * d + i] : 0.f;
 }
 
+// The evaluation of thread t's candidate from the block's (TC_CPB, d) rows
+// of scaled parameters in shared memory: in the registers of a fixed or
+// wide code; for the long code (which reads them throughout the synthesis,
+// while the synthesis overwrites this shared memory with a+/-) copied to
+// the thread's row of the long scratch first.
+template <int NC, int KN, bool INT8>
+__device__ __forceinline__ void evaluate_staged(const float* s_p, const SynthParams& sp,
+                                                const tc_elem<INT8>* __restrict__ dft,
+                                                const float* __restrict__ target, uint4* smem,
+                                                float* __restrict__ fitness, int base, int pop) {
+  const int d = sp.d;
+  if constexpr (KN == LONG_CODE) {
+    const int row = long_row(blockIdx.y, pop, base + threadIdx.x);
+    float* lp = sp.lscr + (size_t)row * d;
+    for (int i = 0; i < d; ++i) lp[i] = s_p[threadIdx.x * d + i];
+    __syncwarp();
+    evaluate_tc<NC, KN, INT8>(lp, sp, dft, target, smem, fitness, base, pop, row);
+  } else {
+    float p[synth_dims(KN)];
+    take_params<synth_dims(KN)>(s_p, d, p);
+    __syncwarp();
+    evaluate_tc<NC, KN, INT8>(p, sp, dft, target, smem, fitness, base, pop);
+  }
+}
+
 // The run axis: blockIdx.y is run r of a batched launch, whose candidates
 // are rows [r pop, (r + 1) pop) of the (runs, pop, d) arrays, whose target
 // is rows [r F, (r + 1) F) of the (runs, F, k) targets and whose fitness is
@@ -322,10 +349,7 @@ __device__ __forceinline__ void fitness_block(const float* __restrict__ params, 
   for (int i = threadIdx.x; i < TC_CPB * d; i += TC_CPB)
     s_p[i] = i < avail ? run_params[(size_t)base * d + i] : 0.f;
   __syncwarp();
-  float p[synth_dims(KN)];
-  take_params<synth_dims(KN)>(s_p, d, p);
-  __syncwarp();
-  evaluate_tc<NC, KN, INT8>(p, sp, dft, target, smem, fitness, base, pop);
+  evaluate_staged<NC, KN, INT8>(s_p, sp, dft, target, smem, fitness, base, pop);
 }
 
 // B2's block: the offspring prologue (the block's 32 x d genes over its 32
@@ -348,10 +372,7 @@ __device__ __forceinline__ void generation_block(
                         : 0.f;
   }
   __syncwarp();
-  float p[synth_dims(KN)];
-  take_params<synth_dims(KN)>(s_p, d, p);
-  __syncwarp();
-  evaluate_tc<NC, KN, INT8>(p, sp, dft, target, smem, fitness, base, pop);
+  evaluate_staged<NC, KN, INT8>(s_p, sp, dft, target, smem, fitness, base, pop);
 }
 
 // ---- the kernels (fused_eval.cu: int8, fused_bf16.cu: bf16) --------------------
@@ -407,10 +428,16 @@ typedef void (*FitBf16Kernel)(const float*, int, SynthParams, const __nv_bfloat1
 #define PICK(kernel) \
   [](auto nc, auto kc) { return kernel<decltype(nc)::value, decltype(kc)::value>; }
 
-// Dynamic shared memory of a block: the a+/- rows of its 32 candidates.
+// Dynamic shared memory of a block: the a+/- rows of its 32 candidates, or
+// the block's 32 rows of d scaled parameters staged there before the
+// synthesis overwrites them, whichever is larger (the parameters, above
+// d = n sizeof(element) / 4: 64 genes at int8 n 256).
+// kernels/synth_fitness.py::shared_bytes is the same formula.
 template <bool INT8>
 __host__ inline size_t tc_smem(const SynthParams& sp) {
-  return (size_t)sp.n * TC_CPB * sizeof(tc_elem<INT8>);
+  const size_t rows = (size_t)sp.n * TC_CPB * sizeof(tc_elem<INT8>);
+  const size_t params = (size_t)TC_CPB * sp.d * sizeof(float);
+  return rows > params ? rows : params;
 }
 
 // The kernel `pick` gives for the sine order and the synthesis
@@ -421,7 +448,7 @@ __host__ inline size_t tc_smem(const SynthParams& sp) {
 // blocks as shared memory holds fit an SM (six at n 1024 in int8).
 template <bool INT8, int SET, typename Pick, typename K>
 static int prepare_tc(Pick&& pick, const SynthParams& sp, K* out) {
-  if (sp.frames < 1) return (int)cudaErrorInvalidValue;
+  if (sp.frames < 1 || tc_smem<INT8>(sp) > MAX_BLOCK_SMEM) return (int)cudaErrorInvalidValue;
   K kernel = nullptr;
   int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
     return dispatch_synth<true, SET>(sp, [&](auto kc) {
@@ -447,18 +474,27 @@ static int launch_tc(K kernel, const SynthParams& sp, int pop, int runs, cudaStr
   return (int)cudaGetLastError();
 }
 
-// The wide codes (WIDE_CHAIN, WIDE_BANK) of the four kernels, prepared in
-// fused_wide.cu, which nvcc builds beside fused_eval.cu and fused_bf16.cu;
-// the prepare calls of those files hand a wide shape (wide_synth) to these.
+// The wide codes (WIDE_CHAIN, WIDE_BANK) and the long code (LONG_CODE) of
+// the four kernels, prepared in fused_wide.cu and fused_long.cu, which nvcc
+// builds beside fused_eval.cu and fused_bf16.cu; the prepare calls of those
+// files hand a wide or long shape (synth_set) to these.
 int prepare_wide_fitness_int8(const SynthParams& sp, FitInt8Kernel* kernel);
 int prepare_wide_generation_int8(const SynthParams& sp, GenInt8Kernel* kernel);
 int prepare_wide_fitness_bf16(const SynthParams& sp, FitBf16Kernel* kernel);
 int prepare_wide_generation_bf16(const SynthParams& sp, GenBf16Kernel* kernel);
+int prepare_long_fitness_int8(const SynthParams& sp, FitInt8Kernel* kernel);
+int prepare_long_generation_int8(const SynthParams& sp, GenInt8Kernel* kernel);
+int prepare_long_fitness_bf16(const SynthParams& sp, FitBf16Kernel* kernel);
+int prepare_long_generation_bf16(const SynthParams& sp, GenBf16Kernel* kernel);
 
-// Either set's kernel for sp: `fixed` prepares the fixed codes here, `wide`
-// is one of the four above.
+// Any set's kernel for sp: `fixed` prepares the fixed codes here, `wide`
+// and `long_` are two of the eight above.
 template <bool INT8, typename Pick, typename K>
 static int prepare_tc_any(Pick&& fixed, int (*wide)(const SynthParams&, K*),
-                          const SynthParams& sp, K* out) {
-  return wide_synth(sp, true) ? wide(sp, out) : prepare_tc<INT8, CODES_FIXED>(fixed, sp, out);
+                          int (*long_)(const SynthParams&, K*), const SynthParams& sp, K* out) {
+  switch (synth_set(sp, true)) {
+    case CODES_LONG: return long_(sp, out);
+    case CODES_WIDE: return wide(sp, out);
+    default: return prepare_tc<INT8, CODES_FIXED>(fixed, sp, out);
+  }
 }

@@ -232,9 +232,8 @@ def _fused_evolve_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps,
                      device: torch.device) -> bool:
     """Whether the whole-run kernel B5 applies: the reference's gate, with
     a CUDA device in place of its ``default_backend() != "cpu"``. Every
-    topology B2 takes passes it, ``fm{k}_parallel`` banks included; one
-    wider than the kernels' 32 genes passes it too, and B5 then raises
-    ``NotImplementedError`` rather than run another engine in its place."""
+    topology B2 takes passes it, ``fm{k}_parallel`` banks and the long code
+    above 32 genes included."""
     return (
         cfg.fused_evolve
         and cfg.fused_generation

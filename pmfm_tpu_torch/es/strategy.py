@@ -200,9 +200,10 @@ def _fused_flags(cfg: ESConfig) -> bool:
 def _fused_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> bool:
     """Whether the fused kernels (B1/B2) apply: the reference's gate with the
     port's own size limit (``fits_shared_memory`` of the operand's dtype,
-    n <= 3584 in the int8, bf16 and true-f32 modes) in place of the TPU's
-    VMEM estimate, which sends some bf16 configs the port runs on B1/B2 (the
-    bf16 operand at n 3584, 12.8 MB, over its 12 MB budget) to synth_fold.
+    n <= 3584 in the int8, bf16 and true-f32 modes, and a block's staged
+    parameters at the config's D) in place of the TPU's VMEM estimate, which
+    sends some bf16 configs the port runs on B1/B2 (the bf16 operand at
+    n 3584, 12.8 MB, over its 12 MB budget) to synth_fold.
     The 128-lane rule on the bins does not carry over (the wrappers check
     what the kernels take)."""
     return (
@@ -210,7 +211,8 @@ def _fused_ok(cfg: ESConfig, spectrum_ops: spectral.SpectrumOps) -> bool:
         and cfg.spectrum_method == "dft"
         and spectrum_ops.dft_packed is not None
         and cfg.n_samples % (2 * TIME_BLOCK) == 0
-        and fits_shared_memory(cfg.n_samples, spectrum_ops.dft_packed.dtype)
+        and fits_shared_memory(cfg.n_samples, spectrum_ops.dft_packed.dtype,
+                               cfg.num_dimensions)
     )
 
 

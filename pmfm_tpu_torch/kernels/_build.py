@@ -6,7 +6,9 @@ wide synthesis codes, chains of 9-16 oscillators and banks of 6-8 pairs;
 ``fused_f32.cu``: B1, B2 true f32; ``evolve.cu``: B5, which runs B2's
 kernels through ``generation.cuh``; ``large_frame.cu``: B3, B4 on
 ``large_frame.cuh``, and ``large_frame_wide.cu`` their wide codes, every
-bank among them; ``scan_synth.cu``: the scan synthesis of the unfused
+bank among them; ``fused_long.cu`` and ``large_frame_long.cu``: B1/B2
+int8 and bf16, and B3/B4, at the long code, the topologies above 32 genes
+(B1/B2 f32 instantiate it in ``fused_f32.cu``); ``scan_synth.cu``: the scan synthesis of the unfused
 engines; ``evaluate.cuh``: B2's offspring genes and the dispatch of the
 synthesis codes; ``synth_common.cuh``: the synthesis B1-B4 share and the
 fold emitter of B1, B2 and B3) have a plain
@@ -34,8 +36,6 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pmfm_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-MAX_D = 32  # parameters per candidate (fm16_series, fm8_parallel); must match csrc
-
 
 def sources() -> list:
     """The ``.cu`` files compiled into the library, in a fixed order."""
@@ -59,6 +59,9 @@ class SynthParams(ctypes.Structure):
         ("edge_norm", ctypes.c_float),
         ("npair", ctypes.c_int),
         ("frames", ctypes.c_int),
+        ("long_code", ctypes.c_int),
+        ("lrows", ctypes.c_int),
+        ("lscr", ctypes.c_void_p),
     ]
 
 
@@ -75,8 +78,8 @@ class MutateParams(ctypes.Structure):
         ("beta_scale", ctypes.c_float),
         ("root_two_over_pi", ctypes.c_float),
         ("min_step", ctypes.c_float),
-        ("mins", ctypes.c_float * MAX_D),
-        ("ranges", ctypes.c_float * MAX_D),
+        ("mins", ctypes.c_void_p),  # (d,) float32, device memory
+        ("ranges", ctypes.c_void_p),  # (d,) float32, device memory
     ]
 
 
@@ -220,7 +223,7 @@ def library() -> ctypes.CDLL:
     lib.pmfm_synth_fold.restype = ci
     lib.pmfm_synth_stream.argtypes = [vp, ci, SynthParams, vp, vp, ci, vp, cll, vp]
     lib.pmfm_synth_stream.restype = ci
-    lib.pmfm_scan_synth.argtypes = [vp, ci, ci, ci, ScanParams, vp, vp, vp]
+    lib.pmfm_scan_synth.argtypes = [vp, ci, ci, ci, ScanParams, vp, vp, cll, vp, vp]
     lib.pmfm_scan_synth.restype = ci
     lib.pmfm_error_string.argtypes = [ci]
     lib.pmfm_error_string.restype = ctypes.c_char_p

@@ -19,8 +19,10 @@ value (what ``_merge_topmu``'s stable enumeration rank gives); best-ever
 improves only on a strictly smaller fitness. The reference's finite 3e38
 sentinel and one-hot extraction are Mosaic workarounds: survivors here keep
 their fitness, inf and NaN included. No restarts, early stop or sharding.
-B5 takes every topology B2 takes, ``fm{k}_parallel`` banks included: its
-generations are B2's launches (``check_supported_topology``).
+B5 takes every topology B2 takes, ``fm{k}_parallel`` banks and the long
+code above 32 genes included: its generations are B2's launches
+(``check_supported_topology``), sharing one long scratch, which each
+launch's synthesis rewrites from the start.
 
 B5 takes B2's multi-frame mode (``num_frames``) and its run axis: parents
 ``(B, mu, D)``, best-ever ``(B, D)`` and ``(B,)``, targets ``(B, F, K)`` and
@@ -46,10 +48,13 @@ from .generation import (
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
     MAX_SHARED_BYTES,
+    alloc_scratch,
     check_supported_topology,
     f32_scratch_floats,
     inv_sample_rate,
     launch_mode,
+    long_rows,
+    long_scratch,
     operand_mode,
     runs_of,
     synth_params_struct,
@@ -215,7 +220,8 @@ def fused_evolve(
     fit_s = torch.empty((*lead, pop), **f)
     val_s = torch.empty((*lead, pop, d), **f)
     step_s = torch.empty((*lead, pop, d), **f)
-    scratch = torch.empty((f32_scratch_floats(pop, n, num_frames, nruns) if f32 else 0,), **f)
+    scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns) if f32 else 0, dev,
+                            "the f32 scratch")
     if runs is None:
         seeds_h = (ctypes.c_uint32 * gens)(*(s & 0xFFFFFFFF for s in seeds))
         seeds_d = None
@@ -227,7 +233,8 @@ def fused_evolve(
         dft_scale=dft_scale, sine_order=sine_order, frames=num_frames,
     )
     mp = mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale,
-                              root_two_over_pi, clamp_values, min_step)
+                              root_two_over_pi, clamp_values, min_step, dev)
+    lscratch = long_scratch(sp, topology, long_rows(pop, nruns), dev)  # noqa: F841 (kept)
     err = library().pmfm_fused_evolve(
         seeds_h, None if seeds_d is None else seeds_d.data_ptr(), gens, pop, nruns, sp, mp,
         dft_packed.data_ptr(), target_spectrum.data_ptr(), pv.data_ptr(), ps.data_ptr(),

@@ -11,9 +11,10 @@ prologue, then B1's f32 DFT and group sum); each runs the offspring prologue
 below (``csrc/evaluate.cuh::offspring_gene``, the block's genes spread over
 all its threads) and then B1's evaluation in the mode the operand selects.
 ``fused_generation_plain`` is its plain PyTorch version. It takes every
-topology B1 takes, ``fm{k}_parallel`` (D = 8 .. 32) included: the prologue
-spreads the block's candidates x D genes over its threads whatever D is,
-and the launch geometry does not depend on D.
+topology B1 takes, at any D: the prologue spreads the block's candidates x
+D genes over its threads whatever D is, the launch geometry does not depend
+on D, and the per-gene ``mins`` and ``ranges`` reach the kernels as device
+arrays (``scale_tensor``).
 
 Offspring semantics (``_offspring_block``): per gene a uniform parent index
 and an exact copy of that parent's value and step; an Ek coin; a CLT-12
@@ -41,6 +42,7 @@ are equal (``es.pipeline`` seeds run r from ``_chunk_seed(seed, r)``).
 from __future__ import annotations
 
 import collections
+import functools
 import math
 
 import numpy as np
@@ -51,11 +53,14 @@ from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
     _evaluate_plain,
+    alloc_scratch,
     check_kernel_shapes,
     check_supported,
     f32_scratch_floats,
     inv_sample_rate,
     launch_mode,
+    long_rows,
+    long_scratch,
     operand_mode,
     runs_of,
     synth_params_struct,
@@ -168,19 +173,31 @@ def scale_rows(new_x: torch.Tensor, mins: tuple, maxs: tuple) -> torch.Tensor:
     return lo + new_x * span
 
 
+@functools.lru_cache(maxsize=64)
+def scale_tensor(param_mins: tuple, param_maxs: tuple, device: str) -> torch.Tensor:
+    """(2, D) float32 on ``device``: the per-gene ``mins`` and ``maxs -
+    mins`` (formed in float64, then rounded, as ``scale_rows``) that the
+    kernels' offspring prologue scales by. Cached, so a run of launches
+    copies them once and the cache keeps them alive for the launches."""
+    span = [float(b) - float(a) for a, b in zip(param_mins, param_maxs)]
+    return torch.tensor([[float(m) for m in param_mins], span], dtype=torch.float32,
+                        device=device)
+
+
 def mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale, root_two_over_pi,
-                         clamp_values, min_step):
-    """The kernels' ``MutateParams`` argument (B2 and B5)."""
+                         clamp_values, min_step, device):
+    """The kernels' ``MutateParams`` argument (B2 and B5), its ``mins`` and
+    ``ranges`` pointing at ``scale_tensor``'s rows on ``device``."""
     from ._build import MutateParams
 
-    d = len(param_mins)
     mp = MutateParams()
     mp.mu, mp.clamp = mu, int(clamp_values)
     mp.alpha, mp.inv_alpha = alpha, 1.0 / alpha
     mp.ekb_alpha, mp.ekb_inv_alpha = step_factors(alpha, beta)
     mp.beta_scale, mp.root_two_over_pi, mp.min_step = beta_scale, root_two_over_pi, min_step
-    mp.mins[:d] = [float(m) for m in param_mins]
-    mp.ranges[:d] = [float(b) - float(a) for a, b in zip(param_mins, param_maxs)]
+    scale = scale_tensor(tuple(map(float, param_mins)), tuple(map(float, param_maxs)),
+                         str(torch.device(device)))
+    mp.mins, mp.ranges = scale[0].data_ptr(), scale[1].data_ptr()
     return mp
 
 
@@ -193,7 +210,7 @@ def _check_b2(parent_values, parent_steps, target_spectrum, dft_packed, dft_scal
         lead = "" if runs is None else "B, "
         raise ValueError(f"{topology} needs parents of shape ({lead}mu, {topology_dims(topology)})")
     k = dft_packed.shape[0] // 2
-    check_kernel_shapes(n, k, dft_packed, target_spectrum, num_frames, runs)
+    check_kernel_shapes(n, k, dft_packed, target_spectrum, num_frames, runs, d)
     for t in (parent_steps, dft_packed, target_spectrum):
         if t.device != parent_values.device:
             raise ValueError(f"operands must be on {parent_values.device}, got {t.device}")
@@ -346,20 +363,21 @@ def fused_generation(
         dft_scale=dft_scale, sine_order=sine_order, frames=num_frames,
     )
     mp = mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale,
-                              root_two_over_pi, clamp_values, min_step)
+                              root_two_over_pi, clamp_values, min_step, dev)
     fitness = torch.empty((*lead, pop), dtype=torch.float32, device=dev)
     values = torch.empty((*lead, pop, d), dtype=torch.float32, device=dev)
     steps = torch.empty((*lead, pop, d), dtype=torch.float32, device=dev)
     rs = None if runs is None else seeds_tensor(seeds, dev)
     nruns = runs or 1
+    lscratch = long_scratch(sp, topology, long_rows(pop, nruns), dev)  # noqa: F841 (kept)
     args = (0 if runs else seeds & 0xFFFFFFFF, None if rs is None else rs.data_ptr(),
             pv.data_ptr(), ps.data_ptr(), pop, nruns, sp, mp, dft_packed.data_ptr(),
             target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     mode = operand_mode(dft_packed.dtype, dft_scale)
     if mode == "f32":
-        scratch = torch.empty((f32_scratch_floats(pop, n, num_frames, nruns),),
-                              dtype=torch.float32, device=dev)
+        scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns), dev,
+                                "the f32 scratch")
         err = library().pmfm_fused_generation_f32(*args, scratch.data_ptr(), scratch.numel(),
                                                   stream)
     elif mode == "bf16":

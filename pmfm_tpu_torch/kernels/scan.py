@@ -31,7 +31,9 @@ from ..ops.wavetable import (
 )
 
 SCAN_THREADS = 128  # csrc SCAN_TPB: candidates (threads) per block
-SCAN_MAX_K = 32  # csrc SCAN_MAX_K: the longest chain (oscillators or pairs) the kernel takes
+# chains with a compile-time instantiation (csrc dispatch_topo's SCAN_CASE);
+# any other length reads it at run time, its state in a scratch
+SCAN_FIXED = {"fm2": (1,), "series": (3, 4, 5, 6, 7, 8), "parallel": (2, 3, 4)}
 _TOPO_KIND = {"fm2": 0, "series": 1, "parallel": 2}  # csrc ScanTopo
 
 
@@ -65,11 +67,11 @@ def scan_launch(pop: int, n: int, topology: str, osc_mode: str, out_dtype: torch
                 sample_rate: int = DEFAULT_SAMPLE_RATE) -> dict:
     """The kernel's launch: ``grid`` and ``block``, the topology kind and
     chain length, the oscillator and output codes and ``ScanParams``'
-    values. Chains of up to ``SCAN_MAX_K`` oscillators or pairs (the kernel
-    keeps their state in local memory above fm8_series and fm4_parallel)."""
+    values, and ``state_floats``, the scratch of a chain of any other length
+    than the compile-time ones (``SCAN_FIXED``: above fm8_series and
+    fm4_parallel the kernel keeps each candidate's state there, csrc
+    ``scan_state_floats``), 0 for those."""
     kind, k = _chain(topology)
-    if k > SCAN_MAX_K:
-        raise ValueError(f"{topology}: the scan kernel takes chains of up to {SCAN_MAX_K}")
     if osc_mode not in OSC_MODES:
         raise ValueError(f"osc_mode must be one of {OSC_MODES}, got {osc_mode!r}")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -78,7 +80,9 @@ def scan_launch(pop: int, n: int, topology: str, osc_mode: str, out_dtype: torch
     return dict(
         grid=-(-pop // SCAN_THREADS), block=SCAN_THREADS, topo=_TOPO_KIND[kind], k=k,
         osc=OSC_MODES.index(osc_mode), bf16=int(out_dtype == torch.bfloat16),
-        n=n, pop=pop, inv_k=float(np.float32(1.0 / k)), table_max=wavetable_size - 1, **c,
+        n=n, pop=pop, inv_k=float(np.float32(1.0 / k)), table_max=wavetable_size - 1,
+        state_floats=0 if k in SCAN_FIXED[kind] else (3 if kind == "series" else 6) * k * pop,
+        **c,
     )
 
 
@@ -177,6 +181,7 @@ def scan_synth(
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from ._build import ScanParams, check, library
+    from .synth_fitness import alloc_scratch
 
     params = params_scaled.to(torch.float32).contiguous()
     pop = params.shape[0]
@@ -189,11 +194,13 @@ def scan_synth(
         if table.numel() != wavetable_size:
             raise ValueError(f"wavetable must hold {wavetable_size} entries, got {table.numel()}")
     out = torch.empty((n_samples, pop), dtype=out_dtype, device=dev)
+    state = alloc_scratch(la["state_floats"], dev, f"{topology}'s scan state")
     sp = ScanParams(n=n_samples, pop=pop, k=la["k"], w2sr=la["w2sr"], size=la["size"],
                     scale=la["scale"], inv_k=la["inv_k"], table_max=la["table_max"])
     err = library().pmfm_scan_synth(
         params.data_ptr(), la["topo"], la["osc"], la["bf16"], sp,
-        None if table is None else table.data_ptr(), out.data_ptr(),
+        None if table is None else table.data_ptr(), state.data_ptr(), state.numel(),
+        out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "scan_synth")

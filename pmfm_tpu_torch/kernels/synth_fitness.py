@@ -73,14 +73,19 @@ The run axis (the port's counterpart of the reference's ``vmap`` over the
 launch, ``(B, P)`` out; run r's fitness is bit-equal to a lone launch on run
 r's candidates and target.
 
-Ported: ``fm2``, ``fm{k}_series`` (k <= 16) and ``fm{k}_parallel`` (k <= 8),
-up to 32 genes, at any frame count and with the run axis, in all three
-modes; every kernel (B1-B5) takes the same topologies
-(``check_supported_topology``), and a wider one raises
-``NotImplementedError``. Chains up to fm8_series and banks up to
+Ported: ``fm2``, every ``fm{k}_series`` (k >= 3) and every
+``fm{k}_parallel`` (k >= 2), at any frame count and with the run axis, in
+all three modes; every kernel (B1-B5) takes the same topologies
+(``check_supported_topology``). Chains up to fm8_series and banks up to
 fm5_parallel have a compile-time instantiation each; longer chains and
-larger banks share one runtime-length instantiation a kernel, mode and
-sine order (csrc ``WIDE_CHAIN``, ``WIDE_BANK``).
+larger banks up to 32 genes share one runtime-length instantiation a
+kernel, mode and sine order (csrc ``WIDE_CHAIN``, ``WIDE_BANK``), and above
+``LONG_ABOVE_GENES`` the long code takes any length (csrc ``LONG_CODE``,
+``synth_common.cuh::LongSynth``: segments of oscillators or pairs over each
+time block, the carries in a scratch the wrapper allocates,
+``long_scratch``). The only limit is memory: a block's staged parameters
+must fit its shared memory (``shared_bytes``) and the scratch the card's
+memory, else the wrapper raises ``ValueError`` naming the bytes.
 """
 from __future__ import annotations
 
@@ -97,7 +102,12 @@ from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 
 DEFAULT_POP_BLOCK = 512
 TIME_BLOCK = 128
-MAX_GENES = 32  # csrc MAX_D: fm16_series (MAX_KN 16) and fm8_parallel (MAX_PAIRS 8)
+# above this many genes every kernel takes the long synthesis code (csrc
+# LONG_CODE); at or below it the fixed and wide codes (csrc MAX_D: fm16_series
+# and fm8_parallel). A check on the card lowers it to hold the long code bit
+# for bit against the fixed and wide ones.
+LONG_ABOVE_GENES = 32
+LONG_ROW_PAD = 128  # csrc LONG_ROW_PAD: a run's rows of the B1/B2 long scratch
 CUDA_BLOCK = 32  # csrc TC_CPB: int8 B1/B2 candidates per CUDA block (one warp)
 F32_GROUPS = 8  # csrc DF_GROUPS: the f32 fitness's bin groups
 F32_SYNTH_THREADS = 128  # csrc SY_TPB: B1/B2 f32 synthesis, candidates (threads) per block
@@ -206,18 +216,47 @@ def check_supported(topology: str, dft_packed: torch.Tensor, dft_scale: float,
 
 def check_supported_topology(topology: str) -> None:
     """Raise ``NotImplementedError`` for a topology the kernels do not take:
-    every kernel (B1-B5) takes fm2, fm{k}_series (k <= 16) and
-    fm{k}_parallel (k <= 8), up to the kernels' 32 genes (csrc ``MAX_D``)."""
-    k = parallel_pairs(topology)
-    kn = series_ops(topology)
-    if topology != "fm2" and k is None and kn is None:
+    every kernel (B1-B5) takes fm2, fm{k}_series and fm{k}_parallel at any
+    length, as the reference's kernels do."""
+    if topology != "fm2" and parallel_pairs(topology) is None and series_ops(topology) is None:
         raise NotImplementedError(f"{topology}: only fm2, fm{{k}}_series and fm{{k}}_parallel "
                                   f"are ported")
-    d = topology_dims(topology)
-    if d > MAX_GENES:
-        raise NotImplementedError(
-            f"{topology}: {d} genes, above the kernels' {MAX_GENES}, is not ported yet "
-            f"(ROADMAP Queue B item 3 (D > {MAX_GENES})); the unfused engines take it")
+
+
+def uses_long_code(topology: str) -> bool:
+    """Whether the kernels run ``topology`` with the long synthesis code:
+    above ``LONG_ABOVE_GENES`` genes (fm2 never)."""
+    return topology != "fm2" and topology_dims(topology) > LONG_ABOVE_GENES
+
+
+def alloc_scratch(floats: int, device, what: str) -> torch.Tensor:
+    """``floats`` float32 of device scratch; ``ValueError`` naming the bytes
+    asked for and the bytes free when the card does not have them."""
+    try:
+        return torch.empty((floats,), dtype=torch.float32, device=device)
+    except torch.OutOfMemoryError:
+        free = torch.cuda.mem_get_info(device)[0] if torch.device(device).type == "cuda" else 0
+        raise ValueError(f"{what}: needs {4 * floats} bytes of device memory, "
+                         f"{free} free") from None
+
+
+def long_rows(pop: int, runs: int = 1) -> int:
+    """Rows of the B1/B2 long scratch: a row a synthesising thread, each
+    run's population padded to ``LONG_ROW_PAD`` (csrc ``long_row``)."""
+    return runs * -(-pop // LONG_ROW_PAD) * LONG_ROW_PAD
+
+
+def long_scratch(sp, topology: str, rows: int, device):
+    """Set ``sp`` (the kernels' ``SynthParams``) to the long code when
+    ``topology`` takes it, with a scratch of ``rows`` rows of 2 x D floats
+    (a row's scaled parameters, then its carries: csrc ``LongSynth``), and
+    return the scratch (None for the other codes), which the caller keeps
+    until the launch is enqueued."""
+    if not uses_long_code(topology):
+        return None
+    scratch = alloc_scratch(2 * sp.d * rows, device, f"{topology}'s long-code scratch")
+    sp.long_code, sp.lrows, sp.lscr = 1, rows, scratch.data_ptr()
+    return scratch
 
 
 def _chain_rows(p: torch.Tensor, topology: str, inv_sr: float):
@@ -538,38 +577,45 @@ def f32_geometry(pop: int, n: int, k: int, frames: int = 1, runs: int = 1) -> di
     )
 
 
-def shared_bytes(n: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of a B1/B2 block at frames of ``n`` samples in
-    the mode of an operand of ``dtype`` (csrc ``tc_eval.cuh``'s ``n * TC_CPB
-    * sizeof(element)`` and ``fused_f32.cu``'s ``DF_SMEM``): int8 and bf16,
-    the folded audio of its ``CUDA_BLOCK`` candidates, ``CUDA_BLOCK`` x n
-    elements (at n 3584 in bf16, 229,376 of the block's 232,448 bytes; B2's
-    scaled parameters share the space before the synthesis writes it); true
-    f32, the DFT's fixed stages (a+/a- live in scratch). B5 runs these
-    kernels, and its selection block does not grow with the frame."""
+def shared_bytes(n: int, dtype: torch.dtype, d: int = 0) -> int:
+    """Dynamic shared memory of a B1/B2 block at frames of ``n`` samples and
+    ``d`` genes in the mode of an operand of ``dtype`` (csrc
+    ``tc_eval.cuh::tc_smem`` and ``fused_f32.cu``'s ``DF_SMEM``): int8 and
+    bf16, the larger of the folded audio of its ``CUDA_BLOCK`` candidates,
+    ``CUDA_BLOCK`` x n elements (at n 3584 in bf16, 229,376 of the block's
+    232,448 bytes), and their ``CUDA_BLOCK`` x d scaled parameters, staged in
+    the same space before the synthesis writes it (the larger above d = n x
+    element / 4: 64 genes at int8 n 256); true f32, the DFT's fixed stages
+    (a+/a- live in scratch, and the synthesis block stages at most 32 genes
+    in static shared memory: the long code reads its parameters from the long
+    scratch). B5 runs these kernels, and its selection block does not grow
+    with the frame."""
     if dtype == torch.float32:
         return F32_DFT_SHARED_BYTES
-    return n * CUDA_BLOCK * (2 if dtype == torch.bfloat16 else 1)
+    return max(n * CUDA_BLOCK * (2 if dtype == torch.bfloat16 else 1), CUDA_BLOCK * d * 4)
 
 
-def fits_shared_memory(n: int, dtype: torch.dtype) -> bool:
-    """Whether B1/B2/B5 take frames of ``n`` samples in the mode of an
-    operand of ``dtype`` (int8, bf16 or f32): n <= ``MAX_FUSED_N`` (3584) in
-    all three, the port's stated frame limit, under which a block's shared
-    memory also holds. The limit is the reference's engine ladder, not the
-    card's: the int8 and f32 blocks would fit larger frames, but n >= 4096
-    stays with B3 as in the reference. The one definition of the fused
-    kernels' size limit, read by the wrappers (B5's through
-    ``generation._check_b2``) and by ``es.strategy._fused_ok``."""
-    return n <= MAX_FUSED_N and shared_bytes(n, dtype) <= MAX_SHARED_BYTES
+def fits_shared_memory(n: int, dtype: torch.dtype, d: int = 0) -> bool:
+    """Whether B1/B2/B5 take frames of ``n`` samples (and ``d`` genes) in the
+    mode of an operand of ``dtype`` (int8, bf16 or f32): n <= ``MAX_FUSED_N``
+    (3584) in all three, the port's stated frame limit, under which a
+    block's shared memory also holds, and a block's staged parameters within
+    it (``shared_bytes``: above ~1800 genes in int8 and bf16). The frame
+    limit is the reference's engine ladder, not the card's: the int8 and f32
+    blocks would fit larger frames, but n >= 4096 stays with B3 as in the
+    reference. The one definition of the fused kernels' size limit, read by
+    the wrappers (B5's through ``generation._check_b2``) and by
+    ``es.strategy._fused_ok``."""
+    return n <= MAX_FUSED_N and shared_bytes(n, dtype, d) <= MAX_SHARED_BYTES
 
 
 def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.Tensor,
-                        frames: int = 1, runs: int | None = None) -> None:
+                        frames: int = 1, runs: int | None = None, d: int = 0) -> None:
     """Raise on operands the CUDA kernels do not take: the folded operand
     (2K, N/2), int8, bfloat16 or float32, and a contiguous float32 target:
     (K,) or (F, K) for one run, (B, F, K) (or (B, K) at one frame) for
-    ``runs`` = B."""
+    ``runs`` = B; ``ValueError`` naming the bytes where a block's ``d``
+    staged parameters do not fit its shared memory (``shared_bytes``)."""
     if n % (2 * TIME_BLOCK):
         raise ValueError(f"n={n} must be a multiple of {2 * TIME_BLOCK} (the fold pairs blocks)")
     if not fits_shared_memory(n, dft_packed.dtype):
@@ -577,6 +623,10 @@ def check_kernel_shapes(n: int, k: int, dft_packed: torch.Tensor, target: torch.
             f"n={n}: above the fused kernels' frame limit {MAX_FUSED_N} "
             f"(larger frames take the synth_fold route, kernel B3)"
         )
+    need = shared_bytes(n, dft_packed.dtype, d)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"{d} genes at n={n}: a B1/B2 block needs {need} bytes of shared "
+                         f"memory, has {MAX_SHARED_BYTES}")
     if k % 8:
         raise ValueError(f"num_bins={k} must be a multiple of 8")
     if dft_packed.dtype not in OPERAND_DTYPES or tuple(dft_packed.shape) != (2 * k, n // 2):
@@ -613,7 +663,7 @@ def _check_b1(params_scaled, target_spectrum, dft_packed, dft_scale, topology, n
     if d != topology_dims(topology):
         raise ValueError(f"{topology} needs {topology_dims(topology)} params, got {d}")
     k = dft_packed.shape[0] // 2
-    check_kernel_shapes(n, k, dft_packed, target_spectrum, num_frames, runs)
+    check_kernel_shapes(n, k, dft_packed, target_spectrum, num_frames, runs, d)
     for t in (dft_packed, target_spectrum):
         if t.device != params_scaled.device:
             raise ValueError(f"operands must be on {params_scaled.device}, got {t.device}")
@@ -708,10 +758,11 @@ def fused_synth_fitness(
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     nruns = runs or 1
+    lscratch = long_scratch(sp, topology, long_rows(pop, nruns), dev)  # noqa: F841 (kept)
     mode = operand_mode(dft_packed.dtype, dft_scale)
     if mode == "f32":
-        scratch = torch.empty((f32_scratch_floats(pop, n, num_frames, nruns),),
-                              dtype=torch.float32, device=dev)
+        scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns), dev,
+                                "the f32 scratch")
         err = library().pmfm_fused_synth_fitness_f32(
             params.data_ptr(), pop, nruns, sp, dft_packed.data_ptr(), target_spectrum.data_ptr(),
             fitness.data_ptr(), scratch.data_ptr(), scratch.numel(), stream,

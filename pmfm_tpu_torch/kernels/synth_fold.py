@@ -30,7 +30,9 @@ gain_j sin_j)`` with ``mag_scale = s * dft_scale`` (``bank_gains``), bf16
 the pair mean rounded to bf16 with ``mag_scale`` 1. In the time-parallel
 layout a bank's pairs are independent chains of two: one level a pair
 finds its carrier's offsets, and one emitting pass sums the pairs in pair
-order.
+order. Above 32 genes the long code (``synth_fitness.uses_long_code``)
+takes the single pass at every population: a long chain's levels would
+recompute kn (kn + 1) / 2 oscillators a sample.
 
 Not ported, because they work around Mosaic's VMEM and compile time and
 Hopper has neither limit here: ``fold_pop_block``, ``fold_vmem_ok``,
@@ -52,9 +54,11 @@ from .synth_fitness import (
     chain_length,
     check_supported_topology,
     inv_sample_rate,
+    long_scratch,
     resolve_pop_block,
     synth_blocks_plain,
     synth_params_struct,
+    uses_long_code,
 )
 
 
@@ -104,10 +108,11 @@ def fold_geometry(pop: int, n: int, int8: bool, topology: str) -> dict:
     the frame (n int8 or bf16 elements) and the level totals (n/128 floats)
     fit a block's ``shared_bytes`` of shared memory: the time-parallel
     layout, a CUDA block a candidate, one warp whose lanes split the time
-    blocks. Else the single pass: 32 candidates a block, one thread each, no
-    shared memory."""
+    blocks. Else, and for the long code at every population, the single
+    pass: 32 candidates a block, one thread each, no shared memory."""
     smem = n * (1 if int8 else 2) + 4 * (n // TIME_BLOCK)
-    if pop < FOLD_TP_BELOW_POP[fold_shape(topology), int8] and smem <= MAX_SHARED_BYTES:
+    if (not uses_long_code(topology) and pop < FOLD_TP_BELOW_POP[fold_shape(topology), int8]
+            and smem <= MAX_SHARED_BYTES):
         return dict(time_parallel=True, blocks=pop, threads=32, shared_bytes=smem)
     return dict(time_parallel=False, blocks=-(-pop // 32), threads=32, shared_bytes=0)
 
@@ -222,6 +227,7 @@ def fused_synth_fold(
         topology=topology, n=n, k=0, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
         dft_scale=dft_scale, sine_order=sine_order,
     )
+    lscratch = long_scratch(sp, topology, pop, dev)  # noqa: F841 (kept until enqueued)
     err = library().pmfm_synth_fold(
         params.data_ptr(), pop, sp, a_plus.data_ptr(), a_minus.data_ptr(), edge.data_ptr(),
         mag_scale.data_ptr(), int(int8), int(geo["time_parallel"]),

@@ -7,9 +7,10 @@ carries kept in scratch across the sequential time-chunk axis). The CUDA
 kernel is ``synth_stream_kernel`` in ``csrc/large_frame.cu``; its note gives
 its bound on an H100 and its design: time split across the 16 warps of a
 block of 32 candidates, each warp's phase offsets found exactly level by
-level (``stream_geometry`` mirrors its launch). ``fused_synth_stream_plain``
-is its plain PyTorch version, which walks the time axis in chunks of
-``stream_chunk(n)`` samples as the TPU grid does.
+level (``stream_geometry`` mirrors its launch); above 32 genes the long
+code's ``synth_stream_long_kernel``, a thread a candidate over the frame.
+``fused_synth_stream_plain`` is its plain PyTorch version, which walks the
+time axis in chunks of ``stream_chunk(n)`` samples as the TPU grid does.
 
 Output: windowed time-major audio ``sin * amp * w[m]`` (N, P), bf16, or f32
 with ``audio_f32`` (the true-f32 engine), for
@@ -29,12 +30,15 @@ from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
     TIME_BLOCK,
+    alloc_scratch,
     bank_amp,
     check_supported_topology,
     inv_sample_rate,
+    long_scratch,
     resolve_pop_block,
     synth_blocks_plain,
     synth_params_struct,
+    uses_long_code,
 )
 
 # time blocks per chunk of the plain version's walk (the TPU kernel's
@@ -45,14 +49,19 @@ STREAM_WARPS = 16  # csrc ST_WARPS: runs of time blocks (warps) a CUDA block
 STREAM_SHARED_MAX = 64 * 1024  # csrc ST_SMEM_MAX: level totals in shared memory up to this
 
 
-def stream_geometry(pop: int, n: int) -> dict:
-    """The B4 launch for ``pop`` candidates and frames of ``n`` (csrc
-    ``pmfm_synth_stream``): CUDA blocks of ``STREAM_CANDIDATES`` candidates x
-    ``STREAM_WARPS`` warps, the time blocks a warp walks (the first warps'
-    count; later warps may take one more), and where the level totals live,
-    32 x n/128 floats a block: ``shared_bytes`` of shared memory up to
-    ``STREAM_SHARED_MAX``, else ``scratch_floats`` of device memory that the
-    wrapper allocates."""
+def stream_geometry(pop: int, n: int, topology: str = "fm3_series") -> dict:
+    """The B4 launch for ``pop`` candidates of ``topology`` and frames of
+    ``n`` (csrc ``pmfm_synth_stream``): CUDA blocks of ``STREAM_CANDIDATES``
+    candidates x ``STREAM_WARPS`` warps, the time blocks a warp walks (the
+    first warps' count; later warps may take one more), and where the level
+    totals live, 32 x n/128 floats a block: ``shared_bytes`` of shared
+    memory up to ``STREAM_SHARED_MAX``, else ``scratch_floats`` of device
+    memory that the wrapper allocates. The long code (above 32 genes) runs a
+    thread a candidate over the whole frame instead, one warp a block, with
+    no totals (csrc ``synth_stream_long_kernel``)."""
+    if uses_long_code(topology):
+        return dict(blocks=-(-pop // STREAM_CANDIDATES), threads=STREAM_CANDIDATES,
+                    blocks_per_warp=n // TIME_BLOCK, shared_bytes=0, scratch_floats=0)
     blocks = -(-pop // STREAM_CANDIDATES)
     tot_floats = STREAM_CANDIDATES * (n // TIME_BLOCK)
     in_smem = 4 * tot_floats <= STREAM_SHARED_MAX
@@ -157,12 +166,13 @@ def fused_synth_stream(
     params = params_scaled.to(torch.float32).contiguous()
     pop, d = params.shape
     out = torch.empty((n, pop), dtype=torch.float32 if audio_f32 else torch.bfloat16, device=dev)
-    scratch = torch.empty((stream_geometry(pop, n)["scratch_floats"],), dtype=torch.float32,
-                          device=dev)
+    scratch = alloc_scratch(stream_geometry(pop, n, topology)["scratch_floats"], dev,
+                            "B4's level totals")
     sp = synth_params_struct(
         topology=topology, n=n, k=0, d=d, inv_sr=inv_sample_rate(wavetable_size, sample_rate),
         dft_scale=0.0, sine_order=sine_order,
     )
+    lscratch = long_scratch(sp, topology, pop, dev)  # noqa: F841 (kept until enqueued)
     err = library().pmfm_synth_stream(
         params.data_ptr(), pop, sp, window.data_ptr(), out.data_ptr(), int(audio_f32),
         scratch.data_ptr(), scratch.numel(), torch.cuda.current_stream(dev).cuda_stream,

@@ -561,11 +561,13 @@ def test_evolve_fused_evolve_is_one_launch(cuda):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("osc_mode", ["floor", "exact", "table"])
 @pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm8_series", "fm3_parallel",
-                                      "fm10_series", "fm5_parallel"])
+                                      "fm10_series", "fm5_parallel", "fm33_series",
+                                      "fm33_parallel"])
 def test_scan_kernel_bit_equal_to_plain(cuda, topology, osc_mode, out_dtype):
     """csrc/scan_synth.cu bit for bit against its plain loop over samples,
     at every chain class (compile-time lengths and the runtime-length
-    instantiation), oscillator and output type."""
+    instantiation, its state in the wrapper's scratch, past 32 included),
+    oscillator and output type."""
     from pmfm_tpu_torch.kernels import scan as ss
 
     d = topology_dims(topology)
@@ -628,7 +630,8 @@ F32_MAX_REL, F32_MEDIAN_REL = 1e-5, 1e-6  # chip_smoke.py's B1/B2 f32 limits
 @pytest.mark.parametrize("dtype", ["int8", "float32"])
 @pytest.mark.parametrize("frames", [2, 8])
 @pytest.mark.parametrize("topology,n", [("fm3_series", 2048), ("fm2", 1024),
-                                        ("fm3_parallel", 1024)])
+                                        ("fm3_parallel", 1024), ("fm9_parallel", 1024),
+                                        ("fm17_series", 2048)])
 def test_b1_b2_frames_kernel_matches_plain(cuda, topology, n, frames, dtype):
     """B1 and B2 at F frames against their plain versions (int8 1e-3 / 1e-5,
     f32 1e-5 / 1e-6), B2's values bit-equal, at a ragged population."""
@@ -970,3 +973,124 @@ def test_convergence_check_on_the_card(cuda, tmp_path):
     assert doc["meta"]["device"]["name"] not in ("", "cpu", "?")
     assert bench.generations_to_converge(str(path))["split"] == "holdout"
     assert set(bench.quality_holdout(str(path))) == {"int8+sin7+refine", "shipped"}
+
+
+# ---- above 32 genes: the long code in every kernel (Queue B item 3) ----
+# (chip_smoke.py phase 41's checks)
+
+LONG = ["fm9_parallel", "fm16_parallel", "fm17_series"]
+
+
+@pytest.mark.parametrize("kernel", ["B1 int8", "B1 bfloat16", "B1 float32", "B2 int8",
+                                    "B2 bfloat16", "B2 float32", "B3 int8", "B3 bf16", "B4 f32",
+                                    "B4 bf16"])
+@pytest.mark.parametrize("topology", WIDE + ["fm3_parallel", "fm4_series"])
+def test_long_code_bit_equal_to_fixed_and_wide(cuda, monkeypatch, topology, kernel):
+    """With LONG_ABOVE_GENES lowered to 4, the long code takes topologies the
+    fixed and wide codes run, and every output is theirs bit for bit."""
+    from pmfm_tpu_torch.ops import spectral
+
+    which, mode = kernel.split()
+    p = _topology_params(cuda, 1000, topology, seed=5)
+    d = p.shape[1]
+    if which in ("B1", "B2"):
+        so = spectral.make_spectrum_ops(1024, None, dft_dtype=mode, device=cuda)
+        tgt = torch.rand(so.num_bins, device=cuda) * 50
+        kw = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology,
+                  n=1024, sine_order=9)
+        pv = torch.rand((64, d), device=cuda)
+        ps = torch.full((64, d), 0.1, device=cuda)
+        maxs = ((3520.0, 8.0, 3520.0, 1.0) * (d // 4) if "parallel" in topology
+                else (3520.0, 8.0) * (d // 2))
+
+        def run():
+            if which == "B1":
+                return (sf.fused_synth_fitness(p, tgt, **kw),)
+            return gn.fused_generation(3, pv, ps, tgt, pop=1000, param_mins=(0.0,) * d,
+                                       param_maxs=maxs, **kw)
+    elif which == "B3":
+        def run():
+            return sfo.fused_synth_fold(p, topology=topology, n=4096, sine_order=7,
+                                        dft_scale=1e-5 if mode == "int8" else 0.0)
+    else:
+        win = torch.from_numpy(hann_window(8192).astype(np.float32)).to(cuda)
+
+        def run():
+            return (sst.fused_synth_stream(p, win, topology=topology, n=8192, sine_order=7,
+                                           audio_f32=mode == "f32"),)
+    want = run()
+    monkeypatch.setattr(sf, "LONG_ABOVE_GENES", 4)
+    assert sf.uses_long_code(topology)
+    got = run()
+    assert all(_bits_equal(a.float(), b.float()) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("pop", [1, 65, RAGGED_POP])
+@pytest.mark.parametrize("topology", LONG)
+@pytest.mark.parametrize("n", [256, 1024, 3584])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_b1_b2_long_grid(cuda, dtype, n, topology, pop):
+    """B1/B2 above 32 genes (the long code) against their plain versions in
+    the int8 / bf16 and the f32 limits, B2's values bit-equal and its fitness
+    bit-equal to B1's on its own offspring (fm16_parallel at n 256: its 64
+    genes staged fill the int8 block's shared memory)."""
+    limits = (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL) if dtype == "float32" else (FIT_MAX_REL,
+                                                                              FIT_MEDIAN_REL)
+    _grid_case(cuda, dtype, n, None, topology, 9, pop, limits)
+
+
+@pytest.mark.parametrize("dft_scale", [1e-5, 0.0])
+@pytest.mark.parametrize("n", [4096, 8192])
+@pytest.mark.parametrize("topology", LONG)
+def test_b3_long_kernel_bit_equal_to_plain(cuda, topology, n, dft_scale):
+    """B3 above 32 genes (the long code's single pass at every population)
+    bit-equal to its plain version at each of LARGE_POPS."""
+    p = _topology_params(cuda, max(LARGE_POPS), topology, seed=n)
+    kw = dict(topology=topology, n=n, sine_order=9, dft_scale=dft_scale)
+    want = sfo.fused_synth_fold_plain(p, pop_block=max(LARGE_POPS), **kw)
+    for pop in LARGE_POPS:
+        assert not sfo.fold_geometry(pop, n, dft_scale > 0, topology)["time_parallel"]
+        got = sfo.fused_synth_fold(p[:pop], **kw)
+        assert all(torch.equal(a, b[..., :pop]) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("audio_f32", [False, True])
+@pytest.mark.parametrize("topology,n", [("fm9_parallel", 65536), ("fm17_series", 32768),
+                                        ("fm16_parallel", 8192)])
+def test_b4_long_kernel_bit_equal_to_plain(cuda, topology, n, audio_f32):
+    """B4 above 32 genes (the long code, a thread a candidate over the frame)
+    bit-equal to its plain version at each of LARGE_POPS."""
+    p = _topology_params(cuda, max(LARGE_POPS), topology, seed=n)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    kw = dict(topology=topology, n=n, sine_order=9, audio_f32=audio_f32)
+    want = sst.fused_synth_stream_plain(p, win, pop_block=max(LARGE_POPS), **kw)
+    for pop in LARGE_POPS:
+        assert torch.equal(sst.fused_synth_stream(p[:pop], win, **kw), want[:, :pop])
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("topology", ["fm9_parallel", "fm17_series"])
+def test_b5_long_bit_equal_to_b2_launches(cuda, topology, dtype):
+    """B5 above 32 genes: G generations in one call == G launches of B2's
+    long code + the stable selection, bit for bit, in each mode."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    pop, mu, d = RAGGED_POP, 64, topology_dims(topology)
+    maxs = ((3520.0, 8.0, 3520.0, 1.0) * (d // 4) if "parallel" in topology
+            else (3520.0, 8.0) * (d // 2))
+    so = make_spectrum_ops(ESConfig(num_dimensions=d, topology=topology, param_mins=(0.0,) * d,
+                                    param_maxs=maxs, audio_length_log2=10, dft_dtype=dtype),
+                           device=cuda)
+    rng = np.random.default_rng(d)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    pv, ps = t(rng.random((mu, d))), t(rng.uniform(0.02, 0.3, (mu, d)))
+    tgt = t(rng.uniform(0, 50, so.num_bins))
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=1024, pop_block=pop,
+              sine_order=9)
+    seeds = [kernel_seed(13, g) for g in range(6)]
+    args = (pv, ps, pv[0].clone(), torch.tensor(float("inf"), device=cuda), tgt)
+    out = ev.fused_evolve(seeds, *args, **kw)
+    loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+    assert all(_bits_equal(a, b) for a, b in zip(out, loop))
+

@@ -187,21 +187,23 @@ def test_fold_definition():
     dict(topology="fm5_parallel"),  # 20 genes: ported (Queue B item 3), so it runs
     dict(num_frames=2),  # multi-frame fitness: ported (ROADMAP Queue B item 8), so it runs
     dict(topology="fm9_series"),  # 18 genes, the wide chain: ported (item 3), so it runs
-    dict(topology="fm9_parallel"),  # 36 genes, above the kernels' 32: raises
+    dict(topology="fm9_parallel"),  # 36 genes, the long code: ported (item 3), so it runs
+    dict(topology="fm3_cascade"),  # neither fm2, fm{k}_series nor fm{k}_parallel: raises
 ])
 def test_unported_variants_raise(case):
-    """The variants B1/B2 do not take raise (a topology above the kernels'
-    32 genes, naming "item 3 (D > 32)"); the multi-frame mode, the bf16
-    mode, fm5_parallel and the wide chain, once among them, run: fitness
-    (P,) against a (K,) or (F, K) target, and B2's offspring."""
+    """The variants B1/B2 do not take raise (a topology that is neither fm2,
+    fm{k}_series nor fm{k}_parallel); the multi-frame mode, the bf16 mode,
+    fm5_parallel, the wide chain and 36 genes (the long code), once among
+    them, run: fitness (P,) against a (K,) or (F, K) target, and B2's
+    offspring."""
     _, to = _operands()
     topology = case.get("topology", "fm3_series")
-    d = tsyn.topology_dims(topology)
     kw = dict(dft_packed=to.dft_packed, dft_scale=to.dft_packed_scale, topology=topology, n=N)
     kw.update(case)
     if case.get("dft_scale") == 0.0:
         kw["dft_packed"] = tspec.make_spectrum_ops(N, dft_dtype="bfloat16", device="cpu").dft_packed
-    if d <= tsf.MAX_GENES:
+    if topology != "fm3_cascade":
+        d = tsyn.topology_dims(topology)
         frames = case.get("num_frames", 1)
         tgt = torch.ones((frames, to.num_bins)) if frames > 1 else torch.ones(to.num_bins)
         fit = tsf.fused_synth_fitness(torch.full((8, d), 100.0), tgt, **kw)
@@ -210,12 +212,12 @@ def test_unported_variants_raise(case):
         assert fit.shape == (8,) and torch.isfinite(fit).all()
         assert gen[1].shape == (8, d) and torch.isfinite(gen[0]).all()
         return
-    match = r"item 3 \(D > 32\)"
+    match = "only fm2, fm{k}_series and fm{k}_parallel are ported"
     with pytest.raises(NotImplementedError, match=match):
-        tsf.fused_synth_fitness(torch.zeros((8, d)), torch.zeros(to.num_bins), **kw)
+        tsf.fused_synth_fitness(torch.zeros((8, 6)), torch.zeros(to.num_bins), **kw)
     with pytest.raises(NotImplementedError, match=match):
-        tgen.fused_generation(0, torch.zeros((4, d)), torch.zeros((4, d)), torch.zeros(to.num_bins),
-                              pop=8, param_mins=(0.0,) * d, param_maxs=(1.0,) * d, **kw)
+        tgen.fused_generation(0, torch.zeros((4, 6)), torch.zeros((4, 6)), torch.zeros(to.num_bins),
+                              pop=8, param_mins=(0.0,) * 6, param_maxs=(1.0,) * 6, **kw)
 
 
 def test_wrapper_rejects_bad_operands():

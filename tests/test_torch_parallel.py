@@ -3,7 +3,8 @@ and B2 (fused_generation), k = 2..4, and 20 genes (fm5_parallel, the wide
 chain fm10_series), in their plain PyTorch versions on the CPU, against the
 pmfm_tpu Pallas kernels in interpret mode (as tests/test_torch_kernels.py
 and tests/test_torch_f32.py run them), in the int8 and the true-f32 mode;
-B3, B4 and B5 on a bank; and the raise above the kernels' 32 genes.
+B3, B4 and B5 on a bank and above 32 genes; and the raise for a topology
+the kernels do not know.
 
 Tolerances. int8: max relative 1e-3, median 1e-5 (test_torch_kernels.py's:
 the two sides' phase prefix sums differ in order, which can flip an int8
@@ -197,9 +198,10 @@ def test_bank_gains_and_amplitude():
 def test_parallel_mode_raises_outside_b1_b2():
     """B3, B4 and B5 take fm{k}_parallel (on the CPU, their plain versions):
     B3's a+/- and B4's audio of a bank are finite and its mag_scale is the
-    bank's s times dft_scale, B5 keeps its survivors; every kernel still
-    raises above the kernels' 32 genes (fm9_parallel, 36 genes), naming
-    ROADMAP Queue B item 3."""
+    bank's s times dft_scale, B5 keeps its survivors; above 32 genes
+    (fm9_parallel, 36 genes: the long code) every kernel runs too, with the
+    same shapes, and every kernel raises for a topology that is neither fm2,
+    fm{k}_series nor fm{k}_parallel."""
     d = 12
     rng = np.random.default_rng(3)
     p = torch.from_numpy((rng.random((4, d)) * np.asarray(_maxs("fm3_parallel")))
@@ -217,19 +219,32 @@ def test_parallel_mode_raises_outside_b1_b2():
                            torch.tensor(float("inf")), torch.rand(to.num_bins) * 10,
                            topology="fm3_parallel", **kw)
     assert out[0].shape == (4, d) and torch.isfinite(out[5]).all()
-    wide = torch.zeros((4, 36))
-    with pytest.raises(NotImplementedError, match=r"item 3 \(D > 32\)"):
-        tsfo.fused_synth_fold(wide, topology="fm9_parallel", n=4096, dft_scale=1.0)
-    with pytest.raises(NotImplementedError, match=r"item 3 \(D > 32\)"):
-        tss.fused_synth_stream(wide, torch.ones(32768), topology="fm9_parallel", n=32768)
-    with pytest.raises(NotImplementedError, match=r"item 3 \(D > 32\)"):
-        tev.fused_evolve([1], torch.zeros((4, 36)), torch.zeros((4, 36)), torch.zeros(36),
-                         torch.tensor(float("inf")), torch.zeros(to.num_bins),
-                         **dict(kw, param_mins=(0.0,) * 36, param_maxs=(1.0,) * 36),
-                         topology="fm9_parallel")
-    with pytest.raises(NotImplementedError, match=r"item 3 \(D > 32\)"):
-        tsf.fused_synth_fitness(wide, torch.zeros(to.num_bins), dft_packed=to.dft_packed,
-                                dft_scale=to.dft_packed_scale, topology="fm9_parallel", n=N)
+    wide = torch.from_numpy((rng.random((4, 36)) * np.asarray((3520.0, 8.0, 3520.0, 1.0) * 9))
+                            .astype(np.float32))
+    ap, am, edge, ms = tsfo.fused_synth_fold(wide, topology="fm9_parallel", n=4096, dft_scale=1.0)
+    assert ap.shape == (2048, 4) and ap.dtype == torch.int8 and torch.isfinite(edge).all()
+    audio = tss.fused_synth_stream(wide, torch.ones(4096), topology="fm9_parallel", n=4096)
+    assert audio.shape == (4096, 4) and torch.isfinite(audio.float()).all()
+    kw36 = dict(kw, param_mins=(0.0,) * 36, param_maxs=(1.0,) * 36)
+    out = tev.fused_evolve([1], torch.rand((4, 36)), torch.full((4, 36), 0.1), torch.zeros(36),
+                           torch.tensor(float("inf")), torch.rand(to.num_bins) * 10, **kw36,
+                           topology="fm9_parallel")
+    assert out[0].shape == (4, 36) and torch.isfinite(out[5]).all()
+    fit = tsf.fused_synth_fitness(wide, torch.zeros(to.num_bins), dft_packed=to.dft_packed,
+                                  dft_scale=to.dft_packed_scale, topology="fm9_parallel", n=N)
+    assert fit.shape == (4,) and torch.isfinite(fit).all()
+    odd = torch.zeros((4, 12))
+    match = "only fm2, fm{k}_series and fm{k}_parallel are ported"
+    with pytest.raises(NotImplementedError, match=match):
+        tsfo.fused_synth_fold(odd, topology="fm3_cascade", n=4096, dft_scale=1.0)
+    with pytest.raises(NotImplementedError, match=match):
+        tss.fused_synth_stream(odd, torch.ones(32768), topology="fm3_cascade", n=32768)
+    with pytest.raises(NotImplementedError, match=match):
+        tev.fused_evolve([1], odd, odd, torch.zeros(12), torch.tensor(float("inf")),
+                         torch.zeros(to.num_bins), **kw, topology="fm3_cascade")
+    with pytest.raises(NotImplementedError, match=match):
+        tsf.fused_synth_fitness(odd, torch.zeros(to.num_bins), dft_packed=to.dft_packed,
+                                dft_scale=to.dft_packed_scale, topology="fm3_cascade", n=N)
 
 
 # -- 20 to 32 genes: fm5_parallel (compile-time bank), fm10_series (the wide chain) --
