@@ -128,6 +128,15 @@ through the entry points a user calls, and times each kernel:
   fm9_parallel config; the new instantiations' times. Phase 42, only when
   ``--only`` names it, the fm9_parallel pursuit through ``cli.main``, cut.
 
+* phase 43, B2 int8 on the fixed banks (fm2..fm5_parallel) in its
+  time-parallel layout (``csrc/fused_tp.cu``): fitness, values and steps
+  bit-equal to the one-warp layout over sine orders 5/7/9, P 2048/8191/8192
+  and runs 1 and 2 at n 1024; the new layout against its plain version at
+  fm5_parallel and B5 bit-equal to its time-parallel B2 launches; both
+  layouts' device times over the populations 2048 .. 2^16 at n 256 to
+  2048; the wrapper's host time a call; the cut fm5_parallel pursuit, its
+  B2 launches in the layout the wrapper takes.
+
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
 phases and the named ones, and prints no result line (``large`` names the
 large-frame inputs that phases 7-11, 33, 34 and 41 need).
@@ -160,7 +169,7 @@ TRUTH = (3078.0, 2.0, 3015.0, 1.5, 3141.0, 1.0)  # examples/params_match.json
 GENERATIONS = 200
 TIMED_LAUNCHES = 25
 HOST_FORM_CALLS = 200  # phase 16's host time of the one-run forms a call
-PLAIN_RUNS = 3
+PLAIN_RUNS = 1  # the plain versions' timed runs (3 before: the whole run's time)
 SPLIT_BINS = 8  # phase 6's synthesis-only B1: an operand and target of 8 bins
 # phase 4b: B1/B2 int8 over every frame the router sends them (multiples of
 # 256 up to 3584), the ported topologies, sine orders 5/7/9, and populations
@@ -168,15 +177,17 @@ SPLIT_BINS = 8  # phase 6's synthesis-only B1: an operand and target of 8 bins
 GRID_N = (256, 1024, 2048, 3584)
 GRID_TOPOLOGIES = ("fm2", "fm3_series", "fm8_series")
 GRID_SINE_ORDERS = (5, 7, 9)
-# two populations of tests/test_torch_gpu.py::test_b1_b2_int8_grid's five
-# (which holds all five, P 1 among them), so that the whole run with phase
-# 41 stays under ~820 s
-GRID_POPS = (65, 4001)
+# two populations: 65 of tests/test_torch_gpu.py::test_b1_b2_int8_grid's
+# five (which holds all five, P 1 and 4001 among them) and the ragged 1001
+# (a partly filled last block of 32 and of 128 candidates, as 4001's; a
+# quarter of its plain versions' time), so that the whole run with phases
+# 41 and 43 stays under the watchdog on a slower host
+GRID_POPS = (65, 1001)
 GRID_ODD_BINS = (1024, 200)  # (n, K): K not a multiple of the kernel's 32-bin pass
 # phase 12: phase 4b's grid for B1/B2 true f32, with populations around the f32
 # DFT's 128-candidate block (its bin passes are 64 bins of one group: K 200
 # leaves partial passes and groups of 3 and 4 tiles)
-F32_GRID_POPS = (129, 4001)  # of test_b1_b2_f32_grid's five, as GRID_POPS
+F32_GRID_POPS = (129, 1001)  # 129 of test_b1_b2_f32_grid's five, as GRID_POPS
 SEED = 20261017
 # the large-frame cells: the reference's chunk-size rows (bench_suite.py)
 FOLD_LOG2N, FOLD_POP, FOLD_GENERATIONS = 13, 1 << 15, 30  # (c) synth_fold, B3
@@ -194,9 +205,10 @@ LARGE_GRID_POPS = (1, 31, 33, 1000)
 FOLD_GRID = (("fm2", 5, 4096), ("fm3_series", 7, 4096), ("fm8_series", 9, 4096),
              ("fm2", 7, 8192), ("fm3_series", 9, 8192), ("fm8_series", 5, 8192),
              ("fm2", 9, 16384), ("fm3_series", 5, 16384), ("fm8_series", 7, 16384))
-# B4: fm2 and fm3_series at each frame (131072: the level totals in device
-# memory), fm8_series at the shortest; each sine order at 32768
-STREAM_GRID = (("fm2", 5, 131072), ("fm3_series", 7, 131072), ("fm2", 7, 65536),
+# B4: fm2 at each frame (131072: the level totals in device memory),
+# fm3_series at 65536 and 32768, fm8_series at the shortest; each sine order
+# at 32768
+STREAM_GRID = (("fm2", 5, 131072), ("fm2", 7, 65536),
                ("fm3_series", 9, 65536), ("fm2", 9, 32768), ("fm3_series", 5, 32768),
                ("fm8_series", 7, 32768))
 # phase 11: B3's two layouts across populations (the wrapper's
@@ -233,7 +245,9 @@ PROFILED_B5_CALLS = 3
 # B1/B2 at 20 genes (_wide: fm5_parallel int8, launches from phase 33's
 # pursuit); the long code above 32 genes (_long: fm9_parallel, B1/B2 in each
 # mode, B5, B3, B4 and the scan kernel at fm33_series, launches from phase
-# 41's paths)
+# 41's paths). B2 int8 on fm3_parallel (_parallel) and fm5_parallel (_wide)
+# is the kernel of the layout the wrapper takes there (generation.
+# time_parallel: csrc/fused_tp.cu), its launches that layout's
 KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream",
            "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve", "scan_synth",
            "fused_synth_fitness_parallel", "fused_generation_parallel",
@@ -285,7 +299,7 @@ PROFILED_LAUNCHES = 10
 # for bit, at the bench's shape, parameters.json's (population 32, n 2048)
 # and over chains x oscillators x output types at SCAN_GRID_POP, n 1024
 SCAN_GRID = ("fm2", "fm3_series", "fm8_series", "fm3_parallel")
-SCAN_GRID_POP = 4096
+SCAN_GRID_POP = 2048
 # sinf's fast path counted as f32 operations in the scan kernel's bound
 # (a three-term reduction and two short polynomials)
 SINF_OPS = 15
@@ -315,9 +329,9 @@ PARALLEL_TRUTH = (3076.48, 2.0, 3016.64, 0.9, 1936.0, 2.4, 2182.4, 0.8,
                   2499.2, 1.6, 1584.0, 0.7, 1161.6, 3.2, 985.6, 0.6)
 PARALLEL_TOPOLOGIES = ("fm2_parallel", "fm3_parallel", "fm4_parallel")
 PARALLEL_SINE_ORDERS = (7, 9)
-# (two populations keep the whole run under ~820 s with phase 41;
-# tests/test_torch_gpu.py::test_b1_b2_parallel_grid holds five)
-PARALLEL_GRID_POPS = (65, 4001)
+# (two populations, as GRID_POPS; tests/test_torch_gpu.py::
+# test_b1_b2_parallel_grid holds five)
+PARALLEL_GRID_POPS = (65, 1001)
 PARALLEL_TIMED = PARALLEL_TOPOLOGIES + ("fm3_series",)
 # phase 21: the pursuit solver through cli.main in PURSUIT_DIR: the first
 # example as written, its first chunk to a relative spectral error below
@@ -393,7 +407,7 @@ BF16_FRAMES, BF16_RUNS = 8, 4
 BF16_TOPOLOGIES = GRID_TOPOLOGIES + ("fm3_parallel",)
 # phase 26's grid populations (as GRID_POPS; tests/test_torch_gpu.py::
 # test_b1_b2_bf16_grid holds all five)
-BF16_GRID_POPS = (65, 4001)
+BF16_GRID_POPS = (65, 1001)
 BF16_B5_GENERATIONS = 10
 CACHE_LOG2N = 14
 SUITE_DIR = "build/chip_smoke_suite"
@@ -539,6 +553,33 @@ LONG_TIMED_LAUNCHES = 10
 # bf16 FLOP/s
 PEAK_BYTES, PEAK_INT8, PEAK_F32, PEAK_BF16 = 3.35e12, 1979e12, 67e12, 989e12
 
+# phase 43: B2 int8 on the fixed banks in its two layouts (csrc/fused_tp.cu's
+# time-parallel one against fused_eval.cu's one-warp one): bit-equal over
+# TP_BANKS x TP_SINE_ORDERS x TP_POPS x TP_RUNS at n 1024 (K 512, the
+# pursuit's polishes), each against a random target; B2 in the new layout
+# against its plain version at fm5_parallel, P 8192, the truth first; B5
+# bit-equal to TP_B5_GENERATIONS time-parallel B2 launches with the stable
+# selection; both layouts' device times over GEN_LAYOUT_POPS at the frames
+# TP_LAYOUT_N, sine order 9 (~6 s); the cut fm5_parallel pursuit's B2
+# launches by layout
+TP_BANKS = ("fm2_parallel", "fm3_parallel", "fm4_parallel", "fm5_parallel")
+TP_SINE_ORDERS = (5, 7, 9)
+TP_POPS = (2048, 8191, 8192)
+TP_RUNS = (None, 2)
+TP_B5_GENERATIONS = 5
+# the other frames, each bank at sine order 9, P TP_FRAME_POP, runs 1 and 2;
+# n 2048 is also timed, beside the n 1024 row it takes
+TP_FRAMES = (256, 512, 2048)
+TP_FRAME_POP = 1000
+TP_LAYOUT_N = (256, 512, 1024, 2048)
+GEN_LAYOUT_POPS = (2048, 4096, 8192, 16384, 1 << 15, 1 << 16)
+GEN_LAYOUT_LAUNCHES = 10
+HOST_CALLS = 100  # B2 calls timed on the host clock (the wrapper's time a launch)
+# cuda_ms: cycles of a spin kernel that hold the card while a timed run's
+# launches are queued behind it (~11 ms at 1.755 GHz, above the host's time
+# to queue them)
+QUEUE_SPIN_CYCLES = 20_000_000
+
 T0 = time.perf_counter()
 CARD = {"name": "?", "power_limit": "?"}
 
@@ -560,11 +601,14 @@ def cuda_ms(fn, runs: int) -> float:
     """Median device time of ``runs`` calls of ``fn()`` (after one warm-up).
 
     The calls are enqueued back to back with an event between each two and
-    one synchronise at the end, so the device does not wait on the host
-    between them and each interval is one call's device time."""
+    one synchronise at the end, behind a spin kernel that holds the card
+    while they are queued, so the device does not wait on the host between
+    them and each interval is one call's device time (a B2 launch's host
+    time, ~0.2 ms, is above a small population's kernel)."""
     fn()
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(runs + 1)]
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
     events[0].record()
     for e in events[1:]:
         fn()
@@ -625,6 +669,31 @@ def fold_layout(sfo, time_parallel: bool):
         yield
     finally:
         sfo.FOLD_TP_BELOW_POP = saved
+
+
+@contextlib.contextmanager
+def gen_layout(gn, time_parallel: bool):
+    """B2's wrapper in one layout (``TIME_PARALLEL``: the time-parallel one
+    where it applies, int8 on a fixed bank at one frame, or the one-warp one
+    everywhere), restored after."""
+    saved = gn.TIME_PARALLEL
+    gn.TIME_PARALLEL = time_parallel
+    try:
+        yield
+    finally:
+        gn.TIME_PARALLEL = saved
+
+
+def b2_layout(gn, kw2, k: int, d: int) -> str:
+    """The layout of the B2 int8 kernel that the wrapper launches for
+    ``kw2`` (its keyword arguments) at ``k`` bins and ``d`` genes."""
+    tp = gn.time_parallel(kw2["n"], k, d, kw2["topology"], True, kw2.get("num_frames", 1))
+    return "time_parallel" if tp else "one_warp"
+
+
+def b2_source(layout: str) -> str:
+    """The source of B2 int8's kernel in ``layout``."""
+    return f"pmfm_tpu_torch/csrc/{'fused_tp.cu' if layout == 'time_parallel' else 'fused_eval.cu'}"
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1249,8 +1318,9 @@ class Smoke:
     def reset_counts(self):
         for fn in self.counters().values():
             fn.launches = 0
-            if hasattr(fn, "launches_by"):
-                fn.launches_by.clear()
+            for attr in ("launches_by", "launches_by_layout"):
+                if hasattr(fn, attr):
+                    getattr(fn, attr).clear()
 
     def read_counts(self):
         return {name: fn.launches for name, fn in self.counters().items()}
@@ -2491,6 +2561,8 @@ class Smoke:
             src = "pmfm_tpu_torch/csrc/fused_eval.cu" if mode == "int8" else \
                 "pmfm_tpu_torch/csrc/fused_f32.cu"
             for name, (fn, plain, nbytes, i8, f32, replaces) in rows.items():
+                source = (b2_source(b2_layout(gn, kw2, k, d))
+                          if name == "fused_generation_parallel" else src)
                 ms = cuda_ms(fn, TIMED_LAUNCHES)
                 plain_ms = cuda_ms(plain, PLAIN_RUNS)
                 bound_ms, by = bound(nbytes, i8, f32)
@@ -2500,7 +2572,7 @@ class Smoke:
                     f"({nbytes / 1e6:.2f} MB, {i8 / 1e9:.1f} G int8 ops, {f32 / 1e9:.2f} G f32 "
                     f"ops) {card()}")
                 self.kernels.setdefault(name, {}).update(
-                    route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
+                    route="cuda", source=source, replaces=replaces, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=by, library_ms=None)
             line = []
             for topology in PARALLEL_TIMED:
@@ -2538,6 +2610,7 @@ class Smoke:
         import shutil
 
         import pmfm_tpu_torch.io
+        from pmfm_tpu_torch.kernels import generation as gn
 
         self.engine_memory()
         root = os.getcwd()
@@ -2552,6 +2625,8 @@ class Smoke:
                 as_written = config == PURSUIT_AS_WRITTEN
                 code, counts, modes, lines = self.pursuit_cli(
                     os.path.join(root, config), work, load if as_written else cut, as_written)
+                layouts = dict(gn.fused_generation.launches_by_layout)
+                log(f"{config}: B2 int8 launches by layout {layouts}")
                 require(code == 0 and lines, f"{config}: exit {code}")
                 if as_written:
                     require(modes["B2"].get("parallel_int8", 0) > 0
@@ -2559,6 +2634,10 @@ class Smoke:
                             and modes["B1"].get("parallel_int8", 0) > 0
                             and modes["B1"].get("parallel_f32", 0) > 0,
                             f"{config}: the parallel kernels did not all run: {modes}")
+                    # B2 int8 ran in one layout, the one phase 20 timed (b2_layout)
+                    require(len(layouts) == 1 and sum(layouts.values())
+                            == modes["B2"]["parallel_int8"],
+                            f"{config}: B2 int8 launches by layout {layouts}, by mode {modes}")
                     for name, kern, mode in (
                             ("fused_synth_fitness_parallel", "B1", "parallel_int8"),
                             ("fused_generation_parallel", "B2", "parallel_int8"),
@@ -3553,6 +3632,7 @@ class Smoke:
         import shutil
 
         import pmfm_tpu_torch.io
+        from pmfm_tpu_torch.kernels import generation as gn
 
         root = os.getcwd()
         work = os.path.join(root, PURSUIT_DIR)
@@ -3564,9 +3644,14 @@ class Smoke:
                 json.dump(fm5_parallel_config(root), f)
             code, counts, modes, lines = self.pursuit_cli(
                 path, work, pursuit_cut(pmfm_tpu_torch.io.load_config), False)
+            layouts = dict(gn.fused_generation.launches_by_layout)
+            log(f"fm5_parallel pursuit: B2 int8 launches by layout {layouts}")
             require(code == 0 and lines, f"fm5_parallel pursuit: exit {code}")
             require(modes["B2"].get("parallel_int8", 0) > 0 and modes["B1"].get(
                 "parallel_int8", 0) > 0, f"fm5_parallel pursuit: B1/B2 int8 did not run: {modes}")
+            # B2 int8 ran in one layout, the one phase 34 times (b2_layout)
+            require(len(layouts) == 1 and sum(layouts.values()) == modes["B2"]["parallel_int8"],
+                    f"fm5_parallel pursuit: B2 int8 launches by layout {layouts}")
             self.kernels.setdefault("fused_generation_wide", {})["launches"] = \
                 modes["B2"]["parallel_int8"]
             self.kernels.setdefault("fused_synth_fitness_wide", {})["launches"] = \
@@ -3743,7 +3828,7 @@ class Smoke:
             lambda: gn.fused_generation(seed, c5["pv"], c5["ps"], c5["target"], **kw2),
             lambda: gn.fused_generation_plain(seed, c5["pv"], c5["ps"], c5["target"], **kw2),
             io + 2 * mu * 20 * 4 + 2 * pop * 20 * 4, dft_ops, synth5 + pop * 20 * 12 * 2.0, 1,
-            "pmfm_tpu_torch/csrc/fused_eval.cu", "pmfm_tpu/kernels/generation.py:438",
+            b2_source(b2_layout(gn, kw2, k, 20)), "pmfm_tpu/kernels/generation.py:438",
             f"fm5_parallel, n={n}, P={pop}")
         for name, (fn, plain, nbytes, i8, f32, gens, src, rep, where) in rows.items():
             ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
@@ -4449,6 +4534,154 @@ class Smoke:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    # -- 43 -----------------------------------------------------------------
+    def tp_layout(self):
+        """B2 int8 on the fixed banks in its two layouts (csrc/fused_tp.cu's
+        time-parallel one, fused_eval.cu's one-warp one): fitness, values and
+        steps bit-equal over TP_BANKS x TP_SINE_ORDERS x TP_POPS x TP_RUNS;
+        the new layout against its plain version (the truth first, its
+        fitness bit-equal to B1's on its own offspring); B5 bit-equal to its
+        time-parallel B2 launches; both layouts' device times over
+        GEN_LAYOUT_POPS; the wrapper's host time a call; the cut
+        fm5_parallel pursuit, its B2 launches in the layout the wrapper
+        takes."""
+        import os
+        import shutil
+
+        import pmfm_tpu_torch.io
+        from pmfm_tpu_torch.es import kernel_seed, make_spectrum_ops
+        from pmfm_tpu_torch.es.pipeline import fused_generation_kwargs
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        base = load_config(PARALLEL_CONFIG).es
+        rng = np.random.default_rng(SEED + 4300)
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+
+        def bank(topology, **kw):
+            d = topology_dims(topology)
+            return base.replace(topology=topology, num_dimensions=d, param_mins=(0.0,) * d,
+                                param_maxs=param_maxs(topology), **kw)
+
+        def parents(cfg, so, lead=()):
+            d, mu = cfg.num_dimensions, cfg.num_parents
+            return (t(rng.random((*lead, mu, d))), t(rng.uniform(0.02, 0.3, (*lead, mu, d))),
+                    t(rng.uniform(0, 50, (*lead, so.num_bins))))
+
+        t0, cases = time.perf_counter(), 0
+        settings = [(t, o, 1024, TP_POPS) for t in TP_BANKS for o in TP_SINE_ORDERS] + [
+            (t, 9, n, (TP_FRAME_POP,)) for n in TP_FRAMES for t in TP_BANKS]
+        for topology, order, n, pops in settings:
+            cfg = bank(topology, sine_order=order, audio_length_log2=n.bit_length() - 1)
+            so = make_spectrum_ops(cfg, device=self.dev)
+            kw = fused_generation_kwargs(cfg, so)
+            for pop in pops:
+                for runs in TP_RUNS:
+                    pv, ps, tg = parents(cfg, so, () if runs is None else (runs,))
+                    seed = (kernel_seed(SEED + 4300, cases) if runs is None
+                            else [kernel_seed(SEED + 4300 + r, cases) for r in range(runs)])
+                    where = (f"{topology}, n={n}, sine order {order}, P={pop}, "
+                             f"runs {runs or 1}")
+                    outs = {}
+                    for tp in (False, True):
+                        gn.fused_generation.launches_by_layout.clear()
+                        with gen_layout(gn, tp):
+                            outs[tp] = gn.fused_generation(seed, pv, ps, tg,
+                                                           **dict(kw, pop=pop))
+                        got = dict(gn.fused_generation.launches_by_layout)
+                        require(got == {"time_parallel" if tp else "one_warp": 1},
+                                f"{where}: launched {got}")
+                    require(all(bits_equal(a, b) for a, b in zip(outs[False], outs[True])),
+                            f"B2's layouts differ ({where})")
+                    cases += 1
+        log(f"B2 int8 layouts bit-equal (fitness, values, steps) on {cases} settings: "
+            f"{', '.join(TP_BANKS)} x sine orders {TP_SINE_ORDERS} x P {TP_POPS} x runs 1, 2 "
+            f"at n=1024, and each bank at n {TP_FRAMES}, sine order 9, P={TP_FRAME_POP}, runs "
+            f"1, 2 ({time.perf_counter() - t0:.1f}s)")
+
+        # the new layout against its plain version and B1, then B5 against it
+        c = self.inputs(bank("fm5_parallel"), SEED + 4310, WIDE_TRUTHS["fm5_parallel"])
+        cfg, kw1, kw2 = c["cfg"], self.kw_b1(c), self.kw_b2(c)
+        where = f"time-parallel, fm5_parallel, n={cfg.n_samples}, P={cfg.population_size}"
+        seed = kernel_seed(SEED, 4310)
+        with gen_layout(gn, True):
+            e1, e2, fk, _, _ = self.fused_check(where, c["params"], c["pv"], c["ps"],
+                                                c["target"], kw1, kw2, seed)
+        require(int(torch.argmin(fk)) == 0, f"{where}: the known-params truth does not rank first")
+        g = TP_B5_GENERATIONS
+        seeds = [kernel_seed(SEED + 4320, i) for i in range(g)]
+        args = (c["pv"], c["ps"], c["pv"][0].clone(), torch.tensor(float("inf"), device=self.dev),
+                c["target"])
+        out = ev.fused_evolve(seeds, *args, **kw2)
+        gn.fused_generation.launches_by_layout.clear()
+        with gen_layout(gn, True):
+            loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw2)
+        require(dict(gn.fused_generation.launches_by_layout) == {"time_parallel": g}
+                and all(bits_equal(a, b) for a, b in zip(out, loop)),
+                "B5 differs from its time-parallel B2 launches")
+        log(f"B2 {where}: fitness max rel {e2:.3e} (B1 {e1:.3e}; limits {FIT_MAX_REL:g} / "
+            f"{FIT_MEDIAN_REL:g}), median {self.last_median[1]:.3e}, values bit-equal, fitness "
+            f"bit-equal to B1 on its offspring, the truth first; B5 bit-equal to {g} "
+            f"time-parallel B2 launches with the stable selection")
+
+        # device times of both layouts at each frame and population
+        for n in TP_LAYOUT_N:
+            for topology in TP_BANKS:
+                cfg = bank(topology, audio_length_log2=n.bit_length() - 1)
+                so = make_spectrum_ops(cfg, device=self.dev)
+                kw = fused_generation_kwargs(cfg, so)
+                pv, ps, tg = parents(cfg, so)
+                row, cross = [], None
+                for pop in GEN_LAYOUT_POPS:
+                    fn = lambda pop=pop: gn.fused_generation(7, pv, ps, tg,  # noqa: E731
+                                                             **dict(kw, pop=pop))
+                    tt = {}
+                    for tp in (False, True):
+                        with gen_layout(gn, tp):
+                            tt[tp] = cuda_ms(fn, GEN_LAYOUT_LAUNCHES)
+                    if cross is None and tt[False] < tt[True]:
+                        cross = pop
+                    row.append(f"P={pop} one-warp {tt[False]:.4f} time-parallel {tt[True]:.4f}")
+                faster = (f"the one-warp layout faster from P={cross}" if cross else
+                          f"the time-parallel layout faster at every P to {max(GEN_LAYOUT_POPS)}")
+                log(f"B2 int8 layouts ({topology}, n={n}, K={so.num_bins}, sine order "
+                    f"{cfg.sine_order}; device ms): {'; '.join(row)}; {faster} {card()}")
+        host = {}
+        for tp in (False, True):
+            with gen_layout(gn, tp):
+                gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2)
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2)
+                host[tp] = (time.perf_counter() - h0) / HOST_CALLS * 1e3
+                torch.cuda.synchronize()
+        log(f"B2's host time a call (fm5_parallel, P={cfg.population_size}, {HOST_CALLS} calls "
+            f"on the host clock, no synchronise between): one-warp {host[False]:.4f} ms, "
+            f"time-parallel {host[True]:.4f} ms")
+
+        # the cut fm5_parallel pursuit: its polishes in the layout the wrapper takes
+        want = b2_layout(gn, kw2, c["so"].num_bins, 20)
+        root = os.getcwd()
+        work = os.path.join(root, PURSUIT_DIR)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            path = os.path.join(work, "fm5_parallel_match.json")
+            with open(path, "w") as f:
+                json.dump(fm5_parallel_config(root), f)
+            code, counts, modes, lines = self.pursuit_cli(
+                path, work, pursuit_cut(pmfm_tpu_torch.io.load_config), False)
+            layout = dict(gn.fused_generation.launches_by_layout)
+            log(f"cut fm5_parallel pursuit: B2 launches by layout {layout} {card()}")
+            require(code == 0 and lines, f"fm5_parallel pursuit: exit {code}")
+            require(set(layout) == {want} and layout[want] > 0,
+                    f"the pursuit's polishes took {layout}, the wrapper's layout {want}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     # -- 36 -----------------------------------------------------------------
     def a9(self):
         """A9 on the card: resume bit-equal to a run that was not stopped
@@ -5078,6 +5311,7 @@ def main(argv=None) -> int:
             s.phase("34 bank and wide kernel times, B3's layouts on banks", s.bank_timings)
     if "large inputs" not in s.failed:
         s.phase("41 topologies above 32 genes: the long code in every kernel", s.long_codes)
+    s.phase("43 B2 int8 banks: the time-parallel layout", s.tp_layout)
     s.phase("36 A9: resume, population readback, AOT", s.a9)
     s.phase("39 A10: a world of one, two ranks on the card, the CLI over a mesh", s.a10)
     s.phase("40 A1: the ES-quality gate, 2 seeds", s.a1)

@@ -128,13 +128,6 @@
 #define FT_MIN_BLOCKS 16         // B3 time-parallel: blocks (warps) an SM the registers allow
 #define SMEM_LIMIT 232448        // shared memory one block of an H100 can use
 
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
-struct WarpSync {
-  __device__ __forceinline__ void operator()() const { __syncwarp(); }
-};
-
 // The level passes of the time-parallel synthesis (this file's note) for a
 // thread whose blocks are [b0, b1): on entry off[0] holds off[0](b0), on
 // return off[0 .. KN-1] hold every offset at block b0. tot[b * stride] is

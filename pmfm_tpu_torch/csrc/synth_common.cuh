@@ -363,6 +363,95 @@ __device__ __forceinline__ Chain<2> pair_chain(const PairBank<KN>& bk, int j) {
   return ch;
 }
 
+// The level pass of a bank over the time blocks [b0, b1), for the
+// time-parallel B2 (fused_tp.cu): from the modulators' offsets o1[] at b0,
+// which advance in place to b1, total(j, b, t) gets block b's total t of
+// pair j's modulator increments, the amount by which block b advances the
+// carrier's offset (o2[j] <- frac(o2[j] + t)). These are synth_bank_span's
+// operations on o1 and s[j], in its order, without the carriers' sines, so
+// a fold of the totals in block order gives synth_bank_span's o2 bit for bit.
+template <int NC, int G, int KN, typename Total>
+__device__ __forceinline__ void bank_level_pass(const PairBank<KN>& bk, const SynthParams& sp,
+                                                int b0, int b1, float (&o1)[PairBank<KN>::S],
+                                                Total& total) {
+  constexpr int S = PairBank<KN>::S;
+  static_assert(TIME_BLOCK % G == 0, "G must divide TIME_BLOCK");
+  const int np = bank_pairs(bk);
+  for (int b = b0; b < b1; ++b) {
+    float s[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) s[j] = 0.f;
+    for (int t0 = 0; t0 < TIME_BLOCK; t0 += G) {
+      const float tf0 = (float)t0;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          if (j < np) {
+            const float pos1 = fadd(fmul(fadd(tf0, (float)u), bk.inc1[j]), o1[j]);
+            s[j] = fadd(s[j], fadd(fmul(sin_turns<NC>(pos1, sp.sin_c), bk.im[j]), bk.ic[j]));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if (j < np) {
+        total(j, b, s[j]);
+        o1[j] = frac(fadd(o1[j], bk.inc_blk[j]));
+      }
+    }
+  }
+}
+
+// The barriers of the time-parallel kernels: the candidate's threads are a
+// block (BlockSync) or a warp (WarpSync).
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct WarpSync {
+  __device__ __forceinline__ void operator()() const { __syncwarp(); }
+};
+
+// A bank's carries at block b0 for a thread of a time-parallel block that
+// owns the blocks [b0, b1) of its candidate, as large_frame.cuh's
+// scan_levels finds a chain's: each modulator's o1[j] by its own scalar
+// walk; then one level for every pair at once (a bank's carriers are
+// independent chains of two), bank_level_pass over the thread's blocks
+// writing pair j's total of block b to tot[(j nb + b) stride], shared by
+// every thread of the candidate; sync(); and each carrier's o2[j], a fold
+// of tot(j, 0 .. b0-1) from 0 in block order, frac(f + t) (never a tree:
+// frac-add is not associative). No fold reads the totals from block b_top
+// up (the last thread's first block), so the last thread computes none.
+template <int NC, int KN, typename Sync>
+__device__ __forceinline__ void bank_scan(const PairBank<KN>& bk, const SynthParams& sp, int b0,
+                                          int b1, int b_top, float (&o1)[PairBank<KN>::S],
+                                          float (&o2)[PairBank<KN>::S], float* tot, int nb,
+                                          int stride, Sync sync) {
+  constexpr int S = PairBank<KN>::S;
+  const int np = bank_pairs(bk);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    o1[j] = o2[j] = 0.f;
+    if (j < np)
+      for (int b = 0; b < b0; ++b) o1[j] = frac(fadd(o1[j], bk.inc_blk[j]));
+  }
+  float o[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) o[j] = o1[j];
+  auto put = [&](int j, int b, float t) { tot[(size_t)(j * nb + b) * stride] = t; };
+  bank_level_pass<NC, 8, KN>(bk, sp, b0, b1 < b_top ? b1 : b_top, o, put);
+  sync();
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if (j < np) {
+      float f = 0.f;
+      for (int b = 0; b < b0; ++b) f = frac(fadd(f, tot[(size_t)(j * nb + b) * stride]));
+      o2[j] = f;
+    }
+  }
+}
+
 // The scaled parameters of candidate `cand` of a (pop, d) row-major array,
 // into the D registers of the synthesis code (synth_dims).
 template <int D>

@@ -118,20 +118,31 @@ __device__ __forceinline__ void mma_step(float* d, const uint4& lo, const uint4&
   mma_bf16(d, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
 }
 
+// Bin k's terms in TERMS mode sit at terms[k * 32 + (row ^ term_swizzle(k))]:
+// the 32 rows of a bin are one shared-memory row, and the swizzle sends the
+// stores of a tile's 32 threads (rows g + 8 h + 16 mt, bins 2c, 2c + 1) to
+// 32 banks.
+__device__ __forceinline__ int term_swizzle(int k) { return ((k >> 1) & 3) << 3; }
+
 // Bins [k0, k0 + 8 NT) of the warp's 32 candidates: U and V on the tensor
-// cores, then each bin's term, added in ascending order to fit[mt], the
-// fitness of row mt * 16 + g + 8 (c & 1) (kept by threads c = 0, 1). ue
-// holds the edge term's x[N/2] times the edge coefficient (+ for even bins,
-// - for odd) and ms the magnitude scale of rows mt * 16 + 8 h + g. `units`
-// is the 16-byte units of a row of a+/- (N/2 elements).
-template <int NT, bool INT8>
+// cores, then each bin's term (the per-bin squared error), added in
+// ascending order to fit[mt], the fitness of row mt * 16 + g + 8 (c & 1)
+// (kept by threads c = 0, 1): the one-warp layout. With TERMS (the
+// time-parallel layout, fused_tp.cu: a warp of a larger block, lane =
+// threadIdx.x % 32, running a sub-range of the n-tiles) each term is stored
+// to terms (term_swizzle) instead and fit is untouched. ue holds the edge
+// term's x[N/2] times the edge coefficient (+ for even bins, - for odd) and
+// ms the magnitude scale of rows mt * 16 + 8 h + g. `units` is the 16-byte
+// units of a row of a+/- (N/2 elements).
+template <int NT, bool INT8, bool TERMS = false>
 __device__ __forceinline__ void dft_pass(int k0, const uint4* s_ap, const uint4* s_am, int units,
                                          const tc_elem<INT8>* __restrict__ dft,
                                          const float* __restrict__ target, int k, int half,
                                          const float (&ue)[2][2][2], const float (&ms)[2][2],
-                                         float (&fit)[2]) {
+                                         float (&fit)[2], float* terms = nullptr) {
   using acc_t = typename std::conditional<INT8, int, float>::type;
-  const int lane = threadIdx.x, g = lane >> 2, c = lane & 3, sw = tc_swizzle(g);
+  const int lane = TERMS ? threadIdx.x & 31 : threadIdx.x, g = lane >> 2, c = lane & 3,
+            sw = tc_swizzle(g);
   acc_t acc[2][NT][2][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -202,6 +213,14 @@ __device__ __forceinline__ void dft_pass(int k0, const uint4* s_ap, const uint4*
         const float mag = fmul(sqrtf(fadd(fmul(u, u), fmul(v, v))), ms[mt][i >> 1]);
         const float dd = fsub(mag, tg[i & 1]);
         e[i] = fmul(dd, dd);
+      }
+      if constexpr (TERMS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int bin = kb + (i & 1), row = mt * 16 + 8 * (i >> 1) + g;
+          terms[bin * TC_CPB + (row ^ term_swizzle(bin))] = e[i];
+        }
+        continue;
       }
       // bins 2j, 2j + 1 of the tile sit in thread (g, j): row g's owner
       // (c = 0) takes registers 0, 1, row g + 8's (c = 1) registers 2, 3

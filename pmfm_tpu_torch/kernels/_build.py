@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_bf16.cu``:
-B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_wide.cu``: both modes at the
-wide synthesis codes, chains of 9-16 oscillators and banks of 6-8 pairs;
+B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_tp.cu``: B2 int8 on a
+fixed bank of 2-5 pairs in the time-parallel layout; ``fused_wide.cu``:
+both modes at the wide synthesis codes, chains of 9-16 oscillators and banks of 6-8 pairs;
 ``fused_f32.cu``: B1, B2 true f32; ``evolve.cu``: B5, which runs B2's
 kernels through ``generation.cuh``; ``large_frame.cu``: B3, B4 on
 ``large_frame.cuh``, and ``large_frame_wide.cu`` their wide codes, every
@@ -204,6 +205,8 @@ def library() -> ctypes.CDLL:
         u32, vp, vp, vp, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
     ]
     lib.pmfm_fused_generation.restype = ci
+    lib.pmfm_fused_generation_tp.argtypes = lib.pmfm_fused_generation.argtypes
+    lib.pmfm_fused_generation_tp.restype = ci
     lib.pmfm_fused_synth_fitness_bf16.argtypes = lib.pmfm_fused_synth_fitness.argtypes
     lib.pmfm_fused_synth_fitness_bf16.restype = ci
     lib.pmfm_fused_generation_bf16.argtypes = lib.pmfm_fused_generation.argtypes

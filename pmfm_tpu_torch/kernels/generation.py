@@ -6,8 +6,11 @@ over ``_offspring_block``, ``_recombine_flat``/``_recombine_hier``,
 ``_uniform01`` and ``_scale_rows``, then B1's ``_evaluate_block``). The CUDA
 kernels are ``csrc/fused_eval.cu::fused_generation_int8_kernel``, in the
 bf16 mode ``csrc/fused_bf16.cu::fused_generation_bf16_kernel`` (both
-``csrc/tc_eval.cuh``'s one-warp kernel) and, in the true-f32 mode, ``csrc/fused_f32.cu``'s (the synthesis kernel with the
-prologue, then B1's f32 DFT and group sum); each runs the offspring prologue
+``csrc/tc_eval.cuh``'s one-warp kernel), for int8 on a fixed bank of 2-5
+pairs ``csrc/fused_tp.cu::fused_generation_int8_tp_kernel`` (the
+time-parallel layout, bit-equal to the one-warp kernel: ``time_parallel``)
+and, in the true-f32 mode, ``csrc/fused_f32.cu``'s (the synthesis kernel
+with the prologue, then B1's f32 DFT and group sum); each runs the offspring prologue
 below (``csrc/evaluate.cuh::offspring_gene``, the block's genes spread over
 all its threads) and then B1's evaluation in the mode the operand selects.
 ``fused_generation_plain`` is its plain PyTorch version. It takes every
@@ -52,6 +55,8 @@ from ..ops.synthesis import topology_dims
 from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
+    MAX_SHARED_BYTES,
+    TIME_BLOCK,
     _evaluate_plain,
     alloc_scratch,
     check_kernel_shapes,
@@ -63,13 +68,34 @@ from .synth_fitness import (
     long_scratch,
     operand_mode,
     runs_of,
+    shared_bytes_tp,
     synth_params_struct,
+    uses_long_code,
 )
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 CLT_TERMS = 12
+
+# The fixed banks (synthesis codes BANK_KN + 2 .. + 5) that B2 int8 runs in
+# its time-parallel layout (csrc/fused_tp.cu); TIME_PARALLEL False keeps
+# every shape on the one-warp layout (the card checks hold the two against
+# each other).
+TP_BANKS = frozenset(f"fm{k}_parallel" for k in range(2, 6))
+TIME_PARALLEL = True
+
+
+def time_parallel(n: int, k: int, d: int, topology: str, int8: bool, frames: int = 1) -> bool:
+    """Whether B2 takes its time-parallel layout (32 candidates a block on
+    min(n / 128, 8) warps) for ``topology`` at frames of ``n`` samples, ``k``
+    bins and ``d`` genes: int8, one frame, a fixed bank of 2-5 pairs not on
+    the long code, and a block's ``shared_bytes_tp`` within
+    ``MAX_SHARED_BYTES``. Else the one-warp layout (int8 and bf16; true f32
+    runs ``f32_geometry``'s kernels instead)."""
+    return (TIME_PARALLEL and int8 and frames == 1 and topology in TP_BANKS
+            and n % (2 * TIME_BLOCK) == 0 and not uses_long_code(topology)
+            and shared_bytes_tp(n, k, d) <= MAX_SHARED_BYTES)
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -329,9 +355,12 @@ def fused_generation(
     sequence of B seeds give ``(B, P)``, ``(B, P, D)``, ``(B, P, D)``: run r
     is what a lone launch with ``seed[r]`` makes, bit for bit. On CUDA
     tensors this launches the B2 kernel once for all runs (counted in
-    ``fused_generation.launches``, and by mode in
-    ``fused_generation.launches_by[launch_mode(...)]``); on CPU tensors it
-    runs the plain version, which alone accepts injected ``draws``.
+    ``fused_generation.launches``, by mode in
+    ``fused_generation.launches_by[launch_mode(...)]`` and, int8 and bf16,
+    by layout in ``fused_generation.launches_by_layout``,
+    ``"time_parallel"`` or ``"one_warp"``: ``time_parallel``); on CPU tensors
+    it runs the plain version whatever the layout, and alone accepts
+    injected ``draws``.
     """
     kw = dict(
         pop=pop, param_mins=param_mins, param_maxs=param_maxs, dft_packed=dft_packed,
@@ -375,6 +404,7 @@ def fused_generation(
             target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     mode = operand_mode(dft_packed.dtype, dft_scale)
+    tp = time_parallel(n, k, d, topology, mode == "int8", num_frames)
     if mode == "f32":
         scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns), dev,
                                 "the f32 scratch")
@@ -382,10 +412,14 @@ def fused_generation(
                                                   stream)
     elif mode == "bf16":
         err = library().pmfm_fused_generation_bf16(*args, stream)
+    elif tp:
+        err = library().pmfm_fused_generation_tp(*args, stream)
     else:
         err = library().pmfm_fused_generation(*args, stream)
-    check(err, "fused_generation")
+    check(err, "fused_generation" + (" (time-parallel layout)" if tp else ""))
     fused_generation.launches += 1
+    if mode != "f32":
+        fused_generation.launches_by_layout["time_parallel" if tp else "one_warp"] += 1
     fused_generation.launches_by[
         launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
     return fitness, values, steps
@@ -393,3 +427,4 @@ def fused_generation(
 
 fused_generation.launches = 0
 fused_generation.launches_by = collections.Counter()
+fused_generation.launches_by_layout = collections.Counter()

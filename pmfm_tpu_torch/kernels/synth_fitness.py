@@ -595,6 +595,18 @@ def shared_bytes(n: int, dtype: torch.dtype, d: int = 0) -> int:
     return max(n * CUDA_BLOCK * (2 if dtype == torch.bfloat16 else 1), CUDA_BLOCK * d * 4)
 
 
+def shared_bytes_tp(n: int, k: int, d: int) -> int:
+    """Dynamic shared memory of a block of B2's time-parallel layout (csrc
+    ``fused_tp.cu::tp_smem``) at frames of ``n`` samples, ``k`` bins and
+    ``d`` genes: a+/- of its ``CUDA_BLOCK`` candidates (``CUDA_BLOCK`` x n
+    int8, which first hold the level totals), then the largest of three
+    tenants of one region, each dead before the next is written: the int8
+    frame (``CUDA_BLOCK`` x n), the bins' terms (``CUDA_BLOCK`` x k floats)
+    and the staged genes (``CUDA_BLOCK`` x d floats). 98,304 bytes at n 1024,
+    K 512 (two blocks an SM); 196,608 at n 2048, K 1024."""
+    return CUDA_BLOCK * n + max(CUDA_BLOCK * n, CUDA_BLOCK * k * 4, CUDA_BLOCK * d * 4)
+
+
 def fits_shared_memory(n: int, dtype: torch.dtype, d: int = 0) -> bool:
     """Whether B1/B2/B5 take frames of ``n`` samples (and ``d`` genes) in the
     mode of an operand of ``dtype`` (int8, bf16 or f32): n <= ``MAX_FUSED_N``

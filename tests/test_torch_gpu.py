@@ -1094,3 +1094,81 @@ def test_b5_long_bit_equal_to_b2_launches(cuda, topology, dtype):
     loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
     assert all(_bits_equal(a, b) for a, b in zip(out, loop))
 
+
+
+# ---- B2's time-parallel layout (csrc/fused_tp.cu) --------------------------------
+
+
+def _tp_layout(monkeypatch, tp):
+    """B2's wrapper in one layout at every bank."""
+    monkeypatch.setattr(gn, "TIME_PARALLEL", tp)
+
+
+@pytest.mark.parametrize("runs", [1, 2])
+@pytest.mark.parametrize("pop", [2048, 8191, 8192])
+@pytest.mark.parametrize("sine_order", [5, 7, 9])
+@pytest.mark.parametrize("topology", BANKS)
+def test_b2_time_parallel_layout_bit_equal_to_one_warp(cuda, monkeypatch, topology, sine_order,
+                                                       pop, runs):
+    """B2 int8 on a fixed bank at n 1024 (the pursuit's polishes): the
+    time-parallel layout's fitness, values and steps bit-equal to the
+    one-warp layout's, one launch of each counted under its layout, run r
+    of a batched launch included; at one run, B2 within the int8 limits of
+    its plain version, its values equal and its steps within STEP_MAX_REL."""
+    d, mu = topology_dims(topology), 64
+    maxs = (3520.0, 8.0, 3520.0, 1.0) * (d // 4)
+    so = make_spectrum_ops(ESConfig(num_dimensions=d, topology=topology, param_mins=(0.0,) * d,
+                                    param_maxs=maxs, audio_length_log2=10, dft_dtype="int8"),
+                           device=cuda)
+    rng = np.random.default_rng(pop + sine_order)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    lead = () if runs == 1 else (runs,)
+    pv, ps = t(rng.random((*lead, mu, d))), t(rng.uniform(0.02, 0.3, (*lead, mu, d)))
+    tgt = t(rng.uniform(0, 50, (*lead, so.num_bins)))
+    seed = 77 if runs == 1 else [77 + r for r in range(runs)]
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=1024, pop_block=pop,
+              sine_order=sine_order)
+    outs = {}
+    for tp in (False, True):
+        _tp_layout(monkeypatch, tp)
+        gn.fused_generation.launches_by_layout.clear()
+        outs[tp] = gn.fused_generation(seed, pv, ps, tgt, **kw)
+        assert dict(gn.fused_generation.launches_by_layout) == {
+            "time_parallel" if tp else "one_warp": 1}
+    assert all(_bits_equal(a, b) for a, b in zip(outs[False], outs[True]))
+    if runs == 1:
+        fk, vk, sk = outs[True]
+        fp, vp, spl = gn.fused_generation_plain(seed, pv, ps, tgt, **kw)
+        rel = (fk - fp).abs() / fp.abs()
+        assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+        assert torch.equal(vk, vp)
+        assert float(((sk - spl).abs() / spl.abs()).max()) <= STEP_MAX_REL
+
+
+@pytest.mark.parametrize("topology", ["fm3_parallel", "fm5_parallel"])
+def test_b5_bit_equal_to_time_parallel_b2_launches(cuda, monkeypatch, topology):
+    """B5 keeps the one-warp kernel; G generations in one call equal G
+    launches of B2 in the time-parallel layout + the stable selection."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    pop, mu, d = 8192, 64, topology_dims(topology)
+    maxs = (3520.0, 8.0, 3520.0, 1.0) * (d // 4)
+    so = make_spectrum_ops(ESConfig(num_dimensions=d, topology=topology, param_mins=(0.0,) * d,
+                                    param_maxs=maxs, audio_length_log2=10, dft_dtype="int8"),
+                           device=cuda)
+    rng = np.random.default_rng(d)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    pv, ps = t(rng.random((mu, d))), t(rng.uniform(0.02, 0.3, (mu, d)))
+    tgt = t(rng.uniform(0, 50, so.num_bins))
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=1024, pop_block=pop,
+              sine_order=9)
+    seeds = [kernel_seed(19, g) for g in range(5)]
+    args = (pv, ps, pv[0].clone(), torch.tensor(float("inf"), device=cuda), tgt)
+    out = ev.fused_evolve(seeds, *args, **kw)
+    _tp_layout(monkeypatch, True)
+    gn.fused_generation.launches_by_layout.clear()
+    loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+    assert dict(gn.fused_generation.launches_by_layout) == {"time_parallel": len(seeds)}
+    assert all(_bits_equal(a, b) for a, b in zip(out, loop))

@@ -1,4 +1,5 @@
-"""The time-parallel synthesis of B3 and B4 (csrc/large_frame.cu) on the CPU.
+"""The time-parallel synthesis of B3 and B4 (csrc/large_frame.cu) and of
+B2's time-parallel layout (csrc/fused_tp.cu) on the CPU.
 
 The kernels split each candidate's time blocks across threads and find every
 thread's phase offsets level by level: a scalar walk for the first
@@ -10,26 +11,33 @@ file runs that decomposition in torch with the port's own numerics
 bit for bit against the one-sequence plain version, ``synth_blocks_plain``,
 which the kernels' plain versions run: exact, so no tolerance. It also holds
 the time-parallel B3's fold indexing (rows read back from a frame in groups
-of 16) against the plain fold, and the wrappers' launch geometry.
+of 16) against the plain fold, and the wrappers' launch geometry. A bank
+(fm{k}_parallel) takes one level for all its pairs, as B2's time-parallel
+layout runs it (synth_common.cuh::bank_scan): the modulators' offsets by
+their own walks, every pair's carrier totals over a thread's blocks, one
+barrier, a fold in block order, then the emitting pass.
 """
 import numpy as np
 import pytest
 import torch
 
+from pmfm_tpu_torch.kernels import generation as tgen
 from pmfm_tpu_torch.kernels import synth_fitness as tsf
 from pmfm_tpu_torch.kernels import synth_fold as tfold
 from pmfm_tpu_torch.kernels import synth_stream as tstream
-from pmfm_tpu_torch.ops.synthesis import topology_dims
+from pmfm_tpu_torch.ops.synthesis import parallel_pairs, topology_dims
 from pmfm_tpu_torch.ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 
 C = tsf.TIME_BLOCK
 N = 32768  # B4's shortest frame: 256 time blocks
+BANK_N = 1024  # B2's time-parallel layout: eight warps of one time block each
 POP = 5
 
 
 def _params(topology, seed):
     d = topology_dims(topology)
-    maxs = np.asarray((3520.0, 8.0) * (d // 2), np.float32)
+    maxs = np.asarray((3520.0, 8.0, 3520.0, 1.0) * (d // 4) if parallel_pairs(topology)
+                      else (3520.0, 8.0) * (d // 2), np.float32)
     rng = np.random.default_rng(seed)
     return torch.from_numpy((rng.random((POP, d)) * maxs).astype(np.float32))
 
@@ -100,6 +108,56 @@ def time_parallel_synth(p, *, topology, n, sine_order, int8, segments):
     return [y for seg in run(kn - 1, cs_out) for y in seg]
 
 
+def time_parallel_bank(p, *, topology, n, sine_order, int8, segments):
+    """Each block's output (C, P) of an fm{k}_parallel bank, in time order,
+    computed as B2's time-parallel layout does with ``segments`` warps a
+    candidate (csrc synth_common.cuh::bank_scan, then synth_bank_span):
+    thread w's modulator offsets at its first block by their own walks, one
+    level pass of every pair over the thread's blocks (the modulators alone),
+    a sequential fold of the totals in block order for each carrier's offset,
+    then the emitting pass, pairs summed in pair order with their gains."""
+    inv_sr = tsf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE, DEFAULT_SAMPLE_RATE)
+    pairs = tsf._pair_rows(p.T.to(torch.float32), topology, inv_sr)
+    gains, _ = tsf.bank_gains([pr[3] for pr in pairs], int8)
+    cs = tsf.sin_coeffs(sine_order)
+    nb, pop = n // C, p.shape[0]
+    bounds = [(w * nb // segments, (w + 1) * nb // segments) for w in range(segments)]
+    t = torch.arange(C, dtype=torch.float32)[:, None]
+    incs_blk = [tsf._frac(float(C) * pr[0]) for pr in pairs]
+    o1_at, o2_at = {}, {}
+    for j, (inc1, ims, ics, _) in enumerate(pairs):
+        totals = []  # the level pass: block order, every thread over its own blocks
+        for w, (b0, b1) in enumerate(bounds):
+            o1 = torch.zeros(pop)
+            for _ in range(b0):
+                o1 = tsf._frac(o1 + incs_blk[j])
+            o1_at[j, w] = o1.clone()
+            for _ in range(b0, b1):
+                x = tsf._sin_turns(t * inc1 + o1, cs) * ims[0] + ics[0]
+                totals.append(tsf._exclusive_prefix(x)[1])
+                o1 = tsf._frac(o1 + incs_blk[j])
+        for w, (b0, _) in enumerate(bounds):  # a sequential fold, never a tree
+            f = torch.zeros(pop)
+            for b in range(b0):
+                f = tsf._frac(f + totals[b])
+            o2_at[j, w] = f
+    out = []
+    for w, (b0, b1) in enumerate(bounds):
+        o1 = [o1_at[j, w].clone() for j in range(len(pairs))]
+        o2 = [o2_at[j, w].clone() for j in range(len(pairs))]
+        for _ in range(b0, b1):
+            y = None
+            for j, (inc1, ims, ics, _) in enumerate(pairs):
+                x = tsf._sin_turns(t * inc1 + o1[j], cs) * ims[0] + ics[0]
+                pre, tot = tsf._exclusive_prefix(x)
+                o = tsf._sin_turns(pre + o2[j], cs) * gains[j]
+                y = o if y is None else y + o
+                o2[j] = tsf._frac(o2[j] + tot)
+                o1[j] = tsf._frac(o1[j] + incs_blk[j])
+            out.append(y if int8 else tsf._div(y, float(len(pairs))))
+    return out
+
+
 def _bits(x):
     return x.contiguous().view(torch.int32)
 
@@ -109,14 +167,20 @@ def _bits(x):
     ("fm2", 32, True),  # the time-parallel B3's 32 lanes, int8 output oscillator
     ("fm3_series", 16, False),  # B4's 16 warps
     ("fm8_series", 12, False),  # segments of unequal length (21 or 22 blocks)
+    # B2's time-parallel layout on banks: eight warps of one block at n 1024
+    ("fm2_parallel", 8, True),
+    ("fm3_parallel", 8, True),
+    ("fm5_parallel", 8, True),
 ])
 def test_time_parallel_decomposition_is_exact(topology, segments, int8, sine_order):
     p = _params(topology, sine_order)
-    kw = dict(topology=topology, n=N, sine_order=sine_order, int8=int8)
-    got = time_parallel_synth(p, segments=segments, **kw)
+    n = BANK_N if parallel_pairs(topology) else N
+    kw = dict(topology=topology, n=n, sine_order=sine_order, int8=int8)
+    mirror = time_parallel_bank if parallel_pairs(topology) else time_parallel_synth
+    got = mirror(p, segments=segments, **kw)
     inv_sr = tsf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE, DEFAULT_SAMPLE_RATE)
     want = list(tsf.synth_blocks_plain(p, inv_sr=inv_sr, **kw))
-    assert len(got) == len(want) == N // C
+    assert len(got) == len(want) == n // C
     for b, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(_bits(g), _bits(w)), f"block {b}"
 
@@ -259,3 +323,93 @@ def test_b3_plain_blocks_of_one(int8):
     for a, b in zip(ones, whole):
         assert torch.equal(a, b)
     assert not torch.equal(ones[0], ones[1])
+
+
+# ---- B2's time-parallel layout (csrc/fused_tp.cu): shared memory and the pick ----
+
+BANKS = [f"fm{k}_parallel" for k in range(2, 6)]
+
+
+@pytest.mark.parametrize("n,k,d,want", [
+    (1024, 512, 20, 32768 + 65536),  # the pursuit's polishes: two blocks an SM
+    (1024, 200, 12, 32768 + 32768),  # few bins: the frame is the larger tenant
+    (2048, 1024, 12, 65536 + 131072),
+    (256, 128, 8, 8192 + 16384),
+    (256, 8, 2000, 8192 + 256000),  # the staged genes: past any block
+    (3584, 1792, 20, 114688 + 229376),  # past the 232,448 bytes a block may have
+])
+def test_gen_shared_bytes_tp(n, k, d, want):
+    """a+/- of the block's 32 candidates (32 n bytes), then the largest of
+    the frame (32 n), the terms (32 K floats) and the staged genes (32 d
+    floats), as csrc fused_tp.cu::tp_smem reckons it."""
+    assert tsf.shared_bytes_tp(n, k, d) == want
+
+
+@pytest.mark.parametrize("n,k,topology,dtype,frames,want", [
+    # the pursuit's polishes: eight warps a block, 96 KB
+    (1024, 512, "fm5_parallel", torch.int8, 1, True),
+    (1024, 512, "fm2_parallel", torch.int8, 1, True),
+    # a frame of two time blocks: two warps
+    (256, 128, "fm3_parallel", torch.int8, 1, True),
+    (2048, 1024, "fm4_parallel", torch.int8, 1, True),
+    # a frame of one time block: the one-warp layout
+    (128, 64, "fm3_parallel", torch.int8, 1, False),
+    # past a block's shared memory: the one-warp layout
+    (3584, 1792, "fm3_parallel", torch.int8, 1, False),
+    # what stays on the one-warp layout: bf16, true f32, F > 1, chains, wide banks
+    (1024, 512, "fm3_parallel", torch.bfloat16, 1, False),
+    (1024, 512, "fm3_parallel", torch.float32, 1, False),
+    (1024, 512, "fm3_parallel", torch.int8, 2, False),
+    (1024, 512, "fm3_series", torch.int8, 1, False),
+    (1024, 512, "fm6_parallel", torch.int8, 1, False),
+    (1024, 512, "fm9_parallel", torch.int8, 1, False),
+])
+def test_gen_layout(n, k, topology, dtype, frames, want):
+    d = topology_dims(topology)
+    scale = 1e-5 if dtype == torch.int8 else 0.0
+    int8 = tsf.operand_mode(dtype, scale) == "int8"
+    assert tgen.time_parallel(n, k, d, topology, int8, frames) is want
+
+
+def test_gen_layout_skips_the_long_code(monkeypatch):
+    monkeypatch.setattr(tsf, "LONG_ABOVE_GENES", 16)
+    assert not tgen.time_parallel(1024, 512, 20, "fm5_parallel", True)
+    assert tgen.time_parallel(1024, 512, 16, "fm4_parallel", True)
+
+
+@pytest.mark.parametrize("switch", [False, True])
+def test_gen_layout_follows_the_switch(monkeypatch, switch):
+    """The layout follows TIME_PARALLEL as it stands when the wrapper is
+    called (the card checks clear it to hold the layouts against each
+    other), for every fixed bank."""
+    monkeypatch.setattr(tgen, "TIME_PARALLEL", switch)
+    for b in BANKS:
+        assert tgen.time_parallel(1024, 512, topology_dims(b), b, True) is switch
+
+
+def test_b2_wrapper_plain_on_cpu_whatever_the_layout(monkeypatch):
+    """On CPU tensors B2 runs its plain version whichever layout it would
+    take on the card, and counts no launch."""
+    from pmfm_tpu_torch.ops.spectral import make_spectrum_ops
+
+    topology, n, pop = "fm3_parallel", 256, 40
+    d = topology_dims(topology)
+    so = make_spectrum_ops(n, dft_dtype="int8", device="cpu")
+    rng = np.random.default_rng(4)
+    pv = torch.from_numpy(rng.random((8, d)).astype(np.float32))
+    ps = torch.from_numpy(rng.uniform(0.02, 0.3, (8, d)).astype(np.float32))
+    target = torch.from_numpy(rng.random(so.num_bins).astype(np.float32))
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=(3520.0, 8.0, 3520.0, 1.0) * 3,
+              dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology, n=n,
+              sine_order=9)
+    before = tgen.fused_generation.launches, dict(tgen.fused_generation.launches_by_layout)
+    outs = []
+    for switch in (True, False):
+        monkeypatch.setattr(tgen, "TIME_PARALLEL", switch)
+        assert tgen.time_parallel(n, so.num_bins, d, topology, True) is switch
+        outs.append(tgen.fused_generation(11, pv, ps, target, **kw))
+    after = tgen.fused_generation.launches, dict(tgen.fused_generation.launches_by_layout)
+    assert after == before
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    want = tgen.fused_generation_plain(11, pv, ps, target, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], want))
