@@ -128,10 +128,17 @@ through the entry points a user calls, and times each kernel:
   fm9_parallel config; the new instantiations' times. Phase 42, only when
   ``--only`` names it, the fm9_parallel pursuit through ``cli.main``, cut.
 
-* phase 43, B2 int8 on the fixed banks (fm2..fm5_parallel) in its
-  time-parallel layout (``csrc/fused_tp.cu``): fitness, values and steps
-  bit-equal to the one-warp layout over sine orders 5/7/9, P 2048/8191/8192
-  and runs 1 and 2 at n 1024; the new layout against its plain version at
+* phase 43, B2 int8 in its time-parallel layout (``csrc/fused_tp.cuh``;
+  ``fused_tp.cu`` the banks, ``fused_tp_chain.cu`` the chains). The chains
+  and the frames: fitness, values and steps bit-equal to the one-warp
+  layout at fm2, fm3_series, fm4_series and fm8_series x F 1/2/8 and every
+  fixed bank x F 2/8, each at n 1024 and 2048 (sine orders 5/7/9, P
+  4095/4096 and runs 1/2 in turn); the new layout against its plain version
+  at ``--mode stft``'s shape (fm3_series, F 8, P 4096, n 2048, the truth
+  first); B5 bit-equal to its F 8 B2 launches in the layout the wrapper
+  takes; both layouts' device times at cells (h), (m) and (n). The banks
+  (fm2..fm5_parallel) at one frame: bit-equal over sine orders 5/7/9, P
+  2048/8191/8192 and runs 1 and 2 at n 1024; against the plain version at
   fm5_parallel and B5 bit-equal to its time-parallel B2 launches; both
   layouts' device times over the populations 2048 .. 2^16 at n 256 to
   2048; the wrapper's host time a call; the cut fm5_parallel pursuit, its
@@ -247,7 +254,10 @@ PROFILED_B5_CALLS = 3
 # mode, B5, B3, B4 and the scan kernel at fm33_series, launches from phase
 # 41's paths). B2 int8 on fm3_parallel (_parallel) and fm5_parallel (_wide)
 # is the kernel of the layout the wrapper takes there (generation.
-# time_parallel: csrc/fused_tp.cu), its launches that layout's
+# time_parallel: csrc/fused_tp.cu), its launches that layout's; so is B2 int8
+# on fm3_series at the bench shape, at F 8 (_frames) and on the run axis
+# (_runs: csrc/fused_tp_chain.cu where the wrapper takes the time-parallel
+# layout)
 KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused_synth_stream",
            "fused_synth_fitness_f32", "fused_generation_f32", "fused_evolve", "scan_synth",
            "fused_synth_fitness_parallel", "fused_generation_parallel",
@@ -553,7 +563,7 @@ LONG_TIMED_LAUNCHES = 10
 # bf16 FLOP/s
 PEAK_BYTES, PEAK_INT8, PEAK_F32, PEAK_BF16 = 3.35e12, 1979e12, 67e12, 989e12
 
-# phase 43: B2 int8 on the fixed banks in its two layouts (csrc/fused_tp.cu's
+# phase 43: B2 int8 on the fixed banks in its two layouts (csrc/fused_tp.cuh's
 # time-parallel one against fused_eval.cu's one-warp one): bit-equal over
 # TP_BANKS x TP_SINE_ORDERS x TP_POPS x TP_RUNS at n 1024 (K 512, the
 # pursuit's polishes), each against a random target; B2 in the new layout
@@ -573,6 +583,23 @@ TP_FRAMES = (256, 512, 2048)
 TP_FRAME_POP = 1000
 TP_LAYOUT_N = (256, 512, 1024, 2048)
 GEN_LAYOUT_POPS = (2048, 4096, 8192, 16384, 1 << 15, 1 << 16)
+# the chains and the frames: TP_CHAINS_CHECKED x TP_CHAIN_FRAMES and every
+# bank of TP_BANKS x TP_BANK_FRAMES, each at n TP_CHAIN_N, bit-equal in the
+# two layouts, setting i at sine order TP_SINE_ORDERS[i % 3], P
+# TP_CHAIN_POPS[i % 2] and runs TP_RUNS[i // 2 % 2] (the card-only test takes
+# every combination); the time-parallel layout against its plain version at
+# --mode stft's shape (fm3_series, F 8, P 4096, n 2048, the truth first); B5
+# bit-equal to TP_B5_GENERATIONS F 8 B2 launches in the layout the wrapper
+# takes; both layouts' device times at the shapes of PERF.md's cells (h)
+# (F 1), (m) (F 8) and (n) (8 runs), TP_CELL_LAUNCHES launches, the layouts
+# alternated one-warp, time-parallel, time-parallel, one-warp
+TP_CHAINS_CHECKED = ("fm2", "fm3_series", "fm4_series", "fm8_series")
+TP_CHAIN_FRAMES = (1, 2, 8)
+TP_BANK_FRAMES = (2, 8)
+TP_CHAIN_N = (1024, 2048)
+TP_CHAIN_POPS = (4095, 4096)
+TP_CELLS = (("(h)", 1, None), ("(m)", 8, None), ("(n)", 1, 8))  # (cell, frames, runs)
+TP_CELL_LAUNCHES = 10
 GEN_LAYOUT_LAUNCHES = 10
 HOST_CALLS = 100  # B2 calls timed on the host clock (the wrapper's time a launch)
 # cuda_ms: cycles of a spin kernel that hold the card while a timed run's
@@ -673,27 +700,37 @@ def fold_layout(sfo, time_parallel: bool):
 
 @contextlib.contextmanager
 def gen_layout(gn, time_parallel: bool):
-    """B2's wrapper in one layout (``TIME_PARALLEL``: the time-parallel one
-    where it applies, int8 on a fixed bank at one frame, or the one-warp one
-    everywhere), restored after."""
-    saved = gn.TIME_PARALLEL
+    """B2's wrapper in one layout: the time-parallel one wherever its kernel
+    takes the shape (``TIME_PARALLEL`` set and ``tp_faster`` made to say
+    yes: int8 on a fixed chain or bank), or the one-warp one everywhere
+    (``TIME_PARALLEL`` cleared); both restored after."""
+    saved = gn.TIME_PARALLEL, gn.tp_faster
     gn.TIME_PARALLEL = time_parallel
+    if time_parallel:
+        gn.tp_faster = lambda *a, **k: True
     try:
         yield
     finally:
-        gn.TIME_PARALLEL = saved
+        gn.TIME_PARALLEL, gn.tp_faster = saved
 
 
-def b2_layout(gn, kw2, k: int, d: int) -> str:
+def b2_layout(gn, kw2, k: int, d: int, runs: int = 1) -> str:
     """The layout of the B2 int8 kernel that the wrapper launches for
-    ``kw2`` (its keyword arguments) at ``k`` bins and ``d`` genes."""
-    tp = gn.time_parallel(kw2["n"], k, d, kw2["topology"], True, kw2.get("num_frames", 1))
+    ``kw2`` (its keyword arguments) at ``k`` bins, ``d`` genes and ``runs``
+    runs."""
+    tp = gn.time_parallel(kw2["n"], k, d, kw2["topology"], True, kw2.get("num_frames", 1),
+                          kw2["pop"], runs)
     return "time_parallel" if tp else "one_warp"
 
 
-def b2_source(layout: str) -> str:
-    """The source of B2 int8's kernel in ``layout``."""
-    return f"pmfm_tpu_torch/csrc/{'fused_tp.cu' if layout == 'time_parallel' else 'fused_eval.cu'}"
+def b2_source(layout: str, topology: str = "fm3_parallel") -> str:
+    """The source of B2 int8's kernel for ``topology`` in ``layout``: the
+    time-parallel layout's chains are fused_tp_chain.cu's, its banks
+    fused_tp.cu's (both on fused_tp.cuh)."""
+    if layout != "time_parallel":
+        return "pmfm_tpu_torch/csrc/fused_eval.cu"
+    bank = topology.endswith("_parallel")
+    return f"pmfm_tpu_torch/csrc/{'fused_tp.cu' if bank else 'fused_tp_chain.cu'}"
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1254,7 +1291,8 @@ class Smoke:
             "fused_generation": (
                 b2, b2_plain, 2 * MU * D * 4 + operand + k * 4 + POP * 4 + 2 * POP * D * 4,
                 POP * D * 12 * 2.0,  # CLT sums and the mutation, f32
-                "pmfm_tpu_torch/csrc/fused_eval.cu", "pmfm_tpu/kernels/generation.py:438",
+                b2_source(b2_layout(gn, self.b2_kwargs(POP), k, D), TOPOLOGY),
+                "pmfm_tpu/kernels/generation.py:438",
             ),
         }
         for name, (fn, plain, nbytes, extra_f32, src, replaces) in rows.items():
@@ -2561,7 +2599,7 @@ class Smoke:
             src = "pmfm_tpu_torch/csrc/fused_eval.cu" if mode == "int8" else \
                 "pmfm_tpu_torch/csrc/fused_f32.cu"
             for name, (fn, plain, nbytes, i8, f32, replaces) in rows.items():
-                source = (b2_source(b2_layout(gn, kw2, k, d))
+                source = (b2_source(b2_layout(gn, kw2, k, d), cfg.topology)
                           if name == "fused_generation_parallel" else src)
                 ms = cuda_ms(fn, TIMED_LAUNCHES)
                 plain_ms = cuda_ms(plain, PLAIN_RUNS)
@@ -3147,7 +3185,8 @@ class Smoke:
                                                           **kw2),
                         io + 2 * b * mu * d * 4 + 2 * b * pop * d * 4, dft_ops,
                         synth + offspring, 1,
-                        "pmfm_tpu_torch/csrc/" + ("fused_f32.cu" if f32 else "fused_eval.cu"),
+                        "pmfm_tpu_torch/csrc/fused_f32.cu" if f32 else
+                        b2_source(b2_layout(gn, kw2, k, d, b), cfg.topology),
                         "pmfm_tpu/kernels/generation.py:438"),
                 }
                 if not f32:
@@ -3166,7 +3205,7 @@ class Smoke:
                     bound_ms, by = bound(nbytes, int8_ops, f32_ops)
                     per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
                     log(f"{name} ({mode}, F={frames}, B={b}, n={n}, K={k}, P={pop}): kernel "
-                        f"{ms:.4f} ms{per}, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
+                        f"({src.rsplit('/', 1)[-1]}) {ms:.4f} ms{per}, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
                         f"{by} ({nbytes / 1e6:.2f} MB, {int8_ops / 1e9:.1f} G int8 ops, "
                         f"{f32_ops / 1e9:.2f} G f32 ops); {ms / bound_ms:.1f}x the bound "
                         f"{card()}")
@@ -3828,7 +3867,8 @@ class Smoke:
             lambda: gn.fused_generation(seed, c5["pv"], c5["ps"], c5["target"], **kw2),
             lambda: gn.fused_generation_plain(seed, c5["pv"], c5["ps"], c5["target"], **kw2),
             io + 2 * mu * 20 * 4 + 2 * pop * 20 * 4, dft_ops, synth5 + pop * 20 * 12 * 2.0, 1,
-            b2_source(b2_layout(gn, kw2, k, 20)), "pmfm_tpu/kernels/generation.py:438",
+            b2_source(b2_layout(gn, kw2, k, 20), "fm5_parallel"),
+            "pmfm_tpu/kernels/generation.py:438",
             f"fm5_parallel, n={n}, P={pop}")
         for name, (fn, plain, nbytes, i8, f32, gens, src, rep, where) in rows.items():
             ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
@@ -4535,8 +4575,119 @@ class Smoke:
             shutil.rmtree(work, ignore_errors=True)
 
     # -- 43 -----------------------------------------------------------------
+    def tp_chains(self):
+        """B2 int8's time-parallel layout on the fixed chains and at F > 1
+        (chains and banks): bit-equal to the one-warp layout over the
+        sampled TP_CHAINS_CHECKED / TP_BANKS grid; against its plain version
+        at --mode stft's shape; B5 bit-equal to its F 8 B2 launches in the
+        layout the wrapper takes; both layouts' device times at cells (h),
+        (m) and (n)."""
+        import itertools
+
+        from pmfm_tpu_torch.es import kernel_seed, make_spectrum_ops
+        from pmfm_tpu_torch.es.pipeline import fused_generation_kwargs
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.ops import spectral, synthesize_single
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        audio = load_config(AUDIO_CONFIG).es
+        rng = np.random.default_rng(SEED + 4350)
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+        t0, cases = time.perf_counter(), 0
+        grid = (list(itertools.product(TP_CHAINS_CHECKED, TP_CHAIN_FRAMES, TP_CHAIN_N))
+                + list(itertools.product(TP_BANKS, TP_BANK_FRAMES, TP_CHAIN_N)))
+        for i, (topology, frames, n) in enumerate(grid):
+            order, pop = TP_SINE_ORDERS[i % 3], TP_CHAIN_POPS[i % 2]
+            runs = TP_RUNS[i // 2 % 2]
+            d = topology_dims(topology)
+            cfg = audio.replace(topology=topology, num_dimensions=d, param_mins=(0.0,) * d,
+                                param_maxs=param_maxs(topology), sine_order=order,
+                                audio_length_log2=n.bit_length() - 1, num_frames=frames)
+            so = make_spectrum_ops(cfg, device=self.dev)
+            kw = dict(fused_generation_kwargs(cfg, so), pop=pop)
+            lead = () if runs is None else (runs,)
+            tshape = (*lead, frames, so.num_bins) if frames > 1 else (*lead, so.num_bins)
+            mu = cfg.num_parents
+            pv, ps = t(rng.random((*lead, mu, d))), t(rng.uniform(0.02, 0.3, (*lead, mu, d)))
+            tg = t(rng.uniform(0, 50, tshape))
+            seed = (kernel_seed(SEED + 4350, i) if runs is None
+                    else [kernel_seed(SEED + 4350 + r, i) for r in range(runs)])
+            where = f"{topology}, n={n}, F={frames}, sine order {order}, P={pop}, runs {runs or 1}"
+            outs = {}
+            for tp in (False, True):
+                gn.fused_generation.launches_by_layout.clear()
+                with gen_layout(gn, tp):
+                    outs[tp] = gn.fused_generation(seed, pv, ps, tg, **kw)
+                got = dict(gn.fused_generation.launches_by_layout)
+                require(got == {"time_parallel" if tp else "one_warp": 1},
+                        f"{where}: launched {got}")
+            require(all(bits_equal(a, b) for a, b in zip(outs[False], outs[True])),
+                    f"B2's layouts differ ({where})")
+            cases += 1
+        log(f"B2 int8 layouts bit-equal (fitness, values, steps) on {cases} settings: "
+            f"{', '.join(TP_CHAINS_CHECKED)} x F {TP_CHAIN_FRAMES} and {', '.join(TP_BANKS)} x F "
+            f"{TP_BANK_FRAMES}, each at n {TP_CHAIN_N}, sine orders, P {TP_CHAIN_POPS} and runs "
+            f"1, 2 in turn ({time.perf_counter() - t0:.1f}s)")
+
+        # the new layout against its plain version at --mode stft's shape
+        cfg = audio.replace(num_frames=STFT_FRAMES)
+        c = self.inputs(cfg, SEED + 4360)
+        wave = synthesize_single(torch.tensor(TRUTH), cfg.n_samples * cfg.num_frames,
+                                 cfg.topology).to(self.dev)
+        c["target"] = spectral.target_spectrum_frames(wave, c["so"])
+        kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
+        where = (f"time-parallel, {cfg.topology}, n={cfg.n_samples}, F={cfg.num_frames}, "
+                 f"P={cfg.population_size}")
+        gn.fused_generation.launches_by_layout.clear()
+        with gen_layout(gn, True):
+            e1, e2, fk, _, _ = self.fused_check(where, c["params"], c["pv"], c["ps"],
+                                                c["target"], kw1, kw2, kernel_seed(SEED, 4360))
+        require("time_parallel" in gn.fused_generation.launches_by_layout,
+                f"{where}: B2 ran {dict(gn.fused_generation.launches_by_layout)}")
+        require(int(torch.argmin(fk)) == 0, f"{where}: the known-params truth does not rank first")
+        log(f"B2 {where}: fitness max rel {e2:.3e} (B1 {e1:.3e}; limits {FIT_MAX_REL:g} / "
+            f"{FIT_MEDIAN_REL:g}), median {self.last_median[1]:.3e}, values bit-equal, fitness "
+            f"bit-equal to B1 on its offspring, the truth first")
+        # B5 against its F 8 B2 launches in the layout the wrapper takes
+        want = b2_layout(gn, kw2, c["so"].num_bins, cfg.num_dimensions)
+        g = TP_B5_GENERATIONS
+        seeds = [kernel_seed(SEED + 4370, j) for j in range(g)]
+        args = (c["pv"], c["ps"], c["pv"][0].clone(), torch.tensor(float("inf"), device=self.dev),
+                c["target"])
+        out = ev.fused_evolve(seeds, *args, **kw2)
+        gn.fused_generation.launches_by_layout.clear()
+        loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw2)
+        require(dict(gn.fused_generation.launches_by_layout) == {want: g}
+                and all(bits_equal(a, b) for a, b in zip(out, loop)),
+                f"B5 at F {cfg.num_frames} differs from its {want} B2 launches")
+        log(f"B5 at F {cfg.num_frames} bit-equal to {g} B2 launches in the layout the wrapper "
+            f"takes ({want}) with the stable selection")
+
+        # both layouts' device times at the cells' shapes, and the wrapper's pick
+        for cell, frames, runs in TP_CELLS:
+            cfg = audio.replace(num_frames=frames)
+            so = make_spectrum_ops(cfg, device=self.dev)
+            kw = fused_generation_kwargs(cfg, so)
+            b = runs or 1
+            ci = self.run_inputs(cfg, so, b, SEED + 4380 + frames + b)
+            if runs is None:
+                ci = {key: v[0] for key, v in ci.items()}
+            seed = [kernel_seed(SEED, 4380 + r) for r in range(b)] if runs else 7
+            fn = lambda: gn.fused_generation(seed, ci["pv"], ci["ps"], ci["target"], **kw)  # noqa: E731
+            tt = {False: [], True: []}
+            for tp in (False, True, True, False):
+                with gen_layout(gn, tp):
+                    tt[tp].append(cuda_ms(fn, TP_CELL_LAUNCHES))
+            pick = b2_layout(gn, kw, so.num_bins, cfg.num_dimensions, b)
+            log(f"B2 int8 layouts at cell {cell}'s shape ({cfg.topology}, n={cfg.n_samples}, "
+                f"F={frames}, B={b}, P={cfg.population_size}, sine order {cfg.sine_order}; device "
+                f"ms, each of 2 rounds): one-warp {tt[False]}, time-parallel {tt[True]}; the "
+                f"wrapper takes {pick} {card()}")
+
     def tp_layout(self):
-        """B2 int8 on the fixed banks in its two layouts (csrc/fused_tp.cu's
+        """B2 int8 on the fixed banks in its two layouts (csrc/fused_tp.cuh's
         time-parallel one, fused_eval.cu's one-warp one): fitness, values and
         steps bit-equal over TP_BANKS x TP_SINE_ORDERS x TP_POPS x TP_RUNS;
         the new layout against its plain version (the truth first, its
@@ -5311,6 +5462,7 @@ def main(argv=None) -> int:
             s.phase("34 bank and wide kernel times, B3's layouts on banks", s.bank_timings)
     if "large inputs" not in s.failed:
         s.phase("41 topologies above 32 genes: the long code in every kernel", s.long_codes)
+    s.phase("43 B2 int8: the time-parallel layout on chains and frames", s.tp_chains)
     s.phase("43 B2 int8 banks: the time-parallel layout", s.tp_layout)
     s.phase("36 A9: resume, population readback, AOT", s.a9)
     s.phase("39 A10: a world of one, two ranks on the card, the CLI over a mesh", s.a10)

@@ -364,7 +364,7 @@ __device__ __forceinline__ Chain<2> pair_chain(const PairBank<KN>& bk, int j) {
 }
 
 // The level pass of a bank over the time blocks [b0, b1), for the
-// time-parallel B2 (fused_tp.cu): from the modulators' offsets o1[] at b0,
+// time-parallel B2 (fused_tp.cuh): from the modulators' offsets o1[] at b0,
 // which advance in place to b1, total(j, b, t) gets block b's total t of
 // pair j's modulator increments, the amount by which block b advances the
 // carrier's offset (o2[j] <- frac(o2[j] + t)). These are synth_bank_span's
@@ -415,14 +415,19 @@ struct WarpSync {
 
 // A bank's carries at block b0 for a thread of a time-parallel block that
 // owns the blocks [b0, b1) of its candidate, as large_frame.cuh's
-// scan_levels finds a chain's: each modulator's o1[j] by its own scalar
-// walk; then one level for every pair at once (a bank's carriers are
-// independent chains of two), bank_level_pass over the thread's blocks
-// writing pair j's total of block b to tot[(j nb + b) stride], shared by
-// every thread of the candidate; sync(); and each carrier's o2[j], a fold
-// of tot(j, 0 .. b0-1) from 0 in block order, frac(f + t) (never a tree:
-// frac-add is not associative). No fold reads the totals from block b_top
-// up (the last thread's first block), so the last thread computes none.
+// scan_levels finds a chain's. On entry o1[], o2[] hold the carries at the
+// frame's first block (zero at frame 0, else where the frame before ended:
+// frame f is samples [f n, (f + 1) n) of one continuous synthesis). Each
+// modulator's o1[j] advances by its own scalar walk over b < b0; then one
+// level for every pair at once (a bank's carriers are independent chains of
+// two), bank_level_pass over the thread's blocks writing pair j's total of
+// block b to tot[(j nb + b) stride], shared by every thread of the
+// candidate; sync(); and each carrier's o2[j] continues from its value at
+// the frame's first block by a fold of tot(j, 0 .. b0-1) in block order,
+// frac(f + t) (never a tree: frac-add is not associative), so the fold over
+// all the frames' blocks is the one sequence of the one-thread synthesis.
+// No fold reads the totals from block b_top up (the last thread's first
+// block), so the last thread computes none.
 template <int NC, int KN, typename Sync>
 __device__ __forceinline__ void bank_scan(const PairBank<KN>& bk, const SynthParams& sp, int b0,
                                           int b1, int b_top, float (&o1)[PairBank<KN>::S],
@@ -431,11 +436,9 @@ __device__ __forceinline__ void bank_scan(const PairBank<KN>& bk, const SynthPar
   constexpr int S = PairBank<KN>::S;
   const int np = bank_pairs(bk);
 #pragma unroll
-  for (int j = 0; j < S; ++j) {
-    o1[j] = o2[j] = 0.f;
+  for (int j = 0; j < S; ++j)
     if (j < np)
       for (int b = 0; b < b0; ++b) o1[j] = frac(fadd(o1[j], bk.inc_blk[j]));
-  }
   float o[S];
 #pragma unroll
   for (int j = 0; j < S; ++j) o[j] = o1[j];
@@ -445,10 +448,47 @@ __device__ __forceinline__ void bank_scan(const PairBank<KN>& bk, const SynthPar
 #pragma unroll
   for (int j = 0; j < S; ++j) {
     if (j < np) {
-      float f = 0.f;
+      float f = o2[j];
       for (int b = 0; b < b0; ++b) f = frac(fadd(f, tot[(size_t)(j * nb + b) * stride]));
       o2[j] = f;
     }
+  }
+}
+
+// A fixed chain's offsets at block b0, for a thread of a time-parallel
+// block that owns the blocks [b0, b1) of its candidate (B2's time-parallel
+// layout, fused_tp.cuh): large_frame.cuh's scan_levels, with each level's
+// totals in a region of their own (level L's block b at tot[(L nb + b)
+// stride]), so a level takes one sync() where scan_levels' shared region
+// takes two, and with offsets that continue from frame to frame as
+// bank_scan's carries do. On entry off[] holds the offsets at the frame's
+// first block; off[0] advances by its own scalar walk over b < b0; level L
+// = 0 .. KN-2 runs oscillators 0 .. L over the thread's blocks below b_top
+// from the offsets it knows, writing each block's total; sync(); and
+// off[L + 1] continues from its value at the frame's first block by a fold
+// of the totals of blocks 0 .. b0-1 in block order.
+template <int NC, int KN, int L = 0, typename Sync>
+__device__ __forceinline__ void chain_scan(const Chain<KN>& ch, const SynthParams& sp, int b0,
+                                           int b1, int b_top, float (&off)[Chain<KN>::S],
+                                           float* tot, int nb, int stride, Sync sync) {
+  static_assert(KN >= 2 && KN != WIDE_CHAIN && !is_bank(KN), "the fixed chains");
+  constexpr int S = Chain<KN>::S;
+  if constexpr (L == 0)
+    for (int b = 0; b < b0; ++b) off[0] = frac(fadd(off[0], ch.inc_blk));
+  if constexpr (L < KN - 1) {
+    float o[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) o[j] = off[j];
+    float* lt = tot + (size_t)L * nb * stride;
+    auto put = [&](int b, float t) { lt[(size_t)b * stride] = t; };
+    NoEmit none;
+    synth_span<NC, 8, KN, L + 1, false>(ch, sp, nullptr, b0, b1 < b_top ? b1 : b_top, o, none,
+                                        put);
+    sync();
+    float f = off[L + 1];
+    for (int b = 0; b < b0; ++b) f = frac(fadd(f, lt[(size_t)b * stride]));
+    off[L + 1] = f;
+    chain_scan<NC, KN, L + 1>(ch, sp, b0, b1, b_top, off, tot, nb, stride, sync);
   }
 }
 

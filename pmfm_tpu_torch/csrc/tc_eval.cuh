@@ -128,7 +128,7 @@ __device__ __forceinline__ int term_swizzle(int k) { return ((k >> 1) & 3) << 3;
 // cores, then each bin's term (the per-bin squared error), added in
 // ascending order to fit[mt], the fitness of row mt * 16 + g + 8 (c & 1)
 // (kept by threads c = 0, 1): the one-warp layout. With TERMS (the
-// time-parallel layout, fused_tp.cu: a warp of a larger block, lane =
+// time-parallel layout, fused_tp.cuh: a warp of a larger block, lane =
 // threadIdx.x % 32, running a sub-range of the n-tiles) each term is stored
 // to terms (term_swizzle) instead and fit is untouched. ue holds the edge
 // term's x[N/2] times the edge coefficient (+ for even bins, - for odd) and

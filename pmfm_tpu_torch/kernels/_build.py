@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_bf16.cu``:
-B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_tp.cu``: B2 int8 on a
-fixed bank of 2-5 pairs in the time-parallel layout; ``fused_wide.cu``:
+B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_tp.cu`` and
+``fused_tp_chain.cu``: B2 int8 in the time-parallel layout of
+``fused_tp.cuh``, on the fixed banks of 2-5 pairs and the fixed chains; ``fused_wide.cu``:
 both modes at the wide synthesis codes, chains of 9-16 oscillators and banks of 6-8 pairs;
 ``fused_f32.cu``: B1, B2 true f32; ``evolve.cu``: B5, which runs B2's
 kernels through ``generation.cuh``; ``large_frame.cu``: B3, B4 on

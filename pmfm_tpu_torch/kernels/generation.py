@@ -6,9 +6,10 @@ over ``_offspring_block``, ``_recombine_flat``/``_recombine_hier``,
 ``_uniform01`` and ``_scale_rows``, then B1's ``_evaluate_block``). The CUDA
 kernels are ``csrc/fused_eval.cu::fused_generation_int8_kernel``, in the
 bf16 mode ``csrc/fused_bf16.cu::fused_generation_bf16_kernel`` (both
-``csrc/tc_eval.cuh``'s one-warp kernel), for int8 on a fixed bank of 2-5
-pairs ``csrc/fused_tp.cu::fused_generation_int8_tp_kernel`` (the
-time-parallel layout, bit-equal to the one-warp kernel: ``time_parallel``)
+``csrc/tc_eval.cuh``'s one-warp kernel), for int8 on a fixed chain or a
+fixed bank of 2-5 pairs, where ``time_parallel`` picks it,
+``csrc/fused_tp.cuh::fused_generation_int8_tp_kernel`` (the time-parallel
+layout, bit-equal to the one-warp kernel)
 and, in the true-f32 mode, ``csrc/fused_f32.cu``'s (the synthesis kernel
 with the prologue, then B1's f32 DFT and group sum); each runs the offspring prologue
 below (``csrc/evaluate.cuh::offspring_gene``, the block's genes spread over
@@ -51,14 +52,16 @@ import math
 import numpy as np
 import torch
 
-from ..ops.synthesis import topology_dims
+from ..ops.synthesis import parallel_pairs, topology_dims
 from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 from .synth_fitness import (
+    CUDA_BLOCK,
     DEFAULT_POP_BLOCK,
     MAX_SHARED_BYTES,
     TIME_BLOCK,
     _evaluate_plain,
     alloc_scratch,
+    chain_length,
     check_kernel_shapes,
     check_supported,
     f32_scratch_floats,
@@ -78,24 +81,67 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 CLT_TERMS = 12
 
-# The fixed banks (synthesis codes BANK_KN + 2 .. + 5) that B2 int8 runs in
-# its time-parallel layout (csrc/fused_tp.cu); TIME_PARALLEL False keeps
-# every shape on the one-warp layout (the card checks hold the two against
-# each other).
+# The fixed codes that B2 int8 can run in its time-parallel layout
+# (csrc/fused_tp.cuh): the chains fm2, fm3_series .. fm8_series (codes 2 ..
+# 8) and the banks of 2-5 pairs (BANK_KN + 2 .. + 5), at any frame count and
+# on the run axis; TIME_PARALLEL False keeps every shape on the one-warp
+# layout (the card checks hold the two against each other).
+TP_CHAINS = frozenset(["fm2"] + [f"fm{k}_series" for k in range(3, 9)])
 TP_BANKS = frozenset(f"fm{k}_parallel" for k in range(2, 6))
 TIME_PARALLEL = True
+# tp_faster's constants, from both layouts' times on an NVIDIA H100 80GB
+# HBM3 (PERF.md §6; tools/torch_b2_layout_probe.py's sweep)
+SMS = 132  # the H100 SXM's SMs
+SM_SHARED_BYTES = 233472  # shared memory an SM holds (1 KB of it reserved a block)
+ONE_WARP_REG_BLOCKS = 8  # one-warp blocks an SM its ~255 registers a thread allow
+TP_MAX_WARPS = 8  # csrc fused_tp.cuh: warps a time-parallel block
+TP_K = 4.0  # the levels' sines times the one-warp layout's warps an SM, at most
+TP_MAX_WAVES = 8  # one-warp waves past which the one-warp layout keeps the card busy
 
 
-def time_parallel(n: int, k: int, d: int, topology: str, int8: bool, frames: int = 1) -> bool:
-    """Whether B2 takes its time-parallel layout (32 candidates a block on
-    min(n / 128, 8) warps) for ``topology`` at frames of ``n`` samples, ``k``
-    bins and ``d`` genes: int8, one frame, a fixed bank of 2-5 pairs not on
-    the long code, and a block's ``shared_bytes_tp`` within
-    ``MAX_SHARED_BYTES``. Else the one-warp layout (int8 and bf16; true f32
-    runs ``f32_geometry``'s kernels instead)."""
-    return (TIME_PARALLEL and int8 and frames == 1 and topology in TP_BANKS
+def tp_takes(n: int, k: int, d: int, topology: str, int8: bool, frames: int = 1) -> bool:
+    """Whether the time-parallel kernel takes the shape: int8, a fixed chain
+    or bank not on the long code, n a multiple of 256 (two time blocks, two
+    warps at least) and a block's ``shared_bytes_tp`` within
+    ``MAX_SHARED_BYTES``."""
+    return (int8 and (topology in TP_CHAINS or topology in TP_BANKS)
             and n % (2 * TIME_BLOCK) == 0 and not uses_long_code(topology)
-            and shared_bytes_tp(n, k, d) <= MAX_SHARED_BYTES)
+            and shared_bytes_tp(n, k, d, frames) <= MAX_SHARED_BYTES)
+
+
+def tp_faster(n: int, topology: str, pop: int = CUDA_BLOCK, runs: int = 1) -> bool:
+    """The rule by which B2 takes the time-parallel layout where its kernel
+    takes the shape, from both layouts' times on an H100 (PERF.md §6, the
+    sweep of tools/torch_b2_layout_probe.py). The one-warp layout loses by its few warps an SM: a grid of
+    ceil(pop / 32) x runs one-warp blocks gives each SM ``warps`` =
+    blocks / SMS of them, at most as many as an SM holds at n (its shared
+    memory, 32 n bytes a block, and its registers). The time-parallel one
+    pays its levels: ``extra`` sines a sample for each of the synthesis'
+    (a chain of KN: (KN - 1) / 2; a bank: 1 / 2), and at n < 1024 it has
+    only n / 128 warps a block. So it wins where ``extra`` x ``warps`` <
+    TP_K x (its warps a block / 8), and while the one-warp grid is at most
+    TP_MAX_WAVES waves of the card (beyond, the one-warp tail is small and
+    its warps keep the SMs busy). The frame count does not enter: at F 8
+    the card ranked the layouts as at F 1 at every shape measured."""
+    blocks = -(-pop // CUDA_BLOCK) * runs
+    cap = min(ONE_WARP_REG_BLOCKS, SM_SHARED_BYTES // (CUDA_BLOCK * n + 1024))
+    warps = min(blocks / SMS, cap)
+    extra = 0.5 if parallel_pairs(topology) else (chain_length(topology) - 1) / 2
+    tp_warps = min(n // TIME_BLOCK, TP_MAX_WARPS)
+    return extra * warps < TP_K * tp_warps / TP_MAX_WARPS and blocks <= TP_MAX_WAVES * SMS * cap
+
+
+def time_parallel(n: int, k: int, d: int, topology: str, int8: bool, frames: int = 1,
+                  pop: int = CUDA_BLOCK, runs: int = 1) -> bool:
+    """Whether B2 takes its time-parallel layout (32 candidates a block on
+    min(n / 128, 8) warps) for ``topology`` at ``frames`` frames of ``n``
+    samples, ``k`` bins, ``d`` genes, ``pop`` candidates (one block by
+    default) and ``runs`` runs: where the kernel takes the shape
+    (``tp_takes``) and the card's rule says it is the faster (``tp_faster``).
+    Else the one-warp layout (int8 and bf16; true f32 runs
+    ``f32_geometry``'s kernels instead)."""
+    return (TIME_PARALLEL and tp_takes(n, k, d, topology, int8, frames)
+            and tp_faster(n, topology, pop, runs))
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -404,7 +450,7 @@ def fused_generation(
             target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     mode = operand_mode(dft_packed.dtype, dft_scale)
-    tp = time_parallel(n, k, d, topology, mode == "int8", num_frames)
+    tp = time_parallel(n, k, d, topology, mode == "int8", num_frames, pop, nruns)
     if mode == "f32":
         scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns), dev,
                                 "the f32 scratch")

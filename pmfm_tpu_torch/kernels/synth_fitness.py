@@ -595,16 +595,20 @@ def shared_bytes(n: int, dtype: torch.dtype, d: int = 0) -> int:
     return max(n * CUDA_BLOCK * (2 if dtype == torch.bfloat16 else 1), CUDA_BLOCK * d * 4)
 
 
-def shared_bytes_tp(n: int, k: int, d: int) -> int:
+def shared_bytes_tp(n: int, k: int, d: int, frames: int = 1) -> int:
     """Dynamic shared memory of a block of B2's time-parallel layout (csrc
-    ``fused_tp.cu::tp_smem``) at frames of ``n`` samples, ``k`` bins and
-    ``d`` genes: a+/- of its ``CUDA_BLOCK`` candidates (``CUDA_BLOCK`` x n
-    int8, which first hold the level totals), then the largest of three
+    ``fused_tp.cuh::tp_smem``) at ``frames`` frames of ``n`` samples, ``k``
+    bins and ``d`` genes: a+/- of its ``CUDA_BLOCK`` candidates (``CUDA_BLOCK``
+    x n int8, which first hold the level totals), then the largest of three
     tenants of one region, each dead before the next is written: the int8
     frame (``CUDA_BLOCK`` x n), the bins' terms (``CUDA_BLOCK`` x k floats)
-    and the staged genes (``CUDA_BLOCK`` x d floats). 98,304 bytes at n 1024,
-    K 512 (two blocks an SM); 196,608 at n 2048, K 1024."""
-    return CUDA_BLOCK * n + max(CUDA_BLOCK * n, CUDA_BLOCK * k * 4, CUDA_BLOCK * d * 4)
+    and the staged genes (``CUDA_BLOCK`` x d floats); at ``frames`` > 1 a
+    third region holds the staged genes for every frame and the carries the
+    last warp hands to the next frame (``CUDA_BLOCK`` x (d + d / 2) floats).
+    98,304 bytes at n 1024, K 512 (two blocks an SM); 196,608 at n 2048,
+    K 1024, and 197,760 there for fm3_series at F > 1."""
+    carries = CUDA_BLOCK * (d + d // 2) * 4 if frames > 1 else 0
+    return CUDA_BLOCK * n + max(CUDA_BLOCK * n, CUDA_BLOCK * k * 4, CUDA_BLOCK * d * 4) + carries
 
 
 def fits_shared_memory(n: int, dtype: torch.dtype, d: int = 0) -> bool:

@@ -1096,39 +1096,63 @@ def test_b5_long_bit_equal_to_b2_launches(cuda, topology, dtype):
 
 
 
-# ---- B2's time-parallel layout (csrc/fused_tp.cu) --------------------------------
+# ---- B2's time-parallel layout (csrc/fused_tp.cuh) -------------------------------
 
 
 def _tp_layout(monkeypatch, tp):
-    """B2's wrapper in one layout at every bank."""
+    """B2's wrapper in one layout: the time-parallel one wherever its kernel
+    takes the shape (``tp_faster`` made to say yes), or the one-warp one."""
     monkeypatch.setattr(gn, "TIME_PARALLEL", tp)
+    if tp:
+        monkeypatch.setattr(gn, "tp_faster", lambda *a, **k: True)
 
 
-@pytest.mark.parametrize("runs", [1, 2])
-@pytest.mark.parametrize("pop", [2048, 8191, 8192])
-@pytest.mark.parametrize("sine_order", [5, 7, 9])
-@pytest.mark.parametrize("topology", BANKS)
-def test_b2_time_parallel_layout_bit_equal_to_one_warp(cuda, monkeypatch, topology, sine_order,
-                                                       pop, runs):
-    """B2 int8 on a fixed bank at n 1024 (the pursuit's polishes): the
-    time-parallel layout's fitness, values and steps bit-equal to the
-    one-warp layout's, one launch of each counted under its layout, run r
-    of a batched launch included; at one run, B2 within the int8 limits of
-    its plain version, its values equal and its steps within STEP_MAX_REL."""
+TP_CHAIN_CASES = ["fm2", "fm3_series", "fm4_series", "fm8_series"]
+# (topology, n, frames, sine order, population, runs): the banks at n 1024
+# and one frame (the pursuit's polishes), then the chains at frames 1, 2, 8
+# and every bank at frames 2 and 8, each at n 1024 and 2048, P 4095 / 4096
+TP_CASES = (
+    [(t, 1024, 1, o, pop, runs) for t in BANKS for o in (5, 7, 9)
+     for pop in (2048, 8191, 8192) for runs in (1, 2)]
+    + [(t, n, f, o, pop, runs) for t in TP_CHAIN_CASES for f in (1, 2, 8)
+       for n in (1024, 2048) for o in (5, 7, 9) for pop in (4095, 4096) for runs in (1, 2)]
+    + [(t, n, f, o, pop, runs) for t in BANKS for f in (2, 8)
+       for n in (1024, 2048) for o in (5, 7, 9) for pop in (4095, 4096) for runs in (1, 2)])
+
+
+def _tp_maxs(topology):
+    d = topology_dims(topology)
+    if topology.endswith("_parallel"):
+        return (3520.0, 8.0, 3520.0, 1.0) * (d // 4)
+    return (3520.0, 8.0) * (d // 2)
+
+
+@pytest.mark.parametrize("topology,n,frames,sine_order,pop,runs", TP_CASES)
+def test_b2_time_parallel_layout_bit_equal_to_one_warp(cuda, monkeypatch, topology, n, frames,
+                                                       sine_order, pop, runs):
+    """B2 int8 on a fixed bank or chain: the time-parallel layout's fitness,
+    values and steps bit-equal to the one-warp layout's, one launch of each
+    counted under its layout, run r of a batched launch included; at one run
+    (the banks at one frame), and at one run, sine order 9 and P 4096 (the
+    rest: at n 1024, and at F 8 also at n 2048), B2 within the int8 limits
+    of its plain version, its values equal and its steps within
+    STEP_MAX_REL."""
     d, mu = topology_dims(topology), 64
-    maxs = (3520.0, 8.0, 3520.0, 1.0) * (d // 4)
+    maxs = _tp_maxs(topology)
     so = make_spectrum_ops(ESConfig(num_dimensions=d, topology=topology, param_mins=(0.0,) * d,
-                                    param_maxs=maxs, audio_length_log2=10, dft_dtype="int8"),
+                                    param_maxs=maxs, audio_length_log2=n.bit_length() - 1,
+                                    dft_dtype="int8"),
                            device=cuda)
-    rng = np.random.default_rng(pop + sine_order)
+    rng = np.random.default_rng(pop + sine_order + 10 * frames + n)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
     lead = () if runs == 1 else (runs,)
     pv, ps = t(rng.random((*lead, mu, d))), t(rng.uniform(0.02, 0.3, (*lead, mu, d)))
-    tgt = t(rng.uniform(0, 50, (*lead, so.num_bins)))
+    tgt = t(rng.uniform(0, 50, (*lead, frames, so.num_bins) if frames > 1
+                        else (*lead, so.num_bins)))
     seed = 77 if runs == 1 else [77 + r for r in range(runs)]
     kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
-              dft_scale=so.dft_packed_scale, topology=topology, n=1024, pop_block=pop,
-              sine_order=sine_order)
+              dft_scale=so.dft_packed_scale, topology=topology, n=n, pop_block=pop,
+              sine_order=sine_order, num_frames=frames)
     outs = {}
     for tp in (False, True):
         _tp_layout(monkeypatch, tp)
@@ -1137,13 +1161,43 @@ def test_b2_time_parallel_layout_bit_equal_to_one_warp(cuda, monkeypatch, topolo
         assert dict(gn.fused_generation.launches_by_layout) == {
             "time_parallel" if tp else "one_warp": 1}
     assert all(_bits_equal(a, b) for a, b in zip(outs[False], outs[True]))
-    if runs == 1:
+    if runs == 1 and ((frames == 1 and topology in BANKS)
+                      or (sine_order == 9 and pop == 4096 and (n == 1024 or frames == 8))):
         fk, vk, sk = outs[True]
         fp, vp, spl = gn.fused_generation_plain(seed, pv, ps, tgt, **kw)
         rel = (fk - fp).abs() / fp.abs()
         assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
         assert torch.equal(vk, vp)
         assert float(((sk - spl).abs() / spl.abs()).max()) <= STEP_MAX_REL
+
+
+@pytest.mark.parametrize("topology", ["fm3_series", "fm3_parallel"])
+def test_b5_bit_equal_to_time_parallel_b2_launches_at_8_frames(cuda, monkeypatch, topology):
+    """B5 at 8 frames (the one-warp kernel) equals G launches of B2 in the
+    time-parallel layout + the stable selection, at --mode stft's shape
+    (P 4096, n 2048)."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    pop, mu, d, frames = 4096, 64, topology_dims(topology), 8
+    maxs = _tp_maxs(topology)
+    so = make_spectrum_ops(ESConfig(num_dimensions=d, topology=topology, param_mins=(0.0,) * d,
+                                    param_maxs=maxs, audio_length_log2=11, dft_dtype="int8"),
+                           device=cuda)
+    rng = np.random.default_rng(d + frames)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    pv, ps = t(rng.random((mu, d))), t(rng.uniform(0.02, 0.3, (mu, d)))
+    tgt = t(rng.uniform(0, 50, (frames, so.num_bins)))
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=2048, pop_block=pop,
+              sine_order=9, num_frames=frames)
+    seeds = [kernel_seed(23, g) for g in range(5)]
+    args = (pv, ps, pv[0].clone(), torch.tensor(float("inf"), device=cuda), tgt)
+    out = ev.fused_evolve(seeds, *args, **kw)
+    _tp_layout(monkeypatch, True)
+    gn.fused_generation.launches_by_layout.clear()
+    loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+    assert dict(gn.fused_generation.launches_by_layout) == {"time_parallel": len(seeds)}
+    assert all(_bits_equal(a, b) for a, b in zip(out, loop))
 
 
 @pytest.mark.parametrize("topology", ["fm3_parallel", "fm5_parallel"])

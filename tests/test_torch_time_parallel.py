@@ -185,6 +185,135 @@ def test_time_parallel_decomposition_is_exact(topology, segments, int8, sine_ord
         assert torch.equal(_bits(g), _bits(w)), f"block {b}"
 
 
+# ---- B2's time-parallel layout across frames (csrc/fused_tp.cuh) ----------------
+
+FRAMES_N = (256, 2048)
+MAGIC = 12582912.0  # csrc INT_MAGIC: y + MAGIC - MAGIC rounds to nearest even (FrameEmit)
+
+
+def _walk(seg_blocks, x, inc_blk):
+    """x advanced by ``seg_blocks`` block increments, frac after each."""
+    for _ in range(seg_blocks):
+        x = tsf._frac(x + inc_blk)
+    return x
+
+
+def tp_chain_frames(p, *, topology, n, frames, sine_order):
+    """Each block's int8 output sine (C, P) over ``frames`` frames of n, in
+    time order, as B2's time-parallel layout (csrc fused_tp.cuh) computes
+    it: W = min(n / 128, 8) warps a candidate, warp w the blocks [w nb / W,
+    (w + 1) nb / W) of every frame. In frame f each warp takes the carries
+    at the frame's first block (zero at frame 0, else where the last warp
+    ended frame f - 1), walks off[0] to its first block, and runs the levels
+    (synth_common.cuh::chain_scan): level L's totals over its blocks, then
+    off[L + 1] folded from its frame-start value over the totals of the
+    blocks before its first; the emitting pass gives the samples and the
+    last warp's carries at the frame's end."""
+    inv_sr = tsf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE, DEFAULT_SAMPLE_RATE)
+    inc1, ims, ics, _ = tsf._chain_rows(p.T.to(torch.float32), topology, inv_sr)
+    cs, cs63 = tsf.sin_coeffs(sine_order), tsf.sin_coeffs(sine_order, 63.0)
+    inc_blk = tsf._frac(float(C) * inc1)
+    kn, nb, pop = len(ims) + 1, n // C, p.shape[0]
+    w_count = min(nb, 8)
+    bounds = [(w * nb // w_count, (w + 1) * nb // w_count) for w in range(w_count)]
+    steps = nb // w_count
+    assert all(b1 - b0 == steps for b0, b1 in bounds)
+    rows = (inc1, ims, ics, cs, inc_blk)
+    start = [torch.zeros(pop) for _ in range(kn)]
+    out = []
+    for _ in range(frames):
+        off = [s.expand(w_count, pop).clone() for s in start]
+        for w, (b0, _) in enumerate(bounds):
+            off[0][w] = _walk(b0, start[0], inc_blk)
+        for level in range(kn - 1):
+            o = [x.clone() for x in off]
+            res = _blocks(rows, o, level + 1, range(steps))
+            totals = [res[i][w] for w in range(w_count) for i in range(steps)]  # block order
+            for w, (b0, _) in enumerate(bounds):
+                f = start[level + 1].clone()
+                for b in range(b0):
+                    f = tsf._frac(f + totals[b])
+                off[level + 1][w] = f
+        res = _blocks(rows, off, kn - 1, range(steps), cs63)
+        out.extend(res[i][..., w, :] for w in range(w_count) for i in range(steps))
+        start = [x[w_count - 1].clone() for x in off]  # the last warp's carries
+    return out
+
+
+def tp_bank_frames(p, *, topology, n, frames, sine_order):
+    """As ``tp_chain_frames`` for an fm{k}_parallel bank in int8
+    (synth_common.cuh::bank_scan across frames): each modulator's o1 walked
+    from its frame-start value, one level of every pair's carrier totals,
+    each o2 folded from its frame-start value, then the emitting pass, the
+    pairs' gained outputs summed in pair order."""
+    inv_sr = tsf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE, DEFAULT_SAMPLE_RATE)
+    pairs = tsf._pair_rows(p.T.to(torch.float32), topology, inv_sr)
+    gains, _ = tsf.bank_gains([pr[3] for pr in pairs], True)
+    cs = tsf.sin_coeffs(sine_order)
+    nb, pop = n // C, p.shape[0]
+    w_count = min(nb, 8)
+    bounds = [(w * nb // w_count, (w + 1) * nb // w_count) for w in range(w_count)]
+    t = torch.arange(C, dtype=torch.float32)[:, None]
+    incs_blk = [tsf._frac(float(C) * pr[0]) for pr in pairs]
+    o1s = [torch.zeros(pop) for _ in pairs]
+    o2s = [torch.zeros(pop) for _ in pairs]
+    out = []
+    for _ in range(frames):
+        o1_at, o2_at = {}, {}
+        for j, (inc1, ims, ics, _) in enumerate(pairs):
+            totals = []
+            for w, (b0, b1) in enumerate(bounds):
+                o1 = _walk(b0, o1s[j], incs_blk[j])
+                o1_at[j, w] = o1.clone()
+                for _ in range(b0, b1):
+                    x = tsf._sin_turns(t * inc1 + o1, cs) * ims[0] + ics[0]
+                    totals.append(tsf._exclusive_prefix(x)[1])
+                    o1 = tsf._frac(o1 + incs_blk[j])
+            for w, (b0, _) in enumerate(bounds):
+                f = o2s[j].clone()
+                for b in range(b0):
+                    f = tsf._frac(f + totals[b])
+                o2_at[j, w] = f
+        for w, (b0, b1) in enumerate(bounds):
+            o1 = [o1_at[j, w].clone() for j in range(len(pairs))]
+            o2 = [o2_at[j, w].clone() for j in range(len(pairs))]
+            for _ in range(b0, b1):
+                y = None
+                for j, (inc1, ims, ics, _) in enumerate(pairs):
+                    x = tsf._sin_turns(t * inc1 + o1[j], cs) * ims[0] + ics[0]
+                    pre, tot = tsf._exclusive_prefix(x)
+                    o = tsf._sin_turns(pre + o2[j], cs) * gains[j]
+                    y = o if y is None else y + o
+                    o2[j] = tsf._frac(o2[j] + tot)
+                    o1[j] = tsf._frac(o1[j] + incs_blk[j])
+                out.append(y)
+        o1s, o2s = o1, o2  # the last warp's carries at the frame's end
+    return out
+
+
+@pytest.mark.parametrize("frames", [1, 2, 8])
+@pytest.mark.parametrize("n", FRAMES_N)
+@pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm8_series", "fm3_parallel"])
+def test_time_parallel_frames_are_the_continuous_synthesis(topology, n, frames):
+    """B2's time-parallel order over F frames (warps of W = min(n / 128, 8),
+    carries handed from frame to frame, folds continued from each frame's
+    start offsets) gives the port's continuous synthesis of F n samples
+    (``synth_blocks_plain`` at n = F n) bit for bit, before and after the
+    int8 rounding that FrameEmit applies. Folding from 0 in every frame (a
+    mutation of the order) would differ from frame 1 on."""
+    p = _params(topology, n + frames)[:3]
+    kw = dict(topology=topology, n=n, frames=frames, sine_order=(5, 7, 9)[frames % 3])
+    mirror = tp_bank_frames if parallel_pairs(topology) else tp_chain_frames
+    got = mirror(p, **kw)
+    inv_sr = tsf.inv_sample_rate(DEFAULT_WAVETABLE_SIZE, DEFAULT_SAMPLE_RATE)
+    want = list(tsf.synth_blocks_plain(p, topology=topology, n=frames * n, inv_sr=inv_sr,
+                                       sine_order=kw["sine_order"], int8=True))
+    assert len(got) == len(want) == frames * n // C
+    for b, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(_bits(g), _bits(w)), f"block {b}"
+        assert torch.equal(_bits((g + MAGIC) - MAGIC), _bits((w + MAGIC) - MAGIC)), f"block {b}"
+
+
 def kernel_fold(q: torch.Tensor):
     """a+, a- (P, N/2) and the edge sample from a frame q (P, N) as float32,
     with the time-parallel B3's indexing: lane groups u of 16 rows, row
@@ -325,7 +454,7 @@ def test_b3_plain_blocks_of_one(int8):
     assert not torch.equal(ones[0], ones[1])
 
 
-# ---- B2's time-parallel layout (csrc/fused_tp.cu): shared memory and the pick ----
+# ---- B2's time-parallel layout (csrc/fused_tp.cuh): shared memory and the pick ---
 
 BANKS = [f"fm{k}_parallel" for k in range(2, 6)]
 
@@ -345,6 +474,24 @@ def test_gen_shared_bytes_tp(n, k, d, want):
     assert tsf.shared_bytes_tp(n, k, d) == want
 
 
+@pytest.mark.parametrize("n,k,topology,frames,want", [
+    # --mode stft's shape: the genes and the carries (6 + 3 floats a candidate) beside
+    (2048, 1024, "fm3_series", 8, 65536 + 131072 + 32 * 9 * 4),
+    (1024, 512, "fm2", 2, 32768 + 65536 + 32 * 6 * 4),
+    (1024, 512, "fm8_series", 2, 32768 + 65536 + 32 * 24 * 4),
+    (2048, 1024, "fm5_parallel", 8, 65536 + 131072 + 32 * 30 * 4),
+    # one frame: no third region, the genes staged in the second
+    (2048, 1024, "fm3_series", 1, 65536 + 131072),
+    (256, 8, "fm8_series", 1, 8192 + 8192),
+])
+def test_gen_shared_bytes_tp_chains_and_frames(n, k, topology, frames, want):
+    """At F > 1 a third region holds the staged genes (read at every frame)
+    and the carries the last warp hands to the next frame: 32 x (d + d / 2)
+    floats, as csrc fused_tp.cuh::tp_smem reckons it; at one frame the
+    formula is the banks' of one frame."""
+    assert tsf.shared_bytes_tp(n, k, topology_dims(topology), frames) == want
+
+
 @pytest.mark.parametrize("n,k,topology,dtype,frames,want", [
     # the pursuit's polishes: eight warps a block, 96 KB
     (1024, 512, "fm5_parallel", torch.int8, 1, True),
@@ -356,11 +503,12 @@ def test_gen_shared_bytes_tp(n, k, d, want):
     (128, 64, "fm3_parallel", torch.int8, 1, False),
     # past a block's shared memory: the one-warp layout
     (3584, 1792, "fm3_parallel", torch.int8, 1, False),
-    # what stays on the one-warp layout: bf16, true f32, F > 1, chains, wide banks
+    # F > 1 and the fixed chains take it too (at the default one block of candidates)
+    (1024, 512, "fm3_parallel", torch.int8, 2, True),
+    (1024, 512, "fm3_series", torch.int8, 1, True),
+    # what stays on the one-warp layout: bf16, true f32, the wide banks, the long code
     (1024, 512, "fm3_parallel", torch.bfloat16, 1, False),
     (1024, 512, "fm3_parallel", torch.float32, 1, False),
-    (1024, 512, "fm3_parallel", torch.int8, 2, False),
-    (1024, 512, "fm3_series", torch.int8, 1, False),
     (1024, 512, "fm6_parallel", torch.int8, 1, False),
     (1024, 512, "fm9_parallel", torch.int8, 1, False),
 ])
@@ -369,6 +517,42 @@ def test_gen_layout(n, k, topology, dtype, frames, want):
     scale = 1e-5 if dtype == torch.int8 else 0.0
     int8 = tsf.operand_mode(dtype, scale) == "int8"
     assert tgen.time_parallel(n, k, d, topology, int8, frames) is want
+
+
+@pytest.mark.parametrize("n,topology,pop,runs,want", [
+    # cells (h) / (m) and --batch: 128 and 512 one-warp blocks, one warp an SM or few
+    (2048, "fm3_series", 4096, 1, True),
+    (2048, "fm3_series", 4096, 4, True),
+    # cell (n), the run axis: 1024 blocks, but at n 2048 an SM holds three one-warp blocks
+    (2048, "fm3_series", 4096, 8, True),
+    # the bench shape: six one-warp blocks an SM at n 1024 hide fm3_series' latency
+    (1024, "fm3_series", 1 << 15, 1, False),
+    (1024, "fm3_series", 8192, 1, True),
+    # the pursuit's polishes and a bank at P 2^15
+    (1024, "fm5_parallel", 8192, 1, True),
+    (1024, "fm5_parallel", 1 << 15, 1, True),
+    # long chains lose once the one-warp grid fills the SMs
+    (2048, "fm8_series", 4096, 1, True),
+    (2048, "fm6_series", 4096, 8, False),
+    (1024, "fm4_series", 16384, 1, False),
+    (2048, "fm6_series", 1 << 15, 1, False),
+    # a grid of more than eight one-warp waves keeps the one-warp layout
+    (1024, "fm2", 1 << 15, 8, False),
+    (1024, "fm2", 1 << 15, 1, True),
+    # short frames: two or four warps a block
+    (256, "fm3_parallel", 16384, 1, False),
+    (256, "fm3_parallel", 8192, 1, True),
+    (512, "fm4_series", 4096, 1, True),
+    (512, "fm6_series", 16384, 1, False),
+    (256, "fm6_series", 4096, 1, False),
+])
+def test_gen_layout_rule(n, topology, pop, runs, want):
+    """``tp_faster`` on shapes an H100 timed in both layouts (PERF.md §6,
+    tools/torch_b2_layout_probe.py's sweep): the time-parallel layout where it was the faster, the one-warp
+    one where it was the faster or the two were within 1%."""
+    d = topology_dims(topology)
+    assert tgen.tp_faster(n, topology, pop, runs) is want
+    assert tgen.time_parallel(n, n // 2, d, topology, True, 8, pop, runs) is want
 
 
 def test_gen_layout_skips_the_long_code(monkeypatch):
@@ -412,4 +596,38 @@ def test_b2_wrapper_plain_on_cpu_whatever_the_layout(monkeypatch):
     assert after == before
     assert all(torch.equal(a, b) for a, b in zip(*outs))
     want = tgen.fused_generation_plain(11, pv, ps, target, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], want))
+
+
+@pytest.mark.parametrize("topology", ["fm3_series", "fm3_parallel"])
+def test_b2_wrapper_plain_on_cpu_whatever_the_layout_at_2_frames(monkeypatch, topology):
+    """A chain or a bank at F 2 (the shapes the time-parallel layout took on
+    in its second slice): on CPU tensors B2 runs its plain version whichever
+    layout it would take on the card, counts no launch, and its fitness
+    over the two frames is the plain version's."""
+    from pmfm_tpu_torch.ops.spectral import make_spectrum_ops
+
+    n, pop, frames = 256, 40, 2
+    d = topology_dims(topology)
+    so = make_spectrum_ops(n, dft_dtype="int8", device="cpu")
+    rng = np.random.default_rng(5)
+    pv = torch.from_numpy(rng.random((8, d)).astype(np.float32))
+    ps = torch.from_numpy(rng.uniform(0.02, 0.3, (8, d)).astype(np.float32))
+    target = torch.from_numpy(rng.random((frames, so.num_bins)).astype(np.float32))
+    maxs = ((3520.0, 8.0, 3520.0, 1.0) * (d // 4) if parallel_pairs(topology)
+            else (3520.0, 8.0) * (d // 2))
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=n, sine_order=7,
+              num_frames=frames)
+    before = tgen.fused_generation.launches, dict(tgen.fused_generation.launches_by_layout)
+    monkeypatch.setattr(tgen, "tp_faster", lambda *a, **k: True)
+    outs = []
+    for switch in (True, False):
+        monkeypatch.setattr(tgen, "TIME_PARALLEL", switch)
+        assert tgen.time_parallel(n, so.num_bins, d, topology, True, frames, pop) is switch
+        outs.append(tgen.fused_generation(13, pv, ps, target, **kw))
+    after = tgen.fused_generation.launches, dict(tgen.fused_generation.launches_by_layout)
+    assert after == before
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    want = tgen.fused_generation_plain(13, pv, ps, target, **kw)
     assert all(torch.equal(a, b) for a, b in zip(outs[0], want))

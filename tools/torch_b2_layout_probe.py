@@ -1,11 +1,22 @@
-"""B2 int8's two layouts on the fm{k}_parallel banks, end to end, on a card.
+"""B2 int8's two layouts, kernel by kernel and end to end, on a card.
 
 The port's B2 (``pmfm_tpu_torch.kernels.generation.fused_generation``) runs
-int8 on a fixed bank of 2-5 pairs in its time-parallel layout
-(``csrc/fused_tp.cu``) while ``generation.TIME_PARALLEL`` is True, else in
-the one-warp layout (``csrc/fused_eval.cu``); the two give the same results
-bit for bit. This script holds them against each other in one process, the
-layouts alternated one-warp, time-parallel, time-parallel, one-warp:
+int8 on a fixed chain or a fixed bank of 2-5 pairs in its time-parallel
+layout (``csrc/fused_tp.cuh``) where ``generation.time_parallel`` picks it,
+else in the one-warp layout (``csrc/fused_eval.cu``); the two give the same
+results bit for bit. This script holds them against each other in one
+process, the layouts alternated one-warp, time-parallel, time-parallel,
+one-warp (the time-parallel one forced wherever its kernel takes the shape,
+as ``chip_smoke.py::gen_layout`` forces it):
+
+* ``sweep``: B2's device time in both layouts (``chip_smoke.py::cuda_ms``,
+  the median of SWEEP_LAUNCHES launches, SWEEP_ROUNDS rounds of the four)
+  for every fixed chain and bank at n 256 to 2048 over SWEEP_SHAPES (one
+  frame, one run, P 4096 to 2^15; 8 runs; 8 frames), beside the layout the
+  wrapper takes: the evidence for ``time_parallel``'s rule;
+* ``modes``: ``cli.main`` on examples/audio_match.json as written with
+  ``--mode stft`` and ``--mode parallel-chunks``, seconds and B2 launches
+  by layout, MODE_REPEATS rounds of the four;
 
 * ``b2``: at n 1024, P 8192 (the pursuit's polishes) on fm3_parallel and
   fm5_parallel, the wrapper's host time a call (HOST_CALLS calls on the host
@@ -25,6 +36,7 @@ layouts alternated one-warp, time-parallel, time-parallel, one-warp:
 Usage, on a machine with a CUDA card, from the repository's root::
 
     python3 tools/torch_b2_layout_probe.py [--repeats 1] [--cut 10] [--skip pursuit]
+    python3 tools/torch_b2_layout_probe.py --skip b2 evolve timeline pursuit  # sweep, modes
 
 Prints one line a measurement, each with the card's name and power limit.
 """
@@ -52,6 +64,14 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 CONFIG = os.path.join(ROOT, "examples", "fm3_parallel_match.json")
+AUDIO_CONFIG = os.path.join(ROOT, "examples", "audio_match.json")
+SWEEP_N = (256, 512, 1024, 2048)
+# (frames, runs, populations): one-warp grids of 128 .. 8192 blocks of 32
+SWEEP_SHAPES = ((1, 1, (4096, 8192, 16384, 1 << 15)), (1, 8, (4096, 1 << 15)),
+                (8, 1, (4096, 1 << 15)))
+SWEEP_LAUNCHES = 10
+SWEEP_ROUNDS = 2  # rounds of ORDER a point
+MODE_REPEATS = 1
 WORK = os.path.join(ROOT, "build", "b2_layout_probe")
 HOST_CALLS = 200
 TIMED_CALLS = 50
@@ -73,17 +93,13 @@ def card() -> str:
         return f"[nvidia-smi: {e}]"
 
 
-@contextlib.contextmanager
 def layout(time_parallel: bool):
-    """B2's wrapper in one layout, restored after."""
+    """B2's wrapper in one layout (``chip_smoke.py::gen_layout``), restored
+    after."""
+    from chip_smoke import gen_layout
     from pmfm_tpu_torch.kernels import generation as gn
 
-    saved = gn.TIME_PARALLEL
-    gn.TIME_PARALLEL = time_parallel
-    try:
-        yield
-    finally:
-        gn.TIME_PARALLEL = saved
+    return gen_layout(gn, time_parallel)
 
 
 def bank_config(topology: str):
@@ -159,6 +175,98 @@ def evolve_times(dev, card_name: str):
                 row.append(f"{'early-stop check' if checked else 'trajectory'} {ms:.4f}")
             print(f"evolve {topology} P={cfg.population_size} {GENERATIONS} generations "
                   f"{LAYOUTS[tp]}: ms a generation {', '.join(row)} {card_name}", flush=True)
+
+
+def sweep_times(dev, card_name: str):
+    """B2's device ms in both layouts over the fixed chains and banks x
+    SWEEP_N x SWEEP_SHAPES, and the layout the wrapper takes."""
+    from chip_smoke import cuda_ms, param_maxs
+    from pmfm_tpu_torch.es import make_spectrum_ops
+    from pmfm_tpu_torch.es.pipeline import fused_generation_kwargs
+    from pmfm_tpu_torch.io import load_config
+    from pmfm_tpu_torch.kernels import generation as gn
+    from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+    base = load_config(AUDIO_CONFIG).es
+    gen = torch.Generator().manual_seed(29)
+    topologies = sorted(gn.TP_CHAINS, key=topology_dims) + sorted(gn.TP_BANKS, key=topology_dims)
+    for topology in topologies:
+        d = topology_dims(topology)
+        for n in SWEEP_N:
+            for frames, runs, pops in SWEEP_SHAPES:
+                for pop in pops:
+                    cfg = base.replace(topology=topology, num_dimensions=d,
+                                       param_mins=(0.0,) * d, param_maxs=param_maxs(topology),
+                                       audio_length_log2=n.bit_length() - 1, num_frames=frames)
+                    so = make_spectrum_ops(cfg, device=dev)
+                    kw = dict(fused_generation_kwargs(cfg, so), pop=pop)
+                    mu, lead = cfg.num_parents, (runs,) if runs > 1 else ()
+                    pv = torch.rand(*lead, mu, d, generator=gen).to(dev)
+                    ps = (0.02 + 0.28 * torch.rand(*lead, mu, d, generator=gen)).to(dev)
+                    tgt = (50 * torch.rand(*lead, frames, so.num_bins, generator=gen)).to(dev)
+                    seed = [7 + r for r in range(runs)] if runs > 1 else 7
+                    call = lambda: gn.fused_generation(seed, pv, ps, tgt, **kw)  # noqa: E731
+                    times = {False: [], True: []}
+                    for tp in ORDER * SWEEP_ROUNDS:
+                        with layout(tp):
+                            times[tp].append(cuda_ms(call, SWEEP_LAUNCHES))
+                    ow, tp_ms = statistics.median(times[False]), statistics.median(times[True])
+                    pick = gn.time_parallel(n, so.num_bins, d, topology, True, frames, pop, runs)
+                    print(f"sweep {topology} n={n} F={frames} B={runs} P={pop}: one-warp "
+                          f"{ow:.4f} ms {[round(x, 4) for x in times[False]]}, time-parallel "
+                          f"{tp_ms:.4f} ms {[round(x, 4) for x in times[True]]}, one-warp / "
+                          f"time-parallel {ow / tp_ms:.3f} (medians; worst pair "
+                          f"{min(times[False]) / max(times[True]):.3f}); one-warp blocks "
+                          f"{-(-pop // 32) * runs}; the wrapper takes "
+                          f"{LAYOUTS[pick]} {card_name}", flush=True)
+
+
+def mode_times(repeats: int, card_name: str):
+    """``cli.main`` on AUDIO_CONFIG with --mode stft and --mode
+    parallel-chunks, the layouts alternated."""
+    from pmfm_tpu_torch import cli
+    from pmfm_tpu_torch.kernels import generation as gn
+
+    work = os.path.join(ROOT, "build", "b2_layout_modes")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "input_audio"), os.path.join(work, "input_audio"))
+    try:
+        for mode in ("stft", "parallel-chunks"):
+            args = ["-j", AUDIO_CONFIG, "--mode", mode]
+            with contextlib.redirect_stdout(io.StringIO()):
+                os.chdir(work)
+                try:
+                    cli.main(args)  # warm-up: builds and caches every shape
+                finally:
+                    os.chdir(ROOT)
+            secs = {False: [], True: []}
+            for _ in range(repeats):
+                for tp in ORDER:
+                    out = io.StringIO()
+                    with layout(tp), contextlib.redirect_stdout(out):
+                        gn.fused_generation.launches_by_layout.clear()
+                        os.chdir(work)
+                        try:
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            code = cli.main(args)
+                            torch.cuda.synchronize()
+                            seconds = time.perf_counter() - t0
+                        finally:
+                            os.chdir(ROOT)
+                        took = dict(gn.fused_generation.launches_by_layout)
+                    if code != 0:
+                        raise SystemExit(f"--mode {mode} exited {code}:\n{out.getvalue()[-4000:]}")
+                    secs[tp].append(seconds)
+                    print(f"--mode {mode} audio_match.json as written, {LAYOUTS[tp]}: "
+                          f"{seconds:.3f} s; B2 launches by layout {took} {card_name}",
+                          flush=True)
+            print(f"--mode {mode} seconds, " + "; ".join(
+                f"{LAYOUTS[tp]} {[round(x, 3) for x in secs[tp]]} mean "
+                f"{statistics.fmean(secs[tp]):.3f}" for tp in (False, True)) + f" {card_name}",
+                flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def cut_loader(load, cut: int):
@@ -287,7 +395,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cut", type=int, default=10,
                     help="the timeline's cut of each stage's generations")
     ap.add_argument("--skip", nargs="*", default=(),
-                    choices=("b2", "evolve", "pursuit", "timeline"))
+                    choices=("b2", "evolve", "pursuit", "timeline", "sweep", "modes"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -295,7 +403,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card_name = card()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    steps = (("b2", lambda: b2_times(dev, card_name)),
+    steps = (("sweep", lambda: sweep_times(dev, card_name)),
+             ("modes", lambda: mode_times(max(args.repeats, MODE_REPEATS), card_name)),
+             ("b2", lambda: b2_times(dev, card_name)),
              ("evolve", lambda: evolve_times(dev, card_name)),
              ("timeline", lambda: timelines(args.cut, card_name)),
              ("pursuit", lambda: pursuit_times(args.repeats, card_name)))
