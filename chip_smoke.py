@@ -28,12 +28,11 @@ through the entry points a user calls, and times each kernel:
   ``evolve`` with ``fused_evolve`` at the bench config; the shipped path
   (``examples/params_match.json`` through ``_evolve_on_target``: 900
   generations of B2 in int8, 100 in f32) and ``match_audio`` running
-  ``examples/audio_match.json`` as written; the f32 and B5 kernels' times,
-  B5's split a generation (evaluation, selection, time not covered by
-  kernels, from torch.profiler), the f32 split at both refine tails' shapes
-  (with torch.profiler's time of each f32 kernel and cuBLAS SGEMM as the
-  DFT half's yardstick), the port's bench (``pmfm_tpu_torch/bench.py``,
-  one repetition) and the host time of the one-run operations the ES loop
+  ``examples/audio_match.json`` as written; the f32 and B5 kernels' times
+  (the f32 ones in turns with the earlier design), B5's split a generation
+  (evaluation, selection, time not covered by kernels, from
+  torch.profiler), the port's bench (``pmfm_tpu_torch/bench.py``, one
+  repetition) and the host time of the one-run operations the ES loop
   keeps beside their run-axis forms;
 * phases 17-19, the unfused engines and the CLI: the scan synthesis kernel
   (``csrc/scan_synth.cu``) bit-equal to its plain loop over samples at the
@@ -144,6 +143,18 @@ through the entry points a user calls, and times each kernel:
   2048; the wrapper's host time a call; the cut fm5_parallel pursuit, its
   B2 launches in the layout the wrapper takes.
 
+* phase 44, B2 true f32 at the shapes users' paths give it (cells (m),
+  (n), (h) and the shipped tail): the earlier design (the folded DFT, one
+  thread a candidate) and this one (the FFT at power-of-two frames, the
+  synthesis layout of ``f32_time_parallel``) in turns in one process,
+  each one's kernels from torch.profiler, the bounds with the FFT's and
+  the DFT's operations, cuFFT and cuBLAS SGEMM as the spectrum stage's
+  yardsticks, and the FFT kernel and the time-parallel synthesis as kernels
+  of their own against their plain versions; phase 45, the f32 synthesis'
+  two layouts bit-equal (every row of samples, read from the scratch) over
+  the fixed chains and banks x frames x n, B2 in both layouts and B5 at
+  F 8 bit-equal to its B2 launches.
+
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
 phases and the named ones, and prints no result line (``large`` names the
 large-frame inputs that phases 7-11, 33, 34 and 41 need).
@@ -156,9 +167,11 @@ line is ``{"ok": true, "device": {...}}``, printed only when every phase
 passed. Without a CUDA device the script exits 2 and prints no result. A
 watchdog ends a hung run with a traceback and a non-zero code.
 """
+import collections
 import contextlib
 import faulthandler
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -185,16 +198,16 @@ GRID_N = (256, 1024, 2048, 3584)
 GRID_TOPOLOGIES = ("fm2", "fm3_series", "fm8_series")
 GRID_SINE_ORDERS = (5, 7, 9)
 # two populations: 65 of tests/test_torch_gpu.py::test_b1_b2_int8_grid's
-# five (which holds all five, P 1 and 4001 among them) and the ragged 1001
-# (a partly filled last block of 32 and of 128 candidates, as 4001's; a
-# quarter of its plain versions' time), so that the whole run with phases
-# 41 and 43 stays under the watchdog on a slower host
-GRID_POPS = (65, 1001)
+# five (which holds all five, P 1 and 4001 among them) and the ragged 513
+# (a partly filled last block of 32 and of 128 candidates, as 4001's; an
+# eighth of its plain versions' time), so that the whole run with phases
+# 41 and 43-45 stays under the watchdog on a slower host
+GRID_POPS = (65, 513)
 GRID_ODD_BINS = (1024, 200)  # (n, K): K not a multiple of the kernel's 32-bin pass
 # phase 12: phase 4b's grid for B1/B2 true f32, with populations around the f32
 # DFT's 128-candidate block (its bin passes are 64 bins of one group: K 200
 # leaves partial passes and groups of 3 and 4 tiles)
-F32_GRID_POPS = (129, 1001)  # 129 of test_b1_b2_f32_grid's five, as GRID_POPS
+F32_GRID_POPS = (129, 513)  # 129 of test_b1_b2_f32_grid's five, as GRID_POPS
 SEED = 20261017
 # the large-frame cells: the reference's chunk-size rows (bench_suite.py)
 FOLD_LOG2N, FOLD_POP, FOLD_GENERATIONS = 13, 1 << 15, 30  # (c) synth_fold, B3
@@ -272,7 +285,7 @@ KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused
            "fused_synth_fitness_long", "fused_generation_long", "fused_synth_fitness_long_bf16",
            "fused_generation_long_bf16", "fused_synth_fitness_long_f32",
            "fused_generation_long_f32", "fused_evolve_long", "fused_synth_fold_long",
-           "fused_synth_stream_long", "scan_synth_long")
+           "fused_synth_stream_long", "scan_synth_long", "fused_f32_fft", "fused_f32_synth_tp")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -294,7 +307,8 @@ F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL = 1e-5, 1e-6
 # the CUDA kernels of the true-f32 B1/B2 (csrc/fused_f32.cu), timed apart by
 # torch.profiler in the f32 split line; B5 runs them or the int8 B2 kernel
 # for its evaluation, and its own selection kernel
-F32_KERNELS = ("f32_synth_kernel", "f32_dft_kernel", "f32_sum_kernel")
+F32_KERNELS = ("f32_synth_kernel", "f32_synth_tp_kernel", "f32_fft_kernel", "f32_frames_kernel",
+               "f32_fold_kernel", "f32_dft_kernel", "f32_sum_kernel")
 B2_KERNELS = F32_KERNELS + ("fused_generation_int8_kernel",)
 # phase 4's draw statistics: where they are written (also printed whole, on
 # the line "gen_check report: {...}"; committed as
@@ -341,7 +355,7 @@ PARALLEL_TOPOLOGIES = ("fm2_parallel", "fm3_parallel", "fm4_parallel")
 PARALLEL_SINE_ORDERS = (7, 9)
 # (two populations, as GRID_POPS; tests/test_torch_gpu.py::
 # test_b1_b2_parallel_grid holds five)
-PARALLEL_GRID_POPS = (65, 1001)
+PARALLEL_GRID_POPS = (65, 513)
 PARALLEL_TIMED = PARALLEL_TOPOLOGIES + ("fm3_series",)
 # phase 21: the pursuit solver through cli.main in PURSUIT_DIR: the first
 # example as written, its first chunk to a relative spectral error below
@@ -356,7 +370,7 @@ PURSUIT_DIR = "build/chip_smoke_pursuit"
 PURSUIT_AS_WRITTEN = "examples/fm3_parallel_match.json"
 PURSUIT_CUT = ("examples/fm4_parallel_match.json", "examples/fm4_series_match.json",
                "examples/fm5_series_match.json", "examples/huge_frame_match.json")
-PURSUIT_GENERATION_CUT = 40
+PURSUIT_GENERATION_CUT = 80
 PURSUIT_MAX_REL = 0.10
 
 # phases 22-25: multi-frame fitness and the run axis (A6). Phase 22 holds
@@ -401,7 +415,7 @@ PLAIN_RUNS_A6 = 1
 SUITE_STFT_POP, SUITE_STFT_MU = 1 << 13, 256
 SUITE_FRAMES = (1, 2, 4, 8)
 SUITE_RUNS = ((1, 1 << 13, 64), (4, 1 << 13, 64), (32, 1 << 11, 16))
-SUITE_GENERATIONS = 50
+SUITE_GENERATIONS = 25
 
 # phases 26-29: the bf16 mode of B1/B2/B5 and the reference's benchmark
 # suite. Phase 26 holds B1/B2 bf16 against their plain versions (the int8
@@ -417,12 +431,12 @@ BF16_FRAMES, BF16_RUNS = 8, 4
 BF16_TOPOLOGIES = GRID_TOPOLOGIES + ("fm3_parallel",)
 # phase 26's grid populations (as GRID_POPS; tests/test_torch_gpu.py::
 # test_b1_b2_bf16_grid holds all five)
-BF16_GRID_POPS = (65, 1001)
+BF16_GRID_POPS = (65, 513)
 BF16_B5_GENERATIONS = 10
 CACHE_LOG2N = 14
 SUITE_DIR = "build/chip_smoke_suite"
 SUITE_SUITES = ("all",)
-SUITE_ARGS = ("--fused", "--gens", "5")
+SUITE_ARGS = ("--fused", "--gens", "2")
 
 # phases 30-35 (the rest of ROADMAP Queue B item 3): fm{k}_parallel banks in
 # B3, B4 and B5, and 20 to 32 genes (fm5_parallel's compile-time bank; the
@@ -554,7 +568,7 @@ LONG_FRAMES, LONG_RUNS = 8, 4
 LONG_B5_GENERATIONS = 10
 LONG_STREAM_CHECK_BLOCKS = 16
 LONG_SCAN = ("fm33_series", "fm33_parallel")
-LONG_GENERATIONS = 200
+LONG_GENERATIONS = 100
 LONG_CLI_CONFIG = "examples/params_match.json"
 LONG_CLI_GENERATIONS, LONG_CLI_REFINE = 100, 20
 LONG_TIMED_LAUNCHES = 10
@@ -606,6 +620,21 @@ HOST_CALLS = 100  # B2 calls timed on the host clock (the wrapper's time a launc
 # launches are queued behind it (~11 ms at 1.755 GHz, above the host's time
 # to queue them)
 QUEUE_SPIN_CYCLES = 20_000_000
+# phase 44: B2 true f32 at the shapes users' paths give it, (label, config,
+# frames, runs): cells (m) --mode stft, (n) --mode parallel-chunks, (h)
+# audio_match.json's refine tail and (g) the shipped refine tail
+F32_ORDER = ("old", "new", "new", "old")  # phase 44's turns: the DFT route, then the FFT
+# phase 45: the f32 synthesis' two layouts bit-equal over these, two of the
+# frames a topology and frame count, in turn (the card-only test takes all)
+F32_TP_TOPOLOGIES = ("fm2", "fm3_series", "fm4_series", "fm8_series", "fm2_parallel",
+                     "fm3_parallel", "fm4_parallel", "fm5_parallel")
+F32_TP_FRAMES = (1, 2, 8)
+F32_TP_N = (256, 1024, 2048, 3584)
+F32_TP_POPS = (1000, 2049)
+F32_SPLIT_SHAPES = (("(m) --mode stft", "examples/audio_match.json", 8, None),
+                    ("(n) --mode parallel-chunks", "examples/audio_match.json", 1, 8),
+                    ("(h) audio_match.json", "examples/audio_match.json", 1, None),
+                    ("(g) shipped refine tail", "examples/params_match.json", 1, None))
 
 T0 = time.perf_counter()
 CARD = {"name": "?", "power_limit": "?"}
@@ -655,9 +684,11 @@ def once_ms(fn) -> float:
     return a.elapsed_time(b)
 
 
-def kernel_times(fn, runs: int) -> dict:
+def kernel_times(fn, runs: int, per_launch: bool = False) -> dict:
     """Mean device ms per call of each CUDA kernel that ``runs`` calls of
-    ``fn()`` launch, by name with its template arguments, from
+    ``fn()`` launch (``per_launch``: per recorded launch of it, which holds
+    where the trace keeps only part of the launches: late in a long run it
+    has kept ~10-40% of them), by name with its template arguments, from
     torch.profiler (after one warm-up call); empty when the trace holds no
     device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -673,14 +704,15 @@ def kernel_times(fn, runs: int) -> dict:
         us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
         name = ev.key.split("(")[0].removeprefix("void ")
         if us and ev.device_type == torch.autograd.DeviceType.CUDA:
-            out[name] = out.get(name, 0.0) + us / runs / 1e3
+            out[name] = out.get(name, 0.0) + us / (max(ev.count, 1) if per_launch else runs) / 1e3
     return out
 
 
 def kernel_breakdown(fn, runs: int) -> str:
-    """The f32 kernels' rows of ``kernel_times`` as "name ms, ..."; "not
-    measured" when the trace holds no device time."""
-    rows = [f"{name} {ms:.4f} ms" for name, ms in kernel_times(fn, runs).items()
+    """The f32 kernels' rows of ``kernel_times`` as "name ms, ..." (a launch
+    each a call of ``fn``: the mean per recorded launch); "not measured"
+    when the trace holds no device time."""
+    rows = [f"{name} {ms:.4f} ms" for name, ms in kernel_times(fn, runs, True).items()
             if name.split("<")[0] in F32_KERNELS]
     return ", ".join(rows) or "not measured"
 
@@ -721,6 +753,63 @@ def b2_layout(gn, kw2, k: int, d: int, runs: int = 1) -> str:
     tp = gn.time_parallel(kw2["n"], k, d, kw2["topology"], True, kw2.get("num_frames", 1),
                           kw2["pop"], runs)
     return "time_parallel" if tp else "one_warp"
+
+
+@contextlib.contextmanager
+def f32_mode(sf, fft: bool, time_parallel=None):
+    """B1/B2/B5 true f32 in one route and synthesis layout: the FFT at
+    power-of-two frames (``F32_FFT`` set) or the DFT at every frame; the
+    time-parallel synthesis wherever its kernel takes the shape
+    (``f32_tp_faster`` made to say yes), the one-thread one everywhere
+    (``F32_TIME_PARALLEL`` cleared) or, with None, the wrapper's rule; all
+    restored after."""
+    saved = sf.F32_FFT, sf.F32_TIME_PARALLEL, sf.f32_tp_faster
+    sf.F32_FFT = fft
+    if time_parallel is not None:
+        sf.F32_TIME_PARALLEL = time_parallel
+        if time_parallel:
+            sf.f32_tp_faster = lambda *a, **k: True
+    try:
+        yield
+    finally:
+        sf.F32_FFT, sf.F32_TIME_PARALLEL, sf.f32_tp_faster = saved
+
+
+def f32_rows(params, topology: str, n: int, frames: int, sine_order: int,
+             time_parallel: bool):
+    """The rows of samples the true-f32 B1 writes to its scratch for
+    ``params`` (P, D) or (B, P, D) at ``frames`` frames of ``n``, through
+    the library's own entry (``pmfm_fused_synth_fitness_f32``) in the chosen
+    synthesis layout on the route the wrapper takes: ``(rows (B, F, P, n),
+    fitness)`` against a zero target. The two layouts must write the same
+    rows bit for bit."""
+    from pmfm_tpu_torch.kernels import _build
+    from pmfm_tpu_torch.kernels import synth_fitness as sf
+    from pmfm_tpu_torch.ops import spectral
+
+    dev = params.device
+    p = params if params.dim() == 3 else params[None]
+    runs, pop, d = p.shape
+    so = spectral.make_spectrum_ops(n, None, dft_dtype="float32", device=dev)
+    k = so.num_bins
+    sp = sf.synth_params_struct(
+        topology=topology, n=n, k=k, d=d, dft_scale=0.0, sine_order=sine_order, frames=frames,
+        inv_sr=sf.inv_sample_rate(sf.DEFAULT_WAVETABLE_SIZE, sf.DEFAULT_SAMPLE_RATE))
+    with f32_mode(sf, True, time_parallel):
+        sf.f32_launch(sp, topology, pop, runs, dev)
+        require(bool(sp.f32_tp) == time_parallel, f"{topology}: no time-parallel layout at n={n}")
+        floats = sf.f32_scratch_floats(pop, n, frames, runs)
+    scratch = torch.full((floats,), float("nan"), device=dev)
+    target = torch.zeros((runs, frames, k), device=dev)
+    fitness = torch.empty((runs, pop), device=dev)
+    p = p.contiguous()
+    _build.check(_build.library().pmfm_fused_synth_fitness_f32(
+        p.data_ptr(), pop, runs, sp, so.dft_packed.data_ptr(), target.data_ptr(),
+        fitness.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        torch.cuda.current_stream(dev).cuda_stream), "pmfm_fused_synth_fitness_f32")
+    pad = sf.f32_pop_pad(pop)
+    rows = scratch[: runs * frames * pad * n].view(runs, frames, pad, n)[:, :, :pop].clone()
+    return rows, fitness
 
 
 def b2_source(layout: str, topology: str = "fm3_parallel") -> str:
@@ -791,6 +880,13 @@ def synth_ops_f32(pop: int, n: int, k: int, kn: int, ncoef: int) -> float:
     sine = 5 + 2 * (ncoef - 1)
     per_sample = 2 + (kn - 1) * (sine + 4) + sine + 1
     return float(pop) * (n * per_sample + 12 * k)
+
+
+def f32_fft_ops(rows: int, n: int) -> float:
+    """float32 operations of a real FFT of ``rows`` frames of n samples,
+    2.5 N log2 N a frame (a complex FFT of N/2 points and the split); the
+    epilogue's are synth_ops_f32's 12 a bin."""
+    return rows * 2.5 * n * math.log2(n)
 
 
 def param_maxs(topology: str) -> tuple:
@@ -1356,12 +1452,21 @@ class Smoke:
     def reset_counts(self):
         for fn in self.counters().values():
             fn.launches = 0
-            for attr in ("launches_by", "launches_by_layout"):
+            for attr in ("launches_by", "launches_by_layout", "launches_by_f32"):
                 if hasattr(fn, attr):
                     getattr(fn, attr).clear()
 
     def read_counts(self):
         return {name: fn.launches for name, fn in self.counters().items()}
+
+    def f32_counts(self):
+        """The true-f32 launches of B1, B2 and B5 since the last reset, by
+        route (``fft``, ``dft``) and synthesis layout (``time_parallel``,
+        ``one_thread``)."""
+        out = collections.Counter()
+        for fn in self.counters().values():
+            out.update(getattr(fn, "launches_by_f32", {}))
+        return out
 
     def large_setup(self):
         from pmfm_tpu_torch.es import make_spectrum_ops
@@ -1866,6 +1971,8 @@ class Smoke:
                                                 float((fk - fp).abs().max()))
         for name, err in worst.items():
             self.kernels[name] = {"max_abs_err": err}
+        # the three settings' frames (n 1024, 2048) take the FFT route
+        self.kernels["fused_f32_fft"] = {"max_abs_err": max(worst.values())}
         self.grid("float32", F32_GRID_POPS, (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL), SEED + 31, 5000)
         self.f32_vs_f64()
 
@@ -2094,6 +2201,10 @@ class Smoke:
         require(counts["fused_generation"] == gens and counts["fused_synth_fitness"] == 1
                 and sum(counts.values()) == gens + 1, "shipped path launches")
         require(p32["launches"]["fused_generation"] == r, "f32 tail launches")
+        f32 = self.f32_counts()
+        log(f"shipped path's true-f32 launches by route and synthesis layout: {dict(f32)}")
+        require(f32["fft"] == r + 1 and not f32["dft"], "the shipped f32 launches take the FFT")
+        self.kernels.setdefault("fused_f32_fft", {})["launches"] = f32["fft"]
         self.kernels.setdefault("fused_generation_f32", {})["launches"] = \
             p32["launches"]["fused_generation"]
         self.kernels.setdefault("fused_synth_fitness_f32", {})["launches"] = \
@@ -2130,16 +2241,37 @@ class Smoke:
             require(bool(np.all(np.diff(t[: g - r]) <= 0) and np.all(np.diff(t[g - r :]) <= 0)),
                     "best-ever fitness must not increase within a part")
             require(ch.best_fitness <= ch.refine_start_fitness, "the refine tail made it worse")
+        f32 = self.f32_counts()
+        log(f"match_audio's true-f32 launches by route and synthesis layout: {dict(f32)}")
+        require(f32["fft"] == chunks * (r + 1) and f32["time_parallel"] == chunks * (r + 1),
+                "audio_match.json's f32 launches take the FFT and the time-parallel synthesis")
+        self.kernels.setdefault("fused_f32_synth_tp", {})["launches"] = f32["time_parallel"]
         # per chunk: g B2 launches (int8, then f32) and one B1 f32 rescore
         require(counts["fused_generation"] == chunks * g
                 and counts["fused_synth_fitness"] == chunks
                 and sum(counts.values()) == chunks * (g + 1), "match_audio launches")
 
     # -- 16 -----------------------------------------------------------------
+    def f32_turns(self, fn, runs: int):
+        """``fn``'s device time (``cuda_ms`` over ``runs`` calls) in F32_ORDER's
+        turns: the earlier design (the DFT route, one thread a candidate) and
+        the wrapper's choice; (the new ms, the median of its turns; every
+        turn's ms by design)."""
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        modes = {"old": (False, False), "new": (True, None)}
+        times = {"old": [], "new": []}
+        for mode in F32_ORDER:
+            with f32_mode(sf, *modes[mode]):
+                times[mode].append(cuda_ms(fn, runs))
+        return statistics.median(times["new"]), times
+
     def third_timings(self):
-        """B1/B2 f32 at the shipped tail's shapes, B5 at the bench config,
-        and the port's bench (one repetition after a warm-up), then the host
-        time of the one-run forms the ES loop keeps (``host_forms``)."""
+        """B1/B2 f32 at the shipped tail's shapes (the earlier design and this
+        one in turns, ``f32_turns``), B5 at the bench config and in f32 at
+        the shipped tail, and the port's bench (one repetition after a
+        warm-up), then the host time of the one-run forms the ES loop keeps
+        (``host_forms``)."""
         from pmfm_tpu_torch import bench
         from pmfm_tpu_torch.es import kernel_seed
         from pmfm_tpu_torch.kernels import evolve as ev
@@ -2150,23 +2282,25 @@ class Smoke:
         cfg = c["cfg"]
         pop, mu, n, k = cfg.population_size, cfg.num_parents, cfg.n_samples, c["so"].num_bins
         seed = kernel_seed(SEED, 9)
-        # the f32 DFT: two (K, N/2) products a candidate, 2 operations a term
-        f32_ops = synth_ops_f32(pop, n, k, kn=3, ncoef=5) + 2.0 * 2 * k * (n // 2) * pop
-        operand = 2 * k * (n // 2) * 4
+        # the work any implementation does: the synthesis, a real FFT a frame
+        # (f32_fft_ops) and the epilogue; the folded DFT's two (K, N/2)
+        # products a candidate beside it for the record
+        f32_ops = synth_ops_f32(pop, n, k, kn=3, ncoef=5) + f32_fft_ops(pop, n)
+        dft_ops = 2.0 * 2 * k * (n // 2) * pop
         kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
+        src = "pmfm_tpu_torch/csrc/fused_f32.cu"
         rows = {
             "fused_synth_fitness_f32": (
                 lambda: sf.fused_synth_fitness(c["params"], c["target"], **kw1),
                 lambda: sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1),
-                pop * D * 4 + operand + k * 4 + pop * 4, 0.0, f32_ops,
-                "pmfm_tpu_torch/csrc/fused_f32.cu", "pmfm_tpu/kernels/synth_fitness.py:767",
+                pop * D * 4 + k * 4 + pop * 4, 0.0, f32_ops, src,
+                "pmfm_tpu/kernels/synth_fitness.py:767",
             ),
             "fused_generation_f32": (
                 lambda: gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2),
                 lambda: gn.fused_generation_plain(seed, c["pv"], c["ps"], c["target"], **kw2),
-                2 * mu * D * 4 + operand + k * 4 + pop * 4 + 2 * pop * D * 4, 0.0,
-                f32_ops + pop * D * 12 * 2.0,
-                "pmfm_tpu_torch/csrc/fused_f32.cu", "pmfm_tpu/kernels/generation.py:438",
+                2 * mu * D * 4 + k * 4 + pop * 4 + 2 * pop * D * 4, 0.0,
+                f32_ops + pop * D * 12 * 2.0, src, "pmfm_tpu/kernels/generation.py:438",
             ),
         }
         # B5: one launch of EVOLVE_TIMED_GENERATIONS generations at the bench config
@@ -2188,13 +2322,21 @@ class Smoke:
             "pmfm_tpu_torch/csrc/evolve.cu", "pmfm_tpu/kernels/evolve.py:366",
         )
         for name, (fn, plain, nbytes, int8_ops, f32, src, replaces) in rows.items():
-            ms = cuda_ms(fn, TIMED_LAUNCHES if name != "fused_evolve" else 5)
+            turns = ""
+            if name == "fused_evolve":
+                ms = cuda_ms(fn, 5)
+            else:
+                ms, times = self.f32_turns(fn, TIMED_LAUNCHES)
+                turns = (f" (turns {F32_ORDER}: old, the DFT route and one thread a candidate, "
+                         f"{times['old']}; new {times['new']}; the bound with the DFT's "
+                         f"{dft_ops / 1e9:.2f} G operations "
+                         f"{bound(nbytes, 0.0, f32 - f32_fft_ops(pop, n) + dft_ops)[0]:.4f} ms)")
             plain_ms = cuda_ms(plain, PLAIN_RUNS)
             bound_ms, by = bound(nbytes, int8_ops, f32)
             per = f", {ms / g:.4f} ms a generation" if name == "fused_evolve" else ""
             log(f"{name}: kernel {ms:.4f} ms{per}, plain {plain_ms:.2f} ms (median of "
                 f"{PLAIN_RUNS}), bound {bound_ms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
-                f"{int8_ops / 1e9:.1f} G int8 ops, {f32 / 1e9:.2f} G f32 ops) {card()}")
+                f"{int8_ops / 1e9:.1f} G int8 ops, {f32 / 1e9:.2f} G f32 ops){turns} {card()}")
             self.kernels.setdefault(name, {}).update(
                 route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
@@ -2210,8 +2352,6 @@ class Smoke:
             f"for {g} generations, {ms / g:.4f} ms a generation {card()}")
         self.b5_split("f32, shipped refine tail", f32_b5, g, ms,
                       self.kernels["fused_generation_f32"]["ms"])
-        for label in ("shipped refine tail", "audio_match refine tail"):
-            self.f32_split(label)
         b = bench.Bench(bench.GENS, device=self.dev)
         value_ms, shipped_ms = bench.best_ms(b.run_value, 1), bench.best_ms(b.run_shipped, 1)
         log(f"bench (pmfm_tpu_torch/bench.py, {bench.GENS} generations, one run after a warm-up): "
@@ -2282,49 +2422,218 @@ class Smoke:
             f"kernels {(ms - ev_ms - sel_ms - other) / g:.4f} ms; B2 alone {b2_ms:.4f} ms, B5 - B2 "
             f"{ms / g - b2_ms:.4f} ms a generation {card()}")
 
-    def f32_split(self, label):
-        """How B1/B2 f32 split at a refine tail's shape (phase 12's inputs for
-        ``label``): B1 and B2, B1 and B2 with an operand and target of
-        SPLIT_BINS bins (synthesis, fold, launch and, in B2, the prologue: the
-        DFT nearly gone), B2 - B1 (the prologue), and the DFT half alone as
-        ``torch.matmul`` of candidate-major f32 a+/- against the operand's
-        halves with TF32 off (cuBLAS SGEMM, a yardstick: the port never
-        calls it)."""
+    # -- 44 -----------------------------------------------------------------
+    def f32_shapes(self):
+        """B2 true f32 at each of F32_SPLIT_SHAPES, the earlier design and
+        this one alternated in one process (old, new, new, old, F32_ORDER):
+        the DFT route with one thread a candidate (``f32_mode(sf, False,
+        False)``: the parent's kernels and the fold that now lies between
+        them) against the wrapper's choice (the FFT, the synthesis layout of
+        ``f32_time_parallel``). Each one's device time (``cuda_ms``) and its
+        kernels' times from torch.profiler, the two fitnesses within the f32
+        gates, two yardsticks for the spectrum stage that the port never
+        calls (cuFFT: ``torch.fft.rfft`` of the same number of windowed
+        float32 frames of n; cuBLAS SGEMM: the folded DFT's two products,
+        TF32 off), and each one's bound: the bytes and the operations any
+        implementation must do (the synthesis, a real FFT's 2.5 N log2 N a
+        frame, the epilogue; the DFT's 2 x 2K x N/2 beside it for the
+        record). At cell (m)'s shape it also times the FFT kernel and the
+        time-parallel synthesis as kernels of their own (the JSON line's
+        ``fused_f32_fft`` and ``fused_f32_synth_tp``) against their plain
+        versions (the fold and folded DFT of ``dft_fitness_plain`` on the same
+        frames; ``synth_f32_plain``)."""
         from pmfm_tpu_torch.device import exact_f32_matmul
-        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.es import kernel_seed, make_spectrum_ops
+        from pmfm_tpu_torch.io import load_config
         from pmfm_tpu_torch.kernels import generation as gn
         from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.ops import spectral
 
-        c = self.f32[label]
-        pop, n, k = c["cfg"].population_size, c["cfg"].n_samples, c["so"].num_bins
-        op = c["so"].dft_packed
-        op_s = torch.cat([op[:SPLIT_BINS], op[k : k + SPLIT_BINS]]).contiguous()
-        tgt_s = c["target"][:SPLIT_BINS].contiguous()
-        kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
-        seed = kernel_seed(SEED, 2)
-        b1 = lambda o, t: sf.fused_synth_fitness(  # noqa: E731
-            c["params"], t, **dict(kw1, dft_packed=o))
-        b2 = lambda o, t: gn.fused_generation(  # noqa: E731
-            seed, c["pv"], c["ps"], t, **dict(kw2, dft_packed=o))
-        b1_ms, b2_ms = (cuda_ms(lambda: f(op, c["target"]), TIMED_LAUNCHES) for f in (b1, b2))
-        s1_ms, s2_ms = (cuda_ms(lambda: f(op_s, tgt_s), TIMED_LAUNCHES) for f in (b1, b2))
-        g = torch.Generator(device=self.dev).manual_seed(SEED)
-        ap, am = (torch.randn((pop, n // 2), generator=g, device=self.dev) for _ in range(2))
-        cos_t, sin_t = op[:k].T, op[k:].T  # (N/2, K) views
-        with exact_f32_matmul():
-            mm_ms = cuda_ms(lambda: (torch.matmul(ap, cos_t), torch.matmul(am, sin_t)),
-                            TIMED_LAUNCHES)
-        flops = 2.0 * 2 * k * (n // 2) * pop
-        log(f"B1/B2 f32 split ({label}: n={n}, K={k}, P={pop}): B1 {b1_ms:.4f} ms, B2 "
-            f"{b2_ms:.4f} ms; B1 with {SPLIT_BINS} bins (synthesis + fold + launch) {s1_ms:.4f} "
-            f"ms; B1 minus that (the DFT and its epilogue) {b1_ms - s1_ms:.4f} ms; B2 - B1 (the "
-            f"offspring prologue) {b2_ms - b1_ms:.4f} ms, with {SPLIT_BINS} bins "
-            f"{s2_ms - s1_ms:.4f} ms; yardstick for the DFT half, torch.matmul U+V with TF32 off "
-            f"(cuBLAS SGEMM) on candidate-major a+/- {mm_ms:.4f} ms "
-            f"({flops / (mm_ms * 1e-3) / 1e12:.1f} f32 TFLOP/s) {card()}")
-        del ap, am
-        log(f"  B2 f32 by kernel ({label}, torch.profiler, mean of {PROFILED_LAUNCHES} launches): "
-            f"{kernel_breakdown(lambda: b2(op, c['target']), PROFILED_LAUNCHES)} {card()}")
+        modes = {"old": (False, False), "new": (True, None)}
+        for i, (label, path, frames, runs) in enumerate(F32_SPLIT_SHAPES):
+            cfg = load_config(path).es.refine_config().replace(num_frames=frames)
+            so = make_spectrum_ops(cfg, device=self.dev)
+            b = runs or 1
+            c = self.run_inputs(cfg, so, b, SEED + 1700 + i)
+            if runs is None:
+                c = {key: v[0] for key, v in c.items()}
+            kw2 = self.kw_b2(dict(cfg=cfg, so=so))
+            seeds = [kernel_seed(SEED, 1710 + j) for j in range(b)]
+            seed = seeds if runs else seeds[0]
+            b2 = lambda: gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2)  # noqa: E731
+            pop, n, k, d = cfg.population_size, cfg.n_samples, so.num_bins, cfg.num_dimensions
+            rows = b * frames * pop
+            times, split, fit = {"old": [], "new": []}, {}, {}
+            for mode in F32_ORDER:
+                with f32_mode(sf, *modes[mode]):
+                    times[mode].append(cuda_ms(b2, TIMED_LAUNCHES))
+                    if mode not in split:
+                        split[mode] = kernel_breakdown(b2, PROFILED_LAUNCHES)
+                        fit[mode] = b2()[0]
+            e = rel_err(fit["new"], fit["old"])
+            require(float(e.max()) <= F32_FIT_MAX_REL and float(e.median()) <= F32_FIT_MEDIAN_REL,
+                    f"{label}: the FFT route disagrees with the DFT route")
+            geo = sf.f32_geometry(pop, n, k, frames, b, cfg.topology)
+            g = torch.Generator(device=self.dev).manual_seed(SEED)
+            x = torch.randn((rows, n), generator=g, device=self.dev)
+            w = torch.from_numpy(spectral.hann_window(n).astype(np.float32)).to(self.dev)
+            fft_ms = cuda_ms(lambda: torch.fft.rfft(x * w, dim=-1), TIMED_LAUNCHES)
+            ap, am = (torch.randn((rows, n // 2), generator=g, device=self.dev) for _ in range(2))
+            op = so.dft_packed
+            with exact_f32_matmul():
+                mm_ms = cuda_ms(lambda: (torch.matmul(ap, op[:k].T), torch.matmul(am, op[k:].T)),
+                                TIMED_LAUNCHES)
+            del ap, am
+            synth = synth_ops_f32(pop * b, n, k, kn=3, ncoef=5) * frames
+            offspring = pop * b * d * 12 * 2.0
+            io = b * frames * k * 4 + 2 * b * cfg.num_parents * d * 4 + 3 * b * pop * d * 4
+            fft_ops = rows * 2.5 * n * math.log2(n)
+            dft_ops = rows * 2.0 * 2 * k * (n // 2)
+            bound_ms, by = bound(io, 0.0, synth + offspring + fft_ops)
+            dft_bound_ms, dft_by = bound(io + 2 * k * (n // 2) * 4, 0.0, synth + offspring + dft_ops)
+            log(f"B2 f32 at {label} (n={n}, K={k}, P={pop}, F={frames}, B={b}, {cfg.topology}, "
+                f"sine order {cfg.sine_order}; {F32_ORDER}, each the median of "
+                f"{TIMED_LAUNCHES}): old (DFT, one thread a candidate) "
+                f"{' '.join(f'{t:.4f}' for t in times['old'])} ms, new ({geo['route']}, "
+                f"{geo['layout']} synthesis) {' '.join(f'{t:.4f}' for t in times['new'])} ms; "
+                f"new vs old fitness max rel {float(e.max()):.3e} median {float(e.median()):.3e}; "
+                f"bound {bound_ms:.4f} ms by {by} ({(synth + offspring + fft_ops) / 1e9:.2f} G "
+                f"f32 ops with the FFT; with the DFT {dft_bound_ms:.4f} ms by {dft_by}, "
+                f"{(synth + offspring + dft_ops) / 1e9:.2f} G); yardsticks for the spectrum of "
+                f"{rows} frames: cuFFT rfft of the windowed frames {fft_ms:.4f} ms, cuBLAS SGEMM "
+                f"of the folded DFT {mm_ms:.4f} ms {card()}")
+            for mode in ("old", "new"):
+                log(f"  B2 f32 by kernel at {label}, {mode} (torch.profiler, mean of "
+                    f"{PROFILED_LAUNCHES} launches): {split[mode]} {card()}")
+            if i == 0:
+                self.f32_kernel_rows(c, cfg, so, b2, x, w, fft_ms)
+            del x
+
+    def f32_kernel_rows(self, c, cfg, so, b2, x, w, fft_ms):
+        """The JSON line's rows of the FFT kernel and the time-parallel
+        synthesis at cell (m)'s shape: each one's device time in B2 (from
+        torch.profiler), its plain version's (``dft_fitness_plain`` after the
+        fold, on ``x``'s frames; ``synth_f32_plain``) and its bound; cuFFT
+        the FFT's library call."""
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        times = kernel_times(b2, PROFILED_LAUNCHES, per_launch=True)
+        by_name = {name.split("<")[0]: ms for name, ms in times.items()}
+        require("f32_fft_kernel" in by_name and "f32_synth_tp_kernel" in by_name,
+                f"cell (m)'s B2 f32 ran {sorted(by_name)}")
+        pop, n, k, frames = cfg.population_size, cfg.n_samples, so.num_bins, cfg.num_frames
+        rows = x.shape[0]
+        tgt = c["target"].reshape(frames, k)
+
+        def plain_spectrum():
+            fit = None
+            for f in range(frames):
+                ap, am, edge = sf.fold(x[f * pop : (f + 1) * pop].T)
+                t = sf.dft_fitness_plain(ap, am, edge, None, so.dft_packed, 0.0, tgt[f])
+                fit = t if fit is None else fit + t
+            return fit
+
+        scaled = torch.rand((pop, cfg.num_dimensions), device=self.dev) * torch.tensor(
+            cfg.param_maxs, device=self.dev)
+        kw = dict(topology=cfg.topology, n=n * frames, sine_order=cfg.sine_order,
+                  inv_sr=sf.inv_sample_rate(cfg.wavetable_size, cfg.sample_rate))
+        rows_spec = {
+            "fused_f32_fft": (by_name["f32_fft_kernel"], cuda_ms(plain_spectrum, PLAIN_RUNS),
+                              rows * n * 4 + frames * k * 4 + rows * 4,
+                              rows * (2.5 * n * math.log2(n) + 12 * k), fft_ms,
+                              "pmfm_tpu_torch/csrc/fused_f32.cu",
+                              "pmfm_tpu/kernels/synth_fitness.py:767"),
+            "fused_f32_synth_tp": (by_name["f32_synth_tp_kernel"],
+                                   cuda_ms(lambda: sf.synth_f32_plain(scaled, **kw), PLAIN_RUNS),
+                                   rows * n * 4 + pop * cfg.num_dimensions * 4,
+                                   synth_ops_f32(pop, n, 0, kn=3, ncoef=5) * frames, None,
+                                   "pmfm_tpu_torch/csrc/fused_f32_tp.cu",
+                                   "pmfm_tpu/kernels/generation.py:438"),
+        }
+        for name, (ms, plain_ms, nbytes, ops, lib_ms, src, replaces) in rows_spec.items():
+            bound_ms, by = bound(nbytes, 0.0, ops)
+            log(f"{name} (cell (m): n={n}, K={k}, P={pop}, F={frames}): kernel {ms:.4f} ms "
+                f"(torch.profiler, in B2), plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
+                f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G f32 ops), library "
+                f"{'not applicable' if lib_ms is None else f'{lib_ms:.4f} ms (cuFFT rfft)'} "
+                f"{card()}")
+            self.kernels.setdefault(name, {}).update(
+                route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+    # -- 45 -----------------------------------------------------------------
+    def f32_layouts(self):
+        """The true-f32 synthesis' two layouts write the same rows of samples
+        bit for bit (``f32_rows``) over F32_TP_TOPOLOGIES x F32_TP_FRAMES x
+        two of F32_TP_N (in turn, every frame size at every topology), sine
+        orders 5/7/9, populations F32_TP_POPS and runs 1 and 2 in turn, and
+        B1's fitness from them is bit-equal; then B2 in both
+        layouts bit-equal (fitness, values, steps) at cell (m)'s shape and
+        with a run axis of 8, and B5 at F 8 bit-equal to its B2 launches in
+        the layout the wrapper takes (``fused_evolve_plain`` runs them)."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        rng = np.random.default_rng(SEED + 45)
+        cases = 0
+        for ti, topology in enumerate(F32_TP_TOPOLOGIES):
+            d, maxs = topology_dims(topology), np.asarray(param_maxs(topology))
+            for fi, frames in enumerate(F32_TP_FRAMES):
+                for n in (F32_TP_N[(ti + fi) % 4], F32_TP_N[(ti + fi + 2) % 4]):
+                    order = GRID_SINE_ORDERS[cases % 3]
+                    pop = F32_TP_POPS[cases % len(F32_TP_POPS)]
+                    lead = (2,) if (cases // 2) % 2 else ()
+                    params = torch.from_numpy(
+                        (rng.random((*lead, pop, d)) * maxs).astype(np.float32)).to(self.dev)
+                    a, fa = f32_rows(params, topology, n, frames, order, False)
+                    b, fb = f32_rows(params, topology, n, frames, order, True)
+                    where = f"{topology}, n={n}, F={frames}, P={pop}, runs {lead or 1}, order {order}"
+                    require(bool(torch.isfinite(a).all()), f"f32 samples not finite ({where})")
+                    require(bits_equal(a, b), f"the f32 synthesis layouts differ ({where})")
+                    require(bits_equal(fa, fb), f"B1 f32 differs between layouts ({where})")
+                    cases += 1
+        self.kernels.setdefault("fused_f32_synth_tp", {})["max_abs_err"] = 0.0
+        log(f"f32 synthesis, time-parallel vs one thread a candidate: {cases} settings "
+            f"({F32_TP_TOPOLOGIES} x F {F32_TP_FRAMES} x two of n {F32_TP_N}, P {F32_TP_POPS}, "
+            f"runs 1/2, sine orders 5/7/9), every row of samples bit-equal and B1's fitness "
+            f"bit-equal")
+        # B2 in both layouts, and B5 against its B2 launches, at cell (m) and (n)'s shapes
+        from pmfm_tpu_torch.es import make_spectrum_ops
+        from pmfm_tpu_torch.io import load_config
+
+        for label, frames, runs in (("(m)", 8, None), ("(n)", 1, 8)):
+            cfg = load_config(AUDIO_CONFIG).es.refine_config().replace(num_frames=frames)
+            so = make_spectrum_ops(cfg, device=self.dev)
+            bb = runs or 1
+            c = self.run_inputs(cfg, so, bb, SEED + 4500 + frames)
+            if runs is None:
+                c = {key: v[0] for key, v in c.items()}
+            kw2 = self.kw_b2(dict(cfg=cfg, so=so))
+            seeds = [kernel_seed(SEED, 4510 + j) for j in range(bb)]
+            seed = seeds if runs else seeds[0]
+            out = {}
+            for tp in (False, True):
+                with f32_mode(sf, True, tp):
+                    out[tp] = gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2)
+            require(all(bits_equal(x, y) for x, y in zip(out[False], out[True])),
+                    f"B2 f32 differs between the synthesis layouts at {label}")
+            msg = f"B2 f32 at cell {label}'s shape: bit-equal in both synthesis layouts"
+            if runs is None:
+                s5 = [kernel_seed(SEED, 4520 + j) for j in range(EVOLVE_CHECK_GENERATIONS)]
+                args = (c["pv"], c["ps"], c["pv"][0].clone(),
+                        torch.tensor(float("inf"), device=self.dev), c["target"])
+                self.reset_counts()
+                got = ev.fused_evolve(s5, *args, **kw2)
+                layout = dict(self.f32_counts())
+                want = ev.fused_evolve_plain(s5, *args, generation=gn.fused_generation, **kw2)
+                require(all(bits_equal(x, y) for x, y in zip(got, want)),
+                        f"B5 f32 differs from its B2 launches at {label}")
+                msg += (f"; B5 ({len(s5)} generations, {layout}) bit-equal to its B2 launches "
+                        f"with the stable selection")
+            log(msg)
 
     # -- 17 -----------------------------------------------------------------
     def scan_vs_plain(self):
@@ -2581,8 +2890,10 @@ class Smoke:
             kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
             dft_ops = 2.0 * 2 * k * (n // 2) * pop
             synth = bank_ops_f32(pop, n, k, parallel_pairs(cfg.topology), ncoef=5)
-            operand = 2 * k * (n // 2) * (1 if mode == "int8" else 4)
-            int8_ops, f32_ops = (dft_ops, synth) if mode == "int8" else (0.0, synth + dft_ops)
+            # int8: the folded DFT on the operand; f32: the FFT (no operand)
+            operand = 2 * k * (n // 2) if mode == "int8" else 0
+            int8_ops, f32_ops = ((dft_ops, synth) if mode == "int8"
+                                 else (0.0, synth + f32_fft_ops(pop, n)))
             sfx = "" if mode == "int8" else "_f32"
             rows = {
                 f"fused_synth_fitness_parallel{sfx}": (
@@ -2601,14 +2912,19 @@ class Smoke:
             for name, (fn, plain, nbytes, i8, f32, replaces) in rows.items():
                 source = (b2_source(b2_layout(gn, kw2, k, d), cfg.topology)
                           if name == "fused_generation_parallel" else src)
-                ms = cuda_ms(fn, TIMED_LAUNCHES)
+                turns = ""
+                if mode == "int8":
+                    ms = cuda_ms(fn, TIMED_LAUNCHES)
+                else:
+                    ms, times = self.f32_turns(fn, TIMED_LAUNCHES)
+                    turns = f"; turns old {times['old']}, new {times['new']}"
                 plain_ms = cuda_ms(plain, PLAIN_RUNS)
                 bound_ms, by = bound(nbytes, i8, f32)
                 log(f"{name} ({cfg.topology}, n={n}, K={k}, P={pop}, sine order "
                     f"{cfg.sine_order}): kernel {ms:.4f} ms (median of {TIMED_LAUNCHES}), plain "
                     f"{plain_ms:.2f} ms (median of {PLAIN_RUNS}), bound {bound_ms:.4f} ms by {by} "
                     f"({nbytes / 1e6:.2f} MB, {i8 / 1e9:.1f} G int8 ops, {f32 / 1e9:.2f} G f32 "
-                    f"ops) {card()}")
+                    f"ops){turns} {card()}")
                 self.kernels.setdefault(name, {}).update(
                     route="cuda", source=source, replaces=replaces, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=by, library_ms=None)
@@ -3166,8 +3482,10 @@ class Smoke:
                 pop, mu, n, k, d = (cfg.population_size, cfg.num_parents, cfg.n_samples,
                                     so.num_bins, cfg.num_dimensions)
                 f32 = mode == "f32"
-                operand = 2 * k * (n // 2) * (4 if f32 else 1)
-                dft_ops = 2.0 * 2 * k * (n // 2) * pop * b * frames
+                # int8: the folded DFT on the operand; f32: the FFT (no operand)
+                operand = 0 if f32 else 2 * k * (n // 2)
+                dft_ops = (f32_fft_ops(pop * b * frames, n) if f32
+                           else 2.0 * 2 * k * (n // 2) * pop * b * frames)
                 synth = synth_ops_f32(pop * b, n, k, kn=3, ncoef=5) * frames
                 offspring = pop * b * d * 12 * 2.0
                 io = operand + b * frames * k * 4 + b * pop * 4
@@ -3200,15 +3518,21 @@ class Smoke:
                         "pmfm_tpu_torch/csrc/evolve.cu", "pmfm_tpu/kernels/evolve.py:366")
                 for name, (fn, plain, nbytes, dops, fops, gens, src, replaces) in rows.items():
                     int8_ops, f32_ops = (0.0, dops + fops) if f32 else (dops, fops)
-                    ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
+                    turns = ""
+                    if f32:
+                        ms, times = self.f32_turns(fn, TIMED_LAUNCHES)
+                        turns = (f"; turns old (the DFT route, one thread a candidate) "
+                                 f"{times['old']}, new {times['new']}")
+                    else:
+                        ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
                     plain_ms = cuda_ms(plain, PLAIN_RUNS_A6)
                     bound_ms, by = bound(nbytes, int8_ops, f32_ops)
                     per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
                     log(f"{name} ({mode}, F={frames}, B={b}, n={n}, K={k}, P={pop}): kernel "
                         f"({src.rsplit('/', 1)[-1]}) {ms:.4f} ms{per}, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
                         f"{by} ({nbytes / 1e6:.2f} MB, {int8_ops / 1e9:.1f} G int8 ops, "
-                        f"{f32_ops / 1e9:.2f} G f32 ops); {ms / bound_ms:.1f}x the bound "
-                        f"{card()}")
+                        f"{f32_ops / 1e9:.2f} G f32 ops); {ms / bound_ms:.1f}x the bound"
+                        f"{turns} {card()}")
                     self.kernels.setdefault(name, {}).update(
                         route="cuda", source=src, replaces=replaces, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=by, library_ms=None)
@@ -4444,12 +4768,13 @@ class Smoke:
             cfg, so = c["cfg"], c["so"]
             n, k, pop, mu = cfg.n_samples, so.num_bins, cfg.population_size, cfg.num_parents
             ncoef = 4 if cfg.sine_order == 7 else 5
-            elem = {"int8": 1, "bf16": 2, "f32": 4}[mode]
+            # int8, bf16: the folded DFT on the operand; f32: the FFT (no operand)
+            elem = {"int8": 1, "bf16": 2, "f32": 0}[mode]
             operand = 2 * k * (n // 2) * elem
             dft = 2.0 * 2 * k * (n // 2) * pop
             synth = bank_ops_f32(pop, n, k, 9, ncoef)
             ops = {"int8": (dft, synth, 0.0), "bf16": (0.0, synth, dft),
-                   "f32": (0.0, synth + dft, 0.0)}[mode]
+                   "f32": (0.0, synth + f32_fft_ops(pop, n), 0.0)}[mode]
             io = operand + k * 4 + pop * 4
             kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
             seed = kernel_seed(SEED, 4700)
@@ -5464,6 +5789,8 @@ def main(argv=None) -> int:
         s.phase("41 topologies above 32 genes: the long code in every kernel", s.long_codes)
     s.phase("43 B2 int8: the time-parallel layout on chains and frames", s.tp_chains)
     s.phase("43 B2 int8 banks: the time-parallel layout", s.tp_layout)
+    s.phase("44 B2 true f32 at the users' shapes", s.f32_shapes)
+    s.phase("45 B1/B2/B5 true f32: the synthesis layouts bit-equal", s.f32_layouts)
     s.phase("36 A9: resume, population readback, AOT", s.a9)
     s.phase("39 A10: a world of one, two ranks on the card, the CLI over a mesh", s.a10)
     s.phase("40 A1: the ES-quality gate, 2 seeds", s.a1)

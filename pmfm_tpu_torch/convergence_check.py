@@ -417,7 +417,7 @@ def main(argv=None, *, device: str | torch.device | None = None) -> int:
         doc["splits"][split] = {"seed_offset": args.seed_offset, "seeds": args.seeds,
                                 "meta": run_meta, "results": results}
         with open(args.json, "w") as f:
-            json.dump(doc, f, indent=1)
+            json.dump(doc, f, separators=(",", ":"))
         print(f"wrote {args.json} (split={split})")
     return 0
 

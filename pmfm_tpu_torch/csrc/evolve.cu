@@ -311,12 +311,13 @@ extern "C" {
 // seeds (gens,), in host memory, are the generations' Philox keys. fit_s
 // (pop,), val_s and step_s (pop, d) hold each generation's offspring. mode
 // is B2's: 0 int8, 1 true f32, 2 bf16 (the operand dft's dtype); in f32
-// mode scratch holds fused_f32.cu's f32_scratch_floats(pop, n, frames, runs)
-// floats. With a run axis every array has a leading one (traj is (runs,
-// gens)) and run_seeds (device memory, (gens, runs)) replaces seeds, which
-// may then be null, also at runs = 1 (one of the two must be given): each
-// generation is one B2 launch for all runs and one selection block a run,
-// so run r computes what a B5 call of that run alone computes. Enqueues
+// mode scratch holds fused_f32.cu's f32_scratch_floats(pop, n, frames, runs,
+// fft) floats on the route sp.fft names. With a run axis every array has a
+// leading one (traj is (runs, gens)) and run_seeds (device memory, (gens,
+// runs)) replaces seeds, which may then be null, also at runs = 1 (one of
+// the two must be given): each generation is one B2 launch for all runs and
+// one selection block a run, so run r computes what a B5 call of that run
+// alone computes. Enqueues
 // every launch on `stream` and returns the first CUDA error, 0 on success.
 int pmfm_fused_evolve(const uint32_t* seeds, const uint32_t* run_seeds, int gens, int pop,
                       int runs, SynthParams sp, MutateParams mp, const void* dft,

@@ -111,12 +111,15 @@ __device__ __forceinline__ float frame_sample(const uint4* s_q, int qunits, int 
 // One candidate's time-parallel synthesis of a frame: a fixed chain or a
 // fixed bank, its carries at the frame's first block (CARRIES floats, d / 2:
 // a chain's off[0 .. KN-1]; a bank's o1[], then o2[]) loaded from and stored
-// to carry slot j at c[j * stride].
-template <int NC, int KN, bool BANK = is_bank(KN)>
+// to carry slot j at c[j * stride]. INT8: the int8 engine's output sine
+// (63 sin, a bank's int8 gains) for this file's kernel; else the float
+// engines' unit sine times the amplitude (the true-f32 B1/B2's time-parallel
+// synthesis, fused_f32_tp.cu), as CandidateSynth's INT8 says.
+template <int NC, int KN, bool INT8 = true, bool BANK = is_bank(KN)>
 struct TpSynth;
 
-template <int NC, int KN>
-struct TpSynth<NC, KN, false> {
+template <int NC, int KN, bool INT8>
+struct TpSynth<NC, KN, INT8, false> {
   static constexpr int CARRIES = Chain<KN>::S, LEVELS = KN - 1;
   Chain<KN> ch;
   float off[CARRIES];
@@ -141,17 +144,18 @@ struct TpSynth<NC, KN, false> {
                                       float* tot, int nb, Emit& emit) {
     chain_scan<NC, KN>(ch, sp, b0, b1, b_top, off, tot, nb, TC_CPB, BlockSync{});
     NoTotal none;
-    synth_span<NC, FOLD_G, KN, KN - 1, true>(ch, sp, sp.sin_c63, b0, b1, off, emit, none);
+    synth_span<NC, FOLD_G, KN, KN - 1, true>(ch, sp, INT8 ? sp.sin_c63 : sp.sin_c, b0, b1, off,
+                                             emit, none);
   }
 };
 
-template <int NC, int KN>
-struct TpSynth<NC, KN, true> {
+template <int NC, int KN, bool INT8>
+struct TpSynth<NC, KN, INT8, true> {
   static constexpr int S = PairBank<KN>::S, CARRIES = 2 * S, LEVELS = S;
   PairBank<KN> bk;
   float o1[S], o2[S];
   __device__ __forceinline__ float init(const float* p, const SynthParams& sp) {
-    bk = make_bank<KN, true>(p, sp);
+    bk = make_bank<KN, INT8>(p, sp);
     return bk.amp;
   }
   __device__ __forceinline__ void zero() {
@@ -176,7 +180,7 @@ struct TpSynth<NC, KN, true> {
   __device__ __forceinline__ void run(const SynthParams& sp, int b0, int b1, int b_top,
                                       float* tot, int nb, Emit& emit) {
     bank_scan<NC, KN>(bk, sp, b0, b1, b_top, o1, o2, tot, nb, TC_CPB, BlockSync{});
-    synth_bank_span<NC, FOLD_G, KN, true>(bk, sp, b0, b1, o1, o2, emit);
+    synth_bank_span<NC, FOLD_G, KN, INT8>(bk, sp, b0, b1, o1, o2, emit);
   }
 };
 

@@ -7,9 +7,10 @@
 //
 // A prepare call does the host work of a launch that does not change from
 // one generation to the next (the instantiation for the sine order and the
-// chain length or the bank's pairs, the shared-memory attributes, the f32 scratch's checks and
-// layout); a run of launches calls it once. Each returns a CUDA error code,
-// 0 on success; a launch returns cudaGetLastError() after its kernel(s).
+// chain length or the bank's pairs, the shared-memory attributes, the f32
+// scratch's checks and layout, the f32 route and synthesis layout); a run of
+// launches calls it once. Each returns a CUDA error code, 0 on success; a
+// launch returns cudaGetLastError() after its kernel(s).
 #pragma once
 
 #include "evaluate.cuh"
@@ -51,19 +52,24 @@ int launch_generation_bf16(GenBf16Kernel kernel, uint32_t seed, const uint32_t* 
 
 typedef void (*F32SynthKernel)(const float* params, uint32_t seed, const uint32_t* run_seeds,
                                const float* pv, const float* ps, MutateParams mp, float* values,
-                               float* steps, int pop, SynthParams sp, float* ap, float* am,
-                               float* edge, int pop_pad);
+                               float* steps, int pop, SynthParams sp, float* x, int pop_pad);
 
-// The three kernels' instantiation and their views of the scratch, for
-// `runs` runs of pop candidates at sp.frames frames: the rows of a+/a-, the
-// edge samples and each group's sums of frame f of run r at row block
-// r * frames + f (rows (r frames + f) pop_pad ..).
+// The kernels' instantiations, their grids and their views of the scratch,
+// for `runs` runs of pop candidates at sp.frames frames: frame f of run r
+// is row block r * frames + f (rows (r frames + f) pop_pad ..) of the
+// samples x, of the DFT's a+/a-, edge samples and group sums (on the FFT
+// route, of its exact matches only) and of the FFT's per-row values.
 struct F32Plan {
-  F32SynthKernel synth;
+  F32SynthKernel synth;  // the synthesis in the layout sp.f32_tp names
+  int synth_blocks, synth_threads;  // its grid's first dimension (the second is runs) and block
+  int synth_smem;                   // its dynamic shared memory
   int pop, pop_pad, runs;
-  int rows;  // runs x frames x pop_pad: the rows of a+/a-, the edge samples and a group's sums
-  float *ap, *am, *edge;
-  double* partial;  // the group sums
+  int rows;  // runs x frames x pop_pad
+  bool fft;  // the route: the FFT (sp.fft given), else the folded DFT
+  float* x;  // the samples, rows x n
+  float* frame_fit;  // the FFT route: each row's fitness, rounded once, then its exact flag
+  float *ap, *am, *edge;  // the DFT's a+/a- (rows x n/2 each) and edge samples
+  double* partial;  // the DFT's group sums
   float* run;  // the DFT's running U/V tiles where the sample split applies, else null
 };
 

@@ -6,7 +6,8 @@
 // pmfm_tpu/kernels/synth_fitness.py::_make_block_synth; the fm{k}_parallel
 // bank (synth_bank_span: k fm2 chains summed in pair order); the candidate
 // synthesis frame after frame (CandidateSynth) of B1/B2 and B3's single
-// pass; and the grouped fold emitter FoldEmit that B3 and B1/B2 run on them.
+// pass; the grouped fold emitter FoldEmit that B3 and B1/B2 int8 and bf16
+// run on them, and the true-f32 B1/B2's row emitter XRowEmit.
 // Each array is sized by its synthesis code's own slots (chain_slots,
 // bank_slots, synth_dims), so raising the caps to 32 genes costs a chain of
 // three nothing. Above 32 genes a third code, LONG_CODE (LongSynth), takes
@@ -84,6 +85,8 @@ struct SynthParams {
   int long_code;     // 1: the long code (LONG_CODE) runs the synthesis, whatever its length
   int lrows;         // the long code's scratch rows (a synthesising thread's row each)
   float* lscr;       // the long code's scratch: lrows x d params, then d x lrows carries
+  int f32_tp;        // B1/B2 true f32: 1, the time-parallel synthesis (fused_f32_tp.cu)
+  const float* fft;  // B1/B2 true f32: the FFT's window and twiddles (fused_f32.cu), null: the DFT
 };
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -579,7 +582,7 @@ struct LinearRow {
 // The grouped fold emitter (B3, and B1/B2 in both modes): quantises each sample,
 // stores the first half, folds the second; one candidate's row of a+ and
 // a-, written and read FOLD_G samples at a time through `Row` (s, the first
-// sample of a group, is a multiple of FOLD_G). Run it as
+// sample of a group, is a multiple of FOLD_G), int8 or bf16. Run it as
 // synth_run<NC, FOLD_G, KN>(..., emit), then emit.fold_rows(0, false, 0.f).
 //
 // Samples come in groups of FOLD_G. The first half of the frame goes
@@ -592,12 +595,6 @@ struct LinearRow {
 // issued one group ahead, to hide its latency) and writes the sums and
 // differences; rows [0, FOLD_G) complete after the last sample. A thread
 // reads only what it wrote itself, so no barrier is needed.
-// A Row type that keeps the audio in exact float32 (B1/B2 true f32,
-// fused_f32.cu) specialises this to true: FoldEmit then stores y * amp
-// unrounded. The int8 and bf16 rows keep their own branch.
-template <typename Row>
-struct exact_f32_row : std::false_type {};
-
 template <bool INT8, typename Row = LinearRow<INT8>>
 struct FoldEmit {
   Row ap, am;
@@ -622,10 +619,8 @@ struct FoldEmit {
   __device__ __forceinline__ void operator()(int m, int u, float y) {
     // int8: round(63 sin) to nearest even as an exact float, by adding and
     // taking away INT_MAGIC (|y| < 64, so it is rintf(y), with -0 made +0);
-    // bf16: the audio rounded to bf16; an exact f32 row: the audio as it is
-    cur[u] = INT8                        ? fsub(fadd(y, INT_MAGIC), INT_MAGIC)
-             : exact_f32_row<Row>::value ? fmul(y, amp)
-                                         : to_f32(to_bf16(fmul(y, amp)));
+    // bf16: the audio rounded to bf16
+    cur[u] = INT8 ? fsub(fadd(y, INT_MAGIC), INT_MAGIC) : to_f32(to_bf16(fmul(y, amp)));
     const int m0 = m - u;
     if (m0 < half) {
       if (u == FOLD_G - 1) ap.store(m0, cur);
@@ -642,6 +637,50 @@ struct FoldEmit {
 #pragma unroll
       for (int i = 0; i < FOLD_G; ++i) prev[i] = cur[i];
     }
+  }
+};
+
+// One candidate's row of f32 samples in device memory (B1/B2 true f32: a
+// frame of n samples a row, rows `stride` floats apart, consecutive
+// candidates on consecutive rows). The 32 threads of a warp hold 32
+// consecutive rows and store the same group of FOLD_G samples together (the
+// synthesis runs them in lockstep, in either layout), so a store goes
+// through the warp's staging buffer in shared memory (32 x F32_LDB floats)
+// and each 16-byte write then covers part of a row's 64 bytes beside three
+// neighbours (8 rows an instruction, not 32 half-sectors: 4x less
+// scattered, the one-thread synthesis' main cost when each thread wrote its
+// own row).
+#define F32_LDB (FOLD_G + 4)  // a staged row, padded: 8 rows of a phase on disjoint banks
+struct F32Row {
+  float* p;    // the thread's row
+  float* buf;  // the warp's staging buffer
+  int lane, stride;
+  __device__ __forceinline__ void store(int s, const float* v) const {
+    __syncwarp();  // the warp is done with the buffer's last group
+#pragma unroll
+    for (int i = 0; i < FOLD_G / 4; ++i)
+      *reinterpret_cast<float4*>(buf + lane * F32_LDB + 4 * i) =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    __syncwarp();
+    float* row0 = p - (size_t)lane * stride + s;  // lane 0's row
+#pragma unroll
+    for (int it = 0; it < 32 * FOLD_G / 4 / 32; ++it) {
+      const int r = it * 8 + (lane >> 2), q = lane & 3;
+      *reinterpret_cast<float4*>(row0 + (size_t)r * stride + 4 * q) =
+          *reinterpret_cast<const float4*>(buf + r * F32_LDB + 4 * q);
+    }
+  }
+};
+
+// The true-f32 emitter: sample m of the frame is x[m] = y * amp, unrounded
+// (the plain version's synth_f32_plain), FOLD_G samples a store of the row.
+struct XRowEmit {
+  F32Row row;
+  float amp;
+  float cur[FOLD_G];
+  __device__ __forceinline__ void operator()(int m, int u, float y) {
+    cur[u] = fmul(y, amp);
+    if (u == FOLD_G - 1) row.store(m - u, cur);
   }
 };
 

@@ -5,7 +5,8 @@ B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_tp.cu`` and
 ``fused_tp_chain.cu``: B2 int8 in the time-parallel layout of
 ``fused_tp.cuh``, on the fixed banks of 2-5 pairs and the fixed chains; ``fused_wide.cu``:
 both modes at the wide synthesis codes, chains of 9-16 oscillators and banks of 6-8 pairs;
-``fused_f32.cu``: B1, B2 true f32; ``evolve.cu``: B5, which runs B2's
+``fused_f32.cu``: B1, B2 true f32, and ``fused_f32_tp.cu`` their
+time-parallel synthesis; ``evolve.cu``: B5, which runs B2's
 kernels through ``generation.cuh``; ``large_frame.cu``: B3, B4 on
 ``large_frame.cuh``, and ``large_frame_wide.cu`` their wide codes, every
 bank among them; ``fused_long.cu`` and ``large_frame_long.cu``: B1/B2
@@ -64,6 +65,8 @@ class SynthParams(ctypes.Structure):
         ("long_code", ctypes.c_int),
         ("lrows", ctypes.c_int),
         ("lscr", ctypes.c_void_p),
+        ("f32_tp", ctypes.c_int),
+        ("fft", ctypes.c_void_p),
     ]
 
 

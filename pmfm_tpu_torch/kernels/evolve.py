@@ -50,6 +50,7 @@ from .synth_fitness import (
     MAX_SHARED_BYTES,
     alloc_scratch,
     check_supported_topology,
+    f32_launch,
     f32_scratch_floats,
     inv_sample_rate,
     launch_mode,
@@ -166,9 +167,10 @@ def fused_evolve(
     leading B and the trajectory is ``(B, G)``. ``gens_per_step`` is kept for
     the reference's interface and changes nothing. On CUDA tensors this is
     one call of the B5 launcher, which enqueues every generation's kernels
-    (counted once in ``fused_evolve.launches``, and by mode in
-    ``fused_evolve.launches_by[launch_mode(...)]``); on CPU tensors it runs
-    the plain version.
+    (counted once in ``fused_evolve.launches``, by mode in
+    ``fused_evolve.launches_by[launch_mode(...)]`` and, true f32, by route and
+    synthesis layout in ``fused_evolve.launches_by_f32``, B2's
+    ``synth_fitness.f32_launch``); on CPU tensors it runs the plain version.
     """
     kw = dict(
         pop=pop, param_mins=param_mins, param_maxs=param_maxs, dft_packed=dft_packed,
@@ -235,6 +237,8 @@ def fused_evolve(
     mp = mutate_params_struct(mu, param_mins, param_maxs, alpha, beta, beta_scale,
                               root_two_over_pi, clamp_values, min_step, dev)
     lscratch = long_scratch(sp, topology, long_rows(pop, nruns), dev)  # noqa: F841 (kept)
+    if f32:
+        f32_keys = f32_launch(sp, topology, pop, nruns, dev)
     err = library().pmfm_fused_evolve(
         seeds_h, None if seeds_d is None else seeds_d.data_ptr(), gens, pop, nruns, sp, mp,
         dft_packed.data_ptr(), target_spectrum.data_ptr(), pv.data_ptr(), ps.data_ptr(),
@@ -246,8 +250,11 @@ def fused_evolve(
     fused_evolve.launches += 1
     fused_evolve.launches_by[
         launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
+    if f32:
+        fused_evolve.launches_by_f32.update(f32_keys)
     return pv, ps, pf, bv, (bf[0] if runs is None else bf), traj
 
 
 fused_evolve.launches = 0
 fused_evolve.launches_by = collections.Counter()
+fused_evolve.launches_by_f32 = collections.Counter()

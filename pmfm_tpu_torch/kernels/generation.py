@@ -11,7 +11,9 @@ fixed bank of 2-5 pairs, where ``time_parallel`` picks it,
 ``csrc/fused_tp.cuh::fused_generation_int8_tp_kernel`` (the time-parallel
 layout, bit-equal to the one-warp kernel)
 and, in the true-f32 mode, ``csrc/fused_f32.cu``'s (the synthesis kernel
-with the prologue, then B1's f32 DFT and group sum); each runs the offspring prologue
+with the prologue, one thread a candidate or ``csrc/fused_f32_tp.cu``'s
+time-parallel one, then B1's f32 FFT or DFT, ``synth_fitness.f32_route``,
+and the sum over frames or groups); each runs the offspring prologue
 below (``csrc/evaluate.cuh::offspring_gene``, the block's genes spread over
 all its threads) and then B1's evaluation in the mode the operand selects.
 ``fused_generation_plain`` is its plain PyTorch version. It takes every
@@ -58,12 +60,14 @@ from .synth_fitness import (
     CUDA_BLOCK,
     DEFAULT_POP_BLOCK,
     MAX_SHARED_BYTES,
+    SMS,
     TIME_BLOCK,
     _evaluate_plain,
     alloc_scratch,
     chain_length,
     check_kernel_shapes,
     check_supported,
+    f32_launch,
     f32_scratch_floats,
     inv_sample_rate,
     launch_mode,
@@ -91,7 +95,6 @@ TP_BANKS = frozenset(f"fm{k}_parallel" for k in range(2, 6))
 TIME_PARALLEL = True
 # tp_faster's constants, from both layouts' times on an NVIDIA H100 80GB
 # HBM3 (PERF.md §6; tools/torch_b2_layout_probe.py's sweep)
-SMS = 132  # the H100 SXM's SMs
 SM_SHARED_BYTES = 233472  # shared memory an SM holds (1 KB of it reserved a block)
 ONE_WARP_REG_BLOCKS = 8  # one-warp blocks an SM its ~255 registers a thread allow
 TP_MAX_WARPS = 8  # csrc fused_tp.cuh: warps a time-parallel block
@@ -404,7 +407,9 @@ def fused_generation(
     ``fused_generation.launches``, by mode in
     ``fused_generation.launches_by[launch_mode(...)]`` and, int8 and bf16,
     by layout in ``fused_generation.launches_by_layout``,
-    ``"time_parallel"`` or ``"one_warp"``: ``time_parallel``); on CPU tensors
+    ``"time_parallel"`` or ``"one_warp"``: ``time_parallel``; true f32, by
+    route and synthesis layout in ``fused_generation.launches_by_f32``,
+    ``synth_fitness.f32_launch``); on CPU tensors
     it runs the plain version whatever the layout, and alone accepts
     injected ``draws``.
     """
@@ -452,6 +457,7 @@ def fused_generation(
     mode = operand_mode(dft_packed.dtype, dft_scale)
     tp = time_parallel(n, k, d, topology, mode == "int8", num_frames, pop, nruns)
     if mode == "f32":
+        f32_keys = f32_launch(sp, topology, pop, nruns, dev)
         scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns), dev,
                                 "the f32 scratch")
         err = library().pmfm_fused_generation_f32(*args, scratch.data_ptr(), scratch.numel(),
@@ -464,7 +470,9 @@ def fused_generation(
         err = library().pmfm_fused_generation(*args, stream)
     check(err, "fused_generation" + (" (time-parallel layout)" if tp else ""))
     fused_generation.launches += 1
-    if mode != "f32":
+    if mode == "f32":
+        fused_generation.launches_by_f32.update(f32_keys)
+    else:
         fused_generation.launches_by_layout["time_parallel" if tp else "one_warp"] += 1
     fused_generation.launches_by[
         launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
@@ -474,3 +482,4 @@ def fused_generation(
 fused_generation.launches = 0
 fused_generation.launches_by = collections.Counter()
 fused_generation.launches_by_layout = collections.Counter()
+fused_generation.launches_by_f32 = collections.Counter()

@@ -7,9 +7,13 @@ Pallas kernel ``_kernel`` over ``_evaluate_block``, ``_make_block_synth``,
 the int8 tensor cores), in the bf16 mode
 ``csrc/fused_bf16.cu::fused_synth_fitness_bf16_kernel`` (the same one-warp
 design, ``csrc/tc_eval.cuh``, on the bf16 tensor cores) and, in the
-true-f32 mode, ``csrc/fused_f32.cu``'s three kernels (synthesis and fold into scratch, a register-tiled f32 DFT
-with the fitness epilogue, the sum over bin groups); each file's note says
-what bounds it on an H100 and how the design meets that.
+true-f32 mode, ``csrc/fused_f32.cu``'s kernels (the synthesis into rows of
+f32 samples in scratch, one thread a candidate or, where ``f32_time_parallel``
+says, ``csrc/fused_f32_tp.cu``'s time-parallel layout; then at a power-of-two
+frame a shared-memory FFT with the fitness epilogue, at any other a fold and
+the register-tiled folded DFT, ``f32_route``; then the sum over frames or bin
+groups); each file's note says what bounds
+it on an H100 and how the design meets that.
 ``fused_synth_fitness_plain`` here is their plain PyTorch version, which the
 wrapper runs for CPU tensors.
 
@@ -43,11 +47,12 @@ Three modes, chosen by the operand as in the reference:
   f32 contractions (TF32 off: the reference's ``Precision.HIGHEST``),
   ``edge_norm = 2 * norm`` (the operand carries window and norm), no
   magnitude rescale. The reference caps its f32 pop block
-  (``F32_MAX_POP_BLOCK``) for VMEM; here the kernels take
-  ``F32_SYNTH_THREADS`` and ``F32_DFT_BM`` candidates a block
-  (``f32_geometry``) with a+/a- in scratch that the wrapper allocates
-  (``f32_scratch_floats``), and ``pop_block`` only sizes the plain version's
-  blocks.
+  (``F32_MAX_POP_BLOCK``) for VMEM; here the kernels write each frame's
+  samples to scratch that the wrapper allocates (``f32_scratch_floats``)
+  and take its rows in blocks of their own (``f32_geometry``); at a
+  power-of-two frame the spectrum is an FFT of the windowed samples in
+  float32 (``f32_route``: the same function, the sums in another order),
+  and ``pop_block`` only sizes the plain version's blocks.
 
 The Mosaic workarounds (one-hot gathers and reversal matmuls, the (D, P)
 transposed layout, 128-lane pop blocks, VMEM gates) do not carry over.
@@ -96,7 +101,7 @@ import numpy as np
 import torch
 
 from ..device import exact_f32_matmul
-from ..ops.spectral import window_factor
+from ..ops.spectral import fft_tables, window_factor
 from ..ops.synthesis import parallel_pairs, series_ops, topology_dims
 from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 
@@ -109,9 +114,29 @@ TIME_BLOCK = 128
 LONG_ABOVE_GENES = 32
 LONG_ROW_PAD = 128  # csrc LONG_ROW_PAD: a run's rows of the B1/B2 long scratch
 CUDA_BLOCK = 32  # csrc TC_CPB: int8 B1/B2 candidates per CUDA block (one warp)
-F32_GROUPS = 8  # csrc DF_GROUPS: the f32 fitness's bin groups
+F32_GROUPS = 8  # csrc DF_GROUPS: the f32 DFT fitness's bin groups
 F32_SYNTH_THREADS = 128  # csrc SY_TPB: B1/B2 f32 synthesis, candidates (threads) per block
-F32_DFT_BM = 128  # csrc DF_BM: B1/B2 f32 DFT, candidates per block (the scratch's row padding)
+F32_ROW_PAD = 128  # csrc ROW_PAD: the f32 scratch's rows a row block, the population padded
+F32_FFT_THREADS = 256  # csrc FFT_THREADS
+F32_FFT_TILE = 16384  # csrc FFT_TILE: floats of an FFT block's tile of frames
+F32_FFT_SHARED_BYTES = 4 * F32_FFT_TILE  # the FFT block's tile, whatever the frame
+F32_FFT_N = (256, 512, 1024, 2048)  # csrc fft_takes: the frames the FFT takes
+# The true-f32 route of a frame of n samples (f32_route): the FFT where
+# F32_FFT and n is a power of two, else the folded DFT. The card's checks set
+# it False to time and check the DFT at the same shapes (chip_smoke.py phase
+# 44); it is never a fallback.
+F32_FFT = True
+# The true-f32 synthesis' time-parallel layout where f32_time_parallel picks
+# it; False keeps one thread a candidate at every shape (the card checks hold
+# the two against each other).
+F32_TIME_PARALLEL = True
+F32_DFT_BM = 128  # csrc DF_BM: B1/B2 f32 DFT, candidates per block
+SMS = 132  # the H100 SXM's SMs
+# f32_tp_faster's constant, from both synthesis layouts' times on an NVIDIA
+# H100 80GB HBM3 (PERF.md §6; tools/torch_f32_probe.py's sweep, 252 shapes):
+# the levels' extra sines times the one-thread layout's warps an SM, below
+# which the time-parallel layout is the faster
+F32_TP_K = 3.5
 F32_DFT_THREADS = 128  # csrc DF_THREADS
 F32_DFT_PASS_TILES = 8  # csrc DF_TILES: bin tiles of 8 per pass of a DFT block
 F32_SUM_THREADS = 256  # csrc SUM_TPB
@@ -525,8 +550,71 @@ def synth_params_struct(*, topology, n, k, d, inv_sr, dft_scale, sine_order, fra
 
 
 def f32_pop_pad(pop: int) -> int:
-    """The population padded to whole f32 DFT blocks (``F32_DFT_BM``)."""
-    return -(-pop // F32_DFT_BM) * F32_DFT_BM
+    """The population padded to whole row blocks of the f32 scratch (``F32_ROW_PAD``)."""
+    return -(-pop // F32_ROW_PAD) * F32_ROW_PAD
+
+
+def f32_route(n: int) -> str:
+    """The true-f32 route of frames of ``n`` samples, one test on n: ``"fft"``
+    (csrc ``f32_fft_kernel``) where n is a power of two (every frame a
+    user's configuration gives: ``audioLengthLog2`` 8-11 in B1/B2; n 256
+    to 2048, ``F32_FFT_N``), else ``"dft"`` (the fold and
+    ``f32_dft_kernel``: n 1280, 3584, ..., which only the tests reach).
+    ``F32_FFT`` False sends every frame to the DFT (the card's checks)."""
+    return "fft" if F32_FFT and n in F32_FFT_N else "dft"
+
+
+def f32_tp_takes(n: int, topology: str) -> bool:
+    """Whether the true-f32 synthesis' time-parallel kernel (csrc
+    ``fused_f32_tp.cu``) takes the shape: a fixed chain (fm2, fm3_series ..
+    fm8_series) or a fixed bank of 2-5 pairs, not on the long code, n a
+    multiple of 256 (two time blocks, two warps at least)."""
+    pairs = parallel_pairs(topology)
+    fixed = 2 <= pairs <= 5 if pairs else topology == "fm2" or 3 <= series_ops(topology) <= 8
+    return fixed and not uses_long_code(topology) and n % (2 * TIME_BLOCK) == 0
+
+
+def f32_tp_faster(n: int, topology: str, pop: int, runs: int = 1) -> bool:
+    """The rule by which the true-f32 synthesis takes its time-parallel
+    layout where its kernel takes the shape, from both layouts' times on an
+    H100 (PERF.md §6, the sweep of tools/torch_f32_probe.py). The one-thread
+    layout runs ceil(pop / 128) x runs blocks of four warps, each thread's
+    chain of dependent operations over all its samples, and loses by its few
+    warps an SM, ``warps``. The time-parallel one pays its levels: ``extra``
+    sines a sample for each of the synthesis' (a chain of KN: (KN - 1) / 2;
+    a bank: 1 / 2), each level a barrier of a block of only min(n / 128, 8)
+    warps ``W``. So it wins where ``extra`` <= W / 2 (at n 256, W 2, fm4
+    and longer chains lost at every population) and ``extra`` x ``warps``
+    < ``F32_TP_K``. The frame count does not enter: each layout's time grows
+    with it alike."""
+    extra = 0.5 if parallel_pairs(topology) else (chain_length(topology) - 1) / 2
+    warps = f32_pop_pad(pop) // F32_SYNTH_THREADS * runs * (F32_SYNTH_THREADS // 32) / SMS
+    return extra <= min(n // TIME_BLOCK, 8) / 2 and extra * warps < F32_TP_K
+
+
+def f32_time_parallel(n: int, topology: str, pop: int, runs: int = 1) -> bool:
+    """Whether B1/B2/B5 true f32 synthesise in the time-parallel layout (32
+    candidates a block on min(n / 128, 8) warps) for ``pop`` candidates of
+    ``runs`` runs: where the kernel takes the shape (``f32_tp_takes``) and
+    the card's rule says it is the faster (``f32_tp_faster``)."""
+    return (F32_TIME_PARALLEL and f32_tp_takes(n, topology)
+            and f32_tp_faster(n, topology, pop, runs))
+
+
+def shared_bytes_f32_tp(n: int, topology: str, frames: int = 1) -> int:
+    """Dynamic shared memory of a block of the true-f32 time-parallel
+    synthesis (csrc ``fused_f32_tp.cu::f32_tp_smem``): its warps' staging
+    buffers (32 x 20 floats a warp), the level totals (levels x n / 128 x
+    32 floats: a chain of KN has KN - 1 levels, a bank one a pair), the
+    staged genes (32 x d floats) and at ``frames`` > 1 the carries (32 x
+    d / 2 floats)."""
+    d = topology_dims(topology)
+    pairs = parallel_pairs(topology)
+    levels = pairs if pairs else chain_length(topology) - 1
+    warps = min(n // TIME_BLOCK, 8)
+    carries = CUDA_BLOCK * (d // 2) if frames > 1 else 0
+    return 4 * (warps * 32 * (16 + 4) + levels * (n // TIME_BLOCK) * CUDA_BLOCK
+                + CUDA_BLOCK * d + carries)
 
 
 def f32_dft_segments(n: int) -> int:
@@ -541,55 +629,94 @@ def f32_dft_segments(n: int) -> int:
 
 def f32_scratch_floats(pop: int, n: int, frames: int = 1, runs: int = 1) -> int:
     """Floats of scratch the true-f32 B1/B2 take (csrc ``f32_scratch_floats``)
-    for ``runs`` runs of ``pop`` candidates at ``frames`` frames of n: for
-    each of the runs x frames row blocks, a+ and a- (padded pop x N/2 each),
-    the edge samples, the ``F32_GROUPS`` double group sums of each padded
-    candidate and, where the DFT splits the samples, ``F32_DFT_LEVELS``
-    running tiles of ``F32_DFT_RUN`` floats for each thread of each DFT block
+    for ``runs`` runs of ``pop`` candidates at ``frames`` frames of n on its
+    route (``f32_route``): for each of the runs x frames row blocks, the
+    samples (padded pop x n), the DFT's a+ and a- (padded pop x N/2 each),
+    edge samples and ``F32_GROUPS`` double group sums a padded candidate
+    and, where the DFT splits the samples, ``F32_DFT_LEVELS`` running tiles
+    of ``F32_DFT_RUN`` floats for each thread of each DFT block
     (``F32_GROUPS`` x ``F32_DFT_LEVELS`` x ``F32_DFT_RUN`` a padded
-    candidate)."""
+    candidate); on the FFT route (whose exact matches the DFT scores again)
+    then each row's frame value, the row block's list of exact matches and
+    their count (3 a padded candidate)."""
     run = F32_GROUPS * F32_DFT_LEVELS * F32_DFT_RUN if f32_dft_segments(n) > 1 else 0
-    return runs * frames * f32_pop_pad(pop) * (n + 1 + 2 * F32_GROUPS + run)
+    per_row = 2 * n + 1 + 2 * F32_GROUPS + run + (3 if f32_route(n) == "fft" else 0)
+    return runs * frames * f32_pop_pad(pop) * per_row
 
 
-def f32_geometry(pop: int, n: int, k: int, frames: int = 1, runs: int = 1) -> dict:
-    """The true-f32 B1/B2 launches for ``runs`` runs of ``pop`` candidates at
-    ``frames`` frames of ``n`` samples and ``k`` bins (csrc ``launch_f32``):
-    blocks and threads of the synthesis, the DFT (a block per
-    ``F32_DFT_BM`` candidates and bin group) and the group sum, each grid's
-    first dimension; the second is ``runs`` for the synthesis and the sum,
-    ``row_blocks`` (runs x frames) for the DFT. ``passes`` is the most passes
-    of ``F32_DFT_PASS_TILES`` tiles a DFT block makes (group 0 has the most
-    tiles), ``segments`` the sample segments of each bin's sums
-    (``f32_dft_segments``) and ``scratch_bytes`` the scratch allocated."""
+def f32_geometry(pop: int, n: int, k: int, frames: int = 1, runs: int = 1,
+                 topology: str = "fm3_series") -> dict:
+    """The true-f32 B1/B2 launches for ``runs`` runs of ``pop`` candidates of
+    ``topology`` at ``frames`` frames of ``n`` samples and ``k`` bins (csrc
+    ``launch_f32``): the route (``f32_route``) and the synthesis layout
+    (``"time_parallel"`` or ``"one_thread"``, ``f32_time_parallel``), and
+    blocks and threads of each kernel's grid's first dimension: the
+    synthesis (its second is ``runs``); on the FFT route the FFT (a block a
+    tile of ``F32_FFT_TILE / n`` of the runs x frames x padded pop rows) and
+    ``exact``, the blocks of the exact matches' values; the fold (a block
+    per ``F32_DFT_BM`` rows) and the DFT (a block per ``F32_DFT_BM``
+    candidates and bin group), each with the second dimension
+    ``row_blocks``, runs x frames (on the FFT route their blocks past a row
+    block's exact matches return at once), ``passes`` (the most passes of
+    ``F32_DFT_PASS_TILES`` tiles a DFT block makes: group 0 has the most
+    tiles) and ``segments`` (``f32_dft_segments``); the sum over frames or
+    groups (its second dimension ``runs``); and ``scratch_bytes``."""
     pad = f32_pop_pad(pop)
-    tiles0 = -(-(k // 8) // F32_GROUPS)
-    return dict(
-        pop_pad=pad,
-        synth=(pad // F32_SYNTH_THREADS, F32_SYNTH_THREADS),
-        dft=(pad // F32_DFT_BM * F32_GROUPS, F32_DFT_THREADS),
+    route = f32_route(n)
+    tp = f32_time_parallel(n, topology, pop, runs)
+    rows = runs * frames * pad
+    geo = dict(
+        pop_pad=pad, route=route, layout="time_parallel" if tp else "one_thread",
+        synth=((pad // CUDA_BLOCK, 32 * min(n // TIME_BLOCK, 8)) if tp
+               else (pad // F32_SYNTH_THREADS, F32_SYNTH_THREADS)),
         sum=(-(-pop // F32_SUM_THREADS), F32_SUM_THREADS),
-        runs=runs,
-        row_blocks=runs * frames,
-        passes=-(-tiles0 // F32_DFT_PASS_TILES),
-        segments=f32_dft_segments(n),
+        runs=runs, row_blocks=runs * frames,
         scratch_bytes=4 * f32_scratch_floats(pop, n, frames, runs),
     )
+    if route == "fft":
+        geo.update(fft=(rows // (F32_FFT_TILE // n), F32_FFT_THREADS),
+                   exact=(-(-rows // F32_SUM_THREADS), F32_SUM_THREADS))
+    tiles0 = -(-(k // 8) // F32_GROUPS)
+    geo.update(fold=(pad // F32_DFT_BM, 256),
+               dft=(pad // F32_DFT_BM * F32_GROUPS, F32_DFT_THREADS),
+               passes=-(-tiles0 // F32_DFT_PASS_TILES), segments=f32_dft_segments(n))
+    return geo
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_table(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(fft_tables(n)).to(device)
+
+
+def f32_launch(sp, topology: str, pop: int, runs: int, device) -> tuple:
+    """Set the true-f32 route and synthesis layout in the kernels'
+    ``SynthParams``: ``sp.fft``, the FFT's tables on ``device`` (kept on the
+    device for the process: ``fft_tables``) on the FFT route, else null;
+    ``sp.f32_tp``. Returns ``(route, layout)``, the keys the launch is
+    counted under in ``launches_by_f32``."""
+    route = f32_route(sp.n)
+    tp = f32_time_parallel(sp.n, topology, pop, runs)
+    sp.fft = _fft_table(sp.n, torch.device(device)).data_ptr() if route == "fft" else None
+    sp.f32_tp = int(tp)
+    return route, "time_parallel" if tp else "one_thread"
 
 
 def shared_bytes(n: int, dtype: torch.dtype, d: int = 0) -> int:
     """Dynamic shared memory of a B1/B2 block at frames of ``n`` samples and
     ``d`` genes in the mode of an operand of ``dtype`` (csrc
-    ``tc_eval.cuh::tc_smem`` and ``fused_f32.cu``'s ``DF_SMEM``): int8 and
+    ``tc_eval.cuh::tc_smem`` and ``fused_f32.cu``'s spectrum kernels): int8 and
     bf16, the larger of the folded audio of its ``CUDA_BLOCK`` candidates,
     ``CUDA_BLOCK`` x n elements (at n 3584 in bf16, 229,376 of the block's
     232,448 bytes), and their ``CUDA_BLOCK`` x d scaled parameters, staged in
     the same space before the synthesis writes it (the larger above d = n x
-    element / 4: 64 genes at int8 n 256); true f32, the DFT's fixed stages
-    (a+/a- live in scratch, and the synthesis block stages at most 32 genes
-    in static shared memory: the long code reads its parameters from the long
-    scratch). B5 runs these kernels, and its selection block does not grow
-    with the frame."""
+    element / 4: 64 genes at int8 n 256); true f32, the larger of the
+    spectrum kernels' fixed blocks, the DFT's stages (the FFT's tile of
+    frames takes ``F32_FFT_SHARED_BYTES``; the samples live in scratch, the
+    one-thread synthesis block stages at most 32 genes in static shared
+    memory, the long code reads its parameters from the long scratch, and
+    the time-parallel synthesis block takes at most ~38 KB,
+    ``shared_bytes_f32_tp``). B5 runs these kernels, and its selection block
+    does not grow with the frame."""
     if dtype == torch.float32:
         return F32_DFT_SHARED_BYTES
     return max(n * CUDA_BLOCK * (2 if dtype == torch.bfloat16 else 1), CUDA_BLOCK * d * 4)
@@ -748,9 +875,12 @@ def fused_synth_fitness(
     and a float32 one with ``dft_scale`` 0 the true-f32 mode. ``target_spectrum`` is (K,), or (F, K) with
     ``num_frames`` = F (multi-frame fitness); with the run axis (B, F, K),
     or (B, K) at one frame. On CUDA tensors this launches the B1 kernel once
-    for all runs (counted in ``fused_synth_fitness.launches``, and by mode in
-    ``fused_synth_fitness.launches_by[launch_mode(...)]``); on CPU tensors it
-    runs the plain version. ``pop_block`` sizes the plain version's blocks.
+    for all runs (counted in ``fused_synth_fitness.launches``, by mode in
+    ``fused_synth_fitness.launches_by[launch_mode(...)]`` and, true f32, by
+    route and synthesis layout in ``fused_synth_fitness.launches_by_f32``:
+    ``"fft"`` or ``"dft"``, and ``"time_parallel"`` or ``"one_thread"``,
+    ``f32_launch``); on CPU tensors it runs the plain version. ``pop_block``
+    sizes the plain version's blocks.
     """
     dev = params_scaled.device
     if dev.type == "cpu":
@@ -777,6 +907,7 @@ def fused_synth_fitness(
     lscratch = long_scratch(sp, topology, long_rows(pop, nruns), dev)  # noqa: F841 (kept)
     mode = operand_mode(dft_packed.dtype, dft_scale)
     if mode == "f32":
+        f32_keys = f32_launch(sp, topology, pop, nruns, dev)
         scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns), dev,
                                 "the f32 scratch")
         err = library().pmfm_fused_synth_fitness_f32(
@@ -792,8 +923,11 @@ def fused_synth_fitness(
     fused_synth_fitness.launches += 1
     fused_synth_fitness.launches_by[
         launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
+    if mode == "f32":
+        fused_synth_fitness.launches_by_f32.update(f32_keys)
     return fitness
 
 
 fused_synth_fitness.launches = 0
 fused_synth_fitness.launches_by = collections.Counter()
+fused_synth_fitness.launches_by_f32 = collections.Counter()

@@ -73,6 +73,22 @@ def window_factor(n: int) -> float:
     return float(hann_window(n).sum() / n)
 
 
+def fft_tables(n: int) -> np.ndarray:
+    """The true-f32 B1/B2's FFT tables for frames of n samples (csrc
+    ``fused_f32.cu::f32_fft_kernel``), float64 values each rounded once to
+    float32: the window with the normalisation folded in, ``w[i] * norm``
+    (``norm = 1 / (N * windowFactor)``, as ``make_spectrum_ops``; n floats),
+    then ``W_N^k = (cos, -sin)(2 pi k / N)`` for k < N (n pairs): (3 n,)
+    float32, built beside the operand and handed to the kernel as one
+    device array."""
+    i = np.arange(n, dtype=np.float64)
+    w = hann_window(n)
+    ang = 2.0 * math.pi * i / n
+    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=1).reshape(-1)
+    norm = 1.0 / (n * window_factor(n))
+    return np.concatenate([w * norm, tw]).astype(np.float32)
+
+
 def default_num_bins(n: int) -> int:
     """CPU ground-truth bin count N/2."""
     return n // 2

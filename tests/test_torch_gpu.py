@@ -114,11 +114,12 @@ def test_b1_b2_int8_grid(cuda, n, bins, topology, sine_order, pop):
 @pytest.mark.parametrize("n,bins", [(256, None), (1024, None), (2048, None), (3584, None),
                                     (1024, 200)])
 def test_b1_b2_f32_grid(cuda, n, bins, topology, sine_order, pop):
-    """B1/B2 true f32 (synthesis into scratch, the register-tiled DFT on
-    128-candidate blocks and one bin group each, 64 bins a pass) against
-    their plain versions over every frame size class, a bin count that
-    leaves partial passes and groups of 3 and 4 tiles, population edges and
-    ported chains; B2's fitness bit-equal to B1's on B2's own offspring."""
+    """B1/B2 true f32 (synthesis into scratch; the FFT at the power-of-two
+    frames, the register-tiled DFT on 128-candidate blocks and one bin group
+    each, 64 bins a pass, at n 3584) against their plain versions over every
+    frame size class, a bin count that stops the FFT's epilogue early and
+    leaves the DFT partial passes, population edges and ported chains; B2's
+    fitness bit-equal to B1's on B2's own offspring."""
     _grid_case(cuda, "float32", n, bins, topology, sine_order, pop,
                (F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL))
 
@@ -265,10 +266,11 @@ def test_pursuit_cli_runs_on_the_card(cuda, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("pop", [1, RAGGED_POP])
 @pytest.mark.parametrize("n", [2048, 3584])
 def test_b1_f32_summation_near_float64(cuda, n, pop):
-    """Above 512 samples a bin, the f32 DFT sums each bin in 128-sample
-    segments added pairwise, and the terms over bins in double (csrc
-    fused_f32.cu): at n 2048 and 3584 (the f32 grid's fm3_series, sine order
-    7 inputs), the kernel's relative error against a float64 evaluation of
+    """At n 2048 the f32 kernels take the FFT (its rounding grows with log2
+    N); at n 3584 the DFT, which sums each bin in 128-sample segments added
+    pairwise, and the terms over bins in double (csrc fused_f32.cu): at both
+    (the f32 grid's fm3_series, sine order 7 inputs), the kernel's relative
+    error against a float64 evaluation of
     the same audio is within 1.5x the plain version's (cuBLAS's sums): the
     median at P 4001; at P 1, one value a float32 ulp of the fitness apart,
     within 1.5x the larger of the plain version's and that of U and V rounded
@@ -1226,3 +1228,148 @@ def test_b5_bit_equal_to_time_parallel_b2_launches(cuda, monkeypatch, topology):
     loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
     assert dict(gn.fused_generation.launches_by_layout) == {"time_parallel": len(seeds)}
     assert all(_bits_equal(a, b) for a, b in zip(out, loop))
+
+
+# ---- true f32: the FFT route and the time-parallel synthesis -------------------
+
+F32_USER_SHAPES = [  # (n, frames, runs, pop): cells (m), (n), the bench shape, (h)
+    pytest.param(2048, 8, 1, 4096, id="m-F8-P4096"),
+    pytest.param(2048, 1, 8, 4096, id="n-8xP4096"),
+    pytest.param(1024, 1, 1, 1 << 15, id="g-P32768"),
+    pytest.param(2048, 1, 1, 4096, id="h-P4096"),
+]
+
+
+@pytest.mark.parametrize("n,frames,runs,pop", F32_USER_SHAPES)
+def test_b1_b2_f32_fft_route_matches_plain(cuda, n, frames, runs, pop):
+    """B1/B2 true f32 at the shapes users' paths give them take the FFT
+    (``launches_by_f32``) and hold their plain versions within 1e-5 / 1e-6,
+    B2's values bit-equal; the DFT route at the same shapes
+    (``F32_FFT`` cleared) within the same limits of the FFT's."""
+    from chip_smoke import f32_mode
+
+    d, mu = 6, 64
+    cfg = ESConfig(num_parents=mu, num_offspring=pop - mu, audio_length_log2=n.bit_length() - 1,
+                   dft_dtype="float32", sine_order=9, num_frames=frames)
+    so = make_spectrum_ops(cfg, device=cuda)
+    rng = np.random.default_rng(n + frames + runs)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    lead = () if runs == 1 else (runs,)
+    p = t(rng.random((*lead, pop, d)) * np.asarray((3520.0, 8.0) * 3))
+    pv, ps = t(rng.random((*lead, mu, d))), t(rng.uniform(0.02, 0.3, (*lead, mu, d)))
+    tgt = t(rng.uniform(0, 50, (*lead, frames, so.num_bins)))
+    kw = dict(dft_packed=so.dft_packed, dft_scale=0.0, n=n, pop_block=pop, sine_order=9,
+              num_frames=frames)
+    kw2 = dict(kw, pop=pop, param_mins=cfg.param_mins, param_maxs=cfg.param_maxs, min_step=1e-4)
+    seed = 11 if runs == 1 else [11 + r for r in range(runs)]
+    sf.fused_synth_fitness.launches_by_f32.clear()
+    gn.fused_generation.launches_by_f32.clear()
+    f1 = sf.fused_synth_fitness(p, tgt, **kw)
+    f2, v2, s2 = gn.fused_generation(seed, pv, ps, tgt, **kw2)
+    assert sf.fused_synth_fitness.launches_by_f32["fft"] == 1
+    assert gn.fused_generation.launches_by_f32["fft"] == 1
+    p1 = sf.fused_synth_fitness_plain(p, tgt, **kw)
+    p2, pv2, ps2 = gn.fused_generation_plain(seed, pv, ps, tgt, **kw2)
+    assert torch.equal(v2, pv2)
+    assert float(((s2 - ps2).abs() / ps2.abs()).max()) <= STEP_MAX_REL
+    for got, ref in ((f1, p1), (f2, p2)):
+        rel = (got - ref).abs() / ref.abs()
+        assert float(rel.max()) <= F32_FIT_MAX_REL and float(rel.median()) <= F32_FIT_MEDIAN_REL
+    with f32_mode(sf, False):
+        dft = sf.fused_synth_fitness(p, tgt, **kw)
+    assert sf.fused_synth_fitness.launches_by_f32["dft"] == 1
+    rel = (dft - f1).abs() / f1.abs()
+    assert float(rel.max()) <= F32_FIT_MAX_REL and float(rel.median()) <= F32_FIT_MEDIAN_REL
+
+
+@pytest.mark.parametrize("frames", [1, 2, 8])
+@pytest.mark.parametrize("n", [256, 1024, 2048, 3584])
+@pytest.mark.parametrize("topology", ["fm2", "fm3_series", "fm4_series", "fm8_series",
+                                      "fm2_parallel", "fm3_parallel", "fm5_parallel"])
+def test_f32_synthesis_layouts_bit_equal(cuda, topology, n, frames):
+    """The true-f32 synthesis' time-parallel layout writes the rows of
+    samples of one thread a candidate bit for bit (``chip_smoke.f32_rows``,
+    the library's own entry), a run axis of 2 at F 2, and B1's fitness from
+    them is bit-equal; at n 3584 (the DFT route) too."""
+    from chip_smoke import f32_rows
+
+    d = topology_dims(topology)
+    runs = 2 if frames == 2 else 1
+    pop = 4095 if frames == 1 else 1000
+    rng = np.random.default_rng(n + frames + d)
+    p = torch.from_numpy((rng.random((runs, pop, d)) * np.asarray(_tp_maxs(topology)))
+                         .astype(np.float32)).to(cuda)
+    order = (5, 7, 9)[(n + frames) % 3]
+    a, fa = f32_rows(p, topology, n, frames, order, False)
+    b, fb = f32_rows(p, topology, n, frames, order, True)
+    assert bool(torch.isfinite(a).all())
+    assert _bits_equal(a, b) and _bits_equal(fa, fb)
+
+
+@pytest.mark.parametrize("frames,runs", [(8, 1), (1, 8)])
+def test_b2_f32_layouts_and_b5_bit_equal(cuda, frames, runs):
+    """B2 true f32 at cells (m) and (n)'s shapes gives the same fitness,
+    values and steps in both synthesis layouts; B5 at F 8 equals its B2
+    launches + the stable selection."""
+    from chip_smoke import f32_mode
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    pop, mu, d = 4096, 64, 6
+    cfg = ESConfig(num_parents=mu, num_offspring=pop - mu, audio_length_log2=11,
+                   dft_dtype="float32", sine_order=9, num_frames=frames)
+    so = make_spectrum_ops(cfg, device=cuda)
+    rng = np.random.default_rng(frames * runs)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    lead = () if runs == 1 else (runs,)
+    pv, ps = t(rng.random((*lead, mu, d))), t(rng.uniform(0.02, 0.3, (*lead, mu, d)))
+    tgt = t(rng.uniform(0, 50, (*lead, frames, so.num_bins)))
+    kw = dict(pop=pop, param_mins=cfg.param_mins, param_maxs=cfg.param_maxs,
+              dft_packed=so.dft_packed, dft_scale=0.0, n=2048, pop_block=pop, sine_order=9,
+              num_frames=frames)
+    seed = 13 if runs == 1 else [13 + r for r in range(runs)]
+    outs = {}
+    for tp in (False, True):
+        with f32_mode(sf, True, tp):
+            gn.fused_generation.launches_by_f32.clear()
+            outs[tp] = gn.fused_generation(seed, pv, ps, tgt, **kw)
+            assert gn.fused_generation.launches_by_f32[
+                "time_parallel" if tp else "one_thread"] == 1
+    assert all(_bits_equal(a, b) for a, b in zip(outs[False], outs[True]))
+    if runs == 1:
+        seeds = [kernel_seed(29, g) for g in range(5)]
+        args = (pv, ps, pv[0].clone(), torch.tensor(float("inf"), device=cuda), tgt)
+        out = ev.fused_evolve(seeds, *args, **kw)
+        loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+        assert all(_bits_equal(a, b) for a, b in zip(out, loop))
+
+
+@pytest.mark.parametrize("topology", ["fm3_parallel", "fm5_parallel", "fm16_series"])
+def test_b1_f32_exact_matches_hold_the_plain_version(cuda, topology):
+    """A known-params truth planted among random candidates against its own
+    target spectrum (fitness ~1e-9 at the banks: a difference of
+    roundings): the FFT route scores it by the direct sums against the
+    folded operand (csrc ``FFT_EXACT_BELOW``), within 1e-5 / 1e-6 of the
+    plain version with every random candidate."""
+    import chip_smoke as cs
+
+    truth = {"fm3_parallel": cs.PARALLEL_TRUTH[:12], "fm5_parallel": cs.WIDE_TRUTHS["fm5_parallel"],
+             "fm16_series": cs.WIDE_TRUTHS["fm16_series"]}[topology]
+    n, pop = 1024, 8192
+    cfg = ESConfig(num_dimensions=len(truth), topology=topology, audio_length_log2=10,
+                   dft_dtype="float32", param_mins=(0.0,) * len(truth),
+                   param_maxs=cs.param_maxs(topology))
+    so = make_spectrum_ops(cfg, device=cuda)
+    tgt = target_spectrum(synthesize_single(torch.tensor(truth), n, topology).to(cuda), so)
+    rng = np.random.default_rng(len(truth))
+    p = rng.random((pop, len(truth))) * np.asarray(cs.param_maxs(topology))
+    p[0] = truth
+    p = torch.from_numpy(p.astype(np.float32)).to(cuda)
+    kw = dict(dft_packed=so.dft_packed, dft_scale=0.0, topology=topology, n=n, pop_block=pop,
+              sine_order=9)
+    sf.fused_synth_fitness.launches_by_f32.clear()
+    got = sf.fused_synth_fitness(p, tgt, **kw)
+    assert sf.fused_synth_fitness.launches_by_f32["fft"] == 1
+    ref = sf.fused_synth_fitness_plain(p, tgt, **kw)
+    rel = (got - ref).abs() / ref.abs()
+    assert float(ref[0]) < 1e-6 * float(ref.median()) or topology == "fm16_series"
+    assert float(rel.max()) <= F32_FIT_MAX_REL and float(rel.median()) <= F32_FIT_MEDIAN_REL

@@ -74,7 +74,7 @@ def test_one_build_covers_every_kernel_source():
 
     names = [p.name for p in _build.sources()]
     assert names == ["evolve.cu", "fused_bf16.cu", "fused_eval.cu", "fused_f32.cu",
-                     "fused_long.cu", "fused_tp.cu", "fused_tp_chain.cu", "fused_wide.cu",
+                     "fused_f32_tp.cu", "fused_long.cu", "fused_tp.cu", "fused_tp_chain.cu", "fused_wide.cu",
                      "large_frame.cu",
                      "large_frame_long.cu", "large_frame_wide.cu", "scan_synth.cu"]
     assert (_build.CSRC / "synth_common.cuh").exists() and (_build.CSRC / "evaluate.cuh").exists()

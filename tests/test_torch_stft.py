@@ -405,8 +405,9 @@ def test_run_axis_shapes_checked():
     assert tsf.f32_scratch_floats(100, 1024, 8, 4) == 32 * tsf.f32_scratch_floats(100, 1024)
     geo = tsf.f32_geometry(4096, 2048, 1024, 8, 4)
     assert geo["row_blocks"] == 32 and geo["runs"] == 4
-    # --batch at examples/audio_match.json's shape: 4 runs x 8 frames x 4096 candidates
-    assert geo["scratch_bytes"] == 4 * 32 * 4096 * (2048 + 1 + 16 + 8 * 4 * 128)
+    # --batch at examples/audio_match.json's shape: 4 runs x 8 frames x 4096 candidates,
+    # each row's samples, the DFT's (for the FFT route's exact matches) and the FFT's values
+    assert geo["scratch_bytes"] == 4 * 32 * 4096 * (2048 + 2048 + 1 + 16 + 8 * 4 * 128 + 3)
 
 
 # ---- the matchers (tests/test_stft.py's TestSTFTMatcher) ---------------------------
