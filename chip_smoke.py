@@ -34,10 +34,12 @@ through the entry points a user calls, and times each kernel:
   torch.profiler), the port's bench (``pmfm_tpu_torch/bench.py``, one
   repetition) and the host time of the one-run operations the ES loop
   keeps beside their run-axis forms;
-* phases 17-19, the unfused engines and the CLI: the scan synthesis kernel
-  (``csrc/scan_synth.cu``) bit-equal to its plain loop over samples at the
-  bench's and parameters.json's shapes and over chains, oscillators and
-  output types; each unfused engine (``xla_dft``, ``xla_folded_dft`` int8
+* phases 17-19, the unfused engines and the CLI: the scan synthesis
+  (``csrc/scan_synth.cu``) in both layouts, one thread a candidate and
+  time-parallel, each bit-equal to its plain loop over samples and to the
+  other at the bench's and parameters.json's shapes and over chains,
+  oscillators and output types, timed in turns beside the chain floor; each
+  unfused engine (``xla_dft``, ``xla_folded_dft`` int8
   and bf16, ``xla_rfft``; scan and scanless synthesis) at the bench shape,
   held against the same engine on the CPU, with the known-params truth
   first, and the rfft rung at n 8192 and 16384; ``python -m
@@ -155,6 +157,13 @@ through the entry points a user calls, and times each kernel:
   the fixed chains and banks x frames x n, B2 in both layouts and B5 at
   F 8 bit-equal to its B2 launches.
 
+* phase 46, B1 int8 in B2's time-parallel layout: bit-equal to the
+  one-warp layout at the settings the driven paths give it (the pursuits'
+  seed rescores at P 1, P 32 and 8192, --mode stft's F 8 and the run
+  axis, the bench shape, which stays one-warp), B2's fitness bit-equal to
+  B1's on its own offspring with both time-parallel, and the two layouts
+  timed in turns.
+
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
 phases and the named ones, and prints no result line (``large`` names the
 large-frame inputs that phases 7-11, 33, 34 and 41 need).
@@ -199,9 +208,12 @@ GRID_TOPOLOGIES = ("fm2", "fm3_series", "fm8_series")
 GRID_SINE_ORDERS = (5, 7, 9)
 # two populations: 65 of tests/test_torch_gpu.py::test_b1_b2_int8_grid's
 # five (which holds all five, P 1 and 4001 among them) and the ragged 513
-# (a partly filled last block of 32 and of 128 candidates, as 4001's; an
-# eighth of its plain versions' time), so that the whole run with phases
-# 41 and 43-45 stays under the watchdog on a slower host
+# (a partly filled last block of 32 and of 128 candidates, as 4001's),
+# taken in turn: a setting's time goes with n (the plain versions walk the
+# frame), not with P, so each (topology, sine order) runs one of them, the
+# next the other, and P 2^15 at n 1024 beside it (the card-only tests hold
+# the product), so that the whole run stays under the watchdog on a slower
+# host
 GRID_POPS = (65, 513)
 GRID_ODD_BINS = (1024, 200)  # (n, K): K not a multiple of the kernel's 32-bin pass
 # phase 12: phase 4b's grid for B1/B2 true f32, with populations around the f32
@@ -285,7 +297,8 @@ KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused
            "fused_synth_fitness_long", "fused_generation_long", "fused_synth_fitness_long_bf16",
            "fused_generation_long_bf16", "fused_synth_fitness_long_f32",
            "fused_generation_long_f32", "fused_evolve_long", "fused_synth_fold_long",
-           "fused_synth_stream_long", "scan_synth_long", "fused_f32_fft", "fused_f32_synth_tp")
+           "fused_synth_stream_long", "scan_synth_long", "fused_f32_fft", "fused_f32_synth_tp",
+           "scan_synth_tp", "fused_synth_fitness_tp")
 
 # B1 fitness: kernel and plain version make the same int8 audio and exact
 # int32 DFT sums and differ only in the order of the float32 sum over bins,
@@ -319,11 +332,14 @@ GEN_KURTOSIS = -0.1
 SELECT_KERNEL = "select_kernel"
 PROFILED_LAUNCHES = 10
 
-# phase 17: the scan kernel (csrc/scan_synth.cu) against its plain loop, bit
-# for bit, at the bench's shape, parameters.json's (population 32, n 2048)
-# and over chains x oscillators x output types at SCAN_GRID_POP, n 1024
+# phase 17: the scan kernel (csrc/scan_synth.cu), both layouts, against its
+# plain loop and each other, bit for bit, at the bench's shape,
+# parameters.json's (population 32, n 2048) and over chains x oscillators x
+# output types at SCAN_GRID_POP, SCAN_GRID_N (the plain loop's time grows
+# with n; the card-only tests hold n 1000 and 2048)
 SCAN_GRID = ("fm2", "fm3_series", "fm8_series", "fm3_parallel")
 SCAN_GRID_POP = 2048
+SCAN_GRID_N = 512
 # sinf's fast path counted as f32 operations in the scan kernel's bound
 # (a three-term reduction and two short polynomials)
 SINF_OPS = 15
@@ -358,14 +374,17 @@ PARALLEL_SINE_ORDERS = (7, 9)
 PARALLEL_GRID_POPS = (65, 513)
 PARALLEL_TIMED = PARALLEL_TOPOLOGIES + ("fm3_series",)
 # phase 21: the pursuit solver through cli.main in PURSUIT_DIR: the first
-# example as written, its first chunk to a relative spectral error below
+# example as written but for one attempt a chunk, its first chunk to a
+# relative spectral error below
 # PURSUIT_MAX_REL (the reference's direct ES stalls at 35-55% on this
 # family), the others with each stage's generations cut by
 # PURSUIT_GENERATION_CUT and one attempt. A params target is 2048 samples,
 # so n 1024 makes two chunks; the second holds the same tones a frame
 # later, whose phases the model (which starts every oscillator at phase 0)
 # cannot take: the true parameters themselves lie ~23% from it (printed
-# beside each chunk), so only the first chunk is held to the limit
+# beside each chunk), so only the first chunk is held to the limit (and the
+# second's further attempts, which cannot meet the config's targetRel,
+# took three quarters of the run)
 PURSUIT_DIR = "build/chip_smoke_pursuit"
 PURSUIT_AS_WRITTEN = "examples/fm3_parallel_match.json"
 PURSUIT_CUT = ("examples/fm4_parallel_match.json", "examples/fm4_series_match.json",
@@ -377,8 +396,9 @@ PURSUIT_MAX_REL = 0.10
 # B1/B2 in the multi-frame mode against their plain versions at
 # examples/audio_match.json --mode stft's shape (input.wav's 16384 samples at
 # n 2048: STFT_FRAMES frames, P 4096, sine order 9; int8 and its f32 tail,
-# the truth planted first) and over FRAME_GRID_TOPOLOGIES x FRAME_GRID_F x
-# FRAME_GRID_N at FRAME_GRID_POP (a ragged int8 warp and f32 DFT block);
+# the truth planted first) and over FRAME_GRID_TOPOLOGIES x FRAME_GRID_F,
+# FRAME_GRID_N in turn, at FRAME_GRID_POP (a ragged int8 warp and f32 DFT
+# block);
 # phase 23 holds the run axis at audio_match.json's shape: B1/B2 launched
 # for RUN_SETTINGS (runs, frames, and a population of RAGGED_POP, whose
 # runs' rows of fitness do not start on 16 bytes; one run, as match_many
@@ -394,7 +414,7 @@ FRAME_GRID_N = (1024, 2048)
 FRAME_GRID_POP = 129
 RUN_SETTINGS = ((4, 1, None), (8, 1, None), (4, STFT_FRAMES, None), (3, 2, RAGGED_POP),
                 (1, 1, None), (1, STFT_FRAMES, None))
-RUN_B5_GENERATIONS = 4
+RUN_B5_GENERATIONS = 2
 # phase 24: cli.main on AUDIO_CONFIG with --mode stft, --mode parallel-chunks
 # and --batch over the BATCH_TRUTHS synthesised into BATCH_SAMPLES-sample
 # WAVs, run in A6_DIR; then the paths no example takes, at A6_GENERATIONS
@@ -522,12 +542,14 @@ A9_STFT_EVERY = 50
 A9_POPULATION_GENERATIONS = 20
 A9_SUBPROCESS_S = 300
 # phase 39 (A10): the bench shape through parallel.evolve_sharded (cfg of the
-# inputs phase); the subprocesses' limit; the CLI's work directory
+# inputs phase); the subprocesses' limit; the CLI's work directory, where it
+# runs SHIPPED_CONFIG with its generations a chunk cut to A10_CLI_GENERATIONS
 A10_GENERATIONS = 200
 A10_FRAME_GENERATIONS = 10  # the frame path synthesises all frames of every candidate
 A10_SUBPROCESS_S = 300
 A10_DIR = "build/chip_smoke_a10"
 A10_CLI_RANKS = 2
+A10_CLI_GENERATIONS = 100
 # phase 40 (A1): convergence_check at A1_SEEDS seeds and A1_GENERATIONS
 A1_DIR = "build/chip_smoke_a1"
 A1_SEEDS, A1_GENERATIONS = 2, 50
@@ -624,7 +646,7 @@ QUEUE_SPIN_CYCLES = 20_000_000
 # frames, runs): cells (m) --mode stft, (n) --mode parallel-chunks, (h)
 # audio_match.json's refine tail and (g) the shipped refine tail
 F32_ORDER = ("old", "new", "new", "old")  # phase 44's turns: the DFT route, then the FFT
-# phase 45: the f32 synthesis' two layouts bit-equal over these, two of the
+# phase 45: the f32 synthesis' two layouts bit-equal over these, one of the
 # frames a topology and frame count, in turn (the card-only test takes all)
 F32_TP_TOPOLOGIES = ("fm2", "fm3_series", "fm4_series", "fm8_series", "fm2_parallel",
                      "fm3_parallel", "fm4_parallel", "fm5_parallel")
@@ -635,6 +657,33 @@ F32_SPLIT_SHAPES = (("(m) --mode stft", "examples/audio_match.json", 8, None),
                     ("(n) --mode parallel-chunks", "examples/audio_match.json", 1, 8),
                     ("(h) audio_match.json", "examples/audio_match.json", 1, None),
                     ("(g) shipped refine tail", "examples/params_match.json", 1, None))
+
+# phase 17: the scan's two layouts (one thread a candidate, time-parallel)
+# bit-equal to the plain loop and to each other; timed alternated
+# (one-thread, time-parallel, time-parallel, one-thread) at parameters.json's
+# shape and the bench's, TIMED_LAUNCHES launches a median
+SCAN_ORDER = (False, True, True, False)
+# phase 46: B1 int8 in its two layouts (csrc/fused_tp.cuh's time-parallel one
+# against fused_eval.cu's one-warp one) bit-equal at the settings the driven
+# paths give it, (label, config, topology, frames, runs, pop): the pursuits'
+# seed rescores (P 1: fm3_parallel as written, the cut fm4/fm5_parallel,
+# fm4/fm5_series), --mode stft's fused_kernel path (F 8) and the run axis
+# (8 runs), P 4096; the bench shape (P 2^15, which the rule keeps one-warp);
+# then B2's fitness bit-equal to B1's on its own offspring with both in the
+# time-parallel layout; the two layouts timed alternated (B1_TP_TIMED)
+B1_TP_SETTINGS = (
+    ("pursuit seed rescore", "examples/fm3_parallel_match.json", "fm3_parallel", 1, None, 1),
+    ("pursuit seed rescore", "examples/fm4_parallel_match.json", "fm4_parallel", 1, None, 1),
+    ("pursuit seed rescore", "examples/fm4_parallel_match.json", "fm5_parallel", 1, None, 1),
+    ("pursuit seed rescore", "examples/fm4_series_match.json", "fm4_series", 1, None, 1),
+    ("pursuit seed rescore", "examples/fm5_series_match.json", "fm5_series", 1, None, 1),
+    ("P 32", "examples/fm3_parallel_match.json", "fm2", 1, None, 32),
+    ("P 8192", "examples/fm3_parallel_match.json", "fm3_parallel", 1, None, 8192),
+    ("--mode stft", "examples/audio_match.json", "fm3_series", 8, None, 4096),
+    ("run axis", "examples/audio_match.json", "fm3_series", 1, 8, 4096),
+    ("bench", "examples/params_match.json", "fm3_series", 1, None, 1 << 15))
+B1_TP_TIMED = ("pursuit seed rescore", "--mode stft", "run axis")
+B1_TP_LAUNCHES = 25
 
 T0 = time.perf_counter()
 CARD = {"name": "?", "power_limit": "?"}
@@ -746,6 +795,23 @@ def gen_layout(gn, time_parallel: bool):
         gn.TIME_PARALLEL, gn.tp_faster = saved
 
 
+@contextlib.contextmanager
+def scan_layout(ss, time_parallel: bool):
+    """The scan's wrapper in one layout: the time-parallel one wherever its
+    kernel takes the chain, or one thread a candidate everywhere
+    (``scan_tp_faster`` made to say yes or no); restored after."""
+    saved = ss.scan_tp_faster
+    ss.scan_tp_faster = lambda pop: time_parallel
+    try:
+        yield
+    finally:
+        ss.scan_tp_faster = saved
+
+
+def scan_layout_name(time_parallel: bool) -> str:
+    return "time_parallel" if time_parallel else "one_thread"
+
+
 def b2_layout(gn, kw2, k: int, d: int, runs: int = 1) -> str:
     """The layout of the B2 int8 kernel that the wrapper launches for
     ``kw2`` (its keyword arguments) at ``k`` bins, ``d`` genes and ``runs``
@@ -813,9 +879,9 @@ def f32_rows(params, topology: str, n: int, frames: int, sine_order: int,
 
 
 def b2_source(layout: str, topology: str = "fm3_parallel") -> str:
-    """The source of B2 int8's kernel for ``topology`` in ``layout``: the
-    time-parallel layout's chains are fused_tp_chain.cu's, its banks
-    fused_tp.cu's (both on fused_tp.cuh)."""
+    """The source of B1/B2 int8's kernel for ``topology`` in ``layout`` (B1
+    takes B2's rule): the time-parallel layout's chains are
+    fused_tp_chain.cu's, its banks fused_tp.cu's (both on fused_tp.cuh)."""
     if layout != "time_parallel":
         return "pmfm_tpu_torch/csrc/fused_eval.cu"
     bank = topology.endswith("_parallel")
@@ -921,9 +987,20 @@ def ptxas_summary(log: str):
             size, rest = int(m.group(1)), m.group(2)
             name, tail = rest[:size], rest[size:]
             if tail.startswith("I"):
-                args = ",".join(a.replace("n", "-") for a in re.findall(
-                    r"L[ib](n?\d+)E", tail[1:tail.find("EE") + 1]))
-                name = f"{name}<{args}>"
+                args, i = [], 1
+                while i < len(tail) and tail[i] != "E":  # integer, float or named arguments
+                    m = (re.match(r"L[ib](n?\d+)E", tail[i:]) or re.match(r"(f)", tail[i:])
+                         or re.match(r"\d+", tail[i:]))
+                    if not m:
+                        break
+                    if m.re.pattern == r"\d+":
+                        width = int(m.group(0))
+                        args.append(tail[i + len(m.group(0)):i + len(m.group(0)) + width])
+                        i += len(m.group(0)) + width
+                    else:
+                        args.append("float" if m.group(1) == "f" else m.group(1).replace("n", "-"))
+                        i += len(m.group(0))
+                name = f"{name}<{','.join(args)}>"
             rows.append([name, "?", "?"])
         elif rows and rows[-1][1] == "?" and (r := re.search(r"Used (\d+) registers", ln)):
             rows[-1][1] = r.group(1)
@@ -941,9 +1018,9 @@ def bound(bytes_moved: float, int8_ops: float, f32_ops: float, bf16_ops: float =
     return times[by] * 1e3, by
 
 
-def pursuit_cut(load):
+def pursuit_cut(load, generation_cut=PURSUIT_GENERATION_CUT):
     """A ``load_config`` that cuts a pursuit config's stages to a
-    PURSUIT_GENERATION_CUT-th of their generations (at least 1) and one
+    ``generation_cut``-th of their generations (at least 1) and one
     attempt."""
     import dataclasses
     import inspect
@@ -960,8 +1037,7 @@ def pursuit_cut(load):
         p = dict(rc.pursuit, maxAttempts=1)
         for key, snake in keys.items():
             if key.endswith("Generations"):
-                p[key] = max(1, int(p.get(key, defaults[snake].default))
-                             // PURSUIT_GENERATION_CUT)
+                p[key] = max(1, int(p.get(key, defaults[snake].default)) // generation_cut)
         return dataclasses.replace(rc, pursuit=tuple(sorted(p.items())))
 
     return cut
@@ -1009,6 +1085,7 @@ class Smoke:
         self.kernels = {}
         self.failed = []
         self.cell_ms = {}
+        self.scan_by_layout = collections.Counter()  # phases 18-19: the scan's path launches
         self.only = only  # phase numbers to run (with the device, build and inputs), or all
 
     def phase(self, name, fn):
@@ -1281,26 +1358,28 @@ class Smoke:
     def grid(self, dtype, grid_pops, limits, seed, seeds, topologies=GRID_TOPOLOGIES,
              orders=GRID_SINE_ORDERS):
         """B1/B2 in ``dtype`` ("int8" or "float32") over GRID_N x
-        ``topologies`` x ``orders`` x ``grid_pops`` (and P 2^15 at n 1024),
-        and at GRID_ODD_BINS, against a random target, within ``limits``; the
-        data from ``seed``, the kernel seeds from ``seeds``."""
+        ``topologies`` x ``orders``, one of ``grid_pops`` a setting in turn
+        (and P 2^15 at n 1024), and at GRID_ODD_BINS, against a random
+        target, within ``limits``; the data from ``seed``, the kernel seeds
+        from ``seeds``."""
         from pmfm_tpu_torch.es import kernel_seed
         from pmfm_tpu_torch.ops import spectral
         from pmfm_tpu_torch.ops.synthesis import topology_dims
 
         rng = np.random.default_rng(seed)
         cases = 0
-        for n, bins in [(n, None) for n in GRID_N] + [GRID_ODD_BINS]:
+        for ni, (n, bins) in enumerate([(n, None) for n in GRID_N] + [GRID_ODD_BINS]):
             so = spectral.make_spectrum_ops(n, bins, dft_dtype=dtype, device=self.dev)
             tgt = torch.from_numpy(rng.uniform(0.0, 50.0, so.num_bins).astype(np.float32)).to(
                 self.dev)
             worst, count, worst_med = [0.0, 0.0], 0, 0.0
-            pops = grid_pops + ((POP,) if n == 1 << LOG2N and bins is None else ())
-            for topology in topologies:
+            extra = (POP,) if n == 1 << LOG2N and bins is None else ()
+            pops = grid_pops + extra
+            for ti, topology in enumerate(topologies):
                 d = topology_dims(topology)
                 mins, maxs = (0.0,) * d, param_maxs(topology)
-                for order in orders:
-                    for pop in pops:
+                for oi, order in enumerate(orders):
+                    for pop in (grid_pops[(ni + ti + oi) % len(grid_pops)],) + extra:
                         params = torch.from_numpy(
                             (rng.random((pop, d)) * np.asarray(maxs)).astype(np.float32)
                         ).to(self.dev)
@@ -1318,7 +1397,7 @@ class Smoke:
                         count += 1
                         cases += 1
             log(f"B1/B2 {dtype} grid, n={n} (K={so.num_bins}): {count} settings ({topologies} "
-                f"x sine orders {orders} x P {pops}) within {limits[0]:g} / "
+                f"x sine orders {orders}, P {pops} in turn) within {limits[0]:g} / "
                 f"{limits[1]:g}, worst max rel B1 {worst[0]:.3e} B2 {worst[1]:.3e}, worst "
                 f"median rel {worst_med:.3e}; B2 values bit-equal, B2 fitness bit-equal to B1 "
                 f"on its offspring")
@@ -1382,7 +1461,8 @@ class Smoke:
         rows = {
             "fused_synth_fitness": (
                 b1, b1_plain, POP * D * 4 + operand + k * 4 + POP * 4, 0.0,
-                "pmfm_tpu_torch/csrc/fused_eval.cu", "pmfm_tpu/kernels/synth_fitness.py:767",
+                b2_source(b2_layout(gn, self.b2_kwargs(POP), k, D), TOPOLOGY),
+                "pmfm_tpu/kernels/synth_fitness.py:767",
             ),
             "fused_generation": (
                 b2, b2_plain, 2 * MU * D * 4 + operand + k * 4 + POP * 4 + 2 * POP * D * 4,
@@ -2565,7 +2645,7 @@ class Smoke:
     def f32_layouts(self):
         """The true-f32 synthesis' two layouts write the same rows of samples
         bit for bit (``f32_rows``) over F32_TP_TOPOLOGIES x F32_TP_FRAMES x
-        two of F32_TP_N (in turn, every frame size at every topology), sine
+        one of F32_TP_N (in turn, every frame size at every frame count), sine
         orders 5/7/9, populations F32_TP_POPS and runs 1 and 2 in turn, and
         B1's fitness from them is bit-equal; then B2 in both
         layouts bit-equal (fitness, values, steps) at cell (m)'s shape and
@@ -2582,7 +2662,7 @@ class Smoke:
         for ti, topology in enumerate(F32_TP_TOPOLOGIES):
             d, maxs = topology_dims(topology), np.asarray(param_maxs(topology))
             for fi, frames in enumerate(F32_TP_FRAMES):
-                for n in (F32_TP_N[(ti + fi) % 4], F32_TP_N[(ti + fi + 2) % 4]):
+                for n in (F32_TP_N[(ti + fi) % len(F32_TP_N)],):
                     order = GRID_SINE_ORDERS[cases % 3]
                     pop = F32_TP_POPS[cases % len(F32_TP_POPS)]
                     lead = (2,) if (cases // 2) % 2 else ()
@@ -2597,7 +2677,7 @@ class Smoke:
                     cases += 1
         self.kernels.setdefault("fused_f32_synth_tp", {})["max_abs_err"] = 0.0
         log(f"f32 synthesis, time-parallel vs one thread a candidate: {cases} settings "
-            f"({F32_TP_TOPOLOGIES} x F {F32_TP_FRAMES} x two of n {F32_TP_N}, P {F32_TP_POPS}, "
+            f"({F32_TP_TOPOLOGIES} x F {F32_TP_FRAMES} x one of n {F32_TP_N}, P {F32_TP_POPS}, "
             f"runs 1/2, sine orders 5/7/9), every row of samples bit-equal and B1's fitness "
             f"bit-equal")
         # B2 in both layouts, and B5 against its B2 launches, at cell (m) and (n)'s shapes
@@ -2637,11 +2717,14 @@ class Smoke:
 
     # -- 17 -----------------------------------------------------------------
     def scan_vs_plain(self):
-        """The scan kernel bit-equal to its plain loop over samples: at the
-        bench's shape (fm3_series, P 2^15, n 1024), at parameters.json's
-        (its population, n 2048), and over SCAN_GRID x the three oscillators
-        x float32 and bf16 output at SCAN_GRID_POP, n 1024; then its time
-        beside the plain loop's at the first two."""
+        """The scan's two layouts, each bit-equal to its plain loop over
+        samples and to the other: at the bench's shape (fm3_series, P 2^15,
+        n 1024), at parameters.json's (its population, n 2048), and over
+        SCAN_GRID x the three oscillators x float32 and bf16 output at
+        SCAN_GRID_POP, SCAN_GRID_N; then at the first two both layouts' times
+        alternated (SCAN_ORDER) beside the plain loop's, the byte/op bound
+        and the chain floor (``scan.chain_floor_ms``: n x one add-and-wrap's
+        latency on a single thread)."""
         from pmfm_tpu_torch.io import load_config
         from pmfm_tpu_torch.kernels import scan as ss
         from pmfm_tpu_torch.ops.synthesis import topology_dims
@@ -2650,7 +2733,7 @@ class Smoke:
         shapes = (("bench", TOPOLOGY, POP, 1 << LOG2N, self.cfg.param_maxs),
                   ("parameters.json", pj.topology, pj.population_size, pj.n_samples,
                    pj.param_maxs))
-        grid = [(f"grid {t}", t, SCAN_GRID_POP, 1024, None) for t in SCAN_GRID]
+        grid = [(f"grid {t}", t, SCAN_GRID_POP, SCAN_GRID_N, None) for t in SCAN_GRID]
         worst, checked = 0.0, 0
         for label, topology, pop, n, maxs in shapes + tuple(grid):
             d = topology_dims(topology)
@@ -2666,32 +2749,56 @@ class Smoke:
                 # .to (it returns audio.to(out_dtype)): one plain run for both
                 b32 = ss.scan_synth_plain(p, n, topology, osc_mode=osc)
                 for dt in (torch.float32, torch.bfloat16):
-                    a = ss.scan_synth(p, n, topology, osc_mode=osc, out_dtype=dt)
                     b = b32.to(dt)
-                    torch.cuda.synchronize()
-                    eq = bits_equal(a.float(), b.float())
-                    worst = max(worst, float((a.float() - b.float()).abs().max()))
-                    checked += 1
-                    require(eq and a.shape == (n, pop), f"scan kernel differs from its plain "
-                            f"version ({label}, {osc}, {dt})")
+                    outs = {}
+                    for tp in (False, True):
+                        ss.scan_synth.launches_by_layout.clear()
+                        with scan_layout(ss, tp):
+                            outs[tp] = a = ss.scan_synth(p, n, topology, osc_mode=osc,
+                                                         out_dtype=dt)
+                        torch.cuda.synchronize()
+                        got = dict(ss.scan_synth.launches_by_layout)
+                        where = f"{label}, {osc}, {dt}, {scan_layout_name(tp)}"
+                        require(got == {scan_layout_name(tp): 1}, f"scan ({where}): launched {got}")
+                        worst = max(worst, float((a.float() - b.float()).abs().max()))
+                        checked += 1
+                        require(bits_equal(a.float(), b.float()) and a.shape == (n, pop),
+                                f"scan kernel differs from its plain version ({where})")
+                    require(bits_equal(outs[False].float(), outs[True].float()),
+                            f"scan layouts differ ({label}, {osc}, {dt})")
             if not label.startswith("grid"):
-                ms = cuda_ms(lambda: ss.scan_synth(p, n, topology), TIMED_LAUNCHES)
+                tt = {False: [], True: []}
+                for tp in SCAN_ORDER:
+                    with scan_layout(ss, tp):
+                        tt[tp].append(cuda_ms(lambda: ss.scan_synth(p, n, topology),
+                                              TIMED_LAUNCHES))
+                ms = {tp: statistics.median(v) for tp, v in tt.items()}
                 plain_ms = cuda_ms(lambda: ss.scan_synth_plain(p, n, topology), 1)
                 kn = 2 if topology == "fm2" else int(topology[2:].split("_")[0])
                 ops = float(pop) * n * kn * (SINF_OPS + 6)
                 bound_ms, by = bound(n * pop * 4 + pop * d * 4, 0.0, ops)
-                log(f"scan_synth ({label}: {topology}, P={pop}, n={n}, floor, float32): kernel "
-                    f"{ms:.4f} ms (median of {TIMED_LAUNCHES}), plain loop {plain_ms:.2f} ms, "
-                    f"bound {bound_ms:.4f} ms by {by} {card()}")
-                if label == "bench":
-                    self.kernels.setdefault("scan_synth", {}).update(
-                        route="cuda", source="pmfm_tpu_torch/csrc/scan_synth.cu",
-                        replaces="pmfm_tpu/ops/synthesis.py:220", ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=by, library_ms=None)
-        log(f"scan kernel bit-equal to its plain loop in {checked} settings (chains {SCAN_GRID} x "
-            f"floor/exact/table x float32/bf16 at P={SCAN_GRID_POP}, n=1024; the bench's and "
-            f"parameters.json's shapes)")
-        self.kernels.setdefault("scan_synth", {})["max_abs_err"] = worst
+                floor_ms = ss.chain_floor_ms(n, self.dev)
+                pick = ss.scan_launch(pop, n, topology, "floor", torch.float32)
+                log(f"scan_synth ({label}: {topology}, P={pop}, n={n}, floor, float32): one thread "
+                    f"a candidate {ms[False]:.4f} ms {[round(x, 4) for x in tt[False]]}, "
+                    f"time-parallel {ms[True]:.4f} ms {[round(x, 4) for x in tt[True]]} (medians "
+                    f"of {TIMED_LAUNCHES}, alternated); the wrapper takes {pick['layout']} "
+                    f"(group {pick['group']}, {pick['warps']} warps); plain loop "
+                    f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {by}; chain floor "
+                    f"{floor_ms:.4f} ms (n x one add-and-wrap's latency) {card()}")
+                row = dict(route="cuda", source="pmfm_tpu_torch/csrc/scan_synth.cu",
+                           replaces="pmfm_tpu/ops/synthesis.py:220", plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=by, library_ms=None,
+                           chain_floor_ms=floor_ms)
+                # the one-thread layout's row at the bench's shape, the
+                # time-parallel one's at parameters.json's
+                name, tp = ("scan_synth", False) if label == "bench" else ("scan_synth_tp", True)
+                self.kernels.setdefault(name, {}).update(row, ms=ms[tp])
+        log(f"scan layouts bit-equal to their plain loop and to each other in {checked} settings "
+            f"(chains {SCAN_GRID} x floor/exact/table x float32/bf16 at P={SCAN_GRID_POP}, "
+            f"n={SCAN_GRID_N}; the bench's and parameters.json's shapes)")
+        for name in ("scan_synth", "scan_synth_tp"):
+            self.kernels.setdefault(name, {})["max_abs_err"] = worst
 
     # -- 18 -----------------------------------------------------------------
     def unfused(self):
@@ -2703,6 +2810,7 @@ class Smoke:
         RFFT_RUNG_LOG2N, P 2^15."""
         from pmfm_tpu_torch.es import active_engine, evaluate, evolve, init_state
         from pmfm_tpu_torch.es import generation_step, make_spectrum_ops
+        from pmfm_tpu_torch.kernels import scan as ss
         from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
 
         base = self.cfg.replace(fused_kernel=False, fused_generation=False,
@@ -2745,19 +2853,24 @@ class Smoke:
                 t1.synchronize()
                 ms = t0.elapsed_time(t1) / UNFUSED_GENERATIONS
                 counts = self.read_counts()
+                layouts = dict(ss.scan_synth.launches_by_layout)
+                self.scan_by_layout.update(layouts)
                 log(f"unfused {name} ({dtype}, {synth} synthesis; n={cfg.n_samples}, P={POP}): "
                     f"card vs CPU on {UNFUSED_CHECK_POP} candidates max rel {float(e.max()):.3e} "
                     f"median rel {float(e.median()):.3e} (tolerance {max_rel:g} / "
                     f"{median_rel:g}); truth rank {rank}; {UNFUSED_GENERATIONS} "
                     f"generations {ms:.4f} ms/gen, {POP / ms * 1e3:.4g} candidate-evals/s, best "
-                    f"fitness {float(final.best_fitness):.6g}; launches {counts} {card()}")
+                    f"fitness {float(final.best_fitness):.6g}; launches {counts}, the scan's by "
+                    f"layout {layouts} {card()}")
                 require(bool(torch.isfinite(fit).all()), f"{name}: fitness not finite")
                 require(float(e.max()) <= max_rel and float(e.median()) <= median_rel,
                         f"{name} ({dtype}, {synth}): the card disagrees with the CPU")
                 require(rank == 0, f"{name} ({dtype}, {synth}): the truth does not rank first")
                 want_scan = UNFUSED_GENERATIONS if synth == "scan" else 0
-                require(counts["scan_synth"] == want_scan and sum(counts.values()) == want_scan,
-                        f"{name}: launches {counts}")
+                pick = ss.scan_launch(POP, cfg.n_samples, TOPOLOGY, "floor", torch.float32)
+                require(counts["scan_synth"] == want_scan and sum(counts.values()) == want_scan
+                        and layouts == ({pick["layout"]: want_scan} if want_scan else {}),
+                        f"{name}: launches {counts}, the scan's by layout {layouts}")
                 self.cell_ms[f"unfused {name} {dtype} {synth}"] = ms
         for log2n in RFFT_RUNG_LOG2N:
             for synth in ("scanless", "scan"):
@@ -2784,6 +2897,7 @@ class Smoke:
 
         from pmfm_tpu_torch import cli
         from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import scan as ss
 
         root = os.getcwd()
         work = os.path.join(root, CLI_DIR)
@@ -2805,6 +2919,7 @@ class Smoke:
                     os.chdir(root)
                 seconds = time.perf_counter() - t0
                 counts = self.read_counts()
+                layouts = dict(ss.scan_synth.launches_by_layout)
                 text = out.getvalue()
                 engine = next((ln for ln in text.splitlines() if ln.startswith("engine: ")), "")
                 best = text[text.find("Overall best parameters found"):].splitlines()[:3]
@@ -2828,9 +2943,23 @@ class Smoke:
                         f"{config}: CSV {rows[0]}")
                 require("Overall best parameters found" in text, f"{config}: no best parameters")
                 if config == "parameters.json":
-                    # a launch a generation, the target's, the best's, and the stage rows'
-                    require(counts["scan_synth"] >= gens + 2, f"{config}: launches {counts}")
-                    self.kernels.setdefault("scan_synth", {})["launches"] = counts["scan_synth"]
+                    # a launch a generation, the target's, the best's, and the stage rows',
+                    # each in the layout the rule gives its population (the
+                    # candidates' and the stage rows') or one candidate
+                    want = {ss.scan_launch(p, cfg.n_samples, cfg.topology, cfg.osc_mode,
+                                           torch.float32)["layout"]
+                            for p in (1, cfg.population_size)}
+                    log(f"cli {config}: the scan's launches by layout {layouts} (the rule: "
+                        f"{sorted(want)})")
+                    require(counts["scan_synth"] >= gens + 2 and set(layouts) <= want
+                            and sum(layouts.values()) == counts["scan_synth"],
+                            f"{config}: launches {counts}, the scan's by layout {layouts}")
+                    self.scan_by_layout.update(layouts)
+                    by = self.scan_by_layout
+                    require(by["one_thread"] > 0 and by["time_parallel"] > 0,
+                            f"the scan's path launches by layout (phases 18-19): {dict(by)}")
+                    self.kernels.setdefault("scan_synth", {})["launches"] = by["one_thread"]
+                    self.kernels.setdefault("scan_synth_tp", {})["launches"] = by["time_parallel"]
                 else:
                     require(counts["fused_generation"] >= gens, f"{config}: launches {counts}")
         finally:
@@ -2910,8 +3039,8 @@ class Smoke:
             src = "pmfm_tpu_torch/csrc/fused_eval.cu" if mode == "int8" else \
                 "pmfm_tpu_torch/csrc/fused_f32.cu"
             for name, (fn, plain, nbytes, i8, f32, replaces) in rows.items():
-                source = (b2_source(b2_layout(gn, kw2, k, d), cfg.topology)
-                          if name == "fused_generation_parallel" else src)
+                source = b2_source(b2_layout(gn, kw2, k, d), cfg.topology) if mode == "int8" \
+                    else src
                 turns = ""
                 if mode == "int8":
                     ms = cuda_ms(fn, TIMED_LAUNCHES)
@@ -2949,9 +3078,9 @@ class Smoke:
     # -- 21 -----------------------------------------------------------------
     def pursuit(self):
         """``cli.main`` on each pursuit example in PURSUIT_DIR, as a user runs
-        it: PURSUIT_AS_WRITTEN as written (exit 0, the WAV and the CSV, its
-        first chunk's relative spectral error under the f32 engine below
-        PURSUIT_MAX_REL), the others with each stage's generations cut by
+        it: PURSUIT_AS_WRITTEN as written but for one attempt a chunk (exit
+        0, the WAV and the CSV, its first chunk's relative spectral error
+        under the f32 engine below PURSUIT_MAX_REL), the others with each stage's generations cut by
         PURSUIT_GENERATION_CUT and one attempt through a wrapped
         ``load_config`` (exit 0, the WAV and the CSV, the final f32 fitness
         no worse than the silent estimate's, every chunk); each run's
@@ -2965,6 +3094,7 @@ class Smoke:
 
         import pmfm_tpu_torch.io
         from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
 
         self.engine_memory()
         root = os.getcwd()
@@ -2973,14 +3103,16 @@ class Smoke:
         os.makedirs(work)
         load = pmfm_tpu_torch.io.load_config
         cut = pursuit_cut(load)
+        once = pursuit_cut(load, generation_cut=1)
 
         try:
             for config in (PURSUIT_AS_WRITTEN,) + PURSUIT_CUT:
                 as_written = config == PURSUIT_AS_WRITTEN
                 code, counts, modes, lines = self.pursuit_cli(
-                    os.path.join(root, config), work, load if as_written else cut, as_written)
+                    os.path.join(root, config), work, once if as_written else cut, as_written)
                 layouts = dict(gn.fused_generation.launches_by_layout)
-                log(f"{config}: B2 int8 launches by layout {layouts}")
+                b1_layouts = dict(sf.fused_synth_fitness.launches_by_layout)
+                log(f"{config}: B2 int8 launches by layout {layouts}, B1's {b1_layouts}")
                 require(code == 0 and lines, f"{config}: exit {code}")
                 if as_written:
                     require(modes["B2"].get("parallel_int8", 0) > 0
@@ -2992,6 +3124,12 @@ class Smoke:
                     require(len(layouts) == 1 and sum(layouts.values())
                             == modes["B2"]["parallel_int8"],
                             f"{config}: B2 int8 launches by layout {layouts}, by mode {modes}")
+                    # B1 int8 (the seed rescores at P 1, the block stages' at
+                    # the polish population) all time-parallel, by B2's rule
+                    require(b1_layouts == {"time_parallel": modes["B1"]["parallel_int8"]},
+                            f"{config}: B1 int8 launches by layout {b1_layouts}, by mode {modes}")
+                    self.kernels.setdefault("fused_synth_fitness_tp", {})["launches"] = \
+                        b1_layouts["time_parallel"]
                     for name, kern, mode in (
                             ("fused_synth_fitness_parallel", "B1", "parallel_int8"),
                             ("fused_generation_parallel", "B2", "parallel_int8"),
@@ -3046,7 +3184,7 @@ class Smoke:
         wav = os.path.join(work, rc.output_audio_path)
         csv = os.path.join(work, f"gpulog(pop={cfg.population_size}gens="
                                  f"{rc.num_generations}audioBlockSize={cfg.n_samples}).csv")
-        how = "as written" if as_written else (
+        how = "as written, one attempt a chunk" if as_written else (
             f"stage generations / {PURSUIT_GENERATION_CUT}, one attempt: {dict(rc.pursuit)}")
         log(f"pursuit {os.path.relpath(path, root)} ({how}): exit {code} in {seconds:.2f}s "
             f"(stage rows included), {engine!r}; launches {counts}, B1/B2 by mode {modes} "
@@ -3133,8 +3271,9 @@ class Smoke:
         """B1/B2 in the multi-frame mode against their plain versions
         (``fused_check``): at ``--mode stft``'s shape with the truth planted
         first against the framewise spectra of the truth over STFT_FRAMES
-        frames, then over FRAME_GRID_N x FRAME_GRID_F x FRAME_GRID_TOPOLOGIES
-        at FRAME_GRID_POP against a random (F, K) target, int8 and f32."""
+        frames, then over FRAME_GRID_F x FRAME_GRID_TOPOLOGIES, FRAME_GRID_N
+        in turn, at FRAME_GRID_POP against a random (F, K) target, int8 and
+        f32."""
         from pmfm_tpu_torch.es import kernel_seed
         from pmfm_tpu_torch.ops import spectral, synthesize_single
         from pmfm_tpu_torch.ops.synthesis import topology_dims
@@ -3164,12 +3303,14 @@ class Smoke:
         pop, cases = FRAME_GRID_POP, 0
         for mode, dtype in (("int8", "int8"), ("f32", "float32")):
             worst = [0.0, 0.0]
-            for n in FRAME_GRID_N:
+            for ni, n in enumerate(FRAME_GRID_N):
                 so = spectral.make_spectrum_ops(n, None, dft_dtype=dtype, device=self.dev)
-                for frames in FRAME_GRID_F:
+                for fi, frames in enumerate(FRAME_GRID_F):
                     tgt = torch.from_numpy(rng.uniform(0.0, 50.0, (frames, so.num_bins)).astype(
                         np.float32)).to(self.dev)
-                    for topology in FRAME_GRID_TOPOLOGIES:
+                    for ti, topology in enumerate(FRAME_GRID_TOPOLOGIES):
+                        if (ni + fi + ti) % len(FRAME_GRID_N):  # n in turn
+                            continue
                         d = topology_dims(topology)
                         mins, maxs = (0.0,) * d, param_maxs(topology)
                         dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
@@ -3184,8 +3325,8 @@ class Smoke:
                                             kernel_seed(SEED, 8000 + cases), limits[mode])
                         worst = [max(worst[0], e[0]), max(worst[1], e[1])]
                         cases += 1
-            log(f"B1/B2 multi-frame {mode} grid: n {FRAME_GRID_N} x F {FRAME_GRID_F} x "
-                f"{FRAME_GRID_TOPOLOGIES} at P {pop}, sine order 9, within {limits[mode][0]:g} / "
+            log(f"B1/B2 multi-frame {mode} grid: F {FRAME_GRID_F} x {FRAME_GRID_TOPOLOGIES}, n "
+                f"{FRAME_GRID_N} in turn, at P {pop}, sine order 9, within {limits[mode][0]:g} / "
                 f"{limits[mode][1]:g}: worst max rel B1 {worst[0]:.3e} B2 {worst[1]:.3e}; B2 "
                 f"values bit-equal, B2 fitness bit-equal to B1 on its offspring")
 
@@ -3398,7 +3539,8 @@ class Smoke:
                 g1["f32_runs"]
             paths = []
             for i, truth in enumerate(BATCH_TRUTHS):
-                a = synthesize_single(torch.tensor(truth), BATCH_SAMPLES, cfg.topology)
+                a = synthesize_single(torch.tensor(truth, device=self.dev), BATCH_SAMPLES,
+                                      cfg.topology).cpu()
                 a = a + 0.01 * torch.randn(a.shape, generator=torch.Generator().manual_seed(i))
                 paths.append(os.path.join(work, f"target{i}.wav"))
                 write_wav(paths[-1], a.numpy(), cfg.sample_rate)
@@ -3495,7 +3637,8 @@ class Smoke:
                         lambda: sf.fused_synth_fitness(c["params"], c["target"], **kw1),
                         lambda: sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1),
                         io + b * pop * d * 4, dft_ops, synth, 1,
-                        "pmfm_tpu_torch/csrc/" + ("fused_f32.cu" if f32 else "fused_eval.cu"),
+                        "pmfm_tpu_torch/csrc/fused_f32.cu" if f32 else
+                        b2_source(b2_layout(gn, kw2, k, d, b), cfg.topology),
                         "pmfm_tpu/kernels/synth_fitness.py:767"),
                     f"fused_generation{sfx}": (
                         lambda: gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2),
@@ -4185,7 +4328,8 @@ class Smoke:
         rows["fused_synth_fitness_wide"] = (
             lambda: sf.fused_synth_fitness(c5["params"], c5["target"], **kw1),
             lambda: sf.fused_synth_fitness_plain(c5["params"], c5["target"], **kw1),
-            io + pop * 20 * 4, dft_ops, synth5, 1, "pmfm_tpu_torch/csrc/fused_eval.cu",
+            io + pop * 20 * 4, dft_ops, synth5, 1,
+            b2_source(b2_layout(gn, kw2, k, 20), "fm5_parallel"),
             "pmfm_tpu/kernels/synth_fitness.py:767", f"fm5_parallel, n={n}, P={pop}")
         rows["fused_generation_wide"] = (
             lambda: gn.fused_generation(seed, c5["pv"], c5["ps"], c5["target"], **kw2),
@@ -5011,6 +5155,98 @@ class Smoke:
                 f"ms, each of 2 rounds): one-warp {tt[False]}, time-parallel {tt[True]}; the "
                 f"wrapper takes {pick} {card()}")
 
+    def b1_tp(self):
+        """B1 int8 in its two layouts (csrc/fused_tp.cuh's time-parallel one,
+        fused_eval.cu's one-warp one) bit-equal at every B1_TP_SETTINGS
+        setting, each launch counted in the layout it was forced to; B2's
+        fitness bit-equal to B1's on its own offspring with both forced to
+        the time-parallel layout (the pursuit's shapes); the two layouts'
+        device times alternated at B1_TP_TIMED's settings, beside the
+        layout the wrapper takes and the bound."""
+        from pmfm_tpu_torch.es import kernel_seed, make_spectrum_ops
+        from pmfm_tpu_torch.es.pipeline import fused_generation_kwargs
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.ops.synthesis import parallel_pairs, topology_dims
+
+        rng = np.random.default_rng(SEED + 4600)
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+        t0, worst = time.perf_counter(), 0.0
+        for i, (label, config, topology, frames, runs, pop) in enumerate(B1_TP_SETTINGS):
+            d = topology_dims(topology)
+            cfg = load_config(config).es.replace(
+                topology=topology, num_dimensions=d, param_mins=(0.0,) * d,
+                param_maxs=param_maxs(topology), num_frames=frames)
+            so = make_spectrum_ops(cfg, device=self.dev)
+            n, k = cfg.n_samples, so.num_bins
+            lead = () if runs is None else (runs,)
+            params = t(rng.random((*lead, pop, d)) * np.asarray(cfg.param_maxs))
+            target = t(rng.uniform(0, 50, (*lead, frames, k) if frames > 1 else (*lead, k)))
+            kw1 = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology,
+                       n=n, sine_order=cfg.sine_order, num_frames=frames)
+            where = (f"{label}: {topology}, n={n}, F={frames}, runs {runs or 1}, P={pop}, sine "
+                     f"order {cfg.sine_order}")
+            fn = lambda: sf.fused_synth_fitness(params, target, **kw1)  # noqa: E731
+            outs = {}
+            for tp in (False, True):
+                sf.fused_synth_fitness.launches_by_layout.clear()
+                with gen_layout(gn, tp):
+                    outs[tp] = fn()
+                got = dict(sf.fused_synth_fitness.launches_by_layout)
+                require(got == {"time_parallel" if tp else "one_warp": 1},
+                        f"B1 ({where}): launched {got}")
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(outs[False]).all()) and bits_equal(outs[False], outs[True]),
+                    f"B1's layouts differ ({where})")
+            worst = max(worst, float((outs[False] - outs[True]).abs().max()))
+            pick = gn.time_parallel(n, k, d, topology, True, frames, pop, runs or 1)
+            if label == "pursuit seed rescore":
+                # B2 at the pursuit's polish shape, both in the time-parallel layout
+                kw2 = dict(fused_generation_kwargs(cfg, so), pop=cfg.population_size)
+                pv, ps = t(rng.random((cfg.num_parents, d))), t(rng.uniform(
+                    0.02, 0.3, (cfg.num_parents, d)))
+                with gen_layout(gn, True):
+                    gk, vk, _ = gn.fused_generation(kernel_seed(SEED + 4600, i), pv, ps, target,
+                                                    **kw2)
+                    own = sf.fused_synth_fitness(
+                        gn.scale_rows(vk, kw2["param_mins"], kw2["param_maxs"]), target, **kw1)
+                torch.cuda.synchronize()
+                require(bits_equal(gk, own), f"B2's fitness differs from B1's on its offspring, "
+                        f"both time-parallel ({topology}, P={cfg.population_size})")
+            if label in B1_TP_TIMED and (label != "pursuit seed rescore"
+                                         or topology in ("fm3_parallel", "fm5_parallel")):
+                tt = {False: [], True: []}
+                for tp in SCAN_ORDER:
+                    with gen_layout(gn, tp):
+                        tt[tp].append(cuda_ms(fn, B1_TP_LAUNCHES))
+                ms = {tp: statistics.median(v) for tp, v in tt.items()}
+                rows = pop * (runs or 1)
+                npair = parallel_pairs(topology)
+                synth = (bank_ops_f32(rows, n * frames, k, npair, cfg.sine_order // 2 + 1)
+                         if npair else synth_ops_f32(rows, n * frames, k, sf.chain_length(topology),
+                                                     cfg.sine_order // 2 + 1))
+                bound_ms, by = bound(params.numel() * 4 + target.numel() * 4 + rows * 4
+                                     + so.dft_packed.numel(), 2.0 * 2 * k * (n // 2) * rows
+                                     * frames, synth)
+                log(f"B1 int8 layouts ({where}): one-warp {ms[False]:.4f} ms "
+                    f"{[round(x, 4) for x in tt[False]]}, time-parallel {ms[True]:.4f} ms "
+                    f"{[round(x, 4) for x in tt[True]]} (medians of {B1_TP_LAUNCHES}, "
+                    f"alternated); the wrapper takes {'time_parallel' if pick else 'one_warp'}; "
+                    f"bound {bound_ms:.4f} ms by {by} {card()}")
+                if label == "pursuit seed rescore" and topology == "fm3_parallel":
+                    plain_ms = cuda_ms(lambda: sf.fused_synth_fitness_plain(
+                        params, target, **dict(kw1, pop_block=pop)), 1)
+                    self.kernels.setdefault("fused_synth_fitness_tp", {}).update(
+                        route="cuda", source="pmfm_tpu_torch/csrc/fused_tp.cu",
+                        replaces="pmfm_tpu/kernels/synth_fitness.py:767", ms=ms[True],
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+            log(f"B1 int8 ({where}): the layouts bit-equal; the wrapper takes "
+                f"{'time_parallel' if pick else 'one_warp'}")
+        self.kernels.setdefault("fused_synth_fitness_tp", {})["max_abs_err"] = worst
+        log(f"B1 int8 layouts bit-equal at {len(B1_TP_SETTINGS)} settings "
+            f"({time.perf_counter() - t0:.1f}s)")
+
     def tp_layout(self):
         """B2 int8 on the fixed banks in its two layouts (csrc/fused_tp.cuh's
         time-parallel one, fused_eval.cu's one-warp one): fitness, values and
@@ -5558,7 +5794,8 @@ print(json.dumps({{"code": code, "load_s": float(m.group(1)) if m else -1.0}}))
 
     def a10_cli(self):
         """``python -m torch.distributed.run --nproc-per-node 2 -m
-        pmfm_tpu_torch.cli -j SHIPPED_CONFIG --mesh 2`` in A10_DIR."""
+        pmfm_tpu_torch.cli -j <SHIPPED_CONFIG, A10_CLI_GENERATIONS
+        generations a chunk> --mesh 2`` in A10_DIR."""
         import os
         import shutil
 
@@ -5567,9 +5804,15 @@ print(json.dumps({{"code": code, "load_s": float(m.group(1)) if m else -1.0}}))
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         try:
+            with open(os.path.join(root, SHIPPED_CONFIG)) as f:
+                config = json.load(f)
+            config["evolutionary"]["numGenerations"] = A10_CLI_GENERATIONS
+            path = os.path.join(work, os.path.basename(SHIPPED_CONFIG))
+            with open(path, "w") as f:
+                json.dump(config, f)
             cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                    "--nproc-per-node", str(A10_CLI_RANKS), "-m", "pmfm_tpu_torch.cli", "-j",
-                   os.path.join(root, SHIPPED_CONFIG), "--mesh", str(A10_CLI_RANKS)]
+                   path, "--mesh", str(A10_CLI_RANKS)]
             env = dict(os.environ, PYTHONPATH=os.pathsep.join(
                 [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
             t0 = time.perf_counter()
@@ -5582,7 +5825,8 @@ print(json.dumps({{"code": code, "load_s": float(m.group(1)) if m else -1.0}}))
                 if ln.startswith(("Total time to complete", "candidate evaluations", "chunk ")):
                     print(f"  {ln}", flush=True)
             log(f"A10 torch.distributed.run --nproc-per-node {A10_CLI_RANKS} cli --mesh "
-                f"{A10_CLI_RANKS} on {SHIPPED_CONFIG}: exit {proc.returncode} in {seconds:.2f}s "
+                f"{A10_CLI_RANKS} on {SHIPPED_CONFIG} ({A10_CLI_GENERATIONS} generations a "
+                f"chunk): exit {proc.returncode} in {seconds:.2f}s "
                 f"(the ranks' start and the stage rows included), {engine!r} {card()}")
             if proc.returncode != 0:
                 print(text[-4000:], proc.stderr[-4000:], flush=True)
@@ -5714,7 +5958,7 @@ print(json.dumps({{"code": code, "load_s": float(m.group(1)) if m else -1.0}}))
             row = dict(self.kernels.get(name, {}), name=name)
             missing = [k for k in keys if k not in row]
             require(not missing, f"{name}: no {missing}")
-            out.append({k: row[k] for k in keys})
+            out.append({k: row[k] for k in keys + ("chain_floor_ms",) if k in row})
         return {"kernels": out}
 
 
@@ -5789,6 +6033,7 @@ def main(argv=None) -> int:
         s.phase("41 topologies above 32 genes: the long code in every kernel", s.long_codes)
     s.phase("43 B2 int8: the time-parallel layout on chains and frames", s.tp_chains)
     s.phase("43 B2 int8 banks: the time-parallel layout", s.tp_layout)
+    s.phase("46 B1 int8: the time-parallel layout", s.b1_tp)
     s.phase("44 B2 true f32 at the users' shapes", s.f32_shapes)
     s.phase("45 B1/B2/B5 true f32: the synthesis layouts bit-equal", s.f32_layouts)
     s.phase("36 A9: resume, population readback, AOT", s.a9)

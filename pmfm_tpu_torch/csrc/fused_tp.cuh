@@ -1,15 +1,20 @@
-// B2 int8 in a second layout for Hopper (sm_90a): W warps a block, a
-// time-parallel synthesis, and the folded DFT's bins split over the warps,
+// B1 and B2 int8 in a second layout for Hopper (sm_90a): W warps a block,
+// a time-parallel synthesis, and the folded DFT's bins split over the warps,
 // on the fixed chains (fm2, fm3_series .. fm8_series: codes 2 .. FIXED_KN)
 // and the fixed banks of 2 .. 5 pairs (BANK_KN + 2 .. + 5), at any frame
-// count and on the run axis. fused_eval.cu's one-warp kernel (tc_eval.cuh)
-// computes the same function; the wrapper (kernels/generation.py::
-// time_parallel) picks between them by shape, and the two give the same
-// fitness, values and steps bit for bit. fused_tp.cu instantiates the banks
-// and holds the launcher; fused_tp_chain.cu instantiates the chains, so that
-// nvcc builds the two halves side by side.
+// count and on the run axis. fused_eval.cu's one-warp kernels (tc_eval.cuh)
+// compute the same functions; the wrappers (kernels/generation.py::
+// time_parallel, which B1's synth_fitness.py::b1_entry calls) pick between
+// them by shape, and the two give the same fitness (B2: values and steps)
+// bit for bit. B1 and B2 differ only in the prologue that stages the
+// block's genes (tp_block's GEN flag: B2 draws offspring, B1 copies the
+// given rows), as tc_eval.cuh's fitness_block and generation_block do.
+// fused_tp.cu instantiates the banks and holds the launchers;
+// fused_tp_chain.cu instantiates the chains, so that nvcc builds the two
+// halves side by side.
 //
-// Replaces, with fused_eval.cu's kernel, the TPU kernel
+// Replaces, with fused_eval.cu's kernels, the TPU kernels
+//   B1 <- pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness
 //   B2 <- pmfm_tpu/kernels/generation.py::fused_generation
 //
 // Why a second layout. The one-warp kernel synthesises a candidate's whole
@@ -27,7 +32,10 @@
 // * Prologue: B2's offspring prologue over the block's 32 x d (candidate,
 //   gene) pairs, strided over its W x 32 threads (evaluate.cuh::
 //   offspring_gene, unchanged: values and steps are the one-warp kernel's),
-//   once a launch, the scaled genes staged in shared memory.
+//   or B1's copy of the block's rows of the given parameters (zeros past
+//   pop), once a launch, the scaled genes staged in shared memory. At P 1
+//   (the pursuit's seed rescores) the one-warp kernel is one warp on one
+//   SM: here eight warps share the synthesis and the DFT.
 // * Frames. Frame f is samples [f n, (f + 1) n) of one continuous synthesis
 //   (synth_common.cuh::CandidateSynth): the block walks the frames in order,
 //   and each is synthesised, folded and transformed as a single frame is,
@@ -82,6 +90,8 @@
 // (evolve.cu) keeps the one-warp kernel: the layouts are bit-equal, so B5
 // stays bit-equal to B2 launches in either.
 #pragma once
+
+#include <type_traits>
 
 #include "tc_eval.cuh"
 
@@ -184,14 +194,22 @@ struct TpSynth<NC, KN, INT8, true> {
   }
 };
 
-template <int NC, int KN>
-__global__ void __launch_bounds__(TP_MAX_WARPS * 32, TP_MIN_BLOCKS)
-fused_generation_int8_tp_kernel(uint32_t seed, const uint32_t* __restrict__ run_seeds,
-                                const float* __restrict__ pv, const float* __restrict__ ps,
-                                int pop, SynthParams sp, MutateParams mp,
-                                const int8_t* __restrict__ dft, const float* __restrict__ target,
-                                float* __restrict__ fitness, float* __restrict__ values,
-                                float* __restrict__ steps) {
+// The block, which B1 and B2 share (as tc_eval.cuh's fitness_block and
+// generation_block share evaluate_staged): its prologue writes the block's
+// 32 x d scaled genes to shared memory (zeros past pop) with all of the
+// block's threads, B2's (GEN) the offspring drawn from the run's parents pv
+// and ps, B1's the block's rows of the run's (pop, d) params in pv; then the
+// synthesis, fold, DFT and fitness of every frame. B1 passes no seeds, ps,
+// values or steps.
+template <int NC, int KN, bool GEN>
+__device__ __forceinline__ void tp_block(uint32_t seed, const uint32_t* __restrict__ run_seeds,
+                                         const float* __restrict__ pv,
+                                         const float* __restrict__ ps, int pop,
+                                         const SynthParams& sp, const MutateParams& mp,
+                                         const int8_t* __restrict__ dft,
+                                         const float* __restrict__ target,
+                                         float* __restrict__ fitness, float* __restrict__ values,
+                                         float* __restrict__ steps) {
   using Synth = TpSynth<NC, KN>;
   constexpr int D = synth_dims(KN);
   static_assert(KN != WIDE_CHAIN && KN != WIDE_BANK && KN != LONG_CODE, "the fixed codes only");
@@ -214,14 +232,19 @@ fused_generation_int8_tp_kernel(uint32_t seed, const uint32_t* __restrict__ run_
   float* s_p = frames > 1 ? s_c : reinterpret_cast<float*>(s_q);
   float* carry = s_c + TC_CPB * d + lane;
 
-  // the offspring prologue (generation_block's, over every thread of the block)
-  if (run_seeds) seed = __ldg(run_seeds + run);
-  const size_t po = (size_t)run * mp.mu * d, oo = (size_t)run * pop * d;  // the run's rows
-  for (int i = tid; i < TC_CPB * d; i += blockDim.x) {  // pair i: (i / d, i % d)
-    const int cl = i / d, cand = base + cl;
-    s_p[i] = cand < pop ? offspring_gene(seed, cand, i - cl * d, pv + po, ps + po, mp, d,
-                                         values + oo, steps + oo)
-                        : 0.f;
+  if constexpr (GEN) {  // the offspring prologue (generation_block's)
+    if (run_seeds) seed = __ldg(run_seeds + run);
+    const size_t po = (size_t)run * mp.mu * d, oo = (size_t)run * pop * d;  // the run's rows
+    for (int i = tid; i < TC_CPB * d; i += blockDim.x) {  // pair i: (i / d, i % d)
+      const int cl = i / d, cand = base + cl;
+      s_p[i] = cand < pop ? offspring_gene(seed, cand, i - cl * d, pv + po, ps + po, mp, d,
+                                           values + oo, steps + oo)
+                          : 0.f;
+    }
+  } else {  // the given rows (fitness_block's staging)
+    const int avail = min(pop - base, TC_CPB) * d;
+    const float* rows = pv + ((size_t)run * pop + base) * d;
+    for (int i = tid; i < TC_CPB * d; i += blockDim.x) s_p[i] = i < avail ? rows[i] : 0.f;
   }
   __syncthreads();
 
@@ -313,6 +336,30 @@ fused_generation_int8_tp_kernel(uint32_t seed, const uint32_t* __restrict__ run_
   }
 }
 
+// B2: tp_block after the offspring prologue.
+template <int NC, int KN>
+__global__ void __launch_bounds__(TP_MAX_WARPS * 32, TP_MIN_BLOCKS)
+fused_generation_int8_tp_kernel(uint32_t seed, const uint32_t* __restrict__ run_seeds,
+                                const float* __restrict__ pv, const float* __restrict__ ps,
+                                int pop, SynthParams sp, MutateParams mp,
+                                const int8_t* __restrict__ dft, const float* __restrict__ target,
+                                float* __restrict__ fitness, float* __restrict__ values,
+                                float* __restrict__ steps) {
+  tp_block<NC, KN, true>(seed, run_seeds, pv, ps, pop, sp, mp, dft, target, fitness, values,
+                         steps);
+}
+
+// B1: tp_block on the given (runs, pop, d) params. No values or steps.
+template <int NC, int KN>
+__global__ void __launch_bounds__(TP_MAX_WARPS * 32, TP_MIN_BLOCKS)
+fused_synth_fitness_int8_tp_kernel(const float* __restrict__ params, int pop, SynthParams sp,
+                                   const int8_t* __restrict__ dft,
+                                   const float* __restrict__ target,
+                                   float* __restrict__ fitness) {
+  tp_block<NC, KN, false>(0u, nullptr, params, nullptr, pop, sp, MutateParams{}, dft, target,
+                          fitness, nullptr, nullptr);
+}
+
 // ---- host side ------------------------------------------------------------------
 
 // Dynamic shared memory of a block (this file's note).
@@ -330,20 +377,27 @@ static inline int tp_warps(const SynthParams& sp) {
   return nb < TP_MAX_WARPS ? nb : TP_MAX_WARPS;
 }
 
-// The kernel for sp's sine order and fixed code (dispatch_synth's
-// CODES_FIXED with the fixed banks): a chain of 2 .. FIXED_KN (CHAINS) or a
-// bank of 2 .. FIXED_PAIRS (!CHAINS), each translation unit instantiating
-// its own half; its shared memory set and the largest carveout asked for.
-// cudaErrorInvalidValue for any other code.
-template <bool CHAINS>
-static int prepare_tp(const SynthParams& sp, GenInt8Kernel* out) {
-  GenInt8Kernel kernel = nullptr;
+// The B2 (GenInt8Kernel) or B1 (FitInt8Kernel) kernel for sp's sine order
+// and fixed code (dispatch_synth's CODES_FIXED with the fixed banks): a
+// chain of 2 .. FIXED_KN (CHAINS) or a bank of 2 .. FIXED_PAIRS (!CHAINS),
+// each translation unit instantiating its own half; its shared memory set
+// and the largest carveout asked for. cudaErrorInvalidValue for any other
+// code.
+template <bool CHAINS, typename Kernel>
+static int prepare_tp(const SynthParams& sp, Kernel* out) {
+  constexpr bool GEN = std::is_same<Kernel, GenInt8Kernel>::value;
+  static_assert(GEN || std::is_same<Kernel, FitInt8Kernel>::value, "B1 or B2");
+  Kernel kernel = nullptr;
   int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
     return dispatch_synth<true, CODES_FIXED>(sp, [&](auto kc) {
-      constexpr int KN = decltype(kc)::value;
+      constexpr int KN = decltype(kc)::value, NC = decltype(nc)::value;
       if constexpr (KN != WIDE_CHAIN && KN != WIDE_BANK && KN != LONG_CODE &&
-                    is_bank(KN) != CHAINS)
-        kernel = fused_generation_int8_tp_kernel<decltype(nc)::value, KN>;
+                    is_bank(KN) != CHAINS) {
+        if constexpr (GEN)
+          kernel = fused_generation_int8_tp_kernel<NC, KN>;
+        else
+          kernel = fused_synth_fitness_int8_tp_kernel<NC, KN>;
+      }
       return 0;
     });
   });
@@ -356,5 +410,6 @@ static int prepare_tp(const SynthParams& sp, GenInt8Kernel* out) {
   return e;
 }
 
-// The chains' kernels, prepared in fused_tp_chain.cu.
+// The chains' kernels (B2, B1), prepared in fused_tp_chain.cu.
 int prepare_tp_chain(const SynthParams& sp, GenInt8Kernel* kernel);
+int prepare_tp_chain(const SynthParams& sp, FitInt8Kernel* kernel);

@@ -1,14 +1,19 @@
-// B2 int8's time-parallel layout (fused_tp.cuh) on the fixed chains: fm2
+// B1 and B2 int8's time-parallel layout (fused_tp.cuh) on the fixed chains: fm2
 // and fm3_series .. fm8_series (codes 2 .. FIXED_KN) at sine orders 5, 7
 // and 9. A source of its own, which nvcc builds beside fused_tp.cu (the
 // banks and the launcher, whose pmfm_fused_generation_tp hands a chain to
 // prepare_tp_chain), so that neither half is the build's longest pole.
 //
-// Replaces, with fused_eval.cu's kernel, the TPU kernel
+// Replaces, with fused_eval.cu's kernels, the TPU kernels
+//   B1 <- pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness
 //   B2 <- pmfm_tpu/kernels/generation.py::fused_generation
 
 #include "fused_tp.cuh"
 
 int prepare_tp_chain(const SynthParams& sp, GenInt8Kernel* kernel) {
+  return prepare_tp<true>(sp, kernel);
+}
+
+int prepare_tp_chain(const SynthParams& sp, FitInt8Kernel* kernel) {
   return prepare_tp<true>(sp, kernel);
 }

@@ -2,7 +2,7 @@
 
 The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_bf16.cu``:
 B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_tp.cu`` and
-``fused_tp_chain.cu``: B2 int8 in the time-parallel layout of
+``fused_tp_chain.cu``: B1 and B2 int8 in the time-parallel layout of
 ``fused_tp.cuh``, on the fixed banks of 2-5 pairs and the fixed chains; ``fused_wide.cu``:
 both modes at the wide synthesis codes, chains of 9-16 oscillators and banks of 6-8 pairs;
 ``fused_f32.cu``: B1, B2 true f32, and ``fused_f32_tp.cu`` their
@@ -11,8 +11,9 @@ kernels through ``generation.cuh``; ``large_frame.cu``: B3, B4 on
 ``large_frame.cuh``, and ``large_frame_wide.cu`` their wide codes, every
 bank among them; ``fused_long.cu`` and ``large_frame_long.cu``: B1/B2
 int8 and bf16, and B3/B4, at the long code, the topologies above 32 genes
-(B1/B2 f32 instantiate it in ``fused_f32.cu``); ``scan_synth.cu``: the scan synthesis of the unfused
-engines; ``evaluate.cuh``: B2's offspring genes and the dispatch of the
+(B1/B2 f32 instantiate it in ``fused_f32.cu``); ``scan_synth.cu``: the
+scan synthesis of the unfused engines, one thread a candidate or
+time-parallel; ``evaluate.cuh``: B2's offspring genes and the dispatch of the
 synthesis codes; ``synth_common.cuh``: the synthesis B1-B4 share and the
 fold emitter of B1, B2 and B3) have a plain
 C interface and include no PyTorch header, so ``nvcc`` compiles them, one
@@ -205,6 +206,8 @@ def library() -> ctypes.CDLL:
     u32 = ctypes.c_uint32
     lib.pmfm_fused_synth_fitness.argtypes = [vp, ci, ci, SynthParams, vp, vp, vp, vp]
     lib.pmfm_fused_synth_fitness.restype = ci
+    lib.pmfm_fused_synth_fitness_tp.argtypes = lib.pmfm_fused_synth_fitness.argtypes
+    lib.pmfm_fused_synth_fitness_tp.restype = ci
     lib.pmfm_fused_generation.argtypes = [
         u32, vp, vp, vp, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
     ]
@@ -232,6 +235,10 @@ def library() -> ctypes.CDLL:
     lib.pmfm_synth_stream.restype = ci
     lib.pmfm_scan_synth.argtypes = [vp, ci, ci, ci, ScanParams, vp, vp, cll, vp, vp]
     lib.pmfm_scan_synth.restype = ci
+    lib.pmfm_scan_synth_tp.argtypes = [vp, ci, ci, ci, ScanParams, vp, ci, ci, vp, vp]
+    lib.pmfm_scan_synth_tp.restype = ci
+    lib.pmfm_scan_chain_probe.argtypes = [vp, ci, ctypes.c_float, vp, vp]
+    lib.pmfm_scan_chain_probe.restype = ci
     lib.pmfm_error_string.argtypes = [ci]
     lib.pmfm_error_string.restype = ctypes.c_char_p
     return lib

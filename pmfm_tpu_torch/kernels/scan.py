@@ -14,6 +14,7 @@ Audio is time-major ``(n_samples, pop)``, float32 or bfloat16.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import math
 
@@ -29,12 +30,24 @@ from ..ops.wavetable import (
     wrap_pos,
     wrap_pos_both,
 )
+from .synth_fitness import SMS
 
 SCAN_THREADS = 128  # csrc SCAN_TPB: candidates (threads) per block
 # chains with a compile-time instantiation (csrc dispatch_topo's SCAN_CASE);
 # any other length reads it at run time, its state in a scratch
 SCAN_FIXED = {"fm2": (1,), "series": (3, 4, 5, 6, 7, 8), "parallel": (2, 3, 4)}
 _TOPO_KIND = {"fm2": 0, "series": 1, "parallel": 2}  # csrc ScanTopo
+# the time-parallel layout (csrc scan_synth_tp_kernel)
+SCAN_TP_CHUNK = 64  # samples a chunk
+SCAN_TP_MAX_LANES = 32  # (candidate, level) walks a block: warp 0's lanes
+# warps a block: warp 0 for the walks, the rest for the sines (at P 256-8192
+# eight were within 6% of the fastest count swept at the groups this module
+# takes, and up to 1.4x faster than two on fm8_series: PERF.md §6)
+SCAN_TP_WARPS = 8
+# scan_tp_faster's constant, from both layouts' times on an NVIDIA H100 80GB
+# HBM3 (PERF.md §6; tools/torch_scan_b1_probe.py's scan sweep): one-thread
+# blocks of SCAN_THREADS up to which the time-parallel layout is the faster
+SCAN_TP_MAX_BLOCKS = SMS // 2
 
 
 def _chain(topology: str):
@@ -62,26 +75,94 @@ def scan_constants(wavetable_size: int, sample_rate: int) -> dict:
     )
 
 
+def scan_levels(topology: str) -> int:
+    """The serial position recurrences a candidate's synthesis has: a chain
+    of k oscillators k, a bank of k pairs 2 k, fm2 2."""
+    kind, k = _chain(topology)
+    return k if kind == "series" else 2 * k
+
+
+def scan_tp_takes(topology: str) -> bool:
+    """Whether the time-parallel kernel takes the chain: at most
+    ``SCAN_TP_MAX_LANES`` levels (a candidate's walks on warp 0's lanes);
+    longer chains (above fm32_series, fm16_parallel) run one thread a
+    candidate."""
+    return scan_levels(topology) <= SCAN_TP_MAX_LANES
+
+
+def scan_tp_group(pop: int, topology: str) -> int:
+    """Candidates a time-parallel block: one while the grid has at most two
+    blocks an SM, else as many as keep it at two an SM, at most
+    ``SCAN_TP_MAX_LANES`` // levels (warp 0's lanes)."""
+    return max(1, min(SCAN_TP_MAX_LANES // scan_levels(topology), pop // (2 * SMS)))
+
+
+def scan_tp_smem(lanes: int) -> int:
+    """Dynamic shared memory of a time-parallel block of ``lanes`` walks
+    (csrc ``scan_tp_smem``): positions and increments of two chunks, rows of
+    ``lanes | 1`` floats, and two constants a walk."""
+    return (4 * SCAN_TP_CHUNK * (lanes | 1) + 2 * lanes) * 4
+
+
+def scan_tp_faster(pop: int) -> bool:
+    """The rule by which the scan takes the time-parallel layout where its
+    kernel takes the chain, from both layouts' times on an H100 (PERF.md §6,
+    the scan sweep of tools/torch_scan_b1_probe.py). The one-thread layout's
+    time is one thread's walk of n samples, flat in the population while its
+    grid leaves SMs idle; the time-parallel one walks a level a lane, about
+    n x one add-and-wrap, but spends more instructions a candidate, so its
+    time grows with the population. It won at every chain and n swept up to
+    P 8192 (one-thread blocks on half the SMs) and lost at P 2^15: it is
+    taken while the one-thread grid has at most ``SCAN_TP_MAX_BLOCKS``
+    blocks, whatever n and the chain. Past that the crossover depends on
+    the chain (P ~8.5k at fm8_series, ~15k at fm3_parallel), so the rule
+    gives up some wins there and takes no loss at a swept point."""
+    return -(-pop // SCAN_THREADS) <= SCAN_TP_MAX_BLOCKS
+
+
+def scan_time_parallel(pop: int, topology: str) -> bool:
+    """Whether the scan takes its time-parallel layout for ``pop``
+    candidates of ``topology``, at any n: where the kernel takes the chain
+    (``scan_tp_takes``) and the card's rule says it is the faster
+    (``scan_tp_faster``)."""
+    return scan_tp_takes(topology) and scan_tp_faster(pop)
+
+
 def scan_launch(pop: int, n: int, topology: str, osc_mode: str, out_dtype: torch.dtype, *,
                 wavetable_size: int = DEFAULT_WAVETABLE_SIZE,
                 sample_rate: int = DEFAULT_SAMPLE_RATE) -> dict:
-    """The kernel's launch: ``grid`` and ``block``, the topology kind and
-    chain length, the oscillator and output codes and ``ScanParams``'
-    values, and ``state_floats``, the scratch of a chain of any other length
-    than the compile-time ones (``SCAN_FIXED``: above fm8_series and
-    fm4_parallel the kernel keeps each candidate's state there, csrc
-    ``scan_state_floats``), 0 for those."""
+    """The kernel's launch: ``layout`` (``"time_parallel"`` where
+    ``scan_time_parallel`` says, else ``"one_thread"``), ``grid``, ``block``
+    and ``smem`` (dynamic shared memory bytes), ``group`` (candidates a
+    time-parallel block, ``scan_tp_group``; 1 a thread otherwise) and
+    ``warps`` (``SCAN_TP_WARPS``; one thread a candidate: 4), the topology
+    kind and chain length, the oscillator and output codes and
+    ``ScanParams``' values, and ``state_floats``, the one-thread kernel's
+    scratch for a chain of any other length than the compile-time ones
+    (``SCAN_FIXED``: above fm8_series and fm4_parallel it keeps each
+    candidate's state there, csrc ``scan_state_floats``), 0 for those and
+    for the time-parallel layout."""
     kind, k = _chain(topology)
     if osc_mode not in OSC_MODES:
         raise ValueError(f"osc_mode must be one of {OSC_MODES}, got {osc_mode!r}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     c = scan_constants(wavetable_size, sample_rate)
+    if scan_time_parallel(pop, topology):
+        group = scan_tp_group(pop, topology)
+        lanes = group * scan_levels(topology)
+        geometry = dict(layout="time_parallel", grid=-(-pop // group), block=32 * SCAN_TP_WARPS,
+                        smem=scan_tp_smem(lanes), group=group, warps=SCAN_TP_WARPS,
+                        state_floats=0)
+    else:
+        geometry = dict(layout="one_thread", grid=-(-pop // SCAN_THREADS), block=SCAN_THREADS,
+                        smem=0, group=1, warps=SCAN_THREADS // 32,
+                        state_floats=0 if k in SCAN_FIXED[kind]
+                        else (3 if kind == "series" else 6) * k * pop)
     return dict(
-        grid=-(-pop // SCAN_THREADS), block=SCAN_THREADS, topo=_TOPO_KIND[kind], k=k,
+        geometry, topo=_TOPO_KIND[kind], k=k,
         osc=OSC_MODES.index(osc_mode), bf16=int(out_dtype == torch.bfloat16),
         n=n, pop=pop, inv_k=float(np.float32(1.0 / k)), table_max=wavetable_size - 1,
-        state_floats=0 if k in SCAN_FIXED[kind] else (3 if kind == "series" else 6) * k * pop,
         **c,
     )
 
@@ -194,18 +275,53 @@ def scan_synth(
         if table.numel() != wavetable_size:
             raise ValueError(f"wavetable must hold {wavetable_size} entries, got {table.numel()}")
     out = torch.empty((n_samples, pop), dtype=out_dtype, device=dev)
-    state = alloc_scratch(la["state_floats"], dev, f"{topology}'s scan state")
     sp = ScanParams(n=n_samples, pop=pop, k=la["k"], w2sr=la["w2sr"], size=la["size"],
                     scale=la["scale"], inv_k=la["inv_k"], table_max=la["table_max"])
-    err = library().pmfm_scan_synth(
-        params.data_ptr(), la["topo"], la["osc"], la["bf16"], sp,
-        None if table is None else table.data_ptr(), state.data_ptr(), state.numel(),
-        out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check(err, "scan_synth")
+    table_ptr = None if table is None else table.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if la["layout"] == "time_parallel":
+        err = library().pmfm_scan_synth_tp(
+            params.data_ptr(), la["topo"], la["osc"], la["bf16"], sp, table_ptr, la["group"],
+            la["warps"], out.data_ptr(), stream)
+    else:
+        state = alloc_scratch(la["state_floats"], dev, f"{topology}'s scan state")
+        err = library().pmfm_scan_synth(
+            params.data_ptr(), la["topo"], la["osc"], la["bf16"], sp, table_ptr,
+            state.data_ptr(), state.numel(), out.data_ptr(), stream)
+    check(err, f"scan_synth ({la['layout']})")
     scan_synth.launches += 1
+    scan_synth.launches_by_layout[la["layout"]] += 1
     return out
 
 
 scan_synth.launches = 0
+scan_synth.launches_by_layout = collections.Counter()
+
+CHAIN_PROBE_STEPS = 1 << 20
+CHAIN_PROBE_INCREMENTS = (1234.5, -321.25, 2048.75, 7.125, -2999.5, 16000.25, 0.5, -8.75)
+
+
+def chain_floor_ms(n: int, device, wavetable_size: int = DEFAULT_WAVETABLE_SIZE) -> float:
+    """The scan's serial floor at ``n`` samples on the card: n x the latency
+    of one level's add-and-wrap, timed on a single thread's bare chain of
+    ``CHAIN_PROBE_STEPS`` steps (csrc ``scan_chain_probe_kernel``; CUDA
+    events, after one warm-up launch). A measurement, not a path: nothing
+    counts it."""
+    from ._build import check, library
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the chain floor is measured on a card, got {dev}")
+    d = torch.tensor(CHAIN_PROBE_INCREMENTS, dtype=torch.float32, device=dev)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch = lambda: check(library().pmfm_scan_chain_probe(  # noqa: E731
+        d.data_ptr(), CHAIN_PROBE_STEPS, float(wavetable_size), out.data_ptr(), stream),
+        "scan_chain_probe")
+    launch()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    launch()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / CHAIN_PROBE_STEPS * n

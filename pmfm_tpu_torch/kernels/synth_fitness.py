@@ -825,6 +825,25 @@ def launch_mode(topology: str, dft_scale: float, frames: int = 1, runs=None,
     return mode + ("_frames" if frames > 1 else "") + ("" if runs is None else "_runs")
 
 
+def b1_entry(mode: str, n: int, k: int, d: int, topology: str, frames: int = 1,
+             pop: int = CUDA_BLOCK, runs: int = 1) -> tuple:
+    """The library entry B1 launches in ``mode`` (``operand_mode``) and its
+    layout: int8 in the time-parallel layout of ``csrc/fused_tp.cuh`` where
+    B2's rule takes it (``generation.time_parallel``, the same function, so
+    B1 and B2 take one layout at a shape), else one warp a block; bf16 one
+    warp; true f32 its own kernels (layout None: ``f32_launch`` counts
+    them)."""
+    from .generation import time_parallel  # generation imports this module
+
+    if mode == "f32":
+        return "pmfm_fused_synth_fitness_f32", None
+    if mode == "bf16":
+        return "pmfm_fused_synth_fitness_bf16", "one_warp"
+    if time_parallel(n, k, d, topology, True, frames, pop, runs):
+        return "pmfm_fused_synth_fitness_tp", "time_parallel"
+    return "pmfm_fused_synth_fitness", "one_warp"
+
+
 def fused_synth_fitness_plain(
     params_scaled: torch.Tensor,
     target_spectrum: torch.Tensor,
@@ -876,11 +895,14 @@ def fused_synth_fitness(
     ``num_frames`` = F (multi-frame fitness); with the run axis (B, F, K),
     or (B, K) at one frame. On CUDA tensors this launches the B1 kernel once
     for all runs (counted in ``fused_synth_fitness.launches``, by mode in
-    ``fused_synth_fitness.launches_by[launch_mode(...)]`` and, true f32, by
-    route and synthesis layout in ``fused_synth_fitness.launches_by_f32``:
-    ``"fft"`` or ``"dft"``, and ``"time_parallel"`` or ``"one_thread"``,
-    ``f32_launch``); on CPU tensors it runs the plain version. ``pop_block``
-    sizes the plain version's blocks.
+    ``fused_synth_fitness.launches_by[launch_mode(...)]``, int8 and bf16 by
+    layout in ``fused_synth_fitness.launches_by_layout``, ``"time_parallel"``
+    (int8 where B2's rule, ``generation.time_parallel``, takes it) or
+    ``"one_warp"``, and, true f32, by route and synthesis layout in
+    ``fused_synth_fitness.launches_by_f32``: ``"fft"`` or ``"dft"``, and
+    ``"time_parallel"`` or ``"one_thread"``, ``f32_launch``); on CPU tensors
+    it runs the plain version whatever the layout. ``pop_block`` sizes the
+    plain version's blocks.
     """
     dev = params_scaled.device
     if dev.type == "cpu":
@@ -906,6 +928,7 @@ def fused_synth_fitness(
     nruns = runs or 1
     lscratch = long_scratch(sp, topology, long_rows(pop, nruns), dev)  # noqa: F841 (kept)
     mode = operand_mode(dft_packed.dtype, dft_scale)
+    entry, layout = b1_entry(mode, n, k, d, topology, num_frames, pop, nruns)
     if mode == "f32":
         f32_keys = f32_launch(sp, topology, pop, nruns, dev)
         scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns), dev,
@@ -915,19 +938,20 @@ def fused_synth_fitness(
             fitness.data_ptr(), scratch.data_ptr(), scratch.numel(), stream,
         )
     else:
-        launcher = (library().pmfm_fused_synth_fitness if mode == "int8"
-                    else library().pmfm_fused_synth_fitness_bf16)
-        err = launcher(params.data_ptr(), pop, nruns, sp, dft_packed.data_ptr(),
-                       target_spectrum.data_ptr(), fitness.data_ptr(), stream)
-    check(err, "fused_synth_fitness")
+        err = getattr(library(), entry)(params.data_ptr(), pop, nruns, sp, dft_packed.data_ptr(),
+                                        target_spectrum.data_ptr(), fitness.data_ptr(), stream)
+    check(err, f"fused_synth_fitness ({entry})")
     fused_synth_fitness.launches += 1
     fused_synth_fitness.launches_by[
         launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
     if mode == "f32":
         fused_synth_fitness.launches_by_f32.update(f32_keys)
+    else:
+        fused_synth_fitness.launches_by_layout[layout] += 1
     return fitness
 
 
 fused_synth_fitness.launches = 0
 fused_synth_fitness.launches_by = collections.Counter()
+fused_synth_fitness.launches_by_layout = collections.Counter()
 fused_synth_fitness.launches_by_f32 = collections.Counter()

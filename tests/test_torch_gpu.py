@@ -1373,3 +1373,123 @@ def test_b1_f32_exact_matches_hold_the_plain_version(cuda, topology):
     rel = (got - ref).abs() / ref.abs()
     assert float(ref[0]) < 1e-6 * float(ref.median()) or topology == "fm16_series"
     assert float(rel.max()) <= F32_FIT_MAX_REL and float(rel.median()) <= F32_FIT_MEDIAN_REL
+
+
+# ---- the scan's time-parallel layout (csrc/scan_synth.cu) ----------------------
+
+SCAN_TP_TOPOLOGIES = ["fm2", "fm3_series", "fm8_series", "fm10_series", "fm3_parallel",
+                      "fm5_parallel"]
+
+
+def _scan_layout(monkeypatch, tp):
+    """The scan's wrapper in one layout: the time-parallel one wherever its
+    kernel takes the chain (``scan_tp_faster`` made to say yes), or one
+    thread a candidate (made to say no)."""
+    from pmfm_tpu_torch.kernels import scan as ss
+
+    monkeypatch.setattr(ss, "scan_tp_faster", lambda pop: tp)
+
+
+@pytest.mark.parametrize("pop", [1, 32, 2048])
+@pytest.mark.parametrize("n", [1000, 2048])
+@pytest.mark.parametrize("topology", SCAN_TP_TOPOLOGIES)
+def test_scan_layouts_bit_equal_to_plain_and_each_other(cuda, monkeypatch, topology, n, pop):
+    """The scan's two layouts, each bit-equal to the plain loop and to the
+    other, every oscillator and both output types, one launch counted under
+    each layout; n 1000 ends in a part of a time-parallel chunk, P 2048
+    takes several candidates a block (a ragged last one)."""
+    from pmfm_tpu_torch.kernels import scan as ss
+
+    d = topology_dims(topology)
+    rng = np.random.default_rng(d + n + pop)
+    p = torch.from_numpy((rng.random((pop, d)) * np.asarray(_tp_maxs(topology)))
+                         .astype(np.float32)).to(cuda)
+    for osc_mode in ("floor", "exact", "table"):
+        b32 = ss.scan_synth_plain(p, n, topology, osc_mode=osc_mode)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            outs = {}
+            for tp in (False, True):
+                _scan_layout(monkeypatch, tp)
+                ss.scan_synth.launches_by_layout.clear()
+                outs[tp] = ss.scan_synth(p, n, topology, osc_mode=osc_mode, out_dtype=out_dtype)
+                assert dict(ss.scan_synth.launches_by_layout) == {
+                    "time_parallel" if tp else "one_thread": 1}
+                assert _bits_equal(outs[tp].float(), b32.to(out_dtype).float())
+            assert _bits_equal(outs[False].float(), outs[True].float())
+
+
+# ---- B1 int8 in the time-parallel layout (csrc/fused_tp.cuh) --------------------
+
+B1_TP_TOPOLOGIES = ["fm2_parallel", "fm3_parallel", "fm4_parallel", "fm5_parallel",
+                    "fm3_series", "fm8_series"]
+
+
+@pytest.mark.parametrize("topology,frames,runs,pop", (
+    [(t, 1, 1, pop) for t in B1_TP_TOPOLOGIES for pop in (1, 32, 8192)]
+    + [(t, 8, 1, pop) for t in B1_TP_TOPOLOGIES for pop in (1, 4096)]
+    + [(t, 1, 8, pop) for t in B1_TP_TOPOLOGIES for pop in (1, 4096)]))
+def test_b1_time_parallel_layout_bit_equal_to_one_warp(cuda, monkeypatch, topology, frames,
+                                                       runs, pop):
+    """B1 int8: the time-parallel layout's fitness bit-equal to the one-warp
+    layout's, one launch of each counted under its layout, at P 1 (the
+    pursuit's seed rescores), 32 and 8192, at F 8 and on 8 runs (n 2048
+    there, 1024 else); and at P 4096 (F 8, 8 runs) within the int8 limits
+    of the plain version."""
+    d = topology_dims(topology)
+    n = 2048 if frames > 1 or runs > 1 else 1024
+    maxs = _tp_maxs(topology)
+    so = make_spectrum_ops(ESConfig(num_dimensions=d, topology=topology, param_mins=(0.0,) * d,
+                                    param_maxs=maxs, audio_length_log2=n.bit_length() - 1,
+                                    dft_dtype="int8"),
+                           device=cuda)
+    rng = np.random.default_rng(pop + d + 10 * frames + runs)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    lead = () if runs == 1 else (runs,)
+    params = t(rng.random((*lead, pop, d)) * np.asarray(maxs))
+    tgt = t(rng.uniform(0, 50, (*lead, frames, so.num_bins) if frames > 1
+                        else (*lead, so.num_bins)))
+    kw = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology, n=n,
+              pop_block=pop, sine_order=9, num_frames=frames)
+    outs = {}
+    for tp in (False, True):
+        _tp_layout(monkeypatch, tp)
+        sf.fused_synth_fitness.launches_by_layout.clear()
+        outs[tp] = sf.fused_synth_fitness(params, tgt, **kw)
+        assert dict(sf.fused_synth_fitness.launches_by_layout) == {
+            "time_parallel" if tp else "one_warp": 1}
+    assert bool(torch.isfinite(outs[True]).all())
+    assert _bits_equal(outs[False], outs[True])
+    if pop == 4096 and topology in ("fm3_series", "fm3_parallel"):
+        fp = sf.fused_synth_fitness_plain(params, tgt, **kw)
+        rel = (outs[True] - fp).abs() / fp.abs()
+        assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+
+
+@pytest.mark.parametrize("topology,n,frames", [("fm3_parallel", 1024, 1), ("fm5_parallel", 1024, 1),
+                                               ("fm3_series", 2048, 8)])
+def test_b2_time_parallel_fitness_is_b1_time_parallel_on_its_offspring(cuda, monkeypatch,
+                                                                       topology, n, frames):
+    """B2 and B1 both in the time-parallel layout: B2's fitness bit-equal to
+    B1's on B2's own offspring (the pursuit's polish shape, --mode stft's)."""
+    d, mu, pop = topology_dims(topology), 64, 8192 if frames == 1 else 4096
+    maxs = _tp_maxs(topology)
+    so = make_spectrum_ops(ESConfig(num_dimensions=d, topology=topology, param_mins=(0.0,) * d,
+                                    param_maxs=maxs, audio_length_log2=n.bit_length() - 1,
+                                    dft_dtype="int8"),
+                           device=cuda)
+    rng = np.random.default_rng(d + n + frames)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    pv, ps = t(rng.random((mu, d))), t(rng.uniform(0.02, 0.3, (mu, d)))
+    tgt = t(rng.uniform(0, 50, (frames, so.num_bins) if frames > 1 else (so.num_bins,)))
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=n, pop_block=pop,
+              sine_order=9, num_frames=frames)
+    _tp_layout(monkeypatch, True)
+    sf.fused_synth_fitness.launches_by_layout.clear()
+    fk, vk, _ = gn.fused_generation(31, pv, ps, tgt, **kw)
+    own = sf.fused_synth_fitness(gn.scale_rows(vk, kw["param_mins"], kw["param_maxs"]), tgt,
+                                 dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale,
+                                 topology=topology, n=n, pop_block=pop, sine_order=9,
+                                 num_frames=frames)
+    assert dict(sf.fused_synth_fitness.launches_by_layout) == {"time_parallel": 1}
+    assert _bits_equal(fk, own)

@@ -267,10 +267,12 @@ def test_oracle_against_scan_and_scanless(topology, engine):
 @pytest.mark.parametrize("topology,want_topo,want_k", [
     ("fm2", 0, 1), ("fm3_series", 1, 3), ("fm8_series", 1, 8), ("fm12_series", 1, 12),
     ("fm3_parallel", 2, 3), ("fm6_parallel", 2, 6)])
-def test_scan_launch(topology, want_topo, want_k):
+def test_scan_launch(monkeypatch, topology, want_topo, want_k):
     """The scan kernel's launch (csrc/scan_synth.cu): a thread a candidate in
-    blocks of 128, the topology code and chain length, and the float32
-    constants the plain loop uses."""
+    blocks of 128 (its rule made to refuse the time-parallel layout, whose
+    geometry is tests/test_torch_scan_tp.py's), the topology code and chain
+    length, and the float32 constants the plain loop uses."""
+    monkeypatch.setattr(tscan, "scan_tp_faster", lambda pop: False)
     la = tscan.scan_launch(1000, 2048, topology, "table", torch.bfloat16)
     assert (la["grid"], la["block"]) == (8, 128)
     assert (la["topo"], la["k"], la["osc"], la["bf16"]) == (want_topo, want_k, 2, 1)
