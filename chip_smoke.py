@@ -292,6 +292,7 @@ KERNELS = ("fused_synth_fitness", "fused_generation", "fused_synth_fold", "fused
            "fused_synth_fitness_runs", "fused_generation_runs", "fused_synth_fitness_runs_f32",
            "fused_generation_runs_f32", "fused_evolve_runs",
            "fused_synth_fitness_bf16", "fused_generation_bf16", "fused_evolve_bf16",
+           "fused_synth_fitness_bf16_tp", "fused_generation_bf16_tp",
            "fused_synth_fold_parallel", "fused_synth_stream_parallel", "fused_evolve_parallel",
            "fused_synth_fitness_wide", "fused_generation_wide",
            "fused_synth_fitness_long", "fused_generation_long", "fused_synth_fitness_long_bf16",
@@ -684,6 +685,25 @@ B1_TP_SETTINGS = (
     ("bench", "examples/params_match.json", "fm3_series", 1, None, 1 << 15))
 B1_TP_TIMED = ("pursuit seed rescore", "--mode stft", "run axis")
 B1_TP_LAUNCHES = 25
+# phase 47: B1/B2 bf16 in their layouts (csrc/fused_tp_bf16.cuh's time-parallel
+# one, fused_bf16.cu's one-warp one) bit-equal at the reference suite's
+# shapes, (topology, n, runs, pop): the populations and the run axes of
+# fm3_series at n 1024, n 512 and 2048, the topologies; and n 768 (six warps a
+# block, a round of 96 bins: the ring of terms is rounded up to 256 rows);
+# then B2's values, steps and fitness at the bench config and a run axis, B2's
+# fitness bit-equal to B1's on its own offspring, and each layout against the
+# plain versions (the int8 gate); the layouts timed alternated at the first
+# BF16_TP_TIMED shapes
+BF16_TP_SHAPES = (
+    ("fm3_series", 1024, None, 1 << 11), ("fm3_series", 1024, None, 1 << 13),
+    ("fm3_series", 1024, None, 1 << 15), ("fm3_series", 1024, 4, 1 << 13),
+    ("fm3_series", 1024, 32, 1 << 11), ("fm3_series", 512, None, 1 << 15),
+    ("fm3_series", 2048, None, 1 << 15), ("fm2", 1024, None, 1 << 15),
+    ("fm4_series", 1024, None, 1 << 15), ("fm5_series", 1024, None, 1 << 15),
+    ("fm3_parallel", 1024, None, 1 << 15), ("fm4_parallel", 1024, None, 1 << 15),
+    ("fm3_series", 768, 4, 1 << 11), ("fm5_parallel", 768, None, 1 << 13))
+BF16_TP_TIMED = 7
+BF16_TP_LAUNCHES = 10
 
 T0 = time.perf_counter()
 CARD = {"name": "?", "power_limit": "?"}
@@ -781,18 +801,16 @@ def fold_layout(sfo, time_parallel: bool):
 
 @contextlib.contextmanager
 def gen_layout(gn, time_parallel: bool):
-    """B2's wrapper in one layout: the time-parallel one wherever its kernel
-    takes the shape (``TIME_PARALLEL`` set and ``tp_faster`` made to say
-    yes: int8 on a fixed chain or bank), or the one-warp one everywhere
-    (``TIME_PARALLEL`` cleared); both restored after."""
-    saved = gn.TIME_PARALLEL, gn.tp_faster
-    gn.TIME_PARALLEL = time_parallel
-    if time_parallel:
-        gn.tp_faster = lambda *a, **k: True
+    """B1/B2's wrappers in one layout: the time-parallel one wherever its
+    kernel takes the shape (``tp_faster`` made to say yes: int8 or bf16 on a
+    fixed chain or bank), or the one-warp one everywhere (``tp_faster`` made
+    to say no); restored after."""
+    saved = gn.tp_faster
+    gn.tp_faster = lambda *a, **k: time_parallel
     try:
         yield
     finally:
-        gn.TIME_PARALLEL, gn.tp_faster = saved
+        gn.tp_faster = saved
 
 
 @contextlib.contextmanager
@@ -816,7 +834,7 @@ def b2_layout(gn, kw2, k: int, d: int, runs: int = 1) -> str:
     """The layout of the B2 int8 kernel that the wrapper launches for
     ``kw2`` (its keyword arguments) at ``k`` bins, ``d`` genes and ``runs``
     runs."""
-    tp = gn.time_parallel(kw2["n"], k, d, kw2["topology"], True, kw2.get("num_frames", 1),
+    tp = gn.time_parallel(kw2["n"], k, d, kw2["topology"], "int8", kw2.get("num_frames", 1),
                           kw2["pop"], runs)
     return "time_parallel" if tp else "one_warp"
 
@@ -1125,7 +1143,7 @@ class Smoke:
         from pmfm_tpu_torch.kernels import _build
 
         res = _build.build()
-        self.build_seconds = res["seconds"]
+        self.build_seconds, self.build_log = res["seconds"], res["log"]
         log(f"nvcc: built={res['built']} in {res['seconds']:.1f}s -> {res['path']}")
         for name, regs, spill in ptxas_summary(res["log"]):
             print(f"  ptxas {name}: {regs} registers, {spill} bytes spill stores", flush=True)
@@ -3900,8 +3918,9 @@ class Smoke:
         """The operand disk cache at 2^CACHE_LOG2N, int8 and bf16 (a build that
         writes the file, then a load of it), then ``bench_suite.main`` over
         SUITE_SUITES with SUITE_ARGS and the cache, on the card: each row
-        printed beside the card, and the bf16 B1/B2 launches of the suite's
-        rows counted."""
+        printed beside the card; then the suite's runner at fm8_series (B1,
+        then B2), a chain the bf16 rule keeps one-warp; the bf16 B1/B2
+        launches of both counted by layout."""
         import csv
         import shutil
         from pathlib import Path
@@ -3954,12 +3973,35 @@ class Smoke:
         b1 = by.get("fused_synth_fitness", {}).get("bf16", 0)
         b2 = by.get("fused_generation", {}).get("bf16", 0)
         require(b1 > 0 and b2 > 0, "the suite did not run B1 and B2 in bf16")
-        self.kernels.setdefault("fused_synth_fitness_bf16", {})["launches"] = b1
-        self.kernels.setdefault("fused_generation_bf16", {})["launches"] = b2
+        # the suite's shapes take the bf16 time-parallel layout; the one-warp
+        # kernels run where the rule keeps them: a long chain on a full grid,
+        # the suite's own runner at fm8_series with B1, then with B2
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+
+        args = bench_suite.parse_args(list(SUITE_ARGS))
+        args.device = self.dev
+        chain = dict(topology="fm8_series", num_dimensions=16, param_mins=(0.0,) * 16,
+                     param_maxs=(3520.0, 8.0) * 8)
+        for over in ({}, {"fused_generation": True}):
+            cfg = bench_suite._base_cfg(args, **chain, **over)
+            bench_suite._make_runner(cfg, args.gens, device=self.dev)()
+        torch.cuda.synchronize()
+        # each bf16 launch by layout (generation.layout_key): the one-warp kernel
+        # (fused_bf16.cu) or the time-parallel one (fused_tp_bf16.cuh)
+        for name, fn in (("fused_synth_fitness_bf16", sf.fused_synth_fitness),
+                         ("fused_generation_bf16", gn.fused_generation)):
+            layouts = {x: v for x, v in fn.launches_by_layout.items() if x.startswith("bf16_")}
+            log(f"bench_suite and fm8_series: {name} launches by layout {layouts}")
+            require(layouts.get("bf16_one_warp", 0) > 0 and layouts.get("bf16_time_parallel", 0),
+                    f"{name}: the launches by layout {layouts}")
+            self.kernels.setdefault(name, {})["launches"] = layouts["bf16_one_warp"]
+            self.kernels.setdefault(name + "_tp", {})["launches"] = layouts["bf16_time_parallel"]
 
     # -- 29 -----------------------------------------------------------------
     def bf16_timings(self):
-        """B1/B2/B5 bf16 at the bench shape beside their plain versions and
+        """B1/B2/B5 bf16 at the bench shape, B1/B2 in the one-warp layout
+        (phase 47 times the time-parallel one), beside their plain versions and
         their bound (bytes at 3.35 TB/s; the DFT's operations at the dense
         bf16 peak and the synthesis's at the f32 peak), and the DFT half's
         yardstick: bf16 ``torch.mm`` with float32 output, U and V of
@@ -4001,7 +4043,8 @@ class Smoke:
                 "pmfm_tpu/kernels/evolve.py:366"),
         }
         for name, (fn, plain, nbytes, bops, fops, gens, src, replaces) in rows.items():
-            ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
+            with gen_layout(gn, False):  # B1/B2's rule takes phase 47's layout here
+                ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
             plain_ms = cuda_ms(plain, 1 if gens > 1 else PLAIN_RUNS)
             bound_ms, by = bound(nbytes, 0.0, fops, bops)
             per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
@@ -5200,7 +5243,7 @@ class Smoke:
             require(bool(torch.isfinite(outs[False]).all()) and bits_equal(outs[False], outs[True]),
                     f"B1's layouts differ ({where})")
             worst = max(worst, float((outs[False] - outs[True]).abs().max()))
-            pick = gn.time_parallel(n, k, d, topology, True, frames, pop, runs or 1)
+            pick = gn.time_parallel(n, k, d, topology, "int8", frames, pop, runs or 1)
             if label == "pursuit seed rescore":
                 # B2 at the pursuit's polish shape, both in the time-parallel layout
                 kw2 = dict(fused_generation_kwargs(cfg, so), pop=cfg.population_size)
@@ -5246,6 +5289,150 @@ class Smoke:
         self.kernels.setdefault("fused_synth_fitness_tp", {})["max_abs_err"] = worst
         log(f"B1 int8 layouts bit-equal at {len(B1_TP_SETTINGS)} settings "
             f"({time.perf_counter() - t0:.1f}s)")
+
+    # -- 47 -----------------------------------------------------------------
+    def bf16_tp(self):
+        """B1/B2 bf16 in their two layouts (fused_bf16.cu's one warp,
+        csrc/fused_tp_bf16.cuh's time-parallel one) bit-equal at
+        BF16_TP_SHAPES, each launch counted
+        in the layout it was forced to; at the bench config B2's fitness,
+        values and steps bit-equal across the layouts, B2's fitness bit-equal
+        to B1's on its own offspring, and each layout within the int8 gate
+        of the plain versions (the truth first); a run axis of 4 for B2; the
+        layouts timed alternated at the first BF16_TP_TIMED shapes beside the
+        wrapper's pick; the new kernels' JSON rows at the bench config; the
+        ptxas of their instantiations."""
+        from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import generation as gn
+        from pmfm_tpu_torch.kernels import synth_fitness as sf
+        from pmfm_tpu_torch.ops.spectral import make_spectrum_ops
+        from pmfm_tpu_torch.ops.synthesis import topology_dims
+
+        rows = [r for r in ptxas_summary(getattr(self, "build_log", "")) if "bf16_tp" in r[0]]
+        require(rows or not getattr(self, "build_log", ""), "no bf16 time-parallel kernel built")
+        for kind in ("fused_synth_fitness_bf16_tp", "fused_generation_bf16_tp"):
+            got = [(int(r), int(sp)) for name, r, sp in rows if name.startswith(kind + "<")]
+            if got:
+                log(f"ptxas {kind}: {len(got)} instantiations, registers "
+                    f"{min(r for r, _ in got)}-{max(r for r, _ in got)}, spill stores "
+                    f"{min(sp for _, sp in got)}-{max(sp for _, sp in got)} bytes")
+        rng = np.random.default_rng(SEED + 4700)
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)  # noqa: E731
+        by1, by2 = sf.fused_synth_fitness.launches_by_layout, gn.fused_generation.launches_by_layout
+        t0 = time.perf_counter()
+        for i, (topology, n, runs, pop) in enumerate(BF16_TP_SHAPES):
+            d = topology_dims(topology)
+            so = make_spectrum_ops(n, dft_dtype="bfloat16", device=self.dev)
+            k = so.num_bins
+            lead = () if runs is None else (runs,)
+            params = t(rng.random((*lead, pop, d)) * np.asarray(param_maxs(topology)))
+            target = t(rng.uniform(0, 50, (*lead, k)))
+            kw1 = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology,
+                       n=n, sine_order=9)
+            where = f"{topology}, n={n}, runs {runs or 1}, P={pop}"
+            fn = lambda: sf.fused_synth_fitness(params, target, **kw1)  # noqa: E731
+            outs = {}
+            for tp in (False, True):
+                by1.clear()
+                with gen_layout(gn, tp):
+                    outs[tp] = fn()
+                require(dict(by1) == {gn.layout_key("bf16", tp): 1},
+                        f"B1 bf16 ({where}): launched {dict(by1)}")
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(outs[False]).all()) and bits_equal(outs[False], outs[True]),
+                    f"B1 bf16's layouts differ ({where})")
+            pick = gn.layout_key("bf16", gn.time_parallel(n, k, d, topology, "bf16", 1, pop,
+                                                          runs or 1))
+            if i < BF16_TP_TIMED:
+                tt = {False: [], True: []}
+                for tp in SCAN_ORDER:
+                    with gen_layout(gn, tp):
+                        tt[tp].append(cuda_ms(fn, BF16_TP_LAUNCHES))
+                log(f"B1 bf16 layouts ({where}): " + ", ".join(
+                    f"{gn.layout_key('bf16', tp)} {statistics.median(v):.4f} ms "
+                    f"{[round(y, 4) for y in v]}" for tp, v in tt.items())
+                    + f" (medians of {BF16_TP_LAUNCHES}, alternated); the wrapper takes {pick} "
+                    f"{card()}")
+            else:
+                log(f"B1 bf16 ({where}): the layouts bit-equal; the wrapper takes {pick}")
+        # B2 at the bench config (the truth first) and with a run axis of 4
+        c = self.inputs(self.cfg.replace(dft_dtype="bfloat16"), SEED + 4701)
+        kw1, kw2 = self.kw_b1(c), self.kw_b2(c)
+        seed = kernel_seed(SEED, 4700)
+        rc = self.run_inputs(c["cfg"], c["so"], 4, SEED + 4702)
+        rt = rc["target"][:, 0].contiguous()
+        seeds = [kernel_seed(SEED, 4710 + r) for r in range(4)]
+        outs, runs_out = {}, {}
+        for tp in (False, True):
+            by2.clear()
+            with gen_layout(gn, tp):
+                outs[tp] = gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2)
+                runs_out[tp] = gn.fused_generation(seeds, rc["pv"], rc["ps"], rt, **kw2)
+                require(dict(by2) == {gn.layout_key("bf16", tp): 2}, f"B2 bf16: {dict(by2)}")
+                own = sf.fused_synth_fitness(
+                    gn.scale_rows(outs[tp][1], kw2["param_mins"], kw2["param_maxs"]),
+                    c["target"], **kw1)
+            torch.cuda.synchronize()
+            require(bits_equal(outs[tp][0], own), f"B2 bf16's fitness differs from B1's on its "
+                    f"offspring ({gn.layout_key('bf16', tp)})")
+        require(all(bits_equal(a, b) for a, b in zip(outs[False], outs[True]))
+                and all(bits_equal(a, b) for a, b in zip(runs_out[False], runs_out[True])),
+                "B2 bf16's layouts differ (bench config, run axis of 4)")
+        plain1 = sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1)
+        plain2 = gn.fused_generation_plain(seed, c["pv"], c["ps"], c["target"], **kw2)
+        torch.cuda.synchronize()
+        pop, n, k = c["cfg"].population_size, c["cfg"].n_samples, c["so"].num_bins
+        errs = {}
+        for tp in (False, True):
+            with gen_layout(gn, tp):
+                f1 = sf.fused_synth_fitness(c["params"], c["target"], **kw1)
+            torch.cuda.synchronize()
+            e1, e2 = rel_err(f1, plain1), rel_err(outs[tp][0], plain2[0])
+            layout = gn.layout_key("bf16", tp)
+            require(float(e1.max()) <= FIT_MAX_REL and float(e1.median()) <= FIT_MEDIAN_REL
+                    and float(e2.max()) <= FIT_MAX_REL and float(e2.median()) <= FIT_MEDIAN_REL
+                    and int(torch.argmin(f1)) == 0,
+                    f"B1/B2 bf16 ({layout}) disagree with their plain versions or miss the truth")
+            errs[tp] = (float((f1 - plain1).abs().max()),
+                        float((outs[tp][0] - plain2[0]).abs().max()))
+            log(f"B1/B2 bf16 {layout} (bench config: n={n}, K={k}, P={pop}, sine order "
+                f"{c['cfg'].sine_order}) against the plain versions: max rel B1 "
+                f"{float(e1.max()):.3e} B2 {float(e2.max()):.3e}, median rel B1 "
+                f"{float(e1.median()):.3e} B2 {float(e2.median()):.3e} (limits {FIT_MAX_REL:g} / "
+                f"{FIT_MEDIAN_REL:g}); truth first")
+        # the JSON rows: B1/B2 in the wrapper's layout at the bench config
+        # (time-parallel), against the plain versions and the bound
+        synth = synth_ops_f32(pop, n, k, kn=3, ncoef=c["cfg"].sine_order // 2 + 1)
+        dft_ops = 2.0 * 2 * k * (n // 2) * pop
+        io = c["so"].dft_packed.numel() * 2 + k * 4 + pop * 4
+        require(gn.time_parallel(n, k, D, TOPOLOGY, "bf16", 1, pop),
+                "the bench config's bf16 shape is not time-parallel")
+        timed = {
+            "fused_synth_fitness_bf16_tp": (
+                lambda: sf.fused_synth_fitness(c["params"], c["target"], **kw1),
+                lambda: sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1),
+                io + pop * D * 4, synth, 0, "pmfm_tpu/kernels/synth_fitness.py:767"),
+            "fused_generation_bf16_tp": (
+                lambda: gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw2),
+                lambda: gn.fused_generation_plain(seed, c["pv"], c["ps"], c["target"], **kw2),
+                io + 2 * MU * D * 4 + 2 * pop * D * 4, synth + pop * D * 12 * 2.0, 1,
+                "pmfm_tpu/kernels/generation.py:438"),
+        }
+        for name, (fn, plain, nbytes, fops, j, replaces) in timed.items():
+            ms = cuda_ms(fn, TIMED_LAUNCHES)
+            plain_ms = cuda_ms(plain, PLAIN_RUNS)
+            bound_ms, by = bound(nbytes, 0.0, fops, dft_ops)
+            log(f"{name} (bench config): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {by}; {ms / bound_ms:.1f}x the "
+                f"bound {card()}")
+            self.kernels.setdefault(name, {}).update(
+                route="cuda", source="pmfm_tpu_torch/csrc/fused_tp_bf16_chain.cu",
+                replaces=replaces, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None, max_abs_err=errs[True][j])
+        for name, j in (("fused_synth_fitness_bf16", 0), ("fused_generation_bf16", 1)):
+            self.kernels.setdefault(name, {})["max_abs_err"] = errs[False][j]
+        log(f"B1/B2 bf16 layouts bit-equal at {len(BF16_TP_SHAPES)} shapes and the bench "
+            f"config ({time.perf_counter() - t0:.1f}s)")
 
     def tp_layout(self):
         """B2 int8 on the fixed banks in its two layouts (csrc/fused_tp.cuh's
@@ -6034,6 +6221,7 @@ def main(argv=None) -> int:
     s.phase("43 B2 int8: the time-parallel layout on chains and frames", s.tp_chains)
     s.phase("43 B2 int8 banks: the time-parallel layout", s.tp_layout)
     s.phase("46 B1 int8: the time-parallel layout", s.b1_tp)
+    s.phase("47 B1/B2 bf16: the time-parallel layout", s.bf16_tp)
     s.phase("44 B2 true f32 at the users' shapes", s.f32_shapes)
     s.phase("45 B1/B2/B5 true f32: the synthesis layouts bit-equal", s.f32_layouts)
     s.phase("36 A9: resume, population readback, AOT", s.a9)

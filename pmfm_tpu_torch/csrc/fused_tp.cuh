@@ -91,8 +91,6 @@
 // stays bit-equal to B2 launches in either.
 #pragma once
 
-#include <type_traits>
-
 #include "tc_eval.cuh"
 
 #define TP_MAX_WARPS 8  // warps a block: n / TIME_BLOCK, at most this many
@@ -194,13 +192,43 @@ struct TpSynth<NC, KN, INT8, true> {
   }
 };
 
+// The prologue of a time-parallel block, B1's and B2's, int8's and bf16's
+// (fused_tp_bf16.cuh): the block's 32 x d scaled genes into s_p (zeros past
+// pop) with all of its threads, then a barrier. B2's (GEN) draws the
+// offspring from the run's parents pv and ps (generation_block's prologue:
+// values and steps are the one-warp kernel's); B1's copies the block's rows
+// of the run's (pop, d) params in pv (fitness_block's staging).
+template <bool GEN>
+__device__ __forceinline__ void tp_stage_genes(uint32_t seed,
+                                               const uint32_t* __restrict__ run_seeds,
+                                               const float* __restrict__ pv,
+                                               const float* __restrict__ ps, int pop,
+                                               const MutateParams& mp, int d, float* s_p,
+                                               float* __restrict__ values,
+                                               float* __restrict__ steps) {
+  const int tid = threadIdx.x, base = blockIdx.x * TC_CPB, run = blockIdx.y;
+  if constexpr (GEN) {
+    if (run_seeds) seed = __ldg(run_seeds + run);
+    const size_t po = (size_t)run * mp.mu * d, oo = (size_t)run * pop * d;  // the run's rows
+    for (int i = tid; i < TC_CPB * d; i += blockDim.x) {  // pair i: (i / d, i % d)
+      const int cl = i / d, cand = base + cl;
+      s_p[i] = cand < pop ? offspring_gene(seed, cand, i - cl * d, pv + po, ps + po, mp, d,
+                                           values + oo, steps + oo)
+                          : 0.f;
+    }
+  } else {
+    const int avail = min(pop - base, TC_CPB) * d;
+    const float* rows = pv + ((size_t)run * pop + base) * d;
+    for (int i = tid; i < TC_CPB * d; i += blockDim.x) s_p[i] = i < avail ? rows[i] : 0.f;
+  }
+  __syncthreads();
+}
+
 // The block, which B1 and B2 share (as tc_eval.cuh's fitness_block and
-// generation_block share evaluate_staged): its prologue writes the block's
-// 32 x d scaled genes to shared memory (zeros past pop) with all of the
-// block's threads, B2's (GEN) the offspring drawn from the run's parents pv
-// and ps, B1's the block's rows of the run's (pop, d) params in pv; then the
-// synthesis, fold, DFT and fitness of every frame. B1 passes no seeds, ps,
-// values or steps.
+// generation_block share evaluate_staged): its prologue (tp_stage_genes)
+// stages the block's genes, B2's (GEN) offspring or B1's given rows; then
+// the synthesis, fold, DFT and fitness of every frame. B1 passes no seeds,
+// ps, values or steps.
 template <int NC, int KN, bool GEN>
 __device__ __forceinline__ void tp_block(uint32_t seed, const uint32_t* __restrict__ run_seeds,
                                          const float* __restrict__ pv,
@@ -232,21 +260,7 @@ __device__ __forceinline__ void tp_block(uint32_t seed, const uint32_t* __restri
   float* s_p = frames > 1 ? s_c : reinterpret_cast<float*>(s_q);
   float* carry = s_c + TC_CPB * d + lane;
 
-  if constexpr (GEN) {  // the offspring prologue (generation_block's)
-    if (run_seeds) seed = __ldg(run_seeds + run);
-    const size_t po = (size_t)run * mp.mu * d, oo = (size_t)run * pop * d;  // the run's rows
-    for (int i = tid; i < TC_CPB * d; i += blockDim.x) {  // pair i: (i / d, i % d)
-      const int cl = i / d, cand = base + cl;
-      s_p[i] = cand < pop ? offspring_gene(seed, cand, i - cl * d, pv + po, ps + po, mp, d,
-                                           values + oo, steps + oo)
-                          : 0.f;
-    }
-  } else {  // the given rows (fitness_block's staging)
-    const int avail = min(pop - base, TC_CPB) * d;
-    const float* rows = pv + ((size_t)run * pop + base) * d;
-    for (int i = tid; i < TC_CPB * d; i += blockDim.x) s_p[i] = i < avail ? rows[i] : 0.f;
-  }
-  __syncthreads();
+  tp_stage_genes<GEN>(seed, run_seeds, pv, ps, pop, mp, d, s_p, values, steps);
 
   const int g = lane >> 2, tiles = sp.k >> 3, cand = base + lane;
   // one frame a pass, not unrolled: what a frame needs is formed in the pass
@@ -377,32 +391,47 @@ static inline int tp_warps(const SynthParams& sp) {
   return nb < TP_MAX_WARPS ? nb : TP_MAX_WARPS;
 }
 
-// The B2 (GenInt8Kernel) or B1 (FitInt8Kernel) kernel for sp's sine order
-// and fixed code (dispatch_synth's CODES_FIXED with the fixed banks): a
-// chain of 2 .. FIXED_KN (CHAINS) or a bank of 2 .. FIXED_PAIRS (!CHAINS),
-// each translation unit instantiating its own half; its shared memory set
-// and the largest carveout asked for. cudaErrorInvalidValue for any other
-// code.
+// The time-parallel kernels of one family, B2 (Gen*Kernel) or B1
+// (Fit*Kernel), int8 here and bf16 in fused_tp_bf16.cuh: the kernel at
+// (NC, KN), its operand's element and its block's shared memory.
+template <typename Kernel>
+struct TpFamily;
+
+template <>
+struct TpFamily<GenInt8Kernel> {
+  using elem = int8_t;
+  template <int NC, int KN>
+  static GenInt8Kernel at() { return fused_generation_int8_tp_kernel<NC, KN>; }
+  static size_t smem(const SynthParams& sp) { return tp_smem(sp); }
+};
+
+template <>
+struct TpFamily<FitInt8Kernel> {
+  using elem = int8_t;
+  template <int NC, int KN>
+  static FitInt8Kernel at() { return fused_synth_fitness_int8_tp_kernel<NC, KN>; }
+  static size_t smem(const SynthParams& sp) { return tp_smem(sp); }
+};
+
+// The kernel of Kernel's family (TpFamily) for sp's sine order and fixed
+// code (dispatch_synth's CODES_FIXED with the fixed banks): a chain of 2 ..
+// FIXED_KN (CHAINS) or a bank of 2 .. FIXED_PAIRS (!CHAINS), each
+// translation unit instantiating its own half; its shared memory set and
+// the largest carveout asked for. cudaErrorInvalidValue for any other code.
 template <bool CHAINS, typename Kernel>
 static int prepare_tp(const SynthParams& sp, Kernel* out) {
-  constexpr bool GEN = std::is_same<Kernel, GenInt8Kernel>::value;
-  static_assert(GEN || std::is_same<Kernel, FitInt8Kernel>::value, "B1 or B2");
   Kernel kernel = nullptr;
   int e = dispatch_ncoef(sp.ncoef, [&](auto nc) {
     return dispatch_synth<true, CODES_FIXED>(sp, [&](auto kc) {
       constexpr int KN = decltype(kc)::value, NC = decltype(nc)::value;
       if constexpr (KN != WIDE_CHAIN && KN != WIDE_BANK && KN != LONG_CODE &&
-                    is_bank(KN) != CHAINS) {
-        if constexpr (GEN)
-          kernel = fused_generation_int8_tp_kernel<NC, KN>;
-        else
-          kernel = fused_synth_fitness_int8_tp_kernel<NC, KN>;
-      }
+                    is_bank(KN) != CHAINS)
+        kernel = TpFamily<Kernel>::template at<NC, KN>();
       return 0;
     });
   });
   if (!e && !kernel) e = (int)cudaErrorInvalidValue;
-  if (!e) e = (int)prepare(kernel, tp_smem(sp));
+  if (!e) e = (int)prepare(kernel, TpFamily<Kernel>::smem(sp));
   if (!e)
     e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                   (int)cudaSharedmemCarveoutMaxShared);
@@ -413,3 +442,55 @@ static int prepare_tp(const SynthParams& sp, Kernel* out) {
 // The chains' kernels (B2, B1), prepared in fused_tp_chain.cu.
 int prepare_tp_chain(const SynthParams& sp, GenInt8Kernel* kernel);
 int prepare_tp_chain(const SynthParams& sp, FitInt8Kernel* kernel);
+
+// Whether a time-parallel layout whose block takes `smem` bytes takes the
+// shape: any frame count, not the long code, n a multiple of 256, 1 ..
+// 65535 runs and the block within MAX_BLOCK_SMEM (the code is checked where
+// the kernel is prepared).
+static inline bool tp_shape(const SynthParams& sp, int pop, int runs, size_t smem) {
+  return sp.frames >= 1 && !sp.long_code && sp.n % (2 * TIME_BLOCK) == 0 && pop >= 1 &&
+         runs >= 1 && runs <= 65535 && smem <= MAX_BLOCK_SMEM;
+}
+
+// B1 in the time-parallel layout of the family of Kernel (FitInt8Kernel,
+// FitBf16Kernel): the one-warp B1's arguments and output, for what tp_shape
+// takes on a fixed chain or bank (prepare_tp_chain for a chain; the
+// overload of Kernel's family); any other shape returns
+// cudaErrorInvalidValue. Returns cudaGetLastError().
+template <typename Kernel>
+static int launch_tp_fitness(const float* params, int pop, int runs, const SynthParams& sp,
+                             const void* dft, const float* target, float* fitness,
+                             cudaStream_t stream) {
+  using F = TpFamily<Kernel>;
+  const size_t smem = F::smem(sp);
+  if (!tp_shape(sp, pop, runs, smem)) return (int)cudaErrorInvalidValue;
+  Kernel kernel = nullptr;
+  const int e = sp.npair ? prepare_tp<false>(sp, &kernel) : prepare_tp_chain(sp, &kernel);
+  if (e) return e;
+  kernel<<<dim3((pop + TC_CPB - 1) / TC_CPB, runs), 32 * tp_warps(sp), smem, stream>>>(
+      params, pop, sp, (const typename F::elem*)dft, target, fitness);
+  return (int)cudaGetLastError();
+}
+
+// B2 in the time-parallel layout of the family of Kernel (GenInt8Kernel,
+// GenBf16Kernel): the one-warp B2's arguments and outputs, for what
+// launch_tp_fitness takes (and run seeds at more than one run); any other
+// shape returns cudaErrorInvalidValue. Returns cudaGetLastError().
+template <typename Kernel>
+static int launch_tp_generation(uint32_t seed, const uint32_t* run_seeds, const float* pv,
+                                const float* ps, int pop, int runs, const SynthParams& sp,
+                                const MutateParams& mp, const void* dft, const float* target,
+                                float* fitness, float* values, float* steps,
+                                cudaStream_t stream) {
+  using F = TpFamily<Kernel>;
+  const size_t smem = F::smem(sp);
+  if (!tp_shape(sp, pop, runs, smem) || (runs > 1 && !run_seeds))
+    return (int)cudaErrorInvalidValue;
+  Kernel kernel = nullptr;
+  const int e = sp.npair ? prepare_tp<false>(sp, &kernel) : prepare_tp_chain(sp, &kernel);
+  if (e) return e;
+  kernel<<<dim3((pop + TC_CPB - 1) / TC_CPB, runs), 32 * tp_warps(sp), smem, stream>>>(
+      seed, run_seeds, pv, ps, pop, sp, mp, (const typename F::elem*)dft, target, fitness,
+      values, steps);
+  return (int)cudaGetLastError();
+}

@@ -133,13 +133,15 @@ __device__ __forceinline__ int term_swizzle(int k) { return ((k >> 1) & 3) << 3;
 // to terms (term_swizzle) instead and fit is untouched. ue holds the edge
 // term's x[N/2] times the edge coefficient (+ for even bins, - for odd) and
 // ms the magnitude scale of rows mt * 16 + 8 h + g. `units` is the 16-byte
-// units of a row of a+/- (N/2 elements).
+// units of a row of a+/- (N/2 elements). In TERMS mode bin k's terms go to
+// row k & kmask of terms: all bins by default, a ring of two rounds of bins
+// in the bf16 time-parallel layout (fused_tp_bf16.cuh).
 template <int NT, bool INT8, bool TERMS = false>
 __device__ __forceinline__ void dft_pass(int k0, const uint4* s_ap, const uint4* s_am, int units,
                                          const tc_elem<INT8>* __restrict__ dft,
                                          const float* __restrict__ target, int k, int half,
                                          const float (&ue)[2][2][2], const float (&ms)[2][2],
-                                         float (&fit)[2], float* terms = nullptr) {
+                                         float (&fit)[2], float* terms = nullptr, int kmask = -1) {
   using acc_t = typename std::conditional<INT8, int, float>::type;
   const int lane = TERMS ? threadIdx.x & 31 : threadIdx.x, g = lane >> 2, c = lane & 3,
             sw = tc_swizzle(g);
@@ -218,7 +220,7 @@ __device__ __forceinline__ void dft_pass(int k0, const uint4* s_ap, const uint4*
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int bin = kb + (i & 1), row = mt * 16 + 8 * (i >> 1) + g;
-          terms[bin * TC_CPB + (row ^ term_swizzle(bin))] = e[i];
+          terms[(bin & kmask) * TC_CPB + (row ^ term_swizzle(bin))] = e[i];
         }
         continue;
       }

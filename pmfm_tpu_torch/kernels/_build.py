@@ -3,7 +3,9 @@
 The sources under ``csrc/`` (``fused_eval.cu``: B1, B2 int8; ``fused_bf16.cu``:
 B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_tp.cu`` and
 ``fused_tp_chain.cu``: B1 and B2 int8 in the time-parallel layout of
-``fused_tp.cuh``, on the fixed banks of 2-5 pairs and the fixed chains; ``fused_wide.cu``:
+``fused_tp.cuh``, on the fixed banks of 2-5 pairs and the fixed chains;
+``fused_tp_bf16.cu`` and ``fused_tp_bf16_chain.cu``: the same in bf16, on
+``fused_tp_bf16.cuh``; ``fused_wide.cu``:
 both modes at the wide synthesis codes, chains of 9-16 oscillators and banks of 6-8 pairs;
 ``fused_f32.cu``: B1, B2 true f32, and ``fused_f32_tp.cu`` their
 time-parallel synthesis; ``evolve.cu``: B5, which runs B2's
@@ -218,6 +220,10 @@ def library() -> ctypes.CDLL:
     lib.pmfm_fused_synth_fitness_bf16.restype = ci
     lib.pmfm_fused_generation_bf16.argtypes = lib.pmfm_fused_generation.argtypes
     lib.pmfm_fused_generation_bf16.restype = ci
+    lib.pmfm_fused_synth_fitness_bf16_tp.argtypes = lib.pmfm_fused_synth_fitness.argtypes
+    lib.pmfm_fused_synth_fitness_bf16_tp.restype = ci
+    lib.pmfm_fused_generation_bf16_tp.argtypes = lib.pmfm_fused_generation.argtypes
+    lib.pmfm_fused_generation_bf16_tp.restype = ci
     lib.pmfm_fused_synth_fitness_f32.argtypes = [vp, ci, ci, SynthParams, vp, vp, vp, vp, cll, vp]
     lib.pmfm_fused_synth_fitness_f32.restype = ci
     lib.pmfm_fused_generation_f32.argtypes = [

@@ -6,10 +6,11 @@ over ``_offspring_block``, ``_recombine_flat``/``_recombine_hier``,
 ``_uniform01`` and ``_scale_rows``, then B1's ``_evaluate_block``). The CUDA
 kernels are ``csrc/fused_eval.cu::fused_generation_int8_kernel``, in the
 bf16 mode ``csrc/fused_bf16.cu::fused_generation_bf16_kernel`` (both
-``csrc/tc_eval.cuh``'s one-warp kernel), for int8 on a fixed chain or a
-fixed bank of 2-5 pairs, where ``time_parallel`` picks it,
-``csrc/fused_tp.cuh::fused_generation_int8_tp_kernel`` (the time-parallel
-layout, bit-equal to the one-warp kernel)
+``csrc/tc_eval.cuh``'s one-warp kernel), for int8 and bf16 on a fixed
+chain or a fixed bank of 2-5 pairs, where ``time_parallel`` picks it,
+``csrc/fused_tp.cuh::fused_generation_int8_tp_kernel`` and
+``csrc/fused_tp_bf16.cuh::fused_generation_bf16_tp_kernel`` (the
+time-parallel layouts, bit-equal to the one-warp kernel)
 and, in the true-f32 mode, ``csrc/fused_f32.cu``'s (the synthesis kernel
 with the prologue, one thread a candidate or ``csrc/fused_f32_tp.cu``'s
 time-parallel one, then B1's f32 FFT or DFT, ``synth_fitness.f32_route``,
@@ -76,6 +77,7 @@ from .synth_fitness import (
     operand_mode,
     runs_of,
     shared_bytes_tp,
+    shared_bytes_tp_bf16,
     synth_params_struct,
     uses_long_code,
 )
@@ -85,66 +87,115 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 CLT_TERMS = 12
 
-# The fixed codes that B2 int8 can run in its time-parallel layout
-# (csrc/fused_tp.cuh): the chains fm2, fm3_series .. fm8_series (codes 2 ..
-# 8) and the banks of 2-5 pairs (BANK_KN + 2 .. + 5), at any frame count and
-# on the run axis; TIME_PARALLEL False keeps every shape on the one-warp
-# layout (the card checks hold the two against each other).
+# The fixed codes that B2 int8 and bf16 can run in their time-parallel
+# layouts (csrc/fused_tp.cuh, csrc/fused_tp_bf16.cuh): the chains fm2,
+# fm3_series .. fm8_series (codes 2 .. 8) and the banks of 2-5 pairs
+# (BANK_KN + 2 .. + 5), at any frame count and on the run axis.
 TP_CHAINS = frozenset(["fm2"] + [f"fm{k}_series" for k in range(3, 9)])
 TP_BANKS = frozenset(f"fm{k}_parallel" for k in range(2, 6))
-TIME_PARALLEL = True
 # tp_faster's constants, from both layouts' times on an NVIDIA H100 80GB
-# HBM3 (PERF.md §6; tools/torch_b2_layout_probe.py's sweep)
+# HBM3 (PERF.md §6; tools/torch_b2_layout_probe.py's sweep in int8,
+# tools/torch_bf16_probe.py's in bf16)
 SM_SHARED_BYTES = 233472  # shared memory an SM holds (1 KB of it reserved a block)
 ONE_WARP_REG_BLOCKS = 8  # one-warp blocks an SM its ~255 registers a thread allow
 TP_MAX_WARPS = 8  # csrc fused_tp.cuh: warps a time-parallel block
 TP_K = 4.0  # the levels' sines times the one-warp layout's warps an SM, at most
 TP_MAX_WAVES = 8  # one-warp waves past which the one-warp layout keeps the card busy
+TP_BF16_K = 2.47  # bf16: the levels' share x (one-warp warps an SM)^2 / (time-parallel / 16)^1.5
+TP_BF16_DFT_SINES = 32.0  # bf16: the DFT's work a sample at n 1024, in synthesis sines
+TP_BF16_BANK = 0.7  # bf16: a bank's level (a sine a pair) weighed against a chain's sines
+TP_BF16_MIN_WARPS = 2.0  # bf16: below this many one-warp warps an SM, time-parallel
+ELEMENT_BYTES = {"int8": 1, "bf16": 2}  # a one-warp block's a+/-: 32 n elements
 
 
-def tp_takes(n: int, k: int, d: int, topology: str, int8: bool, frames: int = 1) -> bool:
-    """Whether the time-parallel kernel takes the shape: int8, a fixed chain
-    or bank not on the long code, n a multiple of 256 (two time blocks, two
-    warps at least) and a block's ``shared_bytes_tp`` within
+def tp_takes(n: int, k: int, d: int, topology: str, mode: str, frames: int = 1) -> bool:
+    """Whether a time-parallel kernel takes the shape: int8 or bf16
+    (``operand_mode``), a fixed chain or bank not on the long code, n a
+    multiple of 256 (two time blocks, two warps at least) and a block's
+    shared memory (``shared_bytes_tp``, ``shared_bytes_tp_bf16``) within
     ``MAX_SHARED_BYTES``."""
-    return (int8 and (topology in TP_CHAINS or topology in TP_BANKS)
-            and n % (2 * TIME_BLOCK) == 0 and not uses_long_code(topology)
-            and shared_bytes_tp(n, k, d, frames) <= MAX_SHARED_BYTES)
+    if mode not in ELEMENT_BYTES:
+        return False
+    smem = (shared_bytes_tp(n, k, d, frames) if mode == "int8"
+            else shared_bytes_tp_bf16(n, d, topology, frames))
+    return ((topology in TP_CHAINS or topology in TP_BANKS) and n % (2 * TIME_BLOCK) == 0
+            and not uses_long_code(topology) and smem <= MAX_SHARED_BYTES)
 
 
-def tp_faster(n: int, topology: str, pop: int = CUDA_BLOCK, runs: int = 1) -> bool:
-    """The rule by which B2 takes the time-parallel layout where its kernel
+def tp_faster(n: int, topology: str, pop: int = CUDA_BLOCK, runs: int = 1,
+              mode: str = "int8") -> bool:
+    """The rule by which B1/B2 take a time-parallel layout where its kernel
     takes the shape, from both layouts' times on an H100 (PERF.md §6, the
-    sweep of tools/torch_b2_layout_probe.py). The one-warp layout loses by its few warps an SM: a grid of
+    sweeps of tools/torch_b2_layout_probe.py and tools/torch_bf16_probe.py).
+    The one-warp layout loses by its few warps an SM: a grid of
     ceil(pop / 32) x runs one-warp blocks gives each SM ``warps`` =
     blocks / SMS of them, at most as many as an SM holds at n (its shared
-    memory, 32 n bytes a block, and its registers). The time-parallel one
-    pays its levels: ``extra`` sines a sample for each of the synthesis'
-    (a chain of KN: (KN - 1) / 2; a bank: 1 / 2), and at n < 1024 it has
-    only n / 128 warps a block. So it wins where ``extra`` x ``warps`` <
-    TP_K x (its warps a block / 8), and while the one-warp grid is at most
-    TP_MAX_WAVES waves of the card (beyond, the one-warp tail is small and
-    its warps keep the SMs busy). The frame count does not enter: at F 8
-    the card ranked the layouts as at F 1 at every shape measured."""
+    memory, 32 n elements a block: int8 or bf16, and its registers). The
+    time-parallel one pays its levels: ``extra`` sines a sample for each of
+    the synthesis' (a chain of KN: (KN - 1) / 2; a bank: 1 / 2).
+
+    int8: it wins where ``extra`` x ``warps`` < TP_K x (its warps a block
+    / 8; at n < 1024 it has only n / 128), and while the one-warp grid is at
+    most TP_MAX_WAVES waves of the card (beyond, the one-warp tail is small
+    and its warps keep the SMs busy). The frame count does not enter: at F 8
+    the card ranked the int8 layouts as at F 1 at every shape measured.
+
+    bf16 (two one-warp blocks an SM at n 1024, one at 2048): ``warps`` is
+    averaged over the one-warp grid's waves (a last wave part full idles
+    SMs), and the levels' sines (a bank's weighed by TP_BF16_BANK) are
+    weighed against a sample's whole work, the synthesis' sines and the
+    DFT's (TP_BF16_DFT_SINES x n / 1024 sines' worth): their ``share``. It
+    wins where the one-warp grid holds fewer than TP_BF16_MIN_WARPS warps an
+    SM, or where ``share`` x ``warps`` ^ 2 < TP_BF16_K x (its own warps an SM
+    / 16) ^ 1.5, those warps being its block's (min(n / 128, 8)) times the
+    blocks its shared memory lets an SM hold (16 at n 512 and 1024, 12 at n
+    768, 8 at n 2048): at every swept shape at n 2048 and every shape of the
+    reference suite; the one-warp layout keeps synthesis-heavy shapes on
+    full grids (fm6-8_series at n 1024; at n 512 fm3_series, fm3_parallel
+    and longer; at n 768 fm3_series and longer chains). Its misses at the
+    sweep's 308 shapes: fm7_series at P 8192, n 512 and 768, where the
+    one-warp layout is faster though fm6 and fm8_series there are not."""
     blocks = -(-pop // CUDA_BLOCK) * runs
-    cap = min(ONE_WARP_REG_BLOCKS, SM_SHARED_BYTES // (CUDA_BLOCK * n + 1024))
+    cap = min(ONE_WARP_REG_BLOCKS,
+              SM_SHARED_BYTES // (CUDA_BLOCK * n * ELEMENT_BYTES[mode] + 1024))
     warps = min(blocks / SMS, cap)
     extra = 0.5 if parallel_pairs(topology) else (chain_length(topology) - 1) / 2
+    if mode == "bf16":
+        waves = blocks / (SMS * cap)
+        if waves > 1:
+            warps *= waves / math.ceil(waves)
+        pairs = parallel_pairs(topology)
+        sines = 2 * pairs if pairs else chain_length(topology)
+        share = (extra * sines * (TP_BF16_BANK if pairs else 1.0)
+                 / (sines + TP_BF16_DFT_SINES * n / 1024))
+        tp_blocks = SM_SHARED_BYTES // (shared_bytes_tp_bf16(n, topology_dims(topology), topology)
+                                        + 1024)
+        tp_sm = min(n // TIME_BLOCK, TP_MAX_WARPS) * tp_blocks / 16
+        return (warps < TP_BF16_MIN_WARPS
+                or share * warps ** 2 < TP_BF16_K * tp_sm ** 1.5)
     tp_warps = min(n // TIME_BLOCK, TP_MAX_WARPS)
     return extra * warps < TP_K * tp_warps / TP_MAX_WARPS and blocks <= TP_MAX_WAVES * SMS * cap
 
 
-def time_parallel(n: int, k: int, d: int, topology: str, int8: bool, frames: int = 1,
+def time_parallel(n: int, k: int, d: int, topology: str, mode: str, frames: int = 1,
                   pop: int = CUDA_BLOCK, runs: int = 1) -> bool:
-    """Whether B2 takes its time-parallel layout (32 candidates a block on
-    min(n / 128, 8) warps) for ``topology`` at ``frames`` frames of ``n``
-    samples, ``k`` bins, ``d`` genes, ``pop`` candidates (one block by
-    default) and ``runs`` runs: where the kernel takes the shape
-    (``tp_takes``) and the card's rule says it is the faster (``tp_faster``).
-    Else the one-warp layout (int8 and bf16; true f32 runs
-    ``f32_geometry``'s kernels instead)."""
-    return (TIME_PARALLEL and tp_takes(n, k, d, topology, int8, frames)
-            and tp_faster(n, topology, pop, runs))
+    """Whether B1/B2 take their time-parallel layout (32 candidates a block
+    on min(n / 128, 8) warps) in ``mode`` (``operand_mode``: int8 or bf16)
+    for ``topology`` at ``frames`` frames of ``n`` samples, ``k`` bins,
+    ``d`` genes, ``pop`` candidates (one block by default) and ``runs``
+    runs: where the kernel takes the shape (``tp_takes``) and the card's
+    rule says it is the faster (``tp_faster``). Else the one-warp layout
+    (int8 and bf16; true f32 runs ``f32_geometry``'s kernels instead)."""
+    return (tp_takes(n, k, d, topology, mode, frames)
+            and tp_faster(n, topology, pop, runs, mode))
+
+
+def layout_key(mode: str, tp: bool) -> str:
+    """The key a B1/B2 int8 or bf16 launch in the time-parallel layout
+    (``tp``) or the one-warp one is counted under in the wrappers'
+    ``launches_by_layout``: int8 ``"time_parallel"`` or ``"one_warp"``, bf16
+    ``"bf16_time_parallel"`` or ``"bf16_one_warp"``."""
+    return ("bf16_" if mode == "bf16" else "") + ("time_parallel" if tp else "one_warp")
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -406,8 +457,8 @@ def fused_generation(
     tensors this launches the B2 kernel once for all runs (counted in
     ``fused_generation.launches``, by mode in
     ``fused_generation.launches_by[launch_mode(...)]`` and, int8 and bf16,
-    by layout in ``fused_generation.launches_by_layout``,
-    ``"time_parallel"`` or ``"one_warp"``: ``time_parallel``; true f32, by
+    by layout in ``fused_generation.launches_by_layout`` (``layout_key`` of
+    ``time_parallel``'s pick); true f32, by
     route and synthesis layout in ``fused_generation.launches_by_f32``,
     ``synth_fitness.f32_launch``); on CPU tensors
     it runs the plain version whatever the layout, and alone accepts
@@ -455,13 +506,15 @@ def fused_generation(
             target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     mode = operand_mode(dft_packed.dtype, dft_scale)
-    tp = time_parallel(n, k, d, topology, mode == "int8", num_frames, pop, nruns)
+    tp = time_parallel(n, k, d, topology, mode, num_frames, pop, nruns)
     if mode == "f32":
         f32_keys = f32_launch(sp, topology, pop, nruns, dev)
         scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns), dev,
                                 "the f32 scratch")
         err = library().pmfm_fused_generation_f32(*args, scratch.data_ptr(), scratch.numel(),
                                                   stream)
+    elif mode == "bf16" and tp:
+        err = library().pmfm_fused_generation_bf16_tp(*args, stream)
     elif mode == "bf16":
         err = library().pmfm_fused_generation_bf16(*args, stream)
     elif tp:
@@ -473,7 +526,7 @@ def fused_generation(
     if mode == "f32":
         fused_generation.launches_by_f32.update(f32_keys)
     else:
-        fused_generation.launches_by_layout["time_parallel" if tp else "one_warp"] += 1
+        fused_generation.launches_by_layout[layout_key(mode, tp)] += 1
     fused_generation.launches_by[
         launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
     return fitness, values, steps

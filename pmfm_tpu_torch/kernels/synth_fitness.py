@@ -738,6 +738,37 @@ def shared_bytes_tp(n: int, k: int, d: int, frames: int = 1) -> int:
     return CUDA_BLOCK * n + max(CUDA_BLOCK * n, CUDA_BLOCK * k * 4, CUDA_BLOCK * d * 4) + carries
 
 
+def tp_bf16_ring(n: int) -> int:
+    """Rows of the ring of terms of a block of B1/B2 bf16's time-parallel
+    layout (csrc ``fused_tp_bf16.cuh::tp_bf16_ring``) at frames of ``n``
+    samples: two rounds of its warps' (min(n / 128, 8)) 16 bins each,
+    rounded up to a power of two, so that bin k's row is k & (rows - 1)
+    and two consecutive rounds never share a row (256 at n 768, six warps)."""
+    rows = 1
+    while rows < 2 * min(n // TIME_BLOCK, 8) * 16:
+        rows <<= 1
+    return rows
+
+
+def shared_bytes_tp_bf16(n: int, d: int, topology: str, frames: int = 1) -> int:
+    """Dynamic shared memory of a block of B1/B2 bf16's time-parallel layout
+    (csrc ``fused_tp_bf16.cuh::tp_bf16_smem``) at ``frames`` frames of ``n``
+    samples and ``d`` genes of ``topology``: a+/- (``CUDA_BLOCK`` x n bf16
+    each; at one frame they first hold the staged genes), then the larger
+    of the ring of a round's terms (``tp_bf16_ring`` rows of ``CUDA_BLOCK``
+    floats) and the synthesis' level totals (levels x n / 128 x
+    ``CUDA_BLOCK`` floats: a chain's length - 1, a bank's pairs), the edge
+    samples (``CUDA_BLOCK`` floats) and, at ``frames`` > 1, the staged
+    genes and the carries (``CUDA_BLOCK`` x (d + d / 2) floats). 98,432
+    bytes at n 1024 (two blocks an SM); 163,968 at n 2048."""
+    pairs = parallel_pairs(topology)
+    levels = pairs if pairs else chain_length(topology) - 1
+    terms = tp_bf16_ring(n) * CUDA_BLOCK
+    carries = CUDA_BLOCK * (d + d // 2) if frames > 1 else 0
+    return (2 * CUDA_BLOCK * n
+            + 4 * (max(terms, levels * (n // TIME_BLOCK) * CUDA_BLOCK) + CUDA_BLOCK + carries))
+
+
 def fits_shared_memory(n: int, dtype: torch.dtype, d: int = 0) -> bool:
     """Whether B1/B2/B5 take frames of ``n`` samples (and ``d`` genes) in the
     mode of an operand of ``dtype`` (int8, bf16 or f32): n <= ``MAX_FUSED_N``
@@ -827,21 +858,20 @@ def launch_mode(topology: str, dft_scale: float, frames: int = 1, runs=None,
 
 def b1_entry(mode: str, n: int, k: int, d: int, topology: str, frames: int = 1,
              pop: int = CUDA_BLOCK, runs: int = 1) -> tuple:
-    """The library entry B1 launches in ``mode`` (``operand_mode``) and its
-    layout: int8 in the time-parallel layout of ``csrc/fused_tp.cuh`` where
-    B2's rule takes it (``generation.time_parallel``, the same function, so
-    B1 and B2 take one layout at a shape), else one warp a block; bf16 one
-    warp; true f32 its own kernels (layout None: ``f32_launch`` counts
-    them)."""
-    from .generation import time_parallel  # generation imports this module
+    """The library entry B1 launches in ``mode`` (``operand_mode``) and the
+    key its launch is counted under in ``launches_by_layout``: int8 and
+    bf16 in the time-parallel layouts of ``csrc/fused_tp.cuh`` and
+    ``csrc/fused_tp_bf16.cuh`` where B2's rule takes it
+    (``generation.time_parallel``, the same function, so B1 and B2 take one
+    layout at a shape), else one warp a block; true f32 its own kernels
+    (layout None: ``f32_launch`` counts them)."""
+    from .generation import layout_key, time_parallel  # generation imports this module
 
     if mode == "f32":
         return "pmfm_fused_synth_fitness_f32", None
-    if mode == "bf16":
-        return "pmfm_fused_synth_fitness_bf16", "one_warp"
-    if time_parallel(n, k, d, topology, True, frames, pop, runs):
-        return "pmfm_fused_synth_fitness_tp", "time_parallel"
-    return "pmfm_fused_synth_fitness", "one_warp"
+    tp = time_parallel(n, k, d, topology, mode, frames, pop, runs)
+    entry = "pmfm_fused_synth_fitness" + ("_bf16" if mode == "bf16" else "") + ("_tp" if tp else "")
+    return entry, layout_key(mode, tp)
 
 
 def fused_synth_fitness_plain(
@@ -896,9 +926,11 @@ def fused_synth_fitness(
     or (B, K) at one frame. On CUDA tensors this launches the B1 kernel once
     for all runs (counted in ``fused_synth_fitness.launches``, by mode in
     ``fused_synth_fitness.launches_by[launch_mode(...)]``, int8 and bf16 by
-    layout in ``fused_synth_fitness.launches_by_layout``, ``"time_parallel"``
-    (int8 where B2's rule, ``generation.time_parallel``, takes it) or
-    ``"one_warp"``, and, true f32, by route and synthesis layout in
+    layout in ``fused_synth_fitness.launches_by_layout`` under
+    ``generation.layout_key``: int8 ``"time_parallel"`` (where B2's rule,
+    ``generation.time_parallel``, takes it) or ``"one_warp"``, bf16
+    ``"bf16_time_parallel"`` or ``"bf16_one_warp"``; true f32, by route and
+    synthesis layout in
     ``fused_synth_fitness.launches_by_f32``: ``"fft"`` or ``"dft"``, and
     ``"time_parallel"`` or ``"one_thread"``, ``f32_launch``); on CPU tensors
     it runs the plain version whatever the layout. ``pop_block`` sizes the

@@ -1104,9 +1104,7 @@ def test_b5_long_bit_equal_to_b2_launches(cuda, topology, dtype):
 def _tp_layout(monkeypatch, tp):
     """B2's wrapper in one layout: the time-parallel one wherever its kernel
     takes the shape (``tp_faster`` made to say yes), or the one-warp one."""
-    monkeypatch.setattr(gn, "TIME_PARALLEL", tp)
-    if tp:
-        monkeypatch.setattr(gn, "tp_faster", lambda *a, **k: True)
+    monkeypatch.setattr(gn, "tp_faster", lambda *a, **k: tp)
 
 
 TP_CHAIN_CASES = ["fm2", "fm3_series", "fm4_series", "fm8_series"]
@@ -1493,3 +1491,113 @@ def test_b2_time_parallel_fitness_is_b1_time_parallel_on_its_offspring(cuda, mon
                                  num_frames=frames)
     assert dict(sf.fused_synth_fitness.launches_by_layout) == {"time_parallel": 1}
     assert _bits_equal(fk, own)
+
+
+# ---- B1/B2 bf16's time-parallel layout (csrc/fused_tp_bf16.cuh) -----------------
+
+BF16_TP_TOPOLOGIES = ["fm2", "fm3_series", "fm4_series", "fm5_series", "fm6_series",
+                      "fm7_series", "fm8_series"] + BANKS
+BF16_TP_N = (512, 1024, 2048)  # the reference suite's fused frames
+
+
+def _bf16_inputs(cuda, topology, n, frames, runs, pop, seed):
+    from pmfm_tpu_torch.ops import spectral
+
+    d, mu = topology_dims(topology), 64
+    maxs = _tp_maxs(topology)
+    so = spectral.make_spectrum_ops(n, None, dft_dtype="bfloat16", device=cuda)  # any n: 768 too
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    lead = () if runs == 1 else (runs,)
+    params = t(rng.random((*lead, pop, d)) * np.asarray(maxs))
+    pv, ps = t(rng.random((*lead, mu, d))), t(rng.uniform(0.02, 0.3, (*lead, mu, d)))
+    tgt = t(rng.uniform(0, 50, (*lead, frames, so.num_bins) if frames > 1
+                        else (*lead, so.num_bins)))
+    return so, params, pv, ps, tgt, maxs
+
+
+@pytest.mark.parametrize("topology,n,frames,sine_order,runs", [
+    (t, BF16_TP_N[(i + j + f) % 3], frames, o, runs)
+    for i, t in enumerate(BF16_TP_TOPOLOGIES) for j, o in enumerate((5, 7, 9))
+    for f, frames in enumerate((1, 2, 8)) for runs in (1, 4)] + [
+    # n 768: six warps, 96 bins a round (the ring of terms is no two rounds' size)
+    (t, 768, frames, (5, 7, 9)[(i + f) % 3], 1 + 3 * ((i + f) % 2))
+    for i, t in enumerate(BF16_TP_TOPOLOGIES) for f, frames in enumerate((1, 2, 8))])
+def test_bf16_time_parallel_layout_bit_equal_to_one_warp(cuda, monkeypatch, topology, n, frames,
+                                                         sine_order, runs):
+    """B1 and B2 bf16 on a fixed chain or bank: the time-parallel layout's
+    fitness (B2: values and steps) bit-equal to the one-warp layout's, one
+    launch of each counted under its layout, run r of a batched launch
+    included (every fixed code x sine orders 5/7/9 x F 1/2/8 x runs 1/4,
+    the suite's n in turn; and every fixed code at n 768 x F 1/2/8); at one
+    run and sine order 9, B1 within the int8 limits of its plain version."""
+    d = topology_dims(topology)
+    pop = 1000 if runs == 1 else 129
+    so, params, pv, ps, tgt, maxs = _bf16_inputs(cuda, topology, n, frames, runs, pop,
+                                                 pop + sine_order + 10 * frames + n)
+    seed = 77 if runs == 1 else [77 + r for r in range(runs)]
+    kw1 = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology, n=n,
+               pop_block=pop, sine_order=sine_order, num_frames=frames)
+    kw2 = dict(kw1, pop=pop, param_mins=(0.0,) * d, param_maxs=maxs)
+    outs = {}
+    for tp in (False, True):
+        _tp_layout(monkeypatch, tp)
+        sf.fused_synth_fitness.launches_by_layout.clear()
+        gn.fused_generation.launches_by_layout.clear()
+        outs[tp] = (sf.fused_synth_fitness(params, tgt, **kw1),
+                    *gn.fused_generation(seed, pv, ps, tgt, **kw2))
+        key = gn.layout_key("bf16", tp)
+        assert dict(sf.fused_synth_fitness.launches_by_layout) == {key: 1}
+        assert dict(gn.fused_generation.launches_by_layout) == {key: 1}
+    assert bool(torch.isfinite(outs[False][0]).all())
+    assert all(_bits_equal(a, b) for a, b in zip(outs[False], outs[True]))
+    if runs == 1 and sine_order == 9:
+        fp = sf.fused_synth_fitness_plain(params, tgt, **kw1)
+        rel = (outs[True][0] - fp).abs() / fp.abs()
+        assert float(rel.max()) <= FIT_MAX_REL and float(rel.median()) <= FIT_MEDIAN_REL
+
+
+@pytest.mark.parametrize("topology,n,frames", [("fm3_series", 1024, 1), ("fm4_parallel", 1024, 1),
+                                               ("fm3_series", 2048, 8), ("fm8_series", 512, 2)])
+def test_bf16_b2_time_parallel_fitness_is_b1_time_parallel_on_its_offspring(
+        cuda, monkeypatch, topology, n, frames):
+    """B2 and B1 bf16 both in the time-parallel layout: B2's fitness
+    bit-equal to B1's on B2's own offspring."""
+    d, pop = topology_dims(topology), 4096
+    so, _, pv, ps, tgt, maxs = _bf16_inputs(cuda, topology, n, frames, 1, pop, d + n + frames)
+    kw1 = dict(dft_packed=so.dft_packed, dft_scale=so.dft_packed_scale, topology=topology, n=n,
+               pop_block=pop, sine_order=9, num_frames=frames)
+    _tp_layout(monkeypatch, True)
+    sf.fused_synth_fitness.launches_by_layout.clear()
+    fk, vk, _ = gn.fused_generation(31, pv, ps, tgt, pop=pop, param_mins=(0.0,) * d,
+                                    param_maxs=maxs, **kw1)
+    own = sf.fused_synth_fitness(gn.scale_rows(vk, (0.0,) * d, maxs), tgt, **kw1)
+    assert dict(sf.fused_synth_fitness.launches_by_layout) == {"bf16_time_parallel": 1}
+    assert _bits_equal(fk, own)
+
+
+@pytest.mark.parametrize("topology,frames,runs", [("fm3_series", 1, None), ("fm3_parallel", 1, None),
+                                                  ("fm3_series", 8, None), ("fm3_series", 1, 4)])
+def test_b5_bf16_bit_equal_to_time_parallel_b2_launches(cuda, monkeypatch, topology, frames, runs):
+    """B5 bf16 keeps the one-warp kernel; G generations in one call equal G
+    launches of B2 bf16 in the time-parallel layout + the stable selection
+    (n 1024, P 8192; F 8; a run axis of 4)."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    pop, d, nruns = 8192, topology_dims(topology), runs or 1
+    so, _, pv, ps, tgt, maxs = _bf16_inputs(cuda, topology, 1024, frames, nruns, pop, d + frames)
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=1024, pop_block=pop,
+              sine_order=9, num_frames=frames)
+    g = 5
+    seeds = ([kernel_seed(19, i) for i in range(g)] if runs is None
+             else [[kernel_seed(19 + r, i) for i in range(g)] for r in range(runs)])
+    lead = () if runs is None else (runs,)
+    best = torch.full(lead, float("inf"), device=cuda)
+    args = (pv, ps, pv[..., 0, :].clone(), best, tgt)
+    out = ev.fused_evolve(seeds, *args, **kw)
+    _tp_layout(monkeypatch, True)
+    gn.fused_generation.launches_by_layout.clear()
+    loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+    assert dict(gn.fused_generation.launches_by_layout) == {"bf16_time_parallel": g * nruns}
+    assert all(_bits_equal(a, b) for a, b in zip(out, loop))

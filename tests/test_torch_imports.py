@@ -74,12 +74,13 @@ def test_one_build_covers_every_kernel_source():
 
     names = [p.name for p in _build.sources()]
     assert names == ["evolve.cu", "fused_bf16.cu", "fused_eval.cu", "fused_f32.cu",
-                     "fused_f32_tp.cu", "fused_long.cu", "fused_tp.cu", "fused_tp_chain.cu", "fused_wide.cu",
+                     "fused_f32_tp.cu", "fused_long.cu", "fused_tp.cu", "fused_tp_bf16.cu",
+                     "fused_tp_bf16_chain.cu", "fused_tp_chain.cu", "fused_wide.cu",
                      "large_frame.cu",
                      "large_frame_long.cu", "large_frame_wide.cu", "scan_synth.cu"]
     assert (_build.CSRC / "synth_common.cuh").exists() and (_build.CSRC / "evaluate.cuh").exists()
     assert (_build.CSRC / "tc_eval.cuh").exists() and (_build.CSRC / "large_frame.cuh").exists()
-    assert (_build.CSRC / "fused_tp.cuh").exists()
+    assert (_build.CSRC / "fused_tp.cuh").exists() and (_build.CSRC / "fused_tp_bf16.cuh").exists()
     assert _build.library_path().parent == _build.BUILD_DIR
 
 

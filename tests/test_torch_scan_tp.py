@@ -179,7 +179,7 @@ B1_RULE_CASES = [
 def test_b1_layout_is_b2s_rule(n, topology, pop, runs, want):
     d = topology_dims(topology)
     for frames in (1, 8):
-        tp = tgen.time_parallel(n, n // 2, d, topology, True, frames, pop, runs)
+        tp = tgen.time_parallel(n, n // 2, d, topology, "int8", frames, pop, runs)
         assert tp is want
         entry, layout = tsf.b1_entry("int8", n, n // 2, d, topology, frames, pop, runs)
         assert (entry, layout) == (("pmfm_fused_synth_fitness_tp", "time_parallel") if tp
@@ -187,7 +187,8 @@ def test_b1_layout_is_b2s_rule(n, topology, pop, runs, want):
 
 
 @pytest.mark.parametrize("mode,entry,layout", [
-    ("bf16", "pmfm_fused_synth_fitness_bf16", "one_warp"),
+    # bf16 (one candidate) in its own time-parallel layout, by the same rule
+    ("bf16", "pmfm_fused_synth_fitness_bf16_tp", "bf16_time_parallel"),
     ("f32", "pmfm_fused_synth_fitness_f32", None),
 ])
 def test_b1_other_modes_keep_their_kernels(mode, entry, layout):
@@ -228,7 +229,7 @@ def test_b1_wrapper_plain_on_cpu_whatever_the_layout(monkeypatch):
     before = tsf.fused_synth_fitness.launches, dict(tsf.fused_synth_fitness.launches_by_layout)
     outs = []
     for switch in (True, False):
-        monkeypatch.setattr(tgen, "TIME_PARALLEL", switch)
+        monkeypatch.setattr(tgen, "tp_faster", lambda *a, switch=switch, **k: switch)
         assert (tsf.b1_entry("int8", n, so.num_bins, d, topology, 1, 1)[1]
                 == ("time_parallel" if switch else "one_warp"))
         outs.append(tsf.fused_synth_fitness(p, target, **kw))

@@ -506,8 +506,9 @@ def test_gen_shared_bytes_tp_chains_and_frames(n, k, topology, frames, want):
     # F > 1 and the fixed chains take it too (at the default one block of candidates)
     (1024, 512, "fm3_parallel", torch.int8, 2, True),
     (1024, 512, "fm3_series", torch.int8, 1, True),
-    # what stays on the one-warp layout: bf16, true f32, the wide banks, the long code
-    (1024, 512, "fm3_parallel", torch.bfloat16, 1, False),
+    # bf16 takes its own time-parallel layout (csrc/fused_tp_bf16.cuh)
+    (1024, 512, "fm3_parallel", torch.bfloat16, 1, True),
+    # what stays on the one-warp layout: true f32, the wide banks, the long code
     (1024, 512, "fm3_parallel", torch.float32, 1, False),
     (1024, 512, "fm6_parallel", torch.int8, 1, False),
     (1024, 512, "fm9_parallel", torch.int8, 1, False),
@@ -515,8 +516,8 @@ def test_gen_shared_bytes_tp_chains_and_frames(n, k, topology, frames, want):
 def test_gen_layout(n, k, topology, dtype, frames, want):
     d = topology_dims(topology)
     scale = 1e-5 if dtype == torch.int8 else 0.0
-    int8 = tsf.operand_mode(dtype, scale) == "int8"
-    assert tgen.time_parallel(n, k, d, topology, int8, frames) is want
+    mode = tsf.operand_mode(dtype, scale)
+    assert tgen.time_parallel(n, k, d, topology, mode, frames) is want
 
 
 @pytest.mark.parametrize("n,topology,pop,runs,want", [
@@ -552,23 +553,23 @@ def test_gen_layout_rule(n, topology, pop, runs, want):
     one where it was the faster or the two were within 1%."""
     d = topology_dims(topology)
     assert tgen.tp_faster(n, topology, pop, runs) is want
-    assert tgen.time_parallel(n, n // 2, d, topology, True, 8, pop, runs) is want
+    assert tgen.time_parallel(n, n // 2, d, topology, "int8", 8, pop, runs) is want
 
 
 def test_gen_layout_skips_the_long_code(monkeypatch):
     monkeypatch.setattr(tsf, "LONG_ABOVE_GENES", 16)
-    assert not tgen.time_parallel(1024, 512, 20, "fm5_parallel", True)
-    assert tgen.time_parallel(1024, 512, 16, "fm4_parallel", True)
+    assert not tgen.time_parallel(1024, 512, 20, "fm5_parallel", "int8")
+    assert tgen.time_parallel(1024, 512, 16, "fm4_parallel", "int8")
 
 
 @pytest.mark.parametrize("switch", [False, True])
-def test_gen_layout_follows_the_switch(monkeypatch, switch):
-    """The layout follows TIME_PARALLEL as it stands when the wrapper is
-    called (the card checks clear it to hold the layouts against each
+def test_gen_layout_follows_tp_faster(monkeypatch, switch):
+    """The layout follows ``tp_faster`` as it stands when the wrapper is
+    called (the card checks patch it to hold the layouts against each
     other), for every fixed bank."""
-    monkeypatch.setattr(tgen, "TIME_PARALLEL", switch)
+    monkeypatch.setattr(tgen, "tp_faster", lambda *a, **k: switch)
     for b in BANKS:
-        assert tgen.time_parallel(1024, 512, topology_dims(b), b, True) is switch
+        assert tgen.time_parallel(1024, 512, topology_dims(b), b, "int8") is switch
 
 
 def test_b2_wrapper_plain_on_cpu_whatever_the_layout(monkeypatch):
@@ -589,8 +590,8 @@ def test_b2_wrapper_plain_on_cpu_whatever_the_layout(monkeypatch):
     before = tgen.fused_generation.launches, dict(tgen.fused_generation.launches_by_layout)
     outs = []
     for switch in (True, False):
-        monkeypatch.setattr(tgen, "TIME_PARALLEL", switch)
-        assert tgen.time_parallel(n, so.num_bins, d, topology, True) is switch
+        monkeypatch.setattr(tgen, "tp_faster", lambda *a, switch=switch, **k: switch)
+        assert tgen.time_parallel(n, so.num_bins, d, topology, "int8") is switch
         outs.append(tgen.fused_generation(11, pv, ps, target, **kw))
     after = tgen.fused_generation.launches, dict(tgen.fused_generation.launches_by_layout)
     assert after == before
@@ -620,11 +621,10 @@ def test_b2_wrapper_plain_on_cpu_whatever_the_layout_at_2_frames(monkeypatch, to
               dft_scale=so.dft_packed_scale, topology=topology, n=n, sine_order=7,
               num_frames=frames)
     before = tgen.fused_generation.launches, dict(tgen.fused_generation.launches_by_layout)
-    monkeypatch.setattr(tgen, "tp_faster", lambda *a, **k: True)
     outs = []
     for switch in (True, False):
-        monkeypatch.setattr(tgen, "TIME_PARALLEL", switch)
-        assert tgen.time_parallel(n, so.num_bins, d, topology, True, frames, pop) is switch
+        monkeypatch.setattr(tgen, "tp_faster", lambda *a, switch=switch, **k: switch)
+        assert tgen.time_parallel(n, so.num_bins, d, topology, "int8", frames, pop) is switch
         outs.append(tgen.fused_generation(13, pv, ps, target, **kw))
     after = tgen.fused_generation.launches, dict(tgen.fused_generation.launches_by_layout)
     assert after == before

@@ -211,7 +211,7 @@ def sweep_times(dev, card_name: str):
                         with layout(tp):
                             times[tp].append(cuda_ms(call, SWEEP_LAUNCHES))
                     ow, tp_ms = statistics.median(times[False]), statistics.median(times[True])
-                    pick = gn.time_parallel(n, so.num_bins, d, topology, True, frames, pop, runs)
+                    pick = gn.time_parallel(n, so.num_bins, d, topology, "int8", frames, pop, runs)
                     print(f"sweep {topology} n={n} F={frames} B={runs} P={pop}: one-warp "
                           f"{ow:.4f} ms {[round(x, 4) for x in times[False]]}, time-parallel "
                           f"{tp_ms:.4f} ms {[round(x, 4) for x in times[True]]}, one-warp / "

@@ -205,7 +205,7 @@ def b1_times(dev, card_name: str):
                             call()
                             torch.cuda.synchronize()
                         host[new].append((time.perf_counter() - t0) / HOST_CALLS * 1e3)
-            pick = has_new("b1") and gn.time_parallel(n, k, d, topology, True, frames, pop, runs)
+            pick = has_new("b1") and gn.time_parallel(n, k, d, topology, "int8", frames, pop, runs)
             if pop in B2_BESIDE_POPS:
                 # B2 at the same shape in both layouts: does it rank them as B1 does?
                 kw2 = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=param_maxs(topology),
