@@ -164,6 +164,16 @@ through the entry points a user calls, and times each kernel:
   B1's on its own offspring with both time-parallel, and the two layouts
   timed in turns.
 
+* phase 48, B5 int8 and bf16 on B2's layouts: at PERF.md §6's B5 rows
+  (--mode stft's F 8, --mode parallel-chunks' 8 runs, the pursuit's polish
+  bank, bf16 and int8 at the bench config) every generation in the
+  one-warp layout and in the wrapper's pick (B2's at the same arguments)
+  alternated in one process, each with its split a generation; B5 counted
+  under the layout B2's wrapper takes there, bit-equal in both. Phases 43
+  and 47 require B5 to run where B2 runs (``fused_evolve.
+  launches_by_layout``), and the B5 rows of the JSON line carry the layout
+  their calls took.
+
 ``python3 chip_smoke.py --only 20,21`` runs the device, build and inputs
 phases and the named ones, and prints no result line (``large`` names the
 large-frame inputs that phases 7-11, 33, 34 and 41 need).
@@ -323,7 +333,8 @@ F32_FIT_MAX_REL, F32_FIT_MEDIAN_REL = 1e-5, 1e-6
 # for its evaluation, and its own selection kernel
 F32_KERNELS = ("f32_synth_kernel", "f32_synth_tp_kernel", "f32_fft_kernel", "f32_frames_kernel",
                "f32_fold_kernel", "f32_dft_kernel", "f32_sum_kernel")
-B2_KERNELS = F32_KERNELS + ("fused_generation_int8_kernel",)
+B2_KERNELS = F32_KERNELS + ("fused_generation_int8_kernel", "fused_generation_bf16_kernel",
+                            "fused_generation_int8_tp_kernel", "fused_generation_bf16_tp_kernel")
 # phase 4's draw statistics: where they are written (also printed whole, on
 # the line "gen_check report: {...}"; committed as
 # pmfm_tpu_torch/gen_check.json) and the CLT-12 gaussian's excess kurtosis
@@ -587,11 +598,11 @@ LONG_TRUTHS = {
     "fm17_series": WIDE_TRUTHS["fm16_series"] + (1900.0, 0.08),
     "fm16_parallel": sum(LONG_PAIRS, ()),
 }
-LONG_FRAMES, LONG_RUNS = 8, 4
+LONG_FRAMES, LONG_RUNS = 4, 4
 LONG_B5_GENERATIONS = 10
 LONG_STREAM_CHECK_BLOCKS = 16
 LONG_SCAN = ("fm33_series", "fm33_parallel")
-LONG_GENERATIONS = 100
+LONG_GENERATIONS = 50
 LONG_CLI_CONFIG = "examples/params_match.json"
 LONG_CLI_GENERATIONS, LONG_CLI_REFINE = 100, 20
 LONG_TIMED_LAUNCHES = 10
@@ -692,8 +703,9 @@ B1_TP_LAUNCHES = 25
 # block, a round of 96 bins: the ring of terms is rounded up to 256 rows);
 # then B2's values, steps and fitness at the bench config and a run axis, B2's
 # fitness bit-equal to B1's on its own offspring, and each layout against the
-# plain versions (the int8 gate); the layouts timed alternated at the first
-# BF16_TP_TIMED shapes
+# plain versions (the int8 gate); B5 bf16 at the bench config in its
+# wrapper's layout against B5 forced one-warp and its B2 launches; the
+# layouts timed alternated at the first BF16_TP_TIMED shapes
 BF16_TP_SHAPES = (
     ("fm3_series", 1024, None, 1 << 11), ("fm3_series", 1024, None, 1 << 13),
     ("fm3_series", 1024, None, 1 << 15), ("fm3_series", 1024, 4, 1 << 13),
@@ -704,6 +716,20 @@ BF16_TP_SHAPES = (
     ("fm3_series", 768, 4, 1 << 11), ("fm5_parallel", 768, None, 1 << 13))
 BF16_TP_TIMED = 7
 BF16_TP_LAUNCHES = 10
+BF16_TP_B5_GENERATIONS = 5  # B5 bf16 at the bench config against its B2 launches
+# phase 48: B5 int8 and bf16 at PERF.md §6's B5 rows, (label, mode, config:
+# AUDIO_CONFIG "audio", PARALLEL_CONFIG "parallel" or the bench's "bench",
+# frames, runs): every generation one-warp (``gen_layout(gn, False)``: B5
+# before it took B2's layouts) and the wrapper's pick, alternated in one
+# process (B5_TURN_ORDER), B5_TURN_CALLS calls of B5_TURN_GENERATIONS a turn
+B5_TURN_ROWS = (("B5, multi-frame", "int8", "audio", 8, None),
+                ("B5, run axis", "int8", "audio", 1, 8),
+                ("B5, bank", "int8", "parallel", 1, None),
+                ("B5 bf16", "bf16", "bench", 1, None),
+                ("B5 int8, bench config", "int8", "bench", 1, None))
+B5_TURN_GENERATIONS = 10
+B5_TURN_CALLS = 5
+B5_TURN_ORDER = (False, True, True, False)  # one-warp, the wrapper's pick, ...
 
 T0 = time.perf_counter()
 CARD = {"name": "?", "power_limit": "?"}
@@ -828,6 +854,29 @@ def scan_layout(ss, time_parallel: bool):
 
 def scan_layout_name(time_parallel: bool) -> str:
     return "time_parallel" if time_parallel else "one_thread"
+
+
+def bench_config():
+    """The bench ES (P 2^15, mu 256, fm3_series, n 1024, int8, sine order 7):
+    the reference bench's configuration."""
+    from pmfm_tpu_torch.es import ESConfig
+
+    return ESConfig(
+        num_parents=MU, num_offspring=POP - MU, num_dimensions=D, topology=TOPOLOGY,
+        audio_length_log2=LOG2N, synthesis_engine="scanless", spectrum_method="dft",
+        dft_dtype="int8", mutation_noise="clt12", sine_order=7, fused_kernel=True,
+        fused_generation=True, fused_evolve=False, pop_block=1024,
+    )
+
+
+def b5_layout_taken(ev, fn) -> str:
+    """The layout B5's call ``fn()`` ran its generations in, as its wrapper
+    counted it (``fused_evolve.launches_by_layout``: one key a call)."""
+    ev.fused_evolve.launches_by_layout.clear()
+    fn()
+    got = dict(ev.fused_evolve.launches_by_layout)
+    require(len(got) == 1 and sum(got.values()) == 1, f"B5 counted {got} for one call")
+    return next(iter(got))
 
 
 def b2_layout(gn, kw2, k: int, d: int, runs: int = 1) -> str:
@@ -1154,15 +1203,10 @@ class Smoke:
 
     # -- shared inputs --------------------------------------------------------
     def setup(self):
-        from pmfm_tpu_torch.es import ESConfig, make_spectrum_ops
+        from pmfm_tpu_torch.es import make_spectrum_ops
         from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
 
-        self.cfg = ESConfig(
-            num_parents=MU, num_offspring=POP - MU, num_dimensions=D, topology=TOPOLOGY,
-            audio_length_log2=LOG2N, synthesis_engine="scanless", spectrum_method="dft",
-            dft_dtype="int8", mutation_noise="clt12", sine_order=7, fused_kernel=True,
-            fused_generation=True, fused_evolve=False, pop_block=1024,
-        )
+        self.cfg = bench_config()
         self.so = make_spectrum_ops(self.cfg, device=self.dev)
         audio = synthesize_single(torch.tensor(TRUTH), self.cfg.n_samples, TOPOLOGY)
         self.target = target_spectrum(audio.to(self.dev), self.so)
@@ -2423,6 +2467,9 @@ class Smoke:
             turns = ""
             if name == "fused_evolve":
                 ms = cuda_ms(fn, 5)
+                layout = b5_layout_taken(ev, fn)
+                turns = f" (B2's {layout} layout)"
+                self.kernels.setdefault(name, {})["layout"] = layout
             else:
                 ms, times = self.f32_turns(fn, TIMED_LAUNCHES)
                 turns = (f" (turns {F32_ORDER}: old, the DFT route and one thread a candidate, "
@@ -3686,6 +3733,10 @@ class Smoke:
                                  f"{times['old']}, new {times['new']}")
                     else:
                         ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
+                    if name.startswith("fused_evolve"):
+                        layout = b5_layout_taken(ev, fn)
+                        turns = f"; B2's {layout} layout"
+                        self.kernels.setdefault(name, {})["layout"] = layout
                     plain_ms = cuda_ms(plain, PLAIN_RUNS_A6)
                     bound_ms, by = bound(nbytes, int8_ops, f32_ops)
                     per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
@@ -3863,15 +3914,21 @@ class Smoke:
         for label, c in (("bench config", bench), ("bench config, ragged P", ragged)):
             kw = self.kw_b2(c)
             seeds = [kernel_seed(SEED, 1800 + g) for g in range(EVOLVE_CHECK_GENERATIONS)]
+            ev.fused_evolve.launches_by_layout.clear()
             out = ev.fused_evolve(seeds, *args(c), **kw)
+            b5 = dict(ev.fused_evolve.launches_by_layout)
             torch.cuda.synchronize()
+            gn.fused_generation.launches_by_layout.clear()
             loop = ev.fused_evolve_plain(seeds, *args(c), generation=gn.fused_generation, **kw)
+            b2 = dict(gn.fused_generation.launches_by_layout)
             equal = all(bits_equal(a, b) for a, b in zip(out, loop))
             traj = out[5].cpu()
-            log(f"B5 bf16 vs {len(seeds)} B2 bf16 launches + stable selection ({label}: "
-                f"P={c['cfg'].population_size}): bit-equal {equal}; best-ever first "
+            log(f"B5 bf16 ({b5}) vs {len(seeds)} B2 bf16 launches ({b2}) + stable selection "
+                f"({label}: P={c['cfg'].population_size}): bit-equal {equal}; best-ever first "
                 f"{float(traj[0]):.6g} last {float(traj[-1]):.6g}")
             require(equal, "B5 bf16 is not bit-equal to the loop of B2 launches")
+            require(set(b5) == set(b2) and sum(b5.values()) == 1,
+                    f"B5 bf16 ran {b5}, its B2 launches {b2}")
             require(bool(torch.isfinite(traj).all() and (traj[1:] <= traj[:-1]).all()),
                     "B5 bf16 best-ever trajectory")
         kw = self.kw_b2(bench)
@@ -4001,7 +4058,8 @@ class Smoke:
     # -- 29 -----------------------------------------------------------------
     def bf16_timings(self):
         """B1/B2/B5 bf16 at the bench shape, B1/B2 in the one-warp layout
-        (phase 47 times the time-parallel one), beside their plain versions and
+        (phase 47 times the time-parallel one), B5 in the layout its wrapper
+        takes (B2's, the time-parallel one there), beside their plain versions and
         their bound (bytes at 3.35 TB/s; the DFT's operations at the dense
         bf16 peak and the synthesis's at the f32 peak), and the DFT half's
         yardstick: bf16 ``torch.mm`` with float32 output, U and V of
@@ -4043,11 +4101,17 @@ class Smoke:
                 "pmfm_tpu/kernels/evolve.py:366"),
         }
         for name, (fn, plain, nbytes, bops, fops, gens, src, replaces) in rows.items():
-            with gen_layout(gn, False):  # B1/B2's rule takes phase 47's layout here
-                ms = cuda_ms(fn, TIMED_LAUNCHES if gens == 1 else 5)
+            if gens > 1:  # B5 in the layout its wrapper takes, as a user's run takes it
+                ms = cuda_ms(fn, 5)
+                layout = b5_layout_taken(ev, fn)
+                self.kernels.setdefault(name, {})["layout"] = layout
+                per = f", {ms / gens:.4f} ms a generation (B2's {layout} layout)"
+            else:
+                with gen_layout(gn, False):  # B1/B2's rule takes phase 47's layout here
+                    ms = cuda_ms(fn, TIMED_LAUNCHES)
+                per = ""
             plain_ms = cuda_ms(plain, 1 if gens > 1 else PLAIN_RUNS)
             bound_ms, by = bound(nbytes, 0.0, fops, bops)
-            per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
             log(f"{name} (n={n}, K={k}, P={POP}, fm3_series, sine order 7): kernel {ms:.4f} ms"
                 f"{per}, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {by} "
                 f"({nbytes / 1e6:.2f} MB, {bops / 1e9:.1f} G bf16 ops, {fops / 1e9:.2f} G f32 "
@@ -4386,6 +4450,10 @@ class Smoke:
             plain_ms = cuda_ms(plain, 1)
             bound_ms, by = bound(nbytes, i8, f32)
             per = f", {ms / gens:.4f} ms a generation" if gens > 1 else ""
+            if gens > 1:
+                layout = b5_layout_taken(ev, fn)
+                self.kernels.setdefault(name, {})["layout"] = layout
+                per += f" (B2's {layout} layout)"
             log(f"{name} ({where}): kernel {ms:.4f} ms{per}, plain {plain_ms:.2f} ms, bound "
                 f"{bound_ms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, {i8 / 1e9:.1f} G int8 ops, "
                 f"{f32 / 1e9:.2f} G f32 ops); {ms / bound_ms:.1f}x the bound {card()}")
@@ -5168,14 +5236,18 @@ class Smoke:
         seeds = [kernel_seed(SEED + 4370, j) for j in range(g)]
         args = (c["pv"], c["ps"], c["pv"][0].clone(), torch.tensor(float("inf"), device=self.dev),
                 c["target"])
+        ev.fused_evolve.launches_by_layout.clear()
         out = ev.fused_evolve(seeds, *args, **kw2)
+        b5 = dict(ev.fused_evolve.launches_by_layout)
         gn.fused_generation.launches_by_layout.clear()
         loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw2)
+        require(b5 == {want: 1}, f"B5 at F {cfg.num_frames} ran {b5}, B2's wrapper takes {want}")
         require(dict(gn.fused_generation.launches_by_layout) == {want: g}
                 and all(bits_equal(a, b) for a, b in zip(out, loop)),
                 f"B5 at F {cfg.num_frames} differs from its {want} B2 launches")
-        log(f"B5 at F {cfg.num_frames} bit-equal to {g} B2 launches in the layout the wrapper "
-            f"takes ({want}) with the stable selection")
+        log(f"B5 at F {cfg.num_frames} ran its generations in B2's layout ({b5}) and is "
+            f"bit-equal to {g} B2 launches in the layout the wrapper takes ({want}) with the "
+            f"stable selection")
 
         # both layouts' device times at the cells' shapes, and the wrapper's pick
         for cell, frames, runs in TP_CELLS:
@@ -5298,11 +5370,14 @@ class Smoke:
         in the layout it was forced to; at the bench config B2's fitness,
         values and steps bit-equal across the layouts, B2's fitness bit-equal
         to B1's on its own offspring, and each layout within the int8 gate
-        of the plain versions (the truth first); a run axis of 4 for B2; the
+        of the plain versions (the truth first); a run axis of 4 for B2; B5
+        at the bench config in the layout its wrapper takes (B2's), counted
+        there, bit-equal to B5 forced one-warp and to its B2 launches; the
         layouts timed alternated at the first BF16_TP_TIMED shapes beside the
         wrapper's pick; the new kernels' JSON rows at the bench config; the
         ptxas of their instantiations."""
         from pmfm_tpu_torch.es import kernel_seed
+        from pmfm_tpu_torch.kernels import evolve as ev
         from pmfm_tpu_torch.kernels import generation as gn
         from pmfm_tpu_torch.kernels import synth_fitness as sf
         from pmfm_tpu_torch.ops.spectral import make_spectrum_ops
@@ -5378,6 +5453,30 @@ class Smoke:
         require(all(bits_equal(a, b) for a, b in zip(outs[False], outs[True]))
                 and all(bits_equal(a, b) for a, b in zip(runs_out[False], runs_out[True])),
                 "B2 bf16's layouts differ (bench config, run axis of 4)")
+        # B5 bf16 at the bench config in its wrapper's layout (B2's there),
+        # against B5 forced one-warp and against its B2 launches
+        g = BF16_TP_B5_GENERATIONS
+        b5_seeds = [kernel_seed(SEED, 4720 + i) for i in range(g)]
+        b5_args = (c["pv"], c["ps"], c["pv"][0].clone(),
+                   torch.tensor(float("inf"), device=self.dev), c["target"])
+        want = gn.layout_key("bf16", gn.takes_time_parallel(c["pv"], **kw2))
+        require(want == "bf16_time_parallel", f"the bench config's bf16 B5 takes {want}")
+        outs5, taken = {}, {}
+        for tp in (None, False):  # the wrapper's rule, then the one-warp layout forced
+            with contextlib.nullcontext() if tp is None else gen_layout(gn, tp):
+                ev.fused_evolve.launches_by_layout.clear()
+                outs5[tp] = ev.fused_evolve(b5_seeds, *b5_args, **kw2)
+                taken[tp] = dict(ev.fused_evolve.launches_by_layout)
+        by2.clear()
+        loop = ev.fused_evolve_plain(b5_seeds, *b5_args, generation=gn.fused_generation, **kw2)
+        torch.cuda.synchronize()
+        require(taken == {None: {want: 1}, False: {"bf16_one_warp": 1}}
+                and dict(by2) == {want: g}, f"B5 bf16 ran {taken}, its B2 launches {dict(by2)}")
+        require(all(bits_equal(a, b) for a, b in zip(outs5[None], outs5[False]))
+                and all(bits_equal(a, b) for a, b in zip(outs5[None], loop)),
+                "B5 bf16 (bench config) differs across its layouts or from its B2 launches")
+        log(f"B5 bf16 at the bench config ({want}) bit-equal to B5 forced one-warp and to {g} "
+            f"B2 launches ({dict(by2)}) with the stable selection")
         plain1 = sf.fused_synth_fitness_plain(c["params"], c["target"], **kw1)
         plain2 = gn.fused_generation_plain(seed, c["pv"], c["ps"], c["target"], **kw2)
         torch.cuda.synchronize()
@@ -5513,7 +5612,11 @@ class Smoke:
         seeds = [kernel_seed(SEED + 4320, i) for i in range(g)]
         args = (c["pv"], c["ps"], c["pv"][0].clone(), torch.tensor(float("inf"), device=self.dev),
                 c["target"])
+        want = b2_layout(gn, kw2, c["so"].num_bins, cfg.num_dimensions)
+        ev.fused_evolve.launches_by_layout.clear()
         out = ev.fused_evolve(seeds, *args, **kw2)
+        b5 = dict(ev.fused_evolve.launches_by_layout)
+        require(b5 == {want: 1}, f"B5 on fm5_parallel ran {b5}, B2's wrapper takes {want}")
         gn.fused_generation.launches_by_layout.clear()
         with gen_layout(gn, True):
             loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw2)
@@ -5522,7 +5625,7 @@ class Smoke:
                 "B5 differs from its time-parallel B2 launches")
         log(f"B2 {where}: fitness max rel {e2:.3e} (B1 {e1:.3e}; limits {FIT_MAX_REL:g} / "
             f"{FIT_MEDIAN_REL:g}), median {self.last_median[1]:.3e}, values bit-equal, fitness "
-            f"bit-equal to B1 on its offspring, the truth first; B5 bit-equal to {g} "
+            f"bit-equal to B1 on its offspring, the truth first; B5 ({want}) bit-equal to {g} "
             f"time-parallel B2 launches with the stable selection")
 
         # device times of both layouts at each frame and population
@@ -5580,6 +5683,89 @@ class Smoke:
                     f"the pursuit's polishes took {layout}, the wrapper's layout {want}")
         finally:
             shutil.rmtree(work, ignore_errors=True)
+
+    # -- 48 -----------------------------------------------------------------
+    def b5_layouts(self, check_layout=True):
+        """B5 int8 and bf16 at B5_TURN_ROWS (PERF.md §6's B5 rows): every
+        generation in the one-warp layout (``gen_layout(gn, False)``, B5's
+        design before it took B2's layouts: "old") and in the wrapper's pick
+        ("new"), bit-equal, then alternated in one process (B5_TURN_ORDER),
+        each turn the median of B5_TURN_CALLS calls of B5_TURN_GENERATIONS
+        generations, and each layout's split a generation (``b5_split``)
+        beside B2 alone in the same layout. With ``check_layout`` the new
+        call must be counted under the layout B2's wrapper takes at the
+        same arguments (``generation.time_parallel`` at B5's population and
+        runs); a probe run on a tree whose B5 has no layout counter passes
+        False."""
+        from pmfm_tpu_torch.es import kernel_seed, make_spectrum_ops
+        from pmfm_tpu_torch.io import load_config
+        from pmfm_tpu_torch.kernels import evolve as ev
+        from pmfm_tpu_torch.kernels import generation as gn
+
+        configs = dict(audio=load_config(AUDIO_CONFIG).es,
+                       parallel=load_config(PARALLEL_CONFIG).es, bench=bench_config())
+        g = B5_TURN_GENERATIONS
+        for i, (label, mode, which, frames, runs) in enumerate(B5_TURN_ROWS):
+            cfg = configs[which].replace(num_frames=frames,
+                                         dft_dtype="bfloat16" if mode == "bf16" else "int8")
+            so = make_spectrum_ops(cfg, device=self.dev)
+            b = runs or 1
+            c = self.run_inputs(cfg, so, b, SEED + 4800 + i)
+            if frames == 1:
+                c["target"] = c["target"][:, 0].contiguous()
+            if runs is None:
+                c = {key: v[0] for key, v in c.items()}
+            kw = self.kw_b2(dict(cfg=cfg, so=so))
+            n, k, d, pop = cfg.n_samples, so.num_bins, cfg.num_dimensions, cfg.population_size
+            if runs is None:
+                seeds = [kernel_seed(SEED + 4800 + i, j) for j in range(g)]
+                seed = seeds[0]
+            else:
+                seeds = [[kernel_seed(SEED + 4800 + i + 10 * r, j) for j in range(g)]
+                         for r in range(runs)]
+                seed = [run[0] for run in seeds]
+            lead = c["pv"].shape[:-2]
+            args = (c["pv"], c["ps"], c["pv"][..., 0, :].clone(),
+                    torch.full(lead, float("inf"), device=self.dev), c["target"])
+            b5 = lambda: ev.fused_evolve(seeds, *args, **kw)  # noqa: E731
+            b2 = lambda: gn.fused_generation(seed, c["pv"], c["ps"], c["target"], **kw)  # noqa: E731
+            key = gn.layout_key(mode, gn.time_parallel(n, k, d, cfg.topology, mode, frames, pop, b))
+            where = (f"{mode}, {cfg.topology}, n={n}, F={frames}, B={b}, P={pop}, sine order "
+                     f"{cfg.sine_order}")
+
+            def layout(new):  # the wrapper's pick, or every generation one-warp
+                return contextlib.nullcontext() if new else gen_layout(gn, False)
+
+            outs = {}
+            for new in (False, True):
+                with layout(new):
+                    if check_layout:
+                        taken = b5_layout_taken(ev, b5)
+                        want = key if new else gn.layout_key(mode, False)
+                        require(taken == want, f"{label} ({where}): B5 ran {taken}, not {want}")
+                    outs[new] = b5()
+            torch.cuda.synchronize()
+            require(all(bits_equal(a, b) for a, b in zip(outs[False], outs[True])),
+                    f"{label} ({where}): B5's layouts differ")
+            turns = {False: [], True: []}
+            for new in B5_TURN_ORDER:
+                with layout(new):
+                    turns[new].append(cuda_ms(b5, B5_TURN_CALLS) / g)
+            b2_ms = {}
+            for new in (False, True):
+                with layout(new):
+                    b2_ms[new] = cuda_ms(b2, TIMED_LAUNCHES)
+            old_ms, new_ms = (statistics.median(turns[x]) for x in (False, True))
+            log(f"{label} ({where}): B5 ms a generation, old (one-warp) "
+                f"{[round(x, 4) for x in turns[False]]}, new ({key}) "
+                f"{[round(x, 4) for x in turns[True]]} (turns old, new, new, old; medians of "
+                f"{B5_TURN_CALLS} calls of {g} generations): {old_ms:.4f} -> {new_ms:.4f} "
+                f"({old_ms / new_ms:.2f}x); B2 alone one-warp {b2_ms[False]:.4f}, {key} "
+                f"{b2_ms[True]:.4f}; bit-equal {card()}")
+            for new in (False, True):
+                with layout(new):
+                    self.b5_split(f"{label}, {'new: ' + key if new else 'old: one-warp'}", b5, g,
+                                  statistics.median(turns[new]) * g, b2_ms[new])
 
     # -- 36 -----------------------------------------------------------------
     def a9(self):
@@ -6145,7 +6331,7 @@ print(json.dumps({{"code": code, "load_s": float(m.group(1)) if m else -1.0}}))
             row = dict(self.kernels.get(name, {}), name=name)
             missing = [k for k in keys if k not in row]
             require(not missing, f"{name}: no {missing}")
-            out.append({k: row[k] for k in keys + ("chain_floor_ms",) if k in row})
+            out.append({k: row[k] for k in keys + ("chain_floor_ms", "layout") if k in row})
         return {"kernels": out}
 
 
@@ -6222,6 +6408,7 @@ def main(argv=None) -> int:
     s.phase("43 B2 int8 banks: the time-parallel layout", s.tp_layout)
     s.phase("46 B1 int8: the time-parallel layout", s.b1_tp)
     s.phase("47 B1/B2 bf16: the time-parallel layout", s.bf16_tp)
+    s.phase("48 B5 int8/bf16 on B2's layouts, in turns", s.b5_layouts)
     s.phase("44 B2 true f32 at the users' shapes", s.f32_shapes)
     s.phase("45 B1/B2/B5 true f32: the synthesis layouts bit-equal", s.f32_layouts)
     s.phase("36 A9: resume, population readback, AOT", s.a9)

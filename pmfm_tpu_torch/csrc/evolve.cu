@@ -11,21 +11,30 @@
 // fused_evolve_plain).
 //
 // Design. pmfm_fused_evolve is a loop on the host that enqueues, generation
-// after generation on one stream, B2's own kernels (generation.cuh: the int8
-// kernel of fused_eval.cu, the bf16 kernel of fused_bf16.cu, or the three
-// f32 kernels of fused_f32.cu) and then
+// after generation on one stream, B2's own kernels (generation.cuh: in int8
+// and bf16 the one-warp kernel of fused_eval.cu / fused_bf16.cu or the
+// time-parallel one of fused_tp.cu / fused_tp_bf16.cu, in the layout the
+// caller names; the three f32 kernels of fused_f32.cu) and then
 // select_kernel, with no synchronisation and no Python between generations.
 // So B5 is bit-equal to G B2 launches by construction and follows any change
-// of B2. A kernel boundary is the cheapest grid-wide barrier on an H100 (a
+// of B2. The wrapper (kernels/evolve.py) names the layout B2's wrapper
+// would take at the same arguments (generation.time_parallel with B5's
+// population and runs); the two layouts are bit-equal, so B5's parents,
+// best-ever and trajectory do not depend on it. A time-parallel layout asked
+// of a shape its kernel does not take returns cudaErrorInvalidValue: nothing
+// falls back to the one-warp kernel. This file instantiates no B2 kernel:
+// the time-parallel pairs live beside their kernels, so nvcc builds each
+// once. A kernel boundary is the cheapest grid-wide barrier on an H100 (a
 // few microseconds), and parents, offspring and fitness stay in the 50 MB L2
 // from one launch to the next. The host work that does not change from one
 // generation to the next (the instantiations, the shared-memory attributes,
-// the f32 scratch's checks) is done once before the loop; the loop costs a
-// few microseconds of host time a launch against ~0.27 ms of device time a
-// generation at the bench shapes, so the host stays ahead of the card. A
-// persistent cooperative grid would instead tie every generation to one
-// block shape and to what is resident, which B2's kernels (one-warp int8
-// blocks, two 4-warp f32 DFT blocks an SM) do not share.
+// the time-parallel block's geometry, the f32 scratch's checks) is done once
+// before the loop; the loop costs a few microseconds of host time a launch
+// against ~0.1-0.8 ms of device time a generation at the users' shapes, so
+// the host stays ahead of the card. A persistent cooperative grid would
+// instead tie every generation to one block shape and to what is resident,
+// which B2's kernels (one-warp blocks, eight-warp time-parallel blocks, two
+// 4-warp f32 DFT blocks an SM) do not share.
 //
 // Frames and runs: B2's kernels take the multi-frame mode (sp.frames) and
 // the run axis as they are; a batched call launches B2 once a generation for
@@ -34,9 +43,11 @@
 // B5 call is bit-equal, run for run, to lone B5 calls.
 //
 // What bounds it: B2's evaluation, G times (at the bench shapes 34 G int8
-// operations a generation, 25 us). The selection reads P fitness values
-// (128 KB at P 2^15) and writes mu parents; it runs on one SM, so its time is
-// the latency of its passes, not bandwidth.
+// operations a generation, 25 us), in the layout taken. The selection reads
+// P fitness values (128 KB at P 2^15) and writes mu parents; it runs on one
+// SM a run, so its time is the latency of its passes, not bandwidth: ~10-20
+// us a generation, a share that grows as the time-parallel layout shortens
+// B2's part.
 //
 // The selection is one block of SEL_THREADS threads. Warp w owns a contiguous
 // segment of the candidates and its lanes take consecutive ones, so every
@@ -312,7 +323,10 @@ extern "C" {
 // (pop,), val_s and step_s (pop, d) hold each generation's offspring. mode
 // is B2's: 0 int8, 1 true f32, 2 bf16 (the operand dft's dtype); in f32
 // mode scratch holds fused_f32.cu's f32_scratch_floats(pop, n, frames, runs,
-// fft) floats on the route sp.fft names. With a run axis every array has a
+// fft) floats on the route sp.fft names. layout is B2's in int8 and bf16: 0
+// the one-warp kernel, 1 the time-parallel one (for what fused_tp.cuh::
+// tp_shape takes on a fixed chain or bank; else cudaErrorInvalidValue); 0
+// in f32, whose layouts sp names. With a run axis every array has a
 // leading one (traj is (runs, gens)) and run_seeds (device memory, (gens,
 // runs)) replaces seeds, which may then be null, also at runs = 1 (one of
 // the two must be given): each generation is one B2 launch for all runs and
@@ -323,11 +337,12 @@ int pmfm_fused_evolve(const uint32_t* seeds, const uint32_t* run_seeds, int gens
                       int runs, SynthParams sp, MutateParams mp, const void* dft,
                       const float* target, float* pv, float* ps, float* pf, float* best_v,
                       float* best_f, float* traj, float* fit_s, float* val_s, float* step_s,
-                      float* scratch, long long scratch_floats, int mode,
+                      float* scratch, long long scratch_floats, int mode, int layout,
                       cudaStream_t stream) {
   const int mu = mp.mu;
   if (gens < 1 || mu < 1 || pop < mu || runs < 1 || runs > 65535 || (runs > 1 && !run_seeds) ||
-      (!seeds && !run_seeds) || mode < 0 || mode > 2)
+      (!seeds && !run_seeds) || mode < 0 || mode > 2 || layout < 0 || layout > 1 ||
+      (layout && mode == 1))
     return (int)cudaErrorInvalidValue;
   const bool in_shared = select_keys_in_shared(pop, mu);
   const size_t smem = select_smem_bytes(pop, mu, in_shared);
@@ -336,22 +351,39 @@ int pmfm_fused_evolve(const uint32_t* seeds, const uint32_t* run_seeds, int gens
   int e = (int)prepare(sel, smem);
   GenInt8Kernel gen8 = nullptr;
   GenBf16Kernel gen16 = nullptr;
+  TpGeneration<GenInt8Kernel> tp8{};
+  TpGeneration<GenBf16Kernel> tp16{};
   F32Plan plan{};
-  if (!e)
-    e = mode == 1   ? prepare_generation_f32(sp, pop, runs, scratch, scratch_floats, &plan)
-        : mode == 2 ? prepare_generation_bf16(sp, &gen16)
-                    : prepare_generation_int8(sp, &gen8);
+  if (!e) {
+    if (mode == 1)
+      e = prepare_generation_f32(sp, pop, runs, scratch, scratch_floats, &plan);
+    else if (mode == 2)
+      e = layout ? prepare_generation_bf16_tp(sp, pop, runs, &tp16)
+                 : prepare_generation_bf16(sp, &gen16);
+    else
+      e = layout ? prepare_generation_int8_tp(sp, pop, runs, &tp8)
+                 : prepare_generation_int8(sp, &gen8);
+  }
   for (int g = 0; g < gens && !e; ++g) {
     const uint32_t* rs = run_seeds ? run_seeds + (size_t)g * runs : nullptr;
     const uint32_t seed = rs ? 0u : seeds[g];
-    e = mode == 1   ? launch_f32(plan, nullptr, seed, rs, pv, ps, mp, val_s, step_s, sp,
-                                 (const float*)dft, target, fit_s, stream)
-        : mode == 2 ? launch_generation_bf16(gen16, seed, rs, pv, ps, pop, runs, sp, mp,
+    if (mode == 1)
+      e = launch_f32(plan, nullptr, seed, rs, pv, ps, mp, val_s, step_s, sp, (const float*)dft,
+                     target, fit_s, stream);
+    else if (mode == 2)
+      e = layout ? launch_generation_bf16_tp(tp16, seed, rs, pv, ps, pop, runs, sp, mp,
                                              (const __nv_bfloat16*)dft, target, fit_s, val_s,
                                              step_s, stream)
-                    : launch_generation_int8(gen8, seed, rs, pv, ps, pop, runs, sp, mp,
+                 : launch_generation_bf16(gen16, seed, rs, pv, ps, pop, runs, sp, mp,
+                                          (const __nv_bfloat16*)dft, target, fit_s, val_s,
+                                          step_s, stream);
+    else
+      e = layout ? launch_generation_int8_tp(tp8, seed, rs, pv, ps, pop, runs, sp, mp,
                                              (const int8_t*)dft, target, fit_s, val_s, step_s,
-                                             stream);
+                                             stream)
+                 : launch_generation_int8(gen8, seed, rs, pv, ps, pop, runs, sp, mp,
+                                          (const int8_t*)dft, target, fit_s, val_s, step_s,
+                                          stream);
     if (e) break;
     sel<<<runs, SEL_THREADS, smem, stream>>>(pop, mu, sp.d, fit_s, val_s, step_s, pv, ps, pf,
                                              best_v, best_f, traj + g, gens);

@@ -1,13 +1,30 @@
 // B1 and B2 int8's time-parallel layout (fused_tp.cuh: the design, the
-// kernels and their shared memory): the fixed banks' instantiations and the
+// kernels and their shared memory): the fixed banks' instantiations, the
 // launchers, which take the chains' from fused_tp_chain.cu (built beside
-// this file).
+// this file), and B2's prepare/launch pair that B5 runs (generation.cuh).
 //
 // Replaces, with fused_eval.cu's kernels, the TPU kernels
 //   B1 <- pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness
 //   B2 <- pmfm_tpu/kernels/generation.py::fused_generation
 
 #include "fused_tp.cuh"
+
+// B2 int8 in the time-parallel layout as a prepare/launch pair for a run of
+// launches (generation.cuh): B5 (evolve.cu) prepares once and launches every
+// generation, instantiating no kernel of its own.
+int prepare_generation_int8_tp(const SynthParams& sp, int pop, int runs,
+                               TpGeneration<GenInt8Kernel>* gen) {
+  return prepare_tp_generation(sp, pop, runs, gen);
+}
+
+int launch_generation_int8_tp(const TpGeneration<GenInt8Kernel>& gen, uint32_t seed,
+                              const uint32_t* run_seeds, const float* pv, const float* ps, int pop,
+                              int runs, const SynthParams& sp, const MutateParams& mp,
+                              const int8_t* dft, const float* target, float* fitness,
+                              float* values, float* steps, cudaStream_t stream) {
+  return enqueue_tp_generation(gen, seed, run_seeds, pv, ps, pop, runs, sp, mp, dft, target,
+                               fitness, values, steps, stream);
+}
 
 extern "C" {
 

@@ -87,8 +87,10 @@
 // would need more than MAX_BLOCK_SMEM.
 //
 // The run axis (grid y, run_seeds) as in tc_eval.cuh::generation_block. B5
-// (evolve.cu) keeps the one-warp kernel: the layouts are bit-equal, so B5
-// stays bit-equal to B2 launches in either.
+// (evolve.cu) launches this kernel every generation where B2's wrapper
+// would take it (generation.time_parallel at B5's population and runs),
+// through fused_tp.cu's prepare/launch pair (generation.cuh); the layouts
+// are bit-equal, so B5 stays bit-equal to B2 launches in either.
 #pragma once
 
 #include "tc_eval.cuh"
@@ -473,24 +475,46 @@ static int launch_tp_fitness(const float* params, int pop, int runs, const Synth
 }
 
 // B2 in the time-parallel layout of the family of Kernel (GenInt8Kernel,
-// GenBf16Kernel): the one-warp B2's arguments and outputs, for what
-// launch_tp_fitness takes (and run seeds at more than one run); any other
-// shape returns cudaErrorInvalidValue. Returns cudaGetLastError().
+// GenBf16Kernel), prepared for a run of launches (generation.cuh::
+// TpGeneration): for what launch_tp_fitness takes; any other shape returns
+// cudaErrorInvalidValue.
+template <typename Kernel>
+static int prepare_tp_generation(const SynthParams& sp, int pop, int runs,
+                                 TpGeneration<Kernel>* gen) {
+  gen->kernel = nullptr;
+  gen->threads = 32 * tp_warps(sp);
+  gen->smem = TpFamily<Kernel>::smem(sp);
+  if (!tp_shape(sp, pop, runs, gen->smem)) return (int)cudaErrorInvalidValue;
+  return sp.npair ? prepare_tp<false>(sp, &gen->kernel) : prepare_tp_chain(sp, &gen->kernel);
+}
+
+// One launch of a prepared B2: the one-warp B2's arguments and outputs (run
+// seeds at more than one run, else cudaErrorInvalidValue), pop and runs
+// those it was prepared for. Returns cudaGetLastError().
+template <typename Kernel>
+static int enqueue_tp_generation(const TpGeneration<Kernel>& gen, uint32_t seed,
+                                 const uint32_t* run_seeds, const float* pv, const float* ps,
+                                 int pop, int runs, const SynthParams& sp, const MutateParams& mp,
+                                 const void* dft, const float* target, float* fitness,
+                                 float* values, float* steps, cudaStream_t stream) {
+  if (runs > 1 && !run_seeds) return (int)cudaErrorInvalidValue;
+  gen.kernel<<<dim3((pop + TC_CPB - 1) / TC_CPB, runs), gen.threads, gen.smem, stream>>>(
+      seed, run_seeds, pv, ps, pop, sp, mp, (const typename TpFamily<Kernel>::elem*)dft, target,
+      fitness, values, steps);
+  return (int)cudaGetLastError();
+}
+
+// B2 in the time-parallel layout: one prepare and one launch (the extern "C"
+// entries of fused_tp.cu and fused_tp_bf16.cu).
 template <typename Kernel>
 static int launch_tp_generation(uint32_t seed, const uint32_t* run_seeds, const float* pv,
                                 const float* ps, int pop, int runs, const SynthParams& sp,
                                 const MutateParams& mp, const void* dft, const float* target,
                                 float* fitness, float* values, float* steps,
                                 cudaStream_t stream) {
-  using F = TpFamily<Kernel>;
-  const size_t smem = F::smem(sp);
-  if (!tp_shape(sp, pop, runs, smem) || (runs > 1 && !run_seeds))
-    return (int)cudaErrorInvalidValue;
-  Kernel kernel = nullptr;
-  const int e = sp.npair ? prepare_tp<false>(sp, &kernel) : prepare_tp_chain(sp, &kernel);
-  if (e) return e;
-  kernel<<<dim3((pop + TC_CPB - 1) / TC_CPB, runs), 32 * tp_warps(sp), smem, stream>>>(
-      seed, run_seeds, pv, ps, pop, sp, mp, (const typename F::elem*)dft, target, fitness,
-      values, steps);
-  return (int)cudaGetLastError();
+  TpGeneration<Kernel> gen;
+  const int e = prepare_tp_generation(sp, pop, runs, &gen);
+  return e ? e
+           : enqueue_tp_generation(gen, seed, run_seeds, pv, ps, pop, runs, sp, mp, dft, target,
+                                   fitness, values, steps, stream);
 }

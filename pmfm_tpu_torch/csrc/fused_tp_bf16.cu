@@ -1,13 +1,31 @@
 // B1 and B2 bf16's time-parallel layout (fused_tp_bf16.cuh: the design, the
 // kernels and their shared memory): the fixed banks' instantiations and the
 // entries, which take the chains' from fused_tp_bf16_chain.cu (built beside
-// this file) and launch through fused_tp.cuh's launchers.
+// this file) and launch through fused_tp.cuh's launchers, and B2's
+// prepare/launch pair that B5 runs (generation.cuh).
 //
 // Replaces, with fused_bf16.cu's kernels, the bf16 mode of the TPU kernels
 //   B1 <- pmfm_tpu/kernels/synth_fitness.py::fused_synth_fitness
 //   B2 <- pmfm_tpu/kernels/generation.py::fused_generation
 
 #include "fused_tp_bf16.cuh"
+
+// B2 bf16 in the time-parallel layout as a prepare/launch pair for a run of
+// launches (generation.cuh): B5 (evolve.cu) prepares once and launches every
+// generation, instantiating no kernel of its own.
+int prepare_generation_bf16_tp(const SynthParams& sp, int pop, int runs,
+                               TpGeneration<GenBf16Kernel>* gen) {
+  return prepare_tp_generation(sp, pop, runs, gen);
+}
+
+int launch_generation_bf16_tp(const TpGeneration<GenBf16Kernel>& gen, uint32_t seed,
+                              const uint32_t* run_seeds, const float* pv, const float* ps, int pop,
+                              int runs, const SynthParams& sp, const MutateParams& mp,
+                              const __nv_bfloat16* dft, const float* target, float* fitness,
+                              float* values, float* steps, cudaStream_t stream) {
+  return enqueue_tp_generation(gen, seed, run_seeds, pv, ps, pop, runs, sp, mp, dft, target,
+                               fitness, values, steps, stream);
+}
 
 extern "C" {
 

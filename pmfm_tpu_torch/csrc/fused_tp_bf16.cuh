@@ -10,7 +10,7 @@
 // differ only in the prologue that stages the block's genes (GEN), which
 // they share with fused_tp.cuh's int8 block (tp_stage_genes), as they share
 // its kernel preparation and launchers (TpFamily, prepare_tp,
-// launch_tp_fitness, launch_tp_generation). fused_tp_bf16.cu instantiates
+// launch_tp_fitness, prepare_tp_generation, enqueue_tp_generation). fused_tp_bf16.cu instantiates
 // the banks and holds the entries; fused_tp_bf16_chain.cu instantiates the
 // chains, so that nvcc builds the two halves side by side.
 //
@@ -60,8 +60,10 @@
 // At n 1024: 98,432 bytes, two blocks an SM; at n 2048, 163,968, one.
 //
 // The run axis (grid y, run_seeds) as in tc_eval.cuh::generation_block. B5
-// (evolve.cu) keeps the one-warp kernel: the layouts are bit-equal, so B5
-// stays bit-equal to B2 launches in either.
+// (evolve.cu) launches this kernel every generation where B2's wrapper
+// would take it, through fused_tp_bf16.cu's prepare/launch pair
+// (generation.cuh); the layouts are bit-equal, so B5 stays bit-equal to B2
+// launches in either.
 #pragma once
 
 #include "fused_tp.cuh"

@@ -1,16 +1,19 @@
 // B2's launches as host calls that another source can make: B5 (evolve.cu)
 // runs every generation's offspring and fitness through them, so a B5
 // generation is one B2 launch by construction. fused_eval.cu defines the
-// int8 pair, fused_bf16.cu the bf16 one and fused_f32.cu the f32 one; their
-// extern "C" B2 entry points are each one prepare and one launch of the
-// same pair.
+// int8 pair, fused_bf16.cu the bf16 one and fused_f32.cu the f32 one (the
+// one-warp layouts of int8 and bf16); fused_tp.cu and fused_tp_bf16.cu
+// define the time-parallel pairs of int8 and bf16. Their extern "C" B2
+// entry points are each one prepare and one launch of the same pair, so B5
+// takes either layout of int8 and bf16 as B2's wrapper would.
 //
 // A prepare call does the host work of a launch that does not change from
 // one generation to the next (the instantiation for the sine order and the
-// chain length or the bank's pairs, the shared-memory attributes, the f32
-// scratch's checks and layout, the f32 route and synthesis layout); a run of
-// launches calls it once. Each returns a CUDA error code, 0 on success; a
-// launch returns cudaGetLastError() after its kernel(s).
+// chain length or the bank's pairs, the shared-memory attributes, the
+// time-parallel block's geometry, the f32 scratch's checks and layout, the
+// f32 route and synthesis layout); a run of launches calls it once. Each
+// returns a CUDA error code, 0 on success; a launch returns
+// cudaGetLastError() after its kernel(s).
 #pragma once
 
 #include "evaluate.cuh"
@@ -47,6 +50,38 @@ int launch_generation_bf16(GenBf16Kernel kernel, uint32_t seed, const uint32_t* 
                            const SynthParams& sp, const MutateParams& mp, const __nv_bfloat16* dft,
                            const float* target, float* fitness, float* values, float* steps,
                            cudaStream_t stream);
+
+// ---- int8 and bf16 in the time-parallel layout (fused_tp.cu, fused_tp_bf16.cu) --
+
+// A time-parallel B2 kernel (fused_tp.cuh, fused_tp_bf16.cuh; the one-warp
+// kernels' signature) prepared for a run of launches: the kernel for the
+// fixed chain or bank, its block's threads (32 x tp_warps) and its dynamic
+// shared memory (TpFamily<Kernel>::smem).
+template <typename Kernel>
+struct TpGeneration {
+  Kernel kernel;
+  int threads;
+  size_t smem;
+};
+
+// The prepares return cudaErrorInvalidValue for a shape the layout does not
+// take (fused_tp.cuh::tp_shape, or a code other than the fixed chains and
+// banks); nothing falls back to the one-warp layout. A launch enqueues
+// ceil(pop / 32) x runs blocks, with the one-warp launches' arguments.
+int prepare_generation_int8_tp(const SynthParams& sp, int pop, int runs,
+                               TpGeneration<GenInt8Kernel>* gen);
+int launch_generation_int8_tp(const TpGeneration<GenInt8Kernel>& gen, uint32_t seed,
+                              const uint32_t* run_seeds, const float* pv, const float* ps, int pop,
+                              int runs, const SynthParams& sp, const MutateParams& mp,
+                              const int8_t* dft, const float* target, float* fitness,
+                              float* values, float* steps, cudaStream_t stream);
+int prepare_generation_bf16_tp(const SynthParams& sp, int pop, int runs,
+                               TpGeneration<GenBf16Kernel>* gen);
+int launch_generation_bf16_tp(const TpGeneration<GenBf16Kernel>& gen, uint32_t seed,
+                              const uint32_t* run_seeds, const float* pv, const float* ps, int pop,
+                              int runs, const SynthParams& sp, const MutateParams& mp,
+                              const __nv_bfloat16* dft, const float* target, float* fitness,
+                              float* values, float* steps, cudaStream_t stream);
 
 // ---- true f32 (fused_f32.cu) ------------------------------------------------------
 

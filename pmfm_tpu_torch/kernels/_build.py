@@ -9,7 +9,7 @@ B1, B2 bf16, both on ``tc_eval.cuh``; ``fused_tp.cu`` and
 both modes at the wide synthesis codes, chains of 9-16 oscillators and banks of 6-8 pairs;
 ``fused_f32.cu``: B1, B2 true f32, and ``fused_f32_tp.cu`` their
 time-parallel synthesis; ``evolve.cu``: B5, which runs B2's
-kernels through ``generation.cuh``; ``large_frame.cu``: B3, B4 on
+kernels, in int8 and bf16 in either layout, through ``generation.cuh``; ``large_frame.cu``: B3, B4 on
 ``large_frame.cuh``, and ``large_frame_wide.cu`` their wide codes, every
 bank among them; ``fused_long.cu`` and ``large_frame_long.cu``: B1/B2
 int8 and bf16, and B3/B4, at the long code, the topologies above 32 genes
@@ -232,7 +232,7 @@ def library() -> ctypes.CDLL:
     lib.pmfm_fused_generation_f32.restype = ci
     lib.pmfm_fused_evolve.argtypes = [
         ctypes.POINTER(u32), vp, ci, ci, ci, SynthParams, MutateParams, vp, vp, vp, vp, vp, vp,
-        vp, vp, vp, vp, vp, vp, cll, ci, vp,
+        vp, vp, vp, vp, vp, vp, cll, ci, ci, vp,
     ]
     lib.pmfm_fused_evolve.restype = ci
     lib.pmfm_synth_fold.argtypes = [vp, ci, SynthParams, vp, vp, vp, vp, ci, ci, vp]

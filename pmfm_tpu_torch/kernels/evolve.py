@@ -6,7 +6,11 @@ Replaces ``pmfm_tpu/kernels/evolve.py::fused_evolve`` (``_evolve_kernel``,
 host that enqueues, for each generation, B2's own kernels and then one
 selection kernel (``select_kernel``, one block) on the stream, with no
 synchronisation between generations; the file's note says what bounds it
-and how the selection works. ``fused_evolve_plain`` is its plain PyTorch
+and how the selection works. In int8 and bf16 its generations run B2's
+kernel in the layout B2's wrapper takes at the same arguments
+(``generation.takes_time_parallel``: ``time_parallel`` with B5's population
+and runs; the one-warp kernel or the time-parallel one, bit-equal to each
+other). ``fused_evolve_plain`` is its plain PyTorch
 version: a loop of B2 (``fused_generation_plain``) with a stable (fitness,
 index) selection.
 
@@ -42,8 +46,10 @@ from ..ops.wavetable import DEFAULT_SAMPLE_RATE, DEFAULT_WAVETABLE_SIZE
 from .generation import (
     _check_b2,
     fused_generation_plain,
+    layout_key,
     mutate_params_struct,
     seeds_tensor,
+    takes_time_parallel,
 )
 from .synth_fitness import (
     DEFAULT_POP_BLOCK,
@@ -168,9 +174,13 @@ def fused_evolve(
     the reference's interface and changes nothing. On CUDA tensors this is
     one call of the B5 launcher, which enqueues every generation's kernels
     (counted once in ``fused_evolve.launches``, by mode in
-    ``fused_evolve.launches_by[launch_mode(...)]`` and, true f32, by route and
-    synthesis layout in ``fused_evolve.launches_by_f32``, B2's
-    ``synth_fitness.f32_launch``); on CPU tensors it runs the plain version.
+    ``fused_evolve.launches_by[launch_mode(...)]``; int8 and bf16, by B2's
+    layout in ``fused_evolve.launches_by_layout`` (``layout_key`` of
+    ``takes_time_parallel``'s pick, B2's wrapper's at the same arguments);
+    true f32, by route and synthesis layout in
+    ``fused_evolve.launches_by_f32``, B2's ``synth_fitness.f32_launch``); a
+    time-parallel layout the kernel refuses raises. On CPU tensors it runs
+    the plain version.
     """
     kw = dict(
         pop=pop, param_mins=param_mins, param_maxs=param_maxs, dft_packed=dft_packed,
@@ -239,22 +249,26 @@ def fused_evolve(
     lscratch = long_scratch(sp, topology, long_rows(pop, nruns), dev)  # noqa: F841 (kept)
     if f32:
         f32_keys = f32_launch(sp, topology, pop, nruns, dev)
+    tp = takes_time_parallel(pv, **kw)
     err = library().pmfm_fused_evolve(
         seeds_h, None if seeds_d is None else seeds_d.data_ptr(), gens, pop, nruns, sp, mp,
         dft_packed.data_ptr(), target_spectrum.data_ptr(), pv.data_ptr(), ps.data_ptr(),
         pf.data_ptr(), bv.data_ptr(), bf.data_ptr(), traj.data_ptr(), fit_s.data_ptr(),
         val_s.data_ptr(), step_s.data_ptr(), scratch.data_ptr(), scratch.numel(),
-        EVOLVE_MODES[mode], torch.cuda.current_stream(dev).cuda_stream,
+        EVOLVE_MODES[mode], int(tp), torch.cuda.current_stream(dev).cuda_stream,
     )
-    check(err, "fused_evolve")
+    check(err, "fused_evolve" + (" (time-parallel layout)" if tp else ""))
     fused_evolve.launches += 1
     fused_evolve.launches_by[
         launch_mode(topology, dft_scale, num_frames, runs, dft_packed.dtype)] += 1
     if f32:
         fused_evolve.launches_by_f32.update(f32_keys)
+    else:
+        fused_evolve.launches_by_layout[layout_key(mode, tp)] += 1
     return pv, ps, pf, bv, (bf[0] if runs is None else bf), traj
 
 
 fused_evolve.launches = 0
 fused_evolve.launches_by = collections.Counter()
+fused_evolve.launches_by_layout = collections.Counter()
 fused_evolve.launches_by_f32 = collections.Counter()

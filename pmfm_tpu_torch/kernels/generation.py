@@ -198,6 +198,19 @@ def layout_key(mode: str, tp: bool) -> str:
     return ("bf16_" if mode == "bf16" else "") + ("time_parallel" if tp else "one_warp")
 
 
+def takes_time_parallel(parent_values: torch.Tensor, *, dft_packed: torch.Tensor,
+                        dft_scale: float, pop: int, topology: str = "fm3_series", n: int = 1024,
+                        num_frames: int = 1, **_) -> bool:
+    """Whether a B2 or B5 call with these arguments (the wrappers' own:
+    parents ``(mu, D)`` or ``(B, mu, D)`` and their keyword arguments) runs
+    B2's kernel in the time-parallel layout on the card: ``time_parallel``
+    at the operand's mode and bins, the parents' genes, ``pop`` and the
+    runs. False in true f32, whose layouts ``f32_launch`` names."""
+    mode = operand_mode(dft_packed.dtype, dft_scale)
+    return time_parallel(n, dft_packed.shape[0] // 2, parent_values.shape[-1], topology, mode,
+                         num_frames, pop, runs_of(parent_values) or 1)
+
+
 def _mulhilo(m: int, x: torch.Tensor):
     """(hi, lo) 32-bit words of ``m * x`` for a 32-bit constant ``m`` and
     32-bit values ``x`` held in int64, by 16-bit limbs (no int64 overflow)."""
@@ -458,7 +471,7 @@ def fused_generation(
     ``fused_generation.launches``, by mode in
     ``fused_generation.launches_by[launch_mode(...)]`` and, int8 and bf16,
     by layout in ``fused_generation.launches_by_layout`` (``layout_key`` of
-    ``time_parallel``'s pick); true f32, by
+    ``takes_time_parallel``'s pick); true f32, by
     route and synthesis layout in ``fused_generation.launches_by_f32``,
     ``synth_fitness.f32_launch``); on CPU tensors
     it runs the plain version whatever the layout, and alone accepts
@@ -506,7 +519,7 @@ def fused_generation(
             target_spectrum.data_ptr(), fitness.data_ptr(), values.data_ptr(), steps.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     mode = operand_mode(dft_packed.dtype, dft_scale)
-    tp = time_parallel(n, k, d, topology, mode, num_frames, pop, nruns)
+    tp = takes_time_parallel(pv, **kw)
     if mode == "f32":
         f32_keys = f32_launch(sp, topology, pop, nruns, dev)
         scratch = alloc_scratch(f32_scratch_floats(pop, n, num_frames, nruns), dev,

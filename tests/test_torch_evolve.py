@@ -30,6 +30,7 @@ from pmfm_tpu_torch.kernels import evolve as tev
 from pmfm_tpu_torch.kernels import generation as tgen
 from pmfm_tpu_torch.kernels import synth_fitness as tsf
 from pmfm_tpu_torch.ops import synthesize_single, target_spectrum
+from pmfm_tpu_torch.ops.synthesis import topology_dims
 
 N, POP, MU, D = 256, 64, 8, 4
 MAXS = (3520.0, 8.0, 3520.0, 1.0)
@@ -353,3 +354,108 @@ def test_select_geometry(pop, mu, in_shared, smem_bytes):
     geo = tev.select_geometry(pop, mu)
     assert geo == dict(keys_in_shared=in_shared, smem_bytes=smem_bytes)
     assert (geo["smem_bytes"] <= tsf.MAX_SHARED_BYTES) is (mu < 16600)
+
+
+# ---- B5's layout in int8 and bf16: B2's wrapper's at the same arguments ------------
+
+B5_LAYOUT_SHAPES = [  # (mode, topology, n, frames, runs, pop, key): None = tp_faster's say
+    pytest.param("int8", "fm3_series", 1024, 1, None, 1 << 15, "one_warp", id="bench-int8"),
+    pytest.param("int8", "fm3_parallel", 1024, 1, None, 8192, "time_parallel",
+                 id="bank-polish-P8192"),
+    pytest.param("int8", "fm3_series", 2048, 8, None, 4096, "time_parallel", id="stft-F8"),
+    pytest.param("int8", "fm3_series", 2048, 1, 8, 4096, "time_parallel", id="runs-8xP4096"),
+    pytest.param("bf16", "fm3_series", 1024, 1, None, 1 << 15, "bf16_time_parallel",
+                 id="bench-bf16"),
+    # the long code (above 32 genes) and a wide code: the one-warp layout only
+    pytest.param("int8", "fm9_parallel", 1024, 1, None, 8192, "one_warp", id="long-int8"),
+    pytest.param("bf16", "fm9_parallel", 1024, 1, None, 8192, "bf16_one_warp", id="long-bf16"),
+    pytest.param("int8", "fm10_series", 1024, 1, None, 4096, "one_warp", id="wide-int8"),
+    pytest.param("bf16", "fm10_series", 1024, 8, None, 1024, "bf16_one_warp", id="wide-bf16"),
+    # a frame whose time-parallel block exceeds one block's shared memory
+    pytest.param("int8", "fm3_series", 3584, 1, None, 4096, "one_warp", id="n3584-int8"),
+    pytest.param("bf16", "fm3_series", 3584, 1, None, 4096, "bf16_one_warp", id="n3584-bf16"),
+    # n 768 in bf16 (six warps a block): as tp_faster says
+    pytest.param("bf16", "fm3_series", 768, 1, None, 1 << 11, None, id="n768-P2048"),
+    pytest.param("bf16", "fm3_series", 768, 1, None, 1 << 15, None, id="n768-P32768"),
+    pytest.param("bf16", "fm3_parallel", 768, 2, 4, 1 << 13, None, id="n768-bank-4x8192-F2"),
+]
+
+
+def _layout_call(mode, topology, n, frames, runs, pop):
+    """Parents and the keyword arguments of a B2 or B5 call at the shape,
+    with an operand of the mode's dtype and (2 K, n / 2) shape, the two
+    things of it the layout reads."""
+    d = topology_dims(topology)
+    lead = () if runs is None else (runs,)
+    pv = torch.zeros((*lead, 16, d))
+    operand = torch.empty((n, n // 2), dtype=torch.int8 if mode == "int8" else torch.bfloat16)
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=(1.0,) * d, dft_packed=operand,
+              dft_scale=1.0 if mode == "int8" else 0.0, topology=topology, n=n,
+              pop_block=pop, num_frames=frames, sine_order=9)
+    return pv, kw
+
+
+@pytest.mark.parametrize("mode,topology,n,frames,runs,pop,key", B5_LAYOUT_SHAPES)
+def test_b5_layout_is_b2s(mode, topology, n, frames, runs, pop, key):
+    """The layout B5's generations run in on the card (``fused_evolve``
+    passes ``generation.takes_time_parallel`` of its own arguments to the
+    C loop and counts the call under its ``layout_key``) at each named
+    shape: the time-parallel layout where B2's rule picks it (the pursuit's
+    polish bank, --mode stft's eight frames, the run axis, bf16 at the bench
+    config), the one-warp one where the rule keeps it (int8 at the bench
+    config) and wherever no time-parallel kernel takes the shape (the long
+    and wide codes, n 3584); at n 768 in bf16 what ``tp_faster`` says. The
+    choice is ``fused_generation``'s at the same arguments."""
+    d, k = topology_dims(topology), n // 2
+    if key is None:
+        key = tgen.layout_key(mode, tgen.tp_faster(n, topology, pop, runs or 1, mode))
+    pv, kw = _layout_call(mode, topology, n, frames, runs, pop)
+    b5 = tgen.layout_key(mode, tev.takes_time_parallel(pv, **kw, gens_per_step=1))
+    b2 = tgen.layout_key(mode, tgen.time_parallel(n, k, d, topology, mode, frames, pop,
+                                                  runs or 1))
+    assert tev.takes_time_parallel is tgen.takes_time_parallel
+    assert b5 == b2 == key
+
+
+@pytest.mark.parametrize("switch", [False, True])
+def test_b5_layout_follows_tp_faster(monkeypatch, switch):
+    """B5's layout follows ``generation.tp_faster`` as it stands at the call
+    (what the card checks patch to hold B5's layouts against each other),
+    where a time-parallel kernel takes the shape, in int8 and bf16; the
+    long code stays one-warp whatever the rule says."""
+    monkeypatch.setattr(tgen, "tp_faster", lambda *a, **k: switch)
+    for mode in ("int8", "bf16"):
+        for topology in ("fm2", "fm5_series", "fm8_series", "fm2_parallel", "fm5_parallel"):
+            pv, kw = _layout_call(mode, topology, 1024, 1, None, 4096)
+            assert tev.takes_time_parallel(pv, **kw) is switch
+        pv, kw = _layout_call(mode, "fm9_parallel", 1024, 1, None, 4096)
+        assert tev.takes_time_parallel(pv, **kw) is False
+
+
+def test_b5_layout_f32_is_no_b2_layout():
+    """True f32 names no B2 layout (its route and synthesis layout are
+    ``f32_launch``'s), so B5 passes the one-warp code to the C loop."""
+    pv = torch.zeros((16, 6))
+    kw = dict(pop=4096, dft_packed=torch.empty((1024, 512)), dft_scale=0.0, n=1024)
+    assert tev.takes_time_parallel(pv, **kw) is False
+
+
+@pytest.mark.parametrize("switch", [False, True])
+def test_b5_wrapper_plain_on_cpu_whatever_the_layout(setup, monkeypatch, switch):
+    """On CPU tensors B5 runs its plain version whichever layout it would
+    take on the card, and counts no launch, by mode or by layout."""
+    so, tgt = setup
+    monkeypatch.setattr(tgen, "tp_faster", lambda *a, **k: switch)
+    rng = np.random.default_rng(21)
+    pv = torch.from_numpy(rng.random((MU, D)).astype(np.float32))
+    ps = torch.from_numpy(rng.uniform(0.02, 0.3, (MU, D)).astype(np.float32))
+    kw = dict(pop=POP, param_mins=(0.0,) * D, param_maxs=MAXS, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology="fm2", n=N, sine_order=9)
+    assert tev.takes_time_parallel(pv, **kw) is switch
+    seeds = [kernel_seed(5, g) for g in range(3)]
+    args = (pv, ps, pv[0].clone(), torch.tensor(float("inf")), tgt)
+    counts = (tev.fused_evolve.launches, dict(tev.fused_evolve.launches_by_layout))
+    out = tev.fused_evolve(seeds, *args, **kw)
+    assert (tev.fused_evolve.launches, dict(tev.fused_evolve.launches_by_layout)) == counts
+    want = tev.fused_evolve_plain(seeds, *args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))

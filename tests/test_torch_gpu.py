@@ -1173,9 +1173,9 @@ def test_b2_time_parallel_layout_bit_equal_to_one_warp(cuda, monkeypatch, topolo
 
 @pytest.mark.parametrize("topology", ["fm3_series", "fm3_parallel"])
 def test_b5_bit_equal_to_time_parallel_b2_launches_at_8_frames(cuda, monkeypatch, topology):
-    """B5 at 8 frames (the one-warp kernel) equals G launches of B2 in the
-    time-parallel layout + the stable selection, at --mode stft's shape
-    (P 4096, n 2048)."""
+    """B5 at 8 frames (in the layout B2's wrapper takes there: the
+    time-parallel one) equals G launches of B2 in the time-parallel layout +
+    the stable selection, at --mode stft's shape (P 4096, n 2048)."""
     from pmfm_tpu_torch.kernels import evolve as ev
 
     pop, mu, d, frames = 4096, 64, topology_dims(topology), 8
@@ -1202,8 +1202,9 @@ def test_b5_bit_equal_to_time_parallel_b2_launches_at_8_frames(cuda, monkeypatch
 
 @pytest.mark.parametrize("topology", ["fm3_parallel", "fm5_parallel"])
 def test_b5_bit_equal_to_time_parallel_b2_launches(cuda, monkeypatch, topology):
-    """B5 keeps the one-warp kernel; G generations in one call equal G
-    launches of B2 in the time-parallel layout + the stable selection."""
+    """B5 in the layout B2's wrapper takes (time-parallel at the polish
+    population); G generations in one call equal G launches of B2 in the
+    time-parallel layout + the stable selection."""
     from pmfm_tpu_torch.kernels import evolve as ev
 
     pop, mu, d = 8192, 64, topology_dims(topology)
@@ -1579,9 +1580,9 @@ def test_bf16_b2_time_parallel_fitness_is_b1_time_parallel_on_its_offspring(
 @pytest.mark.parametrize("topology,frames,runs", [("fm3_series", 1, None), ("fm3_parallel", 1, None),
                                                   ("fm3_series", 8, None), ("fm3_series", 1, 4)])
 def test_b5_bf16_bit_equal_to_time_parallel_b2_launches(cuda, monkeypatch, topology, frames, runs):
-    """B5 bf16 keeps the one-warp kernel; G generations in one call equal G
-    launches of B2 bf16 in the time-parallel layout + the stable selection
-    (n 1024, P 8192; F 8; a run axis of 4)."""
+    """B5 bf16 in the layout B2's wrapper takes; G generations in one call
+    equal G launches of B2 bf16 in the time-parallel layout + the stable
+    selection (n 1024, P 8192; F 8; a run axis of 4)."""
     from pmfm_tpu_torch.kernels import evolve as ev
 
     pop, d, nruns = 8192, topology_dims(topology), runs or 1
@@ -1601,3 +1602,93 @@ def test_b5_bf16_bit_equal_to_time_parallel_b2_launches(cuda, monkeypatch, topol
     loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
     assert dict(gn.fused_generation.launches_by_layout) == {"bf16_time_parallel": g * nruns}
     assert all(_bits_equal(a, b) for a, b in zip(out, loop))
+
+
+# ---- B5 int8 and bf16 on B2's layouts ---------------------------------------------
+
+B5_TP_CODES = ["fm2"] + [f"fm{k}_series" for k in range(3, 9)] + BANKS
+# (mode, topology, n, frames, runs, sine order): every fixed chain and bank
+# in int8 and bf16 at F 1/2/8, the runs (1/2/8) and sine orders (5/7/9) and
+# n (1024/2048) in turn; in bf16 also every code at n 768 (six warps a block)
+B5_LAYOUT_CASES = (
+    [(m, t, (1024, 2048)[(i + f) % 2], frames, (1, 2, 8)[(i + f) % 3], (5, 7, 9)[(i + 2 * f) % 3])
+     for m in ("int8", "bf16") for i, t in enumerate(B5_TP_CODES)
+     for f, frames in enumerate((1, 2, 8))]
+    + [("bf16", t, 768, frames, (1, 2)[(i + f) % 2], (5, 7, 9)[(i + f) % 3])
+       for i, t in enumerate(B5_TP_CODES) for f, frames in enumerate((1, 8))])
+
+
+def _b5_inputs(cuda, mode, topology, n, frames, runs, pop, seed):
+    """B5's operands at the shape: parents, best-ever, targets and G seeds a
+    run, with the keyword arguments of its call."""
+    from pmfm_tpu_torch.ops import spectral
+
+    d, mu = topology_dims(topology), 64
+    maxs = _tp_maxs(topology)
+    so = spectral.make_spectrum_ops(n, None, dft_dtype="int8" if mode == "int8" else "bfloat16",
+                                    device=cuda)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    lead = () if runs == 1 else (runs,)
+    pv, ps = t(rng.random((*lead, mu, d))), t(rng.uniform(0.02, 0.3, (*lead, mu, d)))
+    tgt = t(rng.uniform(0, 50, (*lead, frames, so.num_bins) if frames > 1
+                        else (*lead, so.num_bins)))
+    kw = dict(pop=pop, param_mins=(0.0,) * d, param_maxs=maxs, dft_packed=so.dft_packed,
+              dft_scale=so.dft_packed_scale, topology=topology, n=n, pop_block=pop,
+              num_frames=frames)
+    args = (pv, ps, pv[..., 0, :].clone(), torch.full(lead, float("inf"), device=cuda), tgt)
+    return args, kw
+
+
+@pytest.mark.parametrize("mode,topology,n,frames,runs,sine_order", B5_LAYOUT_CASES)
+def test_b5_layouts_bit_equal(cuda, monkeypatch, mode, topology, n, frames, runs, sine_order):
+    """B5 int8 and bf16 in the layout B2's wrapper takes at its arguments,
+    forced time-parallel and forced one-warp: parents, their fitness,
+    best-ever and trajectory bit-equal to each other and to G launches of B2
+    (in its wrapper's layout) with the stable selection; each B5 call
+    counted once in ``launches_by_layout`` under the layout it took, the
+    first under ``takes_time_parallel``'s pick."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    g, pop = 4, 1000 if runs == 1 else 129
+    args, kw = _b5_inputs(cuda, mode, topology, n, frames, runs, pop,
+                          pop + sine_order + 10 * frames + n)
+    kw["sine_order"] = sine_order
+    seeds = ([kernel_seed(41, i) for i in range(g)] if runs == 1
+             else [[kernel_seed(41 + r, i) for i in range(g)] for r in range(runs)])
+    outs = {}
+    for forced in (None, True, False):  # the wrapper's rule first, then each layout forced
+        if forced is not None:
+            _tp_layout(monkeypatch, forced)
+        tp = gn.takes_time_parallel(args[0], **kw)
+        assert forced is None or tp is forced
+        ev.fused_evolve.launches_by_layout.clear()
+        outs[forced] = ev.fused_evolve(seeds, *args, **kw)
+        assert dict(ev.fused_evolve.launches_by_layout) == {gn.layout_key(mode, tp): 1}
+        if forced is None:
+            lone = gn.takes_time_parallel(args[0] if runs == 1 else args[0][0], **kw)
+            gn.fused_generation.launches_by_layout.clear()
+            loop = ev.fused_evolve_plain(seeds, *args, generation=gn.fused_generation, **kw)
+            assert dict(gn.fused_generation.launches_by_layout) == {
+                gn.layout_key(mode, lone): g * runs}
+    assert bool(torch.isfinite(outs[None][5]).all())
+    for out in (outs[True], outs[False], loop):
+        assert all(_bits_equal(a, b) for a, b in zip(outs[None], out))
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("topology,n", [("fm3_series", 3584), ("fm10_series", 1024)])
+def test_b5_time_parallel_refused_raises(cuda, monkeypatch, mode, topology, n):
+    """A time-parallel layout forced on B5 where no time-parallel kernel
+    takes the shape (a block past one block's shared memory at n 3584; a
+    wide code) raises and counts no launch: nothing falls back to the
+    one-warp kernel or the plain version."""
+    from pmfm_tpu_torch.kernels import evolve as ev
+
+    args, kw = _b5_inputs(cuda, mode, topology, n, 1, 1, 256, n)
+    monkeypatch.setattr(gn, "tp_takes", lambda *a, **k: True)
+    _tp_layout(monkeypatch, True)
+    before = ev.fused_evolve.launches, dict(ev.fused_evolve.launches_by_layout)
+    with pytest.raises(RuntimeError, match="time-parallel layout"):
+        ev.fused_evolve([kernel_seed(3, i) for i in range(2)], *args, **kw)
+    assert (ev.fused_evolve.launches, dict(ev.fused_evolve.launches_by_layout)) == before
